@@ -28,7 +28,22 @@ without printing a result):
    (median of CUDA-synchronised runs after warm-up) beside each kernel's
    bound: the larger of its bytes over 3.35 TB/s and its operations over
    the card's peak for their type;
-7. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+7. the streaming path: with every launch count at 0, ``FleetRuntime`` on
+   the default device streams the 2048 x 8760 scenario in K = 24 chunks
+   and 800 hours per tick (past the month start at hour 730), and the
+   128 x 8760 scenario in chunks for both ``renew_in_chunks``; it fails
+   unless ``tiered_cost_scan`` and ``fsm_chunk`` launched, unless the
+   2048-link stream equals the CPU ``plan_fleet`` bit for bit in
+   ``x``/``state``/``vpn_cost``/``cci_cost``, the per-tick hours equal the
+   chunked ones in every field, the 128-link streams equal the numpy
+   reference and the card's runtime equals the CPU's at 16 x 2000; then
+   it holds ``tiered_cost_scan`` (year as one chunk, f64 ``torch.equal``,
+   f32 ``rtol=atol=1e-6``) and four chained K = 24 chunks of the calendar
+   entry and ``fsm_chunk`` (every bit) against their plain versions, and
+   times the tick (p50/p95/p99), the chunk, each kernel (profiler device
+   time; at K = 24 they are launch-bound) and the host and device parts
+   of one step;
+8. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -129,7 +144,7 @@ def fsm_bound(N: int, T: int) -> dict:
     return bound(bytes_moved, ops, torch.float64)
 
 
-def print_breakdown(fn, reps: int) -> None:
+def print_breakdown(fn, reps: int, unit: str = "plan") -> None:
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler),
     and the share of the traced window the device was busy."""
     from torch.autograd import DeviceType
@@ -152,11 +167,302 @@ def print_breakdown(fn, reps: int) -> None:
     busy = sum(by_name.values())
     window = (max(e.time_range.end for e in events)
               - min(e.time_range.start for e in events))
-    print(f"    profiler: device busy {busy / reps / 1e3:.3f} ms per plan, "
+    print(f"    profiler: device busy {busy / reps / 1e3:.3f} ms per {unit}, "
           f"{busy / window:.3f} of the traced window (idle share "
           f"{1 - busy / window:.3f}, host-side profiler overhead included)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us / reps / 1e3:9.4f} ms  {us / busy:6.1%}  {name[:90]}")
+
+
+STREAM_K = 24          # hours per step_many chunk: one day
+STREAM_TICKS = 800     # per-tick step() hours: past the first month start (730)
+
+
+def stream(rt, demand, K: int, clock: list = None) -> dict:
+    """Stream a (rows, T) matrix through ``rt``: chunks of K, then a per-tick
+    ragged tail; outputs stacked to (rows, T). ``clock`` collects the host
+    seconds of each call (the stacking of the outputs is not in them)."""
+    T = demand.shape[1]
+    outs, t = [], 0
+    while t < T:
+        a = time.perf_counter()
+        if t + K <= T:
+            outs.append(rt.step_many(demand[:, t:t + K]))
+            t += K
+        else:
+            outs.append({k: v[:, None] for k, v in rt.step(demand[:, t]).items()})
+            t += 1
+        if clock is not None:
+            clock.append(time.perf_counter() - a)
+    return {k: np.concatenate([o[k] for o in outs], axis=1) for k in outs[0]}
+
+
+def kernel_device_ms(fn, reps: int, names) -> dict:
+    """Device milliseconds per call of each kernel whose name contains one of
+    ``names``, from torch.profiler over ``reps`` calls of ``fn`` (for kernels
+    whose launch costs the host more than the card spends running them, CUDA
+    events around a call measure the launch, not the kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    out[n] = out.get(n, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    missing = [n for n in names if n not in out]
+    check(not missing, f"profiler recorded no device time for {missing}")
+    return out
+
+
+def calendar_bound(N: int, K: int, Kt: int) -> dict:
+    # demand read and cost written (K, N); tier tables read; carry in and out.
+    bytes_moved = 8 * (2 * K * N + 2 * N * Kt + 4 * N)
+    # per hour: month sub, carry add, hi add; per tier: min, max, sub, compare, mul, add.
+    ops = K * N * (3 + 6 * Kt)
+    return bound(bytes_moved, ops, torch.float64)
+
+
+def fsm_chunk_bound(N: int, K: int) -> dict:
+    # vpn, cci, pre_v, pre_c read; r_vpn, r_cci, snap_v, snap_c written (f64);
+    # x, state written (int32); per-row parameters, carry and prefixes in and out.
+    bytes_moved = 8 * 8 * K * N + 4 * 2 * K * N + N * (8 * 2 + 4 * 5) + 2 * N * (4 * 4 + 8 * 2)
+    # per hour: 2 prefix adds, 2 window subs, 2 muls, 2 compares.
+    ops = K * N * 8
+    return bound(bytes_moved, ops, torch.float64)
+
+
+def pre_reads(pref: np.ndarray, t0: int, K: int, h: np.ndarray) -> np.ndarray:
+    """The runtime's host ring reads: the exclusive prefix at max(0, t0+k-h),
+    from an (hours + 1, N) prefix table."""
+    lo = np.maximum(0, t0 + np.arange(K)[:, None] - h[None, :])
+    return np.ascontiguousarray(np.take_along_axis(pref, lo, axis=0))
+
+
+def streaming_phase(scen, references, card: str) -> dict:
+    """The streaming runtime on the card: the main path with launches
+    counted, its checks against the offline planners, each new kernel
+    against its plain version, and timings. Returns the kernel rows."""
+    from repro_torch.fleet import FleetRuntime, plan_fleet
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fsm_scan import fsm_chunk
+    from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
+
+    N, T = SIZES[-1]
+    N128, T128 = SIZES[0]
+    sc = scen[N]
+    fields = ("x", "state", "r_vpn", "r_cci", "vpn_cost", "cci_cost", "cost")
+    t_phase = time.perf_counter()
+
+    # -- the main path: FleetRuntime on the default device, launches counted
+    ops.reset_launches()
+    rt = FleetRuntime(sc.fleet)
+    check(rt.device.type == DEVICE.type, "FleetRuntime did not default to the card")
+    chunk_clock = []
+    chunked = stream(rt, sc.demand, STREAM_K, chunk_clock)
+    chunk_s = sum(chunk_clock)
+    rt_tick = FleetRuntime(sc.fleet)
+    tick_us, ticks = [], []
+    t0 = time.perf_counter()
+    for t in range(STREAM_TICKS):
+        a = time.perf_counter()
+        ticks.append(rt_tick.step(sc.demand[:, t]))
+        tick_us.append((time.perf_counter() - a) * 1e6)
+    tick_s = time.perf_counter() - t0
+    small = {}
+    for renew in (False, True):
+        small[renew] = stream(FleetRuntime(scen[N128].fleet, renew_in_chunks=renew),
+                              scen[N128].demand, STREAM_K)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    print(f"streaming path launches: {launches}")
+    for name in ("tiered_cost_scan", "fsm_chunk"):
+        check(launches[name] >= 1, f"kernel {name} was not launched on the streaming path")
+
+    # -- checks ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    cpu = plan_fleet(sc.fleet, sc.demand, device="cpu")
+    for k, want in (("x", cpu["x"]), ("state", cpu["state"]),
+                    ("vpn_cost", cpu["vpn_hourly"]), ("cci_cost", cpu["cci_hourly"])):
+        check(chunked[k].shape == (N, T), f"stream {k} shape {chunked[k].shape}")
+        check(np.array_equal(chunked[k], want.numpy()),
+              f"{N} x {T} stream on the card: {k} != CPU plan_fleet")
+    print(f"stream {N} x {T} (K = {STREAM_K}) on the card == CPU plan_fleet bit for bit "
+          f"in x/state/vpn_cost/cci_cost ({time.perf_counter() - t0:.1f} s for the CPU plan); "
+          f"CCI share {chunked['x'].mean():.4f}")
+    for k in fields:
+        check(np.array_equal(np.stack([o[k] for o in ticks], 1), chunked[k][:, :STREAM_TICKS]),
+              f"per-tick step != chunked step_many in {k}")
+    print(f"per-tick step over hours 0..{STREAM_TICKS - 1} == chunked stream bit for bit "
+          f"(all {len(fields)} fields; crosses the month start at hour 730)")
+    for renew in (False, True):
+        want = references[renew]
+        got = small[renew]
+        check(np.array_equal(got["x"], want["x"]) and np.array_equal(got["state"], want["state"]),
+              f"{N128}-link stream (renew={renew}) != numpy plan_fleet_reference")
+        check(np.allclose(got["cost"].sum(1), want["toggle_cost"], rtol=1e-9, atol=0),
+              f"{N128}-link stream (renew={renew}): cost vs reference toggle cost")
+    print(f"stream {N128} x {T128}: x/state == numpy per-link reference for both "
+          f"renew_in_chunks; summed cost == its toggle cost (rtol 1e-9)")
+    small_sc = scen[SMALL[0]]
+    gpu = stream(FleetRuntime(small_sc.fleet), small_sc.demand, STREAM_K)
+    cpu_rt = FleetRuntime(small_sc.fleet, device="cpu").run(small_sc.demand)
+    for k in fields:
+        check(np.array_equal(gpu[k], cpu_rt[k]), f"runtime {SMALL}: {k} CUDA != CPU")
+    print(f"runtime {SMALL[0]} x {SMALL[1]}: CUDA (chunked) == CPU (per tick), every field")
+
+    # -- each new kernel against its plain version, same inputs ---------------
+    arrays = sc.fleet.stack(torch.float64, DEVICE)
+    hpm = sc.fleet.hours_per_month
+    tab = (arrays.tier_bounds, arrays.tier_rates)
+    Kt = tab[0].shape[1]
+    d = torch.minimum(torch.as_tensor(sc.demand, device=DEVICE), arrays.capacity[:, None])
+    reset = (torch.arange(T, device=DEVICE) % hpm == 0).to(torch.int32)
+    zero = torch.zeros(N, dtype=torch.float64, device=DEVICE)
+    got = tiered_cost_scan(zero, d, *tab, reset)
+    want = ref.tiered_cost_scan_ref(zero, d, *tab, reset)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"tiered_cost_scan f64 != plain at {N} x {T}")
+    f32 = [a.float().contiguous() for a in (zero, d, *tab)]
+    got32 = tiered_cost_scan(*f32, reset)
+    want32 = ref.tiered_cost_scan_ref(*f32, reset)
+    for g, w in zip(got32, want32):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+    err32 = max((g - w).abs().max().item() for g, w in zip(got32, want32))
+    print(f"tiered_cost_scan {N} x {T} (one chunk, resets at month starts): f64 == plain "
+          f"(bit for bit); f32 max abs err {err32:.3e}")
+
+    vpn_all, cci_all = cpu["vpn_hourly"].numpy(), cpu["cci_hourly"].numpy()
+    t_first, n_chunks = 696, 4                       # crosses the month start at 730
+    end = t_first + n_chunks * STREAM_K
+    pref_v = np.concatenate([np.zeros((1, N)), np.cumsum(vpn_all[:, :end].T, axis=0)])
+    pref_c = np.concatenate([np.zeros((1, N)), np.cumsum(cci_all[:, :end].T, axis=0)])
+    h_np = arrays.toggle.h.cpu().numpy()
+    tp = arrays.toggle
+    ones = torch.ones_like(tp.h)
+    rows = (tp.theta1, tp.theta2, tp.h, tp.D, tp.T_cci, ones, ones)
+    chunk_inputs = []
+    for c in range(n_chunks):
+        t0 = t_first + c * STREAM_K
+        sl = slice(t0, t0 + STREAM_K)
+        g = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=DEVICE)
+        chunk_inputs.append((t0, d[:, sl].T.contiguous(), g(vpn_all[:, sl].T),
+                             g(cci_all[:, sl].T), g(pre_reads(pref_v, t0, STREAM_K, h_np)),
+                             g(pre_reads(pref_c, t0, STREAM_K, h_np))))
+    carries = {}
+    for name, cal_fn, fsm_fn in (("kernel", tiered_cost_calendar, fsm_chunk),
+                                 ("plain", ref.tiered_cost_calendar_ref, ref.fsm_chunk_ref)):
+        cal = torch.zeros((2, N), dtype=torch.float64, device=DEVICE)
+        fsm = torch.zeros((4, N), dtype=torch.int32, device=DEVICE)
+        pref = torch.as_tensor(np.stack([pref_v[t_first], pref_c[t_first]]), device=DEVICE)
+        outs = []
+        for t0, dk, vk, ck, pv, pc in chunk_inputs:
+            costs, cal = cal_fn(cal, dk, *tab, t0, hpm)
+            o = fsm_fn(vk, ck, pv, pc, *rows, fsm, pref, t0)
+            fsm, pref = o["carry"], o["pref"]
+            outs.append({"costs": costs, "cal": cal, **o})
+        carries[name] = outs
+    chunk_err = 0.0
+    for a, b in zip(carries["kernel"], carries["plain"]):
+        for k in b:
+            check(torch.equal(a[k], b[k]), f"chunk kernels: {k} differs from the plain version")
+            chunk_err = max(chunk_err, (a[k].double() - b[k].double()).abs().max().item())
+    print(f"tiered_cost_calendar and fsm_chunk over {n_chunks} chained K = {STREAM_K} chunks "
+          f"from hour {t_first} at {N} links: every output bit == plain")
+
+    # -- timings ----------------------------------------------------------------
+    print(f"streaming timings on {card} (median ms; bound = max(bytes / 3.35 TB/s, ops / peak))")
+    tick = np.array(tick_us)
+    print(f"  per-tick step {N} links: p50 {np.percentile(tick, 50):.1f} us, p95 "
+          f"{np.percentile(tick, 95):.1f} us, p99 {np.percentile(tick, 99):.1f} us; "
+          f"{N * STREAM_TICKS / tick_s:.4g} link-steps/s over {STREAM_TICKS} hours")
+    chunk_ms = np.array(chunk_clock) * 1e3
+    print(f"  chunked step_many {N} x {T} (K = {STREAM_K}): p50 {np.percentile(chunk_ms, 50):.3f} "
+          f"ms, p95 {np.percentile(chunk_ms, 95):.3f} ms, mean {chunk_ms.mean():.3f} ms per "
+          f"chunk; {N * T / chunk_s:.4g} link-steps/s; {chunk_s:.3f} s in step_many for the "
+          f"year (output stacking not counted)")
+    t0k, dk, vk, ck, pv, pc = chunk_inputs[1]
+    cal0 = torch.zeros((2, N), dtype=torch.float64, device=DEVICE)
+    fsm0 = torch.zeros((4, N), dtype=torch.int32, device=DEVICE)
+    pref0 = torch.zeros((2, N), dtype=torch.float64, device=DEVICE)
+    b_cal, b_fsm = calendar_bound(N, STREAM_K, Kt), fsm_chunk_bound(N, STREAM_K)
+    b_scan = bound(8 * (2 * N * T + 2 * N * Kt + 2 * N) + 4 * T, N * T * (2 + 6 * Kt),
+                   torch.float64)
+    calendar_call = lambda: tiered_cost_calendar(cal0, dk, *tab, t0k, hpm)
+    chunk_call = lambda: fsm_chunk(vk, ck, pv, pc, *rows, fsm0, pref0, t0k)
+    dev_ms = kernel_device_ms(lambda: (calendar_call(), chunk_call()), 20,
+                              ("tiered_cost_scan_kernel", "fsm_chunk_kernel"))
+    print(f"  wrapper call, CUDA events around one call (host launch included): "
+          f"tiered_cost_calendar {event_ms(calendar_call, 50):.4f} ms, fsm_chunk "
+          f"{event_ms(chunk_call, 50):.4f} ms")
+    timing = {
+        "calendar": (dev_ms["tiered_cost_scan_kernel"],
+                     sync_ms(lambda: ref.tiered_cost_calendar_ref(cal0, dk, *tab, t0k, hpm), 10),
+                     b_cal),
+        "fsm_chunk": (dev_ms["fsm_chunk_kernel"],
+                      sync_ms(lambda: ref.fsm_chunk_ref(vk, ck, pv, pc, *rows, fsm0, pref0,
+                                                         t0k), 5),
+                      b_fsm),
+        "scan_year": (event_ms(lambda: tiered_cost_scan(zero, d, *tab, reset), 10),
+                      sync_ms(lambda: ref.tiered_cost_scan_ref(zero, d, *tab, reset), 1,
+                              warmup=0),
+                      b_scan),
+    }
+    labels = {"calendar": f"tiered_cost_scan (calendar) {N} x K={STREAM_K}, profiler device time",
+              "fsm_chunk": f"fsm_chunk {N} x K={STREAM_K}, profiler device time",
+              "scan_year": f"tiered_cost_scan (month-to-date) {N} x {T}, one chunk"}
+    for key, (ms, plain_ms, b) in timing.items():
+        print(f"  {labels[key]}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), {ms / b['bound_ms']:.1f}x bound"
+              + ("; launch-bound at this size" if key != "scan_year" else ""))
+
+    # -- one step, split: host gather + pack, H2D copy, device, D2H, commit ---
+    rt_b = FleetRuntime(sc.fleet)
+    stream(rt_b, sc.demand[:, :t_first], STREAM_K)
+    for K in (1, STREAM_K):
+        parts = {k: [] for k in ("pack", "h2d", "device", "d2h", "commit")}
+        blk = sc.demand[:, t_first:t_first + K]   # the data does not set the time
+        for c in range(24):
+            a = time.perf_counter()
+            block, K_, endo = rt_b._pack(blk, None)
+            b = time.perf_counter()
+            dev_block = torch.from_numpy(block).to(DEVICE)
+            torch.cuda.synchronize()
+            c_ = time.perf_counter()
+            host = rt_b._launch(dev_block, K_, endo)
+            torch.cuda.synchronize()
+            d_ = time.perf_counter()
+            host_np = host.cpu().numpy()
+            e = time.perf_counter()
+            rt_b._commit(host_np, K_)
+            f = time.perf_counter()
+            for k, v in zip(parts, (b - a, c_ - b, d_ - c_, e - d_, f - e)):
+                parts[k].append(v * 1e6)
+        print(f"  one step ({N} x K={K}), median us over 24 steps, host clock: "
+              + ", ".join(f"{k} {statistics.median(v):.1f}" for k, v in parts.items())
+              + f" (block {block.nbytes / 1e6:.3f} MB in, {host.numel() * 8 / 1e6:.3f} MB out; "
+              f"'device' is the launches and the wait for the card)")
+    print_breakdown(lambda: rt_b.step_many(blk), reps=6, unit="chunk")
+    print(f"streaming phase: {time.perf_counter() - t_phase:.1f} s")
+
+    rows_out = {
+        "tiered_cost_scan": {
+            "launches": launches["tiered_cost_scan"], "max_abs_err": max(err32, chunk_err),
+            "ms": timing["calendar"][0], "plain_ms": timing["calendar"][1],
+            **timing["calendar"][2]},
+        "fsm_chunk": {
+            "launches": launches["fsm_chunk"], "max_abs_err": chunk_err,
+            "ms": timing["fsm_chunk"][0], "plain_ms": timing["fsm_chunk"][1],
+            **timing["fsm_chunk"][2]},
+    }
+    return rows_out
 
 
 def fsm_args(arrays, vpn, cci):
@@ -225,8 +531,8 @@ def main() -> int:
     torch.cuda.synchronize()
     main_launches = dict(ops.LAUNCHES)
     print(f"main path launches: {main_launches}")
-    for name, n in main_launches.items():
-        check(n >= 1, f"kernel {name} was not launched on the main path")
+    for name in ("tiered_cost_batched", "fsm_scan"):
+        check(main_launches[name] >= 1, f"kernel {name} was not launched on the main path")
 
     for (N, renew), out in plans.items():
         T = dict(SIZES)[N]
@@ -247,10 +553,11 @@ def main() -> int:
     check(rel < 1e-3, "float32 tier path drifted from float64 by more than 1e-3")
 
     N128 = SIZES[0][0]
+    references = {}
     for renew in (False, True):
         t0 = time.perf_counter()
-        want = plan_fleet_reference(scen[N128].fleet, scen[N128].demand,
-                                    renew_in_chunks=renew)
+        want = references[renew] = plan_fleet_reference(
+            scen[N128].fleet, scen[N128].demand, renew_in_chunks=renew)
         got = plans[N128, renew]
         check(np.array_equal(got["x"].cpu().numpy(), want["x"]),
               f"128-link plan (renew={renew}): x differs from the numpy reference")
@@ -357,6 +664,8 @@ def main() -> int:
         print_breakdown(lambda: plan_fleet(arrays, demand), reps=3)
         timing[N] = row
 
+    stream_rows = streaming_phase(scen, references, card.splitlines()[0])
+
     N, T = SIZES[-1]
     rows = timing[N]
     kernels = [
@@ -374,6 +683,14 @@ def main() -> int:
          "max_abs_err": kernel_rows[N]["fsm_err"],
          "ms": rows["fsm_scan"][0], "plain_ms": rows["fsm_scan"][1],
          **rows["fsm_scan"][2], "library_ms": None},
+        {"name": "tiered_cost_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/tiered_cost_scan.cu",
+         "replaces": "src/repro/kernels/tiered_cost.py:168",
+         **stream_rows["tiered_cost_scan"], "library_ms": None},
+        {"name": "fsm_chunk", "route": "cuda",
+         "source": "src/repro_torch/csrc/fsm_scan.cu",
+         "replaces": "src/repro/fleet/runtime.py:577",
+         **stream_rows["fsm_chunk"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

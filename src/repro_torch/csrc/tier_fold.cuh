@@ -1,0 +1,46 @@
+// The tier fold of the paper's Eq. (2), shared by the tiered-pricing kernels
+// (tiered_cost.cu, tiered_cost_scan.cu).
+//
+//   cost = sum_k rate[k] * clip(min(lo + d, b_k) - max(lo, b_{k-1}), 0)
+//
+// A left fold from zero over the K tiers, each product rounded before it is
+// added (_rn intrinsics; the sources are also compiled with -fmad=false), with
+// the seg > 0 guard of the plain version's where(seg > 0, seg * rate, 0). In
+// float64 the result equals repro_torch.core.costmodel.tiered_marginal_cost_tables
+// bit for bit.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace tier {
+
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double min_(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
+
+// Cost of adding volume d to a month that already holds lo, against one
+// row's K (bound, rate) pairs (read through the read-only cache).
+template <typename F>
+__device__ __forceinline__ F fold(F lo, F d, const F* __restrict__ b,
+                                  const F* __restrict__ r, int K) {
+  const F hi = add_rn(lo, d);
+  F acc = F(0);
+  F prev = F(0);
+  for (int k = 0; k < K; ++k) {
+    const F bk = __ldg(b + k);
+    const F seg = sub_rn(min_(hi, bk), max_(lo, prev));
+    const F term = seg > F(0) ? mul_rn(seg, __ldg(r + k)) : F(0);
+    acc = add_rn(acc, term);
+    prev = bk;
+  }
+  return acc;
+}
+
+}  // namespace tier

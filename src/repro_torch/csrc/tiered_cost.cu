@@ -26,18 +26,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "tier_fold.cuh"
 
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double min_(double a, double b) { return fmin(a, b); }
-__device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
-__device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
+namespace {
 
 template <typename F>
 __global__ void tiered_cost_batched_kernel(const F* __restrict__ month_cum,
@@ -49,21 +40,7 @@ __global__ void tiered_cost_batched_kernel(const F* __restrict__ month_cum,
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int64_t n = i / T;
-  const F lo = month_cum[i];
-  const F hi = add_rn(lo, demand[i]);
-  const F* b = bounds + n * K;
-  const F* r = rates + n * K;
-  F acc = F(0);
-  F prev = F(0);
-  for (int k = 0; k < K; ++k) {
-    const F bk = __ldg(b + k);
-    const F seg = sub_rn(min_(hi, bk), max_(lo, prev));
-    // seg > 0 guard: the plain version's where(seg > 0, seg * rate, 0).
-    const F term = seg > F(0) ? mul_rn(seg, __ldg(r + k)) : F(0);
-    acc = add_rn(acc, term);
-    prev = bk;
-  }
-  out[i] = acc;
+  out[i] = tier::fold(month_cum[i], demand[i], bounds + n * K, rates + n * K, K);
 }
 
 template <typename F>

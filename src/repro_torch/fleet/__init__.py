@@ -3,12 +3,17 @@
 Port of the fleet-mode half of :mod:`repro.fleet`: specs
 (:mod:`~repro_torch.fleet.spec`), the reactive and hysteresis policies
 (:mod:`~repro_torch.fleet.policy`), the engine
-(:mod:`~repro_torch.fleet.engine`) and the scenario builder
-(:mod:`~repro_torch.fleet.scenario`). Quick start, on an NVIDIA GPU::
+(:mod:`~repro_torch.fleet.engine`), the scenario builder
+(:mod:`~repro_torch.fleet.scenario`) and the streaming runtime
+(:mod:`~repro_torch.fleet.runtime`, facade :mod:`~repro_torch.fleet.stream`).
+Quick start, on an NVIDIA GPU::
 
-    from repro_torch.fleet import build_fleet_scenario, plan_fleet
+    from repro_torch.fleet import FleetRuntime, build_fleet_scenario, plan_fleet
     sc = build_fleet_scenario(128, horizon=8760, seed=0)
     out = plan_fleet(sc.fleet, sc.demand)              # device="cuda"
+    rt = FleetRuntime(sc.fleet)                        # streams the same plan
+    day = rt.step_many(sc.demand[:, :24])              # 24 hours, one chunk
+    hour = rt.step(sc.demand[:, 24])                   # then one hour
 """
 from .engine import (  # noqa: F401
     RoutedSeries,
@@ -18,6 +23,7 @@ from .engine import (  # noqa: F401
 )
 from .policy import (  # noqa: F401
     POLICY_KINDS,
+    fsm_carry,
     HysteresisPolicy,
     ReactivePolicy,
     hysteresis_policy,
@@ -39,4 +45,11 @@ from .spec import (  # noqa: F401
     fleet_arrays_from_numpy,
     fleet_from_params,
     pad_tier_tables,
+)
+from .runtime import (  # noqa: F401
+    FleetRuntime,
+    ResolvedRuntime,
+    RuntimeConfig,
+    RuntimeState,
+    resolve_runtime_operands,
 )

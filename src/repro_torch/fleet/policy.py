@@ -15,7 +15,7 @@ forecast-gated policy needs the SSM forecaster, which is not ported yet;
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Union
+from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
@@ -63,6 +63,16 @@ class ReactivePolicy(NamedTuple):
 
     kind = "reactive"
 
+    def init_carry(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-row FSM carry at hour 0: ``(state, t_state)``, (N,) int32."""
+        z = torch.zeros_like(self.toggle.h)
+        return (z, z)
+
+    def holds(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(up_hold, down_hold)``: 1, which makes the hold rule reactive."""
+        one = torch.ones_like(self.toggle.h)
+        return (one, one)
+
 
 class HysteresisPolicy(NamedTuple):
     """Reactive thresholds debounced by consecutive-hour hold counts.
@@ -78,6 +88,15 @@ class HysteresisPolicy(NamedTuple):
 
     kind = "hysteresis"
 
+    def init_carry(self) -> Tuple[torch.Tensor, ...]:
+        """Per-row FSM carry at hour 0: ``(state, t_state, up, down)``, (N,)
+        int32 — the consecutive-hour counters ride beside the FSM."""
+        z = torch.zeros_like(self.toggle.h)
+        return (z, z, z, z)
+
+    def holds(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self.up_hold, self.down_hold)
+
 
 Policy = Union[ReactivePolicy, HysteresisPolicy]
 
@@ -92,17 +111,23 @@ def policy_scan(policy: Policy, vpn_hourly: torch.Tensor,
     (N, T) int32 and ``total_cost`` (N,) float64.
     """
     tp = policy.toggle
-    if isinstance(policy, HysteresisPolicy):
-        up, down = policy.up_hold, policy.down_hold
-    elif isinstance(policy, ReactivePolicy):
-        up = down = torch.ones_like(tp.h)
-    else:
+    if not isinstance(policy, (ReactivePolicy, HysteresisPolicy)):
         raise TypeError(f"policy_scan: unsupported policy {type(policy).__name__}")
+    up, down = policy.holds()
     return ops.fsm_scan(
         vpn_hourly.to(torch.float64), cci_hourly.to(torch.float64),
         tp.theta1, tp.theta2, tp.h, tp.D, tp.T_cci, up, down,
         renew_in_chunks=policy.renew_in_chunks,
     )
+
+
+def fsm_carry(policy: Policy) -> torch.Tensor:
+    """The (4, N) int32 carry the FSM kernels step: ``state``, ``t_state``,
+    ``up``, ``down``. A reactive policy's carry is ``(state, t_state)``; its
+    hold counters are carried as zeros and never gate (its holds are 1)."""
+    c = policy.init_carry()
+    z = torch.zeros_like(c[0])
+    return torch.stack(c + (z,) * (4 - len(c)))
 
 
 def reactive_policy(toggle: ToggleParams, *, renew_in_chunks: bool = False

@@ -1,0 +1,356 @@
+"""Streaming fleet runtime in PyTorch: the online half of the planner.
+
+Port of the fleet mode of :mod:`repro.fleet.runtime`. ``plan_fleet`` takes
+the whole (links × hours) demand matrix at once; ToggleCCI is an online
+algorithm, and a serving system only ever sees one hour at a time.
+:class:`FleetRuntime` advances every link one hour per :meth:`~FleetRuntime.step`,
+or K hours per :meth:`~FleetRuntime.step_many`, and its decisions equal the
+offline planner's bit for bit.
+
+The state is split as in the JAX package:
+
+* on the host, numpy float64: the billing prefixes ``dcum``/``dcum_month``,
+  the exclusive cost prefixes ``vpn_pref``/``cci_pref`` and the hour-major
+  ``(hbuf, M)`` rings of past prefix values the window sums read
+  (``r[t] = pref[t] − pref[max(0, t − h)]``, the offline formula, so no
+  add/subtract drift);
+* on the device: the FSM carry and the twins of the four prefixes that
+  the kernels carry from chunk to chunk.
+
+One chunk of K hours is one host-to-device copy of a packed block (the
+demand, hour-major, and the host's pre-chunk ring reads), the clip and the
+CCI plane in torch, two kernel launches — ``tiered_cost_calendar`` (the
+billing calendar and tier fold) and ``fsm_chunk`` (snapshots, window sums,
+FSM) — and one copy of the packed planes back. :meth:`~FleetRuntime.step` is
+:meth:`~FleetRuntime.step_many` with K = 1. On the CPU
+(``device="cpu"``) the kernels' plain versions run instead.
+
+Ported: fleet mode (one row per link), the reactive and hysteresis
+policies, endogenous CCI demand. Not ported yet, each raising
+``NotImplementedError``: topology mode and ``reroute`` (ROADMAP Queue 1,
+item 4), the forecast policy and ``StreamingForecaster`` (item 6),
+observability (item 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.planner import collective_mode
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
+
+from .policy import HysteresisPolicy, ReactivePolicy, fsm_carry, make_policy
+from .spec import FleetArrays, FleetSpec
+
+_TOPOLOGY = "topology mode (TopologySpec/TopologyArrays, routing=, reroute) is ROADMAP Queue 1, item 4"
+_FORECAST = "the forecast policy and StreamingForecaster are ROADMAP Queue 1, item 6"
+_OBS = "observability (obs=) is ROADMAP Queue 1, item 8"
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"not ported to repro_torch yet: {what}")
+
+
+class RuntimeState(NamedTuple):
+    """The explicit carry of the stream.
+
+    Host numpy float64 for everything sequential (so every add is the
+    offline ``np.cumsum``'s), device tensors for what the kernels carry.
+    In fleet mode rows are links: P == M.
+    """
+
+    t: int                  # the hour about to be served
+    fsm: torch.Tensor       # device (4, M) int32: state, t_state, up, down
+    dev_cal: torch.Tensor   # device (2, M) float64: dcum, dcum_month twins
+    dev_pref: torch.Tensor  # device (2, M) float64: vpn_pref, cci_pref twins
+    dcum: np.ndarray        # (P,) cumulative clipped billed demand
+    dcum_month: np.ndarray  # (P,) dcum at the current month's start
+    vpn_pref: np.ndarray    # (M,) exclusive prefix of hourly VPN cost
+    cci_pref: np.ndarray    # (M,) exclusive prefix of hourly CCI cost
+    ring_vpn: np.ndarray    # (hbuf, M) past vpn_pref values, slot = hour % hbuf
+    ring_cci: np.ndarray    # (hbuf, M)
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Frozen construction options of a :class:`FleetRuntime` (the fields of
+    :class:`repro.fleet.runtime.RuntimeConfig`). ``routing``, ``forecaster``
+    and ``obs`` belong to slices not ported yet and must stay unset."""
+
+    routing: object = None
+    policy: object = None
+    hours_per_month: int = 730
+    renew_in_chunks: bool = False
+    forecaster: object = None
+    obs: object = None
+
+    def validate(self) -> "RuntimeConfig":
+        if not (int(self.hours_per_month) >= 1):
+            raise ValueError(f"hours_per_month must be >= 1, got {self.hours_per_month}")
+        if self.routing is not None:
+            raise not_ported(_TOPOLOGY)
+        if self.forecaster is not None:
+            raise not_ported(_FORECAST)
+        if self.obs is not None and self.obs is not False:
+            raise not_ported(_OBS)
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedRuntime:
+    """The operands one stream steps with, resolved on one device."""
+
+    arrays: FleetArrays
+    policy: object
+    hours_per_month: int
+
+
+def resolve_runtime_operands(spec, config: RuntimeConfig,
+                             device: DeviceLike = None) -> ResolvedRuntime:
+    """Resolve ``(spec, config)`` into stepping operands on ``device``: a
+    :class:`FleetSpec` is stacked (its calendar and policy kind win over the
+    config's), :class:`FleetArrays` are moved."""
+    config = config.validate()
+    dev = resolve_device(device)
+    kind = "reactive"
+    hours_per_month = int(config.hours_per_month)
+    if isinstance(spec, FleetSpec):
+        hours_per_month = spec.hours_per_month
+        kind = spec.policy
+        arrays = spec.stack(torch.float64, dev)
+    elif isinstance(spec, FleetArrays):
+        arrays = spec.to(dev)
+    else:
+        raise not_ported(f"{_TOPOLOGY} (got {type(spec).__name__})")
+    policy = config.policy
+    if policy is None:
+        if kind == "forecast":
+            raise not_ported(_FORECAST)
+        policy = make_policy(kind, arrays.toggle, renew_in_chunks=config.renew_in_chunks)
+    elif isinstance(policy, (ReactivePolicy, HysteresisPolicy)):
+        policy = type(policy)(*(f.to(dev) if hasattr(f, "to") else f for f in policy))
+    else:
+        raise not_ported(f"{_FORECAST} (got {type(policy).__name__})")
+    return ResolvedRuntime(arrays=arrays, policy=policy, hours_per_month=hours_per_month)
+
+
+class FleetRuntime:
+    """Incremental fleet planner: ``step(demand_t)`` serves one hour of every
+    link, ``step_many(block)`` K hours.
+
+    The streaming twin of :func:`repro_torch.fleet.engine.plan_fleet`: the
+    same pricing, the same policies, one hour (or one chunk) per call. Any
+    mix of :meth:`step` and :meth:`step_many` calls over a demand stream
+    gives the decisions and costs of one offline ``plan_fleet`` on the CPU,
+    bit for bit (float64 throughout, sequential prefixes, no fused
+    multiply-add).
+
+    Args:
+      spec: a :class:`FleetSpec` or :class:`FleetArrays` (fleet mode).
+      policy: a reactive or hysteresis policy with per-link tensors; ``None``
+        builds the spec's kind.
+      hours_per_month: billing calendar; taken from the spec when a spec is
+        given (pass arrays to choose it).
+      renew_in_chunks: release only at multiples of ``T_cci``.
+      device: ``None`` runs on CUDA and raises without it; ``"cpu"`` runs
+        the kernels' plain versions.
+      routing, forecaster, obs: not ported yet (``NotImplementedError``).
+    """
+
+    def __init__(
+        self,
+        spec,
+        *,
+        routing=None,
+        policy=None,
+        hours_per_month: int = 730,
+        renew_in_chunks: bool = False,
+        forecaster=None,
+        obs=None,
+        device: DeviceLike = None,
+    ):
+        self.config = RuntimeConfig(
+            routing=routing, policy=policy, hours_per_month=hours_per_month,
+            renew_in_chunks=renew_in_chunks, forecaster=forecaster, obs=obs,
+        ).validate()
+        self.device = resolve_device(device)
+        r = resolve_runtime_operands(spec, self.config, self.device)
+        self.arrays = r.arrays
+        self.policy = r.policy
+        self.hours_per_month = r.hours_per_month
+        tog = self.arrays.toggle
+        self._h_np = tog.h.cpu().numpy().astype(np.int64)
+        self.hbuf = int(self._h_np.max()) + 1
+        self.n_rows = self.n_demand_rows = int(tog.h.shape[0])
+        self._rows_idx = np.arange(self.n_rows)
+        # Per-row operands of the chunk, on the device. The CCI lease is
+        # (L + V·1) before the volume term is added, as the JAX tick sums it.
+        self._lease_cci = self.arrays.L_cci + self.arrays.V_cci
+        self._fsm_rows = (tog.theta1, tog.theta2, tog.h, tog.D, tog.T_cci,
+                          *self.policy.holds())
+        self.reset()
+
+    @classmethod
+    def from_config(cls, spec, config: RuntimeConfig, *,
+                    device: DeviceLike = None) -> "FleetRuntime":
+        """The explicit twin of the keyword constructor."""
+        config = config.validate()
+        fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}
+        return cls(spec, device=device, **fields)
+
+    def reset(self) -> None:
+        """Rewind to hour 0 (fresh carries; operands and policy unchanged)."""
+        M, P = self.n_rows, self.n_demand_rows
+        z = lambda *s: np.zeros(s, np.float64)
+        dz = lambda: torch.zeros((2, M), dtype=torch.float64, device=self.device)
+        self._state = RuntimeState(
+            t=0, fsm=fsm_carry(self.policy), dev_cal=dz(), dev_pref=dz(),
+            dcum=z(P), dcum_month=z(P), vpn_pref=z(M), cci_pref=z(M),
+            ring_vpn=z(self.hbuf, M), ring_cci=z(self.hbuf, M),
+        )
+
+    @property
+    def t(self) -> int:
+        return int(self._state.t)
+
+    def step(self, demand_t, *, cci_demand_t=None) -> Dict[str, np.ndarray]:
+        """Advance one hour. ``demand_t``: (rows,) GB billed on the VPN path
+        this hour; ``cci_demand_t`` optionally prices the CCI counterfactual
+        on its own volume (endogenous demand). Returns this hour's (rows,)
+        ``x``, ``state``, ``r_vpn``, ``r_cci``, ``vpn_cost``, ``cci_cost``,
+        ``cost``; ``state`` is the FSM state that serves the hour (map it
+        with :meth:`modes`)."""
+        d = np.asarray(demand_t, np.float64)
+        if d.shape != (self.n_demand_rows,):
+            raise ValueError(f"demand_t must be ({self.n_demand_rows},), got {d.shape}")
+        c = None if cci_demand_t is None else np.asarray(cci_demand_t, np.float64)[:, None]
+        out = self.step_many(d[:, None], cci_demand_block=c)
+        return {k: v[:, 0] for k, v in out.items()}
+
+    def step_many(self, demand_block, *, cci_demand_block=None) -> Dict[str, np.ndarray]:
+        """Advance K hours in one chunk. ``demand_block`` is ``(rows, K)``,
+        the next K columns of the matrix :meth:`run` takes. Returns
+        :meth:`step`'s dict with ``(rows, K)`` arrays.
+
+        Contract: any chunking of a stream, interleaved freely with
+        :meth:`step`, gives the per-tick results bit for bit, in the
+        outputs and in the carried host prefixes.
+        """
+        block, K, endo = self._pack(demand_block, cci_demand_block)
+        host = self._launch(torch.from_numpy(block).to(self.device), K, endo)
+        return self._commit(host.cpu().numpy(), K)
+
+    def _pack(self, demand_block, cci_demand_block):
+        """The chunk's host-to-device block, flat float64: the demand (and the
+        CCI demand) hour-major (K, P), then the host's pre-chunk window reads
+        pre_v, pre_c (K, M), gathered from the rings (``src/repro/fleet/runtime.py:1061-1100``)."""
+        st = self._state
+        t, M, P = st.t, self.n_rows, self.n_demand_rows
+        d = np.asarray(demand_block, np.float64)
+        if d.ndim != 2 or d.shape[0] != P or d.shape[1] < 1:
+            raise ValueError(f"demand_block must be (rows, K) = ({P}, K >= 1), got {d.shape}")
+        K = d.shape[1]
+        endo = cci_demand_block is not None
+        nd = (2 if endo else 1) * K * P
+        block = np.empty(nd + 2 * K * M)
+        block[:K * P].reshape(K, P)[...] = d.T
+        if endo:
+            c = np.asarray(cci_demand_block, np.float64)
+            if c.shape != d.shape:
+                raise ValueError(f"cci_demand_block {c.shape} != demand_block {d.shape}")
+            block[K * P:nd].reshape(K, P)[...] = c.T
+        # Flat indices into the hour-major (hbuf, M) rings: slot*M + row. One
+        # per-row base ((t - h) % hbuf)*M + row, then each later hour a
+        # broadcast +M with a single wrap fixup. Hours k >= hbuf always read
+        # inside the chunk (h <= hbuf - 1), so only min(K, hbuf) are gathered.
+        Kw = min(K, self.hbuf)
+        flat = ((t - self._h_np) % self.hbuf) * M + self._rows_idx       # (M,)
+        flat = flat[None, :] + (np.arange(Kw) * M)[:, None]              # (Kw, M)
+        np.subtract(flat, self.hbuf * M, out=flat, where=flat >= self.hbuf * M)
+        if t < self.hbuf:   # early stream: hours before 0 clip to slot 0
+            flat = np.where((t + np.arange(Kw))[:, None] < self._h_np[None, :],
+                            self._rows_idx[None, :], flat)
+        np.take(st.ring_vpn.reshape(-1), flat, out=block[nd:nd + Kw * M].reshape(Kw, M))
+        np.take(st.ring_cci.reshape(-1), flat,
+                out=block[nd + K * M:nd + (K + Kw) * M].reshape(Kw, M))
+        if K > Kw:  # read from the chunk's own snapshots; any value does
+            block[nd + Kw * M:nd + K * M] = 0.0
+            block[nd + (K + Kw) * M:] = 0.0
+        return block, K, endo
+
+    def _launch(self, block: torch.Tensor, K: int, endo: bool) -> torch.Tensor:
+        """The chunk on the device: clip, calendar pricing kernel, the CCI
+        plane, FSM kernel. Returns one packed float64 (8K + 4, M) result:
+        vpn, cci, r_vpn, r_cci, snap_v, snap_c, x, state (K rows each), then
+        dcum, dcum_month, vpn_pref, cci_pref. Updates the device carries."""
+        st = self._state
+        a, M, P = self.arrays, self.n_rows, self.n_demand_rows
+        nd = (2 if endo else 1) * K * P
+        cap = a.capacity[None, :]
+        d_pair = torch.minimum(block[:K * P].view(K, P), cap)
+        d_cci = torch.minimum(block[K * P:nd].view(K, P), cap) if endo else d_pair
+        pre_v = block[nd:nd + K * M].view(K, M)
+        pre_c = block[nd + K * M:].view(K, M)
+        transfer, cal = ops.tiered_cost_calendar(
+            st.dev_cal, d_pair, a.tier_bounds, a.tier_rates, st.t, self.hours_per_month)
+        vpn = a.L_vpn[None, :] + transfer
+        # Product, then sum: two roundings, as on the CPU (never addcmul).
+        cci = self._lease_cci[None, :] + a.c_cci[None, :] * d_cci
+        out = ops.fsm_chunk(vpn, cci, pre_v, pre_c, *self._fsm_rows, st.fsm,
+                            st.dev_pref, st.t, renew_in_chunks=self.policy.renew_in_chunks)
+        self._state = st._replace(fsm=out["carry"], dev_cal=cal, dev_pref=out["pref"])
+        f64 = torch.float64
+        return torch.cat([vpn, cci, out["r_vpn"], out["r_cci"], out["snap_v"],
+                          out["snap_c"], out["x"].to(f64), out["state"].to(f64),
+                          cal, out["pref"]])
+
+    def _commit(self, host: np.ndarray, K: int) -> Dict[str, np.ndarray]:
+        """Adopt the chunk's results on the host: ring slots take the prefix
+        snapshots, the accumulators the device's carries (the same adds in
+        the same order, so adopting them is the replay)."""
+        st = self._state
+        t = st.t
+        planes = host[:8 * K].reshape(8, K, -1)
+        vpn_t, cci_t, r_vpn, r_cci, snap_v, snap_c = planes[:6]
+        x = planes[6].astype(np.int64)
+        state = planes[7].astype(np.int64)
+        w = min(K, self.hbuf)  # K > hbuf: earlier slots would be rewritten
+        slots = (t + np.arange(K - w, K)) % self.hbuf
+        st.ring_vpn[slots] = snap_v[K - w:]
+        st.ring_cci[slots] = snap_c[K - w:]
+        st.dcum[:], st.dcum_month[:], st.vpn_pref[:], st.cci_pref[:] = host[8 * K:]
+        self._state = st._replace(t=t + K)
+        return {
+            "x": x.T,                      # (rows, K) — run()'s stacked layout
+            "state": state.T,
+            "r_vpn": r_vpn.T,
+            "r_cci": r_cci.T,
+            "vpn_cost": vpn_t.T,
+            "cci_cost": cci_t.T,
+            "cost": np.where(x == 1, cci_t, vpn_t).T,
+        }
+
+    def run(self, demand, *, cci_demand=None) -> Dict[str, np.ndarray]:
+        """Stream a whole (rows, T) matrix hour by hour and stack the outputs
+        into the offline planner's (rows, T) layout."""
+        demand = np.asarray(demand)
+        outs = [
+            self.step(demand[:, t],
+                      cci_demand_t=None if cci_demand is None else cci_demand[:, t])
+            for t in range(demand.shape[1])
+        ]
+        return {k: np.stack([o[k] for o in outs], axis=1) for k in outs[0]}
+
+    def reroute(self, routing) -> None:
+        raise not_ported(_TOPOLOGY)
+
+    def modes(self, out, *, mode_fn: Optional[Callable[[int], str]] = None) -> list:
+        """Map one step's FSM states to per-link collective modes (fleet
+        mode: one mode per link). ``mode_fn`` maps a state code to a mode;
+        ``None`` uses :func:`repro_torch.core.planner.collective_mode`."""
+        mode_fn = collective_mode if mode_fn is None else mode_fn
+        return [mode_fn(int(s)) for s in np.asarray(out["state"])]

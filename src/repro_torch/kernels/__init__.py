@@ -8,7 +8,11 @@ Per-kernel contract (the three layers of :mod:`repro.kernels`):
                      to the plain version
 
 Kernels: ``tiered_cost_batched`` (the paper's Eq. 2 pricing over an (N, T)
-plane; replaces the Pallas kernel of the same name) and ``fsm_scan`` (the
-ToggleCCI scan over rows; replaces ``lax.scan`` in ``policy_scan``).
+plane; replaces the Pallas kernel of the same name), ``fsm_scan`` (the
+ToggleCCI scan over rows; replaces ``lax.scan`` in ``policy_scan``),
+``tiered_cost_scan`` (K-hour chunk pricing with a billing carry, entry
+points ``tiered_cost_scan`` and ``tiered_cost_calendar``; replaces the
+Pallas kernel of that name) and ``fsm_chunk`` (K hours of the FSM from a
+carry; replaces the ``lax.scan`` of the streaming runtime's chunk).
 """
 from . import ops, ref  # noqa: F401

@@ -25,7 +25,9 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("tiered_cost.cu", "fsm_scan.cu")
+SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu")
+#: Headers the sources include; part of the build hash.
+HEADERS = ("tier_fold.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # -fmad=false: no multiply is contracted into an add, on top of the explicit
@@ -40,7 +42,9 @@ NVCC_FLAGS = (
 #: Launch counts, one per kernel. Each wrapper adds one where it launches
 #: its kernel and nowhere else; a caller zeroes them to see which kernels a
 #: run went through.
-LAUNCHES: Dict[str, int] = {"tiered_cost_batched": 0, "fsm_scan": 0}
+LAUNCHES: Dict[str, int] = {
+    "tiered_cost_batched": 0, "fsm_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0,
+}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -67,7 +71,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -113,6 +117,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.fsm_scan_f64.argtypes = [p] * 9 + [i, i, i] + [p] * 4
     lib.fsm_scan_f64.restype = i
+    for name in ("tiered_cost_scan_f64", "tiered_cost_scan_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 5 + [i, i, i] + [p] * 3
+        fn.restype = i
+    lib.tiered_cost_calendar_f64.argtypes = [p] * 4 + [i] * 5 + [p] * 3
+    lib.tiered_cost_calendar_f64.restype = i
+    lib.fsm_chunk_f64.argtypes = [p] * 11 + [i] * 4 + [p] * 11
+    lib.fsm_chunk_f64.restype = i
 
 
 def load() -> ctypes.CDLL:

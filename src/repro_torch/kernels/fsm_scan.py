@@ -9,8 +9,13 @@ the reactive policy, larger holds the hysteresis policy), and writes ``x``,
 ``state`` and the row's toggle cost. Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.fsm_scan_ref`.
 
-This wrapper takes CUDA tensors only; :mod:`repro_torch.kernels.ops`
-dispatches CPU tensors to the plain version.
+:func:`fsm_chunk` launches the second kernel of that source, the streaming
+runtime's FSM: K hours from a carry, on hour-major (K, M) planes, replacing
+the ``lax.scan`` of the JAX runtime's chunked step. Its plain version is
+:func:`repro_torch.kernels.ref.fsm_chunk_ref`.
+
+These wrappers take CUDA tensors only; :mod:`repro_torch.kernels.ops`
+dispatches CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -63,3 +68,69 @@ def fsm_scan(
     _lib.check(status, "fsm_scan_f64")
     _lib.LAUNCHES["fsm_scan"] += 1
     return {"x": x, "state": state, "total_cost": total}
+
+
+def fsm_chunk(
+    vpn: torch.Tensor,        # (K, M) float64 hourly VPN cost, hour-major
+    cci: torch.Tensor,        # (K, M) float64 hourly CCI cost
+    pre_v: torch.Tensor,      # (K, M) float64 host ring reads, prefix at t0+k-h
+    pre_c: torch.Tensor,      # (K, M) float64
+    theta1: torch.Tensor,     # (M,) float64
+    theta2: torch.Tensor,     # (M,) float64
+    h: torch.Tensor,          # (M,) int32 window
+    D: torch.Tensor,          # (M,) int32
+    T_cci: torch.Tensor,      # (M,) int32
+    up_hold: torch.Tensor,    # (M,) int32 ≥ 1
+    down_hold: torch.Tensor,  # (M,) int32 ≥ 1
+    carry: torch.Tensor,      # (4, M) int32: state, t_state, up, down
+    pref: torch.Tensor,       # (2, M) float64: VPN and CCI exclusive prefixes
+    t0: int,
+    *,
+    renew_in_chunks: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """K hours of the FSM from a carry (CUDA): ``x``/``state`` (K, M) int32,
+    ``r_vpn``/``r_cci`` and the prefix snapshots ``snap_v``/``snap_c`` (K, M)
+    float64, and the ``carry``/``pref`` after the chunk. Plain version:
+    :func:`repro_torch.kernels.ref.fsm_chunk_ref`."""
+    K, M = vpn.shape
+    dev = vpn.device
+    planes = (vpn, cci, pre_v, pre_c)
+    rows = (theta1, theta2, h, D, T_cci, up_hold, down_hold)
+    want = (torch.float64,) * 2 + (torch.int32,) * 5
+    for a in planes:
+        if a.shape != (K, M) or a.dtype != torch.float64:
+            raise ValueError("fsm_chunk takes float64 (K, M) vpn/cci/pre planes")
+    for a, dt in zip(rows, want):
+        if a.shape != (M,) or a.dtype != dt:
+            raise ValueError(f"fsm_chunk row parameter: want ({M},) {dt}, got "
+                             f"{tuple(a.shape)} {a.dtype}")
+    if carry.shape != (4, M) or carry.dtype != torch.int32:
+        raise ValueError(f"fsm_chunk carry: want (4, {M}) int32")
+    if pref.shape != (2, M) or pref.dtype != torch.float64:
+        raise ValueError(f"fsm_chunk pref: want (2, {M}) float64")
+    if t0 < 0:
+        raise ValueError(f"fsm_chunk t0 {t0}")
+    for a in planes + rows + (carry, pref):
+        if not a.is_cuda or a.device != dev or not a.is_contiguous():
+            raise ValueError("fsm_chunk takes contiguous CUDA tensors on one device")
+    lib = _lib.load()
+    i32 = dict(dtype=torch.int32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    out = {
+        "x": torch.empty((K, M), **i32), "state": torch.empty((K, M), **i32),
+        "r_vpn": torch.empty((K, M), **f64), "r_cci": torch.empty((K, M), **f64),
+        "snap_v": torch.empty((K, M), **f64), "snap_c": torch.empty((K, M), **f64),
+        "carry": torch.empty((4, M), **i32), "pref": torch.empty((2, M), **f64),
+    }
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.fsm_chunk_f64(
+            *(a.data_ptr() for a in planes + rows),
+            int(bool(renew_in_chunks)), t0, K, M, carry.data_ptr(), pref.data_ptr(),
+            *(out[k].data_ptr() for k in ("x", "state", "r_vpn", "r_cci", "snap_v",
+                                          "snap_c", "carry", "pref")),
+            stream,
+        )
+    _lib.check(status, "fsm_chunk_f64")
+    _lib.LAUNCHES["fsm_chunk"] += 1
+    return out

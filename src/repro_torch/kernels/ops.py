@@ -18,8 +18,11 @@ from typing import Dict
 import torch
 
 from . import ref
+from .fsm_scan import fsm_chunk as _fsm_chunk_kernel
 from .fsm_scan import fsm_scan as _fsm_scan_kernel
 from .tiered_cost import tiered_cost_batched as _tiered_kernel
+from .tiered_cost_scan import tiered_cost_calendar as _calendar_kernel
+from .tiered_cost_scan import tiered_cost_scan as _scan_kernel
 from ._lib import LAUNCHES, reset_launches  # noqa: F401
 
 
@@ -46,3 +49,33 @@ def fsm_scan(vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold,
     if _route(vpn, "fsm_scan"):
         return _fsm_scan_kernel(*(a.contiguous() for a in args), renew_in_chunks=renew_in_chunks)
     return ref.fsm_scan_ref(*args, renew_in_chunks=renew_in_chunks)
+
+
+def tiered_cost_scan(cum0, demand, bounds, rates, reset):
+    """K-hour chunk pricing with a month-to-date carry (the TPU kernel's
+    contract): ``(costs (N, K), cum_out (N,))``, float64 or float32."""
+    args = (cum0, demand, bounds, rates, reset)
+    if _route(demand, "tiered_cost_scan"):
+        return _scan_kernel(*(a.contiguous() for a in args))
+    return ref.tiered_cost_scan_ref(*args)
+
+
+def tiered_cost_calendar(carry, demand, bounds, rates, t0: int, hours_per_month: int):
+    """K-hour chunk pricing on the billing calendar (hour-major (K, N)
+    demand, carry (2, N) = dcum, dcum_month): ``(costs (K, N), carry)``."""
+    args = (carry, demand, bounds, rates)
+    if _route(demand, "tiered_cost_calendar"):
+        return _calendar_kernel(*(a.contiguous() for a in args), t0, hours_per_month)
+    return ref.tiered_cost_calendar_ref(*args, t0, hours_per_month)
+
+
+def fsm_chunk(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down_hold,
+              carry, pref, t0: int, *, renew_in_chunks: bool = False
+              ) -> Dict[str, torch.Tensor]:
+    """K hours of the ToggleCCI FSM from a carry, on hour-major (K, M) planes."""
+    args = (vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down_hold,
+            carry, pref)
+    if _route(vpn, "fsm_chunk"):
+        return _fsm_chunk_kernel(*(a.contiguous() for a in args), t0,
+                                 renew_in_chunks=renew_in_chunks)
+    return ref.fsm_chunk_ref(*args, t0, renew_in_chunks=renew_in_chunks)

@@ -8,7 +8,7 @@ chip checks hold each kernel against its plain version on the card.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -67,3 +67,102 @@ def fsm_scan_ref(
     state = torch.stack(states, dim=1)
     served = torch.where(x == 1, cci.to(torch.float64), vpn.to(torch.float64))
     return {"x": x, "state": state, "total_cost": torch.cumsum(served, dim=1)[:, -1]}
+
+
+def tiered_cost_scan_ref(
+    cum0: torch.Tensor, demand: torch.Tensor, bounds: torch.Tensor,
+    rates: torch.Tensor, reset: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.tiered_cost_scan.tiered_cost_scan`:
+    the TPU kernel's contract (``tiered_cost.py:225-242``). Carry the
+    month-to-date volume through the K hour columns, zeroing it where
+    ``reset[k] != 0``, and price each hour at the carry; returns ``(costs
+    (N, K), cum_out (N,))`` in the inputs' float dtype. The carry is one add
+    per hour in order, then one tier fold over the (N, K) plane (elementwise,
+    so it rounds as a fold per hour would)."""
+    lo = torch.empty_like(demand)
+    cum = cum0
+    zero = torch.zeros((), dtype=cum0.dtype, device=cum0.device)
+    for k in range(demand.shape[1]):
+        cum = torch.where(reset[k] != 0, zero, cum)
+        lo[:, k] = cum
+        cum = cum + demand[:, k]
+    return tiered_marginal_cost_tables(lo, demand, bounds, rates), cum
+
+
+def tiered_cost_calendar_ref(
+    carry: torch.Tensor, demand: torch.Tensor, bounds: torch.Tensor,
+    rates: torch.Tensor, t0: int, hours_per_month: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.tiered_cost_scan.tiered_cost_calendar`:
+    the JAX runtime's billing calendar (``runtime.py:427-464``). ``carry``
+    (2, N) holds ``dcum`` and ``dcum_month``; at every month start
+    ``dcum_month`` takes ``dcum``, each hour is priced at ``dcum −
+    dcum_month`` (the offline ``monthly_cumsum`` formula) and ``dcum`` adds
+    the hour's volume. ``demand`` and the costs are hour-major (K, N)."""
+    dcum, month = carry[0], carry[1]
+    lo = torch.empty_like(demand)
+    for k in range(demand.shape[0]):
+        if (t0 + k) % hours_per_month == 0:
+            month = dcum
+        lo[k] = dcum - month
+        dcum = dcum + demand[k]
+    costs = tiered_marginal_cost_tables(lo.T, demand.T, bounds, rates).T
+    return costs.contiguous(), torch.stack([dcum, month])
+
+
+def fsm_chunk_ref(
+    vpn: torch.Tensor, cci: torch.Tensor, pre_v: torch.Tensor, pre_c: torch.Tensor,
+    theta1: torch.Tensor, theta2: torch.Tensor,
+    h: torch.Tensor, D: torch.Tensor, T_cci: torch.Tensor,
+    up_hold: torch.Tensor, down_hold: torch.Tensor,
+    carry: torch.Tensor, pref: torch.Tensor, t0: int,
+    *,
+    renew_in_chunks: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.fsm_scan.fsm_chunk`: K
+    hours of the FSM from a carry, on hour-major (K, M) planes.
+
+    The prefix snapshots first (``snap[k]`` is the prefix before hour
+    ``t0 + k``, added in order from ``pref``), then the window sums
+    ``snap[k] − pref[lo]`` with ``lo = max(0, t0 + k − h)`` read from the
+    snapshots when ``lo ≥ t0`` and from the host's ring reads ``pre_v``/
+    ``pre_c`` otherwise (``runtime.py:501-515``), then one
+    :func:`repro_torch.fleet.policy._fsm_cascade` step per hour with the
+    hold counters, as :func:`fsm_scan_ref` steps.
+    """
+    from repro_torch.fleet.policy import _fsm_cascade
+
+    K, M = vpn.shape
+    tp = ToggleParams(theta1, theta2, h, D, T_cci)
+    snap_v, snap_c = torch.empty_like(vpn), torch.empty_like(cci)
+    pv, pc = pref[0], pref[1]
+    for k in range(K):
+        snap_v[k], snap_c[k] = pv, pc
+        pv, pc = pv + vpn[k], pc + cci[k]
+    ks = torch.arange(K, device=vpn.device)
+    lo = torch.clamp(t0 + ks[:, None] - h[None, :].long(), min=0)   # (K, M)
+    in_chunk = lo >= t0
+    jj = torch.clamp(lo - t0, 0, K - 1)
+    r_vpn = snap_v - torch.where(in_chunk, snap_v.gather(0, jj), pre_v)
+    r_cci = snap_c - torch.where(in_chunk, snap_c.gather(0, jj), pre_c)
+    raw_req = r_cci < theta1[None, :] * r_vpn
+    raw_rel = r_cci > theta2[None, :] * r_vpn
+    state, t_state, up, down = carry
+    xs, states = [], []
+    for k in range(K):
+        up = torch.where(raw_req[k], up + 1, 0)
+        down = torch.where(raw_rel[k], down + 1, 0)
+        req = raw_req[k] & (up >= up_hold)
+        rel = raw_rel[k] & (down >= down_hold)
+        (state, t_state), (x_k, s_k) = _fsm_cascade(
+            tp, renew_in_chunks, (state, t_state), req, rel)
+        xs.append(x_k)
+        states.append(s_k)
+    i32 = torch.int32
+    return {
+        "x": torch.stack(xs).to(i32), "state": torch.stack(states).to(i32),
+        "r_vpn": r_vpn, "r_cci": r_cci, "snap_v": snap_v, "snap_c": snap_c,
+        "carry": torch.stack([state, t_state, up, down]).to(i32),
+        "pref": torch.stack([pv, pc]),
+    }

@@ -7,11 +7,13 @@ host as it is::
 
 Tests marked ``cuda`` need an NVIDIA GPU and skip on a host without one
 (the kernels are CUDA C++ and have no CPU mode). Tolerances: the float64
-tiered kernel and the FSM kernel keep the plain versions' order of
-operations and are held bit for bit (the FSM against the plain version on
-the CPU, whose cumsum is sequential); the float32 tiered kernel at
-``rtol=atol=1e-6``.
+tiered kernels, the FSM kernels and the streaming runtime keep the plain
+versions' order of operations and are held bit for bit (the FSM scan
+against the plain version on the CPU, whose cumsum is sequential); the
+float32 tiered kernels at ``rtol=atol=1e-6``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -23,12 +25,13 @@ from repro_torch.core.pricing import (
     flat_rate,
 )
 from repro_torch.core.togglecci import ToggleParams
-from repro_torch.fleet import build_fleet_scenario, plan_fleet
+from repro_torch.fleet import FleetRuntime, build_fleet_scenario, plan_fleet
 from repro_torch.fleet import policy as tpol
 from repro_torch.fleet.spec import pad_tier_tables
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.fsm_scan import fsm_scan
+from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan
 from repro_torch.kernels.tiered_cost import tiered_cost_batched
+from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
 
 CPU = torch.device("cpu")
 
@@ -87,6 +90,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     one = torch.ones(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         fsm_scan(_t(vpn), _t(cci), *(_t(tog[k]) for k in ToggleParams._fields), one, one)
+    with pytest.raises(ValueError, match="CUDA"):
+        tiered_cost_scan(cum[:, 0].contiguous(), d, b, r, torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tiered_cost_calendar(torch.zeros((2, 2), dtype=torch.float64),
+                             d.T.contiguous(), b, r, 0, 730)
+    rows = [_t(tog[k]) for k in ToggleParams._fields]
+    with pytest.raises(ValueError, match="CUDA"):
+        fsm_chunk(_t(vpn.T), _t(cci.T), _t(vpn.T), _t(cci.T), *rows, one, one,
+                  torch.zeros((4, 2), dtype=torch.int32),
+                  torch.zeros((2, 2), dtype=torch.float64), 0)
 
 
 @pytest.mark.cuda
@@ -139,10 +152,81 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     sc = build_fleet_scenario(16, horizon=2000, seed=0)
     ops.reset_launches()
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
-    assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1}
+    assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1,
+                            "tiered_cost_scan": 0, "fsm_chunk": 0}
     assert got["x"].is_cuda
     want = plan_fleet(sc.fleet, sc.demand, device="cpu")
     for k in ("x", "state"):
         assert torch.equal(got[k].cpu(), want[k]), k
     for k in ("toggle_cost", "vpn_hourly", "cci_hourly"):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_tiered_scan_kernel_matches_plain(cuda_device):
+    """Month-to-date form, a year as one chunk with resets at month starts."""
+    cum, d, b, r = _tiers(3, 64, 2000, np.float64)
+    reset = (np.arange(2000) % 730 == 0).astype(np.int32)
+    cum0 = np.linspace(0.0, 5e4, 64)
+    for dtype in (np.float64, np.float32):
+        args = [np.asarray(a, dtype) for a in (cum0, d, b, r)] + [reset]
+        before = ops.LAUNCHES["tiered_cost_scan"]
+        got = ops.tiered_cost_scan(*(_t(a, cuda_device) for a in args))
+        assert ops.LAUNCHES["tiered_cost_scan"] == before + 1
+        want = ref.tiered_cost_scan_ref(*(_t(a) for a in args))
+        for g, w in zip(got, want):
+            if dtype == np.float64:
+                assert torch.equal(g.cpu(), w)
+            else:
+                torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_chunk_kernels_match_plain(cuda_device):
+    """Calendar pricing and fsm_chunk over chained K = 24 chunks that cross
+    a month boundary: every output bit equal to the plain versions."""
+    cum, d, b, r = _tiers(4, 96, 240, np.float64)
+    vpn, cci, tog = _fsm_inputs(4, 96, 240)
+    hol = np.resize(np.array([1, 2, 3, 6], np.int32), 96)
+    rows = [tog[k] for k in ToggleParams._fields] + [hol, hol[::-1].copy()]
+    pres = np.random.default_rng(4).uniform(0, 100, (8, 2, 24, 96))  # ring reads
+    results = {}
+    for dev in (cuda_device, CPU):
+        carry = (torch.zeros((2, 96), dtype=torch.float64, device=dev),
+                 torch.zeros((4, 96), dtype=torch.int32, device=dev),
+                 torch.zeros((2, 96), dtype=torch.float64, device=dev))
+        outs = []
+        for c, t0 in enumerate(range(40, 232, 24)):   # month starts at 60, 120, 180
+            sl = slice(t0, t0 + 24)
+            costs, cal = ops.tiered_cost_calendar(
+                carry[0], _t(d[:, sl].T, dev), _t(b, dev), _t(r, dev), t0, 60)
+            out = ops.fsm_chunk(_t(vpn[:, sl].T, dev), _t(cci[:, sl].T, dev),
+                                _t(pres[c, 0], dev), _t(pres[c, 1], dev),
+                                *(_t(a, dev) for a in rows), carry[1], carry[2], t0,
+                                renew_in_chunks=True)
+            carry = (cal, out["carry"], out["pref"])
+            outs.append({"costs": costs, "cal": cal, **out})
+        results[dev.type] = outs
+    assert len(results["cuda"]) == 8
+    for g, w in zip(results["cuda"], results["cpu"]):
+        for k in w:
+            assert torch.equal(g[k].cpu(), w[k]), k
+
+
+@pytest.mark.cuda
+def test_runtime_gpu_matches_cpu(cuda_device):
+    """The streaming runtime on the card (chunked, then a per-tick tail)
+    against the CPU runtime streaming hour by hour, at 16 x 2000."""
+    sc = build_fleet_scenario(16, horizon=2000, seed=0)
+    for kind in ("reactive", "hysteresis"):
+        fleet = dataclasses.replace(sc.fleet, policy=kind)
+        ops.reset_launches()
+        rt = FleetRuntime(fleet, device=cuda_device)
+        outs = [rt.step_many(sc.demand[:, t:t + 24]) for t in range(0, 1992, 24)]
+        outs += [{k: v[:, None] for k, v in rt.step(sc.demand[:, t]).items()}
+                 for t in range(1992, 2000)]
+        got = {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}
+        assert ops.LAUNCHES["tiered_cost_scan"] == ops.LAUNCHES["fsm_chunk"] == 83 + 8
+        want = FleetRuntime(fleet, device="cpu").run(sc.demand)
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k

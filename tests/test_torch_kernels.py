@@ -86,3 +86,131 @@ def test_fsm_plain_matches_jax_policy_scan(kind, renew):
     np.testing.assert_array_equal(got["x"].numpy(), want["x"])
     np.testing.assert_array_equal(got["state"].numpy(), want["state"])
     np.testing.assert_allclose(got["total_cost"].numpy(), want["total_cost"], rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# Chunked pricing (tiered_cost_scan) and the chunked FSM (fsm_chunk)
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(K, dtype=np.float32):
+    """The inputs of tests/test_kernels.py::test_tiered_cost_scan_matches_ref
+    (same seed, shapes and billing-month boundary mid-chunk)."""
+    rng = np.random.default_rng(11)
+    N, Kt = 16, 4
+    cum0 = rng.uniform(0, 5e4, N)
+    d = rng.uniform(0, 200, (N, K))
+    b = np.sort(rng.uniform(1e3, 2e5, (N, Kt)), axis=1)
+    b[:, -1] = 1e30
+    rates = rng.uniform(0.01, 0.2, (N, Kt))
+    reset = np.zeros(K, np.int32)
+    reset[K // 2] = 1
+    cast = lambda a: np.asarray(a, dtype)
+    return cast(cum0), cast(d), cast(b), cast(rates), reset
+
+
+@pytest.mark.parametrize("K", [1, 7, 24])
+def test_tiered_scan_plain_f32_matches_pallas_interpret(K):
+    from repro.kernels.tiered_cost import tiered_cost_scan, tiered_cost_scan_ref
+
+    args = _scan_inputs(K)
+    jargs = [jnp.asarray(a) for a in args]
+    want, cum_want = tiered_cost_scan(*jargs, interpret=True)
+    got, cum_got = ops.tiered_cost_scan(*(_t(a) for a in args))
+    assert got.dtype == torch.float32 and got.shape == (16, K)
+    # The tolerances tests/test_kernels.py holds the Pallas kernel to.
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(cum_got.numpy(), np.asarray(cum_want), rtol=1e-6)
+    # Against the XLA oracle of the same precision: the same-precision twin
+    # tolerance of tests/test_kernels.py.
+    ref_c, ref_cum = tiered_cost_scan_ref(*jargs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_c), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(cum_got.numpy(), np.asarray(ref_cum), rtol=1e-6)
+
+
+@pytest.mark.parametrize("K", [1, 7, 24])
+def test_tiered_scan_plain_f64_bit_equal_to_jax_oracle(K):
+    from repro.kernels.tiered_cost import tiered_cost_scan_ref
+
+    args = _scan_inputs(K, np.float64)
+    with jax.enable_x64():
+        want, cum_want = tiered_cost_scan_ref(*(jnp.asarray(a) for a in args))
+        want, cum_want = np.asarray(want), np.asarray(cum_want)
+    got, cum_got = ops.tiered_cost_scan(*(_t(a) for a in args))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(cum_got.numpy(), cum_want)
+    if K > 1:  # two chained half-chunks are the whole chunk, bit for bit
+        cum0, d, b, r, reset = (_t(a) for a in args)
+        h = K // 2
+        cA, cumA = ops.tiered_cost_scan(cum0, d[:, :h], b, r, reset[:h])
+        cB, cumB = ops.tiered_cost_scan(cumA, d[:, h:], b, r, reset[h:])
+        assert torch.equal(torch.cat([cA, cB], dim=1), got)
+        assert torch.equal(cumB, cum_got)
+
+
+def test_tiered_calendar_plain_chains_to_the_offline_pricing():
+    """The runtime's calendar form over chained chunks (boundaries inside
+    chunks and on chunk edges) equals the offline pricing, monthly_cumsum
+    then the tier fold, bit for bit: on the CPU both prefixes are sequential."""
+    from repro_torch.core.costmodel import monthly_cumsum, tiered_marginal_cost_tables
+
+    cum, d, b, r = seeded_tiers(5, 6, 300)
+    d, b, r = _t(d), _t(b), _t(r)
+    hpm = 48
+    want = tiered_marginal_cost_tables(monthly_cumsum(d, hpm), d, b, r)
+    carry = torch.zeros((2, 6), dtype=torch.float64)
+    got, t0 = [], 0
+    for K in (1, 7, 24, 40, 48, 13, 100, 67):
+        c, carry = ops.tiered_cost_calendar(carry, d[:, t0:t0 + K].T.contiguous(), b, r,
+                                            t0, hpm)
+        assert c.shape == (K, 6)
+        got.append(c.T)
+        t0 += K
+    assert t0 == 300
+    assert torch.equal(torch.cat(got, dim=1), want)
+    full = torch.cat([torch.zeros((6, 1), dtype=torch.float64), torch.cumsum(d, 1)], 1)
+    assert torch.equal(carry[0], full[:, 300])
+    assert torch.equal(carry[1], full[:, 288])       # the last month start
+
+
+def _pre_reads(pref, t0, K, h):
+    """The host ring reads of the runtime: pref[max(0, t0 + k - h)]."""
+    lo = np.maximum(0, t0 + np.arange(K)[:, None] - h[None, :])     # (K, M)
+    return np.take_along_axis(pref, np.minimum(lo, pref.shape[0] - 1), axis=0)
+
+
+@pytest.mark.parametrize("renew", [False, True], ids=["continuous", "chunks"])
+@pytest.mark.parametrize("kind", ["reactive", "hysteresis"])
+def test_fsm_chunk_plain_chains_to_fsm_scan(kind, renew):
+    """fsm_chunk over chained chunks of the horizon (the snapshot/ring split
+    of the window reads included) equals fsm_scan over the whole horizon:
+    x/state exact, and the window sums equal the offline ones bit for bit."""
+    from repro_torch.core.togglecci import window_sums
+
+    vpn, cci = seeded_costs(7, 10, 700)
+    tog = seeded_toggle(7, 10)
+    pol = _port_policy(kind, tog, renew)
+    want = tpol.policy_scan(pol, _t(vpn), _t(cci))
+    pref_v = np.concatenate([np.zeros((1, 10)), np.cumsum(vpn.T, axis=0)])  # (T+1, M)
+    pref_c = np.concatenate([np.zeros((1, 10)), np.cumsum(cci.T, axis=0)])
+    tp = pol.toggle
+    carry, pref = tpol.fsm_carry(pol), torch.zeros((2, 10), dtype=torch.float64)
+    xs, states, rvs, t0 = [], [], [], 0
+    for K in (24, 1, 7, 72, 100, 96, 200, 200):
+        sl = slice(t0, t0 + K)
+        out = ops.fsm_chunk(
+            _t(vpn[:, sl].T), _t(cci[:, sl].T),
+            _t(_pre_reads(pref_v, t0, K, tog["h"])), _t(_pre_reads(pref_c, t0, K, tog["h"])),
+            tp.theta1, tp.theta2, tp.h, tp.D, tp.T_cci, *pol.holds(), carry, pref, t0,
+            renew_in_chunks=renew)
+        carry, pref = out["carry"], out["pref"]
+        assert torch.equal(out["snap_v"], _t(pref_v[sl]))
+        xs.append(out["x"].T)
+        states.append(out["state"].T)
+        rvs.append(out["r_vpn"].T)
+        t0 += K
+    assert t0 == 700
+    assert torch.equal(torch.cat(xs, 1), want["x"])
+    assert torch.equal(torch.cat(states, 1), want["state"])
+    assert torch.equal(torch.cat(rvs, 1), window_sums(_t(vpn), tp.h))
+    assert torch.equal(pref, _t(np.stack([pref_v[-1], pref_c[-1]])))
