@@ -43,7 +43,20 @@ without printing a result):
    times the tick (p50/p95/p99), the chunk, each kernel (profiler device
    time; at K = 24 they are launch-bound) and the host and device parts
    of one step;
-8. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+8. the LM serving path (:func:`lm_phase`): holds the flash-attention and
+   RMSNorm kernels against their plain versions (TinyLlama's prefill shape
+   in bfloat16 at ``2e-2``; the TPU kernel's contract in float32 at
+   ``2e-5``; RMSNorm at 4096 and 4 rows x 2048, ``2e-2``/``1e-5``), runs a
+   2-layer full-width TinyLlama in float32 on the card and on the CPU
+   (prefill and teacher-forced decode logits within ``SLICE_TOL``, greedy
+   tokens equal), then, with every launch count at 0, serves 3 request
+   batches of full-width, full-depth ``tinyllama-1.1b`` in bfloat16 (B = 4,
+   1024 prompt tokens, 64 new) through ``greedy_generate`` and fails unless
+   each batch launched ``flash_attention`` 22 times and ``rmsnorm`` 45 times
+   per forward; checks the decode chain against ``forward`` over the same
+   tokens (``SERVE_TOL``) and times prefill, decode, the kernels, their
+   plain versions and the one PyTorch call for each (SDPA, ``F.rms_norm``);
+9. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -66,10 +79,10 @@ SIZES = ((128, 8760), (2048, 8760))
 SMALL = (16, 2000)
 SEED = 0
 DEVICE = torch.device("cuda")
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, and the
-# non-tensor-core float64 and float32 rates.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, the
+# non-tensor-core float64 and float32 rates, and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
 class SmokeFailure(RuntimeError):
@@ -465,6 +478,285 @@ def streaming_phase(scen, references, card: str) -> dict:
     return rows_out
 
 
+LM_ARCH = "tinyllama-1.1b"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_REQUESTS = 4, 1024, 64, 3
+SLICE_LAYERS, SLICE_BATCH, SLICE_PROMPT, SLICE_NEW = 2, 2, 256, 8
+# float32 with TF32 off, card vs CPU: the two sum the 2048- and 5632-long
+# products and the softmax in different orders, ~1e-6 relative each; logits
+# are O(1), so 1e-3 leaves room for 2 layers of such differences and still
+# catches any wrong index, mask or scale.
+SLICE_TOL = 1e-3
+# bfloat16, the decode chain (float32 softmax over the cache, probabilities
+# rounded to bf16) against forward (the flash kernel, probabilities rounded
+# to bf16 inside it) over 22 layers: each path rounds the bf16 residual
+# stream at other places (2^-9 relative each), a random walk of ~150
+# roundings of ~1 % of the hidden state; the logits are O(1-5).
+SERVE_TOL = 0.1
+# (B, Hq, Hkv, Sq, Skv, D, Dv), causal, window, q_offset: the TPU kernel's
+# contract in float32 (tests/test_torch_cuda.py runs the same cases).
+ATTENTION_CASES = (
+    ((2, 4, 2, 256, 384, 64, 64), False, 0, 0),        # non-causal, Sq < Skv
+    ((1, 4, 2, 300, 300, 64, 64), True, 100, 0),       # sliding window
+    ((2, 4, 2, 64, 320, 64, 64), True, 0, 256),        # q_offset > 0, Sq < Skv
+    ((1, 4, 4, 256, 256, 128, 128), True, 0, 0),       # D = 128
+    ((1, 2, 1, 200, 260, 192, 128), True, 0, 60),      # D = 192, Dv = 128
+    ((1, 4, 2, 1000, 1000, 64, 64), True, 0, 0),       # ragged S
+    ((1, 2, 1, 128, 128, 64, 64), True, 16, 100),      # rows 143.. see no key
+)
+
+
+def attention_bound(B, Hq, Hkv, Sq, Skv, D, Dv, causal, dtype) -> dict:
+    size = torch.empty((), dtype=dtype).element_size()
+    bytes_moved = size * (B * Hq * Sq * (D + Dv) + B * Hkv * Skv * (D + Dv))
+    # the (query, key) pairs the masks allow at q_offset = 0, window = 0
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    return bound(bytes_moved, 2 * B * Hq * pairs * (D + Dv), dtype)
+
+
+def rmsnorm_bound(rows: int, d: int, dtype) -> dict:
+    size = torch.empty((), dtype=dtype).element_size()
+    # x read, out written, w read; per element: square, add, two multiplies (float32).
+    return bound(size * (2 * rows * d + d), 4 * rows * d, torch.float32)
+
+
+def seeded(rng, shape, dtype):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=DEVICE).to(dtype)
+
+
+def teacher_forced(cfg, model, prompt, forced):
+    """Prefill over ``prompt``, then decode steps fed ``forced[:, t]``: the
+    logits (B, n, V) of the prefill and the n - 1 steps, float32."""
+    from repro_torch.models import lm
+    from repro_torch.train.serve import make_decode_step, make_prefill
+
+    B, S = prompt.shape
+    n = forced.shape[1]
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, B, S + n, device=model.device)
+        logits, cache = make_prefill(cfg)(model, prompt, cache)
+        out = [logits]
+        step = make_decode_step(cfg)
+        for t in range(n - 1):
+            logits, cache = step(model, forced[:, t:t + 1], cache)
+            out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def lm_phase(card: str) -> dict:
+    """The LM serving path on the card: each kernel against its plain
+    version, the 2-layer slice against the CPU, the full-depth served path
+    with launches counted, and timings. Returns the kernel rows."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.models import lm
+    from repro_torch.models.common import LayerKind, uniform_segments
+    from repro_torch.train.serve import greedy_generate, make_decode_step, make_prefill
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(LM_ARCH)
+    H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    prefill_shape = (LM_BATCH, H, Hkv, LM_PROMPT, LM_PROMPT, hd, hd)
+
+    # -- each kernel against its plain version, same inputs ------------------
+    q, k, v = (seeded(rng, s, bf16) for s in ((LM_BATCH, H, LM_PROMPT, hd),
+                                              (LM_BATCH, Hkv, LM_PROMPT, hd),
+                                              (LM_BATCH, Hkv, LM_PROMPT, hd)))
+    got = flash_attention(q, k, v, causal=True)
+    want = ref.attention(q.float(), k.float(), v.float(), causal=True)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    flash_err = (got.float() - want).abs().max().item()
+    print(f"flash_attention bf16 {prefill_shape} causal vs float32 plain: max abs err "
+          f"{flash_err:.3e} (tolerance 2e-2)")
+    err32 = 0.0
+    for (B, Hq, Hk, Sq, Skv, D, Dv), causal, window, q_offset in ATTENTION_CASES:
+        a, b, c = (seeded(rng, s, f32) for s in ((B, Hq, Sq, D), (B, Hk, Skv, D), (B, Hk, Skv, Dv)))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got32 = flash_attention(a, b, c, **kw)
+        want32 = ref.attention(a, b, c, **kw)
+        check(bool(torch.isfinite(got32).all()), f"flash f32 {(B, Hq, Hk, Sq, Skv, D, Dv)}: not finite")
+        torch.testing.assert_close(got32, want32, rtol=2e-5, atol=2e-5)
+        err32 = max(err32, (got32 - want32).abs().max().item())
+        if window and q_offset:
+            empty = q_offset + torch.arange(Sq, device=DEVICE) - window + 1 >= Skv
+            check(bool(empty.any()) and bool((got32[:, :, empty] == 0).all()),
+                  "flash f32: rows with no valid key are not 0")
+    print(f"flash_attention f32 over {len(ATTENTION_CASES)} contract cases (non-causal, window, "
+          f"q_offset with Sq < Skv, D = 128, D = 192 / Dv = 128, ragged S = 1000, rows with no "
+          f"key -> 0): max abs err {err32:.3e} (tolerance 2e-5)")
+    norm_err = {}
+    for rows in (LM_BATCH * LM_PROMPT, LM_BATCH):
+        for dtype, tol in ((bf16, 2e-2), (f32, 1e-5)):
+            x, w = seeded(rng, (rows, d), dtype), seeded(rng, (d,), dtype)
+            got = rmsnorm(x, w, eps=cfg.norm_eps)
+            want = ref.rmsnorm(x.float(), w.float(), eps=cfg.norm_eps)
+            torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+            norm_err[rows, dtype] = (got.float() - want).abs().max().item()
+    print("rmsnorm vs float32 plain, max abs err: " + ", ".join(
+        f"{r} x {d} {str(t).split('.')[-1]} {e:.3e}" for (r, t), e in norm_err.items())
+        + " (tolerance bf16 2e-2, f32 1e-5)")
+
+    # -- the slice on the card against the slice on the CPU, float32 --------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2 = dataclasses.replace(cfg, segments=uniform_segments(LayerKind("gqa", "dense"),
+                                                              SLICE_LAYERS), dtype="float32")
+    card_model = lm.LM(cfg2, seed=SEED)
+    check(card_model.device.type == DEVICE.type, "LM did not default to the card")
+    cpu_model = lm.LM(cfg2, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in card_model.state_dict().items()})
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (SLICE_BATCH, SLICE_PROMPT)))
+    cpu_tokens = greedy_generate(cfg2, cpu_model, prompt, SLICE_NEW)
+    card_tokens = greedy_generate(cfg2, card_model, prompt, SLICE_NEW).cpu()
+    cpu_chain = teacher_forced(cfg2, cpu_model, prompt, cpu_tokens)
+    card_chain = teacher_forced(cfg2, card_model, prompt.to(DEVICE), cpu_tokens.to(DEVICE)).cpu()
+    slice_err = (card_chain - cpu_chain).abs().max().item()
+    print(f"slice {SLICE_LAYERS} layers at full width, float32, B = {SLICE_BATCH}, S = "
+          f"{SLICE_PROMPT}, {SLICE_NEW} new: card vs CPU logits (prefill + teacher-forced "
+          f"decode) max abs err {slice_err:.3e} (tolerance {SLICE_TOL}, logits up to "
+          f"{cpu_chain.abs().max().item():.2f})")
+    torch.testing.assert_close(card_chain, cpu_chain, rtol=SLICE_TOL, atol=SLICE_TOL)
+    if not torch.equal(card_tokens, cpu_tokens):
+        t = int((card_tokens != cpu_tokens).any(0).nonzero()[0])
+        top2 = cpu_chain[:, t].topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).min().item()
+        print(f"  greedy token flips at step {t}: CPU top-2 margin {margin:.3e}")
+        check(margin < SLICE_TOL, f"greedy tokens differ at step {t} with margin {margin:.3e}")
+    else:
+        print(f"  greedy tokens equal ({SLICE_NEW} steps)")
+    del card_model, cpu_model
+
+    # -- the served path: full tinyllama-1.1b in bf16, launches counted ------
+    model = lm.LM(cfg, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    greedy_generate(cfg, model, torch.zeros((1, 16), dtype=torch.long), 2)   # warm-up
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)))
+               for _ in range(LM_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    outs, batch_s, per_batch = [], [], []
+    ops.reset_launches()
+    for p in prompts:
+        before = dict(ops.LAUNCHES)
+        a = time.perf_counter()
+        outs.append(greedy_generate(cfg, model, p, LM_NEW))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - a)
+        per_batch.append({n: ops.LAUNCHES[n] - before[n] for n in ("flash_attention", "rmsnorm")})
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"served path launches: {launches}; per request batch {per_batch}")
+    forwards = LM_NEW                                  # one prefill + LM_NEW - 1 decode steps
+    for n in per_batch:
+        check(n["flash_attention"] == cfg.n_layers,
+              f"flash_attention launched {n['flash_attention']} times in a request batch, "
+              f"not {cfg.n_layers}")
+        check(n["rmsnorm"] == forwards * (2 * cfg.n_layers + 1),
+              f"rmsnorm launched {n['rmsnorm']} times in {forwards} forwards, not "
+              f"{2 * cfg.n_layers + 1} per forward")
+    for o in outs:
+        check(o.shape == (LM_BATCH, LM_NEW) and bool(((o >= 0) & (o < cfg.vocab)).all()),
+              "served tokens out of range")
+    print(f"served {LM_REQUESTS} request batches of {LM_ARCH} ({n_params / 1e9:.3f} B params, "
+          f"bf16, {cfg.n_layers} layers, seeded init): B = {LM_BATCH}, {LM_PROMPT} prompt "
+          f"tokens, {LM_NEW} new; flash_attention {cfg.n_layers} per batch, rmsnorm "
+          f"{2 * cfg.n_layers + 1} per forward")
+
+    chain = teacher_forced(cfg, model, prompts[0].to(DEVICE), outs[0])
+    with torch.inference_mode():
+        full, _ = lm.forward(cfg, model, torch.cat([prompts[0].to(DEVICE), outs[0][:, :-1]], 1))
+    full = full[:, LM_PROMPT - 1:]
+    check(bool(torch.isfinite(chain).all()) and bool(torch.isfinite(full).all()),
+          "served logits not finite")
+    check(torch.equal(chain.argmax(-1).int(), outs[0]), "decode chain != greedy tokens")
+    serve_err = (chain - full).abs().max().item()
+    print(f"decode chain vs forward over the same {LM_PROMPT + LM_NEW - 1} tokens, full depth "
+          f"bf16: max abs err {serve_err:.3e} (tolerance {SERVE_TOL}; logits up to "
+          f"{full.abs().max().item():.2f}), top-1 agrees at "
+          f"{(chain.argmax(-1) == full.argmax(-1)).float().mean().item():.4f} of positions")
+    torch.testing.assert_close(chain, full, rtol=SERVE_TOL, atol=SERVE_TOL)
+
+    # -- timings ----------------------------------------------------------------
+    print(f"LM timings on {card} (median ms; bound = max(bytes / 3.35 TB/s, ops / peak))")
+    prefill, step = make_prefill(cfg), make_decode_step(cfg)
+    p0 = prompts[0].to(DEVICE)
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+        prefill_ms = sync_ms(lambda: prefill(model, p0, cache), 5)
+        prefill(model, p0, cache)
+        tok = outs[0][:, :1]
+        step_ms = []
+        for _ in range(LM_NEW - 1):
+            a = time.perf_counter()
+            step(model, tok, cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - a) * 1e3)
+
+        def one_step():
+            cache["index"] = LM_PROMPT
+            step(model, tok, cache)
+
+        step_ms = np.array(step_ms)
+        gen_s = float(np.median(batch_s))
+        print(f"  prefill B = {LM_BATCH} x {LM_PROMPT}: {prefill_ms:.3f} ms "
+              f"({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.4g} prompt tokens/s)")
+        print(f"  decode step B = {LM_BATCH}: p50 {np.percentile(step_ms, 50):.3f} ms, p95 "
+              f"{np.percentile(step_ms, 95):.3f} ms per token ({LM_BATCH / np.percentile(step_ms, 50) * 1e3:.4g} "
+              f"tokens/s at p50)")
+        print(f"  request batch (prefill + {LM_NEW - 1} decode steps, greedy_generate): median "
+              f"{gen_s * 1e3:.1f} ms, {LM_BATCH * LM_NEW / gen_s:.4g} generated tokens/s, "
+              f"{LM_BATCH * LM_PROMPT / gen_s:.4g} prompt tokens/s")
+        print(f"  memory: peak {peak_gb:.3f} GB allocated while serving; {base_gb:.3f} GB were "
+              f"held before (the weights, {weights_gb:.3f} GB, and earlier phases' tensors), so "
+              f"the served path took {weights_gb + peak_gb - base_gb:.3f} GB with its weights")
+        print_breakdown(lambda: prefill(model, p0, cache), reps=3, unit="prefill")
+        print_breakdown(one_step, reps=10, unit="decode step")
+
+    flash_call = lambda: flash_attention(q, k, v, causal=True)
+    timing = {
+        "flash_attention": (
+            event_ms(flash_call, 20), event_ms(lambda: ref.attention(q, k, v, causal=True), 5),
+            event_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                            enable_gqa=True), 20),
+            attention_bound(*prefill_shape, True, bf16)),
+    }
+    labels = {"flash_attention": f"flash_attention bf16 {prefill_shape} causal"}
+    for rows in (LM_BATCH * LM_PROMPT, LM_BATCH):
+        x, w = seeded(rng, (rows, d), bf16), seeded(rng, (d,), bf16)
+        key = f"rmsnorm_{rows}"
+        labels[key] = f"rmsnorm bf16 {rows} x {d}"
+        timing[key] = (
+            event_ms(lambda: rmsnorm(x, w, eps=cfg.norm_eps), 50),
+            event_ms(lambda: ref.rmsnorm(x, w, eps=cfg.norm_eps), 20),
+            event_ms(lambda: F.rms_norm(x, (d,), w, eps=cfg.norm_eps), 50),
+            rmsnorm_bound(rows, d, bf16))
+    for key, (ms, plain_ms, lib_ms, b) in timing.items():
+        print(f"  {labels[key]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), "
+              f"{ms / b['bound_ms']:.1f}x bound")
+    print(f"LM phase: {time.perf_counter() - t_phase:.1f} s")
+
+    norm = timing[f"rmsnorm_{LM_BATCH * LM_PROMPT}"]
+    fl = timing["flash_attention"]
+    return {
+        "flash_attention": {
+            "launches": launches["flash_attention"], "max_abs_err": flash_err,
+            "ms": fl[0], "plain_ms": fl[1], **fl[3], "library_ms": fl[2]},
+        "rmsnorm": {
+            "launches": launches["rmsnorm"], "max_abs_err": norm_err[LM_BATCH * LM_PROMPT, bf16],
+            "ms": norm[0], "plain_ms": norm[1], **norm[3], "library_ms": norm[2]},
+    }
+
+
 def fsm_args(arrays, vpn, cci):
     tp = arrays.toggle
     ones = torch.ones_like(tp.h)
@@ -665,6 +957,7 @@ def main() -> int:
         timing[N] = row
 
     stream_rows = streaming_phase(scen, references, card.splitlines()[0])
+    lm_rows = lm_phase(card.splitlines()[0])
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -691,6 +984,14 @@ def main() -> int:
          "source": "src/repro_torch/csrc/fsm_scan.cu",
          "replaces": "src/repro/fleet/runtime.py:577",
          **stream_rows["fsm_chunk"], "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:108",
+         **lm_rows["flash_attention"]},
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:27",
+         **lm_rows["rmsnorm"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@ ToggleCCI scan over rows; replaces ``lax.scan`` in ``policy_scan``),
 ``tiered_cost_scan`` (K-hour chunk pricing with a billing carry, entry
 points ``tiered_cost_scan`` and ``tiered_cost_calendar``; replaces the
 Pallas kernel of that name) and ``fsm_chunk`` (K hours of the FSM from a
-carry; replaces the ``lax.scan`` of the streaming runtime's chunk).
+carry; replaces the ``lax.scan`` of the streaming runtime's chunk), and
+for the LM's serving path ``flash_attention`` (blocked online-softmax
+attention) and ``rmsnorm``, each replacing the Pallas kernel of that name.
 """
 from . import ops, ref  # noqa: F401

@@ -25,25 +25,31 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu")
+SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "rmsnorm.cu",
+           "flash_attention.cu")
+#: The float64 sources, held bit for bit against their plain versions.
+EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu")
 #: Headers the sources include; part of the build hash.
 HEADERS = ("tier_fold.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-# -fmad=false: no multiply is contracted into an add, on top of the explicit
-# __dadd_rn/__dmul_rn intrinsics, so float64 results keep the plain
-# versions' rounding.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# For EXACT_SOURCES only: no multiply is contracted into an add, on top of
+# the explicit __dadd_rn/__dmul_rn intrinsics, so float64 results keep the
+# plain versions' rounding. The float32/bfloat16 LM kernels are held to
+# tolerances and keep the fused multiply-adds.
+EXACT_FLAGS = ("-fmad=false",)
 
 #: Launch counts, one per kernel. Each wrapper adds one where it launches
 #: its kernel and nowhere else; a caller zeroes them to see which kernels a
 #: run went through.
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0,
+    "flash_attention": 0, "rmsnorm": 0,
 }
 
 _lock = threading.Lock()
@@ -70,7 +76,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + EXACT_FLAGS + EXACT_SOURCES).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -86,7 +92,8 @@ def _build(target: Path) -> None:
         objs, procs = [], []
         for name in SOURCES:
             obj = Path(tmp) / (Path(name).stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            extra = EXACT_FLAGS if name in EXACT_SOURCES else ()
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(CSRC / name), "-o", str(obj)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))
@@ -125,6 +132,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tiered_cost_calendar_f64.restype = i
     lib.fsm_chunk_f64.argtypes = [p] * 11 + [i] * 4 + [p] * 11
     lib.fsm_chunk_f64.restype = i
+    for name in ("rmsnorm_f32", "rmsnorm_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, ctypes.c_longlong, i, ctypes.c_float, p, p]
+        fn.restype = i
+    for name in ("flash_attention_f32", "flash_attention_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 6 + [ctypes.c_float, p]
+        fn.restype = i
 
 
 def load() -> ctypes.CDLL:

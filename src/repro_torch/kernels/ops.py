@@ -13,13 +13,15 @@ one where it launches and nowhere else.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from . import ref
+from .flash_attention import flash_attention as _flash_kernel
 from .fsm_scan import fsm_chunk as _fsm_chunk_kernel
 from .fsm_scan import fsm_scan as _fsm_scan_kernel
+from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .tiered_cost import tiered_cost_batched as _tiered_kernel
 from .tiered_cost_scan import tiered_cost_calendar as _calendar_kernel
 from .tiered_cost_scan import tiered_cost_scan as _scan_kernel
@@ -79,3 +81,22 @@ def fsm_chunk(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down
         return _fsm_chunk_kernel(*(a.contiguous() for a in args), t0,
                                  renew_in_chunks=renew_in_chunks)
     return ref.fsm_chunk_ref(*args, t0, renew_in_chunks=renew_in_chunks)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over q (B, Hq, Sq, D), k (B, Hkv, Skv, D), v (B, Hkv, Skv, Dv)
+    with GQA, causal/sliding-window masks and ``q_offset``: the flash kernel
+    on CUDA for any Sq and Skv (the reference's padding and its small-Sq
+    threshold are not needed), the plain version on the CPU."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    if _route(q, "attention"):
+        return _flash_kernel(q, k, v, **kw)
+    return ref.attention(q, k, v, **kw)
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6) -> torch.Tensor:
+    """Row-wise RMSNorm of x (..., d) with weight w (d,), float32 math."""
+    if _route(x, "rmsnorm"):
+        return _rmsnorm_kernel(x.contiguous(), w.contiguous(), eps=eps)
+    return ref.rmsnorm(x, w, eps=eps)

@@ -1,14 +1,14 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
 
 Port of :mod:`repro.kernels.ref` for the kernels of the fleet planner's
-path. Each function computes what its CUDA kernel computes, in the same
+and the LM serving path. Each function computes what its CUDA kernel computes, in the same
 order of operations where that order decides the bits. They run wherever a
 tensor lies; :mod:`repro_torch.kernels.ops` sends CPU tensors here, and the
 chip checks hold each kernel against its plain version on the card.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -166,3 +166,47 @@ def fsm_chunk_ref(
         "carry": torch.stack([state, t_state, up, down]).to(i32),
         "pref": torch.stack([pv, pc]),
     }
+
+
+def attention(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Skv, D)
+    v: torch.Tensor,  # (B, Hkv, Skv, Dv)
+    *,
+    causal: bool = True,
+    window: int = 0,          # sliding-window size; 0 = unlimited
+    q_offset: int = 0,        # global position of q[0]
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.flash_attention.flash_attention`
+    (port of ``repro.kernels.ref.attention``): full float32 softmax over the
+    materialised (Sq, Skv) scores, GQA by repeating K/V per query head,
+    causal and sliding-window masks from global positions; rows with no
+    valid key come out 0. Output in q's dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    assert Hq % Hkv == 0
+    group = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    kr = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
+    vr = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kr) * scale
+    rows = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    cols = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window > 0:
+        mask &= cols > rows - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[:, None], p, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.rmsnorm.rmsnorm`:
+    ``x·rsqrt(mean(x²)+eps)·w`` per row in float32, cast to x's dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)

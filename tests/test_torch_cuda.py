@@ -10,7 +10,10 @@ Tests marked ``cuda`` need an NVIDIA GPU and skip on a host without one
 tiered kernels, the FSM kernels and the streaming runtime keep the plain
 versions' order of operations and are held bit for bit (the FSM scan
 against the plain version on the CPU, whose cumsum is sequential); the
-float32 tiered kernels at ``rtol=atol=1e-6``.
+float32 tiered kernels at ``rtol=atol=1e-6``. The LM's kernels against
+their float32 plain versions: flash attention at ``2e-5`` in float32 and
+``2e-2`` in bfloat16, RMSNorm at ``1e-5`` and ``2e-2`` (the tolerances
+``tests/test_kernels.py`` holds the Pallas kernels to).
 """
 import dataclasses
 
@@ -29,7 +32,9 @@ from repro_torch.fleet import FleetRuntime, build_fleet_scenario, plan_fleet
 from repro_torch.fleet import policy as tpol
 from repro_torch.fleet.spec import pad_tier_tables
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.tiered_cost import tiered_cost_batched
 from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
 
@@ -153,7 +158,8 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     ops.reset_launches()
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
     assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1,
-                            "tiered_cost_scan": 0, "fsm_chunk": 0}
+                            "tiered_cost_scan": 0, "fsm_chunk": 0,
+                            "flash_attention": 0, "rmsnorm": 0}
     assert got["x"].is_cuda
     want = plan_fleet(sc.fleet, sc.demand, device="cpu")
     for k in ("x", "state"):
@@ -230,3 +236,96 @@ def test_runtime_gpu_matches_cpu(cuda_device):
         want = FleetRuntime(fleet, device="cpu").run(sc.demand)
         for k in want:
             assert np.array_equal(got[k], want[k]), k
+
+
+def test_lm_kernel_wrappers_refuse_cpu_tensors():
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm(torch.zeros((4, 16)), torch.ones(16))
+    with pytest.raises(TypeError):
+        rmsnorm(torch.zeros((4, 16), dtype=torch.float64), torch.ones(16, dtype=torch.float64))
+
+
+# (B, Hq, Hkv, Sq, Skv, D, Dv), causal, window, q_offset: the TPU kernel's
+# contract, with ragged lengths the Pallas kernel would need padding for.
+ATTENTION_CASES = [
+    ((2, 4, 2, 256, 384, 64, 64), False, 0, 0),
+    ((1, 4, 2, 300, 300, 64, 64), True, 100, 0),
+    ((2, 4, 2, 64, 320, 64, 64), True, 0, 256),
+    ((1, 4, 4, 256, 256, 128, 128), True, 0, 0),
+    ((1, 2, 1, 200, 260, 192, 128), True, 0, 60),
+    ((1, 4, 2, 1000, 1000, 64, 64), True, 0, 0),
+    ((1, 2, 1, 128, 128, 64, 64), True, 16, 100),   # rows 143.. see no key
+]
+
+
+def _attention_inputs(case, device, dtype):
+    (B, Hq, Hkv, Sq, Skv, D, Dv), _, _, _ = case
+    rng = np.random.default_rng(21)
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=device).to(dtype)
+            for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, Dv))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ATTENTION_CASES, ids=lambda c: "x".join(map(str, c[0])))
+def test_flash_attention_kernel_matches_plain(cuda_device, case, dtype):
+    _, causal, window, q_offset = case
+    q, k, v = _attention_inputs(case, cuda_device, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1 and got.dtype == dtype
+    want = ref.attention(q.float(), k.float(), v.float(), **kw)
+    assert torch.isfinite(got).all()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    # Strided inputs (the LM passes transposes) give the same result.
+    got_t = ops.attention(*(t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)),
+                          **kw)
+    assert torch.equal(got_t, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 2048), (4, 2048), (3, 5, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype):
+    rng = np.random.default_rng(22)
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda_device)
+    w = torch.as_tensor(rng.standard_normal(shape[-1:]).astype(np.float32), device=cuda_device)
+    before = ops.LAUNCHES["rmsnorm"]
+    got = ops.rmsnorm(x.to(dtype), w.to(dtype))
+    assert ops.LAUNCHES["rmsnorm"] == before + 1 and got.dtype == dtype
+    want = ref.rmsnorm(x.to(dtype).float(), w.to(dtype).float())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_lm_on_the_card_matches_the_cpu(cuda_device):
+    """A reduced dense LM (GQA group 2, and a sliding window) in float32:
+    greedy tokens equal, logits within 1e-4, every norm and prefill
+    attention through the kernels."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import lm
+    from repro_torch.train.serve import greedy_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, kw in (("tinyllama-1.1b", dict(d_model=128, n_heads=8)), ("h2o-danube-3-4b", {})):
+        cfg = reduce_config(get_config(arch), **kw)
+        model = lm.LM(cfg, seed=3, device=cuda_device)
+        cpu = lm.LM(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        tokens = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (2, 48)))
+        ops.reset_launches()
+        got = greedy_generate(cfg, model, tokens, 8)
+        assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+        assert ops.LAUNCHES["rmsnorm"] == 8 * (2 * cfg.n_layers + 1)
+        assert torch.equal(got.cpu(), greedy_generate(cfg, cpu, tokens, 8))
+        with torch.inference_mode():
+            g, _ = lm.forward(cfg, model, tokens.to(cuda_device))
+            c, _ = lm.forward(cfg, cpu, tokens)
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)

@@ -214,3 +214,86 @@ def test_fsm_chunk_plain_chains_to_fsm_scan(kind, renew):
     assert torch.equal(torch.cat(states, 1), want["state"])
     assert torch.equal(torch.cat(rvs, 1), window_sums(_t(vpn), tp.h))
     assert torch.equal(pref, _t(np.stack([pref_v[-1], pref_c[-1]])))
+
+
+# ---------------------------------------------------------------------------
+# The LM's kernels: flash attention and RMSNorm (plain versions)
+# ---------------------------------------------------------------------------
+
+from test_kernels import ATT_SHAPES  # noqa: E402
+
+
+def _att_inputs(seed, shape, Dv=None):
+    B, Hq, Hkv, Sq, Skv, D = shape
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hq, Sq, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, Skv, Dv or D)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("mask", ["full", "causal", "window"])
+@pytest.mark.parametrize("shape", ATT_SHAPES)
+def test_attention_plain_matches_pallas_interpret(shape, mask):
+    """The port's plain attention against the Pallas flash kernel in
+    interpret mode, float32, at the tolerance tests/test_kernels.py holds
+    that kernel to (2e-5)."""
+    from repro.kernels.flash_attention import flash_attention
+
+    q, k, v = _att_inputs(12, shape)
+    Sq, Skv = shape[3], shape[4]
+    causal = mask != "full"
+    if causal and Sq > Skv:
+        pytest.skip("causal requires Sq <= Skv here")
+    kw = dict(causal=causal, window=64 if mask == "window" else 0,
+              q_offset=Skv - Sq if causal else 0)
+    want = flash_attention(*(jnp.asarray(a) for a in (q, k, v)), interpret=True, **kw)
+    got = ops.attention(*(_t(a) for a in (q, k, v)), **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_plain_covers_the_kernel_contract():
+    """Against the JAX oracle where the Pallas kernel needs padding: ragged
+    lengths, q_offset with Sq < Skv, Dv != D, a window, and rows with no
+    valid key (0, not NaN)."""
+    from repro.kernels import ref as jref
+
+    cases = [
+        ((1, 4, 2, 100, 260, 48), 32, dict(causal=True, q_offset=160, window=0)),
+        ((2, 2, 1, 72, 72, 16), None, dict(causal=True, q_offset=0, window=8)),
+        ((1, 2, 2, 64, 64, 32), 24, dict(causal=False, q_offset=0, window=0)),
+        ((1, 2, 1, 96, 96, 16), None, dict(causal=True, q_offset=100, window=16)),
+    ]
+    for shape, Dv, kw in cases:
+        q, k, v = _att_inputs(13, shape, Dv)
+        want = np.asarray(jref.attention(*(jnp.asarray(a) for a in (q, k, v)), **kw))
+        got = ops.attention(*(_t(a) for a in (q, k, v)), **kw).numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    # The last case: rows 100.. with window 16 over 96 keys; rows >= 111 see none.
+    assert (got[:, :, 11:] == 0).all() and (got[:, :, :11] != 0).any()
+
+
+@pytest.mark.parametrize("shape", [(128, 512), (256, 1024), (2, 128, 384), (3, 256)])
+def test_rmsnorm_plain_matches_pallas_interpret(shape):
+    from repro.kernels.rmsnorm import rmsnorm
+
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = rng.standard_normal(shape[-1:]).astype(np.float32)
+    if np.prod(shape[:-1]) % 128 == 0:
+        want = np.asarray(rmsnorm(jnp.asarray(x), jnp.asarray(w), interpret=True))
+    else:   # the Pallas kernel takes multiples of 128 rows; its oracle any
+        from repro.kernels import ref as jref
+        want = np.asarray(jref.rmsnorm(jnp.asarray(x), jnp.asarray(w)))
+    got = ops.rmsnorm(_t(x), _t(w)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_lm_kernel_dispatch_refuses_other_devices():
+    q = torch.empty((1, 2, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.attention(q, q, q)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.rmsnorm(q, torch.empty(8, device="meta"))
