@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fleet planner on one NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check its kernels.
 
 Run from the root of a checkout, on a host with one CUDA card::
 
@@ -56,8 +56,28 @@ without printing a result):
    per forward; checks the decode chain against ``forward`` over the same
    tokens (``SERVE_TOL``) and times prefill, decode, the kernels, their
    plain versions and the one PyTorch call for each (SDPA, ``F.rms_norm``);
-9. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
-   the last line.
+9. the actuation path (:func:`actuation_phase`): holds ``int8_quantize`` /
+   ``int8_dequantize`` (float32 and bfloat16, TinyLlama's leaf shapes, a zero
+   row and a row with |max| 1e-29) and the static ``tiered_cost`` (8760 x
+   2048, two tier tables with an infinite last bound) against their plain
+   versions with ``torch.equal``; then, with every launch count at 0, syncs
+   a float32 gradient pytree with the shapes of full-width, full-depth
+   ``tinyllama-1.1b`` (1.100 B values) through ``sync_grads`` on a one-rank
+   NCCL ``(pod, data, model)`` mesh in every mode and three compressed steps
+   with carried residuals, each output and residual ``torch.equal`` to the
+   plain path, and fails unless the quantize kernel launched once and the
+   dequantize kernel twice per leaf and step; drives ``InterconnectPlanner``
+   over 8760 hours of that pytree's wire bytes in switching regimes, running
+   the sync in the returned mode for 24 hours around each toggle, and prices
+   the year's VPN bill for 2048 sync sizes through ``ops.tiered_cost``
+   (held to the planner's comparator); runs ``ElasticFleetPlanner`` at 2048
+   links x 800 hours on the card and on the CPU (every mode and report
+   array equal) and ``fleet_sync_grads`` on 16 jobs of one full-width layer
+   over a mode change (grouped == ungrouped, billed == ``sync_wire_bytes``);
+   then times the sync in each mode, the kernels against their plain
+   versions and bounds, and ``feed_hour``;
+10. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+    the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
 JAX package ``repro``.
@@ -233,6 +253,26 @@ def kernel_device_ms(fn, reps: int, names) -> dict:
     missing = [n for n in names if n not in out]
     check(not missing, f"profiler recorded no device time for {missing}")
     return out
+
+
+def device_busy_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: every kernel and copy it ran
+    on the card, summed, from torch.profiler over ``reps`` calls (for a call
+    of many small launches, CUDA events around it time the host's launch
+    rate, not the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+    check(busy > 0, "profiler recorded no device time")
+    return busy / reps / 1e3
 
 
 def calendar_bound(N: int, K: int, Kt: int) -> dict:
@@ -757,6 +797,380 @@ def lm_phase(card: str) -> dict:
     }
 
 
+ACT_ARCH = "tinyllama-1.1b"
+ACT_STEPS = 3                       # compressed syncs with carried residuals
+# sync steps per hour, switching every quarter of the year: 3 toggles
+ACT_REGIME_HOURS, ACT_STEPS_LOW, ACT_STEPS_HIGH = 2190, 360, 36000
+ACT_WINDOW = 24                     # hours synced around each toggle
+ELASTIC_SIZE, ELASTIC_HOURS = 2048, 800
+ELASTIC_SCALE = 16e9                # bytes per demand unit: at 1e9 no link leases
+SYNC_FLEET, SYNC_HOURS = (16, 2000), 24
+WHATIF_P = 2048                     # what-if columns of the year's VPN bill
+# float32 month-to-date volumes (up to ~3e7 GB) against the planner's float64
+# comparator: 1e-6 to 2e-6 relative measured on the CPU with the same arithmetic.
+WHATIF_RTOL = 1e-5
+
+
+def grad_tree(cfg, gen):
+    """A float32 gradient pytree with the shapes of the port's LM at ``cfg``
+    (one leaf per parameter, by name), drawn from ``gen`` on the card."""
+    from repro_torch.models import lm
+
+    shapes = {n: tuple(p.shape) for n, p in lm.LM(cfg, device="meta").named_parameters()}
+    return {n: torch.randn(s, generator=gen, device=DEVICE, dtype=torch.float32).mul_(1e-3)
+            for n, s in shapes.items()}
+
+
+def plain_compressed(g, err):
+    """The compressed sync of one leaf on one rank, by the plain versions:
+    ``(deq, u - deq)`` with ``u = g + err``."""
+    from repro_torch.kernels import ref
+
+    u = g + err
+    q, s = ref.int8_quantize(u.reshape(-1, u.shape[-1]))
+    deq = ref.int8_dequantize(q, s).view(u.shape)
+    return deq, u - deq
+
+
+def print_host_ops(fn, top: int = 8) -> None:
+    """Host (CPU) time of one ``fn()`` by operator, from torch.profiler:
+    where a call whose device is mostly idle spends its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops_ = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    total = sum(e.self_cpu_time_total for e in ops_)
+    print(f"    host: {total / 1e3:.1f} ms of operator self time on the CPU, top {top}:")
+    for e in ops_[:top]:
+        print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:70]}")
+
+
+def quant_bound(rows_d, dtype) -> dict:
+    size = torch.empty((), dtype=dtype).element_size()
+    n = sum(r * d for r, d in rows_d)
+    rows = sum(r for r, _ in rows_d)
+    # x read, q written, one float32 scale per row; per value: abs, max, div, rint, clamp.
+    return bound(n * (size + 1) + 4 * rows, 5 * n, torch.float32)
+
+
+def dequant_bound(rows_d, dtype) -> dict:
+    size = torch.empty((), dtype=dtype).element_size()
+    n = sum(r * d for r, d in rows_d)
+    rows = sum(r for r, _ in rows_d)
+    return bound(n * (1 + size) + 4 * rows, n, torch.float32)
+
+
+def static_tiered_bound(T: int, P: int, K: int) -> dict:
+    # month_cum and demand read, cost written (float32); per tier: min, max, sub, max, mul, add.
+    return bound(12 * T * P, T * P * (1 + 6 * K), torch.float32)
+
+
+def actuation_phase(card: str) -> dict:
+    """The actuation slice on the card: the int8 and static tiered-cost
+    kernels against their plain versions, then, with launches counted, the
+    full-width TinyLlama gradient synced in every mode and three compressed
+    steps, the single-link planner driving real syncs around its toggles
+    (and its year's VPN bill priced as a what-if plane), the elastic fleet
+    planner card vs CPU, and ``fleet_sync_grads``; then timings. Returns the
+    kernel rows."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import monthly_cumsum
+    from repro_torch.core.planner import InterconnectPlanner, dci_scenario
+    from repro_torch.core.pricing import AWS_EGRESS_INTERNET
+    from repro_torch.dist.collectives import fleet_sync_grads, sync_grads, sync_wire_bytes
+    from repro_torch.fleet import ElasticFleetPlanner, build_fleet_scenario
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.int8_quant import int8_dequantize, int8_quantize
+    from repro_torch.kernels.tiered_cost import tiered_cost
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(ACT_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    grads = grad_tree(cfg, gen)
+    leaves = list(grads.values())
+    n_leaves = len(leaves)
+    n_values = sum(g.numel() for g in leaves)
+    rows_d = [(g.numel() // g.shape[-1], g.shape[-1]) for g in leaves]
+    print(f"actuation: {ACT_ARCH} gradient pytree, {n_leaves} leaves, {n_values / 1e9:.3f} B "
+          f"float32 values ({4 * n_values / 1e9:.2f} GB), seeded on the card; leaf shapes "
+          f"{sorted(set(tuple(g.shape) for g in leaves))}")
+
+    # -- each kernel against its plain version, same CUDA tensors -------------
+    d_model = cfg.d_model
+    cases = [(32000, 2048), (2048, 5632), (5632, 2048), (2048, 256), (2048, 32000),
+             (17, 2048), (1, 2048)]
+    quant_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in cases:
+            x = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+            if shape[0] > 2:
+                x[0] = 0.0                                      # a row of zeros
+                x[1] *= 1e-29 / x[1].abs().max()                # amax = 1e-29
+            q, s = int8_quantize(x)
+            wq, ws = ref.int8_quantize(x)
+            check(torch.equal(q, wq) and torch.equal(s, ws),
+                  f"int8_quantize {shape} {dtype} != plain")
+            for odt in (torch.float32, torch.bfloat16):
+                got, want = int8_dequantize(q, s, odt), ref.int8_dequantize(q, s, odt)
+                check(torch.equal(got, want), f"int8_dequantize {shape} -> {odt} != plain")
+                quant_err = max(quant_err, (got.float() - want.float()).abs().max().item())
+    print(f"int8_quantize / int8_dequantize f32 and bf16 on {cases} (a zero row and a "
+          f"row with amax 1e-29 in each): q, scale and both dequantized types == plain "
+          f"(bit for bit)")
+    T_w, P_w = 8760, WHATIF_P
+    d = torch.rand((T_w, P_w), generator=gen, device=DEVICE, dtype=torch.float64) * 500.0
+    cum32 = monthly_cumsum(d.T, 730).T.float().contiguous()
+    d32 = d.float()
+    tiers = {"dci_scenario": dci_scenario().vpn_tier, "AWS_EGRESS_INTERNET": AWS_EGRESS_INTERNET}
+    for name, tier in tiers.items():
+        got = tiered_cost(cum32, d32, tier.bounds_gb, tier.rates)
+        want = ref.tiered_cost(cum32, d32, tier.bounds_gb, tier.rates)
+        check(torch.equal(got, want), f"tiered_cost {T_w} x {P_w} ({name}) != plain")
+    print(f"tiered_cost {T_w} x {P_w} float32, tables {list(tiers)} (infinite last bound): "
+          f"== plain (bit for bit)")
+
+    # -- the main path, launches counted --------------------------------------
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        parts = {}
+        t_part = time.perf_counter()
+        ops.reset_launches()
+        for mode in ("direct", "hierarchical"):
+            out, err = sync_grads(grads, mesh, mode=mode)
+            check(err is None and all(torch.equal(out[k], grads[k]) for k in grads),
+                  f"sync_grads {mode} on one rank != its input")
+            del out
+        err = None
+        before = dict(ops.LAUNCHES)
+        for step in range(ACT_STEPS):
+            out, new_err = sync_grads(grads, mesh, mode="compressed", err_state=err)
+            for k, g in grads.items():
+                deq, res = plain_compressed(g, err[k] if err is not None else torch.zeros_like(g))
+                check(torch.equal(out[k], deq) and torch.equal(new_err[k], res),
+                      f"compressed step {step}, leaf {k}: != the plain path")
+                del deq, res
+            err = new_err
+            del out
+        n_q = ops.LAUNCHES["int8_quantize"] - before["int8_quantize"]
+        n_dq = ops.LAUNCHES["int8_dequantize"] - before["int8_dequantize"]
+        check(n_q == ACT_STEPS * n_leaves, f"int8_quantize launched {n_q} times in "
+              f"{ACT_STEPS} compressed syncs of {n_leaves} leaves, not one per leaf")
+        check(n_dq == 2 * ACT_STEPS * n_leaves, f"int8_dequantize launched {n_dq} times, not "
+              f"two per leaf (the residual, the gathered stack)")
+        print(f"sync_grads on a one-rank NCCL (pod, data, model) mesh: direct and "
+              f"hierarchical == input; {ACT_STEPS} compressed steps with carried residuals: "
+              f"every output and residual == the plain path (bit for bit); per compressed "
+              f"sync int8_quantize {n_q // ACT_STEPS} = 1 per leaf, int8_dequantize "
+              f"{n_dq // ACT_STEPS} = 2 per leaf")
+
+        parts["sync modes + 3 compressed steps, checked"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # the single-link planner over a year, syncing around its toggles
+        full_b = sync_wire_bytes(grads, "hierarchical")
+        comp_b = sync_wire_bytes(grads, "compressed")
+        steps = np.where((np.arange(8760) // ACT_REGIME_HOURS) % 2 == 0,
+                         ACT_STEPS_LOW, ACT_STEPS_HIGH)
+        raw = full_b * steps.astype(np.float64)
+        dry = InterconnectPlanner()
+        modes = [dry.feed_hour(b) for b in raw]
+        toggles = [t for t in range(1, len(modes)) if modes[t] != modes[t - 1]]
+        check(len(toggles) >= 2, f"planner toggled {len(toggles)} times over the year")
+        window = set()
+        for t in toggles:
+            window.update(range(max(0, t - ACT_WINDOW // 2), t + ACT_WINDOW // 2))
+        pl, err, n_sync = InterconnectPlanner(), None, {"hierarchical": 0, "compressed": 0}
+        sample = "embed"
+        for t, b in enumerate(raw):
+            mode = pl.feed_hour(b)
+            check(mode == modes[t], f"planner replay differs at hour {t}")
+            if t in window:
+                e_old = err[sample] if err is not None else None
+                out, new_err = sync_grads(grads, mesh, mode=mode,
+                                          err_state=err if mode == "compressed" else None)
+                if mode == "hierarchical":
+                    check(torch.equal(out[sample], grads[sample]), "hierarchical sync != input")
+                else:
+                    u = grads[sample] + (e_old if e_old is not None else 0.0)
+                    check(torch.equal(new_err[sample], u - out[sample]),
+                          "compressed sync: residual != u - output")
+                    err = new_err
+                n_sync[mode] += 1
+                del out
+        rep = pl.report()
+        print(f"InterconnectPlanner, 8760 h of {full_b / 1e9:.3f} GB/step (compressed "
+              f"{comp_b / 1e9:.3f} GB/step, ratio {full_b / comp_b:.4f}) x {ACT_STEPS_LOW} or "
+              f"{ACT_STEPS_HIGH} steps/h, regimes of {ACT_REGIME_HOURS} h: toggles at {toggles}; "
+              f"on_fraction {rep.on_fraction:.4f}, cost {rep.total_cost:.1f} vs always-VPN "
+              f"{rep.cost_always_vpn:.1f}, always-CCI {rep.cost_always_cci:.1f}; ran the sync "
+              f"{n_sync} times in the {ACT_WINDOW} h around each toggle")
+        # its year's pay-per-GB bill, priced for WHATIF_P sync sizes in one plane
+        p = pl.params
+        gb = torch.as_tensor(raw / 1e9 / pl.COMPRESS_RATIO, device=DEVICE)
+        frac = torch.arange(1, WHATIF_P + 1, device=DEVICE, dtype=torch.float64) / WHATIF_P
+        dplane = gb[:, None] * frac[None, :]
+        cplane = monthly_cumsum(dplane.T, p.hours_per_month).T
+        bill = (ops.tiered_cost(cplane, dplane, p.vpn_tier.bounds_gb, p.vpn_tier.rates)
+                .double().sum(0) + len(raw) * p.L_vpn)
+        whatif_rel = abs(bill[-1].item() / rep.cost_always_vpn - 1.0)
+        check(whatif_rel < WHATIF_RTOL, f"what-if year bill {bill[-1].item()} vs the planner's "
+              f"always-VPN {rep.cost_always_vpn}: rel {whatif_rel:.3e}")
+        print(f"what-if: the year's VPN bill at {WHATIF_P} sync sizes (8760 x {WHATIF_P}, "
+              f"ops.tiered_cost); the full size vs the planner's always-VPN comparator: rel "
+              f"{whatif_rel:.3e} (tolerance {WHATIF_RTOL}); at 1/{WHATIF_P} of the size "
+              f"{bill[0].item():.1f}")
+        del err, dplane, cplane
+
+        parts["planner year + syncs around toggles + what-if"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # the elastic fleet planner: card against CPU, bit for bit
+        sc = build_fleet_scenario(ELASTIC_SIZE, horizon=ELASTIC_HOURS, seed=SEED)
+        traffic = sc.demand.T * ELASTIC_SCALE
+        card_pl = ElasticFleetPlanner(sc.fleet)
+        check(card_pl.runtime.device.type == DEVICE.type, "ElasticFleetPlanner not on the card")
+        cpu_pl = ElasticFleetPlanner(sc.fleet, device="cpu")
+        feed_us = []
+        for t, b in enumerate(traffic):
+            a = time.perf_counter()
+            m_card = card_pl.feed_hour(b)
+            feed_us.append((time.perf_counter() - a) * 1e6)
+            check(m_card == cpu_pl.feed_hour(b), f"elastic planner modes card != CPU at hour {t}")
+        r_card, r_cpu = card_pl.report(), cpu_pl.report()
+        for k in ("total_cost", "cost_always_vpn", "cost_always_cci", "total_gb"):
+            check(getattr(r_card, k) == getattr(r_cpu, k), f"elastic report {k}: card != CPU")
+        for a_, b_, k in ((card_pl.cost, cpu_pl.cost, "cost"),
+                          (card_pl.cost_vpn_only, cpu_pl.cost_vpn_only, "cost_vpn_only"),
+                          (card_pl.cost_cci_only, cpu_pl.cost_cci_only, "cost_cci_only"),
+                          (card_pl.gb, cpu_pl.gb, "gb"), (card_pl.gb_saved, cpu_pl.gb_saved,
+                                                         "gb_saved"),
+                          (r_card.on_fraction, r_cpu.on_fraction, "on_fraction")):
+            check(np.array_equal(a_, b_), f"elastic planner {k}: card != CPU")
+        print(f"ElasticFleetPlanner {ELASTIC_SIZE} links x {ELASTIC_HOURS} h "
+              f"(build_fleet_scenario seed {SEED}, demand x {ELASTIC_SCALE:.3g} bytes/h): modes "
+              f"every tick and cost/cost_vpn_only/cost_cci_only/gb/gb_saved card == CPU bit for "
+              f"bit; leased share {r_card.on_fraction.mean():.4f}, wire savings "
+              f"{r_card.wire_savings_fraction:.4f}")
+
+        parts["elastic planner card + CPU"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # fleet_sync_grads: 16 jobs of one full-width layer, 24 ticks over a toggle
+        n_jobs, hours = SYNC_FLEET
+        sc16 = build_fleet_scenario(n_jobs, horizon=hours, seed=SEED)
+        pl16 = ElasticFleetPlanner(sc16.fleet)
+        layer = [k for k in grads if k.startswith("layers.0.")]
+        layer_vals = sum(grads[k].numel() for k in layer)
+        jobs = [{k: torch.randn(grads[k].shape, generator=gen, device=DEVICE).mul_(1e-3)
+                 for k in layer} for _ in range(n_jobs)]
+        all_modes = [pl16.feed_hour(b) for b in sc16.demand.T * ELASTIC_SCALE]
+        flips = [t for t in range(1, hours) if all_modes[t] != all_modes[t - 1]]
+        check(flips, "the 16-link planner never changed a mode")
+        t0 = max(0, flips[0] - SYNC_HOURS // 2)
+        errs_g = errs_u = None
+        for t in range(t0, t0 + SYNC_HOURS):
+            m = all_modes[t]
+            gs, errs_g, bg = fleet_sync_grads(jobs, mesh, m, errs_g, groups=pl16.sync_groups())
+            us, errs_u, bu = fleet_sync_grads(jobs, mesh, m, errs_u)
+            check(bg == bu == [sync_wire_bytes(j, mm) for j, mm in zip(jobs, m)],
+                  "fleet_sync_grads: billed bytes != sync_wire_bytes")
+            for i in range(n_jobs):
+                check(all(torch.equal(gs[i][k], us[i][k]) for k in layer),
+                      f"fleet_sync_grads grouped != ungrouped, job {i}, hour {t}")
+            del gs, us
+        print(f"fleet_sync_grads {n_jobs} jobs x one full-width layer ({layer_vals / 1e6:.1f} M "
+              f"values each), hours {t0}..{t0 + SYNC_HOURS - 1} over the first mode change at "
+              f"{flips[0]}: grouped == ungrouped, billed == sync_wire_bytes")
+        torch.cuda.synchronize()
+        parts["16-link planner + fleet_sync_grads"] = time.perf_counter() - t_part
+        launches = dict(ops.LAUNCHES)
+        print("  seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+        print(f"actuation path launches: { {k: launches[k] for k in ('int8_quantize', 'int8_dequantize', 'tiered_cost')} }")
+        for name in ("int8_quantize", "int8_dequantize", "tiered_cost"):
+            check(launches[name] >= 1, f"kernel {name} was not launched on the actuation path")
+        print(f"  memory: peak {torch.cuda.max_memory_allocated() / 1e9 - base_gb:.3f} GB "
+              f"allocated by the phase so far (net of the {base_gb:.3f} GB earlier phases hold)")
+        del jobs, errs_g, errs_u
+
+        # -- timings ------------------------------------------------------------
+        print(f"actuation timings on {card} (median ms; bound = max(bytes / 3.35 TB/s, "
+              f"ops / peak))")
+        for mode in ("direct", "hierarchical", "compressed"):
+            ms = sync_ms(lambda: sync_grads(grads, mesh, mode=mode), 3)
+            print(f"  sync_grads {mode}, whole pytree ({4 * n_values / 1e9:.2f} GB): {ms:.3f} ms")
+        print_breakdown(lambda: sync_grads(grads, mesh, mode="compressed"), reps=2,
+                        unit="compressed sync")
+        print_host_ops(lambda: sync_grads(grads, mesh, mode="compressed"))
+    finally:
+        dist.destroy_process_group()
+    fa = np.array(feed_us)
+    print(f"  ElasticFleetPlanner.feed_hour {ELASTIC_SIZE} links on the card: p50 "
+          f"{np.percentile(fa, 50):.1f} us, p95 {np.percentile(fa, 95):.1f} us")
+
+    qs = [int8_quantize(g.view(-1, g.shape[-1])) for g in leaves]
+    quant_all = lambda: [int8_quantize(g.view(-1, g.shape[-1])) for g in leaves]
+    dequant_all = lambda: [int8_dequantize(q, s) for q, s in qs]
+    # Over the pytree (201 launches) the device time is the kernels' own; the
+    # wall time of the loop is the host's launch rate.
+    print(f"  wall time of one pass over the {n_leaves} leaves (CUDA events, host launches "
+          f"included): int8_quantize {event_ms(quant_all, 5):.4f} ms, int8_dequantize "
+          f"{event_ms(dequant_all, 5):.4f} ms")
+    timing = {
+        "int8_quantize": (
+            device_busy_ms(quant_all, 3),
+            device_busy_ms(lambda: [ref.int8_quantize(g.view(-1, g.shape[-1]))
+                                    for g in leaves], 2),
+            quant_bound(rows_d, torch.float32)),
+        "int8_dequantize": (
+            device_busy_ms(dequant_all, 3),
+            device_busy_ms(lambda: [ref.int8_dequantize(q, s) for q, s in qs], 2),
+            dequant_bound(rows_d, torch.float32)),
+        "tiered_cost": (
+            event_ms(lambda: tiered_cost(cum32, d32, dci_scenario().vpn_tier.bounds_gb,
+                                         dci_scenario().vpn_tier.rates), 20),
+            event_ms(lambda: ref.tiered_cost(cum32, d32, dci_scenario().vpn_tier.bounds_gb,
+                                             dci_scenario().vpn_tier.rates), 5),
+            static_tiered_bound(T_w, P_w, 3)),
+    }
+    del qs
+    emb = grads["embed"]
+    emb_q = event_ms(lambda: int8_quantize(emb), 20)
+    labels = {"int8_quantize": f"int8_quantize f32, whole pytree ({n_leaves} launches), "
+                               f"profiler device time",
+              "int8_dequantize": f"int8_dequantize to f32, whole pytree ({n_leaves} launches), "
+                                 f"profiler device time",
+              "tiered_cost": f"tiered_cost {T_w} x {P_w} f32, 3 tiers"}
+    no_library = {
+        "int8_quantize": "torch.quantize_per_channel takes the scales as input",
+        "int8_dequantize": "no single call takes int8 values and per-row scales",
+        "tiered_cost": "no single call folds a tier table"}
+    for key, (ms, plain_ms, b) in timing.items():
+        print(f"  {labels[key]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), {ms / b['bound_ms']:.2f}x bound; "
+              f"library_ms null: {no_library[key]}")
+    b_emb = quant_bound([tuple(emb.shape)], torch.float32)
+    print(f"  int8_quantize f32 {tuple(emb.shape)} alone: {emb_q:.4f} ms, bound "
+          f"{b_emb['bound_ms'] * 1e3:.2f} us, {emb_q / b_emb['bound_ms']:.2f}x bound")
+    print(f"actuation phase: {time.perf_counter() - t_phase:.1f} s")
+    del grads, leaves
+
+    rows = {}
+    for key in timing:
+        ms, plain_ms, b = timing[key]
+        rows[key] = {"launches": launches[key],
+                     "max_abs_err": quant_err if key != "tiered_cost" else 0.0,
+                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+    return rows
+
+
 def fsm_args(arrays, vpn, cci):
     tp = arrays.toggle
     ones = torch.ones_like(tp.h)
@@ -958,6 +1372,7 @@ def main() -> int:
 
     stream_rows = streaming_phase(scen, references, card.splitlines()[0])
     lm_rows = lm_phase(card.splitlines()[0])
+    act_rows = actuation_phase(card.splitlines()[0])
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -992,6 +1407,18 @@ def main() -> int:
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:27",
          **lm_rows["rmsnorm"]},
+        {"name": "int8_quantize", "route": "cuda",
+         "source": "src/repro_torch/csrc/int8_quant.cu",
+         "replaces": "src/repro/kernels/int8_quant.py:32",
+         **act_rows["int8_quantize"]},
+        {"name": "int8_dequantize", "route": "cuda",
+         "source": "src/repro_torch/csrc/int8_quant.cu",
+         "replaces": "src/repro/kernels/int8_quant.py:57",
+         **act_rows["int8_dequantize"]},
+        {"name": "tiered_cost", "route": "cuda",
+         "source": "src/repro_torch/csrc/tiered_cost.cu",
+         "replaces": "src/repro/kernels/tiered_cost.py:48",
+         **act_rows["tiered_cost"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The paper's contribution in PyTorch: pricing, cost model, ToggleCCI.
 
 Port of :mod:`repro.core` (the pricing catalogs are a copy; the cost model
-and ToggleCCI have torch paths beside their numpy references).
+and ToggleCCI have torch paths beside their numpy references; the
+interconnect planner that drives the gradient sync's mode is a copy).
 """
 from .pricing import (  # noqa: F401
     CostParams,
@@ -16,6 +17,16 @@ from .costmodel import (  # noqa: F401
     monthly_cumsum,
     tiered_marginal_cost_np,
     tiered_marginal_cost_tables,
+)
+from .planner import (  # noqa: F401
+    COMPRESS_RATIO,
+    InterconnectPlanner,
+    PlannerReport,
+    ToggleCCIController,
+    collective_mode,
+    cross_pod_bytes_per_step,
+    dci_scenario,
+    fleet_planner,
 )
 from .togglecci import (  # noqa: F401
     ToggleParams,

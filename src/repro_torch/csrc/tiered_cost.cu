@@ -57,6 +57,63 @@ int launch(const F* month_cum, const F* demand, const F* bounds, const F* rates,
 
 }  // namespace
 
+// The static-table entry: one (T, P) float32 plane priced against ONE tier
+// table of at most kMaxTiers tiers, passed by value (kernel parameter space,
+// read by every thread at no memory cost), as the Pallas kernel
+// _tiered_kernel compiles its table in as constants.
+//
+// Replaces: src/repro/kernels/tiered_cost.py::tiered_cost (the Pallas TPU
+// kernel _tiered_kernel, reached through repro.kernels.ops.tiered_cost).
+// Bound: bytes, as above (two float32 reads and one write: 12 B per element;
+// 215 MB at 8760 x 2048, 64 us at 3.35 TB/s). The fold is the Pallas
+// kernel's left fold, total = total + clip(seg, 0) * rate, each step rounded
+// (_rn intrinsics, -fmad=false), so the result equals the plain version
+// repro_torch.kernels.ref.tiered_cost bit for bit.
+constexpr int kMaxTiers = 8;
+
+struct TierTable {           // by value from the wrapper (a ctypes.Structure)
+  int K;
+  float bounds[kMaxTiers];   // an infinite bound arrives as 1e30
+  float rates[kMaxTiers];
+};
+
+namespace {
+
+__global__ void tiered_cost_static_kernel(const float* __restrict__ month_cum,
+                                          const float* __restrict__ demand, int64_t total,
+                                          TierTable tab, float* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const float lo = month_cum[i];
+  const float hi = tier::add_rn(lo, demand[i]);
+  float acc = 0.f;
+  float prev = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxTiers; ++k) {      // unrolled: the table stays in registers
+    if (k < tab.K) {
+      const float seg = fmaxf(tier::sub_rn(fminf(hi, tab.bounds[k]), fmaxf(lo, prev)), 0.f);
+      acc = tier::add_rn(acc, tier::mul_rn(seg, tab.rates[k]));
+      prev = tab.bounds[k];
+    }
+  }
+  out[i] = acc;
+}
+
+}  // namespace
+
+extern "C" int tiered_cost_static_f32(const float* month_cum, const float* demand,
+                                      long long total, TierTable tab, float* out,
+                                      void* stream) {
+  if (total == 0) return (int)cudaSuccess;
+  if (tab.K < 0 || tab.K > kMaxTiers) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  tiered_cost_static_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      month_cum, demand, total, tab, out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int tiered_cost_batched_f64(const double* month_cum, const double* demand,
                                        const double* bounds, const double* rates,
                                        int N, int T, int K, double* out, void* stream) {

@@ -5,7 +5,9 @@ Port of the fleet-mode half of :mod:`repro.fleet`: specs
 (:mod:`~repro_torch.fleet.policy`), the engine
 (:mod:`~repro_torch.fleet.engine`), the scenario builder
 (:mod:`~repro_torch.fleet.scenario`) and the streaming runtime
-(:mod:`~repro_torch.fleet.runtime`, facade :mod:`~repro_torch.fleet.stream`).
+(:mod:`~repro_torch.fleet.runtime`, facade :mod:`~repro_torch.fleet.stream`)
+with the elastic planner that actuates the gradient sync
+(:class:`~repro_torch.fleet.runtime.ElasticFleetPlanner`).
 Quick start, on an NVIDIA GPU::
 
     from repro_torch.fleet import FleetRuntime, build_fleet_scenario, plan_fleet
@@ -47,6 +49,8 @@ from .spec import (  # noqa: F401
     pad_tier_tables,
 )
 from .runtime import (  # noqa: F401
+    ElasticFleetPlanner,
+    FleetPlannerReport,
     FleetRuntime,
     ResolvedRuntime,
     RuntimeConfig,

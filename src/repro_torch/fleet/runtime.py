@@ -26,8 +26,10 @@ FSM) — and one copy of the packed planes back. :meth:`~FleetRuntime.step` is
 (``device="cpu"``) the kernels' plain versions run instead.
 
 Ported: fleet mode (one row per link), the reactive and hysteresis
-policies, endogenous CCI demand. Not ported yet, each raising
-``NotImplementedError``: topology mode and ``reroute`` (ROADMAP Queue 1,
+policies, endogenous CCI demand, and the actuation layer on top of it
+(:class:`ElasticFleetPlanner`, whose per-link modes drive
+:func:`repro_torch.dist.collectives.fleet_sync_grads`). Not ported yet,
+each raising ``NotImplementedError``: topology mode and ``reroute`` (ROADMAP Queue 1,
 item 4), the forecast policy and ``StreamingForecaster`` (item 6),
 observability (item 8).
 """
@@ -39,7 +41,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.planner import collective_mode
+from repro_torch.core.planner import COMPRESS_RATIO, collective_mode
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
@@ -187,6 +189,8 @@ class FleetRuntime:
         self.hbuf = int(self._h_np.max()) + 1
         self.n_rows = self.n_demand_rows = int(tog.h.shape[0])
         self._rows_idx = np.arange(self.n_rows)
+        self.topology = False       # fleet mode: one decision row per link
+        self.obs = None             # observability is ROADMAP Queue 1, item 8
         # Per-row operands of the chunk, on the device. The CCI lease is
         # (L + V·1) before the volume term is added, as the JAX tick sums it.
         self._lease_cci = self.arrays.L_cci + self.arrays.V_cci
@@ -348,9 +352,117 @@ class FleetRuntime:
     def reroute(self, routing) -> None:
         raise not_ported(_TOPOLOGY)
 
+    def port_occupancy(self) -> np.ndarray:
+        """(M,) links attached per decision row: all ones in fleet mode."""
+        return np.ones(self.n_rows)
+
     def modes(self, out, *, mode_fn: Optional[Callable[[int], str]] = None) -> list:
         """Map one step's FSM states to per-link collective modes (fleet
         mode: one mode per link). ``mode_fn`` maps a state code to a mode;
         ``None`` uses :func:`repro_torch.core.planner.collective_mode`."""
         mode_fn = collective_mode if mode_fn is None else mode_fn
         return [mode_fn(int(s)) for s in np.asarray(out["state"])]
+
+
+# ---------------------------------------------------------------------------
+# Actuation: the endogenous-demand planner over the runtime
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FleetPlannerReport:
+    """Realized economics of an actuated streaming run (fleet mode: decision
+    rows, actuators and links are the same N rows)."""
+
+    hours: int
+    total_cost: float
+    cost_always_vpn: float
+    cost_always_cci: float
+    on_fraction: np.ndarray        # (M,) fraction of hours the row leased
+    total_gb: float
+    link_cost: np.ndarray          # (M,) realized cost per decision row
+    port_occupancy: np.ndarray     # (M,) links attached per row (all ones)
+    pair_gb: np.ndarray            # (P,) billed GB per link
+    pair_gb_saved: np.ndarray      # (P,) wire GB saved vs always-full-precision
+
+    @property
+    def wire_savings_fraction(self) -> float:
+        """Fleet-wide fraction of raw wire GB the compressed path saved."""
+        raw = self.pair_gb.sum() + self.pair_gb_saved.sum()
+        return float(self.pair_gb_saved.sum() / raw) if raw > 0 else 0.0
+
+
+class ElasticFleetPlanner:
+    """N-link :class:`repro_torch.core.planner.InterconnectPlanner`.
+
+    Port of :class:`repro.fleet.runtime.ElasticFleetPlanner` in fleet mode.
+    ``feed_hour(bytes)`` per tick: each link's FSM mode actuates the
+    collective layer (``'hierarchical'`` over the leased link at full
+    precision, ``'compressed'`` int8 + error feedback on the pay-per-GB
+    path), and each mode's counterfactual is priced on its own demand
+    shape: the VPN path carries ``compress_ratio`` times fewer billed GB
+    (``runtime.step(gb / ratio, cci_demand_t=gb)``). Feed the modes to
+    :func:`repro_torch.dist.collectives.fleet_sync_grads` with
+    ``groups=sync_groups()``.
+
+    ``compress_ratio`` and ``collective_mode`` are per-instance knobs, as
+    in the JAX class (``None``: :data:`COMPRESS_RATIO` and
+    :func:`~repro_torch.core.planner.collective_mode`). The runtime's
+    keywords pass through (``device=``, ``policy=``, ...); per-port
+    topology mode (``TopologySpec``, ``routing=``) is ROADMAP Queue 1,
+    item 4, and ``obs=`` item 8: both raise ``NotImplementedError``.
+    """
+
+    COMPRESS_RATIO = COMPRESS_RATIO
+
+    def __init__(self, fleet, *, compress_ratio: Optional[float] = None,
+                 collective_mode: Optional[Callable[[int], str]] = None, **runtime_kw):
+        self.runtime = FleetRuntime(fleet, **runtime_kw)
+        self.topology = self.runtime.topology
+        self.compress_ratio = float(compress_ratio or self.COMPRESS_RATIO)
+        self.collective_mode = (collective_mode if collective_mode is not None
+                                else globals()["collective_mode"])
+        n, p = self.runtime.n_rows, self.runtime.n_demand_rows
+        self.cost = np.zeros(n)
+        self.cost_vpn_only = np.zeros(n)
+        self.cost_cci_only = np.zeros(n)
+        self.gb = np.zeros(p)
+        self.gb_saved = np.zeros(p)
+        self.on_hours = np.zeros(n, np.int64)
+
+    def sync_groups(self) -> np.ndarray:
+        """(P,) leased-sync-domain id per actuator: its own row in fleet
+        mode. Feed as ``groups=`` to ``fleet_sync_grads``."""
+        return np.arange(self.runtime.n_rows)
+
+    def feed_hour(self, cross_pod_bytes) -> list:
+        """Account one hour of per-link cross-pod traffic (bytes). Returns
+        each link's collective mode for the hour just served."""
+        raw_gb = np.asarray(cross_pod_bytes, np.float64) / 1e9
+        out = self.runtime.step(raw_gb / self.compress_ratio, cci_demand_t=raw_gb)
+        on = out["x"] == 1
+        vpn_c, cci_c = out["vpn_cost"], out["cci_cost"]
+        self.cost += np.where(on, cci_c, vpn_c)
+        self.cost_vpn_only += vpn_c
+        self.cost_cci_only += cci_c
+        modes = self.runtime.modes(out, mode_fn=self.collective_mode)
+        on_act = np.asarray([m == "hierarchical" for m in modes])
+        self.gb += np.where(on_act, raw_gb, raw_gb / self.compress_ratio)
+        self.gb_saved += np.where(on_act, 0.0, raw_gb - raw_gb / self.compress_ratio)
+        self.on_hours += on
+        return modes
+
+    def report(self) -> FleetPlannerReport:
+        h = self.runtime.t
+        return FleetPlannerReport(
+            hours=h,
+            total_cost=float(self.cost.sum()),
+            cost_always_vpn=float(self.cost_vpn_only.sum()),
+            cost_always_cci=float(self.cost_cci_only.sum()),
+            on_fraction=self.on_hours / max(1, h),
+            total_gb=float(self.gb.sum()),
+            link_cost=self.cost.copy(),
+            port_occupancy=self.runtime.port_occupancy(),
+            pair_gb=self.gb.copy(),
+            pair_gb_saved=self.gb_saved.copy(),
+        )

@@ -2,20 +2,21 @@
 
 Facade of :mod:`repro.fleet.stream`: the incremental runtime
 (:class:`FleetRuntime`, its frozen :class:`RuntimeConfig`, and the operand
-resolution it shares). The live forecaster and the endogenous-demand
-elastic planner keep their names here and raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+resolution it shares) and the endogenous-demand planner over it
+(:class:`ElasticFleetPlanner`, fleet mode). The live forecaster keeps its
+names here and raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from .runtime import (  # noqa: F401
     _FORECAST,
+    ElasticFleetPlanner,
+    FleetPlannerReport,
     FleetRuntime,
     ResolvedRuntime,
     RuntimeConfig,
     not_ported,
     resolve_runtime_operands,
 )
-
-_ELASTIC = "ElasticFleetPlanner (the actuation layer) is ROADMAP Queue 1, item 10"
 
 
 class StreamingForecaster:
@@ -29,13 +30,6 @@ class StreamingForecaster:
         raise not_ported(_FORECAST)
 
 
-class ElasticFleetPlanner:
-    """Not ported yet: per-link modes actuating the collectives."""
-
-    def __init__(self, *args, **kwargs):
-        raise not_ported(_ELASTIC)
-
-
 def streaming_forecast_policy(*args, **kwargs):
     """Not ported yet: the live-mode forecast policy factory."""
     raise not_ported(_FORECAST)
@@ -43,6 +37,7 @@ def streaming_forecast_policy(*args, **kwargs):
 
 __all__ = [
     "ElasticFleetPlanner",
+    "FleetPlannerReport",
     "FleetRuntime",
     "ResolvedRuntime",
     "RuntimeConfig",

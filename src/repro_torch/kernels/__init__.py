@@ -15,6 +15,9 @@ points ``tiered_cost_scan`` and ``tiered_cost_calendar``; replaces the
 Pallas kernel of that name) and ``fsm_chunk`` (K hours of the FSM from a
 carry; replaces the ``lax.scan`` of the streaming runtime's chunk), and
 for the LM's serving path ``flash_attention`` (blocked online-softmax
-attention) and ``rmsnorm``, each replacing the Pallas kernel of that name.
+attention) and ``rmsnorm``, and for the actuation path ``int8_quantize`` /
+``int8_dequantize`` (per-row int8 of the compressed gradient sync) and
+``tiered_cost`` (one static tier table over a (T, P) plane), each replacing
+the Pallas kernel of that name.
 """
 from . import ops, ref  # noqa: F401

@@ -26,7 +26,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "rmsnorm.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "int8_quant.cu")
 #: The float64 sources, held bit for bit against their plain versions.
 EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu")
 #: Headers the sources include; part of the build hash.
@@ -49,7 +49,8 @@ EXACT_FLAGS = ("-fmad=false",)
 #: run went through.
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0,
-    "flash_attention": 0, "rmsnorm": 0,
+    "flash_attention": 0, "rmsnorm": 0, "int8_quantize": 0, "int8_dequantize": 0,
+    "tiered_cost": 0,
 }
 
 _lock = threading.Lock()
@@ -58,6 +59,17 @@ _lib: Optional[ctypes.CDLL] = None
 build_seconds = 0.0
 #: The compiler's output of the last build (``-Xptxas -v`` register counts).
 build_log = ""
+
+
+#: Tiers of the static table the ``tiered_cost`` kernel takes by value.
+MAX_TIERS = 8
+
+
+class TierTable(ctypes.Structure):
+    """``struct TierTable`` of ``csrc/tiered_cost.cu``, passed by value."""
+
+    _fields_ = [("K", ctypes.c_int), ("bounds", ctypes.c_float * MAX_TIERS),
+                ("rates", ctypes.c_float * MAX_TIERS)]
 
 
 def reset_launches() -> None:
@@ -140,6 +152,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p] * 6 + [ctypes.c_float, p]
         fn.restype = i
+    ll = ctypes.c_longlong
+    for name in ("int8_quantize_f32", "int8_quantize_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, ll, i, p, p, p]           # x, rows, d, q, scale, stream
+        fn.restype = i
+    for name in ("int8_dequantize_f32", "int8_dequantize_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, ll, i, p, p]           # q, scale, rows, d, out, stream
+        fn.restype = i
+    lib.tiered_cost_static_f32.argtypes = [p, p, ctypes.c_longlong, TierTable, p, p]
+    lib.tiered_cost_static_f32.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -13,7 +13,7 @@ one where it launches and nowhere else.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,7 +21,10 @@ from . import ref
 from .flash_attention import flash_attention as _flash_kernel
 from .fsm_scan import fsm_chunk as _fsm_chunk_kernel
 from .fsm_scan import fsm_scan as _fsm_scan_kernel
+from .int8_quant import int8_dequantize as _dequant_kernel
+from .int8_quant import int8_quantize as _quant_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
+from .tiered_cost import tiered_cost as _tiered_static_kernel
 from .tiered_cost import tiered_cost_batched as _tiered_kernel
 from .tiered_cost_scan import tiered_cost_calendar as _calendar_kernel
 from .tiered_cost_scan import tiered_cost_scan as _scan_kernel
@@ -100,3 +103,29 @@ def rmsnorm(x, w, *, eps: float = 1e-6) -> torch.Tensor:
     if _route(x, "rmsnorm"):
         return _rmsnorm_kernel(x.contiguous(), w.contiguous(), eps=eps)
     return ref.rmsnorm(x, w, eps=eps)
+
+
+def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 of x (N, d), float32 or bfloat16: ``(q int8
+    (N, d), scale float32 (N, 1))``, any N and d."""
+    if _route(x, "int8_quantize"):
+        return _quant_kernel(x.contiguous())
+    return ref.int8_quantize(x)
+
+
+def int8_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``q · scale`` of int8 q (N, d) and float32 scale (N, 1), as ``dtype``."""
+    if _route(q, "int8_dequantize"):
+        return _dequant_kernel(q.contiguous(), scale.contiguous(), dtype)
+    return ref.int8_dequantize(q, scale, dtype)
+
+
+def tiered_cost(month_cum: torch.Tensor, demand: torch.Tensor,
+                bounds: Sequence[float], rates: Sequence[float]) -> torch.Tensor:
+    """(T, P) float32 tiered cost against one static tier table given as
+    Python sequences (an infinite bound becomes ``1e30``; at most 8 tiers)."""
+    if _route(month_cum, "tiered_cost"):
+        f32 = lambda a: a.to(torch.float32).contiguous()
+        return _tiered_static_kernel(f32(month_cum), f32(demand), bounds, rates)
+    return ref.tiered_cost(month_cum, demand, bounds, rates)

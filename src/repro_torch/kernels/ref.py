@@ -1,19 +1,22 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
 
-Port of :mod:`repro.kernels.ref` for the kernels of the fleet planner's
-and the LM serving path. Each function computes what its CUDA kernel computes, in the same
+Port of :mod:`repro.kernels.ref` for the kernels of the fleet planner's,
+the LM serving and the actuation path (int8 quantization, the static
+tiered cost). Each function computes what its CUDA kernel computes, in the same
 order of operations where that order decides the bits. They run wherever a
 tensor lies; :mod:`repro_torch.kernels.ops` sends CPU tensors here, and the
 chip checks hold each kernel against its plain version on the card.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.costmodel import tiered_marginal_cost_tables
 from repro_torch.core.togglecci import ToggleParams, window_sums
+
+from .tiered_cost import tier_table
 
 
 def tiered_cost_batched_ref(
@@ -210,3 +213,49 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+
+
+def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.int8_quant.int8_quantize`
+    (port of ``repro.kernels.ref.int8_quantize``): per-row symmetric int8,
+    ``scale = max(amax, 1e-30) / 127`` in float32, ``q = clamp(round(x /
+    scale), -127, 127)`` rounding half to even; returns ``(q (N, d) int8,
+    scale (N, 1) float32)``."""
+    if x.ndim != 2:
+        raise ValueError(f"int8_quantize takes (N, d), got {tuple(x.shape)}")
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # Divide by a tensor, not the Python number: on CUDA PyTorch turns a
+    # division by a CPU scalar into a product with its reciprocal, which
+    # rounds differently from the true division of the kernel and the CPU.
+    scale = amax.clamp_min(1e-30) / torch.full_like(amax, 127.0)
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.int8_quant.int8_dequantize`:
+    ``q · scale`` in float32, cast to ``dtype``."""
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def tiered_cost(month_cum: torch.Tensor, demand: torch.Tensor,
+                bounds: Sequence[float], rates: Sequence[float]) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.tiered_cost.tiered_cost`:
+    the Pallas ``_tiered_kernel``'s left fold over one static tier table in
+    float32, ``total = total + clip(min(hi, b) - max(lo, prev), 0) · rate``
+    (an infinite bound is ``1e30``). The JAX ``ref.tiered_cost`` sums over a
+    tier axis instead, so it agrees to rounding, not bit for bit."""
+    bounds, rates = tier_table(bounds, rates)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=month_cum.device)
+    lo = month_cum.to(torch.float32)
+    hi = lo + demand.to(torch.float32)
+    total = torch.zeros_like(lo)
+    prev = f32(0.0)
+    for b, r in zip(bounds, rates):
+        b = f32(b)
+        seg = (torch.minimum(hi, b) - torch.maximum(lo, prev)).clamp_min(0.0)
+        total = total + seg * f32(r)
+        prev = b
+    return total

@@ -8,10 +8,18 @@ float64 (the fleet engine's default path; bit-equal to
 (the ``use_pallas`` path). Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.tiered_cost_batched_ref`.
 
-This wrapper takes CUDA tensors only; :mod:`repro_torch.kernels.ops`
+The static-table entry :func:`tiered_cost` is the port of
+:func:`repro.kernels.tiered_cost.tiered_cost`: a (T, P) float32 plane
+priced against one tier table passed by value (plain version
+:func:`repro_torch.kernels.ref.tiered_cost`).
+
+These wrappers take CUDA tensors only; :mod:`repro_torch.kernels.ops`
 dispatches CPU tensors to the plain version.
 """
 from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
 
 import torch
 
@@ -53,4 +61,51 @@ def tiered_cost_batched(
         )
     _lib.check(status, _ENTRY[dtype])
     _lib.LAUNCHES["tiered_cost_batched"] += 1
+    return out
+
+
+def tier_table(bounds: Sequence[float], rates: Sequence[float]) -> Tuple[Tuple[float, ...],
+                                                                          Tuple[float, ...]]:
+    """One static tier table as Python floats, as the Pallas op takes it: an
+    infinite bound becomes ``1e30``; at most :data:`_lib.MAX_TIERS` tiers."""
+    bounds = tuple(float(b) if math.isfinite(b) else 1e30 for b in bounds)
+    rates = tuple(float(r) for r in rates)
+    if len(bounds) != len(rates):
+        raise ValueError(f"{len(bounds)} bounds but {len(rates)} rates")
+    if len(bounds) > _lib.MAX_TIERS:
+        raise ValueError(f"tiered_cost takes at most {_lib.MAX_TIERS} tiers, got {len(bounds)}")
+    return bounds, rates
+
+
+def tiered_cost(
+    month_cum: torch.Tensor,     # (T, P) float32 volume of the month before the hour
+    demand: torch.Tensor,        # (T, P) float32
+    bounds: Sequence[float],     # upper bounds; inf is mapped to 1e30
+    rates: Sequence[float],
+) -> torch.Tensor:
+    """(T, P) tiered cost against one static tier table (CUDA): port of
+    :func:`repro.kernels.tiered_cost.tiered_cost`. Any T and P (the TPU
+    kernel's ``T % 512`` is a tiling limit)."""
+    bounds, rates = tier_table(bounds, rates)
+    if month_cum.dtype != torch.float32 or demand.dtype != torch.float32:
+        raise TypeError(f"tiered_cost takes float32, got {month_cum.dtype}, {demand.dtype}")
+    if month_cum.ndim != 2 or demand.shape != month_cum.shape:
+        raise ValueError(f"shapes: month_cum {tuple(month_cum.shape)}, demand "
+                         f"{tuple(demand.shape)}")
+    for a in (month_cum, demand):
+        if not a.is_cuda or a.device != month_cum.device:
+            raise ValueError("tiered_cost takes CUDA tensors on one device")
+        if not a.is_contiguous():
+            raise ValueError("tiered_cost takes contiguous tensors")
+    tab = _lib.TierTable(len(bounds))
+    tab.bounds[:len(bounds)] = bounds
+    tab.rates[:len(rates)] = rates
+    lib = _lib.load()
+    out = torch.empty_like(month_cum)
+    with torch.cuda.device(month_cum.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tiered_cost_static_f32(month_cum.data_ptr(), demand.data_ptr(),
+                                            month_cum.numel(), tab, out.data_ptr(), stream)
+    _lib.check(status, "tiered_cost_static_f32")
+    _lib.LAUNCHES["tiered_cost"] += 1
     return out

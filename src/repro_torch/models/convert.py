@@ -7,6 +7,9 @@ dicts and lists of numpy arrays (``jax.tree.map(np.asarray, params)``; the
 port never sees JAX) and returns a state dict for ``LM.load_state_dict``,
 one entry per layer in depth order. The weights keep the reference's
 ``(in, out)`` layout, which the port also uses (``x @ W``).
+
+:func:`tree_from_reference` carries any other state of the reference
+(gradients, error-feedback residuals) into the port's pytrees of tensors.
 """
 from __future__ import annotations
 
@@ -14,6 +17,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import tree_map
 
 from .common import ModelConfig
 from .lm import check_supported
@@ -39,3 +45,22 @@ def params_from_reference(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
     if i != cfg.n_layers:
         raise ValueError(f"reference tree has {i} layers, config {cfg.n_layers}")
     return state
+
+
+def tree_from_reference(tree, device: DeviceLike = None):
+    """A pytree of the reference's numpy arrays as the port's pytree of
+    tensors on ``device`` (``None``: the card): gradients, error-feedback
+    residuals or any other carried state, given as ``jax.tree.map(np.asarray,
+    tree)``. Dicts, lists, tuples and ``None`` keep their structure
+    (:func:`repro_torch.tree.tree_map`); each array keeps its shape and
+    dtype, bfloat16 included (``ml_dtypes`` arrays are reinterpreted bit for
+    bit)."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.array(a, copy=True)                   # writable, contiguous, owned
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(a).to(dev)
+
+    return tree_map(leaf, tree)

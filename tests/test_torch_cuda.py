@@ -10,7 +10,10 @@ Tests marked ``cuda`` need an NVIDIA GPU and skip on a host without one
 tiered kernels, the FSM kernels and the streaming runtime keep the plain
 versions' order of operations and are held bit for bit (the FSM scan
 against the plain version on the CPU, whose cumsum is sequential); the
-float32 tiered kernels at ``rtol=atol=1e-6``. The LM's kernels against
+float32 tiered kernels at ``rtol=atol=1e-6``. The actuation slice's
+int8 quantize/dequantize and static ``tiered_cost`` kernels are bit-equal
+to their plain versions on the card (``torch.equal``), and so is a
+compressed ``sync_grads`` on a one-rank NCCL mesh. The LM's kernels against
 their float32 plain versions: flash attention at ``2e-5`` in float32 and
 ``2e-2`` in bfloat16, RMSNorm at ``1e-5`` and ``2e-2`` (the tolerances
 ``tests/test_kernels.py`` holds the Pallas kernels to).
@@ -159,7 +162,8 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
     assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1,
                             "tiered_cost_scan": 0, "fsm_chunk": 0,
-                            "flash_attention": 0, "rmsnorm": 0}
+                            "flash_attention": 0, "rmsnorm": 0,
+                            "int8_quantize": 0, "int8_dequantize": 0, "tiered_cost": 0}
     assert got["x"].is_cuda
     want = plan_fleet(sc.fleet, sc.demand, device="cpu")
     for k in ("x", "state"):
@@ -329,3 +333,129 @@ def test_lm_on_the_card_matches_the_cpu(cuda_device):
             g, _ = lm.forward(cfg, model, tokens.to(cuda_device))
             c, _ = lm.forward(cfg, cpu, tokens)
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The actuation slice: int8 (de)quantization, static tiered cost, the sync
+# ---------------------------------------------------------------------------
+
+INT8_CASES = [(4096, 2048), (2048, 5632), (17, 2048), (1, 2048), (300, 33), (5, 13000)]
+
+
+def _int8_rows(shape, dtype, device, seed=0):
+    """Seeded rows with a row of zeros and one whose |max| is 1e-29."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(shape, generator=g) * 3.0
+    x[0] = 0.0
+    if shape[0] > 2:
+        x[2] *= 1e-29 / x[2].abs().max()
+    return x.to(dtype).to(device)
+
+
+def test_actuation_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.int8_quant import int8_dequantize, int8_quantize
+    from repro_torch.kernels.tiered_cost import tiered_cost
+
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_quantize(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_dequantize(torch.zeros((4, 8), dtype=torch.int8), torch.ones((4, 1)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tiered_cost(x, x, (1.0, float("inf")), (0.1, 0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", INT8_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_kernels_bit_equal_to_plain(cuda_device, shape, dtype):
+    """Any N and d (ragged, one row, a row wider than the shared-memory
+    cache), a zero row and a tiny row: q, scale and both dequantized types
+    equal the plain version on the same CUDA tensors."""
+    x = _int8_rows(shape, dtype, cuda_device)
+    before = dict(ops.LAUNCHES)
+    q, s = ops.int8_quantize(x)
+    wq, ws = ref.int8_quantize(x)
+    assert torch.equal(s, ws), f"{int((s != ws).sum())} scales differ"
+    assert torch.equal(q, wq), f"{int((q != wq).sum())} of {q.numel()} q differ"
+    assert bool((q[0] == 0).all())
+    for odt in (torch.float32, torch.bfloat16):
+        assert torch.equal(ops.int8_dequantize(q, s, odt), ref.int8_dequantize(q, s, odt))
+    assert ops.LAUNCHES["int8_quantize"] == before["int8_quantize"] + 1
+    assert ops.LAUNCHES["int8_dequantize"] == before["int8_dequantize"] + 2
+    # and equal to the CPU plain version on the same values
+    cq, cs = ref.int8_quantize(x.cpu())
+    assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_check_their_inputs(cuda_device):
+    from repro_torch.kernels.int8_quant import int8_dequantize, int8_quantize
+
+    x = torch.randn((8, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        int8_quantize(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_quantize(x.t())
+    with pytest.raises(ValueError, match="shapes"):
+        int8_dequantize(torch.zeros((8, 16), dtype=torch.int8, device=cuda_device),
+                        torch.ones((4, 1), device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8760, 2048), (300, 7), (1, 1)])
+def test_tiered_cost_kernel_bit_equal_to_plain(cuda_device, shape):
+    from repro_torch.core.planner import dci_scenario
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    d = (torch.rand(shape, generator=g) * 500.0).to(cuda_device)
+    cum = torch.cumsum(d, dim=0) - d
+    for tier in (dci_scenario().vpn_tier, AWS_EGRESS_INTERNET):   # inf last bounds
+        before = ops.LAUNCHES["tiered_cost"]
+        got = ops.tiered_cost(cum, d, tier.bounds_gb, tier.rates)
+        assert ops.LAUNCHES["tiered_cost"] == before + 1
+        want = ref.tiered_cost(cum, d, tier.bounds_gb, tier.rates)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), ref.tiered_cost(cum.cpu(), d.cpu(), tier.bounds_gb,
+                                                      tier.rates))
+
+
+@pytest.fixture
+def nccl_pod_mesh(cuda_device, tmp_path):
+    """A one-rank NCCL world and a (1, 1, 1) pod mesh on the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_compressed_sync_on_nccl_matches_the_plain_path(nccl_pod_mesh, cuda_device):
+    from repro_torch.dist.collectives import sync_grads
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    grads = {"w": torch.randn((512, 256), generator=g).to(cuda_device),
+             "b": [torch.randn((300,), generator=g).to(cuda_device)],
+             "t": (torch.randn((3, 4, 40), generator=g).to(cuda_device),)}
+    for mode in ("direct", "hierarchical"):
+        out, err = sync_grads(grads, nccl_pod_mesh, mode=mode)
+        assert err is None
+        assert torch.equal(out["w"], grads["w"]) and torch.equal(out["b"][0], grads["b"][0])
+    err = None
+    for _ in range(2):
+        ops.reset_launches()
+        out, new_err = sync_grads(grads, nccl_pod_mesh, mode="compressed", err_state=err)
+        assert ops.LAUNCHES["int8_quantize"] == 3 and ops.LAUNCHES["int8_dequantize"] == 6
+        leaves = lambda t: [t["b"][0], t["t"][0], t["w"]]
+        olds = leaves(err) if err is not None else [None] * 3
+        for a, e, o, ne in zip(leaves(grads), olds, leaves(out), leaves(new_err)):
+            u = a + e if e is not None else a
+            q, s = ref.int8_quantize(u.reshape(-1, u.shape[-1]))
+            deq = ref.int8_dequantize(q, s).view(u.shape)
+            assert torch.equal(o, deq) and torch.equal(ne, u - deq)
+        err = new_err

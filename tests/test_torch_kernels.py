@@ -297,3 +297,111 @@ def test_lm_kernel_dispatch_refuses_other_devices():
         ops.attention(q, q, q)
     with pytest.raises(ValueError, match="no kernel or plain version"):
         ops.rmsnorm(q, torch.empty(8, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# int8 quantization and the static tiered cost (the actuation slice)
+# ---------------------------------------------------------------------------
+
+INT8_SHAPES = [(256, 128), (512, 1024), (17, 33)]
+
+
+def _int8_input(shape, dtype, seed=7):
+    """x * 3 from a seeded normal, with a zero row; as a JAX array and the
+    same bits as a torch tensor."""
+    from repro_torch.models.convert import tree_from_reference
+
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=shape) * 3.0).astype(np.float32)
+    x[1] = 0.0
+    jx = jnp.asarray(x, dtype)
+    return jx, tree_from_reference(np.asarray(jx), CPU)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", INT8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_plain_bit_equal_to_jax_ref(shape, dtype):
+    from repro.kernels import ref as jref
+
+    jx, x = _int8_input(shape, dtype)
+    q, s = ops.int8_quantize(x)
+    jq, js = jref.int8_quantize(jx)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32 and s.shape == (shape[0], 1)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert (q[1] == 0).all()
+    for odt in ("float32", "bfloat16"):
+        got = ops.int8_dequantize(q, s, getattr(torch, odt))
+        want = np.asarray(jref.int8_dequantize(jq, js, dtype=getattr(jnp, odt)))
+        assert got.dtype == getattr(torch, odt)
+        np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", INT8_SHAPES[:2], ids=lambda s: "x".join(map(str, s)))
+def test_int8_plain_matches_pallas_interpret(shape, dtype):
+    """Against the Pallas kernels in interpret mode, with
+    ``tests/test_kernels.py``'s allowance: the interpreted scale may differ
+    by rounding, so |Δq| <= 1 on fewer than 1e-3 of the entries."""
+    from repro.kernels.int8_quant import int8_dequantize, int8_quantize
+
+    jx, x = _int8_input(shape, dtype)
+    jq, js = int8_quantize(jx, interpret=True)
+    q, s = ops.int8_quantize(x)
+    dq = np.abs(q.numpy().astype(np.int32) - np.asarray(jq, np.int32))
+    assert dq.max() <= 1 and (dq != 0).mean() < 1e-3
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6)
+    want = np.asarray(int8_dequantize(jq, js, interpret=True))
+    got = ops.int8_dequantize(q, s).numpy()
+    np.testing.assert_allclose(got, want, atol=float(np.asarray(js).max()) * 1.01)
+    assert (np.abs(x.float().numpy() - got) <= s.numpy() * 0.5 + 1e-6).all()
+
+
+@pytest.mark.parametrize("T,P", [(512, 1), (1024, 4), (8704, 8)])
+def test_tiered_cost_plain_matches_pallas_and_jax_ref(T, P):
+    """The static-table plain version: against the Pallas kernel in interpret
+    mode and the JAX oracle (a sum over a tier axis) at ``rtol=atol=1e-6``,
+    and against the float64 numpy reference at ``atol=2e-2`` (float32
+    resolution at month volumes of ~2e6 GB), as ``tests/test_kernels.py``."""
+    from repro.core.costmodel import tiered_marginal_cost_np
+    from repro.core.pricing import AWS_EGRESS_INTERNET as tier
+    from repro.kernels import ref as jref
+    from repro.kernels.tiered_cost import tiered_cost as jtiered_cost
+
+    rng = np.random.default_rng(8)
+    d = rng.uniform(0, 500, size=(T, P)).astype(np.float32)
+    cum = (np.cumsum(d, axis=0) - d).astype(np.float32)
+    got = ops.tiered_cost(_t(cum), _t(d), tier.bounds_gb, tier.rates)
+    assert got.dtype == torch.float32 and got.shape == (T, P)
+    pallas = np.asarray(jtiered_cost(jnp.asarray(cum), jnp.asarray(d), tier.bounds_gb,
+                                     tier.rates, interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-6, atol=1e-6)
+    b32 = jnp.asarray([b if np.isfinite(b) else 1e30 for b in tier.bounds_gb], jnp.float32)
+    oracle = np.asarray(jref.tiered_cost(jnp.asarray(cum), jnp.asarray(d), b32,
+                                         jnp.asarray(tier.rates, jnp.float32)))
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), tiered_marginal_cost_np(tier, cum, d), atol=2e-2)
+
+
+def test_tiered_cost_plain_is_the_left_fold_and_checks_the_table():
+    """A hand-folded case through every tier, an infinite bound as 1e30, and
+    more tiers than the kernel's table holds raise."""
+    cum = torch.tensor([[0.0, 10.0, 30.0]])
+    d = torch.tensor([[25.0, 15.0, 5.0]])
+    got = ops.tiered_cost(cum, d, (10.0, 20.0, float("inf")), (3.0, 2.0, 1.0))
+    np.testing.assert_array_equal(got.numpy(), [[10 * 3 + 10 * 2 + 5 * 1, 10 * 2 + 5, 5.0]])
+    with pytest.raises(ValueError, match="at most 8"):
+        ops.tiered_cost(cum, d, [float(i) for i in range(1, 10)], [1.0] * 9)
+    with pytest.raises(ValueError, match="rates"):
+        ops.tiered_cost(cum, d, (1.0, 2.0), (1.0,))
+
+
+def test_actuation_kernel_dispatch_refuses_other_devices():
+    x = torch.empty((4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.int8_quantize(x)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.int8_dequantize(torch.empty((4, 8), dtype=torch.int8, device="meta"),
+                            torch.empty((4, 1), device="meta"))
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.tiered_cost(x, x, (1.0, float("inf")), (0.1, 0.05))

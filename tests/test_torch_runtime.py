@@ -265,8 +265,10 @@ def test_out_of_scope_paths_raise_not_implemented():
         stream.StreamingForecaster.fit(sc.demand, 24)
     with pytest.raises(NotImplementedError, match="item 6"):
         stream.streaming_forecast_policy(None, sc.demand)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        stream.ElasticFleetPlanner(sc.fleet)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        stream.ElasticFleetPlanner(sc.fleet, device="cpu", routing=[0] * 8)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        stream.ElasticFleetPlanner(sc.fleet, device="cpu", obs=True)
     from repro_torch.gateway import FleetGateway
 
     with pytest.raises(NotImplementedError, match="item 9"):

@@ -86,7 +86,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert len(mods) >= 20, mods\n"
-        "for sub in ('models', 'configs', 'train', 'launch'):\n"
+        "for sub in ('models', 'configs', 'train', 'launch', 'dist'):\n"
         "    assert any(m.startswith('repro_torch.' + sub + '.') for m in mods), sub\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
