@@ -9,7 +9,7 @@ What it does, in order (any failure raises and the script exits non-zero
 without printing a result):
 
 1. prints the card (``nvidia-smi`` name and power limit), the CUDA and
-   ``nvcc`` versions, and builds the two CUDA kernels from
+   ``nvcc`` versions, and builds the CUDA kernels from
    ``src/repro_torch/csrc`` (the build's seconds and ``ptxas`` report);
 2. builds 128 x 8760 and 2048 x 8760 fleets with the port's own scenario
    builder (seed 0; host numpy, once each);
@@ -44,21 +44,31 @@ without printing a result):
    time; at K = 24 they are launch-bound) and the host and device parts
    of one step;
 8. the LM serving path (:func:`lm_phase`): holds the flash-attention and
-   RMSNorm kernels against their plain versions (TinyLlama's prefill shape
-   in bfloat16 at ``2e-2``; the TPU kernel's contract in float32 at
-   ``2e-5``; RMSNorm at 4096 and 4 rows x 2048, ``2e-2``/``1e-5``), runs a
-   2-layer full-width TinyLlama in float32 on the card and on the CPU
-   (prefill and teacher-forced decode logits within ``SLICE_TOL``, greedy
-   tokens equal), then, with every launch count at 0, serves 3 request
-   batches of full-width, full-depth ``tinyllama-1.1b`` in bfloat16 (B = 4,
-   1024 prompt tokens, 64 new) through ``greedy_generate`` and fails unless
-   each batch launched ``flash_attention`` 22 times and ``rmsnorm`` 45 times
-   per forward; checks the decode chain against ``forward`` over the same
-   tokens (``SERVE_TOL``) and times prefill, decode, the kernels, their
-   plain versions and the one PyTorch call for each (SDPA, ``F.rms_norm``);
-9. the actuation path (:func:`actuation_phase`): holds ``int8_quantize`` /
-   ``int8_dequantize`` (float32 and bfloat16, TinyLlama's leaf shapes, a zero
-   row and a row with |max| 1e-29) and the static ``tiered_cost`` (8760 x
+   RMSNorm kernels against their plain versions: the Hopper entry
+   (``flash_attention_sm90``) in bfloat16 at ``2e-2`` on TinyLlama's prefill
+   shape, the TPU kernel's seven contract cases and H2O-Danube3's
+   full-width shape (1, 32, 8, 1024, 1024, 120, 120), causal, with windows
+   256 and 4096, failing unless that entry launched for each; the general
+   entry in float32 at ``2e-5`` on the contract cases; RMSNorm at 4096 and 4
+   rows x 2048, ``2e-2``/``1e-5``. It runs a 2-layer full-width TinyLlama in
+   float32 on the card and on the CPU (prefill and teacher-forced decode
+   logits within ``SLICE_TOL``, greedy tokens equal), then, with every
+   launch count at 0, serves 3 request batches of full-width, full-depth
+   ``tinyllama-1.1b`` in bfloat16 (B = 4, 1024 prompt tokens, 64 new)
+   through ``greedy_generate`` and fails unless each batch launched
+   ``flash_attention_sm90`` 22 times and ``rmsnorm`` 45 times per forward;
+   checks the decode chain against ``forward`` over the same tokens
+   (``SERVE_TOL``) and times prefill and decode (with the prefill's device
+   breakdown), then, in one table at the prefill shape, the Hopper kernel,
+   the general kernel on the same inputs, SDPA and the plain version
+   (device time per call from CUDA events) beside the bound, the Hopper kernel and SDPA at
+   H2O-Danube3's shape, and RMSNorm with x cold and warm in L2 beside
+   ``F.rms_norm``;
+9. the actuation path (:func:`actuation_phase`): holds ``int8_quantize``
+   (both scale guards) / ``int8_dequantize`` (float32 and bfloat16,
+   TinyLlama's leaf shapes, a zero row and a row with |max| 1e-29; the
+   collectives' guard on a 1e-29 row also against the CPU plain version)
+   and the static ``tiered_cost`` (8760 x
    2048, two tier tables with an infinite last bound) against their plain
    versions with ``torch.equal``; then, with every launch count at 0, syncs
    a float32 gradient pytree with the shapes of full-width, full-depth
@@ -149,6 +159,26 @@ def event_ms(fn, reps: int, warmup: int = 2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps: int, before=None) -> float:
+    """Median device milliseconds of one ``fn()``, from CUDA events around
+    that call alone. Every call is queued behind a sleep kernel first, so the
+    host's launch cost stays out of the events; ``before()`` (an L2 flush,
+    say) runs ahead of each call, outside them."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(reps * 1_000_000)   # ~0.5 ms of card time per call to queue
+    for a, b in events:
+        if before is not None:
+            before()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def bound(bytes_moved: float, ops: float, dtype) -> dict:
@@ -533,7 +563,8 @@ SLICE_TOL = 1e-3
 # roundings of ~1 % of the hidden state; the logits are O(1-5).
 SERVE_TOL = 0.1
 # (B, Hq, Hkv, Sq, Skv, D, Dv), causal, window, q_offset: the TPU kernel's
-# contract in float32 (tests/test_torch_cuda.py runs the same cases).
+# contract, in float32 (the general entry) and bf16 (the Hopper entry);
+# tests/test_torch_cuda.py runs the same cases.
 ATTENTION_CASES = (
     ((2, 4, 2, 256, 384, 64, 64), False, 0, 0),        # non-causal, Sq < Skv
     ((1, 4, 2, 300, 300, 64, 64), True, 100, 0),       # sliding window
@@ -543,14 +574,25 @@ ATTENTION_CASES = (
     ((1, 4, 2, 1000, 1000, 64, 64), True, 0, 0),       # ragged S
     ((1, 2, 1, 128, 128, 64, 64), True, 16, 100),      # rows 143.. see no key
 )
+# H2O-Danube3-4B's full-width attention (32 query heads, 8 KV heads, head dim
+# 120), causal, with a window shorter than the prompt and the config's own.
+DANUBE_SHAPE = (1, 32, 8, 1024, 1024, 120, 120)
+DANUBE_WINDOWS = (256, 4096)
+GENERAL_BF16 = "flash_attention_bf16"   # the general kernel's bf16 entry
 
 
-def attention_bound(B, Hq, Hkv, Sq, Skv, D, Dv, causal, dtype) -> dict:
+def attention_bound(B, Hq, Hkv, Sq, Skv, D, Dv, causal, dtype, window: int = 0) -> dict:
     size = torch.empty((), dtype=dtype).element_size()
     bytes_moved = size * (B * Hq * Sq * (D + Dv) + B * Hkv * Skv * (D + Dv))
-    # the (query, key) pairs the masks allow at q_offset = 0, window = 0
-    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
-    return bound(bytes_moved, 2 * B * Hq * pairs * (D + Dv), dtype)
+    # the (query, key) pairs the masks allow at q_offset = 0
+    i = np.arange(Sq)[:, None]
+    j = np.arange(Skv)[None, :]
+    keep = np.ones((Sq, Skv), bool)
+    if causal:
+        keep &= j <= i
+    if window > 0:
+        keep &= j > i - window
+    return bound(bytes_moved, 2 * B * Hq * int(keep.sum()) * (D + Dv), dtype)
 
 
 def rmsnorm_bound(rows: int, d: int, dtype) -> dict:
@@ -584,15 +626,16 @@ def teacher_forced(cfg, model, prompt, forced):
 
 def lm_phase(card: str) -> dict:
     """The LM serving path on the card: each kernel against its plain
-    version, the 2-layer slice against the CPU, the full-depth served path
-    with launches counted, and timings. Returns the kernel rows."""
+    version (the flash kernel through both entries), the 2-layer slice
+    against the CPU, the full-depth served path with launches counted, and
+    timings. Returns the kernel rows."""
     import dataclasses
 
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, run_entry
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.models import lm
     from repro_torch.models.common import LayerKind, uniform_segments
@@ -606,20 +649,49 @@ def lm_phase(card: str) -> dict:
     prefill_shape = (LM_BATCH, H, Hkv, LM_PROMPT, LM_PROMPT, hd, hd)
 
     # -- each kernel against its plain version, same inputs ------------------
+    def sm90_runs(fn):
+        """fn()'s result and how many times it launched the Hopper entry."""
+        before = ops.LAUNCHES["flash_attention_sm90"]
+        out = fn()
+        return out, ops.LAUNCHES["flash_attention_sm90"] - before
+
     q, k, v = (seeded(rng, s, bf16) for s in ((LM_BATCH, H, LM_PROMPT, hd),
                                               (LM_BATCH, Hkv, LM_PROMPT, hd),
                                               (LM_BATCH, Hkv, LM_PROMPT, hd)))
-    got = flash_attention(q, k, v, causal=True)
+    got, n = sm90_runs(lambda: flash_attention(q, k, v, causal=True))
+    check(n == 1, f"flash_attention bf16 {prefill_shape}: the Hopper entry did not launch")
     want = ref.attention(q.float(), k.float(), v.float(), causal=True)
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
     flash_err = (got.float() - want).abs().max().item()
-    print(f"flash_attention bf16 {prefill_shape} causal vs float32 plain: max abs err "
+    print(f"flash_attention_sm90 bf16 {prefill_shape} causal vs float32 plain: max abs err "
           f"{flash_err:.3e} (tolerance 2e-2)")
+    errs = {}
+    bf16_cases = list(ATTENTION_CASES) + [(DANUBE_SHAPE, True, w, 0) for w in DANUBE_WINDOWS]
+    for (B, Hq, Hk, Sq, Skv, D, Dv), causal, window, q_offset in bf16_cases:
+        a, b, c = (seeded(rng, s, bf16)
+                   for s in ((B, Hq, Sq, D), (B, Hk, Skv, D), (B, Hk, Skv, Dv)))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        label = f"flash bf16 {(B, Hq, Hk, Sq, Skv, D, Dv)} window {window} q_offset {q_offset}"
+        got16, n = sm90_runs(lambda: flash_attention(a, b, c, **kw))
+        check(n == 1, f"{label}: the Hopper entry did not launch")
+        want16 = ref.attention(a.float(), b.float(), c.float(), **kw)
+        check(bool(torch.isfinite(got16).all()), f"{label}: not finite")
+        torch.testing.assert_close(got16.float(), want16, rtol=2e-2, atol=2e-2)
+        errs[label] = (got16.float() - want16).abs().max().item()
+        if window and q_offset:
+            empty = q_offset + torch.arange(Sq, device=DEVICE) - window + 1 >= Skv
+            check(bool(empty.any()) and bool((got16[:, :, empty] == 0).all()),
+                  f"{label}: rows with no valid key are not 0")
+    print(f"flash_attention_sm90 bf16 over the {len(ATTENTION_CASES)} contract cases and "
+          f"H2O-Danube3's {DANUBE_SHAPE} causal with windows {DANUBE_WINDOWS}, vs float32 "
+          f"plain (tolerance 2e-2), each through the Hopper entry: max abs err "
+          f"{max(errs.values()):.3e}; by case: " + ", ".join(f"{e:.2e}" for e in errs.values()))
     err32 = 0.0
     for (B, Hq, Hk, Sq, Skv, D, Dv), causal, window, q_offset in ATTENTION_CASES:
         a, b, c = (seeded(rng, s, f32) for s in ((B, Hq, Sq, D), (B, Hk, Skv, D), (B, Hk, Skv, Dv)))
         kw = dict(causal=causal, window=window, q_offset=q_offset)
-        got32 = flash_attention(a, b, c, **kw)
+        got32, n = sm90_runs(lambda: flash_attention(a, b, c, **kw))
+        check(n == 0, "flash f32 launched the Hopper entry")
         want32 = ref.attention(a, b, c, **kw)
         check(bool(torch.isfinite(got32).all()), f"flash f32 {(B, Hq, Hk, Sq, Skv, D, Dv)}: not finite")
         torch.testing.assert_close(got32, want32, rtol=2e-5, atol=2e-5)
@@ -628,9 +700,9 @@ def lm_phase(card: str) -> dict:
             empty = q_offset + torch.arange(Sq, device=DEVICE) - window + 1 >= Skv
             check(bool(empty.any()) and bool((got32[:, :, empty] == 0).all()),
                   "flash f32: rows with no valid key are not 0")
-    print(f"flash_attention f32 over {len(ATTENTION_CASES)} contract cases (non-causal, window, "
-          f"q_offset with Sq < Skv, D = 128, D = 192 / Dv = 128, ragged S = 1000, rows with no "
-          f"key -> 0): max abs err {err32:.3e} (tolerance 2e-5)")
+    print(f"flash_attention f32 (general entry) over {len(ATTENTION_CASES)} contract cases "
+          f"(non-causal, window, q_offset with Sq < Skv, D = 128, D = 192 / Dv = 128, ragged "
+          f"S = 1000, rows with no key -> 0): max abs err {err32:.3e} (tolerance 2e-5)")
     norm_err = {}
     for rows in (LM_BATCH * LM_PROMPT, LM_BATCH):
         for dtype, tol in ((bf16, 2e-2), (f32, 1e-5)):
@@ -691,15 +763,16 @@ def lm_phase(card: str) -> dict:
         outs.append(greedy_generate(cfg, model, p, LM_NEW))
         torch.cuda.synchronize()
         batch_s.append(time.perf_counter() - a)
-        per_batch.append({n: ops.LAUNCHES[n] - before[n] for n in ("flash_attention", "rmsnorm")})
+        per_batch.append({n: ops.LAUNCHES[n] - before[n]
+                          for n in ("flash_attention", "flash_attention_sm90", "rmsnorm")})
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"served path launches: {launches}; per request batch {per_batch}")
     forwards = LM_NEW                                  # one prefill + LM_NEW - 1 decode steps
     for n in per_batch:
-        check(n["flash_attention"] == cfg.n_layers,
+        check(n["flash_attention"] == n["flash_attention_sm90"] == cfg.n_layers,
               f"flash_attention launched {n['flash_attention']} times in a request batch, "
-              f"not {cfg.n_layers}")
+              f"{n['flash_attention_sm90']} through the Hopper entry, not {cfg.n_layers}")
         check(n["rmsnorm"] == forwards * (2 * cfg.n_layers + 1),
               f"rmsnorm launched {n['rmsnorm']} times in {forwards} forwards, not "
               f"{2 * cfg.n_layers + 1} per forward")
@@ -708,7 +781,7 @@ def lm_phase(card: str) -> dict:
               "served tokens out of range")
     print(f"served {LM_REQUESTS} request batches of {LM_ARCH} ({n_params / 1e9:.3f} B params, "
           f"bf16, {cfg.n_layers} layers, seeded init): B = {LM_BATCH}, {LM_PROMPT} prompt "
-          f"tokens, {LM_NEW} new; flash_attention {cfg.n_layers} per batch, rmsnorm "
+          f"tokens, {LM_NEW} new; flash_attention_sm90 {cfg.n_layers} per batch, rmsnorm "
           f"{2 * cfg.n_layers + 1} per forward")
 
     chain = teacher_forced(cfg, model, prompts[0].to(DEVICE), outs[0])
@@ -761,39 +834,74 @@ def lm_phase(card: str) -> dict:
         print_breakdown(lambda: prefill(model, p0, cache), reps=3, unit="prefill")
         print_breakdown(one_step, reps=10, unit="decode step")
 
-    flash_call = lambda: flash_attention(q, k, v, causal=True)
+    # attention at the prefill shape, in one table: the Hopper kernel, the
+    # general kernel on the same inputs, SDPA, the plain version, the bound;
+    # device time per call (the inputs, 23 MB, stay in L2)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
     timing = {
         "flash_attention": (
-            event_ms(flash_call, 20), event_ms(lambda: ref.attention(q, k, v, causal=True), 5),
-            event_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                            enable_gqa=True), 20),
+            queued_ms(lambda: flash_attention(q, k, v, causal=True), 50),
+            queued_ms(lambda: ref.attention(q, k, v, causal=True), 5),
+            queued_ms(sdpa, 50),
             attention_bound(*prefill_shape, True, bf16)),
     }
-    labels = {"flash_attention": f"flash_attention bf16 {prefill_shape} causal"}
+    general_ms = queued_ms(lambda: run_entry(GENERAL_BF16, q, k, v, causal=True), 10)
+    fl = timing["flash_attention"]
+    print(f"  attention bf16 {prefill_shape} causal, device ms: flash_attention_sm90 {fl[0]:.4f} | "
+          f"general entry {general_ms:.4f} ({general_ms / fl[0]:.2f}x the Hopper kernel) | "
+          f"SDPA {fl[2]:.4f} (Hopper kernel / SDPA {fl[0] / fl[2]:.3f}) | plain "
+          f"{fl[1]:.4f} | bound {fl[3]['bound_ms']:.4f} ({fl[3]['bound_by']}; Hopper kernel "
+          f"{fl[0] / fl[3]['bound_ms']:.2f}x it)")
+    _, dHq, dHk, dSq, dSkv, dD, dDv = DANUBE_SHAPE
+    a, b, c = (seeded(rng, s, bf16) for s in ((1, dHq, dSq, dD), (1, dHk, dSkv, dD),
+                                              (1, dHk, dSkv, dDv)))
+    rows = torch.arange(dSq, device=DEVICE)
+    for w in DANUBE_WINDOWS:
+        keep = (rows[None, :] <= rows[:, None]) & (rows[None, :] > rows[:, None] - w)
+        ms = queued_ms(lambda: flash_attention(a, b, c, causal=True, window=w), 50)
+        lib_ms = queued_ms(lambda: F.scaled_dot_product_attention(
+            a, b, c, attn_mask=keep, enable_gqa=True), 50)
+        gen_ms = queued_ms(lambda: run_entry(GENERAL_BF16, a, b, c, causal=True, window=w), 10)
+        bd = attention_bound(*DANUBE_SHAPE, True, bf16, window=w)
+        print(f"  attention bf16 {DANUBE_SHAPE} causal window {w}, device ms: "
+              f"flash_attention_sm90 {ms:.4f} | general entry {gen_ms:.4f} | SDPA (boolean "
+              f"mask) {lib_ms:.4f} | bound {bd['bound_ms']:.4f} ({bd['bound_by']})")
+    # RMSNorm: device time with x cold (a read and write of 128 MB between
+    # calls evicts the 50 MB L2, so x comes from HBM as the byte bound
+    # assumes) and warm (repeated calls, x in L2), and the wall time of one
+    # call with its launch
+    flush = torch.zeros(32 << 20, dtype=torch.float32, device=DEVICE)
+    cold_ms = lambda fn, reps: queued_ms(fn, reps, before=lambda: flush.add_(1.0))
+    norm_warm = {}
     for rows in (LM_BATCH * LM_PROMPT, LM_BATCH):
         x, w = seeded(rng, (rows, d), bf16), seeded(rng, (d,), bf16)
+        kern = lambda: rmsnorm(x, w, eps=cfg.norm_eps)
+        lib = lambda: F.rms_norm(x, (d,), w, eps=cfg.norm_eps)
         key = f"rmsnorm_{rows}"
-        labels[key] = f"rmsnorm bf16 {rows} x {d}"
-        timing[key] = (
-            event_ms(lambda: rmsnorm(x, w, eps=cfg.norm_eps), 50),
-            event_ms(lambda: ref.rmsnorm(x, w, eps=cfg.norm_eps), 20),
-            event_ms(lambda: F.rms_norm(x, (d,), w, eps=cfg.norm_eps), 50),
-            rmsnorm_bound(rows, d, bf16))
-    for key, (ms, plain_ms, lib_ms, b) in timing.items():
-        print(f"  {labels[key]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms, bound {b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), "
-              f"{ms / b['bound_ms']:.1f}x bound")
+        timing[key] = (cold_ms(kern, 50), cold_ms(lambda: ref.rmsnorm(x, w, eps=cfg.norm_eps), 20),
+                       cold_ms(lib, 50), rmsnorm_bound(rows, d, bf16))
+        norm_warm[rows] = (queued_ms(kern, 50), queued_ms(lib, 50), event_ms(kern, 50),
+                           event_ms(lib, 50))
+        ms, plain_ms, lib_ms, b = timing[key]
+        wk, wl, ek, el = norm_warm[rows]
+        print(f"  rmsnorm bf16 {rows} x {d}, device ms with x cold: kernel {ms:.4f}, plain "
+              f"{plain_ms:.4f}, F.rms_norm {lib_ms:.4f}, bound {b['bound_ms'] * 1e3:.3f} us "
+              f"({b['bound_by']}; kernel {ms / b['bound_ms']:.2f}x it); x warm in L2: kernel "
+              f"{wk:.4f}, F.rms_norm {wl:.4f}; wall per call with its launch (CUDA events): "
+              f"kernel {ek:.4f}, F.rms_norm {el:.4f}")
+    del flush
     print(f"LM phase: {time.perf_counter() - t_phase:.1f} s")
 
     norm = timing[f"rmsnorm_{LM_BATCH * LM_PROMPT}"]
-    fl = timing["flash_attention"]
     return {
         "flash_attention": {
-            "launches": launches["flash_attention"], "max_abs_err": flash_err,
-            "ms": fl[0], "plain_ms": fl[1], **fl[3], "library_ms": fl[2]},
+            "launches": launches["flash_attention_sm90"], "max_abs_err": flash_err,
+            "ms": fl[0], "plain_ms": fl[1], **fl[3], "library_ms": fl[2],
+            "general_ms": general_ms},
         "rmsnorm": {
             "launches": launches["rmsnorm"], "max_abs_err": norm_err[LM_BATCH * LM_PROMPT, bf16],
-            "ms": norm[0], "plain_ms": norm[1], **norm[3], "library_ms": norm[2]},
+            "ms": norm[0], "plain_ms": norm[1], **norm[3], "library_ms": norm[2],
+            "warm_ms": norm_warm[LM_BATCH * LM_PROMPT][0]},
     }
 
 
@@ -822,12 +930,12 @@ def grad_tree(cfg, gen):
 
 
 def plain_compressed(g, err):
-    """The compressed sync of one leaf on one rank, by the plain versions:
-    ``(deq, u - deq)`` with ``u = g + err``."""
+    """The compressed sync of one leaf on one rank, by the plain versions
+    (the JAX collectives' scale guard): ``(deq, u - deq)`` with ``u = g + err``."""
     from repro_torch.kernels import ref
 
     u = g + err
-    q, s = ref.int8_quantize(u.reshape(-1, u.shape[-1]))
+    q, s = ref.int8_quantize(u.reshape(-1, u.shape[-1]), guard="collectives")
     deq = ref.int8_dequantize(q, s).view(u.shape)
     return deq, u - deq
 
@@ -916,17 +1024,32 @@ def actuation_phase(card: str) -> dict:
             if shape[0] > 2:
                 x[0] = 0.0                                      # a row of zeros
                 x[1] *= 1e-29 / x[1].abs().max()                # amax = 1e-29
-            q, s = int8_quantize(x)
-            wq, ws = ref.int8_quantize(x)
-            check(torch.equal(q, wq) and torch.equal(s, ws),
-                  f"int8_quantize {shape} {dtype} != plain")
+            for guard in ("collectives", "pallas"):
+                q, s = int8_quantize(x, guard=guard)
+                wq, ws = ref.int8_quantize(x, guard=guard)
+                check(torch.equal(q, wq) and torch.equal(s, ws),
+                      f"int8_quantize {shape} {dtype} guard {guard} != plain")
             for odt in (torch.float32, torch.bfloat16):
                 got, want = int8_dequantize(q, s, odt), ref.int8_dequantize(q, s, odt)
                 check(torch.equal(got, want), f"int8_dequantize {shape} -> {odt} != plain")
                 quant_err = max(quant_err, (got.float() - want.float()).abs().max().item())
-    print(f"int8_quantize / int8_dequantize f32 and bf16 on {cases} (a zero row and a "
-          f"row with amax 1e-29 in each): q, scale and both dequantized types == plain "
-          f"(bit for bit)")
+    print(f"int8_quantize (both scale guards) / int8_dequantize f32 and bf16 on {cases} (a "
+          f"zero row and a row with amax 1e-29 in each): q, scale and both dequantized types "
+          f"== plain (bit for bit)")
+    # The repair: the sync's guard on a 1e-29 row, card kernel == card plain == CPU plain.
+    tiny = torch.randn((2, 2048), generator=gen, device=DEVICE)
+    tiny[0] *= 1e-29 / tiny[0].abs().max()
+    tq, ts = int8_quantize(tiny, guard="collectives")
+    pq, ps = ref.int8_quantize(tiny, guard="collectives")
+    cq, cs = ref.int8_quantize(tiny.cpu(), guard="collectives")
+    check(torch.equal(tq, pq) and torch.equal(ts, ps) and torch.equal(tq.cpu(), cq)
+          and torch.equal(ts.cpu(), cs), "int8_quantize guard collectives, 1e-29 row: kernel, "
+          "card plain and CPU plain differ")
+    check(ts[0, 0].item() == float(np.float32(1e-30)) and int(tq[0].abs().max()) == 10,
+          "int8_quantize guard collectives, 1e-29 row: scale is not 1e-30")
+    print(f"int8_quantize guard collectives on a row with |max| 1e-29: scale "
+          f"{ts[0, 0].item():.3e}, |q| max {int(tq[0].abs().max())}; card kernel == card plain "
+          f"== CPU plain (bit for bit)")
     T_w, P_w = 8760, WHATIF_P
     d = torch.rand((T_w, P_w), generator=gen, device=DEVICE, dtype=torch.float64) * 500.0
     cum32 = monthly_cumsum(d.T, 730).T.float().contiguous()
@@ -1115,8 +1238,9 @@ def actuation_phase(card: str) -> dict:
     print(f"  ElasticFleetPlanner.feed_hour {ELASTIC_SIZE} links on the card: p50 "
           f"{np.percentile(fa, 50):.1f} us, p95 {np.percentile(fa, 95):.1f} us")
 
-    qs = [int8_quantize(g.view(-1, g.shape[-1])) for g in leaves]
-    quant_all = lambda: [int8_quantize(g.view(-1, g.shape[-1])) for g in leaves]
+    qs = [int8_quantize(g.view(-1, g.shape[-1]), guard="collectives") for g in leaves]
+    quant_all = lambda: [int8_quantize(g.view(-1, g.shape[-1]), guard="collectives")
+                         for g in leaves]
     dequant_all = lambda: [int8_dequantize(q, s) for q, s in qs]
     # Over the pytree (201 launches) the device time is the kernels' own; the
     # wall time of the loop is the host's launch rate.
@@ -1126,8 +1250,8 @@ def actuation_phase(card: str) -> dict:
     timing = {
         "int8_quantize": (
             device_busy_ms(quant_all, 3),
-            device_busy_ms(lambda: [ref.int8_quantize(g.view(-1, g.shape[-1]))
-                                    for g in leaves], 2),
+            device_busy_ms(lambda: [ref.int8_quantize(g.view(-1, g.shape[-1]),
+                                                      guard="collectives") for g in leaves], 2),
             quant_bound(rows_d, torch.float32)),
         "int8_dequantize": (
             device_busy_ms(dequant_all, 3),
@@ -1142,7 +1266,7 @@ def actuation_phase(card: str) -> dict:
     }
     del qs
     emb = grads["embed"]
-    emb_q = event_ms(lambda: int8_quantize(emb), 20)
+    emb_q = event_ms(lambda: int8_quantize(emb, guard="collectives"), 20)
     labels = {"int8_quantize": f"int8_quantize f32, whole pytree ({n_leaves} launches), "
                                f"profiler device time",
               "int8_dequantize": f"int8_dequantize to f32, whole pytree ({n_leaves} launches), "
@@ -1214,9 +1338,12 @@ def main() -> int:
     _lib.load()
     print(f"build: {_lib.build_seconds:.2f} s (nvcc, {len(_lib.SOURCES)} sources "
           f"in parallel, one .so)")
+    kernel = "?"
     for line in _lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas ...{kernel[-56:]}: {line.strip()}")   # the tail holds template args
 
     # -- scenarios (host numpy, built once each) ---------------------------
     scen = {}

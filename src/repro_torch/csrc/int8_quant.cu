@@ -6,8 +6,14 @@
 // through them: one quantize and two dequantize launches per leaf and step.
 //
 //   quantize:   amax  = max_j |x[r, j]|                       (float32)
-//               scale = max(amax, 1e-30) / 127                (IEEE division)
+//               scale = max(amax, 1e-30) / 127                (guard 0: the Pallas kernel)
+//                     = max(amax / 127, 1e-30)                (guard 1: repro/dist/collectives.py)
 //               q     = clamp(rint(x / scale), -127, 127)     (int8, half to even)
+//
+// Both guards use IEEE division. They differ only on rows whose |max| lies
+// in (0, 1.27e-28) (and on zero rows' scale). With guard 1, |x / scale|
+// never rounds past 127, so the clip changes nothing and q equals the JAX
+// collectives' unclipped round.
 //   dequantize: out   = (float)q * scale, cast to float32 or bfloat16
 //
 // What bounds it on an H100: device-memory bytes. Quantize reads x once (4 or
@@ -51,7 +57,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-int8_quantize_kernel(const T* __restrict__ x, int d, int8_t* __restrict__ q,
+int8_quantize_kernel(const T* __restrict__ x, int d, int guard, int8_t* __restrict__ q,
                      float* __restrict__ scale) {
   extern __shared__ float row[];                 // d floats when cached
   __shared__ float partial[kMaxThreads / 32];
@@ -79,7 +85,8 @@ int8_quantize_kernel(const T* __restrict__ x, int d, int8_t* __restrict__ q,
     if (lane == 0) partial[0] = amax;
   }
   __syncthreads();
-  const float s = fmaxf(partial[0], 1e-30f) / 127.0f;
+  const float s = guard ? fmaxf(partial[0] / 127.0f, 1e-30f)
+                        : fmaxf(partial[0], 1e-30f) / 127.0f;
   if (threadIdx.x == 0) scale[r] = s;
 
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
@@ -107,11 +114,14 @@ int threads_for(int d) {
 }
 
 template <typename T>
-int quantize(const T* x, long long rows, int d, int8_t* q, float* scale, cudaStream_t stream) {
+int quantize(const T* x, long long rows, int d, int guard, int8_t* q, float* scale,
+             cudaStream_t stream) {
   if (rows == 0) return (int)cudaSuccess;
-  if (rows > 0x7fffffffLL || d < 1) return (int)cudaErrorInvalidValue;
+  if (rows > 0x7fffffffLL || d < 1 || (guard != 0 && guard != 1))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = d <= kSmemFloats ? (size_t)d * sizeof(float) : 0;
-  int8_quantize_kernel<T><<<(unsigned)rows, threads_for(d), smem, stream>>>(x, d, q, scale);
+  int8_quantize_kernel<T><<<(unsigned)rows, threads_for(d), smem, stream>>>(x, d, guard, q,
+                                                                          scale);
   return (int)cudaGetLastError();
 }
 
@@ -126,14 +136,15 @@ int dequantize(const int8_t* q, const float* scale, long long rows, int d, T* ou
 
 }  // namespace
 
-extern "C" int int8_quantize_f32(const float* x, long long rows, int d, int8_t* q,
+// guard: 0 the Pallas kernel's scale, 1 the JAX collectives' (see the top).
+extern "C" int int8_quantize_f32(const float* x, long long rows, int d, int guard, int8_t* q,
                                  float* scale, void* stream) {
-  return quantize<float>(x, rows, d, q, scale, (cudaStream_t)stream);
+  return quantize<float>(x, rows, d, guard, q, scale, (cudaStream_t)stream);
 }
 
-extern "C" int int8_quantize_bf16(const void* x, long long rows, int d, int8_t* q,
+extern "C" int int8_quantize_bf16(const void* x, long long rows, int d, int guard, int8_t* q,
                                   float* scale, void* stream) {
-  return quantize<__nv_bfloat16>((const __nv_bfloat16*)x, rows, d, q, scale,
+  return quantize<__nv_bfloat16>((const __nv_bfloat16*)x, rows, d, guard, q, scale,
                                  (cudaStream_t)stream);
 }
 

@@ -28,12 +28,10 @@ launch). :func:`sync_wire_bytes` prices a sync's cross-pod bytes under each
 mode — the demand the planners feed back into the next hour's toggle
 decision.
 
-One difference from the JAX package, by design: the kernels keep the
-Pallas kernel's scale, ``max(amax, 1e-30) / 127`` with ``q`` clipped to
-±127, where ``repro.dist.collectives._quantize`` computes
-``max(amax / 127, 1e-30)``. They agree bit for bit on rows whose |max| is
-at least 1.27e-28 and on rows of zeros; on a row whose |max| lies between
-(0, 1.27e-28) the scales differ (ROADMAP Queue 3).
+The quantize kernel runs with ``guard="collectives"``: its scale is
+``repro.dist.collectives._quantize``'s ``max(amax / 127, 1e-30)``, not the
+Pallas kernel's ``max(amax, 1e-30) / 127``, so the compressed sync equals
+the JAX one bit for bit on every row, tiny ones included.
 
 Pytrees are dicts, lists and tuples of tensors (:mod:`repro_torch.tree`);
 the tensors stay on their device (CUDA tensors with an NCCL group, CPU
@@ -81,10 +79,10 @@ def _pmean(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
 
 
 def _quantize(v: torch.Tensor):
-    """Per-row symmetric int8 over the last dim, through the quantize kernel
-    on a ``(-1, last)`` view: ``(q, scale)`` shaped ``v.shape`` and
-    ``(*v.shape[:-1], 1)``."""
-    q, scale = ops.int8_quantize(v.reshape(-1, v.shape[-1]))
+    """Per-row symmetric int8 over the last dim with the JAX collectives'
+    scale guard, through the quantize kernel on a ``(-1, last)`` view:
+    ``(q, scale)`` shaped ``v.shape`` and ``(*v.shape[:-1], 1)``."""
+    q, scale = ops.int8_quantize(v.reshape(-1, v.shape[-1]), guard="collectives")
     return q.view(v.shape), scale.view(*v.shape[:-1], 1)
 
 

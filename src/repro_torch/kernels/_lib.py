@@ -46,11 +46,12 @@ EXACT_FLAGS = ("-fmad=false",)
 
 #: Launch counts, one per kernel. Each wrapper adds one where it launches
 #: its kernel and nowhere else; a caller zeroes them to see which kernels a
-#: run went through.
+#: run went through. ``flash_attention`` counts every flash launch and
+#: ``flash_attention_sm90`` those of its Hopper entry.
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0,
-    "flash_attention": 0, "rmsnorm": 0, "int8_quantize": 0, "int8_dequantize": 0,
-    "tiered_cost": 0,
+    "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
+    "int8_dequantize": 0, "tiered_cost": 0,
 }
 
 _lock = threading.Lock()
@@ -148,14 +149,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, ctypes.c_longlong, i, ctypes.c_float, p, p]
         fn.restype = i
-    for name in ("flash_attention_f32", "flash_attention_bf16"):
+    for name in ("flash_attention_f32", "flash_attention_bf16", "flash_attention_sm90_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [p] * 6 + [ctypes.c_float, p]
         fn.restype = i
     ll = ctypes.c_longlong
     for name in ("int8_quantize_f32", "int8_quantize_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, ll, i, p, p, p]           # x, rows, d, q, scale, stream
+        fn.argtypes = [p, ll, i, i, p, p, p]        # x, rows, d, guard, q, scale, stream
         fn.restype = i
     for name in ("int8_dequantize_f32", "int8_dequantize_bf16"):
         fn = getattr(lib, name)

@@ -3,8 +3,11 @@
 Port of :func:`repro.kernels.int8_quant.int8_quantize` and
 :func:`~repro.kernels.int8_quant.int8_dequantize`. The CUDA C++ kernels
 (``csrc/int8_quant.cu``) quantize each row of x (N, d), float32 or
-bfloat16, to int8 with one float32 scale per row, ``scale = max(amax,
-1e-30) / 127`` and ``q = clamp(round(x / scale), -127, 127)``, and
+bfloat16, to int8 with one float32 scale per row and ``q = clamp(round(x /
+scale), -127, 127)``. The scale's guard is the Pallas kernel's, ``max(amax,
+1e-30) / 127`` (``guard="pallas"``, the default), or the JAX collectives'
+``max(amax / 127, 1e-30)`` (``guard="collectives"``, which the compressed
+gradient sync uses); the clip changes nothing under the latter. They
 dequantize ``q · scale`` to float32 or bfloat16, for any N and d. Their
 plain PyTorch versions are :func:`repro_torch.kernels.ref.int8_quantize`
 and :func:`~repro_torch.kernels.ref.int8_dequantize`, and the two agree bit
@@ -23,6 +26,8 @@ from . import _lib
 
 _QUANT = {torch.float32: "int8_quantize_f32", torch.bfloat16: "int8_quantize_bf16"}
 _DEQUANT = {torch.float32: "int8_dequantize_f32", torch.bfloat16: "int8_dequantize_bf16"}
+#: The scale guards: the Pallas kernel's and ``repro.dist.collectives``'.
+GUARDS = {"pallas": 0, "collectives": 1}
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -33,8 +38,11 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} takes contiguous tensors")
 
 
-def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def int8_quantize(x: torch.Tensor, *, guard: str = "pallas"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (N, d) -> (q int8 (N, d), scale float32 (N, 1)) (CUDA)."""
+    if guard not in GUARDS:
+        raise ValueError(f"guard must be one of {tuple(GUARDS)}, got {guard!r}")
     if x.dtype not in _QUANT:
         raise TypeError(f"int8_quantize takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 2 or x.shape[1] < 1:
@@ -47,7 +55,7 @@ def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, _QUANT[x.dtype])(
-            x.data_ptr(), N, d, q.data_ptr(), scale.data_ptr(), stream)
+            x.data_ptr(), N, d, GUARDS[guard], q.data_ptr(), scale.data_ptr(), stream)
     _lib.check(status, _QUANT[x.dtype])
     _lib.LAUNCHES["int8_quantize"] += 1
     return q, scale

@@ -105,12 +105,15 @@ def rmsnorm(x, w, *, eps: float = 1e-6) -> torch.Tensor:
     return ref.rmsnorm(x, w, eps=eps)
 
 
-def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def int8_quantize(x: torch.Tensor, *, guard: str = "pallas"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 of x (N, d), float32 or bfloat16: ``(q int8
-    (N, d), scale float32 (N, 1))``, any N and d."""
+    (N, d), scale float32 (N, 1))``, any N and d. ``guard`` picks the
+    scale: ``"pallas"`` (the TPU kernel's) or ``"collectives"`` (the JAX
+    gradient sync's)."""
     if _route(x, "int8_quantize"):
-        return _quant_kernel(x.contiguous())
-    return ref.int8_quantize(x)
+        return _quant_kernel(x.contiguous(), guard=guard)
+    return ref.int8_quantize(x, guard=guard)
 
 
 def int8_dequantize(q: torch.Tensor, scale: torch.Tensor,

@@ -215,12 +215,18 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
     return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
 
 
-def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`repro_torch.kernels.int8_quant.int8_quantize`
-    (port of ``repro.kernels.ref.int8_quantize``): per-row symmetric int8,
-    ``scale = max(amax, 1e-30) / 127`` in float32, ``q = clamp(round(x /
-    scale), -127, 127)`` rounding half to even; returns ``(q (N, d) int8,
-    scale (N, 1) float32)``."""
+def int8_quantize(x: torch.Tensor, *, guard: str = "pallas"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.int8_quant.int8_quantize`:
+    per-row symmetric int8 in float32, ``q = clamp(round(x / scale), -127,
+    127)`` rounding half to even; returns ``(q (N, d) int8, scale (N, 1)
+    float32)``. ``guard="pallas"`` is ``scale = max(amax, 1e-30) / 127``
+    (port of ``repro.kernels.ref.int8_quantize``); ``guard="collectives"``
+    is ``scale = max(amax / 127, 1e-30)`` (port of
+    ``repro.dist.collectives._quantize``, whose unclipped round the clip
+    leaves unchanged)."""
+    if guard not in ("pallas", "collectives"):
+        raise ValueError(f"guard must be 'pallas' or 'collectives', got {guard!r}")
     if x.ndim != 2:
         raise ValueError(f"int8_quantize takes (N, d), got {tuple(x.shape)}")
     xf = x.to(torch.float32)
@@ -228,7 +234,11 @@ def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     # Divide by a tensor, not the Python number: on CUDA PyTorch turns a
     # division by a CPU scalar into a product with its reciprocal, which
     # rounds differently from the true division of the kernel and the CPU.
-    scale = amax.clamp_min(1e-30) / torch.full_like(amax, 127.0)
+    c127 = torch.full_like(amax, 127.0)
+    if guard == "pallas":
+        scale = amax.clamp_min(1e-30) / c127
+    else:
+        scale = (amax / c127).clamp_min(1e-30)
     q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
 

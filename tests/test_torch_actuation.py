@@ -16,10 +16,9 @@ plain versions of its int8 kernels. It is held against:
   ``c·d + (L+V)`` into a fused multiply-add, as ``test_torch_runtime.py``
   states).
 
-One difference is pinned instead of matched: the port's quantizer is the
-Pallas kernel's (``max(amax, 1e-30) / 127``), the JAX collectives' inline
-one computes ``max(amax / 127, 1e-30)``; they part on rows whose |max| lies
-in (0, 1.27e-28).
+The sync quantizes with the JAX collectives' scale guard, ``max(amax /
+127, 1e-30)``, so rows whose |max| lies in (0, 1.27e-28) match too; the
+quantize kernel's default stays the Pallas kernel's (``test_torch_kernels.py``).
 """
 import dataclasses
 import os
@@ -33,7 +32,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from test_torch_support import SRC
+from test_torch_support import SRC, guard_rows
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +45,6 @@ from repro.dist import collectives as jcoll
 from repro.fleet import scenario as jscen
 from repro.fleet.runtime import ElasticFleetPlanner as JElasticFleetPlanner
 from repro.fleet.spec import fleet_from_params as jfleet_from_params
-from repro.kernels import ref as jref
 from repro.traffic.traces import bursty_trace as jbursty_trace
 
 from repro_torch.core import planner
@@ -212,7 +210,8 @@ def test_sync_grads_matches_the_plain_path(pod_mesh):
     out, new_err = coll.sync_grads(g, pod_mesh, mode="compressed", err_state=err)
     for a, e, o, ne in zip(*(tree_leaves(t) for t in (g, err, out, new_err))):
         u = a + e
-        deq = ops.int8_dequantize(*ops.int8_quantize(u.reshape(-1, u.shape[-1]))).view(u.shape)
+        q, s = ops.int8_quantize(u.reshape(-1, u.shape[-1]), guard="collectives")
+        deq = ops.int8_dequantize(q, s).view(u.shape)
         assert torch.equal(o, deq) and torch.equal(ne, u - deq)
     for a, e in zip(tree_leaves(g), tree_leaves(err)):          # inputs untouched
         assert not torch.equal(a, a + e)
@@ -247,35 +246,23 @@ def test_make_host_mesh_creates_a_one_rank_world_and_checks_the_size():
         dist.destroy_process_group()
 
 
-def test_quantizer_guard_differs_from_the_jax_collectives_on_tiny_rows(pod_mesh):
-    """Pinned difference (ROADMAP Queue 3): the port keeps the Pallas
-    kernel's ``max(amax, 1e-30) / 127``; ``repro.dist.collectives._quantize``
-    computes ``max(amax / 127, 1e-30)``. Equal where |max| >= 1.27e-28 and on
-    zero rows; different on a row with |max| = 1e-29."""
-    rng = np.random.default_rng(7)
-    x = rng.normal(size=(4, 16)).astype(np.float32)
-    x[1] = 0.0
-    x[2] *= np.float32(1e-29) / np.abs(x[2]).max()
-    x[3] *= np.float32(1.27e-28) / np.abs(x[3]).max()
-    q, s = ops.int8_quantize(torch.from_numpy(x))
-    kq, ks = jref.int8_quantize(jnp.asarray(x))                     # the Pallas contract
-    np.testing.assert_array_equal(q.numpy(), np.asarray(kq))
-    np.testing.assert_array_equal(s.numpy(), np.asarray(ks))
-    cq, cs = (np.asarray(a) for a in jcoll._quantize(jnp.asarray(x)))
-    deq = (q.float() * s).numpy()
-    cdeq = cq.astype(np.float32) * cs
-    for r in (0, 1, 3):                                               # agree
-        np.testing.assert_array_equal(deq[r], cdeq[r])
-    assert s[2, 0].item() == pytest.approx(1e-29 / 127, rel=1e-6)     # 7.87e-32
-    assert cs[2, 0] == np.float32(1e-30)
-    assert np.abs(q[2].numpy()).max() == 127 and np.abs(cq[2]).max() == 10
-    assert not np.array_equal(deq[2], cdeq[2])
-    # Through the sync: only that row's output differs.
-    out, _ = coll.sync_grads({"x": torch.from_numpy(x)}, pod_mesh, mode="compressed")
-    jout, _ = jcoll.sync_grads({"x": jnp.asarray(x)}, jax.make_mesh((1, 1, 1), POD_NAMES),
-                               mode="compressed")
-    differs = (out["x"].numpy() != np.asarray(jout["x"])).any(axis=1)
-    np.testing.assert_array_equal(differs, [False, False, True, False])
+def test_compressed_sync_matches_jax_on_tiny_rows(pod_mesh):
+    """The port's compressed ``sync_grads`` quantizes with the JAX
+    collectives' guard, ``max(amax / 127, 1e-30)``: outputs and residuals
+    equal ``repro.dist.collectives.sync_grads`` bit for bit on rows whose
+    |max| is 0, 1e-29, 1.2e-28, exactly 127 * 1e-30 and 3, over two steps
+    with a carried residual."""
+    jmesh = jax.make_mesh((1, 1, 1), POD_NAMES)
+    err, jerr = None, None
+    for step in range(2):
+        x = guard_rows(7 + step)
+        out, err = coll.sync_grads({"x": torch.from_numpy(x)}, pod_mesh, mode="compressed",
+                                   err_state=err)
+        jout, jerr = jcoll.sync_grads({"x": jnp.asarray(x)}, jmesh, mode="compressed",
+                                      err_state=jerr)
+        _assert_trees_equal(out, jout)
+        _assert_trees_equal(err, jerr)
+    assert bool((out["x"][1:4] != 0).any(dim=1).all())          # the tiny rows survive
 
 
 # ---------------------------------------------------------------------------

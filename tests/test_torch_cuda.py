@@ -16,7 +16,9 @@ to their plain versions on the card (``torch.equal``), and so is a
 compressed ``sync_grads`` on a one-rank NCCL mesh. The LM's kernels against
 their float32 plain versions: flash attention at ``2e-5`` in float32 and
 ``2e-2`` in bfloat16, RMSNorm at ``1e-5`` and ``2e-2`` (the tolerances
-``tests/test_kernels.py`` holds the Pallas kernels to).
+``tests/test_kernels.py`` holds the Pallas kernels to); the flash tests also
+assert which entry launched (the Hopper one for bf16 with head dims that are
+multiples of 8 and aligned inputs, the general one otherwise).
 """
 import dataclasses
 
@@ -162,7 +164,7 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
     assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1,
                             "tiered_cost_scan": 0, "fsm_chunk": 0,
-                            "flash_attention": 0, "rmsnorm": 0,
+                            "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0,
                             "int8_quantize": 0, "int8_dequantize": 0, "tiered_cost": 0}
     assert got["x"].is_cuda
     want = plan_fleet(sc.fleet, sc.demand, device="cpu")
@@ -262,6 +264,7 @@ ATTENTION_CASES = [
     ((1, 2, 1, 200, 260, 192, 128), True, 0, 60),
     ((1, 4, 2, 1000, 1000, 64, 64), True, 0, 0),
     ((1, 2, 1, 128, 128, 64, 64), True, 16, 100),   # rows 143.. see no key
+    ((1, 8, 2, 512, 512, 120, 120), True, 256, 0),  # H2O-Danube3's head dim, a window
 ]
 
 
@@ -276,13 +279,17 @@ def _attention_inputs(case, device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", ATTENTION_CASES, ids=lambda c: "x".join(map(str, c[0])))
 def test_flash_attention_kernel_matches_plain(cuda_device, case, dtype):
+    """bf16 through the Hopper entry (every case's head dims are multiples
+    of 8), float32 through the general one."""
     _, causal, window, q_offset = case
     q, k, v = _attention_inputs(case, cuda_device, dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    before = ops.LAUNCHES["flash_attention"]
+    before = dict(ops.LAUNCHES)
     got = ops.attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == before + 1 and got.dtype == dtype
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    sm90 = ops.LAUNCHES["flash_attention_sm90"] - before["flash_attention_sm90"]
+    assert sm90 == (1 if dtype == torch.bfloat16 else 0) and got.dtype == dtype
     want = ref.attention(q.float(), k.float(), v.float(), **kw)
     assert torch.isfinite(got).all()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -294,18 +301,43 @@ def test_flash_attention_kernel_matches_plain(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4096, 2048), (4, 2048), (3, 5, 384)])
+def test_flash_attention_unaligned_bf16_takes_the_general_entry(cuda_device):
+    """A bf16 q whose base pointer lies one element past a 16-byte boundary:
+    the general entry launches, not the Hopper one, and still matches."""
+    case = ((2, 4, 2, 200, 200, 64, 64), True, 0, 0)
+    q, k, v = _attention_inputs(case, cuda_device, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    q1 = buf[1:].view(q.shape)
+    q1.copy_(q)
+    assert q1.data_ptr() % 16 == 2
+    before = dict(ops.LAUNCHES)
+    got = ops.attention(q1, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_sm90"] == before["flash_attention_sm90"]
+    want = ref.attention(q.float(), k.float(), v.float(), causal=True)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 2048), (4, 2048), (3, 5, 384), (7, 2047)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype):
+    """Every shape, and the same rows as a view at an odd element offset
+    (the kernel's scalar branch)."""
     rng = np.random.default_rng(22)
     x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda_device)
     w = torch.as_tensor(rng.standard_normal(shape[-1:]).astype(np.float32), device=cuda_device)
-    before = ops.LAUNCHES["rmsnorm"]
-    got = ops.rmsnorm(x.to(dtype), w.to(dtype))
-    assert ops.LAUNCHES["rmsnorm"] == before + 1 and got.dtype == dtype
-    want = ref.rmsnorm(x.to(dtype).float(), w.to(dtype).float())
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
+    x_odd = buf[1:].view(shape)
+    x_odd.copy_(x.to(dtype))
     tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    for xs in (x.to(dtype), x_odd):
+        before = ops.LAUNCHES["rmsnorm"]
+        got = ops.rmsnorm(xs, w.to(dtype))
+        assert ops.LAUNCHES["rmsnorm"] == before + 1 and got.dtype == dtype
+        want = ref.rmsnorm(xs.float(), w.to(dtype).float())
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -389,6 +421,31 @@ def test_int8_kernels_bit_equal_to_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+def test_int8_collectives_guard_kernel_bit_equal_to_plain(cuda_device):
+    """The JAX collectives' scale guard, ``max(amax / 127, 1e-30)``: q and
+    scale equal the plain version on the card and on the CPU on rows whose
+    |max| is 0, 1e-29, 1.2e-28, exactly 127 * 1e-30 and 3, and the clip
+    changes nothing (|round(x / scale)| <= 127 before it)."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn((5, 300), generator=g)
+    for r, t in enumerate((0.0, 1e-29, 1.2e-28, float(np.float32(127) * np.float32(1e-30)), 3.0)):
+        j = int(x[r].abs().argmax())
+        x[r] *= t / x[r].abs().max()
+        x[r, j] = t
+    x = x.to(cuda_device)
+    before = ops.LAUNCHES["int8_quantize"]
+    q, s = ops.int8_quantize(x, guard="collectives")
+    assert ops.LAUNCHES["int8_quantize"] == before + 1
+    wq, ws = ref.int8_quantize(x, guard="collectives")
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    cq, cs = ref.int8_quantize(x.cpu(), guard="collectives")
+    assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+    assert float(s[3, 0]) == float(np.float32(1e-30)) and float(s[0, 0]) == float(np.float32(1e-30))
+    unclipped = torch.round(x / s)
+    assert bool((unclipped.abs() <= 127).all()) and torch.equal(unclipped.to(torch.int8), q)
+
+
+@pytest.mark.cuda
 def test_int8_kernels_check_their_inputs(cuda_device):
     from repro_torch.kernels.int8_quant import int8_dequantize, int8_quantize
 
@@ -455,7 +512,7 @@ def test_compressed_sync_on_nccl_matches_the_plain_path(nccl_pod_mesh, cuda_devi
         olds = leaves(err) if err is not None else [None] * 3
         for a, e, o, ne in zip(leaves(grads), olds, leaves(out), leaves(new_err)):
             u = a + e if e is not None else a
-            q, s = ref.int8_quantize(u.reshape(-1, u.shape[-1]))
+            q, s = ref.int8_quantize(u.reshape(-1, u.shape[-1]), guard="collectives")
             deq = ref.int8_dequantize(q, s).view(u.shape)
             assert torch.equal(o, deq) and torch.equal(ne, u - deq)
         err = new_err

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_support import CPU, seeded_costs, seeded_tiers, seeded_toggle
+from test_torch_support import CPU, guard_rows, seeded_costs, seeded_tiers, seeded_toggle
 
 import jax
 import jax.numpy as jnp
@@ -291,6 +291,64 @@ def test_rmsnorm_plain_matches_pallas_interpret(shape):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _layout(B, Hq, Hkv, S, D, Dv, *, transposed=False):
+    """(b, h, s) element strides of q, k, v and the contiguous output: q/k/v
+    contiguous (B, H, S, D), or the LM's transposes of (B, S, H, D)."""
+    def st(H, d):
+        return (S * H * d, d, H * d) if transposed else (H * S * d, S * d, d)
+    return [*st(Hq, D), *st(Hkv, D), *st(Hkv, Dv), Hq * S * Dv, S * Dv, Dv]
+
+
+SM90, F32, BF16 = "flash_attention_sm90_bf16", "flash_attention_f32", "flash_attention_bf16"
+ALIGNED = [1 << 20, 3 << 20, 5 << 20, 7 << 20]   # base addresses, 16-byte aligned
+STRIDE_68 = _layout(1, 2, 1, 63, 64, 64)
+STRIDE_68[2] = 68                                 # q's s stride: 136 bytes
+
+
+@pytest.mark.parametrize("dtype,D,Dv,strides,ptrs,want", [
+    ("bfloat16", 64, 64, _layout(4, 32, 4, 1024, 64, 64), ALIGNED, SM90),         # TinyLlama
+    ("bfloat16", 64, 64, _layout(4, 32, 4, 1024, 64, 64, transposed=True), ALIGNED, SM90),
+    ("bfloat16", 120, 120, _layout(1, 32, 8, 1024, 120, 120, transposed=True), ALIGNED, SM90),
+    ("bfloat16", 128, 128, _layout(1, 4, 4, 256, 128, 128), ALIGNED, SM90),
+    ("bfloat16", 192, 128, _layout(1, 2, 1, 200, 192, 128), ALIGNED, SM90),
+    ("bfloat16", 256, 256, _layout(1, 2, 1, 130, 256, 256), ALIGNED, SM90),
+    ("bfloat16", 40, 40, _layout(1, 2, 2, 70, 40, 40), ALIGNED, SM90),
+    ("bfloat16", 60, 60, _layout(1, 2, 1, 64, 60, 60), ALIGNED, BF16),           # D % 8 != 0
+    ("bfloat16", 64, 60, _layout(1, 2, 1, 64, 64, 60), ALIGNED, BF16),
+    ("bfloat16", 64, 64, STRIDE_68, ALIGNED, BF16),
+    ("bfloat16", 64, 64, [0] + _layout(1, 2, 1, 64, 64, 64)[1:], ALIGNED, BF16),  # broadcast b
+    ("bfloat16", 64, 64, _layout(2, 4, 2, 128, 64, 64), [ALIGNED[0] + 2] + ALIGNED[1:],
+     BF16),                                                                      # q at +1 elem
+    ("bfloat16", 64, 64, _layout(2, 4, 2, 128, 64, 64), ALIGNED[:3] + [ALIGNED[3] + 8],
+     BF16),                                                                      # o at +8 B
+    ("float32", 64, 64, _layout(4, 32, 4, 1024, 64, 64), ALIGNED, F32),
+    ("float32", 192, 128, _layout(1, 2, 1, 200, 192, 128), ALIGNED, F32),
+], ids=["tinyllama", "lm-transposes", "danube-120", "d128", "d192-dv128", "d256", "d40",
+        "d60", "dv60", "stride68", "stride0", "q-offset", "o-offset", "f32", "f32-d192"])
+def test_flash_entry_choice(dtype, D, Dv, strides, ptrs, want):
+    """The pure choice between the Hopper entry and the general one: bf16
+    with head dims that are multiples of 8 and 16-byte aligned pointers and
+    strides go to sm90, anything else of a dtype to its general entry."""
+    from repro_torch.kernels.flash_attention import _entry
+
+    assert _entry(getattr(torch, dtype), D, Dv, strides, ptrs) == want
+
+
+@pytest.mark.parametrize("dtype,D,Dv,err", [
+    ("bfloat16", 264, 64, ValueError), ("bfloat16", 64, 264, ValueError),
+    ("float32", 256, 128, ValueError), ("float32", 200, 200, ValueError),
+    ("float16", 64, 64, TypeError),
+])
+def test_flash_entry_choice_refuses_what_no_entry_takes(dtype, D, Dv, err):
+    """Head dims past MAX_HEAD_DIM of the dtype, and other dtypes, raise."""
+    from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, _entry
+
+    if dtype != "float16":
+        assert max(D, Dv) > MAX_HEAD_DIM[getattr(torch, dtype)]
+    with pytest.raises(err):
+        _entry(getattr(torch, dtype), D, Dv, _layout(1, 2, 1, 64, D, Dv), ALIGNED)
+
+
 def test_lm_kernel_dispatch_refuses_other_devices():
     q = torch.empty((1, 2, 4, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel or plain version"):
@@ -355,6 +413,42 @@ def test_int8_plain_matches_pallas_interpret(shape, dtype):
     got = ops.int8_dequantize(q, s).numpy()
     np.testing.assert_allclose(got, want, atol=float(np.asarray(js).max()) * 1.01)
     assert (np.abs(x.float().numpy() - got) <= s.numpy() * 0.5 + 1e-6).all()
+
+
+def test_int8_default_guard_is_the_pallas_contract_on_tiny_rows():
+    """``ops.int8_quantize``'s default guard stays the Pallas kernel's,
+    ``max(amax, 1e-30) / 127``: q and scale equal ``repro.kernels.ref``'s bit
+    for bit on rows whose |max| is 0, 1e-29, 1.2e-28, 127 * 1e-30 and 3,
+    and the collectives' guard gives other scales on the rows below 127 * 1e-30."""
+    from repro.kernels import ref as jref
+
+    x = guard_rows(11, d=33)
+    q, s = ops.int8_quantize(torch.from_numpy(x))
+    jq, js = jref.int8_quantize(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    _, cs = ops.int8_quantize(torch.from_numpy(x), guard="collectives")
+    np.testing.assert_array_equal((s != cs).flatten().numpy(), [True, True, True, False, False])
+    with pytest.raises(ValueError, match="guard"):
+        ops.int8_quantize(torch.from_numpy(x), guard="xla")
+
+
+def test_int8_collectives_guard_matches_jax_collectives_quantize():
+    """``ref.int8_quantize(guard="collectives")`` is
+    ``repro.dist.collectives._quantize``: q and scale bit for bit, on the
+    guard's edge rows and on a (256, 1024) float32 block (where the clip,
+    which the JAX version lacks, changes nothing)."""
+    from repro.dist.collectives import _quantize as jquantize
+
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(12)
+    for x in (guard_rows(12, d=33), (rng.normal(size=(256, 1024)) * 3.0).astype(np.float32)):
+        q, s = ref.int8_quantize(torch.from_numpy(x), guard="collectives")
+        jq, js = jquantize(jnp.asarray(x))
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+        assert int(np.abs(np.asarray(jq, np.int32)).max()) <= 127
 
 
 @pytest.mark.parametrize("T,P", [(512, 1), (1024, 4), (8704, 8)])

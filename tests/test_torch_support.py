@@ -36,6 +36,24 @@ def seeded_costs(seed: int, n: int, T: int):
     return vpn, cci
 
 
+#: Row |max| values around where the two int8 scale guards part: zero, two
+#: tiny rows, exactly 127 * 1e-30 in float32 (where they meet) and a normal row.
+GUARD_ROW_MAX = (0.0, 1e-29, 1.2e-28, float(np.float32(127) * np.float32(1e-30)), 3.0)
+
+
+def guard_rows(seed: int, d: int = 16) -> np.ndarray:
+    """(5, d) float32 rows whose |max| is exactly each of GUARD_ROW_MAX."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(len(GUARD_ROW_MAX), d)).astype(np.float32)
+    for r, t in enumerate(GUARD_ROW_MAX):
+        t = np.float32(t)
+        x[r] *= t / np.abs(x[r]).max()
+        j = int(np.abs(x[r]).argmax())
+        x[r, j] = np.copysign(t, x[r, j])
+        assert np.abs(x[r]).max() == t
+    return x
+
+
 def seeded_toggle(seed: int, n: int):
     """Per-row ToggleCCI parameters as numpy arrays, with D = 0 and
     T_cci = 1 rows among them."""
