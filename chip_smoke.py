@@ -22,12 +22,17 @@ without printing a result):
    at both sizes: tiered f64 ``torch.equal``; tiered f32 ``rtol=atol=1e-6``;
    FSM ``x``/``state`` equal and ``total_cost`` ``rtol=1e-12`` against the
    plain version on the card, and every bit equal against the plain version
-   on the CPU at 128 links;
+   on the CPU at 128 links; then ``fsm_scan`` at the edges of its staged
+   tiles (N in 1, 17, 128 x T in 1, 63, 2001, 8760, windows from 1 hour to
+   past T, both policies and renewals, planes 8 bytes off a 16-byte
+   boundary) bit for bit against the CPU plain version and in decisions
+   against the card's;
 5. holds the CUDA ``plan_fleet`` against the CPU one at 16 x 2000;
 6. times each kernel, its plain version and ``plan_fleet`` end to end
    (median of CUDA-synchronised runs after warm-up) beside each kernel's
    bound: the larger of its bytes over 3.35 TB/s and its operations over
-   the card's peak for their type;
+   the card's peak for their type, and ``fsm_scan`` beside its time before
+   its redesign (run M in ``PERF.md``);
 7. the streaming path: with every launch count at 0, ``FleetRuntime`` on
    the default device streams the 2048 x 8760 scenario in K = 24 chunks
    and 800 hours per tick (past the month start at hour 730), and the
@@ -65,9 +70,11 @@ without printing a result):
    H2O-Danube3's shape, and RMSNorm with x cold and warm in L2 beside
    ``F.rms_norm``;
 9. the actuation path (:func:`actuation_phase`): holds ``int8_quantize``
-   (both scale guards) / ``int8_dequantize`` (float32 and bfloat16,
-   TinyLlama's leaf shapes, a zero row and a row with |max| 1e-29; the
-   collectives' guard on a 1e-29 row also against the CPU plain version)
+   (both scale guards) / ``int8_dequantize`` (float32 and bfloat16, every
+   TinyLlama leaf shape, a zero row and a row with |max| 1e-29, quantize
+   also against the CPU plain version; rows holding NaN, +inf and -inf,
+   which must give JAX's scale NaN or inf and q = 0; views one element off
+   a 16-byte boundary and d = 2047, which take the kernel's scalar branch)
    and the static ``tiered_cost`` (8760 x
    2048, two tier tables with an infinite last bound) against their plain
    versions with ``torch.equal``; then, with every launch count at 0, syncs
@@ -85,7 +92,8 @@ without printing a result):
    array equal) and ``fleet_sync_grads`` on 16 jobs of one full-width layer
    over a mode change (grouped == ungrouped, billed == ``sync_wire_bytes``);
    then times the sync in each mode, the kernels against their plain
-   versions and bounds, and ``feed_hour``;
+   versions and bounds (``int8_quantize`` beside its run-M time), and
+   ``feed_hour``;
 10. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
@@ -113,6 +121,9 @@ DEVICE = torch.device("cuda")
 # non-tensor-core float64 and float32 rates, and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12, torch.bfloat16: 989e12}
+# The kernels before their redesign (run M in PERF.md), NVIDIA H100 80GB
+# HBM3, 700.00 W: fsm_scan at 2048 x 8760, int8_quantize over the 201 leaves.
+RUN_M_MS = {"fsm_scan": 3.3928, "int8_quantize": 3.6788}
 
 
 class SmokeFailure(RuntimeError):
@@ -957,6 +968,14 @@ def print_host_ops(fn, top: int = 8) -> None:
         print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:70]}")
 
 
+def same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes and types, NaN in the same places, equal values elsewhere
+    (``torch.equal`` is False wherever both hold NaN)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
 def quant_bound(rows_d, dtype) -> dict:
     size = torch.empty((), dtype=dtype).element_size()
     n = sum(r * d for r, d in rows_d)
@@ -1015,8 +1034,7 @@ def actuation_phase(card: str) -> dict:
 
     # -- each kernel against its plain version, same CUDA tensors -------------
     d_model = cfg.d_model
-    cases = [(32000, 2048), (2048, 5632), (5632, 2048), (2048, 256), (2048, 32000),
-             (17, 2048), (1, 2048)]
+    cases = sorted(set(tuple(g.view(-1, g.shape[-1]).shape) for g in leaves)) + [(17, 2048)]
     quant_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for shape in cases:
@@ -1024,18 +1042,67 @@ def actuation_phase(card: str) -> dict:
             if shape[0] > 2:
                 x[0] = 0.0                                      # a row of zeros
                 x[1] *= 1e-29 / x[1].abs().max()                # amax = 1e-29
+            x_cpu = x.cpu()
             for guard in ("collectives", "pallas"):
                 q, s = int8_quantize(x, guard=guard)
                 wq, ws = ref.int8_quantize(x, guard=guard)
                 check(torch.equal(q, wq) and torch.equal(s, ws),
                       f"int8_quantize {shape} {dtype} guard {guard} != plain")
+                cq, cs = ref.int8_quantize(x_cpu, guard=guard)
+                check(torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs),
+                      f"int8_quantize {shape} {dtype} guard {guard} != plain on the CPU")
             for odt in (torch.float32, torch.bfloat16):
                 got, want = int8_dequantize(q, s, odt), ref.int8_dequantize(q, s, odt)
                 check(torch.equal(got, want), f"int8_dequantize {shape} -> {odt} != plain")
                 quant_err = max(quant_err, (got.float() - want.float()).abs().max().item())
-    print(f"int8_quantize (both scale guards) / int8_dequantize f32 and bf16 on {cases} (a "
-          f"zero row and a row with amax 1e-29 in each): q, scale and both dequantized types "
-          f"== plain (bit for bit)")
+    print(f"int8_quantize (both scale guards) / int8_dequantize f32 and bf16 on every leaf "
+          f"shape {cases} (a zero row and a row with amax 1e-29 in each): q, scale and both "
+          f"dequantized types == plain on the card, q and scale == plain on the CPU (bit for "
+          f"bit)")
+    # The repair of non-finite rows, and the kernel's scalar branch: rows holding
+    # NaN, +inf and -inf; views that start one element past a 16-byte boundary.
+    n_nf = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (256, 2047, 2048, 5632, 32000):
+            x = torch.randn((6, d), generator=gen, device=DEVICE) * 3.0
+            x[0, 5] = float("nan")
+            x[1, 0] = float("inf")
+            x[2, d - 1] = float("-inf")
+            x[3, 2], x[3, 7] = float("inf"), float("nan")
+            x[4] = 0.0
+            x = x.to(dtype)
+            for guard in ("collectives", "pallas"):
+                q, s = int8_quantize(x, guard=guard)
+                wq, ws = ref.int8_quantize(x, guard=guard)
+                cq, cs = ref.int8_quantize(x.cpu(), guard=guard)
+                check(torch.equal(q, wq) and same_nan(s, ws) and torch.equal(q.cpu(), cq)
+                      and same_nan(s.cpu(), cs), f"int8_quantize non-finite rows d={d} {dtype} "
+                      f"guard {guard}: kernel, card plain and CPU plain differ")
+                check(bool(torch.isnan(s[[0, 3]]).all()) and bool((s[[1, 2]] == float("inf"))
+                                                                  .all())
+                      and bool((q[:5] == 0).all()), f"int8_quantize non-finite rows d={d}: "
+                      f"scale {s.flatten().tolist()}, not JAX's NaN/inf with q = 0")
+                deq = int8_dequantize(q, s)
+                check(same_nan(deq, ref.int8_dequantize(q, s)) and bool(torch.isnan(deq[:4])
+                                                                          .all()),
+                      f"int8_dequantize non-finite rows d={d}: != plain or not NaN")
+                n_nf += 1
+        for n, d in ((300, 2048), (64, 5632), (33, 2047), (9, 32000)):
+            buf = torch.zeros(n * d + 1, dtype=dtype, device=DEVICE)
+            view = buf[1:].view(n, d)
+            view.copy_(torch.randn((n, d), generator=gen, device=DEVICE))
+            check(view.data_ptr() % 16 != 0, "the view is aligned")
+            for guard in ("collectives", "pallas"):
+                q, s = int8_quantize(view, guard=guard)
+                wq, ws = ref.int8_quantize(view, guard=guard)
+                cq, cs = ref.int8_quantize(view.cpu(), guard=guard)
+                check(torch.equal(q, wq) and torch.equal(s, ws) and torch.equal(q.cpu(), cq)
+                      and torch.equal(s.cpu(), cs), f"int8_quantize misaligned view {n} x {d} "
+                      f"{dtype} guard {guard}: kernel, card plain and CPU plain differ")
+    print(f"int8_quantize on rows holding NaN, +inf, -inf (d in 256, 2047, 2048, 5632, 32000; "
+          f"{n_nf} cases, f32 and bf16, both guards): scale NaN or inf and q = 0 as in JAX, "
+          f"kernel == card plain == CPU plain, dequantized NaN; misaligned views (300 x 2048, "
+          f"64 x 5632, 33 x 2047, 9 x 32000): kernel == card plain == CPU plain")
     # The repair: the sync's guard on a 1e-29 row, card kernel == card plain == CPU plain.
     tiny = torch.randn((2, 2048), generator=gen, device=DEVICE)
     tiny[0] *= 1e-29 / tiny[0].abs().max()
@@ -1279,7 +1346,8 @@ def actuation_phase(card: str) -> dict:
     for key, (ms, plain_ms, b) in timing.items():
         print(f"  {labels[key]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), {ms / b['bound_ms']:.2f}x bound; "
-              f"library_ms null: {no_library[key]}")
+              f"library_ms null: {no_library[key]}"
+              + (f"; run M (before the redesign) {RUN_M_MS[key]} ms" if key in RUN_M_MS else ""))
     b_emb = quant_bound([tuple(emb.shape)], torch.float32)
     print(f"  int8_quantize f32 {tuple(emb.shape)} alone: {emb_q:.4f} ms, bound "
           f"{b_emb['bound_ms'] * 1e3:.2f} us, {emb_q / b_emb['bound_ms']:.2f}x bound")
@@ -1315,6 +1383,70 @@ def describe_fsm_mismatch(label, got, want, vpn, cci, h):
             f"x={int(want['x'][n, t])} state={int(want['state'][n, t])}; "
             f"window sums r_vpn={rv!r} r_cci={rc!r}"
         )
+
+
+FSM_EDGE_N = (1, 17, 128)
+FSM_EDGE_T = (1, 63, 2001, 8760)
+
+
+def fsm_edge_args(N: int, T: int, hold: int, device) -> list:
+    """Seeded FSM inputs at an edge shape: windows from 1 hour to past T (h >=
+    T never lags), hold counts 1 (reactive) or 1-6 (hysteresis), and, on the
+    card, vpn/cci planes that start 8 bytes past a 16-byte boundary (odd T
+    misaligns every other row as well)."""
+    rng = np.random.default_rng(1000 * N + T)
+    vpn = rng.uniform(5.0, 50.0, size=(N, T))
+    regime = np.repeat(rng.uniform(0.6, 1.4, size=(N, T // 40 + 1)), 40, axis=1)[:, :T]
+    cci = vpn * regime * rng.uniform(0.95, 1.05, size=(N, T))
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device)
+    rows = [f64(rng.uniform(0.85, 0.95, N)), f64(rng.uniform(1.05, 1.2, N)),
+            i32(1 + (np.arange(N) * (T + 2)) // max(N - 1, 1)),
+            i32(np.resize([0, 3, 10, 0], N)), i32(np.resize([1, 5, 24, 1, 12], N))]
+    if hold == 1:
+        rows += [i32(np.ones(N)), i32(np.ones(N))]
+    else:
+        rows += [i32(np.resize([1, 2, 3, 6], N)), i32(np.resize([6, 1, 4], N))]
+
+    def plane(a):
+        buf = torch.zeros(N * T + 1, dtype=torch.float64, device=device)
+        view = buf[1:].view(N, T)
+        view.copy_(f64(a))
+        return view
+
+    return [plane(vpn), plane(cci)] + rows
+
+
+def fsm_edge_checks() -> int:
+    """``fsm_scan`` at the edge shapes of its staged tiles, both policies and
+    both renewal rules: every output bit-equal to the plain version on the
+    CPU, and x/state equal (total_cost to 1e-12) to the plain version on the
+    card. Returns the number of cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fsm_scan import fsm_scan
+
+    cases = 0
+    for N in FSM_EDGE_N:
+        for T in FSM_EDGE_T:
+            for hold in (1, 6):
+                args = fsm_edge_args(N, T, hold, DEVICE)
+                check(args[0].data_ptr() % 16 == 8, "edge planes not misaligned")
+                cpu_args = [a.cpu() for a in args]
+                for renew in (False, True):
+                    got = fsm_scan(*args, renew_in_chunks=renew)
+                    cpu = ref.fsm_scan_ref(*cpu_args, renew_in_chunks=renew)
+                    for k in ("x", "state", "total_cost"):
+                        check(torch.equal(got[k].cpu(), cpu[k]), f"fsm_scan {N} x {T} hold "
+                              f"{hold} renew={renew}: {k} != the CPU plain version")
+                    card = ref.fsm_scan_ref(*args, renew_in_chunks=renew)
+                    check(torch.equal(got["x"], card["x"]) and torch.equal(got["state"],
+                                                                            card["state"]),
+                          f"fsm_scan {N} x {T} hold {hold} renew={renew}: decisions != the "
+                          f"plain version on the card")
+                    torch.testing.assert_close(got["total_cost"], card["total_cost"],
+                                               rtol=1e-12, atol=0)
+                    cases += 1
+    return cases
 
 
 def main() -> int:
@@ -1449,6 +1581,13 @@ def main() -> int:
               f"{fsm_err:.3e}" + ("; every bit == plain on the CPU" if N == N128 else ""))
         kernel_rows[N] = {"tiered_err": err64, "tiered32_err": err32, "fsm_err": fsm_err}
 
+    t_edge = time.perf_counter()
+    n_edge = fsm_edge_checks()
+    print(f"fsm_scan edge shapes, N in {FSM_EDGE_N} x T in {FSM_EDGE_T}, windows 1 h to past T, "
+          f"holds 1 and 1-6, both renewals, planes 8 bytes off a 16-byte boundary: {n_edge} "
+          f"cases, every bit == plain on the CPU, decisions == plain on the card "
+          f"({time.perf_counter() - t_edge:.1f} s)")
+
     # -- the card against the CPU path the tests hold against JAX -----------
     sc = scen[SMALL[0]]
     for renew in (False, True):
@@ -1488,7 +1627,11 @@ def main() -> int:
             print(f"  {name:10s} {N:5d} x {T}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
                   f"bound {b['bound_ms'] * 1e3:.1f} us ({b['bound_by']}), "
                   f"{ms / b['bound_ms']:.1f}x bound, launches/plan "
-                  f"{per_plan['fsm_scan' if name == 'fsm_scan' else 'tiered_cost_batched']}")
+                  f"{per_plan['fsm_scan' if name == 'fsm_scan' else 'tiered_cost_batched']}"
+                  + (f"; run M (before the redesign) {RUN_M_MS['fsm_scan']} ms"
+                     if name == "fsm_scan" and N == SIZES[-1][0] else ""))
+        print(f"  fsm_scan {N:5d} x {T} renew_in_chunks: "
+              f"{event_ms(lambda: fsm_scan(*args, renew_in_chunks=True), 10):.4f} ms")
         plan_ms = sync_ms(lambda: plan_fleet(arrays, demand), 10)
         spec_ms = sync_ms(lambda: plan_fleet(scen[N].fleet, scen[N].demand), 3)
         print(f"  plan_fleet {N:5d} x {T}: {plan_ms:.3f} ms from arrays and demand on "

@@ -8,19 +8,44 @@
 // JAX package has no Pallas kernel for it; on the GPU an eager loop over T
 // would launch ~10^5 small kernels per plan.
 //
-// What bounds it on an H100: device-memory bytes in principle. Each element
-// reads vpn and cci (2 x 8 B) and writes x and state (2 x 4 B): 24 B per
-// element, 26.9 MB at 128 x 8760 and 430 MB at 2048 x 8760, and ~10 float64
-// operations. In practice this first kernel is bound by latency: each row is
-// one thread walking its T hours in order, so only N threads are in flight
-// (2048 at most on the main path, a small fraction of the 132 SMs' capacity)
-// and a warp's 32 loads of one hour touch 32 rows T x 8 B apart, which is not
-// coalesced. Rows one thread each keeps every row's arithmetic sequential and
-// exact; a layout that coalesces (hour-major planes, or a warp per row with a
-// shuffle scan) is left to a later change.
+// What bounds it on an H100. Each element reads vpn and cci (2 x 8 B) and
+// writes x and state (2 x 4 B): 24 B per element, 26.9 MB at 128 x 8760 and
+// 430 MB at 2048 x 8760 (0.13 ms at 3.35 TB/s), and ~11 float64 operations.
+// But each row is one dependent chain of T hours (the prefixes, the FSM carry,
+// the toggle cost), and the rows are few: 2048 on the main path, one thread
+// each. So the kernel is bound by the latency of one hour's step on one
+// thread, times T, as long as the data is at hand when the step needs it.
 //
-// Exactness: the thread keeps two float64 running prefixes of vpn (and two of
-// cci) in registers: pref[t] = v[0] + ... + v[t-1], added in order, and the
+// Design. A block owns kRows = 16 rows, so that 2048 rows take 128 of the 132
+// SMs, one block each (the chains run in SIMT, so a block takes as long for 8
+// rows as for 16: fewer rows a block only spread small fleets over more SMs,
+// and timed no faster; a fleet past 132 x 16 rows runs in waves). Each row's
+// chain is cut into three dependent chains that share no value within a tile
+// of kTile hours, and each runs in a warp of its own, lane r on row r, one
+// tile behind the other: at step j, warp 0 forms tile j's float64 prefixes,
+// window sums and raw triggers (one bit per hour, shifted into two 64-bit
+// masks), warp 1 runs the FSM over tile j - 1's masks (integers only; its
+// decisions go into two more masks), warp 2 adds tile j - 2's toggle cost in
+// hour order. Two copy warps stage tile j + kAhead from device memory with
+// cp.async and write tile j - 2's x and state back from the decision masks,
+// lanes over hours. Four streams are staged per tile: vpn and cci at hours
+// [t0, t0 + kTile), and the lagged vpn and cci at each row's own offset
+// t0 - h - 1 (from L2: the lead stream read them h + 1 hours earlier, 2048
+// x 337 x 16 B = 11 MB at the scenario's widest window; +0.0 before hour 0). A
+// segment of a row is contiguous, so the copies are coalesced; they are 8
+// bytes each, which any row start (T x 8 B apart, any T, any view) allows, and
+// hours past T are never copied. Rows of shared memory are padded to kTile + 1
+// words so that the chain lanes (one row each) hit distinct banks. One
+// __syncthreads per step hands the tiles on.
+//
+// What bounds it now: the instructions the FSM warp and the sums warp run,
+// hour after hour, on every row at once (PERF.md has the time an hour). The
+// loops are unrolled by 8, not by the tile: fully unrolled, the four warps'
+// loops do not fit the SM's instruction cache, and with every SM fetching
+// code from L2 the kernel slowed down as more SMs ran it.
+//
+// Exactness: the sums warp keeps two float64 running prefixes of vpn (and two
+// of cci) in registers: pref[t] = v[0] + ... + v[t-1], added in order, and the
 // same sum lagging h hours behind, pref[max(0, t-h)], which adds v[t-h-1]
 // once t > h. A prefix summed in order is the same number whenever it is
 // formed, so the lagging one equals pref[t-h] bit for bit without a scratch
@@ -40,7 +65,8 @@
 // writes four float64 and two int32 planes, 0.15 MB per hour at M = 2048;
 // at the runtime's K = 24 that is 3.5 MB, ~1.1 us at 3.35 TB/s, so a chunk is
 // bound by the launch and the K-step dependent chain, not by bytes. The
-// hour step (fsm_hour) is the one fsm_scan takes, so both kernels decide alike.
+// hour step (fsm_triggers, fsm_step) is the one fsm_scan takes, so both
+// kernels decide alike.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,80 +85,262 @@ struct FsmRow {
   bool renew_in_chunks;
 };
 
-// One row's FSM carry: state, hours in state, consecutive trigger hours.
+// One row's FSM carry: state, hours in state, consecutive trigger hours, and
+// t_state % T_cci kept by counting (the renewal check needs no division).
 struct FsmCarry {
-  int state, t_state, up, down;
+  int state, t_state, up, down, phase;
 };
 
-// One hour of the policy step: triggers from the window sums, the hold
-// counts, then the cascade of _fsm_cascade (request, provisioning done,
-// release). Returns the state that serves the hour; t_state then counts it.
-__device__ __forceinline__ int fsm_hour(const FsmRow& p, FsmCarry& c,
-                                        double r_vpn, double r_cci) {
-  const bool raw_req = r_cci < __dmul_rn(p.theta1, r_vpn);
-  const bool raw_rel = r_cci > __dmul_rn(p.theta2, r_vpn);
+// The hour's raw triggers from its window sums.
+__device__ __forceinline__ void fsm_triggers(const FsmRow& p, double r_vpn, double r_cci,
+                                             bool& raw_req, bool& raw_rel) {
+  raw_req = r_cci < __dmul_rn(p.theta1, r_vpn);
+  raw_rel = r_cci > __dmul_rn(p.theta2, r_vpn);
+}
+
+// One hour of the policy step from its raw triggers: the hold counts, then
+// the cascade of _fsm_cascade (request, provisioning done, release). Returns
+// the state that serves the hour; t_state then counts it. Written as selects,
+// with no branch: the lanes of a warp walk rows in different states, and a
+// branch would run each state's path in turn.
+__device__ __forceinline__ int fsm_step(const FsmRow& p, FsmCarry& c, bool raw_req,
+                                        bool raw_rel, bool renew_in_chunks) {
   c.up = raw_req ? c.up + 1 : 0;
   c.down = raw_rel ? c.down + 1 : 0;
-  const bool req = raw_req && c.up >= p.up_hold;
-  const bool rel = raw_rel && c.down >= p.down_hold;
+  const bool req = raw_req & (c.up >= p.up_hold);
+  const bool rel = raw_rel & (c.down >= p.down_hold);
 
-  if (c.state == kOff && req) { c.state = kWaiting; c.t_state = 0; }
-  if (c.state == kWaiting && c.t_state >= p.D) { c.state = kOn; c.t_state = 0; }
+  const bool to_wait = (c.state == kOff) & req;
+  c.state = to_wait ? kWaiting : c.state;
+  c.t_state = to_wait ? 0 : c.t_state;
+  c.phase = to_wait ? 0 : c.phase;
+  const bool to_on = (c.state == kWaiting) & (c.t_state >= p.D);
+  c.state = to_on ? kOn : c.state;
+  c.t_state = to_on ? 0 : c.t_state;
+  c.phase = to_on ? 0 : c.phase;
   const bool past_commit = c.t_state >= p.T_cci;
-  const bool check = p.renew_in_chunks ? (past_commit && (c.t_state % p.T_cci) == 0)
-                                       : past_commit;
-  if (c.state == kOn && check && rel) { c.state = kOff; c.t_state = 0; }
+  const bool check = renew_in_chunks ? past_commit & (c.phase == 0) : past_commit;
+  const bool to_off = (c.state == kOn) & check & rel;
+  c.state = to_off ? kOff : c.state;
+  c.t_state = to_off ? 0 : c.t_state;
+  c.phase = to_off ? 0 : c.phase;
   const int s = c.state;
   c.t_state += 1;
+  c.phase = c.phase + 1 == p.T_cci ? 0 : c.phase + 1;
   return s;
 }
 
-__global__ void fsm_scan_kernel(const double* __restrict__ vpn,
-                                const double* __restrict__ cci,
-                                const double* __restrict__ theta1,
-                                const double* __restrict__ theta2,
-                                const int* __restrict__ win,
-                                const int* __restrict__ delay,
-                                const int* __restrict__ commit,
-                                const int* __restrict__ up_hold,
-                                const int* __restrict__ down_hold,
-                                int renew_in_chunks, int N, int T,
-                                int* __restrict__ x_out,
-                                int* __restrict__ state_out,
-                                double* __restrict__ total_out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const FsmRow p = {theta1[n], theta2[n], delay[n], commit[n], up_hold[n],
-                    down_hold[n], renew_in_chunks != 0};
-  const int h = win[n];
-  const double* v = vpn + (int64_t)n * T;
-  const double* c = cci + (int64_t)n * T;
-  int* xo = x_out + (int64_t)n * T;
-  int* so = state_out + (int64_t)n * T;
+// One hour: triggers, then the step.
+__device__ __forceinline__ int fsm_hour(const FsmRow& p, FsmCarry& c,
+                                        double r_vpn, double r_cci) {
+  bool raw_req, raw_rel;
+  fsm_triggers(p, r_vpn, r_cci, raw_req, raw_rel);
+  return fsm_step(p, c, raw_req, raw_rel, p.renew_in_chunks);
+}
 
+constexpr int kRows = 16;                 // rows a block, one lane each
+constexpr int kTile = 64;                 // hours per staged tile: one bit each in a mask
+constexpr int kAhead = 2;                 // tiles in flight ahead of the sums warp
+constexpr int kLead = kAhead + 3;         // tiles of vpn/cci in the ring: j - 2 .. j + kAhead
+constexpr int kLag = kAhead + 1;          // tiles of lagged vpn/cci: j .. j + kAhead
+constexpr int kPad = kTile + 1;           // row stride in shared memory (words)
+constexpr int kCopyWarps = 2;
+constexpr int kScanThreads = 32 * (3 + kCopyWarps);   // sums, FSM, cost, copies
+
+// The rings of one fsm_scan block. Tile t's vpn/cci sit in lead
+// slot t % kLead, its lagged vpn/cci (hours t0 - h - 1 + i, +0.0 before hour
+// 0) in lag slot t % kLag, its trigger and decision masks (bit i = hour
+// t0 + i) in mask slot t % 2.
+struct ScanTiles {
+  double v[kLead][kRows][kPad], c[kLead][kRows][kPad];
+  double vl[kLag][kRows][kPad], cl[kLag][kRows][kPad];
+  uint64_t req[2][kRows], rel[2][kRows], on[2][kRows], wait[2][kRows];
+  int64_t base[kRows];                      // row r's first element
+  int lag[kRows];                           // h + 1
+};
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy warp cw: stage tile j (a no-op past the last tile) for rows cw,
+// cw + kCopyWarps, ..., lanes over hours. A lagged slot before hour 0 gets +0.0:
+// adding it leaves a prefix that starts at +0.0 (and so is never -0.0) as it
+// is.
+__device__ __forceinline__ void stage_tile(ScanTiles& sm, int j, const double* vpn,
+                                           const double* cci, int rows, int T, int cw,
+                                           int lane) {
+  const int t0 = j * kTile;
+  if (t0 >= T) return;
+  const int len = min(kTile, T - t0);
+  const int bl = j % kLead, bg = j % kLag;
+  for (int r = cw; r < rows; r += kCopyWarps) {
+    const double* vr = vpn + sm.base[r];
+    const double* cr = cci + sm.base[r];
+    const int64_t k0 = (int64_t)t0 - sm.lag[r];
+#pragma unroll
+    for (int k = 0; k < kTile / 32; ++k) {
+      const int i = lane + 32 * k;
+      if (i < len) {
+        cp_async8(&sm.v[bl][r][i], vr + t0 + i);
+        cp_async8(&sm.c[bl][r][i], cr + t0 + i);
+        if (k0 + i >= 0) {
+          cp_async8(&sm.vl[bg][r][i], vr + (k0 + i));
+          cp_async8(&sm.cl[bg][r][i], cr + (k0 + i));
+        } else {
+          sm.vl[bg][r][i] = 0.0;
+          sm.cl[bg][r][i] = 0.0;
+        }
+      }
+    }
+  }
+}
+
+// The sums warp, one hour of a row: the lagged and leading prefixes, the
+// window sums, and the hour's raw triggers, shifted into two masks from the
+// top (after a whole tile, bit i is hour t0 + i).
+struct Sums {
   double pv = 0.0, pc = 0.0;    // pref[t]: sum of hours [0, t)
   double lv = 0.0, lc = 0.0;    // pref[max(0, t - h)]
-  double total = 0.0;
-  FsmCarry fc = {kOff, 0, 0, 0};
-  for (int t = 0; t < T; ++t) {
-    const int k = t - h - 1;
-    if (k >= 0) {
-      lv = __dadd_rn(lv, v[k]);
-      lc = __dadd_rn(lc, c[k]);
-    }
-    const double r_vpn = __dsub_rn(pv, lv);
-    const double r_cci = __dsub_rn(pc, lc);
-
-    const int s = fsm_hour(p, fc, r_vpn, r_cci);
-
-    const double vt = v[t], ct = c[t];
-    xo[t] = s == kOn ? 1 : 0;
-    so[t] = s;
-    total = __dadd_rn(total, s == kOn ? ct : vt);
-    pv = __dadd_rn(pv, vt);
-    pc = __dadd_rn(pc, ct);
+  __device__ __forceinline__ void hour(const FsmRow& p, const double* V, const double* C,
+                                       const double* VL, const double* CL, int i,
+                                       uint64_t& req, uint64_t& rel) {
+    lv = __dadd_rn(lv, VL[i]);
+    lc = __dadd_rn(lc, CL[i]);
+    bool raw_req, raw_rel;
+    fsm_triggers(p, __dsub_rn(pv, lv), __dsub_rn(pc, lc), raw_req, raw_rel);
+    req = req >> 1 | (uint64_t)raw_req << 63;
+    rel = rel >> 1 | (uint64_t)raw_rel << 63;
+    pv = __dadd_rn(pv, V[i]);
+    pc = __dadd_rn(pc, C[i]);
   }
-  total_out[n] = total;
+};
+
+// A mask of len < kTile hours shifted in from the top, moved down to bit 0.
+__device__ __forceinline__ uint64_t settle(uint64_t m, int len) {
+  return len < kTile ? m >> (kTile - len) : m;
+}
+
+// The FSM warp, one hour of a row: the step from the hour's trigger bits
+// (bit 0 of the masks, shifted out), and the decision shifted into two masks.
+template <bool RENEW>
+__device__ __forceinline__ void decide_hour(const FsmRow& p, FsmCarry& fc, uint64_t& req,
+                                            uint64_t& rel, uint64_t& on, uint64_t& wait) {
+  const int s = fsm_step(p, fc, req & 1, rel & 1, RENEW);
+  req >>= 1;
+  rel >>= 1;
+  on = on >> 1 | (uint64_t)(s == kOn) << 63;
+  wait = wait >> 1 | (uint64_t)(s == kWaiting) << 63;
+}
+
+// Copy warp cw: write tile t's x and state for rows cw, cw + kCopyWarps,
+// ..., from the decision masks, lanes over hours.
+__device__ __forceinline__ void store_tile(const ScanTiles& sm, int t, int* x_out,
+                                           int* state_out, int rows, int T, int cw,
+                                           int lane) {
+  const int t0 = t * kTile, len = min(kTile, T - t0);
+  for (int r = cw; r < rows; r += kCopyWarps) {
+    const uint64_t on = sm.on[t % 2][r], wait = sm.wait[t % 2][r];
+    int* xr = x_out + sm.base[r] + t0;
+    int* sr = state_out + sm.base[r] + t0;
+#pragma unroll
+    for (int k = 0; k < kTile / 32; ++k) {
+      const int i = lane + 32 * k;
+      if (i < len) {
+        const int is_on = (int)((on >> i) & 1);
+        xr[i] = is_on;
+        sr[i] = is_on ? kOn : (int)((wait >> i) & 1);
+      }
+    }
+  }
+}
+
+// Each row is walked by three warps one tile apart, lane r on row n0 + r:
+// at step j, warp 0 sums tile j, warp 1 decides tile j - 1 and warp 2 adds
+// tile j - 2's toggle cost in hour order, while the copy warps stage tile
+// j + kAhead and write tile j - 2's x and state. One __syncthreads per step
+// hands the tiles on.
+template <bool RENEW>
+__global__ void __launch_bounds__(kScanThreads)
+fsm_scan_kernel(const double* __restrict__ vpn, const double* __restrict__ cci,
+                const double* __restrict__ theta1, const double* __restrict__ theta2,
+                const int* __restrict__ win, const int* __restrict__ delay,
+                const int* __restrict__ commit, const int* __restrict__ up_hold,
+                const int* __restrict__ down_hold, int N, int T,
+                int* __restrict__ x_out, int* __restrict__ state_out,
+                double* __restrict__ total_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ScanTiles& sm = *reinterpret_cast<ScanTiles*>(smem_raw);
+  const int64_t n0 = (int64_t)blockIdx.x * kRows;
+  const int rows = (int)min((int64_t)kRows, N - n0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = (T + kTile - 1) / kTile;
+  if ((int)threadIdx.x < rows) {
+    sm.base[threadIdx.x] = (n0 + threadIdx.x) * (int64_t)T;
+    sm.lag[threadIdx.x] = win[n0 + threadIdx.x] + 1;
+  }
+  __syncthreads();
+  if (warp >= 3) {
+    for (int j = 0; j < kAhead; ++j) {
+      stage_tile(sm, j, vpn, cci, rows, T, warp - 3, lane);
+      cp_async_commit();
+    }
+  }
+  const bool mine = lane < rows;                 // lane r walks row n0 + r
+  const int64_t n = n0 + lane;
+  FsmRow p = {};
+  if (mine && warp < 2)
+    p = {theta1[n], theta2[n], delay[n], commit[n], up_hold[n], down_hold[n], RENEW};
+  Sums sums;
+  FsmCarry fc = {kOff, 0, 0, 0, 0};
+  double total = 0.0;
+
+  for (int j = 0; j <= n_tiles + 1; ++j) {
+    if (warp >= 3) cp_async_wait<kAhead - 1>();  // tile j has landed
+    __syncthreads();
+    if (warp == 0) {
+      if (mine && j < n_tiles) {
+        const int len = min(kTile, T - j * kTile);
+        const double *V = sm.v[j % kLead][lane], *C = sm.c[j % kLead][lane];
+        const double *VL = sm.vl[j % kLag][lane], *CL = sm.cl[j % kLag][lane];
+        uint64_t req = 0, rel = 0;
+#pragma unroll 8
+        for (int i = 0; i < len; ++i) sums.hour(p, V, C, VL, CL, i, req, rel);
+        sm.req[j % 2][lane] = settle(req, len);
+        sm.rel[j % 2][lane] = settle(rel, len);
+      }
+    } else if (warp == 1) {
+      const int t = j - 1;
+      if (mine && t >= 0 && t < n_tiles) {
+        const int len = min(kTile, T - t * kTile);
+        uint64_t req = sm.req[t % 2][lane], rel = sm.rel[t % 2][lane], on = 0, wait = 0;
+#pragma unroll 8
+        for (int i = 0; i < len; ++i) decide_hour<RENEW>(p, fc, req, rel, on, wait);
+        sm.on[t % 2][lane] = settle(on, len);
+        sm.wait[t % 2][lane] = settle(wait, len);
+      }
+    } else if (warp == 2) {
+      const int t = j - 2;
+      if (mine && t >= 0) {
+        const int len = min(kTile, T - t * kTile);
+        uint64_t on = sm.on[t % 2][lane];
+        const double *V = sm.v[t % kLead][lane], *C = sm.c[t % kLead][lane];
+#pragma unroll 8
+        for (int i = 0; i < len; ++i, on >>= 1) total = __dadd_rn(total, on & 1 ? C[i] : V[i]);
+      }
+    } else {
+      stage_tile(sm, j + kAhead, vpn, cci, rows, T, warp - 3, lane);
+      cp_async_commit();
+      if (j >= 2) store_tile(sm, j - 2, x_out, state_out, rows, T, warp - 3, lane);
+    }
+  }
+  if (mine && warp == 2) total_out[n] = total;
 }
 
 // K hours of the FSM from a carry, for the streaming runtime's chunk. Planes
@@ -169,7 +377,7 @@ __global__ void fsm_chunk_kernel(const double* __restrict__ vpn,
                     down_hold[m], renew_in_chunks != 0};
   const int h = win[m];
   FsmCarry fc = {carry_in[m], carry_in[M + m], carry_in[2 * M + m],
-                 carry_in[3 * M + m]};
+                 carry_in[3 * M + m], carry_in[M + m] % p.T_cci};
   double pv = pref_in[m], pc = pref_in[M + m];
   for (int k = 0; k < K; ++k) {
     const int64_t i = (int64_t)k * M + m;
@@ -203,6 +411,20 @@ __global__ void fsm_chunk_kernel(const double* __restrict__ vpn,
   pref_out[M + m] = pc;
 }
 
+template <bool RENEW>
+int launch_scan(const double* vpn, const double* cci, const double* theta1,
+                const double* theta2, const int* h, const int* D, const int* T_cci,
+                const int* up_hold, const int* down_hold, int N, int T, int* x, int* state,
+                double* total, cudaStream_t stream) {
+  const int smem = (int)sizeof(ScanTiles);
+  cudaError_t err = cudaFuncSetAttribute(fsm_scan_kernel<RENEW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fsm_scan_kernel<RENEW><<<(N + kRows - 1) / kRows, kScanThreads, smem, stream>>>(
+      vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold, N, T, x, state, total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fsm_scan_f64(const double* vpn, const double* cci,
@@ -212,14 +434,10 @@ extern "C" int fsm_scan_f64(const double* vpn, const double* cci,
                             int renew_in_chunks, int N, int T,
                             int* x, int* state, double* total, void* stream) {
   if (N == 0) return (int)cudaSuccess;
-  // 32 threads a block spreads the rows over as many SMs (and L1 caches) as
-  // there are warps.
-  const int threads = 32;
-  const int blocks = (N + threads - 1) / threads;
-  fsm_scan_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold,
-      renew_in_chunks, N, T, x, state, total);
-  return (int)cudaGetLastError();
+  if (N < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  const auto launch = renew_in_chunks ? launch_scan<true> : launch_scan<false>;
+  return launch(vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold, N, T, x, state,
+                total, (cudaStream_t)stream);
 }
 
 extern "C" int fsm_chunk_f64(const double* vpn, const double* cci,

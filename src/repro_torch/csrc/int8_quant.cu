@@ -16,6 +16,12 @@
 // collectives' unclipped round.
 //   dequantize: out   = (float)q * scale, cast to float32 or bfloat16
 //
+// Non-finite rows give what JAX gives: the row |max| and the guard's max
+// propagate NaN, so a row holding NaN gets scale NaN and one holding +-inf
+// scale inf; a quotient x / scale that is NaN (NaN / s, inf / inf, 0 / NaN)
+// becomes q = 0, as XLA's float-to-int convert gives, and no other clip
+// applies to it.
+//
 // What bounds it on an H100: device-memory bytes. Quantize reads x once (4 or
 // 2 B) and writes q (1 B) and one scale per row; dequantize reads q and the
 // scales and writes 4 or 2 B. About 5 B per float32 value either way, a few
@@ -23,20 +29,32 @@
 // TinyLlama-1.1B gradient (1.1e9 values) is 5.5 GB per pass, 1.64 ms at
 // 3.35 TB/s.
 //
-// Design. Quantize: one block per row (any N; the TPU kernel's N % 256 is a
-// tiling limit, not part of the contract), 32 to 256 threads by the row's
-// width. Each thread reads a strided slice of the row, coalesced across the
-// block, keeps it in shared memory as float32 where the row fits (d <= 12032,
-// 47 KB: every leaf of the LM) and takes its |x| maximum; warp shuffles and
-// one shared-memory step reduce the block. The second pass divides and rounds
-// from shared memory, so the row is read from device memory once; a wider row
-// is read again (from L2). The division is a true IEEE division and rint
-// rounds half to even, as jnp.round does; the file is built without
+// Design of quantize (a bandwidth design). A team of threads owns a row: a
+// warp for rows of up to 256 16-byte vectors (d <= 1024 in float32, 2048 in
+// bfloat16: the k/v rows of 256; eight rows to a block of 256 threads), a
+// block of 256 threads up to 1024 vectors (the rows of 2048), a block of 512
+// past that (the gate/up rows of 5632 and the LM head's rows of 32000).
+// A warp per row of 2048 float32 needs 85 registers a thread, which holds
+// only 24 rows per SM in flight and runs the 5632-row leaf in two uneven
+// waves; a block of 256 threads holds each row in 8 registers. On the vector
+// path each thread loads its slice of the row with 16-byte loads (float4, or
+// 8 bfloat16), neighbouring threads on neighbouring addresses, and keeps it
+// in registers (VPL loads a thread, up to 16), so the row is read from device
+// memory exactly once; the team reduces |max| with shuffles (and, for a
+// block, one shared-memory step), every thread computes the scale, quantizes
+// from its registers and stores its int8 values packed, 4 (float32) or 8
+// (bfloat16) to one 32- or 64-bit store. The grid is sized by occupancy and
+// strides over the rows, so the 32000-row embedding and the 2048-row leaves
+// alike fill the card with no block per row. Rows that are not 16-byte
+// aligned, a d that is not a multiple of the vector width, q not aligned to
+// the packed store, or a row wider than 512 x 16 vectors take the scalar
+// branch of the same kernel: 2- or 4-byte loads, the row read a second time
+// (from L2) to quantize. The division is a true IEEE division and
+// rint rounds half to even, as jnp.round does; the file is built without
 // --use_fast_math (so -prec-div=true holds) and the result is bit-equal to
-// the plain PyTorch version. Dequantize: one block per row as well, its scale
-// read once, the row's int8 values streamed by the block; the product is one
-// rounding, as in the plain version. Loads are scalar (1 to 4 bytes a thread),
-// coalesced across the block; wider vector loads are later work.
+// the plain PyTorch version in both guards. Dequantize: one block per row, its
+// scale read once, the row's int8 values streamed by the block; the product
+// is one rounding, as in the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,55 +62,140 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kSmemFloats = 12032;   // 47 KB: the row cache, inside the 48 KB default
+constexpr int kMaxThreads = 256;         // dequantize's block
+constexpr int kWarpRowsPerBlock = 8;     // quantize, a warp per row
+constexpr int kMaxVpl = 16;              // 16-byte loads a thread on the vector path
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-int8_quantize_kernel(const T* __restrict__ x, int d, int guard, int8_t* __restrict__ q,
-                     float* __restrict__ scale) {
-  extern __shared__ float row[];                 // d floats when cached
-  __shared__ float partial[kMaxThreads / 32];
-  const int64_t r = blockIdx.x;
-  const T* xr = x + r * d;
-  int8_t* qr = q + r * d;
-  const bool cached = d <= kSmemFloats;
+// max that returns NaN when either operand is NaN (fmaxf drops it).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
-  float amax = 0.f;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    const float v = to_f32(xr[j]);
-    if (cached) row[j] = v;
-    amax = fmaxf(amax, fabsf(v));
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  if (lane == 0) partial[warp] = amax;
-  __syncthreads();
-  if (warp == 0) {
-    amax = lane < n_warps ? partial[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    if (lane == 0) partial[0] = amax;
-  }
-  __syncthreads();
-  const float s = guard ? fmaxf(partial[0] / 127.0f, 1e-30f)
-                        : fmaxf(partial[0], 1e-30f) / 127.0f;
-  if (threadIdx.x == 0) scale[r] = s;
+// rint(v / s) clipped to [-127, 127]; a NaN quotient is 0.
+__device__ __forceinline__ int quant1(float v, float s) {
+  const float r = rintf(v / s);
+  return r != r ? 0 : (int)fminf(fmaxf(r, -127.f), 127.f);
+}
 
-  for (int j = threadIdx.x; j < d; j += blockDim.x) {
-    const float v = cached ? row[j] : to_f32(xr[j]);
-    const float qv = fminf(fmaxf(rintf(v / s), -127.f), 127.f);
-    qr[j] = (int8_t)qv;
+// Unpack 16 bytes of x into float32 values, and pack E int8 values.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int kN = 4;
+  using Packed = uint32_t;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ __forceinline__ static Packed pack(const int* q) {
+    return (uint32_t)(q[0] & 0xff) | (uint32_t)(q[1] & 0xff) << 8 |
+           (uint32_t)(q[2] & 0xff) << 16 | (uint32_t)(q[3] & 0xff) << 24;
+  }
+};
+template <> struct Vec<bf16> {
+  static constexpr int kN = 8;
+  using Packed = uint2;
+  // A bf16 is the top half of a float32: widen by a shift, no conversion.
+  __device__ __forceinline__ static void unpack2(uint32_t w, float* f) {
+    f[0] = __uint_as_float(w << 16);
+    f[1] = __uint_as_float(w & 0xffff0000u);
+  }
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    unpack2(u.x, f);
+    unpack2(u.y, f + 2);
+    unpack2(u.z, f + 4);
+    unpack2(u.w, f + 6);
+  }
+  __device__ __forceinline__ static Packed pack(const int* q) {
+    return make_uint2(Vec<float>::pack(q), Vec<float>::pack(q + 4));
+  }
+};
+
+// The |max| over a team of TPR threads (a warp, or the whole block of up to
+// 512); every thread of the team gets it. red is 2 x 16 floats of shared
+// memory, used by block teams only, alternating between rows.
+template <int TPR>
+__device__ __forceinline__ float team_max(float m, float* red, int parity) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (TPR > 32) {
+    float* part = red + 16 * parity;
+    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = m;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < TPR / 32; ++w) m = max_nan(m, part[w]);
+  }
+  return m;
+}
+
+__device__ __forceinline__ float row_scale(float amax, int guard) {
+  return guard ? max_nan(amax / 127.0f, 1e-30f) : max_nan(amax, 1e-30f) / 127.0f;
+}
+
+// vec: the vector path (see the top).
+template <typename T, int TPR, int VPL>
+__global__ void __launch_bounds__(TPR == 32 ? 32 * kWarpRowsPerBlock : TPR)
+int8_quantize_kernel(const T* __restrict__ x, long long rows, int d, int guard, int vec,
+                     int8_t* __restrict__ q, float* __restrict__ scale) {
+  __shared__ float red[32];
+  constexpr int E = Vec<T>::kN;
+  constexpr int kTeams = TPR == 32 ? kWarpRowsPerBlock : 1;
+  const int t = threadIdx.x % TPR;
+  const int nv = vec ? d / E : 0;
+  const long long step = (long long)gridDim.x * kTeams;
+  int parity = 0;
+  for (long long r = (long long)blockIdx.x * kTeams + threadIdx.x / TPR; r < rows;
+       r += step, parity ^= 1) {
+    const T* xr = x + r * d;
+    int8_t* qr = q + r * d;
+    float amax = 0.f;
+    if (vec) {
+      uint4 v[VPL];
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int c = t + TPR * i;
+        v[i] = c < nv ? reinterpret_cast<const uint4*>(xr)[c] : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        float f[E];
+        Vec<T>::unpack(v[i], f);
+#pragma unroll
+        for (int e = 0; e < E; ++e) amax = max_nan(amax, fabsf(f[e]));
+      }
+      const float s = row_scale(team_max<TPR>(amax, red, parity), guard);
+      if (t == 0) scale[r] = s;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const int c = t + TPR * i;
+        if (c < nv) {
+          float f[E];
+          int qi[E];
+          Vec<T>::unpack(v[i], f);
+#pragma unroll
+          for (int e = 0; e < E; ++e) qi[e] = quant1(f[e], s);
+          reinterpret_cast<typename Vec<T>::Packed*>(qr)[c] = Vec<T>::pack(qi);
+        }
+      }
+    } else {
+      for (int j = t; j < d; j += TPR) amax = max_nan(amax, fabsf(to_f32(xr[j])));
+      const float s = row_scale(team_max<TPR>(amax, red, parity), guard);
+      if (t == 0) scale[r] = s;
+      for (int j = t; j < d; j += TPR) qr[j] = (int8_t)quant1(to_f32(xr[j]), s);
+    }
   }
 }
 
@@ -113,16 +216,64 @@ int threads_for(int d) {
   return t;
 }
 
+bool aligned(const void* p, unsigned bytes) { return ((uintptr_t)p & (bytes - 1)) == 0; }
+
+template <typename T, int TPR, int VPL>
+int launch_quantize(const T* x, long long rows, int d, int guard, int vec, int8_t* q,
+                    float* scale, cudaStream_t stream) {
+  constexpr int kThreads = TPR == 32 ? 32 * kWarpRowsPerBlock : TPR;
+  constexpr int kTeams = kThreads / TPR;
+  auto kernel = int8_quantize_kernel<T, TPR, VPL>;
+  // Blocks that fit the card at once, asked once per instantiation (the grid
+  // strides over the rows, so any count is correct).
+  static const long long full = [=] {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
+            cudaSuccess)
+      return 1024LL;
+    return (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  }();
+  const long long need = (rows + kTeams - 1) / kTeams;
+  const unsigned grid = (unsigned)(need < full ? need : full);
+  kernel<<<grid, kThreads, 0, stream>>>(x, rows, d, guard, vec, q, scale);
+  return (int)cudaGetLastError();
+}
+
+// Team sizes and the most 16-byte loads a thread holds with each (see the top).
+template <typename T, int TPR, int MAXV>
+int launch_tpr(const T* x, long long rows, int d, int guard, int vec, int vpl, int8_t* q,
+               float* scale, cudaStream_t stream) {
+  if constexpr (MAXV >= 16) {
+    if (vpl > 8) return launch_quantize<T, TPR, 16>(x, rows, d, guard, vec, q, scale, stream);
+  }
+  if constexpr (MAXV >= 8) {
+    if (vpl > 4) return launch_quantize<T, TPR, 8>(x, rows, d, guard, vec, q, scale, stream);
+  }
+  switch (vpl) {
+    case 1: return launch_quantize<T, TPR, 1>(x, rows, d, guard, vec, q, scale, stream);
+    case 2: return launch_quantize<T, TPR, 2>(x, rows, d, guard, vec, q, scale, stream);
+    default: return launch_quantize<T, TPR, 4>(x, rows, d, guard, vec, q, scale, stream);
+  }
+}
+
 template <typename T>
 int quantize(const T* x, long long rows, int d, int guard, int8_t* q, float* scale,
              cudaStream_t stream) {
   if (rows == 0) return (int)cudaSuccess;
-  if (rows > 0x7fffffffLL || d < 1 || (guard != 0 && guard != 1))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = d <= kSmemFloats ? (size_t)d * sizeof(float) : 0;
-  int8_quantize_kernel<T><<<(unsigned)rows, threads_for(d), smem, stream>>>(x, d, guard, q,
-                                                                          scale);
-  return (int)cudaGetLastError();
+  if (rows < 0 || d < 1 || (guard != 0 && guard != 1)) return (int)cudaErrorInvalidValue;
+  constexpr int E = Vec<T>::kN;
+  const int nv = d / E;
+  const int tpr = nv <= 32 * 8 ? 32 : nv <= 256 * 4 ? 256 : 512;
+  const int max_vpl = tpr == 32 ? 8 : tpr == 256 ? 4 : kMaxVpl;
+  int vpl = 1;
+  while (vpl < max_vpl && tpr * vpl < nv) vpl *= 2;
+  const int vec = d % E == 0 && tpr * vpl >= nv && aligned(x, 16) && aligned(q, E);
+  if (!vec) vpl = 1;
+  if (tpr == 32) return launch_tpr<T, 32, 8>(x, rows, d, guard, vec, vpl, q, scale, stream);
+  if (tpr == 256) return launch_tpr<T, 256, 4>(x, rows, d, guard, vec, vpl, q, scale, stream);
+  return launch_tpr<T, 512, kMaxVpl>(x, rows, d, guard, vec, vpl, q, scale, stream);
 }
 
 template <typename T>

@@ -14,12 +14,19 @@ link's FSM mode selects this module's path per tick):
                     wire (billed) bytes on the pay-per-GB path.
 
 The mesh is a :class:`~torch.distributed.device_mesh.DeviceMesh` (see
-:mod:`repro_torch.launch.mesh`). A mean over an axis is ``all_reduce(SUM)``
-on ``mesh.get_group(axis)`` divided by the product of the axes' sizes; over
-``("pod", "data")`` the sum runs over ``"pod"``, then ``"data"`` (exact for
-replicated gradients, like XLA's sum; for gradients that differ per rank
-the order of the sum is gloo's or NCCL's, not XLA's). The pod hop gathers
-the int8 rows (``all_gather`` of int8) and their float32 scales. The
+:mod:`repro_torch.launch.mesh`). A mean over axes is JAX's ``pmean``: one
+``all_reduce(SUM)`` over a group that spans all of them (``mesh.get_group``
+for one axis, the flattened sub-mesh's group for ``("pod", "data")``), then
+a true division by the number of ranks, held as a tensor on the gradient's
+device (PyTorch's CUDA ``div`` by a Python number multiplies by its
+reciprocal, which rounds differently). The pod hop gathers the int8 rows
+(``all_gather`` of int8) and their float32 scales and averages them as
+``jnp.mean`` does: the sum over the pod index in order, times ``1/pods``
+as a float32. For replicated gradients, the only ones the JAX sync takes,
+every output equals the JAX sync bit for bit on gloo meshes of 1 to 6
+ranks, 3, 5 and 6 among them (``tests/test_torch_actuation.py``); for
+gradients that differ per rank the order of the all-reduce is gloo's or
+NCCL's, not XLA's. The
 quantize and dequantize steps are the port's kernels
 (:func:`repro_torch.kernels.ops.int8_quantize` /
 :func:`~repro_torch.kernels.ops.int8_dequantize`): per leaf, one quantize
@@ -46,6 +53,7 @@ import math
 import re
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -66,16 +74,39 @@ def init_error_state(grads, mesh=None):
     return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
 
 
-def _pmean(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    """``jax.lax.pmean(x, axes)``: a new tensor, the sum over ``axes`` (one
-    all-reduce per axis, in order) divided by the number of ranks summed."""
-    out = x.clone()
-    n = 1
-    for a in axes:
-        group = mesh.get_group(a)
+class _Reducer:
+    """The groups and divisors of one ``sync_grads`` call, looked up once
+    per call and not once per leaf."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self._groups: dict = {}
+        self._consts: dict = {}
+
+    def group(self, axes: tuple):
+        """One group over every axis in ``axes`` (for several, a flattened
+        sub-mesh, which the mesh caches): an all-reduce per axis would add
+        partial sums, not the ranks' values in one sum."""
+        if axes not in self._groups:
+            self._groups[axes] = (self.mesh.get_group(axes[0]) if len(axes) == 1
+                                  else self.mesh[axes]._flatten().get_group())
+        return self._groups[axes]
+
+    def const(self, value, like: torch.Tensor) -> torch.Tensor:
+        """``value`` as a 0-d tensor of ``like``'s type on its device: PyTorch's
+        CUDA ``div`` by a Python number multiplies by its reciprocal."""
+        key = (value, like.dtype, like.device)
+        if key not in self._consts:
+            self._consts[key] = torch.full((), value, dtype=like.dtype, device=like.device)
+        return self._consts[key]
+
+    def pmean(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """``jax.lax.pmean(x, axes)``: a new tensor, the sum over all of
+        ``axes`` in one all-reduce, divided by the number of ranks summed."""
+        group = self.group(tuple(axes))
+        out = x.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        n *= dist.get_world_size(group)
-    return out / n
+        return out / self.const(float(dist.get_world_size(group)), out)
 
 
 def _quantize(v: torch.Tensor):
@@ -86,18 +117,18 @@ def _quantize(v: torch.Tensor):
     return q.view(v.shape), scale.view(*v.shape[:-1], 1)
 
 
-def _sync_leaf(g: torch.Tensor, err: Optional[torch.Tensor], mesh, *, mode: str,
+def _sync_leaf(g: torch.Tensor, err: Optional[torch.Tensor], red: _Reducer, *, mode: str,
                dp: tuple, has_pod: bool):
     intra = tuple(a for a in dp if a != "pod")
     if mode == "direct":
-        return (_pmean(g, mesh, dp) if dp else g), None
+        return (red.pmean(g, dp) if dp else g), None
     if mode == "hierarchical":
-        out = _pmean(g, mesh, intra) if intra else g
+        out = red.pmean(g, intra) if intra else g
         if has_pod:
-            out = _pmean(out, mesh, ("pod",))
+            out = red.pmean(out, ("pod",))
         return out, None
     # compressed: full precision inside the pod, int8 + error feedback across.
-    out = _pmean(g, mesh, intra) if intra else g
+    out = red.pmean(g, intra) if intra else g
     if not has_pod:
         return out, (torch.zeros_like(out) if err is not None else None)
     u = out + err if err is not None else out
@@ -105,15 +136,19 @@ def _sync_leaf(g: torch.Tensor, err: Optional[torch.Tensor], mesh, *, mode: str,
     last = u.shape[-1]
     deq = ops.int8_dequantize(q.view(-1, last), scale.view(-1, 1)).view(u.shape)
     new_err = u - deq
-    group = mesh.get_group("pod")
+    group = red.group(("pod",))
     pods = dist.get_world_size(group)
     rows = q.numel() // last
     qs = torch.empty((pods * rows, last), dtype=torch.int8, device=q.device)
     ss = torch.empty((pods * rows, 1), dtype=torch.float32, device=q.device)
     _all_gather_flat(qs, q.reshape(rows, last), group=group)      # int8 on the wire
     _all_gather_flat(ss, scale.reshape(rows, 1), group=group)    # f32 sidecar
-    avg = ops.int8_dequantize(qs, ss).view(pods, *u.shape).mean(dim=0)
-    return avg.to(g.dtype), new_err
+    stack = ops.int8_dequantize(qs, ss).view(pods, *u.shape)
+    total = stack[0]
+    for i in range(1, pods):                   # jnp.mean: in order, then times 1/n
+        total = total + stack[i]
+    inv = red.const(float(np.float32(1) / np.float32(pods)), total)
+    return (total * inv).to(g.dtype), new_err
 
 
 def sync_grads(grads, mesh, *, mode: str = "direct", err_state=None):
@@ -132,10 +167,11 @@ def sync_grads(grads, mesh, *, mode: str = "direct", err_state=None):
     if err_state is None and use_err:
         err_state = init_error_state(grads, mesh)
     err_in = err_state if use_err else tree_map(lambda g: None, grads)
+    red = _Reducer(mesh)
     pairs = []
 
     def leaf(g, e):
-        pairs.append(_sync_leaf(g, e, mesh, mode=mode, dp=dp, has_pod=has_pod))
+        pairs.append(_sync_leaf(g, e, red, mode=mode, dp=dp, has_pod=has_pod))
         return len(pairs) - 1
 
     index = tree_map(leaf, grads, err_in)

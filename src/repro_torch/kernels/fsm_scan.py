@@ -2,12 +2,14 @@
 
 The JAX package runs this step as a ``lax.scan`` inside
 :func:`repro.fleet.policy.policy_scan`, vmapped over rows; it has no Pallas
-twin. Here it is one CUDA C++ kernel (``csrc/fsm_scan.cu``): one thread per
-row walks its T hours in order, keeping float64 running prefixes for the
-window sums, applies the OFF→WAITING→ON cascade with hold counts (hold 1 is
-the reactive policy, larger holds the hysteresis policy), and writes ``x``,
-``state`` and the row's toggle cost. Its plain PyTorch version is
-:func:`repro_torch.kernels.ref.fsm_scan_ref`.
+twin. Here it is one CUDA C++ kernel (``csrc/fsm_scan.cu``): each row's T
+hours are walked in order, in tiles staged through shared memory, by three
+warps one tile apart (float64 running prefixes and window sums; the
+OFF→WAITING→ON cascade with hold counts, hold 1 being the reactive policy
+and larger holds the hysteresis policy; the toggle cost), and it writes
+``x``, ``state`` and the row's toggle cost. Any N, T and window, any 8-byte
+aligned view. Its plain PyTorch version is
+:func:`repro_torch.kernels.ref.fsm_scan_ref`, and the two agree bit for bit.
 
 :func:`fsm_chunk` launches the second kernel of that source, the streaming
 runtime's FSM: K hours from a carry, on hour-major (K, M) planes, replacing

@@ -8,10 +8,12 @@ scale), -127, 127)``. The scale's guard is the Pallas kernel's, ``max(amax,
 1e-30) / 127`` (``guard="pallas"``, the default), or the JAX collectives'
 ``max(amax / 127, 1e-30)`` (``guard="collectives"``, which the compressed
 gradient sync uses); the clip changes nothing under the latter. They
-dequantize ``q · scale`` to float32 or bfloat16, for any N and d. Their
-plain PyTorch versions are :func:`repro_torch.kernels.ref.int8_quantize`
-and :func:`~repro_torch.kernels.ref.int8_dequantize`, and the two agree bit
-for bit.
+dequantize ``q · scale`` to float32 or bfloat16, for any N and d. A row
+holding NaN gets scale NaN, one holding ±inf scale inf, and both q = 0, as
+the JAX package gives. Their plain PyTorch versions are
+:func:`repro_torch.kernels.ref.int8_quantize` and
+:func:`~repro_torch.kernels.ref.int8_dequantize`, and the two agree bit for
+bit.
 
 These wrappers take CUDA tensors only; :mod:`repro_torch.kernels.ops`
 dispatches CPU tensors to the plain versions.

@@ -224,7 +224,9 @@ def int8_quantize(x: torch.Tensor, *, guard: str = "pallas"
     (port of ``repro.kernels.ref.int8_quantize``); ``guard="collectives"``
     is ``scale = max(amax / 127, 1e-30)`` (port of
     ``repro.dist.collectives._quantize``, whose unclipped round the clip
-    leaves unchanged)."""
+    leaves unchanged). A row that holds NaN gets scale NaN, one that holds
+    ±inf scale inf, and both q = 0 where ``x / scale`` is NaN, as XLA's
+    float-to-int convert gives."""
     if guard not in ("pallas", "collectives"):
         raise ValueError(f"guard must be 'pallas' or 'collectives', got {guard!r}")
     if x.ndim != 2:
@@ -239,7 +241,9 @@ def int8_quantize(x: torch.Tensor, *, guard: str = "pallas"
         scale = amax.clamp_min(1e-30) / c127
     else:
         scale = (amax / c127).clamp_min(1e-30)
-    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    # amax and clamp propagate NaN; the int8 cast of NaN is left undefined by
+    # PyTorch, so NaN is set to 0 first, on every device alike.
+    q = torch.round(xf / scale).clamp(-127, 127).nan_to_num(nan=0.0).to(torch.int8)
     return q, scale
 
 

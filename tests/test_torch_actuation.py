@@ -7,8 +7,9 @@ plain versions of its int8 kernels. It is held against:
   modes and every report field equal (both are the same Python float code);
 * the JAX ``sync_grads``/``fleet_sync_grads`` on replicated gradients:
   outputs and error-feedback residuals equal bit for bit, on a one-rank pod
-  mesh in this process (``jax.make_mesh((1, 1, 1), ...)``) and on a pod
-  axis of 2 across 4 gloo processes (JAX on 8 forced host devices, as
+  mesh in this process (``jax.make_mesh((1, 1, 1), ...)``; rows holding
+  NaN or inf too) and on pod x data meshes of 4, 3, 5 and 6 ranks across
+  as many gloo processes (JAX on forced host devices, as
   ``tests/test_dist.py`` runs it);
 * the JAX ``ElasticFleetPlanner`` in fleet mode: modes equal at every tick;
   ``cost_always_vpn``, ``gb`` and ``gb_saved`` bit for bit, the CCI side
@@ -265,6 +266,27 @@ def test_compressed_sync_matches_jax_on_tiny_rows(pod_mesh):
     assert bool((out["x"][1:4] != 0).any(dim=1).all())          # the tiny rows survive
 
 
+def test_compressed_sync_matches_jax_on_nonfinite_rows(pod_mesh):
+    """A leaf with a NaN row and a +inf row through the compressed sync, two
+    steps with the carried residual: outputs and residuals equal the JAX
+    sync bit for bit (NaN where JAX has NaN); the finite rows stay finite."""
+    jmesh = jax.make_mesh((1, 1, 1), POD_NAMES)
+    rng = np.random.default_rng(21)
+    err, jerr = None, None
+    for step in range(2):
+        x = rng.normal(size=(4, 24)).astype(np.float32)
+        x[1, 3] = np.nan
+        x[2, 0] = np.inf
+        out, err = coll.sync_grads({"x": torch.from_numpy(x)}, pod_mesh, mode="compressed",
+                                   err_state=err)
+        jout, jerr = jcoll.sync_grads({"x": jnp.asarray(x)}, jmesh, mode="compressed",
+                                      err_state=jerr)
+        _assert_trees_equal(out, jout)
+        _assert_trees_equal(err, jerr)
+    o = out["x"].numpy()
+    assert np.isnan(o[1:3]).all() and np.isfinite(o[[0, 3]]).all()
+
+
 # ---------------------------------------------------------------------------
 # Wire bytes, labels, fleet_sync_grads
 # ---------------------------------------------------------------------------
@@ -362,7 +384,7 @@ def test_tree_from_reference_keeps_structure_and_dtypes():
 
 
 # ---------------------------------------------------------------------------
-# sync_grads across 4 gloo processes with a pod axis of 2
+# sync_grads across gloo processes with a pod axis of 2, 3 or 5
 # ---------------------------------------------------------------------------
 
 _TORCH_WORKER = """
@@ -375,9 +397,10 @@ _TORCH_WORKER = """
     from repro_torch.tree import tree_leaves
 
     rank, store_path, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, 4), rank=rank,
-                            world_size=4)
-    mesh = init_device_mesh("cpu", (2, 2, 1), mesh_dim_names=("pod", "data", "model"))
+    pod, data_ = int(sys.argv[5]), int(sys.argv[6])
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, pod * data_), rank=rank,
+                            world_size=pod * data_)
+    mesh = init_device_mesh("cpu", (pod, data_, 1), mesh_dim_names=("pod", "data", "model"))
     data = np.load(sys.argv[4])
     res = {}
     for mode in ("direct", "hierarchical"):
@@ -403,7 +426,7 @@ _JAX_SCRIPT = """
     from repro.launch.mesh import make_host_mesh
     from repro.dist.collectives import sync_grads
 
-    mesh = make_host_mesh(pod=2, data=2, model=2)
+    mesh = make_host_mesh(pod=int(sys.argv[3]), data=int(sys.argv[4]), model=2)
     data = np.load(sys.argv[2])
     res = {}
     for mode in ("direct", "hierarchical"):
@@ -420,11 +443,16 @@ _JAX_SCRIPT = """
 """
 
 
-def test_sync_grads_pod_of_two_across_processes_matches_jax(tmp_path):
-    """4 gloo ranks (pod=2, data=2, model=1) against JAX's
-    ``make_host_mesh(pod=2, data=2, model=2)`` on 8 forced host devices, the
-    same replicated gradients on every rank: every mode and two compressed
-    steps with carried residuals equal bit for bit."""
+@pytest.mark.parametrize("pod,data_", [(2, 2), (3, 1), (5, 1), (3, 2), (2, 3)])
+def test_sync_grads_pod_of_two_across_processes_matches_jax(tmp_path, pod, data_):
+    """``pod · data`` gloo ranks (model=1) against JAX's ``make_host_mesh(pod,
+    data, model=2)`` on ``2 · pod · data`` forced host devices, the same
+    replicated gradients on every rank: every mode and two compressed steps
+    with carried residuals equal bit for bit. Pod and data sizes that are not
+    powers of two (3, 5, 6 ranks) hold the order and rounding of the sums:
+    XLA's in-order ``psum`` divided by n, and ``jnp.mean``'s in-order sum
+    times ``1/n``."""
+    world = pod * data_
     rng = np.random.default_rng(12)
     data = {}
     for s in range(2):
@@ -435,15 +463,16 @@ def test_sync_grads_pod_of_two_across_processes_matches_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     (tmp_path / "worker.py").write_text(textwrap.dedent(_TORCH_WORKER))
     (tmp_path / "jax_sync.py").write_text(textwrap.dedent(_JAX_SCRIPT))
-    jenv = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+    jenv = dict(env, XLA_FLAGS=f"--xla_force_host_platform_device_count={2 * world}",
                 JAX_PLATFORMS="cpu")
     procs = [subprocess.Popen([sys.executable, str(tmp_path / "jax_sync.py"),
-                               str(tmp_path / "jax.npz"), str(tmp_path / "grads.npz")],
+                               str(tmp_path / "jax.npz"), str(tmp_path / "grads.npz"),
+                               str(pod), str(data_)],
                               env=jenv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)]
-    for rank in range(4):
+    for rank in range(world):
         procs.append(subprocess.Popen(
             [sys.executable, str(tmp_path / "worker.py"), str(rank), str(tmp_path / "store"),
-             str(tmp_path / "torch.npz"), str(tmp_path / "grads.npz")],
+             str(tmp_path / "torch.npz"), str(tmp_path / "grads.npz"), str(pod), str(data_)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     logs = []
     try:
@@ -460,7 +489,11 @@ def test_sync_grads_pod_of_two_across_processes_matches_jax(tmp_path):
     assert sorted(got.files) == sorted(want.files)
     for k in want.files:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    np.testing.assert_array_equal(got["direct_w"], data["w0"])   # replicated mean
+    if world & (world - 1) == 0:                                 # replicated mean, exact
+        np.testing.assert_array_equal(got["direct_w"], data["w0"])
+    else:                                                        # n·w rounds before / n
+        np.testing.assert_allclose(got["direct_w"], data["w0"], rtol=1e-6, atol=0)
+        assert not np.array_equal(got["direct_w"], data["w0"])
     assert not np.array_equal(got["c0_w"], data["w0"])           # quantized
 
 

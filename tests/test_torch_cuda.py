@@ -12,7 +12,8 @@ versions' order of operations and are held bit for bit (the FSM scan
 against the plain version on the CPU, whose cumsum is sequential); the
 float32 tiered kernels at ``rtol=atol=1e-6``. The actuation slice's
 int8 quantize/dequantize and static ``tiered_cost`` kernels are bit-equal
-to their plain versions on the card (``torch.equal``), and so is a
+to their plain versions on the card (``torch.equal``; on rows holding NaN,
+NaN in the same places and equal values elsewhere), and so is a
 compressed ``sync_grads`` on a one-rank NCCL mesh. The LM's kernels against
 their float32 plain versions: flash attention at ``2e-5`` in float32 and
 ``2e-2`` in bfloat16, RMSNorm at ``1e-5`` and ``2e-2`` (the tolerances
@@ -155,6 +156,51 @@ def test_fsm_kernel_bit_equal_to_cpu_plain(cuda_device, kind):
         assert 0 < int(want["x"].sum()) < want["x"].numel()   # the rows do toggle
         for k in ("x", "state", "total_cost"):
             assert torch.equal(got[k].cpu(), want[k]), k
+
+
+FSM_EDGE_SHAPES = [(1, 1), (17, 63), (128, 2001), (17, 8760), (1, 8760), (128, 63)]
+
+
+def _fsm_edge_args(n, T, device, hold):
+    """Seeded rows whose windows run from 1 hour to past T (h >= T never
+    lags), hold counts 1 (reactive) or 1-6 (hysteresis), and vpn/cci planes
+    that start 8 bytes past a 16-byte boundary (odd T misaligns every other
+    row as well)."""
+    vpn, cci, tog = _fsm_inputs(31 + n + T, n, T)
+    tog["h"] = (1 + (np.arange(n) * (T + 2)) // max(n - 1, 1)).astype(np.int32)
+    if hold == 1:
+        holds = (np.ones(n, np.int32),) * 2
+    else:
+        holds = (np.resize(np.array([1, 2, 3, 6], np.int32), n),
+                 np.resize(np.array([6, 1, 4], np.int32), n))
+
+    def plane(a):
+        buf = torch.zeros(n * T + 1, dtype=torch.float64, device=device)
+        view = buf[1:].view(n, T)
+        view.copy_(_t(a, device))
+        return view
+
+    rows = [_t(tog[k], device) for k in ToggleParams._fields] + [_t(a, device) for a in holds]
+    return [plane(vpn), plane(cci)] + rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hold", [1, 6], ids=["reactive", "hysteresis"])
+@pytest.mark.parametrize("shape", FSM_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fsm_kernel_edge_shapes_bit_equal_to_cpu_plain(cuda_device, shape, hold):
+    """Ragged N and T (one row, 17, a T of 1 and of 63, odd T), windows from
+    1 hour to past T, misaligned rows: x, state and total_cost equal the CPU
+    plain version bit for bit, for both renewal rules."""
+    n, T = shape
+    args = _fsm_edge_args(n, T, cuda_device, hold)
+    assert args[0].data_ptr() % 16 == 8
+    for renew in (False, True):
+        before = ops.LAUNCHES["fsm_scan"]
+        got = ops.fsm_scan(*args, renew_in_chunks=renew)
+        assert ops.LAUNCHES["fsm_scan"] == before + 1
+        want = ref.fsm_scan_ref(*(a.cpu() for a in args), renew_in_chunks=renew)
+        for k in ("x", "state", "total_cost"):
+            assert torch.equal(got[k].cpu(), want[k]), (k, renew)
 
 
 @pytest.mark.cuda
@@ -443,6 +489,77 @@ def test_int8_collectives_guard_kernel_bit_equal_to_plain(cuda_device):
     assert float(s[3, 0]) == float(np.float32(1e-30)) and float(s[0, 0]) == float(np.float32(1e-30))
     unclipped = torch.round(x / s)
     assert bool((unclipped.abs() <= 127).all()) and torch.equal(unclipped.to(torch.int8), q)
+
+
+def _same(got, want):
+    """Equal shapes, types and NaN positions, and equal values elsewhere."""
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)))
+
+
+def _nonfinite_rows(d, dtype, device):
+    """Rows holding a NaN, +inf, -inf, NaN and inf together, zeros, and a
+    finite row."""
+    g = torch.Generator(device="cpu").manual_seed(17)
+    x = torch.randn((6, d), generator=g) * 3.0
+    x[0, 5] = float("nan")
+    x[1, 0] = float("inf")
+    x[2, d - 1] = float("-inf")
+    x[3, 2], x[3, 7] = float("inf"), float("nan")
+    x[4] = 0.0
+    return x.to(dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", ["pallas", "collectives"])
+@pytest.mark.parametrize("d", [256, 2048, 2047, 32000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_quantize_nonfinite_rows_match_plain(cuda_device, dtype, d, guard):
+    """NaN, +inf and -inf rows as JAX quantizes them: scale NaN (a NaN in the
+    row) or inf, q = 0 on the whole row; kernel == card plain == CPU plain.
+    Dequantized, those rows are NaN (0 · NaN, 0 · inf)."""
+    x = _nonfinite_rows(d, dtype, cuda_device)
+    q, s = ops.int8_quantize(x, guard=guard)
+    wq, ws = ref.int8_quantize(x, guard=guard)
+    cq, cs = ref.int8_quantize(x.cpu(), guard=guard)
+    assert torch.equal(q, wq) and _same(s, ws)
+    assert torch.equal(q.cpu(), cq) and _same(s.cpu(), cs)
+    assert bool(torch.isnan(s[[0, 3]]).all()) and bool((s[[1, 2]] == float("inf")).all())
+    assert bool((q[:5] == 0).all()) and bool((q[5] != 0).any())
+    for odt in (torch.float32, torch.bfloat16):
+        got = ops.int8_dequantize(q, s, odt)
+        assert _same(got, ref.int8_dequantize(q, s, odt))
+        assert bool(torch.isnan(got[:4]).all()) and bool(torch.isfinite(got[4:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guard", ["pallas", "collectives"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2048, 256), (300, 2048), (64, 5632), (9, 32000),
+                                   (5, 40000), (33, 2047)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_quantize_width_classes_and_views(cuda_device, shape, dtype, guard):
+    """Each width class of the quantize kernel (a warp per row up to 2048
+    float32 values, a block per row past it, the scalar branch past 512 x 16
+    vectors or at d = 2047), on a contiguous tensor and on a view that starts
+    one element past a 16-byte boundary: kernel == card plain == CPU plain."""
+    n, d = shape
+    g = torch.Generator(device="cpu").manual_seed(n + d)
+    x = (torch.randn((n, d), generator=g) * 3.0).to(dtype).to(cuda_device)
+    buf = torch.zeros(n * d + 1, dtype=dtype, device=cuda_device)
+    view = buf[1:].view(n, d)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0
+    for a in (x, view):
+        before = ops.LAUNCHES["int8_quantize"]
+        q, s = ops.int8_quantize(a, guard=guard)
+        assert ops.LAUNCHES["int8_quantize"] == before + 1
+        wq, ws = ref.int8_quantize(a, guard=guard)
+        assert torch.equal(s, ws), f"{int((s != ws).sum())} scales differ"
+        assert torch.equal(q, wq), f"{int((q != wq).sum())} of {q.numel()} q differ"
+        cq, cs = ref.int8_quantize(a.cpu(), guard=guard)
+        assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
 
 
 @pytest.mark.cuda

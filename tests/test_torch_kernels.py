@@ -451,6 +451,47 @@ def test_int8_collectives_guard_matches_jax_collectives_quantize():
         assert int(np.abs(np.asarray(jq, np.int32)).max()) <= 127
 
 
+def _nonfinite_rows(seed, d=33):
+    """Seeded float32 rows: one holding a NaN, one +inf, one -inf, one of
+    zeros, one finite, and one holding NaN and +inf."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(6, d)) * 3.0).astype(np.float32)
+    x[0, 5] = np.nan
+    x[1, 0] = np.inf
+    x[2, d - 1] = -np.inf
+    x[3] = 0.0
+    x[5, 2], x[5, 7] = np.inf, np.nan
+    return x
+
+
+@pytest.mark.parametrize("guard", ["pallas", "collectives"])
+def test_int8_plain_matches_jax_on_nonfinite_rows(guard):
+    """On rows holding NaN, +inf and -inf, the plain quantizer gives what JAX
+    gives (``repro.kernels.ref.int8_quantize`` for the Pallas guard,
+    ``repro.dist.collectives._quantize`` for the collectives' guard): scale
+    NaN or inf and q = 0 on the whole row; zero and finite rows as before.
+    The dequantized rows match too (``0 · NaN`` is NaN)."""
+    from repro.dist.collectives import _quantize as jquantize
+    from repro.kernels import ref as jref
+
+    from repro_torch.kernels import ref
+
+    x = _nonfinite_rows(13)
+    jq, js = (jref.int8_quantize if guard == "pallas" else jquantize)(jnp.asarray(x))
+    q, s = ref.int8_quantize(torch.from_numpy(x), guard=guard)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert np.isnan(s[0, 0].item()) and np.isnan(s[5, 0].item())
+    assert s[1, 0].item() == np.inf and s[2, 0].item() == np.inf
+    assert bool((q[[0, 1, 2, 3, 5]] == 0).all()) and bool((q[4] != 0).any())
+    for odt in ("float32", "bfloat16"):
+        got = ref.int8_dequantize(q, s, getattr(torch, odt)).float().numpy()
+        want = np.asarray(jref.int8_dequantize(jq, js, dtype=getattr(jnp, odt)),
+                          np.float32)
+        np.testing.assert_array_equal(got, want)        # NaN where JAX has NaN
+    assert np.isnan(got[[0, 1, 2, 5]]).all() and np.isfinite(got[[3, 4]]).all()
+
+
 @pytest.mark.parametrize("T,P", [(512, 1), (1024, 4), (8704, 8)])
 def test_tiered_cost_plain_matches_pallas_and_jax_ref(T, P):
     """The static-table plain version: against the Pallas kernel in interpret
