@@ -37,17 +37,24 @@ without printing a result):
    the default device streams the 2048 x 8760 scenario in K = 24 chunks
    and 800 hours per tick (past the month start at hour 730), and the
    128 x 8760 scenario in chunks for both ``renew_in_chunks``; it fails
-   unless ``tiered_cost_scan`` and ``fsm_chunk`` launched, unless the
-   2048-link stream equals the CPU ``plan_fleet`` bit for bit in
+   unless ``stream_chunk`` launched once per chunk and tick (1895) and
+   ``tiered_cost_scan`` and ``fsm_chunk`` not at all, unless the 2048-link
+   stream equals the CPU ``plan_fleet`` bit for bit in
    ``x``/``state``/``vpn_cost``/``cci_cost``, the per-tick hours equal the
    chunked ones in every field, the 128-link streams equal the numpy
    reference and the card's runtime equals the CPU's at 16 x 2000; then
    it holds ``tiered_cost_scan`` (year as one chunk, f64 ``torch.equal``,
    f32 ``rtol=atol=1e-6``) and four chained K = 24 chunks of the calendar
    entry and ``fsm_chunk`` (every bit) against their plain versions, and
-   times the tick (p50/p95/p99), the chunk, each kernel (profiler device
-   time; at K = 24 they are launch-bound) and the host and device parts
-   of one step;
+   ``stream_chunk`` against ``stream_chunk_ref`` in every output bit (NaN
+   in the same places) on six cases at 2048 links: four chained K = 24
+   chunks from hour 696 (across the month start at 730), the same with
+   endogenous CCI demand, K = 1, one K past the kernel's tile and the
+   window ring, 2043 rows, and demand hours holding NaN and +inf; it
+   times the tick (p50/p95/p99), the chunk, ``stream_chunk`` at K = 24 and
+   K = 1 (profiler device time, CUDA events) beside its bound, the two
+   kernels it replaced on the same inputs and the whole sequence they ran
+   in, its plain version, and the host and device parts of one step;
 8. the LM serving path (:func:`lm_phase`): holds the flash-attention and
    RMSNorm kernels against their plain versions: the Hopper entry
    (``flash_attention_sm90``) in bfloat16 at ``2e-2`` on TinyLlama's prefill
@@ -340,6 +347,75 @@ def pre_reads(pref: np.ndarray, t0: int, K: int, h: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.take_along_axis(pref, lo, axis=0))
 
 
+def stream_chunk_bound(N: int, K: int, Kt: int, endo: bool) -> dict:
+    # The block read (demand, the CCI demand when endo, pre_v, pre_c: (K, N) each),
+    # the packed (8K + 4, N) result written; per-row operands (6 f64, 5 int32),
+    # tier tables (2 x (N, Kt)), the carries in (dcum, dcum_month, prefixes; the
+    # int32 FSM carry) and the FSM carry out.
+    bytes_moved = (8 * ((3 if endo else 2) + 8) * K * N + 8 * 4 * N
+                   + N * (8 * 6 + 4 * 5) + 8 * 2 * N * Kt + 8 * 4 * N + 2 * 4 * 4 * N)
+    # per hour: 2 clips, month sub, carry add, hi add, per tier 6, the vpn add,
+    # the cci mul and add, 2 prefix adds, 2 window subs, 2 muls, 2 compares.
+    ops = K * N * (2 + 3 + 6 * Kt + 3 + 8)
+    return bound(bytes_moved, ops, torch.float64)
+
+
+def head_rows(arrays, n: int):
+    """The first n links of stacked FleetArrays (nested ToggleParams too)."""
+    cut = lambda f: (type(f)(*(x[:n].contiguous() for x in f)) if isinstance(f, tuple)
+                     else f[:n].contiguous())
+    return type(arrays)(*(cut(f) for f in arrays))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes and types, NaN in the same places, every bit equal elsewhere
+    (signed zeros included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype != torch.float64:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(na, nb) and torch.equal(a.view(torch.int64).masked_fill(na, 0),
+                                                b.view(torch.int64).masked_fill(nb, 0)))
+
+
+def stream_chunk_case(fleet, demand, t_first: int, Ks, cci_demand=None) -> float:
+    """Stream ``fleet`` on the card to hour ``t_first``, then run each chunk of
+    ``Ks`` hours through the runtime's own ``_launch`` (the kernel) and
+    through ``ref.stream_chunk_ref`` on the same block and carries; fail
+    unless the packed result and the FSM carry agree in every bit. Returns the
+    largest absolute difference over non-NaN values (0.0 when they agree)."""
+    from repro_torch.fleet import FleetRuntime
+    from repro_torch.kernels import ops, ref
+
+    rt = FleetRuntime(fleet)
+    renew = rt.policy.renew_in_chunks
+    cblk = lambda a, b: None if cci_demand is None else cci_demand[:, a:b]
+    t = 0
+    while t < t_first:
+        k = min(STREAM_K, t_first - t)
+        rt.step_many(demand[:, t:t + k], cci_demand_block=cblk(t, t + k))
+        t += k
+    err = 0.0
+    for K in Ks:
+        block, K_, endo = rt._pack(demand[:, t:t + K], cblk(t, t + K))
+        dev_block = torch.from_numpy(block).to(DEVICE)
+        want, want_fsm = ref.stream_chunk_ref(*rt._chunk_args(dev_block, K_, endo),
+                                              renew_in_chunks=renew)
+        before = ops.LAUNCHES["stream_chunk"]
+        host = rt._launch(dev_block, K_, endo)
+        check(ops.LAUNCHES["stream_chunk"] == before + 1, "stream_chunk did not launch")
+        check(same_bits(host, want) and same_bits(rt._state.fsm, want_fsm),
+              f"stream_chunk != plain at {rt.n_rows} rows, hours {t}..{t + K - 1}, "
+              f"endo={endo}: first differing packed rows "
+              f"{torch.nonzero((host != want) & ~(host.isnan() & want.isnan()))[:4].tolist()}")
+        ok = ~torch.isnan(want)
+        err = max(err, (host[ok] - want[ok]).abs().max().item())
+        rt._commit(host.cpu().numpy(), K_)
+        t += K
+    return err
+
+
 def streaming_phase(scen, references, card: str) -> dict:
     """The streaming runtime on the card: the main path with launches
     counted, its checks against the offline planners, each new kernel
@@ -347,6 +423,7 @@ def streaming_phase(scen, references, card: str) -> dict:
     from repro_torch.fleet import FleetRuntime, plan_fleet
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fsm_scan import fsm_chunk
+    from repro_torch.kernels.stream_chunk import stream_chunk
     from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
 
     N, T = SIZES[-1]
@@ -377,8 +454,13 @@ def streaming_phase(scen, references, card: str) -> dict:
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     print(f"streaming path launches: {launches}")
+    chunks = lambda T_, K_: T_ // K_ + T_ % K_        # stream(): chunks, then a per-tick tail
+    want_launches = chunks(T, STREAM_K) + STREAM_TICKS + 2 * chunks(T128, STREAM_K)
+    check(launches["stream_chunk"] == want_launches,
+          f"stream_chunk launched {launches['stream_chunk']} times on the streaming path, "
+          f"not once per chunk and tick ({want_launches})")
     for name in ("tiered_cost_scan", "fsm_chunk"):
-        check(launches[name] >= 1, f"kernel {name} was not launched on the streaming path")
+        check(launches[name] == 0, f"kernel {name} launched on the streaming path")
 
     # -- checks ----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -471,6 +553,33 @@ def streaming_phase(scen, references, card: str) -> dict:
     print(f"tiered_cost_calendar and fsm_chunk over {n_chunks} chained K = {STREAM_K} chunks "
           f"from hour {t_first} at {N} links: every output bit == plain")
 
+    # -- stream_chunk against its plain version, every output bit -----------
+    t_cases = time.perf_counter()
+    fleet, demand = sc.fleet, sc.demand
+    hbuf = int(arrays.toggle.h.max().item()) + 1
+    K_long = max(hbuf, 32) + 45                      # past the kernel's tile and the ring
+    bad = demand.copy()
+    bad[5, t_first + 3], bad[5, t_first + 10], bad[9, t_first + 30] = np.nan, np.inf, np.nan
+    ragged = head_rows(arrays, N - 5)                # not a multiple of the 16-row block
+    cases = {
+        f"4 chained K = {STREAM_K} from hour {t_first}": (fleet, demand, t_first,
+                                                          [STREAM_K] * n_chunks, None),
+        "the same, endogenous CCI demand": (fleet, demand, t_first, [STREAM_K] * n_chunks,
+                                            demand * 1.5),
+        "K = 1 over hours 728..731": (fleet, demand, 728, [1] * 4, None),
+        f"K = {K_long} (tile 32, hbuf {hbuf}) from hour 500": (fleet, demand, 500, [K_long],
+                                                               None),
+        f"{N - 5} rows, 2 x K = {STREAM_K}": (ragged, demand[:N - 5], t_first,
+                                              [STREAM_K] * 2, None),
+        "NaN and +inf demand hours, 2 x K = 24": (fleet, bad, t_first, [STREAM_K] * 2, None),
+    }
+    stream_err = 0.0
+    for label, (f_, d_, t_, Ks, c_) in cases.items():
+        stream_err = max(stream_err, stream_chunk_case(f_, d_, t_, Ks, c_))
+        print(f"  stream_chunk == stream_chunk_ref, every output bit: {label}")
+    print(f"stream_chunk: {len(cases)} cases at {N} links equal the plain version on the card "
+          f"({time.perf_counter() - t_cases:.1f} s)")
+
     # -- timings ----------------------------------------------------------------
     print(f"streaming timings on {card} (median ms; bound = max(bytes / 3.35 TB/s, ops / peak))")
     tick = np.array(tick_us)
@@ -482,44 +591,79 @@ def streaming_phase(scen, references, card: str) -> dict:
           f"ms, p95 {np.percentile(chunk_ms, 95):.3f} ms, mean {chunk_ms.mean():.3f} ms per "
           f"chunk; {N * T / chunk_s:.4g} link-steps/s; {chunk_s:.3f} s in step_many for the "
           f"year (output stacking not counted)")
-    t0k, dk, vk, ck, pv, pc = chunk_inputs[1]
-    cal0 = torch.zeros((2, N), dtype=torch.float64, device=DEVICE)
-    fsm0 = torch.zeros((4, N), dtype=torch.int32, device=DEVICE)
-    pref0 = torch.zeros((2, N), dtype=torch.float64, device=DEVICE)
-    b_cal, b_fsm = calendar_bound(N, STREAM_K, Kt), fsm_chunk_bound(N, STREAM_K)
     b_scan = bound(8 * (2 * N * T + 2 * N * Kt + 2 * N) + 4 * T, N * T * (2 + 6 * Kt),
                    torch.float64)
-    calendar_call = lambda: tiered_cost_calendar(cal0, dk, *tab, t0k, hpm)
-    chunk_call = lambda: fsm_chunk(vk, ck, pv, pc, *rows, fsm0, pref0, t0k)
-    dev_ms = kernel_device_ms(lambda: (calendar_call(), chunk_call()), 20,
-                              ("tiered_cost_scan_kernel", "fsm_chunk_kernel"))
-    print(f"  wrapper call, CUDA events around one call (host launch included): "
-          f"tiered_cost_calendar {event_ms(calendar_call, 50):.4f} ms, fsm_chunk "
-          f"{event_ms(chunk_call, 50):.4f} ms")
-    timing = {
-        "calendar": (dev_ms["tiered_cost_scan_kernel"],
-                     sync_ms(lambda: ref.tiered_cost_calendar_ref(cal0, dk, *tab, t0k, hpm), 10),
-                     b_cal),
-        "fsm_chunk": (dev_ms["fsm_chunk_kernel"],
-                      sync_ms(lambda: ref.fsm_chunk_ref(vk, ck, pv, pc, *rows, fsm0, pref0,
-                                                         t0k), 5),
-                      b_fsm),
-        "scan_year": (event_ms(lambda: tiered_cost_scan(zero, d, *tab, reset), 10),
-                      sync_ms(lambda: ref.tiered_cost_scan_ref(zero, d, *tab, reset), 1,
-                              warmup=0),
-                      b_scan),
-    }
-    labels = {"calendar": f"tiered_cost_scan (calendar) {N} x K={STREAM_K}, profiler device time",
-              "fsm_chunk": f"fsm_chunk {N} x K={STREAM_K}, profiler device time",
-              "scan_year": f"tiered_cost_scan (month-to-date) {N} x {T}, one chunk"}
-    for key, (ms, plain_ms, b) in timing.items():
-        print(f"  {labels[key]}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), {ms / b['bound_ms']:.1f}x bound"
-              + ("; launch-bound at this size" if key != "scan_year" else ""))
+    scan_year = (event_ms(lambda: tiered_cost_scan(zero, d, *tab, reset), 10),
+                 sync_ms(lambda: ref.tiered_cost_scan_ref(zero, d, *tab, reset), 1, warmup=0),
+                 b_scan)
+    print(f"  tiered_cost_scan (month-to-date) {N} x {T}, one chunk, CUDA events: kernel "
+          f"{scan_year[0]:.4f} ms, plain {scan_year[1]:.3f} ms, bound "
+          f"{scan_year[2]['bound_ms']:.4f} ms ({scan_year[2]['bound_by']}), "
+          f"{scan_year[0] / scan_year[2]['bound_ms']:.2f}x bound (not on a main path)")
 
-    # -- one step, split: host gather + pack, H2D copy, device, D2H, commit ---
+    # stream_chunk and the two kernels it replaced, on one runtime's blocks at hour t_first
     rt_b = FleetRuntime(sc.fleet)
     stream(rt_b, sc.demand[:, :t_first], STREAM_K)
+    renew = rt_b.policy.renew_in_chunks
+    timing = {}
+    for K in (STREAM_K, 1):
+        block, _, _ = rt_b._pack(sc.demand[:, t_first:t_first + K], None)
+        dev_block = torch.from_numpy(block).to(DEVICE)
+        args = rt_b._chunk_args(dev_block, K, False)
+        fused = lambda: stream_chunk(*args, renew_in_chunks=renew)
+        plain = lambda: ref.stream_chunk_ref(*args, renew_in_chunks=renew)
+        cap_, lvpn_, lease_, ccci_, b_, r_, *fsm_rows = rt_b._chunk_rows
+        st = rt_b._state
+        d_pair = torch.minimum(dev_block[:K * N].view(K, N), cap_[None, :])
+        packed = plain()[0]
+        vpn_k, cci_k = packed[:K], packed[K:2 * K]
+        pre_v = dev_block[K * N:2 * K * N].view(K, N)
+        pre_c = dev_block[2 * K * N:].view(K, N)
+        cal_call = lambda: tiered_cost_calendar(st.dev_cal, d_pair, b_, r_, st.t, hpm)
+        fsm_call = lambda: fsm_chunk(vpn_k, cci_k, pre_v, pre_c, *fsm_rows, st.fsm,
+                                     st.dev_pref, st.t)
+
+        def replaced():   # the sequence _launch ran before: eager glue and the two kernels
+            dp = torch.minimum(dev_block[:K * N].view(K, N), cap_[None, :])
+            tr, cal = tiered_cost_calendar(st.dev_cal, dp, b_, r_, st.t, hpm)
+            v = lvpn_[None, :] + tr
+            c = lease_[None, :] + ccci_[None, :] * dp
+            o = fsm_chunk(v, c, pre_v, pre_c, *fsm_rows, st.fsm, st.dev_pref, st.t)
+            return torch.cat([v, c, o["r_vpn"], o["r_cci"], o["snap_v"], o["snap_c"],
+                              o["x"].to(torch.float64), o["state"].to(torch.float64), cal,
+                              o["pref"]])
+
+        check(same_bits(replaced(), fused()[0]), f"K = {K}: the replaced sequence != "
+              f"stream_chunk on the same block")
+        dev = kernel_device_ms(lambda: (fused(), cal_call(), fsm_call()), 20,
+                               ("stream_chunk_kernel", "tiered_cost_scan_kernel",
+                                "fsm_chunk_kernel"))
+        b_k = stream_chunk_bound(N, K, Kt, False)
+        timing[K] = {
+            "ms": dev["stream_chunk_kernel"], "queued_ms": queued_ms(fused, 50),
+            "event_ms": event_ms(fused, 50), "plain_ms": sync_ms(plain, 5), **b_k,
+            "calendar_ms": dev["tiered_cost_scan_kernel"], "fsm_chunk_ms": dev["fsm_chunk_kernel"],
+            "replaced_busy_ms": device_busy_ms(replaced, 20),
+            "replaced_wall_ms": sync_ms(replaced, 20), "fused_wall_ms": sync_ms(fused, 20),
+            "fsm_chunk_plain_ms": sync_ms(lambda: ref.fsm_chunk_ref(
+                vpn_k, cci_k, pre_v, pre_c, *fsm_rows, st.fsm, st.dev_pref, st.t), 5),
+            "calendar_bound_ms": calendar_bound(N, K, Kt)["bound_ms"],
+            "fsm_chunk_bound_ms": fsm_chunk_bound(N, K)["bound_ms"],
+        }
+        tk = timing[K]
+        print(f"  stream_chunk {N} x K={K}: profiler device time {tk['ms']:.4f} ms, CUDA "
+              f"events behind a queue {tk['queued_ms']:.4f} ms, events around one call "
+              f"(host launch included) {tk['event_ms']:.4f} ms; bound "
+              f"{tk['bound_ms'] * 1e3:.3f} us ({tk['bound_by']}), "
+              f"{tk['ms'] / tk['bound_ms']:.2f}x bound; plain {tk['plain_ms']:.3f} ms")
+        print(f"    replaced, same inputs, profiler device time: tiered_cost_scan (calendar) "
+              f"{tk['calendar_ms']:.4f} ms (bound {tk['calendar_bound_ms'] * 1e3:.3f} us) + "
+              f"fsm_chunk {tk['fsm_chunk_ms']:.4f} ms (bound {tk['fsm_chunk_bound_ms'] * 1e3:.3f}"
+              f" us); the whole replaced sequence (clip, kernels, planes, casts, cat): device "
+              f"busy {tk['replaced_busy_ms']:.4f} ms, {tk['replaced_wall_ms']:.4f} ms host to "
+              f"synchronize, against stream_chunk's {tk['fused_wall_ms']:.4f} ms")
+
+    # -- one step, split: host gather + pack, H2D copy, device, D2H, commit ---
     for K in (1, STREAM_K):
         parts = {k: [] for k in ("pack", "h2d", "device", "d2h", "commit")}
         blk = sc.demand[:, t_first:t_first + K]   # the data does not set the time
@@ -542,19 +686,23 @@ def streaming_phase(scen, references, card: str) -> dict:
         print(f"  one step ({N} x K={K}), median us over 24 steps, host clock: "
               + ", ".join(f"{k} {statistics.median(v):.1f}" for k, v in parts.items())
               + f" (block {block.nbytes / 1e6:.3f} MB in, {host.numel() * 8 / 1e6:.3f} MB out; "
-              f"'device' is the launches and the wait for the card)")
+              f"'device' is the launch and the wait for the card)")
     print_breakdown(lambda: rt_b.step_many(blk), reps=6, unit="chunk")
     print(f"streaming phase: {time.perf_counter() - t_phase:.1f} s")
 
+    t24 = timing[STREAM_K]
     rows_out = {
+        "stream_chunk": {
+            "launches": launches["stream_chunk"], "max_abs_err": stream_err,
+            "ms": t24["ms"], "plain_ms": t24["plain_ms"], "bound_ms": t24["bound_ms"],
+            "bound_by": t24["bound_by"], "main_path": True},
         "tiered_cost_scan": {
             "launches": launches["tiered_cost_scan"], "max_abs_err": max(err32, chunk_err),
-            "ms": timing["calendar"][0], "plain_ms": timing["calendar"][1],
-            **timing["calendar"][2]},
+            "ms": scan_year[0], "plain_ms": scan_year[1], **scan_year[2], "main_path": False},
         "fsm_chunk": {
             "launches": launches["fsm_chunk"], "max_abs_err": chunk_err,
-            "ms": timing["fsm_chunk"][0], "plain_ms": timing["fsm_chunk"][1],
-            **timing["fsm_chunk"][2]},
+            "ms": t24["fsm_chunk_ms"], "plain_ms": t24["fsm_chunk_plain_ms"],
+            **fsm_chunk_bound(N, STREAM_K), "main_path": False},
     }
     return rows_out
 
@@ -1661,6 +1809,10 @@ def main() -> int:
          "max_abs_err": kernel_rows[N]["fsm_err"],
          "ms": rows["fsm_scan"][0], "plain_ms": rows["fsm_scan"][1],
          **rows["fsm_scan"][2], "library_ms": None},
+        {"name": "stream_chunk", "route": "cuda",
+         "source": "src/repro_torch/csrc/stream_chunk.cu",
+         "replaces": "src/repro/fleet/runtime.py:339",
+         **stream_rows["stream_chunk"], "library_ms": None},
         {"name": "tiered_cost_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/tiered_cost_scan.cu",
          "replaces": "src/repro/kernels/tiered_cost.py:168",
@@ -1690,6 +1842,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/tiered_cost.py:48",
          **act_rows["tiered_cost"]},
     ]
+    for row in kernels:   # whether the kernel launches on one of the paths driven above
+        row.setdefault("main_path", True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,80 +63,32 @@
 // Its planes are hour-major (K, M), so unlike fsm_scan its loads and stores
 // are coalesced. Bound on an H100: it reads four (K, M) float64 planes and
 // writes four float64 and two int32 planes, 0.15 MB per hour at M = 2048;
-// at the runtime's K = 24 that is 3.5 MB, ~1.1 us at 3.35 TB/s, so a chunk is
-// bound by the launch and the K-step dependent chain, not by bytes. The
-// hour step (fsm_triggers, fsm_step) is the one fsm_scan takes, so both
-// kernels decide alike.
+// at the runtime's K = 24 that is 3.5 MB, ~1.1 us at 3.35 TB/s. What holds it
+// back is not the launch (PERF.md times it on the device, launch excluded):
+// one thread per row in one-warp blocks walks its K hours and loads each hour's
+// planes when it needs them, and snap_v/snap_c, written and read back in the
+// same loop, keep every load behind the previous hour's stores, so each hour
+// waits a device-memory round trip. The
+// hour step (fsm_triggers, fsm_step, from fsm_step.cuh) is the one fsm_scan
+// and stream_chunk.cu take, so all three decide alike. The streaming runtime
+// now runs stream_chunk, which fuses this kernel with the calendar pricing;
+// fsm_chunk stays as its same-run yardstick.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fsm_step.cuh"
+
 namespace {
 
-constexpr int kOff = 0;
-constexpr int kWaiting = 1;
-constexpr int kOn = 2;
-
-// One row's policy parameters (hold counts of 1 make the hysteresis rule the
-// reactive one).
-struct FsmRow {
-  double theta1, theta2;
-  int D, T_cci, up_hold, down_hold;
-  bool renew_in_chunks;
-};
-
-// One row's FSM carry: state, hours in state, consecutive trigger hours, and
-// t_state % T_cci kept by counting (the renewal check needs no division).
-struct FsmCarry {
-  int state, t_state, up, down, phase;
-};
-
-// The hour's raw triggers from its window sums.
-__device__ __forceinline__ void fsm_triggers(const FsmRow& p, double r_vpn, double r_cci,
-                                             bool& raw_req, bool& raw_rel) {
-  raw_req = r_cci < __dmul_rn(p.theta1, r_vpn);
-  raw_rel = r_cci > __dmul_rn(p.theta2, r_vpn);
-}
-
-// One hour of the policy step from its raw triggers: the hold counts, then
-// the cascade of _fsm_cascade (request, provisioning done, release). Returns
-// the state that serves the hour; t_state then counts it. Written as selects,
-// with no branch: the lanes of a warp walk rows in different states, and a
-// branch would run each state's path in turn.
-__device__ __forceinline__ int fsm_step(const FsmRow& p, FsmCarry& c, bool raw_req,
-                                        bool raw_rel, bool renew_in_chunks) {
-  c.up = raw_req ? c.up + 1 : 0;
-  c.down = raw_rel ? c.down + 1 : 0;
-  const bool req = raw_req & (c.up >= p.up_hold);
-  const bool rel = raw_rel & (c.down >= p.down_hold);
-
-  const bool to_wait = (c.state == kOff) & req;
-  c.state = to_wait ? kWaiting : c.state;
-  c.t_state = to_wait ? 0 : c.t_state;
-  c.phase = to_wait ? 0 : c.phase;
-  const bool to_on = (c.state == kWaiting) & (c.t_state >= p.D);
-  c.state = to_on ? kOn : c.state;
-  c.t_state = to_on ? 0 : c.t_state;
-  c.phase = to_on ? 0 : c.phase;
-  const bool past_commit = c.t_state >= p.T_cci;
-  const bool check = renew_in_chunks ? past_commit & (c.phase == 0) : past_commit;
-  const bool to_off = (c.state == kOn) & check & rel;
-  c.state = to_off ? kOff : c.state;
-  c.t_state = to_off ? 0 : c.t_state;
-  c.phase = to_off ? 0 : c.phase;
-  const int s = c.state;
-  c.t_state += 1;
-  c.phase = c.phase + 1 == p.T_cci ? 0 : c.phase + 1;
-  return s;
-}
-
-// One hour: triggers, then the step.
-__device__ __forceinline__ int fsm_hour(const FsmRow& p, FsmCarry& c,
-                                        double r_vpn, double r_cci) {
-  bool raw_req, raw_rel;
-  fsm_triggers(p, r_vpn, r_cci, raw_req, raw_rel);
-  return fsm_step(p, c, raw_req, raw_rel, p.renew_in_chunks);
-}
+using fsm::FsmCarry;
+using fsm::FsmRow;
+using fsm::fsm_hour;
+using fsm::fsm_step;
+using fsm::fsm_triggers;
+using fsm::kOn;
+using fsm::kWaiting;
+using fsm::kOff;
 
 constexpr int kRows = 16;                 // rows a block, one lane each
 constexpr int kTile = 64;                 // hours per staged tile: one bit each in a mask

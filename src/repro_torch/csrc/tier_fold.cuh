@@ -1,5 +1,5 @@
 // The tier fold of the paper's Eq. (2), shared by the tiered-pricing kernels
-// (tiered_cost.cu, tiered_cost_scan.cu).
+// (tiered_cost.cu, tiered_cost_scan.cu, stream_chunk.cu).
 //
 //   cost = sum_k rate[k] * clip(min(lo + d, b_k) - max(lo, b_{k-1}), 0)
 //
@@ -26,21 +26,30 @@ __device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
 __device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
 
 // Cost of adding volume d to a month that already holds lo, against one
-// row's K (bound, rate) pairs (read through the read-only cache).
-template <typename F>
-__device__ __forceinline__ F fold(F lo, F d, const F* __restrict__ b,
-                                  const F* __restrict__ r, int K) {
+// row's K (bound, rate) pairs, bound(k) and rate(k): the one definition of the
+// fold's arithmetic, whatever memory the table lies in.
+template <typename F, typename Bound, typename Rate>
+__device__ __forceinline__ F fold_with(F lo, F d, Bound bound, Rate rate, int K) {
   const F hi = add_rn(lo, d);
   F acc = F(0);
   F prev = F(0);
-  for (int k = 0; k < K; ++k) {
-    const F bk = __ldg(b + k);
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {   // unrolled: only the adds into acc form a chain
+    const F bk = bound(k);
     const F seg = sub_rn(min_(hi, bk), max_(lo, prev));
-    const F term = seg > F(0) ? mul_rn(seg, __ldg(r + k)) : F(0);
+    const F term = seg > F(0) ? mul_rn(seg, rate(k)) : F(0);
     acc = add_rn(acc, term);
     prev = bk;
   }
   return acc;
+}
+
+// The fold against a table in device memory, read through the read-only cache.
+template <typename F>
+__device__ __forceinline__ F fold(F lo, F d, const F* __restrict__ b,
+                                  const F* __restrict__ r, int K) {
+  return fold_with(lo, d, [b](int k) { return __ldg(b + k); },
+                   [r](int k) { return __ldg(r + k); }, K);
 }
 
 }  // namespace tier

@@ -13,8 +13,9 @@
 //     cum = reset[k] ? 0 : cum;  cost = fold(cum, d);  cum = cum + d
 //   Rows are row-major (N, K) as the TPU kernel lays them out. float64 and
 //   float32.
-// * calendar (what the streaming runtime prices with): carry the global
-//   prefix dcum and its value at the month start dcum_month, price at their
+// * calendar (what the streaming runtime prices with; stream_chunk.cu now
+//   runs this form inside the runtime's fused chunk): carry the global prefix
+//   dcum and its value at the month start dcum_month, price at their
 //   difference, as the offline monthly_cumsum does:
 //     if ((t0 + k) % hours_per_month == 0) dcum_month = dcum;
 //     cost = fold(dcum - dcum_month, d);  dcum = dcum + d
@@ -28,10 +29,13 @@
 // What bounds it on an H100: in principle device-memory bytes (demand read and
 // cost written, 16 B per link-hour in float64, plus the (N, Kt) tier tables
 // once): 2048 x 8760 in one chunk moves 287 MB, 86 us at 3.35 TB/s. At the
-// runtime's chunks (K = 24, N = 2048: 0.8 MB) the launch itself (a few us)
-// is the bound. The design: one thread per row walks its K hours in order
-// with the carry in a register, so the carried sums are sequential and exact;
-// 32 threads a block spread the rows over as many SMs as there are warps.
+// runtime's chunks (K = 24, N = 2048: 0.8 MB) the bytes take 0.3 us, but this
+// design takes ~50x that on the device: one thread per row walks its K hours
+// in order with the carry in a register (so the carried sums are sequential
+// and exact), 32 threads a block, 64 one-warp blocks at 2048 rows, and each
+// hour's demand load waits a device-memory round trip with nothing to hide
+// it. The streaming runtime now prices its chunks inside stream_chunk.cu; the
+// calendar entry stays as that kernel's same-run yardstick.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

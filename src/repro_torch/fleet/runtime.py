@@ -15,15 +15,15 @@ The state is split as in the JAX package:
   (``r[t] = pref[t] − pref[max(0, t − h)]``, the offline formula, so no
   add/subtract drift);
 * on the device: the FSM carry and the twins of the four prefixes that
-  the kernels carry from chunk to chunk.
+  the chunk kernel carries from chunk to chunk.
 
 One chunk of K hours is one host-to-device copy of a packed block (the
-demand, hour-major, and the host's pre-chunk ring reads), the clip and the
-CCI plane in torch, two kernel launches — ``tiered_cost_calendar`` (the
-billing calendar and tier fold) and ``fsm_chunk`` (snapshots, window sums,
-FSM) — and one copy of the packed planes back. :meth:`~FleetRuntime.step` is
-:meth:`~FleetRuntime.step_many` with K = 1. On the CPU
-(``device="cpu"``) the kernels' plain versions run instead.
+demand, hour-major, and the host's pre-chunk ring reads), one kernel launch,
+``stream_chunk`` (the clip, the billing calendar and tier fold, the cost
+planes, snapshots, window sums and the FSM, as the JAX runtime's one jitted
+dispatch), and one copy of the packed planes back.
+:meth:`~FleetRuntime.step` is :meth:`~FleetRuntime.step_many` with K = 1. On
+the CPU (``device="cpu"``) the kernel's plain version runs instead.
 
 Ported: fleet mode (one row per link), the reactive and hysteresis
 policies, endogenous CCI demand, and the actuation layer on top of it
@@ -193,9 +193,10 @@ class FleetRuntime:
         self.obs = None             # observability is ROADMAP Queue 1, item 8
         # Per-row operands of the chunk, on the device. The CCI lease is
         # (L + V·1) before the volume term is added, as the JAX tick sums it.
-        self._lease_cci = self.arrays.L_cci + self.arrays.V_cci
-        self._fsm_rows = (tog.theta1, tog.theta2, tog.h, tog.D, tog.T_cci,
-                          *self.policy.holds())
+        a = self.arrays
+        self._chunk_rows = (a.capacity, a.L_vpn, a.L_cci + a.V_cci, a.c_cci,
+                            a.tier_bounds, a.tier_rates, tog.theta1, tog.theta2, tog.h,
+                            tog.D, tog.T_cci, *self.policy.holds())
         self.reset()
 
     @classmethod
@@ -287,30 +288,23 @@ class FleetRuntime:
         return block, K, endo
 
     def _launch(self, block: torch.Tensor, K: int, endo: bool) -> torch.Tensor:
-        """The chunk on the device: clip, calendar pricing kernel, the CCI
-        plane, FSM kernel. Returns one packed float64 (8K + 4, M) result:
-        vpn, cci, r_vpn, r_cci, snap_v, snap_c, x, state (K rows each), then
-        dcum, dcum_month, vpn_pref, cci_pref. Updates the device carries."""
+        """The chunk on the device, one ``stream_chunk``: returns its packed
+        float64 (8K + 4, M) result (vpn, cci, r_vpn, r_cci, snap_v, snap_c,
+        x, state, K rows each, then dcum, dcum_month, vpn_pref, cci_pref).
+        The next device carries are the FSM carry out and views of the
+        result's last four rows."""
+        host, fsm = ops.stream_chunk(*self._chunk_args(block, K, endo),
+                                     renew_in_chunks=self.policy.renew_in_chunks)
+        self._state = self._state._replace(fsm=fsm, dev_cal=host[8 * K:8 * K + 2],
+                                           dev_pref=host[8 * K + 2:])
+        return host
+
+    def _chunk_args(self, block: torch.Tensor, K: int, endo: bool) -> tuple:
+        """``stream_chunk``'s positional arguments for ``block`` at the
+        current state (``renew_in_chunks`` is the policy's)."""
         st = self._state
-        a, M, P = self.arrays, self.n_rows, self.n_demand_rows
-        nd = (2 if endo else 1) * K * P
-        cap = a.capacity[None, :]
-        d_pair = torch.minimum(block[:K * P].view(K, P), cap)
-        d_cci = torch.minimum(block[K * P:nd].view(K, P), cap) if endo else d_pair
-        pre_v = block[nd:nd + K * M].view(K, M)
-        pre_c = block[nd + K * M:].view(K, M)
-        transfer, cal = ops.tiered_cost_calendar(
-            st.dev_cal, d_pair, a.tier_bounds, a.tier_rates, st.t, self.hours_per_month)
-        vpn = a.L_vpn[None, :] + transfer
-        # Product, then sum: two roundings, as on the CPU (never addcmul).
-        cci = self._lease_cci[None, :] + a.c_cci[None, :] * d_cci
-        out = ops.fsm_chunk(vpn, cci, pre_v, pre_c, *self._fsm_rows, st.fsm,
-                            st.dev_pref, st.t, renew_in_chunks=self.policy.renew_in_chunks)
-        self._state = st._replace(fsm=out["carry"], dev_cal=cal, dev_pref=out["pref"])
-        f64 = torch.float64
-        return torch.cat([vpn, cci, out["r_vpn"], out["r_cci"], out["snap_v"],
-                          out["snap_c"], out["x"].to(f64), out["state"].to(f64),
-                          cal, out["pref"]])
+        return (block, K, endo, *self._chunk_rows, st.dev_cal, st.fsm, st.dev_pref, st.t,
+                self.hours_per_month)
 
     def _commit(self, host: np.ndarray, K: int) -> Dict[str, np.ndarray]:
         """Adopt the chunk's results on the host: ring slots take the prefix

@@ -12,8 +12,10 @@ plane; replaces the Pallas kernel of the same name), ``fsm_scan`` (the
 ToggleCCI scan over rows; replaces ``lax.scan`` in ``policy_scan``),
 ``tiered_cost_scan`` (K-hour chunk pricing with a billing carry, entry
 points ``tiered_cost_scan`` and ``tiered_cost_calendar``; replaces the
-Pallas kernel of that name) and ``fsm_chunk`` (K hours of the FSM from a
-carry; replaces the ``lax.scan`` of the streaming runtime's chunk), and
+Pallas kernel of that name), ``fsm_chunk`` (K hours of the FSM from a
+carry; replaces the ``lax.scan`` of the streaming runtime's chunk) and
+``stream_chunk`` (the streaming runtime's whole chunk, the calendar pricing
+and the FSM of the last two fused into one launch; the runtime runs it), and
 for the LM's serving path ``flash_attention`` (blocked online-softmax
 attention) and ``rmsnorm``, and for the actuation path ``int8_quantize`` /
 ``int8_dequantize`` (per-row int8 of the compressed gradient sync) and

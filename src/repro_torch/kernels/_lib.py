@@ -25,12 +25,12 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "rmsnorm.cu",
-           "flash_attention.cu", "int8_quant.cu")
+SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
+           "rmsnorm.cu", "flash_attention.cu", "int8_quant.cu")
 #: The float64 sources, held bit for bit against their plain versions.
-EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu")
+EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu")
 #: Headers the sources include; part of the build hash.
-HEADERS = ("tier_fold.cuh",)
+HEADERS = ("tier_fold.cuh", "fsm_step.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 NVCC_FLAGS = (
@@ -50,8 +50,8 @@ EXACT_FLAGS = ("-fmad=false",)
 #: ``flash_attention_sm90`` those of its Hopper entry.
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0,
-    "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
-    "int8_dequantize": 0, "tiered_cost": 0,
+    "stream_chunk": 0, "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0,
+    "int8_quantize": 0, "int8_dequantize": 0, "tiered_cost": 0,
 }
 
 _lock = threading.Lock()
@@ -145,6 +145,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tiered_cost_calendar_f64.restype = i
     lib.fsm_chunk_f64.argtypes = [p] * 11 + [i] * 4 + [p] * 11
     lib.fsm_chunk_f64.restype = i
+    lib.stream_chunk_f64.argtypes = [p] * 20 + [i] * 6 + [p] * 3
+    lib.stream_chunk_f64.restype = i
     for name in ("rmsnorm_f32", "rmsnorm_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, ctypes.c_longlong, i, ctypes.c_float, p, p]

@@ -24,6 +24,7 @@ from .fsm_scan import fsm_scan as _fsm_scan_kernel
 from .int8_quant import int8_dequantize as _dequant_kernel
 from .int8_quant import int8_quantize as _quant_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
+from .stream_chunk import stream_chunk as _stream_chunk_kernel
 from .tiered_cost import tiered_cost as _tiered_static_kernel
 from .tiered_cost import tiered_cost_batched as _tiered_kernel
 from .tiered_cost_scan import tiered_cost_calendar as _calendar_kernel
@@ -84,6 +85,22 @@ def fsm_chunk(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down
         return _fsm_chunk_kernel(*(a.contiguous() for a in args), t0,
                                  renew_in_chunks=renew_in_chunks)
     return ref.fsm_chunk_ref(*args, t0, renew_in_chunks=renew_in_chunks)
+
+
+def stream_chunk(block, K: int, endo: bool, capacity, L_vpn, lease_cci, c_cci, bounds,
+                 rates, theta1, theta2, h, D, T_cci, up_hold, down_hold, cal, fsm, pref,
+                 t0: int, hours_per_month: int, *, renew_in_chunks: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streaming runtime's whole chunk from its packed block: ``(packed
+    (8K + 4, M) float64, FSM carry (4, M) int32)``."""
+    args = (capacity, L_vpn, lease_cci, c_cci, bounds, rates, theta1, theta2, h, D, T_cci,
+            up_hold, down_hold, cal, fsm, pref)
+    if _route(block, "stream_chunk"):
+        return _stream_chunk_kernel(block.contiguous(), K, endo,
+                                    *(a.contiguous() for a in args), t0, hours_per_month,
+                                    renew_in_chunks=renew_in_chunks)
+    return ref.stream_chunk_ref(block, K, endo, *args, t0, hours_per_month,
+                                renew_in_chunks=renew_in_chunks)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,

@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.costmodel import tiered_marginal_cost_tables
 from repro_torch.core.togglecci import ToggleParams, window_sums
 
+from .stream_chunk import block_size
 from .tiered_cost import tier_table
 
 
@@ -169,6 +170,52 @@ def fsm_chunk_ref(
         "carry": torch.stack([state, t_state, up, down]).to(i32),
         "pref": torch.stack([pv, pc]),
     }
+
+
+def stream_chunk_ref(
+    block: torch.Tensor, K: int, endo: bool,
+    capacity: torch.Tensor, L_vpn: torch.Tensor, lease_cci: torch.Tensor,
+    c_cci: torch.Tensor, bounds: torch.Tensor, rates: torch.Tensor,
+    theta1: torch.Tensor, theta2: torch.Tensor,
+    h: torch.Tensor, D: torch.Tensor, T_cci: torch.Tensor,
+    up_hold: torch.Tensor, down_hold: torch.Tensor,
+    cal: torch.Tensor, fsm: torch.Tensor, pref: torch.Tensor,
+    t0: int, hours_per_month: int,
+    *,
+    renew_in_chunks: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.stream_chunk.stream_chunk`:
+    the streaming runtime's chunk in fleet mode (``runtime.py:405-577``).
+
+    The flat ``block`` holds the demand (and, when ``endo``, the CCI demand)
+    hour-major (K, M), then the host's window reads ``pre_v``/``pre_c`` (K, M).
+    Clip at the capacity with ``torch.minimum``, price on the billing calendar
+    (:func:`tiered_cost_calendar_ref`), build the VPN plane and the CCI plane
+    (product, then sum: two roundings, never ``addcmul``), run
+    :func:`fsm_chunk_ref`, and pack. Returns the (8K + 4, M) float64 result
+    (vpn, cci, r_vpn, r_cci, snap_v, snap_c, x, state, K rows each, then dcum,
+    dcum_month, vpn_pref, cci_pref) and the FSM carry (4, M) int32.
+    """
+    M = capacity.shape[0]
+    nd = (2 if endo else 1) * K * M
+    if block.shape != (block_size(K, M, endo),):
+        raise ValueError(f"stream_chunk block: want ({block_size(K, M, endo)},), "
+                         f"got {tuple(block.shape)}")
+    cap = capacity[None, :]
+    d_pair = torch.minimum(block[:K * M].view(K, M), cap)
+    d_cci = torch.minimum(block[K * M:nd].view(K, M), cap) if endo else d_pair
+    pre_v = block[nd:nd + K * M].view(K, M)
+    pre_c = block[nd + K * M:].view(K, M)
+    transfer, cal_out = tiered_cost_calendar_ref(cal, d_pair, bounds, rates, t0,
+                                                 hours_per_month)
+    vpn = L_vpn[None, :] + transfer
+    cci = lease_cci[None, :] + c_cci[None, :] * d_cci
+    out = fsm_chunk_ref(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold,
+                        down_hold, fsm, pref, t0, renew_in_chunks=renew_in_chunks)
+    f64 = torch.float64
+    packed = torch.cat([vpn, cci, out["r_vpn"], out["r_cci"], out["snap_v"], out["snap_c"],
+                        out["x"].to(f64), out["state"].to(f64), cal_out, out["pref"]])
+    return packed, out["carry"]
 
 
 def attention(

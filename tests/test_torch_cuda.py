@@ -41,6 +41,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.stream_chunk import stream_chunk
 from repro_torch.kernels.tiered_cost import tiered_cost_batched
 from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
 
@@ -111,6 +112,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fsm_chunk(_t(vpn.T), _t(cci.T), _t(vpn.T), _t(cci.T), *rows, one, one,
                   torch.zeros((4, 2), dtype=torch.int32),
                   torch.zeros((2, 2), dtype=torch.float64), 0)
+
+
+def test_stream_chunk_wrapper_refuses_cpu_tensors_and_bad_operands():
+    """The fused chunk's wrapper launches on CUDA tensors or raises: CPU
+    operands, a block of the wrong length and a carry of the wrong type are
+    refused before anything is built."""
+    sc = build_fleet_scenario(4, horizon=48, seed=0)
+    rt = FleetRuntime(sc.fleet, device="cpu")
+    block, K, endo = rt._pack(sc.demand[:, :24], None)
+    args = list(rt._chunk_args(torch.from_numpy(block), K, endo))
+    with pytest.raises(ValueError, match="CUDA"):
+        stream_chunk(*args)
+    with pytest.raises(ValueError, match="block"):
+        stream_chunk(args[0][:-1], *args[1:])
+    bad = list(args)
+    bad[-4] = bad[-4].to(torch.int64)    # the FSM carry
+    with pytest.raises(ValueError, match="operand"):
+        stream_chunk(*bad)
 
 
 @pytest.mark.cuda
@@ -209,7 +228,7 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     ops.reset_launches()
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
     assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1,
-                            "tiered_cost_scan": 0, "fsm_chunk": 0,
+                            "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
                             "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0,
                             "int8_quantize": 0, "int8_dequantize": 0, "tiered_cost": 0}
     assert got["x"].is_cuda
@@ -284,10 +303,82 @@ def test_runtime_gpu_matches_cpu(cuda_device):
         outs += [{k: v[:, None] for k, v in rt.step(sc.demand[:, t]).items()}
                  for t in range(1992, 2000)]
         got = {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}
-        assert ops.LAUNCHES["tiered_cost_scan"] == ops.LAUNCHES["fsm_chunk"] == 83 + 8
+        assert ops.LAUNCHES["stream_chunk"] == 83 + 8
+        assert ops.LAUNCHES["tiered_cost_scan"] == ops.LAUNCHES["fsm_chunk"] == 0
         want = FleetRuntime(fleet, device="cpu").run(sc.demand)
         for k in want:
             assert np.array_equal(got[k], want[k]), k
+
+
+def _head_rows(arrays, n):
+    """The first n links of stacked FleetArrays (nested ToggleParams too)."""
+    cut = lambda f: (type(f)(*(x[:n].contiguous() for x in f)) if isinstance(f, tuple)
+                     else f[:n].contiguous())
+    return type(arrays)(*(cut(f) for f in arrays))
+
+
+def _same_bits(got, want):
+    """Equal shapes and types, NaN in the same places, every bit equal
+    elsewhere (torch.equal is False wherever both hold NaN)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype != torch.float64:
+        return torch.equal(got, want)
+    ng, nw = torch.isnan(got), torch.isnan(want)
+    return (torch.equal(ng, nw) and torch.equal(got.view(torch.int64).masked_fill(ng, 0),
+                                                want.view(torch.int64).masked_fill(nw, 0)))
+
+
+STREAM_CHUNK_CASES = ["chained", "endogenous", "k1", "past_tile_and_ring", "ragged_rows",
+                      "nonfinite_demand"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STREAM_CHUNK_CASES)
+def test_stream_chunk_kernel_matches_plain(cuda_device, case):
+    """The runtime's fused chunk kernel against stream_chunk_ref on the same
+    packed blocks and carries, from a stream's own state, every output bit:
+    four chained K = 24 chunks from hour 696 (across the month start at
+    730), the same with endogenous CCI demand, K = 1, one K past the
+    kernel's 32-hour tile and the window ring, 37 rows (not a multiple of
+    the 16-row block), and demand hours holding NaN and +inf."""
+    sc = build_fleet_scenario(64, horizon=1200, seed=0)
+    fleet, demand, cci = sc.fleet, sc.demand, None
+    t_first, Ks = 696, [24] * 4
+    if case == "endogenous":
+        cci = demand * 1.5
+    elif case == "k1":
+        t_first, Ks = 728, [1] * 4
+    elif case == "ragged_rows":
+        fleet, demand, Ks = _head_rows(fleet.stack(torch.float64, cuda_device), 37), \
+            demand[:37], [24] * 2
+    elif case == "nonfinite_demand":
+        demand = demand.copy()
+        demand[5, 699], demand[5, 706], demand[9, 726] = np.nan, np.inf, np.nan
+        Ks = [24] * 2
+    rt = FleetRuntime(fleet, device=cuda_device)
+    if case == "past_tile_and_ring":
+        t_first, Ks = 500, [max(rt.hbuf, 32) + 45]
+    cblk = lambda a, b: None if cci is None else cci[:, a:b]
+    t = 0
+    while t < t_first:
+        k = min(24, t_first - t)
+        rt.step_many(demand[:, t:t + k], cci_demand_block=cblk(t, t + k))
+        t += k
+    for K in Ks:
+        block, _, endo = rt._pack(demand[:, t:t + K], cblk(t, t + K))
+        dev_block = torch.from_numpy(block).to(cuda_device)
+        want, want_fsm = ref.stream_chunk_ref(*rt._chunk_args(dev_block, K, endo),
+                                              renew_in_chunks=rt.policy.renew_in_chunks)
+        before = ops.LAUNCHES["stream_chunk"]
+        got = rt._launch(dev_block, K, endo)
+        assert ops.LAUNCHES["stream_chunk"] == before + 1
+        assert _same_bits(got, want), (case, t)
+        assert _same_bits(rt._state.fsm, want_fsm), (case, t)
+        rt._commit(got.cpu().numpy(), K)
+        t += K
+    if case == "nonfinite_demand":
+        assert bool(torch.isnan(rt._state.dev_cal[0, 5])) and bool(torch.isnan(got).any())
 
 
 def test_lm_kernel_wrappers_refuse_cpu_tensors():

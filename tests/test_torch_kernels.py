@@ -217,6 +217,163 @@ def test_fsm_chunk_plain_chains_to_fsm_scan(kind, renew):
 
 
 # ---------------------------------------------------------------------------
+# The streaming runtime's fused chunk (stream_chunk)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_rows(seed, M, kind, renew):
+    """Seeded per-row operands of a streaming chunk, in the order of
+    ``FleetRuntime._chunk_rows``: demand regimes that clip at some rows'
+    capacity, and VPN / CCI prices that cross over with the regime, so the
+    rows toggle."""
+    rng = np.random.default_rng(seed)
+    _, _, b, r = seeded_tiers(seed, M, 1)
+    pol = _port_policy(kind, seeded_toggle(seed, M), renew)
+    tp = pol.toggle
+    cap = rng.uniform(250.0, 450.0, M)
+    L_vpn, L_cci, V_cci = (rng.uniform(0.5, 2.0, M), rng.uniform(6.0, 10.0, M),
+                           rng.uniform(0.5, 1.0, M))
+    c_cci = rng.uniform(0.01, 0.02, M)
+    return (_t(cap), _t(L_vpn), _t(L_cci + V_cci), _t(c_cci), _t(b), _t(r),
+            tp.theta1, tp.theta2, tp.h, tp.D, tp.T_cci, *pol.holds())
+
+
+def _chunk_demand(seed, M, T):
+    """(T, M) hour-major demand in 40-hour regimes, row 3 holding NaN at hour
+    50 and +inf at hour 70 (the capacity clips the inf; the NaN stays)."""
+    rng = np.random.default_rng(seed + 1)
+    regime = np.repeat(rng.uniform(10.0, 500.0, (T // 40 + 1, M)), 40, axis=0)[:T]
+    d = regime * rng.uniform(0.8, 1.2, (T, M))
+    d[50, 3], d[70, 3] = np.nan, np.inf
+    return d
+
+
+def _replaced_chunk(block, K, endo, rows, cal, fsm, pref, t0, hpm, renew):
+    """The sequence stream_chunk replaced in FleetRuntime._launch: clip, the
+    calendar pricing, the VPN and CCI planes, fsm_chunk, and the cat."""
+    cap, L_vpn, lease, c_cci, b, r, *fsm_rows = rows
+    M = cap.shape[0]
+    nd = (2 if endo else 1) * K * M
+    d_pair = torch.minimum(block[:K * M].view(K, M), cap[None, :])
+    d_cci = torch.minimum(block[K * M:nd].view(K, M), cap[None, :]) if endo else d_pair
+    pre_v, pre_c = block[nd:nd + K * M].view(K, M), block[nd + K * M:].view(K, M)
+    transfer, cal = ops.tiered_cost_calendar(cal, d_pair, b, r, t0, hpm)
+    vpn = L_vpn[None, :] + transfer
+    cci = lease[None, :] + c_cci[None, :] * d_cci
+    out = ops.fsm_chunk(vpn, cci, pre_v, pre_c, *fsm_rows, fsm, pref, t0,
+                        renew_in_chunks=renew)
+    f64 = torch.float64
+    packed = torch.cat([vpn, cci, out["r_vpn"], out["r_cci"], out["snap_v"], out["snap_c"],
+                        out["x"].to(f64), out["state"].to(f64), cal, out["pref"]])
+    return packed, out["carry"]
+
+
+def _same_bits(a, b):
+    """Every bit equal, NaN payloads included (torch.equal is False on NaN)."""
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("renew", [False, True], ids=["continuous", "chunks"])
+@pytest.mark.parametrize("kind", ["reactive", "hysteresis"])
+@pytest.mark.parametrize("endo", [False, True], ids=["exo", "endo"])
+@pytest.mark.parametrize("K", [1, 24, 37])
+def test_stream_chunk_plain_is_the_sequence_it_replaced(K, endo, kind, renew):
+    """stream_chunk's plain version over chained chunks (months of 30 hours,
+    so month starts fall inside chunks; a NaN and an inf demand hour) equals,
+    bit for bit, the clip / calendar / planes / fsm_chunk / cat sequence the
+    runtime ran before, chunk by chunk and in every carry."""
+    M, T, hpm = 10, 120, 30
+    rows = _chunk_rows(17, M, kind, renew)
+    d = _chunk_demand(17, M, T)
+    dc = d[::-1].copy() * 1.3            # a CCI demand of its own
+    h = rows[8].numpy()
+    f64 = torch.float64
+    new = old = (torch.zeros((2, M), dtype=f64), torch.zeros((4, M), dtype=torch.int32),
+                 torch.zeros((2, M), dtype=f64))
+    snaps_v, snaps_c = [], []            # the host ring: prefix before each hour
+    xs = []
+    for t0 in range(0, T - T % K, K):
+        lo = np.maximum(0, t0 + np.arange(K)[:, None] - h[None, :])          # (K, M)
+
+        def ring(snaps):   # the host's reads older than the chunk; 0 where unread
+            hist = np.asarray(snaps + [np.zeros(M)])                            # (t0 + 1, M)
+            return np.where(lo < t0, np.take_along_axis(hist, np.minimum(lo, t0), 0), 0.0)
+
+        planes = [d[t0:t0 + K]] + ([dc[t0:t0 + K]] if endo else [])
+        block = _t(np.concatenate([p.ravel() for p in planes]
+                                  + [ring(snaps_v).ravel(), ring(snaps_c).ravel()]))
+        got = ops.stream_chunk(block, K, endo, *rows, *new[0:1], new[1], new[2], t0, hpm,
+                               renew_in_chunks=renew)
+        want = _replaced_chunk(block, K, endo, rows, *old, t0, hpm, renew)
+        assert got[0].shape == (8 * K + 4, M)
+        assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1]), t0
+        new = (got[0][8 * K:8 * K + 2], got[1], got[0][8 * K + 2:])
+        old = (want[0][8 * K:8 * K + 2], want[1], want[0][8 * K + 2:])
+        snaps_v += list(got[0][4 * K:5 * K].numpy())
+        snaps_c += list(got[0][5 * K:6 * K].numpy())
+        xs.append(got[0][6 * K:7 * K])
+    x = torch.cat(xs)
+    assert 0 < x.sum() < x.numel()                        # the rows do toggle
+    assert torch.isnan(new[0][0, 3]) and not torch.isnan(new[0][0, :3]).any()
+
+
+@pytest.mark.parametrize("endo", [False, True], ids=["exo", "endo"])
+def test_stream_chunk_plain_matches_jax_step_many(endo):
+    """One K = 24 chunk across the month start at hour 730, from a stream's
+    own state: the port's plain stream_chunk on the runtime's packed block
+    against the JAX runtime's step_many (its _build_step_many dispatch) on
+    the same hours. Decisions, the VPN plane and its window sums bit for bit;
+    the CCI plane and its window sums at ``rtol=1e-12``: XLA contracts
+    ``c·d + (L+V)`` into a fused multiply-add, one ulp off the port's
+    product-then-sum (the tolerance of ``tests/test_torch_runtime.py``)."""
+    from repro.fleet import scenario as jscen
+    from repro.fleet.stream import FleetRuntime as JFleetRuntime
+
+    from repro_torch.fleet import FleetRuntime, build_fleet_scenario
+
+    n, T, t0, K = 8, 760, 712, 24
+    jsc = jscen.build_fleet_scenario(n, horizon=T, seed=3)
+    sc = build_fleet_scenario(n, horizon=T, seed=3)
+    assert np.array_equal(jsc.demand, sc.demand)
+    cci_d = sc.demand * 1.5 if endo else None
+    cblk = lambda a, b: None if cci_d is None else cci_d[:, a:b]
+    jrt, rt = JFleetRuntime(jsc.fleet), FleetRuntime(sc.fleet, device="cpu")
+    for a in list(range(0, 696, 24)) + [696]:
+        b = a + 24 if a < 696 else t0
+        jrt.step_many(sc.demand[:, a:b], cci_demand_block=cblk(a, b))
+        rt.step_many(sc.demand[:, a:b], cci_demand_block=cblk(a, b))
+    assert rt.t == t0
+    block, K_, endo_ = rt._pack(sc.demand[:, t0:t0 + K], cblk(t0, t0 + K))
+    assert (K_, endo_) == (K, endo)
+    packed, _ = ops.stream_chunk(*rt._chunk_args(torch.from_numpy(block), K, endo))
+    want = jrt.step_many(sc.demand[:, t0:t0 + K], cci_demand_block=cblk(t0, t0 + K))
+    planes = packed[:8 * K].view(8, K, n).numpy()
+    got = {"vpn_cost": planes[0], "r_vpn": planes[2], "x": planes[6], "state": planes[7],
+           "cci_cost": planes[1], "r_cci": planes[3]}
+    assert 0 < want["x"].sum() < want["x"].size              # the links do toggle
+    for k in ("vpn_cost", "r_vpn", "x", "state"):
+        np.testing.assert_array_equal(got[k], want[k].T, err_msg=k)
+    for k in ("cci_cost", "r_cci"):
+        np.testing.assert_allclose(got[k], want[k].T, rtol=1e-12, atol=0, err_msg=k)
+
+
+def test_stream_chunk_dispatch_refuses_other_devices():
+    """ops.stream_chunk sends CPU tensors to the plain version and CUDA ones
+    to the kernel; any other device raises, with no fallback."""
+    rows = _chunk_rows(3, 4, "reactive", False)
+    meta = lambda a: a.to("meta")
+    f64 = torch.float64
+    args = (torch.zeros(4 * 4, dtype=f64, device="meta"), 1, True, *map(meta, rows),
+            torch.zeros((2, 4), dtype=f64, device="meta"),
+            torch.zeros((4, 4), dtype=torch.int32, device="meta"),
+            torch.zeros((2, 4), dtype=f64, device="meta"), 0, 730)
+    with pytest.raises(ValueError, match="stream_chunk"):
+        ops.stream_chunk(*args)
+
+
+# ---------------------------------------------------------------------------
 # The LM's kernels: flash attention and RMSNorm (plain versions)
 # ---------------------------------------------------------------------------
 
