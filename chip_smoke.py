@@ -26,7 +26,10 @@ without printing a result):
    tiles (N in 1, 17, 128 x T in 1, 63, 2001, 8760, windows from 1 hour to
    past T, both policies and renewals, planes 8 bytes off a 16-byte
    boundary) bit for bit against the CPU plain version and in decisions
-   against the card's;
+   against the card's; then :func:`tier_nan_checks`: the three tiered
+   kernels on hours whose month-to-date volume or demand is NaN, at the
+   main paths' shapes, against their plain versions NaN-aware (the fold
+   kernels price such an hour +0.0, the static ``tiered_cost`` gives NaN);
 5. holds the CUDA ``plan_fleet`` against the CPU one at 16 x 2000;
 6. times each kernel, its plain version and ``plan_fleet`` end to end
    (median of CUDA-synchronised runs after warm-up) beside each kernel's
@@ -98,9 +101,12 @@ without printing a result):
    links x 800 hours on the card and on the CPU (every mode and report
    array equal) and ``fleet_sync_grads`` on 16 jobs of one full-width layer
    over a mode change (grouped == ungrouped, billed == ``sync_wire_bytes``);
-   then times the sync in each mode, the kernels against their plain
-   versions and bounds (``int8_quantize`` beside its run-M time), and
-   ``feed_hour``;
+   then checks ``int8_dequantize`` against ``torch.mul(q, scale)`` bit for
+   bit on every leaf (float32, and cast to bfloat16), and times the sync in
+   each mode, the kernels against their plain versions and bounds by
+   profiler device time (``int8_quantize`` beside its run-M time,
+   ``int8_dequantize`` beside ``torch.mul`` and its run-Q time, the static
+   ``tiered_cost`` beside its run-Q time and CUDA events), and ``feed_hour``;
 10. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
@@ -128,9 +134,12 @@ DEVICE = torch.device("cuda")
 # non-tensor-core float64 and float32 rates, and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12, torch.bfloat16: 989e12}
-# The kernels before their redesign (run M in PERF.md), NVIDIA H100 80GB
-# HBM3, 700.00 W: fsm_scan at 2048 x 8760, int8_quantize over the 201 leaves.
+# The kernels before their redesign, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md):
+# run M, fsm_scan at 2048 x 8760 and int8_quantize over the 201 leaves; run Q,
+# int8_dequantize over the 201 leaves (profiler device time) and the static
+# tiered_cost at 8760 x 2048 (CUDA events around one call, launch included).
 RUN_M_MS = {"fsm_scan": 3.3928, "int8_quantize": 3.6788}
+RUN_Q_MS = {"int8_dequantize": 3.2221, "tiered_cost": 0.1247}
 
 
 class SmokeFailure(RuntimeError):
@@ -225,20 +234,47 @@ def fsm_bound(N: int, T: int) -> dict:
     return bound(bytes_moved, ops, torch.float64)
 
 
-def print_breakdown(fn, reps: int, unit: str = "plan") -> None:
-    """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler),
-    and the share of the traced window the device was busy."""
+TRACE_PADS, TRACE_QUIET_S = 16, 0.01   # pad kernels that open a trace, then 10 ms idle
+PAD_SEEN = []                          # per trace: how many pads it recorded
+
+
+def traced(fn, reps: int):
+    """Host and device events of ``reps`` calls of ``fn`` from torch.profiler
+    (after one call untraced), and the device events alone. Minutes into a
+    run on the H100 host, a trace can lose the device events of its first
+    ~0.5 ms of device activity (7 of 20 launches of a 0.07-ms kernel; all of
+    16 one-cycle spin kernels). So the trace opens with TRACE_PADS such spin
+    kernels and TRACE_QUIET_S of idle card, and keeps only the events of the
+    annotated calls after them. The callers that know how many launches a
+    call makes check the count."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        for _ in range(TRACE_PADS):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
+        time.sleep(TRACE_QUIET_S)
+        with record_function("traced calls"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
     events = list(prof.events())
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    PAD_SEEN.append(sum(e.device_type == DeviceType.CUDA and "spin_kernel" in e.name
+                        for e in events))
+    mark = [e.time_range.start for e in events if e.name == "traced calls"]
+    t0 = mark[0] if mark else float("-inf")
+    events = [e for e in events if "spin_kernel" not in e.name and e.time_range.start >= t0]
+    return events, [e for e in events if e.device_type == DeviceType.CUDA
+                    and e.name != "traced calls"]     # kineto mirrors the annotation there
+
+
+def print_breakdown(fn, reps: int, unit: str = "plan") -> None:
+    """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler),
+    and the share of the traced window the device was busy."""
+    events, dev = traced(fn, reps)
     if not dev:
         print("    profiler: no device activity recorded (device time not measured)")
         return
@@ -278,28 +314,23 @@ def stream(rt, demand, K: int, clock: list = None) -> dict:
     return {k: np.concatenate([o[k] for o in outs], axis=1) for k in outs[0]}
 
 
-def kernel_device_ms(fn, reps: int, names) -> dict:
+def kernel_device_ms(fn, reps: int, names, per_call: int = 0) -> dict:
     """Device milliseconds per call of each kernel whose name contains one of
     ``names``, from torch.profiler over ``reps`` calls of ``fn`` (for kernels
     whose launch costs the host more than the card spends running them, CUDA
-    events around a call measure the launch, not the kernel)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            for n in names:
-                if n in e.name:
-                    out[n] = out.get(n, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    events around a call measure the launch, not the kernel). With
+    ``per_call``, each name must show exactly ``reps * per_call`` launches in
+    the trace, or the script fails: a trace that lost launches reads low."""
+    out, count = {}, {}
+    for e in traced(fn, reps)[1]:
+        for n in names:
+            if n in e.name:
+                out[n] = out.get(n, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+                count[n] = count.get(n, 0) + 1
     missing = [n for n in names if n not in out]
     check(not missing, f"profiler recorded no device time for {missing}")
+    short = {n: c for n, c in count.items() if per_call and c != reps * per_call}
+    check(not short, f"profiler trace holds {short} launches, not {reps * per_call} each")
     return out
 
 
@@ -308,17 +339,7 @@ def device_busy_ms(fn, reps: int) -> float:
     on the card, summed, from torch.profiler over ``reps`` calls (for a call
     of many small launches, CUDA events around it time the host's launch
     rate, not the card)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA)
+    busy = sum(e.time_range.elapsed_us() for e in traced(fn, reps)[1])
     check(busy > 0, "profiler recorded no device time")
     return busy / reps / 1e3
 
@@ -372,11 +393,12 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     (signed zeros included)."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.dtype != torch.float64:
+    as_int = {torch.float64: torch.int64, torch.float32: torch.int32}.get(a.dtype)
+    if as_int is None:
         return torch.equal(a, b)
     na, nb = torch.isnan(a), torch.isnan(b)
-    return (torch.equal(na, nb) and torch.equal(a.view(torch.int64).masked_fill(na, 0),
-                                                b.view(torch.int64).masked_fill(nb, 0)))
+    return (torch.equal(na, nb) and torch.equal(a.view(as_int).masked_fill(na, 0),
+                                                b.view(as_int).masked_fill(nb, 0)))
 
 
 def stream_chunk_case(fleet, demand, t_first: int, Ks, cci_demand=None) -> float:
@@ -637,7 +659,7 @@ def streaming_phase(scen, references, card: str) -> dict:
               f"stream_chunk on the same block")
         dev = kernel_device_ms(lambda: (fused(), cal_call(), fsm_call()), 20,
                                ("stream_chunk_kernel", "tiered_cost_scan_kernel",
-                                "fsm_chunk_kernel"))
+                                "fsm_chunk_kernel"), per_call=1)
         b_k = stream_chunk_bound(N, K, Kt, False)
         timing[K] = {
             "ms": dev["stream_chunk_kernel"], "queued_ms": queued_ms(fused, 50),
@@ -1454,6 +1476,17 @@ def actuation_phase(card: str) -> dict:
           f"{np.percentile(fa, 50):.1f} us, p95 {np.percentile(fa, 95):.1f} us")
 
     qs = [int8_quantize(g.view(-1, g.shape[-1]), guard="collectives") for g in leaves]
+    # The yardstick: one torch.mul promotes int8 q times the float32 scales to
+    # float32, every bit as the kernel (and, cast, as its bfloat16 output).
+    for q, s in qs:
+        lib_out = torch.mul(q, s)
+        check(torch.equal(int8_dequantize(q, s), lib_out)
+              and torch.equal(int8_dequantize(q, s, torch.bfloat16), lib_out.bfloat16())
+              and torch.equal(lib_out, ref.int8_dequantize(q, s)),
+              f"int8_dequantize {tuple(q.shape)} != torch.mul(q, scale)")
+    del lib_out
+    print(f"int8_dequantize on every leaf ({n_leaves}): float32 == torch.mul(q, scale) == "
+          f"plain, bfloat16 == torch.mul(q, scale) cast (bit for bit)")
     quant_all = lambda: [int8_quantize(g.view(-1, g.shape[-1]), guard="collectives")
                          for g in leaves]
     dequant_all = lambda: [int8_dequantize(q, s) for q, s in qs]
@@ -1462,6 +1495,8 @@ def actuation_phase(card: str) -> dict:
     print(f"  wall time of one pass over the {n_leaves} leaves (CUDA events, host launches "
           f"included): int8_quantize {event_ms(quant_all, 5):.4f} ms, int8_dequantize "
           f"{event_ms(dequant_all, 5):.4f} ms")
+    vpn_tier = dci_scenario().vpn_tier
+    static_call = lambda: tiered_cost(cum32, d32, vpn_tier.bounds_gb, vpn_tier.rates)
     timing = {
         "int8_quantize": (
             device_busy_ms(quant_all, 3),
@@ -1469,33 +1504,41 @@ def actuation_phase(card: str) -> dict:
                                                       guard="collectives") for g in leaves], 2),
             quant_bound(rows_d, torch.float32)),
         "int8_dequantize": (
-            device_busy_ms(dequant_all, 3),
+            kernel_device_ms(dequant_all, 3, ["int8_dequantize"],
+                             per_call=n_leaves)["int8_dequantize"],
             device_busy_ms(lambda: [ref.int8_dequantize(q, s) for q, s in qs], 2),
             dequant_bound(rows_d, torch.float32)),
         "tiered_cost": (
-            event_ms(lambda: tiered_cost(cum32, d32, dci_scenario().vpn_tier.bounds_gb,
-                                         dci_scenario().vpn_tier.rates), 20),
-            event_ms(lambda: ref.tiered_cost(cum32, d32, dci_scenario().vpn_tier.bounds_gb,
-                                             dci_scenario().vpn_tier.rates), 5),
+            kernel_device_ms(static_call, 20, ["tiered_cost_static"],
+                             per_call=1)["tiered_cost_static"],
+            device_busy_ms(lambda: ref.tiered_cost(cum32, d32, vpn_tier.bounds_gb,
+                                                   vpn_tier.rates), 5),
             static_tiered_bound(T_w, P_w, 3)),
     }
+    library = {"int8_dequantize": device_busy_ms(lambda: [torch.mul(q, s) for q, s in qs], 3)}
     del qs
+    static_events = (queued_ms(static_call, 20), event_ms(static_call, 20))
     emb = grads["embed"]
     emb_q = event_ms(lambda: int8_quantize(emb, guard="collectives"), 20)
     labels = {"int8_quantize": f"int8_quantize f32, whole pytree ({n_leaves} launches), "
-                               f"profiler device time",
+                               f"profiler device busy",
               "int8_dequantize": f"int8_dequantize to f32, whole pytree ({n_leaves} launches), "
                                  f"profiler device time",
-              "tiered_cost": f"tiered_cost {T_w} x {P_w} f32, 3 tiers"}
+              "tiered_cost": f"tiered_cost {T_w} x {P_w} f32, 3 tiers, profiler device time"}
     no_library = {
         "int8_quantize": "torch.quantize_per_channel takes the scales as input",
-        "int8_dequantize": "no single call takes int8 values and per-row scales",
         "tiered_cost": "no single call folds a tier table"}
     for key, (ms, plain_ms, b) in timing.items():
+        lib = (f"torch.mul(q, scale) {library[key]:.4f} ms (profiler device time)"
+               if key in library else f"library_ms null: {no_library[key]}")
         print(f"  {labels[key]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}), {ms / b['bound_ms']:.2f}x bound; "
-              f"library_ms null: {no_library[key]}"
-              + (f"; run M (before the redesign) {RUN_M_MS[key]} ms" if key in RUN_M_MS else ""))
+              f"{lib}"
+              + (f"; run M (before the redesign) {RUN_M_MS[key]} ms" if key in RUN_M_MS else "")
+              + (f"; run Q (before the redesign) {RUN_Q_MS[key]} ms" if key in RUN_Q_MS else ""))
+    print(f"  tiered_cost {T_w} x {P_w}: CUDA events around one call queued behind a sleep "
+          f"(device only) {static_events[0]:.4f} ms, around one call (launch included) "
+          f"{static_events[1]:.4f} ms")
     b_emb = quant_bound([tuple(emb.shape)], torch.float32)
     print(f"  int8_quantize f32 {tuple(emb.shape)} alone: {emb_q:.4f} ms, bound "
           f"{b_emb['bound_ms'] * 1e3:.2f} us, {emb_q / b_emb['bound_ms']:.2f}x bound")
@@ -1507,8 +1550,80 @@ def actuation_phase(card: str) -> dict:
         ms, plain_ms, b = timing[key]
         rows[key] = {"launches": launches[key],
                      "max_abs_err": quant_err if key != "tiered_cost" else 0.0,
-                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+                     "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library.get(key)}
     return rows
+
+
+TIER_NAN_CELLS = 64      # NaN month-to-date volumes, and as many NaN demands
+
+
+def tier_nan_checks(cum, d, tab) -> None:
+    """Hours whose month-to-date volume or demand is NaN through the three
+    tiered kernels, at the main paths' shapes: ``tiered_cost_batched`` (f64,
+    f32) and the month-to-date ``tiered_cost_scan`` (f64, f32; the year as one
+    chunk) on the (N, T) planes, the calendar entry on the first K = 24 hours
+    across a month start, the static ``tiered_cost`` on the (T, N) plane.
+    Each against its plain version on the same CUDA tensors, NaN-aware: every
+    bit (float32 batched and month-to-date at ``rtol=atol=1e-6``, as on finite
+    input); the fold kernels price a NaN hour +0.0, the static one gives NaN."""
+    from repro_torch.core.pricing import AWS_EGRESS_INTERNET
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tiered_cost import tiered_cost, tiered_cost_batched
+    from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
+
+    N, T = d.shape
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    pick = lambda: torch.randint(0, N * T, (TIER_NAN_CELLS,), generator=gen, device=DEVICE)
+    cum, d = cum.clone(), d.clone()
+    cum.view(-1)[pick()] = float("nan")
+    d.view(-1)[pick()] = float("nan")
+    nan_in = torch.isnan(cum) | torch.isnan(d)
+    zero_at = lambda got, mask: bool((got[mask] == 0).all()) and not bool(
+        torch.signbit(got[mask]).any())
+    hour = torch.arange(T, device=DEVICE)
+    reset = ((hour % 730 == 0) & (hour > 0)).to(torch.int32)
+    for dtype in (torch.float64, torch.float32):
+        c, dd, b, r = (a.to(dtype).contiguous() for a in (cum, d, *tab))
+        got, want = tiered_cost_batched(c, dd, b, r), ref.tiered_cost_batched_ref(c, dd, b, r)
+        check(not bool(torch.isnan(got).any()) and zero_at(got, nan_in),
+              f"tiered_cost_batched {dtype} on NaN hours: not +0.0")
+        cum0 = c[:, 0].contiguous()
+        cum0[::97] = float("nan")                    # NaN until the reset at hour 730
+        sc, scum = tiered_cost_scan(cum0, dd, b, r, reset)
+        wc, wcum = ref.tiered_cost_scan_ref(cum0, dd, b, r, reset)
+        check(not bool(torch.isnan(sc).any()) and zero_at(sc, torch.isnan(dd))
+              and zero_at(sc[::97, :730], torch.ones_like(sc[::97, :730], dtype=torch.bool)),
+              f"tiered_cost_scan {dtype} on NaN hours: not +0.0")
+        check(same_bits(scum, wcum), f"tiered_cost_scan {dtype} NaN rows: carry != plain")
+        if dtype == torch.float64:
+            check(same_bits(got, want), "tiered_cost_batched f64 NaN rows != plain")
+            check(same_bits(sc, wc), "tiered_cost_scan f64 NaN rows != plain")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(sc, wc, rtol=1e-6, atol=1e-6)
+    K, t0 = STREAM_K, 720
+    carry = torch.stack([cum[:, t0], torch.zeros_like(cum[:, t0])]).contiguous()
+    carry[0, ::89] = float("nan")
+    blk = d[:, t0:t0 + K].T.contiguous()
+    blk[5, ::13] = float("nan")
+    got, c_got = tiered_cost_calendar(carry, blk, *tab, t0, 730)
+    want, c_want = ref.tiered_cost_calendar_ref(carry, blk, *tab, t0, 730)
+    check(same_bits(got, want) and same_bits(c_got, c_want),
+          "tiered_cost_scan calendar entry NaN rows != plain")
+    check(not bool(torch.isnan(got).any()) and zero_at(got, torch.isnan(blk))
+          and zero_at(got[:, ::89], torch.ones_like(got[:, ::89], dtype=torch.bool)),
+          "tiered_cost_scan calendar entry on NaN hours: not +0.0")
+    ct, dt = cum.T.float().contiguous(), d.T.float().contiguous()
+    tier = AWS_EGRESS_INTERNET
+    got = tiered_cost(ct, dt, tier.bounds_gb, tier.rates)
+    want = ref.tiered_cost(ct, dt, tier.bounds_gb, tier.rates)
+    check(same_bits(got, want) and torch.equal(torch.isnan(got), nan_in.T),
+          "static tiered_cost NaN rows: != plain, or not NaN exactly on the NaN hours")
+    print(f"tiered kernels on NaN hours ({TIER_NAN_CELLS} NaN month-to-date volumes and "
+          f"{TIER_NAN_CELLS} NaN demands in {N} x {T}; NaN carries into the scan and the "
+          f"calendar): tiered_cost_batched f64/f32 and tiered_cost_scan (month-to-date "
+          f"f64/f32, calendar {N} x {K} from hour {t0}) == plain, those hours +0.0; static "
+          f"tiered_cost {T} x {N} == plain, NaN exactly there (bit for bit, NaN-aware)")
 
 
 def fsm_args(arrays, vpn, cci):
@@ -1736,6 +1851,8 @@ def main() -> int:
           f"cases, every bit == plain on the CPU, decisions == plain on the card "
           f"({time.perf_counter() - t_edge:.1f} s)")
 
+    tier_nan_checks(inputs[N_big][3], inputs[N_big][2], inputs[N_big][4])
+
     # -- the card against the CPU path the tests hold against JAX -----------
     sc = scen[SMALL[0]]
     for renew in (False, True):
@@ -1842,6 +1959,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/tiered_cost.py:48",
          **act_rows["tiered_cost"]},
     ]
+    print(f"profiler: {len(PAD_SEEN)} traces; pad kernels recorded of {TRACE_PADS}, by trace: "
+          f"{PAD_SEEN}")
     for row in kernels:   # whether the kernel launches on one of the paths driven above
         row.setdefault("main_path", True)
     print(json.dumps({"kernels": kernels}))

@@ -52,17 +52,40 @@
 // (from L2) to quantize. The division is a true IEEE division and
 // rint rounds half to even, as jnp.round does; the file is built without
 // --use_fast_math (so -prec-div=true holds) and the result is bit-equal to
-// the plain PyTorch version in both guards. Dequantize: one block per row, its
-// scale read once, the row's int8 values streamed by the block; the product
-// is one rounding, as in the plain version.
+// the plain PyTorch version in both guards.
+//
+// Design of dequantize (a bandwidth design: 1 B read and 4 or 2 B written a
+// value, nothing to compute). The leaf is one flat plane of 16-value vectors;
+// when d is a multiple of 16 no vector crosses a row, and the vector takes
+// the scale of its row (v / (d / 16)). Each thread loads a vector with one
+// 16-byte load, a warp 32 neighbouring vectors (512 B), and the warp stores
+// them as four float4 (float32) or two 16-byte vectors of 8 bfloat16 a
+// thread. A thread storing its own vector's 64 B would leave every store of
+// the warp strided 64 B apart, and on the card that ran slower than one block
+// per row; so the lanes trade the vectors' words with shuffles first, and
+// each store of the warp covers 512 contiguous bytes. The grid strides over
+// the chunks and is sized by occupancy, as quantize's, but to kDequantWaves
+// times the blocks the card holds at once: a leaf's chunks are seldom a
+// multiple of the resident warps, and with one wave the warps that take one
+// chunk more set the leaf's time (timed on the card, four waves ran faster
+// than one, and as fast as one chunk a warp). So a one-row leaf and the
+// 32000-row embedding alike fill the card, with no block per row. Any other
+// d, or q or out not 16-byte aligned, takes the scalar branch of the same
+// kernel: one value a thread, its row by division.
+// The product is one rounding, (float)q * scale, then the cast, as in the
+// plain version, so both output types are bit-equal to it (and to
+// torch.mul(q, scale) in float32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "occupancy.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 256;         // dequantize's block
+constexpr int kDequantThreads = 256;     // dequantize's block
+constexpr int kDequantWaves = 4;         // dequantize's grid: up to 4 x the blocks the card holds
 constexpr int kWarpRowsPerBlock = 8;     // quantize, a warp per row
 constexpr int kMaxVpl = 16;              // 16-byte loads a thread on the vector path
 
@@ -199,21 +222,73 @@ int8_quantize_kernel(const T* __restrict__ x, long long rows, int d, int guard, 
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-int8_dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale, int d,
-                       T* __restrict__ out) {
-  const int64_t r = blockIdx.x;
-  const float s = scale[r];
-  const int8_t* qr = q + r * d;
-  T* orow = out + r * d;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) orow[j] = from_f32<T>((float)qr[j] * s);
+// A word's 4 int8 values times s, as one 16-byte store (float32), and two
+// words' 8 values as one 16-byte store (bfloat16).
+__device__ __forceinline__ float dq1(uint32_t w, int byte, float s) {
+  return __fmul_rn((float)(int8_t)(w >> (8 * byte)), s);
+}
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ void store16(float* o, const uint32_t* w, float s) {
+  *reinterpret_cast<float4*>(o) = make_float4(dq1(w[0], 0, s), dq1(w[0], 1, s),
+                                              dq1(w[0], 2, s), dq1(w[0], 3, s));
+}
+__device__ __forceinline__ void store16(bf16* o, const uint32_t* w, float s) {
+  *reinterpret_cast<uint4*>(o) = make_uint4(
+      bf16x2(dq1(w[0], 0, s), dq1(w[0], 1, s)), bf16x2(dq1(w[0], 2, s), dq1(w[0], 3, s)),
+      bf16x2(dq1(w[1], 0, s), dq1(w[1], 1, s)), bf16x2(dq1(w[1], 2, s), dq1(w[1], 3, s)));
+}
+__device__ __forceinline__ uint32_t word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
 }
 
-int threads_for(int d) {
-  int t = 32;
-  while (t < kMaxThreads && t * 4 < d) t *= 2;   // about 4 values per thread
-  return t;
+// vec: the vector path (see the top); a warp owns a chunk of 32 vectors a step.
+template <typename T>
+__global__ void __launch_bounds__(kDequantThreads)
+int8_dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
+                       long long rows, int d, int vec, T* __restrict__ out) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  if (vec) {
+    constexpr int E = Vec<T>::kN;               // values a 16-byte store holds
+    constexpr int W = E / 4;                    // int8 words they come from
+    const int lane = threadIdx.x % 32;
+    const int vpr = d / 16;                     // vectors a row
+    const long long nv = rows * vpr;
+    const uint4* q16 = reinterpret_cast<const uint4*>(q);
+    for (long long c = tid / 32; c * 32 < nv; c += stride / 32) {   // warp-uniform
+      const long long v = c * 32 + lane;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      float s = 0.f;
+      if (v < nv) {
+        u = __ldg(q16 + v);
+        s = __ldg(scale + v / vpr);
+      }
+      // Store m of the chunk (lane + 32 j) holds words m * W .. of vector
+      // m * W / 4, which lane m * W / 4 loaded: fetch them with shuffles, so
+      // that each store of the warp covers 512 contiguous bytes.
+#pragma unroll
+      for (int j = 0; j < 16 / E; ++j) {
+        const int m = 32 * j + lane;
+        const int src = m * W / 4;
+        const uint4 us = make_uint4(__shfl_sync(0xffffffffu, u.x, src),
+                                    __shfl_sync(0xffffffffu, u.y, src),
+                                    __shfl_sync(0xffffffffu, u.z, src),
+                                    __shfl_sync(0xffffffffu, u.w, src));
+        const float ss = __shfl_sync(0xffffffffu, s, src);
+        uint32_t w[W];
+#pragma unroll
+        for (int i = 0; i < W; ++i) w[i] = word(us, (m * W + i) % 4);
+        if (c * 32 + src < nv) store16(out + (c * 32 * 16 + (long long)m * E), w, ss);
+      }
+    }
+  } else {
+    const long long n = rows * d;
+    for (long long i = tid; i < n; i += stride)
+      out[i] = from_f32<T>(__fmul_rn((float)q[i], __ldg(scale + i / d)));
+  }
 }
 
 bool aligned(const void* p, unsigned bytes) { return ((uintptr_t)p & (bytes - 1)) == 0; }
@@ -224,17 +299,7 @@ int launch_quantize(const T* x, long long rows, int d, int guard, int vec, int8_
   constexpr int kThreads = TPR == 32 ? 32 * kWarpRowsPerBlock : TPR;
   constexpr int kTeams = kThreads / TPR;
   auto kernel = int8_quantize_kernel<T, TPR, VPL>;
-  // Blocks that fit the card at once, asked once per instantiation (the grid
-  // strides over the rows, so any count is correct).
-  static const long long full = [=] {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
-            cudaSuccess)
-      return 1024LL;
-    return (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-  }();
+  static const long long full = full_grid(kernel, kThreads);
   const long long need = (rows + kTeams - 1) / kTeams;
   const unsigned grid = (unsigned)(need < full ? need : full);
   kernel<<<grid, kThreads, 0, stream>>>(x, rows, d, guard, vec, q, scale);
@@ -280,8 +345,14 @@ template <typename T>
 int dequantize(const int8_t* q, const float* scale, long long rows, int d, T* out,
                cudaStream_t stream) {
   if (rows == 0) return (int)cudaSuccess;
-  if (rows > 0x7fffffffLL || d < 1) return (int)cudaErrorInvalidValue;
-  int8_dequantize_kernel<T><<<(unsigned)rows, threads_for(d), 0, stream>>>(q, scale, d, out);
+  if (rows < 0 || d < 1) return (int)cudaErrorInvalidValue;
+  auto kernel = int8_dequantize_kernel<T>;
+  static const long long full = kDequantWaves * full_grid(kernel, kDequantThreads);
+  const int vec = d % 16 == 0 && aligned(q, 16) && aligned(out, 16);
+  const long long work = vec ? (rows * (d / 16) + 31) / 32 * 32 : rows * d;  // lanes or values
+  const long long need = (work + kDequantThreads - 1) / kDequantThreads;
+  const unsigned grid = (unsigned)(need < full ? need : full);
+  kernel<<<grid, kDequantThreads, 0, stream>>>(q, scale, rows, d, vec, out);
   return (int)cudaGetLastError();
 }
 

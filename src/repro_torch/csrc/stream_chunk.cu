@@ -28,10 +28,9 @@
 // -fmad=false, so every output equals the plain version's bit for bit. The
 // fold is tier_fold.cuh's (tier::fold_with, the arithmetic of the tier::fold
 // that tiered_cost_scan.cu runs) and the FSM hour fsm_step.cuh's triggers and
-// step (fsm_scan.cu's). The fold takes fmin/fmax, which drop a NaN where
-// torch.minimum/maximum keep it; in the plain version a NaN hi = lo + d makes
-// every tier segment NaN and so every term 0, and this kernel gives that
-// hour's transfer +0.0 without the fold.
+// step (fsm_scan.cu's). A NaN hi = lo + d makes every tier segment NaN and so
+// every term 0, in the plain version and in the fold alike (its min/max keep
+// NaN): the hour's transfer is +0.0.
 //
 // What bounds it on an H100: at the runtime's chunk (2048 rows, K = 24) it
 // moves ~4.8 MB (the 1.2-MB block in, the 3.2-MB result out, tables and
@@ -223,11 +222,8 @@ stream_chunk_kernel(const double* __restrict__ demand,      // (K, M)
     // (b) the tier fold and the cost planes
     if (mine) {
       const double lo = sm.lo[kk][r], d = sm.d[kk][r];
-      const double transfer =
-          isnan(__dadd_rn(lo, d))
-              ? 0.0
-              : tier::fold_with(lo, d, [tb](int t) { return tb[t]; },
-                                [tr](int t) { return tr[t]; }, Kt);
+      const double transfer = tier::fold_with(lo, d, [tb](int t) { return tb[t]; },
+                                              [tr](int t) { return tr[t]; }, Kt);
       const double v = __dadd_rn(lvpn, transfer);
       const double c = __dadd_rn(lease, __dmul_rn(cc, sm.dc[kk][r]));
       sm.vpn[kk][r] = v;

@@ -8,6 +8,14 @@
 // the seg > 0 guard of the plain version's where(seg > 0, seg * rate, 0). In
 // float64 the result equals repro_torch.core.costmodel.tiered_marginal_cost_tables
 // bit for bit.
+//
+// NaN: min_ and max_ keep a NaN, as torch.minimum/maximum and jnp.minimum/maximum
+// do (fmin/fmax drop it). A NaN lo or d makes hi NaN, so every segment is NaN,
+// fails seg > 0 and adds +0.0: the hour is priced +0.0, as the plain version
+// and the JAX function price it. On other input the float64 forms are
+// fmin/fmax; the float32 ones may differ from fminf/fmaxf at most in the sign
+// of the zero they return for a +0 and a -0, and a zero segment fails seg > 0
+// whatever its sign, so the fold keeps every bit it had.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,10 +28,24 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double min_(double a, double b) { return fmin(a, b); }
-__device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
-__device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
+// NaN if either operand is NaN, else fmin/fmax. float32 has the PTX .NaN
+// modifier; float64 has none, so it selects.
+__device__ __forceinline__ double min_(double a, double b) {
+  return isnan(a) ? a : isnan(b) ? b : fmin(a, b);
+}
+__device__ __forceinline__ double max_(double a, double b) {
+  return isnan(a) ? a : isnan(b) ? b : fmax(a, b);
+}
+__device__ __forceinline__ float min_(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float max_(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 // Cost of adding volume d to a month that already holds lo, against one
 // row's K (bound, rate) pairs, bound(k) and rate(k): the one definition of the

@@ -26,6 +26,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "occupancy.cuh"
 #include "tier_fold.cuh"
 
 namespace {
@@ -68,7 +69,23 @@ int launch(const F* month_cum, const F* demand, const F* bounds, const F* rates,
 // 215 MB at 8760 x 2048, 64 us at 3.35 TB/s). The fold is the Pallas
 // kernel's left fold, total = total + clip(seg, 0) * rate, each step rounded
 // (_rn intrinsics, -fmad=false), so the result equals the plain version
-// repro_torch.kernels.ref.tiered_cost bit for bit.
+// repro_torch.kernels.ref.tiered_cost bit for bit. Its min, max and clip keep
+// a NaN (tier::min_/max_), as jnp.clip and the plain version's clamp_min do,
+// so an hour whose month_cum or demand is NaN comes out NaN, as in the Pallas
+// kernel. On finite input a clip may return a zero of the other sign than
+// fmaxf did; it is added to a sum that starts at +0, which no such zero
+// changes.
+//
+// Design: the plane is flat (T * P elements; the fold is elementwise). Each
+// thread loads four elements of month_cum and of demand with one float4 load
+// each and stores four costs with one, neighbouring threads on neighbouring
+// 16-byte vectors. The grid strides over the plane and is sized by occupancy,
+// to kStaticWaves times the blocks the card holds at once: with one wave the
+// threads that take one vector more set the time, and two vectors in flight a
+// thread did not make up for it (timed on the card, four waves of one vector
+// a step ran fastest). A total that is not a multiple of 4 leaves a scalar
+// tail; a pointer that is not 16-byte aligned sends the whole plane through
+// the scalar loop.
 constexpr int kMaxTiers = 8;
 
 struct TierTable {           // by value from the wrapper (a ctypes.Structure)
@@ -79,25 +96,49 @@ struct TierTable {           // by value from the wrapper (a ctypes.Structure)
 
 namespace {
 
-__global__ void tiered_cost_static_kernel(const float* __restrict__ month_cum,
-                                          const float* __restrict__ demand, int64_t total,
-                                          TierTable tab, float* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const float lo = month_cum[i];
-  const float hi = tier::add_rn(lo, demand[i]);
+constexpr int kStaticThreads = 256;
+constexpr int kStaticWaves = 4;           // the grid: up to 4 x the blocks the card holds
+
+__device__ __forceinline__ float static_fold(float lo, float d, const TierTable& tab) {
+  const float hi = tier::add_rn(lo, d);
   float acc = 0.f;
   float prev = 0.f;
 #pragma unroll
   for (int k = 0; k < kMaxTiers; ++k) {      // unrolled: the table stays in registers
     if (k < tab.K) {
-      const float seg = fmaxf(tier::sub_rn(fminf(hi, tab.bounds[k]), fmaxf(lo, prev)), 0.f);
+      const float seg = tier::max_(
+          tier::sub_rn(tier::min_(hi, tab.bounds[k]), tier::max_(lo, prev)), 0.f);
       acc = tier::add_rn(acc, tier::mul_rn(seg, tab.rates[k]));
       prev = tab.bounds[k];
     }
   }
-  out[i] = acc;
+  return acc;
 }
+
+__global__ void __launch_bounds__(kStaticThreads)
+tiered_cost_static_kernel(const float* __restrict__ month_cum,
+                          const float* __restrict__ demand, long long total, int vec,
+                          const __grid_constant__ TierTable tab, float* __restrict__ out) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long scalar_from = 0;
+  if (vec) {
+    const long long nv = total / 4;
+    const float4* c4 = reinterpret_cast<const float4*>(month_cum);
+    const float4* d4 = reinterpret_cast<const float4*>(demand);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long long v = tid; v < nv; v += stride) {
+      const float4 c = __ldg(c4 + v), d = __ldg(d4 + v);
+      o4[v] = make_float4(static_fold(c.x, d.x, tab), static_fold(c.y, d.y, tab),
+                          static_fold(c.z, d.z, tab), static_fold(c.w, d.w, tab));
+    }
+    scalar_from = 4 * nv;
+  }
+  for (long long i = scalar_from + tid; i < total; i += stride)
+    out[i] = static_fold(month_cum[i], demand[i], tab);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -105,12 +146,15 @@ extern "C" int tiered_cost_static_f32(const float* month_cum, const float* deman
                                       long long total, TierTable tab, float* out,
                                       void* stream) {
   if (total == 0) return (int)cudaSuccess;
-  if (tab.K < 0 || tab.K > kMaxTiers) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tiered_cost_static_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      month_cum, demand, total, tab, out);
+  if (total < 0 || tab.K < 0 || tab.K > kMaxTiers) return (int)cudaErrorInvalidValue;
+  static const long long full =
+      kStaticWaves * full_grid(tiered_cost_static_kernel, kStaticThreads);
+  const int vec = aligned16(month_cum) && aligned16(demand) && aligned16(out);
+  const long long work = vec ? (total + 3) / 4 : total;
+  const long long need = (work + kStaticThreads - 1) / kStaticThreads;
+  const unsigned grid = (unsigned)(need < full ? need : full);
+  tiered_cost_static_kernel<<<grid, kStaticThreads, 0, (cudaStream_t)stream>>>(
+      month_cum, demand, total, vec, tab, out);
   return (int)cudaGetLastError();
 }
 

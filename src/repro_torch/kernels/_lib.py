@@ -30,7 +30,7 @@ SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk
 #: The float64 sources, held bit for bit against their plain versions.
 EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu")
 #: Headers the sources include; part of the build hash.
-HEADERS = ("tier_fold.cuh", "fsm_step.cuh")
+HEADERS = ("tier_fold.cuh", "fsm_step.cuh", "occupancy.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 NVCC_FLAGS = (

@@ -10,8 +10,18 @@ float64 (the fleet engine's default path; bit-equal to
 
 The static-table entry :func:`tiered_cost` is the port of
 :func:`repro.kernels.tiered_cost.tiered_cost`: a (T, P) float32 plane
-priced against one tier table passed by value (plain version
-:func:`repro_torch.kernels.ref.tiered_cost`).
+priced against one tier table passed by value, as a flat plane of float4
+vectors (plain version :func:`repro_torch.kernels.ref.tiered_cost`).
+
+NaN: the fold's min and max keep a NaN, as ``torch.minimum``/``maximum``
+and ``jnp.minimum``/``maximum`` do. So an hour whose month-to-date volume or
+demand is NaN is priced +0.0 by :func:`tiered_cost_batched` (every tier
+segment is NaN and fails the ``seg > 0`` guard), as by
+:func:`repro_torch.core.costmodel.tiered_marginal_cost_tables` and the JAX
+function of that name; and NaN by :func:`tiered_cost`, whose clip keeps it
+and which has no such guard, as the Pallas ``_tiered_kernel``. (The Pallas
+``_tiered_batched_kernel`` sums without the guard and gives NaN there; the
+port follows the XLA function the JAX fleet engine prices with.)
 
 These wrappers take CUDA tensors only; :mod:`repro_torch.kernels.ops`
 dispatches CPU tensors to the plain version.

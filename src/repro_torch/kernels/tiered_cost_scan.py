@@ -13,6 +13,11 @@ the chunk's hours with the carry in a register, with two entry points:
   planes; float64. The two forms are not bit-equal, and only this one keeps
   the runtime bit-equal to ``plan_fleet``.
 
+Both price an hour whose carried volume or demand is NaN +0.0, as their
+plain versions and the XLA ``tiered_cost_scan_ref`` do (the tier fold's min
+and max keep the NaN, and every NaN segment fails ``seg > 0``); the Pallas
+kernel, which sums without that guard, gives NaN there.
+
 Both count as launches of ``tiered_cost_scan``. Their plain PyTorch versions
 are :func:`repro_torch.kernels.ref.tiered_cost_scan_ref` and
 :func:`~repro_torch.kernels.ref.tiered_cost_calendar_ref`. These wrappers

@@ -319,14 +319,16 @@ def _head_rows(arrays, n):
 
 def _same_bits(got, want):
     """Equal shapes and types, NaN in the same places, every bit equal
-    elsewhere (torch.equal is False wherever both hold NaN)."""
+    elsewhere, signed zeros included (torch.equal is False wherever both hold
+    NaN)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         return False
-    if got.dtype != torch.float64:
+    as_int = {torch.float64: torch.int64, torch.float32: torch.int32}.get(got.dtype)
+    if as_int is None:
         return torch.equal(got, want)
     ng, nw = torch.isnan(got), torch.isnan(want)
-    return (torch.equal(ng, nw) and torch.equal(got.view(torch.int64).masked_fill(ng, 0),
-                                                want.view(torch.int64).masked_fill(nw, 0)))
+    return (torch.equal(ng, nw) and torch.equal(got.view(as_int).masked_fill(ng, 0),
+                                                want.view(as_int).masked_fill(nw, 0)))
 
 
 STREAM_CHUNK_CASES = ["chained", "endogenous", "k1", "past_tile_and_ring", "ragged_rows",
@@ -724,3 +726,134 @@ def test_compressed_sync_on_nccl_matches_the_plain_path(nccl_pod_mesh, cuda_devi
             deq = ref.int8_dequantize(q, s).view(u.shape)
             assert torch.equal(o, deq) and torch.equal(ne, u - deq)
         err = new_err
+
+
+# ---------------------------------------------------------------------------
+# NaN in the tier fold; the flat-plane dequantize and static tiered cost
+# ---------------------------------------------------------------------------
+
+def _nan_tiers(dtype, device):
+    """Seeded (64, 300) planes with a NaN month-to-date volume, a NaN demand,
+    both in one hour and a NaN demand in a row's first hour."""
+    cum, d, b, r = (_t(a, device) for a in _tiers(9, 64, 300, dtype))
+    cum[0, 3] = float("nan")
+    d[1, 5] = float("nan")
+    cum[2, 7], d[2, 7] = float("nan"), float("nan")
+    d[3, 0] = float("nan")
+    return cum, d, b, r
+
+
+TIER_NAN_KINDS = ["batched-f64", "batched-f32", "scan-f64", "scan-f32", "calendar", "static"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", TIER_NAN_KINDS)
+def test_tiered_kernels_on_nan_hours_match_plain(cuda_device, kind):
+    """Hours whose demand or month-to-date volume is NaN: the fold kernels
+    (``tiered_cost_batched``, both forms of ``tiered_cost_scan``) price them
+    +0.0 and the static ``tiered_cost`` gives NaN, as their plain versions on
+    the same CUDA tensors; every other bit equal as on finite input (float32
+    batched and month-to-date at ``rtol=atol=1e-6``, as their finite tests)."""
+    dtype = np.float32 if kind.endswith("f32") or kind == "static" else np.float64
+    cum, d, b, r = _nan_tiers(dtype, cuda_device)
+    name = "tiered_cost" if kind == "static" else (
+        "tiered_cost_batched" if kind.startswith("batched") else "tiered_cost_scan")
+    before = ops.LAUNCHES[name]
+    if kind.startswith("batched"):
+        got, want = ops.tiered_cost_batched(cum, d, b, r), ref.tiered_cost_batched_ref(cum, d, b, r)
+        nan_at = torch.isnan(cum) | torch.isnan(d)
+    elif kind.startswith("scan"):
+        reset = (torch.arange(300, device=cuda_device) % 100 == 50).to(torch.int32)
+        cum0 = cum[:, 0].contiguous()
+        cum0[5] = float("nan")                            # a NaN carry in
+        got, cum_got = ops.tiered_cost_scan(cum0, d, b, r, reset)
+        want, cum_want = ref.tiered_cost_scan_ref(cum0, d, b, r, reset)
+        assert _same_bits(cum_got, cum_want)
+        nan_at = torch.zeros_like(got, dtype=torch.bool)  # NaN carried to the reset at 50
+        nan_at[1, 5:50] = nan_at[2, 7:50] = nan_at[3, :50] = nan_at[5, :50] = True
+    elif kind == "calendar":
+        carry = torch.stack([cum[:, 0], torch.zeros_like(cum[:, 0])]).contiguous()
+        carry[0, 4] = float("nan")
+        dT = d.T.contiguous()
+        got, c_got = ops.tiered_cost_calendar(carry, dT, b, r, 700, 730)
+        want, c_want = ref.tiered_cost_calendar_ref(carry, dT, b, r, 700, 730)
+        assert _same_bits(c_got, c_want)
+        got, want = got.T, want.T
+        nan_at = torch.zeros_like(got, dtype=torch.bool)  # a NaN prefix stays NaN
+        nan_at[1, 5:] = nan_at[2, 7:] = nan_at[3] = nan_at[4] = True
+    else:
+        tier = AWS_EGRESS_INTERNET
+        cum, d = cum.T.contiguous(), d.T.contiguous()
+        got, want = ops.tiered_cost(cum, d, tier.bounds_gb, tier.rates), ref.tiered_cost(
+            cum, d, tier.bounds_gb, tier.rates)
+        nan_at = torch.isnan(cum) | torch.isnan(d)
+    assert ops.LAUNCHES[name] == before + 1
+    assert bool(nan_at.any())
+    if kind == "static":
+        assert torch.equal(torch.isnan(got), nan_at) and _same_bits(got, want)
+        return
+    assert not bool(torch.isnan(got).any()) and not bool(torch.isnan(want).any())
+    assert bool((got[nan_at] == 0).all()) and not bool(torch.signbit(got[nan_at]).any())
+    if dtype == np.float64:
+        assert _same_bits(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+DEQUANT_D = [1, 15, 16, 256, 2048, 5632, 32000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", DEQUANT_D)
+def test_int8_dequantize_flat_plane_bit_equal_to_plain(cuda_device, d, odt):
+    """The flat-plane dequantize on one row and a ragged row count, on q
+    contiguous (the vector path where 16 divides d) and on a view of q one
+    byte past a 16-byte boundary (the scalar branch), with a NaN and an inf
+    scale: bit-equal to ``ref.int8_dequantize`` and, in float32, to
+    ``torch.mul(q, scale)``; one launch a call."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    for n in (1, 37):
+        q = torch.randint(-127, 128, (n, d), generator=g, dtype=torch.int8).to(cuda_device)
+        s = (torch.rand((n, 1), generator=g) * 1e-2).to(cuda_device)
+        if n > 2:
+            s[0, 0], s[1, 0] = float("nan"), float("inf")
+        buf = torch.zeros(n * d + 1, dtype=torch.int8, device=cuda_device)
+        view = buf[1:].view(n, d)
+        view.copy_(q)
+        assert view.data_ptr() % 16 != 0
+        for a in (q, view):
+            before = ops.LAUNCHES["int8_dequantize"]
+            got = ops.int8_dequantize(a, s, odt)
+            assert ops.LAUNCHES["int8_dequantize"] == before + 1
+            want = ref.int8_dequantize(a, s, odt)
+            assert got.dtype == odt and _same(got.float(), want.float())
+            if odt == torch.float32:
+                assert _same_bits(got, torch.mul(a, s)) and _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 5), (1, 4099), (8759, 2047)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tiered_cost_kernel_tails_and_misaligned_views(cuda_device, shape):
+    """The static kernel's scalar tail (T·P % 4 != 0) and its scalar loop (a
+    view one float past a 16-byte boundary), on both tier tables (infinite
+    last bounds): bit-equal to the plain version."""
+    from repro_torch.core.planner import dci_scenario
+
+    T, P = shape
+    assert (T * P) % 4 != 0
+    g = torch.Generator(device="cpu").manual_seed(T + P)
+    d = (torch.rand(shape, generator=g) * 500.0).to(cuda_device)
+    cum = torch.cumsum(d, dim=0) - d
+    buf = torch.zeros((2, T * P + 1), device=cuda_device)
+    cv, dv = buf[0, 1:].view(T, P), buf[1, 1:].view(T, P)
+    cv.copy_(cum)
+    dv.copy_(d)
+    assert cv.data_ptr() % 16 != 0 and dv.data_ptr() % 16 != 0
+    for tier in (dci_scenario().vpn_tier, AWS_EGRESS_INTERNET):
+        for c, dd in ((cum, d), (cv, dv)):
+            before = ops.LAUNCHES["tiered_cost"]
+            got = ops.tiered_cost(c, dd, tier.bounds_gb, tier.rates)
+            assert ops.LAUNCHES["tiered_cost"] == before + 1
+            assert _same_bits(got, ref.tiered_cost(c, dd, tier.bounds_gb, tier.rates))

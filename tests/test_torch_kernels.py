@@ -697,3 +697,174 @@ def test_actuation_kernel_dispatch_refuses_other_devices():
                             torch.empty((4, 1), device="meta"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
         ops.tiered_cost(x, x, (1.0, float("inf")), (0.1, 0.05))
+
+
+# ---------------------------------------------------------------------------
+# NaN in the tier fold, and the dequantize yardstick
+# ---------------------------------------------------------------------------
+
+def _same_nan(got: np.ndarray, want: np.ndarray) -> bool:
+    """NaN in the same places and every bit equal elsewhere (``np.array_equal``
+    and ``torch.equal`` are False wherever both hold NaN)."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and np.array_equal(np.isnan(got), nan)
+            and np.array_equal(got[~nan].view(np.uint8), want[~nan].view(np.uint8)))
+
+
+def _nan_cells(cum, d):
+    """NaN month-to-date volumes and NaN demands in seeded (n, T) planes: one
+    of each alone, both in one cell, and a NaN demand in the first hour."""
+    cum, d = cum.copy(), d.copy()
+    cum[0, 3] = np.nan
+    d[1, 5] = np.nan
+    cum[2, 7], d[2, 7] = np.nan, np.nan
+    d[3, 0] = np.nan
+    return cum, d, [(0, 3), (1, 5), (2, 7), (3, 0)]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_tier_fold_plain_prices_nan_hours_zero_as_jax(dtype):
+    """The port's ``tiered_marginal_cost_tables`` on hours with a NaN demand
+    or month-to-date volume: every bit equal to the JAX function of that
+    name (NaN-aware), and those hours priced +0.0 (every tier segment is NaN
+    and fails ``seg > 0``). The Pallas ``tiered_cost_batched`` in interpret
+    mode sums without that guard: it gives NaN on those hours and agrees at
+    ``rtol=atol=1e-6`` elsewhere (float32, its only type)."""
+    from repro.core.costmodel import tiered_marginal_cost_tables as jtables
+
+    from repro_torch.core.costmodel import tiered_marginal_cost_tables
+
+    cum, d, b, r = seeded_tiers(21, 8, 128, dtype)
+    cum, d, cells = _nan_cells(cum, d)
+    got = tiered_marginal_cost_tables(*(_t(a) for a in (cum, d, b, r))).numpy()
+    with jax.enable_x64(dtype == np.float64):
+        want = np.asarray(jtables(*(jnp.asarray(a) for a in (cum, d, b, r))))
+    assert got.dtype == dtype and _same_nan(got, want)
+    assert not np.isnan(got).any()
+    for n, t in cells:
+        assert got[n, t] == 0.0 and not np.signbit(got[n, t])
+    if dtype == np.float32:
+        pallas = np.asarray(tiered_cost_batched(*(jnp.asarray(a) for a in (cum, d, b, r)),
+                                                block_t=128, interpret=True))
+        nan = np.isnan(pallas)
+        assert sorted(zip(*np.nonzero(nan))) == sorted(cells)
+        np.testing.assert_allclose(got[~nan], pallas[~nan], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_tiered_scan_plain_prices_nan_hours_zero_as_jax(dtype):
+    """Month-to-date form on rows with a NaN carried volume (zeroed at the
+    month start mid-chunk) and NaN demands: every bit of costs and carry
+    equal to the XLA ``tiered_cost_scan_ref`` (NaN-aware), NaN hours +0.0.
+    The Pallas ``tiered_cost_scan`` in interpret mode (float32) gives NaN on
+    those hours and agrees with the port elsewhere at ``tests/test_kernels.py``'s
+    ``rtol=1e-5, atol=1e-4``; its carry at ``rtol=1e-6``."""
+    from repro.kernels.tiered_cost import tiered_cost_scan, tiered_cost_scan_ref
+
+    cum0, d, b, r, reset = _scan_inputs(24, dtype)
+    cum0[0] = np.nan                       # NaN until the reset at hour 12
+    d[1, 3] = np.nan                       # NaN carry from hour 4 to the reset
+    d[2, 20] = np.nan                      # NaN past the reset: carried to the end
+    got, cum_got = ops.tiered_cost_scan(*(_t(a) for a in (cum0, d, b, r, reset)))
+    with jax.enable_x64(dtype == np.float64):
+        want, cum_want = tiered_cost_scan_ref(*(jnp.asarray(a) for a in (cum0, d, b, r, reset)))
+        want, cum_want = np.asarray(want), np.asarray(cum_want)
+    assert _same_nan(got.numpy(), want) and _same_nan(cum_got.numpy(), cum_want)
+    g = got.numpy()
+    nan_hours = ([(0, k) for k in range(12)] + [(1, k) for k in range(3, 12)]
+                 + [(2, k) for k in range(20, 24)])
+    for n, k in nan_hours:
+        assert g[n, k] == 0.0 and not np.signbit(g[n, k])
+    c = cum_got.numpy()
+    assert not np.isnan(g).any() and np.isnan(c[2]) and not np.isnan(c[:2]).any()
+    if dtype == np.float32:
+        pallas, cum_pallas = tiered_cost_scan(*(jnp.asarray(a) for a in (cum0, d, b, r, reset)),
+                                              interpret=True)
+        pallas = np.asarray(pallas)
+        nan = np.isnan(pallas)
+        assert sorted(zip(*np.nonzero(nan))) == sorted(nan_hours)
+        np.testing.assert_allclose(g[~nan], pallas[~nan], rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(cum_got.numpy(), np.asarray(cum_pallas), rtol=1e-6)
+
+
+def test_tiered_calendar_plain_prices_nan_hours_zero_as_jax():
+    """The runtime's calendar form on rows with a NaN carried prefix and NaN
+    demands: every bit equal (NaN-aware) to the JAX ``tiered_marginal_cost_tables``
+    over the same month-to-date volumes (the JAX runtime's calendar, replayed
+    in numpy float64: one add and one subtract an hour, as its scan), with
+    the carry; every hour whose volume is NaN priced +0.0."""
+    from repro.core.costmodel import tiered_marginal_cost_tables as jtables
+
+    _, d, b, r = seeded_tiers(22, 6, 60)
+    d = d.T.copy()                                     # (K, N), hour-major
+    d[10, 1] = np.nan
+    carry = np.zeros((2, 6))
+    carry[0] = np.linspace(0.0, 5e4, 6)
+    carry[0, 0] = np.nan                               # NaN prefix
+    t0, hpm = 20, 48                                   # a month starts at hour 48
+    got, carry_got = ops.tiered_cost_calendar(_t(carry), _t(d), _t(b), _t(r), t0, hpm)
+    dcum, month = carry[0].copy(), carry[1].copy()
+    lo = np.empty_like(d)
+    for k in range(d.shape[0]):
+        if (t0 + k) % hpm == 0:
+            month = dcum.copy()
+        lo[k] = dcum - month
+        dcum = dcum + d[k]
+    with jax.enable_x64():
+        want = np.asarray(jtables(jnp.asarray(lo.T), jnp.asarray(d.T), jnp.asarray(b),
+                                  jnp.asarray(r))).T
+    assert _same_nan(got.numpy(), want)
+    assert _same_nan(carry_got.numpy(), np.stack([dcum, month]))
+    nan = np.isnan(lo) | np.isnan(d)
+    assert nan[:, 0].all() and nan[10:, 1].all() and not nan[:, 2:].any()
+    assert (got.numpy()[nan] == 0.0).all() and not np.signbit(got.numpy()[nan]).any()
+
+
+def test_tiered_cost_static_plain_is_nan_on_nan_hours_as_pallas():
+    """The static-table plain version on hours with a NaN demand or
+    month-to-date volume: NaN exactly where the Pallas ``_tiered_kernel`` in
+    interpret mode and the JAX oracle are NaN (its clip keeps the NaN and it
+    has no ``seg > 0`` guard), and ``rtol=atol=1e-6`` elsewhere, as
+    ``test_tiered_cost_plain_matches_pallas_and_jax_ref``."""
+    from repro.core.pricing import AWS_EGRESS_INTERNET as tier
+    from repro.kernels import ref as jref
+    from repro.kernels.tiered_cost import tiered_cost as jtiered_cost
+
+    rng = np.random.default_rng(23)
+    d = rng.uniform(0, 500, size=(512, 4)).astype(np.float32)
+    cum = (np.cumsum(d, axis=0) - d).astype(np.float32)
+    cum, d, cells = _nan_cells(cum.T, d.T)
+    cum, d = np.ascontiguousarray(cum.T), np.ascontiguousarray(d.T)
+    got = ops.tiered_cost(_t(cum), _t(d), tier.bounds_gb, tier.rates).numpy()
+    pallas = np.asarray(jtiered_cost(jnp.asarray(cum), jnp.asarray(d), tier.bounds_gb,
+                                     tier.rates, interpret=True))
+    b32 = jnp.asarray([b if np.isfinite(b) else 1e30 for b in tier.bounds_gb], jnp.float32)
+    oracle = np.asarray(jref.tiered_cost(jnp.asarray(cum), jnp.asarray(d), b32,
+                                         jnp.asarray(tier.rates, jnp.float32)))
+    nan = np.isnan(got)
+    assert sorted(zip(*np.nonzero(nan))) == sorted((t, n) for n, t in cells)
+    for other in (pallas, oracle):
+        assert np.array_equal(np.isnan(other), nan)
+        np.testing.assert_allclose(got[~nan], other[~nan], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(1, 2048), (17, 33), (256, 5632)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_int8_dequantize_plain_is_one_torch_mul(shape):
+    """``torch.mul(q, scale)`` on int8 q (N, d) and float32 scale (N, 1)
+    promotes to float32 in one call and equals ``ref.int8_dequantize`` bit
+    for bit, NaN and inf scales included: the library call the card's
+    ``int8_dequantize`` is timed against."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(24)
+    q = torch.from_numpy(rng.integers(-127, 128, size=shape, dtype=np.int8))
+    s = torch.from_numpy(rng.uniform(1e-6, 1e-2, size=(shape[0], 1)).astype(np.float32))
+    if shape[0] > 2:
+        s[0, 0], s[1, 0] = float("nan"), float("inf")
+    got = torch.mul(q, s)
+    want = ref.int8_dequantize(q, s)
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert _same_nan(got.numpy(), want.numpy())
