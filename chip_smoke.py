@@ -107,7 +107,28 @@ without printing a result):
    profiler device time (``int8_quantize`` beside its run-M time,
    ``int8_dequantize`` beside ``torch.mul`` and its run-Q time, the static
    ``tiered_cost`` beside its run-Q time and CUDA events), and ``feed_hour``;
-10. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+10. the topology path (:func:`topology_phase`): with every launch count
+    at 0, ``plan_topology`` of ``build_topology_scenario(2048,
+    n_facilities=32, ports_per_facility=4, reach=2)`` over 8760 hours (128
+    ports) with ``routing=None`` (``optimize_routing`` on the host); it
+    fails unless ``tiered_cost_batched``, ``leg_segment_sum`` and
+    ``fsm_scan`` launched, unless ``x``/``state`` equal
+    ``plan_topology_reference`` (toggle cost ``rtol=1e-9``) and the CPU
+    plan (costs ``rtol=1e-9``); the routing padded by 64 legs must give
+    every output bit of the unpadded plan, and the identity topology of the
+    2048-link fleet every bit of ``plan_fleet``; ``leg_segment_sum`` is held
+    against its plain version bit for bit at P = 2048, T = 8760, M = 128, E
+    = 6144 (1-, 2- and 3-hop rows, padding legs, NaN and inf in row 0, -0.0
+    sources) and at the main path's inputs; at 1200 hours the relay and
+    multicast savings (as ``build_topology_report`` computes them) must
+    equal the CPU's within ``rtol=1e-12`` and read 0.3785 and 0.1101,
+    ``refine_routing`` from the 1-hop routing must apply a relay move, and
+    ``replay_plan_topology`` of one segment must equal ``plan_topology``
+    bit for bit and of two (direct, then the relay from hour 600) the CPU;
+    then it times the kernel (profiler device time) beside its bound, its
+    plain version and ``index_add_`` on both planes, ``plan_topology`` from
+    arrays and from the spec, and a device breakdown of one plan;
+11. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -1712,6 +1733,250 @@ def fsm_edge_checks() -> int:
     return cases
 
 
+# -- the topology slice -------------------------------------------------------
+TOPO_PAIRS = 2048                       # plan_fleet's 2048 x 8760 year ...
+TOPO_KW = dict(n_facilities=32, ports_per_facility=4, reach=2)   # ... on 128 shared ports
+TOPO_HOURS = 8760
+LEG_CHECK = (2048, 8760, 128, 6144)     # P, T, M, E of the kernel-vs-plain check
+SAVINGS_HOURS = 1200                    # relay and multicast scenarios
+SAVINGS_WANT = {"relay_savings": 0.3785, "tree_sharing_savings": 0.1101}
+RELAY_SWITCH = 600                      # replay: direct, then the relay from this hour
+
+
+def leg_segment_bound(P: int, T: int, M: int, E: int, planes: int) -> dict:
+    # source planes, weights and the leg list (leg_pair, order, start) read
+    # once, the port planes written once; a product and an add a leg and hour.
+    bytes_moved = planes * (P * T + M * T + E) * 8 + (2 * E + M + 1) * 4
+    ops = planes * E * T * 2
+    return bound(bytes_moved, ops, torch.float64)
+
+
+def replan_cost(topo, routing, demand, device) -> float:
+    """Reactive full replan of ``routing`` on ``topo``: the baseline of the
+    savings ``repro.fleet.report.build_topology_report`` computes."""
+    from repro_torch.fleet import plan_topology, reactive_policy
+
+    arrays = topo.stack(routing, torch.float64, device)
+    out = plan_topology(arrays, demand, policy=reactive_policy(arrays.toggle),
+                        hours_per_month=topo.hours_per_month, device=device)
+    return float(out["toggle_cost"].sum())
+
+
+def savings(relay, mcast, device) -> dict:
+    """``relay_savings`` and ``tree_sharing_savings`` of the reactive plans,
+    as ``build_topology_report``'s totals compute them."""
+    from repro_torch.fleet import multicast_unicast_expansion, optimize_routing, plan_topology
+
+    plan = plan_topology(relay.topo, relay.demand, device=device)
+    one_hop = optimize_routing(relay.topo, relay.demand, max_hops=1)
+    relay_s = 1.0 - float(plan["toggle_cost"].sum()) / replan_cost(
+        relay.topo, one_hop, relay.demand, device)
+    plan = plan_topology(mcast.topo, mcast.demand, device=device)
+    etopo, row_map = multicast_unicast_expansion(mcast.topo)
+    d_uni = mcast.demand[row_map]
+    uni = optimize_routing(etopo, d_uni, max_hops=1)
+    tree_s = 1.0 - float(plan["toggle_cost"].sum()) / replan_cost(etopo, uni, d_uni, device)
+    return {"relay_savings": relay_s, "tree_sharing_savings": tree_s}
+
+
+def leg_check(P: int, T: int, M: int, E: int) -> None:
+    """``leg_segment_sum`` against its plain version on the card, every bit,
+    on seeded leg lists of 1-, 2- and 3-hop rows padded to E legs, with a NaN
+    and an inf hour in row 0 (the padding legs' row) and -0.0 sources."""
+    from repro_torch.fleet import RoutingPlan
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED)
+    paths = tuple(tuple(rng.choice(M, size=int(rng.integers(1, 4)), replace=False).tolist())
+                  for _ in range(P))
+    plan = RoutingPlan(paths=paths, n_ports=M)
+    check(plan.total_hops < E, f"leg check: {plan.total_hops} legs do not fit {E}")
+    op = plan.pad_to(E).operand(torch.float64, DEVICE)
+    src = torch.tensor(rng.normal(scale=100.0, size=(2, P, T)), device=DEVICE)
+    src[:, 0, 3], src[:, 0, 5], src[:, 1, 7], src[:, 2, :4] = float("nan"), float("inf"), -0.0, -0.0
+    ws = (op.vpn_w, op.attach_w)
+    got = ops.leg_segment_sum((src[0], src[1]), op.leg_pair, op.leg_port, ws, M,
+                              index=(op.index.order, op.index.start))
+    for s_, w, g in zip(src, ws, got):
+        want = ref.leg_segment_sum_ref(s_, op.leg_pair, op.leg_port, w, M)
+        check(same_bits(g, want), "leg_segment_sum != plain on the seeded leg list")
+    check(bool(torch.isnan(got[0][0, 3])), "padding legs lost row 0's NaN on port 0")
+    hops = np.bincount([len(p) for p in paths], minlength=4)[1:].tolist()
+    print(f"leg_segment_sum {P} x {T} -> {M} ports, {E} legs ({plan.total_hops} routed, rows "
+          f"of 1/2/3 hops {hops}, {E - plan.total_hops} padding), NaN/inf in row 0, -0.0 "
+          f"sources, both planes in one launch: every bit == plain on the card")
+
+
+def topology_phase(card: str, fleet_scen) -> dict:
+    """The topology slice on the card: ``plan_topology`` of the 2048-pair,
+    128-port year through the entry point with launches counted, against
+    the numpy reference and the CPU path; padding and the identity topology
+    bit for bit; ``leg_segment_sum`` against its plain version; the relay and
+    multicast savings, ``refine_routing`` and ``replay_plan_topology``; then
+    timings. Returns the kernel's row."""
+    from repro_torch.fleet import (
+        build_multicast_scenario,
+        build_relay_scenario,
+        build_topology_scenario,
+        identity_topology,
+        optimize_routing,
+        plan_fleet,
+        plan_topology,
+        plan_topology_reference,
+        refine_routing,
+        replay_plan_topology,
+    )
+    from repro_torch.fleet.engine import _pair_stage
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sc = build_topology_scenario(TOPO_PAIRS, **TOPO_KW, horizon=TOPO_HOURS, seed=SEED)
+    P, T, M = sc.n_pairs, TOPO_HOURS, sc.n_ports
+    print(f"topology scenario {P} pairs x {T} h, {M} ports: {time.perf_counter() - t0:.2f} s "
+          f"on the host")
+
+    # -- the main path: routing=None routes on the host, then plans ---------
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plan = plan_topology(sc.topo, sc.demand)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    print(f"topology main path launches per plan: "
+          f"{ {k: v for k, v in launches.items() if v} } (first plan {first_s:.2f} s, "
+          f"optimize_routing on the host included)")
+    for name in ("tiered_cost_batched", "leg_segment_sum", "fsm_scan"):
+        check(launches[name] >= 1, f"kernel {name} was not launched on the topology path")
+    t0 = time.perf_counter()
+    routing = optimize_routing(sc.topo, sc.demand)
+    route_s = time.perf_counter() - t0
+    used = len(routing.ports_used())
+    print(f"optimize_routing: {route_s:.3f} s on the host; {routing.total_hops} legs on {used} "
+          f"of {M} ports, hop depth {routing.hop_depth}")
+    check(plan["x"].shape == (M, T) and plan["x"].device.type == DEVICE.type,
+          f"topology plan: shape {tuple(plan['x'].shape)} on {plan['x'].device}")
+    for k in ("toggle_cost", "static_vpn", "static_cci", "vpn_hourly", "cci_hourly"):
+        check(bool(torch.isfinite(plan[k]).all()), f"topology plan: {k} not finite")
+    check(int(plan["n_pairs"].sum().item()) == routing.total_hops, "n_pairs != routed legs")
+
+    t0 = time.perf_counter()
+    want = plan_topology_reference(sc.topo, sc.demand, routing)
+    for k in ("x", "state"):
+        check(np.array_equal(plan[k].cpu().numpy(), want[k]),
+              f"topology plan: {k} differs from plan_topology_reference")
+    check(np.allclose(plan["toggle_cost"].cpu().numpy(), want["toggle_cost"], rtol=1e-9, atol=0),
+          "topology toggle cost vs plan_topology_reference")
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = plan_topology(sc.topo, sc.demand, routing=routing, device="cpu")
+    for k in ("x", "state", "n_pairs", "pair_demand"):
+        check(torch.equal(plan[k].cpu(), cpu[k]), f"topology plan: {k} CUDA != CPU")
+    for k in ("toggle_cost", "static_vpn", "static_cci", "vpn_hourly", "cci_hourly",
+              "port_demand"):
+        torch.testing.assert_close(plan[k].cpu(), cpu[k], rtol=1e-9, atol=0)
+    print(f"topology {P} x {T}: CUDA plan == numpy per-port reference in x/state, toggle cost "
+          f"rtol 1e-9 ({ref_s:.1f} s); == CPU plan, decisions equal, costs rtol 1e-9 "
+          f"({time.perf_counter() - t0:.1f} s); CCI share "
+          f"{plan['x'].double().mean().item():.4f}, toggle/static_vpn "
+          f"{(plan['toggle_cost'].sum() / plan['static_vpn'].sum()).item():.6f}")
+
+    # -- padding legs and the identity topology, bit for bit ----------------
+    padded = plan_topology(sc.topo, sc.demand, routing=routing.pad_to(routing.total_hops + 64))
+    for k in plan:
+        check(same_bits(padded[k], plan[k]), f"padded routing changed {k}")
+    itopo, iplan = identity_topology(fleet_scen.fleet)
+    got = plan_topology(itopo, fleet_scen.demand, routing=iplan)
+    fl = plan_fleet(fleet_scen.fleet, fleet_scen.demand)
+    for k in got:
+        check(same_bits(got[k], fl[k]), f"identity topology != plan_fleet in {k}")
+    print(f"routing padded by 64 legs == unpadded, every output bit; identity topology of the "
+          f"{fleet_scen.n_links}-link fleet == plan_fleet, every output bit")
+
+    leg_check(*LEG_CHECK)
+
+    # -- relay and multicast economics, refine, replay ----------------------
+    relay = build_relay_scenario(horizon=SAVINGS_HOURS, seed=SEED)
+    mcast = build_multicast_scenario(n_leaves=4, horizon=SAVINGS_HOURS, seed=SEED)
+    got, want = savings(relay, mcast, DEVICE), savings(relay, mcast, "cpu")
+    for k, v in got.items():
+        check(abs(v - want[k]) <= 1e-12 * abs(want[k]), f"{k}: card {v!r} != CPU {want[k]!r}")
+        check(abs(v - SAVINGS_WANT[k]) < 1e-4, f"{k} {v:.5f}, not {SAVINGS_WANT[k]}")
+    print(f"{SAVINGS_HOURS} h: relay_savings {got['relay_savings']!r}, tree_sharing_savings "
+          f"{got['tree_sharing_savings']!r} (card == CPU within rtol 1e-12)")
+    ops.reset_launches()
+    start = optimize_routing(relay.topo, relay.demand, max_hops=1)
+    refined, info = refine_routing(relay.topo, relay.demand, start)
+    check(info["move_mix"]["relay"] >= 1 and info["cost_after"] < info["cost_before"],
+          f"refine_routing applied no relay move: {info['move_mix']}")
+    check(ops.LAUNCHES["fsm_scan"] >= 1, "refine_routing did not run fsm_scan")
+    print(f"refine_routing from the 1-hop routing: moves {info['move_mix']}, cost "
+          f"{info['cost_before']:.2f} -> {info['cost_after']:.2f}, {ops.LAUNCHES['fsm_scan']} "
+          f"fsm_scan launches; paths {refined.paths}")
+    relay_plan = optimize_routing(relay.topo, relay.demand)
+    arr = relay.topo.stack(relay_plan, torch.float64, DEVICE)
+    one, full = replay_plan_topology(arr, relay.demand, [(0, relay_plan)]), plan_topology(
+        arr, relay.demand)
+    for k in one:
+        check(same_bits(one[k], full[k]), f"one-segment replay != plan_topology in {k}")
+    sched = [(0, start), (RELAY_SWITCH, relay_plan)]
+    g2 = replay_plan_topology(arr, relay.demand, sched)
+    c2 = replay_plan_topology(arr, relay.demand, sched, device="cpu")
+    for k in ("x", "state"):
+        check(torch.equal(g2[k].cpu(), c2[k]), f"two-segment replay: {k} CUDA != CPU")
+    for k in ("toggle_cost", "vpn_hourly", "cci_hourly"):
+        torch.testing.assert_close(g2[k].cpu(), c2[k], rtol=1e-9, atol=0)
+    print(f"replay: one segment == plan_topology, every bit; direct then relay from hour "
+          f"{RELAY_SWITCH}: CUDA == CPU (decisions equal, costs rtol 1e-9), cost "
+          f"{g2['toggle_cost'].sum().item():.2f} vs relay all along "
+          f"{full['toggle_cost'].sum().item():.2f}")
+
+    # -- the kernel at the main path's inputs, then timings -----------------
+    arrays = sc.topo.stack(routing, torch.float64, DEVICE)
+    demand = torch.as_tensor(sc.demand, dtype=torch.float64, device=DEVICE)
+    d_pair, vpn_pair = _pair_stage(arrays, demand, hours_per_month=sc.topo.hours_per_month)
+    op = arrays.routing
+    E = op.n_legs
+    planes, ws = (vpn_pair, d_pair), (op.vpn_w, op.attach_w)
+    seg = lambda: ops.leg_segment_sum(planes, op.leg_pair, op.leg_port, ws, M,
+                                      index=(op.index.order, op.index.start))
+    plain = lambda: [ref.leg_segment_sum_ref(s_, op.leg_pair, op.leg_port, w, M)
+                     for s_, w in zip(planes, ws)]
+    lp64, lm64 = op.leg_pair.long(), op.leg_port.long()
+    library = lambda: [torch.zeros((M, T), dtype=torch.float64, device=DEVICE).index_add_(
+        0, lm64, s_[lp64] * w[:, None]) for s_, w in zip(planes, ws)]
+    got, want, lib = seg(), plain(), library()
+    err = 0.0
+    for g, w_, l_ in zip(got, want, lib):
+        check(same_bits(g, w_), "leg_segment_sum != plain at the main path's inputs")
+        err = max(err, (g - l_).abs().max().item())
+    check(same_bits(got[0], plan["vpn_hourly"]), "the kernel's VPN plane != the plan's")
+    ops.reset_launches()
+    plan_topology(arrays, demand)
+    per_plan = {k: v for k, v in ops.LAUNCHES.items() if v}
+    b = leg_segment_bound(P, T, M, E, 2)
+    ms = kernel_device_ms(seg, 20, ["leg_segment_sum"], per_call=1)["leg_segment_sum"]
+    ev_ms = queued_ms(seg, 20)
+    plain_ms = sync_ms(plain, 2)
+    lib_ms = device_busy_ms(library, 5)
+    plan_ms = sync_ms(lambda: plan_topology(arrays, demand), 10)
+    spec_ms = sync_ms(lambda: plan_topology(sc.topo, sc.demand, routing=routing), 3)
+    print(f"timings on {card} (median ms)")
+    print(f"  leg_segment_sum {P} x {T} -> {M} ports, {E} legs, both planes: kernel {ms:.4f} ms "
+          f"(profiler device time; CUDA events queued behind a sleep {ev_ms:.4f}), plain "
+          f"{plain_ms:.3f} ms, bound {b['bound_ms'] * 1e3:.1f} us ({b['bound_by']}), "
+          f"{ms / b['bound_ms']:.2f}x bound; index_add_ both planes (gather and product "
+          f"included) {lib_ms:.4f} ms of device time, max abs diff from the kernel {err:.3e}")
+    print(f"  plan_topology {P} x {T} on {M} ports: {plan_ms:.3f} ms from arrays and demand on "
+          f"the card; {spec_ms:.3f} ms from TopologySpec + numpy demand with the routing given "
+          f"(stack + copy in); optimize_routing {route_s * 1e3:.1f} ms on the host; "
+          f"launches/plan {per_plan}")
+    print_breakdown(lambda: plan_topology(arrays, demand), reps=3)
+    print(f"topology phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches["leg_segment_sum"], "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -1908,6 +2173,7 @@ def main() -> int:
     stream_rows = streaming_phase(scen, references, card.splitlines()[0])
     lm_rows = lm_phase(card.splitlines()[0])
     act_rows = actuation_phase(card.splitlines()[0])
+    topo_row = topology_phase(card.splitlines()[0], scen[SIZES[-1][0]])
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -1958,6 +2224,9 @@ def main() -> int:
          "source": "src/repro_torch/csrc/tiered_cost.cu",
          "replaces": "src/repro/kernels/tiered_cost.py:48",
          **act_rows["tiered_cost"]},
+        {"name": "leg_segment_sum", "route": "cuda",
+         "source": "src/repro_torch/csrc/leg_segment_sum.cu",
+         "replaces": "src/repro/fleet/engine.py:170", **topo_row},
     ]
     print(f"profiler: {len(PAD_SEEN)} traces; pad kernels recorded of {TRACE_PADS}, by trace: "
           f"{PAD_SEEN}")

@@ -225,7 +225,7 @@ def fleet_planner(fleet, **kw):
     (a ``FleetSpec`` or ``FleetArrays``; per-link actuation), every row
     stepped in one chunk of the streaming runtime. ``device=`` and the
     runtime's other keywords pass through. Topology mode (a
-    ``TopologySpec`` with ``routing=``) is ROADMAP Queue 1, item 4, and
+    ``TopologySpec`` with ``routing=``) is ROADMAP Queue 1, item 4b, and
     raises ``NotImplementedError``. Behind a factory so ``core`` keeps no
     import edge onto ``fleet`` (which imports ``core``)."""
     from repro_torch.fleet.runtime import ElasticFleetPlanner

@@ -1,10 +1,12 @@
 """Fleet planning in PyTorch: batched multi-link ToggleCCI portfolios.
 
-Port of the fleet-mode half of :mod:`repro.fleet`: specs
-(:mod:`~repro_torch.fleet.spec`), the reactive and hysteresis policies
-(:mod:`~repro_torch.fleet.policy`), the engine
-(:mod:`~repro_torch.fleet.engine`), the scenario builder
-(:mod:`~repro_torch.fleet.scenario`) and the streaming runtime
+Port of :mod:`repro.fleet`: specs (:mod:`~repro_torch.fleet.spec`), the
+topology model and routing heuristics (:mod:`~repro_torch.fleet.topology`,
+:mod:`~repro_torch.fleet.routing`), the reactive and hysteresis policies
+(:mod:`~repro_torch.fleet.policy`), the engine with ``plan_fleet`` and
+``plan_topology`` (:mod:`~repro_torch.fleet.engine`; the offline namespace
+:mod:`~repro_torch.fleet.plan`), the scenario builders
+(:mod:`~repro_torch.fleet.scenario`) and the streaming runtime in fleet mode
 (:mod:`~repro_torch.fleet.runtime`, facade :mod:`~repro_torch.fleet.stream`)
 with the elastic planner that actuates the gradient sync
 (:class:`~repro_torch.fleet.runtime.ElasticFleetPlanner`).
@@ -16,12 +18,20 @@ Quick start, on an NVIDIA GPU::
     rt = FleetRuntime(sc.fleet)                        # streams the same plan
     day = rt.step_many(sc.demand[:, :24])              # 24 hours, one chunk
     hour = rt.step(sc.demand[:, 24])                   # then one hour
+
+    from repro_torch.fleet import build_topology_scenario, plan_topology
+    ts = build_topology_scenario(64, n_facilities=8, ports_per_facility=4, seed=0)
+    plan = plan_topology(ts.topo, ts.demand)           # routes, then plans ports
 """
 from .engine import (  # noqa: F401
     RoutedSeries,
     plan_fleet,
     plan_fleet_reference,
+    plan_topology,
+    plan_topology_reference,
+    replay_plan_topology,
     routed_cost_series,
+    topology_port_costs_reference,
 )
 from .policy import (  # noqa: F401
     POLICY_KINDS,
@@ -33,11 +43,26 @@ from .policy import (  # noqa: F401
     policy_scan,
     reactive_policy,
 )
+from .routing import (  # noqa: F401
+    LegIndex,
+    RoutingOperand,
+    RoutingPlan,
+    as_routing_plan,
+    index_legs,
+    padded_operand_np,
+)
 from .scenario import (  # noqa: F401
     FAMILIES,
     FleetScenario,
+    TopologyScenario,
+    broadcast_burst_trace,
     build_fleet_scenario,
+    build_multicast_scenario,
+    build_relay_scenario,
+    build_topology_scenario,
     link_capacity_gb_hr,
+    port_capacity_gb_hr,
+    vlan_access_gb_hr,
 )
 from .spec import (  # noqa: F401
     PAD_BOUND,
@@ -47,6 +72,21 @@ from .spec import (  # noqa: F401
     fleet_arrays_from_numpy,
     fleet_from_params,
     pad_tier_tables,
+)
+from .topology import (  # noqa: F401
+    MulticastSpec,
+    PairSpec,
+    PathSpec,
+    PortSpec,
+    TopologyArrays,
+    TopologySpec,
+    dedicated_fleet,
+    identity_topology,
+    multicast_unicast_expansion,
+    optimize_routing,
+    refine_routing,
+    routing_matrix,
+    topology_arrays_from_numpy,
 )
 from .runtime import (  # noqa: F401
     ElasticFleetPlanner,

@@ -1,0 +1,91 @@
+"""``repro_torch.fleet.plan`` — the offline planning surface.
+
+Port of :mod:`repro.fleet.plan`, limited to the names the port has: the
+fleet and topology specs and their stacked tensor forms, the routing
+currency, the engines and their numpy references, the reactive and
+hysteresis policies, and the scenario builders. The implementations stay in
+their submodules; this module only re-exports them. The streaming twins
+live in :mod:`repro_torch.fleet.stream`.
+"""
+from .engine import (  # noqa: F401
+    RoutedSeries,
+    plan_fleet,
+    plan_fleet_reference,
+    plan_topology,
+    plan_topology_reference,
+    replay_plan_topology,
+    routed_cost_series,
+    topology_port_costs_reference,
+)
+from .policy import (  # noqa: F401
+    POLICY_KINDS,
+    HysteresisPolicy,
+    ReactivePolicy,
+    hysteresis_policy,
+    make_policy,
+    policy_scan,
+    reactive_policy,
+)
+from .routing import (  # noqa: F401
+    RoutingOperand,
+    RoutingPlan,
+    as_routing_plan,
+)
+from .scenario import (  # noqa: F401
+    FAMILIES,
+    FleetScenario,
+    TopologyScenario,
+    broadcast_burst_trace,
+    build_fleet_scenario,
+    build_multicast_scenario,
+    build_relay_scenario,
+    build_topology_scenario,
+    link_capacity_gb_hr,
+    port_capacity_gb_hr,
+    vlan_access_gb_hr,
+)
+from .spec import (  # noqa: F401
+    FleetArrays,
+    FleetSpec,
+    LinkSpec,
+    fleet_from_params,
+)
+from .topology import (  # noqa: F401
+    MulticastSpec,
+    PairSpec,
+    PathSpec,
+    PortSpec,
+    TopologyArrays,
+    TopologySpec,
+    dedicated_fleet,
+    identity_topology,
+    multicast_unicast_expansion,
+    optimize_routing,
+    refine_routing,
+    routing_matrix,
+)
+
+__all__ = [
+    # specs
+    "FleetArrays", "FleetSpec", "LinkSpec", "fleet_from_params",
+    "MulticastSpec", "PairSpec", "PathSpec", "PortSpec",
+    "TopologyArrays", "TopologySpec",
+    "dedicated_fleet", "identity_topology",
+    "multicast_unicast_expansion", "optimize_routing",
+    "refine_routing", "routing_matrix",
+    # routing currency
+    "RoutingOperand", "RoutingPlan", "as_routing_plan",
+    # engines
+    "RoutedSeries", "plan_fleet", "plan_fleet_reference",
+    "plan_topology", "plan_topology_reference", "replay_plan_topology",
+    "routed_cost_series", "topology_port_costs_reference",
+    # policies
+    "POLICY_KINDS", "HysteresisPolicy", "ReactivePolicy",
+    "hysteresis_policy", "make_policy", "policy_scan", "reactive_policy",
+    # scenarios
+    "FAMILIES", "FleetScenario", "TopologyScenario",
+    "broadcast_burst_trace", "build_fleet_scenario",
+    "build_multicast_scenario", "build_relay_scenario",
+    "build_topology_scenario",
+    "link_capacity_gb_hr", "port_capacity_gb_hr", "vlan_access_gb_hr",
+]

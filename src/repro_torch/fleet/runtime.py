@@ -30,7 +30,8 @@ policies, endogenous CCI demand, and the actuation layer on top of it
 (:class:`ElasticFleetPlanner`, whose per-link modes drive
 :func:`repro_torch.dist.collectives.fleet_sync_grads`). Not ported yet,
 each raising ``NotImplementedError``: topology mode and ``reroute`` (ROADMAP Queue 1,
-item 4), the forecast policy and ``StreamingForecaster`` (item 6),
+item 4b; offline topology planning is ported, :func:`repro_torch.fleet.plan_topology`),
+the forecast policy and ``StreamingForecaster`` (item 6),
 observability (item 8).
 """
 from __future__ import annotations
@@ -48,7 +49,8 @@ from repro_torch.kernels import ops
 from .policy import HysteresisPolicy, ReactivePolicy, fsm_carry, make_policy
 from .spec import FleetArrays, FleetSpec
 
-_TOPOLOGY = "topology mode (TopologySpec/TopologyArrays, routing=, reroute) is ROADMAP Queue 1, item 4"
+_TOPOLOGY = ("topology mode (TopologySpec/TopologyArrays, routing=, reroute) is ROADMAP "
+             "Queue 1, item 4b")
 _FORECAST = "the forecast policy and StreamingForecaster are ROADMAP Queue 1, item 6"
 _OBS = "observability (obs=) is ROADMAP Queue 1, item 8"
 
@@ -404,7 +406,7 @@ class ElasticFleetPlanner:
     :func:`~repro_torch.core.planner.collective_mode`). The runtime's
     keywords pass through (``device=``, ``policy=``, ...); per-port
     topology mode (``TopologySpec``, ``routing=``) is ROADMAP Queue 1,
-    item 4, and ``obs=`` item 8: both raise ``NotImplementedError``.
+    item 4b, and ``obs=`` item 8: both raise ``NotImplementedError``.
     """
 
     COMPRESS_RATIO = COMPRESS_RATIO

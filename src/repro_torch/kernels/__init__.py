@@ -20,6 +20,10 @@ for the LM's serving path ``flash_attention`` (blocked online-softmax
 attention) and ``rmsnorm``, and for the actuation path ``int8_quantize`` /
 ``int8_dequantize`` (per-row int8 of the compressed gradient sync) and
 ``tiered_cost`` (one static tier table over a (T, P) plane), each replacing
-the Pallas kernel of that name.
+the Pallas kernel of that name, and for the topology planner
+``leg_segment_sum`` (demand rows folded onto ports over the routing's leg
+list, each port's legs in order; replaces ``jax.ops.segment_sum`` in the
+route stage, whose XLA scatter adds in update order where CUDA's
+``index_add_`` adds with atomics).
 """
 from . import ops, ref  # noqa: F401

@@ -23,6 +23,8 @@ from .fsm_scan import fsm_chunk as _fsm_chunk_kernel
 from .fsm_scan import fsm_scan as _fsm_scan_kernel
 from .int8_quant import int8_dequantize as _dequant_kernel
 from .int8_quant import int8_quantize as _quant_kernel
+from .leg_segment_sum import leg_segment_sum as _leg_kernel
+from .leg_segment_sum import port_major
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .stream_chunk import stream_chunk as _stream_chunk_kernel
 from .tiered_cost import tiered_cost as _tiered_static_kernel
@@ -101,6 +103,35 @@ def stream_chunk(block, K: int, endo: bool, capacity, L_vpn, lease_cci, c_cci, b
                                     renew_in_chunks=renew_in_chunks)
     return ref.stream_chunk_ref(block, K, endo, *args, t0, hours_per_month,
                                 renew_in_chunks=renew_in_chunks)
+
+
+def leg_segment_sum(src, leg_pair, leg_port, w, num_segments: int, *, index=None):
+    """Fold rows of ``src`` (P, T) onto ``num_segments`` segments over a leg
+    list, each segment's legs summed in ascending leg index from +0.0:
+    ``out[m] = sum_{e: leg_port[e] == m} src[leg_pair[e]] * w[e]``, float64.
+
+    ``src`` and ``w`` may each be a tuple of two (planes folded over the same
+    legs; one launch on CUDA), and the result is then a tuple too. ``index``
+    is the ``(order, start)`` port-major index of the legs
+    (:func:`~repro_torch.kernels.leg_segment_sum.port_major`); on CUDA it is
+    built on the host when not given. The plain version needs none.
+    """
+    many = isinstance(src, (tuple, list))
+    srcs, ws = (tuple(src), tuple(w)) if many else ((src,), (w,))
+    if _route(srcs[0], "leg_segment_sum"):
+        if index is None:
+            order, start = port_major(leg_port.cpu().numpy(), num_segments)
+            dev = srcs[0].device
+            index = (torch.from_numpy(order).to(dev), torch.from_numpy(start).to(dev))
+        order, start = index
+        if start.shape[0] != num_segments + 1:
+            raise ValueError(f"index holds {start.shape[0] - 1} segments, not {num_segments}")
+        outs = _leg_kernel([s.contiguous() for s in srcs], [x.contiguous() for x in ws],
+                           leg_pair.contiguous(), order.contiguous(), start.contiguous())
+    else:
+        outs = tuple(ref.leg_segment_sum_ref(s, leg_pair, leg_port, x, num_segments)
+                     for s, x in zip(srcs, ws))
+    return outs if many else outs[0]
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,

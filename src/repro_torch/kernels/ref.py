@@ -218,6 +218,19 @@ def stream_chunk_ref(
     return packed, out["carry"]
 
 
+def leg_segment_sum_ref(src: torch.Tensor, leg_pair: torch.Tensor, leg_port: torch.Tensor,
+                        w: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.leg_segment_sum.leg_segment_sum`
+    for one plane: the legs in order, ``out[lm[e]] += src[lp[e]] * w[e]``,
+    from +0.0 (one IEEE product and one add a leg and hour, as the kernel and
+    XLA's sequential scatter-add)."""
+    out = torch.zeros((num_segments,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    for e, (i, m) in enumerate(zip(leg_pair.tolist(), leg_port.tolist())):
+        out[m] += src[i] * w[e]
+    return out
+
+
 def attention(
     q: torch.Tensor,  # (B, Hq, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Skv, D)

@@ -19,7 +19,11 @@ their float32 plain versions: flash attention at ``2e-5`` in float32 and
 ``2e-2`` in bfloat16, RMSNorm at ``1e-5`` and ``2e-2`` (the tolerances
 ``tests/test_kernels.py`` holds the Pallas kernels to); the flash tests also
 assert which entry launched (the Hopper one for bf16 with head dims that are
-multiples of 8 and aligned inputs, the general one otherwise).
+multiples of 8 and aligned inputs, the general one otherwise). The topology
+slice's leg-ordered segment sum keeps its plain version's order (each
+port's legs in leg order) and is held bit for bit, NaN and padding legs
+included; ``plan_topology`` on the card against the CPU: decisions equal,
+costs ``rtol=1e-9``.
 """
 import dataclasses
 
@@ -35,11 +39,15 @@ from repro_torch.core.pricing import (
 )
 from repro_torch.core.togglecci import ToggleParams
 from repro_torch.fleet import FleetRuntime, build_fleet_scenario, plan_fleet
+from repro_torch.fleet import routing as trout
+from repro_torch.fleet import scenario as tscen
+from repro_torch.fleet.engine import plan_topology
 from repro_torch.fleet import policy as tpol
 from repro_torch.fleet.spec import pad_tier_tables
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan
+from repro_torch.kernels.leg_segment_sum import leg_segment_sum
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.stream_chunk import stream_chunk
 from repro_torch.kernels.tiered_cost import tiered_cost_batched
@@ -230,7 +238,8 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1,
                             "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
                             "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0,
-                            "int8_quantize": 0, "int8_dequantize": 0, "tiered_cost": 0}
+                            "int8_quantize": 0, "int8_dequantize": 0, "tiered_cost": 0,
+                            "leg_segment_sum": 0}
     assert got["x"].is_cuda
     want = plan_fleet(sc.fleet, sc.demand, device="cpu")
     for k in ("x", "state"):
@@ -857,3 +866,83 @@ def test_tiered_cost_kernel_tails_and_misaligned_views(cuda_device, shape):
             got = ops.tiered_cost(c, dd, tier.bounds_gb, tier.rates)
             assert ops.LAUNCHES["tiered_cost"] == before + 1
             assert _same_bits(got, ref.tiered_cost(c, dd, tier.bounds_gb, tier.rates))
+
+
+def test_leg_segment_sum_wrapper_refuses_cpu_tensors_and_bad_operands():
+    """The segment-sum wrapper launches on CUDA tensors or raises."""
+    op = trout.RoutingPlan(paths=((0,), (1, 0)), n_ports=2).operand(torch.float64, "cpu")
+    src = torch.zeros((2, 5), dtype=torch.float64)
+    idx = (op.index.order, op.index.start)
+    with pytest.raises(ValueError, match="CUDA"):
+        leg_segment_sum([src], [op.vpn_w], op.leg_pair, *idx)
+    with pytest.raises(ValueError, match="one or two planes"):
+        leg_segment_sum([src] * 3, [op.vpn_w] * 3, op.leg_pair, *idx)
+
+
+LEG_CASES = {  # P, T, M, padding legs, max hops
+    "unicast-year": (2048, 8760, 128, 0, 1),
+    "multihop": (300, 1000, 64, 0, 3),
+    "padded-nan": (2048, 777, 128, 2048, 3),
+    "one-port": (5, 33, 1, 3, 1),
+}
+
+
+def _leg_case(P, T, M, pad, hops, device):
+    rng = np.random.default_rng(P + T + M)
+    paths = tuple(tuple(rng.choice(M, size=int(rng.integers(1, min(hops, M) + 1)),
+                                   replace=False).tolist()) for _ in range(P))
+    plan = trout.RoutingPlan(paths=paths, n_ports=M)
+    op = plan.pad_to(plan.total_hops + pad).operand(torch.float64, device)
+    src = rng.normal(scale=100.0, size=(2, P, T))
+    src[:, 0, 3], src[:, 0, 5] = np.nan, np.inf
+    src[:, 1, 7] = -0.0
+    return [_t(s, device) for s in src], op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LEG_CASES))
+def test_leg_segment_sum_kernel_bit_equal_to_plain(cuda_device, case):
+    """One- and two-plane launches against the plain leg loop on the card and
+    on the CPU, every bit (NaN in the same places)."""
+    P, T, M, pad, hops = LEG_CASES[case]
+    srcs, op = _leg_case(P, T, M, pad, hops, cuda_device)
+    ws = (op.vpn_w, op.attach_w)
+    before = ops.LAUNCHES["leg_segment_sum"]
+    both = ops.leg_segment_sum(tuple(srcs), op.leg_pair, op.leg_port, ws, M,
+                               index=(op.index.order, op.index.start))
+    one = ops.leg_segment_sum(srcs[1], op.leg_pair, op.leg_port, ws[1], M)
+    assert ops.LAUNCHES["leg_segment_sum"] == before + 2
+    assert torch.equal(one.view(torch.int64), both[1].view(torch.int64))
+    for s, w, got in zip(srcs, ws, both):
+        want = ref.leg_segment_sum_ref(s, op.leg_pair, op.leg_port, w, M)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+        if case == "multihop":
+            cpu = ref.leg_segment_sum_ref(s.cpu(), op.leg_pair.cpu(), op.leg_port.cpu(),
+                                          w.cpu(), M)
+            assert torch.equal(got.cpu().view(torch.int64), cpu.view(torch.int64))
+
+
+TOPOLOGY_CASES = {
+    "relay": lambda: tscen.build_relay_scenario(horizon=1200, seed=0),
+    "multicast": lambda: tscen.build_multicast_scenario(n_leaves=4, horizon=1200, seed=0),
+    "topology-64": lambda: tscen.build_topology_scenario(
+        64, n_facilities=8, ports_per_facility=4, horizon=2000, seed=0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TOPOLOGY_CASES))
+def test_plan_topology_gpu_matches_cpu(cuda_device, case):
+    sc = TOPOLOGY_CASES[case]()
+    ops.reset_launches()
+    got = plan_topology(sc.topo, sc.demand, device=cuda_device)
+    assert {k: ops.LAUNCHES[k] for k in ("tiered_cost_batched", "leg_segment_sum",
+                                         "fsm_scan")} == {
+        "tiered_cost_batched": 1, "leg_segment_sum": 1, "fsm_scan": 1}
+    assert got["x"].is_cuda
+    want = plan_topology(sc.topo, sc.demand, device="cpu")
+    for k in ("x", "state", "n_pairs", "pair_demand"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    for k in ("toggle_cost", "static_vpn", "static_cci", "vpn_hourly", "cci_hourly",
+              "port_demand"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-9, atol=1e-9)

@@ -95,6 +95,19 @@ def jax_fleet_dict(arrays) -> dict:
     return d
 
 
+def jax_topology_dict(arrays) -> dict:
+    """``np.asarray`` of every field of a JAX ``TopologyArrays``, with the
+    toggle parameters and the routing operand (``leg_pair``, ``leg_port``,
+    ``vpn_w``, ``attach_w``, ``primary``) flattened — the input of
+    ``repro_torch.fleet.topology.topology_arrays_from_numpy``, which also
+    builds the port-major leg index."""
+    nested = ("toggle", "routing")
+    d = {k: np.asarray(v) for k, v in arrays._asdict().items() if k not in nested}
+    for k in nested:
+        d.update({f: np.asarray(v) for f, v in getattr(arrays, k)._asdict().items()})
+    return d
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of repro_torch imports without jax and without repro."""
     code = (
