@@ -128,7 +128,27 @@ without printing a result):
     then it times the kernel (profiler device time) beside its bound, its
     plain version and ``index_add_`` on both planes, ``plan_topology`` from
     arrays and from the spec, and a device breakdown of one plan;
-11. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+11. the streaming runtime's topology mode (:func:`topology_stream_phase`):
+    with every launch count at 0, ``FleetRuntime(topo, routing=...)`` on
+    the default device streams the same 2048-pair, 128-port year in K = 24
+    chunks and 800 hours per tick; it fails unless ``stream_chunk_routed``
+    launched once per chunk and tick (1165) and ``stream_chunk``,
+    ``leg_segment_sum``, ``tiered_cost_scan`` and ``fsm_chunk`` never, unless
+    the stream equals the CPU ``plan_topology`` of the same routing bit for
+    bit in ``x``/``state``/``vpn_cost``/``cci_cost`` and the per-tick hours
+    the chunked ones in every field; it holds ``stream_chunk_routed``
+    against ``stream_chunk_routed_ref`` in every output bit on the relay
+    (padded) and multicast scenarios, NaN demand in pair 0 under padding
+    legs, K = 1 across the month start, chained K = 24 across it, one K past
+    the window ring, and endogenous CCI demand; it streams
+    ``build_reroute_scenario(2000, 800, seed 0)`` frozen and with live
+    re-packing every 24 hours (``reroute()`` at chunk boundaries), fails
+    unless the live run costs less and its decisions equal
+    ``replay_plan_topology`` on the card and on the CPU, and prints the
+    saving; then it times the tick, the chunk, the host split of a step and
+    the kernel (profiler device time) beside its bound and plain version,
+    with a device breakdown of one chunk;
+12. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -422,17 +442,20 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
                                                 b.view(as_int).masked_fill(nb, 0)))
 
 
-def stream_chunk_case(fleet, demand, t_first: int, Ks, cci_demand=None) -> float:
-    """Stream ``fleet`` on the card to hour ``t_first``, then run each chunk of
-    ``Ks`` hours through the runtime's own ``_launch`` (the kernel) and
-    through ``ref.stream_chunk_ref`` on the same block and carries; fail
-    unless the packed result and the FSM carry agree in every bit. Returns the
-    largest absolute difference over non-NaN values (0.0 when they agree)."""
+def chunk_case(spec, demand, t_first: int, Ks, cci_demand=None, routing=None) -> float:
+    """Stream ``spec`` (and ``routing``, in topology mode) on the card to hour
+    ``t_first``, then run each chunk of ``Ks`` hours through the runtime's own
+    ``_launch`` (the kernel: ``stream_chunk``, or ``stream_chunk_routed`` in
+    topology mode) and through its plain version on the same block and
+    carries; fail unless the packed result and the FSM carry agree in every
+    bit. Returns the largest absolute difference over non-NaN values (0.0
+    when they agree)."""
     from repro_torch.fleet import FleetRuntime
     from repro_torch.kernels import ops, ref
 
-    rt = FleetRuntime(fleet)
-    renew = rt.policy.renew_in_chunks
+    rt = FleetRuntime(spec, routing=routing)
+    name = "stream_chunk_routed" if rt.topology else "stream_chunk"
+    plain = ref.stream_chunk_routed_ref if rt.topology else ref.stream_chunk_ref
     cblk = lambda a, b: None if cci_demand is None else cci_demand[:, a:b]
     t = 0
     while t < t_first:
@@ -443,20 +466,49 @@ def stream_chunk_case(fleet, demand, t_first: int, Ks, cci_demand=None) -> float
     for K in Ks:
         block, K_, endo = rt._pack(demand[:, t:t + K], cblk(t, t + K))
         dev_block = torch.from_numpy(block).to(DEVICE)
-        want, want_fsm = ref.stream_chunk_ref(*rt._chunk_args(dev_block, K_, endo),
-                                              renew_in_chunks=renew)
-        before = ops.LAUNCHES["stream_chunk"]
+        want, want_fsm = plain(*rt._chunk_args(dev_block, K_, endo),
+                               renew_in_chunks=rt.policy.renew_in_chunks)
+        before = ops.LAUNCHES[name]
         host = rt._launch(dev_block, K_, endo)
-        check(ops.LAUNCHES["stream_chunk"] == before + 1, "stream_chunk did not launch")
+        check(ops.LAUNCHES[name] == before + 1, f"{name} did not launch")
         check(same_bits(host, want) and same_bits(rt._state.fsm, want_fsm),
-              f"stream_chunk != plain at {rt.n_rows} rows, hours {t}..{t + K - 1}, "
-              f"endo={endo}: first differing packed rows "
+              f"{name} != plain at {rt.n_demand_rows} demand rows on {rt.n_rows} decision "
+              f"rows, hours {t}..{t + K - 1}, endo={endo}: first differing elements "
               f"{torch.nonzero((host != want) & ~(host.isnan() & want.isnan()))[:4].tolist()}")
         ok = ~torch.isnan(want)
         err = max(err, (host[ok] - want[ok]).abs().max().item())
         rt._commit(host.cpu().numpy(), K_)
         t += K
     return err
+
+
+def print_step_split(rt, demand, t0: int, rows: str) -> None:
+    """Host clock of one step of ``rt`` at K = 1 and K = STREAM_K from hour
+    ``t0``, split into the pack, the copy in, the launch and the wait, the
+    copy out and the commit (median over 24 steps; the runtime advances)."""
+    for K in (1, STREAM_K):
+        parts = {k: [] for k in ("pack", "h2d", "device", "d2h", "commit")}
+        blk = demand[:, t0:t0 + K]   # the data does not set the time
+        for _ in range(24):
+            a = time.perf_counter()
+            block, K_, endo = rt._pack(blk, None)
+            b = time.perf_counter()
+            dev_block = torch.from_numpy(block).to(DEVICE)
+            torch.cuda.synchronize()
+            c_ = time.perf_counter()
+            host = rt._launch(dev_block, K_, endo)
+            torch.cuda.synchronize()
+            d_ = time.perf_counter()
+            host_np = host.cpu().numpy()
+            e = time.perf_counter()
+            rt._commit(host_np, K_)
+            f = time.perf_counter()
+            for k, v in zip(parts, (b - a, c_ - b, d_ - c_, e - d_, f - e)):
+                parts[k].append(v * 1e6)
+        print(f"  one step ({rows} x K={K}), median us over 24 steps, host clock: "
+              + ", ".join(f"{k} {statistics.median(v):.1f}" for k, v in parts.items())
+              + f" (block {block.nbytes / 1e6:.3f} MB in, {host.numel() * 8 / 1e6:.3f} MB out; "
+              f"'device' is the launch and the wait for the card)")
 
 
 def streaming_phase(scen, references, card: str) -> dict:
@@ -618,7 +670,7 @@ def streaming_phase(scen, references, card: str) -> dict:
     }
     stream_err = 0.0
     for label, (f_, d_, t_, Ks, c_) in cases.items():
-        stream_err = max(stream_err, stream_chunk_case(f_, d_, t_, Ks, c_))
+        stream_err = max(stream_err, chunk_case(f_, d_, t_, Ks, c_))
         print(f"  stream_chunk == stream_chunk_ref, every output bit: {label}")
     print(f"stream_chunk: {len(cases)} cases at {N} links equal the plain version on the card "
           f"({time.perf_counter() - t_cases:.1f} s)")
@@ -707,29 +759,8 @@ def streaming_phase(scen, references, card: str) -> dict:
               f"synchronize, against stream_chunk's {tk['fused_wall_ms']:.4f} ms")
 
     # -- one step, split: host gather + pack, H2D copy, device, D2H, commit ---
-    for K in (1, STREAM_K):
-        parts = {k: [] for k in ("pack", "h2d", "device", "d2h", "commit")}
-        blk = sc.demand[:, t_first:t_first + K]   # the data does not set the time
-        for c in range(24):
-            a = time.perf_counter()
-            block, K_, endo = rt_b._pack(blk, None)
-            b = time.perf_counter()
-            dev_block = torch.from_numpy(block).to(DEVICE)
-            torch.cuda.synchronize()
-            c_ = time.perf_counter()
-            host = rt_b._launch(dev_block, K_, endo)
-            torch.cuda.synchronize()
-            d_ = time.perf_counter()
-            host_np = host.cpu().numpy()
-            e = time.perf_counter()
-            rt_b._commit(host_np, K_)
-            f = time.perf_counter()
-            for k, v in zip(parts, (b - a, c_ - b, d_ - c_, e - d_, f - e)):
-                parts[k].append(v * 1e6)
-        print(f"  one step ({N} x K={K}), median us over 24 steps, host clock: "
-              + ", ".join(f"{k} {statistics.median(v):.1f}" for k, v in parts.items())
-              + f" (block {block.nbytes / 1e6:.3f} MB in, {host.numel() * 8 / 1e6:.3f} MB out; "
-              f"'device' is the launch and the wait for the card)")
+    print_step_split(rt_b, sc.demand, t_first, f"{N}")
+    blk = sc.demand[:, t_first:t_first + STREAM_K]
     print_breakdown(lambda: rt_b.step_many(blk), reps=6, unit="chunk")
     print(f"streaming phase: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1973,8 +2004,227 @@ def topology_phase(card: str, fleet_scen) -> dict:
           f"launches/plan {per_plan}")
     print_breakdown(lambda: plan_topology(arrays, demand), reps=3)
     print(f"topology phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches["leg_segment_sum"], "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+    row = {"launches": launches["leg_segment_sum"], "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+    return row, {"scenario": sc, "routing": routing, "cpu_plan": cpu,
+                 "relay": relay, "multicast": mcast}
+
+
+# -- the topology stream -------------------------------------------------------
+REROUTE = dict(horizon=2000, shift_hour=800, seed=SEED)   # examples/reroute_demo.py's swap
+REPACK_EVERY, REPACK_WINDOW = 24, 168                     # hours
+NAN_PAD = 64                                              # padding legs of the NaN case
+
+
+def routed_chunk_bound(P: int, M: int, K: int, Kt: int, E: int, endo: bool) -> dict:
+    # In: the block (the demand (K, P), the CCI demand when endo, pre_v and pre_c
+    # (K, M)); per pair capacity, L_vpn (f64) and the tier tables (P, Kt) x 2; per
+    # port lease, c_cci, capacity, theta1, theta2 (f64) and h, D, T_cci and the two
+    # holds (int32); the legs (leg_pair, order int32; vpn_w, attach_w f64) and the
+    # (M + 1,) offsets; the carries (cal (2, P), pref (2, M) f64; fsm (4, M) int32).
+    # Out: the flat result (8KM + 2P + 2M f64) and the FSM carry (4, M) int32. The
+    # kernel's (2, K, P) scratch is its own traffic, not the function's.
+    bytes_moved = (8 * ((2 if endo else 1) * K * P + 2 * K * M) + 8 * (2 * P + 2 * P * Kt)
+                   + M * (8 * 5 + 4 * 5) + E * (4 + 4 + 8 + 8) + 4 * (M + 1)
+                   + 8 * (2 * P + 2 * M) + 4 * 4 * M + 8 * (8 * K * M + 2 * P + 2 * M)
+                   + 4 * 4 * M)
+    # Per pair-hour: the clips, month sub, carry add, hi add, per tier 6, the VPN
+    # add; per leg-hour: 2 products and 2 adds; per port-hour: min, mul, add (CCI),
+    # 2 prefix adds, 2 window subs, 2 muls, 2 compares.
+    ops = K * P * ((2 if endo else 1) + 3 + 6 * Kt + 1) + K * E * 4 + K * M * 11
+    return bound(bytes_moved, ops, torch.float64)
+
+
+def repack_stream(sc, *, live: bool, device=None):
+    """``examples/reroute_demo.py``'s two runs, in ``step_many`` chunks of
+    REPACK_EVERY hours: the routing of the first week's demand, frozen, or
+    re-packed at every chunk boundary on the trailing REPACK_WINDOW-hour means
+    and swapped in with ``reroute()`` when it changes. Returns (summed cost,
+    stacked outputs, the schedule of routings)."""
+    from repro_torch.fleet import FleetRuntime, optimize_routing
+
+    r0 = optimize_routing(sc.topo, sc.demand[:, :REPACK_WINDOW])
+    rt = FleetRuntime(sc.topo, routing=r0, device=device)
+    T = sc.demand.shape[1]
+    cost, schedule, outs, t = 0.0, [(0, r0)], [], 0
+    while t < T:
+        if live and t > 0:
+            seen = sc.demand[:, max(0, t - REPACK_WINDOW):t].mean(axis=1)
+            r_new = optimize_routing(sc.topo, mean_demand=seen)
+            if not np.array_equal(r_new.primary, rt.routing_plan.primary):
+                rt.reroute(r_new)
+                schedule.append((t, r_new))
+        k = min(REPACK_EVERY, T - t)
+        outs.append(rt.step_many(sc.demand[:, t:t + k]))
+        cost += float(outs[-1]["cost"].sum())
+        t += k
+    return cost, {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}, schedule
+
+
+def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
+    """The streaming runtime's topology mode on the card: the 2048-pair,
+    128-port year streamed with launches counted, against the CPU
+    ``plan_topology``; ``stream_chunk_routed`` against its plain version on
+    the listed cases; the re-routing scenario against the replay oracle;
+    then timings. Returns the kernel's row."""
+    from repro_torch.fleet import (
+        FleetRuntime,
+        build_reroute_scenario,
+        optimize_routing,
+        replay_plan_topology,
+    )
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.stream_chunk import stream_chunk_routed
+
+    sc, routing, cpu = topo_ctx["scenario"], topo_ctx["routing"], topo_ctx["cpu_plan"]
+    P, M, T = sc.n_pairs, sc.n_ports, sc.demand.shape[1]
+    fields = ("x", "state", "r_vpn", "r_cci", "vpn_cost", "cci_cost", "cost")
+    t_phase = time.perf_counter()
+
+    # -- the main path: FleetRuntime in topology mode, launches counted -----
+    ops.reset_launches()
+    rt = FleetRuntime(sc.topo, routing=routing)
+    check(rt.device.type == DEVICE.type and rt.topology,
+          "FleetRuntime(topo, routing=) did not stream topology mode on the card")
+    chunk_clock = []
+    chunked = stream(rt, sc.demand, STREAM_K, chunk_clock)
+    chunk_s = sum(chunk_clock)
+    rt_tick = FleetRuntime(sc.topo, routing=routing)
+    tick_us, ticks = [], []
+    t0 = time.perf_counter()
+    for t in range(STREAM_TICKS):
+        a = time.perf_counter()
+        ticks.append(rt_tick.step(sc.demand[:, t]))
+        tick_us.append((time.perf_counter() - a) * 1e6)
+    tick_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    print(f"topology streaming path launches: { {k: v for k, v in launches.items() if v} }")
+    want_launches = T // STREAM_K + T % STREAM_K + STREAM_TICKS
+    check(launches["stream_chunk_routed"] == want_launches,
+          f"stream_chunk_routed launched {launches['stream_chunk_routed']} times on the "
+          f"topology streaming path, not once per chunk and tick ({want_launches})")
+    for name in ("stream_chunk", "leg_segment_sum", "tiered_cost_scan", "fsm_chunk"):
+        check(launches[name] == 0, f"kernel {name} launched on the topology streaming path")
+
+    # -- checks -----------------------------------------------------------------
+    for k, want in (("x", cpu["x"]), ("state", cpu["state"]),
+                    ("vpn_cost", cpu["vpn_hourly"]), ("cci_cost", cpu["cci_hourly"])):
+        check(chunked[k].shape == (M, T), f"topology stream {k} shape {chunked[k].shape}")
+        check(np.array_equal(chunked[k], want.numpy()),
+              f"{P}-pair topology stream on the card: {k} != CPU plan_topology")
+    print(f"topology stream {P} pairs x {T} h on {M} ports (K = {STREAM_K}) on the card == CPU "
+          f"plan_topology bit for bit in x/state/vpn_cost/cci_cost; CCI share "
+          f"{chunked['x'].mean():.4f}")
+    for k in fields:
+        check(np.array_equal(np.stack([o[k] for o in ticks], 1), chunked[k][:, :STREAM_TICKS]),
+              f"topology per-tick step != chunked step_many in {k}")
+    print(f"per-tick step over hours 0..{STREAM_TICKS - 1} == chunked stream bit for bit "
+          f"(all {len(fields)} fields; crosses the month start at hour 730)")
+
+    # -- stream_chunk_routed against its plain version, every output bit ------
+    t_cases = time.perf_counter()
+    relay, mcast = topo_ctx["relay"], topo_ctx["multicast"]
+    relay_plan = optimize_routing(relay.topo, relay.demand)
+    t_first = 696                                           # crosses the month start at 730
+    bad = sc.demand.copy()
+    bad[0, [t_first - 30, t_first + 3, t_first + 10]] = np.nan
+    padded = routing.pad_to(routing.total_hops + NAN_PAD)
+    cases = {
+        f"relay (1- and 2-hop rows, 3 padding legs), 3 x K = {STREAM_K}":
+            (relay.topo, relay_plan.pad_to(relay_plan.total_hops + 3), relay.demand, 48,
+             [STREAM_K] * 3, None),
+        f"multicast tree, 3 x K = {STREAM_K}":
+            (mcast.topo, optimize_routing(mcast.topo, mcast.demand), mcast.demand, 48,
+             [STREAM_K] * 3, None),
+        f"NaN demand in pair 0, {NAN_PAD} padding legs, 2 x K = {STREAM_K}":
+            (sc.topo, padded, bad, t_first, [STREAM_K] * 2, None),
+        "K = 1 over hours 728..731": (sc.topo, routing, sc.demand, 728, [1] * 4, None),
+        f"4 chained K = {STREAM_K} from hour {t_first}":
+            (sc.topo, routing, sc.demand, t_first, [STREAM_K] * 4, None),
+        f"K = {rt.hbuf + 23} (past the ring, hbuf {rt.hbuf}) from hour 500":
+            (sc.topo, routing, sc.demand, 500, [rt.hbuf + 23], None),
+        f"endogenous CCI demand, 2 x K = {STREAM_K}":
+            (sc.topo, routing, sc.demand, t_first, [STREAM_K] * 2, sc.demand * 1.5),
+    }
+    routed_err = 0.0
+    for label, (topo_, r_, d_, t_, Ks, c_) in cases.items():
+        routed_err = max(routed_err, chunk_case(topo_, d_, t_, Ks, c_, routing=r_))
+        print(f"  stream_chunk_routed == stream_chunk_routed_ref, every output bit: {label}")
+    check(0 not in routing.paths[0], "the NaN case needs pair 0 off port 0")
+    print(f"stream_chunk_routed: {len(cases)} cases equal the plain version on the card "
+          f"({time.perf_counter() - t_cases:.1f} s)")
+
+    # -- live re-routing: frozen vs re-packed, against the replay oracle ------
+    t0 = time.perf_counter()
+    rsc = build_reroute_scenario(**REROUTE)
+    frozen, _, _ = repack_stream(rsc, live=False)
+    live, live_out, schedule = repack_stream(rsc, live=True)
+    check(live < frozen and len(schedule) > 1,
+          f"live re-routing ({live:.2f}) did not beat the frozen routing ({frozen:.2f})")
+    arrays = rsc.topo.stack(schedule[0][1], torch.float64, DEVICE)
+    hpm = rsc.topo.hours_per_month
+    for dev in (DEVICE, "cpu"):
+        rep = replay_plan_topology(arrays, rsc.demand, schedule, hours_per_month=hpm, device=dev)
+        for k in ("x", "state"):
+            check(np.array_equal(live_out[k], rep[k].cpu().numpy()),
+                  f"live re-routing: {k} != replay_plan_topology on {dev}")
+    cpu_live = repack_stream(rsc, live=True, device="cpu")[0]
+    check(abs(live - cpu_live) <= 1e-12 * abs(cpu_live), f"live cost card {live!r} != CPU "
+          f"{cpu_live!r}")
+    saving = 1.0 - live / frozen
+    print(f"re-routing {REROUTE}: frozen ${frozen:,.2f}, live ${live:,.2f} (swaps at hours "
+          f"{[t for t, _ in schedule[1:]]}), saving {saving:.5f}; live decisions == "
+          f"replay_plan_topology on the card and the CPU; live cost card == CPU "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- timings ----------------------------------------------------------------
+    print(f"topology streaming timings on {card} (median ms; bound = max(bytes / 3.35 TB/s, "
+          f"ops / peak))")
+    tick = np.array(tick_us)
+    print(f"  per-tick step {P} pairs on {M} ports: p50 {np.percentile(tick, 50):.1f} us, p95 "
+          f"{np.percentile(tick, 95):.1f} us, p99 {np.percentile(tick, 99):.1f} us; "
+          f"{P * STREAM_TICKS / tick_s:.4g} pair-steps/s over {STREAM_TICKS} hours")
+    chunk_ms = np.array(chunk_clock) * 1e3
+    print(f"  chunked step_many {P} x {T} (K = {STREAM_K}): p50 {np.percentile(chunk_ms, 50):.3f} "
+          f"ms, p95 {np.percentile(chunk_ms, 95):.3f} ms, mean {chunk_ms.mean():.3f} ms per "
+          f"chunk; {P * T / chunk_s:.4g} pair-steps/s; {chunk_s:.3f} s in step_many for the "
+          f"year (output stacking not counted)")
+    rt_b = FleetRuntime(sc.topo, routing=routing)
+    stream(rt_b, sc.demand[:, :t_first], STREAM_K)
+    Kt = rt_b.arrays.tier_bounds.shape[1]
+    E = rt_b.arrays.routing.n_legs
+    timing = {}
+    for K in (STREAM_K, 1):
+        block, _, _ = rt_b._pack(sc.demand[:, t_first:t_first + K], None)
+        dev_block = torch.from_numpy(block).to(DEVICE)
+        args = rt_b._chunk_args(dev_block, K, False)
+        renew = rt_b.policy.renew_in_chunks
+        fused = lambda: stream_chunk_routed(*args, renew_in_chunks=renew)
+        plain = lambda: ref.stream_chunk_routed_ref(*args, renew_in_chunks=renew)
+        check(same_bits(fused()[0], plain()[0]), f"K = {K}: kernel != plain at the timed block")
+        dev = kernel_device_ms(fused, 20, ("routed_pair_kernel", "routed_port_kernel"),
+                               per_call=1)
+        b_k = routed_chunk_bound(P, M, K, Kt, E, False)
+        timing[K] = {"ms": dev["routed_pair_kernel"] + dev["routed_port_kernel"],
+                     "pair_ms": dev["routed_pair_kernel"], "port_ms": dev["routed_port_kernel"],
+                     "queued_ms": queued_ms(fused, 50), "event_ms": event_ms(fused, 50),
+                     "plain_ms": sync_ms(plain, 3), **b_k}
+        tk = timing[K]
+        print(f"  stream_chunk_routed {P} pairs x K={K} on {M} ports, {E} legs: profiler device "
+              f"time {tk['ms']:.4f} ms (pair stage {tk['pair_ms']:.4f}, port stage "
+              f"{tk['port_ms']:.4f}), CUDA events behind a queue {tk['queued_ms']:.4f} ms, "
+              f"events around one call (host launch included) {tk['event_ms']:.4f} ms; bound "
+              f"{tk['bound_ms'] * 1e3:.3f} us ({tk['bound_by']}), {tk['ms'] / tk['bound_ms']:.1f}x "
+              f"bound; plain {tk['plain_ms']:.3f} ms")
+    print_step_split(rt_b, sc.demand, t_first, f"{P} pairs")
+    blk = sc.demand[:, t_first:t_first + STREAM_K]
+    print_breakdown(lambda: rt_b.step_many(blk), reps=6, unit="chunk")
+    print(f"topology streaming phase: {time.perf_counter() - t_phase:.1f} s")
+    t24 = timing[STREAM_K]
+    return {"launches": launches["stream_chunk_routed"], "max_abs_err": routed_err,
+            "ms": t24["ms"], "plain_ms": t24["plain_ms"], "bound_ms": t24["bound_ms"],
+            "bound_by": t24["bound_by"], "library_ms": None, "main_path": True}
 
 
 def main() -> int:
@@ -2173,7 +2423,8 @@ def main() -> int:
     stream_rows = streaming_phase(scen, references, card.splitlines()[0])
     lm_rows = lm_phase(card.splitlines()[0])
     act_rows = actuation_phase(card.splitlines()[0])
-    topo_row = topology_phase(card.splitlines()[0], scen[SIZES[-1][0]])
+    topo_row, topo_ctx = topology_phase(card.splitlines()[0], scen[SIZES[-1][0]])
+    routed_row = topology_stream_phase(card.splitlines()[0], topo_ctx)
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -2227,6 +2478,9 @@ def main() -> int:
         {"name": "leg_segment_sum", "route": "cuda",
          "source": "src/repro_torch/csrc/leg_segment_sum.cu",
          "replaces": "src/repro/fleet/engine.py:170", **topo_row},
+        {"name": "stream_chunk_routed", "route": "cuda",
+         "source": "src/repro_torch/csrc/stream_chunk_routed.cu",
+         "replaces": "src/repro/fleet/runtime.py:465", **routed_row},
     ]
     print(f"profiler: {len(PAD_SEEN)} traces; pad kernels recorded of {TRACE_PADS}, by trace: "
           f"{PAD_SEEN}")

@@ -221,13 +221,13 @@ class InterconnectPlanner:
 
 def fleet_planner(fleet, **kw):
     """N-row generalization of :class:`InterconnectPlanner`: a
-    :class:`repro_torch.fleet.runtime.ElasticFleetPlanner` over ``fleet``
-    (a ``FleetSpec`` or ``FleetArrays``; per-link actuation), every row
-    stepped in one chunk of the streaming runtime. ``device=`` and the
-    runtime's other keywords pass through. Topology mode (a
-    ``TopologySpec`` with ``routing=``) is ROADMAP Queue 1, item 4b, and
-    raises ``NotImplementedError``. Behind a factory so ``core`` keeps no
-    import edge onto ``fleet`` (which imports ``core``)."""
+    :class:`repro_torch.fleet.runtime.ElasticFleetPlanner` over ``fleet``,
+    every row stepped in one chunk of the streaming runtime: a
+    ``FleetSpec``/``FleetArrays`` (per-link actuation) or a ``TopologySpec``
+    with ``routing=``/routed ``TopologyArrays`` (per-port leases, per-pair
+    modes). ``device=``, ``routing=`` and the runtime's other keywords pass
+    through. Behind a factory so ``core`` keeps no import edge onto
+    ``fleet`` (which imports ``core``)."""
     from repro_torch.fleet.runtime import ElasticFleetPlanner
 
     return ElasticFleetPlanner(fleet, **kw)

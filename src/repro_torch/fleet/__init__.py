@@ -59,6 +59,7 @@ from .scenario import (  # noqa: F401
     build_fleet_scenario,
     build_multicast_scenario,
     build_relay_scenario,
+    build_reroute_scenario,
     build_topology_scenario,
     link_capacity_gb_hr,
     port_capacity_gb_hr,

@@ -39,6 +39,7 @@ from .scenario import (  # noqa: F401
     build_fleet_scenario,
     build_multicast_scenario,
     build_relay_scenario,
+    build_reroute_scenario,
     build_topology_scenario,
     link_capacity_gb_hr,
     port_capacity_gb_hr,
@@ -86,6 +87,6 @@ __all__ = [
     "FAMILIES", "FleetScenario", "TopologyScenario",
     "broadcast_burst_trace", "build_fleet_scenario",
     "build_multicast_scenario", "build_relay_scenario",
-    "build_topology_scenario",
+    "build_reroute_scenario", "build_topology_scenario",
     "link_capacity_gb_hr", "port_capacity_gb_hr", "vlan_access_gb_hr",
 ]

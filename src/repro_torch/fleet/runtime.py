@@ -1,11 +1,22 @@
 """Streaming fleet runtime in PyTorch: the online half of the planner.
 
-Port of the fleet mode of :mod:`repro.fleet.runtime`. ``plan_fleet`` takes
-the whole (links × hours) demand matrix at once; ToggleCCI is an online
+Port of :mod:`repro.fleet.runtime`. ``plan_fleet`` and ``plan_topology``
+take the whole (rows × hours) demand matrix at once; ToggleCCI is an online
 algorithm, and a serving system only ever sees one hour at a time.
-:class:`FleetRuntime` advances every link one hour per :meth:`~FleetRuntime.step`,
+:class:`FleetRuntime` advances every row one hour per :meth:`~FleetRuntime.step`,
 or K hours per :meth:`~FleetRuntime.step_many`, and its decisions equal the
 offline planner's bit for bit.
+
+Two demand routings, as in the offline engine: *fleet* (each row one link)
+and *topology* (region pairs folded onto shared CCI ports over the
+routing's leg list: pair-level billing state, port-level FSMs). In topology
+mode the routing is a :class:`~repro_torch.fleet.routing.RoutingPlan`
+stacked to its padded leg operand with a port-major leg index, built on the
+host; :meth:`FleetRuntime.reroute` swaps any plan that fits the padded leg
+bound mid-stream, carrying every FSM, prefix ring and billing state across,
+and from the swap on the decisions equal
+:func:`repro_torch.fleet.engine.replay_plan_topology` applying the same
+routing at the same hour.
 
 The state is split as in the JAX package:
 
@@ -18,21 +29,21 @@ The state is split as in the JAX package:
   the chunk kernel carries from chunk to chunk.
 
 One chunk of K hours is one host-to-device copy of a packed block (the
-demand, hour-major, and the host's pre-chunk ring reads), one kernel launch,
-``stream_chunk`` (the clip, the billing calendar and tier fold, the cost
-planes, snapshots, window sums and the FSM, as the JAX runtime's one jitted
-dispatch), and one copy of the packed planes back.
+demand, hour-major, and the host's pre-chunk ring reads), one kernel call,
+and one copy of the packed planes back: ``stream_chunk`` in fleet mode (the
+clip, the billing calendar and tier fold, the cost planes, snapshots,
+window sums and the FSM, as the JAX runtime's one jitted dispatch), and
+``stream_chunk_routed`` in topology mode (the same with the leg fold onto
+the ports between the pair pricing and the port FSMs).
 :meth:`~FleetRuntime.step` is :meth:`~FleetRuntime.step_many` with K = 1. On
-the CPU (``device="cpu"``) the kernel's plain version runs instead.
+the CPU (``device="cpu"``) the kernels' plain versions run instead.
 
-Ported: fleet mode (one row per link), the reactive and hysteresis
-policies, endogenous CCI demand, and the actuation layer on top of it
-(:class:`ElasticFleetPlanner`, whose per-link modes drive
-:func:`repro_torch.dist.collectives.fleet_sync_grads`). Not ported yet,
-each raising ``NotImplementedError``: topology mode and ``reroute`` (ROADMAP Queue 1,
-item 4b; offline topology planning is ported, :func:`repro_torch.fleet.plan_topology`),
-the forecast policy and ``StreamingForecaster`` (item 6),
-observability (item 8).
+Ported: both routings, the reactive and hysteresis policies, endogenous
+CCI demand, ``reroute``, and the actuation layer on top
+(:class:`ElasticFleetPlanner`, per link or per port, whose per-actuator
+modes drive :func:`repro_torch.dist.collectives.fleet_sync_grads`). Not
+ported yet, each raising ``NotImplementedError``: the forecast policy and
+``StreamingForecaster`` (ROADMAP Queue 1, item 6) and observability (item 8).
 """
 from __future__ import annotations
 
@@ -47,10 +58,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
 from .policy import HysteresisPolicy, ReactivePolicy, fsm_carry, make_policy
+from .routing import RoutingPlan, as_routing_plan, index_legs
 from .spec import FleetArrays, FleetSpec
+from .topology import TopologyArrays, TopologySpec
 
-_TOPOLOGY = ("topology mode (TopologySpec/TopologyArrays, routing=, reroute) is ROADMAP "
-             "Queue 1, item 4b")
 _FORECAST = "the forecast policy and StreamingForecaster are ROADMAP Queue 1, item 6"
 _OBS = "observability (obs=) is ROADMAP Queue 1, item 8"
 
@@ -64,12 +75,13 @@ class RuntimeState(NamedTuple):
 
     Host numpy float64 for everything sequential (so every add is the
     offline ``np.cumsum``'s), device tensors for what the kernels carry.
-    In fleet mode rows are links: P == M.
+    Billing rows are per PAIR (P), cost and FSM rows per decision row (M,
+    a port in topology mode); in fleet mode rows are links and P == M.
     """
 
     t: int                  # the hour about to be served
     fsm: torch.Tensor       # device (4, M) int32: state, t_state, up, down
-    dev_cal: torch.Tensor   # device (2, M) float64: dcum, dcum_month twins
+    dev_cal: torch.Tensor   # device (2, P) float64: dcum, dcum_month twins
     dev_pref: torch.Tensor  # device (2, M) float64: vpn_pref, cci_pref twins
     dcum: np.ndarray        # (P,) cumulative clipped billed demand
     dcum_month: np.ndarray  # (P,) dcum at the current month's start
@@ -82,8 +94,8 @@ class RuntimeState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Frozen construction options of a :class:`FleetRuntime` (the fields of
-    :class:`repro.fleet.runtime.RuntimeConfig`). ``routing``, ``forecaster``
-    and ``obs`` belong to slices not ported yet and must stay unset."""
+    :class:`repro.fleet.runtime.RuntimeConfig`). ``forecaster`` and ``obs``
+    belong to slices not ported yet and must stay unset."""
 
     routing: object = None
     policy: object = None
@@ -95,8 +107,6 @@ class RuntimeConfig:
     def validate(self) -> "RuntimeConfig":
         if not (int(self.hours_per_month) >= 1):
             raise ValueError(f"hours_per_month must be >= 1, got {self.hours_per_month}")
-        if self.routing is not None:
-            raise not_ported(_TOPOLOGY)
         if self.forecaster is not None:
             raise not_ported(_FORECAST)
         if self.obs is not None and self.obs is not False:
@@ -108,28 +118,54 @@ class RuntimeConfig:
 class ResolvedRuntime:
     """The operands one stream steps with, resolved on one device."""
 
-    arrays: FleetArrays
+    spec: Optional[TopologySpec]  # the TopologySpec when one was given (for
+                                  # reroute validation), else None
+    topology: bool
+    arrays: object                # FleetArrays or TopologyArrays
     policy: object
     hours_per_month: int
+    routing_plan: Optional[RoutingPlan] = None  # the typed plan behind
+                                  # arrays.routing when a spec was stacked
 
 
 def resolve_runtime_operands(spec, config: RuntimeConfig,
                              device: DeviceLike = None) -> ResolvedRuntime:
-    """Resolve ``(spec, config)`` into stepping operands on ``device``: a
-    :class:`FleetSpec` is stacked (its calendar and policy kind win over the
-    config's), :class:`FleetArrays` are moved."""
+    """Resolve ``(spec, config)`` into stepping operands on ``device``
+    (``src/repro/fleet/runtime.py:632-705``): a :class:`FleetSpec` is
+    stacked (its calendar and policy kind win over the config's; a routing
+    beside it is not read, as in the JAX resolver); a :class:`TopologySpec`
+    needs ``config.routing`` and is stacked with it (the leg operand and its
+    port-major index built on the host); :class:`FleetArrays` and
+    :class:`TopologyArrays` are moved, and the latter carry their own
+    routing, so a routing beside them is an error."""
     config = config.validate()
     dev = resolve_device(device)
     kind = "reactive"
     hours_per_month = int(config.hours_per_month)
+    routing = config.routing
+    topo_spec, plan = None, None
     if isinstance(spec, FleetSpec):
         hours_per_month = spec.hours_per_month
         kind = spec.policy
         arrays = spec.stack(torch.float64, dev)
-    elif isinstance(spec, FleetArrays):
+    elif isinstance(spec, TopologySpec):
+        if routing is None:
+            raise ValueError("a TopologySpec needs an explicit routing (the runtime "
+                             "cannot co-optimize it online; run optimize_routing first)")
+        hours_per_month = spec.hours_per_month
+        kind = spec.policy
+        topo_spec = spec
+        plan = as_routing_plan(routing, n_ports=spec.n_ports, context="FleetRuntime(routing=)")
+        arrays = spec.stack(plan, torch.float64, dev)
+    elif isinstance(spec, (FleetArrays, TopologyArrays)):
+        if routing is not None:
+            raise ValueError("pre-stacked arrays already carry a routing")
         arrays = spec.to(dev)
+        if isinstance(arrays, TopologyArrays):
+            arrays = arrays._replace(routing=index_legs(arrays.routing, arrays.n_ports))
     else:
-        raise not_ported(f"{_TOPOLOGY} (got {type(spec).__name__})")
+        raise TypeError("FleetRuntime streams a FleetSpec, FleetArrays, TopologySpec or "
+                        f"TopologyArrays, got {type(spec).__name__}")
     policy = config.policy
     if policy is None:
         if kind == "forecast":
@@ -139,30 +175,38 @@ def resolve_runtime_operands(spec, config: RuntimeConfig,
         policy = type(policy)(*(f.to(dev) if hasattr(f, "to") else f for f in policy))
     else:
         raise not_ported(f"{_FORECAST} (got {type(policy).__name__})")
-    return ResolvedRuntime(arrays=arrays, policy=policy, hours_per_month=hours_per_month)
+    return ResolvedRuntime(spec=topo_spec, topology=isinstance(arrays, TopologyArrays),
+                           arrays=arrays, policy=policy, hours_per_month=hours_per_month,
+                           routing_plan=plan)
 
 
 class FleetRuntime:
     """Incremental fleet planner: ``step(demand_t)`` serves one hour of every
-    link, ``step_many(block)`` K hours.
+    row, ``step_many(block)`` K hours.
 
-    The streaming twin of :func:`repro_torch.fleet.engine.plan_fleet`: the
-    same pricing, the same policies, one hour (or one chunk) per call. Any
-    mix of :meth:`step` and :meth:`step_many` calls over a demand stream
-    gives the decisions and costs of one offline ``plan_fleet`` on the CPU,
-    bit for bit (float64 throughout, sequential prefixes, no fused
-    multiply-add).
+    The streaming twin of :func:`repro_torch.fleet.engine.plan_fleet` and
+    :func:`~repro_torch.fleet.engine.plan_topology`: the same pricing, the
+    same policies, one hour (or one chunk) per call. Any mix of :meth:`step`
+    and :meth:`step_many` calls over a demand stream gives the decisions and
+    costs of one offline plan on the CPU, bit for bit (float64 throughout,
+    sequential prefixes and leg sums, no fused multiply-add).
 
     Args:
-      spec: a :class:`FleetSpec` or :class:`FleetArrays` (fleet mode).
-      policy: a reactive or hysteresis policy with per-link tensors; ``None``
-        builds the spec's kind.
+      spec: a :class:`FleetSpec`/:class:`FleetArrays` (fleet routing) or a
+        :class:`TopologySpec`/:class:`TopologyArrays` (shared-port routing:
+        give ``routing`` with a spec; arrays carry their own).
+      routing: the :class:`~repro_torch.fleet.routing.RoutingPlan` of a
+        :class:`TopologySpec` (legacy (P,) indices / (M, P) one-hot matrices
+        go through the ``DeprecationWarning`` shim). Its padded leg bound is
+        the largest plan :meth:`reroute` can swap in.
+      policy: a reactive or hysteresis policy with per-row tensors (per port
+        in topology mode); ``None`` builds the spec's kind.
       hours_per_month: billing calendar; taken from the spec when a spec is
         given (pass arrays to choose it).
       renew_in_chunks: release only at multiples of ``T_cci``.
       device: ``None`` runs on CUDA and raises without it; ``"cpu"`` runs
         the kernels' plain versions.
-      routing, forecaster, obs: not ported yet (``NotImplementedError``).
+      forecaster, obs: not ported yet (``NotImplementedError``).
     """
 
     def __init__(
@@ -183,22 +227,31 @@ class FleetRuntime:
         ).validate()
         self.device = resolve_device(device)
         r = resolve_runtime_operands(spec, self.config, self.device)
+        self._spec = r.spec
+        self.topology = r.topology
         self.arrays = r.arrays
         self.policy = r.policy
         self.hours_per_month = r.hours_per_month
         tog = self.arrays.toggle
         self._h_np = tog.h.cpu().numpy().astype(np.int64)
         self.hbuf = int(self._h_np.max()) + 1
-        self.n_rows = self.n_demand_rows = int(tog.h.shape[0])
+        self.n_rows = int(tog.h.shape[0])
+        self.n_demand_rows = self.arrays.n_pairs if self.topology else self.n_rows
         self._rows_idx = np.arange(self.n_rows)
-        self.topology = False       # fleet mode: one decision row per link
         self.obs = None             # observability is ROADMAP Queue 1, item 8
-        # Per-row operands of the chunk, on the device. The CCI lease is
-        # (L + V·1) before the volume term is added, as the JAX tick sums it.
+        # Per-row operands of the chunk, on the device. Fleet mode: the CCI
+        # lease is (L + V·1) before the volume term is added, as the JAX tick
+        # sums it. Topology mode: per-pair pricing rows, then per-port rows
+        # after the lease, which depends on the routing (_set_routing_caches).
         a = self.arrays
-        self._chunk_rows = (a.capacity, a.L_vpn, a.L_cci + a.V_cci, a.c_cci,
-                            a.tier_bounds, a.tier_rates, tog.theta1, tog.theta2, tog.h,
-                            tog.D, tog.T_cci, *self.policy.holds())
+        fsm_rows = (tog.theta1, tog.theta2, tog.h, tog.D, tog.T_cci, *self.policy.holds())
+        if self.topology:
+            self._pair_rows = (a.pair_capacity, a.L_vpn, a.tier_bounds, a.tier_rates)
+            self._port_rows = (a.c_cci, a.port_capacity, *fsm_rows)
+        else:
+            self._chunk_rows = (a.capacity, a.L_vpn, a.L_cci + a.V_cci, a.c_cci,
+                                a.tier_bounds, a.tier_rates, *fsm_rows)
+        self._set_routing_caches(r.routing_plan)
         self.reset()
 
     @classmethod
@@ -209,13 +262,32 @@ class FleetRuntime:
         fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}
         return cls(spec, device=device, **fields)
 
+    def _set_routing_caches(self, plan: Optional[RoutingPlan] = None) -> None:
+        """Host views of ``arrays.routing``, derived once per (re)routing,
+        never per chunk (``src/repro/fleet/runtime.py:817-842``): the typed
+        :class:`RoutingPlan` (decoded from the leg operand when the caller
+        has none), the (P,) primary-port vector ``modes()`` and the sync
+        groups read, and the per-port lease ``L_cci + V_cci·n_attach`` on the
+        device, in the JAX tick's order of operations."""
+        if not self.topology:
+            self.routing_plan = self._routing_idx_np = self._lease = None
+            return
+        a = self.arrays
+        if plan is None:
+            plan = RoutingPlan.from_operand(a.routing, self.n_rows,
+                                            provenance="from_operand:FleetRuntime")
+        self.routing_plan = plan
+        self._routing_idx_np = plan.primary
+        self._lease = a.L_cci + a.V_cci * a.routing.index.n_attach
+
     def reset(self) -> None:
-        """Rewind to hour 0 (fresh carries; operands and policy unchanged)."""
+        """Rewind to hour 0 (fresh carries; operands, routing and policy
+        unchanged)."""
         M, P = self.n_rows, self.n_demand_rows
         z = lambda *s: np.zeros(s, np.float64)
-        dz = lambda: torch.zeros((2, M), dtype=torch.float64, device=self.device)
+        dz = lambda n: torch.zeros((2, n), dtype=torch.float64, device=self.device)
         self._state = RuntimeState(
-            t=0, fsm=fsm_carry(self.policy), dev_cal=dz(), dev_pref=dz(),
+            t=0, fsm=fsm_carry(self.policy), dev_cal=dz(P), dev_pref=dz(M),
             dcum=z(P), dcum_month=z(P), vpn_pref=z(M), cci_pref=z(M),
             ring_vpn=z(self.hbuf, M), ring_cci=z(self.hbuf, M),
         )
@@ -226,11 +298,11 @@ class FleetRuntime:
 
     def step(self, demand_t, *, cci_demand_t=None) -> Dict[str, np.ndarray]:
         """Advance one hour. ``demand_t``: (rows,) GB billed on the VPN path
-        this hour; ``cci_demand_t`` optionally prices the CCI counterfactual
-        on its own volume (endogenous demand). Returns this hour's (rows,)
-        ``x``, ``state``, ``r_vpn``, ``r_cci``, ``vpn_cost``, ``cci_cost``,
-        ``cost``; ``state`` is the FSM state that serves the hour (map it
-        with :meth:`modes`)."""
+        this hour (per pair in topology mode); ``cci_demand_t`` optionally
+        prices the CCI counterfactual on its own volume (endogenous demand).
+        Returns this hour's per-decision-row ``x``, ``state``, ``r_vpn``,
+        ``r_cci``, ``vpn_cost``, ``cci_cost``, ``cost``; ``state`` is the FSM
+        state that serves the hour (map it with :meth:`modes`)."""
         d = np.asarray(demand_t, np.float64)
         if d.shape != (self.n_demand_rows,):
             raise ValueError(f"demand_t must be ({self.n_demand_rows},), got {d.shape}")
@@ -244,8 +316,8 @@ class FleetRuntime:
         :meth:`step`'s dict with ``(rows, K)`` arrays.
 
         Contract: any chunking of a stream, interleaved freely with
-        :meth:`step`, gives the per-tick results bit for bit, in the
-        outputs and in the carried host prefixes.
+        :meth:`step` and :meth:`reroute`, gives the per-tick results bit for
+        bit, in the outputs and in the carried host prefixes.
         """
         block, K, endo = self._pack(demand_block, cci_demand_block)
         host = self._launch(torch.from_numpy(block).to(self.device), K, endo)
@@ -290,22 +362,31 @@ class FleetRuntime:
         return block, K, endo
 
     def _launch(self, block: torch.Tensor, K: int, endo: bool) -> torch.Tensor:
-        """The chunk on the device, one ``stream_chunk``: returns its packed
-        float64 (8K + 4, M) result (vpn, cci, r_vpn, r_cci, snap_v, snap_c,
-        x, state, K rows each, then dcum, dcum_month, vpn_pref, cci_pref).
-        The next device carries are the FSM carry out and views of the
-        result's last four rows."""
-        host, fsm = ops.stream_chunk(*self._chunk_args(block, K, endo),
-                                     renew_in_chunks=self.policy.renew_in_chunks)
-        self._state = self._state._replace(fsm=fsm, dev_cal=host[8 * K:8 * K + 2],
-                                           dev_pref=host[8 * K + 2:])
+        """The chunk on the device, one ``stream_chunk`` (fleet mode) or
+        ``stream_chunk_routed`` (topology mode) call. Returns its packed
+        float64 result: (8K + 4, M) or flat, the same elements in the same
+        order either way: the (K, M) planes vpn, cci, r_vpn, r_cci, snap_v,
+        snap_c, x, state, then dcum, dcum_month (P each), vpn_pref, cci_pref
+        (M each). The next device carries are the FSM carry out and views of
+        the result's tail."""
+        chunk = ops.stream_chunk_routed if self.topology else ops.stream_chunk
+        host, fsm = chunk(*self._chunk_args(block, K, endo),
+                          renew_in_chunks=self.policy.renew_in_chunks)
+        M, P = self.n_rows, self.n_demand_rows
+        tail = host.view(-1)[8 * K * M:]
+        self._state = self._state._replace(fsm=fsm, dev_cal=tail[:2 * P].view(2, P),
+                                           dev_pref=tail[2 * P:].view(2, M))
         return host
 
     def _chunk_args(self, block: torch.Tensor, K: int, endo: bool) -> tuple:
-        """``stream_chunk``'s positional arguments for ``block`` at the
-        current state (``renew_in_chunks`` is the policy's)."""
+        """The chunk wrapper's positional arguments for ``block`` at the
+        current state and routing (``renew_in_chunks`` is the policy's)."""
         st = self._state
-        return (block, K, endo, *self._chunk_rows, st.dev_cal, st.fsm, st.dev_pref, st.t,
+        if self.topology:
+            rows = (*self._pair_rows, self._lease, *self._port_rows, self.arrays.routing)
+        else:
+            rows = self._chunk_rows
+        return (block, K, endo, *rows, st.dev_cal, st.fsm, st.dev_pref, st.t,
                 self.hours_per_month)
 
     def _commit(self, host: np.ndarray, K: int) -> Dict[str, np.ndarray]:
@@ -313,8 +394,9 @@ class FleetRuntime:
         snapshots, the accumulators the device's carries (the same adds in
         the same order, so adopting them is the replay)."""
         st = self._state
-        t = st.t
-        planes = host[:8 * K].reshape(8, K, -1)
+        t, M, P = st.t, self.n_rows, self.n_demand_rows
+        flat = host.reshape(-1)
+        planes = flat[:8 * K * M].reshape(8, K, M)
         vpn_t, cci_t, r_vpn, r_cci, snap_v, snap_c = planes[:6]
         x = planes[6].astype(np.int64)
         state = planes[7].astype(np.int64)
@@ -322,7 +404,9 @@ class FleetRuntime:
         slots = (t + np.arange(K - w, K)) % self.hbuf
         st.ring_vpn[slots] = snap_v[K - w:]
         st.ring_cci[slots] = snap_c[K - w:]
-        st.dcum[:], st.dcum_month[:], st.vpn_pref[:], st.cci_pref[:] = host[8 * K:]
+        tail = flat[8 * K * M:]
+        st.dcum[:], st.dcum_month[:] = tail[:2 * P].reshape(2, P)
+        st.vpn_pref[:], st.cci_pref[:] = tail[2 * P:].reshape(2, M)
         self._state = st._replace(t=t + K)
         return {
             "x": x.T,                      # (rows, K) — run()'s stacked layout
@@ -346,18 +430,60 @@ class FleetRuntime:
         return {k: np.stack([o[k] for o in outs], axis=1) for k in outs[0]}
 
     def reroute(self, routing) -> None:
-        raise not_ported(_TOPOLOGY)
+        """Swap the pair→port routing MID-STREAM (topology mode only;
+        ``src/repro/fleet/runtime.py:1192-1250``).
+
+        ``routing`` is a :class:`~repro_torch.fleet.routing.RoutingPlan` of
+        any hop depth or tree shape whose legs fit the padded bound the
+        stream was built with (``plan.total_hops <= n_legs``; a larger plan
+        raises ``ValueError``); legacy bare indices and one-hot matrices go
+        through the ``DeprecationWarning`` shim, and a spec validates the
+        plan. The new leg operand and its port-major index are built on the
+        host, once. Every carry — FSM, prefix rings (so window sums near the
+        swap mix old- and new-routing hours, as a live system sees them),
+        pair billing state — rides across untouched: from this hour on the
+        decisions equal :func:`repro_torch.fleet.engine.replay_plan_topology`
+        applying the same routing at the same hour.
+        """
+        if not self.topology:
+            raise ValueError("reroute() applies to topology (shared-port) mode; a fleet "
+                             "has no routing to swap")
+        M, P = self.n_rows, self.n_demand_rows
+        plan = as_routing_plan(routing, n_ports=M, context="FleetRuntime.reroute")
+        if plan.n_rows != P or plan.n_ports != M:
+            raise ValueError(f"plan routes {plan.n_rows} rows onto {plan.n_ports} ports, "
+                             f"the stream carries {P} rows on {M} ports")
+        if self._spec is not None:
+            self._spec.validate_plan(plan)
+        E = self.arrays.routing.n_legs
+        if plan.total_hops > E:
+            raise ValueError(
+                f"plan needs {plan.total_hops} legs but the stream was built with a padded "
+                f"bound of {E}. Construct the runtime with a routing pad_to()'d to the "
+                "maximum hop budget you plan to swap in.")
+        plan = plan.pad_to(E)
+        self.arrays = self.arrays._replace(routing=plan.operand(torch.float64, self.device))
+        self._set_routing_caches(plan)
 
     def port_occupancy(self) -> np.ndarray:
-        """(M,) links attached per decision row: all ones in fleet mode."""
-        return np.ones(self.n_rows)
+        """(M,) pairs attached per port under the current routing (all ones
+        in fleet mode: one link per row)."""
+        if not self.topology:
+            return np.ones(self.n_rows)
+        return np.bincount(self._routing_idx_np, minlength=self.n_rows).astype(np.float64)
 
     def modes(self, out, *, mode_fn: Optional[Callable[[int], str]] = None) -> list:
-        """Map one step's FSM states to per-link collective modes (fleet
-        mode: one mode per link). ``mode_fn`` maps a state code to a mode;
-        ``None`` uses :func:`repro_torch.core.planner.collective_mode`."""
+        """Map one step's FSM states to per-actuator collective modes. Fleet
+        mode: one mode per link. Topology mode: one mode per PAIR, each
+        inheriting its primary (first-hop) port's state under the current
+        routing; pairs sharing an ON port share one leased sync domain.
+        ``mode_fn`` maps a state code to a mode; ``None`` uses
+        :func:`repro_torch.core.planner.collective_mode`."""
         mode_fn = collective_mode if mode_fn is None else mode_fn
-        return [mode_fn(int(s)) for s in np.asarray(out["state"])]
+        states = np.asarray(out["state"])
+        if self.topology:
+            states = states[self._routing_idx_np]
+        return [mode_fn(int(s)) for s in states]
 
 
 # ---------------------------------------------------------------------------
@@ -367,8 +493,13 @@ class FleetRuntime:
 
 @dataclasses.dataclass
 class FleetPlannerReport:
-    """Realized economics of an actuated streaming run (fleet mode: decision
-    rows, actuators and links are the same N rows)."""
+    """Realized economics of an actuated streaming run.
+
+    Rows are DECISION rows (links in fleet mode, ports in topology mode);
+    the actuator columns ``pair_gb``/``pair_gb_saved`` are per pair (per
+    link in fleet mode). ``port_occupancy`` counts the pairs attached to
+    each port under the final routing (all ones in fleet mode).
+    """
 
     hours: int
     total_cost: float
@@ -377,8 +508,8 @@ class FleetPlannerReport:
     on_fraction: np.ndarray        # (M,) fraction of hours the row leased
     total_gb: float
     link_cost: np.ndarray          # (M,) realized cost per decision row
-    port_occupancy: np.ndarray     # (M,) links attached per row (all ones)
-    pair_gb: np.ndarray            # (P,) billed GB per link
+    port_occupancy: np.ndarray     # (M,) pairs attached per port/link
+    pair_gb: np.ndarray            # (P,) billed GB per pair/link
     pair_gb_saved: np.ndarray      # (P,) wire GB saved vs always-full-precision
 
     @property
@@ -389,24 +520,31 @@ class FleetPlannerReport:
 
 
 class ElasticFleetPlanner:
-    """N-link :class:`repro_torch.core.planner.InterconnectPlanner`.
+    """N-row :class:`repro_torch.core.planner.InterconnectPlanner`.
 
-    Port of :class:`repro.fleet.runtime.ElasticFleetPlanner` in fleet mode.
-    ``feed_hour(bytes)`` per tick: each link's FSM mode actuates the
-    collective layer (``'hierarchical'`` over the leased link at full
-    precision, ``'compressed'`` int8 + error feedback on the pay-per-GB
-    path), and each mode's counterfactual is priced on its own demand
-    shape: the VPN path carries ``compress_ratio`` times fewer billed GB
+    Port of :class:`repro.fleet.runtime.ElasticFleetPlanner`.
+    ``feed_hour(bytes)`` per tick: each FSM mode actuates the collective
+    layer (``'hierarchical'`` over the leased link at full precision,
+    ``'compressed'`` int8 + error feedback on the pay-per-GB path), and each
+    mode's counterfactual is priced on its own demand shape: the VPN path
+    carries ``compress_ratio`` times fewer billed GB
     (``runtime.step(gb / ratio, cci_demand_t=gb)``). Feed the modes to
     :func:`repro_torch.dist.collectives.fleet_sync_grads` with
     ``groups=sync_groups()``.
 
+    Two routings, like the runtime underneath: *fleet* mode feeds per-link
+    bytes and returns per-link modes; *per-port topology* mode (a
+    ``TopologySpec`` with ``routing=``, or routed ``TopologyArrays``) feeds
+    per-PAIR bytes, prices the shared port leases and returns per-pair
+    modes: pairs on one ON port form one leased sync domain
+    (``sync_groups()`` is the primary-port vector). ``runtime.reroute``
+    re-targets the actuation from the next hour.
+
     ``compress_ratio`` and ``collective_mode`` are per-instance knobs, as
     in the JAX class (``None``: :data:`COMPRESS_RATIO` and
     :func:`~repro_torch.core.planner.collective_mode`). The runtime's
-    keywords pass through (``device=``, ``policy=``, ...); per-port
-    topology mode (``TopologySpec``, ``routing=``) is ROADMAP Queue 1,
-    item 4b, and ``obs=`` item 8: both raise ``NotImplementedError``.
+    keywords pass through (``device=``, ``routing=``, ``policy=``, ...);
+    ``obs=`` is ROADMAP Queue 1, item 8, and raises ``NotImplementedError``.
     """
 
     COMPRESS_RATIO = COMPRESS_RATIO
@@ -427,13 +565,17 @@ class ElasticFleetPlanner:
         self.on_hours = np.zeros(n, np.int64)
 
     def sync_groups(self) -> np.ndarray:
-        """(P,) leased-sync-domain id per actuator: its own row in fleet
-        mode. Feed as ``groups=`` to ``fleet_sync_grads``."""
-        return np.arange(self.runtime.n_rows)
+        """(P,) leased-sync-domain id per actuator: the routed primary port
+        in topology mode (pairs sharing a port share one domain), its own
+        row in fleet mode. Feed as ``groups=`` to ``fleet_sync_grads``."""
+        if not self.topology:
+            return np.arange(self.runtime.n_rows)
+        return self.runtime._routing_idx_np.copy()
 
     def feed_hour(self, cross_pod_bytes) -> list:
-        """Account one hour of per-link cross-pod traffic (bytes). Returns
-        each link's collective mode for the hour just served."""
+        """Account one hour of per-actuator cross-pod traffic (bytes; per
+        link in fleet mode, per pair in topology mode). Returns each
+        actuator's collective mode for the hour just served."""
         raw_gb = np.asarray(cross_pod_bytes, np.float64) / 1e9
         out = self.runtime.step(raw_gb / self.compress_ratio, cci_demand_t=raw_gb)
         on = out["x"] == 1

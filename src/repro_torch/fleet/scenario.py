@@ -25,8 +25,8 @@ in the same order and both packages build the same demand bits and the same
 per-link :class:`CostParams`, ports and pairs. The topology builders
 (:func:`build_topology_scenario`, :func:`build_relay_scenario`,
 :func:`build_multicast_scenario`) compose facilities, shared ports and
-region pairs (paper §VII-A); the re-routing scenario of the streaming
-runtime's topology mode is not ported yet (ROADMAP Queue 1, item 4b).
+region pairs (paper §VII-A); :func:`build_reroute_scenario` is the regime
+swap the streaming runtime's live re-routing is measured on.
 """
 from __future__ import annotations
 
@@ -404,6 +404,55 @@ def build_topology_scenario(
         horizon=horizon,
         history=full[:, :history_hours] if history_hours else None,
     )
+
+
+def build_reroute_scenario(
+    *, horizon: int = 2000, shift_hour: int = 800, seed: int = 0
+) -> TopologyScenario:
+    """A live re-routing scenario: a hot pair outgrows its spill port.
+
+    Three pairs, two ports. The ``hub`` port has dedicated-link unit
+    economics (low $/GB); the ``spill`` port is 10x more expensive per GB.
+    ``anchor`` and ``fading`` fill the hub to its capacity headroom, so the
+    greedy packer must park ``hot`` (initially tiny) on the spill port. At
+    ``shift_hour`` the regimes swap: ``fading`` collapses and ``hot`` ramps
+    ~25x — the hub now has room, and migrating ``hot`` onto it saves the
+    spill port's lease AND the 10x transfer premium. A planner that
+    re-routes on streamed state catches the migration mid-stream
+    (:meth:`repro_torch.fleet.runtime.FleetRuntime.reroute`); a frozen
+    routing keeps paying the spill premium for the rest of the horizon.
+    """
+    from repro_torch.core.pricing import flat_rate
+
+    if not 24 <= shift_hour < horizon:
+        raise ValueError(f"need 24 <= shift_hour < horizon, got {shift_hour}, {horizon}")
+    rng = np.random.default_rng(seed)
+    mk_port = lambda name, fac, c_gb: PortSpec(
+        name=name, facility=fac, cloud="aws",
+        L_cci=4.55, V_cci=0.1, c_cci=c_gb,
+        capacity_gb_hr=port_capacity_gb_hr(),
+        D=48, T_cci=168, h=96, theta1=0.9, theta2=1.1,
+    )
+    mk_pair = lambda name, cands: PairSpec(
+        name=name, src="gcp", dst="aws", L_vpn=0.105,
+        vpn_tier=flat_rate(0.08),
+        capacity_gb_hr=vlan_access_gb_hr(10),
+        candidates=cands, family="constant",
+    )
+    topo = TopologySpec(
+        ports=(mk_port("hub-aws-p0", "fac-hub", 0.002),
+               mk_port("spill-aws-p0", "fac-spill", 0.02)),
+        pairs=(mk_pair("anchor", (0,)),
+               mk_pair("fading", (0,)),
+               mk_pair("hot", (0, 1))),
+    )
+    before = np.array([1800.0, 1800.0, 50.0])
+    after = np.array([1800.0, 100.0, 1200.0])
+    demand = np.empty((3, horizon))
+    demand[:, :shift_hour] = before[:, None]
+    demand[:, shift_hour:] = after[:, None]
+    demand *= rng.uniform(0.97, 1.03, size=demand.shape)  # mild jitter
+    return TopologyScenario(topo=topo, demand=demand, horizon=horizon)
 
 
 # ---------------------------------------------------------------------------

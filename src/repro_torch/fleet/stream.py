@@ -3,7 +3,7 @@
 Facade of :mod:`repro.fleet.stream`: the incremental runtime
 (:class:`FleetRuntime`, its frozen :class:`RuntimeConfig`, and the operand
 resolution it shares) and the endogenous-demand planner over it
-(:class:`ElasticFleetPlanner`, fleet mode). The live forecaster keeps its
+(:class:`ElasticFleetPlanner`, per link or per port). The live forecaster keeps its
 names here and raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.
 """

@@ -26,10 +26,11 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
-           "leg_segment_sum.cu", "rmsnorm.cu", "flash_attention.cu", "int8_quant.cu")
+           "stream_chunk_routed.cu", "leg_segment_sum.cu", "rmsnorm.cu", "flash_attention.cu",
+           "int8_quant.cu")
 #: The float64 sources, held bit for bit against their plain versions.
 EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
-                 "leg_segment_sum.cu")
+                 "stream_chunk_routed.cu", "leg_segment_sum.cu")
 #: Headers the sources include; part of the build hash.
 HEADERS = ("tier_fold.cuh", "fsm_step.cuh", "occupancy.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -51,8 +52,9 @@ EXACT_FLAGS = ("-fmad=false",)
 #: ``flash_attention_sm90`` those of its Hopper entry.
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0,
-    "stream_chunk": 0, "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0,
-    "int8_quantize": 0, "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0,
+    "stream_chunk": 0, "stream_chunk_routed": 0, "flash_attention": 0,
+    "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0, "int8_dequantize": 0,
+    "tiered_cost": 0, "leg_segment_sum": 0,
 }
 
 _lock = threading.Lock()
@@ -148,6 +150,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fsm_chunk_f64.restype = i
     lib.stream_chunk_f64.argtypes = [p] * 20 + [i] * 6 + [p] * 3
     lib.stream_chunk_f64.restype = i
+    lib.stream_chunk_routed_f64.argtypes = [p] * 27 + [i] * 8 + [p] * 3
+    lib.stream_chunk_routed_f64.restype = i
     # src0, src1, w0, w1, n_planes, leg_pair, order, start, T, M, out0, out1, stream
     lib.leg_segment_sum_f64.argtypes = [p] * 4 + [i] + [p] * 3 + [i, i] + [p] * 3
     lib.leg_segment_sum_f64.restype = i

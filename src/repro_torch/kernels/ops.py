@@ -27,6 +27,7 @@ from .leg_segment_sum import leg_segment_sum as _leg_kernel
 from .leg_segment_sum import port_major
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .stream_chunk import stream_chunk as _stream_chunk_kernel
+from .stream_chunk import stream_chunk_routed as _stream_chunk_routed_kernel
 from .tiered_cost import tiered_cost as _tiered_static_kernel
 from .tiered_cost import tiered_cost_batched as _tiered_kernel
 from .tiered_cost_scan import tiered_cost_calendar as _calendar_kernel
@@ -103,6 +104,27 @@ def stream_chunk(block, K: int, endo: bool, capacity, L_vpn, lease_cci, c_cci, b
                                     renew_in_chunks=renew_in_chunks)
     return ref.stream_chunk_ref(block, K, endo, *args, t0, hours_per_month,
                                 renew_in_chunks=renew_in_chunks)
+
+
+def stream_chunk_routed(block, K: int, endo: bool, pair_capacity, L_vpn, bounds, rates,
+                        lease_cci, c_cci, port_capacity, theta1, theta2, h, D, T_cci,
+                        up_hold, down_hold, routing, cal, fsm, pref, t0: int,
+                        hours_per_month: int, *, renew_in_chunks: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streaming runtime's whole chunk in topology mode from its packed
+    block: ``(flat float64 result (8K·M + 2P + 2M), FSM carry (4, M) int32)``.
+    ``routing`` is a :class:`~repro_torch.fleet.routing.RoutingOperand`; the
+    kernel walks its port-major index, the plain version its legs in order."""
+    args = (pair_capacity, L_vpn, bounds, rates, lease_cci, c_cci, port_capacity, theta1,
+            theta2, h, D, T_cci, up_hold, down_hold)
+    carries = (cal, fsm, pref)
+    if _route(block, "stream_chunk_routed"):
+        return _stream_chunk_routed_kernel(
+            block.contiguous(), K, endo, *(a.contiguous() for a in args), routing,
+            *(a.contiguous() for a in carries), t0, hours_per_month,
+            renew_in_chunks=renew_in_chunks)
+    return ref.stream_chunk_routed_ref(block, K, endo, *args, routing, *carries, t0,
+                                       hours_per_month, renew_in_chunks=renew_in_chunks)
 
 
 def leg_segment_sum(src, leg_pair, leg_port, w, num_segments: int, *, index=None):

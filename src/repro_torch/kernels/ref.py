@@ -172,6 +172,46 @@ def fsm_chunk_ref(
     }
 
 
+def _split_block(block: torch.Tensor, K: int, P: int, M: int, endo: bool):
+    """The runtime's packed chunk block as views: demand (K, P), the CCI
+    demand (K, P) or None, then the window reads pre_v, pre_c (K, M)."""
+    if block.shape != (block_size(K, M, endo, P),):
+        raise ValueError(f"stream chunk block: want ({block_size(K, M, endo, P)},), "
+                         f"got {tuple(block.shape)}")
+    nd = (2 if endo else 1) * K * P
+    cci = block[K * P:nd].view(K, P) if endo else None
+    return (block[:K * P].view(K, P), cci, block[nd:nd + K * M].view(K, M),
+            block[nd + K * M:].view(K, M))
+
+
+def _chunk_pair_half(demand, cci_demand, capacity, L_vpn, bounds, rates, cal, t0: int,
+                     hours_per_month: int):
+    """The chunk's per-row pricing (``runtime.py:417-464``): clip the demand
+    (and the CCI demand) at the capacity with ``torch.minimum``, price it on
+    the billing calendar (:func:`tiered_cost_calendar_ref`) and add the VPN
+    lease. Returns ``(d_cci, vpn (K, rows), calendar carry (2, rows))``."""
+    cap = capacity[None, :]
+    d_pair = torch.minimum(demand, cap)
+    d_cci = d_pair if cci_demand is None else torch.minimum(cci_demand, cap)
+    transfer, cal_out = tiered_cost_calendar_ref(cal, d_pair, bounds, rates, t0,
+                                                 hours_per_month)
+    return d_cci, L_vpn[None, :] + transfer, cal_out
+
+
+def _chunk_port_half(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold,
+                     down_hold, fsm, pref, t0: int, renew_in_chunks: bool):
+    """The chunk's per-decision-row half on its (K, M) cost planes:
+    :func:`fsm_chunk_ref`. Returns the (8, K, M) float64 planes (vpn, cci,
+    r_vpn, r_cci, snap_v, snap_c, x, state), the prefixes after the chunk
+    (2, M) and the FSM carry (4, M) int32."""
+    out = fsm_chunk_ref(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold,
+                        down_hold, fsm, pref, t0, renew_in_chunks=renew_in_chunks)
+    f64 = torch.float64
+    planes = torch.stack([vpn, cci, out["r_vpn"], out["r_cci"], out["snap_v"], out["snap_c"],
+                          out["x"].to(f64), out["state"].to(f64)])
+    return planes, out["pref"], out["carry"]
+
+
 def stream_chunk_ref(
     block: torch.Tensor, K: int, endo: bool,
     capacity: torch.Tensor, L_vpn: torch.Tensor, lease_cci: torch.Tensor,
@@ -197,25 +237,57 @@ def stream_chunk_ref(
     dcum_month, vpn_pref, cci_pref) and the FSM carry (4, M) int32.
     """
     M = capacity.shape[0]
-    nd = (2 if endo else 1) * K * M
-    if block.shape != (block_size(K, M, endo),):
-        raise ValueError(f"stream_chunk block: want ({block_size(K, M, endo)},), "
-                         f"got {tuple(block.shape)}")
-    cap = capacity[None, :]
-    d_pair = torch.minimum(block[:K * M].view(K, M), cap)
-    d_cci = torch.minimum(block[K * M:nd].view(K, M), cap) if endo else d_pair
-    pre_v = block[nd:nd + K * M].view(K, M)
-    pre_c = block[nd + K * M:].view(K, M)
-    transfer, cal_out = tiered_cost_calendar_ref(cal, d_pair, bounds, rates, t0,
-                                                 hours_per_month)
-    vpn = L_vpn[None, :] + transfer
+    demand, cci_demand, pre_v, pre_c = _split_block(block, K, M, M, endo)
+    d_cci, vpn, cal_out = _chunk_pair_half(demand, cci_demand, capacity, L_vpn, bounds,
+                                           rates, cal, t0, hours_per_month)
     cci = lease_cci[None, :] + c_cci[None, :] * d_cci
-    out = fsm_chunk_ref(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold,
-                        down_hold, fsm, pref, t0, renew_in_chunks=renew_in_chunks)
-    f64 = torch.float64
-    packed = torch.cat([vpn, cci, out["r_vpn"], out["r_cci"], out["snap_v"], out["snap_c"],
-                        out["x"].to(f64), out["state"].to(f64), cal_out, out["pref"]])
-    return packed, out["carry"]
+    planes, pref_out, carry = _chunk_port_half(
+        vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down_hold, fsm, pref,
+        t0, renew_in_chunks)
+    return torch.cat([planes.reshape(8 * K, M), cal_out, pref_out]), carry
+
+
+def stream_chunk_routed_ref(
+    block: torch.Tensor, K: int, endo: bool,
+    pair_capacity: torch.Tensor, L_vpn: torch.Tensor, bounds: torch.Tensor,
+    rates: torch.Tensor, lease_cci: torch.Tensor, c_cci: torch.Tensor,
+    port_capacity: torch.Tensor, theta1: torch.Tensor, theta2: torch.Tensor,
+    h: torch.Tensor, D: torch.Tensor, T_cci: torch.Tensor,
+    up_hold: torch.Tensor, down_hold: torch.Tensor, routing,
+    cal: torch.Tensor, fsm: torch.Tensor, pref: torch.Tensor,
+    t0: int, hours_per_month: int,
+    *,
+    renew_in_chunks: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.stream_chunk.stream_chunk_routed`:
+    the streaming runtime's chunk in topology mode (``runtime.py:391-515``
+    with ``topology=True``).
+
+    The block holds the demand (and the CCI demand) per PAIR, (K, P), then
+    the window reads per PORT, (K, M). Each pair is clipped and priced on its
+    billing calendar as :func:`stream_chunk_ref` prices a link; then, hour by
+    hour, the pairs fold onto the ports over the routing's padded leg list in
+    leg order (:func:`leg_segment_sum_ref`): ``vpn = seg(vpn_pair[lp]·vpn_w)``
+    and ``d_bill = minimum(seg(d_cci[lp]·attach_w), port_capacity)``; the CCI
+    plane is ``lease_cci + c_cci·d_bill`` (``lease_cci = L_cci +
+    V_cci·n_attach``, summed once per routing). The port half is
+    :func:`stream_chunk_ref`'s. Returns the flat float64 result (the 8 (K, M)
+    planes, then dcum, dcum_month (P each), vpn_pref, cci_pref (M each)) and
+    the FSM carry (4, M) int32.
+    """
+    P, M = pair_capacity.shape[0], lease_cci.shape[0]
+    demand, cci_demand, pre_v, pre_c = _split_block(block, K, P, M, endo)
+    d_cci, vpn_pair, cal_out = _chunk_pair_half(demand, cci_demand, pair_capacity, L_vpn,
+                                                bounds, rates, cal, t0, hours_per_month)
+    lp, lm = routing.leg_pair, routing.leg_port
+    seg = lambda plane, w: leg_segment_sum_ref(plane.T, lp, lm, w, M).T    # (K, M)
+    vpn = seg(vpn_pair, routing.vpn_w)
+    d_bill = torch.minimum(seg(d_cci, routing.attach_w), port_capacity[None, :])
+    cci = lease_cci[None, :] + c_cci[None, :] * d_bill
+    planes, pref_out, carry = _chunk_port_half(
+        vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down_hold, fsm, pref,
+        t0, renew_in_chunks)
+    return torch.cat([planes.reshape(-1), cal_out.reshape(-1), pref_out.reshape(-1)]), carry
 
 
 def leg_segment_sum_ref(src: torch.Tensor, leg_pair: torch.Tensor, leg_port: torch.Tensor,

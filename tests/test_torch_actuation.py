@@ -559,9 +559,10 @@ def test_fleet_planner_factory_and_out_of_scope_modes():
     assert isinstance(pl, ElasticFleetPlanner) and not pl.topology
     assert pl.compress_ratio == 2.0 and pl.feed_hour([1e9, 1e9]) == ["s0", "s0"]
     np.testing.assert_array_equal(pl.report().port_occupancy, [1.0, 1.0])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        planner.fleet_planner(fleet, device="cpu", routing=[0, 0])
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # A routing beside a FleetSpec is not read (fleet mode, as the JAX
+    # resolver); anything but a spec or stacked arrays is refused.
+    assert not planner.fleet_planner(fleet, device="cpu", routing=[0, 0]).topology
+    with pytest.raises(TypeError, match="FleetSpec"):
         planner.fleet_planner(object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         ElasticFleetPlanner(fleet, device="cpu", obs=True)

@@ -23,7 +23,10 @@ multiples of 8 and aligned inputs, the general one otherwise). The topology
 slice's leg-ordered segment sum keeps its plain version's order (each
 port's legs in leg order) and is held bit for bit, NaN and padding legs
 included; ``plan_topology`` on the card against the CPU: decisions equal,
-costs ``rtol=1e-9``.
+costs ``rtol=1e-9``. The streaming runtime's routed chunk keeps its plain
+version's order (pair calendar and fold, then each port's legs in leg
+order) and is held bit for bit, and so is a topology stream on the card
+against the CPU stream, across a reroute.
 """
 import dataclasses
 
@@ -42,6 +45,7 @@ from repro_torch.fleet import FleetRuntime, build_fleet_scenario, plan_fleet
 from repro_torch.fleet import routing as trout
 from repro_torch.fleet import scenario as tscen
 from repro_torch.fleet.engine import plan_topology
+from repro_torch.fleet.topology import optimize_routing
 from repro_torch.fleet import policy as tpol
 from repro_torch.fleet.spec import pad_tier_tables
 from repro_torch.kernels import ops, ref
@@ -49,7 +53,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan
 from repro_torch.kernels.leg_segment_sum import leg_segment_sum
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.stream_chunk import stream_chunk
+from repro_torch.kernels.stream_chunk import stream_chunk, stream_chunk_routed
 from repro_torch.kernels.tiered_cost import tiered_cost_batched
 from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
 
@@ -237,9 +241,9 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
     assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1,
                             "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
-                            "flash_attention": 0, "flash_attention_sm90": 0, "rmsnorm": 0,
-                            "int8_quantize": 0, "int8_dequantize": 0, "tiered_cost": 0,
-                            "leg_segment_sum": 0}
+                            "stream_chunk_routed": 0, "flash_attention": 0,
+                            "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
+                            "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0}
     assert got["x"].is_cuda
     want = plan_fleet(sc.fleet, sc.demand, device="cpu")
     for k in ("x", "state"):
@@ -946,3 +950,123 @@ def test_plan_topology_gpu_matches_cpu(cuda_device, case):
     for k in ("toggle_cost", "static_vpn", "static_cci", "vpn_hourly", "cci_hourly",
               "port_demand"):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-9, atol=1e-9)
+
+
+def _routed_scenario(name, pad, hpm):
+    """A topology scenario with its calendar set to ``hpm`` hours a month and
+    its routing padded by ``pad`` legs: (scenario, spec, routing)."""
+    sc = {"relay": lambda: tscen.build_relay_scenario(horizon=200, seed=0),
+          "multicast": lambda: tscen.build_multicast_scenario(n_leaves=3, horizon=200, seed=0),
+          "topology": lambda: tscen.build_topology_scenario(64, n_facilities=8,
+                                                            ports_per_facility=4,
+                                                            horizon=200, seed=0)}[name]()
+    topo = dataclasses.replace(sc.topo, hours_per_month=hpm)
+    r = optimize_routing(topo, sc.demand)
+    return sc, topo, r.pad_to(r.n_legs + pad)
+
+
+def test_stream_chunk_routed_wrapper_refuses_cpu_tensors_and_bad_operands():
+    """The routed chunk's wrapper launches on CUDA tensors or raises: CPU
+    operands, a block of the wrong length, a routing without its port-major
+    index and a carry of the wrong type are refused before anything is
+    built."""
+    sc, topo, r = _routed_scenario("relay", 2, 730)
+    rt = FleetRuntime(topo, routing=r, device="cpu")
+    block, K, endo = rt._pack(sc.demand[:, :24], None)
+    args = list(rt._chunk_args(torch.from_numpy(block), K, endo))
+    with pytest.raises(ValueError, match="CUDA"):
+        stream_chunk_routed(*args)
+    with pytest.raises(ValueError, match="block"):
+        stream_chunk_routed(args[0][:-1], *args[1:])
+    no_index = list(args)
+    no_index[17] = args[17]._replace(index=None)     # the routing operand
+    with pytest.raises(ValueError, match="index"):
+        stream_chunk_routed(*no_index)
+    bad = list(args)
+    bad[-4] = bad[-4].to(torch.int64)                 # the FSM carry
+    with pytest.raises(ValueError, match="operand"):
+        stream_chunk_routed(*bad)
+
+
+ROUTED_CASES = {  # scenario, padding legs, billing month, first hour, Ks, endogenous, NaN hours
+    "relay-padded": ("relay", 3, 730, 48, [24] * 3, False, ()),
+    "multicast-tree": ("multicast", 0, 730, 24, [24] * 3, False, ()),
+    "nan-pair0-padded": ("topology", 4, 730, 48, [24] * 2, False, (40, 51, 58)),
+    "k1-month-start": ("topology", 0, 30, 28, [1] * 4, False, ()),
+    "k24-month-inside": ("topology", 0, 30, 48, [24] * 3, False, ()),
+    "past-hbuf": ("relay", 0, 730, 48, [120], False, ()),
+    "endogenous": ("topology", 0, 730, 48, [24] * 3, True, ()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ROUTED_CASES))
+def test_stream_chunk_routed_kernel_matches_plain(cuda_device, case):
+    """The routed chunk kernel against stream_chunk_routed_ref on the card,
+    on the same packed blocks and carries of a stream's own state, every
+    output bit (NaN in the same places): a padded relay routing, a multicast
+    tree, NaN demand in pair 0 under padding legs, K = 1 across a month
+    start, month starts inside K = 24 chunks, K past the window ring and the
+    32-hour tile, and endogenous CCI demand."""
+    name, pad, hpm, t_first, Ks, endo, nan_hours = ROUTED_CASES[case]
+    sc, topo, r = _routed_scenario(name, pad, hpm)
+    demand = sc.demand.copy()
+    demand[0, list(nan_hours)] = np.nan
+    cci = demand * 1.5 if endo else None
+    cblk = lambda a, b: None if cci is None else cci[:, a:b]
+    rt = FleetRuntime(topo, routing=r, device=cuda_device)
+    t = 0
+    while t < t_first:
+        k = min(24, t_first - t)
+        rt.step_many(demand[:, t:t + k], cci_demand_block=cblk(t, t + k))
+        t += k
+    for K in Ks:
+        block, _, e = rt._pack(demand[:, t:t + K], cblk(t, t + K))
+        dev_block = torch.from_numpy(block).to(cuda_device)
+        want, want_fsm = ref.stream_chunk_routed_ref(*rt._chunk_args(dev_block, K, e),
+                                                     renew_in_chunks=rt.policy.renew_in_chunks)
+        before = ops.LAUNCHES["stream_chunk_routed"]
+        got = rt._launch(dev_block, K, e)
+        assert ops.LAUNCHES["stream_chunk_routed"] == before + 1
+        assert _same_bits(got, want), (case, t)
+        assert _same_bits(rt._state.fsm, want_fsm), (case, t)
+        rt._commit(got.cpu().numpy(), K)
+        t += K
+    if nan_hours:
+        assert bool(torch.isnan(got[:8 * Ks[-1] * rt.n_rows]).any())
+
+
+@pytest.mark.cuda
+def test_topology_runtime_gpu_matches_cpu(cuda_device):
+    """A 64-pair topology stream on the card (K = 24 chunks, a reroute at a
+    chunk boundary, then a per-tick tail) against the CPU stream hour by
+    hour with the same reroute, every field; one routed chunk launch a chunk
+    and tick, and none of the fleet or planning kernels."""
+    sc, topo, r = _routed_scenario("topology", 8, 730)
+    moved = np.asarray(r.primary).copy()
+    for i, pr in enumerate(topo.pairs[:6]):
+        moved[i] = next((c for c in pr.candidates if c != moved[i]), moved[i])
+    r1 = topo.plan(moved)
+    ops.reset_launches()
+    rt = FleetRuntime(topo, routing=r, device=cuda_device)
+    outs = []
+    for t in range(0, 192, 24):
+        if t == 96:
+            rt.reroute(r1)
+        outs.append(rt.step_many(sc.demand[:, t:t + 24]))
+    outs += [{k: v[:, None] for k, v in rt.step(sc.demand[:, t]).items()}
+             for t in range(192, 200)]
+    got = {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}
+    assert ops.LAUNCHES["stream_chunk_routed"] == 8 + 8
+    for name in ("stream_chunk", "leg_segment_sum", "tiered_cost_scan", "fsm_chunk"):
+        assert ops.LAUNCHES[name] == 0, name
+    cpu = FleetRuntime(topo, routing=r, device="cpu")
+    touts = []
+    for t in range(200):
+        if t == 96:
+            cpu.reroute(r1)
+        touts.append(cpu.step(sc.demand[:, t]))
+    want = {k: np.stack([o[k] for o in touts], 1) for k in touts[0]}
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    assert 0 < got["x"].sum() < got["x"].size

@@ -10,6 +10,8 @@ against the JAX kernels and oracles on the same seeded inputs:
 * FSM scan: against ``policy_scan`` vmapped over rows — ``x``/``state``
   equal, ``total_cost`` at ``rtol=1e-12`` (XLA sums in another order).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -371,6 +373,128 @@ def test_stream_chunk_dispatch_refuses_other_devices():
             torch.zeros((2, 4), dtype=f64, device="meta"), 0, 730)
     with pytest.raises(ValueError, match="stream_chunk"):
         ops.stream_chunk(*args)
+
+
+# ---------------------------------------------------------------------------
+# The streaming runtime's routed chunk (stream_chunk_routed), topology mode
+# ---------------------------------------------------------------------------
+
+# name: (scenario, padding legs, billing month, the chunk's first hour, K, endogenous,
+# NaN demand hours of pair 0)
+ROUTED_CASES = {
+    "relay-padded": ("relay", 3, 730, 48, 24, False, ()),
+    "multicast-tree": ("multicast", 0, 730, 24, 24, False, ()),
+    "nan-pair0-padded": ("topology", 4, 730, 48, 24, False, (40, 51, 58)),
+    "k1-month-start": ("topology", 0, 30, 30, 1, False, ()),
+    "k24-month-inside": ("topology", 0, 30, 48, 24, False, ()),
+    "past-hbuf": ("relay", 0, 730, 48, 120, False, ()),
+    "endogenous": ("topology", 0, 730, 48, 24, True, ()),
+}
+
+
+def _routed_scenario(m, name, hpm):
+    sc = {"relay": lambda: m.build_relay_scenario(horizon=200, seed=0),
+          "multicast": lambda: m.build_multicast_scenario(n_leaves=3, horizon=200, seed=0),
+          "topology": lambda: m.build_topology_scenario(16, n_facilities=3, horizon=200,
+                                                        seed=0)}[name]()
+    return sc, dataclasses.replace(sc.topo, hours_per_month=hpm)
+
+
+@pytest.mark.parametrize("case", sorted(ROUTED_CASES))
+def test_stream_chunk_routed_plain_matches_jax_step_many(case):
+    """One chunk from a stream's own state: the port's plain
+    stream_chunk_routed on the runtime's packed block against the JAX
+    runtime's topology step_many on the same hours: a padded relay routing, a
+    multicast tree, NaN demand in pair 0 under padding legs (it reaches port 0
+    through them), K = 1 at a month start, a month start inside a K = 24
+    chunk, K past the window ring and endogenous CCI demand. Decisions, the
+    VPN plane and its window sums bit for bit; the CCI plane and its window
+    sums at ``rtol=1e-12`` (XLA contracts the lease sum and ``c·d_bill``
+    into a fused multiply-add, one ulp off)."""
+    from repro.fleet import scenario as jscen
+    from repro.fleet import topology as jtop
+    from repro.fleet.stream import FleetRuntime as JFleetRuntime
+
+    from repro_torch.fleet import FleetRuntime
+    from repro_torch.fleet import scenario as tscen
+    from repro_torch.fleet import topology as ttop
+
+    name, pad, hpm, t0, K, endo, nan_hours = ROUTED_CASES[case]
+    jsc, jtopo = _routed_scenario(jscen, name, hpm)
+    sc, topo = _routed_scenario(tscen, name, hpm)
+    demand = sc.demand.copy()
+    demand[0, list(nan_hours)] = np.nan
+    cci_d = demand * 1.5 if endo else None
+    cblk = lambda a, b: None if cci_d is None else cci_d[:, a:b]
+    jr, tr = jtop.optimize_routing(jsc.topo, jsc.demand), ttop.optimize_routing(topo, sc.demand)
+    jr, tr = jr.pad_to(jr.n_legs + pad), tr.pad_to(tr.n_legs + pad)
+    jrt = JFleetRuntime(jtopo, routing=jr)
+    rt = FleetRuntime(topo, routing=tr, device="cpu")
+    for a in range(0, t0, 24):
+        b = min(a + 24, t0)
+        jrt.step_many(demand[:, a:b], cci_demand_block=cblk(a, b))
+        rt.step_many(demand[:, a:b], cci_demand_block=cblk(a, b))
+    if case == "past-hbuf":
+        assert K > rt.hbuf
+    block, _, _ = rt._pack(demand[:, t0:t0 + K], cblk(t0, t0 + K))
+    packed, fsm = ops.stream_chunk_routed(*rt._chunk_args(torch.from_numpy(block), K, endo))
+    want = jrt.step_many(demand[:, t0:t0 + K], cci_demand_block=cblk(t0, t0 + K))
+    M, P = rt.n_rows, rt.n_demand_rows
+    assert packed.shape == (8 * K * M + 2 * P + 2 * M,) and fsm.shape == (4, M)
+    planes = packed[:8 * K * M].view(8, K, M).numpy()
+    got = {"vpn_cost": planes[0], "r_vpn": planes[2], "x": planes[6], "state": planes[7],
+           "cci_cost": planes[1], "r_cci": planes[3]}
+    for k in ("vpn_cost", "r_vpn", "x", "state"):
+        np.testing.assert_array_equal(got[k], want[k].T, err_msg=k)
+    for k in ("cci_cost", "r_cci"):
+        np.testing.assert_allclose(got[k], want[k].T, rtol=1e-12, atol=0, err_msg=k)
+    if nan_hours:
+        bad = set(np.flatnonzero(np.isnan(got["cci_cost"][nan_hours[-1] - t0])).tolist())
+        assert bad == {0, *tr.paths[0]} and 0 not in tr.paths[0]
+
+
+def test_stream_chunk_routed_plain_on_identity_routing_is_stream_chunk():
+    """A fleet's identity topology (one pair per private port, one leg each)
+    streamed through the routed chunk gives the fleet chunk's packed result
+    and FSM carry bit for bit, chunk after chunk (NaN and endogenous hours
+    included): the fold of one unit-weight leg from +0.0 and the lease
+    ``L + V·1`` change nothing."""
+    from repro_torch.fleet import FleetRuntime, build_fleet_scenario, identity_topology
+
+    sc = build_fleet_scenario(8, horizon=800, seed=2)
+    itopo, iplan = identity_topology(sc.fleet)
+    demand = sc.demand.copy()
+    demand[3, 700], demand[5, 710] = np.nan, np.inf
+    rf = FleetRuntime(sc.fleet, device="cpu")
+    rt = FleetRuntime(itopo, routing=iplan, device="cpu")
+    assert rt.topology and rt.n_rows == rt.n_demand_rows == 8
+    for t, K in [(0, 24), (24, 1), (25, 671), (696, 24), (720, 24), (744, 56)]:
+        c = demand[:, t:t + K] * 1.5 if t == 720 else None
+        bf, Kf, ef = rf._pack(demand[:, t:t + K], c)
+        bt, Kt, et = rt._pack(demand[:, t:t + K], c)
+        assert np.array_equal(bf, bt, equal_nan=True) and (Kf, ef) == (Kt, et)
+        got = rt._launch(torch.from_numpy(bt), K, et)
+        want = rf._launch(torch.from_numpy(bf), K, ef)
+        assert _same_bits(got, want.reshape(-1)), t
+        assert _same_bits(rt._state.fsm, rf._state.fsm), t
+        rt._commit(got.numpy(), K)
+        rf._commit(want.numpy(), K)
+    assert np.isnan(rt._state.dcum[3]) and rt._state.t == 800
+
+
+def test_stream_chunk_routed_dispatch_refuses_other_devices():
+    """ops.stream_chunk_routed sends CPU tensors to the plain version and CUDA
+    ones to the kernel; any other device raises, with no fallback."""
+    from repro_torch.fleet.routing import RoutingPlan
+
+    meta = lambda *shape, dt=torch.float64: torch.zeros(shape, dtype=dt, device="meta")
+    i32 = torch.int32
+    op = RoutingPlan(paths=((0,), (1, 0), (1,)), n_ports=2).operand(torch.float64, "cpu")
+    args = (meta((3 + 2 * 2) * 1), 1, False, meta(3), meta(3), meta(3, 2), meta(3, 2),
+            *(meta(2) for _ in range(5)), *(meta(2, dt=i32) for _ in range(5)), op.to("meta"),
+            meta(2, 3), meta(4, 2, dt=i32), meta(2, 2), 0, 730)
+    with pytest.raises(ValueError, match="stream_chunk_routed"):
+        ops.stream_chunk_routed(*args)
 
 
 # ---------------------------------------------------------------------------
