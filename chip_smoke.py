@@ -140,7 +140,10 @@ without printing a result):
     against ``stream_chunk_routed_ref`` in every output bit on the relay
     (padded) and multicast scenarios, NaN demand in pair 0 under padding
     legs, K = 1 across the month start, chained K = 24 across it, one K past
-    the window ring, and endogenous CCI demand; it streams
+    the window ring, endogenous CCI demand, ports of 76 and 165 legs (one
+    and two of the port stage's 128-leg tiles) at K = 24, 1 and 33, and the
+    cell's routing, with its empty ports and 95-leg port, over 200 hours at
+    K = 24 and 5; it streams
     ``build_reroute_scenario(2000, 800, seed 0)`` frozen and with live
     re-packing every 24 hours (``reroute()`` at chunk boundaries), fails
     unless the live run costs less and its decisions equal
@@ -2014,6 +2017,10 @@ def topology_phase(card: str, fleet_scen) -> dict:
 REROUTE = dict(horizon=2000, shift_hour=800, seed=SEED)   # examples/reroute_demo.py's swap
 REPACK_EVERY, REPACK_WINDOW = 24, 168                     # hours
 NAN_PAD = 64                                              # padding legs of the NaN case
+LEG_TILE = 128                                            # legs a tile of the port stage
+# Pairs on 2 facilities x 2 ports, 200 h: the hottest port holds 76 legs (200
+# pairs) or 165, two leg tiles (400 pairs).
+HOT_PAIRS, HOT_KW = (200, 400), dict(n_facilities=2, ports_per_facility=2, horizon=200)
 
 
 def routed_chunk_bound(P: int, M: int, K: int, Kt: int, E: int, endo: bool) -> dict:
@@ -2070,6 +2077,7 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
     from repro_torch.fleet import (
         FleetRuntime,
         build_reroute_scenario,
+        build_topology_scenario,
         optimize_routing,
         replay_plan_topology,
     )
@@ -2130,6 +2138,19 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
     bad = sc.demand.copy()
     bad[0, [t_first - 30, t_first + 3, t_first + 10]] = np.nan
     padded = routing.pad_to(routing.total_hops + NAN_PAD)
+    port_legs = lambda r, n: np.bincount([m for path in r.paths for m in path], minlength=n)
+    hot_cases = {}
+    for n in HOT_PAIRS:
+        hot = build_topology_scenario(n, **HOT_KW, seed=SEED)
+        hot_plan = optimize_routing(hot.topo, hot.demand)
+        hot_legs = port_legs(hot_plan, hot.n_ports).max()
+        hot_cases[f"a {hot_legs}-leg port ({n} pairs on {hot.n_ports} ports), K = {STREAM_K}, "
+                  f"1, 33 from hour 48"] = (hot.topo, hot_plan, hot.demand, 48,
+                                            [STREAM_K, 1, 33], None)
+    check(hot_legs > LEG_TILE, f"the hot-port cases' largest port holds {hot_legs} legs, "
+          f"one {LEG_TILE}-leg tile")
+    legs = port_legs(routing, M)
+    check(legs.min() == 0, "the cell's routing leaves no port without legs")
     cases = {
         f"relay (1- and 2-hop rows, 3 padding legs), 3 x K = {STREAM_K}":
             (relay.topo, relay_plan.pad_to(relay_plan.total_hops + 3), relay.demand, 48,
@@ -2146,6 +2167,10 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
             (sc.topo, routing, sc.demand, 500, [rt.hbuf + 23], None),
         f"endogenous CCI demand, 2 x K = {STREAM_K}":
             (sc.topo, routing, sc.demand, t_first, [STREAM_K] * 2, sc.demand * 1.5),
+        **hot_cases,
+        f"the cell's routing over {HOT_KW['horizon']} h ({int((legs == 0).sum())} ports "
+        f"with no legs, a {legs.max()}-leg port), K = {STREAM_K}, 5 from hour 48":
+            (sc.topo, routing, sc.demand[:, :HOT_KW["horizon"]], 48, [STREAM_K, 5], None),
     }
     routed_err = 0.0
     for label, (topo_, r_, d_, t_, Ks, c_) in cases.items():

@@ -21,8 +21,8 @@
 //   pair p, hour k:  d = minimum(demand, pair_capacity), dc likewise (or d)
 //                    calendar, lo = dcum - dcum_month, vpn_pair = L_vpn + fold(lo, d)
 //   port m, hour k:  vpn  = sum over m's legs e, in ascending e, from +0.0,
-//                           of vpn_pair[k, leg_pair[e]] * vpn_w[e]
-//                    bill = minimum(sum of dc[k, leg_pair[e]] * attach_w[e], port_capacity)
+//                           of vpn_pair[leg_pair[e], k] * vpn_w[e]
+//                    bill = minimum(sum of dc[leg_pair[e], k] * attach_w[e], port_capacity)
 //                    cci  = lease + c_cci * bill    (lease = L_cci + V_cci * n_attach)
 //                    snapshot, window sums, FSM hour, prefix adds (stream_chunk.cu's)
 // All float64 arithmetic uses _rn intrinsics and the file is compiled with
@@ -31,26 +31,58 @@
 // weights) are walked in their place, so a NaN in pair 0 reaches port 0
 // (NaN * 0 is NaN) and +0.0 + -0.0 stays +0.0, as in the scatter.
 //
-// Design: two kernels on the caller's stream, a simple first form.
-//   pair stage: one thread per pair walks the K hours (the calendar is a
-//     chain of one add an hour; the fold is off the chain) and writes the two
-//     hour-major (K, P) scratch planes the port stage reads, vpn_pair and dc,
-//     and the (2, P) calendar carry into the result.
-//   port stage: one warp per port walks the chunk in tiles of 32 hours, lane
-//     k on hour k of the tile. Each lane walks the port's run of the
-//     port-major leg index for its hour (the legs of a routing, sorted by port
-//     on the host, ascending leg index within a port); lane 0 then runs the
-//     cost prefixes into the snapshots, every lane forms its hour's window
-//     sums and raw triggers, and lane 0 runs the FSM over the tile
-//     (fsm_step.cuh), as stream_chunk.cu's chain warps do.
+// What bounds it on an H100: at 2048 pairs x K = 24 on 128 ports (2048 legs)
+// it must move ~0.93 MB (the block in, the result out, tables, legs and
+// carries), 0.28 us at 3.35 TB/s, less than the device time of two launches.
+// What a chunk cannot avoid is latency: the chains (a pair's calendar, a
+// port's leg sum in leg order, its cost prefixes and FSM) are K or E_m
+// dependent adds long, and every chain's operands are a device-memory round
+// trip away. The aim is stream_chunk.cu's: one round trip per tile, not per
+// link of a chain.
 //
-// What bounds it on an H100: at 2048 pairs x K = 24 on 128 ports it must move
-// ~0.8 MB (the block in, the result out, tables and carries; the scratch
-// planes are the design's, another 1.6 MB written and read), well under a
-// microsecond at 3.35 TB/s. It sits far from that: a pair is a chain of K
-// hours, and a port lane walks its legs one dependent add at a time, each
-// leg's row a separate load (hot ports hold ~50 legs), on only M warps.
+// Why the first form (one thread a pair; one warp a port, lane k walking hour
+// k's legs) sat at 232x its bound (0.0646 ms at K = 24, 0.0349 at K = 1):
+//   pair stage: 16 blocks of 128 threads on 132 SMs, each thread walking its
+//     24 hours with the tier fold's (bound, rate) rows read from device memory
+//     inside the loop: about 1 us an hour;
+//   port stage: each leg was three dependent loads (order[j] -> leg_pair[e]
+//     -> the scratch value), one leg after another, so the hottest port (95
+//     legs) paid ~285 round trips, on lane 0 alone at K = 1; and the scratch
+//     was hour-major (K, P), so one leg's warp load touched K separate rows.
+//
+// Design: two kernels on the caller's stream (the fold needs every pair
+// priced first), and a pair-major (P, K) scratch between them.
+//   pair stage, stream_chunk.cu's (hour, row) tile: a block owns kRows = 16
+//     pairs (2048 pairs are 128 blocks) and walks the chunk in tiles of kTile =
+//     32 hours, any K, one thread per (hour, pair). Each thread issues its
+//     demand and CCI demand loads at once (an hour's 16 pairs are 128
+//     contiguous bytes) and clips them; the first tile also copies the block's
+//     (bound, rate) rows into shared memory. Warp 0, lane r on pair r, runs the
+//     calendar prefix, the only chain; then every thread runs its own tier fold
+//     (tier::fold_with over the shared tables, tier::fold's arithmetic). The
+//     tile's two planes are transposed in shared memory and stored pair-major,
+//     so a pair's K hours are contiguous for the port stage's gathers.
+//   port stage: one block of 4 warps per port (128 ports on 132 SMs). It walks
+//     the port's run of the port-major leg index (a stable sort of leg_port on
+//     the host, ascending leg index within a port) in tiles of kLegTile = 128
+//     legs, any number of tiles. Stage: thread j loads leg j's order, then its
+//     pair and two weights into shared memory, so a tile's index chains are
+//     in flight together and cost two round trips, not two a leg. Gather: the
+//     block copies the tile's (legs x hours) values of both planes into
+//     shared memory with cp.async, each leg's hours one contiguous run of the
+//     pair-major scratch, every copy issued before any is waited on (at K = 1
+//     the threads cover legs, so the gather stays parallel); one round trip.
+//     Fold: lane k of warp 0 (VPN) and of warp 1 (the attached volume) adds
+//     hour k over the tile's legs in ascending order from shared memory,
+//     carrying its sum into the next tile. The hottest port (95 legs) thus
+//     costs one tile: three round trips and 95 dependent shared-memory adds
+//     on each fold lane. Warp 3 meanwhile loads the hours' window bases.
+//     Then, as stream_chunk.cu: lane 0 of warp 0 runs the cost prefixes into
+//     the snapshots, warp 0's lanes form each hour's window sums and
+//     triggers, and lane 0 of warp 1 runs the FSM (fsm_step.cuh) alone,
+//     integers only, so no chain waits on off-chain work.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,14 +91,27 @@
 
 namespace {
 
-constexpr int kPairThreads = 128;
-constexpr int kWarps = 4;               // ports a block of the port stage
-constexpr int kTile = 32;               // hours a tile: one lane each
+constexpr int kRows = 16;                     // pairs a block of the pair stage
+constexpr int kTile = 32;                     // hours a tile
+constexpr int kPairThreads = kTile * kRows;   // one (hour, pair) a thread
+constexpr int kPortThreads = 128;             // one port a block, 4 warps
+constexpr int kLegTile = kPortThreads;        // legs a tile of the port stage: one a thread
+constexpr int kMaxSmem = 227 * 1024;
 
 // torch.minimum: NaN if either side is NaN (fmin drops it), else the smaller.
 __device__ __forceinline__ double minimum(double a, double b) {
   return isnan(a) ? a : isnan(b) ? b : (b < a ? b : a);
 }
+
+// One tile of the pair stage's 16 pairs: hour-major [hour][pair] for the
+// calendar lanes and the (hour, pair) threads, and the two scratch planes
+// pair-major [pair][hour] (one double of padding a row) for the stores.
+struct PairTile {
+  double d[kTile][kRows];          // clipped demand
+  double lo[kTile][kRows];         // month-to-date volume before the hour
+  double v[kRows][kTile + 1];      // vpn_pair
+  double dc[kRows][kTile + 1];     // clipped CCI demand
+};
 
 __global__ void __launch_bounds__(kPairThreads)
 routed_pair_kernel(const double* __restrict__ demand,      // (K, P)
@@ -77,45 +122,116 @@ routed_pair_kernel(const double* __restrict__ demand,      // (K, P)
                    const double* __restrict__ rates,
                    const double* __restrict__ cal_in,      // (2, P) dcum, dcum_month
                    int phase0, int hours_per_month, int K, int P, int Kt,
-                   double* __restrict__ vpn_pair,          // (K, P) scratch
-                   double* __restrict__ d_cci,             // (K, P) scratch
+                   double* __restrict__ vpn_pair,          // (P, K) scratch
+                   double* __restrict__ d_cci,             // (P, K) scratch
                    double* __restrict__ cal_out) {         // (2, P) in the result
-  const int p = blockIdx.x * kPairThreads + threadIdx.x;
-  if (p >= P) return;
-  const double cap = capacity[p];
-  const double lvpn = L_vpn[p];
-  const double* tb = bounds + (int64_t)p * Kt;
-  const double* tr = rates + (int64_t)p * Kt;
-  double dcum = cal_in[p];
-  double month = cal_in[P + p];
-  int ph = phase0;                                  // (t0 + k) % hours_per_month
-  for (int k = 0; k < K; ++k) {
-    const int64_t i = (int64_t)k * P + p;
-    const double d = minimum(demand[i], cap);
-    d_cci[i] = cci_demand != nullptr ? minimum(cci_demand[i], cap) : d;
-    if (ph == 0) month = dcum;
-    const double lo = __dsub_rn(dcum, month);
-    dcum = __dadd_rn(dcum, d);
-    ph = ph + 1 == hours_per_month ? 0 : ph + 1;
-    vpn_pair[i] = __dadd_rn(lvpn, tier::fold(lo, d, tb, tr, Kt));
+  __shared__ PairTile sm;
+  extern __shared__ double tables[];       // bounds (kRows, Kt), then rates (kRows, Kt)
+  const int n0 = blockIdx.x * kRows;
+  const int rows = min(kRows, P - n0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kk = tid / kRows;              // this thread's hour in every tile
+  const int r = tid % kRows;               // and its pair
+  const int n = n0 + r;
+  const bool has_row = r < rows;
+  double cap = 0.0, lvpn = 0.0;
+  if (has_row) {
+    cap = capacity[n];
+    lvpn = L_vpn[n];
   }
-  cal_out[p] = dcum;
-  cal_out[P + p] = month;
+  // Warp 0's lanes: the calendar of pair n0 + lane.
+  const bool chain = warp == 0 && lane < rows;
+  const int cn = n0 + lane;
+  double dcum = 0.0, month = 0.0;
+  if (chain) {
+    dcum = cal_in[cn];
+    month = cal_in[P + cn];
+  }
+  int ph = phase0;                         // (t0 + k) % hours_per_month
+  const double* tb = tables + r * Kt;      // this thread's pair's table
+  const double* tr = tables + (kRows + r) * Kt;
+
+  for (int k0 = 0; k0 < K; k0 += kTile) {
+    const int len = min(kTile, K - k0);
+    const bool mine = has_row && kk < len;
+
+    // (0) stage: the loads first, then the tables (first tile), then the stores
+    double dv = 0.0, cv = 0.0;
+    if (mine) {
+      const int64_t i = (int64_t)(k0 + kk) * P + n;
+      dv = demand[i];
+      if (cci_demand != nullptr) cv = cci_demand[i];
+    }
+    if (k0 == 0) {
+      for (int o = tid; o < rows * Kt; o += kPairThreads) {
+        tables[o] = bounds[(int64_t)n0 * Kt + o];
+        tables[kRows * Kt + o] = rates[(int64_t)n0 * Kt + o];
+      }
+    }
+    if (mine) {
+      const double d = minimum(dv, cap);
+      sm.d[kk][r] = d;
+      sm.dc[r][kk] = cci_demand != nullptr ? minimum(cv, cap) : d;
+    }
+    __syncthreads();
+
+    // (a) the billing calendar, one add an hour on the chain
+    if (chain) {
+#pragma unroll 8
+      for (int k = 0; k < len; ++k) {
+        if (ph == 0) month = dcum;
+        sm.lo[k][lane] = __dsub_rn(dcum, month);
+        dcum = __dadd_rn(dcum, sm.d[k][lane]);
+        ph = ph + 1 == hours_per_month ? 0 : ph + 1;
+      }
+    }
+    __syncthreads();
+
+    // (b) every (hour, pair): its tier fold
+    if (mine) {
+      const double transfer = tier::fold_with(
+          sm.lo[kk][r], sm.d[kk][r], [tb](int t) { return tb[t]; },
+          [tr](int t) { return tr[t]; }, Kt);
+      sm.v[r][kk] = __dadd_rn(lvpn, transfer);
+    }
+    __syncthreads();
+
+    // (c) the tile's planes, pair-major: each pair's hours one contiguous run
+    for (int o = tid; o < rows * len; o += kPairThreads) {
+      const int rr = o / len, k = o - rr * len;
+      const int64_t a = (int64_t)(n0 + rr) * K + k0 + k;
+      vpn_pair[a] = sm.v[rr][k];
+      d_cci[a] = sm.dc[rr][k];
+    }
+    __syncthreads();   // the next tile reuses sm
+  }
+
+  if (chain) {
+    cal_out[cn] = dcum;
+    cal_out[P + cn] = month;
+  }
 }
 
-// One warp's tile of its port, hour-indexed by lane.
-struct WarpTile {
-  double v[kTile];       // the hour's VPN and CCI costs
+// The port stage's shared memory: one tile of the port's legs (staged: pair,
+// VPN share, attachment weight) and one hour tile's per-hour values. The
+// gathered (legs x hours) values of the two planes are dynamic shared memory.
+struct PortSmem {
+  double wv[kLegTile];
+  double wa[kLegTile];
+  int lp[kLegTile];
+  double v[kTile];                 // the hour's VPN and CCI costs
   double c[kTile];
-  double sv[kTile];      // prefix snapshots: pref before the hour
+  double bv[kTile];                // window bases older than the hour tile
+  double bc[kTile];
+  double sv[kTile];                // prefix snapshots: pref before the hour
   double sc[kTile];
-  int trig[kTile];       // raw triggers: bit 0 request, bit 1 release
+  int trig[kTile];                 // raw triggers: bit 0 request, bit 1 release
   int state[kTile];
 };
 
-__global__ void __launch_bounds__(kWarps * 32)
-routed_port_kernel(const double* __restrict__ vpn_pair,    // (K, P) scratch
-                   const double* __restrict__ d_cci,       // (K, P) scratch
+__global__ void __launch_bounds__(kPortThreads)
+routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
+                   const double* __restrict__ d_cci,       // (P, K) scratch
                    const double* __restrict__ pre_v,       // (K, M)
                    const double* __restrict__ pre_c,
                    const double* __restrict__ lease_cci,   // (M,) L_cci + V_cci * n_attach
@@ -135,67 +251,106 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (K, P) scratch
                    const int* __restrict__ start,          // (M + 1,)
                    const int* __restrict__ fsm_in,         // (4, M)
                    const double* __restrict__ pref_in,     // (2, M)
-                   int renew_in_chunks, int t0, int K, int P, int M,
+                   int renew_in_chunks, int t0, int K, int M,
                    double* out,                            // planes written, snap rows read back
                    double* __restrict__ pref_out,          // (2, M) in the result
                    int* __restrict__ fsm_out) {            // (4, M)
-  __shared__ WarpTile tiles[kWarps];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m = blockIdx.x * kWarps + warp;
-  if (m >= M) return;                               // the whole warp
-  WarpTile& sm = tiles[warp];
+  __shared__ PortSmem sm;
+  extern __shared__ double gathered[];     // (kLegTile, len) vpn_pair values, then the CCI demands
+  const int m = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t KM = (int64_t)K * M;
-
-  const double lease = lease_cci[m], cc = c_cci[m], pcap = port_capacity[m];
+  const int e0 = start[m], e1 = start[m + 1];
   const fsm::FsmRow p = {theta1[m], theta2[m], delay[m], commit[m], up_hold[m],
                          down_hold[m], renew_in_chunks != 0};
   const int h = win[m];
-  const int e0 = start[m], e1 = start[m + 1];
-  // Lane 0's chains: the cost prefixes and the FSM carry.
+  // Warp 1 prices the CCI plane; lane 0 of warp 0 carries the cost prefixes,
+  // lane 0 of warp 1 the FSM.
+  double lease = 0.0, cc = 0.0, pcap = 0.0;
+  if (warp == 1) {
+    lease = lease_cci[m];
+    cc = c_cci[m];
+    pcap = port_capacity[m];
+  }
   double pv = 0.0, pc = 0.0;
   fsm::FsmCarry fc = {};
-  if (lane == 0) {
+  if (tid == 0) {
     pv = pref_in[m];
     pc = pref_in[M + m];
+  } else if (tid == 32) {
     fc = {fsm_in[m], fsm_in[M + m], fsm_in[2 * M + m], fsm_in[3 * M + m], 0};
     fc.phase = fc.t_state % p.T_cci;
   }
 
   for (int k0 = 0; k0 < K; k0 += kTile) {
     const int len = min(kTile, K - k0);
-    const bool mine = lane < len;
-    const int k = k0 + lane;
+    const int k = k0 + lane;                        // lane's hour, for warps 0, 1 and 3
     const int64_t i = (int64_t)k * M + m;
-    const int lw = max(0, t0 + k - h);              // the window's first hour
-    double bv = 0.0, bc = 0.0;                       // its base, when older than the tile
-    if (mine) {
-      // The hour's leg fold, in ascending leg index, from +0.0.
-      const int64_t row = (int64_t)k * P;
-      double av = 0.0, ad = 0.0;
-#pragma unroll 4
-      for (int j = e0; j < e1; ++j) {
-        const int e = order[j];
-        const int64_t s = row + leg_pair[e];
-        av = __dadd_rn(av, __dmul_rn(vpn_pair[s], vpn_w[e]));
-        ad = __dadd_rn(ad, __dmul_rn(d_cci[s], attach_w[e]));
-      }
-      const double c = __dadd_rn(lease, __dmul_rn(cc, minimum(ad, pcap)));
-      sm.v[lane] = av;
-      sm.c[lane] = c;
-      out[i] = av;
-      out[KM + i] = c;
-      if (lw < t0) {                                 // before the chunk: the host's read
+    const int lw = max(0, t0 + k - h);              // the hour's window starts here
+    if (warp == 3 && lane < len) {                  // the window base, when older than the tile
+      double bv = 0.0, bc = 0.0;
+      if (lw < t0) {                                // before the chunk: the host's read
         bv = pre_v[i];
         bc = pre_c[i];
-      } else if (lw < t0 + k0) {                     // an earlier tile's snapshot
+      } else if (lw < t0 + k0) {                    // an earlier tile's snapshot
         const int64_t j = (int64_t)(lw - t0) * M + m;
         bv = out[4 * KM + j];
         bc = out[5 * KM + j];
       }
+      sm.bv[lane] = bv;
+      sm.bc[lane] = bc;
     }
-    __syncwarp();
 
-    if (lane == 0) {                                 // the cost prefixes' snapshots
+    // The leg fold: warp 0's lane k sums hour k's VPN, warp 1's its attached
+    // volume, in ascending leg index from +0.0, a tile of legs at a time.
+    double acc = 0.0;
+    for (int s0 = e0; s0 < e1; s0 += kLegTile) {
+      const int nl = min(kLegTile, e1 - s0);
+      if (tid < nl) {                               // stage: one leg's index chain a thread
+        const int e = order[s0 + tid];
+        sm.lp[tid] = leg_pair[e];
+        sm.wv[tid] = vpn_w[e];
+        sm.wa[tid] = attach_w[e];
+      }
+      __syncthreads();
+      // gather: each leg's len hours are one contiguous run of the pair-major
+      // scratch; every copy is issued before any is waited on
+      double* gv = gathered;
+      double* gc = gathered + nl * len;
+      for (int o = tid; o < nl * len; o += kPortThreads) {
+        const int l = o / len;
+        const int64_t a = (int64_t)sm.lp[l] * K + k0 + (o - l * len);
+        __pipeline_memcpy_async(gv + o, vpn_pair + a, sizeof(double));
+        __pipeline_memcpy_async(gc + o, d_cci + a, sizeof(double));
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      if (warp == 0 && lane < len) {
+#pragma unroll 4
+        for (int l = 0; l < nl; ++l)
+          acc = __dadd_rn(acc, __dmul_rn(gv[l * len + lane], sm.wv[l]));
+      } else if (warp == 1 && lane < len) {
+#pragma unroll 4
+        for (int l = 0; l < nl; ++l)
+          acc = __dadd_rn(acc, __dmul_rn(gc[l * len + lane], sm.wa[l]));
+      }
+      __syncthreads();   // the next tile restages and regathers
+    }
+
+    // The cost planes.
+    if (warp == 0 && lane < len) {
+      sm.v[lane] = acc;
+      out[i] = acc;
+    } else if (warp == 1 && lane < len) {
+      const double c = __dadd_rn(lease, __dmul_rn(cc, minimum(acc, pcap)));
+      sm.c[lane] = c;
+      out[KM + i] = c;
+    }
+    __syncthreads();
+
+    if (tid == 0) {                                 // the cost prefixes' snapshots
+#pragma unroll 8
       for (int j = 0; j < len; ++j) {
         sm.sv[j] = pv;
         sm.sc[j] = pc;
@@ -203,14 +358,14 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (K, P) scratch
         pc = __dadd_rn(pc, sm.c[j]);
       }
     }
-    __syncwarp();
+    __syncthreads();
 
-    if (mine) {                                      // window sums and raw triggers
-      const bool in_tile = lw >= t0 + k0;
+    if (warp == 0 && lane < len) {                  // window sums and raw triggers
+      const bool in_tile = lw >= t0 + k0;           // a snapshot of its own tile
       const int j = in_tile ? lw - t0 - k0 : lane;
       const double sv = sm.sv[lane], sc = sm.sc[lane];
-      const double rv = __dsub_rn(sv, in_tile ? sm.sv[j] : bv);
-      const double rc = __dsub_rn(sc, in_tile ? sm.sc[j] : bc);
+      const double rv = __dsub_rn(sv, in_tile ? sm.sv[j] : sm.bv[lane]);
+      const double rc = __dsub_rn(sc, in_tile ? sm.sc[j] : sm.bc[lane]);
       bool raw_req, raw_rel;
       fsm::fsm_triggers(p, rv, rc, raw_req, raw_rel);
       sm.trig[lane] = (int)raw_req | (int)raw_rel << 1;
@@ -219,27 +374,29 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (K, P) scratch
       out[4 * KM + i] = sv;
       out[5 * KM + i] = sc;
     }
-    __syncwarp();
+    __syncthreads();
 
-    if (lane == 0) {                                 // the FSM, integers only
+    if (tid == 32) {                                // the FSM, integers only
+#pragma unroll 8
       for (int j = 0; j < len; ++j) {
         const int t = sm.trig[j];
         sm.state[j] = fsm::fsm_step(p, fc, t & 1, t >> 1, p.renew_in_chunks);
       }
     }
-    __syncwarp();
+    __syncthreads();
 
-    if (mine) {
+    if (warp == 0 && lane < len) {
       const int s = sm.state[lane];
       out[6 * KM + i] = s == fsm::kOn ? 1.0 : 0.0;
       out[7 * KM + i] = (double)s;
     }
-    __syncwarp();   // the next tile reads these snapshots and reuses sm
+    __syncthreads();   // the next hour tile reads these snapshots and reuses sm
   }
 
-  if (lane == 0) {
+  if (tid == 0) {
     pref_out[m] = pv;
     pref_out[M + m] = pc;
+  } else if (tid == 32) {
     fsm_out[m] = fc.state;
     fsm_out[M + m] = fc.t_state;
     fsm_out[2 * M + m] = fc.up;
@@ -249,8 +406,8 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (K, P) scratch
 
 }  // namespace
 
-// scratch: 2 K P float64 (vpn_pair, then the clipped CCI demand). out: 8 K M +
-// 2 P + 2 M float64. All pointers contiguous on one device.
+// scratch: 2 P K float64 (vpn_pair, then the clipped CCI demand, pair-major).
+// out: 8 K M + 2 P + 2 M float64. All pointers contiguous on one device.
 extern "C" int stream_chunk_routed_f64(
     const double* demand, const double* cci_demand, const double* pre_v, const double* pre_c,
     const double* pair_capacity, const double* L_vpn, const double* bounds, const double* rates,
@@ -264,22 +421,35 @@ extern "C" int stream_chunk_routed_f64(
     double* out, int* fsm_out, void* stream) {
   if (K < 1 || P < 0 || M < 0 || E < 0 || Kt < 0 || t0 < 0 || hours_per_month < 1)
     return (int)cudaErrorInvalidValue;
+  const size_t tables = sizeof(double) * 2 * kRows * (size_t)Kt;
+  if (sizeof(PairTile) + tables > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const size_t gathered = sizeof(double) * 2 * kLegTile * (size_t)(K < kTile ? K : kTile);
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t KP = (int64_t)K * P, KM = (int64_t)K * M;
   double* vpn_pair = scratch;
   double* d_cci = scratch + KP;
   if (P > 0) {
-    routed_pair_kernel<<<(P + kPairThreads - 1) / kPairThreads, kPairThreads, 0, s>>>(
+    if (sizeof(PairTile) + tables > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          routed_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tables);
+      if (err != cudaSuccess) return (int)err;
+    }
+    routed_pair_kernel<<<(P + kRows - 1) / kRows, kPairThreads, tables, s>>>(
         demand, cci_demand, pair_capacity, L_vpn, bounds, rates, cal_in,
         t0 % hours_per_month, hours_per_month, K, P, Kt, vpn_pair, d_cci, out + 8 * KM);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (M > 0) {
-    routed_port_kernel<<<(M + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+    if (sizeof(PortSmem) + gathered > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          routed_port_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gathered);
+      if (err != cudaSuccess) return (int)err;
+    }
+    routed_port_kernel<<<M, kPortThreads, gathered, s>>>(
         vpn_pair, d_cci, pre_v, pre_c, lease_cci, c_cci, port_capacity, theta1, theta2, h, D,
         T_cci, up_hold, down_hold, leg_pair, vpn_w, attach_w, order, start, fsm_in, pref_in,
-        renew_in_chunks, t0, K, P, M, out, out + 8 * KM + 2 * P, fsm_out);
+        renew_in_chunks, t0, K, M, out, out + 8 * KM + 2 * P, fsm_out);
   }
   return (int)cudaGetLastError();
 }

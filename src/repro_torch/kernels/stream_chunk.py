@@ -143,9 +143,10 @@ def stream_chunk_routed(
     renew_in_chunks: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed chunk on the card, one C call (a pair-stage and a
-    port-stage kernel on the current stream; the wrapper owns their (2, K, P)
-    scratch): the flat float64 result of :func:`routed_result_size` and the
-    FSM carry after the chunk, (4, M) int32."""
+    port-stage kernel on the current stream; the wrapper owns their scratch,
+    two pair-major (P, K) planes): the flat float64 result of
+    :func:`routed_result_size` and the FSM carry after the chunk, (4, M)
+    int32."""
     P, M = pair_capacity.shape[0], lease_cci.shape[0]
     f64, i32 = torch.float64, torch.int32
     if K < 1 or t0 < 0 or hours_per_month < 1:

@@ -959,7 +959,18 @@ def _routed_scenario(name, pad, hpm):
           "multicast": lambda: tscen.build_multicast_scenario(n_leaves=3, horizon=200, seed=0),
           "topology": lambda: tscen.build_topology_scenario(64, n_facilities=8,
                                                             ports_per_facility=4,
-                                                            horizon=200, seed=0)}[name]()
+                                                            horizon=200, seed=0),
+          # 200 or 400 pairs on 4 ports: the hottest port holds 76 or 165 legs
+          "hot-port": lambda: tscen.build_topology_scenario(200, n_facilities=2,
+                                                            ports_per_facility=2,
+                                                            horizon=200, seed=0),
+          "hotter-port": lambda: tscen.build_topology_scenario(400, n_facilities=2,
+                                                               ports_per_facility=2,
+                                                               horizon=200, seed=0),
+          # the streamed 2048-pair cell over 200 hours: ports with no legs, a 105-leg port
+          "main-cell": lambda: tscen.build_topology_scenario(2048, n_facilities=32,
+                                                             ports_per_facility=4, reach=2,
+                                                             horizon=200, seed=0)}[name]()
     topo = dataclasses.replace(sc.topo, hours_per_month=hpm)
     r = optimize_routing(topo, sc.demand)
     return sc, topo, r.pad_to(r.n_legs + pad)
@@ -996,6 +1007,9 @@ ROUTED_CASES = {  # scenario, padding legs, billing month, first hour, Ks, endog
     "k24-month-inside": ("topology", 0, 30, 48, [24] * 3, False, ()),
     "past-hbuf": ("relay", 0, 730, 48, [120], False, ()),
     "endogenous": ("topology", 0, 730, 48, [24] * 3, True, ()),
+    "hot-port-76-legs": ("hot-port", 0, 730, 48, [24, 1, 33], False, ()),
+    "hot-port-165-legs": ("hotter-port", 0, 730, 48, [24, 1, 33], False, ()),
+    "main-cell-empty-ports": ("main-cell", 0, 730, 48, [24, 5], False, ()),
 }
 
 
@@ -1007,9 +1021,18 @@ def test_stream_chunk_routed_kernel_matches_plain(cuda_device, case):
     output bit (NaN in the same places): a padded relay routing, a multicast
     tree, NaN demand in pair 0 under padding legs, K = 1 across a month
     start, month starts inside K = 24 chunks, K past the window ring and the
-    32-hour tile, and endogenous CCI demand."""
+    32-hour tile, endogenous CCI demand, ports of 76 and 165 legs (one and
+    two of the port stage's 128-leg tiles; K = 24, 1 and 33), and the
+    2048-pair cell's routing with its empty ports and a 105-leg port (K = 24
+    and 5)."""
     name, pad, hpm, t_first, Ks, endo, nan_hours = ROUTED_CASES[case]
     sc, topo, r = _routed_scenario(name, pad, hpm)
+    legs = np.bincount([m for path in r.paths for m in path], minlength=topo.n_ports)
+    want = {"hot-port": 76, "hotter-port": 165, "main-cell": 105}
+    if name in want:
+        assert legs.max() == want[name]
+    if name == "main-cell":
+        assert legs.min() == 0
     demand = sc.demand.copy()
     demand[0, list(nan_hours)] = np.nan
     cci = demand * 1.5 if endo else None

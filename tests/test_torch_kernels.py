@@ -389,6 +389,10 @@ ROUTED_CASES = {
     "k24-month-inside": ("topology", 0, 30, 48, 24, False, ()),
     "past-hbuf": ("relay", 0, 730, 48, 120, False, ()),
     "endogenous": ("topology", 0, 730, 48, 24, True, ()),
+    "hot-port-76-legs-k24": ("hot-port", 0, 730, 48, 24, False, ()),
+    "hot-port-76-legs-k1": ("hot-port", 0, 730, 72, 1, False, ()),
+    "hot-port-76-legs-k33": ("hot-port", 0, 730, 73, 33, False, ()),
+    "hot-port-165-legs-k24": ("hotter-port", 0, 730, 48, 24, False, ()),
 }
 
 
@@ -396,7 +400,14 @@ def _routed_scenario(m, name, hpm):
     sc = {"relay": lambda: m.build_relay_scenario(horizon=200, seed=0),
           "multicast": lambda: m.build_multicast_scenario(n_leaves=3, horizon=200, seed=0),
           "topology": lambda: m.build_topology_scenario(16, n_facilities=3, horizon=200,
-                                                        seed=0)}[name]()
+                                                        seed=0),
+          # 200 or 400 pairs on 4 ports: the hottest port holds 76 or 165 legs
+          "hot-port": lambda: m.build_topology_scenario(200, n_facilities=2,
+                                                        ports_per_facility=2, horizon=200,
+                                                        seed=0),
+          "hotter-port": lambda: m.build_topology_scenario(400, n_facilities=2,
+                                                           ports_per_facility=2, horizon=200,
+                                                           seed=0)}[name]()
     return sc, dataclasses.replace(sc.topo, hours_per_month=hpm)
 
 
@@ -407,10 +418,12 @@ def test_stream_chunk_routed_plain_matches_jax_step_many(case):
     runtime's topology step_many on the same hours: a padded relay routing, a
     multicast tree, NaN demand in pair 0 under padding legs (it reaches port 0
     through them), K = 1 at a month start, a month start inside a K = 24
-    chunk, K past the window ring and endogenous CCI demand. Decisions, the
-    VPN plane and its window sums bit for bit; the CCI plane and its window
-    sums at ``rtol=1e-12`` (XLA contracts the lease sum and ``c·d_bill``
-    into a fused multiply-add, one ulp off)."""
+    chunk, K past the window ring, endogenous CCI demand, and ports of 76
+    and 165 legs (one and two of the kernel's 128-leg tiles; K = 24, 1 and
+    33 past the 32-hour tile). Decisions, the VPN plane and its window sums
+    bit for bit; the CCI plane and its window sums at ``rtol=1e-12`` (XLA
+    contracts the lease sum and ``c·d_bill`` into a fused multiply-add, one
+    ulp off)."""
     from repro.fleet import scenario as jscen
     from repro.fleet import topology as jtop
     from repro.fleet.stream import FleetRuntime as JFleetRuntime
@@ -428,6 +441,9 @@ def test_stream_chunk_routed_plain_matches_jax_step_many(case):
     cblk = lambda a, b: None if cci_d is None else cci_d[:, a:b]
     jr, tr = jtop.optimize_routing(jsc.topo, jsc.demand), ttop.optimize_routing(topo, sc.demand)
     jr, tr = jr.pad_to(jr.n_legs + pad), tr.pad_to(tr.n_legs + pad)
+    hot = {"hot-port": 76, "hotter-port": 165}.get(name)
+    if hot is not None:
+        assert np.bincount([m for path in tr.paths for m in path]).max() == hot
     jrt = JFleetRuntime(jtopo, routing=jr)
     rt = FleetRuntime(topo, routing=tr, device="cpu")
     for a in range(0, t0, 24):
