@@ -119,9 +119,7 @@ without printing a result):
     2048-link fleet every bit of ``plan_fleet``; ``leg_segment_sum`` is held
     against its plain version bit for bit at P = 2048, T = 8760, M = 128, E
     = 6144 (1-, 2- and 3-hop rows, padding legs, NaN and inf in row 0, -0.0
-    sources) and at the main path's inputs; at 1200 hours the relay and
-    multicast savings (as ``build_topology_report`` computes them) must
-    equal the CPU's within ``rtol=1e-12`` and read 0.3785 and 0.1101,
+    sources) and at the main path's inputs; at 1200 hours
     ``refine_routing`` from the 1-hop routing must apply a relay move, and
     ``replay_plan_topology`` of one segment must equal ``plan_topology``
     bit for bit and of two (direct, then the relay from hour 600) the CPU;
@@ -151,7 +149,26 @@ without printing a result):
     saving; then it times the tick, the chunk, the host split of a step and
     the kernel (profiler device time) beside its bound and plain version,
     with a device breakdown of one chunk;
-12. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+12. the paper's evaluation (:func:`report_phase`): with every launch count
+    at 0, ``build_report`` of the 2048 x 8760 fleet plan with the OPT column
+    on the card; it fails unless ``oracle_dp`` launched exactly once (one
+    ``fleet_oracle`` call) and nothing else did, unless every link's OPT is
+    at most its ToggleCCI and its best static cost (x (1 + 1e-9)), and
+    prints the portfolio totals; ``oracle_dp`` at the report's inputs must
+    equal its OPT column, its plain version on the card every bit, the plain
+    version on the CPU on 64 links and the numpy ``offline_optimal`` on 4;
+    ``build_topology_report`` of the relay and multicast scenarios at 1200
+    hours (each plan and its report driven with launches counted) must give
+    ``relay_savings`` 0.3785 and ``tree_sharing_savings`` 0.1101, equal to
+    the CPU report within ``rtol=1e-12``; with every count at 0,
+    ``build_topology_report`` of the 2048-pair year with the oracle must
+    launch ``oracle_dp`` once, keep OPT at most ToggleCCI on every port and
+    equal the plain version on the CPU on the port series; then it times
+    ``oracle_dp`` (profiler device time) beside its bound and plain version
+    at 2048 links and 128 ports, ``fleet_oracle``'s host split (the cost
+    series, the copy in, the launch, the copy out), each report's wall time
+    and one link of the numpy DP;
+13. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -1785,34 +1802,6 @@ def leg_segment_bound(P: int, T: int, M: int, E: int, planes: int) -> dict:
     return bound(bytes_moved, ops, torch.float64)
 
 
-def replan_cost(topo, routing, demand, device) -> float:
-    """Reactive full replan of ``routing`` on ``topo``: the baseline of the
-    savings ``repro.fleet.report.build_topology_report`` computes."""
-    from repro_torch.fleet import plan_topology, reactive_policy
-
-    arrays = topo.stack(routing, torch.float64, device)
-    out = plan_topology(arrays, demand, policy=reactive_policy(arrays.toggle),
-                        hours_per_month=topo.hours_per_month, device=device)
-    return float(out["toggle_cost"].sum())
-
-
-def savings(relay, mcast, device) -> dict:
-    """``relay_savings`` and ``tree_sharing_savings`` of the reactive plans,
-    as ``build_topology_report``'s totals compute them."""
-    from repro_torch.fleet import multicast_unicast_expansion, optimize_routing, plan_topology
-
-    plan = plan_topology(relay.topo, relay.demand, device=device)
-    one_hop = optimize_routing(relay.topo, relay.demand, max_hops=1)
-    relay_s = 1.0 - float(plan["toggle_cost"].sum()) / replan_cost(
-        relay.topo, one_hop, relay.demand, device)
-    plan = plan_topology(mcast.topo, mcast.demand, device=device)
-    etopo, row_map = multicast_unicast_expansion(mcast.topo)
-    d_uni = mcast.demand[row_map]
-    uni = optimize_routing(etopo, d_uni, max_hops=1)
-    tree_s = 1.0 - float(plan["toggle_cost"].sum()) / replan_cost(etopo, uni, d_uni, device)
-    return {"relay_savings": relay_s, "tree_sharing_savings": tree_s}
-
-
 def leg_check(P: int, T: int, M: int, E: int) -> None:
     """``leg_segment_sum`` against its plain version on the card, every bit,
     on seeded leg lists of 1-, 2- and 3-hop rows padded to E legs, with a NaN
@@ -1845,9 +1834,10 @@ def topology_phase(card: str, fleet_scen) -> dict:
     """The topology slice on the card: ``plan_topology`` of the 2048-pair,
     128-port year through the entry point with launches counted, against
     the numpy reference and the CPU path; padding and the identity topology
-    bit for bit; ``leg_segment_sum`` against its plain version; the relay and
-    multicast savings, ``refine_routing`` and ``replay_plan_topology``; then
-    timings. Returns the kernel's row."""
+    bit for bit; ``leg_segment_sum`` against its plain version;
+    ``refine_routing`` and ``replay_plan_topology`` on the relay scenario;
+    then timings. Returns the kernel's row and the scenarios, routing and
+    plans the later phases reuse."""
     from repro_torch.fleet import (
         build_multicast_scenario,
         build_relay_scenario,
@@ -1932,12 +1922,6 @@ def topology_phase(card: str, fleet_scen) -> dict:
     # -- relay and multicast economics, refine, replay ----------------------
     relay = build_relay_scenario(horizon=SAVINGS_HOURS, seed=SEED)
     mcast = build_multicast_scenario(n_leaves=4, horizon=SAVINGS_HOURS, seed=SEED)
-    got, want = savings(relay, mcast, DEVICE), savings(relay, mcast, "cpu")
-    for k, v in got.items():
-        check(abs(v - want[k]) <= 1e-12 * abs(want[k]), f"{k}: card {v!r} != CPU {want[k]!r}")
-        check(abs(v - SAVINGS_WANT[k]) < 1e-4, f"{k} {v:.5f}, not {SAVINGS_WANT[k]}")
-    print(f"{SAVINGS_HOURS} h: relay_savings {got['relay_savings']!r}, tree_sharing_savings "
-          f"{got['tree_sharing_savings']!r} (card == CPU within rtol 1e-12)")
     ops.reset_launches()
     start = optimize_routing(relay.topo, relay.demand, max_hops=1)
     refined, info = refine_routing(relay.topo, relay.demand, start)
@@ -2009,7 +1993,7 @@ def topology_phase(card: str, fleet_scen) -> dict:
     print(f"topology phase: {time.perf_counter() - t_phase:.1f} s")
     row = {"launches": launches["leg_segment_sum"], "max_abs_err": 0.0, "ms": ms,
            "plain_ms": plain_ms, **b, "library_ms": lib_ms}
-    return row, {"scenario": sc, "routing": routing, "cpu_plan": cpu,
+    return row, {"scenario": sc, "routing": routing, "plan": plan, "cpu_plan": cpu,
                  "relay": relay, "multicast": mcast}
 
 
@@ -2252,6 +2236,197 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
             "bound_by": t24["bound_by"], "library_ms": None, "main_path": True}
 
 
+# -- the evaluation: reports and the offline oracle ----------------------------
+ORACLE_CPU_ROWS = 64       # links held against the plain version on the CPU
+ORACLE_NUMPY_ROWS = 4      # ... and against the scalar numpy DP
+OPT_SLACK = 1e-9           # OPT <= ToggleCCI and <= best static, up to this relative slack
+
+
+def oracle_bound(D: np.ndarray, T_cci: np.ndarray, T: int) -> dict:
+    # vpn, cci read once (f64), D, T_cci read (int32), total (f64) and start_on
+    # (bool) written; per row-hour one add a state (D + T_cci + 2) plus the
+    # request and release adds and the two comparisons.
+    N = len(D)
+    bytes_moved = 2 * N * T * 8 + N * (4 + 4 + 8 + 1)
+    ops = int(np.sum(D.astype(np.int64) + T_cci + 2 + 4)) * T
+    return bound(bytes_moved, ops, torch.float64)
+
+
+def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
+    """The paper's evaluation on the card: ``build_report`` of the 2048-link
+    year with the OPT column and ``build_topology_report`` of the relay and
+    multicast scenarios and of the 2048-pair year with the oracle, each
+    driven with launches counted; ``oracle_dp`` against its plain version
+    and the numpy DP; OPT below ToggleCCI and the best static policy; the
+    savings card == CPU; then timings. Returns the kernel's row."""
+    from repro_torch.core.costmodel import HourlyCosts
+    from repro_torch.core.oracle import offline_optimal
+    from repro_torch.fleet import (
+        build_report,
+        build_topology_report,
+        optimize_routing,
+        plan_topology,
+        topology_port_costs_reference,
+    )
+    from repro_torch.fleet.engine import _fleet_cost_planes
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+    fleet, demand = fleet_scen.fleet, fleet_scen.demand
+    N, T = demand.shape
+    launches = 0
+
+    # -- the fleet report, launches counted ---------------------------------
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rep = build_report(fleet_scen, fleet_plan, include_oracle=True)
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(counts == {"oracle_dp": 1}, f"build_report launched {counts}, not one oracle_dp")
+    launches += counts["oracle_dp"]
+    opt = np.array([link.oracle_cost for link in rep.links])
+    tog = np.array([link.toggle_cost for link in rep.links])
+    best = np.array([link.best_static for link in rep.links])
+    check(len(rep.links) == N and bool(np.isfinite(opt).all()), "fleet report: OPT not finite")
+    check(bool((opt <= tog * (1 + OPT_SLACK)).all()), "fleet report: OPT above ToggleCCI")
+    check(bool((opt <= best * (1 + OPT_SLACK)).all()), "fleet report: OPT above best static")
+    t = rep.totals
+    print(f"fleet report {N} x {T} with the OPT column: {report_s:.3f} s wall, launches {counts}; "
+          f"portfolio ToggleCCI ${t['togglecci']:.2f}, best static per link "
+          f"${t['best_static_per_link']:.2f}, oracle ${t['oracle']:.2f} (ToggleCCI / OPT "
+          f"{t['togglecci'] / t['oracle']:.4f}, vs best static "
+          f"{100 * (1 - t['togglecci'] / t['best_static_per_link']):+.2f}%); OPT <= ToggleCCI "
+          f"and <= best static on all {N} links")
+
+    # -- fleet_oracle's host split, and the kernel at its inputs -------------
+    t0 = time.perf_counter()
+    vpn, cci = _fleet_cost_planes(fleet, demand)
+    t1 = time.perf_counter()
+    D = np.array([link.params.D for link in fleet.links], np.int32)
+    Tc = np.array([link.params.T_cci for link in fleet.links], np.int32)
+    args = [torch.from_numpy(a).to(DEVICE) for a in (vpn, cci, D, Tc)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    total, start_on = ops.oracle_dp(*args)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    host_total = total.cpu().numpy()
+    t4 = time.perf_counter()
+    check(host_total.tobytes() == opt.tobytes(), "oracle_dp at the report's inputs != its OPT")
+    print(f"  fleet_oracle host split, host clock: cost series {1e3 * (t1 - t0):.1f} ms, copy in "
+          f"({(vpn.nbytes + cci.nbytes) / 1e6:.0f} MB) {1e3 * (t2 - t1):.1f} ms, launch and wait "
+          f"{1e3 * (t3 - t2):.2f} ms, copy out {1e3 * (t4 - t3):.2f} ms; {int(start_on.sum())} "
+          f"links start ON; states a row {int(D.min() + Tc.min() + 2)}-"
+          f"{int((D + Tc).max() + 2)}, mean {float(np.mean(D + Tc + 2)):.1f}")
+    t0 = time.perf_counter()
+    want, want_on = ref.oracle_dp_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(same_bits(total, want) and torch.equal(start_on, want_on),
+          "oracle_dp != plain on the card at the fleet year")
+    cpu_args = [torch.from_numpy(a[:ORACLE_CPU_ROWS]) for a in (vpn, cci, D, Tc)]
+    t0 = time.perf_counter()
+    cpu_total, cpu_on = ref.oracle_dp_ref(*cpu_args)
+    cpu_s = time.perf_counter() - t0
+    check(same_bits(total[:ORACLE_CPU_ROWS].cpu(), cpu_total)
+          and torch.equal(start_on[:ORACLE_CPU_ROWS].cpu(), cpu_on),
+          f"oracle_dp != plain on the CPU on the first {ORACLE_CPU_ROWS} links")
+    z = np.zeros(T)
+    numpy_s = []
+    for i in range(ORACLE_NUMPY_ROWS):
+        t0 = time.perf_counter()
+        r = offline_optimal(fleet.links[i].params, costs=HourlyCosts(z, vpn[i], z, cci[i]))
+        numpy_s.append(time.perf_counter() - t0)
+        check(np.float64(r.total_cost).tobytes() == host_total[i:i + 1].tobytes()
+              and r.start_on == bool(start_on[i]), f"oracle_dp != offline_optimal on link {i}")
+    err = (total - want).abs().max().item()
+    print(f"oracle_dp {N} x {T}: every bit == plain on the card, == plain on the CPU on "
+          f"{ORACLE_CPU_ROWS} links ({cpu_s:.1f} s), == numpy offline_optimal on "
+          f"{ORACLE_NUMPY_ROWS} links (one link {statistics.median(numpy_s):.3f} s on the host, "
+          f"so ~{statistics.median(numpy_s) * N / 60:.1f} min for the fleet)")
+
+    # -- topology reports: the savings, then the 2048-pair year with the oracle
+    for name in ("relay", "multicast"):
+        sc = topo_ctx[name]
+        routing = optimize_routing(sc.topo, sc.demand)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        plan = plan_topology(sc.topo, sc.demand, routing=routing)
+        got = build_topology_report(sc, plan, routing).totals
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        check(counts.get("fsm_scan", 0) >= 3, f"{name} report: replans launched {counts}")
+        cpu = plan_topology(sc.topo, sc.demand, routing=routing, device="cpu")
+        want = build_topology_report(sc, cpu, routing, device="cpu").totals
+        k = "relay_savings" if name == "relay" else "tree_sharing_savings"
+        v = got[k]
+        check(abs(v - want[k]) <= 1e-12 * abs(want[k]), f"{k}: card {v!r} != CPU {want[k]!r}")
+        check(abs(v - SAVINGS_WANT[k]) < 1e-4, f"{k} {v:.5f}, not {SAVINGS_WANT[k]}")
+        print(f"{name} report {SAVINGS_HOURS} h: {k} {v!r} (card == CPU within rtol 1e-12), "
+              f"lease_sharing_savings {got['lease_sharing_savings']:.4f}; plan and report "
+              f"{wall_ms:.1f} ms wall, launches {counts}")
+
+    sc, routing, plan = topo_ctx["scenario"], topo_ctx["routing"], topo_ctx["plan"]
+    P, M = sc.n_pairs, sc.n_ports
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    trep = build_topology_report(sc, plan, routing, include_oracle=True)
+    torch.cuda.synchronize()
+    topo_s = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(counts.get("oracle_dp") == 1, f"build_topology_report launched {counts}")
+    launches += counts["oracle_dp"]
+    popt = np.array([p.oracle_cost for p in trep.ports])
+    ptog = np.array([p.toggle_cost for p in trep.ports])
+    check(bool(np.isfinite(popt).all()) and bool((popt <= ptog * (1 + OPT_SLACK)).all()),
+          "topology report: OPT above ToggleCCI on a port")
+    tt = trep.totals
+    t0 = time.perf_counter()
+    series = topology_port_costs_reference(sc.topo, sc.demand, routing)
+    series_s = time.perf_counter() - t0
+    pD = np.array([p.D for p in sc.topo.ports], np.int32)
+    pT = np.array([p.T_cci for p in sc.topo.ports], np.int32)
+    zeros = np.zeros(series["vpn"].shape)
+    pargs = [torch.from_numpy(np.ascontiguousarray(a))
+             for a in (zeros + series["vpn"], zeros + series["cci"], pD, pT)]
+    ptotal, pon = ops.oracle_dp(*(a.to(DEVICE) for a in pargs))
+    cpu_total, cpu_on = ref.oracle_dp_ref(*pargs)
+    check(same_bits(ptotal.cpu(), cpu_total) and torch.equal(pon.cpu(), cpu_on)
+          and ptotal.cpu().numpy().tobytes() == popt.tobytes(),
+          "topology oracle_dp != plain on the CPU or != the report's OPT")
+    print(f"topology report {P} pairs x {T} h on {M} ports with the oracle: {topo_s:.3f} s wall "
+          f"(port series on the host {series_s:.3f} s; launches {counts}); ToggleCCI "
+          f"${tt['togglecci']:.2f}, oracle ${tt['oracle']:.2f}, oracle gap "
+          f"{tt['oracle_gap']:.4f}x, lease_sharing_savings {tt['lease_sharing_savings']:.4f}; "
+          f"OPT <= ToggleCCI on all {M} ports; oracle_dp on the port series == plain on the "
+          f"CPU, every bit")
+
+    # -- timings ----------------------------------------------------------------
+    b = oracle_bound(D, Tc, T)
+    dp = lambda: ops.oracle_dp(*args)
+    ms = kernel_device_ms(dp, 5, ["oracle_dp"], per_call=1)["oracle_dp"]
+    ev_ms = queued_ms(dp, 5)
+    pdev = [a.to(DEVICE) for a in pargs]
+    pb = oracle_bound(pD, pT, T)
+    pms = kernel_device_ms(lambda: ops.oracle_dp(*pdev), 5, ["oracle_dp"], per_call=1)["oracle_dp"]
+    report_ms = sync_ms(lambda: build_report(fleet_scen, fleet_plan, include_oracle=True), 1,
+                        warmup=0)
+    print(f"timings on {card} (median ms)")
+    print(f"  oracle_dp {N} x {T}: kernel {ms:.4f} ms (profiler device time; CUDA events queued "
+          f"behind a sleep {ev_ms:.4f}), plain on the card {plain_ms:.1f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {ms / b['bound_ms']:.1f}x bound; "
+          f"{M} ports x {T}: {pms:.4f} ms, bound {pb['bound_ms']:.4f} ms ({pb['bound_by']}), "
+          f"{pms / pb['bound_ms']:.1f}x")
+    print(f"  build_report {N} x {T} with the OPT column: {report_ms:.1f} ms wall (again); "
+          f"build_topology_report {P} pairs with the oracle {topo_s * 1e3:.1f} ms")
+    print_breakdown(dp, reps=2, unit="oracle_dp call")
+    print(f"report phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2450,6 +2625,7 @@ def main() -> int:
     act_rows = actuation_phase(card.splitlines()[0])
     topo_row, topo_ctx = topology_phase(card.splitlines()[0], scen[SIZES[-1][0]])
     routed_row = topology_stream_phase(card.splitlines()[0], topo_ctx)
+    oracle_row = report_phase(card.splitlines()[0], scen[N_big], plans[N_big, False], topo_ctx)
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -2506,6 +2682,9 @@ def main() -> int:
         {"name": "stream_chunk_routed", "route": "cuda",
          "source": "src/repro_torch/csrc/stream_chunk_routed.cu",
          "replaces": "src/repro/fleet/runtime.py:465", **routed_row},
+        {"name": "oracle_dp", "route": "cuda",
+         "source": "src/repro_torch/csrc/oracle_dp.cu",
+         "replaces": "src/repro/core/oracle.py:64", **oracle_row},
     ]
     print(f"profiler: {len(PAD_SEEN)} traces; pad kernels recorded of {TRACE_PADS}, by trace: "
           f"{PAD_SEEN}")

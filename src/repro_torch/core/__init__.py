@@ -1,8 +1,18 @@
 """The paper's contribution in PyTorch: pricing, cost model, ToggleCCI.
 
 Port of :mod:`repro.core` (the pricing catalogs are a copy; the cost model
-and ToggleCCI have torch paths beside their numpy references; the
-interconnect planner that drives the gradient sync's mode is a copy).
+and ToggleCCI have torch paths beside their numpy references; the offline
+oracle, the baselines, the adversary and the interconnect planner that
+drives the gradient sync's mode are copies).
+
+Public API:
+    pricing.CostParams / make_scenario / TieredRate / breakeven_rate_gb_per_hour
+    costmodel.hourly_cost_series / evaluate_schedule / cost_breakdown
+    togglecci.run_togglecci / run_togglecci_scan
+    baselines.BASELINES / evaluate_all
+    oracle.offline_optimal / best_static
+    adversary.instance_for_ratio / competitive_ratio
+    planner.InterconnectPlanner
 """
 from .pricing import (  # noqa: F401
     CostParams,
@@ -13,6 +23,8 @@ from .pricing import (  # noqa: F401
 )
 from .costmodel import (  # noqa: F401
     HourlyCosts,
+    cost_breakdown,
+    evaluate_schedule,
     hourly_cost_series,
     monthly_cumsum,
     tiered_marginal_cost_np,
@@ -35,3 +47,6 @@ from .togglecci import (  # noqa: F401
     run_togglecci_scan,
     window_sums,
 )
+from .baselines import BASELINES, evaluate_all  # noqa: F401
+from .oracle import best_static, offline_optimal  # noqa: F401
+from .adversary import competitive_ratio, instance_for_ratio  # noqa: F401

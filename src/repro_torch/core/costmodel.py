@@ -10,7 +10,8 @@ package).
 Two implementations with identical semantics:
 
 * numpy reference (test oracle)          — :func:`hourly_cost_series`,
-  :func:`tiered_marginal_cost_np` (copies of the JAX package's numpy code)
+  :func:`tiered_marginal_cost_np`, :func:`evaluate_schedule`,
+  :func:`cost_breakdown` (copies of the JAX package's numpy code)
 * torch, batched over links              — :func:`monthly_cumsum`,
   :func:`tiered_marginal_cost_tables` (the plain version of the
   ``tiered_cost_batched`` CUDA kernel, :mod:`repro_torch.kernels`)
@@ -18,6 +19,7 @@ Two implementations with identical semantics:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,7 +27,7 @@ import torch
 from .pricing import CostParams, TieredRate
 
 # ---------------------------------------------------------------------------
-# numpy reference (copied from repro.core.costmodel)
+# numpy reference (copies of the JAX package's repro.core.costmodel)
 # ---------------------------------------------------------------------------
 
 
@@ -91,6 +93,35 @@ def hourly_cost_series(params: CostParams, demand: np.ndarray) -> HourlyCosts:
     cci_lease = np.full(T, params.L_cci + P * params.V_cci)
     cci_transfer = params.c_cci * d.sum(axis=1)
     return HourlyCosts(vpn_lease, vpn_transfer, cci_lease, cci_transfer)
+
+
+def evaluate_schedule(
+    params: CostParams,
+    demand: np.ndarray,
+    x: np.ndarray,
+    costs: Optional[HourlyCosts] = None,
+) -> float:
+    """Total cost of schedule ``x`` (Eq. 2). ``x[t]=1`` means CCI serves hour t."""
+    costs = costs if costs is not None else hourly_cost_series(params, demand)
+    x = np.asarray(x, dtype=np.float64)
+    if x.shape != costs.vpn.shape:
+        raise ValueError(f"schedule of shape {x.shape} for {costs.vpn.shape} hours")
+    if not np.isin(x, (0.0, 1.0)).all():
+        raise ValueError("a schedule holds only 0 and 1")
+    return float(np.sum(x * costs.cci + (1.0 - x) * costs.vpn))
+
+
+def cost_breakdown(
+    params: CostParams, demand: np.ndarray, x: np.ndarray
+) -> dict:
+    """Leasing/transfer decomposition of a schedule's cost (paper Figs. 7, 10b)."""
+    c = hourly_cost_series(params, demand)
+    x = np.asarray(x, dtype=np.float64)
+    return {
+        "lease": float(np.sum(x * c.cci_lease + (1 - x) * c.vpn_lease)),
+        "transfer": float(np.sum(x * c.cci_transfer + (1 - x) * c.vpn_transfer)),
+        "total": float(np.sum(x * c.cci + (1 - x) * c.vpn)),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from .costmodel import HourlyCosts, hourly_cost_series
 from .pricing import CostParams
 
 OFF, WAITING, ON = 0, 1, 2
+STATE_NAMES = {OFF: "OFF", WAITING: "WAITING", ON: "ON"}
 
 
 @dataclasses.dataclass

@@ -3,9 +3,10 @@
 Port of :mod:`repro.fleet`: specs (:mod:`~repro_torch.fleet.spec`), the
 topology model and routing heuristics (:mod:`~repro_torch.fleet.topology`,
 :mod:`~repro_torch.fleet.routing`), the reactive and hysteresis policies
-(:mod:`~repro_torch.fleet.policy`), the engine with ``plan_fleet`` and
-``plan_topology`` (:mod:`~repro_torch.fleet.engine`; the offline namespace
-:mod:`~repro_torch.fleet.plan`), the scenario builders
+(:mod:`~repro_torch.fleet.policy`), the engine with ``plan_fleet``,
+``plan_topology`` and the offline oracles (:mod:`~repro_torch.fleet.engine`;
+the offline namespace :mod:`~repro_torch.fleet.plan`), the reports
+(:mod:`~repro_torch.fleet.report`), the scenario builders
 (:mod:`~repro_torch.fleet.scenario`) and the streaming runtime in fleet mode
 (:mod:`~repro_torch.fleet.runtime`, facade :mod:`~repro_torch.fleet.stream`)
 with the elastic planner that actuates the gradient sync
@@ -22,15 +23,22 @@ Quick start, on an NVIDIA GPU::
     from repro_torch.fleet import build_topology_scenario, plan_topology
     ts = build_topology_scenario(64, n_facilities=8, ports_per_facility=4, seed=0)
     plan = plan_topology(ts.topo, ts.demand)           # routes, then plans ports
+
+    from repro_torch.fleet import build_report
+    rep = build_report(sc, out, include_oracle=True)   # OPT column: one oracle_dp launch
+    print(rep.render_text())
 """
 from .engine import (  # noqa: F401
     RoutedSeries,
+    fleet_oracle,
+    offline_stream_oracle,
     plan_fleet,
     plan_fleet_reference,
     plan_topology,
     plan_topology_reference,
     replay_plan_topology,
     routed_cost_series,
+    topology_oracle,
     topology_port_costs_reference,
 )
 from .policy import (  # noqa: F401
@@ -42,6 +50,16 @@ from .policy import (  # noqa: F401
     make_policy,
     policy_scan,
     reactive_policy,
+)
+from .report import (  # noqa: F401
+    FleetReport,
+    LinkReport,
+    PortReport,
+    TopologyReport,
+    build_report,
+    build_topology_report,
+    lease_intervals,
+    toggle_events,
 )
 from .routing import (  # noqa: F401
     LegIndex,

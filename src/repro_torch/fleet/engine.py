@@ -21,9 +21,15 @@ package's Pallas path does.
 
 :func:`plan_topology` co-optimizes routing (:func:`optimize_routing` on the
 host when no routing is given) and leasing; :func:`replay_plan_topology`
-replays a piecewise-constant routing schedule. The numpy references
-(:func:`plan_fleet_reference`, :func:`topology_port_costs_reference`,
+replays a piecewise-constant routing schedule, and
+:func:`offline_stream_oracle` is the offline twin of a stream. The numpy
+references (:func:`plan_fleet_reference`, :func:`topology_port_costs_reference`,
 :func:`plan_topology_reference`) are copies of the JAX package's.
+
+The reports' OPT column, :func:`fleet_oracle` and :func:`topology_oracle`,
+builds every row's hourly cost series on the host as the JAX package does,
+then runs every row's offline-optimal DP in one ``oracle_dp`` launch on
+CUDA (its plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -32,7 +38,12 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.costmodel import HourlyCosts, monthly_cumsum, tiered_marginal_cost_np
+from repro_torch.core.costmodel import (
+    HourlyCosts,
+    hourly_cost_series,
+    monthly_cumsum,
+    tiered_marginal_cost_np,
+)
 from repro_torch.core.togglecci import run_togglecci
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
@@ -346,6 +357,45 @@ def replay_plan_topology(
     return _plan_outputs(policy, d_row, vpn, cci)
 
 
+def offline_stream_oracle(
+    arrays: Union[FleetArrays, TopologyArrays],
+    demand,
+    *,
+    policy=None,
+    schedule: Optional[Sequence[Tuple[int, object]]] = None,
+    hours_per_month: int = 730,
+    renew_in_chunks: bool = False,
+    device: DeviceLike = None,
+) -> Dict[str, torch.Tensor]:
+    """The offline twin of a streamed prefix — the divergence monitor's oracle.
+
+    Dispatches on the arrays: :class:`TopologyArrays` replay through
+    :func:`replay_plan_topology` with the recorded routing ``schedule``
+    (defaulting to one segment of the arrays' own routing — so a stream that
+    never rerouted replays against exactly ``plan_topology``);
+    :class:`FleetArrays` run straight through :func:`plan_fleet`
+    (``schedule`` must be ``None`` — a fleet has no routing to swap).
+    Decisions match a :class:`~repro_torch.fleet.runtime.FleetRuntime`
+    stream of the same demand prefix bit for bit. Runs on ``device`` (CUDA
+    unless the caller says otherwise).
+    """
+    if isinstance(arrays, TopologyArrays):
+        if schedule is None:
+            schedule = [(0, arrays.routing)]
+        return replay_plan_topology(
+            arrays, demand, schedule,
+            policy=policy, hours_per_month=hours_per_month,
+            renew_in_chunks=renew_in_chunks, device=device,
+        )
+    if schedule is not None:
+        raise ValueError("fleet mode has no routing schedule")
+    return plan_fleet(
+        arrays, demand,
+        policy=policy, hours_per_month=hours_per_month,
+        renew_in_chunks=renew_in_chunks, device=device,
+    )
+
+
 def _month_cum_np(d: np.ndarray, hours_per_month: int) -> np.ndarray:
     """Exclusive within-month prefix volume of one (T,) demand row."""
     T = d.shape[0]
@@ -441,3 +491,59 @@ def plan_topology_reference(
         "vpn_hourly": series["vpn"],
         "cci_hourly": series["cci"],
     }
+
+
+def _oracle_rows(vpn: np.ndarray, cci: np.ndarray, params, dev: torch.device) -> np.ndarray:
+    """Every row's offline-optimal total in one ``ops.oracle_dp`` call on
+    ``dev``: the (N, T) float64 planes and the rows' ``D``/``T_cci`` copied
+    in once, the totals copied back."""
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(dev)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    total, _ = ops.oracle_dp(f(vpn), f(cci), i32([p.D for p in params]),
+                             i32([p.T_cci for p in params]))
+    return total.cpu().numpy()
+
+
+def topology_oracle(topo: TopologySpec, demand, routing, *,
+                    device: DeviceLike = None) -> np.ndarray:
+    """Offline-optimal (DP) cost per port for a FIXED routing — the report's
+    leasing-oracle column (routing itself is not oracle-optimized).
+
+    The port-aggregated series are :func:`topology_port_costs_reference`'s
+    (host numpy, as the JAX package builds them); every port's DP then runs
+    in one ``oracle_dp`` launch on ``device`` (CUDA by default; the plain
+    version on the CPU), each total bit-equal to
+    :func:`repro_torch.core.oracle.offline_optimal` on the port's series.
+    """
+    dev = resolve_device(device)
+    series = topology_port_costs_reference(topo, demand, routing)
+    zeros = np.zeros(series["vpn"].shape)
+    params = [po.toggle_cost_params(topo.hours_per_month) for po in topo.ports]
+    # HourlyCosts(vpn_lease=0, vpn_transfer=series, ...).vpn, as the reference sums it.
+    return _oracle_rows(zeros + series["vpn"], zeros + series["cci"], params, dev)
+
+
+def fleet_oracle(fleet: FleetSpec, demand, *, device: DeviceLike = None) -> np.ndarray:
+    """Offline-optimal (DP) total cost per link — the report's OPT column.
+
+    Each link's hourly VPN and CCI series are built on the host from its
+    capacity-clipped demand (:func:`hourly_cost_series`, as the JAX package
+    does), stacked into (N, T) planes and run in one ``oracle_dp`` launch on
+    ``device`` (CUDA by default; the plain version on the CPU), each total
+    bit-equal to :func:`repro_torch.core.oracle.offline_optimal` on the link.
+    """
+    dev = resolve_device(device)
+    vpn, cci = _fleet_cost_planes(fleet, demand)
+    return _oracle_rows(vpn, cci, [link.params for link in fleet.links], dev)
+
+
+def _fleet_cost_planes(fleet: FleetSpec, demand) -> Tuple[np.ndarray, np.ndarray]:
+    """The (N, T) float64 hourly VPN and CCI series of every link on the
+    host, from its capacity-clipped demand: :func:`fleet_oracle`'s input."""
+    demand = np.asarray(demand, dtype=np.float64)
+    N, T = len(fleet), demand.shape[1]
+    vpn, cci = np.empty((N, T)), np.empty((N, T))
+    for i, link in enumerate(fleet.links):
+        costs = hourly_cost_series(link.params, np.minimum(demand[i], link.capacity_gb_hr))
+        vpn[i], cci[i] = costs.vpn, costs.cci
+    return vpn, cci

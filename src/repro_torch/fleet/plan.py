@@ -2,19 +2,22 @@
 
 Port of :mod:`repro.fleet.plan`, limited to the names the port has: the
 fleet and topology specs and their stacked tensor forms, the routing
-currency, the engines and their numpy references, the reactive and
-hysteresis policies, and the scenario builders. The implementations stay in
-their submodules; this module only re-exports them. The streaming twins
-live in :mod:`repro_torch.fleet.stream`.
+currency, the engines, oracles and their numpy references, the reactive
+and hysteresis policies, the scenario builders and the reports. The
+implementations stay in their submodules; this module only re-exports
+them. The streaming twins live in :mod:`repro_torch.fleet.stream`.
 """
 from .engine import (  # noqa: F401
     RoutedSeries,
+    fleet_oracle,
+    offline_stream_oracle,
     plan_fleet,
     plan_fleet_reference,
     plan_topology,
     plan_topology_reference,
     replay_plan_topology,
     routed_cost_series,
+    topology_oracle,
     topology_port_costs_reference,
 )
 from .policy import (  # noqa: F401
@@ -25,6 +28,16 @@ from .policy import (  # noqa: F401
     make_policy,
     policy_scan,
     reactive_policy,
+)
+from .report import (  # noqa: F401
+    FleetReport,
+    LinkReport,
+    PortReport,
+    TopologyReport,
+    build_report,
+    build_topology_report,
+    lease_intervals,
+    toggle_events,
 )
 from .routing import (  # noqa: F401
     RoutingOperand,
@@ -77,9 +90,10 @@ __all__ = [
     # routing currency
     "RoutingOperand", "RoutingPlan", "as_routing_plan",
     # engines
-    "RoutedSeries", "plan_fleet", "plan_fleet_reference",
-    "plan_topology", "plan_topology_reference", "replay_plan_topology",
-    "routed_cost_series", "topology_port_costs_reference",
+    "RoutedSeries", "fleet_oracle", "offline_stream_oracle", "plan_fleet",
+    "plan_fleet_reference", "plan_topology", "plan_topology_reference",
+    "replay_plan_topology", "routed_cost_series", "topology_oracle",
+    "topology_port_costs_reference",
     # policies
     "POLICY_KINDS", "HysteresisPolicy", "ReactivePolicy",
     "hysteresis_policy", "make_policy", "policy_scan", "reactive_policy",
@@ -89,4 +103,7 @@ __all__ = [
     "build_multicast_scenario", "build_relay_scenario",
     "build_reroute_scenario", "build_topology_scenario",
     "link_capacity_gb_hr", "port_capacity_gb_hr", "vlan_access_gb_hr",
+    # reports
+    "FleetReport", "LinkReport", "PortReport", "TopologyReport",
+    "build_report", "build_topology_report", "lease_intervals", "toggle_events",
 ]

@@ -27,10 +27,10 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
            "stream_chunk_routed.cu", "leg_segment_sum.cu", "rmsnorm.cu", "flash_attention.cu",
-           "int8_quant.cu")
+           "int8_quant.cu", "oracle_dp.cu")
 #: The float64 sources, held bit for bit against their plain versions.
 EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
-                 "stream_chunk_routed.cu", "leg_segment_sum.cu")
+                 "stream_chunk_routed.cu", "leg_segment_sum.cu", "oracle_dp.cu")
 #: Headers the sources include; part of the build hash.
 HEADERS = ("tier_fold.cuh", "fsm_step.cuh", "occupancy.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -54,7 +54,7 @@ LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0,
     "stream_chunk": 0, "stream_chunk_routed": 0, "flash_attention": 0,
     "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0, "int8_dequantize": 0,
-    "tiered_cost": 0, "leg_segment_sum": 0,
+    "tiered_cost": 0, "leg_segment_sum": 0, "oracle_dp": 0,
 }
 
 _lock = threading.Lock()
@@ -155,6 +155,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # src0, src1, w0, w1, n_planes, leg_pair, order, start, T, M, out0, out1, stream
     lib.leg_segment_sum_f64.argtypes = [p] * 4 + [i] + [p] * 3 + [i, i] + [p] * 3
     lib.leg_segment_sum_f64.restype = i
+    # vpn, cci, D, T_cci, N, T, S_max, allow_head_start, total, start_on, stream
+    lib.oracle_dp_f64.argtypes = [p] * 4 + [i] * 4 + [p] * 3
+    lib.oracle_dp_f64.restype = i
     for name in ("rmsnorm_f32", "rmsnorm_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, ctypes.c_longlong, i, ctypes.c_float, p, p]

@@ -25,6 +25,7 @@ from .int8_quant import int8_dequantize as _dequant_kernel
 from .int8_quant import int8_quantize as _quant_kernel
 from .leg_segment_sum import leg_segment_sum as _leg_kernel
 from .leg_segment_sum import port_major
+from .oracle_dp import oracle_dp as _oracle_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .stream_chunk import stream_chunk as _stream_chunk_kernel
 from .stream_chunk import stream_chunk_routed as _stream_chunk_routed_kernel
@@ -154,6 +155,18 @@ def leg_segment_sum(src, leg_pair, leg_port, w, num_segments: int, *, index=None
         outs = tuple(ref.leg_segment_sum_ref(s, leg_pair, leg_port, x, num_segments)
                      for s, x in zip(srcs, ws))
     return outs if many else outs[0]
+
+
+def oracle_dp(vpn, cci, D, T_cci, *, allow_head_start: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every row's offline-optimal DP over (N, T) float64 cost planes with
+    per-row ``D`` and ``T_cci`` (int32): ``(total (N,) float64, start_on
+    (N,) bool)``, each bit-equal to
+    :func:`repro_torch.core.oracle.offline_optimal` on the row."""
+    if _route(vpn, "oracle_dp"):
+        return _oracle_kernel(*(a.contiguous() for a in (vpn, cci, D, T_cci)),
+                              allow_head_start=allow_head_start)
+    return ref.oracle_dp_ref(vpn, cci, D, T_cci, allow_head_start=allow_head_start)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,

@@ -303,6 +303,52 @@ def leg_segment_sum_ref(src: torch.Tensor, leg_pair: torch.Tensor, leg_port: tor
     return out
 
 
+def oracle_dp_ref(vpn: torch.Tensor, cci: torch.Tensor, D: torch.Tensor,
+                  T_cci: torch.Tensor, *, allow_head_start: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.oracle_dp.oracle_dp`:
+    every row's offline-optimal DP (:func:`repro_torch.core.oracle.offline_optimal`'s
+    backward pass) at once, over (N, S_max) states with per-row index maps,
+    in a Python loop over the hours backwards. Each hour is one IEEE add a
+    state, the same adds as the numpy DP's; the OFF and ON-free choices are
+    its ``req < stay`` and ``stay_on <= release`` (false on NaN). A row's
+    states past its own ``D + T_cci + 2`` are padding no real state reads.
+    Returns ``(total (N,) float64, start_on (N,) bool)``."""
+    N, T = vpn.shape
+    dev = vpn.device
+    if N == 0:
+        return (torch.empty(0, dtype=torch.float64, device=dev),
+                torch.empty(0, dtype=torch.bool, device=dev))
+    Dc = D.long()[:, None]
+    Tc = T_cci.long()[:, None]
+    on0, on_free = Dc + 1, Dc + Tc + 1
+    on_fresh = on0 + Tc - 1
+    s = torch.arange(int(on_free.max()) + 1, device=dev)[None, :]
+    # Each state's chain step reads one state of the next hour: WAITING j from
+    # j - 1 (1 from fresh ON), ON j from j - 1 (1 from ON free); OFF and ON
+    # free read themselves (their "stay"), padding reads OFF.
+    src = torch.where(s <= Dc, torch.where(s == 1, on_fresh, s - 1),
+                      torch.where(s == on0, on_free, s - 1))
+    src = torch.where((s == 0) | (s > on_free), 0, torch.where(s == on_free, on_free, src))
+    serve_cci = (s > Dc) & (s <= on_free)
+    req_next = torch.where(Dc > 1, Dc - 1, torch.where(
+        Dc == 1, on_fresh, torch.where(Tc > 1, on0 + Tc - 2, on_free)))
+    req_cci = Dc == 0
+    V = torch.zeros(src.shape, dtype=torch.float64, device=dev)
+    for t in range(T - 1, -1, -1):
+        cv, cc = vpn[:, t:t + 1], cci[:, t:t + 1]
+        nV = torch.where(serve_cci, cc, cv) + V.gather(1, src)
+        stay = nV[:, :1].clone()            # vpn + V[OFF], also ON free's release
+        req = torch.where(req_cci, cc, cv) + V.gather(1, req_next)
+        stay_on = nV.gather(1, on_free)
+        nV[:, :1] = torch.where(req < stay, req, stay)
+        nV.scatter_(1, on_free, torch.where(stay_on <= stay, stay_on, stay))
+        V = nV
+    off, on = V[:, 0], V.gather(1, on_free)[:, 0]
+    start_on = (on < off) & bool(allow_head_start)
+    return torch.where(start_on, on, off), start_on
+
+
 def attention(
     q: torch.Tensor,  # (B, Hq, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Skv, D)

@@ -243,7 +243,8 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
                             "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
                             "stream_chunk_routed": 0, "flash_attention": 0,
                             "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
-                            "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0}
+                            "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0,
+                            "oracle_dp": 0}
     assert got["x"].is_cuda
     want = plan_fleet(sc.fleet, sc.demand, device="cpu")
     for k in ("x", "state"):
@@ -1093,3 +1094,91 @@ def test_topology_runtime_gpu_matches_cpu(cuda_device):
     for k in want:
         assert np.array_equal(got[k], want[k]), k
     assert 0 < got["x"].sum() < got["x"].size
+
+
+#: (D, T_cci) of the offline-DP batches: every edge branch of the reference
+#: DP (D = 0 and 1, T_cci = 1) beside the scenarios' sizes.
+DP_ROWS = tuple((D, Tc) for D in (0, 1, 2, 72) for Tc in (1, 2, 168))
+
+
+def oracle_batch(case: str, T: int = 1200, seed: int = 0):
+    """``(vpn, cci, D, T_cci)`` numpy rows for the offline DP.
+
+    ``mixed``: DP_ROWS with regime-switching costs, so optima toggle;
+    ``nan``: the same with NaN hours in VPN and in CCI, early and late;
+    ``ties``: whole-dollar costs, CCI equal to VPN on every other row, so
+    stay/request, stay/release and the start state tie; ``year``: 256 rows
+    of the fleet scenario's D in [24, 96], T_cci in [72, 336] over T hours,
+    with the DP_ROWS first."""
+    rng = np.random.default_rng(seed)
+    rows = list(DP_ROWS)
+    if case == "year":
+        rows += [(int(rng.integers(24, 97)), int(rng.integers(72, 337)))
+                 for _ in range(256 - len(rows))]
+    n = len(rows)
+    vpn = rng.uniform(5.0, 50.0, size=(n, T))
+    regime = np.repeat(rng.uniform(0.6, 1.4, size=(n, T // 40 + 1)), 40, axis=1)[:, :T]
+    cci = vpn * regime
+    if case == "nan":
+        vpn[0::3, T // 3] = np.nan
+        cci[1::3, T // 2] = np.nan
+        cci[2::3, T - 1] = np.nan
+        vpn[5, :3] = np.nan
+    elif case == "ties":
+        vpn = np.round(vpn)
+        cci = np.round(cci)
+        cci[1::2] = vpn[1::2]
+    D = np.array([d for d, _ in rows], np.int32)
+    Tc = np.array([tc for _, tc in rows], np.int32)
+    return vpn, cci, D, Tc
+
+
+def test_oracle_dp_wrapper_refuses_cpu_tensors_and_bad_operands():
+    """The offline-DP wrapper launches on CUDA tensors or raises."""
+    from repro_torch.kernels.oracle_dp import oracle_dp
+
+    vpn, cci, D, Tc = (_t(a) for a in oracle_batch("mixed", T=8))
+    with pytest.raises(ValueError, match="CUDA"):
+        oracle_dp(vpn, cci, D, Tc)
+    with pytest.raises(ValueError, match=r"\(N, T\)"):
+        oracle_dp(vpn[0], cci, D, Tc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_start", [True, False], ids=["head-start", "off-start"])
+@pytest.mark.parametrize("case", ["mixed", "nan", "ties", "year"])
+def test_oracle_dp_kernel_bit_equal_to_plain(cuda_device, case, head_start):
+    """One ``oracle_dp`` launch against the plain version on the CPU, every
+    output bit (NaN in the same places), and against the numpy DP on the
+    edge rows; the guards refuse impossible rows."""
+    from repro_torch.core.costmodel import HourlyCosts
+    from repro_torch.core.oracle import offline_optimal
+    from repro_torch.core.pricing import CostParams
+
+    vpn, cci, D, Tc = oracle_batch(case, T=8760 if case == "year" else 1200)
+    before = ops.LAUNCHES["oracle_dp"]
+    total, start_on = ops.oracle_dp(*(_t(a, cuda_device) for a in (vpn, cci, D, Tc)),
+                                    allow_head_start=head_start)
+    assert ops.LAUNCHES["oracle_dp"] == before + 1
+    want_total, want_on = ref.oracle_dp_ref(*(_t(a) for a in (vpn, cci, D, Tc)),
+                                            allow_head_start=head_start)
+    assert _same_bits(total.cpu(), want_total)
+    assert torch.equal(start_on.cpu(), want_on)
+    T = vpn.shape[1]
+    for i in (0, 4, 9):
+        p = CostParams(1.0, 0.1, 0.02, 0.1, flat_rate(0.1), D=int(D[i]), T_cci=int(Tc[i]))
+        z = np.zeros(T)
+        r = offline_optimal(p, costs=HourlyCosts(z, vpn[i], z, cci[i]),
+                            allow_head_start=head_start)
+        want = torch.tensor([r.total_cost], dtype=torch.float64)
+        assert _same_bits(total[i:i + 1].cpu(), want)
+        assert bool(start_on[i]) == r.start_on
+    if case == "mixed":
+        bad = _t(D, cuda_device)
+        bad[3] = -1
+        with pytest.raises(ValueError, match="D >= 0"):
+            ops.oracle_dp(_t(vpn, cuda_device), _t(cci, cuda_device), bad, _t(Tc, cuda_device))
+        huge = _t(Tc, cuda_device)
+        huge[0] = 20000
+        with pytest.raises(ValueError, match="states"):
+            ops.oracle_dp(_t(vpn, cuda_device), _t(cci, cuda_device), _t(D, cuda_device), huge)
