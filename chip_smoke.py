@@ -163,11 +163,17 @@ without printing a result):
     the CPU report within ``rtol=1e-12``; with every count at 0,
     ``build_topology_report`` of the 2048-pair year with the oracle must
     launch ``oracle_dp`` once, keep OPT at most ToggleCCI on every port and
-    equal the plain version on the CPU on the port series; then it times
-    ``oracle_dp`` (profiler device time) beside its bound and plain version
-    at 2048 links and 128 ports, ``fleet_oracle``'s host split (the cost
-    series, the copy in, the launch, the copy out), each report's wall time
-    and one link of the numpy DP;
+    equal the plain version on the CPU on the port series; ``oracle_dp``'s
+    register form must build with no spill and no stack frame (``-Xptxas
+    -v``, printed), and both of its forms, forced, must equal the plain
+    version on the card at the fleet year and on 256 links half of which
+    are past the register form (there ``"auto"`` launches both forms and
+    forcing the register form raises); then it times both forms in turns
+    (profiler device time) at 2048 links and 128 ports beside the bound
+    (the DP's adds and compares over half the FMA-counted float64 peak,
+    printed beside the old one) and run 22A's time of PR 22's kernel,
+    ``fleet_oracle``'s host split (the cost series, the copy in, the launch,
+    the copy out), each report's wall time and one link of the numpy DP;
 13. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
@@ -201,6 +207,13 @@ PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12, torch.bfloat16: 989e12
 # tiered_cost at 8760 x 2048 (CUDA events around one call, launch included).
 RUN_M_MS = {"fsm_scan": 3.3928, "int8_quantize": 3.6788}
 RUN_Q_MS = {"int8_dequantize": 3.2221, "tiered_cost": 0.1247}
+# oracle_dp before its redesign (PR 22's one-block-a-row kernel, now the
+# large-row form), run 22A, profiler device time, same card and limit.
+RUN_22A_MS = {"fleet": 13.4088, "ports": 2.0575}   # 2048 links, 128 ports, x 8760 h
+# The offline DP's work is float64 adds and compares, nothing to fuse: each
+# takes a whole float64 lane-cycle, and the card does those at half the
+# PEAK_FLOPS[torch.float64] above, which counts a fused multiply-add as two.
+F64_LANE_OPS_PER_S = PEAK_FLOPS[torch.float64] / 2
 
 
 class SmokeFailure(RuntimeError):
@@ -295,7 +308,7 @@ def fsm_bound(N: int, T: int) -> dict:
     return bound(bytes_moved, ops, torch.float64)
 
 
-TRACE_PADS, TRACE_QUIET_S = 16, 0.01   # pad kernels that open a trace, then 10 ms idle
+TRACE_PADS, TRACE_QUIET_S = 64, 0.01   # pad kernels that open a trace, then 10 ms idle
 PAD_SEEN = []                          # per trace: how many pads it recorded
 
 
@@ -304,9 +317,10 @@ def traced(fn, reps: int):
     (after one call untraced), and the device events alone. Minutes into a
     run on the H100 host, a trace can lose the device events of its first
     ~0.5 ms of device activity (7 of 20 launches of a 0.07-ms kernel; all of
-    16 one-cycle spin kernels). So the trace opens with TRACE_PADS such spin
-    kernels and TRACE_QUIET_S of idle card, and keeps only the events of the
-    annotated calls after them. The callers that know how many launches a
+    16 one-cycle spin kernels), and the later the trace the more it loses
+    (0 to 17 first events over 32-40 traces in one run). So the trace opens
+    with TRACE_PADS such spin kernels and TRACE_QUIET_S of idle card, and
+    keeps only the events of the annotated calls after them. The callers that know how many launches a
     call makes check the count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2240,16 +2254,50 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
 ORACLE_CPU_ROWS = 64       # links held against the plain version on the CPU
 ORACLE_NUMPY_ROWS = 4      # ... and against the scalar numpy DP
 OPT_SLACK = 1e-9           # OPT <= ToggleCCI and <= best static, up to this relative slack
+ORACLE_PAST_ROWS = 256     # links of the batch past the register form ...
+ORACLE_PAST_TCCI = 600     # ... half of them with this commitment (K1 = 19 > 12)
 
 
-def oracle_bound(D: np.ndarray, T_cci: np.ndarray, T: int) -> dict:
-    # vpn, cci read once (f64), D, T_cci read (int32), total (f64) and start_on
-    # (bool) written; per row-hour one add a state (D + T_cci + 2) plus the
-    # request and release adds and the two comparisons.
+def oracle_work(D: np.ndarray, T_cci: np.ndarray, T: int):
+    """(bytes, operations) of the offline DP over N rows and T hours: vpn,
+    cci read once (f64), D, T_cci read (int32), total (f64) and start_on
+    (bool) written; per row-hour one add a state (D + T_cci + 2) plus the
+    request and release adds and the two comparisons."""
     N = len(D)
     bytes_moved = 2 * N * T * 8 + N * (4 + 4 + 8 + 1)
     ops = int(np.sum(D.astype(np.int64) + T_cci + 2 + 4)) * T
-    return bound(bytes_moved, ops, torch.float64)
+    return bytes_moved, ops
+
+
+def oracle_bound(D: np.ndarray, T_cci: np.ndarray, T: int) -> dict:
+    """``bound`` with the DP's adds and compares over F64_LANE_OPS_PER_S:
+    each is one float64 lane-operation, not half of a counted FMA."""
+    bytes_moved, ops = oracle_work(D, T_cci, T)
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F64_LANE_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ptxas_report(kernel: str) -> dict:
+    """Registers, stack frame and spill bytes ``-Xptxas -v`` gave the entry
+    function whose name holds ``kernel`` in the last build."""
+    import re
+    from repro_torch.kernels import _lib
+
+    out, name = {}, ""
+    for line in _lib.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif kernel in name:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                out.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out["registers"] = int(m[1])
+    check(len(out) == 4, f"no ptxas report for {kernel} in the build log")
+    return out
 
 
 def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
@@ -2270,6 +2318,8 @@ def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
     )
     from repro_torch.fleet.engine import _fleet_cost_planes
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.oracle_dp import launch_plan
+    from repro_torch.kernels.oracle_dp import oracle_dp as oracle_kernel
 
     t_phase = time.perf_counter()
     fleet, demand = fleet_scen.fleet, fleet_scen.demand
@@ -2346,6 +2396,45 @@ def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
           f"{ORACLE_NUMPY_ROWS} links (one link {statistics.median(numpy_s):.3f} s on the host, "
           f"so ~{statistics.median(numpy_s) * N / 60:.1f} min for the fleet)")
 
+    # -- both forms against the plain version on the card ----------------------
+    ptx = ptxas_report("oracle_dp_rows_kernel")
+    print(f"  oracle_dp register form (oracle_dp_rows_kernel), -Xptxas -v: {ptx['registers']} "
+          f"registers, {ptx['stack']} bytes stack frame, {ptx['spill_stores']} bytes spill "
+          f"stores, {ptx['spill_loads']} bytes spill loads")
+    check(ptx["stack"] == ptx["spill_stores"] == ptx["spill_loads"] == 0,
+          "the register form spills or keeps a stack frame (local memory)")
+    plan = launch_plan(args[2], args[3])
+    check(not bool(plan.large.any()), "a fleet link took the large-row form")
+    for form in ("register", "large"):
+        before = ops.LAUNCHES["oracle_dp"]
+        got, got_on = oracle_kernel(*args, form=form)
+        check(ops.LAUNCHES["oracle_dp"] == before + 1, f"form {form}: not one launch")
+        check(same_bits(got, want) and torch.equal(got_on, want_on),
+              f"oracle_dp {form} form != plain on the card at the fleet year")
+    past = [a[:ORACLE_PAST_ROWS].clone() for a in args]
+    past[3][:ORACLE_PAST_ROWS // 2] = ORACLE_PAST_TCCI
+    n_large = int(launch_plan(past[2], past[3]).large.sum())
+    check(n_large == ORACLE_PAST_ROWS // 2, f"{n_large} rows past the register form")
+    t0 = time.perf_counter()
+    want_past, want_past_on = ref.oracle_dp_ref(*past)
+    torch.cuda.synchronize()
+    past_plain_s = time.perf_counter() - t0
+    for form, n_launch in (("auto", 2), ("large", 1)):
+        before = ops.LAUNCHES["oracle_dp"]
+        got, got_on = oracle_kernel(*past, form=form)
+        check(ops.LAUNCHES["oracle_dp"] == before + n_launch, f"form {form}: launches")
+        check(same_bits(got, want_past) and torch.equal(got_on, want_past_on),
+              f"oracle_dp {form} form != plain on the card past the register form")
+    try:
+        oracle_kernel(*past, form="register")
+        check(False, "the register form took rows past its largest instance")
+    except ValueError:
+        pass
+    print(f"oracle_dp forms: register and large-row each == plain on the card at {N} x {T}, "
+          f"one launch each; {ORACLE_PAST_ROWS} links x {T} with {n_large} at T_cci = "
+          f"{ORACLE_PAST_TCCI}: auto (both forms, two launches) and large-row == plain on "
+          f"the card ({past_plain_s:.1f} s), register refused")
+
     # -- topology reports: the savings, then the 2048-pair year with the oracle
     for name in ("relay", "multicast"):
         sc = topo_ctx[name]
@@ -2403,22 +2492,46 @@ def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
           f"OPT <= ToggleCCI on all {M} ports; oracle_dp on the port series == plain on the "
           f"CPU, every bit")
 
-    # -- timings ----------------------------------------------------------------
+    # -- timings: both forms in turns, at the fleet year and the 128 ports -------
     b = oracle_bound(D, Tc, T)
-    dp = lambda: ops.oracle_dp(*args)
-    ms = kernel_device_ms(dp, 5, ["oracle_dp"], per_call=1)["oracle_dp"]
-    ev_ms = queued_ms(dp, 5)
-    pdev = [a.to(DEVICE) for a in pargs]
     pb = oracle_bound(pD, pT, T)
-    pms = kernel_device_ms(lambda: ops.oracle_dp(*pdev), 5, ["oracle_dp"], per_call=1)["oracle_dp"]
+    fma = {k: bound(*oracle_work(d, tc, T), torch.float64)["bound_ms"]
+           for k, (d, tc) in (("fleet", (D, Tc)), ("ports", (pD, pT)))}
+    print(f"  oracle_dp bound: {b['bound_ms']:.4f} ms at {N} x {T} and {pb['bound_ms']:.4f} "
+          f"ms at {M} ports ({b['bound_by']}: each add and compare one float64 lane-op at "
+          f"{F64_LANE_OPS_PER_S:.3g}/s); over the FMA-counted {PEAK_FLOPS[torch.float64]:.3g} "
+          f"FLOP/s, as PR 22 printed it: {fma['fleet']:.4f} and {fma['ports']:.4f} ms")
+    dp = lambda: ops.oracle_dp(*args)
+    pdev = [a.to(DEVICE) for a in pargs]
+    # Both forms in turns (large, register, register, large) in one trace a
+    # shape; each kernel is told apart by its name.
+    kname = {"large": "oracle_dp_block_kernel", "register": "oracle_dp_rows_kernel"}
+    form_ms = {}
+    for shape, a in (("fleet", args), ("ports", pdev)):
+        def turns(a=a):
+            for form in ("large", "register", "register", "large"):
+                oracle_kernel(*a, form=form)
+        got = kernel_device_ms(turns, 2, list(kname.values()), per_call=2)
+        for form, name in kname.items():
+            form_ms[form, shape] = got[name] / 2      # per launch
+    ms, pms = form_ms["register", "fleet"], form_ms["register", "ports"]
+    ev_ms = queued_ms(dp, 5)
     report_ms = sync_ms(lambda: build_report(fleet_scen, fleet_plan, include_oracle=True), 1,
                         warmup=0)
     print(f"timings on {card} (median ms)")
-    print(f"  oracle_dp {N} x {T}: kernel {ms:.4f} ms (profiler device time; CUDA events queued "
+    for (form, shape), t in form_ms.items():
+        bb = b if shape == "fleet" else pb
+        rows = f"{N} links" if shape == "fleet" else f"{M} ports"
+        print(f"  oracle_dp {form:8s} form, {rows} x {T}: {t:.4f} ms (profiler device time, "
+              f"mean of 4 launches in turns with the other form), {t / bb['bound_ms']:.2f}x "
+              f"the bound; run 22A (PR 22's kernel) {RUN_22A_MS[shape]} ms")
+    print(f"  oracle_dp {N} x {T} as the report calls it: {ms:.4f} ms (CUDA events queued "
           f"behind a sleep {ev_ms:.4f}), plain on the card {plain_ms:.1f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {ms / b['bound_ms']:.1f}x bound; "
-          f"{M} ports x {T}: {pms:.4f} ms, bound {pb['bound_ms']:.4f} ms ({pb['bound_by']}), "
-          f"{pms / pb['bound_ms']:.1f}x")
+          f"{b['bound_ms']:.4f} ms, {ms / b['bound_ms']:.2f}x; {M} ports x {T}: {pms:.4f} ms, "
+          f"bound {pb['bound_ms']:.4f} ms, {pms / pb['bound_ms']:.2f}x; register form "
+          f"{form_ms['large', 'fleet'] / ms:.1f}x and "
+          f"{form_ms['large', 'ports'] / pms:.1f}x faster than the "
+          f"large-row form")
     print(f"  build_report {N} x {T} with the OPT column: {report_ms:.1f} ms wall (again); "
           f"build_topology_report {P} pairs with the oracle {topo_s * 1e3:.1f} ms")
     print_breakdown(dp, reps=2, unit="oracle_dp call")

@@ -61,7 +61,8 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the last :func:`load` spent compiling (0.0 when it reused a build).
 build_seconds = 0.0
-#: The compiler's output of the last build (``-Xptxas -v`` register counts).
+#: The compiler's output of the loaded library's build (``-Xptxas -v``
+#: register counts), kept beside it so a reused build has it too.
 build_log = ""
 
 
@@ -127,9 +128,12 @@ def _build(target: Path) -> None:
         res = subprocess.run(link, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+        build_log = "".join(logs)
+        log = Path(tmp) / "build.log"
+        log.write_text(build_log)
+        os.replace(log, target.with_suffix(".log"))   # before the library: a reuse finds both
         os.replace(so, target)  # atomic: a concurrent loader sees all or nothing
     build_seconds = time.perf_counter() - t0
-    build_log = "".join(logs)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -155,8 +159,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # src0, src1, w0, w1, n_planes, leg_pair, order, start, T, M, out0, out1, stream
     lib.leg_segment_sum_f64.argtypes = [p] * 4 + [i] + [p] * 3 + [i, i] + [p] * 3
     lib.leg_segment_sum_f64.restype = i
-    # vpn, cci, D, T_cci, N, T, S_max, allow_head_start, total, start_on, stream
-    lib.oracle_dp_f64.argtypes = [p] * 4 + [i] * 4 + [p] * 3
+    # vpn, cci, D, T_cci, order, regs, N, T, n_large, S_max, warps,
+    # allow_head_start, total, start_on, stream
+    lib.oracle_dp_f64.argtypes = [p] * 6 + [i] * 6 + [p] * 3
     lib.oracle_dp_f64.restype = i
     for name in ("rmsnorm_f32", "rmsnorm_bf16"):
         fn = getattr(lib, name)
@@ -181,12 +186,14 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built from ``csrc/`` if need be."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     with _lock:
         if _lib is None:
             target = BUILD_DIR / f"librepro_torch_{_digest()}.so"
             if target.exists():
                 build_seconds = 0.0
+                log = target.with_suffix(".log")
+                build_log = log.read_text() if log.exists() else ""
             else:
                 _build(target)
             lib = ctypes.CDLL(str(target))

@@ -1147,23 +1147,29 @@ def test_oracle_dp_wrapper_refuses_cpu_tensors_and_bad_operands():
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_start", [True, False], ids=["head-start", "off-start"])
 @pytest.mark.parametrize("case", ["mixed", "nan", "ties", "year"])
-def test_oracle_dp_kernel_bit_equal_to_plain(cuda_device, case, head_start):
-    """One ``oracle_dp`` launch against the plain version on the CPU, every
-    output bit (NaN in the same places), and against the numpy DP on the
-    edge rows; the guards refuse impossible rows."""
+@pytest.mark.parametrize("form", ["register", "large"])
+def test_oracle_dp_kernel_bit_equal_to_plain(cuda_device, form, case, head_start):
+    """One ``oracle_dp`` launch, in the forced form, against the plain
+    version on the CPU, every output bit (NaN in the same places), and
+    against the numpy DP on the edge rows; ``ops.oracle_dp`` (the register
+    form for these rows) too; the guards refuse impossible rows."""
     from repro_torch.core.costmodel import HourlyCosts
     from repro_torch.core.oracle import offline_optimal
     from repro_torch.core.pricing import CostParams
+    from repro_torch.kernels.oracle_dp import oracle_dp
 
     vpn, cci, D, Tc = oracle_batch(case, T=8760 if case == "year" else 1200)
+    dev = [_t(a, cuda_device) for a in (vpn, cci, D, Tc)]
     before = ops.LAUNCHES["oracle_dp"]
-    total, start_on = ops.oracle_dp(*(_t(a, cuda_device) for a in (vpn, cci, D, Tc)),
-                                    allow_head_start=head_start)
+    total, start_on = oracle_dp(*dev, allow_head_start=head_start, form=form)
     assert ops.LAUNCHES["oracle_dp"] == before + 1
     want_total, want_on = ref.oracle_dp_ref(*(_t(a) for a in (vpn, cci, D, Tc)),
                                             allow_head_start=head_start)
     assert _same_bits(total.cpu(), want_total)
     assert torch.equal(start_on.cpu(), want_on)
+    auto_total, auto_on = ops.oracle_dp(*dev, allow_head_start=head_start)
+    assert ops.LAUNCHES["oracle_dp"] == before + 2
+    assert _same_bits(auto_total.cpu(), want_total) and torch.equal(auto_on.cpu(), want_on)
     T = vpn.shape[1]
     for i in (0, 4, 9):
         p = CostParams(1.0, 0.1, 0.02, 0.1, flat_rate(0.1), D=int(D[i]), T_cci=int(Tc[i]))
@@ -1177,8 +1183,75 @@ def test_oracle_dp_kernel_bit_equal_to_plain(cuda_device, case, head_start):
         bad = _t(D, cuda_device)
         bad[3] = -1
         with pytest.raises(ValueError, match="D >= 0"):
-            ops.oracle_dp(_t(vpn, cuda_device), _t(cci, cuda_device), bad, _t(Tc, cuda_device))
+            oracle_dp(dev[0], dev[1], bad, dev[3], form=form)
         huge = _t(Tc, cuda_device)
         huge[0] = 20000
+        with pytest.raises(ValueError, match="states|register form"):
+            oracle_dp(dev[0], dev[1], dev[2], huge, form=form)
         with pytest.raises(ValueError, match="states"):
-            ops.oracle_dp(_t(vpn, cuda_device), _t(cci, cuda_device), _t(D, cuda_device), huge)
+            ops.oracle_dp(dev[0], dev[1], dev[2], huge)
+
+
+def oracle_layout_batch(case: str, seed: int = 3):
+    """``(vpn, cci, D, T_cci)`` numpy batches the register form's layout
+    makes risky. ``shuffled``: 39 rows (not a multiple of a block's four)
+    over every instance from (0, 0) to (12, 3), the DP's edge rows among
+    them, in a shuffled order, over 1000 hours (not a multiple of the 64-hour
+    tile); ``one``: a single row; ``T0``, ``T1``, ``T65``: horizons of 0, 1
+    and a tile and an hour; ``limit``: rows at the largest instance (T_cci
+    384 with D 97; T_cci 385 with D 0) beside small ones; ``past``: the same
+    with rows one hour past it (T_cci 385 with D 1, D 98), which take the
+    large-row form in the same call."""
+    rng = np.random.default_rng(seed)
+    if case == "shuffled":
+        rows = list(DP_ROWS) + [(97, 384), (0, 385), (66, 353), (65, 352), (34, 33),
+                                (33, 32), (2, 64), (3, 65), (50, 200), (24, 72)]
+        rows += [(int(rng.integers(0, 98)), int(rng.integers(1, 385))) for _ in range(39 - len(rows))]
+        rows = [rows[i] for i in rng.permutation(len(rows))]
+        T = 1000
+    elif case == "one":
+        rows, T = [(48, 168)], 777
+    elif case in ("T0", "T1", "T65"):
+        rows, T = list(DP_ROWS) + [(97, 384)], {"T0": 0, "T1": 1, "T65": 65}[case]
+    elif case == "limit":
+        rows, T = [(97, 384), (0, 385), (2, 1), (0, 1), (1, 1)], 900
+    else:
+        rows, T = [(97, 384), (1, 385), (98, 384), (0, 385), (98, 1), (2, 3)], 900
+    n = len(rows)
+    vpn = rng.uniform(5.0, 50.0, size=(n, T))
+    cci = vpn * np.repeat(rng.uniform(0.6, 1.4, size=(n, T // 40 + 1)), 40, axis=1)[:, :T]
+    if n > 1 and T > 10:
+        vpn[1, T // 2] = np.nan
+    D = np.array([d for d, _ in rows], np.int32)
+    Tc = np.array([tc for _, tc in rows], np.int32)
+    return vpn, cci, D, Tc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_start", [True, False], ids=["head-start", "off-start"])
+@pytest.mark.parametrize("case", ["shuffled", "one", "T0", "T1", "T65", "limit", "past"])
+def test_oracle_dp_forms_on_layout_edges(cuda_device, case, head_start):
+    """Both forms against the plain version on the CPU, every bit, on the
+    batches the register form's layout makes risky (rows of every instance
+    shuffled, N not a multiple of four, N = 1, horizons of 0, 1 and past a
+    tile, the largest instance); rows past it take the large-row form in
+    the same call (two launches), and forcing the register form on them
+    raises."""
+    from repro_torch.kernels.oracle_dp import launch_plan, oracle_dp
+
+    vpn, cci, D, Tc = oracle_layout_batch(case)
+    dev = [_t(a, cuda_device) for a in (vpn, cci, D, Tc)]
+    want = ref.oracle_dp_ref(*(_t(a) for a in (vpn, cci, D, Tc)), allow_head_start=head_start)
+    n_large = int(launch_plan(dev[2], dev[3]).large.sum())
+    assert (n_large > 0) == (case == "past")
+    for form in ("auto", "large") + (("register",) if case != "past" else ()):
+        before = ops.LAUNCHES["oracle_dp"]
+        total, start_on = oracle_dp(*dev, allow_head_start=head_start, form=form)
+        torch.cuda.synchronize()
+        mixed = form == "auto" and n_large > 0
+        assert ops.LAUNCHES["oracle_dp"] == before + (2 if mixed else 1), form
+        assert _same_bits(total.cpu(), want[0]), form
+        assert torch.equal(start_on.cpu(), want[1]), form
+    if case == "past":
+        with pytest.raises(ValueError, match="register form"):
+            oracle_dp(*dev, form="register")
