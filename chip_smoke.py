@@ -46,16 +46,28 @@ without printing a result):
    ``x``/``state``/``vpn_cost``/``cci_cost``, the per-tick hours equal the
    chunked ones in every field, the 128-link streams equal the numpy
    reference and the card's runtime equals the CPU's at 16 x 2000; then
-   it holds ``tiered_cost_scan`` (year as one chunk, f64 ``torch.equal``,
-   f32 ``rtol=atol=1e-6``) and four chained K = 24 chunks of the calendar
-   entry and ``fsm_chunk`` (every bit) against their plain versions, and
-   ``stream_chunk`` against ``stream_chunk_ref`` in every output bit (NaN
-   in the same places) on six cases at 2048 links: four chained K = 24
-   chunks from hour 696 (across the month start at 730), the same with
-   endogenous CCI demand, K = 1, one K past the kernel's tile and the
-   window ring, 2043 rows, and demand hours holding NaN and +inf; it
-   times the tick (p50/p95/p99), the chunk, ``stream_chunk`` at K = 24 and
-   K = 1 (profiler device time, CUDA events) beside its bound, the two
+   it holds the month-to-date ``tiered_cost_scan`` (year as one chunk, and
+   :func:`scan_edge_checks`: no reset, resets at hour 0, on consecutive
+   hours and at K - 1, segments shorter than a staged tile, N of 1, 31 and
+   33, K = 1, NaN demand; f64 every bit, f32 ``rtol=atol=1e-6``) and four
+   chained K = 24 chunks of the calendar entry and ``fsm_chunk`` (every
+   bit) against their plain versions, and ``stream_chunk`` against
+   ``stream_chunk_ref`` in every output bit (NaN in the same places) on
+   sixteen cases: at 2048 links four chained K = 24 chunks from hour 696
+   (across the month start at 730), the same with endogenous CCI demand,
+   K = 1, one K past the kernel's tile and the window ring, 2043 rows,
+   demand hours holding NaN and +inf, three chained chunks from hour 726 at
+   K = 2, 3, the tick form's last K and one past it, 8, 9, 23 and 25,
+   windows of 1-12 hours and no provisioning delay in some links (K = 24,
+   1, 30); and the 128-link fleet at K = 24; it times the tick
+   (p50/p95/p99), the chunk, and (:func:`kernel_times`, profiler device
+   time) ``stream_chunk`` at 2048 x K = 24, 2048 x K = 1 and 128 x K = 24
+   and over the K sweep in each launch form (the tick form up to its last
+   K), each form first held to ``stream_chunk_ref`` in every bit, the
+   month-to-date ``tiered_cost_scan`` at 2048 x 8760 and 2048 x 24 (f64,
+   f32), each beside its bound and its time before the redesign, and
+   an empty kernel at their grids (the launch floor); then
+   ``stream_chunk`` at K = 24 and K = 1 (CUDA events too) beside the two
    kernels it replaced on the same inputs and the whole sequence they ran
    in, its plain version, and the host and device parts of one step;
 8. the LM serving path (:func:`lm_phase`): holds the flash-attention and
@@ -291,13 +303,23 @@ def bound(bytes_moved: float, ops: float, dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def lane_bound(bytes_moved: float, ops: float, dtype) -> dict:
+    """bound() for operations that each take a whole lane-cycle (adds,
+    compares, selects, unfused multiplies): they run at half the FMA-counted
+    peak, as F64_LANE_OPS_PER_S does for float64."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / (PEAK_FLOPS[dtype] / 2)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def tiered_bound(N: int, T: int, K: int, dtype) -> dict:
     size = torch.empty((), dtype=dtype).element_size()
     # month_cum and demand read, cost written; tier tables read once.
     bytes_moved = N * T * 3 * size + 2 * N * K * size
     # hi = lo + d; per tier: min, max, sub, compare, mul, add.
     ops = N * T * (1 + 6 * K)
-    return bound(bytes_moved, ops, dtype)
+    return lane_bound(bytes_moved, ops, dtype)
 
 
 def fsm_bound(N: int, T: int) -> dict:
@@ -424,7 +446,17 @@ def calendar_bound(N: int, K: int, Kt: int) -> dict:
     bytes_moved = 8 * (2 * K * N + 2 * N * Kt + 4 * N)
     # per hour: month sub, carry add, hi add; per tier: min, max, sub, compare, mul, add.
     ops = K * N * (3 + 6 * Kt)
-    return bound(bytes_moved, ops, torch.float64)
+    return lane_bound(bytes_moved, ops, torch.float64)
+
+
+def scan_bound(N: int, K: int, Kt: int, dtype) -> dict:
+    """The month-to-date ``tiered_cost_scan``: demand read and cost written
+    (N, K), tier tables (2 x (N, Kt)), cum0 in and cum_out out, reset (K,)
+    int32; per hour the carry add and hi add, per tier min, max, sub,
+    compare, mul, add."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return lane_bound(size * (2 * N * K + 2 * N * Kt + 2 * N) + 4 * K, N * K * (2 + 6 * Kt),
+                      dtype)
 
 
 def fsm_chunk_bound(N: int, K: int) -> dict:
@@ -433,7 +465,7 @@ def fsm_chunk_bound(N: int, K: int) -> dict:
     bytes_moved = 8 * 8 * K * N + 4 * 2 * K * N + N * (8 * 2 + 4 * 5) + 2 * N * (4 * 4 + 8 * 2)
     # per hour: 2 prefix adds, 2 window subs, 2 muls, 2 compares.
     ops = K * N * 8
-    return bound(bytes_moved, ops, torch.float64)
+    return lane_bound(bytes_moved, ops, torch.float64)
 
 
 def pre_reads(pref: np.ndarray, t0: int, K: int, h: np.ndarray) -> np.ndarray:
@@ -453,7 +485,7 @@ def stream_chunk_bound(N: int, K: int, Kt: int, endo: bool) -> dict:
     # per hour: 2 clips, month sub, carry add, hi add, per tier 6, the vpn add,
     # the cci mul and add, 2 prefix adds, 2 window subs, 2 muls, 2 compares.
     ops = K * N * (2 + 3 + 6 * Kt + 3 + 8)
-    return bound(bytes_moved, ops, torch.float64)
+    return lane_bound(bytes_moved, ops, torch.float64)
 
 
 def head_rows(arrays, n: int):
@@ -545,6 +577,216 @@ def print_step_split(rt, demand, t0: int, rows: str) -> None:
               f"'device' is the launch and the wait for the card)")
 
 
+# An empty kernel, built beside the port's library: its device time at a
+# kernel's grid is the card's launch-and-drain floor for that grid.
+FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+extern "C" __global__ void empty_kernel() {}
+extern "C" int empty_grid(int blocks, int threads, int smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  empty_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+SWEEP_K = (1, 2, 3, 4, 5, 6, 7, 8, 16, 24, 32, 168)   # stream_chunk's K sweep at 2048 rows
+SWEEP_T0 = 696                             # the sweep's first hour (K = 168 crosses hour 730)
+# The two kernels before their redesign, as kernel_times timed the parent
+# commit's kernels (PERF.md, run 24A), profiler device ms, NVIDIA H100 80GB
+# HBM3, 700.00 W.
+BEFORE_REDESIGN_MS = {
+    "stream_chunk 2048x1": 0.0035, "stream_chunk 2048x2": 0.0035,
+    "stream_chunk 2048x4": 0.0037, "stream_chunk 2048x8": 0.0037,
+    "stream_chunk 2048x16": 0.0043, "stream_chunk 2048x24": 0.0050,
+    "stream_chunk 2048x32": 0.0055, "stream_chunk 2048x168": 0.0239,
+    "stream_chunk 128x24": 0.0046,
+    "tiered_cost_scan 2048x8760 float64": 7.0195, "tiered_cost_scan 2048x24 float64": 0.0186,
+    "tiered_cost_scan 2048x8760 float32": 2.5896, "tiered_cost_scan 2048x24 float32": 0.0071,
+}
+
+
+def launch_floor():
+    """``empty_grid(blocks, threads, smem, stream)``, compiled from FLOOR_SRC."""
+    import ctypes
+    from repro_torch.kernels import _lib
+
+    out = ROOT / "build" / "launch_floor"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(FLOOR_SRC)
+    so = out / "libempty.so"
+    res = subprocess.run([_lib._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                          "-Xcompiler", "-fPIC", "-shared", str(out / "empty.cu"), "-o",
+                          str(so)], capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"empty kernel build failed: {res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    lib.empty_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.empty_grid.restype = ctypes.c_int
+    return lib
+
+
+def device_ms_per_call(fn, reps: int, name: str, per_call: int, tries: int = 3) -> float:
+    """Device milliseconds per call of every kernel whose name holds ``name``
+    (torch.profiler over ``reps`` calls), where a call launches ``per_call``
+    such kernels. A trace that lost launches (not ``reps * per_call``) reads
+    low: it is taken again, up to ``tries`` traces, and the script fails
+    unless one of them holds every launch."""
+    for _ in range(tries):
+        dev = [e for e in traced(fn, reps)[1] if name in e.name]
+        if len(dev) == reps * per_call:
+            return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+        print(f"    profiler trace holds {len(dev)} launches of {name} over {reps} calls, "
+              f"not {reps * per_call}: taken again")
+    raise SmokeFailure(f"no profiler trace of {tries} held every launch of {name}")
+
+
+def floor_ms(lib, blocks: int, threads: int, smem: int = 0, reps: int = 50) -> float:
+    stream = torch.cuda.current_stream().cuda_stream
+    return device_ms_per_call(
+        lambda: check(lib.empty_grid(blocks, threads, smem, stream) == 0, "empty kernel"),
+        reps, "empty_kernel", 1)
+
+
+def kernel_times(scen) -> dict:
+    """Profiler device time of one ``stream_chunk`` call at the streaming
+    path's three shapes (2048 x K = 24, 2048 x K = 1, 128 x K = 24) and over
+    SWEEP_K at 2048 rows, in each launch form (``"auto"`` is the wrapper's
+    own choice; ``"tick"`` only where it has an instance), on
+    a runtime's blocks from hour SWEEP_T0, each form first held to
+    ``stream_chunk_ref`` in every bit; the month-to-date
+    ``tiered_cost_scan`` at 2048 x 8760 (f64, f32; resets at month starts)
+    and 2048 x 24 (hours 720..743, the month start at 730); and the empty
+    kernel's floor at the old and new grids. Prints each beside its bound
+    and its time before the redesign; returns {label: ms}, labels "stream_chunk
+    {rows}x{K} {form}", "tiered_cost_scan {rows}x{K} {dtype}", "floor ..."."""
+    from repro_torch.fleet import FleetRuntime
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.stream_chunk import TICK_MAX_K, _stream_chunk_launch
+    from repro_torch.kernels.tiered_cost_scan import segment_slots, tiered_cost_scan
+
+    was = lambda key: (f", before the redesign {BEFORE_REDESIGN_MS[key]} ms"
+                       if key in BEFORE_REDESIGN_MS else "")
+
+    out = {}
+    lib = launch_floor()
+    rts = {}
+    for n in (SIZES[-1][0], SIZES[0][0]):
+        sc = scen[n]
+        rt = FleetRuntime(sc.fleet)
+        stream(rt, sc.demand[:, :SWEEP_T0], STREAM_K)
+        rts[n] = (rt, sc)
+    shapes = [(SIZES[-1][0], K) for K in SWEEP_K] + [(SIZES[0][0], STREAM_K)]
+    for n, K in shapes:
+        rt, sc = rts[n]
+        block, _, _ = rt._pack(sc.demand[:, SWEEP_T0:SWEEP_T0 + K], None)
+        args = rt._chunk_args(torch.from_numpy(block).to(DEVICE), K, False)
+        Kt = args[7].shape[1]
+        b = stream_chunk_bound(n, K, Kt, False)
+        renew = rt.policy.renew_in_chunks
+        want = ref.stream_chunk_ref(*args, renew_in_chunks=renew)
+        for form in ("auto", "tick", "chunk"):
+            if form == "tick" and K > TICK_MAX_K:
+                continue
+            call = lambda: _stream_chunk_launch(form, *args, renew_in_chunks=renew)
+            got = call()
+            check(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+                  f"stream_chunk {n} x K={K}, {form} form != stream_chunk_ref")
+            ms = device_ms_per_call(call, 20, "stream_chunk", 1)
+            out[f"stream_chunk {n}x{K} {form}"] = ms
+            print(f"  stream_chunk {n} x K={K} form {form}: == plain (every bit); {ms:.5f} ms "
+                  f"device, bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), "
+                  f"{ms / b['bound_ms']:.2f}x bound" + was(f"stream_chunk {n}x{K}"))
+    n = SIZES[-1][0]
+    for label, grid in (("previous chunk grid", (-(-n // 16), 512, 0)),
+                        ("tick grid, 32 threads", (-(-n // 32), 32, 0)),
+                        ("chunk grid, 480 threads", (-(-n // 16), 480, 0)),
+                        ("128 rows, previous chunk grid", (8, 512, 0)),
+                        ("128 rows, chunk grid, 480 threads", (8, 480, 0))):
+        out[f"floor {label}"] = floor_ms(lib, *grid)
+        print(f"  empty kernel, {label} {grid[0]} x {grid[1]}: "
+              f"{out[f'floor {label}']:.5f} ms device")
+    sc = scen[n]
+    T = sc.demand.shape[1]
+    arrays = sc.fleet.stack(torch.float64, DEVICE)
+    tab = (arrays.tier_bounds, arrays.tier_rates)
+    Kt = tab[0].shape[1]
+    d = torch.minimum(torch.as_tensor(sc.demand, device=DEVICE), arrays.capacity[:, None])
+    hours = torch.arange(T, device=DEVICE)
+    reset = (hours % sc.fleet.hours_per_month == 0).to(torch.int32)
+    zero = torch.zeros(n, dtype=torch.float64, device=DEVICE)
+    for dt in (torch.float64, torch.float32):
+        args = [a.to(dt).contiguous() for a in (zero, d, *tab)] + [reset]
+        day = [args[0], args[1][:, 720:744].contiguous(), *args[2:4],
+               reset[720:744].contiguous()]
+        for label, a, K in (("year", args, T), ("day", day, 24)):
+            per = 2 if segment_slots(n, K) > 1 else 1        # the plan's pre-pass
+            ms = device_ms_per_call(lambda: tiered_cost_scan(*a), 20, "tiered_cost_scan", per)
+            b = scan_bound(n, K, Kt, dt)
+            key = f"tiered_cost_scan {n}x{K} {str(dt)[6:]}"
+            out[key] = ms
+            print(f"  {key} (month-to-date): {ms:.5f} ms device ({per} kernel(s) a call), "
+                  f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}), {ms / b['bound_ms']:.2f}x"
+                  + was(key))
+    return out
+
+
+def scan_edge_checks(d, tab, hpm: int) -> float:
+    """The month-to-date ``tiered_cost_scan`` against its plain version on
+    the segment plan's and the staged tiles' edges, from the 2048-link
+    year's clipped demand ``d`` and tables: no reset, resets at hour 0, on
+    consecutive hours and at K - 1, segments shorter than a 64-hour tile, N
+    of 1, 31 and 33, K = 1, and NaN and +inf demand. float64 every bit (NaN
+    in the same places), float32 at rtol = atol = 1e-6. Returns the largest
+    float32 difference."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tiered_cost_scan import tiered_cost_scan
+
+    def reset_of(K, marks):
+        r = torch.zeros(K, dtype=torch.int32, device=DEVICE)
+        r[[m for m in marks if m < K]] = 1
+        return r.contiguous()
+
+    nan_d = d[:33, :1000].clone()
+    nan_d[0, 5], nan_d[3, 71], nan_d[2, 990], nan_d[4, 150] = (float("nan"),) * 3 + (
+        float("inf"),)
+    cases = {
+        "no reset, 2048 x 2000": (d[:, :2000], torch.zeros(2000, dtype=torch.int32,
+                                                            device=DEVICE)),
+        "resets at 0, 1, 2, 63-65 and K - 1, 33 x 1500": (
+            d[:33, :1500], reset_of(1500, [0, 1, 2, 63, 64, 65, 1499])),
+        "segments of 29 hours, 31 x 900": (
+            d[:31, :900], (torch.arange(900, device=DEVICE) % 29 == 3).to(torch.int32)),
+        "month starts, 1 x 8760": (d[:1], (torch.arange(d.shape[1], device=DEVICE) % hpm
+                                           == 0).to(torch.int32)),
+        "resets at 0, 1, 2, 63-65 and K - 1, 33 x 300 (one slot: resets in the carry)": (
+            d[:33, :300], reset_of(300, [0, 1, 2, 63, 64, 65, 299])),
+        "K = 1, 2048 x 1, reset": (d[:, :1], torch.ones(1, dtype=torch.int32, device=DEVICE)),
+        "K = 1, 31 x 1, no reset": (d[:31, :1], torch.zeros(1, dtype=torch.int32,
+                                                             device=DEVICE)),
+        "NaN and +inf demand, 33 x 1000, segments of 70 hours": (
+            nan_d, (torch.arange(1000, device=DEVICE) % 70 == 0).to(torch.int32)),
+    }
+    err32 = 0.0
+    for label, (dd, reset) in cases.items():
+        n = dd.shape[0]
+        cum0 = torch.linspace(0.0, 5e4, n, dtype=torch.float64, device=DEVICE)
+        for dt in (torch.float64, torch.float32):
+            args = [a.to(dt).contiguous() for a in (cum0, dd, tab[0][:n], tab[1][:n])]
+            got = tiered_cost_scan(*args, reset)
+            want = ref.tiered_cost_scan_ref(*args, reset)
+            for g, w in zip(got, want):
+                if dt == torch.float64:
+                    check(same_bits(g, w), f"tiered_cost_scan f64 != plain: {label}")
+                else:
+                    torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6, equal_nan=True)
+                    ok = ~torch.isnan(w)
+                    err32 = max(err32, (g[ok] - w[ok]).abs().max().item() if ok.any() else 0.0)
+        print(f"  tiered_cost_scan == plain (f64 every bit, f32 1e-6): {label}")
+    return err32
+
+
 def streaming_phase(scen, references, card: str) -> dict:
     """The streaming runtime on the card: the main path with launches
     counted, its checks against the offline planners, each new kernel
@@ -552,7 +794,7 @@ def streaming_phase(scen, references, card: str) -> dict:
     from repro_torch.fleet import FleetRuntime, plan_fleet
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fsm_scan import fsm_chunk
-    from repro_torch.kernels.stream_chunk import stream_chunk
+    from repro_torch.kernels.stream_chunk import TICK_MAX_K, launch_form, stream_chunk
     from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
 
     N, T = SIZES[-1]
@@ -643,6 +885,7 @@ def streaming_phase(scen, references, card: str) -> dict:
     err32 = max((g - w).abs().max().item() for g, w in zip(got32, want32))
     print(f"tiered_cost_scan {N} x {T} (one chunk, resets at month starts): f64 == plain "
           f"(bit for bit); f32 max abs err {err32:.3e}")
+    err32 = max(err32, scan_edge_checks(d, tab, hpm))
 
     vpn_all, cci_all = cpu["vpn_hourly"].numpy(), cpu["cci_hourly"].numpy()
     t_first, n_chunks = 696, 4                       # crosses the month start at 730
@@ -701,7 +944,19 @@ def streaming_phase(scen, references, card: str) -> dict:
         f"{N - 5} rows, 2 x K = {STREAM_K}": (ragged, demand[:N - 5], t_first,
                                               [STREAM_K] * 2, None),
         "NaN and +inf demand hours, 2 x K = 24": (fleet, bad, t_first, [STREAM_K] * 2, None),
+        f"the {N128}-link fleet, 4 chained K = {STREAM_K}": (scen[N128].fleet, scen[N128].demand,
+                                                            t_first, [STREAM_K] * n_chunks, None),
     }
+    tog = arrays.toggle                              # short windows and no delay in some links
+    short = arrays._replace(toggle=tog._replace(
+        h=torch.where(torch.arange(N, device=DEVICE) % 4 == 0,
+                      (torch.arange(N, device=DEVICE) % 12 + 1).to(torch.int32), tog.h),
+        D=torch.where(torch.arange(N, device=DEVICE) % 8 == 1, 0, tog.D).to(torch.int32)))
+    cases["windows of 1-12 h in a quarter of the links, D = 0 in an eighth, "
+          "K = 24, 1, 30"] = (short, demand, t_first, [STREAM_K, 1, 30], None)
+    for K in sorted({2, 3, TICK_MAX_K, TICK_MAX_K + 1, 8, 9, 23, 25}):
+        cases[f"3 chained K = {K} from hour 726 ({'tick' if launch_form(K, Kt) == 0 else 'chunk'}"
+              f" form)"] = (fleet, demand, 726, [K] * 3, None)
     stream_err = 0.0
     for label, (f_, d_, t_, Ks, c_) in cases.items():
         stream_err = max(stream_err, chunk_case(f_, d_, t_, Ks, c_))
@@ -720,15 +975,14 @@ def streaming_phase(scen, references, card: str) -> dict:
           f"ms, p95 {np.percentile(chunk_ms, 95):.3f} ms, mean {chunk_ms.mean():.3f} ms per "
           f"chunk; {N * T / chunk_s:.4g} link-steps/s; {chunk_s:.3f} s in step_many for the "
           f"year (output stacking not counted)")
-    b_scan = bound(8 * (2 * N * T + 2 * N * Kt + 2 * N) + 4 * T, N * T * (2 + 6 * Kt),
-                   torch.float64)
-    scan_year = (event_ms(lambda: tiered_cost_scan(zero, d, *tab, reset), 10),
+    print("  kernel device times (profiler): stream_chunk by launch form (auto = the "
+          "wrapper's pick), the month-to-date tiered_cost_scan, the empty kernel's floor")
+    times = kernel_times(scen)
+    scan_year = (times[f"tiered_cost_scan {N}x{T} float64"],
                  sync_ms(lambda: ref.tiered_cost_scan_ref(zero, d, *tab, reset), 1, warmup=0),
-                 b_scan)
-    print(f"  tiered_cost_scan (month-to-date) {N} x {T}, one chunk, CUDA events: kernel "
-          f"{scan_year[0]:.4f} ms, plain {scan_year[1]:.3f} ms, bound "
-          f"{scan_year[2]['bound_ms']:.4f} ms ({scan_year[2]['bound_by']}), "
-          f"{scan_year[0] / scan_year[2]['bound_ms']:.2f}x bound (not on a main path)")
+                 scan_bound(N, T, Kt, torch.float64))
+    print(f"  tiered_cost_scan (month-to-date) {N} x {T}, one chunk: plain version on the card "
+          f"{scan_year[1]:.3f} ms (not on a main path)")
 
     # stream_chunk and the two kernels it replaced, on one runtime's blocks at hour t_first
     rt_b = FleetRuntime(sc.fleet)
@@ -765,13 +1019,14 @@ def streaming_phase(scen, references, card: str) -> dict:
         check(same_bits(replaced(), fused()[0]), f"K = {K}: the replaced sequence != "
               f"stream_chunk on the same block")
         dev = kernel_device_ms(lambda: (fused(), cal_call(), fsm_call()), 20,
-                               ("stream_chunk_kernel", "tiered_cost_scan_kernel",
+                               ("stream_chunk", "tiered_cost_scan_kernel",
                                 "fsm_chunk_kernel"), per_call=1)
         b_k = stream_chunk_bound(N, K, Kt, False)
         timing[K] = {
-            "ms": dev["stream_chunk_kernel"], "queued_ms": queued_ms(fused, 50),
+            "ms": dev["stream_chunk"], "queued_ms": queued_ms(fused, 50),
             "event_ms": event_ms(fused, 50), "plain_ms": sync_ms(plain, 5), **b_k,
-            "calendar_ms": dev["tiered_cost_scan_kernel"], "fsm_chunk_ms": dev["fsm_chunk_kernel"],
+            "calendar_ms": dev["tiered_cost_scan_kernel"],
+            "fsm_chunk_ms": dev["fsm_chunk_kernel"],
             "replaced_busy_ms": device_busy_ms(replaced, 20),
             "replaced_wall_ms": sync_ms(replaced, 20), "fused_wall_ms": sync_ms(fused, 20),
             "fsm_chunk_plain_ms": sync_ms(lambda: ref.fsm_chunk_ref(
@@ -799,11 +1054,20 @@ def streaming_phase(scen, references, card: str) -> dict:
     print(f"streaming phase: {time.perf_counter() - t_phase:.1f} s")
 
     t24 = timing[STREAM_K]
+    ms = {f"{n}x{K}": times[f"stream_chunk {n}x{K} auto"]
+          for n, K in ((N, STREAM_K), (N, 1), (N128, STREAM_K))}
+    print(f"stream_chunk, profiler device ms (before the redesign; floor): "
+          + "; ".join(f"{k} {v:.5f} ({BEFORE_REDESIGN_MS['stream_chunk ' + k]})"
+                      for k, v in ms.items())
+          + f"; empty kernel {times['floor chunk grid, 480 threads']:.5f}. Launches on the "
+          f"streaming path by shape: {T // STREAM_K} x K = {STREAM_K} and "
+          f"{T % STREAM_K + STREAM_TICKS} x K = 1 at {N} links, {2 * (T128 // STREAM_K)} x "
+          f"K = {STREAM_K} and {2 * (T128 % STREAM_K)} x K = 1 at {N128} links")
     rows_out = {
         "stream_chunk": {
             "launches": launches["stream_chunk"], "max_abs_err": stream_err,
-            "ms": t24["ms"], "plain_ms": t24["plain_ms"], "bound_ms": t24["bound_ms"],
-            "bound_by": t24["bound_by"], "main_path": True},
+            "ms": ms[f"{N}x{STREAM_K}"], "plain_ms": t24["plain_ms"],
+            "bound_ms": t24["bound_ms"], "bound_by": t24["bound_by"], "main_path": True},
         "tiered_cost_scan": {
             "launches": launches["tiered_cost_scan"], "max_abs_err": max(err32, chunk_err),
             "ms": scan_year[0], "plain_ms": scan_year[1], **scan_year[2], "main_path": False},

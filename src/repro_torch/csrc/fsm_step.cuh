@@ -1,6 +1,6 @@
 // One hour of the ToggleCCI FSM, shared by the kernels that run it
-// (fsm_scan.cu's fsm_scan and fsm_chunk, stream_chunk.cu), so that all of them
-// decide alike.
+// (fsm_scan.cu's fsm_scan and fsm_chunk, stream_chunk.cu, stream_chunk_routed.cu),
+// so that all of them decide alike.
 //
 // The step of src/repro/fleet/policy.py::_fsm_cascade with the hold counters
 // of ReactivePolicy.step / HysteresisPolicy.step (hold counts of 1 make the
@@ -65,6 +65,36 @@ __device__ __forceinline__ int fsm_step(const FsmRow& p, FsmCarry& c, bool raw_r
   const int s = c.state;
   c.t_state += 1;
   c.phase = c.phase + 1 == p.T_cci ? 0 : c.phase + 1;
+  return s;
+}
+
+// fsm_step with every transition decided from the hour's carry at once, for
+// the kernel whose FSM chain sets its pace (stream_chunk.cu). The same states,
+// counters and return value as fsm_step when T_cci >= 1 (its callers' carry
+// already takes t_state % T_cci): a request that finds the FSM OFF with D <= 0
+// is provisioned at once (fsm_step's WAITING -> ON right after it), and a row
+// that moved to WAITING or ON this hour cannot be released in it (t_state is
+// 0 < T_cci). So a release is decided on the carry's own t_state and phase,
+// and the chain through the carry is ~5 dependent operations, not fsm_step's
+// ~10. tests/test_torch_chunk_launch.py holds it equal to fsm_step on every
+// small carry.
+__device__ __forceinline__ int fsm_step_flat(const FsmRow& p, FsmCarry& c, bool raw_req,
+                                             bool raw_rel, bool renew_in_chunks) {
+  c.up = raw_req ? c.up + 1 : 0;
+  c.down = raw_rel ? c.down + 1 : 0;
+  const bool req = raw_req & (c.up >= p.up_hold);
+  const bool rel = raw_rel & (c.down >= p.down_hold);
+  const bool to_wait = (c.state == kOff) & req;
+  const bool to_on = ((c.state == kWaiting) & (c.t_state >= p.D)) | (to_wait & (p.D <= 0));
+  const bool past_commit = c.t_state >= p.T_cci;
+  const bool check = renew_in_chunks ? past_commit & (c.phase == 0) : past_commit;
+  const bool to_off = (c.state == kOn) & check & rel;
+  const int s = to_off ? kOff : to_on ? kOn : to_wait ? kWaiting : c.state;
+  const bool moved = to_wait | to_on | to_off;
+  c.state = s;
+  c.t_state = moved ? 1 : c.t_state + 1;
+  const int phase = moved ? 0 : c.phase;
+  c.phase = phase + 1 == p.T_cci ? 0 : phase + 1;
   return s;
 }
 

@@ -1,5 +1,5 @@
 // The tier fold of the paper's Eq. (2), shared by the tiered-pricing kernels
-// (tiered_cost.cu, tiered_cost_scan.cu, stream_chunk.cu).
+// (tiered_cost.cu, tiered_cost_scan.cu, stream_chunk.cu, stream_chunk_routed.cu).
 //
 //   cost = sum_k rate[k] * clip(min(lo + d, b_k) - max(lo, b_{k-1}), 0)
 //
@@ -16,6 +16,16 @@
 // fmin/fmax; the float32 ones may differ from fminf/fmaxf at most in the sign
 // of the zero they return for a +0 and a -0, and a zero segment fails seg > 0
 // whatever its sign, so the fold keeps every bit it had.
+//
+// min_sel and max_sel are the same functions with the float64 forms as a
+// compare and select in PTX (setp/selp), with no branch: as C ternaries the
+// compiler makes each of them a branch region, and an hour's fold in one
+// thread a string of them. The kernels in which one thread walks a chain of
+// folds take them (stream_chunk.cu; tiered_cost_scan.cu's month-to-date
+// kernel), through fold_with_sel and fold_regs. For a +0 and a -0 they too may
+// return the other zero, which cannot reach a bit of the fold: a zero segment
+// fails seg > 0 whatever its sign, and a zero minus (or from) a nonzero
+// operand is that operand's negation (or the operand) either way.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,9 +57,33 @@ __device__ __forceinline__ float max_(float a, float b) {
   return r;
 }
 
+// NaN if either operand is NaN (a first), else the smaller (larger); a when
+// they compare equal. float64 compares and selects in PTX; float32 is min_/max_.
+__device__ __forceinline__ double min_sel(double a, double b) {
+  double r;
+  asm("{\n\t.reg .pred pa, pb, pl;\n\t.reg .f64 t;\n\t"
+      "setp.nan.f64 pa, %1, %1;\n\tsetp.nan.f64 pb, %2, %2;\n\t"
+      "setp.lt.f64 pl, %2, %1;\n\tselp.f64 t, %2, %1, pl;\n\t"
+      "selp.f64 t, %2, t, pb;\n\tselp.f64 %0, %1, t, pa;\n\t}"
+      : "=d"(r) : "d"(a), "d"(b));
+  return r;
+}
+__device__ __forceinline__ double max_sel(double a, double b) {
+  double r;
+  asm("{\n\t.reg .pred pa, pb, pl;\n\t.reg .f64 t;\n\t"
+      "setp.nan.f64 pa, %1, %1;\n\tsetp.nan.f64 pb, %2, %2;\n\t"
+      "setp.gt.f64 pl, %2, %1;\n\tselp.f64 t, %2, %1, pl;\n\t"
+      "selp.f64 t, %2, t, pb;\n\tselp.f64 %0, %1, t, pa;\n\t}"
+      : "=d"(r) : "d"(a), "d"(b));
+  return r;
+}
+__device__ __forceinline__ float min_sel(float a, float b) { return min_(a, b); }
+__device__ __forceinline__ float max_sel(float a, float b) { return max_(a, b); }
+
 // Cost of adding volume d to a month that already holds lo, against one
 // row's K (bound, rate) pairs, bound(k) and rate(k): the one definition of the
-// fold's arithmetic, whatever memory the table lies in.
+// fold's arithmetic, whatever memory the table lies in (fold_term below is
+// its term with min_sel/max_sel).
 template <typename F, typename Bound, typename Rate>
 __device__ __forceinline__ F fold_with(F lo, F d, Bound bound, Rate rate, int K) {
   const F hi = add_rn(lo, d);
@@ -62,6 +96,51 @@ __device__ __forceinline__ F fold_with(F lo, F d, Bound bound, Rate rate, int K)
     const F term = seg > F(0) ? mul_rn(seg, rate(k)) : F(0);
     acc = add_rn(acc, term);
     prev = bk;
+  }
+  return acc;
+}
+
+// One tier's term of fold_with with min_sel/max_sel: the part of [lo, hi)
+// between the previous bound and this one, times the tier's rate; +0.0
+// unless that part is > 0.
+template <typename F>
+__device__ __forceinline__ F fold_term(F lo, F hi, F prev, F bound, F rate) {
+  const F seg = sub_rn(min_sel(hi, bound), max_sel(lo, prev));
+  return seg > F(0) ? mul_rn(seg, rate) : F(0);
+}
+
+// fold_with's terms and adds in its order, each term from fold_term.
+template <typename F, typename Bound, typename Rate>
+__device__ __forceinline__ F fold_with_sel(F lo, F d, Bound bound, Rate rate, int K) {
+  const F hi = add_rn(lo, d);
+  F acc = F(0);
+  F prev = F(0);
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const F bk = bound(k);
+    acc = add_rn(acc, fold_term(lo, hi, prev, bk, rate(k)));
+    prev = bk;
+  }
+  return acc;
+}
+
+// The fold against a table held in registers, KMAX tiers: fold_term's terms
+// and fold_with's adds over compile-time indices (a run-time index
+// would put the arrays in local memory), with no branch. A table of fewer
+// tiers is padded with its last bound (0 for an empty table) and rate 0: a
+// padded tier's segment is min(hi, b) - max(lo, b) <= 0 (or NaN), so its term
+// is +0.0, and acc + 0.0 is acc (acc is never -0.0: it starts at +0.0, and a
+// sum is -0.0 only when both addends are).
+template <int KMAX, typename F>
+__device__ __forceinline__ F fold_regs(F lo, F d, const F (&bound)[KMAX],
+                                       const F (&rate)[KMAX]) {
+  const F hi = add_rn(lo, d);
+  F acc = F(0);
+  F prev = F(0);
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    acc = add_rn(acc, fold_term(lo, hi, prev, bound[k], rate[k]));
+    prev = bound[k];
   }
   return acc;
 }

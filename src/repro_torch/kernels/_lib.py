@@ -144,15 +144,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.fsm_scan_f64.argtypes = [p] * 9 + [i, i, i] + [p] * 4
     lib.fsm_scan_f64.restype = i
+    # cum0, demand, bounds, rates, reset, N, K, Kt, slots, plan, costs, cum_out, stream
     for name in ("tiered_cost_scan_f64", "tiered_cost_scan_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * 5 + [i, i, i] + [p] * 3
+        fn.argtypes = [p] * 5 + [i] * 4 + [p] * 4
         fn.restype = i
     lib.tiered_cost_calendar_f64.argtypes = [p] * 4 + [i] * 5 + [p] * 3
     lib.tiered_cost_calendar_f64.restype = i
     lib.fsm_chunk_f64.argtypes = [p] * 11 + [i] * 4 + [p] * 11
     lib.fsm_chunk_f64.restype = i
-    lib.stream_chunk_f64.argtypes = [p] * 20 + [i] * 6 + [p] * 3
+    lib.stream_chunk_f64.argtypes = [p] * 20 + [i] * 7 + [p] * 3   # ..., Kt, form, out, ...
     lib.stream_chunk_f64.restype = i
     lib.stream_chunk_routed_f64.argtypes = [p] * 27 + [i] * 8 + [p] * 3
     lib.stream_chunk_routed_f64.restype = i

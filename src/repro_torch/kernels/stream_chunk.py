@@ -8,7 +8,11 @@ computes the clip, the billing calendar, the tier fold, the VPN and CCI
 cost planes, the prefix snapshots, the window sums and the FSM, into one
 packed float64 result:
 
-* :func:`stream_chunk`, fleet mode (one row per link): ``csrc/stream_chunk.cu``;
+* :func:`stream_chunk`, fleet mode (one row per link): ``csrc/stream_chunk.cu``,
+  in one of two launch forms that :func:`launch_form` picks by K: the tick
+  form (one thread a row, the K hours in registers) for K up to
+  :data:`TICK_MAX_K`, the chunk form (sub-tiles of 8 hours handed between
+  warp roles) past it;
 * :func:`stream_chunk_routed`, topology mode: pairs are priced, then folded
   onto the shared ports over the routing's leg list, each port's legs in
   leg order, before the port FSMs run: ``csrc/stream_chunk_routed.cu``.
@@ -38,6 +42,40 @@ def routed_result_size(K: int, P: int, M: int) -> int:
     """Elements of the routed chunk's flat result: the 8 (K, M) planes, then
     dcum, dcum_month (P each), then vpn_pref, cci_pref (M each)."""
     return 8 * K * M + 2 * P + 2 * M
+
+
+#: The largest K the wrapper sends to the tick form, and its last
+#: compile-time instance (K = 1..5, ``kTickMaxK`` in ``csrc/stream_chunk.cu``):
+#: from K = 6 the chunk form was faster on the card (PERF.md, the K sweep of
+#: both forms up to K = 8). Then the tiers its tables hold in registers.
+TICK_MAX_K = 5
+TICK_MAX_TIERS = 8
+#: Hours a chunk-form sub-tile, and sub-tiles a tile (five named barriers
+#: each, of the 15 a block has besides ``__syncthreads``).
+SUB_HOURS = 8
+MAX_SUBS = 3
+FORMS = ("auto", "tick", "chunk")
+
+
+def launch_form(K: int, Kt: int, form: str = "auto") -> int:
+    """The C entry's ``form`` code for a chunk of K hours against Kt-tier
+    tables: 0 the tick form, S = 1..3 the chunk form with S sub-tiles of
+    :data:`SUB_HOURS` hours a tile (``ceil(K / 8)``, at most
+    :data:`MAX_SUBS`; a longer chunk walks several tiles). ``"auto"`` takes
+    the tick form for K <= :data:`TICK_MAX_K` when the tables fit its
+    registers; ``"tick"`` and ``"chunk"`` force one (the tick form raises
+    past its instances), for :func:`_stream_chunk_launch`."""
+    if form not in FORMS:
+        raise ValueError(f"stream_chunk form {form!r}: want one of {FORMS}")
+    if K < 1:
+        raise ValueError(f"stream_chunk: K {K}")
+    fits = K <= TICK_MAX_K and Kt <= TICK_MAX_TIERS
+    if form == "tick" and not fits:
+        raise ValueError(f"stream_chunk tick form: K {K} (at most {TICK_MAX_K}) or "
+                         f"{Kt} tiers (at most {TICK_MAX_TIERS})")
+    if form == "tick" or (form == "auto" and fits):
+        return 0
+    return min(MAX_SUBS, -(-K // SUB_HOURS))
 
 
 def _check_operands(name: str, block: torch.Tensor, want) -> None:
@@ -80,7 +118,19 @@ def stream_chunk(
     """The chunk on the card: the packed float64 (8K + 4, M) result (vpn, cci,
     r_vpn, r_cci, snap_v, snap_c, x, state, K rows each, then dcum,
     dcum_month, vpn_pref, cci_pref) and the FSM carry after the chunk, (4, M)
-    int32."""
+    int32, in the launch form :func:`launch_form` picks by K."""
+    return _stream_chunk_launch(
+        "auto", block, K, endo, capacity, L_vpn, lease_cci, c_cci, bounds, rates, theta1,
+        theta2, h, D, T_cci, up_hold, down_hold, cal, fsm, pref, t0, hours_per_month,
+        renew_in_chunks=renew_in_chunks)
+
+
+def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci, bounds,
+                         rates, theta1, theta2, h, D, T_cci, up_hold, down_hold, cal, fsm,
+                         pref, t0, hours_per_month, *, renew_in_chunks=False):
+    """:func:`stream_chunk` in the launch form ``form`` (``"auto"``,
+    ``"tick"`` or ``"chunk"``, :func:`launch_form`): the tests and
+    ``chip_smoke.py`` force each form with it; both give the same bits."""
     M = capacity.shape[0]
     dev = block.device
     f64, i32 = torch.float64, torch.int32
@@ -95,6 +145,7 @@ def stream_chunk(
     want += [(a, (M,), f64) for a in (capacity, L_vpn, lease_cci, c_cci, theta1, theta2)]
     want += [(a, (M,), i32) for a in (h, D, T_cci, up_hold, down_hold)]
     _check_operands("stream_chunk", block, want)
+    code = launch_form(K, Kt, form)
     lib = _lib.load()
     out = torch.empty((8 * K + 4, M), dtype=f64, device=dev)
     fsm_out = torch.empty((4, M), dtype=i32, device=dev)
@@ -107,7 +158,7 @@ def stream_chunk(
             *(a.data_ptr() for a in (capacity, L_vpn, lease_cci, c_cci, bounds, rates,
                                      theta1, theta2, h, D, T_cci, up_hold, down_hold,
                                      cal, fsm, pref)),
-            int(bool(renew_in_chunks)), t0, hours_per_month, K, M, Kt,
+            int(bool(renew_in_chunks)), t0, hours_per_month, K, M, Kt, code,
             out.data_ptr(), fsm_out.data_ptr(), stream,
         )
     _lib.check(status, "stream_chunk_f64")

@@ -53,7 +53,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan
 from repro_torch.kernels.leg_segment_sum import leg_segment_sum
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.stream_chunk import stream_chunk, stream_chunk_routed
+from repro_torch.kernels.stream_chunk import (TICK_MAX_K, _stream_chunk_launch, stream_chunk,
+                                              stream_chunk_routed)
 from repro_torch.kernels.tiered_cost import tiered_cost_batched
 from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
 
@@ -253,23 +254,92 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-9, atol=1e-9)
 
 
+def _scan_reset(kind: str, K: int) -> np.ndarray:
+    """The month-to-date scan's reset patterns: month starts (730 h), none,
+    hour 0 only, hour 0 and its neighbours plus the last hour, segments
+    shorter than the kernel's 64-hour staged tile, and every hour."""
+    k = np.arange(K)
+    return {
+        "monthly": k % 730 == 0,
+        "none": np.zeros(K, bool),
+        "at_0": k == 0,
+        "edges": np.isin(k, [0, 1, 2, 63, 64, 65, K - 2, K - 1]),
+        "short": k % 29 == 3,
+        "every_hour": np.ones(K, bool),
+    }[kind].astype(np.int32)
+
+
+SCAN_CASES = [("monthly", 64, 2000), ("none", 64, 2000), ("at_0", 33, 700),
+              ("edges", 31, 300), ("short", 33, 500), ("every_hour", 17, 130),
+              ("monthly", 1, 1500), ("none", 2, 1), ("at_0", 3, 1), ("monthly", 2048, 24),
+              ("edges", 31, 1300), ("short", 33, 1100)]
+
+
 @pytest.mark.cuda
-def test_tiered_scan_kernel_matches_plain(cuda_device):
-    """Month-to-date form, a year as one chunk with resets at month starts."""
-    cum, d, b, r = _tiers(3, 64, 2000, np.float64)
-    reset = (np.arange(2000) % 730 == 0).astype(np.int32)
-    cum0 = np.linspace(0.0, 5e4, 64)
-    for dtype in (np.float64, np.float32):
-        args = [np.asarray(a, dtype) for a in (cum0, d, b, r)] + [reset]
-        before = ops.LAUNCHES["tiered_cost_scan"]
-        got = ops.tiered_cost_scan(*(_t(a, cuda_device) for a in args))
-        assert ops.LAUNCHES["tiered_cost_scan"] == before + 1
-        want = ref.tiered_cost_scan_ref(*(_t(a) for a in args))
-        for g, w in zip(got, want):
-            if dtype == np.float64:
-                assert torch.equal(g.cpu(), w)
-            else:
-                torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-6)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_tiered_scan_kernel_matches_plain(cuda_device, case, dtype):
+    """Month-to-date form against its plain version: float64 every bit,
+    float32 at rtol = atol = 1e-6; reset patterns, N of 1, 2, 3, 17, 31, 33,
+    64 and 2048, K of 1 to 2000, with the segment plan (K > 512) and with
+    the resets applied in the carry (one segment slot)."""
+    kind, N, K = case
+    cum, d, b, r = _tiers(3, N, K, np.float64)
+    cum0 = np.linspace(0.0, 5e4, N)
+    args = [np.asarray(a, dtype) for a in (cum0, d, b, r)] + [_scan_reset(kind, K)]
+    before = ops.LAUNCHES["tiered_cost_scan"]
+    got = ops.tiered_cost_scan(*(_t(a, cuda_device) for a in args))
+    assert ops.LAUNCHES["tiered_cost_scan"] == before + 1
+    want = ref.tiered_cost_scan_ref(*(_t(a) for a in args))
+    for g, w in zip(got, want):
+        if dtype == np.float64:
+            assert torch.equal(g.cpu(), w)
+        else:
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_tiered_scan_kernel_nan_demand(cuda_device, dtype):
+    """NaN and +inf demand: the carry holds them to the month's end (those
+    hours price +0.0), the next reset clears them; NaN in the same places."""
+    cum, d, b, r = _tiers(6, 33, 400, np.float64)
+    d[0, 5], d[3, 71], d[2, 380], d[4, 150] = np.nan, np.nan, np.nan, np.inf
+    args = ([np.asarray(a, dtype) for a in (np.zeros(33), d, b, r)]
+            + [_scan_reset("short", 400)])
+    got = ops.tiered_cost_scan(*(_t(a, cuda_device) for a in args))
+    want = ref.tiered_cost_scan_ref(*(_t(a) for a in args))
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        if dtype == np.float64:
+            assert _same_bits(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6, equal_nan=True)
+    assert bool(torch.isnan(got[1][2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["monthly", "edges", "every_hour", "none"])
+def test_tiered_scan_segment_plan_on_the_card(cuda_device, kind):
+    """The C call's pre-pass writes segment_plan(reset) into its scratch
+    (a chunk of more than one segment slot)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.tiered_cost_scan import segment_plan, segment_slots
+
+    N, K = 40, 40000 if kind == "monthly" else 3000      # past one segment slot
+    reset = _t(_scan_reset(kind, K), cuda_device)
+    cum, d, b, r = (_t(a, cuda_device) for a in _tiers(7, N, K, np.float64))
+    plan = torch.full((K + 2,), -1, dtype=torch.int32, device=cuda_device)
+    costs = torch.empty((N, K), dtype=torch.float64, device=cuda_device)
+    cum_out = torch.empty(N, dtype=torch.float64, device=cuda_device)
+    status = _lib.load().tiered_cost_scan_f64(
+        cum[:, 0].contiguous().data_ptr(), d.data_ptr(), b.data_ptr(), r.data_ptr(),
+        reset.data_ptr(), N, K, b.shape[1], segment_slots(N, K), plan.data_ptr(),
+        costs.data_ptr(), cum_out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert status == 0
+    want = segment_plan(reset.cpu())
+    assert torch.equal(plan[:want.numel()].cpu(), want)
 
 
 @pytest.mark.cuda
@@ -346,7 +416,8 @@ def _same_bits(got, want):
 
 
 STREAM_CHUNK_CASES = ["chained", "endogenous", "k1", "past_tile_and_ring", "ragged_rows",
-                      "nonfinite_demand"]
+                      "nonfinite_demand", "k2", "k3", "k_tick_max", "k_tick_max_plus_1", "k8",
+                      "k9", "k23", "k25", "fleet128"]
 
 
 @pytest.mark.cuda
@@ -356,12 +427,19 @@ def test_stream_chunk_kernel_matches_plain(cuda_device, case):
     packed blocks and carries, from a stream's own state, every output bit:
     four chained K = 24 chunks from hour 696 (across the month start at
     730), the same with endogenous CCI demand, K = 1, one K past the
-    kernel's 32-hour tile and the window ring, 37 rows (not a multiple of
-    the 16-row block), and demand hours holding NaN and +inf."""
-    sc = build_fleet_scenario(64, horizon=1200, seed=0)
+    kernel's tile and the window ring, 37 rows (not a multiple of the
+    16-row block), demand hours holding NaN and +inf; and K around both
+    launch forms' edges (the tick form's last K and one past it, one and
+    two past a chunk-form sub-tile, one short of and one past a 24-hour
+    tile) from hour 726, and the 128-link fleet at K = 24."""
+    sc = build_fleet_scenario(128 if case == "fleet128" else 64, horizon=1200, seed=0)
     fleet, demand, cci = sc.fleet, sc.demand, None
     t_first, Ks = 696, [24] * 4
-    if case == "endogenous":
+    edge_K = {"k2": 2, "k3": 3, "k_tick_max": TICK_MAX_K, "k_tick_max_plus_1": TICK_MAX_K + 1,
+              "k8": 8, "k9": 9, "k23": 23, "k25": 25}
+    if case in edge_K:
+        t_first, Ks = 726, [edge_K[case]] * 3
+    elif case == "endogenous":
         cci = demand * 1.5
     elif case == "k1":
         t_first, Ks = 728, [1] * 4
@@ -395,6 +473,40 @@ def test_stream_chunk_kernel_matches_plain(cuda_device, case):
         t += K
     if case == "nonfinite_demand":
         assert bool(torch.isnan(rt._state.dev_cal[0, 5])) and bool(torch.isnan(got).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["tick", "chunk"])
+@pytest.mark.parametrize("K", range(1, TICK_MAX_K + 1))
+def test_stream_chunk_forms_match_plain(cuda_device, K, form):
+    """Both launch forms, forced, at every K the tick form has an instance
+    for, across the month start at hour 730 with NaN and +inf demand in
+    three links, windows of 1 to 12 hours in a quarter of the links (bases
+    inside the chunk) and no provisioning delay in eight: every output bit
+    equal to stream_chunk_ref."""
+    sc = build_fleet_scenario(64, horizon=1200, seed=0)
+    demand = sc.demand.copy()
+    demand[5, 727], demand[6, 729], demand[9, 731] = np.nan, np.inf, np.nan
+    arrays = sc.fleet.stack(torch.float64, cuda_device)
+    tog = arrays.toggle
+    h, D = tog.h.clone(), tog.D.clone()
+    h[::4] = torch.arange(1, 17, dtype=torch.int32, device=cuda_device) % 12 + 1
+    D[1::8] = 0
+    arrays = arrays._replace(toggle=tog._replace(h=h, D=D))
+    rt = FleetRuntime(arrays, device=cuda_device)
+    for t in range(0, 720, 24):
+        rt.step_many(demand[:, t:t + 24])
+    t = 720
+    while t < 736:
+        block, _, endo = rt._pack(demand[:, t:t + K], None)
+        args = rt._chunk_args(torch.from_numpy(block).to(cuda_device), K, endo)
+        renew = rt.policy.renew_in_chunks
+        want, want_fsm = ref.stream_chunk_ref(*args, renew_in_chunks=renew)
+        got, got_fsm = _stream_chunk_launch(form, *args, renew_in_chunks=renew)
+        assert _same_bits(got, want) and _same_bits(got_fsm, want_fsm), (K, form, t)
+        rt._launch(args[0], K, endo)
+        rt._commit(want.cpu().numpy(), K)
+        t += K
 
 
 def test_lm_kernel_wrappers_refuse_cpu_tensors():
