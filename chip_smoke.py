@@ -186,7 +186,29 @@ without printing a result):
     printed beside the old one) and run 22A's time of PR 22's kernel,
     ``fleet_oracle``'s host split (the cost series, the copy in, the launch,
     the copy out), each report's wall time and one link of the numpy DP;
-13. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+13. the forecast-gated policy (:func:`forecast_phase`): the 2048-link year
+    after 4380 hours of history (``build_fleet_scenario(..., history_hours=
+    4380)``), with the forecaster's persistence init and a copy whose
+    readout weights and bias are drawn from the seed; with every launch
+    count at 0, ``demand_forecaster_predict`` over history and year, the
+    cost fit on ``routed_cost_series`` and ``plan_fleet`` with the gated
+    policy (per-family margins), from numpy through the entry points; it
+    fails unless each run launched one ``forecaster_scan``, one gated
+    ``fsm_scan`` and the two pricings, unless margin 1e30 gives the reactive
+    plan in every bit, unless ``forecaster_scan`` equals its plain version
+    on the card in every bit on N in (1, 17, 2048) x T in (1, 63, 13140) x S
+    in (1, 8, 16) with a zero and a seeded h0 and a NaN hour (and once
+    without the readout), unless the gated ``fsm_scan`` equals its plain
+    version on the CPU in every bit at the FSM edge shapes with margins 0,
+    0.05 and 1e30, NaN predictions and both renewals, and unless the card's
+    plan decides as the CPU port's (costs ``rtol=1e-9``), a differing row
+    allowed only where a gate lies within the card-vs-CPU difference of the
+    predicted costs of its threshold (printed, with the count); then it
+    times both kernels (profiler device time) beside their bounds, the
+    reactive and hysteresis instances in the same run, the plan beside the
+    reactive one with a device breakdown, and prints the fleet's
+    ``forecast_gain`` against the OPT column;
+14. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -2804,6 +2826,338 @@ def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
             "library_ms": None}
 
 
+# -- the forecast slice ----------------------------------------------------------
+FC_LINKS, FC_HOURS = 2048, 8760
+FC_HISTORY = 4380                       # benchmarks/bench_policy.py's half-horizon history
+FC_STATE = 8
+FC_CHECK = ((1, 17, 2048), (1, 63, FC_HISTORY + FC_HOURS), (1, 8, 16))   # N, T, S
+FC_MARGINS = (0.0, 0.05, 1e30)
+
+
+def forecaster_bound(N: int, T: int, S: int, write_y: bool = True) -> dict:
+    # u read and y written (float32), h0 read and h written. Per element and
+    # state: a·h, (1−a)·u, their sum, h − u, the product with w and the fold's
+    # add, each a whole lane-cycle; the readout's two adds less the fold's first.
+    bytes_moved = N * T * 4 * (2 if write_y else 1) + 2 * N * S * 4
+    ops = N * T * (6 * S + 1 if write_y else 3 * S)
+    return lane_bound(bytes_moved, ops, torch.float32)
+
+
+def gated_fsm_bound(N: int, T: int) -> dict:
+    # vpn, cci, p_vpn, p_cci read (f64); x, state written (int32); row
+    # parameters, margins and totals. fsm_bound's 11 operations an hour and
+    # the gates' four products and four compares.
+    bytes_moved = N * T * (4 * 8 + 4 + 4) + N * (8 * 3 + 4 * 5 + 8)
+    return bound(bytes_moved, N * T * 19, torch.float64)
+
+
+def forecaster_case(N: int, T: int, S: int, h0: bool, device):
+    """Seeded forecaster operands: log1p-like inputs (one NaN hour in row 0
+    when N > 1), sigmoid'd timescales, readout weights and bias, a zero or
+    seeded h0."""
+    rng = np.random.default_rng(1000 * S + N + T)
+    u = torch.tensor(rng.normal(0.6, 0.5, (N, T)), dtype=torch.float32, device=device)
+    if N > 1:
+        u[0, T // 2] = float("nan")
+    a = torch.sigmoid(torch.tensor(rng.normal(1.0, 2.0, S), dtype=torch.float32))
+    w = torch.tensor(rng.normal(0, 0.1, S), dtype=torch.float32, device=device)
+    b = torch.tensor(rng.normal(0, 0.02), dtype=torch.float32, device=device)
+    h = (torch.tensor(rng.normal(0.4, 0.3, (N, S)), dtype=torch.float32, device=device)
+         if h0 else torch.zeros((N, S), dtype=torch.float32, device=device))
+    return u, a.to(device), (1.0 - a).to(device), w, b, h
+
+
+def forecaster_checks() -> int:
+    """``forecaster_scan`` against its plain version on the card, every bit
+    of y and h (NaN in the same places), on N x T x S of FC_CHECK with a zero
+    and a seeded h0, and once without the readout. Returns the cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.forecaster import forecaster_scan
+
+    cases = 0
+    for N in FC_CHECK[0]:
+        for T in FC_CHECK[1]:
+            for S in FC_CHECK[2]:
+                for h0 in (False, True):
+                    args = forecaster_case(N, T, S, h0, DEVICE)
+                    y, h = forecaster_scan(*args)
+                    wy, wh = ref.forecaster_scan_ref(*args)
+                    check(same_bits(y, wy) and same_bits(h, wh),
+                          f"forecaster_scan {N} x {T}, S = {S}, h0 {h0}: != plain")
+                    cases += 1
+    args = forecaster_case(FC_LINKS, FC_HISTORY + FC_HOURS, FC_STATE, True, DEVICE)
+    none, h = forecaster_scan(*args, write_y=False)
+    check(none is None and same_bits(h, ref.forecaster_scan_ref(*args, write_y=False)[1]),
+          "forecaster_scan without its readout: h != plain")
+    return cases + 1
+
+
+def gated_edge_checks() -> int:
+    """The gated ``fsm_scan`` at fsm_edge_checks' shapes: per-row margins
+    cycling through FC_MARGINS, predicted costs straddling the gates, every
+    fifth row's predictions NaN from T // 3, planes 8 bytes off a 16-byte
+    boundary, both renewals, then each margin alone at 128 x 8760: every
+    output bit equal to the plain version on the CPU. Returns the cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fsm_scan import fsm_scan
+
+    def gate(N, T, margins):
+        rng = np.random.default_rng(7 * N + T)
+        vpn = fsm_edge_args(N, T, 1, "cpu")[0].numpy()
+        p_vpn = vpn * rng.uniform(0.8, 1.2, (N, T))
+        ratio = np.repeat(rng.uniform(0.7, 1.3, (N, T // 50 + 1)), 50, axis=1)[:, :T]
+        p_cci = p_vpn * ratio
+        p_vpn[::5, T // 3:] = np.nan
+        p_cci[::5, T // 3:] = np.nan
+        planes = []
+        for p in (p_vpn, p_cci):
+            buf = torch.zeros(N * T + 1, dtype=torch.float64, device=DEVICE)
+            view = buf[1:].view(N, T)
+            view.copy_(torch.as_tensor(p, device=DEVICE))
+            planes.append(view)
+        m = torch.as_tensor(np.resize(np.asarray(margins, np.float64), N), device=DEVICE)
+        return tuple(planes) + (m,)
+
+    cases = 0
+    shapes = [(N, T, FC_MARGINS) for N in FSM_EDGE_N for T in FSM_EDGE_T]
+    shapes += [(128, 8760, (m,)) for m in FC_MARGINS]
+    for N, T, margins in shapes:
+        args = fsm_edge_args(N, T, 1, DEVICE)
+        g = gate(N, T, margins)
+        check(g[0].data_ptr() % 16 == 8, "gate planes not misaligned")
+        for renew in (False, True):
+            got = fsm_scan(*args, renew_in_chunks=renew, gate=g)
+            want = ref.fsm_scan_ref(*(a.cpu() for a in args), renew_in_chunks=renew,
+                                    gate=tuple(x.cpu() for x in g))
+            for k in ("x", "state", "total_cost"):
+                check(torch.equal(got[k].cpu(), want[k]), f"gated fsm_scan {N} x {T} margins "
+                      f"{margins} renew={renew}: {k} != the CPU plain version")
+            cases += 1
+    return cases
+
+
+def forecast_policy(sc, params, device):
+    """The forecast-gated policy of the scenario as forecast_fleet_policy
+    builds it, minus the training: history and demand clipped at capacity,
+    scale = max(mean(history), 1e-9), predictions over the history followed
+    by the year, pred[:, t] = y[:, H - 1 + t], cost coefficients fitted on
+    routed_cost_series of the year, per-family margins. Returns the stacked
+    arrays, the policy and its predictions."""
+    from repro_torch.fleet import family_margins, fit_cost_coef, forecast_gated_policy
+    from repro_torch.fleet.engine import routed_cost_series
+    from repro_torch.models.ssm import demand_forecaster_predict
+
+    arrays = sc.fleet.stack(torch.float64, device)
+    cap = np.array([l.capacity_gb_hr for l in sc.fleet.links])[:, None]
+    hist, live = np.minimum(sc.history, cap), np.minimum(sc.demand, cap)
+    scale = np.maximum(hist.mean(axis=1), 1e-9)
+    H, T = hist.shape[1], live.shape[1]
+    y = demand_forecaster_predict(params, np.concatenate([hist, live], axis=1), scale,
+                                  device=device)
+    pred = y[:, H - 1:H - 1 + T].contiguous()
+    s = routed_cost_series(arrays, sc.demand, hours_per_month=sc.fleet.hours_per_month,
+                           device=device)
+    coef = fit_cost_coef(s.row_demand, s.vpn, s.cci)
+    margin = family_margins([l.family for l in sc.fleet.links])
+    return arrays, forecast_gated_policy(arrays.toggle, pred, margin=margin, cost_coef=coef)
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest relative difference of two tensors where both are finite
+    (NaN where either is NaN is checked apart)."""
+    a, b = a.cpu(), b.cpu()
+    check(torch.equal(torch.isnan(a), torch.isnan(b)), "NaN in different places")
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    d = (a - b).abs() / torch.maximum(a.abs(), b.abs()).clamp(min=1e-300)
+    return float(d[ok].max()) if bool(ok.any()) else 0.0
+
+
+def gate_ties(got, want, policy, gates, tol: float) -> int:
+    """Rows whose decisions differ between the card's and the CPU's plans.
+    Fails unless, at each such row's first differing hour, one of the four
+    gate comparisons (on the CPU's predicted costs) lies within ``tol``
+    relative of its threshold. Returns the count of such rows."""
+    gx, gs = got["x"].cpu(), got["state"].cpu()
+    bad = ((gx != want["x"]) | (gs != want["state"])).any(dim=1)
+    p_vpn, p_cci = gates
+    tp, m = policy.toggle, policy.margin.cpu()
+    th = torch.stack([tp.theta1.cpu() - m, tp.theta1.cpu() + m, tp.theta2.cpu() + m,
+                      tp.theta2.cpu() - m], dim=1)
+    rows = torch.nonzero(bad).flatten().tolist()
+    for n in rows:
+        t = int(torch.nonzero((gx[n] != want["x"][n]) | (gs[n] != want["state"][n]))[0])
+        k = th[n] * p_vpn[n, t]
+        near = ((p_cci[n, t] - k).abs() <= tol * torch.maximum(p_cci[n, t].abs(), k.abs()))
+        check(bool(near.any()), f"forecast plan: row {n} hour {t} decides otherwise on the "
+              f"card than on the CPU, with no gate within {tol:.2e} of its threshold")
+    return len(rows)
+
+
+def forecast_phase(card: str) -> dict:
+    """The forecast slice on the card: with every launch count at 0, the
+    2048-link year's forecast-gated plan through ``demand_forecaster_predict``
+    and ``plan_fleet``; launch counts exact; both kernels held bit for bit
+    against their plain versions; margin 1e30 == reactive; the card's plan
+    against the CPU port's; then timings. Returns the two kernels' rows."""
+    from repro_torch.fleet import build_fleet_scenario, build_report, plan_fleet
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.forecaster import forecaster_scan
+    from repro_torch.kernels.fsm_scan import fsm_scan
+    from repro_torch.models.ssm import demand_forecaster_init
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sc = build_fleet_scenario(FC_LINKS, horizon=FC_HOURS, history_hours=FC_HISTORY, seed=SEED)
+    N, T, H = FC_LINKS, FC_HOURS, FC_HISTORY
+    print(f"forecast scenario {N} x {T} h after {H} h of history: "
+          f"{time.perf_counter() - t0:.2f} s on the host")
+    rng = np.random.default_rng(SEED)
+    init = demand_forecaster_init(None, FC_STATE, device=DEVICE)
+    seeded = dict(init, w=torch.tensor(0.1 * rng.standard_normal(FC_STATE), dtype=torch.float32,
+                                       device=DEVICE),
+                  bias=torch.tensor(0.01 * rng.standard_normal(), dtype=torch.float32,
+                                    device=DEVICE))
+
+    # -- the main path, launches counted ------------------------------------
+    plans, launches = {}, {}
+    for name, params in (("seeded", seeded), ("init", init)):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        arrays, pol = forecast_policy(sc, params, None)
+        plans[name] = plan_fleet(arrays, sc.demand, policy=pol)
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        print(f"forecast path ({name} parameters): launches {launches[name]} "
+              f"({time.perf_counter() - t0:.2f} s, forecast, fit and plan from numpy)")
+        check(launches[name] == {"forecaster_scan": 1, "tiered_cost_batched": 2,
+                                 "fsm_scan_gated": 1},
+              f"forecast path launched {launches[name]}: not one forecaster_scan, one gated "
+              f"fsm_scan and the two pricings")
+    arrays, pol = forecast_policy(sc, seeded, DEVICE)
+    plan = plans["seeded"]
+    check(same_bits(plan["x"], plan_fleet(arrays, sc.demand, policy=pol)["x"]),
+          "forecast plan not reproducible")
+    reactive = plan_fleet(arrays, sc.demand)
+    for k in ("toggle_cost", "static_vpn", "static_cci"):
+        check(bool(torch.isfinite(plan[k]).all()), f"forecast plan: {k} not finite")
+    check(plan["x"].shape == (N, T) and plan["x"].device.type == DEVICE.type,
+          "forecast plan shape/device")
+    flips = int((plan["x"] != reactive["x"]).sum())
+    check(flips > 0, "the forecast gates changed no decision")
+    print(f"forecast plan {N} x {T}: CCI share {plan['x'].double().mean().item():.4f} "
+          f"(reactive {reactive['x'].double().mean().item():.4f}), {flips} link-hours decided "
+          f"otherwise than reactive; toggle cost {plan['toggle_cost'].sum().item():.2f} vs "
+          f"reactive {reactive['toggle_cost'].sum().item():.2f}")
+
+    # (c) margin 1e30: the gates neither fire nor veto ---------------------
+    wide = plan_fleet(arrays, sc.demand, policy=pol._replace(margin=torch.full_like(
+        pol.margin, 1e30)))
+    for k in reactive:
+        check(same_bits(wide[k], reactive[k]), f"margin 1e30 != the reactive plan in {k}")
+    print("margin 1e30: the gated plan == the reactive plan, every output bit")
+
+    # (a) and (b): both kernels against their plain versions ----------------
+    t0 = time.perf_counter()
+    n_fc = forecaster_checks()
+    print(f"forecaster_scan: {n_fc} cases (N in {FC_CHECK[0]} x T in {FC_CHECK[1]} x S in "
+          f"{FC_CHECK[2]}, zero and seeded h0, a NaN hour, and no readout) == plain on the "
+          f"card, every bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_gate = gated_edge_checks()
+    print(f"gated fsm_scan: {n_gate} cases (edge shapes x margins {FC_MARGINS} by row, each "
+          f"margin alone at 128 x 8760, NaN predictions, both renewals, misaligned planes) == "
+          f"plain on the CPU, every bit ({time.perf_counter() - t0:.1f} s)")
+    gates = pol.features(reactive["demand"], reactive["vpn_hourly"], reactive["cci_hourly"])
+    gate_args = fsm_args(arrays, reactive["vpn_hourly"], reactive["cci_hourly"])
+    gate = gates + (pol.margin,)
+    got = fsm_scan(*gate_args, gate=gate)
+    want = ref.fsm_scan_ref(*gate_args, gate=gate)
+    check(torch.equal(got["x"], want["x"]) and torch.equal(got["state"], want["state"]),
+          "gated fsm_scan != plain on the card at the main path's inputs")
+    check(same_bits(got["x"], plan["x"]), "the kernel's decisions != the plan's")
+    gated_err = (got["total_cost"] - want["total_cost"]).abs().max().item()
+    torch.testing.assert_close(got["total_cost"], want["total_cost"], rtol=1e-12, atol=0)
+
+    # (d) the card's plan against the CPU port's ------------------------------
+    t0 = time.perf_counter()
+    cpu_params = {k: v.cpu() for k, v in seeded.items()}
+    c_arrays, c_pol = forecast_policy(sc, cpu_params, "cpu")
+    cpu = plan_fleet(c_arrays, sc.demand, policy=c_pol, device="cpu")
+    c_gates = c_pol.features(cpu["demand"], cpu["vpn_hourly"], cpu["cci_hourly"])
+    d_pred = rel_diff(pol.pred_demand, c_pol.pred_demand)
+    d_vpn, d_cci = rel_diff(gates[0], c_gates[0]), rel_diff(gates[1], c_gates[1])
+    tol = 2 * max(d_vpn, d_cci)
+    ties = gate_ties(plan, cpu, c_pol, c_gates, tol)
+    for k in ("toggle_cost", "static_vpn", "static_cci"):
+        if ties == 0:
+            torch.testing.assert_close(plan[k].cpu(), cpu[k], rtol=1e-9, atol=0)
+    print(f"forecast plan card vs CPU port ({time.perf_counter() - t0:.1f} s): largest "
+          f"relative difference of pred {d_pred:.3e}, p_vpn {d_vpn:.3e}, p_cci {d_cci:.3e}; "
+          f"{ties} rows decide otherwise (allowed only at a gate within {tol:.3e} of its "
+          f"threshold); x/state " + ("equal, costs rtol 1e-9" if ties == 0 else "differ there"))
+
+    # -- timings ---------------------------------------------------------------
+    S = FC_STATE
+    fc_args = forecaster_case(N, H + T, S, False, DEVICE)
+    fc = lambda: forecaster_scan(*fc_args)
+    fc_ms = device_ms_per_call(fc, 10, "forecaster_scan_kernel", 1)
+    fc_state_ms = device_ms_per_call(lambda: forecaster_scan(*fc_args, write_y=False), 10,
+                                     "forecaster_scan_kernel", 1)
+    fc_plain_ms = sync_ms(lambda: ref.forecaster_scan_ref(*fc_args), 2)
+    fb, fb_state = forecaster_bound(N, H + T, S), forecaster_bound(N, H + T, S, False)
+    r_args = gate_args
+    h_args = r_args[:7] + (arrays.toggle.h % 6 + 1, arrays.toggle.h % 4 + 1)
+    g_ms = device_ms_per_call(lambda: fsm_scan(*gate_args, gate=gate), 10, "fsm_scan_kernel", 1)
+    r_ms = device_ms_per_call(lambda: fsm_scan(*r_args), 10, "fsm_scan_kernel", 1)
+    h_ms = device_ms_per_call(lambda: fsm_scan(*h_args), 10, "fsm_scan_kernel", 1)
+    g_ms2 = device_ms_per_call(lambda: fsm_scan(*gate_args, gate=gate), 10, "fsm_scan_kernel", 1)
+    g_plain_ms = sync_ms(lambda: ref.fsm_scan_ref(*gate_args, gate=gate), 1, warmup=0)
+    gb = gated_fsm_bound(N, T)
+    demand = torch.as_tensor(sc.demand, dtype=torch.float64, device=DEVICE)
+    plan_ms = sync_ms(lambda: plan_fleet(arrays, demand, policy=pol), 10)
+    react_ms = sync_ms(lambda: plan_fleet(arrays, demand), 10)
+
+    def path():
+        a, p = forecast_policy(sc, seeded, DEVICE)
+        return plan_fleet(a, sc.demand, policy=p)
+
+    path_ms = sync_ms(path, 2)
+    print(f"timings on {card} (profiler device time, median ms; bound = max(bytes / 3.35 "
+          f"TB/s, ops / peak))")
+    print(f"  forecaster_scan {N} x {H + T}, S = {S}: kernel {fc_ms:.4f} ms, bound "
+          f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}), {fc_ms / fb['bound_ms']:.2f}x; "
+          f"without the readout {fc_state_ms:.4f} ms (bound {fb_state['bound_ms']:.4f}); "
+          f"plain (card) {fc_plain_ms:.1f} ms; launches on the path 1 per forecast")
+    print(f"  fsm_scan {N} x {T}: gated {g_ms:.4f} / {g_ms2:.4f} ms (bound "
+          f"{gb['bound_ms']:.4f} ms, {gb['bound_by']}, {g_ms / gb['bound_ms']:.2f}x), reactive "
+          f"{r_ms:.4f} ms, hysteresis {h_ms:.4f} ms (bound {fsm_bound(N, T)['bound_ms']:.4f}), "
+          f"in turns; gated plain (card) {g_plain_ms:.1f} ms")
+    print(f"  plan_fleet {N} x {T} from arrays and demand on the card: forecast-gated "
+          f"{plan_ms:.3f} ms, reactive "
+          f"{react_ms:.3f} ms; the whole forecast path from numpy (predict over "
+          f"{H + T} h, cost fit, plan) {path_ms:.1f} ms")
+    print_breakdown(lambda: plan_fleet(arrays, demand, policy=pol), reps=3)
+
+    # -- the report's forecast column on the fleet ------------------------------
+    t0 = time.perf_counter()
+    rep = build_report(sc, reactive, include_oracle=True)
+    tog, opt = rep.totals["togglecci"], rep.totals["oracle"]
+    fcost = float(plan["toggle_cost"].sum())
+    print(f"forecast_gain (fraction of the reactive-vs-oracle gap closed, the topology "
+          f"report's formula on the fleet's totals): {(tog - fcost) / (tog - opt):+.4f} "
+          f"(ToggleCCI ${tog:,.2f}, forecast-gated ${fcost:,.2f}, oracle ${opt:,.2f}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    print(f"forecast phase: {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "forecaster_scan": {"launches": launches["seeded"]["forecaster_scan"],
+                            "max_abs_err": 0.0, "ms": fc_ms, "plain_ms": fc_plain_ms, **fb,
+                            "library_ms": None},
+        "fsm_scan_gated": {"launches": launches["seeded"]["fsm_scan_gated"],
+                           "max_abs_err": gated_err, "ms": g_ms, "plain_ms": g_plain_ms, **gb,
+                           "library_ms": None},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -3003,6 +3357,7 @@ def main() -> int:
     topo_row, topo_ctx = topology_phase(card.splitlines()[0], scen[SIZES[-1][0]])
     routed_row = topology_stream_phase(card.splitlines()[0], topo_ctx)
     oracle_row = report_phase(card.splitlines()[0], scen[N_big], plans[N_big, False], topo_ctx)
+    fc_rows = forecast_phase(card.splitlines()[0])
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -3062,6 +3417,12 @@ def main() -> int:
         {"name": "oracle_dp", "route": "cuda",
          "source": "src/repro_torch/csrc/oracle_dp.cu",
          "replaces": "src/repro/core/oracle.py:64", **oracle_row},
+        {"name": "forecaster_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/forecaster_scan.cu",
+         "replaces": "src/repro/models/ssm.py:524", **fc_rows["forecaster_scan"]},
+        {"name": "fsm_scan_gated", "route": "cuda",
+         "source": "src/repro_torch/csrc/fsm_scan.cu",
+         "replaces": "src/repro/fleet/policy.py:334", **fc_rows["fsm_scan_gated"]},
     ]
     print(f"profiler: {len(PAD_SEEN)} traces; pad kernels recorded of {TRACE_PADS}, by trace: "
           f"{PAD_SEEN}")

@@ -38,6 +38,17 @@
 // words so that the chain lanes (one row each) hit distinct banks. One
 // __syncthreads per step hands the tiles on.
 //
+// The gated instance (GATED = true) runs ForecastGatedPolicy: it replaces the
+// same lax.scan under src/repro/fleet/policy.py::ForecastGatedPolicy.step
+// (:290-305). Two more lead streams, the predicted mode costs p_vpn and p_cci
+// (N, T) float64, are staged beside the lagged ones (kLag slots, no lagged
+// copy), and the sums warp turns each hour's raw triggers into the gated ones
+// (fsm_step.cuh::fsm_gated_triggers, with each row's margin formed into its
+// four thresholds once); the FSM warp, the cost warp and their masks are the
+// reactive instance's, with hold counts of 1. It reads 40 B an element (717.6
+// MB at 2048 x 8760, 0.214 ms at 3.35 TB/s) and its sums warp runs four more
+// products and compares an hour.
+//
 // What bounds it now: the instructions the FSM warp and the sums warp run,
 // hour after hour, on every row at once (PERF.md has the time an hour). The
 // loops are unrolled by 8, not by the tile: fully unrolled, the four warps'
@@ -82,7 +93,10 @@
 namespace {
 
 using fsm::FsmCarry;
+using fsm::FsmGate;
 using fsm::FsmRow;
+using fsm::fsm_gate;
+using fsm::fsm_gated_triggers;
 using fsm::fsm_hour;
 using fsm::fsm_step;
 using fsm::fsm_triggers;
@@ -111,6 +125,12 @@ struct ScanTiles {
   int lag[kRows];                           // h + 1
 };
 
+// The gated instance's predicted mode costs of tile t, in slot t % kLag
+// (after the ScanTiles in shared memory).
+struct GateTiles {
+  double pv[kLag][kRows][kPad], pc[kLag][kRows][kPad];
+};
+
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
@@ -124,10 +144,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // Copy warp cw: stage tile j (a no-op past the last tile) for rows cw,
 // cw + kCopyWarps, ..., lanes over hours. A lagged slot before hour 0 gets +0.0:
 // adding it leaves a prefix that starts at +0.0 (and so is never -0.0) as it
-// is.
-__device__ __forceinline__ void stage_tile(ScanTiles& sm, int j, const double* vpn,
-                                           const double* cci, int rows, int T, int cw,
-                                           int lane) {
+// is. The gated instance also stages the tile's predicted costs.
+template <bool GATED>
+__device__ __forceinline__ void stage_tile(ScanTiles& sm, GateTiles* gt, int j,
+                                           const double* vpn, const double* cci,
+                                           const double* p_vpn, const double* p_cci, int rows,
+                                           int T, int cw, int lane) {
   const int t0 = j * kTile;
   if (t0 >= T) return;
   const int len = min(kTile, T - t0);
@@ -149,24 +171,32 @@ __device__ __forceinline__ void stage_tile(ScanTiles& sm, int j, const double* v
           sm.vl[bg][r][i] = 0.0;
           sm.cl[bg][r][i] = 0.0;
         }
+        if (GATED) {
+          cp_async8(&gt->pv[bg][r][i], p_vpn + sm.base[r] + t0 + i);
+          cp_async8(&gt->pc[bg][r][i], p_cci + sm.base[r] + t0 + i);
+        }
       }
     }
   }
 }
 
 // The sums warp, one hour of a row: the lagged and leading prefixes, the
-// window sums, and the hour's raw triggers, shifted into two masks from the
+// window sums, and the hour's raw triggers (gated, in the gated instance, by
+// the hour's predicted costs PV[i], PC[i]), shifted into two masks from the
 // top (after a whole tile, bit i is hour t0 + i).
 struct Sums {
   double pv = 0.0, pc = 0.0;    // pref[t]: sum of hours [0, t)
   double lv = 0.0, lc = 0.0;    // pref[max(0, t - h)]
-  __device__ __forceinline__ void hour(const FsmRow& p, const double* V, const double* C,
-                                       const double* VL, const double* CL, int i,
+  template <bool GATED>
+  __device__ __forceinline__ void hour(const FsmRow& p, const FsmGate& g, const double* V,
+                                       const double* C, const double* VL, const double* CL,
+                                       const double* PV, const double* PC, int i,
                                        uint64_t& req, uint64_t& rel) {
     lv = __dadd_rn(lv, VL[i]);
     lc = __dadd_rn(lc, CL[i]);
     bool raw_req, raw_rel;
     fsm_triggers(p, __dsub_rn(pv, lv), __dsub_rn(pc, lc), raw_req, raw_rel);
+    if (GATED) fsm_gated_triggers(g, PV[i], PC[i], raw_req, raw_rel);
     req = req >> 1 | (uint64_t)raw_req << 63;
     rel = rel >> 1 | (uint64_t)raw_rel << 63;
     pv = __dadd_rn(pv, V[i]);
@@ -217,10 +247,13 @@ __device__ __forceinline__ void store_tile(const ScanTiles& sm, int t, int* x_ou
 // at step j, warp 0 sums tile j, warp 1 decides tile j - 1 and warp 2 adds
 // tile j - 2's toggle cost in hour order, while the copy warps stage tile
 // j + kAhead and write tile j - 2's x and state. One __syncthreads per step
-// hands the tiles on.
-template <bool RENEW>
+// hands the tiles on. p_vpn, p_cci and margin are read by the gated instance
+// only.
+template <bool RENEW, bool GATED>
 __global__ void __launch_bounds__(kScanThreads)
 fsm_scan_kernel(const double* __restrict__ vpn, const double* __restrict__ cci,
+                const double* __restrict__ p_vpn, const double* __restrict__ p_cci,
+                const double* __restrict__ margin,
                 const double* __restrict__ theta1, const double* __restrict__ theta2,
                 const int* __restrict__ win, const int* __restrict__ delay,
                 const int* __restrict__ commit, const int* __restrict__ up_hold,
@@ -229,6 +262,7 @@ fsm_scan_kernel(const double* __restrict__ vpn, const double* __restrict__ cci,
                 double* __restrict__ total_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ScanTiles& sm = *reinterpret_cast<ScanTiles*>(smem_raw);
+  GateTiles* gt = GATED ? reinterpret_cast<GateTiles*>(smem_raw + sizeof(ScanTiles)) : nullptr;
   const int64_t n0 = (int64_t)blockIdx.x * kRows;
   const int rows = (int)min((int64_t)kRows, N - n0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -240,7 +274,7 @@ fsm_scan_kernel(const double* __restrict__ vpn, const double* __restrict__ cci,
   __syncthreads();
   if (warp >= 3) {
     for (int j = 0; j < kAhead; ++j) {
-      stage_tile(sm, j, vpn, cci, rows, T, warp - 3, lane);
+      stage_tile<GATED>(sm, gt, j, vpn, cci, p_vpn, p_cci, rows, T, warp - 3, lane);
       cp_async_commit();
     }
   }
@@ -249,6 +283,8 @@ fsm_scan_kernel(const double* __restrict__ vpn, const double* __restrict__ cci,
   FsmRow p = {};
   if (mine && warp < 2)
     p = {theta1[n], theta2[n], delay[n], commit[n], up_hold[n], down_hold[n], RENEW};
+  FsmGate g = {};
+  if (GATED && mine && warp == 0) g = fsm_gate(p, margin[n]);
   Sums sums;
   FsmCarry fc = {kOff, 0, 0, 0, 0};
   double total = 0.0;
@@ -261,9 +297,12 @@ fsm_scan_kernel(const double* __restrict__ vpn, const double* __restrict__ cci,
         const int len = min(kTile, T - j * kTile);
         const double *V = sm.v[j % kLead][lane], *C = sm.c[j % kLead][lane];
         const double *VL = sm.vl[j % kLag][lane], *CL = sm.cl[j % kLag][lane];
+        const double* PV = GATED ? gt->pv[j % kLag][lane] : nullptr;
+        const double* PC = GATED ? gt->pc[j % kLag][lane] : nullptr;
         uint64_t req = 0, rel = 0;
 #pragma unroll 8
-        for (int i = 0; i < len; ++i) sums.hour(p, V, C, VL, CL, i, req, rel);
+        for (int i = 0; i < len; ++i)
+          sums.hour<GATED>(p, g, V, C, VL, CL, PV, PC, i, req, rel);
         sm.req[j % 2][lane] = settle(req, len);
         sm.rel[j % 2][lane] = settle(rel, len);
       }
@@ -287,7 +326,7 @@ fsm_scan_kernel(const double* __restrict__ vpn, const double* __restrict__ cci,
         for (int i = 0; i < len; ++i, on >>= 1) total = __dadd_rn(total, on & 1 ? C[i] : V[i]);
       }
     } else {
-      stage_tile(sm, j + kAhead, vpn, cci, rows, T, warp - 3, lane);
+      stage_tile<GATED>(sm, gt, j + kAhead, vpn, cci, p_vpn, p_cci, rows, T, warp - 3, lane);
       cp_async_commit();
       if (j >= 2) store_tile(sm, j - 2, x_out, state_out, rows, T, warp - 3, lane);
     }
@@ -363,17 +402,19 @@ __global__ void fsm_chunk_kernel(const double* __restrict__ vpn,
   pref_out[M + m] = pc;
 }
 
-template <bool RENEW>
-int launch_scan(const double* vpn, const double* cci, const double* theta1,
+template <bool RENEW, bool GATED>
+int launch_scan(const double* vpn, const double* cci, const double* p_vpn,
+                const double* p_cci, const double* margin, const double* theta1,
                 const double* theta2, const int* h, const int* D, const int* T_cci,
                 const int* up_hold, const int* down_hold, int N, int T, int* x, int* state,
                 double* total, cudaStream_t stream) {
-  const int smem = (int)sizeof(ScanTiles);
-  cudaError_t err = cudaFuncSetAttribute(fsm_scan_kernel<RENEW>,
+  const int smem = (int)(sizeof(ScanTiles) + (GATED ? sizeof(GateTiles) : 0));
+  cudaError_t err = cudaFuncSetAttribute(fsm_scan_kernel<RENEW, GATED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fsm_scan_kernel<RENEW><<<(N + kRows - 1) / kRows, kScanThreads, smem, stream>>>(
-      vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold, N, T, x, state, total);
+  fsm_scan_kernel<RENEW, GATED><<<(N + kRows - 1) / kRows, kScanThreads, smem, stream>>>(
+      vpn, cci, p_vpn, p_cci, margin, theta1, theta2, h, D, T_cci, up_hold, down_hold, N, T,
+      x, state, total);
   return (int)cudaGetLastError();
 }
 
@@ -387,9 +428,25 @@ extern "C" int fsm_scan_f64(const double* vpn, const double* cci,
                             int* x, int* state, double* total, void* stream) {
   if (N == 0) return (int)cudaSuccess;
   if (N < 0 || T < 0) return (int)cudaErrorInvalidValue;
-  const auto launch = renew_in_chunks ? launch_scan<true> : launch_scan<false>;
-  return launch(vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold, N, T, x, state,
-                total, (cudaStream_t)stream);
+  const auto launch = renew_in_chunks ? launch_scan<true, false> : launch_scan<false, false>;
+  return launch(vpn, cci, nullptr, nullptr, nullptr, theta1, theta2, h, D, T_cci, up_hold,
+                down_hold, N, T, x, state, total, (cudaStream_t)stream);
+}
+
+// The gated instance: ForecastGatedPolicy over (N, T) cost planes and its
+// (N, T) predicted mode costs, with per-row margins.
+extern "C" int fsm_scan_gated_f64(const double* vpn, const double* cci,
+                                  const double* p_vpn, const double* p_cci,
+                                  const double* margin, const double* theta1,
+                                  const double* theta2, const int* h, const int* D,
+                                  const int* T_cci, const int* up_hold, const int* down_hold,
+                                  int renew_in_chunks, int N, int T,
+                                  int* x, int* state, double* total, void* stream) {
+  if (N == 0) return (int)cudaSuccess;
+  if (N < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  const auto launch = renew_in_chunks ? launch_scan<true, true> : launch_scan<false, true>;
+  return launch(vpn, cci, p_vpn, p_cci, margin, theta1, theta2, h, D, T_cci, up_hold,
+                down_hold, N, T, x, state, total, (cudaStream_t)stream);
 }
 
 extern "C" int fsm_chunk_f64(const double* vpn, const double* cci,

@@ -5,7 +5,10 @@
 // The step of src/repro/fleet/policy.py::_fsm_cascade with the hold counters
 // of ReactivePolicy.step / HysteresisPolicy.step (hold counts of 1 make the
 // hysteresis rule the reactive one): the raw triggers from the hour's window
-// sums, then request, provisioning done and release, in that order.
+// sums, then request, provisioning done and release, in that order. The
+// forecast gates of ForecastGatedPolicy.step (fsm_gate, fsm_gated_triggers)
+// turn the raw triggers into the gated ones; its cascade is this step with
+// hold counts of 1.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,6 +37,28 @@ __device__ __forceinline__ void fsm_triggers(const FsmRow& p, double r_vpn, doub
                                              bool& raw_req, bool& raw_rel) {
   raw_req = r_cci < __dmul_rn(p.theta1, r_vpn);
   raw_rel = r_cci > __dmul_rn(p.theta2, r_vpn);
+}
+
+// The forecast gates' thresholds of one row with margin m, formed once:
+// theta1 - m, theta1 + m, theta2 + m and theta2 - m, as
+// src/repro/fleet/policy.py:290-300 forms them before each product.
+struct FsmGate {
+  double t1_lo, t1_hi, t2_hi, t2_lo;
+};
+
+__device__ __forceinline__ FsmGate fsm_gate(const FsmRow& p, double m) {
+  return {__dsub_rn(p.theta1, m), __dadd_rn(p.theta1, m), __dadd_rn(p.theta2, m),
+          __dsub_rn(p.theta2, m)};
+}
+
+// ForecastGatedPolicy.step's request and release from the hour's raw triggers
+// and its predicted mode costs: the forecast alone when it is confident, or
+// the raw trigger when the forecast does not object. `<` and `>` keep NaN
+// out: a NaN prediction makes every comparison false, as in JAX.
+__device__ __forceinline__ void fsm_gated_triggers(const FsmGate& g, double p_vpn, double p_cci,
+                                                   bool& req, bool& rel) {
+  req = (p_cci < __dmul_rn(g.t1_lo, p_vpn)) | (req & (p_cci < __dmul_rn(g.t1_hi, p_vpn)));
+  rel = (p_cci > __dmul_rn(g.t2_hi, p_vpn)) | (rel & (p_cci > __dmul_rn(g.t2_lo, p_vpn)));
 }
 
 // One hour of the policy step from its raw triggers: the hold counts, then

@@ -2,8 +2,8 @@
 
 Port of :mod:`repro.fleet`: specs (:mod:`~repro_torch.fleet.spec`), the
 topology model and routing heuristics (:mod:`~repro_torch.fleet.topology`,
-:mod:`~repro_torch.fleet.routing`), the reactive and hysteresis policies
-(:mod:`~repro_torch.fleet.policy`), the engine with ``plan_fleet``,
+:mod:`~repro_torch.fleet.routing`), the reactive, hysteresis and
+forecast-gated policies (:mod:`~repro_torch.fleet.policy`), the engine with ``plan_fleet``,
 ``plan_topology`` and the offline oracles (:mod:`~repro_torch.fleet.engine`;
 the offline namespace :mod:`~repro_torch.fleet.plan`), the reports
 (:mod:`~repro_torch.fleet.report`), the scenario builders
@@ -27,6 +27,15 @@ Quick start, on an NVIDIA GPU::
     from repro_torch.fleet import build_report
     rep = build_report(sc, out, include_oracle=True)   # OPT column: one oracle_dp launch
     print(rep.render_text())
+
+    # the forecast-gated policy, from given forecaster parameters
+    import numpy as np, torch
+    from repro_torch.models.ssm import demand_forecaster_init, demand_forecaster_predict
+    from repro_torch.fleet import forecast_gated_policy
+    arrays = sc.fleet.stack(torch.float64, "cuda")
+    scale = np.maximum(sc.demand.mean(axis=1), 1e-9)
+    pred = demand_forecaster_predict(demand_forecaster_init(), sc.demand, scale)
+    fplan = plan_fleet(arrays, sc.demand, policy=forecast_gated_policy(arrays.toggle, pred))
 """
 from .engine import (  # noqa: F401
     RoutedSeries,
@@ -42,13 +51,24 @@ from .engine import (  # noqa: F401
     topology_port_costs_reference,
 )
 from .policy import (  # noqa: F401
+    FAMILY_MARGINS,
     POLICY_KINDS,
     fsm_carry,
+    ForecastGatedPolicy,
     HysteresisPolicy,
     ReactivePolicy,
+    family_margins,
+    fit_cost_coef,
+    forecast_fleet_policy,
+    forecast_gated_policy,
+    forecast_horizon_hours,
+    forecast_port_demand,
+    forecast_topology_policy,
     hysteresis_policy,
     make_policy,
     policy_scan,
+    policy_to,
+    predicted_mode_costs,
     reactive_policy,
 )
 from .report import (  # noqa: F401

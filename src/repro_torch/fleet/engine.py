@@ -11,7 +11,8 @@ Port of :mod:`repro.fleet.engine`. A plan runs three stages on one device:
                 segment-sum kernel (the VPN plane with ``vpn_w``, the demand
                 plane with ``attach_w``, one launch), then ``d_row`` is
                 clipped at port capacity and ``cci = L + V·n + c·d_row``
-  policy stage  both cost planes --FSM scan kernel--> x, state, toggle cost
+  policy stage  both cost planes (and, for the forecast-gated policy, its
+                predicted-cost planes) --FSM scan kernel--> x, state, toggle cost
 
 On CUDA the tiered pricing, the segment sum and the FSM scan are the
 hand-written kernels of :mod:`repro_torch.kernels`; on the CPU
@@ -48,16 +49,17 @@ from repro_torch.core.togglecci import run_togglecci
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
-from .policy import make_policy, policy_scan
+from .policy import make_policy, policy_scan, policy_to
 from .routing import RoutingOperand, as_routing_plan, index_legs
 from .spec import FleetArrays, FleetSpec
 from .topology import TopologyArrays, TopologySpec, optimize_routing
 
 
 def _plan_outputs(policy, d, vpn, cci) -> Dict[str, torch.Tensor]:
-    """Run the policy and add the static comparators. ALWAYS-CCI still pays
-    the provisioning delay: the first D hours ride VPN."""
-    out = policy_scan(policy, vpn, cci)
+    """Run the policy on the rows' demand and cost planes and add the static
+    comparators. ALWAYS-CCI still pays the provisioning delay: the first D
+    hours ride VPN."""
+    out = policy_scan(policy, vpn, cci, demand=d)
     T = d.shape[1]
     cci_live = torch.arange(T, device=d.device)[None, :] >= policy.toggle.D[:, None]
     static_cci = torch.sum(torch.where(cci_live, cci, vpn), dim=1)
@@ -186,7 +188,10 @@ def plan_fleet(
       demand: (N, T) hourly GB per link, numpy or tensor (clipped at each
         link's capacity).
       policy: a :mod:`repro_torch.fleet.policy` policy with per-link
-        tensors; ``None`` builds the spec's kind (default ``"reactive"``).
+        tensors (e.g. :func:`~repro_torch.fleet.policy.forecast_gated_policy`
+        on (N, T) predictions), moved to ``device``; ``None`` builds the
+        spec's kind (default ``"reactive"``; ``"forecast"`` raises
+        ``ValueError``, as in the JAX package).
       hours_per_month: billing calendar (taken from the spec when given).
       use_pallas: price tiers in float32, the path the JAX package's
         ``use_pallas=True`` selects; costs stay float64 after pricing.
@@ -206,8 +211,8 @@ def plan_fleet(
         arrays = fleet.stack(torch.float64, dev)
     else:
         arrays = fleet.to(dev)
-    if policy is None:
-        policy = make_policy(kind, arrays.toggle, renew_in_chunks=renew_in_chunks)
+    policy = (make_policy(kind, arrays.toggle, renew_in_chunks=renew_in_chunks)
+              if policy is None else policy_to(policy, dev))
     s = routed_cost_series(
         arrays, demand, hours_per_month=hours_per_month, use_pallas=use_pallas,
         device=dev,
@@ -268,8 +273,10 @@ def plan_topology(
         ``DeprecationWarning`` shim). ``None`` with a spec runs
         :func:`~repro_torch.fleet.topology.optimize_routing` on the host
         first: the "co-optimize" entry point.
-      policy: per-PORT policy (``None`` builds the spec's kind, default
-        reactive; ``"forecast"`` raises ``NotImplementedError``).
+      policy: per-PORT policy, moved to ``device`` (``None`` builds the
+        spec's kind, default reactive; ``"forecast"`` raises ``ValueError``,
+        as in the JAX package: pass a
+        :func:`~repro_torch.fleet.policy.forecast_gated_policy` instead).
       device: ``None`` runs on CUDA and raises without it; ``"cpu"`` runs
         the plain PyTorch versions of the kernels.
     Returns:
@@ -290,13 +297,8 @@ def plan_topology(
         if routing is not None:
             raise ValueError("pre-stacked arrays already carry a routing")
         arrays = topo.to(dev)
-    if policy is None:
-        if kind == "forecast":
-            raise NotImplementedError(
-                "not ported to repro_torch yet: the forecast policy (ROADMAP Queue 1, "
-                "item 6); plan topologies with 'reactive' or 'hysteresis'"
-            )
-        policy = make_policy(kind, arrays.toggle, renew_in_chunks=renew_in_chunks)
+    policy = (make_policy(kind, arrays.toggle, renew_in_chunks=renew_in_chunks)
+              if policy is None else policy_to(policy, dev))
     s = routed_cost_series(arrays, demand, hours_per_month=hours_per_month, device=dev)
     out = _plan_outputs(policy, s.row_demand, s.vpn, s.cci)
     out.update(pair_demand=s.pair_demand, port_demand=s.row_demand, n_pairs=s.n_pairs)
@@ -322,9 +324,10 @@ def replay_plan_topology(
     :class:`~repro_torch.fleet.routing.RoutingOperand`. The pair stage runs
     once (it does not depend on the routing); each segment's hours are
     folded through its own routing, and ONE policy scan runs over the
-    stitched series, so the FSM carry rides across each swap. A
-    one-segment schedule ``[(0, routing)]`` gives :func:`plan_topology` on
-    that routing bit for bit.
+    stitched series, so the FSM carry rides across each swap (a
+    forecast-gated policy's in-scan cost fit sees the stitched port
+    demand). A one-segment schedule ``[(0, routing)]`` gives
+    :func:`plan_topology` on that routing bit for bit.
     """
     if not isinstance(arrays, TopologyArrays):
         raise TypeError("replay_plan_topology replays shared-port routings; fleet "
@@ -339,8 +342,8 @@ def replay_plan_topology(
     demand = torch.as_tensor(demand, dtype=torch.float64, device=dev)
     T = demand.shape[1]
     M = arrays.n_ports
-    if policy is None:
-        policy = make_policy("reactive", arrays.toggle, renew_in_chunks=renew_in_chunks)
+    policy = (make_policy("reactive", arrays.toggle, renew_in_chunks=renew_in_chunks)
+              if policy is None else policy_to(policy, dev))
     E = arrays.routing.n_legs
     d_pair, vpn_pair = _pair_stage(arrays, demand, hours_per_month=hours_per_month)
     segs = []

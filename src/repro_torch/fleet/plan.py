@@ -2,8 +2,10 @@
 
 Port of :mod:`repro.fleet.plan`, limited to the names the port has: the
 fleet and topology specs and their stacked tensor forms, the routing
-currency, the engines, oracles and their numpy references, the reactive
-and hysteresis policies, the scenario builders and the reports. The
+currency, the engines, oracles and their numpy references, the policies
+(reactive, hysteresis and forecast-gated, with the forecast factories; the
+three that train the forecaster raise ``NotImplementedError``), the
+scenario generators and the reports. The
 implementations stay in their submodules; this module only re-exports
 them. The streaming twins live in :mod:`repro_torch.fleet.stream`.
 """
@@ -21,9 +23,17 @@ from .engine import (  # noqa: F401
     topology_port_costs_reference,
 )
 from .policy import (  # noqa: F401
+    FAMILY_MARGINS,
     POLICY_KINDS,
+    ForecastGatedPolicy,
     HysteresisPolicy,
     ReactivePolicy,
+    family_margins,
+    fit_cost_coef,
+    forecast_fleet_policy,
+    forecast_gated_policy,
+    forecast_port_demand,
+    forecast_topology_policy,
     hysteresis_policy,
     make_policy,
     policy_scan,
@@ -95,7 +105,10 @@ __all__ = [
     "replay_plan_topology", "routed_cost_series", "topology_oracle",
     "topology_port_costs_reference",
     # policies
-    "POLICY_KINDS", "HysteresisPolicy", "ReactivePolicy",
+    "FAMILY_MARGINS", "POLICY_KINDS", "ForecastGatedPolicy",
+    "HysteresisPolicy", "ReactivePolicy", "family_margins",
+    "fit_cost_coef", "forecast_fleet_policy", "forecast_gated_policy",
+    "forecast_port_demand", "forecast_topology_policy",
     "hysteresis_policy", "make_policy", "policy_scan", "reactive_policy",
     # scenarios
     "FAMILIES", "FleetScenario", "TopologyScenario",

@@ -1,22 +1,32 @@
 """Toggle policies: the decision layer of the fleet planner, in PyTorch.
 
-Port of :mod:`repro.fleet.policy` for the reactive and hysteresis rules:
+Port of :mod:`repro.fleet.policy`:
 
-* :class:`ReactivePolicy`   — the paper's ToggleCCI FSM;
-* :class:`HysteresisPolicy` — reactive plus consecutive-hour hold counts on
-  both transitions (hold 1 is :class:`ReactivePolicy` exactly).
+* :class:`ReactivePolicy`      — the paper's ToggleCCI FSM;
+* :class:`HysteresisPolicy`    — reactive plus consecutive-hour hold counts on
+  both transitions (hold 1 is :class:`ReactivePolicy` exactly);
+* :class:`ForecastGatedPolicy` — the FSM with its request and release gated
+  by predicted mode costs: demand predictions (from the SSM forecaster of
+  :mod:`repro_torch.models.ssm`) mapped through log-space demand→cost fits
+  (:func:`fit_cost_coef`, :func:`predicted_mode_costs`).
 
 A policy is a NamedTuple of per-row tensors (the JAX package's pytree),
 with the static ``renew_in_chunks`` flag beside them. :func:`policy_scan`
-runs one over (N, T) cost planes: on CUDA through the FSM scan kernel, on
-the CPU through its plain per-hour loop over :func:`_fsm_cascade`. The
-forecast-gated policy needs the SSM forecaster, which is not ported yet;
-``make_policy("forecast", ...)`` raises, as it does in the JAX package.
+runs one over (N, T) cost planes: on CUDA through the FSM scan kernel (its
+gated instance for the forecast policy, after the predicted-cost planes are
+formed by torch ops on the device), on the CPU through its plain per-hour
+loop over :func:`_fsm_cascade`. ``make_policy("forecast", ...)`` raises, as
+it does in the JAX package: the policy is built from predictions with
+:func:`forecast_gated_policy`. The factories that train the forecaster
+(:func:`forecast_port_demand`, :func:`forecast_fleet_policy`,
+:func:`forecast_topology_policy`) keep their names and raise
+``NotImplementedError`` (ROADMAP Queue 1, item 6c).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.togglecci import OFF, ON, WAITING, ToggleParams
@@ -98,26 +108,133 @@ class HysteresisPolicy(NamedTuple):
         return (self.up_hold, self.down_hold)
 
 
-Policy = Union[ReactivePolicy, HysteresisPolicy]
+_LOG_COST_EPS = 1e-9  # idle rows (no routed pairs) have zero cost series
 
 
-def policy_scan(policy: Policy, vpn_hourly: torch.Tensor,
-                cci_hourly: torch.Tensor) -> Dict[str, torch.Tensor]:
+def fit_cost_coef(demand: torch.Tensor, vpn_hourly: torch.Tensor,
+                  cci_hourly: torch.Tensor) -> torch.Tensor:
+    """Log-space demand→cost maps, least squares on the first half.
+
+    ``(..., T)`` inputs → ``(..., 4)`` coefficients ``[a_vpn, b_vpn, a_cci,
+    b_cci]`` such that ``cost ≈ exp(a + b·log1p(demand))``, fitted on the
+    first ``max(T // 2, 2)`` hours (the formula of
+    :func:`repro.fleet.policy.fit_cost_coef`; an idle row's zero costs are
+    floored at 1e-9 before the log, and a row whose ``log1p(demand)`` has
+    variance ≤ 1e-12 gets a slope of 0). The pricing function is static, so
+    this is structure recovery, not lookahead.
+    """
+    T = vpn_hourly.shape[-1]
+    fit_T = max(T // 2, 2)
+    x = torch.log1p(demand[..., :fit_T])
+    xm = x.mean(dim=-1, keepdim=True)
+    dx = x - xm
+    var = (dx * dx).mean(dim=-1)
+    eps = torch.tensor(_LOG_COST_EPS, dtype=x.dtype, device=x.device)
+
+    def loglin(y):
+        y0 = torch.log(torch.maximum(y[..., :fit_T], eps))
+        cov = (dx * (y0 - y0.mean(dim=-1, keepdim=True))).mean(dim=-1)
+        beta = torch.where(var > 1e-12, cov / torch.clamp(var, min=1e-12),
+                           torch.zeros_like(var))
+        return y0.mean(dim=-1) - beta * xm[..., 0], beta
+
+    av, bv = loglin(vpn_hourly)
+    ac, bc = loglin(cci_hourly)
+    return torch.stack([av, bv, ac, bc], dim=-1)
+
+
+def predicted_mode_costs(pred: torch.Tensor, cost_coef: torch.Tensor,
+                         dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Map predicted demand through the log-space fit → ``(p_vpn, p_cci)``:
+    ``exp(a + b·log1p(pred))`` per mode, elementwise, for ``pred`` (..., T)
+    and ``cost_coef`` (..., 4)."""
+    lp = torch.log1p(pred.to(dtype))
+    coef = cost_coef.to(dtype)
+    p_vpn = torch.exp(coef[..., 0, None] + coef[..., 1, None] * lp)
+    p_cci = torch.exp(coef[..., 2, None] + coef[..., 3, None] * lp)
+    return p_vpn, p_cci
+
+
+class ForecastGatedPolicy(NamedTuple):
+    """SSM-forecast-gated ToggleCCI (:class:`repro.fleet.policy.ForecastGatedPolicy`).
+
+    ``pred_demand[:, t]`` is a causal estimate of mean demand over the next
+    ``D + T_cci``-ish window, made from history through hour ``t − 1``.
+    :meth:`features` maps it to predicted per-hour mode costs ``p_vpn``,
+    ``p_cci`` through ``cost_coef`` (fitted on the realized series inside
+    :func:`policy_scan` when ``None``). The gates, with per-row margin ``m``:
+
+    * request — ``p_cci < (θ₁ − m)·p_vpn``, or the realized trigger
+      ``R_CCI < θ₁·R_VPN`` with ``p_cci < (θ₁ + m)·p_vpn``;
+    * release — ``p_cci > (θ₂ + m)·p_vpn``, or the realized trigger with
+      ``p_cci > (θ₂ − m)·p_vpn``;
+
+    then the reactive cascade. m → ∞ is reactive ToggleCCI; a NaN
+    prediction fires and vetoes nothing (every comparison is false).
+    """
+
+    toggle: ToggleParams
+    margin: torch.Tensor                       # (N,) float64 confidence margin m ≥ 0
+    pred_demand: torch.Tensor                  # (N, T) float64 forward-window mean demand
+    cost_coef: Optional[torch.Tensor] = None   # (N, 4) [a_vpn, b_vpn, a_cci, b_cci] or None
+    renew_in_chunks: bool = False
+
+    kind = "forecast"
+
+    def holds(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(1, 1)``: the gated cascade is the reactive one."""
+        one = torch.ones_like(self.toggle.h)
+        return (one, one)
+
+    def features(self, demand: Optional[torch.Tensor], vpn_hourly: torch.Tensor,
+                 cci_hourly: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (N, T) predicted mode costs the gates compare, in the cost
+        planes' dtype."""
+        coef = self.cost_coef
+        if coef is None:
+            if demand is None:
+                raise ValueError(
+                    "ForecastGatedPolicy needs the demand series to map predicted demand "
+                    "to predicted mode costs (or pass explicit cost_coef)")
+            coef = fit_cost_coef(demand.to(vpn_hourly.dtype), vpn_hourly, cci_hourly)
+        return predicted_mode_costs(self.pred_demand, coef, vpn_hourly.dtype)
+
+
+Policy = Union[ReactivePolicy, HysteresisPolicy, ForecastGatedPolicy]
+
+
+def policy_to(policy: Policy, device) -> Policy:
+    """The policy with every tensor on ``device`` (its toggle parameters too)."""
+    move = lambda f: f.to(device) if hasattr(f, "to") else f
+    return type(policy)(*(move(f) for f in policy))
+
+
+def policy_scan(policy: Policy, vpn_hourly: torch.Tensor, cci_hourly: torch.Tensor,
+                *, demand: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Run a toggle policy over (N, T) per-hour mode costs, one row per link.
 
     The counterpart of :func:`repro.fleet.policy.policy_scan` vmapped over
-    rows. Both policies go through :func:`repro_torch.kernels.ops.fsm_scan`
-    (the reactive rule as hold counts of 1). Returns ``x`` and ``state``
+    rows. Every policy goes through :func:`repro_torch.kernels.ops.fsm_scan`
+    (the reactive rule as hold counts of 1; the forecast-gated policy with
+    its predicted-cost planes as the gate, which needs ``demand`` (N, T)
+    when the policy carries no ``cost_coef``). Returns ``x`` and ``state``
     (N, T) int32 and ``total_cost`` (N,) float64.
     """
     tp = policy.toggle
-    if not isinstance(policy, (ReactivePolicy, HysteresisPolicy)):
+    if not isinstance(policy, (ReactivePolicy, HysteresisPolicy, ForecastGatedPolicy)):
         raise TypeError(f"policy_scan: unsupported policy {type(policy).__name__}")
+    vpn = vpn_hourly.to(torch.float64)
+    cci = cci_hourly.to(torch.float64)
+    gate = None
+    if isinstance(policy, ForecastGatedPolicy):
+        if policy.pred_demand.shape != vpn.shape:
+            raise ValueError(f"pred_demand {tuple(policy.pred_demand.shape)} does not match "
+                             f"the cost planes {tuple(vpn.shape)}")
+        gate = policy.features(demand, vpn, cci) + (policy.margin.to(torch.float64),)
     up, down = policy.holds()
     return ops.fsm_scan(
-        vpn_hourly.to(torch.float64), cci_hourly.to(torch.float64),
-        tp.theta1, tp.theta2, tp.h, tp.D, tp.T_cci, up, down,
-        renew_in_chunks=policy.renew_in_chunks,
+        vpn, cci, tp.theta1, tp.theta2, tp.h, tp.D, tp.T_cci, up, down,
+        renew_in_chunks=policy.renew_in_chunks, gate=gate,
     )
 
 
@@ -150,6 +267,33 @@ def hysteresis_policy(
     )
 
 
+def forecast_gated_policy(
+    toggle: ToggleParams,
+    pred_demand,
+    *,
+    margin=0.05,
+    cost_coef=None,
+    renew_in_chunks: bool = False,
+) -> ForecastGatedPolicy:
+    """Wrap forward-window demand predictions (rows, T) as a gated policy, on
+    the toggle parameters' device, in float64.
+
+    ``margin`` is a scalar or a per-row array matching ``toggle.theta1``
+    (see :func:`family_margins`). ``cost_coef`` (rows, 4) bakes the
+    demand→cost maps in; ``None`` defers the fit to scan time.
+    """
+    dev, f = toggle.theta1.device, torch.float64
+    as_f64 = lambda a: (a if torch.is_tensor(a)
+                        else torch.from_numpy(np.array(a, np.float64))).to(dev, f)
+    return ForecastGatedPolicy(
+        toggle=toggle,
+        margin=torch.broadcast_to(as_f64(margin), toggle.theta1.shape).contiguous(),
+        pred_demand=as_f64(pred_demand),
+        cost_coef=None if cost_coef is None else as_f64(cost_coef),
+        renew_in_chunks=bool(renew_in_chunks),
+    )
+
+
 def make_policy(kind: str, toggle: ToggleParams, *, renew_in_chunks=False, **kw):
     """Build a policy by name — the ``FleetSpec.policy`` selection hook the
     engine resolves when no policy object is passed."""
@@ -161,7 +305,57 @@ def make_policy(kind: str, toggle: ToggleParams, *, renew_in_chunks=False, **kw)
         return hysteresis_policy(toggle, renew_in_chunks=renew_in_chunks, **kw)
     if kind == "forecast":
         raise ValueError(
-            "the forecast policy needs a trained forecaster, which the PyTorch "
-            "port does not have yet; use 'reactive' or 'hysteresis'"
+            "the forecast policy needs a trained forecaster: build it with "
+            "forecast_fleet_policy(...) / forecast_topology_policy(...) (or "
+            "forecast_gated_policy on your own predictions) and pass it as "
+            "policy=... to the planner"
         )
     raise ValueError(f"unknown toggle policy {kind!r} (known: {POLICY_KINDS})")
+
+
+# Per-family confidence margins for the forecast gates (the JAX package's
+# table, from its `bench_policy` margin sweeps): mirage's user-growth traces
+# need a wider bar than the stationary and bursty families.
+FAMILY_MARGINS = {
+    "constant": 0.05,
+    "bursty": 0.05,
+    "mirage": 0.15,
+    "puffer": 0.05,
+}
+
+
+def family_margins(families, *, default: float = 0.05, overrides=None) -> np.ndarray:
+    """Per-row confidence margins from demand-family labels (one per
+    link/port row, e.g. ``[l.family for l in fleet.links]``); unknown labels
+    take ``default``. A (rows,) float64 array for ``margin=``."""
+    table = dict(FAMILY_MARGINS)
+    if overrides:
+        table.update(overrides)
+    return np.asarray([table.get(f, default) for f in families], np.float64)
+
+
+def forecast_horizon_hours(toggle: ToggleParams) -> int:
+    """The fleet-wide forecast window: mean ``D + T_cci`` over the rows."""
+    host = lambda t: np.asarray(torch.as_tensor(t).cpu(), np.float64)
+    return int(np.mean(host(toggle.D) + host(toggle.T_cci)))
+
+
+_TRAINS = ("not ported to repro_torch yet: {} trains the demand forecaster, which is "
+           "ROADMAP Queue 1, item 6c; predict with "
+           "repro_torch.models.ssm.demand_forecaster_predict on given parameters and wrap "
+           "the predictions with forecast_gated_policy")
+
+
+def forecast_port_demand(*args, **kwargs):
+    """Not ported yet (ROADMAP Queue 1, item 6c): it trains the forecaster."""
+    raise NotImplementedError(_TRAINS.format("forecast_port_demand"))
+
+
+def forecast_fleet_policy(*args, **kwargs):
+    """Not ported yet (ROADMAP Queue 1, item 6c): it trains the forecaster."""
+    raise NotImplementedError(_TRAINS.format("forecast_fleet_policy"))
+
+
+def forecast_topology_policy(*args, **kwargs):
+    """Not ported yet (ROADMAP Queue 1, item 6c): it trains the forecaster."""
+    raise NotImplementedError(_TRAINS.format("forecast_topology_policy"))

@@ -42,8 +42,9 @@ Ported: both routings, the reactive and hysteresis policies, endogenous
 CCI demand, ``reroute``, and the actuation layer on top
 (:class:`ElasticFleetPlanner`, per link or per port, whose per-actuator
 modes drive :func:`repro_torch.dist.collectives.fleet_sync_grads`). Not
-ported yet, each raising ``NotImplementedError``: the forecast policy and
-``StreamingForecaster`` (ROADMAP Queue 1, item 6) and observability (item 8).
+ported yet, each raising ``NotImplementedError``: the forecast-gated policy
+in the stream and ``StreamingForecaster`` (ROADMAP Queue 1, item 6b; the
+offline planners run it) and observability (item 8).
 """
 from __future__ import annotations
 
@@ -57,12 +58,16 @@ from repro_torch.core.planner import COMPRESS_RATIO, collective_mode
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
-from .policy import HysteresisPolicy, ReactivePolicy, fsm_carry, make_policy
+from .policy import (ForecastGatedPolicy, HysteresisPolicy, ReactivePolicy, fsm_carry,
+                     make_policy, policy_to)
 from .routing import RoutingPlan, as_routing_plan, index_legs
 from .spec import FleetArrays, FleetSpec
 from .topology import TopologyArrays, TopologySpec
 
-_FORECAST = "the forecast policy and StreamingForecaster are ROADMAP Queue 1, item 6"
+_FORECAST = ("streaming the forecast-gated policy (its gates in stream_chunk and "
+             "stream_chunk_routed, the live SSM step) and StreamingForecaster are ROADMAP "
+             "Queue 1, item 6b; the offline planners (plan_fleet, plan_topology, "
+             "replay_plan_topology) run the policy")
 _OBS = "observability (obs=) is ROADMAP Queue 1, item 8"
 
 
@@ -107,7 +112,7 @@ class RuntimeConfig:
     def validate(self) -> "RuntimeConfig":
         if not (int(self.hours_per_month) >= 1):
             raise ValueError(f"hours_per_month must be >= 1, got {self.hours_per_month}")
-        if self.forecaster is not None:
+        if self.forecaster is not None or isinstance(self.policy, ForecastGatedPolicy):
             raise not_ported(_FORECAST)
         if self.obs is not None and self.obs is not False:
             raise not_ported(_OBS)
@@ -172,7 +177,7 @@ def resolve_runtime_operands(spec, config: RuntimeConfig,
             raise not_ported(_FORECAST)
         policy = make_policy(kind, arrays.toggle, renew_in_chunks=config.renew_in_chunks)
     elif isinstance(policy, (ReactivePolicy, HysteresisPolicy)):
-        policy = type(policy)(*(f.to(dev) if hasattr(f, "to") else f for f in policy))
+        policy = policy_to(policy, dev)
     else:
         raise not_ported(f"{_FORECAST} (got {type(policy).__name__})")
     return ResolvedRuntime(spec=topo_spec, topology=isinstance(arrays, TopologyArrays),

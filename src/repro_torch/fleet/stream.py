@@ -20,7 +20,7 @@ from .runtime import (  # noqa: F401
 
 
 class StreamingForecaster:
-    """Not ported yet: the live SSM demand forecaster."""
+    """Not ported yet (ROADMAP Queue 1, item 6b): the live SSM demand forecaster."""
 
     def __init__(self, *args, **kwargs):
         raise not_ported(_FORECAST)
@@ -31,7 +31,8 @@ class StreamingForecaster:
 
 
 def streaming_forecast_policy(*args, **kwargs):
-    """Not ported yet: the live-mode forecast policy factory."""
+    """Not ported yet (ROADMAP Queue 1, item 6b): the live-mode forecast policy
+    factory."""
     raise not_ported(_FORECAST)
 
 

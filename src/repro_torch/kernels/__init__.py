@@ -9,7 +9,10 @@ Per-kernel contract (the three layers of :mod:`repro.kernels`):
 
 Kernels: ``tiered_cost_batched`` (the paper's Eq. 2 pricing over an (N, T)
 plane; replaces the Pallas kernel of the same name), ``fsm_scan`` (the
-ToggleCCI scan over rows; replaces ``lax.scan`` in ``policy_scan``),
+ToggleCCI scan over rows, reactive, hysteresis or forecast-gated; replaces
+``lax.scan`` in ``policy_scan``), ``forecaster_scan`` (the demand
+forecaster's EMA bank and readout; replaces the ``lax.scan`` of
+``demand_forecaster_apply`` and ``_state``),
 ``tiered_cost_scan`` (K-hour chunk pricing with a billing carry, entry
 points ``tiered_cost_scan`` and ``tiered_cost_calendar``; replaces the
 Pallas kernel of that name), ``fsm_chunk`` (K hours of the FSM from a

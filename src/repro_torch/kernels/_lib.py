@@ -27,10 +27,12 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
            "stream_chunk_routed.cu", "leg_segment_sum.cu", "rmsnorm.cu", "flash_attention.cu",
-           "int8_quant.cu", "oracle_dp.cu")
-#: The float64 sources, held bit for bit against their plain versions.
+           "int8_quant.cu", "oracle_dp.cu", "forecaster_scan.cu")
+#: The sources held bit for bit against their plain versions (the float64
+#: ones, and the float32 forecaster scan).
 EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
-                 "stream_chunk_routed.cu", "leg_segment_sum.cu", "oracle_dp.cu")
+                 "stream_chunk_routed.cu", "leg_segment_sum.cu", "oracle_dp.cu",
+                 "forecaster_scan.cu")
 #: Headers the sources include; part of the build hash.
 HEADERS = ("tier_fold.cuh", "fsm_step.cuh", "occupancy.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -41,17 +43,20 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 # For EXACT_SOURCES only: no multiply is contracted into an add, on top of
-# the explicit __dadd_rn/__dmul_rn intrinsics, so float64 results keep the
-# plain versions' rounding. The float32/bfloat16 LM kernels are held to
+# the explicit __dadd_rn/__dmul_rn (__fadd_rn/__fmul_rn) intrinsics, so their
+# results keep the plain versions' rounding. The float32/bfloat16 LM kernels are held to
 # tolerances and keep the fused multiply-adds.
 EXACT_FLAGS = ("-fmad=false",)
 
 #: Launch counts, one per kernel. Each wrapper adds one where it launches
 #: its kernel and nowhere else; a caller zeroes them to see which kernels a
 #: run went through. ``flash_attention`` counts every flash launch and
-#: ``flash_attention_sm90`` those of its Hopper entry.
+#: ``flash_attention_sm90`` those of its Hopper entry; ``fsm_scan`` counts the
+#: FSM scan's reactive and hysteresis launches and ``fsm_scan_gated`` those of
+#: its forecast-gated instance.
 LAUNCHES: Dict[str, int] = {
-    "tiered_cost_batched": 0, "fsm_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0,
+    "tiered_cost_batched": 0, "fsm_scan": 0, "fsm_scan_gated": 0, "forecaster_scan": 0,
+    "tiered_cost_scan": 0, "fsm_chunk": 0,
     "stream_chunk": 0, "stream_chunk_routed": 0, "flash_attention": 0,
     "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0, "int8_dequantize": 0,
     "tiered_cost": 0, "leg_segment_sum": 0, "oracle_dp": 0,
@@ -144,6 +149,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.fsm_scan_f64.argtypes = [p] * 9 + [i, i, i] + [p] * 4
     lib.fsm_scan_f64.restype = i
+    # vpn, cci, p_vpn, p_cci, margin, theta1, theta2, h, D, T_cci, up, down,
+    # renew, N, T, x, state, total, stream
+    lib.fsm_scan_gated_f64.argtypes = [p] * 12 + [i, i, i] + [p] * 4
+    lib.fsm_scan_gated_f64.restype = i
+    # u, a, one_minus_a, w, bias, h0, N, T, S, write_y, y, h, stream
+    lib.forecaster_scan_f32.argtypes = [p] * 6 + [i] * 4 + [p] * 3
+    lib.forecaster_scan_f32.restype = i
     # cum0, demand, bounds, rates, reset, N, K, Kt, slots, plan, costs, cum_out, stream
     for name in ("tiered_cost_scan_f64", "tiered_cost_scan_f32"):
         fn = getattr(lib, name)

@@ -10,6 +10,10 @@ and larger holds the hysteresis policy; the toggle cost), and it writes
 ``x``, ``state`` and the row's toggle cost. Any N, T and window, any 8-byte
 aligned view. Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.fsm_scan_ref`, and the two agree bit for bit.
+With ``gate=(p_vpn, p_cci, margin)`` it launches the kernel's gated instance,
+the forecast-gated policy (``ForecastGatedPolicy.step``'s gates on the
+hour's predicted mode costs, hold counts of 1), counted apart in
+``LAUNCHES["fsm_scan_gated"]``.
 
 :func:`fsm_chunk` launches the second kernel of that source, the streaming
 runtime's FSM: K hours from a carry, on hour-major (K, M) planes, replacing
@@ -21,7 +25,7 @@ dispatches CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -40,35 +44,51 @@ def fsm_scan(
     down_hold: torch.Tensor,  # (N,) int32 ≥ 1
     *,
     renew_in_chunks: bool = False,
+    gate: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run the FSM over every row (CUDA). Returns ``x``/``state`` (N, T)
-    int32 and ``total_cost`` (N,) float64."""
+    int32 and ``total_cost`` (N,) float64. ``gate`` is ``(p_vpn, p_cci,
+    margin)``: the (N, T) float64 predicted mode costs and the (N,) float64
+    margins of the forecast gates."""
     N, T = vpn.shape
     dev = vpn.device
     rows = (theta1, theta2, h, D, T_cci, up_hold, down_hold)
     want = (torch.float64,) * 2 + (torch.int32,) * 5
-    if cci.shape != (N, T) or vpn.dtype != torch.float64 or cci.dtype != torch.float64:
-        raise ValueError("fsm_scan takes float64 vpn/cci planes of one shape")
+    planes = (vpn, cci) + (() if gate is None else tuple(gate[:2]))
+    for a in planes:
+        if a.shape != (N, T) or a.dtype != torch.float64:
+            raise ValueError("fsm_scan takes float64 vpn/cci (and p_vpn/p_cci) planes of "
+                             "one shape")
+    if gate is not None:
+        rows += (gate[2],)
+        want += (torch.float64,)
     for a, dt in zip(rows, want):
         if a.shape != (N,) or a.dtype != dt:
             raise ValueError(f"fsm_scan row parameter: want ({N},) {dt}, got "
                              f"{tuple(a.shape)} {a.dtype}")
-    for a in (vpn, cci) + rows:
+    for a in planes + rows:
         if not a.is_cuda or a.device != dev or not a.is_contiguous():
             raise ValueError("fsm_scan takes contiguous CUDA tensors on one device")
     lib = _lib.load()
     x = torch.empty((N, T), dtype=torch.int32, device=dev)
     state = torch.empty((N, T), dtype=torch.int32, device=dev)
     total = torch.empty((N,), dtype=torch.float64, device=dev)
+    outs = (N, T, x.data_ptr(), state.data_ptr(), total.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        status = lib.fsm_scan_f64(
-            vpn.data_ptr(), cci.data_ptr(), *(a.data_ptr() for a in rows),
-            int(bool(renew_in_chunks)), N, T,
-            x.data_ptr(), state.data_ptr(), total.data_ptr(), stream,
-        )
-    _lib.check(status, "fsm_scan_f64")
-    _lib.LAUNCHES["fsm_scan"] += 1
+        if gate is None:
+            status = lib.fsm_scan_f64(
+                vpn.data_ptr(), cci.data_ptr(), *(a.data_ptr() for a in rows),
+                int(bool(renew_in_chunks)), *outs, stream,
+            )
+        else:
+            status = lib.fsm_scan_gated_f64(
+                *(a.data_ptr() for a in planes), rows[-1].data_ptr(),
+                *(a.data_ptr() for a in rows[:-1]), int(bool(renew_in_chunks)), *outs, stream,
+            )
+    name = "fsm_scan" if gate is None else "fsm_scan_gated"
+    _lib.check(status, name + "_f64")
+    _lib.LAUNCHES[name] += 1
     return {"x": x, "state": state, "total_cost": total}
 
 

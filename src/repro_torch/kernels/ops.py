@@ -19,6 +19,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention as _flash_kernel
+from .forecaster import forecaster_scan as _forecaster_kernel
 from .fsm_scan import fsm_chunk as _fsm_chunk_kernel
 from .fsm_scan import fsm_scan as _fsm_scan_kernel
 from .int8_quant import int8_dequantize as _dequant_kernel
@@ -53,12 +54,26 @@ def tiered_cost_batched(month_cum, demand, bounds, rates) -> torch.Tensor:
 
 
 def fsm_scan(vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold,
-             *, renew_in_chunks: bool = False) -> Dict[str, torch.Tensor]:
-    """ToggleCCI over (N, T) cost planes: ``x``, ``state``, ``total_cost``."""
+             *, renew_in_chunks: bool = False, gate=None) -> Dict[str, torch.Tensor]:
+    """ToggleCCI over (N, T) cost planes: ``x``, ``state``, ``total_cost``.
+    ``gate=(p_vpn, p_cci, margin)`` runs the forecast-gated policy on the
+    (N, T) predicted mode costs with (N,) margins (hold counts must be 1)."""
     args = (vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold)
     if _route(vpn, "fsm_scan"):
-        return _fsm_scan_kernel(*(a.contiguous() for a in args), renew_in_chunks=renew_in_chunks)
-    return ref.fsm_scan_ref(*args, renew_in_chunks=renew_in_chunks)
+        return _fsm_scan_kernel(*(a.contiguous() for a in args), renew_in_chunks=renew_in_chunks,
+                                gate=None if gate is None else tuple(g.contiguous() for g in gate))
+    return ref.fsm_scan_ref(*args, renew_in_chunks=renew_in_chunks, gate=gate)
+
+
+def forecaster_scan(u, a, one_minus_a, w, bias, h0=None, *, write_y: bool = True
+                    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The demand forecaster's EMA bank and readout over (N, T) float32
+    inputs from ``h0`` (zeros if None): ``(y (N, T) or None, h (N, S))``."""
+    if _route(u, "forecaster_scan"):
+        c = lambda t: None if t is None else t.contiguous()
+        return _forecaster_kernel(c(u), c(a), c(one_minus_a), c(w), c(bias), c(h0),
+                                  write_y=write_y)
+    return ref.forecaster_scan_ref(u, a, one_minus_a, w, bias, h0, write_y=write_y)
 
 
 def tiered_cost_scan(cum0, demand, bounds, rates, reset):

@@ -36,6 +36,7 @@ def fsm_scan_ref(
     up_hold: torch.Tensor, down_hold: torch.Tensor,
     *,
     renew_in_chunks: bool = False,
+    gate: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Plain version of :func:`repro_torch.kernels.fsm_scan.fsm_scan`.
 
@@ -43,9 +44,12 @@ def fsm_scan_ref(
     (:func:`repro_torch.core.togglecci.window_sums`), then one
     :func:`repro_torch.fleet.policy._fsm_cascade` step per hour, vectorised
     over rows, with the hysteresis hold counters (hold 1 is the reactive
-    rule). ``total_cost`` is the last entry of a cumsum of the served
-    costs, so on the CPU, where cumsum is sequential, every output equals
-    the kernel's bit for bit.
+    rule). ``gate=(p_vpn, p_cci, margin)`` first turns the raw trigger
+    planes into ``ForecastGatedPolicy.step``'s gated ones
+    (``src/repro/fleet/policy.py:290-300``: each row's ``θ ± m`` formed
+    once, then multiplied by the hour's predicted VPN cost). ``total_cost``
+    is the last entry of a cumsum of the served costs, so on the CPU, where
+    cumsum is sequential, every output equals the kernel's bit for bit.
     """
     from repro_torch.fleet.policy import _fsm_cascade
 
@@ -54,6 +58,11 @@ def fsm_scan_ref(
     r_cci = window_sums(cci, h)
     raw_req = r_cci < theta1[:, None] * r_vpn      # (N, T) trigger planes
     raw_rel = r_cci > theta2[:, None] * r_vpn
+    if gate is not None:
+        p_vpn, p_cci, m = gate
+        t1, t2, m = theta1[:, None], theta2[:, None], m[:, None]
+        raw_req = (p_cci < (t1 - m) * p_vpn) | (raw_req & (p_cci < (t1 + m) * p_vpn))
+        raw_rel = (p_cci > (t2 + m) * p_vpn) | (raw_rel & (p_cci > (t2 - m) * p_vpn))
     N, T = vpn.shape
     zero = torch.zeros(N, dtype=torch.int32, device=vpn.device)
     carry = (zero, zero)
@@ -71,6 +80,40 @@ def fsm_scan_ref(
     state = torch.stack(states, dim=1)
     served = torch.where(x == 1, cci.to(torch.float64), vpn.to(torch.float64))
     return {"x": x, "state": state, "total_cost": torch.cumsum(served, dim=1)[:, -1]}
+
+
+def forecaster_scan_ref(
+    u: torch.Tensor, a: torch.Tensor, one_minus_a: torch.Tensor, w: torch.Tensor,
+    bias: torch.Tensor, h0: Optional[torch.Tensor] = None, *, write_y: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.forecaster.forecaster_scan`
+    (``demand_forecaster_step`` under the JAX package's ``lax.scan``), any S.
+
+    Hour by hour, ``h = a·h + (1−a)·u_t``, each product and the sum a torch op
+    of its own (so rounded alone, as the kernel's ``_rn`` intrinsics are);
+    the driving terms ``(1−a)·u_t`` of every hour are formed at once
+    (elementwise, so with the same bits). The readout is elementwise too, so
+    it runs over all hours after the scan: ``p_s = (h_s − u_t)·w_s``, folded
+    left in index order from ``p_0``, then ``y = (u + acc) + bias``.
+    Returns ``(y (N, T) or None, h (N, S))`` in float32.
+    """
+    N, T = u.shape
+    S = a.shape[0]
+    h = (torch.zeros((N, S), dtype=torch.float32, device=u.device) if h0 is None
+         else h0.clone())
+    drive = one_minus_a * u[:, :, None]                  # (N, T, S)
+    hs = torch.empty((N, T, S), dtype=torch.float32, device=u.device) if write_y else None
+    for t in range(T):
+        h = a * h + drive[:, t]
+        if write_y:
+            hs[:, t] = h
+    if not write_y:
+        return None, h
+    p = (hs - u[:, :, None]) * w
+    acc = p[..., 0]
+    for s in range(1, S):
+        acc = acc + p[..., s]
+    return (u + acc) + bias, h
 
 
 def tiered_cost_scan_ref(

@@ -26,7 +26,11 @@ included; ``plan_topology`` on the card against the CPU: decisions equal,
 costs ``rtol=1e-9``. The streaming runtime's routed chunk keeps its plain
 version's order (pair calendar and fold, then each port's legs in leg
 order) and is held bit for bit, and so is a topology stream on the card
-against the CPU stream, across a reroute.
+against the CPU stream, across a reroute. The forecast slice's kernels, the
+float32 ``forecaster_scan`` and the gated instance of ``fsm_scan``, round
+every operation on its own in their plain versions' order and are held bit
+for bit (NaN in the same places); a forecast plan on the card against the
+CPU: decisions equal, costs ``rtol=1e-9``.
 """
 import dataclasses
 
@@ -240,8 +244,8 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     sc = build_fleet_scenario(16, horizon=2000, seed=0)
     ops.reset_launches()
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
-    assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1,
-                            "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
+    assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1, "fsm_scan_gated": 0,
+                            "forecaster_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
                             "stream_chunk_routed": 0, "flash_attention": 0,
                             "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
                             "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0,
@@ -1367,3 +1371,197 @@ def test_oracle_dp_forms_on_layout_edges(cuda_device, case, head_start):
     if case == "past":
         with pytest.raises(ValueError, match="register form"):
             oracle_dp(*dev, form="register")
+
+
+# -- the forecast slice: forecaster_scan and the gated fsm_scan -----------------
+
+from repro_torch.kernels.forecaster import MAX_STATE, forecaster_scan  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
+
+
+def _forecaster_inputs(seed, n, T, S, h0, device=CPU):
+    """Seeded float32 operands: log1p-like inputs with one NaN hour in row 0
+    (when T > 5), sigmoid'd timescales, readout weights and bias, and a zero
+    or seeded h0."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(0.6, 0.5, (n, T)).astype(np.float32)
+    if T > 5:
+        u[0, 5] = np.nan
+    a = torch.sigmoid(torch.from_numpy(rng.normal(1.0, 2.0, S).astype(np.float32)))
+    w = rng.normal(0, 0.1, S).astype(np.float32)
+    b = np.float32(rng.normal(0, 0.02))
+    h = (np.zeros((n, S), np.float32) if h0 == "zero"
+         else rng.normal(0.4, 0.3, (n, S)).astype(np.float32))
+    return (_t(u, device), a.to(device), (1.0 - a).to(device), _t(w, device),
+            torch.tensor(b, device=device), _t(h, device))
+
+
+def _gate_inputs(seed, n, T, margin, device=CPU):
+    """FSM inputs plus predicted mode costs that straddle the gates (ratios
+    0.7-1.3), NaN predictions in row 1 from hour T // 3, and per-row margins."""
+    vpn, cci, tog = _fsm_inputs(seed, n, T)
+    rng = np.random.default_rng(seed + 1)
+    p_vpn = vpn * rng.uniform(0.8, 1.2, (n, T))
+    p_cci = p_vpn * np.repeat(rng.uniform(0.7, 1.3, (n, T // 50 + 1)), 50, axis=1)[:, :T]
+    if n > 1:
+        p_vpn[1, T // 3:] = np.nan
+        p_cci[1, T // 3:] = np.nan
+    m = np.full(n, margin) if margin != "mixed" else np.resize([0.0, 0.05, 0.15, 1e30], n)
+    tp = ToggleParams(**{k: _t(v, device) for k, v in tog.items()})
+    gate = tuple(_t(a, device) for a in (p_vpn, p_cci, np.asarray(m, np.float64)))
+    return _t(vpn, device), _t(cci, device), tp, gate
+
+
+def test_forecast_kernel_wrappers_refuse_cpu_tensors_and_bad_operands():
+    """Both new launches take CUDA tensors or raise before anything is
+    built: CPU operands, a state size past the kernel's instances, float64
+    inputs, a gate of the wrong shape."""
+    args = _forecaster_inputs(0, 3, 10, 8, "seeded")
+    with pytest.raises(ValueError, match="CUDA"):
+        forecaster_scan(*args)
+    bad_s = list(_forecaster_inputs(0, 3, 10, MAX_STATE + 1, "zero"))
+    with pytest.raises(ValueError, match="states"):
+        forecaster_scan(*bad_s)
+    with pytest.raises(ValueError, match="float32"):
+        forecaster_scan(args[0].double(), *args[1:])
+    vpn, cci, tp, gate = _gate_inputs(0, 3, 40, 0.05)
+    one = torch.ones(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fsm_scan(vpn, cci, *tp, one, one, gate=gate)
+    with pytest.raises(ValueError, match="p_vpn"):
+        fsm_scan(vpn, cci, *tp, one, one, gate=(gate[0][:, :7], gate[1], gate[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0", ["zero", "seeded"])
+@pytest.mark.parametrize("S", [1, 3, 8, 16])
+@pytest.mark.parametrize("shape", [(1, 1), (17, 63), (300, 700), (33, 129)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_forecaster_kernel_bit_equal_to_plain(cuda_device, shape, S, h0):
+    """Every bit of y and h against the plain version on the CPU, with and
+    without the readout, h0 given and not, a NaN hour in row 0."""
+    n, T = shape
+    cpu = _forecaster_inputs(n * T + S, n, T, S, h0)
+    dev = [a.to(cuda_device) for a in cpu]
+    for write_y in (True, False):
+        for given in (True, False):
+            h_in = dev[5] if given else None
+            before = ops.LAUNCHES["forecaster_scan"]
+            y, h = ops.forecaster_scan(*dev[:5], h_in, write_y=write_y)
+            assert ops.LAUNCHES["forecaster_scan"] == before + 1
+            wy, wh = ref.forecaster_scan_ref(*cpu[:5], cpu[5] if given else None,
+                                             write_y=write_y)
+            assert _same_bits(h.cpu(), wh), (write_y, given)
+            if write_y:
+                assert _same_bits(y.cpu(), wy), given
+            else:
+                assert y is None
+
+
+@pytest.mark.cuda
+def test_forecaster_entry_points_on_the_card_match_the_cpu(cuda_device):
+    """predict, apply and step on the card: apply on the same inputs equals
+    the CPU's bit for bit, and T steps equal apply bit for bit; the card's
+    log1p and expm1 may differ from the CPU's in the last place (and the
+    EMA carries such a difference on), so predictions agree to rtol=1e-5,
+    atol=1e-6 GB/hr."""
+    rng = np.random.default_rng(4)
+    series = rng.uniform(0, 100, (40, 500))
+    scale = np.maximum(series.mean(axis=1), 1e-9)
+    params = tssm.demand_forecaster_init(None, 8, device=cuda_device)
+    params["w"] = _t(rng.normal(0, 0.1, 8).astype(np.float32), cuda_device)
+    params["bias"] = torch.tensor(np.float32(0.01), device=cuda_device)
+    got = tssm.demand_forecaster_predict(params, series, scale)
+    assert got.is_cuda and got.dtype == torch.float64
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    want = tssm.demand_forecaster_predict(cpu_params, series, scale, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    u = torch.log1p(_t(series / scale[:, None]).float())
+    y = tssm.demand_forecaster_apply(params, u.to(cuda_device))
+    assert torch.equal(y.cpu(), tssm.demand_forecaster_apply(cpu_params, u))
+    u = u.to(cuda_device)
+    h = torch.zeros((40, 8), dtype=torch.float32, device=cuda_device)
+    for t in range(20):
+        h, y_t = tssm.demand_forecaster_step(params, h, u[:, t])
+        assert torch.equal(y_t, y[:, t])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renew", [False, True], ids=["continuous", "chunks"])
+@pytest.mark.parametrize("margin", [0.0, 0.05, 1e30, "mixed"])
+def test_gated_fsm_kernel_bit_equal_to_cpu_plain(cuda_device, margin, renew):
+    """The gated instance: x, state and total_cost every bit equal to the
+    plain version on the CPU, NaN predictions in row 1, counted in
+    fsm_scan_gated; at margin 1e30 it decides as the reactive instance on
+    every row whose predictions are finite (row 1's NaN gates neither fire
+    nor pass a realized trigger)."""
+    vpn, cci, tp, gate = _gate_inputs(21, 40, 2000, margin)
+    one = torch.ones(40, dtype=torch.int32)
+    dev = lambda a: a.to(cuda_device)
+    before = dict(ops.LAUNCHES)
+    got = ops.fsm_scan(dev(vpn), dev(cci), *tp.to(cuda_device), dev(one), dev(one),
+                       renew_in_chunks=renew, gate=tuple(dev(g) for g in gate))
+    assert ops.LAUNCHES["fsm_scan_gated"] == before["fsm_scan_gated"] + 1
+    assert ops.LAUNCHES["fsm_scan"] == before["fsm_scan"]
+    want = ref.fsm_scan_ref(vpn, cci, *tp, one, one, renew_in_chunks=renew, gate=gate)
+    assert 0 < int(want["x"].sum()) < want["x"].numel()
+    for k in ("x", "state", "total_cost"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    if margin == 1e30:
+        reactive = ops.fsm_scan(dev(vpn), dev(cci), *tp.to(cuda_device), dev(one), dev(one),
+                                renew_in_chunks=renew)
+        finite = torch.arange(40, device=cuda_device) != 1
+        for k in ("x", "state", "total_cost"):
+            assert torch.equal(got[k][finite], reactive[k][finite]), k
+        assert not torch.equal(got["x"][1], reactive["x"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FSM_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gated_fsm_kernel_edge_shapes_bit_equal_to_cpu_plain(cuda_device, shape):
+    """Ragged N and T, windows from 1 hour to past T, misaligned planes, the
+    gate's planes misaligned too: every output bit equal to the CPU plain
+    version."""
+    n, T = shape
+    args = _fsm_edge_args(n, T, cuda_device, 1)
+    _, _, _, gate = _gate_inputs(n + T, n, T, "mixed")
+
+    def plane(a):
+        buf = torch.zeros(n * T + 1, dtype=torch.float64, device=cuda_device)
+        view = buf[1:].view(n, T)
+        view.copy_(a)
+        return view
+
+    dgate = (plane(gate[0]), plane(gate[1]), gate[2].to(cuda_device))
+    assert dgate[0].data_ptr() % 16 == 8
+    for renew in (False, True):
+        got = ops.fsm_scan(*args, renew_in_chunks=renew, gate=dgate)
+        want = ref.fsm_scan_ref(*(a.cpu() for a in args), renew_in_chunks=renew,
+                                gate=tuple(g.cpu() for g in dgate))
+        for k in ("x", "state", "total_cost"):
+            assert torch.equal(got[k].cpu(), want[k]), (k, renew)
+
+
+@pytest.mark.cuda
+def test_forecast_plan_gpu_matches_cpu(cuda_device):
+    """plan_fleet with a forecast-gated policy (predictions from the
+    forecaster's init, in-scan cost fit): one forecaster_scan per forecast,
+    one gated fsm_scan per plan; decisions equal the CPU's, costs rtol 1e-9."""
+    sc = build_fleet_scenario(16, horizon=2000, seed=0)
+    scale = np.maximum(sc.demand.mean(axis=1), 1e-9)
+    plans = {}
+    for dev in (cuda_device, CPU):
+        ops.reset_launches()
+        params = tssm.demand_forecaster_init(None, 8, device=dev)
+        pred = tssm.demand_forecaster_predict(params, sc.demand, scale, device=dev)
+        arrays = sc.fleet.stack(torch.float64, dev)
+        pol = tpol.forecast_gated_policy(arrays.toggle, pred, margin=0.05)
+        plans[dev.type] = plan_fleet(arrays, sc.demand, policy=pol, device=dev)
+        want = 1 if dev.type == "cuda" else 0
+        assert ops.LAUNCHES["forecaster_scan"] == want
+        assert ops.LAUNCHES["fsm_scan_gated"] == want and ops.LAUNCHES["fsm_scan"] == 0
+    got, want = plans["cuda"], plans["cpu"]
+    for k in ("x", "state"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    torch.testing.assert_close(got["toggle_cost"].cpu(), want["toggle_cost"], rtol=1e-9,
+                               atol=0)

@@ -116,7 +116,10 @@ def test_use_pallas_path_matches_jax():
                                rtol=1e-3)
 
 
-def test_forecast_policy_is_not_ported():
+def test_forecast_kind_cannot_be_auto_resolved():
+    """As in the JAX package, a spec's "forecast" kind has no policy to build
+    without predictions: plan_fleet raises ValueError (build the policy with
+    forecast_gated_policy and pass it as policy=)."""
     _, tsc = _scenarios(8, 0)
     with pytest.raises(ValueError, match="forecast"):
         teng.plan_fleet(dataclasses.replace(tsc.fleet, policy="forecast"),

@@ -34,6 +34,7 @@ from repro.fleet import topology as jtop
 from repro.fleet.plan import forecast_topology_policy
 
 from repro_torch.fleet import engine as teng
+from repro_torch.fleet import policy as tpol
 from repro_torch.fleet import report as trep
 from repro_torch.fleet import scenario as tscen
 from repro_torch.fleet import topology as ttop
@@ -196,10 +197,11 @@ def test_topology_report_refine_matches_jax():
 
 
 @functools.lru_cache(maxsize=None)
-def _forecast_case():
+def _forecast_policy():
     """tests/test_policy.py::test_report_forecast_and_refinement_columns's
-    scenario, with the JAX forecast-gated plan on the greedy routing (the
-    port has no forecast policy yet; its report takes any plan's outputs)."""
+    scenario and the JAX forecast-gated policy on the greedy routing
+    (``forecast_topology_policy`` trains the forecaster, which the port
+    cannot yet: ROADMAP item 6c)."""
     build = lambda m: m.build_topology_scenario(
         8, n_facilities=2, horizon=800, history_hours=400, families=("bursty",), seed=6)
     jsc, tsc = build(jscen), build(tscen)
@@ -207,9 +209,44 @@ def _forecast_case():
     with enable_x64():
         arrays = jsc.topo.stack(jr, jnp.float64)
     fpol = forecast_topology_policy(arrays, jsc.demand, jsc.history, steps=60)
+    return jsc, tsc, jr, arrays, fpol
+
+
+@functools.lru_cache(maxsize=None)
+def _forecast_case():
+    """The JAX forecast-gated plan of :func:`_forecast_policy` (the report
+    takes any plan's outputs as its forecast column)."""
+    jsc, tsc, jr, arrays, fpol = _forecast_policy()
     fplan = jeng.plan_topology(arrays, jsc.demand, policy=fpol,
                                hours_per_month=jsc.topo.hours_per_month)
     return jsc, tsc, jr, {k: np.asarray(v) for k, v in fplan.items()}
+
+
+def test_topology_report_takes_the_ports_own_forecast_plan():
+    """The port's own forecast-gated plan, built on the port's routing from
+    the JAX policy's carried predictions, cost coefficients and margins,
+    equals the JAX forecast plan (decisions exactly, costs ``rtol=1e-9``)
+    and fills the report's forecast column as the JAX plan fills JAX's."""
+    jsc, tsc, jr, _, fpol = _forecast_policy()
+    _, _, _, jfplan = _forecast_case()
+    tr = ttop.optimize_routing(tsc.topo, tsc.demand)
+    arrays = tsc.topo.stack(tr, torch.float64, CPU)
+    pol = tpol.forecast_gated_policy(
+        arrays.toggle, np.asarray(fpol.pred_demand), margin=np.asarray(fpol.margin),
+        cost_coef=np.asarray(fpol.cost_coef))
+    tfplan = teng.plan_topology(arrays, tsc.demand, policy=pol, device=CPU)
+    for k in ("x", "state"):
+        np.testing.assert_array_equal(tfplan[k].numpy(), jfplan[k], err_msg=k)
+    np.testing.assert_allclose(tfplan["toggle_cost"].numpy(), jfplan["toggle_cost"], rtol=RTOL)
+    assert 0 < int(tfplan["x"].sum()) < tfplan["x"].numel()
+    jplan = jeng.plan_topology(jsc.topo, jsc.demand, routing=jr)
+    tplan = teng.plan_topology(tsc.topo, tsc.demand, routing=tr, device=CPU)
+    want = jrep.build_topology_report(jsc, jplan, jr, include_oracle=True, forecast_plan=jfplan)
+    rep = trep.build_topology_report(tsc, tplan, tr, include_oracle=True, forecast_plan=tfplan,
+                                     device=CPU)
+    _assert_topology_report(rep, want)
+    assert "forecast_gain" in rep.totals
+    assert rep.render_text() == want.render_text()
 
 
 def test_topology_report_forecast_and_refinement_columns_match_jax():

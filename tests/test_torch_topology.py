@@ -233,8 +233,11 @@ def test_plan_topology_matches_jax(name, kind):
 
 
 def test_forecast_policy_raises():
+    """A spec's "forecast" kind cannot be auto-resolved: plan_topology raises
+    the JAX package's ValueError (the policy is built from predictions with
+    forecast_gated_policy and passed as policy=)."""
     _, tsc = _scenarios("relay")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="forecast_gated_policy"):
         teng.plan_topology(dataclasses.replace(tsc.topo, policy="forecast"), tsc.demand,
                            device="cpu")
 
