@@ -208,7 +208,32 @@ without printing a result):
     reactive and hysteresis instances in the same run, the plan beside the
     reactive one with a device breakdown, and prints the fleet's
     ``forecast_gain`` against the OPT column;
-14. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+14. the forecast-gated policy streamed in replay mode
+    (:func:`forecast_stream_phase`): with every launch count at 0,
+    ``FleetRuntime(fleet, policy=...)`` streams the forecast phase's
+    2048-link year (its seeded-readout policy) in K = 24 chunks and, on a
+    second runtime, 800 ticks; it fails unless the year launched exactly 365
+    gated ``stream_chunk`` and the ticks 800, and nothing else, unless the
+    stream equals the card's ``plan_fleet`` of the same policy bit for bit in
+    ``x``/``state``/``vpn_cost``/``cci_cost`` and the ticks the chunks in
+    every field, and unless margin 1e30 streams the reactive year in every
+    field; it holds the gated ``stream_chunk`` against ``stream_chunk_ref``
+    with the gate in every output bit on fourteen cases (chained chunks
+    across the month start, endogenous CCI demand, K = 1, a policy cut to
+    740 hours so that later hours read its last column, NaN predictions,
+    per-link margins 0 to 1e30, K around both launch forms' edges); streams
+    the topology phase's 2048 pairs on 128 ports with a per-port policy
+    (``demand_forecaster_predict`` on the port demand, ``fit_cost_coef`` on
+    the port series) and a ``reroute()`` at hour 4368, failing unless it
+    launched 365 gated ``stream_chunk_routed`` and nothing else and equals
+    the card's ``replay_plan_topology`` of the two-segment schedule bit for
+    bit; holds the gated routed chunk against its plain version on four
+    cases; prints the gated instances' registers and spills; then times the
+    gated ``stream_chunk`` at 2048 x K = 24 (chunk form) and K = 1-5 (tick
+    form) and the gated routed chunk's two stages, each beside the reactive
+    instance in the same run, its bound and its plain version, the chunk's
+    p50/p99 beside the reactive stream's, and the device breakdowns;
+15. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -497,7 +522,7 @@ def pre_reads(pref: np.ndarray, t0: int, K: int, h: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.take_along_axis(pref, lo, axis=0))
 
 
-def stream_chunk_bound(N: int, K: int, Kt: int, endo: bool) -> dict:
+def stream_chunk_bound(N: int, K: int, Kt: int, endo: bool, gated: bool = False) -> dict:
     # The block read (demand, the CCI demand when endo, pre_v, pre_c: (K, N) each),
     # the packed (8K + 4, N) result written; per-row operands (6 f64, 5 int32),
     # tier tables (2 x (N, Kt)), the carries in (dcum, dcum_month, prefixes; the
@@ -507,6 +532,10 @@ def stream_chunk_bound(N: int, K: int, Kt: int, endo: bool) -> dict:
     # per hour: 2 clips, month sub, carry add, hi add, per tier 6, the vpn add,
     # the cci mul and add, 2 prefix adds, 2 window subs, 2 muls, 2 compares.
     ops = K * N * (2 + 3 + 6 * Kt + 3 + 8)
+    if gated:   # the predicted costs (K, N) x 2 and the margins read; the four
+        # thresholds a row; per hour four products, four compares, and, or
+        bytes_moved += 2 * K * N * 8 + N * 8
+        ops += 4 * N + K * N * 10
     return lane_bound(bytes_moved, ops, torch.float64)
 
 
@@ -530,19 +559,22 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
                                                 b.view(as_int).masked_fill(nb, 0)))
 
 
-def chunk_case(spec, demand, t_first: int, Ks, cci_demand=None, routing=None) -> float:
-    """Stream ``spec`` (and ``routing``, in topology mode) on the card to hour
+def chunk_case(spec, demand, t_first: int, Ks, cci_demand=None, routing=None,
+               policy=None) -> float:
+    """Stream ``spec`` (and ``routing``, in topology mode; ``policy``, a
+    forecast-gated one for the gated instances) on the card to hour
     ``t_first``, then run each chunk of ``Ks`` hours through the runtime's own
     ``_launch`` (the kernel: ``stream_chunk``, or ``stream_chunk_routed`` in
-    topology mode) and through its plain version on the same block and
-    carries; fail unless the packed result and the FSM carry agree in every
-    bit. Returns the largest absolute difference over non-NaN values (0.0
-    when they agree)."""
+    topology mode, gated when the policy is) and through its plain version on
+    the same block, carries and gate; fail unless the packed result and the
+    FSM carry agree in every bit. Returns the largest absolute difference
+    over non-NaN values (0.0 when they agree)."""
     from repro_torch.fleet import FleetRuntime
     from repro_torch.kernels import ops, ref
 
-    rt = FleetRuntime(spec, routing=routing)
-    name = "stream_chunk_routed" if rt.topology else "stream_chunk"
+    rt = FleetRuntime(spec, routing=routing, policy=policy)
+    name = ("stream_chunk_routed" if rt.topology else "stream_chunk") + (
+        "" if rt._gate is None else "_gated")
     plain = ref.stream_chunk_routed_ref if rt.topology else ref.stream_chunk_ref
     cblk = lambda a, b: None if cci_demand is None else cci_demand[:, a:b]
     t = 0
@@ -555,7 +587,7 @@ def chunk_case(spec, demand, t_first: int, Ks, cci_demand=None, routing=None) ->
         block, K_, endo = rt._pack(demand[:, t:t + K], cblk(t, t + K))
         dev_block = torch.from_numpy(block).to(DEVICE)
         want, want_fsm = plain(*rt._chunk_args(dev_block, K_, endo),
-                               renew_in_chunks=rt.policy.renew_in_chunks)
+                               renew_in_chunks=rt.policy.renew_in_chunks, gate=rt._gate)
         before = ops.LAUNCHES[name]
         host = rt._launch(dev_block, K_, endo)
         check(ops.LAUNCHES[name] == before + 1, f"{name} did not launch")
@@ -2307,7 +2339,8 @@ LEG_TILE = 128                                            # legs a tile of the p
 HOT_PAIRS, HOT_KW = (200, 400), dict(n_facilities=2, ports_per_facility=2, horizon=200)
 
 
-def routed_chunk_bound(P: int, M: int, K: int, Kt: int, E: int, endo: bool) -> dict:
+def routed_chunk_bound(P: int, M: int, K: int, Kt: int, E: int, endo: bool,
+                       gated: bool = False) -> dict:
     # In: the block (the demand (K, P), the CCI demand when endo, pre_v and pre_c
     # (K, M)); per pair capacity, L_vpn (f64) and the tier tables (P, Kt) x 2; per
     # port lease, c_cci, capacity, theta1, theta2 (f64) and h, D, T_cci and the two
@@ -2323,6 +2356,9 @@ def routed_chunk_bound(P: int, M: int, K: int, Kt: int, E: int, endo: bool) -> d
     # add; per leg-hour: 2 products and 2 adds; per port-hour: min, mul, add (CCI),
     # 2 prefix adds, 2 window subs, 2 muls, 2 compares.
     ops = K * P * ((2 if endo else 1) + 3 + 6 * Kt + 1) + K * E * 4 + K * M * 11
+    if gated:   # the per-port predicted costs (K, M) x 2 and margins; the gates
+        bytes_moved += 2 * K * M * 8 + M * 8
+        ops += 4 * M + K * M * 10
     return bound(bytes_moved, ops, torch.float64)
 
 
@@ -2566,7 +2602,16 @@ def oracle_bound(D: np.ndarray, T_cci: np.ndarray, T: int) -> dict:
 
 def ptxas_report(kernel: str) -> dict:
     """Registers, stack frame and spill bytes ``-Xptxas -v`` gave the entry
-    function whose name holds ``kernel`` in the last build."""
+    function whose name holds ``kernel`` in the last build (the last such
+    instance: :func:`ptxas_instances` lists them all)."""
+    out = list(ptxas_instances(kernel).values())[-1]
+    check(len(out) == 4, f"no ptxas report for {kernel} in the build log")
+    return out
+
+
+def ptxas_instances(kernel: str) -> dict:
+    """``-Xptxas -v``'s registers, stack frame and spills of every instance
+    (mangled entry name) whose name holds ``kernel`` in the last build."""
     import re
     from repro_torch.kernels import _lib
 
@@ -2575,14 +2620,15 @@ def ptxas_report(kernel: str) -> dict:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif kernel in name:
+            rep = out.setdefault(name, {})
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads", line)
             if m:
-                out.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+                rep.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                out["registers"] = int(m[1])
-    check(len(out) == 4, f"no ptxas report for {kernel} in the build log")
+                rep["registers"] = int(m[1])
+    check(out, f"no ptxas report for {kernel} in the build log")
     return out
 
 
@@ -3148,13 +3194,311 @@ def forecast_phase(card: str) -> dict:
           f"(ToggleCCI ${tog:,.2f}, forecast-gated ${fcost:,.2f}, oracle ${opt:,.2f}; "
           f"{time.perf_counter() - t0:.1f} s)")
     print(f"forecast phase: {time.perf_counter() - t_phase:.1f} s")
-    return {
+    rows = {
         "forecaster_scan": {"launches": launches["seeded"]["forecaster_scan"],
                             "max_abs_err": 0.0, "ms": fc_ms, "plain_ms": fc_plain_ms, **fb,
                             "library_ms": None},
         "fsm_scan_gated": {"launches": launches["seeded"]["fsm_scan_gated"],
                            "max_abs_err": gated_err, "ms": g_ms, "plain_ms": g_plain_ms, **gb,
                            "library_ms": None},
+    }
+    return rows, {"scenario": sc, "params": seeded, "arrays": arrays, "policy": pol,
+                  "plan": plan}
+
+
+# -- the forecast-gated policy streamed in replay mode ---------------------------
+FS_SWAP = 4368                          # the topology stream's reroute: a chunk boundary
+FS_PAST_T_PRED = 740                    # a policy cut to this many hours: the clamp case
+GATED_TIMED_K = (24, 1, 2, 3, 4, 5)     # 2048 links: the chunk form, then the tick form
+
+
+def moved_routing(topo, plan, n_moves: int):
+    """``plan`` with up to ``n_moves`` pairs moved to another candidate port."""
+    idx = np.asarray(plan.primary).copy()
+    moved = 0
+    for i, pr in enumerate(topo.pairs):
+        others = [c for c in pr.candidates if c != idx[i]]
+        if others and moved < n_moves:
+            idx[i], moved = others[0], moved + 1
+    return topo.plan(idx)
+
+
+def forecast_stream_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
+    """The forecast-gated policy streamed in replay mode on the card (the
+    gated instances of ``stream_chunk`` and ``stream_chunk_routed``): the
+    forecast phase's 2048-link year in K = 24 chunks and 800 ticks with
+    launches counted, against the card's ``plan_fleet`` of the same policy;
+    margin 1e30 against the reactive stream; the topology stream phase's
+    2048 pairs on 128 ports with a per-port policy and a reroute, against the
+    card's ``replay_plan_topology``; both gated kernels against their plain
+    versions; registers and spills; then timings beside the reactive
+    instances. Returns the two gated kernels' rows."""
+    from repro_torch.fleet import (FleetRuntime, fit_cost_coef, forecast_gated_policy,
+                                   plan_fleet, plan_topology, replay_plan_topology)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.stream_chunk import (TICK_MAX_K, _stream_chunk_launch,
+                                                  stream_chunk_routed)
+    from repro_torch.models.ssm import demand_forecaster_predict
+
+    t_phase = time.perf_counter()
+    sc, pol, plan = fc_ctx["scenario"], fc_ctx["policy"], fc_ctx["plan"]
+    N, T = sc.demand.shape
+    fields = ("x", "state", "r_vpn", "r_cci", "vpn_cost", "cci_cost", "cost")
+
+    # -- the main path: the forecast year streamed, launches counted -----------
+    ops.reset_launches()
+    rt = FleetRuntime(sc.fleet, policy=pol)
+    check(rt.device.type == DEVICE.type and rt.pred_source == "replay",
+          "FleetRuntime did not stream the forecast policy in replay mode on the card")
+    chunk_clock = []
+    chunked = stream(rt, sc.demand, STREAM_K, chunk_clock)
+    torch.cuda.synchronize()
+    year = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(year == {"stream_chunk_gated": T // STREAM_K},
+          f"the streamed forecast year launched {year}, not {T // STREAM_K} gated stream_chunk")
+    ops.reset_launches()
+    rt_tick = FleetRuntime(sc.fleet, policy=pol)
+    tick_us, ticks = [], []
+    for t in range(STREAM_TICKS):
+        a = time.perf_counter()
+        ticks.append(rt_tick.step(sc.demand[:, t]))
+        tick_us.append((time.perf_counter() - a) * 1e6)
+    torch.cuda.synchronize()
+    tick_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(tick_launches == {"stream_chunk_gated": STREAM_TICKS},
+          f"{STREAM_TICKS} forecast ticks launched {tick_launches}")
+    fleet_launches = T // STREAM_K + STREAM_TICKS
+    print(f"forecast stream path launches: {year} for the year in K = {STREAM_K} chunks, "
+          f"{tick_launches} for {STREAM_TICKS} ticks")
+    # The decisions against the card's plan of the policy (the same predicted
+    # costs); the cost series, which no policy changes, against the CPU plan
+    # (the card's monthly_cumsum is a parallel scan, the stream's sequential).
+    cpu = plan_fleet(sc.fleet, sc.demand, device="cpu")
+    for k, want in (("x", plan["x"]), ("state", plan["state"]),
+                    ("vpn_cost", cpu["vpn_hourly"]), ("cci_cost", cpu["cci_hourly"])):
+        check(np.array_equal(chunked[k], want.cpu().numpy()),
+              f"forecast stream {N} x {T}: {k} != " + ("the card's plan_fleet of the policy"
+                                                       if k in ("x", "state") else
+                                                       "the CPU plan_fleet's series"))
+    for k in ("vpn_hourly", "cci_hourly"):
+        torch.testing.assert_close(plan[k].cpu(), cpu[k], rtol=1e-9, atol=0)
+    for k in fields:
+        check(np.array_equal(np.stack([o[k] for o in ticks], 1), chunked[k][:, :STREAM_TICKS]),
+              f"forecast per-tick step != chunked step_many in {k}")
+    print(f"forecast stream {N} x {T} (K = {STREAM_K}): x/state == the card's plan_fleet of the "
+          f"policy, vpn_cost/cci_cost == the CPU plan_fleet's series, bit for bit (the card "
+          f"plan's series within rtol 1e-9 of them); {STREAM_TICKS} ticks == the chunks in all "
+          f"{len(fields)} fields; CCI share {chunked['x'].mean():.4f}")
+
+    # margin 1e30 against the reactive stream, and the reactive year's clock
+    react_clock = []
+    reactive = stream(FleetRuntime(sc.fleet), sc.demand, STREAM_K, react_clock)
+    wide = stream(FleetRuntime(sc.fleet, policy=pol._replace(
+        margin=torch.full_like(pol.margin, 1e30))), sc.demand, STREAM_K)
+    for k in fields:
+        check(np.array_equal(wide[k], reactive[k]), f"margin 1e30 stream != reactive in {k}")
+    # The gated year again, after the reactive one: the first of several streams
+    # timed in a row read slower on the host (PERF.md, run 26C).
+    warm_clock = []
+    stream(FleetRuntime(sc.fleet, policy=pol), sc.demand, STREAM_K, warm_clock)
+    flips = int((chunked["x"] != reactive["x"]).sum())
+    check(flips > 0, "the forecast gates changed no streamed decision")
+    print(f"margin 1e30: the gated stream == the reactive stream, every field; the forecast "
+          f"stream decides {flips} link-hours otherwise than reactive")
+
+    # -- the gated stream_chunk against its plain version ----------------------
+    t_cases = time.perf_counter()
+    cut = pol._replace(pred_demand=pol.pred_demand[:, :FS_PAST_T_PRED].contiguous())
+    nan_pred = pol.pred_demand.clone()
+    nan_pred[::7, 700:] = float("nan")
+    rows_m = pol._replace(margin=torch.as_tensor(
+        np.resize([0.0, 0.05, 0.15, 1e30], N), device=DEVICE))
+    fleet, demand = sc.fleet, sc.demand
+    cases = {
+        f"4 chained K = {STREAM_K} from hour 696": (pol, 696, [STREAM_K] * 4, None),
+        "endogenous CCI demand, 2 x K = 24": (pol, 696, [STREAM_K] * 2, demand * 1.5),
+        "K = 1 over hours 728..731": (pol, 728, [1] * 4, None),
+        f"T_pred {FS_PAST_T_PRED}: K = 24, 5, 24 from hour 726": (cut, 726, [24, 5, 24], None),
+        "NaN predictions in every 7th link from hour 700, 2 x K = 24": (
+            pol._replace(pred_demand=nan_pred), 696, [24] * 2, None),
+        "margins 0, 0.05, 0.15, 1e30 by link, K = 24, 1, 30": (rows_m, 696, [24, 1, 30], None),
+    }
+    for K in (2, 3, TICK_MAX_K, TICK_MAX_K + 1, 8, 9, 23, 25):
+        cases[f"3 chained K = {K} from hour 726"] = (pol, 726, [K] * 3, None)
+    gated_err = 0.0
+    for label, (p_, t_, Ks, c_) in cases.items():
+        gated_err = max(gated_err, chunk_case(fleet, demand, t_, Ks, c_, policy=p_))
+        print(f"  gated stream_chunk == stream_chunk_ref with the gate, every output bit: "
+              f"{label}")
+    print(f"gated stream_chunk: {len(cases)} cases at {N} links equal the plain version on the "
+          f"card ({time.perf_counter() - t_cases:.1f} s)")
+
+    # -- topology: a per-port policy, a reroute mid-year -----------------------
+    t0 = time.perf_counter()
+    tsc, r0 = topo_ctx["scenario"], topo_ctx["routing"]
+    P, M = tsc.n_pairs, tsc.n_ports
+    tarr = tsc.topo.stack(r0, torch.float64, DEVICE)
+    base = plan_topology(tarr, tsc.demand)
+    port_d = base["port_demand"]
+    scale = np.maximum(port_d.mean(dim=1).cpu().numpy(), 1e-9)
+    y = demand_forecaster_predict(fc_ctx["params"], port_d.cpu().numpy(), scale)
+    tpred = torch.cat([y[:, :1], y[:, :-1]], dim=1).contiguous()   # from hours before t
+    coef = fit_cost_coef(port_d, base["vpn_hourly"], base["cci_hourly"])
+    tpol = forecast_gated_policy(tarr.toggle, tpred, margin=0.05, cost_coef=coef)
+    r1 = moved_routing(tsc.topo, r0, 64)
+    check(r1.paths != r0.paths, "the reroute moves no pair")
+
+    def topo_year(policy):
+        """The topology year in K = 24 chunks with the reroute at FS_SWAP, and
+        the host clock of each chunk."""
+        rt_ = FleetRuntime(tsc.topo, routing=r0, policy=policy)
+        clock, outs, t = [], [], 0
+        while t < T:
+            if t == FS_SWAP:
+                rt_.reroute(r1)
+            a = time.perf_counter()
+            outs.append(rt_.step_many(tsc.demand[:, t:t + STREAM_K]))
+            clock.append(time.perf_counter() - a)
+            t += STREAM_K
+        torch.cuda.synchronize()
+        return {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}, clock
+
+    ops.reset_launches()
+    tstream, topo_clock = topo_year(tpol)
+    topo_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(topo_launches == {"stream_chunk_routed_gated": T // STREAM_K},
+          f"the rerouted forecast topology stream launched {topo_launches}")
+    schedule = [(0, r0), (FS_SWAP, r1)]
+    rep = replay_plan_topology(tarr, tsc.demand, schedule, policy=tpol)
+    cpu_rep = replay_plan_topology(tsc.topo.stack(r0, torch.float64, "cpu"), tsc.demand,
+                                   schedule, device="cpu")
+    for k, want in (("x", rep["x"]), ("state", rep["state"]),
+                    ("vpn_cost", cpu_rep["vpn_hourly"]), ("cci_cost", cpu_rep["cci_hourly"])):
+        check(np.array_equal(tstream[k], want.cpu().numpy()),
+              f"forecast topology stream: {k} != the " + (
+                  "card's replay_plan_topology of the policy" if k in ("x", "state") else
+                  "CPU replay_plan_topology's series"))
+    treactive, topo_react_clock = topo_year(None)
+    topo_warm_clock = topo_year(tpol)[1]
+    for k in ("vpn_cost", "cci_cost", "r_vpn", "r_cci"):
+        check(np.array_equal(tstream[k], treactive[k]),
+              f"forecast topology stream: {k} != the reactive stream's")
+    tflips = int((tstream["x"] != treactive["x"]).sum())
+    print(f"forecast topology stream {P} pairs x {T} h on {M} ports, reroute at hour {FS_SWAP} "
+          f"({sum(a != b for a, b in zip(r0.paths, r1.paths))} pairs moved): launches "
+          f"{topo_launches}; x/state == the card's replay_plan_topology of the two-segment "
+          f"schedule, vpn_cost/cci_cost == the CPU replay's series, bit for bit; {tflips} "
+          f"port-hours decided otherwise than reactive ({time.perf_counter() - t0:.1f} s)")
+    t_cases = time.perf_counter()
+    bad = tsc.demand.copy()
+    bad[0, [666, 699, 706]] = np.nan
+    padded = r0.pad_to(r0.total_hops + NAN_PAD)
+    tcut = tpol._replace(pred_demand=tpol.pred_demand[:, :FS_PAST_T_PRED].contiguous())
+    tcases = {
+        "4 chained K = 24 from hour 696": (tpol, r0, tsc.demand, 696, [24] * 4, None),
+        "K = 1 over hours 728..731": (tpol, r0, tsc.demand, 728, [1] * 4, None),
+        f"NaN demand in pair 0, {NAN_PAD} padding legs, 2 x K = 24": (
+            tpol, padded, bad, 696, [24] * 2, None),
+        f"T_pred {FS_PAST_T_PRED}, endogenous CCI demand: K = 24, 5, 33 from hour 726": (
+            tcut, r0, tsc.demand, 726, [24, 5, 33], tsc.demand * 1.5),
+    }
+    routed_err = 0.0
+    for label, (p_, r_, d_, t_, Ks, c_) in tcases.items():
+        routed_err = max(routed_err, chunk_case(tsc.topo, d_, t_, Ks, c_, routing=r_, policy=p_))
+        print(f"  gated stream_chunk_routed == stream_chunk_routed_ref with the gate, every "
+              f"output bit: {label}")
+    print(f"gated stream_chunk_routed: {len(tcases)} cases equal the plain version on the card "
+          f"({time.perf_counter() - t_cases:.1f} s)")
+
+    # -- registers and spills of the gated instances ---------------------------
+    for kernel in ("stream_chunk_tick_kernel", "stream_chunk_pipe_kernel", "routed_port_kernel"):
+        for name, rep_ in sorted(ptxas_instances(kernel).items()):
+            gated = "Lb1E" in name      # the GATED template argument, true
+            print(f"  ptxas {'gated   ' if gated else 'ungated '} {name[-48:]}: {rep_}")
+
+    # -- timings ----------------------------------------------------------------
+    print(f"forecast streaming timings on {card} (profiler device time, median ms; bound = "
+          f"max(bytes / 3.35 TB/s, ops / peak))")
+    for label, clock in (("forecast-gated (the main path, first)", chunk_clock),
+                         ("reactive", react_clock), ("forecast-gated again", warm_clock),
+                         ("forecast-gated topology (first)", topo_clock),
+                         ("reactive topology", topo_react_clock),
+                         ("forecast-gated topology again", topo_warm_clock)):
+        ms = np.array(clock) * 1e3
+        print(f"  {label} year in K = {STREAM_K} chunks: chunk p50 {np.percentile(ms, 50):.3f} "
+              f"ms, p99 {np.percentile(ms, 99):.3f} ms, mean {ms.mean():.3f} ms")
+    tick = np.array(tick_us)
+    print(f"  forecast-gated per-tick step {N} links: p50 {np.percentile(tick, 50):.1f} us, p99 "
+          f"{np.percentile(tick, 99):.1f} us")
+    rt_b = FleetRuntime(sc.fleet, policy=pol)
+    stream(rt_b, sc.demand[:, :SWEEP_T0], STREAM_K)
+    Kt = rt_b.arrays.tier_bounds.shape[1]
+    times = {}
+    for K in GATED_TIMED_K:
+        block, _, _ = rt_b._pack(sc.demand[:, SWEEP_T0:SWEEP_T0 + K], None)
+        args = rt_b._chunk_args(torch.from_numpy(block).to(DEVICE), K, False)
+        gate = rt_b._gate
+        want = ref.stream_chunk_ref(*args, gate=gate)
+        gated_call = lambda: _stream_chunk_launch("auto", *args, gate=gate)
+        got = gated_call()
+        check(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+              f"gated stream_chunk {N} x K={K} != plain at the timed block")
+        g_ms = device_ms_per_call(gated_call, 20, "stream_chunk", 1)
+        r_ms = device_ms_per_call(lambda: _stream_chunk_launch("auto", *args), 20,
+                                  "stream_chunk", 1)
+        g2_ms = device_ms_per_call(gated_call, 20, "stream_chunk", 1)
+        b = stream_chunk_bound(N, K, Kt, False, gated=True)
+        times[K] = {"ms": g_ms, "ms2": g2_ms, "reactive_ms": r_ms,
+                    "plain_ms": sync_ms(lambda: ref.stream_chunk_ref(*args, gate=gate), 3), **b}
+        tk = times[K]
+        form = "tick" if K <= TICK_MAX_K else "chunk"
+        print(f"  stream_chunk gated {N} x K={K} ({form} form): {g_ms:.5f} / {g2_ms:.5f} ms, "
+              f"reactive instance {r_ms:.5f} ms (in turns); bound {b['bound_ms'] * 1e3:.3f} us "
+              f"({b['bound_by']}), {g_ms / b['bound_ms']:.2f}x bound; "
+              f"plain {tk['plain_ms']:.3f} ms")
+    print_breakdown(lambda: rt_b.step_many(sc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K]), reps=6,
+                    unit="forecast-gated chunk")
+    rt_r = FleetRuntime(sc.fleet)
+    stream(rt_r, sc.demand[:, :SWEEP_T0], STREAM_K)
+    print_breakdown(lambda: rt_r.step_many(sc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K]), reps=6,
+                    unit="reactive chunk")
+    trt_b = FleetRuntime(tsc.topo, routing=r0, policy=tpol)
+    stream(trt_b, tsc.demand[:, :SWEEP_T0], STREAM_K)
+    block, _, _ = trt_b._pack(tsc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K], None)
+    targs = trt_b._chunk_args(torch.from_numpy(block).to(DEVICE), STREAM_K, False)
+    tgate = trt_b._gate
+    twant = ref.stream_chunk_routed_ref(*targs, gate=tgate)
+    tcall = lambda: stream_chunk_routed(*targs, gate=tgate)
+    tgot = tcall()
+    check(same_bits(tgot[0], twant[0]) and same_bits(tgot[1], twant[1]),
+          "gated stream_chunk_routed != plain at the timed block")
+    stages = ("routed_pair_kernel", "routed_port_kernel")
+    tg = kernel_device_ms(tcall, 20, stages, per_call=1)
+    tr = kernel_device_ms(lambda: stream_chunk_routed(*targs), 20, stages, per_call=1)
+    E = trt_b.arrays.routing.n_legs
+    tb = routed_chunk_bound(P, M, STREAM_K, Kt, E, False, gated=True)
+    t_plain = sync_ms(lambda: ref.stream_chunk_routed_ref(*targs, gate=tgate), 3)
+    t_ms = tg["routed_pair_kernel"] + tg["routed_port_kernel"]
+    print(f"  stream_chunk_routed gated {P} pairs x K={STREAM_K} on {M} ports, {E} legs: "
+          f"{t_ms:.5f} ms (pair stage {tg['routed_pair_kernel']:.5f}, port stage "
+          f"{tg['routed_port_kernel']:.5f}); reactive instance "
+          f"{tr['routed_pair_kernel'] + tr['routed_port_kernel']:.5f} ms (pair "
+          f"{tr['routed_pair_kernel']:.5f}, port {tr['routed_port_kernel']:.5f}); bound "
+          f"{tb['bound_ms'] * 1e3:.3f} us ({tb['bound_by']}), {t_ms / tb['bound_ms']:.1f}x bound; "
+          f"plain {t_plain:.3f} ms")
+    print_breakdown(lambda: trt_b.step_many(tsc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K]), reps=6,
+                    unit="forecast-gated topology chunk")
+    print(f"forecast stream phase: {time.perf_counter() - t_phase:.1f} s")
+    t24 = times[STREAM_K]
+    return {
+        "stream_chunk_gated": {
+            "launches": fleet_launches, "max_abs_err": gated_err, "ms": t24["ms"],
+            "plain_ms": t24["plain_ms"], "bound_ms": t24["bound_ms"],
+            "bound_by": t24["bound_by"], "library_ms": None},
+        "stream_chunk_routed_gated": {
+            "launches": topo_launches["stream_chunk_routed_gated"], "max_abs_err": routed_err,
+            "ms": t_ms, "plain_ms": t_plain, "bound_ms": tb["bound_ms"],
+            "bound_by": tb["bound_by"], "library_ms": None},
     }
 
 
@@ -3357,7 +3701,8 @@ def main() -> int:
     topo_row, topo_ctx = topology_phase(card.splitlines()[0], scen[SIZES[-1][0]])
     routed_row = topology_stream_phase(card.splitlines()[0], topo_ctx)
     oracle_row = report_phase(card.splitlines()[0], scen[N_big], plans[N_big, False], topo_ctx)
-    fc_rows = forecast_phase(card.splitlines()[0])
+    fc_rows, fc_ctx = forecast_phase(card.splitlines()[0])
+    fs_rows = forecast_stream_phase(card.splitlines()[0], fc_ctx, topo_ctx)
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -3423,6 +3768,12 @@ def main() -> int:
         {"name": "fsm_scan_gated", "route": "cuda",
          "source": "src/repro_torch/csrc/fsm_scan.cu",
          "replaces": "src/repro/fleet/policy.py:334", **fc_rows["fsm_scan_gated"]},
+        {"name": "stream_chunk_gated", "route": "cuda",
+         "source": "src/repro_torch/csrc/stream_chunk.cu",
+         "replaces": "src/repro/fleet/runtime.py:339", **fs_rows["stream_chunk_gated"]},
+        {"name": "stream_chunk_routed_gated", "route": "cuda",
+         "source": "src/repro_torch/csrc/stream_chunk_routed.cu",
+         "replaces": "src/repro/fleet/runtime.py:465", **fs_rows["stream_chunk_routed_gated"]},
     ]
     print(f"profiler: {len(PAD_SEEN)} traces; pad kernels recorded of {TRACE_PADS}, by trace: "
           f"{PAD_SEEN}")

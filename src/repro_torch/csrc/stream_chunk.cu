@@ -77,6 +77,18 @@
 //   barriers a sub-tile, three sub-tiles take 15 of the 16 a block has (0 is
 //   __syncthreads, once a tile, for the tables and for reusing the tile's
 //   shared memory).
+//
+// The forecast-gated policy (ForecastGatedPolicy.step in replay mode,
+// src/repro/fleet/runtime.py:297-306, and :519-524, :546-548 in the chunk) is
+// a GATED instance of each form: the hour's raw triggers go through
+// fsm_step.cuh's fsm_gated_triggers, on the thresholds fsm_gate forms once a
+// row, against the hour's predicted mode costs p_vpn, p_cci, two hour-major
+// (T_pred, M) planes read at hour min(t0 + k, T_pred - 1) (the JAX runtime's
+// clipped column). The tick form loads them with the row's other loads; in
+// the chunk form the pair warps load their pair's two values with its demand
+// (an hour's rows are contiguous, so the loads coalesce), and the FSM warp
+// stays integer-only. The reactive and hysteresis instances read nothing of
+// them and compile as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,7 +130,10 @@ struct ChunkArgs {
   const double* cal_in;      // (2, M) dcum, dcum_month
   const int* fsm_in;         // (4, M)
   const double* pref_in;     // (2, M)
-  int renew_in_chunks, t0, phase0, hours_per_month, K, M, Kt;
+  const double* p_vpn;       // (T_pred, M) predicted mode costs: the GATED instances
+  const double* p_cci;
+  const double* margin;      // (M,)
+  int renew_in_chunks, t0, phase0, hours_per_month, K, M, Kt, T_pred;
   double* out;               // (8K + 4, M)
   int* fsm_out;              // (4, M)
 };
@@ -135,9 +150,16 @@ __device__ __forceinline__ fsm::FsmCarry fsm_carry(const ChunkArgs& a, int n) {
   return c;
 }
 
+// The hour of the predicted-cost planes that chunk hour k reads, row-major
+// offset of row n: the JAX runtime's clip(t0 + k, 0, T_pred - 1).
+__device__ __forceinline__ int64_t gate_at(const ChunkArgs& a, int k, int n) {
+  return (int64_t)min(a.t0 + k, a.T_pred - 1) * a.M + n;
+}
+
 // ---------------------------------------------------------------- tick form
 
-template <int K, int KT>   // K hours; tables of at most KT tiers, padded to KT
+// K hours; tables of at most KT tiers, padded to KT; GATED: the forecast gates
+template <int K, int KT, bool GATED>
 __global__ void __launch_bounds__(kTickThreads, 8)
 stream_chunk_tick_kernel(const ChunkArgs a) {
   const int n = blockIdx.x * kTickThreads + threadIdx.x;
@@ -148,6 +170,7 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
 
   // every load of the row first
   double dv[K], cv[K], bv[K], bc[K];
+  [[maybe_unused]] double gv[K], gc[K];   // GATED: the hours' predicted mode costs
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int64_t i = (int64_t)k * M + n;
@@ -155,6 +178,10 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
     cv[k] = endo ? a.cci_demand[i] : 0.0;
     bv[k] = a.pre_v[i];
     bc[k] = a.pre_c[i];
+    if constexpr (GATED) {
+      gv[k] = a.p_vpn[gate_at(a, k, n)];
+      gc[k] = a.p_cci[gate_at(a, k, n)];
+    }
   }
   double tb[KT], tr[KT];                  // past Kt: the last bound, rate 0 (terms +0.0)
   const double* rb = a.bounds + (int64_t)n * a.Kt;
@@ -167,6 +194,8 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
   const double cap = a.capacity[n], lvpn = a.L_vpn[n], lease = a.lease_cci[n], cc = a.c_cci[n];
   const int h = a.win[n];
   const fsm::FsmRow p = fsm_row(a, n);
+  [[maybe_unused]] fsm::FsmGate g = {};
+  if constexpr (GATED) g = fsm::fsm_gate(p, a.margin[n]);
   fsm::FsmCarry fc = fsm_carry(a, n);
   double dcum = a.cal_in[n], month = a.cal_in[M + n];
   double pv = a.pref_in[n], pc = a.pref_in[M + n];
@@ -218,6 +247,7 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
     const double rv = __dsub_rn(sv[k], base_v);
     const double rc = __dsub_rn(sc[k], base_c);
     fsm::fsm_triggers(p, rv, rc, raw_req[k], raw_rel[k]);
+    if constexpr (GATED) fsm::fsm_gated_triggers(g, gv[k], gc[k], raw_req[k], raw_rel[k]);
     a.out[i] = v[k];
     a.out[KM + i] = c[k];
     a.out[2 * KM + i] = rv;
@@ -271,7 +301,7 @@ struct PipeTile {
   int state[kTile][kRows];
 };
 
-template <int S>
+template <int S, bool GATED>
 __global__ void __launch_bounds__(32 * (4 * S + 3), 1)
 stream_chunk_pipe_kernel(const ChunkArgs a) {
   constexpr int kTile = kSub * S;
@@ -292,6 +322,7 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
     const bool has_row = r < rows;
     double cap = 0.0, lvpn = 0.0, lease = 0.0, cc = 0.0;
     fsm::FsmRow pr = {};                   // the thresholds the window sums meet
+    [[maybe_unused]] fsm::FsmGate g = {};  // GATED: the forecast gates' thresholds
     int h = 0;
     if (has_row) {
       cap = a.capacity[n];
@@ -301,6 +332,7 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
       pr.theta1 = a.theta1[n];
       pr.theta2 = a.theta2[n];
       h = a.win[n];
+      if constexpr (GATED) g = fsm::fsm_gate(pr, a.margin[n]);
     }
     const double* tb = tables + r * Kt;
     const double* tr = tables + (kRows + r) * Kt;
@@ -308,11 +340,16 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
       const bool mine = has_row && kk < K - k0;
       const int64_t i = (int64_t)(k0 + kk) * M + n;
       double dv = 0.0, cv = 0.0, bv = 0.0, bc = 0.0;
+      [[maybe_unused]] double gv = 0.0, gc = 0.0;
       if (mine) {
         dv = a.demand[i];
         if (endo) cv = a.cci_demand[i];
         bv = a.pre_v[i];
         bc = a.pre_c[i];
+        if constexpr (GATED) {
+          gv = a.p_vpn[gate_at(a, k0 + kk, n)];
+          gc = a.p_cci[gate_at(a, k0 + kk, n)];
+        }
       }
       if (k0 == 0) {
         for (int o = tid; o < rows * Kt; o += kPairWarps * 32) {
@@ -354,6 +391,7 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
         const double rc = __dsub_rn(sc, in_tile ? sm.sc[lw - k0][r] : bc);
         bool raw_req, raw_rel;
         fsm::fsm_triggers(pr, rv, rc, raw_req, raw_rel);
+        if constexpr (GATED) fsm::fsm_gated_triggers(g, gv, gc, raw_req, raw_rel);
         sm.trig[kk][r] = (int)raw_req | (int)raw_rel << 1;
         w[0] = rv;
         w[1] = rc;
@@ -496,33 +534,60 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
   }
 }
 
-template <int K>
+template <int K, bool GATED>
 int launch_tick(const ChunkArgs& a, cudaStream_t stream) {
   const int blocks = (a.M + kTickThreads - 1) / kTickThreads;
   if (a.Kt <= kTickMaxTiers / 2)
-    stream_chunk_tick_kernel<K, kTickMaxTiers / 2><<<blocks, kTickThreads, 0, stream>>>(a);
+    stream_chunk_tick_kernel<K, kTickMaxTiers / 2, GATED>
+        <<<blocks, kTickThreads, 0, stream>>>(a);
   else
-    stream_chunk_tick_kernel<K, kTickMaxTiers><<<blocks, kTickThreads, 0, stream>>>(a);
+    stream_chunk_tick_kernel<K, kTickMaxTiers, GATED><<<blocks, kTickThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int S>
+template <int S, bool GATED>
 int launch_pipe(const ChunkArgs& a, cudaStream_t stream) {
   const size_t tables = sizeof(double) * 2 * kRows * (size_t)a.Kt;
   if (sizeof(PipeTile<kSub * S>) + tables > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (sizeof(PipeTile<kSub * S>) + tables > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stream_chunk_pipe_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tables);
+    const cudaError_t err = cudaFuncSetAttribute(stream_chunk_pipe_kernel<S, GATED>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)tables);
     if (err != cudaSuccess) return (int)err;
   }
-  stream_chunk_pipe_kernel<S><<<(a.M + kRows - 1) / kRows, 32 * (4 * S + 3), tables, stream>>>(a);
+  stream_chunk_pipe_kernel<S, GATED>
+      <<<(a.M + kRows - 1) / kRows, 32 * (4 * S + 3), tables, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The launch of `form` (the C entry's) in one instance, gated or not.
+template <bool GATED>
+int launch(const ChunkArgs& a, int form, cudaStream_t s) {
+  if (form == 0) {
+    if (a.K > kTickMaxK || a.Kt > kTickMaxTiers) return (int)cudaErrorInvalidValue;
+    switch (a.K) {
+      case 1: return launch_tick<1, GATED>(a, s);
+      case 2: return launch_tick<2, GATED>(a, s);
+      case 3: return launch_tick<3, GATED>(a, s);
+      case 4: return launch_tick<4, GATED>(a, s);
+      case 5: return launch_tick<5, GATED>(a, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (form) {
+    case 1: return launch_pipe<1, GATED>(a, s);
+    case 2: return launch_pipe<2, GATED>(a, s);
+    case 3: return launch_pipe<kMaxSubs, GATED>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // form: 0 the tick form (K <= kTickMaxK, Kt <= kTickMaxTiers), 1..3 the chunk
 // form with that many 8-hour sub-tiles a tile; kernels/stream_chunk.py::launch_form picks it.
+// p_vpn, p_cci (T_pred, M) and margin (M,) select the forecast-gated instance;
+// null p_vpn the reactive/hysteresis one (T_pred is then not read).
 extern "C" int stream_chunk_f64(const double* demand, const double* cci_demand,
                                 const double* pre_v, const double* pre_c,
                                 const double* capacity, const double* L_vpn,
@@ -532,32 +597,20 @@ extern "C" int stream_chunk_f64(const double* demand, const double* cci_demand,
                                 const int* D, const int* T_cci, const int* up_hold,
                                 const int* down_hold, const double* cal_in,
                                 const int* fsm_in, const double* pref_in,
-                                int renew_in_chunks, int t0, int hours_per_month, int K,
-                                int M, int Kt, int form, double* out, int* fsm_out,
-                                void* stream) {
+                                const double* p_vpn, const double* p_cci,
+                                const double* margin, int renew_in_chunks, int t0,
+                                int hours_per_month, int K, int M, int Kt, int form,
+                                int T_pred, double* out, int* fsm_out, void* stream) {
   if (M == 0) return (int)cudaSuccess;
   if (M < 0 || K < 1 || Kt < 0 || t0 < 0 || hours_per_month < 1)
     return (int)cudaErrorInvalidValue;
+  const bool gated = p_vpn != nullptr;
+  if (gated && (p_cci == nullptr || margin == nullptr || T_pred < 1))
+    return (int)cudaErrorInvalidValue;
   const ChunkArgs a = {demand, cci_demand, pre_v, pre_c, capacity, L_vpn, lease_cci, c_cci,
                        bounds, rates, theta1, theta2, h, D, T_cci, up_hold, down_hold,
-                       cal_in, fsm_in, pref_in, renew_in_chunks, t0, t0 % hours_per_month,
-                       hours_per_month, K, M, Kt, out, fsm_out};
+                       cal_in, fsm_in, pref_in, p_vpn, p_cci, margin, renew_in_chunks, t0,
+                       t0 % hours_per_month, hours_per_month, K, M, Kt, T_pred, out, fsm_out};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (form == 0) {
-    if (K > kTickMaxK || Kt > kTickMaxTiers) return (int)cudaErrorInvalidValue;
-    switch (K) {
-      case 1: return launch_tick<1>(a, s);
-      case 2: return launch_tick<2>(a, s);
-      case 3: return launch_tick<3>(a, s);
-      case 4: return launch_tick<4>(a, s);
-      case 5: return launch_tick<5>(a, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (form) {
-    case 1: return launch_pipe<1>(a, s);
-    case 2: return launch_pipe<2>(a, s);
-    case 3: return launch_pipe<kMaxSubs>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return gated ? launch<true>(a, form, s) : launch<false>(a, form, s);
 }

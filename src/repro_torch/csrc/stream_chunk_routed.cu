@@ -81,6 +81,16 @@
 //     the snapshots, warp 0's lanes form each hour's window sums and
 //     triggers, and lane 0 of warp 1 runs the FSM (fsm_step.cuh) alone,
 //     integers only, so no chain waits on off-chain work.
+//
+// The forecast-gated policy in replay mode is the port stage's GATED instance
+// (the pair stage does not change): warp 0's lanes, one an hour, gate their
+// raw triggers with fsm_step.cuh's fsm_gated_triggers on the thresholds
+// fsm_gate forms once a port, against the port's predicted mode costs at hour
+// min(t0 + k, T_pred - 1) of two hour-major (T_pred, M) planes. Each lane
+// loads its hour's two values at the top of the hour tile, so the loads (K x
+// M elements a chunk, strided by M across the lanes) are in flight during
+// the leg fold. The predictions are per port and do not depend on the
+// routing, so reroute() leaves them as they are.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -229,6 +239,7 @@ struct PortSmem {
   int state[kTile];
 };
 
+template <bool GATED>
 __global__ void __launch_bounds__(kPortThreads)
 routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
                    const double* __restrict__ d_cci,       // (P, K) scratch
@@ -251,7 +262,10 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
                    const int* __restrict__ start,          // (M + 1,)
                    const int* __restrict__ fsm_in,         // (4, M)
                    const double* __restrict__ pref_in,     // (2, M)
-                   int renew_in_chunks, int t0, int K, int M,
+                   const double* __restrict__ p_vpn,       // (T_pred, M): GATED only
+                   const double* __restrict__ p_cci,
+                   const double* __restrict__ margin,      // (M,)
+                   int renew_in_chunks, int t0, int K, int M, int T_pred,
                    double* out,                            // planes written, snap rows read back
                    double* __restrict__ pref_out,          // (2, M) in the result
                    int* __restrict__ fsm_out) {            // (4, M)
@@ -264,6 +278,8 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
   const fsm::FsmRow p = {theta1[m], theta2[m], delay[m], commit[m], up_hold[m],
                          down_hold[m], renew_in_chunks != 0};
   const int h = win[m];
+  [[maybe_unused]] fsm::FsmGate g = {};   // GATED: warp 0's gate thresholds
+  if (GATED && warp == 0) g = fsm::fsm_gate(p, margin[m]);
   // Warp 1 prices the CCI plane; lane 0 of warp 0 carries the cost prefixes,
   // lane 0 of warp 1 the FSM.
   double lease = 0.0, cc = 0.0, pcap = 0.0;
@@ -287,6 +303,12 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
     const int k = k0 + lane;                        // lane's hour, for warps 0, 1 and 3
     const int64_t i = (int64_t)k * M + m;
     const int lw = max(0, t0 + k - h);              // the hour's window starts here
+    [[maybe_unused]] double gv = 0.0, gc = 0.0;     // GATED: the hour's predicted costs
+    if (GATED && warp == 0 && lane < len) {
+      const int64_t j = (int64_t)min(t0 + k, T_pred - 1) * M + m;
+      gv = p_vpn[j];
+      gc = p_cci[j];
+    }
     if (warp == 3 && lane < len) {                  // the window base, when older than the tile
       double bv = 0.0, bc = 0.0;
       if (lw < t0) {                                // before the chunk: the host's read
@@ -368,6 +390,7 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
       const double rc = __dsub_rn(sc, in_tile ? sm.sc[j] : sm.bc[lane]);
       bool raw_req, raw_rel;
       fsm::fsm_triggers(p, rv, rc, raw_req, raw_rel);
+      if constexpr (GATED) fsm::fsm_gated_triggers(g, gv, gc, raw_req, raw_rel);
       sm.trig[lane] = (int)raw_req | (int)raw_rel << 1;
       out[2 * KM + i] = rv;
       out[3 * KM + i] = rc;
@@ -404,10 +427,35 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
   }
 }
 
+// The port stage's launch, in the instance `gated` picks.
+template <bool GATED>
+int launch_port(const double* vpn_pair, const double* d_cci, const double* pre_v,
+                const double* pre_c, const double* lease_cci, const double* c_cci,
+                const double* port_capacity, const double* theta1, const double* theta2,
+                const int* h, const int* D, const int* T_cci, const int* up_hold,
+                const int* down_hold, const int* leg_pair, const double* vpn_w,
+                const double* attach_w, const int* order, const int* start, const int* fsm_in,
+                const double* pref_in, const double* p_vpn, const double* p_cci,
+                const double* margin, int renew_in_chunks, int t0, int K, int M, int T_pred,
+                double* out, double* pref_out, int* fsm_out, size_t gathered, cudaStream_t s) {
+  if (sizeof(PortSmem) + gathered > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        routed_port_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gathered);
+    if (err != cudaSuccess) return (int)err;
+  }
+  routed_port_kernel<GATED><<<M, kPortThreads, gathered, s>>>(
+      vpn_pair, d_cci, pre_v, pre_c, lease_cci, c_cci, port_capacity, theta1, theta2, h, D,
+      T_cci, up_hold, down_hold, leg_pair, vpn_w, attach_w, order, start, fsm_in, pref_in,
+      p_vpn, p_cci, margin, renew_in_chunks, t0, K, M, T_pred, out, pref_out, fsm_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // scratch: 2 P K float64 (vpn_pair, then the clipped CCI demand, pair-major).
 // out: 8 K M + 2 P + 2 M float64. All pointers contiguous on one device.
+// p_vpn, p_cci (T_pred, M) and margin (M,) select the port stage's
+// forecast-gated instance; null p_vpn the reactive/hysteresis one.
 extern "C" int stream_chunk_routed_f64(
     const double* demand, const double* cci_demand, const double* pre_v, const double* pre_c,
     const double* pair_capacity, const double* L_vpn, const double* bounds, const double* rates,
@@ -417,9 +465,13 @@ extern "C" int stream_chunk_routed_f64(
     const int* leg_pair, const double* vpn_w, const double* attach_w, const int* order,
     const int* start,
     const double* cal_in, const int* fsm_in, const double* pref_in, double* scratch,
+    const double* p_vpn, const double* p_cci, const double* margin,
     int renew_in_chunks, int t0, int hours_per_month, int K, int P, int M, int E, int Kt,
-    double* out, int* fsm_out, void* stream) {
+    int T_pred, double* out, int* fsm_out, void* stream) {
   if (K < 1 || P < 0 || M < 0 || E < 0 || Kt < 0 || t0 < 0 || hours_per_month < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool gated = p_vpn != nullptr;
+  if (gated && (p_cci == nullptr || margin == nullptr || T_pred < 1))
     return (int)cudaErrorInvalidValue;
   const size_t tables = sizeof(double) * 2 * kRows * (size_t)Kt;
   if (sizeof(PairTile) + tables > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -441,15 +493,12 @@ extern "C" int stream_chunk_routed_f64(
     if (err != cudaSuccess) return (int)err;
   }
   if (M > 0) {
-    if (sizeof(PortSmem) + gathered > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          routed_port_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gathered);
-      if (err != cudaSuccess) return (int)err;
-    }
-    routed_port_kernel<<<M, kPortThreads, gathered, s>>>(
-        vpn_pair, d_cci, pre_v, pre_c, lease_cci, c_cci, port_capacity, theta1, theta2, h, D,
-        T_cci, up_hold, down_hold, leg_pair, vpn_w, attach_w, order, start, fsm_in, pref_in,
-        renew_in_chunks, t0, K, M, out, out + 8 * KM + 2 * P, fsm_out);
+    const auto port = gated ? launch_port<true> : launch_port<false>;
+    const int err = port(vpn_pair, d_cci, pre_v, pre_c, lease_cci, c_cci, port_capacity, theta1,
+                         theta2, h, D, T_cci, up_hold, down_hold, leg_pair, vpn_w, attach_w,
+                         order, start, fsm_in, pref_in, p_vpn, p_cci, margin, renew_in_chunks,
+                         t0, K, M, T_pred, out, out + 8 * KM + 2 * P, fsm_out, gathered, s);
+    if (err != (int)cudaSuccess) return err;
   }
   return (int)cudaGetLastError();
 }

@@ -181,6 +181,11 @@ class ForecastGatedPolicy(NamedTuple):
 
     kind = "forecast"
 
+    def init_carry(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-row FSM carry at hour 0: ``(state, t_state)``, (N,) int32."""
+        z = torch.zeros_like(self.toggle.h)
+        return (z, z)
+
     def holds(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(1, 1)``: the gated cascade is the reactive one."""
         one = torch.ones_like(self.toggle.h)

@@ -38,13 +38,17 @@ the ports between the pair pricing and the port FSMs).
 :meth:`~FleetRuntime.step` is :meth:`~FleetRuntime.step_many` with K = 1. On
 the CPU (``device="cpu"``) the kernels' plain versions run instead.
 
-Ported: both routings, the reactive and hysteresis policies, endogenous
-CCI demand, ``reroute``, and the actuation layer on top
-(:class:`ElasticFleetPlanner`, per link or per port, whose per-actuator
-modes drive :func:`repro_torch.dist.collectives.fleet_sync_grads`). Not
-ported yet, each raising ``NotImplementedError``: the forecast-gated policy
-in the stream and ``StreamingForecaster`` (ROADMAP Queue 1, item 6b; the
-offline planners run it) and observability (item 8).
+Ported: both routings, the reactive and hysteresis policies, the
+forecast-gated policy in replay mode (a :class:`ForecastGatedPolicy` with
+its ``cost_coef`` given: its predicted mode costs are formed once, at
+construction, as the offline planners form them, and the chunk kernels'
+gated instances read them hour by hour), endogenous CCI demand,
+``reroute``, and the actuation layer on top (:class:`ElasticFleetPlanner`,
+per link or per port, whose per-actuator modes drive
+:func:`repro_torch.dist.collectives.fleet_sync_grads`). Not ported yet,
+each raising ``NotImplementedError``: live forecasting in the stream
+(``forecaster=``, ``StreamingForecaster``; ROADMAP Queue 1, item 6b-2) and
+observability (item 8).
 """
 from __future__ import annotations
 
@@ -64,10 +68,12 @@ from .routing import RoutingPlan, as_routing_plan, index_legs
 from .spec import FleetArrays, FleetSpec
 from .topology import TopologyArrays, TopologySpec
 
-_FORECAST = ("streaming the forecast-gated policy (its gates in stream_chunk and "
-             "stream_chunk_routed, the live SSM step) and StreamingForecaster are ROADMAP "
-             "Queue 1, item 6b; the offline planners (plan_fleet, plan_topology, "
-             "replay_plan_topology) run the policy")
+_FORECAST = ("live forecasting in the stream (forecaster=, the SSM step inside the chunk, "
+             "StreamingForecaster, streaming_forecast_policy) is ROADMAP Queue 1, item 6b-2; "
+             "a ForecastGatedPolicy with its cost_coef given streams in replay mode")
+_COST_COEF = ("streaming a ForecastGatedPolicy needs explicit demand->cost coefficients: "
+              "build it with forecast_fleet_policy/forecast_topology_policy (or pass "
+              "cost_coef= to forecast_gated_policy)")
 _OBS = "observability (obs=) is ROADMAP Queue 1, item 8"
 
 
@@ -99,8 +105,8 @@ class RuntimeState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Frozen construction options of a :class:`FleetRuntime` (the fields of
-    :class:`repro.fleet.runtime.RuntimeConfig`). ``forecaster`` and ``obs``
-    belong to slices not ported yet and must stay unset."""
+    :class:`repro.fleet.runtime.RuntimeConfig`). ``forecaster`` (live mode)
+    and ``obs`` belong to slices not ported yet and must stay unset."""
 
     routing: object = None
     policy: object = None
@@ -112,7 +118,7 @@ class RuntimeConfig:
     def validate(self) -> "RuntimeConfig":
         if not (int(self.hours_per_month) >= 1):
             raise ValueError(f"hours_per_month must be >= 1, got {self.hours_per_month}")
-        if self.forecaster is not None or isinstance(self.policy, ForecastGatedPolicy):
+        if self.forecaster is not None:
             raise not_ported(_FORECAST)
         if self.obs is not None and self.obs is not False:
             raise not_ported(_OBS)
@@ -131,6 +137,7 @@ class ResolvedRuntime:
     hours_per_month: int
     routing_plan: Optional[RoutingPlan] = None  # the typed plan behind
                                   # arrays.routing when a spec was stacked
+    pred_source: Optional[str] = None  # "replay" for a ForecastGatedPolicy
 
 
 def resolve_runtime_operands(spec, config: RuntimeConfig,
@@ -142,7 +149,11 @@ def resolve_runtime_operands(spec, config: RuntimeConfig,
     needs ``config.routing`` and is stacked with it (the leg operand and its
     port-major index built on the host); :class:`FleetArrays` and
     :class:`TopologyArrays` are moved, and the latter carry their own
-    routing, so a routing beside them is an error."""
+    routing, so a routing beside them is an error. A
+    :class:`ForecastGatedPolicy` streams in replay mode (``pred_source =
+    "replay"``): it needs its ``cost_coef`` (the reference's text, as a
+    ``ValueError``) and a (rows, T_pred) ``pred_demand``, rows being the
+    decision rows (ports in topology mode)."""
     config = config.validate()
     dev = resolve_device(device)
     kind = "reactive"
@@ -172,17 +183,27 @@ def resolve_runtime_operands(spec, config: RuntimeConfig,
         raise TypeError("FleetRuntime streams a FleetSpec, FleetArrays, TopologySpec or "
                         f"TopologyArrays, got {type(spec).__name__}")
     policy = config.policy
+    pred_source = None
     if policy is None:
-        if kind == "forecast":
-            raise not_ported(_FORECAST)
         policy = make_policy(kind, arrays.toggle, renew_in_chunks=config.renew_in_chunks)
     elif isinstance(policy, (ReactivePolicy, HysteresisPolicy)):
         policy = policy_to(policy, dev)
+    elif isinstance(policy, ForecastGatedPolicy):
+        if policy.cost_coef is None:
+            raise ValueError(_COST_COEF)
+        M = arrays.toggle.theta1.shape[0]
+        shape = tuple(policy.pred_demand.shape)
+        if len(shape) != 2 or shape[0] != M or shape[1] < 1:
+            raise ValueError(f"replay mode indexes pred_demand columns per tick: expected a "
+                             f"({M}, T_pred >= 1) prediction matrix, got {shape}")
+        policy = policy_to(policy, dev)
+        pred_source = "replay"
     else:
-        raise not_ported(f"{_FORECAST} (got {type(policy).__name__})")
+        raise TypeError(f"FleetRuntime streams a reactive, hysteresis or forecast-gated "
+                        f"policy, got {type(policy).__name__}")
     return ResolvedRuntime(spec=topo_spec, topology=isinstance(arrays, TopologyArrays),
                            arrays=arrays, policy=policy, hours_per_month=hours_per_month,
-                           routing_plan=plan)
+                           routing_plan=plan, pred_source=pred_source)
 
 
 class FleetRuntime:
@@ -204,14 +225,18 @@ class FleetRuntime:
         :class:`TopologySpec` (legacy (P,) indices / (M, P) one-hot matrices
         go through the ``DeprecationWarning`` shim). Its padded leg bound is
         the largest plan :meth:`reroute` can swap in.
-      policy: a reactive or hysteresis policy with per-row tensors (per port
-        in topology mode); ``None`` builds the spec's kind.
+      policy: a reactive, hysteresis or forecast-gated policy with per-row
+        tensors (per port in topology mode); ``None`` builds the spec's kind.
+        A :class:`ForecastGatedPolicy` streams in replay mode: it needs its
+        ``cost_coef``, and hour ``t`` reads column ``min(t, T_pred − 1)`` of
+        its predicted mode costs.
       hours_per_month: billing calendar; taken from the spec when a spec is
         given (pass arrays to choose it).
       renew_in_chunks: release only at multiples of ``T_cci``.
       device: ``None`` runs on CUDA and raises without it; ``"cpu"`` runs
         the kernels' plain versions.
-      forecaster, obs: not ported yet (``NotImplementedError``).
+      forecaster, obs: not ported yet (``NotImplementedError``; live
+        forecasting is ROADMAP Queue 1, item 6b-2).
     """
 
     def __init__(
@@ -236,6 +261,7 @@ class FleetRuntime:
         self.topology = r.topology
         self.arrays = r.arrays
         self.policy = r.policy
+        self.pred_source = r.pred_source
         self.hours_per_month = r.hours_per_month
         tog = self.arrays.toggle
         self._h_np = tog.h.cpu().numpy().astype(np.int64)
@@ -256,8 +282,27 @@ class FleetRuntime:
         else:
             self._chunk_rows = (a.capacity, a.L_vpn, a.L_cci + a.V_cci, a.c_cci,
                                 a.tier_bounds, a.tier_rates, *fsm_rows)
+        self._gate = self._gate_planes() if self.pred_source == "replay" else None
         self._set_routing_caches(r.routing_plan)
         self.reset()
+
+    def _gate_planes(self) -> tuple:
+        """The forecast gate's operands, formed once: ``(p_vpn, p_cci, margin,
+        T_pred)``. The predicted mode costs come from the offline planners'
+        own call (``ForecastGatedPolicy.features`` with the coefficients
+        given: :func:`~repro_torch.fleet.policy.predicted_mode_costs` over the
+        whole (M, T_pred) plane), so the stream's gates compare the bits
+        ``plan_fleet`` and ``replay_plan_topology`` compare; they are kept
+        hour-major, two contiguous (T_pred, M) float64 tensors on the device
+        (a transpose copy keeps every bit), beside the (M,) margins.
+        ``reset()`` and ``reroute()`` leave them as they are: the predictions
+        are per decision row and do not depend on the routing."""
+        pol = self.policy
+        f64 = torch.float64
+        like = torch.empty(0, dtype=f64, device=self.device)
+        p_vpn, p_cci = pol.features(None, like, like)
+        return (p_vpn.T.contiguous(), p_cci.T.contiguous(), pol.margin.to(f64).contiguous(),
+                int(pol.pred_demand.shape[1]))
 
     @classmethod
     def from_config(cls, spec, config: RuntimeConfig, *,
@@ -376,7 +421,7 @@ class FleetRuntime:
         the result's tail."""
         chunk = ops.stream_chunk_routed if self.topology else ops.stream_chunk
         host, fsm = chunk(*self._chunk_args(block, K, endo),
-                          renew_in_chunks=self.policy.renew_in_chunks)
+                          renew_in_chunks=self.policy.renew_in_chunks, gate=self._gate)
         M, P = self.n_rows, self.n_demand_rows
         tail = host.view(-1)[8 * K * M:]
         self._state = self._state._replace(fsm=fsm, dev_cal=tail[:2 * P].view(2, P),
@@ -385,7 +430,9 @@ class FleetRuntime:
 
     def _chunk_args(self, block: torch.Tensor, K: int, endo: bool) -> tuple:
         """The chunk wrapper's positional arguments for ``block`` at the
-        current state and routing (``renew_in_chunks`` is the policy's)."""
+        current state and routing (``renew_in_chunks`` is the policy's, and
+        ``gate=self._gate`` the forecast gate's operands, None for the
+        reactive and hysteresis policies)."""
         st = self._state
         if self.topology:
             rows = (*self._pair_rows, self._lease, *self._port_rows, self.arrays.routing)

@@ -3,9 +3,10 @@
 Facade of :mod:`repro.fleet.stream`: the incremental runtime
 (:class:`FleetRuntime`, its frozen :class:`RuntimeConfig`, and the operand
 resolution it shares) and the endogenous-demand planner over it
-(:class:`ElasticFleetPlanner`, per link or per port). The live forecaster keeps its
-names here and raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+(:class:`ElasticFleetPlanner`, per link or per port). The runtime streams
+the forecast-gated policy in replay mode (its predictions given); the live
+forecaster keeps its names here and raises ``NotImplementedError`` naming
+the ROADMAP item that ports it (6b-2).
 """
 from .runtime import (  # noqa: F401
     _FORECAST,
@@ -20,7 +21,7 @@ from .runtime import (  # noqa: F401
 
 
 class StreamingForecaster:
-    """Not ported yet (ROADMAP Queue 1, item 6b): the live SSM demand forecaster."""
+    """Not ported yet (ROADMAP Queue 1, item 6b-2): the live SSM demand forecaster."""
 
     def __init__(self, *args, **kwargs):
         raise not_ported(_FORECAST)
@@ -31,8 +32,8 @@ class StreamingForecaster:
 
 
 def streaming_forecast_policy(*args, **kwargs):
-    """Not ported yet (ROADMAP Queue 1, item 6b): the live-mode forecast policy
-    factory."""
+    """Not ported yet (ROADMAP Queue 1, item 6b-2): the live-mode forecast
+    policy factory."""
     raise not_ported(_FORECAST)
 
 

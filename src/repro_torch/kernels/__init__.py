@@ -18,7 +18,8 @@ points ``tiered_cost_scan`` and ``tiered_cost_calendar``; replaces the
 Pallas kernel of that name), ``fsm_chunk`` (K hours of the FSM from a
 carry; replaces the ``lax.scan`` of the streaming runtime's chunk) and
 ``stream_chunk`` (the streaming runtime's whole chunk, the calendar pricing
-and the FSM of the last two fused into one launch; the runtime runs it), and
+and the FSM of the last two fused into one launch; the runtime runs it,
+reactive, hysteresis or forecast-gated), and
 for the LM's serving path ``flash_attention`` (blocked online-softmax
 attention) and ``rmsnorm``, and for the actuation path ``int8_quantize`` /
 ``int8_dequantize`` (per-row int8 of the compressed gradient sync) and

@@ -51,13 +51,14 @@ EXACT_FLAGS = ("-fmad=false",)
 #: Launch counts, one per kernel. Each wrapper adds one where it launches
 #: its kernel and nowhere else; a caller zeroes them to see which kernels a
 #: run went through. ``flash_attention`` counts every flash launch and
-#: ``flash_attention_sm90`` those of its Hopper entry; ``fsm_scan`` counts the
-#: FSM scan's reactive and hysteresis launches and ``fsm_scan_gated`` those of
-#: its forecast-gated instance.
+#: ``flash_attention_sm90`` those of its Hopper entry; ``fsm_scan``,
+#: ``stream_chunk`` and ``stream_chunk_routed`` count their reactive and
+#: hysteresis launches, and ``fsm_scan_gated``, ``stream_chunk_gated`` and
+#: ``stream_chunk_routed_gated`` those of their forecast-gated instances.
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "fsm_scan_gated": 0, "forecaster_scan": 0,
-    "tiered_cost_scan": 0, "fsm_chunk": 0,
-    "stream_chunk": 0, "stream_chunk_routed": 0, "flash_attention": 0,
+    "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0, "stream_chunk_gated": 0,
+    "stream_chunk_routed": 0, "stream_chunk_routed_gated": 0, "flash_attention": 0,
     "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0, "int8_dequantize": 0,
     "tiered_cost": 0, "leg_segment_sum": 0, "oracle_dp": 0,
 }
@@ -165,9 +166,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tiered_cost_calendar_f64.restype = i
     lib.fsm_chunk_f64.argtypes = [p] * 11 + [i] * 4 + [p] * 11
     lib.fsm_chunk_f64.restype = i
-    lib.stream_chunk_f64.argtypes = [p] * 20 + [i] * 7 + [p] * 3   # ..., Kt, form, out, ...
+    # ..., pref, p_vpn, p_cci, margin, renew, t0, hpm, K, M, Kt, form, T_pred, out, ...
+    lib.stream_chunk_f64.argtypes = [p] * 23 + [i] * 8 + [p] * 3
     lib.stream_chunk_f64.restype = i
-    lib.stream_chunk_routed_f64.argtypes = [p] * 27 + [i] * 8 + [p] * 3
+    # ..., scratch, p_vpn, p_cci, margin, renew, t0, hpm, K, P, M, E, Kt, T_pred, out, ...
+    lib.stream_chunk_routed_f64.argtypes = [p] * 30 + [i] * 9 + [p] * 3
     lib.stream_chunk_routed_f64.restype = i
     # src0, src1, w0, w1, n_planes, leg_pair, order, start, T, M, out0, out1, stream
     lib.leg_segment_sum_f64.argtypes = [p] * 4 + [i] + [p] * 3 + [i, i] + [p] * 3

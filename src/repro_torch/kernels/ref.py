@@ -29,6 +29,22 @@ def tiered_cost_batched_ref(
     return tiered_marginal_cost_tables(month_cum, demand, bounds, rates)
 
 
+def _gated_triggers(raw_req: torch.Tensor, raw_rel: torch.Tensor, theta1: torch.Tensor,
+                   theta2: torch.Tensor, p_vpn: torch.Tensor, p_cci: torch.Tensor,
+                   margin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ForecastGatedPolicy.step``'s request and release from the raw trigger
+    planes and the hours' predicted mode costs
+    (``src/repro/fleet/policy.py:290-300``): each row's ``θ ± m`` formed
+    once, then multiplied by the hour's predicted VPN cost; ``<`` and ``>``,
+    so a NaN prediction makes every comparison false. ``theta1``,
+    ``theta2`` and ``margin`` come shaped to broadcast against the planes'
+    row axis; ``fsm_step.cuh::fsm_gate`` and ``fsm_gated_triggers`` are the
+    kernels' form of the same arithmetic."""
+    req = (p_cci < (theta1 - margin) * p_vpn) | (raw_req & (p_cci < (theta1 + margin) * p_vpn))
+    rel = (p_cci > (theta2 + margin) * p_vpn) | (raw_rel & (p_cci > (theta2 - margin) * p_vpn))
+    return req, rel
+
+
 def fsm_scan_ref(
     vpn: torch.Tensor, cci: torch.Tensor,
     theta1: torch.Tensor, theta2: torch.Tensor,
@@ -60,9 +76,8 @@ def fsm_scan_ref(
     raw_rel = r_cci > theta2[:, None] * r_vpn
     if gate is not None:
         p_vpn, p_cci, m = gate
-        t1, t2, m = theta1[:, None], theta2[:, None], m[:, None]
-        raw_req = (p_cci < (t1 - m) * p_vpn) | (raw_req & (p_cci < (t1 + m) * p_vpn))
-        raw_rel = (p_cci > (t2 + m) * p_vpn) | (raw_rel & (p_cci > (t2 - m) * p_vpn))
+        raw_req, raw_rel = _gated_triggers(raw_req, raw_rel, theta1[:, None], theta2[:, None],
+                                          p_vpn, p_cci, m[:, None])
     N, T = vpn.shape
     zero = torch.zeros(N, dtype=torch.int32, device=vpn.device)
     carry = (zero, zero)
@@ -166,6 +181,7 @@ def fsm_chunk_ref(
     carry: torch.Tensor, pref: torch.Tensor, t0: int,
     *,
     renew_in_chunks: bool = False,
+    gate: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Plain version of :func:`repro_torch.kernels.fsm_scan.fsm_chunk`: K
     hours of the FSM from a carry, on hour-major (K, M) planes.
@@ -176,7 +192,10 @@ def fsm_chunk_ref(
     snapshots when ``lo ≥ t0`` and from the host's ring reads ``pre_v``/
     ``pre_c`` otherwise (``runtime.py:501-515``), then one
     :func:`repro_torch.fleet.policy._fsm_cascade` step per hour with the
-    hold counters, as :func:`fsm_scan_ref` steps.
+    hold counters, as :func:`fsm_scan_ref` steps. ``gate=(p_vpn, p_cci,
+    margin)``, the chunk's (K, M) predicted mode costs and the (M,) margins,
+    gates the raw triggers (:func:`_gated_triggers`) for the streaming
+    chunks' forecast-gated instances; the ``fsm_chunk`` kernel has none.
     """
     from repro_torch.fleet.policy import _fsm_cascade
 
@@ -195,6 +214,10 @@ def fsm_chunk_ref(
     r_cci = snap_c - torch.where(in_chunk, snap_c.gather(0, jj), pre_c)
     raw_req = r_cci < theta1[None, :] * r_vpn
     raw_rel = r_cci > theta2[None, :] * r_vpn
+    if gate is not None:
+        p_vpn, p_cci, m = gate
+        raw_req, raw_rel = _gated_triggers(raw_req, raw_rel, theta1[None, :], theta2[None, :],
+                                          p_vpn, p_cci, m[None, :])
     state, t_state, up, down = carry
     xs, states = [], []
     for k in range(K):
@@ -241,14 +264,29 @@ def _chunk_pair_half(demand, cci_demand, capacity, L_vpn, bounds, rates, cal, t0
     return d_cci, L_vpn[None, :] + transfer, cal_out
 
 
+def _gate_columns(gate, t0: int, K: int):
+    """The chunk's gate from the runtime's ``(p_vpn, p_cci, margin, T_pred)``
+    (hour-major (T_pred, M) predicted-cost planes, (M,) margins): the (K, M)
+    rows of hours ``min(t0 + k, T_pred − 1)`` (the JAX runtime's clipped
+    column index, ``src/repro/fleet/runtime.py:519-521``) and the margins;
+    None for None."""
+    if gate is None:
+        return None
+    p_vpn, p_cci, margin, T_pred = gate
+    hours = torch.clamp(t0 + torch.arange(K, device=p_vpn.device), max=T_pred - 1)
+    return p_vpn[hours], p_cci[hours], margin
+
+
 def _chunk_port_half(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold,
-                     down_hold, fsm, pref, t0: int, renew_in_chunks: bool):
+                     down_hold, fsm, pref, t0: int, renew_in_chunks: bool, gate=None):
     """The chunk's per-decision-row half on its (K, M) cost planes:
-    :func:`fsm_chunk_ref`. Returns the (8, K, M) float64 planes (vpn, cci,
-    r_vpn, r_cci, snap_v, snap_c, x, state), the prefixes after the chunk
-    (2, M) and the FSM carry (4, M) int32."""
+    :func:`fsm_chunk_ref`, its raw triggers gated by the predicted costs
+    when ``gate`` (:func:`_gate_columns`) is given. Returns the (8, K, M)
+    float64 planes (vpn, cci, r_vpn, r_cci, snap_v, snap_c, x, state), the
+    prefixes after the chunk (2, M) and the FSM carry (4, M) int32."""
     out = fsm_chunk_ref(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold,
-                        down_hold, fsm, pref, t0, renew_in_chunks=renew_in_chunks)
+                        down_hold, fsm, pref, t0, renew_in_chunks=renew_in_chunks,
+                        gate=_gate_columns(gate, t0, vpn.shape[0]))
     f64 = torch.float64
     planes = torch.stack([vpn, cci, out["r_vpn"], out["r_cci"], out["snap_v"], out["snap_c"],
                           out["x"].to(f64), out["state"].to(f64)])
@@ -266,6 +304,7 @@ def stream_chunk_ref(
     t0: int, hours_per_month: int,
     *,
     renew_in_chunks: bool = False,
+    gate=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`repro_torch.kernels.stream_chunk.stream_chunk`:
     the streaming runtime's chunk in fleet mode (``runtime.py:405-577``).
@@ -278,6 +317,9 @@ def stream_chunk_ref(
     :func:`fsm_chunk_ref`, and pack. Returns the (8K + 4, M) float64 result
     (vpn, cci, r_vpn, r_cci, snap_v, snap_c, x, state, K rows each, then dcum,
     dcum_month, vpn_pref, cci_pref) and the FSM carry (4, M) int32.
+    ``gate=(p_vpn, p_cci, margin, T_pred)`` runs the forecast-gated
+    instance: the hour-major (T_pred, M) predicted mode costs, read at hour
+    ``min(t0 + k, T_pred − 1)``, gate the raw triggers (:func:`_gated_triggers`).
     """
     M = capacity.shape[0]
     demand, cci_demand, pre_v, pre_c = _split_block(block, K, M, M, endo)
@@ -286,7 +328,7 @@ def stream_chunk_ref(
     cci = lease_cci[None, :] + c_cci[None, :] * d_cci
     planes, pref_out, carry = _chunk_port_half(
         vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down_hold, fsm, pref,
-        t0, renew_in_chunks)
+        t0, renew_in_chunks, gate)
     return torch.cat([planes.reshape(8 * K, M), cal_out, pref_out]), carry
 
 
@@ -301,6 +343,7 @@ def stream_chunk_routed_ref(
     t0: int, hours_per_month: int,
     *,
     renew_in_chunks: bool = False,
+    gate=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`repro_torch.kernels.stream_chunk.stream_chunk_routed`:
     the streaming runtime's chunk in topology mode (``runtime.py:391-515``
@@ -314,9 +357,10 @@ def stream_chunk_routed_ref(
     and ``d_bill = minimum(seg(d_cci[lp]·attach_w), port_capacity)``; the CCI
     plane is ``lease_cci + c_cci·d_bill`` (``lease_cci = L_cci +
     V_cci·n_attach``, summed once per routing). The port half is
-    :func:`stream_chunk_ref`'s. Returns the flat float64 result (the 8 (K, M)
-    planes, then dcum, dcum_month (P each), vpn_pref, cci_pref (M each)) and
-    the FSM carry (4, M) int32.
+    :func:`stream_chunk_ref`'s, gated as there when ``gate`` (per port) is
+    given. Returns the flat float64 result (the 8 (K, M) planes, then dcum,
+    dcum_month (P each), vpn_pref, cci_pref (M each)) and the FSM carry (4,
+    M) int32.
     """
     P, M = pair_capacity.shape[0], lease_cci.shape[0]
     demand, cci_demand, pre_v, pre_c = _split_block(block, K, P, M, endo)
@@ -329,7 +373,7 @@ def stream_chunk_routed_ref(
     cci = lease_cci[None, :] + c_cci[None, :] * d_bill
     planes, pref_out, carry = _chunk_port_half(
         vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down_hold, fsm, pref,
-        t0, renew_in_chunks)
+        t0, renew_in_chunks, gate)
     return torch.cat([planes.reshape(-1), cal_out.reshape(-1), pref_out.reshape(-1)]), carry
 
 

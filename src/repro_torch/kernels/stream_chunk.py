@@ -17,6 +17,15 @@ packed float64 result:
   onto the shared ports over the routing's leg list, each port's legs in
   leg order, before the port FSMs run: ``csrc/stream_chunk_routed.cu``.
 
+Both take an optional ``gate=(p_vpn, p_cci, margin, T_pred)``: the
+forecast-gated policy's hour-major (T_pred, M) predicted mode costs and its
+(M,) margins. A gated call launches the kernels' gated instances, which
+read the planes at hour ``min(t0 + k, T_pred − 1)`` and gate the raw
+triggers as ``ForecastGatedPolicy.step`` does (``csrc/fsm_step.cuh``); it
+counts under ``stream_chunk_gated`` / ``stream_chunk_routed_gated`` in
+:data:`~repro_torch.kernels._lib.LAUNCHES`, an ungated one under
+``stream_chunk`` / ``stream_chunk_routed``.
+
 Their plain PyTorch versions are :func:`repro_torch.kernels.ref.stream_chunk_ref`
 and :func:`~repro_torch.kernels.ref.stream_chunk_routed_ref`. These wrappers
 take CUDA tensors only; :mod:`repro_torch.kernels.ops` dispatches CPU
@@ -78,6 +87,29 @@ def launch_form(K: int, Kt: int, form: str = "auto") -> int:
     return min(MAX_SUBS, -(-K // SUB_HOURS))
 
 
+def _gate_operands(name: str, gate, M: int) -> list:
+    """``_check_operands``' entries for a chunk's ``gate=(p_vpn, p_cci,
+    margin, T_pred)`` (none for None); raises unless ``T_pred`` is the
+    planes' hour count and at least 1."""
+    if gate is None:
+        return []
+    p_vpn, p_cci, margin, T_pred = gate
+    T_pred = int(T_pred)
+    if T_pred < 1 or p_vpn.dim() != 2 or p_vpn.shape[0] != T_pred:
+        raise ValueError(f"{name} gate: T_pred {T_pred} against predicted-cost planes "
+                         f"{tuple(p_vpn.shape)}; want ({T_pred}, {M}) with T_pred >= 1")
+    f64 = torch.float64
+    return [(p_vpn, (T_pred, M), f64), (p_cci, (T_pred, M), f64), (margin, (M,), f64)]
+
+
+def _gate_args(gate) -> tuple:
+    """The C entry's gate arguments: the three pointers (null for an
+    ungated call) and T_pred (0)."""
+    if gate is None:
+        return (None, None, None), 0
+    return tuple(a.data_ptr() for a in gate[:3]), int(gate[3])
+
+
 def _check_operands(name: str, block: torch.Tensor, want) -> None:
     """Raise unless every ``(tensor, shape, dtype)`` of ``want`` matches and
     they and ``block`` are contiguous CUDA tensors on one device."""
@@ -114,20 +146,22 @@ def stream_chunk(
     hours_per_month: int,
     *,
     renew_in_chunks: bool = False,
+    gate=None,                # (p_vpn, p_cci (T_pred, M) f64, margin (M,) f64, T_pred)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunk on the card: the packed float64 (8K + 4, M) result (vpn, cci,
     r_vpn, r_cci, snap_v, snap_c, x, state, K rows each, then dcum,
     dcum_month, vpn_pref, cci_pref) and the FSM carry after the chunk, (4, M)
-    int32, in the launch form :func:`launch_form` picks by K."""
+    int32, in the launch form :func:`launch_form` picks by K; with ``gate``,
+    the forecast-gated instance of that form."""
     return _stream_chunk_launch(
         "auto", block, K, endo, capacity, L_vpn, lease_cci, c_cci, bounds, rates, theta1,
         theta2, h, D, T_cci, up_hold, down_hold, cal, fsm, pref, t0, hours_per_month,
-        renew_in_chunks=renew_in_chunks)
+        renew_in_chunks=renew_in_chunks, gate=gate)
 
 
 def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci, bounds,
                          rates, theta1, theta2, h, D, T_cci, up_hold, down_hold, cal, fsm,
-                         pref, t0, hours_per_month, *, renew_in_chunks=False):
+                         pref, t0, hours_per_month, *, renew_in_chunks=False, gate=None):
     """:func:`stream_chunk` in the launch form ``form`` (``"auto"``,
     ``"tick"`` or ``"chunk"``, :func:`launch_form`): the tests and
     ``chip_smoke.py`` force each form with it; both give the same bits."""
@@ -144,8 +178,10 @@ def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci
             (fsm, (4, M), i32), (pref, (2, M), f64)]
     want += [(a, (M,), f64) for a in (capacity, L_vpn, lease_cci, c_cci, theta1, theta2)]
     want += [(a, (M,), i32) for a in (h, D, T_cci, up_hold, down_hold)]
+    want += _gate_operands("stream_chunk", gate, M)
     _check_operands("stream_chunk", block, want)
     code = launch_form(K, Kt, form)
+    gate_ptrs, T_pred = _gate_args(gate)
     lib = _lib.load()
     out = torch.empty((8 * K + 4, M), dtype=f64, device=dev)
     fsm_out = torch.empty((4, M), dtype=i32, device=dev)
@@ -158,11 +194,11 @@ def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci
             *(a.data_ptr() for a in (capacity, L_vpn, lease_cci, c_cci, bounds, rates,
                                      theta1, theta2, h, D, T_cci, up_hold, down_hold,
                                      cal, fsm, pref)),
-            int(bool(renew_in_chunks)), t0, hours_per_month, K, M, Kt, code,
-            out.data_ptr(), fsm_out.data_ptr(), stream,
+            *gate_ptrs, int(bool(renew_in_chunks)), t0, hours_per_month, K, M, Kt, code,
+            T_pred, out.data_ptr(), fsm_out.data_ptr(), stream,
         )
     _lib.check(status, "stream_chunk_f64")
-    _lib.LAUNCHES["stream_chunk"] += 1
+    _lib.LAUNCHES["stream_chunk" if gate is None else "stream_chunk_gated"] += 1
     return out, fsm_out
 
 
@@ -192,12 +228,14 @@ def stream_chunk_routed(
     hours_per_month: int,
     *,
     renew_in_chunks: bool = False,
+    gate=None,                    # (p_vpn, p_cci (T_pred, M) f64, margin (M,) f64, T_pred)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed chunk on the card, one C call (a pair-stage and a
     port-stage kernel on the current stream; the wrapper owns their scratch,
     two pair-major (P, K) planes): the flat float64 result of
     :func:`routed_result_size` and the FSM carry after the chunk, (4, M)
-    int32."""
+    int32. With ``gate`` (per port) the port stage is its forecast-gated
+    instance."""
     P, M = pair_capacity.shape[0], lease_cci.shape[0]
     f64, i32 = torch.float64, torch.int32
     if K < 1 or t0 < 0 or hours_per_month < 1:
@@ -222,7 +260,9 @@ def stream_chunk_routed(
     want += [(a, (P,), f64) for a in (pair_capacity, L_vpn)]
     want += [(a, (M,), f64) for a in (lease_cci, c_cci, port_capacity, theta1, theta2)]
     want += [(a, (M,), i32) for a in (h, D, T_cci, up_hold, down_hold)]
+    want += _gate_operands("stream_chunk_routed", gate, M)
     _check_operands("stream_chunk_routed", block, want)
+    gate_ptrs, T_pred = _gate_args(gate)
     lib = _lib.load()
     dev = block.device
     out = torch.empty(routed_result_size(K, P, M), dtype=f64, device=dev)
@@ -239,9 +279,9 @@ def stream_chunk_routed(
                 theta1, theta2, h, D, T_cci, up_hold, down_hold, routing.leg_pair,
                 routing.vpn_w, routing.attach_w, idx.order, idx.start, cal, fsm, pref,
                 scratch)),
-            int(bool(renew_in_chunks)), t0, hours_per_month, K, P, M, E, Kt,
-            out.data_ptr(), fsm_out.data_ptr(), stream,
+            *gate_ptrs, int(bool(renew_in_chunks)), t0, hours_per_month, K, P, M, E, Kt,
+            T_pred, out.data_ptr(), fsm_out.data_ptr(), stream,
         )
     _lib.check(status, "stream_chunk_routed_f64")
-    _lib.LAUNCHES["stream_chunk_routed"] += 1
+    _lib.LAUNCHES["stream_chunk_routed" if gate is None else "stream_chunk_routed_gated"] += 1
     return out, fsm_out

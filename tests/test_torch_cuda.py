@@ -30,7 +30,12 @@ against the CPU stream, across a reroute. The forecast slice's kernels, the
 float32 ``forecaster_scan`` and the gated instance of ``fsm_scan``, round
 every operation on its own in their plain versions' order and are held bit
 for bit (NaN in the same places); a forecast plan on the card against the
-CPU: decisions equal, costs ``rtol=1e-9``.
+CPU: decisions equal, costs ``rtol=1e-9``. The forecast stream's gated
+instances of ``stream_chunk`` (both launch forms) and ``stream_chunk_routed``
+gate in their plain versions' order and are held bit for bit, and a
+forecast stream on the card equals the card's offline plan of the same
+policy bit for bit (the card's and the CPU's predicted costs may differ in
+the last place, so a stream is held against the plan of its own device).
 """
 import dataclasses
 
@@ -48,7 +53,7 @@ from repro_torch.core.togglecci import ToggleParams
 from repro_torch.fleet import FleetRuntime, build_fleet_scenario, plan_fleet
 from repro_torch.fleet import routing as trout
 from repro_torch.fleet import scenario as tscen
-from repro_torch.fleet.engine import plan_topology
+from repro_torch.fleet.engine import plan_topology, replay_plan_topology
 from repro_torch.fleet.topology import optimize_routing
 from repro_torch.fleet import policy as tpol
 from repro_torch.fleet.spec import pad_tier_tables
@@ -246,7 +251,8 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
     assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1, "fsm_scan_gated": 0,
                             "forecaster_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
-                            "stream_chunk_routed": 0, "flash_attention": 0,
+                            "stream_chunk_gated": 0, "stream_chunk_routed": 0,
+                            "stream_chunk_routed_gated": 0, "flash_attention": 0,
                             "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
                             "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0,
                             "oracle_dp": 0}
@@ -1565,3 +1571,257 @@ def test_forecast_plan_gpu_matches_cpu(cuda_device):
         assert torch.equal(got[k].cpu(), want[k]), k
     torch.testing.assert_close(got["toggle_cost"].cpu(), want["toggle_cost"], rtol=1e-9,
                                atol=0)
+
+
+# -- the forecast stream: the gated stream_chunk and stream_chunk_routed ---------
+
+MARGIN_KINDS = (0.0, 0.05, "rows", 1e30)
+
+
+def _gated_policy(toggle, rows, T_pred, margin, renew, seed):
+    """A forecast-gated policy on ``rows`` decision rows with seeded
+    regime-switching predictions over ``T_pred`` hours (rows 3 and 10 NaN
+    from hour 700, when they exist) and coefficients whose predicted CCI/VPN
+    cost ratio straddles the gates; ``margin`` one of MARGIN_KINDS ("rows":
+    0, 0.05, 0.15 and 1e30 by row)."""
+    rng = np.random.default_rng(seed)
+    pred = np.repeat(rng.uniform(0.0, 3000.0, (rows, T_pred // 24 + 1)), 24, axis=1)[:, :T_pred]
+    pred = pred * rng.uniform(0.8, 1.2, (rows, T_pred))
+    for r in (3, 10):
+        if r < rows:
+            pred[r, min(700, T_pred - 1):] = np.nan
+    a_v = np.log(rng.uniform(5.0, 50.0, rows))
+    b_v = rng.uniform(0.1, 0.5, rows)
+    coef = np.stack([a_v, b_v, a_v + rng.normal(0, 0.2, rows), b_v + rng.normal(0, 0.05, rows)], 1)
+    m = np.resize([0.0, 0.05, 0.15, 1e30], rows) if margin == "rows" else margin
+    return tpol.forecast_gated_policy(toggle, pred, margin=m, cost_coef=coef, renew_in_chunks=renew)
+
+
+def _tier_tables(Kt, rows, seed, device):
+    """(rows, Kt) tier tables: increasing bounds with PAD_BOUND last,
+    decreasing rates."""
+    rng = np.random.default_rng(seed)
+    bounds = np.cumsum(rng.uniform(100.0, 3000.0, (rows, Kt)), axis=1)
+    bounds[:, -1] = 1e30
+    rates = -np.sort(-rng.uniform(0.02, 0.2, (rows, Kt)), axis=1)
+    return _t(bounds, device), _t(rates, device)
+
+
+def _gated_fleet_configs(K):
+    """Four (Kt, endogenous, renew, margin, T_pred) settings a K: Kt cycles
+    through 1-8 with K, every margin kind and both flags appear, and T_pred
+    falls at 722, 726, 730 or 734, inside the chunks the test steps."""
+    return [(1 + (K + j) % 8, j % 2 == 1, j >= 2, MARGIN_KINDS[j], 722 + 4 * j)
+            for j in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", list(range(1, 31)) + [168])
+def test_stream_chunk_gated_matches_plain(cuda_device, K):
+    """The gated stream_chunk, forced through both launch forms (the tick
+    form where it has an instance, K <= 5), against stream_chunk_ref with
+    the same gate on the same blocks of a stream's own state, every output
+    bit: 64 links with tier tables of 1-8 tiers, endogenous CCI demand on
+    and off, renew_in_chunks on and off, margins of 0, 0.05, per-row values
+    and 1e30, NaN predictions in two links and hours past T_pred, across
+    the month start at hour 730; each gated launch counts under
+    stream_chunk_gated alone."""
+    sc = build_fleet_scenario(64, horizon=1200, seed=0)
+    for Kt, endo, renew, margin, T_pred in _gated_fleet_configs(K):
+        arrays = sc.fleet.stack(torch.float64, cuda_device)
+        b, r = _tier_tables(Kt, 64, K + Kt, cuda_device)
+        arrays = arrays._replace(tier_bounds=b, tier_rates=r)
+        pol = _gated_policy(arrays.toggle, 64, T_pred, margin, renew, 31 * K + Kt)
+        rt = FleetRuntime(arrays, policy=pol, device=cuda_device)
+        cci = sc.demand * 1.5 if endo else None
+        cblk = lambda a, b_: None if cci is None else cci[:, a:b_]
+        for t in range(0, 720, 24):
+            rt.step_many(sc.demand[:, t:t + 24], cci_demand_block=cblk(t, t + 24))
+        t, end = 720, 720 + max(16, K)
+        forms = ("tick", "chunk") if K <= TICK_MAX_K else ("chunk",)
+        while t < end:
+            block, _, e = rt._pack(sc.demand[:, t:t + K], cblk(t, t + K))
+            args = rt._chunk_args(torch.from_numpy(block).to(cuda_device), K, e)
+            want, want_fsm = ref.stream_chunk_ref(*args, renew_in_chunks=renew, gate=rt._gate)
+            for form in forms:
+                before = dict(ops.LAUNCHES)
+                got, got_fsm = _stream_chunk_launch(form, *args, renew_in_chunks=renew,
+                                                    gate=rt._gate)
+                assert ops.LAUNCHES["stream_chunk_gated"] == before["stream_chunk_gated"] + 1
+                assert ops.LAUNCHES["stream_chunk"] == before["stream_chunk"]
+                assert _same_bits(got, want) and _same_bits(got_fsm, want_fsm), \
+                    (K, form, t, Kt, endo, renew, margin)
+            rt._launch(args[0], K, e)
+            rt._commit(want.cpu().numpy(), K)
+            t += K
+
+
+@pytest.mark.cuda
+def test_stream_chunk_gated_margin_1e30_is_the_reactive_instance(cuda_device):
+    """With margin 1e30 and finite predictions the gated instances decide as
+    the reactive ones, every output bit, in both forms and in the routed
+    chunk."""
+    sc = build_fleet_scenario(64, horizon=1200, seed=0)
+    arrays = sc.fleet.stack(torch.float64, cuda_device)
+    pol = _gated_policy(arrays.toggle, 64, 1200, 1e30, False, 5)
+    pol = pol._replace(pred_demand=torch.nan_to_num(pol.pred_demand, nan=1.0))
+    rt = FleetRuntime(arrays, policy=pol, device=cuda_device)
+    for t in range(0, 720, 24):
+        rt.step_many(sc.demand[:, t:t + 24])
+    for K, form in ((1, "tick"), (5, "tick"), (24, "chunk"), (168, "chunk")):
+        block, _, e = rt._pack(sc.demand[:, 720:720 + K], None)
+        args = rt._chunk_args(torch.from_numpy(block).to(cuda_device), K, e)
+        got = _stream_chunk_launch(form, *args, gate=rt._gate)
+        want = _stream_chunk_launch(form, *args)
+        assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1]), (K, form)
+    rsc, topo, r = _routed_scenario("topology", 4, 730)
+    rpol = _gated_policy(topo.stack(r, torch.float64, cuda_device).toggle, topo.n_ports, 200,
+                         1e30, False, 6)
+    rpol = rpol._replace(pred_demand=torch.nan_to_num(rpol.pred_demand, nan=1.0))
+    rrt = FleetRuntime(topo, routing=r, policy=rpol, device=cuda_device)
+    rrt.step_many(rsc.demand[:, :48])
+    block, _, e = rrt._pack(rsc.demand[:, 48:72], None)
+    args = rrt._chunk_args(torch.from_numpy(block).to(cuda_device), 24, e)
+    got, want = stream_chunk_routed(*args, gate=rrt._gate), stream_chunk_routed(*args)
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+
+
+GATED_ROUTED_CASES = {  # scenario, pad, month, first hour, Ks, endogenous, NaN pair hours,
+    #                     margin, renew, T_pred
+    "relay-padded-k24": ("relay", 3, 730, 48, [24] * 3, False, (), 0.05, False, 100),
+    "multicast-rows-renew": ("multicast", 0, 730, 24, [24] * 3, False, (), "rows", True, 60),
+    "nan-pair0-k24": ("topology", 4, 730, 48, [24] * 2, False, (40, 51, 58), 0.0, False, 200),
+    "k1-month-start": ("topology", 0, 30, 28, [1] * 4, False, (), "rows", True, 30),
+    "k5-past-T_pred": ("topology", 0, 30, 40, [5] * 3, False, (), 0.05, False, 47),
+    "k33-endogenous": ("topology", 0, 730, 48, [33, 24], True, (), 0.0, True, 90),
+    "k168-past-T_pred": ("relay", 0, 730, 24, [168], False, (), "rows", False, 120),
+    "hot-port-165-legs": ("hotter-port", 0, 730, 48, [24, 1, 33], False, (), 0.05, False, 200),
+    "main-cell-empty-ports": ("main-cell", 0, 730, 48, [24, 5], False, (), "rows", False, 200),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GATED_ROUTED_CASES))
+def test_stream_chunk_routed_gated_matches_plain(cuda_device, case):
+    """The routed chunk's gated port stage against stream_chunk_routed_ref
+    with the same per-port gate on the card, every output bit: relay and
+    multicast routings, NaN demand under padding legs, K = 1 across a month
+    start, K = 5, 33 and 168 past T_pred, endogenous CCI demand, a 165-leg
+    port, the 2048-pair cell's routing with its empty ports; margins 0,
+    0.05 and per port, both renewals, NaN predictions (ports 3 and 10 where
+    they exist); one stream_chunk_routed_gated launch a chunk."""
+    name, pad, hpm, t_first, Ks, endo, nan_hours, margin, renew, T_pred = \
+        GATED_ROUTED_CASES[case]
+    sc, topo, r = _routed_scenario(name, pad, hpm)
+    demand = sc.demand.copy()
+    demand[0, list(nan_hours)] = np.nan
+    cci = demand * 1.5 if endo else None
+    cblk = lambda a, b: None if cci is None else cci[:, a:b]
+    toggle = topo.stack(r, torch.float64, cuda_device).toggle
+    pol = _gated_policy(toggle, topo.n_ports, T_pred, margin, renew, len(case))
+    rt = FleetRuntime(topo, routing=r, policy=pol, device=cuda_device)
+    t = 0
+    while t < t_first:
+        k = min(24, t_first - t)
+        rt.step_many(demand[:, t:t + k], cci_demand_block=cblk(t, t + k))
+        t += k
+    for K in Ks:
+        block, _, e = rt._pack(demand[:, t:t + K], cblk(t, t + K))
+        dev_block = torch.from_numpy(block).to(cuda_device)
+        want, want_fsm = ref.stream_chunk_routed_ref(*rt._chunk_args(dev_block, K, e),
+                                                     renew_in_chunks=renew, gate=rt._gate)
+        before = dict(ops.LAUNCHES)
+        got = rt._launch(dev_block, K, e)
+        assert ops.LAUNCHES["stream_chunk_routed_gated"] == \
+            before["stream_chunk_routed_gated"] + 1
+        assert ops.LAUNCHES["stream_chunk_routed"] == before["stream_chunk_routed"]
+        assert _same_bits(got, want), (case, t)
+        assert _same_bits(rt._state.fsm, want_fsm), (case, t)
+        rt._commit(got.cpu().numpy(), K)
+        t += K
+
+
+@pytest.mark.cuda
+def test_forecast_streams_on_the_card_equal_the_card_plans(cuda_device):
+    """The forecast-gated stream on the card against the card's offline plan
+    of the same policy (the same predicted costs), every bit of x and state,
+    and its cost series, which no policy changes, every bit against the CPU
+    plan's (the card plan's monthly_cumsum is a parallel scan, the stream's
+    sequential): fleet mode at 16 x 2000 (K = 24 chunks, then per-tick
+    hours), topology mode on 64 pairs x 200 h with a reroute at hour 96
+    against replay_plan_topology. Only the gated instances launch."""
+    sc = build_fleet_scenario(16, horizon=2000, seed=0)
+    arrays = sc.fleet.stack(torch.float64, cuda_device)
+    pol = _gated_policy(arrays.toggle, 16, 2000, "rows", False, 1)
+    ops.reset_launches()
+    rt = FleetRuntime(arrays, policy=pol, device=cuda_device)
+    outs = [rt.step_many(sc.demand[:, t:t + 24]) for t in range(0, 1992, 24)]
+    outs += [{k: v[:, None] for k, v in rt.step(sc.demand[:, t]).items()}
+             for t in range(1992, 2000)]
+    got = {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}
+    assert ops.LAUNCHES["stream_chunk_gated"] == 83 + 8
+    assert ops.LAUNCHES["stream_chunk"] == ops.LAUNCHES["fsm_scan_gated"] == 0
+    plan = plan_fleet(arrays, sc.demand, policy=pol, device=cuda_device)
+    cpu = plan_fleet(sc.fleet, sc.demand, device="cpu")
+    for k, want in (("x", plan["x"]), ("state", plan["state"]),
+                    ("vpn_cost", cpu["vpn_hourly"]), ("cci_cost", cpu["cci_hourly"])):
+        assert np.array_equal(got[k], want.cpu().numpy()), k
+    assert (got["x"] != plan_fleet(arrays, sc.demand, device=cuda_device)["x"].cpu().numpy()).any()
+
+    tsc, topo, r = _routed_scenario("topology", 8, 730)
+    moved = np.asarray(r.primary).copy()
+    for i, pr in enumerate(topo.pairs[:6]):
+        moved[i] = next((c for c in pr.candidates if c != moved[i]), moved[i])
+    r1 = topo.plan(moved)
+    tarr = topo.stack(r, torch.float64, cuda_device)
+    tpolicy = _gated_policy(tarr.toggle, topo.n_ports, 200, 0.05, False, 2)
+    ops.reset_launches()
+    trt_ = FleetRuntime(topo, routing=r, policy=tpolicy, device=cuda_device)
+    outs = []
+    for t in range(0, 192, 24):
+        if t == 96:
+            trt_.reroute(r1)
+        outs.append(trt_.step_many(tsc.demand[:, t:t + 24]))
+    outs += [{k: v[:, None] for k, v in trt_.step(tsc.demand[:, t]).items()}
+             for t in range(192, 200)]
+    got = {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}
+    assert ops.LAUNCHES["stream_chunk_routed_gated"] == 8 + 8
+    assert ops.LAUNCHES["stream_chunk_routed"] == 0
+    rep = replay_plan_topology(tarr, tsc.demand, [(0, r), (96, r1)], policy=tpolicy,
+                               device=cuda_device)
+    cpu = replay_plan_topology(topo.stack(r, torch.float64, CPU), tsc.demand,
+                               [(0, r), (96, r1)], device="cpu")
+    for k, want in (("x", rep["x"]), ("state", rep["state"]),
+                    ("vpn_cost", cpu["vpn_hourly"]), ("cci_cost", cpu["cci_hourly"])):
+        assert np.array_equal(got[k], want.cpu().numpy()), k
+
+
+def test_gated_chunk_wrappers_refuse_cpu_tensors_and_bad_gates():
+    """Both chunk wrappers take a gate of CUDA tensors or raise before
+    anything is built: CPU planes, T_pred that is not the planes' hour count
+    or is 0, and planes of the wrong row count."""
+    sc = build_fleet_scenario(4, horizon=48, seed=0)
+    arrays = sc.fleet.stack(torch.float64, CPU)
+    pol = _gated_policy(arrays.toggle, 4, 30, 0.05, False, 0)
+    rt = FleetRuntime(arrays, policy=pol, device="cpu")
+    block, K, endo = rt._pack(sc.demand[:, :24], None)
+    args = rt._chunk_args(torch.from_numpy(block), K, endo)
+    p_vpn, p_cci, m, T_pred = rt._gate
+    assert T_pred == 30 and p_vpn.shape == (30, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        stream_chunk(*args, gate=rt._gate)
+    for bad in ((p_vpn, p_cci, m, 29), (p_vpn[:0], p_cci[:0], m, 0),
+                (p_vpn[:, :3], p_cci, m, 30)):
+        with pytest.raises(ValueError, match="gate|operand"):
+            stream_chunk(*args, gate=bad)
+    rsc, topo, r = _routed_scenario("relay", 2, 730)
+    rpol = _gated_policy(topo.stack(r, torch.float64, CPU).toggle, topo.n_ports, 30, 0.05,
+                         False, 0)
+    rrt = FleetRuntime(topo, routing=r, policy=rpol, device="cpu")
+    block, K, endo = rrt._pack(rsc.demand[:, :24], None)
+    rargs = rrt._chunk_args(torch.from_numpy(block), K, endo)
+    with pytest.raises(ValueError, match="CUDA"):
+        stream_chunk_routed(*rargs, gate=rrt._gate)
+    g = rrt._gate
+    with pytest.raises(ValueError, match="gate"):
+        stream_chunk_routed(*rargs, gate=(g[0], g[1], g[2], 31))

@@ -529,9 +529,10 @@ def test_forecast_gated_policy_fields_and_checks():
 
 def test_forecast_kind_and_training_raise_as_documented():
     """make_policy("forecast") raises JAX's ValueError text; the factories
-    that train raise NotImplementedError naming item 6c, the streaming ones
-    item 6b, the LM mixers item 11; nothing accepts the policy and runs it as
-    something else."""
+    that train raise NotImplementedError naming item 6c, the live streaming
+    ones item 6b, the LM mixers item 11; the runtime refuses a policy without
+    its cost coefficients with the reference's text and streams one that has
+    them; nothing accepts the policy and runs it as something else."""
     toggle = ToggleParams(*(torch.zeros(1, dtype=dt) for dt in (torch.float64,) * 2
                             + (torch.int32,) * 3))
     with pytest.raises(ValueError) as got:
@@ -548,10 +549,14 @@ def test_forecast_kind_and_training_raise_as_documented():
             fn(None)
     _, tsc, _, tpred, arrays = _fleet_case(0)
     pol = tpol.forecast_gated_policy(arrays.toggle, tpred)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(ValueError, match="needs explicit demand->cost coefficients"):
         trt.FleetRuntime(tsc.fleet, policy=pol, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        trt.RuntimeConfig(policy=pol).validate()
+    s = teng.routed_cost_series(arrays, tsc.demand, hours_per_month=730, device="cpu")
+    pol = pol._replace(cost_coef=tpol.fit_cost_coef(s.row_demand, s.vpn, s.cci))
+    assert trt.RuntimeConfig(policy=pol).validate().policy is pol
+    streamed = trt.FleetRuntime(tsc.fleet, policy=pol, device="cpu").step_many(tsc.demand[:, :48])
+    planned = teng.plan_fleet(arrays, tsc.demand, policy=pol, device="cpu")
+    np.testing.assert_array_equal(streamed["x"], planned["x"][:, :48].numpy())
     with pytest.raises(NotImplementedError, match="item 6b"):
         tstream.StreamingForecaster.fit(tsc.demand, 24)
     with pytest.raises(NotImplementedError, match="item 6b"):

@@ -253,7 +253,9 @@ def test_out_of_scope_paths_raise_not_implemented():
     """The slices not ported yet raise naming their ROADMAP item; the
     topology-mode inputs that used to raise now behave as the JAX resolver
     does: a routing beside a FleetSpec is not read (fleet mode), a non-spec
-    is a TypeError and a fleet-mode reroute is refused."""
+    is a TypeError and a fleet-mode reroute is refused. A spec of the
+    ``"forecast"`` kind with no policy object goes through ``make_policy``,
+    which raises JAX's ValueError (the policy is built from predictions)."""
     sc = _scenario(8, 600, 0)
     for kw, item in ((dict(obs=True), "item 8"), (dict(forecaster=object()), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
@@ -262,7 +264,7 @@ def test_out_of_scope_paths_raise_not_implemented():
     assert not routed.topology and routed.n_demand_rows == routed.n_rows == 8
     np.testing.assert_array_equal(routed.step_many(sc.demand[:, :48])["x"],
                                   _port_run(8, 600, 0, "reactive", False)["x"][:, :48])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="forecast_gated_policy"):
         FleetRuntime(dataclasses.replace(sc.fleet, policy="forecast"), device="cpu")
     with pytest.raises(TypeError, match="FleetSpec"):
         FleetRuntime(object(), device="cpu")
