@@ -233,7 +233,35 @@ without printing a result):
     form) and the gated routed chunk's two stages, each beside the reactive
     instance in the same run, its bound and its plain version, the chunk's
     p50/p99 beside the reactive stream's, and the device breakdowns;
-15. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+15. the forecast-gated policy streamed in live mode
+    (:func:`forecast_live_phase`): the live kernels' transcendentals
+    (``log1p``, ``exp``, ``expm1``, ``log1pf``) against torch's CUDA ops on
+    2^20 values each, every bit; the forecaster warmed through the forecast
+    phase's 4380-hour history (one ``forecaster_scan``); with every launch
+    count at 0, ``FleetRuntime(fleet, policy=..., forecaster=...)`` streams the
+    2048-link year in K = 24 chunks and, on a second runtime, 800 ticks; it
+    fails unless the year launched exactly 365 live ``stream_chunk`` and the
+    ticks 800, and nothing else, unless the forecasts equal the card's
+    ``demand_forecaster_predict`` columns H + t over history and clipped
+    stream bit for bit, every field equals the replay stream of phase 14 and
+    x/state the card's ``plan_fleet`` of the forecast policy, and the ticks
+    equal the chunks; builds ``build_topology_scenario(2048, ...,
+    history_hours=4380)``, warms a per-port forecaster through the history's
+    port demand, fits the cost coefficients on the history's port series and
+    streams the year live with a ``reroute()`` of 64 pairs at hour 4368,
+    failing unless it launched 365 live ``stream_chunk_routed`` and nothing
+    else, its forecasts equal the card's predictions over the realised port
+    demand and its decisions the card's ``replay_plan_topology`` fed them;
+    holds the live ``stream_chunk`` (sixteen cases: chained chunks across the
+    month start, endogenous CCI demand, K = 1, NaN demand, per-link margins,
+    S = 1 and 16, K around both launch forms' edges) and the live routed
+    chunk (four cases) against their plain versions in every output bit and
+    the forecaster's state; prints the live instances' registers and spills;
+    then times the live ``stream_chunk`` at 2048 x K = 24 and K = 1-5 and the
+    live routed chunk's two stages, each beside the replay instance in the
+    same run, its bound and its plain version, and the live years' chunk
+    p50/p99 beside the replay years', with the device breakdowns;
+16. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -522,7 +550,8 @@ def pre_reads(pref: np.ndarray, t0: int, K: int, h: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.take_along_axis(pref, lo, axis=0))
 
 
-def stream_chunk_bound(N: int, K: int, Kt: int, endo: bool, gated: bool = False) -> dict:
+def stream_chunk_work(N: int, K: int, Kt: int, endo: bool, gated: bool = False):
+    """(bytes, float64 operations) of the fleet chunk, reactive or gated."""
     # The block read (demand, the CCI demand when endo, pre_v, pre_c: (K, N) each),
     # the packed (8K + 4, N) result written; per-row operands (6 f64, 5 int32),
     # tier tables (2 x (N, Kt)), the carries in (dcum, dcum_month, prefixes; the
@@ -536,7 +565,33 @@ def stream_chunk_bound(N: int, K: int, Kt: int, endo: bool, gated: bool = False)
         # thresholds a row; per hour four products, four compares, and, or
         bytes_moved += 2 * K * N * 8 + N * 8
         ops += 4 * N + K * N * 10
-    return lane_bound(bytes_moved, ops, torch.float64)
+    return bytes_moved, ops
+
+
+def stream_chunk_bound(N: int, K: int, Kt: int, endo: bool, gated: bool = False) -> dict:
+    return lane_bound(*stream_chunk_work(N, K, Kt, endo, gated), torch.float64)
+
+
+def live_bound(bytes_moved: float, ops64: float, M: int, K: int, S: int) -> dict:
+    """A chunk's bound in live mode, from its reactive (bytes, float64
+    operations): plus the live operands' bytes (the forecaster's state in and
+    out (M, S) float32, the carried forecast in, the forecast plane out (K,
+    M), scale, cost_coef and margin: 6 float64 a row) and operations. Float64
+    a row: the four thresholds; an hour: the gates (four products, four
+    compares, and, or), the predicted costs (log1p, two products, two adds,
+    two exp), the forecast (expm1, max, product), the input's quotient and
+    rounding, each transcendental counted as one operation. Float32 an hour:
+    log1pf, then per state the EMA's two products and add and the readout's
+    sub, product and add, and the readout's two adds. The two types run on
+    separate units: the operations' time is the larger of the two, each over
+    its own lane-cycle peak."""
+    bytes_moved += 2 * M * S * 4 + M * 8 + K * M * 8 + 6 * M * 8
+    ops64 += 4 * M + K * M * (10 + 7 + 3 + 2)
+    ops32 = K * M * (1 + 6 * S + 2)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(ops64 / (PEAK_FLOPS[torch.float64] / 2), ops32 / (PEAK_FLOPS[torch.float32] / 2))
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def head_rows(arrays, n: int):
@@ -560,21 +615,22 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def chunk_case(spec, demand, t_first: int, Ks, cci_demand=None, routing=None,
-               policy=None) -> float:
+               policy=None, forecaster=None) -> float:
     """Stream ``spec`` (and ``routing``, in topology mode; ``policy``, a
-    forecast-gated one for the gated instances) on the card to hour
-    ``t_first``, then run each chunk of ``Ks`` hours through the runtime's own
-    ``_launch`` (the kernel: ``stream_chunk``, or ``stream_chunk_routed`` in
-    topology mode, gated when the policy is) and through its plain version on
-    the same block, carries and gate; fail unless the packed result and the
-    FSM carry agree in every bit. Returns the largest absolute difference
-    over non-NaN values (0.0 when they agree)."""
+    forecast-gated one for the gated instances, with ``forecaster`` for the
+    live ones) on the card to hour ``t_first``, then run each chunk of ``Ks``
+    hours through the runtime's own ``_launch`` (the kernel: ``stream_chunk``,
+    or ``stream_chunk_routed`` in topology mode, gated or live when the
+    policy is) and through its plain version on the same block, carries and
+    gate or live operands; fail unless the packed result, the FSM carry and
+    (live) the forecaster's state agree in every bit. Returns the largest
+    absolute difference over non-NaN values (0.0 when they agree)."""
     from repro_torch.fleet import FleetRuntime
     from repro_torch.kernels import ops, ref
 
-    rt = FleetRuntime(spec, routing=routing, policy=policy)
+    rt = FleetRuntime(spec, routing=routing, policy=policy, forecaster=forecaster)
     name = ("stream_chunk_routed" if rt.topology else "stream_chunk") + (
-        "" if rt._gate is None else "_gated")
+        "_live" if rt._live is not None else "" if rt._gate is None else "_gated")
     plain = ref.stream_chunk_routed_ref if rt.topology else ref.stream_chunk_ref
     cblk = lambda a, b: None if cci_demand is None else cci_demand[:, a:b]
     t = 0
@@ -586,11 +642,17 @@ def chunk_case(spec, demand, t_first: int, Ks, cci_demand=None, routing=None,
     for K in Ks:
         block, K_, endo = rt._pack(demand[:, t:t + K], cblk(t, t + K))
         dev_block = torch.from_numpy(block).to(DEVICE)
-        want, want_fsm = plain(*rt._chunk_args(dev_block, K_, endo),
-                               renew_in_chunks=rt.policy.renew_in_chunks, gate=rt._gate)
+        st = rt._state
+        live = None if rt._live is None else (st.ssm_h, st.pred_live, *rt._live)
+        res = plain(*rt._chunk_args(dev_block, K_, endo),
+                    renew_in_chunks=rt.policy.renew_in_chunks, gate=rt._gate, live=live)
+        want, want_fsm = res[0], res[1]
+        want_h = res[2] if live is not None else None
         before = ops.LAUNCHES[name]
         host = rt._launch(dev_block, K_, endo)
         check(ops.LAUNCHES[name] == before + 1, f"{name} did not launch")
+        check(live is None or same_bits(rt._state.ssm_h, want_h),
+              f"{name}: the forecaster's state != plain, hours {t}..{t + K - 1}")
         check(same_bits(host, want) and same_bits(rt._state.fsm, want_fsm),
               f"{name} != plain at {rt.n_demand_rows} demand rows on {rt.n_rows} decision "
               f"rows, hours {t}..{t + K - 1}, endo={endo}: first differing elements "
@@ -2341,6 +2403,12 @@ HOT_PAIRS, HOT_KW = (200, 400), dict(n_facilities=2, ports_per_facility=2, horiz
 
 def routed_chunk_bound(P: int, M: int, K: int, Kt: int, E: int, endo: bool,
                        gated: bool = False) -> dict:
+    return bound(*routed_chunk_work(P, M, K, Kt, E, endo, gated), torch.float64)
+
+
+def routed_chunk_work(P: int, M: int, K: int, Kt: int, E: int, endo: bool,
+                      gated: bool = False):
+    """(bytes, float64 operations) of the topology chunk, reactive or gated."""
     # In: the block (the demand (K, P), the CCI demand when endo, pre_v and pre_c
     # (K, M)); per pair capacity, L_vpn (f64) and the tier tables (P, Kt) x 2; per
     # port lease, c_cci, capacity, theta1, theta2 (f64) and h, D, T_cci and the two
@@ -2359,7 +2427,7 @@ def routed_chunk_bound(P: int, M: int, K: int, Kt: int, E: int, endo: bool,
     if gated:   # the per-port predicted costs (K, M) x 2 and margins; the gates
         bytes_moved += 2 * K * M * 8 + M * 8
         ops += 4 * M + K * M * 10
-    return bound(bytes_moved, ops, torch.float64)
+    return bytes_moved, ops
 
 
 def repack_stream(sc, *, live: bool, device=None):
@@ -2630,6 +2698,23 @@ def ptxas_instances(kernel: str) -> dict:
                 rep["registers"] = int(m[1])
     check(out, f"no ptxas report for {kernel} in the build log")
     return out
+
+
+GATE_MODES = ("ungated", "replay", "live")   # the streaming kernels' gate mode template argument
+
+
+def print_stream_registers(modes) -> None:
+    """-Xptxas -v's registers, stack frame and spills of the streaming
+    kernels' instances in the gate ``modes``: the last template argument of
+    the mangled name (0 ungated, 1 replay, 2 live)."""
+    import re
+
+    for kernel in ("stream_chunk_tick_kernel", "stream_chunk_pipe_kernel", "routed_port_kernel"):
+        for name, rep_ in sorted(ptxas_instances(kernel).items()):
+            m = re.search(r"Li(\d)EE+v", name)
+            mode = GATE_MODES[int(m[1])] if m else "?"
+            if mode in modes:
+                print(f"  ptxas {mode:8s} {name[-48:]}: {rep_}")
 
 
 def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
@@ -3411,10 +3496,7 @@ def forecast_stream_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
           f"({time.perf_counter() - t_cases:.1f} s)")
 
     # -- registers and spills of the gated instances ---------------------------
-    for kernel in ("stream_chunk_tick_kernel", "stream_chunk_pipe_kernel", "routed_port_kernel"):
-        for name, rep_ in sorted(ptxas_instances(kernel).items()):
-            gated = "Lb1E" in name      # the GATED template argument, true
-            print(f"  ptxas {'gated   ' if gated else 'ungated '} {name[-48:]}: {rep_}")
+    print_stream_registers(("ungated", "replay"))
 
     # -- timings ----------------------------------------------------------------
     print(f"forecast streaming timings on {card} (profiler device time, median ms; bound = "
@@ -3490,13 +3572,362 @@ def forecast_stream_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
                     unit="forecast-gated topology chunk")
     print(f"forecast stream phase: {time.perf_counter() - t_phase:.1f} s")
     t24 = times[STREAM_K]
-    return {
+    rows = {
         "stream_chunk_gated": {
             "launches": fleet_launches, "max_abs_err": gated_err, "ms": t24["ms"],
             "plain_ms": t24["plain_ms"], "bound_ms": t24["bound_ms"],
             "bound_by": t24["bound_by"], "library_ms": None},
         "stream_chunk_routed_gated": {
             "launches": topo_launches["stream_chunk_routed_gated"], "max_abs_err": routed_err,
+            "ms": t_ms, "plain_ms": t_plain, "bound_ms": tb["bound_ms"],
+            "bound_by": tb["bound_by"], "library_ms": None},
+    }
+    return rows, {"replay_year": chunked}
+
+
+# -- the forecast-gated policy streamed in live mode -------------------------------
+LIVE_TIMED_K = (24, 1, 2, 3, 4, 5)      # 2048 links: the chunk form, then the tick form
+LIVE_MATH_N = 1 << 20                   # values a transcendental is checked on
+
+
+def live_math_checks() -> int:
+    """The live instances' log1p, exp, expm1 (float64) and log1pf (float32),
+    built as the kernels are, against torch's CUDA ops on LIVE_MATH_N values
+    each in the ranges the live path feeds them, with 0, NaN, inf and -0.0:
+    every bit. Returns the values checked."""
+    from repro_torch.kernels.stream_chunk import LIVE_MATH, live_math
+
+    rng = np.random.default_rng(SEED)
+    n = LIVE_MATH_N
+    ranges = {"log1p": lambda: 10.0 ** rng.uniform(-9, 7, n),
+              "exp": lambda: rng.uniform(-40, 40, n),
+              "expm1": lambda: rng.uniform(-12, 16, n).astype(np.float32).astype(np.float64),
+              "log1pf": lambda: rng.uniform(0, 60, n).astype(np.float32)}
+    torch_op = {"log1p": torch.log1p, "exp": torch.exp, "expm1": torch.expm1,
+                "log1pf": torch.log1p}
+    for fn in LIVE_MATH:
+        x = ranges[fn]()
+        x[:4] = [0.0, np.nan, np.inf, -0.0]
+        xt = torch.from_numpy(x).to(DEVICE)
+        check(same_bits(live_math(xt, fn), torch_op[fn](xt)),
+              f"the live kernels' {fn} differs from torch's in some bit")
+    return n * len(LIVE_MATH)
+
+
+def routed_port_demand(topo, demand, schedule, device):
+    """The clipped port demand a topology stream folds under a routing
+    schedule: each segment's ``routed_cost_series`` row demand (which does
+    not depend on the billing calendar), concatenated."""
+    from repro_torch.fleet.engine import routed_cost_series
+
+    starts = [s for s, _ in schedule] + [demand.shape[1]]
+    return torch.cat([routed_cost_series(topo.stack(r, torch.float64, device), demand[:, a:b],
+                                         hours_per_month=topo.hours_per_month,
+                                         device=device).row_demand
+                      for (a, b), (_, r) in zip(zip(starts, starts[1:]), schedule)], dim=1)
+
+
+def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict, fs_ctx: dict) -> dict:
+    """The forecast-gated policy streamed in live mode on the card (the live
+    instances of ``stream_chunk`` and ``stream_chunk_routed``): the live
+    kernels' transcendentals against torch's; the forecast phase's 2048-link
+    year with its forecaster warmed through the history, in K = 24 chunks and
+    800 ticks with launches counted, against the card's forecaster, the
+    card's plan_fleet of the forecast policy and the replay stream; 2048
+    pairs on 128 ports after 4380 hours of history with a per-port
+    forecaster and a reroute, against the card's forecaster over the
+    realised port demand and replay_plan_topology; both live kernels against
+    their plain versions; registers and spills; timings beside the replay
+    instances. Returns the two live kernels' rows."""
+    from repro_torch.fleet import (FleetRuntime, StreamingForecaster, build_topology_scenario,
+                                   fit_cost_coef, forecast_gated_policy, optimize_routing,
+                                   replay_plan_topology)
+    from repro_torch.fleet.engine import routed_cost_series
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.stream_chunk import (TICK_MAX_K_LIVE, _stream_chunk_launch,
+                                                  stream_chunk_routed)
+    from repro_torch.models.ssm import demand_forecaster_init, demand_forecaster_predict
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    n_math = live_math_checks()
+    print(f"live transcendentals: log1p, exp, expm1 (float64) and log1pf (float32) of the "
+          f"kernels' build == torch's CUDA ops on {n_math} values, every bit "
+          f"({time.perf_counter() - t0:.1f} s)")
+    sc, pol, plan, params = fc_ctx["scenario"], fc_ctx["policy"], fc_ctx["plan"], fc_ctx["params"]
+    N, T = sc.demand.shape
+    H = sc.history.shape[1]
+    fields = ("x", "state", "r_vpn", "r_cci", "vpn_cost", "cci_cost", "cost")
+    cap = np.array([l.capacity_gb_hr for l in sc.fleet.links])[:, None]
+    hist, clipped = np.minimum(sc.history, cap), np.minimum(sc.demand, cap)
+
+    # -- the main path: the forecast year streamed live, launches counted ------
+    ops.reset_launches()
+    fc = StreamingForecaster.from_history(params, hist)
+    warm = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(warm == {"forecaster_scan": 1}, f"the forecaster's warm-up launched {warm}")
+    ops.reset_launches()
+    rt = FleetRuntime(sc.fleet, policy=pol, forecaster=fc)
+    check(rt.device.type == DEVICE.type and rt.pred_source == "live",
+          "FleetRuntime did not stream the forecast policy in live mode on the card")
+    live_clock = []
+    year = stream(rt, sc.demand, STREAM_K, live_clock)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(launches == {"stream_chunk_live": T // STREAM_K},
+          f"the live forecast year launched {launches}, not {T // STREAM_K} live stream_chunk")
+    ops.reset_launches()
+    rt_tick = FleetRuntime(sc.fleet, policy=pol, forecaster=fc)
+    tick_us, ticks = [], []
+    for t in range(STREAM_TICKS):
+        a = time.perf_counter()
+        ticks.append(rt_tick.step(sc.demand[:, t]))
+        tick_us.append((time.perf_counter() - a) * 1e6)
+    torch.cuda.synchronize()
+    tick_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(tick_launches == {"stream_chunk_live": STREAM_TICKS},
+          f"{STREAM_TICKS} live ticks launched {tick_launches}")
+    fleet_launches = T // STREAM_K + STREAM_TICKS
+    y = demand_forecaster_predict(params, np.concatenate([hist, clipped], 1), fc.scale)
+    check(same_bits(torch.from_numpy(year["pred_next"]), y[:, H:].cpu()),
+          "live forecasts != the card's demand_forecaster_predict columns H + t")
+    check(same_bits(pol.pred_demand.cpu(), y[:, H - 1:H - 1 + T].cpu()),
+          "the forecast policy's predictions are not columns H - 1 + t of the same forecast")
+    replay = fs_ctx["replay_year"]
+    for k in fields:
+        check(np.array_equal(year[k], replay[k]), f"live year != the replay stream in {k}")
+    for k in ("x", "state"):
+        check(np.array_equal(year[k], plan[k].cpu().numpy()),
+              f"live year: {k} != the card's plan_fleet of the forecast policy")
+    for k in fields + ("pred_next",):
+        check(same_bits(torch.from_numpy(np.stack([o[k] for o in ticks], 1)),
+                        torch.from_numpy(year[k][:, :STREAM_TICKS])),
+              f"live per-tick step != chunked step_many in {k}")
+    print(f"live forecast stream {N} x {T} (K = {STREAM_K}) after {H} h of history: launches "
+          f"{launches} for the year, {tick_launches} for {STREAM_TICKS} ticks (the warm-up one "
+          f"forecaster_scan); forecasts == the card's demand_forecaster_predict columns H + t, "
+          f"every bit; every field == the replay stream, x/state == the card's plan_fleet of "
+          f"the policy; ticks == chunks in every field and forecast")
+
+    # -- topology: a per-port live forecaster, a reroute mid-year ------------
+    t0 = time.perf_counter()
+    P = topo_ctx["scenario"].n_pairs
+    tsc = build_topology_scenario(P, **TOPO_KW, horizon=T, history_hours=H, seed=SEED)
+    M = tsc.n_ports
+    r0 = optimize_routing(tsc.topo, tsc.demand)
+    r1 = moved_routing(tsc.topo, r0, 64)
+    check(r1.paths != r0.paths, "the reroute moves no pair")
+    tarr = tsc.topo.stack(r0, torch.float64, DEVICE)
+    hseries = routed_cost_series(tarr, tsc.history, hours_per_month=tsc.topo.hours_per_month,
+                                 device=DEVICE)
+    coef = fit_cost_coef(hseries.row_demand, hseries.vpn, hseries.cci)
+    tfc = StreamingForecaster.from_history(params, hseries.row_demand)
+    tpol = forecast_gated_policy(tarr.toggle, np.zeros(M), margin=0.05, cost_coef=coef)
+    print(f"live topology scenario {P} pairs x {T} h after {H} h of history on {M} ports "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    def topo_year(policy, forecaster, clock):
+        rt_ = FleetRuntime(tsc.topo, routing=r0, policy=policy, forecaster=forecaster)
+        outs, t = [], 0
+        while t < T:
+            if t == FS_SWAP:
+                rt_.reroute(r1)
+            a = time.perf_counter()
+            outs.append(rt_.step_many(tsc.demand[:, t:t + STREAM_K]))
+            clock.append(time.perf_counter() - a)
+            t += STREAM_K
+        torch.cuda.synchronize()
+        return {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}
+
+    ops.reset_launches()
+    topo_clock = []
+    tyear = topo_year(tpol, tfc, topo_clock)
+    topo_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(topo_launches == {"stream_chunk_routed_live": T // STREAM_K},
+          f"the rerouted live topology year launched {topo_launches}")
+    schedule = [(0, r0), (FS_SWAP, r1)]
+    port_d = routed_port_demand(tsc.topo, tsc.demand, schedule, DEVICE)
+    ty = demand_forecaster_predict(params, torch.cat([hseries.row_demand, port_d], 1),
+                                   tfc.scale)
+    check(same_bits(torch.from_numpy(tyear["pred_next"]), ty[:, H:].cpu()),
+          "live topology forecasts != the card's predictions over the realised port demand")
+    rpol = tpol._replace(pred_demand=ty[:, H - 1:H - 1 + T].contiguous())
+    rep = replay_plan_topology(tarr, tsc.demand, schedule, policy=rpol)
+    cpu_rep = replay_plan_topology(tsc.topo.stack(r0, torch.float64, "cpu"), tsc.demand,
+                                   schedule, device="cpu")
+    for k, want in (("x", rep["x"]), ("state", rep["state"]),
+                    ("vpn_cost", cpu_rep["vpn_hourly"]), ("cci_cost", cpu_rep["cci_hourly"])):
+        check(np.array_equal(tyear[k], want.cpu().numpy()),
+              f"live topology year: {k} != the " + (
+                  "card's replay_plan_topology fed the live forecasts" if k in ("x", "state")
+                  else "CPU replay_plan_topology's series"))
+    tflips = int((tyear["x"] != cpu_rep["x"].numpy()).sum())
+    check(tflips > 0, "the live gates changed no topology decision")
+    print(f"live topology stream, reroute of {sum(a != b for a, b in zip(r0.paths, r1.paths))} "
+          f"pairs at hour {FS_SWAP}: launches {topo_launches}; forecasts == the card's "
+          f"demand_forecaster_predict over the realised port demand, x/state == the card's "
+          f"replay_plan_topology fed them, vpn_cost/cci_cost == the CPU replay's series, bit "
+          f"for bit; {tflips} port-hours decided otherwise than reactive "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- both live kernels against their plain versions ------------------------
+    t_cases = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1)
+    other = {}
+    for S in (1, 16):
+        p_ = demand_forecaster_init(None, S, device=DEVICE)
+        p_ = dict(p_, w=torch.tensor(0.3 * rng.standard_normal(S), dtype=torch.float32,
+                                     device=DEVICE))
+        other[S] = StreamingForecaster.from_history(p_, hist)
+    nan_d = sc.demand.copy()
+    nan_d[::7, 700] = np.nan
+    rows_m = pol._replace(margin=torch.as_tensor(np.resize([0.0, 0.05, 0.15, 1e30], N),
+                                                 device=DEVICE))
+    fleet, demand = sc.fleet, sc.demand
+    cases = {
+        f"4 chained K = {STREAM_K} from hour 696": (pol, fc, demand, 696, [STREAM_K] * 4, None),
+        "endogenous CCI demand, 2 x K = 24": (pol, fc, demand, 696, [24] * 2, demand * 1.5),
+        "K = 1 over hours 728..731": (pol, fc, demand, 728, [1] * 4, None),
+        "NaN demand in every 7th link at hour 700, 2 x K = 24": (pol, fc, nan_d, 696, [24] * 2,
+                                                                 None),
+        "margins 0, 0.05, 0.15, 1e30 by link, K = 24, 1, 30": (rows_m, fc, demand, 696,
+                                                               [24, 1, 30], None),
+        "S = 1: K = 24, 5": (pol, other[1], demand, 696, [24, 5], None),
+        "S = 16: K = 24, 5, 9": (pol, other[16], demand, 696, [24, 5, 9], None),
+    }
+    for K in (2, 3, TICK_MAX_K_LIVE, TICK_MAX_K_LIVE + 1, 8, 9, 17, 23, 25):
+        cases[f"3 chained K = {K} from hour 726"] = (pol, fc, demand, 726, [K] * 3, None)
+    live_err = 0.0
+    for label, (p_, f_, d_, t_, Ks, c_) in cases.items():
+        live_err = max(live_err, chunk_case(fleet, d_, t_, Ks, c_, policy=p_, forecaster=f_))
+        print(f"  live stream_chunk == stream_chunk_ref with the live operands, every output "
+              f"bit and the forecaster's state: {label}")
+    print(f"live stream_chunk: {len(cases)} cases at {N} links equal the plain version on the "
+          f"card ({time.perf_counter() - t_cases:.1f} s)")
+    t_cases = time.perf_counter()
+    bad = tsc.demand.copy()
+    bad[0, [666, 699, 706]] = np.nan
+    padded = r0.pad_to(r0.total_hops + NAN_PAD)
+    tcases = {
+        "4 chained K = 24 from hour 696": (r0, tsc.demand, 696, [24] * 4, None),
+        "K = 1 over hours 728..731": (r0, tsc.demand, 728, [1] * 4, None),
+        f"NaN demand in pair 0, {NAN_PAD} padding legs, 2 x K = 24": (padded, bad, 696,
+                                                                     [24] * 2, None),
+        "endogenous CCI demand: K = 24, 5, 33 from hour 726": (r0, tsc.demand, 726, [24, 5, 33],
+                                                               tsc.demand * 1.5),
+    }
+    routed_err = 0.0
+    for label, (r_, d_, t_, Ks, c_) in tcases.items():
+        routed_err = max(routed_err, chunk_case(tsc.topo, d_, t_, Ks, c_, routing=r_,
+                                                policy=tpol, forecaster=tfc))
+        print(f"  live stream_chunk_routed == stream_chunk_routed_ref with the live operands, "
+              f"every output bit and the forecaster's state: {label}")
+    print(f"live stream_chunk_routed: {len(tcases)} cases equal the plain version on the card "
+          f"({time.perf_counter() - t_cases:.1f} s)")
+
+    # -- registers and spills of the live instances ----------------------------
+    print_stream_registers(("live",))
+
+    # -- timings ----------------------------------------------------------------
+    replay_clock, live_clock2, treplay_clock, tlive_clock2 = [], [], [], []
+    stream(FleetRuntime(sc.fleet, policy=pol), sc.demand, STREAM_K, replay_clock)
+    stream(FleetRuntime(sc.fleet, policy=pol, forecaster=fc), sc.demand, STREAM_K, live_clock2)
+    topo_year(rpol, None, treplay_clock)
+    topo_year(tpol, tfc, tlive_clock2)
+    print(f"live streaming timings on {card} (profiler device time, median ms; bound = "
+          f"max(bytes / 3.35 TB/s, ops / peak))")
+    for label, clock in (("live (the main path, first)", live_clock),
+                         ("replay", replay_clock), ("live again", live_clock2),
+                         ("live topology (first)", topo_clock),
+                         ("replay topology", treplay_clock), ("live topology again", tlive_clock2)):
+        ms = np.array(clock) * 1e3
+        print(f"  {label} year in K = {STREAM_K} chunks: chunk p50 {np.percentile(ms, 50):.3f} "
+              f"ms, p99 {np.percentile(ms, 99):.3f} ms, mean {ms.mean():.3f} ms")
+    tick = np.array(tick_us)
+    print(f"  live per-tick step {N} links: p50 {np.percentile(tick, 50):.1f} us, p99 "
+          f"{np.percentile(tick, 99):.1f} us")
+    rt_l = FleetRuntime(sc.fleet, policy=pol, forecaster=fc)
+    rt_r = FleetRuntime(sc.fleet, policy=pol)
+    stream(rt_l, sc.demand[:, :SWEEP_T0], STREAM_K)
+    stream(rt_r, sc.demand[:, :SWEEP_T0], STREAM_K)
+    Kt = rt_l.arrays.tier_bounds.shape[1]
+    S = tfc.h0.shape[1]
+    times = {}
+    for K in LIVE_TIMED_K:
+        block, _, _ = rt_l._pack(sc.demand[:, SWEEP_T0:SWEEP_T0 + K], None)
+        args = rt_l._chunk_args(torch.from_numpy(block).to(DEVICE), K, False)
+        rblock, _, _ = rt_r._pack(sc.demand[:, SWEEP_T0:SWEEP_T0 + K], None)
+        check(np.array_equal(block, rblock), "the live and replay runtimes' blocks differ")
+        st = rt_l._state
+        live = (st.ssm_h, st.pred_live, *rt_l._live)
+        want = ref.stream_chunk_ref(*args, live=live)
+        live_call = lambda: _stream_chunk_launch("auto", *args, live=live)
+        got = live_call()
+        check(all(same_bits(g, w) for g, w in zip(got, want)),
+              f"live stream_chunk {N} x K={K} != plain at the timed block")
+        l_ms = device_ms_per_call(live_call, 20, "stream_chunk", 1)
+        g_ms = device_ms_per_call(lambda: _stream_chunk_launch("auto", *args, gate=rt_r._gate),
+                                  20, "stream_chunk", 1)
+        l2_ms = device_ms_per_call(live_call, 20, "stream_chunk", 1)
+        b = live_bound(*stream_chunk_work(N, K, Kt, False), N, K, S)
+        times[K] = {"ms": l_ms, "ms2": l2_ms, "replay_ms": g_ms,
+                    "plain_ms": sync_ms(lambda: ref.stream_chunk_ref(*args, live=live), 3), **b}
+        tk = times[K]
+        form = "tick" if K <= TICK_MAX_K_LIVE else "chunk"
+        other = ""
+        if K <= TICK_MAX_K_LIVE:   # the chunk form where the tick form launches
+            o_form = "chunk"
+            o_call = lambda: _stream_chunk_launch(o_form, *args, live=live)
+            check(all(same_bits(g, w) for g, w in zip(o_call(), want)),
+                  f"live stream_chunk {o_form} form {N} x K={K} != plain")
+            other = (f"; {o_form} form "
+                     f"{device_ms_per_call(o_call, 20, 'stream_chunk', 1):.5f} ms")
+        print(f"  stream_chunk live {N} x K={K} ({form} form, S = {S}): {l_ms:.5f} / "
+              f"{l2_ms:.5f} ms, replay instance {g_ms:.5f} ms (in turns){other}; bound "
+              f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), {l_ms / b['bound_ms']:.2f}x "
+              f"bound; plain {tk['plain_ms']:.3f} ms")
+    print_breakdown(lambda: rt_l.step_many(sc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K]), reps=6,
+                    unit="live chunk")
+    print_breakdown(lambda: rt_r.step_many(sc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K]), reps=6,
+                    unit="replay chunk")
+    trt_l = FleetRuntime(tsc.topo, routing=r0, policy=tpol, forecaster=tfc)
+    trt_r = FleetRuntime(tsc.topo, routing=r0, policy=rpol)
+    stream(trt_l, tsc.demand[:, :SWEEP_T0], STREAM_K)
+    stream(trt_r, tsc.demand[:, :SWEEP_T0], STREAM_K)
+    block, _, _ = trt_l._pack(tsc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K], None)
+    targs = trt_l._chunk_args(torch.from_numpy(block).to(DEVICE), STREAM_K, False)
+    st = trt_l._state
+    tlive = (st.ssm_h, st.pred_live, *trt_l._live)
+    twant = ref.stream_chunk_routed_ref(*targs, live=tlive)
+    tcall = lambda: stream_chunk_routed(*targs, live=tlive)
+    check(all(same_bits(g, w) for g, w in zip(tcall(), twant)),
+          "live stream_chunk_routed != plain at the timed block")
+    stages = ("routed_pair_kernel", "routed_port_kernel")
+    tl = kernel_device_ms(tcall, 20, stages, per_call=1)
+    tr = kernel_device_ms(lambda: stream_chunk_routed(*targs, gate=trt_r._gate), 20, stages,
+                          per_call=1)
+    E = trt_l.arrays.routing.n_legs
+    tb = live_bound(*routed_chunk_work(P, M, STREAM_K, Kt, E, False), M, STREAM_K, S)
+    t_plain = sync_ms(lambda: ref.stream_chunk_routed_ref(*targs, live=tlive), 3)
+    t_ms = tl["routed_pair_kernel"] + tl["routed_port_kernel"]
+    print(f"  stream_chunk_routed live {P} pairs x K={STREAM_K} on {M} ports, {E} legs: "
+          f"{t_ms:.5f} ms (pair stage {tl['routed_pair_kernel']:.5f}, port stage "
+          f"{tl['routed_port_kernel']:.5f}); replay instance "
+          f"{tr['routed_pair_kernel'] + tr['routed_port_kernel']:.5f} ms (pair "
+          f"{tr['routed_pair_kernel']:.5f}, port {tr['routed_port_kernel']:.5f}); bound "
+          f"{tb['bound_ms'] * 1e3:.3f} us ({tb['bound_by']}), {t_ms / tb['bound_ms']:.1f}x bound; "
+          f"plain {t_plain:.3f} ms")
+    print_breakdown(lambda: trt_l.step_many(tsc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K]), reps=6,
+                    unit="live topology chunk")
+    print(f"forecast live phase: {time.perf_counter() - t_phase:.1f} s")
+    t24 = times[STREAM_K]
+    return {
+        "stream_chunk_live": {
+            "launches": fleet_launches, "max_abs_err": live_err, "ms": t24["ms"],
+            "plain_ms": t24["plain_ms"], "bound_ms": t24["bound_ms"],
+            "bound_by": t24["bound_by"], "library_ms": None},
+        "stream_chunk_routed_live": {
+            "launches": topo_launches["stream_chunk_routed_live"], "max_abs_err": routed_err,
             "ms": t_ms, "plain_ms": t_plain, "bound_ms": tb["bound_ms"],
             "bound_by": tb["bound_by"], "library_ms": None},
     }
@@ -3702,7 +4133,8 @@ def main() -> int:
     routed_row = topology_stream_phase(card.splitlines()[0], topo_ctx)
     oracle_row = report_phase(card.splitlines()[0], scen[N_big], plans[N_big, False], topo_ctx)
     fc_rows, fc_ctx = forecast_phase(card.splitlines()[0])
-    fs_rows = forecast_stream_phase(card.splitlines()[0], fc_ctx, topo_ctx)
+    fs_rows, fs_ctx = forecast_stream_phase(card.splitlines()[0], fc_ctx, topo_ctx)
+    live_rows = forecast_live_phase(card.splitlines()[0], fc_ctx, topo_ctx, fs_ctx)
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -3774,6 +4206,12 @@ def main() -> int:
         {"name": "stream_chunk_routed_gated", "route": "cuda",
          "source": "src/repro_torch/csrc/stream_chunk_routed.cu",
          "replaces": "src/repro/fleet/runtime.py:465", **fs_rows["stream_chunk_routed_gated"]},
+        {"name": "stream_chunk_live", "route": "cuda",
+         "source": "src/repro_torch/csrc/stream_chunk.cu",
+         "replaces": "src/repro/fleet/runtime.py:556", **live_rows["stream_chunk_live"]},
+        {"name": "stream_chunk_routed_live", "route": "cuda",
+         "source": "src/repro_torch/csrc/stream_chunk_routed.cu",
+         "replaces": "src/repro/fleet/runtime.py:556", **live_rows["stream_chunk_routed_live"]},
     ]
     print(f"profiler: {len(PAD_SEEN)} traces; pad kernels recorded of {TRACE_PADS}, by trace: "
           f"{PAD_SEEN}")

@@ -80,7 +80,7 @@
 //
 // The forecast-gated policy (ForecastGatedPolicy.step in replay mode,
 // src/repro/fleet/runtime.py:297-306, and :519-524, :546-548 in the chunk) is
-// a GATED instance of each form: the hour's raw triggers go through
+// a gated instance (kReplay) of each form: the hour's raw triggers go through
 // fsm_step.cuh's fsm_gated_triggers, on the thresholds fsm_gate forms once a
 // row, against the hour's predicted mode costs p_vpn, p_cci, two hour-major
 // (T_pred, M) planes read at hour min(t0 + k, T_pred - 1) (the JAX runtime's
@@ -89,17 +89,45 @@
 // (an hour's rows are contiguous, so the loads coalesce), and the FSM warp
 // stays integer-only. The reactive and hysteresis instances read nothing of
 // them and compile as before.
+//
+// The same policy in live mode (src/repro/fleet/runtime.py:541-575) is a LIVE
+// instance of each form (the template's gate mode G: kUngated, kReplay or
+// kLive): the SSM demand forecaster steps inside the chunk
+// (live_forecast.cuh). Hour k's gates read the predicted mode costs of the
+// forecast made after hour k - 1 (the carried pred_in at the chunk's first
+// hour); after the hour, the forecaster consumes the hour's clipped demand d
+// and makes the next forecast, which the result's ninth (K, M) plane holds
+// (the tail moves to 9K). The forecast chain reads no decision, so it runs
+// as a phase of its own: in the tick form, after the clips, state by state
+// (one state's chain in registers at a time, each hour's readout folded left
+// over the states as they come: ~2K + 4 registers, not 4 x 16); in the chunk
+// form, on the calendar warp's lanes 16..31, which the calendar leaves idle:
+// the whole warp first forms the sub-tile's inputs u (lane r row r's hours
+// 0..3, lane 16 + r its hours 4..7, swapped by a shuffle), then, divergent
+// once a sub-tile, lane 16 + r walks row r's S states over the sub-tile's
+// hours while lane r runs its calendar, and writes each hour's readout y
+// into a [hour + 1][row] array behind the tables in dynamic shared memory
+// (slot 0 the previous tile's last hour) before the warp arrives on the lo
+// barrier. (Divergent once an hour, the first design, the warp paid each
+// hour's quotient, log1pf and state chain in full, one after another:
+// 0.0229 ms at 2048 x 24 on the H100, 5.3x the replay instance; PERF.md.) A pair
+// thread (hour kk, row r) then forms the forecast before and after its hour
+// from y, the predicted costs and the gates, between the fold's hand-off and
+// the prefixes' (all 16 named barriers are taken: none is left for a
+// forecast hand-off). The FSM warp stays integer-only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fsm_step.cuh"
+#include "live_forecast.cuh"
 #include "tier_fold.cuh"
 
 namespace {
 
 constexpr int kTickThreads = 32;    // tick form: one row a thread, one warp a block
 constexpr int kTickMaxK = 5;        // tick-form instances K = 1..5 (TICK_MAX_K)
+constexpr int kTickMaxKLive = 3;    // the live instance's: K = 1..3 (TICK_MAX_K_LIVE)
 constexpr int kTickMaxTiers = 8;    // its tier tables live in registers
 constexpr int kRows = 16;           // chunk form: rows a block
 constexpr int kSub = 8;             // hours a sub-tile
@@ -107,6 +135,17 @@ constexpr int kMaxSubs = 3;         // sub-tiles a tile: 5 named barriers each
 constexpr int kPhases = 5;          // lo, fold, pref, trig, state
 constexpr int kBarThreads = 5 * 32; // a sub-tile's four pair warps and one chain warp
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kMaxState = 16;       // the live forecaster's states (MAX_STATE)
+// The template's gate mode: reactive/hysteresis, forecast-gated in replay
+// mode (predicted-cost planes given), forecast-gated in live mode.
+constexpr int kUngated = 0, kReplay = 1, kLive = 2;
+
+// Where the packed result's tail (dcum, dcum_month, prefixes) starts: after
+// the 8 planes, 9 in the live instances.
+template <int G>
+__device__ __forceinline__ int64_t tail_at(int64_t KM) {
+  return (G == kLive ? 9 : 8) * KM;
+}
 
 // The chunk's operands, as the C entry takes them.
 struct ChunkArgs {
@@ -130,12 +169,22 @@ struct ChunkArgs {
   const double* cal_in;      // (2, M) dcum, dcum_month
   const int* fsm_in;         // (4, M)
   const double* pref_in;     // (2, M)
-  const double* p_vpn;       // (T_pred, M) predicted mode costs: the GATED instances
+  const double* p_vpn;       // (T_pred, M) predicted mode costs: the kReplay instances
   const double* p_cci;
   const double* margin;      // (M,)
   int renew_in_chunks, t0, phase0, hours_per_month, K, M, Kt, T_pred;
-  double* out;               // (8K + 4, M)
+  double* out;               // (8K + 4, M); (9K + 4, M) in the LIVE instances
   int* fsm_out;              // (4, M)
+  const float* h_in;         // (M, S) the LIVE instances' forecaster state
+  const double* pred_in;     // (M,) the forecast carried into the chunk
+  const float* ssm_a;        // (S,) a, 1 - a, w and the bias () of the forecaster
+  const float* ssm_oma;
+  const float* ssm_w;
+  const float* ssm_bias;
+  const double* scale;       // (M,)
+  const double* coef;        // (M, 4) the cost coefficients [a_vpn, b_vpn, a_cci, b_cci]
+  int S;
+  float* h_out;              // (M, S)
 };
 
 __device__ __forceinline__ fsm::FsmRow fsm_row(const ChunkArgs& a, int n) {
@@ -158,8 +207,8 @@ __device__ __forceinline__ int64_t gate_at(const ChunkArgs& a, int k, int n) {
 
 // ---------------------------------------------------------------- tick form
 
-// K hours; tables of at most KT tiers, padded to KT; GATED: the forecast gates
-template <int K, int KT, bool GATED>
+// K hours; tables of at most KT tiers, padded to KT; G: the gate mode
+template <int K, int KT, int G>
 __global__ void __launch_bounds__(kTickThreads, 8)
 stream_chunk_tick_kernel(const ChunkArgs a) {
   const int n = blockIdx.x * kTickThreads + threadIdx.x;
@@ -170,7 +219,7 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
 
   // every load of the row first
   double dv[K], cv[K], bv[K], bc[K];
-  [[maybe_unused]] double gv[K], gc[K];   // GATED: the hours' predicted mode costs
+  [[maybe_unused]] double gv[K], gc[K];   // kReplay: the hours' predicted mode costs
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int64_t i = (int64_t)k * M + n;
@@ -178,7 +227,7 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
     cv[k] = endo ? a.cci_demand[i] : 0.0;
     bv[k] = a.pre_v[i];
     bc[k] = a.pre_c[i];
-    if constexpr (GATED) {
+    if constexpr (G == kReplay) {
       gv[k] = a.p_vpn[gate_at(a, k, n)];
       gc[k] = a.p_cci[gate_at(a, k, n)];
     }
@@ -195,7 +244,14 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
   const int h = a.win[n];
   const fsm::FsmRow p = fsm_row(a, n);
   [[maybe_unused]] fsm::FsmGate g = {};
-  if constexpr (GATED) g = fsm::fsm_gate(p, a.margin[n]);
+  if constexpr (G != kUngated) g = fsm::fsm_gate(p, a.margin[n]);
+  [[maybe_unused]] double scale = 0.0, pred0 = 0.0, cf[4] = {0.0, 0.0, 0.0, 0.0};
+  if constexpr (G == kLive) {
+    scale = a.scale[n];
+    pred0 = a.pred_in[n];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) cf[q] = a.coef[4 * (int64_t)n + q];
+  }
   fsm::FsmCarry fc = fsm_carry(a, n);
   double dcum = a.cal_in[n], month = a.cal_in[M + n];
   double pv = a.pref_in[n], pc = a.pref_in[M + n];
@@ -211,6 +267,30 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
   for (int k = 0; k < K; ++k) {
     d[k] = tier::min_sel(dv[k], cap);
     dc[k] = endo ? tier::min_sel(cv[k], cap) : d[k];
+  }
+  // kLive: the forecast made after each hour, from the clipped demand alone
+  [[maybe_unused]] double pr[K];
+  if constexpr (G == kLive) {
+    float u[K], acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      u[k] = live::ssm_input(d[k], scale);
+      acc[k] = 0.0f;
+    }
+    for (int s = 0; s < a.S; ++s) {        // state by state, hours in order
+      const int64_t j = (int64_t)n * a.S + s;
+      const float as = a.ssm_a[s], bs = a.ssm_oma[s], ws = a.ssm_w[s];
+      float hs = a.h_in[j];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float t = live::ssm_state(hs, u[k], as, bs, ws);
+        acc[k] = s == 0 ? t : __fadd_rn(acc[k], t);
+      }
+      a.h_out[j] = hs;
+    }
+    const float b = a.ssm_bias[0];
+#pragma unroll
+    for (int k = 0; k < K; ++k) pr[k] = live::prediction(live::ssm_readout(u[k], acc[k], b), scale);
   }
   int ph = a.phase0;                       // (t0 + k) % hours_per_month
 #pragma unroll
@@ -247,7 +327,13 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
     const double rv = __dsub_rn(sv[k], base_v);
     const double rc = __dsub_rn(sc[k], base_c);
     fsm::fsm_triggers(p, rv, rc, raw_req[k], raw_rel[k]);
-    if constexpr (GATED) fsm::fsm_gated_triggers(g, gv[k], gc[k], raw_req[k], raw_rel[k]);
+    if constexpr (G == kReplay) fsm::fsm_gated_triggers(g, gv[k], gc[k], raw_req[k], raw_rel[k]);
+    if constexpr (G == kLive) {           // the forecast carried into hour k
+      double lv, lc;
+      live::mode_costs(k == 0 ? pred0 : pr[k - 1], cf, lv, lc);
+      fsm::fsm_gated_triggers(g, lv, lc, raw_req[k], raw_rel[k]);
+      a.out[8 * KM + i] = pr[k];
+    }
     a.out[i] = v[k];
     a.out[KM + i] = c[k];
     a.out[2 * KM + i] = rv;
@@ -262,7 +348,7 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
     a.out[6 * KM + i] = state == fsm::kOn ? 1.0 : 0.0;
     a.out[7 * KM + i] = (double)state;
   }
-  const int64_t e = 8 * KM + n;
+  const int64_t e = tail_at<G>(KM) + n;
   a.out[e] = dcum;
   a.out[e + M] = month;
   a.out[e + 2 * M] = pv;
@@ -301,7 +387,7 @@ struct PipeTile {
   int state[kTile][kRows];
 };
 
-template <int S, bool GATED>
+template <int S, int G>
 __global__ void __launch_bounds__(32 * (4 * S + 3), 1)
 stream_chunk_pipe_kernel(const ChunkArgs a) {
   constexpr int kTile = kSub * S;
@@ -310,6 +396,9 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
   extern __shared__ double tables[];       // bounds (kRows, Kt), then rates (kRows, Kt)
   const int M = a.M, K = a.K, Kt = a.Kt;
   const int64_t KM = (int64_t)K * M;
+  // kLive: the tile's forecaster readouts behind the tables, [hour + 1][row]:
+  // slot 0 the previous tile's last hour, slot kk + 1 hour kk
+  [[maybe_unused]] float* ys = reinterpret_cast<float*>(tables + 2 * kRows * Kt);
   const int n0 = blockIdx.x * kRows;
   const int rows = min(kRows, M - n0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -322,7 +411,8 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
     const bool has_row = r < rows;
     double cap = 0.0, lvpn = 0.0, lease = 0.0, cc = 0.0;
     fsm::FsmRow pr = {};                   // the thresholds the window sums meet
-    [[maybe_unused]] fsm::FsmGate g = {};  // GATED: the forecast gates' thresholds
+    [[maybe_unused]] fsm::FsmGate g = {};  // the forecast gates' thresholds
+    [[maybe_unused]] double scale = 0.0, pred0 = 0.0, cf[4] = {0.0, 0.0, 0.0, 0.0};
     int h = 0;
     if (has_row) {
       cap = a.capacity[n];
@@ -332,7 +422,13 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
       pr.theta1 = a.theta1[n];
       pr.theta2 = a.theta2[n];
       h = a.win[n];
-      if constexpr (GATED) g = fsm::fsm_gate(pr, a.margin[n]);
+      if constexpr (G != kUngated) g = fsm::fsm_gate(pr, a.margin[n]);
+      if constexpr (G == kLive) {
+        scale = a.scale[n];
+        pred0 = a.pred_in[n];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cf[q] = a.coef[4 * (int64_t)n + q];
+      }
     }
     const double* tb = tables + r * Kt;
     const double* tr = tables + (kRows + r) * Kt;
@@ -346,7 +442,7 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
         if (endo) cv = a.cci_demand[i];
         bv = a.pre_v[i];
         bc = a.pre_c[i];
-        if constexpr (GATED) {
+        if constexpr (G == kReplay) {
           gv = a.p_vpn[gate_at(a, k0 + kk, n)];
           gc = a.p_cci[gate_at(a, k0 + kk, n)];
         }
@@ -381,6 +477,14 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
         a.out[i] = v;
         a.out[KM + i] = c;
       }
+      if constexpr (G == kLive) {   // the forecasts before and after the hour, its gate costs
+        if (mine) {
+          const double before =
+              k0 + kk == 0 ? pred0 : live::prediction(ys[kk * kRows + r], scale);
+          a.out[8 * KM + i] = live::prediction(ys[(kk + 1) * kRows + r], scale);
+          live::mode_costs(before, cf, gv, gc);
+        }
+      }
 
       bar_wait(bar_id(j, kPref));
       double w[4] = {0.0, 0.0, 0.0, 0.0};   // r_vpn, r_cci, snap_v, snap_c
@@ -391,7 +495,7 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
         const double rc = __dsub_rn(sc, in_tile ? sm.sc[lw - k0][r] : bc);
         bool raw_req, raw_rel;
         fsm::fsm_triggers(pr, rv, rc, raw_req, raw_rel);
-        if constexpr (GATED) fsm::fsm_gated_triggers(g, gv, gc, raw_req, raw_rel);
+        if constexpr (G != kUngated) fsm::fsm_gated_triggers(g, gv, gc, raw_req, raw_rel);
         sm.trig[kk][r] = (int)raw_req | (int)raw_rel << 1;
         w[0] = rv;
         w[1] = rc;
@@ -419,11 +523,31 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
   const bool live = lane < rows;
   const int n = n0 + lane;
   if (role == 0) {
+    // kLive: lanes kRows.. walk the forecaster of row lane - kRows
+    const bool fc_lane = G == kLive && lane >= kRows;
+    const int cr = G == kLive ? lane % kRows : lane;   // the lane's row
+    const bool has = cr < rows;
+    const int cn = n0 + cr;
     double cap = 0.0, dcum = 0.0, month = 0.0;
-    if (live) {
-      cap = a.capacity[n];
-      dcum = a.cal_in[n];
-      month = a.cal_in[M + n];
+    if (has) {
+      cap = a.capacity[cn];
+      dcum = a.cal_in[cn];
+      month = a.cal_in[M + cn];
+    }
+    [[maybe_unused]] float hs[kMaxState], sa[kMaxState], sb[kMaxState], sw[kMaxState];
+    [[maybe_unused]] float bias = 0.0f, y = 0.0f;
+    [[maybe_unused]] double scale = 1.0;
+    if constexpr (G == kLive) {
+#pragma unroll
+      for (int s = 0; s < kMaxState; ++s) {
+        const bool on = fc_lane && s < a.S;
+        sa[s] = on ? a.ssm_a[s] : 0.0f;
+        sb[s] = on ? a.ssm_oma[s] : 0.0f;
+        sw[s] = on ? a.ssm_w[s] : 0.0f;
+        hs[s] = on && has ? a.h_in[(int64_t)cn * a.S + s] : 0.0f;
+      }
+      if (fc_lane) bias = a.ssm_bias[0];
+      if (has) scale = a.scale[cn];
     }
     int ph = a.phase0;                     // (t0 + k) % hours_per_month
     for (int k0 = 0; k0 < K; k0 += kTile) {
@@ -431,19 +555,22 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
       double dv[kTile];                    // the tile's demand, loads in flight at once
 #pragma unroll
       for (int k = 0; k < kTile; ++k)
-        dv[k] = live && k < len ? a.demand[(int64_t)(k0 + k) * M + n] : 0.0;
+        dv[k] = has && k < len ? a.demand[(int64_t)(k0 + k) * M + cn] : 0.0;
       __syncthreads();
+      if constexpr (G == kLive) {
+        if (fc_lane && has) ys[cr] = y;    // the previous tile's last hour
+      }
       // one calendar hour; a lane past the block's rows computes on zeros and
       // stores nothing
       auto hour = [&](int k) {
         if (ph == 0) month = dcum;
         const double lo = __dsub_rn(dcum, month);
-        if (live) sm.lo[k][lane] = lo;
+        if (has) sm.lo[k][cr] = lo;
         dcum = __dadd_rn(dcum, tier::min_sel(dv[k], cap));
         ph = ph + 1 == a.hours_per_month ? 0 : ph + 1;
       };
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
+      // the calendar's hours of sub-tile j
+      auto calendar = [&](int j) {
         if (len >= kSub * (j + 1)) {       // a full sub-tile: no branch an hour
 #pragma unroll
           for (int k = kSub * j; k < kSub * (j + 1); ++k) hour(k);
@@ -452,12 +579,66 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
           for (int k = kSub * j; k < kSub * (j + 1); ++k)
             if (k < len) hour(k);
         }
+      };
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if constexpr (G == kLive) {
+          // The sub-tile's forecaster inputs, with the whole warp: lane r
+          // forms row r's for hours 0..3, lane 16 + r for hours 4..7, and
+          // the halves swap them, so the forecaster lanes hold all eight.
+          constexpr int kHalf = kSub / 2;
+          const bool upper = lane >= kRows;
+          float uq[kHalf], ux[kHalf];
+#pragma unroll
+          for (int q = 0; q < kHalf; ++q) {
+            const double d = upper ? dv[kSub * j + kHalf + q] : dv[kSub * j + q];
+            uq[q] = live::ssm_input(tier::min_sel(d, cap), scale);
+          }
+#pragma unroll
+          for (int q = 0; q < kHalf; ++q) ux[q] = __shfl_xor_sync(0xffffffffu, uq[q], kRows);
+          // Then, divergent once a sub-tile (not an hour): lanes 16.. walk
+          // their row's states over the hours, lanes 0.. the calendar.
+          if (fc_lane) {
+            auto fc_hour = [&](int q) {
+              const float u = q < kHalf ? ux[q] : uq[q - kHalf];
+              float acc = 0.0f;
+#pragma unroll
+              for (int s = 0; s < kMaxState; ++s) {
+                if (s < a.S) {
+                  const float t = live::ssm_state(hs[s], u, sa[s], sb[s], sw[s]);
+                  acc = s == 0 ? t : __fadd_rn(acc, t);
+                }
+              }
+              y = live::ssm_readout(u, acc, bias);
+              if (has) ys[(kSub * j + q + 1) * kRows + cr] = y;
+            };
+            if (len >= kSub * (j + 1)) {
+#pragma unroll
+              for (int q = 0; q < kSub; ++q) fc_hour(q);
+            } else {
+#pragma unroll
+              for (int q = 0; q < kSub; ++q)
+                if (kSub * j + q < len) fc_hour(q);
+            }
+          } else {
+            calendar(j);
+          }
+        } else {
+          calendar(j);
+        }
         bar_arrive(bar_id(j, kLo));
       }
     }
-    if (live) {
-      a.out[8 * KM + n] = dcum;
-      a.out[8 * KM + M + n] = month;
+    if (has && !fc_lane) {
+      a.out[tail_at<G>(KM) + cn] = dcum;
+      a.out[tail_at<G>(KM) + M + cn] = month;
+    }
+    if constexpr (G == kLive) {
+      if (fc_lane && has) {
+#pragma unroll
+        for (int s = 0; s < kMaxState; ++s)
+          if (s < a.S) a.h_out[(int64_t)cn * a.S + s] = hs[s];
+      }
     }
   } else if (role == 1) {
     double pv = 0.0, pc = 0.0;
@@ -489,8 +670,8 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
       }
     }
     if (live) {
-      a.out[8 * KM + 2 * M + n] = pv;
-      a.out[8 * KM + 3 * M + n] = pc;
+      a.out[tail_at<G>(KM) + 2 * M + n] = pv;
+      a.out[tail_at<G>(KM) + 3 * M + n] = pc;
     }
   } else {
     fsm::FsmRow p = {};
@@ -534,60 +715,94 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
   }
 }
 
-template <int K, bool GATED>
+// The live instance has no tick form past kTickMaxKLive (its chunk form is
+// faster there), so none is compiled.
+template <int K, int G>
 int launch_tick(const ChunkArgs& a, cudaStream_t stream) {
-  const int blocks = (a.M + kTickThreads - 1) / kTickThreads;
-  if (a.Kt <= kTickMaxTiers / 2)
-    stream_chunk_tick_kernel<K, kTickMaxTiers / 2, GATED>
-        <<<blocks, kTickThreads, 0, stream>>>(a);
-  else
-    stream_chunk_tick_kernel<K, kTickMaxTiers, GATED><<<blocks, kTickThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  if constexpr (G == kLive && K > kTickMaxKLive) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int blocks = (a.M + kTickThreads - 1) / kTickThreads;
+    if (a.Kt <= kTickMaxTiers / 2)
+      stream_chunk_tick_kernel<K, kTickMaxTiers / 2, G>
+          <<<blocks, kTickThreads, 0, stream>>>(a);
+    else
+      stream_chunk_tick_kernel<K, kTickMaxTiers, G><<<blocks, kTickThreads, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
 }
 
-template <int S, bool GATED>
+template <int S, int G>
 int launch_pipe(const ChunkArgs& a, cudaStream_t stream) {
-  const size_t tables = sizeof(double) * 2 * kRows * (size_t)a.Kt;
+  // the tables, then (kLive) the tile's forecaster readouts
+  const size_t tables = sizeof(double) * 2 * kRows * (size_t)a.Kt +
+                        (G == kLive ? sizeof(float) * (kSub * S + 1) * kRows : 0);
   if (sizeof(PipeTile<kSub * S>) + tables > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (sizeof(PipeTile<kSub * S>) + tables > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(stream_chunk_pipe_kernel<S, GATED>,
+    const cudaError_t err = cudaFuncSetAttribute(stream_chunk_pipe_kernel<S, G>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)tables);
     if (err != cudaSuccess) return (int)err;
   }
-  stream_chunk_pipe_kernel<S, GATED>
+  stream_chunk_pipe_kernel<S, G>
       <<<(a.M + kRows - 1) / kRows, 32 * (4 * S + 3), tables, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The launch of `form` (the C entry's) in one instance, gated or not.
-template <bool GATED>
+// The launch of `form` (the C entry's) in the instance of gate mode G.
+template <int G>
 int launch(const ChunkArgs& a, int form, cudaStream_t s) {
   if (form == 0) {
-    if (a.K > kTickMaxK || a.Kt > kTickMaxTiers) return (int)cudaErrorInvalidValue;
+    if (a.K > (G == kLive ? kTickMaxKLive : kTickMaxK) || a.Kt > kTickMaxTiers)
+      return (int)cudaErrorInvalidValue;
     switch (a.K) {
-      case 1: return launch_tick<1, GATED>(a, s);
-      case 2: return launch_tick<2, GATED>(a, s);
-      case 3: return launch_tick<3, GATED>(a, s);
-      case 4: return launch_tick<4, GATED>(a, s);
-      case 5: return launch_tick<5, GATED>(a, s);
+      case 1: return launch_tick<1, G>(a, s);
+      case 2: return launch_tick<2, G>(a, s);
+      case 3: return launch_tick<3, G>(a, s);
+      case 4: return launch_tick<4, G>(a, s);
+      case 5: return launch_tick<5, G>(a, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (form) {
-    case 1: return launch_pipe<1, GATED>(a, s);
-    case 2: return launch_pipe<2, GATED>(a, s);
-    case 3: return launch_pipe<kMaxSubs, GATED>(a, s);
+    case 1: return launch_pipe<1, G>(a, s);
+    case 2: return launch_pipe<2, G>(a, s);
+    case 3: return launch_pipe<kMaxSubs, G>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// The live instances' transcendentals alone, elementwise, for the card's
+// check that they give torch's CUDA ops' bits: fn 0 log1p, 1 exp, 2 expm1
+// (float64), 3 log1pf (float32).
+__global__ void live_math_kernel(const void* x, void* y, int64_t n, int fn) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (fn == 3) {
+    static_cast<float*>(y)[i] = log1pf(static_cast<const float*>(x)[i]);
+    return;
+  }
+  const double v = static_cast<const double*>(x)[i];
+  static_cast<double*>(y)[i] = fn == 0 ? log1p(v) : fn == 1 ? exp(v) : expm1(v);
+}
+
 }  // namespace
 
-// form: 0 the tick form (K <= kTickMaxK, Kt <= kTickMaxTiers), 1..3 the chunk
+extern "C" int stream_chunk_live_math(const void* x, void* y, long long n, int fn,
+                                      void* stream) {
+  if (n < 0 || fn < 0 || fn > 3) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  live_math_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(x, y, n, fn);
+  return (int)cudaGetLastError();
+}
+
+// form: 0 the tick form (K <= kTickMaxK, kTickMaxKLive live; Kt <= kTickMaxTiers), 1..3 the chunk
 // form with that many 8-hour sub-tiles a tile; kernels/stream_chunk.py::launch_form picks it.
-// p_vpn, p_cci (T_pred, M) and margin (M,) select the forecast-gated instance;
-// null p_vpn the reactive/hysteresis one (T_pred is then not read).
+// p_vpn, p_cci (T_pred, M) and margin (M,) select the forecast-gated instance
+// in replay mode; h_in (M, S), pred_in (M,), the forecaster's a, 1 - a, w
+// (S,) and bias, scale (M,), coef (M, 4) and margin (M,) the live instance
+// (out then (9K + 4, M), h_out (M, S)); null p_vpn and h_in the
+// reactive/hysteresis one (T_pred and S are then not read).
 extern "C" int stream_chunk_f64(const double* demand, const double* cci_demand,
                                 const double* pre_v, const double* pre_c,
                                 const double* capacity, const double* L_vpn,
@@ -598,19 +813,31 @@ extern "C" int stream_chunk_f64(const double* demand, const double* cci_demand,
                                 const int* down_hold, const double* cal_in,
                                 const int* fsm_in, const double* pref_in,
                                 const double* p_vpn, const double* p_cci,
-                                const double* margin, int renew_in_chunks, int t0,
+                                const double* margin, const float* h_in,
+                                const double* pred_in, const float* ssm_a,
+                                const float* ssm_oma, const float* ssm_w,
+                                const float* ssm_bias, const double* scale,
+                                const double* coef, int renew_in_chunks, int t0,
                                 int hours_per_month, int K, int M, int Kt, int form,
-                                int T_pred, double* out, int* fsm_out, void* stream) {
+                                int T_pred, int S, double* out, int* fsm_out, float* h_out,
+                                void* stream) {
   if (M == 0) return (int)cudaSuccess;
   if (M < 0 || K < 1 || Kt < 0 || t0 < 0 || hours_per_month < 1)
     return (int)cudaErrorInvalidValue;
-  const bool gated = p_vpn != nullptr;
-  if (gated && (p_cci == nullptr || margin == nullptr || T_pred < 1))
+  const bool gated = p_vpn != nullptr, live = h_in != nullptr;
+  if (gated && (live || p_cci == nullptr || margin == nullptr || T_pred < 1))
+    return (int)cudaErrorInvalidValue;
+  if (live && (pred_in == nullptr || ssm_a == nullptr || ssm_oma == nullptr ||
+               ssm_w == nullptr || ssm_bias == nullptr || scale == nullptr ||
+               coef == nullptr || margin == nullptr || h_out == nullptr || S < 1 ||
+               S > kMaxState))
     return (int)cudaErrorInvalidValue;
   const ChunkArgs a = {demand, cci_demand, pre_v, pre_c, capacity, L_vpn, lease_cci, c_cci,
                        bounds, rates, theta1, theta2, h, D, T_cci, up_hold, down_hold,
                        cal_in, fsm_in, pref_in, p_vpn, p_cci, margin, renew_in_chunks, t0,
-                       t0 % hours_per_month, hours_per_month, K, M, Kt, T_pred, out, fsm_out};
+                       t0 % hours_per_month, hours_per_month, K, M, Kt, T_pred, out, fsm_out,
+                       h_in, pred_in, ssm_a, ssm_oma, ssm_w, ssm_bias, scale, coef, S, h_out};
   const cudaStream_t s = (cudaStream_t)stream;
-  return gated ? launch<true>(a, form, s) : launch<false>(a, form, s);
+  return gated ? launch<kReplay>(a, form, s)
+               : live ? launch<kLive>(a, form, s) : launch<kUngated>(a, form, s);
 }

@@ -82,7 +82,7 @@
 //     triggers, and lane 0 of warp 1 runs the FSM (fsm_step.cuh) alone,
 //     integers only, so no chain waits on off-chain work.
 //
-// The forecast-gated policy in replay mode is the port stage's GATED instance
+// The forecast-gated policy in replay mode is the port stage's gated instance (kReplay)
 // (the pair stage does not change): warp 0's lanes, one an hour, gate their
 // raw triggers with fsm_step.cuh's fsm_gated_triggers on the thresholds
 // fsm_gate forms once a port, against the port's predicted mode costs at hour
@@ -91,12 +91,33 @@
 // M elements a chunk, strided by M across the lanes) are in flight during
 // the leg fold. The predictions are per port and do not depend on the
 // routing, so reroute() leaves them as they are.
+//
+// The same policy in live mode (src/repro/fleet/runtime.py:541-575) is the
+// port stage's LIVE instance (gate mode G = kLive; kUngated and kReplay are
+// the two above): the port's SSM demand forecaster steps inside the chunk
+// (live_forecast.cuh) on d_row, the port's clipped pair demand folded with
+// the attachment weights, in leg order, then minimum'd with the port's
+// capacity (runtime.py:485-488). Without endogenous demand that is the
+// billed volume warp 1 folds already; with it, d_row folds the VPN-path
+// demand, not the CCI demand the bill folds, so the pair stage writes a third
+// pair-major scratch plane, the clipped demand (its VPN_D instance), the port
+// stage gathers it beside the other two and warp 2's lanes fold it. Each hour
+// tile, after the cost planes: warp 2 forms each hour's input u (lane k, hour
+// k), then lane s walks state s's chain over the tile's hours, writing its
+// readout terms, then lane k folds hour k's terms left from state 0 into the
+// readout y, while lane 0 of warp 0 runs the cost prefixes. Warp 0's lanes,
+// one an hour, then form the forecasts before and after their hour from y
+// (slot 0 of the readouts holds the previous tile's last hour; the chunk's
+// first hour reads the carried pred_in), the predicted costs and the gates,
+// and store the forecast plane (the result's ninth (K, M) plane; the tail
+// moves to 9K). Lane 0 of warp 1 runs the FSM as before.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fsm_step.cuh"
+#include "live_forecast.cuh"
 #include "tier_fold.cuh"
 
 namespace {
@@ -107,6 +128,15 @@ constexpr int kPairThreads = kTile * kRows;   // one (hour, pair) a thread
 constexpr int kPortThreads = 128;             // one port a block, 4 warps
 constexpr int kLegTile = kPortThreads;        // legs a tile of the port stage: one a thread
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kMaxState = 16;                 // the live forecaster's states (MAX_STATE)
+// The port stage's gate mode: reactive/hysteresis, forecast-gated in replay
+// mode (predicted-cost planes given), forecast-gated in live mode.
+constexpr int kUngated = 0, kReplay = 1, kLive = 2;
+// kLive: the port stage's per-tile forecaster scratch behind the gathered
+// values: d_row (kTile doubles), the readouts y (kTile + 1 floats), the
+// inputs u (kTile), the readout terms (kMaxState rows of kTile + 1).
+constexpr size_t kLiveSmem =
+    sizeof(double) * kTile + sizeof(float) * ((kTile + 1) + kTile + kMaxState * (kTile + 1));
 
 // torch.minimum: NaN if either side is NaN (fmin drops it), else the smaller.
 __device__ __forceinline__ double minimum(double a, double b) {
@@ -123,6 +153,9 @@ struct PairTile {
   double dc[kRows][kTile + 1];     // clipped CCI demand
 };
 
+// VPN_D: also store the clipped demand pair-major (the live forecast's input
+// with endogenous demand).
+template <bool VPN_D>
 __global__ void __launch_bounds__(kPairThreads)
 routed_pair_kernel(const double* __restrict__ demand,      // (K, P)
                    const double* __restrict__ cci_demand,  // (K, P) or null
@@ -134,7 +167,8 @@ routed_pair_kernel(const double* __restrict__ demand,      // (K, P)
                    int phase0, int hours_per_month, int K, int P, int Kt,
                    double* __restrict__ vpn_pair,          // (P, K) scratch
                    double* __restrict__ d_cci,             // (P, K) scratch
-                   double* __restrict__ cal_out) {         // (2, P) in the result
+                   double* __restrict__ cal_out,           // (2, P) in the result
+                   double* __restrict__ d_vpn) {           // (P, K) scratch: VPN_D only
   __shared__ PairTile sm;
   extern __shared__ double tables[];       // bounds (kRows, Kt), then rates (kRows, Kt)
   const int n0 = blockIdx.x * kRows;
@@ -212,6 +246,7 @@ routed_pair_kernel(const double* __restrict__ demand,      // (K, P)
       const int64_t a = (int64_t)(n0 + rr) * K + k0 + k;
       vpn_pair[a] = sm.v[rr][k];
       d_cci[a] = sm.dc[rr][k];
+      if constexpr (VPN_D) d_vpn[a] = sm.d[k][rr];
     }
     __syncthreads();   // the next tile reuses sm
   }
@@ -239,7 +274,7 @@ struct PortSmem {
   int state[kTile];
 };
 
-template <bool GATED>
+template <int G>
 __global__ void __launch_bounds__(kPortThreads)
 routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
                    const double* __restrict__ d_cci,       // (P, K) scratch
@@ -262,13 +297,24 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
                    const int* __restrict__ start,          // (M + 1,)
                    const int* __restrict__ fsm_in,         // (4, M)
                    const double* __restrict__ pref_in,     // (2, M)
-                   const double* __restrict__ p_vpn,       // (T_pred, M): GATED only
+                   const double* __restrict__ p_vpn,       // (T_pred, M): kReplay only
                    const double* __restrict__ p_cci,
                    const double* __restrict__ margin,      // (M,)
                    int renew_in_chunks, int t0, int K, int M, int T_pred,
                    double* out,                            // planes written, snap rows read back
                    double* __restrict__ pref_out,          // (2, M) in the result
-                   int* __restrict__ fsm_out) {            // (4, M)
+                   int* __restrict__ fsm_out,              // (4, M)
+                   const float* __restrict__ h_in,         // (M, S): kLive only
+                   const double* __restrict__ pred_in,     // (M,)
+                   const float* __restrict__ ssm_a,        // (S,) a, 1 - a, w; bias ()
+                   const float* __restrict__ ssm_oma,
+                   const float* __restrict__ ssm_w,
+                   const float* __restrict__ ssm_bias,
+                   const double* __restrict__ scale,       // (M,)
+                   const double* __restrict__ coef,        // (M, 4)
+                   int S,
+                   float* __restrict__ h_out,              // (M, S)
+                   const double* __restrict__ d_vpn) {     // (P, K) clipped demand, or null
   __shared__ PortSmem sm;
   extern __shared__ double gathered[];     // (kLegTile, len) vpn_pair values, then the CCI demands
   const int m = blockIdx.x;
@@ -278,8 +324,38 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
   const fsm::FsmRow p = {theta1[m], theta2[m], delay[m], commit[m], up_hold[m],
                          down_hold[m], renew_in_chunks != 0};
   const int h = win[m];
-  [[maybe_unused]] fsm::FsmGate g = {};   // GATED: warp 0's gate thresholds
-  if (GATED && warp == 0) g = fsm::fsm_gate(p, margin[m]);
+  [[maybe_unused]] fsm::FsmGate g = {};   // warp 0's gate thresholds
+  if (G != kUngated && warp == 0) g = fsm::fsm_gate(p, margin[m]);
+  // kLive: warp 0 forms the forecasts and gates, warp 2 steps the forecaster
+  // (lane s state s) and, with endogenous demand, folds d_row
+  const bool vpn_fold = G == kLive && d_vpn != nullptr;
+  [[maybe_unused]] double scale_m = 0.0, pred0 = 0.0, cf[4] = {0.0, 0.0, 0.0, 0.0};
+  [[maybe_unused]] double pcap2 = 0.0;
+  [[maybe_unused]] float hs = 0.0f, sa = 0.0f, sb = 0.0f, sw = 0.0f, bias = 0.0f;
+  [[maybe_unused]] double* drow = nullptr;
+  [[maybe_unused]] float *ys = nullptr, *us = nullptr, *ps = nullptr;
+  if constexpr (G == kLive) {
+    double* lb = gathered + (vpn_fold ? 3 : 2) * kLegTile * (K < kTile ? K : kTile);
+    drow = lb;
+    ys = reinterpret_cast<float*>(lb + kTile);
+    us = ys + kTile + 1;
+    ps = us + kTile;
+    if (warp == 0 || warp == 2) scale_m = scale[m];
+    if (warp == 0) {
+      pred0 = pred_in[m];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) cf[q] = coef[4 * (int64_t)m + q];
+    } else if (warp == 2) {
+      bias = ssm_bias[0];
+      pcap2 = port_capacity[m];
+      if (lane < S) {
+        sa = ssm_a[lane];
+        sb = ssm_oma[lane];
+        sw = ssm_w[lane];
+        hs = h_in[(int64_t)m * S + lane];
+      }
+    }
+  }
   // Warp 1 prices the CCI plane; lane 0 of warp 0 carries the cost prefixes,
   // lane 0 of warp 1 the FSM.
   double lease = 0.0, cc = 0.0, pcap = 0.0;
@@ -303,8 +379,8 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
     const int k = k0 + lane;                        // lane's hour, for warps 0, 1 and 3
     const int64_t i = (int64_t)k * M + m;
     const int lw = max(0, t0 + k - h);              // the hour's window starts here
-    [[maybe_unused]] double gv = 0.0, gc = 0.0;     // GATED: the hour's predicted costs
-    if (GATED && warp == 0 && lane < len) {
+    [[maybe_unused]] double gv = 0.0, gc = 0.0;     // kReplay: the hour's predicted costs
+    if (G == kReplay && warp == 0 && lane < len) {
       const int64_t j = (int64_t)min(t0 + k, T_pred - 1) * M + m;
       gv = p_vpn[j];
       gc = p_cci[j];
@@ -339,11 +415,15 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
       // scratch; every copy is issued before any is waited on
       double* gv = gathered;
       double* gc = gathered + nl * len;
+      [[maybe_unused]] double* gd = gathered + 2 * nl * len;   // vpn_fold: the clipped demand
       for (int o = tid; o < nl * len; o += kPortThreads) {
         const int l = o / len;
         const int64_t a = (int64_t)sm.lp[l] * K + k0 + (o - l * len);
         __pipeline_memcpy_async(gv + o, vpn_pair + a, sizeof(double));
         __pipeline_memcpy_async(gc + o, d_cci + a, sizeof(double));
+        if constexpr (G == kLive) {
+          if (vpn_fold) __pipeline_memcpy_async(gd + o, d_vpn + a, sizeof(double));
+        }
       }
       __pipeline_commit();
       __pipeline_wait_prior(0);
@@ -356,6 +436,12 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
 #pragma unroll 4
         for (int l = 0; l < nl; ++l)
           acc = __dadd_rn(acc, __dmul_rn(gc[l * len + lane], sm.wa[l]));
+      } else if constexpr (G == kLive) {
+        if (vpn_fold && warp == 2 && lane < len) {
+#pragma unroll 4
+          for (int l = 0; l < nl; ++l)
+            acc = __dadd_rn(acc, __dmul_rn(gd[l * len + lane], sm.wa[l]));
+        }
       }
       __syncthreads();   // the next tile restages and regathers
     }
@@ -368,6 +454,12 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
       const double c = __dadd_rn(lease, __dmul_rn(cc, minimum(acc, pcap)));
       sm.c[lane] = c;
       out[KM + i] = c;
+      if constexpr (G == kLive) {
+        if (!vpn_fold) drow[lane] = minimum(acc, pcap);   // d_row is the billed volume
+      }
+    }
+    if constexpr (G == kLive) {
+      if (vpn_fold && warp == 2 && lane < len) drow[lane] = minimum(acc, pcap2);
     }
     __syncthreads();
 
@@ -380,6 +472,23 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
         pc = __dadd_rn(pc, sm.c[j]);
       }
     }
+    if constexpr (G == kLive) {                     // the forecaster over the tile's hours
+      if (warp == 2) {
+        if (lane == 0 && k0 > 0) ys[0] = ys[kTile];   // the previous tile's last hour
+        if (lane < len) us[lane] = live::ssm_input(drow[lane], scale_m);
+        __syncwarp();
+        if (lane < S) {
+          float* pt = ps + lane * (kTile + 1);
+          for (int j = 0; j < len; ++j) pt[j] = live::ssm_state(hs, us[j], sa, sb, sw);
+        }
+        __syncwarp();
+        if (lane < len) {
+          float acc_y = ps[lane];
+          for (int s = 1; s < S; ++s) acc_y = __fadd_rn(acc_y, ps[s * (kTile + 1) + lane]);
+          ys[lane + 1] = live::ssm_readout(us[lane], acc_y, bias);
+        }
+      }
+    }
     __syncthreads();
 
     if (warp == 0 && lane < len) {                  // window sums and raw triggers
@@ -390,7 +499,14 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
       const double rc = __dsub_rn(sc, in_tile ? sm.sc[j] : sm.bc[lane]);
       bool raw_req, raw_rel;
       fsm::fsm_triggers(p, rv, rc, raw_req, raw_rel);
-      if constexpr (GATED) fsm::fsm_gated_triggers(g, gv, gc, raw_req, raw_rel);
+      if constexpr (G == kReplay) fsm::fsm_gated_triggers(g, gv, gc, raw_req, raw_rel);
+      if constexpr (G == kLive) {                   // the forecast carried into the hour
+        const double before = k == 0 ? pred0 : live::prediction(ys[lane], scale_m);
+        out[8 * KM + i] = live::prediction(ys[lane + 1], scale_m);
+        double lv, lc;
+        live::mode_costs(before, cf, lv, lc);
+        fsm::fsm_gated_triggers(g, lv, lc, raw_req, raw_rel);
+      }
       sm.trig[lane] = (int)raw_req | (int)raw_rel << 1;
       out[2 * KM + i] = rv;
       out[3 * KM + i] = rc;
@@ -425,10 +541,28 @@ routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
     fsm_out[2 * M + m] = fc.up;
     fsm_out[3 * M + m] = fc.down;
   }
+  if constexpr (G == kLive) {
+    if (warp == 2 && lane < S) h_out[(int64_t)m * S + lane] = hs;
+  }
 }
 
-// The port stage's launch, in the instance `gated` picks.
-template <bool GATED>
+// The live instance's operands of the port stage (null in the others).
+struct LiveArgs {
+  const float* h_in;
+  const double* pred_in;
+  const float* ssm_a;
+  const float* ssm_oma;
+  const float* ssm_w;
+  const float* ssm_bias;
+  const double* scale;
+  const double* coef;
+  int S;
+  float* h_out;
+  const double* d_vpn;
+};
+
+// The port stage's launch in gate mode G.
+template <int G>
 int launch_port(const double* vpn_pair, const double* d_cci, const double* pre_v,
                 const double* pre_c, const double* lease_cci, const double* c_cci,
                 const double* port_capacity, const double* theta1, const double* theta2,
@@ -437,25 +571,32 @@ int launch_port(const double* vpn_pair, const double* d_cci, const double* pre_v
                 const double* attach_w, const int* order, const int* start, const int* fsm_in,
                 const double* pref_in, const double* p_vpn, const double* p_cci,
                 const double* margin, int renew_in_chunks, int t0, int K, int M, int T_pred,
-                double* out, double* pref_out, int* fsm_out, size_t gathered, cudaStream_t s) {
+                double* out, double* pref_out, int* fsm_out, const LiveArgs& lv, size_t gathered,
+                cudaStream_t s) {
   if (sizeof(PortSmem) + gathered > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        routed_port_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gathered);
+        routed_port_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gathered);
     if (err != cudaSuccess) return (int)err;
   }
-  routed_port_kernel<GATED><<<M, kPortThreads, gathered, s>>>(
+  routed_port_kernel<G><<<M, kPortThreads, gathered, s>>>(
       vpn_pair, d_cci, pre_v, pre_c, lease_cci, c_cci, port_capacity, theta1, theta2, h, D,
       T_cci, up_hold, down_hold, leg_pair, vpn_w, attach_w, order, start, fsm_in, pref_in,
-      p_vpn, p_cci, margin, renew_in_chunks, t0, K, M, T_pred, out, pref_out, fsm_out);
+      p_vpn, p_cci, margin, renew_in_chunks, t0, K, M, T_pred, out, pref_out, fsm_out,
+      lv.h_in, lv.pred_in, lv.ssm_a, lv.ssm_oma, lv.ssm_w, lv.ssm_bias, lv.scale, lv.coef, lv.S,
+      lv.h_out, lv.d_vpn);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: 2 P K float64 (vpn_pair, then the clipped CCI demand, pair-major).
-// out: 8 K M + 2 P + 2 M float64. All pointers contiguous on one device.
-// p_vpn, p_cci (T_pred, M) and margin (M,) select the port stage's
-// forecast-gated instance; null p_vpn the reactive/hysteresis one.
+// scratch: 2 P K float64 (vpn_pair, then the clipped CCI demand, pair-major;
+// a live call with endogenous demand 3 P K, the clipped demand third).
+// out: 8 K M + 2 P + 2 M float64 (9 K M + ... in a live call). All pointers
+// contiguous on one device. p_vpn, p_cci (T_pred, M) and margin (M,) select
+// the port stage's forecast-gated instance in replay mode; h_in (M, S),
+// pred_in (M,), the forecaster's a, 1 - a, w (S,) and bias, scale (M,), coef
+// (M, 4) and margin (M,) its live instance (h_out (M, S)); null p_vpn and
+// h_in the reactive/hysteresis one.
 extern "C" int stream_chunk_routed_f64(
     const double* demand, const double* cci_demand, const double* pre_v, const double* pre_c,
     const double* pair_capacity, const double* L_vpn, const double* bounds, const double* rates,
@@ -466,38 +607,53 @@ extern "C" int stream_chunk_routed_f64(
     const int* start,
     const double* cal_in, const int* fsm_in, const double* pref_in, double* scratch,
     const double* p_vpn, const double* p_cci, const double* margin,
+    const float* h_in, const double* pred_in, const float* ssm_a, const float* ssm_oma,
+    const float* ssm_w, const float* ssm_bias, const double* scale, const double* coef,
     int renew_in_chunks, int t0, int hours_per_month, int K, int P, int M, int E, int Kt,
-    int T_pred, double* out, int* fsm_out, void* stream) {
+    int T_pred, int S, double* out, int* fsm_out, float* h_out, void* stream) {
   if (K < 1 || P < 0 || M < 0 || E < 0 || Kt < 0 || t0 < 0 || hours_per_month < 1)
     return (int)cudaErrorInvalidValue;
-  const bool gated = p_vpn != nullptr;
-  if (gated && (p_cci == nullptr || margin == nullptr || T_pred < 1))
+  const bool gated = p_vpn != nullptr, live = h_in != nullptr;
+  if (gated && (live || p_cci == nullptr || margin == nullptr || T_pred < 1))
+    return (int)cudaErrorInvalidValue;
+  if (live && (pred_in == nullptr || ssm_a == nullptr || ssm_oma == nullptr ||
+               ssm_w == nullptr || ssm_bias == nullptr || scale == nullptr ||
+               coef == nullptr || margin == nullptr || h_out == nullptr || S < 1 ||
+               S > kMaxState))
     return (int)cudaErrorInvalidValue;
   const size_t tables = sizeof(double) * 2 * kRows * (size_t)Kt;
   if (sizeof(PairTile) + tables > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const size_t gathered = sizeof(double) * 2 * kLegTile * (size_t)(K < kTile ? K : kTile);
+  const bool vpn_d = live && cci_demand != nullptr;   // d_row folds the clipped demand
+  const size_t gathered = sizeof(double) * (vpn_d ? 3 : 2) * kLegTile *
+                          (size_t)(K < kTile ? K : kTile) + (live ? kLiveSmem : 0);
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t KP = (int64_t)K * P, KM = (int64_t)K * M;
+  const int64_t tail = (live ? 9 : 8) * KM;
   double* vpn_pair = scratch;
   double* d_cci = scratch + KP;
+  double* d_vpn = vpn_d ? scratch + 2 * KP : nullptr;
   if (P > 0) {
+    const auto pair = vpn_d ? routed_pair_kernel<true> : routed_pair_kernel<false>;
     if (sizeof(PairTile) + tables > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          routed_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tables);
+          pair, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tables);
       if (err != cudaSuccess) return (int)err;
     }
-    routed_pair_kernel<<<(P + kRows - 1) / kRows, kPairThreads, tables, s>>>(
+    pair<<<(P + kRows - 1) / kRows, kPairThreads, tables, s>>>(
         demand, cci_demand, pair_capacity, L_vpn, bounds, rates, cal_in,
-        t0 % hours_per_month, hours_per_month, K, P, Kt, vpn_pair, d_cci, out + 8 * KM);
+        t0 % hours_per_month, hours_per_month, K, P, Kt, vpn_pair, d_cci, out + tail, d_vpn);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (M > 0) {
-    const auto port = gated ? launch_port<true> : launch_port<false>;
+    const LiveArgs lv = {h_in, pred_in, ssm_a, ssm_oma, ssm_w, ssm_bias, scale, coef, S, h_out,
+                         d_vpn};
+    const auto port = gated ? launch_port<kReplay>
+                            : live ? launch_port<kLive> : launch_port<kUngated>;
     const int err = port(vpn_pair, d_cci, pre_v, pre_c, lease_cci, c_cci, port_capacity, theta1,
                          theta2, h, D, T_cci, up_hold, down_hold, leg_pair, vpn_w, attach_w,
                          order, start, fsm_in, pref_in, p_vpn, p_cci, margin, renew_in_chunks,
-                         t0, K, M, T_pred, out, out + 8 * KM + 2 * P, fsm_out, gathered, s);
+                         t0, K, M, T_pred, out, out + tail + 2 * P, fsm_out, lv, gathered, s);
     if (err != (int)cudaSuccess) return err;
   }
   return (int)cudaGetLastError();

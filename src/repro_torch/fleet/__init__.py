@@ -134,5 +134,7 @@ from .runtime import (  # noqa: F401
     ResolvedRuntime,
     RuntimeConfig,
     RuntimeState,
+    StreamingForecaster,
     resolve_runtime_operands,
 )
+from .stream import streaming_forecast_policy  # noqa: F401

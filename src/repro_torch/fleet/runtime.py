@@ -42,13 +42,17 @@ Ported: both routings, the reactive and hysteresis policies, the
 forecast-gated policy in replay mode (a :class:`ForecastGatedPolicy` with
 its ``cost_coef`` given: its predicted mode costs are formed once, at
 construction, as the offline planners form them, and the chunk kernels'
-gated instances read them hour by hour), endogenous CCI demand,
+gated instances read them hour by hour) and in live mode (the same policy
+with ``forecaster=`` a :class:`StreamingForecaster`: the SSM forecaster's
+state rides on the device beside the FSM carry, and the chunk kernels' live
+instances step it after each hour's decision, so each hour's gates read the
+forecast made from the demand realised so far), endogenous CCI demand,
 ``reroute``, and the actuation layer on top (:class:`ElasticFleetPlanner`,
 per link or per port, whose per-actuator modes drive
 :func:`repro_torch.dist.collectives.fleet_sync_grads`). Not ported yet,
-each raising ``NotImplementedError``: live forecasting in the stream
-(``forecaster=``, ``StreamingForecaster``; ROADMAP Queue 1, item 6b-2) and
-observability (item 8).
+each raising ``NotImplementedError``: training the forecaster
+(``StreamingForecaster.fit``; ROADMAP Queue 1, item 6c) and observability
+(item 8).
 """
 from __future__ import annotations
 
@@ -61,6 +65,9 @@ import torch
 from repro_torch.core.planner import COMPRESS_RATIO, collective_mode
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.forecaster import MAX_STATE
+from repro_torch.models.ssm import _operands as _ssm_operands
+from repro_torch.models.ssm import demand_forecaster_warmup
 
 from .policy import (ForecastGatedPolicy, HysteresisPolicy, ReactivePolicy, fsm_carry,
                      make_policy, policy_to)
@@ -68,9 +75,11 @@ from .routing import RoutingPlan, as_routing_plan, index_legs
 from .spec import FleetArrays, FleetSpec
 from .topology import TopologyArrays, TopologySpec
 
-_FORECAST = ("live forecasting in the stream (forecaster=, the SSM step inside the chunk, "
-             "StreamingForecaster, streaming_forecast_policy) is ROADMAP Queue 1, item 6b-2; "
-             "a ForecastGatedPolicy with its cost_coef given streams in replay mode")
+_FORECAST = ("training the streaming forecaster (StreamingForecaster.fit, "
+             "streaming_forecast_policy) is ROADMAP Queue 1, item 6c; build a "
+             "StreamingForecaster from given parameters (StreamingForecaster.from_history) "
+             "and stream it with forecaster= beside a ForecastGatedPolicy whose cost_coef "
+             "is given")
 _COST_COEF = ("streaming a ForecastGatedPolicy needs explicit demand->cost coefficients: "
               "build it with forecast_fleet_policy/forecast_topology_policy (or pass "
               "cost_coef= to forecast_gated_policy)")
@@ -100,13 +109,59 @@ class RuntimeState(NamedTuple):
     cci_pref: np.ndarray    # (M,) exclusive prefix of hourly CCI cost
     ring_vpn: np.ndarray    # (hbuf, M) past vpn_pref values, slot = hour % hbuf
     ring_cci: np.ndarray    # (hbuf, M)
+    ssm_h: Optional[torch.Tensor] = None      # device (M, S) float32: the live
+                                              # forecaster's state (live mode only)
+    pred_live: Optional[torch.Tensor] = None  # device (M,) float64: the forecast
+                                              # the next hour's gates read
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingForecaster:
+    """A demand forecaster packaged for O(1)-per-hour stepping
+    (:class:`repro.fleet.runtime.StreamingForecaster`).
+
+    ``params`` is the port's forecaster dict (``{"raw_a", "w", "bias"}``
+    float32 tensors; a JAX one comes across with
+    :func:`repro_torch.models.convert.tree_from_reference`), ``scale`` the
+    (rows,) float64 normalisers, ``h0`` the (rows, S) float32 state after the
+    history and ``pred0`` the (rows,) float64 forecast for live hour 0 (the
+    readout after the last history hour). Fields may be numpy arrays or
+    tensors; :class:`FleetRuntime` moves them to its device once.
+    """
+
+    params: dict
+    scale: object
+    h0: object
+    pred0: object
+
+    @classmethod
+    def fit(cls, history, window: int, **train_kw) -> "StreamingForecaster":
+        """Not ported yet (ROADMAP Queue 1, item 6c): it trains the forecaster."""
+        raise not_ported(_FORECAST)
+
+    @classmethod
+    def from_history(cls, params, history, *,
+                     device: DeviceLike = None) -> "StreamingForecaster":
+        """Warm given ``params`` through a (rows, H) ``history`` block, as
+        ``fit`` does after training: ``scale`` is ``max(mean(history), 1e-9)``
+        per row (numpy, the training's normaliser), ``h0`` and ``pred0`` come
+        from one scan over the history on ``device``
+        (:func:`~repro_torch.models.ssm.demand_forecaster_warmup`)."""
+        hist = history.detach().cpu().numpy() if torch.is_tensor(history) else history
+        hist = np.asarray(hist, np.float64)
+        if hist.ndim != 2 or hist.shape[1] < 1:
+            raise ValueError(f"StreamingForecaster.from_history needs a (rows, H >= 1) "
+                             f"history block, got {hist.shape}")
+        scale = np.maximum(hist.mean(axis=1), 1e-9)
+        h0, pred0 = demand_forecaster_warmup(params, hist, scale, device=device)
+        return cls(params=params, scale=scale, h0=h0, pred0=pred0)
 
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Frozen construction options of a :class:`FleetRuntime` (the fields of
-    :class:`repro.fleet.runtime.RuntimeConfig`). ``forecaster`` (live mode)
-    and ``obs`` belong to slices not ported yet and must stay unset."""
+    :class:`repro.fleet.runtime.RuntimeConfig`). ``obs`` belongs to a slice
+    not ported yet and must stay unset."""
 
     routing: object = None
     policy: object = None
@@ -119,7 +174,11 @@ class RuntimeConfig:
         if not (int(self.hours_per_month) >= 1):
             raise ValueError(f"hours_per_month must be >= 1, got {self.hours_per_month}")
         if self.forecaster is not None:
-            raise not_ported(_FORECAST)
+            if not isinstance(self.forecaster, StreamingForecaster):
+                raise TypeError("forecaster must be a StreamingForecaster, got "
+                                f"{type(self.forecaster).__name__}")
+            if self.policy is not None and not isinstance(self.policy, ForecastGatedPolicy):
+                raise ValueError("forecaster= only applies to a ForecastGatedPolicy")
         if self.obs is not None and self.obs is not False:
             raise not_ported(_OBS)
         return self
@@ -137,7 +196,10 @@ class ResolvedRuntime:
     hours_per_month: int
     routing_plan: Optional[RoutingPlan] = None  # the typed plan behind
                                   # arrays.routing when a spec was stacked
-    pred_source: Optional[str] = None  # "replay" for a ForecastGatedPolicy
+    pred_source: Optional[str] = None  # "replay" or "live" for a ForecastGatedPolicy
+    live: Optional[tuple] = None  # live mode: (a, 1 - a, w, bias, scale, cost_coef,
+                                  # margin) on the device
+    live0: Optional[tuple] = None  # live mode: (h0 (M, S) f32, pred0 (M,) f64)
 
 
 def resolve_runtime_operands(spec, config: RuntimeConfig,
@@ -150,9 +212,13 @@ def resolve_runtime_operands(spec, config: RuntimeConfig,
     port-major index built on the host); :class:`FleetArrays` and
     :class:`TopologyArrays` are moved, and the latter carry their own
     routing, so a routing beside them is an error. A
-    :class:`ForecastGatedPolicy` streams in replay mode (``pred_source =
-    "replay"``): it needs its ``cost_coef`` (the reference's text, as a
-    ``ValueError``) and a (rows, T_pred) ``pred_demand``, rows being the
+    :class:`ForecastGatedPolicy` needs its ``cost_coef`` (the reference's
+    text, as a ``ValueError``). With ``config.forecaster`` it streams in live
+    mode (``pred_source = "live"``, ``src/repro/fleet/runtime.py:670-697``):
+    ``pred_demand`` is not read, the forecaster must carry one row per
+    decision row and 1 <= S <= 16 states, and the live operands are formed
+    once on the device (:func:`_live_operands`). Without it, replay mode
+    (``"replay"``) needs a (rows, T_pred) ``pred_demand``, rows being the
     decision rows (ports in topology mode)."""
     config = config.validate()
     dev = resolve_device(device)
@@ -183,7 +249,7 @@ def resolve_runtime_operands(spec, config: RuntimeConfig,
         raise TypeError("FleetRuntime streams a FleetSpec, FleetArrays, TopologySpec or "
                         f"TopologyArrays, got {type(spec).__name__}")
     policy = config.policy
-    pred_source = None
+    pred_source = live = live0 = None
     if policy is None:
         policy = make_policy(kind, arrays.toggle, renew_in_chunks=config.renew_in_chunks)
     elif isinstance(policy, (ReactivePolicy, HysteresisPolicy)):
@@ -192,18 +258,58 @@ def resolve_runtime_operands(spec, config: RuntimeConfig,
         if policy.cost_coef is None:
             raise ValueError(_COST_COEF)
         M = arrays.toggle.theta1.shape[0]
-        shape = tuple(policy.pred_demand.shape)
-        if len(shape) != 2 or shape[0] != M or shape[1] < 1:
-            raise ValueError(f"replay mode indexes pred_demand columns per tick: expected a "
-                             f"({M}, T_pred >= 1) prediction matrix, got {shape}")
+        if config.forecaster is not None:
+            live, live0 = _live_operands(config.forecaster, policy, M, dev)
+            pred_source = "live"
+        else:
+            shape = tuple(policy.pred_demand.shape)
+            if len(shape) != 2 or shape[0] != M or shape[1] < 1:
+                raise ValueError(f"replay mode indexes pred_demand columns per tick: "
+                                 f"expected a ({M}, T_pred >= 1) prediction matrix, "
+                                 f"got {shape}")
+            pred_source = "replay"
         policy = policy_to(policy, dev)
-        pred_source = "replay"
     else:
         raise TypeError(f"FleetRuntime streams a reactive, hysteresis or forecast-gated "
                         f"policy, got {type(policy).__name__}")
+    if config.forecaster is not None and pred_source != "live":
+        raise ValueError("forecaster= only applies to a ForecastGatedPolicy")
     return ResolvedRuntime(spec=topo_spec, topology=isinstance(arrays, TopologyArrays),
                            arrays=arrays, policy=policy, hours_per_month=hours_per_month,
-                           routing_plan=plan, pred_source=pred_source)
+                           routing_plan=plan, pred_source=pred_source, live=live,
+                           live0=live0)
+
+
+def _live_operands(fc: StreamingForecaster, policy: ForecastGatedPolicy, M: int,
+                   dev: torch.device):
+    """Live mode's device operands, formed once: ``(a, 1 − a, w, bias)`` by
+    :func:`repro_torch.models.ssm._operands` (the sigmoid on the host, so every
+    device steps the same bits), the forecaster's ``scale`` and the policy's
+    ``cost_coef`` and ``margin`` in float64; and the start ``(h0, pred0)``.
+    Raises unless the forecaster carries M rows and 1 <= S <= 16 states."""
+    f32, f64 = torch.float32, torch.float64
+
+    def move(x, dt):
+        t = x if torch.is_tensor(x) else torch.from_numpy(np.array(x))
+        return t.detach().to(device=dev, dtype=dt).contiguous()
+
+    scale, h0, pred0 = move(fc.scale, f64), move(fc.h0, f32), move(fc.pred0, f64)
+    S = h0.shape[1] if h0.dim() == 2 else -1
+    if scale.shape != (M,) or pred0.shape != (M,) or h0.dim() != 2 or h0.shape[0] != M:
+        raise ValueError(f"the forecaster must carry one row per decision row ({M}): got "
+                         f"scale {tuple(scale.shape)}, h0 {tuple(h0.shape)}, pred0 "
+                         f"{tuple(pred0.shape)}")
+    if not 1 <= S <= MAX_STATE:
+        raise ValueError(f"the streamed forecaster has kernels for 1 <= S <= {MAX_STATE} "
+                         f"states, got h0 of {S}")
+    a, oma, w, bias = _ssm_operands(fc.params, dev)
+    if a.shape != (S,) or w.shape != (S,):
+        raise ValueError(f"forecaster params of {tuple(a.shape)} states against h0's {S}")
+    coef = policy.cost_coef.detach().to(dev, f64).contiguous()
+    if coef.shape != (M, 4):
+        raise ValueError(f"cost_coef: want ({M}, 4), got {tuple(coef.shape)}")
+    live = (a, oma, w, bias, scale, coef, policy.margin.detach().to(dev, f64).contiguous())
+    return live, (h0, pred0)
 
 
 class FleetRuntime:
@@ -227,16 +333,24 @@ class FleetRuntime:
         the largest plan :meth:`reroute` can swap in.
       policy: a reactive, hysteresis or forecast-gated policy with per-row
         tensors (per port in topology mode); ``None`` builds the spec's kind.
-        A :class:`ForecastGatedPolicy` streams in replay mode: it needs its
-        ``cost_coef``, and hour ``t`` reads column ``min(t, T_pred − 1)`` of
-        its predicted mode costs.
+        A :class:`ForecastGatedPolicy` needs its ``cost_coef``; without a
+        forecaster it streams in replay mode, hour ``t`` reading column
+        ``min(t, T_pred − 1)`` of its predicted mode costs.
       hours_per_month: billing calendar; taken from the spec when a spec is
         given (pass arrays to choose it).
       renew_in_chunks: release only at multiples of ``T_cci``.
       device: ``None`` runs on CUDA and raises without it; ``"cpu"`` runs
         the kernels' plain versions.
-      forecaster, obs: not ported yet (``NotImplementedError``; live
-        forecasting is ROADMAP Queue 1, item 6b-2).
+      forecaster: a :class:`StreamingForecaster` beside a
+        :class:`ForecastGatedPolicy` streams it in live mode
+        (``pred_source == "live"``): hour ``t``'s gates read the forecast
+        made after hour ``t − 1`` (``pred0`` at hour 0) from the demand
+        realised so far, clipped (fleet mode) or folded onto the port and
+        clipped (topology mode), and the policy's ``pred_demand`` is not
+        read. The outputs then also hold ``pred_next``, the forecast made
+        after each hour. ``reset()`` restores ``h0`` and ``pred0``;
+        ``reroute()`` carries the forecaster's state across untouched.
+      obs: not ported yet (``NotImplementedError``; ROADMAP Queue 1, item 8).
     """
 
     def __init__(
@@ -262,6 +376,8 @@ class FleetRuntime:
         self.arrays = r.arrays
         self.policy = r.policy
         self.pred_source = r.pred_source
+        self._live, self._live0 = r.live, r.live0
+        self._n_planes = 9 if self._live is not None else 8
         self.hours_per_month = r.hours_per_month
         tog = self.arrays.toggle
         self._h_np = tog.h.cpu().numpy().astype(np.int64)
@@ -331,15 +447,16 @@ class FleetRuntime:
         self._lease = a.L_cci + a.V_cci * a.routing.index.n_attach
 
     def reset(self) -> None:
-        """Rewind to hour 0 (fresh carries; operands, routing and policy
-        unchanged)."""
+        """Rewind to hour 0 (fresh carries, the live forecaster back at its
+        ``h0`` and ``pred0``; operands, routing and policy unchanged)."""
         M, P = self.n_rows, self.n_demand_rows
         z = lambda *s: np.zeros(s, np.float64)
         dz = lambda n: torch.zeros((2, n), dtype=torch.float64, device=self.device)
+        h0, pred0 = (None, None) if self._live0 is None else self._live0
         self._state = RuntimeState(
             t=0, fsm=fsm_carry(self.policy), dev_cal=dz(P), dev_pref=dz(M),
             dcum=z(P), dcum_month=z(P), vpn_pref=z(M), cci_pref=z(M),
-            ring_vpn=z(self.hbuf, M), ring_cci=z(self.hbuf, M),
+            ring_vpn=z(self.hbuf, M), ring_cci=z(self.hbuf, M), ssm_h=h0, pred_live=pred0,
         )
 
     @property
@@ -351,8 +468,9 @@ class FleetRuntime:
         this hour (per pair in topology mode); ``cci_demand_t`` optionally
         prices the CCI counterfactual on its own volume (endogenous demand).
         Returns this hour's per-decision-row ``x``, ``state``, ``r_vpn``,
-        ``r_cci``, ``vpn_cost``, ``cci_cost``, ``cost``; ``state`` is the FSM
-        state that serves the hour (map it with :meth:`modes`)."""
+        ``r_cci``, ``vpn_cost``, ``cci_cost``, ``cost`` (and ``pred_next`` in
+        live mode); ``state`` is the FSM state that serves the hour (map it
+        with :meth:`modes`)."""
         d = np.asarray(demand_t, np.float64)
         if d.shape != (self.n_demand_rows,):
             raise ValueError(f"demand_t must be ({self.n_demand_rows},), got {d.shape}")
@@ -416,23 +534,31 @@ class FleetRuntime:
         ``stream_chunk_routed`` (topology mode) call. Returns its packed
         float64 result: (8K + 4, M) or flat, the same elements in the same
         order either way: the (K, M) planes vpn, cci, r_vpn, r_cci, snap_v,
-        snap_c, x, state, then dcum, dcum_month (P each), vpn_pref, cci_pref
-        (M each). The next device carries are the FSM carry out and views of
-        the result's tail."""
+        snap_c, x, state (and, in live mode, pred: the forecast made after
+        each hour), then dcum, dcum_month (P each), vpn_pref, cci_pref (M
+        each). The next device carries are the FSM carry out and views of
+        the result's tail; in live mode the forecaster's state out and a view
+        of the pred plane's last row."""
         chunk = ops.stream_chunk_routed if self.topology else ops.stream_chunk
-        host, fsm = chunk(*self._chunk_args(block, K, endo),
-                          renew_in_chunks=self.policy.renew_in_chunks, gate=self._gate)
+        st = self._state
+        live = None if self._live is None else (st.ssm_h, st.pred_live, *self._live)
+        res = chunk(*self._chunk_args(block, K, endo),
+                    renew_in_chunks=self.policy.renew_in_chunks, gate=self._gate, live=live)
+        host, fsm = res[0], res[1]
         M, P = self.n_rows, self.n_demand_rows
-        tail = host.view(-1)[8 * K * M:]
-        self._state = self._state._replace(fsm=fsm, dev_cal=tail[:2 * P].view(2, P),
-                                           dev_pref=tail[2 * P:].view(2, M))
+        flat = host.view(-1)
+        tail = flat[self._n_planes * K * M:]
+        carries = dict(fsm=fsm, dev_cal=tail[:2 * P].view(2, P), dev_pref=tail[2 * P:].view(2, M))
+        if live is not None:
+            carries.update(ssm_h=res[2], pred_live=flat[(9 * K - 1) * M:9 * K * M])
+        self._state = st._replace(**carries)
         return host
 
     def _chunk_args(self, block: torch.Tensor, K: int, endo: bool) -> tuple:
         """The chunk wrapper's positional arguments for ``block`` at the
         current state and routing (``renew_in_chunks`` is the policy's, and
-        ``gate=self._gate`` the forecast gate's operands, None for the
-        reactive and hysteresis policies)."""
+        ``gate=self._gate`` the forecast gate's operands in replay mode, None
+        otherwise; :meth:`_launch` adds the live operands)."""
         st = self._state
         if self.topology:
             rows = (*self._pair_rows, self._lease, *self._port_rows, self.arrays.routing)
@@ -448,7 +574,8 @@ class FleetRuntime:
         st = self._state
         t, M, P = st.t, self.n_rows, self.n_demand_rows
         flat = host.reshape(-1)
-        planes = flat[:8 * K * M].reshape(8, K, M)
+        n = self._n_planes
+        planes = flat[:n * K * M].reshape(n, K, M)
         vpn_t, cci_t, r_vpn, r_cci, snap_v, snap_c = planes[:6]
         x = planes[6].astype(np.int64)
         state = planes[7].astype(np.int64)
@@ -456,11 +583,11 @@ class FleetRuntime:
         slots = (t + np.arange(K - w, K)) % self.hbuf
         st.ring_vpn[slots] = snap_v[K - w:]
         st.ring_cci[slots] = snap_c[K - w:]
-        tail = flat[8 * K * M:]
+        tail = flat[n * K * M:]
         st.dcum[:], st.dcum_month[:] = tail[:2 * P].reshape(2, P)
         st.vpn_pref[:], st.cci_pref[:] = tail[2 * P:].reshape(2, M)
         self._state = st._replace(t=t + K)
-        return {
+        out = {
             "x": x.T,                      # (rows, K) — run()'s stacked layout
             "state": state.T,
             "r_vpn": r_vpn.T,
@@ -469,6 +596,9 @@ class FleetRuntime:
             "cci_cost": cci_t.T,
             "cost": np.where(x == 1, cci_t, vpn_t).T,
         }
+        if n == 9:                         # live mode: the forecast made after each hour
+            out["pred_next"] = planes[8].T
+        return out
 
     def run(self, demand, *, cci_demand=None) -> Dict[str, np.ndarray]:
         """Stream a whole (rows, T) matrix hour by hour and stack the outputs
@@ -493,7 +623,7 @@ class FleetRuntime:
         plan. The new leg operand and its port-major index are built on the
         host, once. Every carry — FSM, prefix rings (so window sums near the
         swap mix old- and new-routing hours, as a live system sees them),
-        pair billing state — rides across untouched: from this hour on the
+        pair billing state, the live forecaster's state — rides across untouched: from this hour on the
         decisions equal :func:`repro_torch.fleet.engine.replay_plan_topology`
         applying the same routing at the same hour.
         """

@@ -2,11 +2,11 @@
 
 Facade of :mod:`repro.fleet.stream`: the incremental runtime
 (:class:`FleetRuntime`, its frozen :class:`RuntimeConfig`, and the operand
-resolution it shares) and the endogenous-demand planner over it
-(:class:`ElasticFleetPlanner`, per link or per port). The runtime streams
-the forecast-gated policy in replay mode (its predictions given); the live
-forecaster keeps its names here and raises ``NotImplementedError`` naming
-the ROADMAP item that ports it (6b-2).
+resolution it shares), the live forecaster it streams the forecast-gated
+policy with (:class:`StreamingForecaster`) and the endogenous-demand planner
+over it (:class:`ElasticFleetPlanner`, per link or per port). Training the
+forecaster (``StreamingForecaster.fit``, :func:`streaming_forecast_policy`)
+raises ``NotImplementedError`` naming the ROADMAP item that ports it (6c).
 """
 from .runtime import (  # noqa: F401
     _FORECAST,
@@ -15,25 +15,17 @@ from .runtime import (  # noqa: F401
     FleetRuntime,
     ResolvedRuntime,
     RuntimeConfig,
+    StreamingForecaster,
     not_ported,
     resolve_runtime_operands,
 )
 
 
-class StreamingForecaster:
-    """Not ported yet (ROADMAP Queue 1, item 6b-2): the live SSM demand forecaster."""
-
-    def __init__(self, *args, **kwargs):
-        raise not_ported(_FORECAST)
-
-    @classmethod
-    def fit(cls, *args, **kwargs):
-        raise not_ported(_FORECAST)
-
-
 def streaming_forecast_policy(*args, **kwargs):
-    """Not ported yet (ROADMAP Queue 1, item 6b-2): the live-mode forecast
-    policy factory."""
+    """Not ported yet (ROADMAP Queue 1, item 6c): the live-mode forecast
+    policy factory, which trains the forecaster. Build the policy with
+    :func:`repro_torch.fleet.policy.forecast_gated_policy` (``cost_coef=``
+    given) and the forecaster with :meth:`StreamingForecaster.from_history`."""
     raise not_ported(_FORECAST)
 
 

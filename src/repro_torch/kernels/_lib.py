@@ -34,7 +34,7 @@ EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream
                  "stream_chunk_routed.cu", "leg_segment_sum.cu", "oracle_dp.cu",
                  "forecaster_scan.cu")
 #: Headers the sources include; part of the build hash.
-HEADERS = ("tier_fold.cuh", "fsm_step.cuh", "occupancy.cuh")
+HEADERS = ("tier_fold.cuh", "fsm_step.cuh", "occupancy.cuh", "live_forecast.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 NVCC_FLAGS = (
@@ -54,11 +54,14 @@ EXACT_FLAGS = ("-fmad=false",)
 #: ``flash_attention_sm90`` those of its Hopper entry; ``fsm_scan``,
 #: ``stream_chunk`` and ``stream_chunk_routed`` count their reactive and
 #: hysteresis launches, and ``fsm_scan_gated``, ``stream_chunk_gated`` and
-#: ``stream_chunk_routed_gated`` those of their forecast-gated instances.
+#: ``stream_chunk_routed_gated`` those of their forecast-gated instances
+#: (replay mode), ``stream_chunk_live`` and ``stream_chunk_routed_live`` those
+#: of the streaming kernels' live instances.
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "fsm_scan_gated": 0, "forecaster_scan": 0,
     "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0, "stream_chunk_gated": 0,
-    "stream_chunk_routed": 0, "stream_chunk_routed_gated": 0, "flash_attention": 0,
+    "stream_chunk_live": 0, "stream_chunk_routed": 0, "stream_chunk_routed_gated": 0,
+    "stream_chunk_routed_live": 0, "flash_attention": 0,
     "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0, "int8_dequantize": 0,
     "tiered_cost": 0, "leg_segment_sum": 0, "oracle_dp": 0,
 }
@@ -166,12 +169,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tiered_cost_calendar_f64.restype = i
     lib.fsm_chunk_f64.argtypes = [p] * 11 + [i] * 4 + [p] * 11
     lib.fsm_chunk_f64.restype = i
-    # ..., pref, p_vpn, p_cci, margin, renew, t0, hpm, K, M, Kt, form, T_pred, out, ...
-    lib.stream_chunk_f64.argtypes = [p] * 23 + [i] * 8 + [p] * 3
+    # ..., pref, p_vpn, p_cci, margin, h, pred, a, 1 - a, w, bias, scale, coef,
+    # renew, t0, hpm, K, M, Kt, form, T_pred, S, out, fsm_out, h_out, stream
+    lib.stream_chunk_f64.argtypes = [p] * 31 + [i] * 9 + [p] * 4
     lib.stream_chunk_f64.restype = i
-    # ..., scratch, p_vpn, p_cci, margin, renew, t0, hpm, K, P, M, E, Kt, T_pred, out, ...
-    lib.stream_chunk_routed_f64.argtypes = [p] * 30 + [i] * 9 + [p] * 3
+    # ..., scratch, p_vpn, p_cci, margin, h, pred, a, 1 - a, w, bias, scale, coef,
+    # renew, t0, hpm, K, P, M, E, Kt, T_pred, S, out, fsm_out, h_out, stream
+    lib.stream_chunk_routed_f64.argtypes = [p] * 38 + [i] * 10 + [p] * 4
     lib.stream_chunk_routed_f64.restype = i
+    lib.stream_chunk_live_math.argtypes = [p, p, ctypes.c_longlong, i, p]   # x, y, n, fn, stream
+    lib.stream_chunk_live_math.restype = i
     # src0, src1, w0, w1, n_planes, leg_pair, order, start, T, M, out0, out1, stream
     lib.leg_segment_sum_f64.argtypes = [p] * 4 + [i] + [p] * 3 + [i, i] + [p] * 3
     lib.leg_segment_sum_f64.restype = i

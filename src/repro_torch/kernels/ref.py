@@ -182,6 +182,7 @@ def fsm_chunk_ref(
     *,
     renew_in_chunks: bool = False,
     gate: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    live: Optional[tuple] = None,
 ) -> Dict[str, torch.Tensor]:
     """Plain version of :func:`repro_torch.kernels.fsm_scan.fsm_chunk`: K
     hours of the FSM from a carry, on hour-major (K, M) planes.
@@ -196,8 +197,20 @@ def fsm_chunk_ref(
     margin)``, the chunk's (K, M) predicted mode costs and the (M,) margins,
     gates the raw triggers (:func:`_gated_triggers`) for the streaming
     chunks' forecast-gated instances; the ``fsm_chunk`` kernel has none.
+
+    ``live=(d_row, h, pred, a, 1 − a, w, bias, scale, cost_coef, margin)``
+    runs the chunks' live instances instead (``src/repro/fleet/runtime.py:541-575``):
+    ``d_row`` (K, M) the hours' clipped row demand, ``h`` (M, S) float32 the
+    forecaster's state and ``pred`` (M,) float64 the forecast carried into
+    the chunk. Each hour, in order: the predicted mode costs of ``pred``
+    (:func:`repro_torch.fleet.policy.predicted_mode_costs`, the call the
+    replay planes come from) gate the hour's raw triggers, the FSM steps,
+    then ``u = log1p(float32(d_row / scale))`` steps the forecaster
+    (:func:`forecaster_scan_ref` with T = 1) and ``pred = maximum(expm1(y),
+    0)·scale``. The result then also holds ``pred`` (K, M), the forecast
+    made after each hour, and ``h``, the state after the chunk.
     """
-    from repro_torch.fleet.policy import _fsm_cascade
+    from repro_torch.fleet.policy import _fsm_cascade, predicted_mode_costs
 
     K, M = vpn.shape
     tp = ToggleParams(theta1, theta2, h, D, T_cci)
@@ -218,24 +231,41 @@ def fsm_chunk_ref(
         p_vpn, p_cci, m = gate
         raw_req, raw_rel = _gated_triggers(raw_req, raw_rel, theta1[None, :], theta2[None, :],
                                           p_vpn, p_cci, m[None, :])
+    if live is not None:
+        d_row, h_ssm, pred, a, oma, w, bias, scale, coef, margin = live
+        f64 = torch.float64
+        zero = torch.zeros((), dtype=f64, device=vpn.device)
+        preds = []
     state, t_state, up, down = carry
     xs, states = [], []
     for k in range(K):
-        up = torch.where(raw_req[k], up + 1, 0)
-        down = torch.where(raw_rel[k], down + 1, 0)
-        req = raw_req[k] & (up >= up_hold)
-        rel = raw_rel[k] & (down >= down_hold)
+        rq, rl = raw_req[k], raw_rel[k]
+        if live is not None:
+            p_vpn, p_cci = predicted_mode_costs(pred[:, None], coef, f64)
+            rq, rl = _gated_triggers(rq, rl, theta1, theta2, p_vpn[:, 0], p_cci[:, 0], margin)
+        up = torch.where(rq, up + 1, 0)
+        down = torch.where(rl, down + 1, 0)
+        req = rq & (up >= up_hold)
+        rel = rl & (down >= down_hold)
         (state, t_state), (x_k, s_k) = _fsm_cascade(
             tp, renew_in_chunks, (state, t_state), req, rel)
         xs.append(x_k)
         states.append(s_k)
+        if live is not None:
+            u = torch.log1p((d_row[k] / scale).to(torch.float32))
+            y, h_ssm = forecaster_scan_ref(u[:, None], a, oma, w, bias, h_ssm)
+            pred = torch.maximum(torch.expm1(y[:, 0].to(f64)), zero) * scale
+            preds.append(pred)
     i32 = torch.int32
-    return {
+    out = {
         "x": torch.stack(xs).to(i32), "state": torch.stack(states).to(i32),
         "r_vpn": r_vpn, "r_cci": r_cci, "snap_v": snap_v, "snap_c": snap_c,
         "carry": torch.stack([state, t_state, up, down]).to(i32),
         "pref": torch.stack([pv, pc]),
     }
+    if live is not None:
+        out.update(pred=torch.stack(preds), h=h_ssm)
+    return out
 
 
 def _split_block(block: torch.Tensor, K: int, P: int, M: int, endo: bool):
@@ -255,13 +285,15 @@ def _chunk_pair_half(demand, cci_demand, capacity, L_vpn, bounds, rates, cal, t0
     """The chunk's per-row pricing (``runtime.py:417-464``): clip the demand
     (and the CCI demand) at the capacity with ``torch.minimum``, price it on
     the billing calendar (:func:`tiered_cost_calendar_ref`) and add the VPN
-    lease. Returns ``(d_cci, vpn (K, rows), calendar carry (2, rows))``."""
+    lease. Returns ``(d_pair, d_cci, vpn (K, rows), calendar carry (2,
+    rows))``: the clipped demand, the clipped CCI demand (``d_pair`` itself
+    without one), the VPN plane and the carry."""
     cap = capacity[None, :]
     d_pair = torch.minimum(demand, cap)
     d_cci = d_pair if cci_demand is None else torch.minimum(cci_demand, cap)
     transfer, cal_out = tiered_cost_calendar_ref(cal, d_pair, bounds, rates, t0,
                                                  hours_per_month)
-    return d_cci, L_vpn[None, :] + transfer, cal_out
+    return d_pair, d_cci, L_vpn[None, :] + transfer, cal_out
 
 
 def _gate_columns(gate, t0: int, K: int):
@@ -278,19 +310,32 @@ def _gate_columns(gate, t0: int, K: int):
 
 
 def _chunk_port_half(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold,
-                     down_hold, fsm, pref, t0: int, renew_in_chunks: bool, gate=None):
+                     down_hold, fsm, pref, t0: int, renew_in_chunks: bool, gate=None,
+                     live=None, d_row=None):
     """The chunk's per-decision-row half on its (K, M) cost planes:
     :func:`fsm_chunk_ref`, its raw triggers gated by the predicted costs
-    when ``gate`` (:func:`_gate_columns`) is given. Returns the (8, K, M)
-    float64 planes (vpn, cci, r_vpn, r_cci, snap_v, snap_c, x, state), the
-    prefixes after the chunk (2, M) and the FSM carry (4, M) int32."""
+    when ``gate`` (:func:`_gate_columns`) is given, or by the live forecast
+    stepped on ``d_row`` (K, M) when ``live`` (the chunk wrappers' tuple) is.
+    Returns the (8, K, M) float64 planes (vpn, cci, r_vpn, r_cci, snap_v,
+    snap_c, x, state; a ninth, pred, in live mode), the prefixes after the
+    chunk (2, M), the FSM carry (4, M) int32 and, in live mode, the
+    forecaster's state after the chunk (else None)."""
     out = fsm_chunk_ref(vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold,
                         down_hold, fsm, pref, t0, renew_in_chunks=renew_in_chunks,
-                        gate=_gate_columns(gate, t0, vpn.shape[0]))
+                        gate=_gate_columns(gate, t0, vpn.shape[0]),
+                        live=None if live is None else (d_row, *live))
     f64 = torch.float64
-    planes = torch.stack([vpn, cci, out["r_vpn"], out["r_cci"], out["snap_v"], out["snap_c"],
-                          out["x"].to(f64), out["state"].to(f64)])
-    return planes, out["pref"], out["carry"]
+    planes = [vpn, cci, out["r_vpn"], out["r_cci"], out["snap_v"], out["snap_c"],
+              out["x"].to(f64), out["state"].to(f64)]
+    if live is not None:
+        planes.append(out["pred"])
+    return torch.stack(planes), out["pref"], out["carry"], out.get("h")
+
+
+def _chunk_result(result: torch.Tensor, carry: torch.Tensor, h_out):
+    """A chunk's return: ``(result, FSM carry)``, and the forecaster's state
+    after the chunk in live mode."""
+    return (result, carry) if h_out is None else (result, carry, h_out)
 
 
 def stream_chunk_ref(
@@ -305,7 +350,8 @@ def stream_chunk_ref(
     *,
     renew_in_chunks: bool = False,
     gate=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    live=None,
+) -> Tuple[torch.Tensor, ...]:
     """Plain version of :func:`repro_torch.kernels.stream_chunk.stream_chunk`:
     the streaming runtime's chunk in fleet mode (``runtime.py:405-577``).
 
@@ -320,16 +366,21 @@ def stream_chunk_ref(
     ``gate=(p_vpn, p_cci, margin, T_pred)`` runs the forecast-gated
     instance: the hour-major (T_pred, M) predicted mode costs, read at hour
     ``min(t0 + k, T_pred − 1)``, gate the raw triggers (:func:`_gated_triggers`).
+    ``live=(h, pred, a, 1 − a, w, bias, scale, cost_coef, margin)`` runs the
+    live instance (:func:`fsm_chunk_ref`'s ``live``, its ``d_row`` the
+    clipped demand): the result is then (9K + 4, M), the pred plane after
+    the state plane, and the forecaster's state after the chunk (M, S)
+    float32 comes third.
     """
     M = capacity.shape[0]
     demand, cci_demand, pre_v, pre_c = _split_block(block, K, M, M, endo)
-    d_cci, vpn, cal_out = _chunk_pair_half(demand, cci_demand, capacity, L_vpn, bounds,
-                                           rates, cal, t0, hours_per_month)
+    d_pair, d_cci, vpn, cal_out = _chunk_pair_half(demand, cci_demand, capacity, L_vpn,
+                                                   bounds, rates, cal, t0, hours_per_month)
     cci = lease_cci[None, :] + c_cci[None, :] * d_cci
-    planes, pref_out, carry = _chunk_port_half(
+    planes, pref_out, carry, h_out = _chunk_port_half(
         vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down_hold, fsm, pref,
-        t0, renew_in_chunks, gate)
-    return torch.cat([planes.reshape(8 * K, M), cal_out, pref_out]), carry
+        t0, renew_in_chunks, gate, live, d_pair)
+    return _chunk_result(torch.cat([planes.reshape(-1, M), cal_out, pref_out]), carry, h_out)
 
 
 def stream_chunk_routed_ref(
@@ -344,7 +395,8 @@ def stream_chunk_routed_ref(
     *,
     renew_in_chunks: bool = False,
     gate=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    live=None,
+) -> Tuple[torch.Tensor, ...]:
     """Plain version of :func:`repro_torch.kernels.stream_chunk.stream_chunk_routed`:
     the streaming runtime's chunk in topology mode (``runtime.py:391-515``
     with ``topology=True``).
@@ -360,21 +412,32 @@ def stream_chunk_routed_ref(
     :func:`stream_chunk_ref`'s, gated as there when ``gate`` (per port) is
     given. Returns the flat float64 result (the 8 (K, M) planes, then dcum,
     dcum_month (P each), vpn_pref, cci_pref (M each)) and the FSM carry (4,
-    M) int32.
+    M) int32. ``live`` (per port) runs the live instance as
+    :func:`stream_chunk_ref` does, its ``d_row`` the clipped pair demand
+    folded onto the ports with ``attach_w`` in leg order, then
+    ``minimum``'d with ``port_capacity`` (``src/repro/fleet/runtime.py:485-488``;
+    with endogenous demand the VPN-path demand, not the CCI demand the bill
+    folds): a ninth (K, M) plane and the state come back as there.
     """
     P, M = pair_capacity.shape[0], lease_cci.shape[0]
     demand, cci_demand, pre_v, pre_c = _split_block(block, K, P, M, endo)
-    d_cci, vpn_pair, cal_out = _chunk_pair_half(demand, cci_demand, pair_capacity, L_vpn,
-                                                bounds, rates, cal, t0, hours_per_month)
+    d_pair, d_cci, vpn_pair, cal_out = _chunk_pair_half(
+        demand, cci_demand, pair_capacity, L_vpn, bounds, rates, cal, t0, hours_per_month)
     lp, lm = routing.leg_pair, routing.leg_port
     seg = lambda plane, w: leg_segment_sum_ref(plane.T, lp, lm, w, M).T    # (K, M)
     vpn = seg(vpn_pair, routing.vpn_w)
-    d_bill = torch.minimum(seg(d_cci, routing.attach_w), port_capacity[None, :])
+    cap = port_capacity[None, :]
+    d_bill = torch.minimum(seg(d_cci, routing.attach_w), cap)
     cci = lease_cci[None, :] + c_cci[None, :] * d_bill
-    planes, pref_out, carry = _chunk_port_half(
+    d_row = None
+    if live is not None:
+        d_row = d_bill if cci_demand is None else torch.minimum(seg(d_pair, routing.attach_w),
+                                                                cap)
+    planes, pref_out, carry, h_out = _chunk_port_half(
         vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down_hold, fsm, pref,
-        t0, renew_in_chunks, gate)
-    return torch.cat([planes.reshape(-1), cal_out.reshape(-1), pref_out.reshape(-1)]), carry
+        t0, renew_in_chunks, gate, live, d_row)
+    flat = torch.cat([planes.reshape(-1), cal_out.reshape(-1), pref_out.reshape(-1)])
+    return _chunk_result(flat, carry, h_out)
 
 
 def leg_segment_sum_ref(src: torch.Tensor, leg_pair: torch.Tensor, leg_port: torch.Tensor,

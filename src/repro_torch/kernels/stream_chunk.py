@@ -26,6 +26,22 @@ counts under ``stream_chunk_gated`` / ``stream_chunk_routed_gated`` in
 :data:`~repro_torch.kernels._lib.LAUNCHES`, an ungated one under
 ``stream_chunk`` / ``stream_chunk_routed``.
 
+Or, instead of ``gate``, ``live=(h, pred, a, one_minus_a, w, bias, scale,
+cost_coef, margin)``: the same policy in live mode, its forecast made inside
+the chunk. ``h`` (M, S) float32 is the SSM forecaster's state and ``pred``
+(M,) float64 the forecast carried into the chunk; ``a``, ``one_minus_a``,
+``w`` (S,) and ``bias`` () float32 its operands
+(:func:`repro_torch.models.ssm._operands`); ``scale`` (M,), ``cost_coef``
+(M, 4) and ``margin`` (M,) float64. Each hour's gates read the predicted mode
+costs of the forecast carried into it; after the hour's FSM step the
+forecaster consumes ``u = log1p(float32(d_row / scale))`` (``d_row`` the
+clipped demand, in topology mode the clipped pair demand folded onto the
+port) and makes the next forecast, ``maximum(expm1(y), 0)·scale``. A live call
+returns a third tensor, the state after the chunk, and its result holds a
+ninth (K, M) plane, the forecasts made after each hour, after the state
+plane. It launches the kernels' live instances, counted under
+``stream_chunk_live`` / ``stream_chunk_routed_live``.
+
 Their plain PyTorch versions are :func:`repro_torch.kernels.ref.stream_chunk_ref`
 and :func:`~repro_torch.kernels.ref.stream_chunk_routed_ref`. These wrappers
 take CUDA tensors only; :mod:`repro_torch.kernels.ops` dispatches CPU
@@ -38,6 +54,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _lib
+from .forecaster import MAX_STATE
 
 
 def block_size(K: int, M: int, endo: bool, P: Optional[int] = None) -> int:
@@ -47,10 +64,11 @@ def block_size(K: int, M: int, endo: bool, P: Optional[int] = None) -> int:
     return ((2 if endo else 1) * (M if P is None else P) + 2 * M) * K
 
 
-def routed_result_size(K: int, P: int, M: int) -> int:
-    """Elements of the routed chunk's flat result: the 8 (K, M) planes, then
-    dcum, dcum_month (P each), then vpn_pref, cci_pref (M each)."""
-    return 8 * K * M + 2 * P + 2 * M
+def routed_result_size(K: int, P: int, M: int, live: bool = False) -> int:
+    """Elements of the routed chunk's flat result: the 8 (K, M) planes (9 in
+    live mode), then dcum, dcum_month (P each), then vpn_pref, cci_pref (M
+    each)."""
+    return (9 if live else 8) * K * M + 2 * P + 2 * M
 
 
 #: The largest K the wrapper sends to the tick form, and its last
@@ -59,6 +77,10 @@ def routed_result_size(K: int, P: int, M: int) -> int:
 #: both forms up to K = 8). Then the tiers its tables hold in registers.
 TICK_MAX_K = 5
 TICK_MAX_TIERS = 8
+#: The live instance's last tick-form instance (``kTickMaxKLive``): from
+#: K = 4 its chunk form was faster on the card (PERF.md, the live K sweep of
+#: both forms).
+TICK_MAX_K_LIVE = 3
 #: Hours a chunk-form sub-tile, and sub-tiles a tile (five named barriers
 #: each, of the 15 a block has besides ``__syncthreads``).
 SUB_HOURS = 8
@@ -66,23 +88,25 @@ MAX_SUBS = 3
 FORMS = ("auto", "tick", "chunk")
 
 
-def launch_form(K: int, Kt: int, form: str = "auto") -> int:
+def launch_form(K: int, Kt: int, form: str = "auto", live: bool = False) -> int:
     """The C entry's ``form`` code for a chunk of K hours against Kt-tier
     tables: 0 the tick form, S = 1..3 the chunk form with S sub-tiles of
     :data:`SUB_HOURS` hours a tile (``ceil(K / 8)``, at most
     :data:`MAX_SUBS`; a longer chunk walks several tiles). ``"auto"`` takes
-    the tick form for K <= :data:`TICK_MAX_K` when the tables fit its
-    registers; ``"tick"`` and ``"chunk"`` force one (the tick form raises
-    past its instances), for :func:`_stream_chunk_launch`."""
+    the tick form for K <= :data:`TICK_MAX_K` (:data:`TICK_MAX_K_LIVE` for
+    the ``live`` instance) when the tables fit its registers; ``"tick"`` and
+    ``"chunk"`` force one (the tick form raises past its instances), for
+    :func:`_stream_chunk_launch`."""
     if form not in FORMS:
         raise ValueError(f"stream_chunk form {form!r}: want one of {FORMS}")
     if K < 1:
         raise ValueError(f"stream_chunk: K {K}")
-    fits = K <= TICK_MAX_K and Kt <= TICK_MAX_TIERS
+    max_k = TICK_MAX_K_LIVE if live else TICK_MAX_K
+    fits = K <= max_k and Kt <= TICK_MAX_TIERS
     if form == "tick" and not fits:
-        raise ValueError(f"stream_chunk tick form: K {K} (at most {TICK_MAX_K}) or "
+        raise ValueError(f"stream_chunk tick form: K {K} (at most {max_k}) or "
                          f"{Kt} tiers (at most {TICK_MAX_TIERS})")
-    if form == "tick" or (form == "auto" and fits):
+    if form != "chunk" and fits:
         return 0
     return min(MAX_SUBS, -(-K // SUB_HOURS))
 
@@ -108,6 +132,38 @@ def _gate_args(gate) -> tuple:
     if gate is None:
         return (None, None, None), 0
     return tuple(a.data_ptr() for a in gate[:3]), int(gate[3])
+
+
+def _live_operands(name: str, gate, live, M: int) -> list:
+    """``_check_operands``' entries for a chunk's ``live=(h, pred, a,
+    one_minus_a, w, bias, scale, cost_coef, margin)`` (none for None);
+    raises if ``gate`` is given too or the state size is not 1..16."""
+    if live is None:
+        return []
+    if gate is not None:
+        raise ValueError(f"{name}: gate= (replay mode) and live= exclude each other")
+    h, pred, a, oma, w, bias, scale, coef, margin = live
+    S = h.shape[1] if h.dim() == 2 else -1
+    if not 1 <= S <= MAX_STATE:
+        raise ValueError(f"{name} live: the forecaster's state must be (M, 1..{MAX_STATE}), "
+                         f"got {tuple(h.shape)}")
+    f32, f64 = torch.float32, torch.float64
+    return [(h, (M, S), f32), (pred, (M,), f64), (a, (S,), f32), (oma, (S,), f32),
+            (w, (S,), f32), (bias.reshape(()), (), f32), (scale, (M,), f64),
+            (coef, (M, 4), f64), (margin, (M,), f64)]
+
+
+def _live_args(live) -> tuple:
+    """The C entry's live arguments: the eight pointers (null for a call
+    that is not live) and S (0)."""
+    if live is None:
+        return (None,) * 8, 0
+    h, pred, a, oma, w, bias, scale, coef, _ = live
+    return tuple(t.data_ptr() for t in (h, pred, a, oma, w, bias, scale, coef)), h.shape[1]
+
+
+def _launch_name(base: str, gate, live) -> str:
+    return base + ("_live" if live is not None else "" if gate is None else "_gated")
 
 
 def _check_operands(name: str, block: torch.Tensor, want) -> None:
@@ -147,21 +203,25 @@ def stream_chunk(
     *,
     renew_in_chunks: bool = False,
     gate=None,                # (p_vpn, p_cci (T_pred, M) f64, margin (M,) f64, T_pred)
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    live=None,                # (h, pred, a, one_minus_a, w, bias, scale, cost_coef, margin)
+) -> Tuple[torch.Tensor, ...]:
     """The chunk on the card: the packed float64 (8K + 4, M) result (vpn, cci,
     r_vpn, r_cci, snap_v, snap_c, x, state, K rows each, then dcum,
     dcum_month, vpn_pref, cci_pref) and the FSM carry after the chunk, (4, M)
     int32, in the launch form :func:`launch_form` picks by K; with ``gate``,
-    the forecast-gated instance of that form."""
+    the forecast-gated instance of that form; with ``live``, the live
+    instance: a (9K + 4, M) result (pred after state) and the forecaster's
+    state after the chunk, (M, S) float32, third."""
     return _stream_chunk_launch(
         "auto", block, K, endo, capacity, L_vpn, lease_cci, c_cci, bounds, rates, theta1,
         theta2, h, D, T_cci, up_hold, down_hold, cal, fsm, pref, t0, hours_per_month,
-        renew_in_chunks=renew_in_chunks, gate=gate)
+        renew_in_chunks=renew_in_chunks, gate=gate, live=live)
 
 
 def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci, bounds,
                          rates, theta1, theta2, h, D, T_cci, up_hold, down_hold, cal, fsm,
-                         pref, t0, hours_per_month, *, renew_in_chunks=False, gate=None):
+                         pref, t0, hours_per_month, *, renew_in_chunks=False, gate=None,
+                         live=None):
     """:func:`stream_chunk` in the launch form ``form`` (``"auto"``,
     ``"tick"`` or ``"chunk"``, :func:`launch_form`): the tests and
     ``chip_smoke.py`` force each form with it; both give the same bits."""
@@ -179,12 +239,16 @@ def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci
     want += [(a, (M,), f64) for a in (capacity, L_vpn, lease_cci, c_cci, theta1, theta2)]
     want += [(a, (M,), i32) for a in (h, D, T_cci, up_hold, down_hold)]
     want += _gate_operands("stream_chunk", gate, M)
+    want += _live_operands("stream_chunk", gate, live, M)
     _check_operands("stream_chunk", block, want)
-    code = launch_form(K, Kt, form)
+    code = launch_form(K, Kt, form, live is not None)
     gate_ptrs, T_pred = _gate_args(gate)
+    live_ptrs, S = _live_args(live)
+    margin = None if live is None else live[8].data_ptr()
     lib = _lib.load()
-    out = torch.empty((8 * K + 4, M), dtype=f64, device=dev)
+    out = torch.empty(((9 if live is not None else 8) * K + 4, M), dtype=f64, device=dev)
     fsm_out = torch.empty((4, M), dtype=i32, device=dev)
+    h_out = torch.empty((M, S), dtype=torch.float32, device=dev) if live is not None else None
     nd = (2 if endo else 1) * K * M
     at = lambda off: block.data_ptr() + 8 * off   # element offset into the block
     with torch.cuda.device(dev):
@@ -194,12 +258,14 @@ def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci
             *(a.data_ptr() for a in (capacity, L_vpn, lease_cci, c_cci, bounds, rates,
                                      theta1, theta2, h, D, T_cci, up_hold, down_hold,
                                      cal, fsm, pref)),
-            *gate_ptrs, int(bool(renew_in_chunks)), t0, hours_per_month, K, M, Kt, code,
-            T_pred, out.data_ptr(), fsm_out.data_ptr(), stream,
+            *(gate_ptrs if live is None else (None, None, margin)), *live_ptrs,
+            int(bool(renew_in_chunks)), t0, hours_per_month, K, M, Kt, code, T_pred, S,
+            out.data_ptr(), fsm_out.data_ptr(), None if h_out is None else h_out.data_ptr(),
+            stream,
         )
     _lib.check(status, "stream_chunk_f64")
-    _lib.LAUNCHES["stream_chunk" if gate is None else "stream_chunk_gated"] += 1
-    return out, fsm_out
+    _lib.LAUNCHES[_launch_name("stream_chunk", gate, live)] += 1
+    return (out, fsm_out) if live is None else (out, fsm_out, h_out)
 
 
 def stream_chunk_routed(
@@ -229,13 +295,17 @@ def stream_chunk_routed(
     *,
     renew_in_chunks: bool = False,
     gate=None,                    # (p_vpn, p_cci (T_pred, M) f64, margin (M,) f64, T_pred)
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    live=None,                    # (h, pred, a, one_minus_a, w, bias, scale, cost_coef, margin)
+) -> Tuple[torch.Tensor, ...]:
     """The routed chunk on the card, one C call (a pair-stage and a
     port-stage kernel on the current stream; the wrapper owns their scratch,
-    two pair-major (P, K) planes): the flat float64 result of
-    :func:`routed_result_size` and the FSM carry after the chunk, (4, M)
-    int32. With ``gate`` (per port) the port stage is its forecast-gated
-    instance."""
+    two pair-major (P, K) planes, three in a live call with endogenous
+    demand: the clipped VPN-path demand the forecast folds): the flat float64
+    result of :func:`routed_result_size` and the FSM carry after the chunk,
+    (4, M) int32. With ``gate`` (per port) the port stage is its
+    forecast-gated instance; with ``live`` (per port) its live instance, and
+    the result holds a ninth (K, M) plane (``routed_result_size(K, P, M,
+    live=True)``) and the forecaster's state after the chunk comes third."""
     P, M = pair_capacity.shape[0], lease_cci.shape[0]
     f64, i32 = torch.float64, torch.int32
     if K < 1 or t0 < 0 or hours_per_month < 1:
@@ -261,13 +331,18 @@ def stream_chunk_routed(
     want += [(a, (M,), f64) for a in (lease_cci, c_cci, port_capacity, theta1, theta2)]
     want += [(a, (M,), i32) for a in (h, D, T_cci, up_hold, down_hold)]
     want += _gate_operands("stream_chunk_routed", gate, M)
+    want += _live_operands("stream_chunk_routed", gate, live, M)
     _check_operands("stream_chunk_routed", block, want)
     gate_ptrs, T_pred = _gate_args(gate)
+    live_ptrs, S = _live_args(live)
+    margin = None if live is None else live[8].data_ptr()
     lib = _lib.load()
     dev = block.device
-    out = torch.empty(routed_result_size(K, P, M), dtype=f64, device=dev)
+    out = torch.empty(routed_result_size(K, P, M, live is not None), dtype=f64, device=dev)
     fsm_out = torch.empty((4, M), dtype=i32, device=dev)
-    scratch = torch.empty(2 * K * P, dtype=f64, device=dev)
+    h_out = torch.empty((M, S), dtype=torch.float32, device=dev) if live is not None else None
+    planes = 3 if live is not None and endo else 2
+    scratch = torch.empty(planes * K * P, dtype=f64, device=dev)
     nd = (2 if endo else 1) * K * P
     at = lambda off: block.data_ptr() + 8 * off   # element offset into the block
     with torch.cuda.device(dev):
@@ -279,9 +354,35 @@ def stream_chunk_routed(
                 theta1, theta2, h, D, T_cci, up_hold, down_hold, routing.leg_pair,
                 routing.vpn_w, routing.attach_w, idx.order, idx.start, cal, fsm, pref,
                 scratch)),
-            *gate_ptrs, int(bool(renew_in_chunks)), t0, hours_per_month, K, P, M, E, Kt,
-            T_pred, out.data_ptr(), fsm_out.data_ptr(), stream,
+            *(gate_ptrs if live is None else (None, None, margin)), *live_ptrs,
+            int(bool(renew_in_chunks)), t0, hours_per_month, K, P, M, E, Kt, T_pred, S,
+            out.data_ptr(), fsm_out.data_ptr(), None if h_out is None else h_out.data_ptr(),
+            stream,
         )
     _lib.check(status, "stream_chunk_routed_f64")
-    _lib.LAUNCHES["stream_chunk_routed" if gate is None else "stream_chunk_routed_gated"] += 1
-    return out, fsm_out
+    _lib.LAUNCHES[_launch_name("stream_chunk_routed", gate, live)] += 1
+    return (out, fsm_out) if live is None else (out, fsm_out, h_out)
+
+
+#: The transcendentals of the live instances, by the C entry's code.
+LIVE_MATH = ("log1p", "exp", "expm1", "log1pf")
+
+
+def live_math(x: torch.Tensor, fn: str) -> torch.Tensor:
+    """``fn`` (one of :data:`LIVE_MATH`) elementwise over a contiguous CUDA
+    tensor, as the live instances' build computes it (float64; float32 for
+    ``log1pf``): the card's check that these give torch's ops' bits. Not a
+    path kernel; it counts no launch."""
+    if fn not in LIVE_MATH:
+        raise ValueError(f"live_math: {fn!r} is not one of {LIVE_MATH}")
+    dt = torch.float32 if fn == "log1pf" else torch.float64
+    if x.dtype != dt or not x.is_cuda or not x.is_contiguous():
+        raise ValueError(f"live_math {fn}: takes a contiguous CUDA {dt} tensor")
+    y = torch.empty_like(x)
+    lib = _lib.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.stream_chunk_live_math(x.data_ptr(), y.data_ptr(), x.numel(),
+                                            LIVE_MATH.index(fn), stream)
+    _lib.check(status, "stream_chunk_live_math")
+    return y

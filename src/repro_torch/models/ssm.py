@@ -114,6 +114,24 @@ def demand_forecaster_predict(params: Params, series, scale, *,
     return torch.maximum(torch.expm1(y), torch.zeros((), dtype=torch.float64, device=dev)) * scale
 
 
+def demand_forecaster_warmup(params: Params, series, scale, *,
+                             device: DeviceLike = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The live forecaster's start after ``series`` (N, H) raw demand with
+    ``scale`` (N,): ``(h (N, S) float32, pred (N,) float64)``, the state
+    after the last hour and the forecast made after it. One scan (one
+    ``forecaster_scan`` launch on CUDA), with ``u`` formed as
+    :func:`demand_forecaster_predict` forms it, so ``h`` is
+    :func:`demand_forecaster_state`'s and ``pred`` the last column of
+    :func:`demand_forecaster_predict` over the same series, bit for bit."""
+    dev = resolve_device(device)
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float64).to(dev)
+    scale = f64(scale)
+    u = torch.log1p((f64(series) / scale[:, None]).to(torch.float32))
+    y, h = _scan(params, u, None, True)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    return h, torch.maximum(torch.expm1(y[:, -1].to(torch.float64)), zero) * scale
+
+
 def train_demand_forecaster(*args, **kwargs):
     """Not ported yet (ROADMAP Queue 1, item 6c): the forecaster's training."""
     raise NotImplementedError(_TRAINING)

@@ -21,7 +21,10 @@ against the plain versions (``ref.stream_chunk_ref``,
   consumer) and meet at ``__syncthreads`` once a tile, run in random
   interleavings; every read of shared memory or of an earlier tile's
   snapshot in the packed result must find a value whose write happens
-  before it through those barriers;
+  before it through those barriers; the live instance adds the forecaster
+  on the calendar warp's upper lanes, its readouts handed to the pair
+  threads through the same barriers (a tile's slot 0 written after the
+  tile's ``__syncthreads``, each hour's before the sub-tile's ``lo``);
 * the scan: the segment plan, one block per (row tile, segment slot), each
   segment's hours staged through the ring of shared-memory tiles (a tile
   must have landed before it is read, and a slot is refilled only once its
@@ -39,12 +42,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.fleet import FleetRuntime, build_fleet_scenario
+from repro_torch.fleet import (FleetRuntime, StreamingForecaster, build_fleet_scenario,
+                               fit_cost_coef, forecast_gated_policy)
+from repro_torch.fleet.engine import routed_cost_series
+from repro_torch.fleet.policy import predicted_mode_costs
 from repro_torch.kernels import ref
 from repro_torch.kernels.stream_chunk import (MAX_SUBS, SUB_HOURS, TICK_MAX_K,
-                                              TICK_MAX_TIERS, launch_form)
+                                              TICK_MAX_K_LIVE, TICK_MAX_TIERS, launch_form)
 from repro_torch.kernels.tiered_cost_scan import (SCAN_ROWS, SCAN_TARGET_BLOCKS,
                                                   segment_plan, segment_slots)
+from repro_torch.models.ssm import demand_forecaster_init
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 
@@ -57,6 +64,7 @@ def _cu_const(source: str, name: str) -> int:
 
 def test_tile_constants_match_the_sources():
     assert _cu_const("stream_chunk.cu", "kTickMaxK") == TICK_MAX_K
+    assert _cu_const("stream_chunk.cu", "kTickMaxKLive") == TICK_MAX_K_LIVE
     assert _cu_const("stream_chunk.cu", "kTickMaxTiers") == TICK_MAX_TIERS
     assert _cu_const("stream_chunk.cu", "kSub") == SUB_HOURS
     assert _cu_const("stream_chunk.cu", "kMaxSubs") == MAX_SUBS
@@ -72,6 +80,23 @@ def test_tile_constants_match_the_sources():
                                     (168, 3)])
 def test_launch_form_by_K(K, want):
     assert launch_form(K, 4) == want
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 6, 24])
+def test_launch_form_live_takes_the_tick_form_to_its_own_limit(K):
+    """The live instance: "auto" takes the tick form only to TICK_MAX_K_LIVE
+    (its chunk form was faster past it on the card), its last tick instance,
+    so forcing the tick form past it raises; every other K launches as
+    before."""
+    assert 1 <= TICK_MAX_K_LIVE <= TICK_MAX_K
+    want = 0 if K <= TICK_MAX_K_LIVE else -(-K // SUB_HOURS) if K <= 16 else MAX_SUBS
+    assert launch_form(K, 4, live=True) == want
+    if K <= TICK_MAX_K_LIVE:
+        assert launch_form(K, 4, "tick", live=True) == 0
+    else:
+        with pytest.raises(ValueError, match=f"at most {TICK_MAX_K_LIVE}"):
+            launch_form(K, 4, "tick", live=True)
+    assert launch_form(K, TICK_MAX_TIERS + 1, live=True) == min(MAX_SUBS, -(-K // SUB_HOURS))
 
 
 def test_launch_form_forced_and_refused():
@@ -377,8 +402,9 @@ def test_fsm_step_flat_over_random_runs(renew):
         assert np.array_equal(cs[0][k], cs[1][k]), k
 
 
-def _chunk_np(args, renew):
-    """The chunk's operands as numpy: the block's planes and the per-row ones."""
+def _chunk_np(args, renew, live=None):
+    """The chunk's operands as numpy: the block's planes and the per-row ones
+    (and the live operands, as tensors)."""
     (block, K, endo, cap, lvpn, lease, cc, b, r, th1, th2, h, D, Tc, uh, dh, cal, fsm, pref,
      t0, hpm) = args
     M = cap.shape[0]
@@ -386,6 +412,7 @@ def _chunk_np(args, renew):
     nd = (2 if endo else 1) * K * M
     n = lambda x: x.numpy()
     return {
+        "live": live,
         "K": K, "M": M, "t0": t0, "hpm": hpm, "endo": endo,
         "demand": blk[:K * M].reshape(K, M),
         "cci_demand": blk[K * M:nd].reshape(K, M) if endo else None,
@@ -408,10 +435,42 @@ def _sub(p, rows):
     return {k: (v[rows] if isinstance(v, np.ndarray) else v) for k, v in p.items()}
 
 
-def _pack(c, planes, tail, carry, rows_all):
-    out = np.concatenate([planes.reshape(8 * c["K"], c["M"]), tail])
+def _pack(c, planes, tail, carry, rows_all, h=None):
+    out = np.concatenate([planes.reshape(-1, c["M"]), tail])
     fsm = np.stack([carry[k] for k in ("state", "t_state", "up", "down")]).astype(np.int32)
-    return torch.from_numpy(out), torch.from_numpy(fsm)
+    res = (torch.from_numpy(out), torch.from_numpy(fsm))
+    return res if h is None else res + (torch.from_numpy(h),)
+
+
+def _live_hour(lv, rows, h, d):
+    """One forecaster hour of ``rows`` (live_forecast.cuh): u from the
+    clipped demand, the states updated in place, the readout y (float32)."""
+    _, _, a, oma, w, bias, scale = (x.numpy() for x in lv[:7])
+    with np.errstate(invalid="ignore"):
+        u = torch.log1p(torch.from_numpy((d / scale[rows]).astype(np.float32))).numpy()
+    h[:] = a * h + oma * u[:, None]
+    p = (h - u[:, None]) * w
+    acc = p[:, 0].copy()
+    for s in range(1, p.shape[1]):
+        acc = acc + p[:, s]
+    return (u + acc) + bias
+
+
+def _live_pred(lv, rows, y):
+    """The forecast of readouts y: maximum(expm1(y), 0)·scale."""
+    e = torch.expm1(torch.from_numpy(np.asarray(y, np.float32)).double()).numpy()
+    return np.maximum(e, 0.0) * lv[6].numpy()[rows]
+
+
+def _live_gates(lv, rows, pred, th1, th2, req, rel):
+    """The gates on the predicted mode costs of the forecasts ``pred``."""
+    coef, m = lv[7][rows], lv[8].numpy()[rows]
+    p_vpn, p_cci = (x[:, 0].numpy() for x in
+                    predicted_mode_costs(torch.from_numpy(pred)[:, None], coef, torch.float64))
+    with np.errstate(invalid="ignore"):
+        req = (p_cci < (th1 - m) * p_vpn) | (req & (p_cci < (th1 + m) * p_vpn))
+        rel = (p_cci > (th2 + m) * p_vpn) | (rel & (p_cci > (th2 - m) * p_vpn))
+    return req, rel
 
 
 def _tick_replay(c):
@@ -469,12 +528,14 @@ class _Sim:
         return value
 
 
-def _pipe_block(c, n0, S, rng, early_pref=False):
+def _pipe_block(c, n0, S, rng, early_pref=False, late_y=False):
     """``stream_chunk_pipe_kernel<S>`` for the block of rows n0..n0+15, its
     roles run as coroutines in an order ``rng`` picks (in order if None).
     ``early_pref`` breaks the schedule on purpose: the prefix warp hands each
-    sub-tile on before it writes the snapshots."""
+    sub-tile on before it writes the snapshots; ``late_y`` (live) makes the
+    forecaster lanes write a sub-tile's readouts after the warp's hand-off."""
     K, M, t0 = c["K"], c["M"], c["t0"]
+    lv = c["live"]
     R = 16
     tile = SUB_HOURS * S
     rows = slice(n0, min(M, n0 + R))
@@ -513,6 +574,14 @@ def _pipe_block(c, n0, S, rng, early_pref=False):
                     sim.write(me, ("cci", k, i), cost_c[i])
                 out[0, k0 + k], out[1, k0 + k] = v, cost_c
             yield ("arrive", j, "fold")
+            gates = {}
+            if lv is not None:   # the forecasts before and after each hour, its gate costs
+                for k in hrs:
+                    y_b = np.array([sim.read(me, ("y", k, i)) for i in range(nr)])
+                    y_a = np.array([sim.read(me, ("y", k + 1, i)) for i in range(nr)])
+                    before = (lv[1].numpy()[rows] if k0 + k == 0 else _live_pred(lv, rows, y_b))
+                    out[8, k0 + k] = _live_pred(lv, rows, y_a)
+                    gates[k] = before
             yield ("wait", j, "pref")
             trig = {}
             for k in hrs:
@@ -526,6 +595,9 @@ def _pipe_block(c, n0, S, rng, early_pref=False):
                                else bc[i] for i in range(nr)])
                 rv, rc = sv - jv, sc - jc
                 req, rel = rc < c["th1"][rows] * rv, rc > c["th2"][rows] * rv
+                if lv is not None:
+                    req, rel = _live_gates(lv, rows, gates[k], c["th1"][rows], c["th2"][rows],
+                                           req, rel)
                 for i in range(nr):
                     sim.write(me, ("trig", k, i), (bool(req[i]), bool(rel[i])))
                     sim.write(me, ("snap_v", k0 + k, i), sv[i])
@@ -543,10 +615,17 @@ def _pipe_block(c, n0, S, rng, early_pref=False):
     def calendar():
         dcum, month = c["cal"][0, rows].copy(), c["cal"][1, rows].copy()
         ph = t0 % c["hpm"]
+        if lv is not None:   # the forecaster lanes' states and last readout
+            h = lv[0].numpy()[rows].copy()
+            y = np.zeros(nr, np.float32)
         for k0 in range(0, K, tile):
             dv = [c["demand"][k0 + k, rows] for k in range(min(tile, K - k0))]
             yield ("sync0",)
+            if lv is not None:
+                for i in range(nr):
+                    sim.write("cal", ("y", 0, i), y[i])
             for j in range(S):
+                ys = []
                 for k in range(SUB_HOURS * j, SUB_HOURS * (j + 1)):
                     if k < len(dv):
                         if ph == 0:
@@ -555,8 +634,21 @@ def _pipe_block(c, n0, S, rng, early_pref=False):
                             sim.write("cal", ("lo", k, i), (dcum - month)[i])
                         dcum = dcum + np.minimum(dv[k], c["cap"][rows])
                         ph = 0 if ph + 1 == c["hpm"] else ph + 1
+                        if lv is not None:
+                            y = _live_hour(lv, rows, h, np.minimum(dv[k], c["cap"][rows]))
+                            ys.append((k, y))
+                if not late_y:
+                    for k, yk in ys:
+                        for i in range(nr):
+                            sim.write("cal", ("y", k + 1, i), yk[i])
                 yield ("arrive", j, "lo")
+                if late_y:
+                    for k, yk in ys:
+                        for i in range(nr):
+                            sim.write("cal", ("y", k + 1, i), yk[i])
         tail["cal"] = (dcum, month)
+        if lv is not None:
+            tail["h"] = h
 
     def prefixes():
         pv, pc = c["pref"][0, rows].copy(), c["pref"][1, rows].copy()
@@ -660,14 +752,16 @@ def _pipe_block(c, n0, S, rng, early_pref=False):
     return out, tail, rows
 
 
-def _pipe_replay(c, S, rng, early_pref=False):
+def _pipe_replay(c, S, rng, early_pref=False, late_y=False):
     K, M = c["K"], c["M"]
-    planes = np.full((8, K, M), np.nan)
+    lv = c["live"]
+    planes = np.full((8 if lv is None else 9, K, M), np.nan)
     written = np.zeros((K, M), bool)
     tail = np.zeros((4, M))
     carry = {k: np.zeros(M, np.int64) for k in ("state", "t_state", "up", "down", "phase")}
+    h = None if lv is None else np.zeros(tuple(lv[0].shape), np.float32)
     for n0 in range(0, M, 16):
-        out, t, rows = _pipe_block(c, n0, S, rng, early_pref)
+        out, t, rows = _pipe_block(c, n0, S, rng, early_pref, late_y)
         for (plane, k), v in out.items():
             planes[plane, k, rows] = v
             written[k, rows] |= plane == 7
@@ -675,8 +769,10 @@ def _pipe_replay(c, S, rng, early_pref=False):
         tail[2, rows], tail[3, rows] = t["pref"]
         for k in carry:
             carry[k][rows] = t["fsm"][k]
+        if lv is not None:
+            h[rows] = t["h"]
     assert written.all()
-    return _pack(c, planes, tail, carry, slice(0, M))
+    return _pack(c, planes, tail, carry, slice(0, M), h)
 
 
 def _runtime(case: str):
@@ -753,6 +849,66 @@ def test_chunk_form_schedule_endogenous_and_chained():
         rt._launch(torch.from_numpy(rt._pack(demand[:, t:t + K], cci[:, t:t + K])[0]), K, True)
         rt._commit(want[0].numpy(), K)
         t += K
+
+
+def _live_runtime():
+    """_runtime("plain")'s fleet streamed in live mode to hour 700: a
+    forecast-gated policy with its coefficients fitted on a 300-hour
+    history's series, margins 0, 0.05 and 1e30 by row, and a five-state
+    forecaster (a seeded readout) warmed through the clipped history; NaN
+    demand in row 3 at hour 705."""
+    sc = build_fleet_scenario(37, horizon=900, history_hours=300, seed=1)
+    arrays = sc.fleet.stack(torch.float64, "cpu")
+    h = torch.tensor(np.random.default_rng(2).integers(1, 31, 37), dtype=torch.int32)
+    D = arrays.toggle.D.clone()
+    D[:6] = 0
+    arrays = arrays._replace(toggle=arrays.toggle._replace(h=h, D=D))
+    s = routed_cost_series(arrays, sc.history, hours_per_month=730, device="cpu")
+    pol = forecast_gated_policy(arrays.toggle, np.zeros(37), cost_coef=fit_cost_coef(
+        s.row_demand, s.vpn, s.cci), margin=np.resize([0.0, 0.05, 1e30], 37))
+    rng = np.random.default_rng(3)
+    params = dict(demand_forecaster_init(None, 5, device="cpu"),
+                  w=torch.tensor(0.3 * rng.standard_normal(5), dtype=torch.float32),
+                  bias=torch.tensor(0.05, dtype=torch.float32))
+    cap = arrays.capacity.numpy()[:, None]
+    fc = StreamingForecaster.from_history(params, np.minimum(sc.history, cap), device="cpu")
+    rt = FleetRuntime(arrays, policy=pol, forecaster=fc, device="cpu")
+    demand = sc.demand.copy()
+    demand[3, 705] = np.nan
+    for t in range(0, 700, 24):
+        rt.step_many(demand[:, t:t + 24])
+    return rt, demand, 696
+
+
+@pytest.mark.parametrize("order", ["in_order", "shuffled"])
+@pytest.mark.parametrize("K", [1, 8, 9, 17, 24, 25])
+def test_chunk_form_live_schedule_bit_equal_to_plain(K, order):
+    """The live instance's chunk form: the forecaster lanes' readouts reach
+    the pair threads through the lo barrier (and a tile's slot 0 through the
+    tile's __syncthreads); every output bit, the forecasts and the state
+    after the chunk equal stream_chunk_ref with the same live operands."""
+    rt, demand, t = _live_runtime()
+    args, endo = _chunk_args(rt, demand, None, t, K)
+    st = rt._state
+    live = (st.ssm_h, st.pred_live, *rt._live)
+    renew = rt.policy.renew_in_chunks
+    rng = None if order == "in_order" else np.random.default_rng(K)
+    got = _pipe_replay(_chunk_np(args, renew, live), launch_form(K, 4, "chunk", True), rng)
+    want = ref.stream_chunk_ref(*args, renew_in_chunks=renew, live=live)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("order", ["in_order", "shuffled"])
+def test_chunk_form_live_replay_catches_late_readouts(order):
+    """A forecaster lane that writes a sub-tile's readouts after the warp's
+    hand-off on lo is caught."""
+    rt, demand, t = _live_runtime()
+    args, _ = _chunk_args(rt, demand, None, t, 24)
+    st = rt._state
+    c = _chunk_np(args, rt.policy.renew_in_chunks, (st.ssm_h, st.pred_live, *rt._live))
+    rng = None if order == "in_order" else np.random.default_rng(0)
+    with pytest.raises(AssertionError, match="never written|without a barrier"):
+        _pipe_replay(c, 3, rng, late_y=True)
 
 
 @pytest.mark.parametrize("order", ["in_order", "shuffled"])

@@ -62,8 +62,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan
 from repro_torch.kernels.leg_segment_sum import leg_segment_sum
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.stream_chunk import (TICK_MAX_K, _stream_chunk_launch, stream_chunk,
-                                              stream_chunk_routed)
+from repro_torch.kernels.stream_chunk import (TICK_MAX_K, TICK_MAX_K_LIVE, _stream_chunk_launch,
+                                              stream_chunk, stream_chunk_routed)
 from repro_torch.kernels.tiered_cost import tiered_cost_batched
 from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
 
@@ -251,8 +251,9 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
     assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1, "fsm_scan_gated": 0,
                             "forecaster_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
-                            "stream_chunk_gated": 0, "stream_chunk_routed": 0,
-                            "stream_chunk_routed_gated": 0, "flash_attention": 0,
+                            "stream_chunk_gated": 0, "stream_chunk_live": 0,
+                            "stream_chunk_routed": 0, "stream_chunk_routed_gated": 0,
+                            "stream_chunk_routed_live": 0, "flash_attention": 0,
                             "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
                             "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0,
                             "oracle_dp": 0}
@@ -1825,3 +1826,341 @@ def test_gated_chunk_wrappers_refuse_cpu_tensors_and_bad_gates():
     g = rrt._gate
     with pytest.raises(ValueError, match="gate"):
         stream_chunk_routed(*rargs, gate=(g[0], g[1], g[2], 31))
+
+
+# -- the live forecast stream: the live stream_chunk and stream_chunk_routed -----
+
+from repro_torch.fleet import StreamingForecaster  # noqa: E402
+from repro_torch.fleet import engine as teng  # noqa: E402
+from repro_torch.kernels.stream_chunk import LIVE_MATH, live_math  # noqa: E402
+
+LIVE_STATES = (1, 8, 16, 3)
+
+
+def _live_params(S, seed, device):
+    """Forecaster parameters with S states: the persistence init's
+    timescales, readout weights and bias drawn from the seed."""
+    rng = np.random.default_rng(seed)
+    p = tssm.demand_forecaster_init(None, S, device=device)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return dict(p, w=f32(0.3 * rng.standard_normal(S)), bias=f32(0.05 * rng.standard_normal()))
+
+
+def _live_forecaster(S, seed, history, device):
+    """A StreamingForecaster warmed through ``history`` (rows, H) on ``device``."""
+    return StreamingForecaster.from_history(_live_params(S, seed, device), history,
+                                            device=device)
+
+
+def _live_args(rt):
+    """The runtime's live operands at its current state, as the chunk
+    wrappers take them."""
+    st = rt._state
+    return (st.ssm_h, st.pred_live, *rt._live)
+
+
+def _same_chunk(got, want):
+    return len(got) == len(want) and all(_same_bits(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", LIVE_MATH)
+def test_live_transcendentals_equal_torch(cuda_device, fn):
+    """The live instances' log1p, exp, expm1 (float64) and log1pf (float32),
+    built as the kernels are (-fmad=false), against torch's CUDA ops over
+    2^20 values each in the ranges the live path feeds them (forecasts of 0
+    to 1e7, the cost fit's exponents, readouts, normalised demand) plus
+    zeros, NaN and infinities: every bit equal."""
+    rng = np.random.default_rng(LIVE_MATH.index(fn))
+    n = 1 << 20
+    x = {"log1p": lambda: 10.0 ** rng.uniform(-9, 7, n),
+         "exp": lambda: rng.uniform(-40, 40, n),
+         "expm1": lambda: rng.uniform(-12, 16, n).astype(np.float32).astype(np.float64),
+         "log1pf": lambda: rng.uniform(0, 60, n).astype(np.float32)}[fn]()
+    x[:4] = [0.0, np.nan, np.inf, -0.0]
+    xt = torch.from_numpy(x).to(cuda_device)
+    want = {"log1p": torch.log1p, "exp": torch.exp, "expm1": torch.expm1,
+            "log1pf": torch.log1p}[fn](xt)
+    assert _same_bits(live_math(xt, fn), want), fn
+
+
+def _live_fleet_configs(K):
+    """Four (Kt, endogenous, renew, margin, S) settings a K: Kt cycles
+    through 1-8 with K, and every margin kind, state size and flag appears."""
+    return [(1 + (K + j) % 8, j % 2 == 1, j >= 2, MARGIN_KINDS[j], LIVE_STATES[(K + j) % 4])
+            for j in range(4)]
+
+
+def _live_fleet(K_seed, Kt, margin, renew, S, device, sc, demand):
+    """A 64-link live runtime with Kt-tier tables, its cost coefficients and
+    margins from _gated_policy and a forecaster warmed through hours 900-1199
+    of the demand, streamed to hour 720."""
+    arrays = sc.fleet.stack(torch.float64, device)
+    b, r = _tier_tables(Kt, 64, K_seed + Kt, device)
+    arrays = arrays._replace(tier_bounds=b, tier_rates=r)
+    pol = _gated_policy(arrays.toggle, 64, 2, margin, renew, 31 * K_seed + Kt)
+    cap = np.array([l.capacity_gb_hr for l in sc.fleet.links])[:, None]
+    fc = _live_forecaster(S, K_seed + S, np.minimum(sc.demand[:, 900:], cap), device)
+    return arrays, pol, FleetRuntime(arrays, policy=pol, forecaster=fc, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", list(range(1, 31)) + [168])
+def test_stream_chunk_live_matches_plain(cuda_device, K):
+    """The live stream_chunk, forced through both launch forms (the tick
+    form where it has an instance, K <= TICK_MAX_K_LIVE = 3), against
+    stream_chunk_ref with the same
+    live operands on the same blocks of a stream's own state, every output
+    bit of the result (the prediction plane included), the FSM carry and
+    the forecaster's state: 64 links with 1-8 tiers, S = 1, 3, 8 and 16,
+    endogenous CCI demand and renew_in_chunks on and off, margins of 0,
+    0.05, per-row values and 1e30, NaN demand in three links, across the
+    month start at hour 730; each launch counts under stream_chunk_live
+    alone."""
+    sc = build_fleet_scenario(64, horizon=1200, seed=0)
+    demand = sc.demand.copy()
+    demand[[5, 17], 600] = np.nan
+    demand[40, 735] = np.nan
+    for Kt, endo, renew, margin, S in _live_fleet_configs(K):
+        _, _, rt = _live_fleet(K, Kt, margin, renew, S, cuda_device, sc, demand)
+        cci = demand * 1.5 if endo else None
+        cblk = lambda a, b_: None if cci is None else cci[:, a:b_]
+        for t in range(0, 720, 24):
+            rt.step_many(demand[:, t:t + 24], cci_demand_block=cblk(t, t + 24))
+        t, end = 720, 720 + max(16, K)
+        forms = ("tick", "chunk") if K <= TICK_MAX_K_LIVE else ("chunk",)
+        while t < end:
+            block, _, e = rt._pack(demand[:, t:t + K], cblk(t, t + K))
+            args = rt._chunk_args(torch.from_numpy(block).to(cuda_device), K, e)
+            live = _live_args(rt)
+            want = ref.stream_chunk_ref(*args, renew_in_chunks=renew, live=live)
+            assert want[0].shape == (9 * K + 4, 64) and want[2].shape == (64, S)
+            for form in forms:
+                before = dict(ops.LAUNCHES)
+                got = _stream_chunk_launch(form, *args, renew_in_chunks=renew, live=live)
+                assert ops.LAUNCHES["stream_chunk_live"] == before["stream_chunk_live"] + 1
+                assert ops.LAUNCHES["stream_chunk"] == before["stream_chunk"]
+                assert ops.LAUNCHES["stream_chunk_gated"] == before["stream_chunk_gated"]
+                assert _same_chunk(got, want), (K, form, t, Kt, endo, renew, margin, S)
+            rt._launch(args[0], K, e)
+            rt._commit(want[0].cpu().numpy(), K)
+            t += K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3, 5, 24, 168])
+def test_live_prediction_plane_equals_forecaster_scan(cuda_device, K):
+    """The live chunk's prediction plane and state against forecaster_scan
+    on the same inputs ``u = log1p(float32(min(demand, capacity) / scale))``
+    from the same state, then ``maximum(expm1(y), 0)·scale``, every bit; NaN
+    demand poisons its row from that hour on."""
+    sc = build_fleet_scenario(64, horizon=1200, seed=1)
+    demand = sc.demand.copy()
+    demand[7, 722] = np.nan
+    _, _, rt = _live_fleet(K, 4, 0.05, False, 8, cuda_device, sc, demand)
+    for t in range(0, 720, 24):
+        rt.step_many(demand[:, t:t + 24])
+    block, _, e = rt._pack(demand[:, 720:720 + K], None)
+    args = rt._chunk_args(torch.from_numpy(block).to(cuda_device), K, e)
+    h, pred, a, oma, w, bias, scale = _live_args(rt)[:7]
+    out, _, h_out = stream_chunk(*args, live=_live_args(rt))
+    d = torch.minimum(torch.from_numpy(demand[:, 720:720 + K]).to(cuda_device),
+                      rt.arrays.capacity[:, None])
+    u = torch.log1p((d / scale[:, None]).to(torch.float32))
+    y, h_want = ops.forecaster_scan(u.contiguous(), a, oma, w, bias, h)
+    zero = torch.zeros((), dtype=torch.float64, device=cuda_device)
+    want = torch.maximum(torch.expm1(y.to(torch.float64)), zero) * scale[:, None]
+    assert _same_bits(out[8 * K:9 * K].T.contiguous(), want)
+    assert _same_bits(h_out, h_want)
+    if K > 2:
+        assert torch.isnan(out[8 * K + 2:9 * K, 7]).all() and torch.isfinite(out[8 * K:9 * K, :7]).all()
+
+
+LIVE_ROUTED_CASES = {  # scenario, pad, month, first hour, Ks, endogenous, NaN pair hours,
+    #                    margin, renew, S
+    "relay-padded-k24": ("relay", 3, 730, 48, [24] * 3, False, (), 0.05, False, 8),
+    "multicast-rows-renew": ("multicast", 0, 730, 24, [24] * 3, False, (), "rows", True, 1),
+    "nan-pair0-k24": ("topology", 4, 730, 48, [24] * 2, False, (40, 51, 58), 0.0, False, 16),
+    "k1-month-start": ("topology", 0, 30, 28, [1] * 4, False, (), "rows", True, 8),
+    "k5-s3": ("topology", 0, 30, 40, [5] * 3, False, (), 0.05, False, 3),
+    "k33-endogenous": ("topology", 0, 730, 48, [33, 24], True, (), 0.0, True, 8),
+    "k24-endogenous-nan": ("topology", 4, 730, 48, [24, 1, 5], True, (50, 60), 1e30, False, 16),
+    "k168": ("relay", 0, 730, 24, [168], False, (), "rows", False, 8),
+    "hot-port-165-legs": ("hotter-port", 0, 730, 48, [24, 1, 33], False, (), 0.05, False, 8),
+    "main-cell-empty-ports": ("main-cell", 0, 730, 48, [24, 5], True, (), "rows", False, 8),
+}
+
+
+def _live_topology(name, pad, hpm, margin, renew, S, seed, device):
+    """A routed scenario, a per-port forecast-gated policy and a live
+    runtime whose forecaster is warmed through a seeded port history."""
+    sc, topo, r = _routed_scenario(name, pad, hpm)
+    toggle = topo.stack(r, torch.float64, device).toggle
+    pol = _gated_policy(toggle, topo.n_ports, 2, margin, renew, seed)
+    rng = np.random.default_rng(seed)
+    hist = rng.uniform(0.0, 800.0, (topo.n_ports, 96)) * rng.uniform(0, 1, (topo.n_ports, 1))
+    fc = _live_forecaster(S, seed, hist, device)
+    return sc, topo, r, pol, fc, FleetRuntime(topo, routing=r, policy=pol, forecaster=fc,
+                                              device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LIVE_ROUTED_CASES))
+def test_stream_chunk_routed_live_matches_plain(cuda_device, case):
+    """The routed chunk's live port stage (and, with endogenous demand, the
+    pair stage's third scratch plane) against stream_chunk_routed_ref with
+    the same per-port live operands on the card, every output bit (the
+    prediction plane included), the FSM carry and the forecaster's state:
+    relay and multicast routings, NaN demand under padding legs, K = 1
+    across a month start, K = 5, 33 and 168, endogenous CCI demand (d_row
+    folds the VPN-path demand), a 165-leg port, the 2048-pair cell's routing
+    with its empty ports; S = 1, 3, 8 and 16; margins 0, 0.05, per port and
+    1e30; both renewals; one stream_chunk_routed_live launch a chunk."""
+    name, pad, hpm, t_first, Ks, endo, nan_hours, margin, renew, S = LIVE_ROUTED_CASES[case]
+    sc, topo, r, pol, fc, rt = _live_topology(name, pad, hpm, margin, renew, S, len(case),
+                                              cuda_device)
+    demand = sc.demand.copy()
+    demand[0, list(nan_hours)] = np.nan
+    cci = demand * 1.5 if endo else None
+    cblk = lambda a, b: None if cci is None else cci[:, a:b]
+    t = 0
+    while t < t_first:
+        k = min(24, t_first - t)
+        rt.step_many(demand[:, t:t + k], cci_demand_block=cblk(t, t + k))
+        t += k
+    for K in Ks:
+        block, _, e = rt._pack(demand[:, t:t + K], cblk(t, t + K))
+        dev_block = torch.from_numpy(block).to(cuda_device)
+        live = _live_args(rt)
+        want = ref.stream_chunk_routed_ref(*rt._chunk_args(dev_block, K, e),
+                                           renew_in_chunks=renew, live=live)
+        before = dict(ops.LAUNCHES)
+        got = stream_chunk_routed(*rt._chunk_args(dev_block, K, e), renew_in_chunks=renew,
+                                  live=live)
+        assert ops.LAUNCHES["stream_chunk_routed_live"] == \
+            before["stream_chunk_routed_live"] + 1
+        assert ops.LAUNCHES["stream_chunk_routed"] == before["stream_chunk_routed"]
+        assert ops.LAUNCHES["stream_chunk_routed_gated"] == before["stream_chunk_routed_gated"]
+        assert _same_chunk(got, want), (case, t, K)
+        rt._launch(dev_block, K, e)
+        rt._commit(want[0].cpu().numpy(), K)
+        t += K
+
+
+def _stitched_port_demand(arrays, demand, schedule, hours_per_month):
+    """The clipped port demand a stream folds under a routing schedule
+    (replay_plan_topology's route stage, segment by segment)."""
+    dev = arrays.toggle.theta1.device
+    d_pair, vpn_pair = teng._pair_stage(arrays, torch.as_tensor(demand, device=dev),
+                                        hours_per_month=hours_per_month)
+    T, E, M = demand.shape[1], arrays.routing.n_legs, arrays.n_ports
+    starts = [s for s, _ in schedule] + [T]
+    parts = []
+    for (a, b), (_, plan) in zip(zip(starts, starts[1:]), schedule):
+        op = plan.pad_to(E).operand(torch.float64, dev)
+        parts.append(teng._route_stage(arrays, op, d_pair[:, a:b], vpn_pair[:, a:b])[0])
+    return torch.cat(parts, dim=1)
+
+
+@pytest.mark.cuda
+def test_live_streams_on_the_card_equal_the_card_plans(cuda_device):
+    """The live stream on the card against the card's forecaster and plans:
+    fleet mode at 16 x 2000 after 500 hours of history (K = 24 chunks, then
+    per-tick hours), its forecasts every bit of demand_forecaster_predict's
+    columns H + t over history and clipped stream, its decisions every bit
+    of plan_fleet fed columns H - 1 + t; topology mode on 64 pairs x 200 h
+    with a reroute at hour 96, against the predictions over the stitched
+    port demand and replay_plan_topology of the two-segment schedule. Only
+    the live instances launch."""
+    from repro_torch.models.ssm import demand_forecaster_predict
+
+    sc = build_fleet_scenario(16, horizon=2000, history_hours=500, seed=0)
+    arrays = sc.fleet.stack(torch.float64, cuda_device)
+    cap = np.array([l.capacity_gb_hr for l in sc.fleet.links])[:, None]
+    hist, live = np.minimum(sc.history, cap), np.minimum(sc.demand, cap)
+    params = _live_params(8, 0, cuda_device)
+    fc = StreamingForecaster.from_history(params, hist, device=cuda_device)
+    pol = _gated_policy(arrays.toggle, 16, 2, "rows", False, 1)
+    ops.reset_launches()
+    rt = FleetRuntime(arrays, policy=pol, forecaster=fc, device=cuda_device)
+    outs = [rt.step_many(sc.demand[:, t:t + 24]) for t in range(0, 1992, 24)]
+    outs += [{k: v[:, None] for k, v in rt.step(sc.demand[:, t]).items()}
+             for t in range(1992, 2000)]
+    got = {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}
+    assert ops.LAUNCHES["stream_chunk_live"] == 83 + 8
+    assert ops.LAUNCHES["stream_chunk"] == ops.LAUNCHES["stream_chunk_gated"] == 0
+    H = hist.shape[1]
+    y = demand_forecaster_predict(params, np.concatenate([hist, live], 1), fc.scale)
+    assert np.array_equal(got["pred_next"], y[:, H:].cpu().numpy(), equal_nan=True)
+    rpol = pol._replace(pred_demand=y[:, H - 1:H - 1 + 2000].contiguous())
+    plan = plan_fleet(arrays, sc.demand, policy=rpol, device=cuda_device)
+    for k in ("x", "state"):
+        assert np.array_equal(got[k], plan[k].cpu().numpy()), k
+
+    tsc, topo, r, tpolicy, tfc, trt_ = _live_topology("topology", 8, 730, 0.05, False, 8, 2,
+                                                      cuda_device)
+    moved = np.asarray(r.primary).copy()
+    for i, pr in enumerate(topo.pairs[:6]):
+        moved[i] = next((c for c in pr.candidates if c != moved[i]), moved[i])
+    r1 = topo.plan(moved)
+    ops.reset_launches()
+    outs = []
+    for t in range(0, 192, 24):
+        if t == 96:
+            trt_.reroute(r1)
+        outs.append(trt_.step_many(tsc.demand[:, t:t + 24]))
+    outs += [{k: v[:, None] for k, v in trt_.step(tsc.demand[:, t]).items()}
+             for t in range(192, 200)]
+    got = {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}
+    assert ops.LAUNCHES["stream_chunk_routed_live"] == 8 + 8
+    assert ops.LAUNCHES["stream_chunk_routed"] == ops.LAUNCHES["stream_chunk_routed_gated"] == 0
+    tarr = topo.stack(r, torch.float64, cuda_device)
+    schedule = [(0, r), (96, r1)]
+    port_d = _stitched_port_demand(tarr, tsc.demand, schedule, 730)
+    h, p0 = tfc.h0, tfc.pred0
+    a, oma, w, bias = tssm._operands(tfc.params, cuda_device)
+    u = torch.log1p((port_d / trt_._live[4][:, None]).to(torch.float32))
+    yy, _ = ops.forecaster_scan(u.contiguous(), a, oma, w, bias, h)
+    zero = torch.zeros((), dtype=torch.float64, device=cuda_device)
+    want_pred = torch.maximum(torch.expm1(yy.to(torch.float64)), zero) * trt_._live[4][:, None]
+    assert np.array_equal(got["pred_next"], want_pred.cpu().numpy(), equal_nan=True)
+    tpred = torch.cat([p0[:, None], want_pred[:, :-1]], 1).contiguous()
+    rep = replay_plan_topology(tarr, tsc.demand, schedule,
+                               policy=tpolicy._replace(pred_demand=tpred), device=cuda_device)
+    for k in ("x", "state"):
+        assert np.array_equal(got[k], rep[k].cpu().numpy()), k
+
+
+def test_live_chunk_wrappers_refuse_cpu_tensors_and_bad_operands():
+    """Both chunk wrappers take live operands of CUDA tensors or raise before
+    anything is built: CPU operands, a gate beside them, a state of 17
+    states or the wrong row count, coefficients of the wrong shape."""
+    sc = build_fleet_scenario(4, horizon=48, seed=0)
+    arrays = sc.fleet.stack(torch.float64, CPU)
+    pol = _gated_policy(arrays.toggle, 4, 30, 0.05, False, 0)
+    fc = _live_forecaster(8, 0, sc.demand[:, :24], CPU)
+    rt = FleetRuntime(arrays, policy=pol, forecaster=fc, device="cpu")
+    block, K, endo = rt._pack(sc.demand[:, :24], None)
+    args = rt._chunk_args(torch.from_numpy(block), K, endo)
+    live = _live_args(rt)
+    with pytest.raises(ValueError, match="CUDA"):
+        stream_chunk(*args, live=live)
+    gate = (torch.zeros((30, 4), dtype=torch.float64),) * 2 + (live[8], 30)
+    with pytest.raises(ValueError, match="exclude"):
+        stream_chunk(*args, gate=gate, live=live)
+    for i, bad in ((0, torch.zeros((4, 17), dtype=torch.float32)),
+                   (0, torch.zeros((3, 8), dtype=torch.float32)),
+                   (7, torch.zeros((4, 3), dtype=torch.float64))):
+        wrong = list(live)
+        wrong[i] = bad
+        with pytest.raises(ValueError, match="live|operand"):
+            stream_chunk(*args, live=tuple(wrong))
+    rsc, topo, r = _routed_scenario("relay", 2, 730)
+    rpol = _gated_policy(topo.stack(r, torch.float64, CPU).toggle, topo.n_ports, 30, 0.05,
+                         False, 0)
+    rfc = _live_forecaster(4, 0, np.ones((topo.n_ports, 10)), CPU)
+    rrt = FleetRuntime(topo, routing=r, policy=rpol, forecaster=rfc, device="cpu")
+    block, K, endo = rrt._pack(rsc.demand[:, :24], None)
+    rargs = rrt._chunk_args(torch.from_numpy(block), K, endo)
+    with pytest.raises(ValueError, match="CUDA"):
+        stream_chunk_routed(*rargs, live=_live_args(rrt))

@@ -529,8 +529,8 @@ def test_forecast_gated_policy_fields_and_checks():
 
 def test_forecast_kind_and_training_raise_as_documented():
     """make_policy("forecast") raises JAX's ValueError text; the factories
-    that train raise NotImplementedError naming item 6c, the live streaming
-    ones item 6b, the LM mixers item 11; the runtime refuses a policy without
+    that train raise NotImplementedError naming item 6c, the streaming
+    forecaster's training too, the LM mixers item 11; the runtime refuses a policy without
     its cost coefficients with the reference's text and streams one that has
     them; nothing accepts the policy and runs it as something else."""
     toggle = ToggleParams(*(torch.zeros(1, dtype=dt) for dt in (torch.float64,) * 2
@@ -557,9 +557,9 @@ def test_forecast_kind_and_training_raise_as_documented():
     streamed = trt.FleetRuntime(tsc.fleet, policy=pol, device="cpu").step_many(tsc.demand[:, :48])
     planned = teng.plan_fleet(arrays, tsc.demand, policy=pol, device="cpu")
     np.testing.assert_array_equal(streamed["x"], planned["x"][:, :48].numpy())
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         tstream.StreamingForecaster.fit(tsc.demand, 24)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         tstream.streaming_forecast_policy(None, tsc.demand)
     with pytest.raises(ValueError, match="forecast_gated_policy"):
         teng.plan_fleet(dataclasses.replace(tsc.fleet, policy="forecast"), tsc.demand,

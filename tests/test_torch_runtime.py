@@ -250,16 +250,20 @@ def test_modes_maps_states_to_collective_modes():
 
 
 def test_out_of_scope_paths_raise_not_implemented():
-    """The slices not ported yet raise naming their ROADMAP item; the
-    topology-mode inputs that used to raise now behave as the JAX resolver
-    does: a routing beside a FleetSpec is not read (fleet mode), a non-spec
-    is a TypeError and a fleet-mode reroute is refused. A spec of the
-    ``"forecast"`` kind with no policy object goes through ``make_policy``,
-    which raises JAX's ValueError (the policy is built from predictions)."""
+    """The slices not ported yet raise naming their ROADMAP item (training
+    the streaming forecaster is item 6c); the topology-mode inputs that used
+    to raise now behave as the JAX resolver does: a routing beside a
+    FleetSpec is not read (fleet mode), a non-spec is a TypeError and a
+    fleet-mode reroute is refused; a forecaster that is not a
+    StreamingForecaster is the reference's TypeError (live mode is ported).
+    A spec of the ``"forecast"`` kind with no policy object goes through
+    ``make_policy``, which raises JAX's ValueError (the policy is built from
+    predictions)."""
     sc = _scenario(8, 600, 0)
-    for kw, item in ((dict(obs=True), "item 8"), (dict(forecaster=object()), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            FleetRuntime(sc.fleet, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        FleetRuntime(sc.fleet, device="cpu", obs=True)
+    with pytest.raises(TypeError, match="forecaster must be a StreamingForecaster, got object"):
+        FleetRuntime(sc.fleet, device="cpu", forecaster=object())
     routed = FleetRuntime(sc.fleet, device="cpu", routing=[0] * 8)
     assert not routed.topology and routed.n_demand_rows == routed.n_rows == 8
     np.testing.assert_array_equal(routed.step_many(sc.demand[:, :48])["x"],
@@ -270,9 +274,9 @@ def test_out_of_scope_paths_raise_not_implemented():
         FleetRuntime(object(), device="cpu")
     with pytest.raises(ValueError, match="topology"):
         FleetRuntime(sc.fleet, device="cpu").reroute([0] * 8)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         stream.StreamingForecaster.fit(sc.demand, 24)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         stream.streaming_forecast_policy(None, sc.demand)
     pl = stream.ElasticFleetPlanner(sc.fleet, device="cpu", routing=[0] * 8)
     assert not pl.topology

@@ -24,8 +24,8 @@ Held:
   place), NaN predictions and a stream longer than ``T_pred`` included;
 * margin 1e30 against the reactive stream, every bit;
 * the resolver's refusals: ``cost_coef=None`` (the reference's text),
-  ``pred_demand`` of the wrong shape, and ``forecaster=`` (live mode, item
-  6b-2).
+  ``pred_demand`` of the wrong shape, and ``forecaster=`` of the wrong type
+  (the reference's TypeError; live mode is ``tests/test_torch_stream_live.py``).
 """
 import dataclasses
 import functools
@@ -383,7 +383,8 @@ def test_resolver_streams_replay_mode_and_keeps_the_planes():
     """The resolver marks replay mode and moves the policy; ``from_config``
     streams what the keyword constructor streams; the predicted-cost planes
     are formed once, hour-major, and ``reset()`` keeps them; ``forecaster=``
-    (live mode) still raises naming item 6b-2; on the CPU no kernel launches."""
+    that is not a StreamingForecaster raises the reference's TypeError, with
+    or without the policy; on the CPU no kernel launches."""
     sc, arrays, pred, coef, margins = _fleet(0)
     pol = _fleet_policy(0, margin=margins)
     r = resolve_runtime_operands(sc.fleet, RuntimeConfig(policy=pol), "cpu")
@@ -405,7 +406,7 @@ def test_resolver_streams_replay_mode_and_keeps_the_planes():
     assert a._gate is planes and a.t == 0
     _assert_bits(_stream(a, sc.demand, 24), want)
     for kw in (dict(forecaster=object()), dict(forecaster=object(), policy=pol)):
-        with pytest.raises(NotImplementedError, match="item 6b-2"):
+        with pytest.raises(TypeError, match="forecaster must be a StreamingForecaster"):
             FleetRuntime(sc.fleet, device="cpu", **kw)
     with pytest.raises(ValueError, match="forecast_gated_policy"):
         FleetRuntime(dataclasses.replace(sc.fleet, policy="forecast"), device="cpu")
