@@ -443,13 +443,14 @@ def traced(fn, reps: int):
                     and e.name != "traced calls"]     # kineto mirrors the annotation there
 
 
-def print_breakdown(fn, reps: int, unit: str = "plan") -> None:
+def print_breakdown(fn, reps: int, unit: str = "plan"):
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler),
-    and the share of the traced window the device was busy."""
+    and the share of the traced window the device was busy. Returns the
+    device's busy ms a call (None when the trace holds no device time)."""
     events, dev = traced(fn, reps)
     if not dev:
         print("    profiler: no device activity recorded (device time not measured)")
-        return
+        return None
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -461,6 +462,7 @@ def print_breakdown(fn, reps: int, unit: str = "plan") -> None:
           f"{1 - busy / window:.3f}, host-side profiler overhead included)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us / reps / 1e3:9.4f} ms  {us / busy:6.1%}  {name[:90]}")
+    return busy / reps / 1e3
 
 
 STREAM_K = 24          # hours per step_many chunk: one day
@@ -486,24 +488,30 @@ def stream(rt, demand, K: int, clock: list = None) -> dict:
     return {k: np.concatenate([o[k] for o in outs], axis=1) for k in outs[0]}
 
 
-def kernel_device_ms(fn, reps: int, names, per_call: int = 0) -> dict:
+def kernel_device_ms(fn, reps: int, names, per_call: int = 0, tries: int = 3) -> dict:
     """Device milliseconds per call of each kernel whose name contains one of
     ``names``, from torch.profiler over ``reps`` calls of ``fn`` (for kernels
     whose launch costs the host more than the card spends running them, CUDA
-    events around a call measure the launch, not the kernel). With
-    ``per_call``, each name must show exactly ``reps * per_call`` launches in
-    the trace, or the script fails: a trace that lost launches reads low."""
-    out, count = {}, {}
-    for e in traced(fn, reps)[1]:
-        for n in names:
-            if n in e.name:
-                out[n] = out.get(n, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-                count[n] = count.get(n, 0) + 1
-    missing = [n for n in names if n not in out]
-    check(not missing, f"profiler recorded no device time for {missing}")
-    short = {n: c for n, c in count.items() if per_call and c != reps * per_call}
-    check(not short, f"profiler trace holds {short} launches, not {reps * per_call} each")
-    return out
+    events around a call measure the launch, not the kernel). Every name must
+    show device time and, with ``per_call``, exactly ``reps * per_call``
+    launches: a trace that lost launches reads low. Such a trace is taken
+    again, up to ``tries`` traces, and the script fails unless one of them
+    holds every launch (as device_ms_per_call does)."""
+    for _ in range(tries):
+        out, count = {}, {}
+        for e in traced(fn, reps)[1]:
+            for n in names:
+                if n in e.name:
+                    out[n] = out.get(n, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+                    count[n] = count.get(n, 0) + 1
+        missing = [n for n in names if n not in out]
+        short = {n: c for n, c in count.items() if per_call and c != reps * per_call}
+        if not missing and not short:
+            return out
+        want = f", not {reps * per_call} each" if per_call else ""
+        print(f"    profiler trace over {reps} calls holds {count} launches of {list(names)}"
+              f"{want}: taken again")
+    raise SmokeFailure(f"no profiler trace of {tries} held every launch of {list(names)}")
 
 
 def device_busy_ms(fn, reps: int) -> float:
@@ -2963,6 +2971,14 @@ FC_HISTORY = 4380                       # benchmarks/bench_policy.py's half-hori
 FC_STATE = 8
 FC_CHECK = ((1, 17, 2048), (1, 63, FC_HISTORY + FC_HOURS), (1, 8, 16))   # N, T, S
 FC_MARGINS = (0.0, 0.05, 1e30)
+FC_TRAIN_STEPS = 300                    # benchmarks/bench_policy.py:102's train_steps
+FC_BWD_CHECK = ((1, 17, 2048), (2, 63, 65, FC_HISTORY), (1, 8, 16))   # N, T, S
+FC_TRAIN_CHECK = (256, 30)              # links and steps of the card-vs-CPU training
+# forecast_fleet_policy then plan_fleet: the training's steps (a forward and a
+# backward scan each), the prediction over history and year, the cost fit's
+# and the plan's pricings, the gated plan.
+FC_WANT = {"forecaster_scan": FC_TRAIN_STEPS + 1, "forecaster_scan_bwd": FC_TRAIN_STEPS,
+           "tiered_cost_batched": 2, "fsm_scan_gated": 1}
 
 
 def forecaster_bound(N: int, T: int, S: int, write_y: bool = True) -> dict:
@@ -3124,17 +3140,97 @@ def gate_ties(got, want, policy, gates, tol: float) -> int:
     return len(rows)
 
 
+def forecaster_bwd_bound(N: int, T: int, S: int) -> dict:
+    # u and dy read (float32), a, 1 − a and w read, the 3S + 1 sums written.
+    # Per element and state: the forward state (a·h, (1−a)·u, their sum) and
+    # the reverse step (λ: two products and a sum; dA, dB: a product and a
+    # sum each; dW: a difference, a product and a sum), each a whole
+    # lane-cycle; the bias's add once per element. The kernel's checkpoint
+    # pass (a second forward walk) is its own choice and not counted.
+    bytes_moved = N * T * 8 + 3 * S * 4 + (3 * S + 1) * 4
+    return lane_bound(bytes_moved, N * T * (13 * S + 1), torch.float32)
+
+
+def bwd_case(N: int, T: int, S: int, kind: str, device):
+    """forecaster_case's operands (a NaN hour in row 0 when N > 1; h0 seeded
+    for the "seeded" dy) and a dy: "zero"; "seeded" (the loss gradient's
+    size, zeros past hour T − 5 as the mask leaves them); "past" (a window
+    past the horizon: the mask keeps hour 0 alone)."""
+    u, a, oma, w, _, h0 = forecaster_case(N, T, S, kind == "seeded", device)
+    rng = np.random.default_rng(31 * N + T + S)
+    dy = torch.tensor(rng.normal(0, 1e-3, (N, T)), dtype=torch.float32, device=device)
+    if kind == "zero":
+        dy.zero_()
+    elif kind == "seeded":
+        dy[:, max(T - 5, 0):] = 0.0
+    else:
+        dy[:, 1:] = 0.0
+    return u, dy, a, oma, w, (h0 if kind == "seeded" else None)
+
+
+def forecaster_bwd_checks() -> int:
+    """``forecaster_scan_bwd`` against its plain version on the card, every
+    bit of the four gradients (NaN in the same places), on N x T x S of
+    FC_BWD_CHECK with each of bwd_case's dy kinds. Returns the cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.forecaster import forecaster_scan_bwd
+
+    cases = 0
+    for N in FC_BWD_CHECK[0]:
+        for T in FC_BWD_CHECK[1]:
+            for S in FC_BWD_CHECK[2]:
+                for kind in ("zero", "seeded", "past"):
+                    args = bwd_case(N, T, S, kind, DEVICE)
+                    got = forecaster_scan_bwd(*args)
+                    want = ref.forecaster_scan_bwd_ref(*args)
+                    check(all(same_bits(g, w) for g, w in zip(got, want)),
+                          f"forecaster_scan_bwd {N} x {T}, S = {S}, dy {kind}: != plain")
+                    cases += 1
+    return cases
+
+
+def train_card_vs_cpu(hist: np.ndarray, window: int) -> dict:
+    """train_demand_forecaster on the card and on the CPU, FC_TRAIN_CHECK's
+    links and steps: every parameter bit equal, and every step's loss within
+    rtol 1e-6 (the loss is a torch.sum, reported only). Returns the card's
+    losses and the seconds each side took."""
+    from repro_torch.models.ssm import train_demand_forecaster
+
+    n, steps = FC_TRAIN_CHECK
+    out = {}
+    for side, dev in (("card", DEVICE), ("cpu", torch.device("cpu"))):
+        losses = []
+        t0 = time.perf_counter()
+        params, scale = train_demand_forecaster(hist[:n], window, steps=steps, device=dev,
+                                                losses=losses)
+        torch.cuda.synchronize()
+        out[side] = (params, scale, [float(x) for x in losses], time.perf_counter() - t0)
+    (gp, gs, gl, g_s), (cp, cs, cl, c_s) = out["card"], out["cpu"]
+    check(np.array_equal(gs, cs), "training scale: card != CPU")
+    for k in cp:
+        check(same_bits(gp[k].cpu(), cp[k]), f"trained {k}: card != CPU in some bit "
+              f"({gp[k].cpu().tolist()} vs {cp[k].tolist()})")
+    np.testing.assert_allclose(gl, cl, rtol=1e-6)
+    return {"losses": gl, "card_s": g_s, "cpu_s": c_s}
+
+
 def forecast_phase(card: str) -> dict:
     """The forecast slice on the card: with every launch count at 0, the
-    2048-link year's forecast-gated plan through ``demand_forecaster_predict``
-    and ``plan_fleet``; launch counts exact; both kernels held bit for bit
-    against their plain versions; margin 1e30 == reactive; the card's plan
-    against the CPU port's; then timings. Returns the two kernels' rows."""
-    from repro_torch.fleet import build_fleet_scenario, build_report, plan_fleet
+    2048-link year's forecast policy trained through
+    ``forecast_fleet_policy(..., steps=300)`` on the 4380-hour history and
+    planned with ``plan_fleet``; launch counts exact; the backward kernel
+    and both forward kernels held bit for bit against their plain versions;
+    a short training run card == CPU in every parameter bit; margin 1e30 ==
+    reactive; the card's plan against the CPU port's; the seeded and the
+    persistence readouts' plans beside it; then timings and both
+    forecast_gain values. Returns the three kernels' rows."""
+    from repro_torch.fleet import (build_fleet_scenario, build_report, family_margins,
+                                   forecast_fleet_policy, forecast_horizon_hours, plan_fleet)
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.forecaster import forecaster_scan
+    from repro_torch.kernels.forecaster import forecaster_scan, forecaster_scan_bwd
     from repro_torch.kernels.fsm_scan import fsm_scan
-    from repro_torch.models.ssm import demand_forecaster_init
+    from repro_torch.models import ssm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -3143,29 +3239,47 @@ def forecast_phase(card: str) -> dict:
     print(f"forecast scenario {N} x {T} h after {H} h of history: "
           f"{time.perf_counter() - t0:.2f} s on the host")
     rng = np.random.default_rng(SEED)
-    init = demand_forecaster_init(None, FC_STATE, device=DEVICE)
+    init = ssm.demand_forecaster_init(None, FC_STATE, device=DEVICE)
     seeded = dict(init, w=torch.tensor(0.1 * rng.standard_normal(FC_STATE), dtype=torch.float32,
                                        device=DEVICE),
                   bias=torch.tensor(0.01 * rng.standard_normal(), dtype=torch.float32,
                                     device=DEVICE))
+    margin = family_margins([l.family for l in sc.fleet.links])
+    arrays = sc.fleet.stack(torch.float64, DEVICE)
+    window = forecast_horizon_hours(arrays.toggle)
 
-    # -- the main path, launches counted ------------------------------------
-    plans, launches = {}, {}
-    for name, params in (("seeded", seeded), ("init", init)):
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        arrays, pol = forecast_policy(sc, params, None)
-        plans[name] = plan_fleet(arrays, sc.demand, policy=pol)
-        torch.cuda.synchronize()
-        launches[name] = {k: v for k, v in ops.LAUNCHES.items() if v}
-        print(f"forecast path ({name} parameters): launches {launches[name]} "
-              f"({time.perf_counter() - t0:.2f} s, forecast, fit and plan from numpy)")
-        check(launches[name] == {"forecaster_scan": 1, "tiered_cost_batched": 2,
-                                 "fsm_scan_gated": 1},
-              f"forecast path launched {launches[name]}: not one forecaster_scan, one gated "
-              f"fsm_scan and the two pricings")
-    arrays, pol = forecast_policy(sc, seeded, DEVICE)
-    plan = plans["seeded"]
+    # -- the main path: train, forecast, fit and plan, launches counted -------
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pol = forecast_fleet_policy(arrays, sc.demand, sc.history, margin=margin,
+                                hours_per_month=sc.fleet.hours_per_month, steps=FC_TRAIN_STEPS)
+    plan = plan_fleet(arrays, sc.demand, policy=pol)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    print(f"forecast path (forecast_fleet_policy, steps={FC_TRAIN_STEPS}, then plan_fleet): "
+          f"launches {launches} ({path_s:.2f} s from numpy, training included)")
+    check(launches == FC_WANT, f"the trained forecast path launched {launches}, not {FC_WANT}")
+
+    # The training again, alone: its losses, its parameters, its wall time.
+    cap = np.array([l.capacity_gb_hr for l in sc.fleet.links])[:, None]
+    hist = np.minimum(sc.history, cap)
+    losses = []
+    t0 = time.perf_counter()
+    trained, _ = ssm.train_demand_forecaster(hist, window, steps=FC_TRAIN_STEPS, losses=losses)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"training did not lower the loss: {losses[0]} -> {losses[-1]}")
+    _, pol_t = forecast_policy(sc, trained, DEVICE)
+    check(same_bits(pol_t.pred_demand, pol.pred_demand) and same_bits(pol_t.cost_coef,
+                                                                       pol.cost_coef),
+          "forecast_fleet_policy's predictions != predict with the same training's parameters")
+    print(f"training {N} links x {H} h, window {window} h, {FC_TRAIN_STEPS} steps on the card: "
+          f"{train_s:.2f} s wall ({train_s / FC_TRAIN_STEPS * 1e3:.2f} ms a step); loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; the factory's predictions == predict with "
+          f"those parameters, every bit")
     check(same_bits(plan["x"], plan_fleet(arrays, sc.demand, policy=pol)["x"]),
           "forecast plan not reproducible")
     reactive = plan_fleet(arrays, sc.demand)
@@ -3175,10 +3289,23 @@ def forecast_phase(card: str) -> dict:
           "forecast plan shape/device")
     flips = int((plan["x"] != reactive["x"]).sum())
     check(flips > 0, "the forecast gates changed no decision")
-    print(f"forecast plan {N} x {T}: CCI share {plan['x'].double().mean().item():.4f} "
+    print(f"trained forecast plan {N} x {T}: CCI share {plan['x'].double().mean().item():.4f} "
           f"(reactive {reactive['x'].double().mean().item():.4f}), {flips} link-hours decided "
           f"otherwise than reactive; toggle cost {plan['toggle_cost'].sum().item():.2f} vs "
           f"reactive {reactive['toggle_cost'].sum().item():.2f}")
+
+    # The untrained readouts: one forecast, one fit, one plan each.
+    plans = {}
+    for name, params in (("seeded", seeded), ("init", init)):
+        ops.reset_launches()
+        a_, p_ = forecast_policy(sc, params, None)
+        plans[name] = plan_fleet(a_, sc.demand, policy=p_)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        check(got == {"forecaster_scan": 1, "tiered_cost_batched": 2, "fsm_scan_gated": 1},
+              f"forecast path ({name} readout) launched {got}")
+    print("untrained readouts (seeded, persistence): one forecaster_scan, one gated fsm_scan "
+          "and two pricings each")
 
     # (c) margin 1e30: the gates neither fire nor veto ---------------------
     wide = plan_fleet(arrays, sc.demand, policy=pol._replace(margin=torch.full_like(
@@ -3187,7 +3314,17 @@ def forecast_phase(card: str) -> dict:
         check(same_bits(wide[k], reactive[k]), f"margin 1e30 != the reactive plan in {k}")
     print("margin 1e30: the gated plan == the reactive plan, every output bit")
 
-    # (a) and (b): both kernels against their plain versions ----------------
+    # (a) and (b): the kernels against their plain versions -------------------
+    t0 = time.perf_counter()
+    n_bwd = forecaster_bwd_checks()
+    print(f"forecaster_scan_bwd: {n_bwd} cases (N in {FC_BWD_CHECK[0]} x T in "
+          f"{FC_BWD_CHECK[1]} x S in {FC_BWD_CHECK[2]}, dy zero, seeded and past the horizon, "
+          f"a NaN hour) == plain on the card, every bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    tr = train_card_vs_cpu(hist, window)
+    print(f"training {FC_TRAIN_CHECK[0]} links x {H} h x {FC_TRAIN_CHECK[1]} steps: card == CPU "
+          f"port in every parameter bit, losses within rtol 1e-6 (card {tr['card_s']:.2f} s, "
+          f"CPU {tr['cpu_s']:.2f} s; {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     n_fc = forecaster_checks()
     print(f"forecaster_scan: {n_fc} cases (N in {FC_CHECK[0]} x T in {FC_CHECK[1]} x S in "
@@ -3209,9 +3346,10 @@ def forecast_phase(card: str) -> dict:
     gated_err = (got["total_cost"] - want["total_cost"]).abs().max().item()
     torch.testing.assert_close(got["total_cost"], want["total_cost"], rtol=1e-12, atol=0)
 
-    # (d) the card's plan against the CPU port's ------------------------------
+    # (d) the card's plan against the CPU port's, from the same trained
+    # parameters (the training itself is card == CPU above) ---------------------
     t0 = time.perf_counter()
-    cpu_params = {k: v.cpu() for k, v in seeded.items()}
+    cpu_params = {k: v.cpu() for k, v in trained.items()}
     c_arrays, c_pol = forecast_policy(sc, cpu_params, "cpu")
     cpu = plan_fleet(c_arrays, sc.demand, policy=c_pol, device="cpu")
     c_gates = c_pol.features(cpu["demand"], cpu["vpn_hourly"], cpu["cci_hourly"])
@@ -3222,7 +3360,7 @@ def forecast_phase(card: str) -> dict:
     for k in ("toggle_cost", "static_vpn", "static_cci"):
         if ties == 0:
             torch.testing.assert_close(plan[k].cpu(), cpu[k], rtol=1e-9, atol=0)
-    print(f"forecast plan card vs CPU port ({time.perf_counter() - t0:.1f} s): largest "
+    print(f"trained forecast plan card vs CPU port ({time.perf_counter() - t0:.1f} s): largest "
           f"relative difference of pred {d_pred:.3e}, p_vpn {d_vpn:.3e}, p_cci {d_cci:.3e}; "
           f"{ties} rows decide otherwise (allowed only at a gate within {tol:.3e} of its "
           f"threshold); x/state " + ("equal, costs rtol 1e-9" if ties == 0 else "differ there"))
@@ -3236,9 +3374,34 @@ def forecast_phase(card: str) -> dict:
                                      "forecaster_scan_kernel", 1)
     fc_plain_ms = sync_ms(lambda: ref.forecaster_scan_ref(*fc_args), 2)
     fb, fb_state = forecaster_bound(N, H + T, S), forecaster_bound(N, H + T, S, False)
+    # one training step's two kernels at the training shape, and the step
+    _, u, target, dy_weight = ssm._training_inputs(hist, window)
+    u, target, dy_weight = (x.to(DEVICE) for x in (u, target, dy_weight))
+    a, oma, w, bias = ssm._operands(trained, DEVICE)
+    dy = ((forecaster_scan(u, a, oma, w, bias)[0] - target) * 2.0) * dy_weight
+    tfw_ms = device_ms_per_call(lambda: forecaster_scan(u, a, oma, w, bias), 10,
+                                "forecaster_scan_kernel", 1)
+    bwd = lambda: forecaster_scan_bwd(u, dy, a, oma, w)
+    got, want = bwd(), ref.forecaster_scan_bwd_ref(u, dy, a, oma, w)
+    check(all(same_bits(g, w_) for g, w_ in zip(got, want)),
+          "forecaster_scan_bwd != plain at the training step's inputs")
+    bwd_ms = device_ms_per_call(bwd, 10, "forecaster_bwd", 2)
+    split = kernel_device_ms(bwd, 10, ("forecaster_bwd_rows_kernel",
+                                       "forecaster_bwd_fold_kernel"), per_call=1)
+    bwd_ms2 = device_ms_per_call(bwd, 10, "forecaster_bwd", 2)
+    bwd_plain_ms = sync_ms(lambda: ref.forecaster_scan_bwd_ref(u, dy, a, oma, w), 1)
+    bb, tfb = forecaster_bwd_bound(N, H, S), forecaster_bound(N, H, S)
+    cfg = AdamWConfig(lr=2e-2, weight_decay=0.0, clip_norm=1.0)
+    state = {"p": trained, "o": adamw_init(trained, cfg)}
+
+    def train_step():
+        _, g = ssm._loss_and_grads(state["p"], u, target, dy_weight)
+        state["p"], state["o"], _ = adamw_update(state["p"], g, state["o"], cfg)
+
+    step_ms = sync_ms(train_step, 10)
+    g_ms = device_ms_per_call(lambda: fsm_scan(*gate_args, gate=gate), 10, "fsm_scan_kernel", 1)
     r_args = gate_args
     h_args = r_args[:7] + (arrays.toggle.h % 6 + 1, arrays.toggle.h % 4 + 1)
-    g_ms = device_ms_per_call(lambda: fsm_scan(*gate_args, gate=gate), 10, "fsm_scan_kernel", 1)
     r_ms = device_ms_per_call(lambda: fsm_scan(*r_args), 10, "fsm_scan_kernel", 1)
     h_ms = device_ms_per_call(lambda: fsm_scan(*h_args), 10, "fsm_scan_kernel", 1)
     g_ms2 = device_ms_per_call(lambda: fsm_scan(*gate_args, gate=gate), 10, "fsm_scan_kernel", 1)
@@ -3249,41 +3412,59 @@ def forecast_phase(card: str) -> dict:
     react_ms = sync_ms(lambda: plan_fleet(arrays, demand), 10)
 
     def path():
-        a, p = forecast_policy(sc, seeded, DEVICE)
-        return plan_fleet(a, sc.demand, policy=p)
+        a_, p_ = forecast_policy(sc, trained, DEVICE)
+        return plan_fleet(a_, sc.demand, policy=p_)
 
     path_ms = sync_ms(path, 2)
     print(f"timings on {card} (profiler device time, median ms; bound = max(bytes / 3.35 "
           f"TB/s, ops / peak))")
+    print(f"  forecaster_scan_bwd {N} x {H}, S = {S} (a training step's): {bwd_ms:.4f} / "
+          f"{bwd_ms2:.4f} ms (chains {split['forecaster_bwd_rows_kernel']:.4f}, row fold "
+          f"{split['forecaster_bwd_fold_kernel']:.4f}), bound {bb['bound_ms']:.4f} ms "
+          f"({bb['bound_by']}), {bwd_ms / bb['bound_ms']:.2f}x; plain (card) {bwd_plain_ms:.1f} "
+          f"ms; launches on the path {FC_TRAIN_STEPS}")
+    print(f"  forecaster_scan {N} x {H}, S = {S} (a training step's forward): {tfw_ms:.4f} ms, "
+          f"bound {tfb['bound_ms']:.4f} ms, {tfw_ms / tfb['bound_ms']:.2f}x; a whole training "
+          f"step (forward, backward, host sigmoid, AdamW) {step_ms:.3f} ms wall")
     print(f"  forecaster_scan {N} x {H + T}, S = {S}: kernel {fc_ms:.4f} ms, bound "
           f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}), {fc_ms / fb['bound_ms']:.2f}x; "
           f"without the readout {fc_state_ms:.4f} ms (bound {fb_state['bound_ms']:.4f}); "
-          f"plain (card) {fc_plain_ms:.1f} ms; launches on the path 1 per forecast")
+          f"plain (card) {fc_plain_ms:.1f} ms; launches on the path {FC_TRAIN_STEPS} at "
+          f"{N} x {H} and 1 at {N} x {H + T}")
     print(f"  fsm_scan {N} x {T}: gated {g_ms:.4f} / {g_ms2:.4f} ms (bound "
           f"{gb['bound_ms']:.4f} ms, {gb['bound_by']}, {g_ms / gb['bound_ms']:.2f}x), reactive "
           f"{r_ms:.4f} ms, hysteresis {h_ms:.4f} ms (bound {fsm_bound(N, T)['bound_ms']:.4f}), "
           f"in turns; gated plain (card) {g_plain_ms:.1f} ms")
     print(f"  plan_fleet {N} x {T} from arrays and demand on the card: forecast-gated "
-          f"{plan_ms:.3f} ms, reactive "
-          f"{react_ms:.3f} ms; the whole forecast path from numpy (predict over "
-          f"{H + T} h, cost fit, plan) {path_ms:.1f} ms")
+          f"{plan_ms:.3f} ms, reactive {react_ms:.3f} ms; the forecast path from numpy without "
+          f"the training (predict over {H + T} h, cost fit, plan) {path_ms:.1f} ms; with it "
+          f"{path_s * 1e3:.1f} ms")
+    busy_ms = print_breakdown(train_step, reps=5, unit="training step")
+    if busy_ms is not None:
+        print(f"  a training step: {step_ms:.3f} ms wall (median of 10 synchronized steps), "
+              f"device busy {busy_ms:.3f} ms (the profiler's 5 steps): idle share of the wall "
+              f"step {1 - busy_ms / step_ms:.3f}")
     print_breakdown(lambda: plan_fleet(arrays, demand, policy=pol), reps=3)
 
     # -- the report's forecast column on the fleet ------------------------------
     t0 = time.perf_counter()
     rep = build_report(sc, reactive, include_oracle=True)
     tog, opt = rep.totals["togglecci"], rep.totals["oracle"]
-    fcost = float(plan["toggle_cost"].sum())
+    gain = lambda p_: (tog - float(p_["toggle_cost"].sum())) / (tog - opt)
     print(f"forecast_gain (fraction of the reactive-vs-oracle gap closed, the topology "
-          f"report's formula on the fleet's totals): {(tog - fcost) / (tog - opt):+.4f} "
-          f"(ToggleCCI ${tog:,.2f}, forecast-gated ${fcost:,.2f}, oracle ${opt:,.2f}; "
-          f"{time.perf_counter() - t0:.1f} s)")
+          f"report's formula on the fleet's totals): trained {gain(plan):+.4f} (forecast-gated "
+          f"${float(plan['toggle_cost'].sum()):,.2f}); seeded readout {gain(plans['seeded']):+.4f}"
+          f", persistence {gain(plans['init']):+.4f}; ToggleCCI ${tog:,.2f}, oracle "
+          f"${opt:,.2f} ({time.perf_counter() - t0:.1f} s)")
     print(f"forecast phase: {time.perf_counter() - t_phase:.1f} s")
     rows = {
-        "forecaster_scan": {"launches": launches["seeded"]["forecaster_scan"],
+        "forecaster_scan": {"launches": launches["forecaster_scan"],
                             "max_abs_err": 0.0, "ms": fc_ms, "plain_ms": fc_plain_ms, **fb,
                             "library_ms": None},
-        "fsm_scan_gated": {"launches": launches["seeded"]["fsm_scan_gated"],
+        "forecaster_scan_bwd": {"launches": launches["forecaster_scan_bwd"],
+                                "max_abs_err": 0.0, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                                **bb, "library_ms": None},
+        "fsm_scan_gated": {"launches": launches["fsm_scan_gated"],
                            "max_abs_err": gated_err, "ms": g_ms, "plain_ms": g_plain_ms, **gb,
                            "library_ms": None},
     }
@@ -3582,12 +3763,13 @@ def forecast_stream_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
             "ms": t_ms, "plain_ms": t_plain, "bound_ms": tb["bound_ms"],
             "bound_by": tb["bound_by"], "library_ms": None},
     }
-    return rows, {"replay_year": chunked}
+    return rows
 
 
 # -- the forecast-gated policy streamed in live mode -------------------------------
 LIVE_TIMED_K = (24, 1, 2, 3, 4, 5)      # 2048 links: the chunk form, then the tick form
 LIVE_MATH_N = 1 << 20                   # values a transcendental is checked on
+LIVE_TRAIN_STEPS = 60                   # benchmarks/bench_runtime.py:193's steps
 
 
 def live_math_checks() -> int:
@@ -3627,13 +3809,15 @@ def routed_port_demand(topo, demand, schedule, device):
                       for (a, b), (_, r) in zip(zip(starts, starts[1:]), schedule)], dim=1)
 
 
-def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict, fs_ctx: dict) -> dict:
+def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
     """The forecast-gated policy streamed in live mode on the card (the live
     instances of ``stream_chunk`` and ``stream_chunk_routed``): the live
     kernels' transcendentals against torch's; the forecast phase's 2048-link
-    year with its forecaster warmed through the history, in K = 24 chunks and
-    800 ticks with launches counted, against the card's forecaster, the
-    card's plan_fleet of the forecast policy and the replay stream; 2048
+    year with its policy and forecaster from ``streaming_forecast_policy``
+    (trained on the card on the 4380-hour history, warmed through it), in
+    K = 24 chunks and 800 ticks with launches counted, against the card's
+    forecaster, and the card's plan_fleet and replay stream of the policy fed
+    those forecasts; 2048
     pairs on 128 ports after 4380 hours of history with a per-port
     forecaster and a reroute, against the card's forecaster over the
     realised port demand and replay_plan_topology; both live kernels against
@@ -3641,7 +3825,7 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict, fs_ctx: dict) -
     instances. Returns the two live kernels' rows."""
     from repro_torch.fleet import (FleetRuntime, StreamingForecaster, build_topology_scenario,
                                    fit_cost_coef, forecast_gated_policy, optimize_routing,
-                                   replay_plan_topology)
+                                   plan_fleet, replay_plan_topology, streaming_forecast_policy)
     from repro_torch.fleet.engine import routed_cost_series
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.stream_chunk import (TICK_MAX_K_LIVE, _stream_chunk_launch,
@@ -3654,18 +3838,32 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict, fs_ctx: dict) -
     print(f"live transcendentals: log1p, exp, expm1 (float64) and log1pf (float32) of the "
           f"kernels' build == torch's CUDA ops on {n_math} values, every bit "
           f"({time.perf_counter() - t0:.1f} s)")
-    sc, pol, plan, params = fc_ctx["scenario"], fc_ctx["policy"], fc_ctx["plan"], fc_ctx["params"]
+    sc, arrays, params = fc_ctx["scenario"], fc_ctx["arrays"], fc_ctx["params"]
     N, T = sc.demand.shape
     H = sc.history.shape[1]
     fields = ("x", "state", "r_vpn", "r_cci", "vpn_cost", "cci_cost", "cost")
     cap = np.array([l.capacity_gb_hr for l in sc.fleet.links])[:, None]
     hist, clipped = np.minimum(sc.history, cap), np.minimum(sc.demand, cap)
 
-    # -- the main path: the forecast year streamed live, launches counted ------
+    # -- the main path: the live policy trained on the history
+    # (benchmarks/bench_runtime.py:193's call), the year streamed live,
+    # launches counted -------------------------------------------------------------
     ops.reset_launches()
-    fc = StreamingForecaster.from_history(params, hist)
+    t0 = time.perf_counter()
+    pol, fc = streaming_forecast_policy(arrays, sc.history, steps=LIVE_TRAIN_STEPS,
+                                        hours_per_month=sc.fleet.hours_per_month)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
     warm = {k: v for k, v in ops.LAUNCHES.items() if v}
-    check(warm == {"forecaster_scan": 1}, f"the forecaster's warm-up launched {warm}")
+    want_warm = {"tiered_cost_batched": 1, "forecaster_scan": LIVE_TRAIN_STEPS + 1,
+                 "forecaster_scan_bwd": LIVE_TRAIN_STEPS}
+    check(warm == want_warm, f"streaming_forecast_policy launched {warm}, not {want_warm} (the "
+          f"history's pricing, the training's steps and the warm-up)")
+    check(same_bits(torch.as_tensor(fc.scale), torch.as_tensor(np.maximum(hist.mean(axis=1),
+                                                                        1e-9))),
+          "the trained forecaster's scale is not the clipped history's mean")
+    print(f"streaming_forecast_policy({N} links, {H} h of history, steps={LIVE_TRAIN_STEPS}): "
+          f"{fit_s:.2f} s on the card, launches {warm}")
     ops.reset_launches()
     rt = FleetRuntime(sc.fleet, policy=pol, forecaster=fc)
     check(rt.device.type == DEVICE.type and rt.pred_source == "live",
@@ -3688,26 +3886,30 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict, fs_ctx: dict) -
     check(tick_launches == {"stream_chunk_live": STREAM_TICKS},
           f"{STREAM_TICKS} live ticks launched {tick_launches}")
     fleet_launches = T // STREAM_K + STREAM_TICKS
-    y = demand_forecaster_predict(params, np.concatenate([hist, clipped], 1), fc.scale)
+    y = demand_forecaster_predict(fc.params, np.concatenate([hist, clipped], 1), fc.scale)
     check(same_bits(torch.from_numpy(year["pred_next"]), y[:, H:].cpu()),
           "live forecasts != the card's demand_forecaster_predict columns H + t")
-    check(same_bits(pol.pred_demand.cpu(), y[:, H - 1:H - 1 + T].cpu()),
-          "the forecast policy's predictions are not columns H - 1 + t of the same forecast")
-    replay = fs_ctx["replay_year"]
+    # The replay-mode twin of the live policy: its predictions columns H - 1 + t.
+    fpol = pol._replace(pred_demand=y[:, H - 1:H - 1 + T].contiguous())
+    replay = stream(FleetRuntime(sc.fleet, policy=fpol), sc.demand, STREAM_K)
+    plan = plan_fleet(arrays, sc.demand, policy=fpol)
     for k in fields:
         check(np.array_equal(year[k], replay[k]), f"live year != the replay stream in {k}")
     for k in ("x", "state"):
         check(np.array_equal(year[k], plan[k].cpu().numpy()),
               f"live year: {k} != the card's plan_fleet of the forecast policy")
+    flips = int((year["x"] != plan_fleet(arrays, sc.demand)["x"].cpu().numpy()).sum())
+    check(flips > 0, "the trained live gates changed no fleet decision")
     for k in fields + ("pred_next",):
         check(same_bits(torch.from_numpy(np.stack([o[k] for o in ticks], 1)),
                         torch.from_numpy(year[k][:, :STREAM_TICKS])),
               f"live per-tick step != chunked step_many in {k}")
     print(f"live forecast stream {N} x {T} (K = {STREAM_K}) after {H} h of history: launches "
-          f"{launches} for the year, {tick_launches} for {STREAM_TICKS} ticks (the warm-up one "
-          f"forecaster_scan); forecasts == the card's demand_forecaster_predict columns H + t, "
-          f"every bit; every field == the replay stream, x/state == the card's plan_fleet of "
-          f"the policy; ticks == chunks in every field and forecast")
+          f"{launches} for the year, {tick_launches} for {STREAM_TICKS} ticks; forecasts == the "
+          f"card's demand_forecaster_predict columns H + t with the trained parameters, every "
+          f"bit; every field == the replay stream of the policy fed them, x/state == the "
+          f"card's plan_fleet of it; ticks == chunks in every field and forecast; "
+          f"{flips} link-hours decided otherwise than reactive")
 
     # -- topology: a per-port live forecaster, a reroute mid-year ------------
     t0 = time.perf_counter()
@@ -3830,7 +4032,7 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict, fs_ctx: dict) -
 
     # -- timings ----------------------------------------------------------------
     replay_clock, live_clock2, treplay_clock, tlive_clock2 = [], [], [], []
-    stream(FleetRuntime(sc.fleet, policy=pol), sc.demand, STREAM_K, replay_clock)
+    stream(FleetRuntime(sc.fleet, policy=fpol), sc.demand, STREAM_K, replay_clock)
     stream(FleetRuntime(sc.fleet, policy=pol, forecaster=fc), sc.demand, STREAM_K, live_clock2)
     topo_year(rpol, None, treplay_clock)
     topo_year(tpol, tfc, tlive_clock2)
@@ -3847,7 +4049,7 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict, fs_ctx: dict) -
     print(f"  live per-tick step {N} links: p50 {np.percentile(tick, 50):.1f} us, p99 "
           f"{np.percentile(tick, 99):.1f} us")
     rt_l = FleetRuntime(sc.fleet, policy=pol, forecaster=fc)
-    rt_r = FleetRuntime(sc.fleet, policy=pol)
+    rt_r = FleetRuntime(sc.fleet, policy=fpol)
     stream(rt_l, sc.demand[:, :SWEEP_T0], STREAM_K)
     stream(rt_r, sc.demand[:, :SWEEP_T0], STREAM_K)
     Kt = rt_l.arrays.tier_bounds.shape[1]
@@ -4133,8 +4335,8 @@ def main() -> int:
     routed_row = topology_stream_phase(card.splitlines()[0], topo_ctx)
     oracle_row = report_phase(card.splitlines()[0], scen[N_big], plans[N_big, False], topo_ctx)
     fc_rows, fc_ctx = forecast_phase(card.splitlines()[0])
-    fs_rows, fs_ctx = forecast_stream_phase(card.splitlines()[0], fc_ctx, topo_ctx)
-    live_rows = forecast_live_phase(card.splitlines()[0], fc_ctx, topo_ctx, fs_ctx)
+    fs_rows = forecast_stream_phase(card.splitlines()[0], fc_ctx, topo_ctx)
+    live_rows = forecast_live_phase(card.splitlines()[0], fc_ctx, topo_ctx)
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -4197,6 +4399,9 @@ def main() -> int:
         {"name": "forecaster_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/forecaster_scan.cu",
          "replaces": "src/repro/models/ssm.py:524", **fc_rows["forecaster_scan"]},
+        {"name": "forecaster_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/forecaster_scan_bwd.cu",
+         "replaces": "src/repro/models/ssm.py:578", **fc_rows["forecaster_scan_bwd"]},
         {"name": "fsm_scan_gated", "route": "cuda",
          "source": "src/repro_torch/csrc/fsm_scan.cu",
          "replaces": "src/repro/fleet/policy.py:334", **fc_rows["fsm_scan_gated"]},

@@ -1,8 +1,10 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution and the copy to the host, shared by the port's entry
+points."""
 from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -24,3 +26,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         return torch.device("cuda")
     return torch.device(device)
 
+
+def to_host(x, dtype=None) -> np.ndarray:
+    """A tensor (on any device), an array or a nested sequence as a numpy
+    array on the host, of ``dtype`` when given (one copy off the card)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=dtype)

@@ -36,6 +36,12 @@ Quick start, on an NVIDIA GPU::
     scale = np.maximum(sc.demand.mean(axis=1), 1e-9)
     pred = demand_forecaster_predict(demand_forecaster_init(), sc.demand, scale)
     fplan = plan_fleet(arrays, sc.demand, policy=forecast_gated_policy(arrays.toggle, pred))
+
+    # ... or trained on a history (300 AdamW steps, the backward kernel on the card)
+    from repro_torch.fleet import forecast_fleet_policy
+    hs = build_fleet_scenario(128, horizon=8760, history_hours=4380, seed=0)
+    harr = hs.fleet.stack(torch.float64, "cuda")
+    hplan = plan_fleet(harr, hs.demand, policy=forecast_fleet_policy(harr, hs.demand, hs.history))
 """
 from .engine import (  # noqa: F401
     RoutedSeries,

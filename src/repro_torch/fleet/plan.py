@@ -3,9 +3,8 @@
 Port of :mod:`repro.fleet.plan`, limited to the names the port has: the
 fleet and topology specs and their stacked tensor forms, the routing
 currency, the engines, oracles and their numpy references, the policies
-(reactive, hysteresis and forecast-gated, with the forecast factories; the
-three that train the forecaster raise ``NotImplementedError``), the
-scenario generators and the reports. The
+(reactive, hysteresis and forecast-gated, with the forecast factories,
+three of which train the forecaster), the scenario generators and the reports. The
 implementations stay in their submodules; this module only re-exports
 them. The streaming twins live in :mod:`repro_torch.fleet.stream`.
 """

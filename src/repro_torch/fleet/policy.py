@@ -17,10 +17,10 @@ gated instance for the forecast policy, after the predicted-cost planes are
 formed by torch ops on the device), on the CPU through its plain per-hour
 loop over :func:`_fsm_cascade`. ``make_policy("forecast", ...)`` raises, as
 it does in the JAX package: the policy is built from predictions with
-:func:`forecast_gated_policy`. The factories that train the forecaster
-(:func:`forecast_port_demand`, :func:`forecast_fleet_policy`,
-:func:`forecast_topology_policy`) keep their names and raise
-``NotImplementedError`` (ROADMAP Queue 1, item 6c).
+:func:`forecast_gated_policy`, or by the factories that train the
+forecaster on a history first (:func:`forecast_port_demand`,
+:func:`forecast_fleet_policy`, :func:`forecast_topology_policy`; the
+training is :func:`repro_torch.models.ssm.train_demand_forecaster`).
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.togglecci import OFF, ON, WAITING, ToggleParams
+from repro_torch.device import DeviceLike, resolve_device, to_host
 from repro_torch.kernels import ops
 
 POLICY_KINDS = ("reactive", "hysteresis", "forecast")
@@ -341,26 +342,132 @@ def family_margins(families, *, default: float = 0.05, overrides=None) -> np.nda
 
 def forecast_horizon_hours(toggle: ToggleParams) -> int:
     """The fleet-wide forecast window: mean ``D + T_cci`` over the rows."""
-    host = lambda t: np.asarray(torch.as_tensor(t).cpu(), np.float64)
-    return int(np.mean(host(toggle.D) + host(toggle.T_cci)))
+    return int(np.mean(to_host(toggle.D, np.float64) + to_host(toggle.T_cci, np.float64)))
 
 
-_TRAINS = ("not ported to repro_torch yet: {} trains the demand forecaster, which is "
-           "ROADMAP Queue 1, item 6c; predict with "
-           "repro_torch.models.ssm.demand_forecaster_predict on given parameters and wrap "
-           "the predictions with forecast_gated_policy")
+def forecast_port_demand(
+    history,
+    live,
+    window: int,
+    *,
+    state_dim: int = 8,
+    steps: int = 300,
+    lr: float = 2e-2,
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Causal forward-window demand forecasts for every row of ``live``, a
+    float64 (N, T) tensor on ``device`` (CUDA unless the caller says
+    otherwise).
+
+    :func:`repro.fleet.policy.forecast_port_demand`: trains the forecaster on
+    ``history`` (N, H), strictly earlier hours, then runs it over
+    ``concat(history, live)`` so that ``pred[:, t]`` (the predicted mean
+    demand over live hours ``[t, t + window)``) uses demand strictly before
+    live hour ``t``. With ``history=None`` the first ``max(T // 2, 2)`` hours
+    of ``live`` are the training data, and hour 0 predicts the fit's mean
+    (``scale``).
+    """
+    from repro_torch.models.ssm import demand_forecaster_predict, train_demand_forecaster
+
+    dev = resolve_device(device)
+    live = to_host(live, np.float64)
+    n, T = live.shape
+    if history is None:
+        train, full, offset = live[:, :max(T // 2, 2)], live, 0
+    else:
+        history = to_host(history, np.float64)
+        if history.shape[0] != n:
+            raise ValueError(f"history has {history.shape[0]} rows, live {n}")
+        train, full, offset = history, np.concatenate([history, live], axis=1), history.shape[1]
+    params, scale = train_demand_forecaster(train, window, state_dim=state_dim, steps=steps,
+                                            lr=lr, seed=seed, device=dev)
+    y = demand_forecaster_predict(params, full, scale, device=dev)
+    # y[:, j] predicts the window starting at hour j+1 from full[:, :j+1]; live
+    # hour t is full hour offset+t, so its forecast is y[:, offset+t-1].
+    if offset > 0:
+        return y[:, offset - 1:offset - 1 + T].contiguous()
+    pred = torch.empty((n, T), dtype=torch.float64, device=dev)
+    pred[:, 1:] = y[:, :T - 1]
+    pred[:, 0] = torch.from_numpy(scale).to(dev)
+    return pred
 
 
-def forecast_port_demand(*args, **kwargs):
-    """Not ported yet (ROADMAP Queue 1, item 6c): it trains the forecaster."""
-    raise NotImplementedError(_TRAINS.format("forecast_port_demand"))
+def _forecast_policy(arrays, series, demand, history, *, margin, hours_per_month,
+                     renew_in_chunks, device, train_kw) -> ForecastGatedPolicy:
+    """The forecast factories' shared tail: forecasts of the rows' clipped
+    series (``series`` maps a (P, T) block to the rows' demand), cost
+    coefficients fitted on the engine's cost series of ``demand``."""
+    from .engine import routed_cost_series
+
+    dev = resolve_device(device)
+    arrays = arrays.to(dev)
+    pred = forecast_port_demand(None if history is None else series(history), series(demand),
+                                forecast_horizon_hours(arrays.toggle), device=dev, **train_kw)
+    s = routed_cost_series(arrays, demand, hours_per_month=hours_per_month, device=dev)
+    coef = fit_cost_coef(s.row_demand, s.vpn, s.cci)
+    return forecast_gated_policy(arrays.toggle, pred, margin=margin, cost_coef=coef,
+                                 renew_in_chunks=renew_in_chunks)
 
 
-def forecast_fleet_policy(*args, **kwargs):
-    """Not ported yet (ROADMAP Queue 1, item 6c): it trains the forecaster."""
-    raise NotImplementedError(_TRAINS.format("forecast_fleet_policy"))
+def forecast_fleet_policy(
+    arrays,
+    demand,
+    history=None,
+    *,
+    margin=0.05,
+    hours_per_month: int = 730,
+    renew_in_chunks=False,
+    device: DeviceLike = None,
+    **train_kw,
+) -> ForecastGatedPolicy:
+    """Train the forecaster on per-link demand history and wrap it as a
+    policy, on ``device`` (CUDA unless the caller says otherwise).
+
+    :func:`repro.fleet.policy.forecast_fleet_policy`: ``arrays`` is a
+    :class:`~repro_torch.fleet.spec.FleetArrays`, ``demand``/``history``
+    (N, T)/(N, H) GB/hr, clipped at link capacity for the forecaster; the
+    demand→cost coefficients are fitted on the engine's own cost series
+    (:func:`repro_torch.fleet.engine.routed_cost_series`) and baked into the
+    policy, so the streaming runtime can gate on them. ``train_kw`` goes to
+    :func:`forecast_port_demand` (``steps``, ``lr``, ``state_dim``, ``seed``).
+    """
+    cap = to_host(arrays.capacity, np.float64)[:, None]
+    clip = lambda d: np.minimum(to_host(d, np.float64), cap)
+    return _forecast_policy(arrays, clip, demand, history, margin=margin,
+                            hours_per_month=hours_per_month, renew_in_chunks=renew_in_chunks,
+                            device=device, train_kw=train_kw)
 
 
-def forecast_topology_policy(*args, **kwargs):
-    """Not ported yet (ROADMAP Queue 1, item 6c): it trains the forecaster."""
-    raise NotImplementedError(_TRAINS.format("forecast_topology_policy"))
+def forecast_topology_policy(
+    arrays,
+    demand,
+    history=None,
+    *,
+    margin=0.05,
+    hours_per_month: int = 730,
+    renew_in_chunks=False,
+    device: DeviceLike = None,
+    **train_kw,
+) -> ForecastGatedPolicy:
+    """Per-PORT forecast policy: pair demand aggregated onto the routed ports
+    first, on ``device`` (CUDA unless the caller says otherwise).
+
+    :func:`repro.fleet.policy.forecast_topology_policy`: ``arrays`` is a
+    routed :class:`~repro_torch.fleet.topology.TopologyArrays`; the
+    aggregate mirrors the engine (VLAN access clip per pair, a multi-hot (M,
+    P) membership matrix off the routing operand's legs, so a multi-hop row
+    adds its demand to every hop's port, then the hard CCI clip per port),
+    formed in numpy on the host as the JAX package forms it. Cost
+    coefficients as in :func:`forecast_fleet_policy`, on the engine's
+    port-aggregated series.
+    """
+    op = arrays.routing
+    R = np.zeros((int(arrays.L_cci.shape[0]), int(arrays.L_vpn.shape[0])))
+    np.add.at(R, (to_host(op.leg_port), to_host(op.leg_pair)), to_host(op.attach_w, np.float64))
+    pair_cap = to_host(arrays.pair_capacity, np.float64)[:, None]
+    port_cap = to_host(arrays.port_capacity, np.float64)[:, None]
+    agg = lambda d: np.minimum(R @ np.minimum(to_host(d, np.float64), pair_cap), port_cap)
+    return _forecast_policy(arrays, agg, demand, history, margin=margin,
+                            hours_per_month=hours_per_month, renew_in_chunks=renew_in_chunks,
+                            device=device, train_kw=train_kw)

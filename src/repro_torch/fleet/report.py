@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.togglecci import OFF, ON
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, to_host
 
 from .engine import (
     fleet_oracle,
@@ -52,13 +52,6 @@ from .topology import (
     multicast_unicast_expansion,
     optimize_routing,
 )
-
-
-def _host(a, dtype=None) -> np.ndarray:
-    """One plan plane as a numpy array on the host (one copy off the card)."""
-    if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
-    return np.asarray(a, dtype=dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,11 +186,11 @@ def build_report(
     an OPT column (None = all).
     """
     fleet: FleetSpec = scenario.fleet
-    state = _host(plan["state"])
-    x = _host(plan["x"])
-    toggle_cost = _host(plan["toggle_cost"], np.float64)
-    static_vpn = _host(plan["static_vpn"], np.float64)
-    static_cci = _host(plan["static_cci"], np.float64)
+    state = to_host(plan["state"])
+    x = to_host(plan["x"])
+    toggle_cost = to_host(plan["toggle_cost"], np.float64)
+    static_vpn = to_host(plan["static_vpn"], np.float64)
+    static_cci = to_host(plan["static_cci"], np.float64)
     T = state.shape[1]
 
     oracle = None
@@ -470,12 +463,12 @@ def build_topology_report(
         routing, n_ports=topo.n_ports, context="build_topology_report"
     )
     topo.validate_plan(r)
-    state = _host(plan["state"])
-    x = _host(plan["x"])
-    toggle_cost = _host(plan["toggle_cost"], np.float64)
-    static_vpn = _host(plan["static_vpn"], np.float64)
-    static_cci = _host(plan["static_cci"], np.float64)
-    n_pairs = _host(plan["n_pairs"]).astype(np.int64)
+    state = to_host(plan["state"])
+    x = to_host(plan["x"])
+    toggle_cost = to_host(plan["toggle_cost"], np.float64)
+    static_vpn = to_host(plan["static_vpn"], np.float64)
+    static_cci = to_host(plan["static_cci"], np.float64)
+    n_pairs = to_host(plan["n_pairs"]).astype(np.int64)
     T = state.shape[1]
 
     oracle = (
@@ -490,10 +483,10 @@ def build_topology_report(
             renew_in_chunks=renew_in_chunks,
             device=dev,
         )
-        dedicated_cost = float(np.sum(_host(ded["toggle_cost"])))
+        dedicated_cost = float(np.sum(to_host(ded["toggle_cost"])))
 
     forecast_cost = (
-        _host(forecast_plan["toggle_cost"], np.float64)
+        to_host(forecast_plan["toggle_cost"], np.float64)
         if forecast_plan is not None
         else None
     )
@@ -508,7 +501,7 @@ def build_topology_report(
         out = plan_topology(
             arr, demand, policy=pol, hours_per_month=t.hours_per_month, device=dev
         )
-        return float(np.sum(_host(out["toggle_cost"])))
+        return float(np.sum(to_host(out["toggle_cost"])))
 
     refined_routing = refined_cost = refine_base_cost = refine_move_mix = None
     if refine:

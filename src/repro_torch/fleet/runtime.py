@@ -49,10 +49,10 @@ instances step it after each hour's decision, so each hour's gates read the
 forecast made from the demand realised so far), endogenous CCI demand,
 ``reroute``, and the actuation layer on top (:class:`ElasticFleetPlanner`,
 per link or per port, whose per-actuator modes drive
-:func:`repro_torch.dist.collectives.fleet_sync_grads`). Not ported yet,
-each raising ``NotImplementedError``: training the forecaster
-(``StreamingForecaster.fit``; ROADMAP Queue 1, item 6c) and observability
-(item 8).
+:func:`repro_torch.dist.collectives.fleet_sync_grads`), with the live
+forecaster trained on a history (:meth:`StreamingForecaster.fit`,
+:func:`streaming_forecast_policy`). Not ported yet, raising
+``NotImplementedError``: observability (item 8).
 """
 from __future__ import annotations
 
@@ -63,11 +63,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.planner import COMPRESS_RATIO, collective_mode
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, to_host
 from repro_torch.kernels import ops
 from repro_torch.kernels.forecaster import MAX_STATE
 from repro_torch.models.ssm import _operands as _ssm_operands
-from repro_torch.models.ssm import demand_forecaster_warmup
+from repro_torch.models.ssm import demand_forecaster_warmup, train_demand_forecaster
 
 from .policy import (ForecastGatedPolicy, HysteresisPolicy, ReactivePolicy, fsm_carry,
                      make_policy, policy_to)
@@ -75,11 +75,6 @@ from .routing import RoutingPlan, as_routing_plan, index_legs
 from .spec import FleetArrays, FleetSpec
 from .topology import TopologyArrays, TopologySpec
 
-_FORECAST = ("training the streaming forecaster (StreamingForecaster.fit, "
-             "streaming_forecast_policy) is ROADMAP Queue 1, item 6c; build a "
-             "StreamingForecaster from given parameters (StreamingForecaster.from_history) "
-             "and stream it with forecaster= beside a ForecastGatedPolicy whose cost_coef "
-             "is given")
 _COST_COEF = ("streaming a ForecastGatedPolicy needs explicit demand->cost coefficients: "
               "build it with forecast_fleet_policy/forecast_topology_policy (or pass "
               "cost_coef= to forecast_gated_policy)")
@@ -135,9 +130,20 @@ class StreamingForecaster:
     pred0: object
 
     @classmethod
-    def fit(cls, history, window: int, **train_kw) -> "StreamingForecaster":
-        """Not ported yet (ROADMAP Queue 1, item 6c): it trains the forecaster."""
-        raise not_ported(_FORECAST)
+    def fit(cls, history, window: int, *, device: DeviceLike = None,
+            **train_kw) -> "StreamingForecaster":
+        """Train the forecaster on a strictly earlier (rows, H >= 2) history
+        block and warm it through that block, on ``device`` (CUDA unless the
+        caller says otherwise): :func:`~repro_torch.models.ssm.train_demand_forecaster`
+        (``train_kw``: ``steps``, ``lr``, ``state_dim``, ``seed``), then
+        :meth:`from_history` with the trained parameters, so live forecasts
+        are causal from hour 0."""
+        hist = to_host(history, np.float64)
+        if hist.ndim != 2 or hist.shape[1] < 2:
+            raise ValueError("StreamingForecaster.fit needs a (rows, H>=2) history block — "
+                             "live streaming has no future to fit on")
+        params, _ = train_demand_forecaster(hist, window, device=device, **train_kw)
+        return cls.from_history(params, hist, device=device)
 
     @classmethod
     def from_history(cls, params, history, *,
@@ -147,8 +153,7 @@ class StreamingForecaster:
         per row (numpy, the training's normaliser), ``h0`` and ``pred0`` come
         from one scan over the history on ``device``
         (:func:`~repro_torch.models.ssm.demand_forecaster_warmup`)."""
-        hist = history.detach().cpu().numpy() if torch.is_tensor(history) else history
-        hist = np.asarray(hist, np.float64)
+        hist = to_host(history, np.float64)
         if hist.ndim != 2 or hist.shape[1] < 1:
             raise ValueError(f"StreamingForecaster.from_history needs a (rows, H >= 1) "
                              f"history block, got {hist.shape}")
@@ -302,7 +307,7 @@ def _live_operands(fc: StreamingForecaster, policy: ForecastGatedPolicy, M: int,
     if not 1 <= S <= MAX_STATE:
         raise ValueError(f"the streamed forecaster has kernels for 1 <= S <= {MAX_STATE} "
                          f"states, got h0 of {S}")
-    a, oma, w, bias = _ssm_operands(fc.params, dev)
+    a, oma, w, bias = (t.detach() for t in _ssm_operands(fc.params, dev))
     if a.shape != (S,) or w.shape != (S,):
         raise ValueError(f"forecaster params of {tuple(a.shape)} states against h0's {S}")
     coef = policy.cost_coef.detach().to(dev, f64).contiguous()
@@ -786,3 +791,41 @@ class ElasticFleetPlanner:
             pair_gb=self.gb.copy(),
             pair_gb_saved=self.gb_saved.copy(),
         )
+
+
+def streaming_forecast_policy(
+    arrays,
+    history,
+    *,
+    margin=0.05,
+    hours_per_month: int = 730,
+    renew_in_chunks: bool = False,
+    device: DeviceLike = None,
+    **train_kw,
+):
+    """A live-mode forecast policy and its streaming forecaster, on
+    ``device`` (CUDA unless the caller says otherwise):
+    :func:`repro.fleet.runtime.streaming_forecast_policy`.
+
+    Causal: the forecaster trains on the (rows, H) ``history`` block and the
+    demand→cost coefficients are fitted on the history's cost series
+    (:func:`repro_torch.fleet.engine.routed_cost_series`), so nothing of the
+    live horizon is needed. ``arrays`` may be fleet or routed topology
+    arrays; a topology history is per PAIR and aggregated onto the ports as
+    the engine aggregates demand. Returns ``(policy, forecaster)`` for
+    ``FleetRuntime(..., policy=policy, forecaster=forecaster)``; the policy's
+    ``pred_demand`` is zeros (live mode does not read it).
+    """
+    from .engine import routed_cost_series
+    from .policy import fit_cost_coef, forecast_gated_policy, forecast_horizon_hours
+
+    dev = resolve_device(device)
+    arrays = arrays.to(dev)
+    s = routed_cost_series(arrays, to_host(history, np.float64),
+                           hours_per_month=hours_per_month, device=dev)
+    coef = fit_cost_coef(s.row_demand, s.vpn, s.cci)
+    fc = StreamingForecaster.fit(s.row_demand.cpu().numpy(), forecast_horizon_hours(arrays.toggle),
+                                 device=dev, **train_kw)
+    policy = forecast_gated_policy(arrays.toggle, np.zeros(s.row_demand.shape[0]), margin=margin,
+                                   cost_coef=coef, renew_in_chunks=renew_in_chunks)
+    return policy, fc

@@ -12,7 +12,8 @@ plane; replaces the Pallas kernel of the same name), ``fsm_scan`` (the
 ToggleCCI scan over rows, reactive, hysteresis or forecast-gated; replaces
 ``lax.scan`` in ``policy_scan``), ``forecaster_scan`` (the demand
 forecaster's EMA bank and readout; replaces the ``lax.scan`` of
-``demand_forecaster_apply`` and ``_state``),
+``demand_forecaster_apply`` and ``_state``), ``forecaster_scan_bwd`` (its
+backward pass for training; replaces XLA autodiff of that scan),
 ``tiered_cost_scan`` (K-hour chunk pricing with a billing carry, entry
 points ``tiered_cost_scan`` and ``tiered_cost_calendar``; replaces the
 Pallas kernel of that name), ``fsm_chunk`` (K hours of the FSM from a

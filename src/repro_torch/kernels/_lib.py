@@ -27,12 +27,12 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
            "stream_chunk_routed.cu", "leg_segment_sum.cu", "rmsnorm.cu", "flash_attention.cu",
-           "int8_quant.cu", "oracle_dp.cu", "forecaster_scan.cu")
+           "int8_quant.cu", "oracle_dp.cu", "forecaster_scan.cu", "forecaster_scan_bwd.cu")
 #: The sources held bit for bit against their plain versions (the float64
-#: ones, and the float32 forecaster scan).
+#: ones, and the float32 forecaster scan and its backward pass).
 EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
                  "stream_chunk_routed.cu", "leg_segment_sum.cu", "oracle_dp.cu",
-                 "forecaster_scan.cu")
+                 "forecaster_scan.cu", "forecaster_scan_bwd.cu")
 #: Headers the sources include; part of the build hash.
 HEADERS = ("tier_fold.cuh", "fsm_step.cuh", "occupancy.cuh", "live_forecast.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -56,9 +56,11 @@ EXACT_FLAGS = ("-fmad=false",)
 #: hysteresis launches, and ``fsm_scan_gated``, ``stream_chunk_gated`` and
 #: ``stream_chunk_routed_gated`` those of their forecast-gated instances
 #: (replay mode), ``stream_chunk_live`` and ``stream_chunk_routed_live`` those
-#: of the streaming kernels' live instances.
+#: of the streaming kernels' live instances; ``forecaster_scan_bwd`` counts
+#: the forecaster's backward pass (its two kernels, one call).
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "fsm_scan_gated": 0, "forecaster_scan": 0,
+    "forecaster_scan_bwd": 0,
     "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0, "stream_chunk_gated": 0,
     "stream_chunk_live": 0, "stream_chunk_routed": 0, "stream_chunk_routed_gated": 0,
     "stream_chunk_routed_live": 0, "flash_attention": 0,
@@ -160,6 +162,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # u, a, one_minus_a, w, bias, h0, N, T, S, write_y, y, h, stream
     lib.forecaster_scan_f32.argtypes = [p] * 6 + [i] * 4 + [p] * 3
     lib.forecaster_scan_f32.restype = i
+    # u, dy, a, one_minus_a, w, h0, N, T, S, ckpt, part, out, stream
+    lib.forecaster_scan_bwd_f32.argtypes = [p] * 6 + [i] * 3 + [p] * 4
+    lib.forecaster_scan_bwd_f32.restype = i
     # cum0, demand, bounds, rates, reset, N, K, Kt, slots, plan, costs, cum_out, stream
     for name in ("tiered_cost_scan_f64", "tiered_cost_scan_f32"):
         fn = getattr(lib, name)

@@ -10,8 +10,15 @@ hour's S products in index order. float32, every product and sum rounded on
 its own, so it equals its plain version
 :func:`repro_torch.kernels.ref.forecaster_scan_ref` bit for bit.
 
-The wrapper takes CUDA tensors only; :mod:`repro_torch.kernels.ops`
-dispatches CPU tensors to the plain version.
+Its backward pass, :func:`forecaster_scan_bwd`, is a second CUDA C++ source
+(``csrc/forecaster_scan_bwd.cu``): the gradients of a loss with respect to
+``a``, ``1 − a``, ``w`` and ``bias`` given ``dy``, one thread a (row, state)
+chain walking the hours backwards from checkpoints of the forward state,
+then a fold over the rows in index order; it equals
+:func:`repro_torch.kernels.ref.forecaster_scan_bwd_ref` bit for bit.
+
+The wrappers take CUDA tensors only; :mod:`repro_torch.kernels.ops`
+dispatches CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -21,8 +28,26 @@ import torch
 
 from . import _lib
 
-#: The state sizes the kernel has compile-time instances for: 1 .. MAX_STATE.
+#: The state sizes the kernels have compile-time instances for: 1 .. MAX_STATE.
 MAX_STATE = 16
+#: Hours between two checkpoints of the backward pass (``kTile`` in
+#: ``csrc/forecaster_scan_bwd.cu``): its scratch holds ``ceil(T / BWD_TILE)``
+#: states a (row, state) chain.
+BWD_TILE = 64
+
+
+def _check_operands(name: str, u, vecs, rest, S: int) -> None:
+    """float32, contiguous, CUDA, one device; ``vecs`` of shape (S,)."""
+    if not 1 <= S <= MAX_STATE:
+        raise ValueError(f"{name} has kernels for 1 <= S <= {MAX_STATE} states, "
+                         f"got a of shape {tuple(vecs[0].shape)}")
+    for t in (u,) + tuple(vecs) + tuple(rest):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} takes float32 tensors, got {t.dtype}")
+        if not t.is_cuda or t.device != u.device or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous CUDA tensors on one device")
+    if any(v.shape != (S,) for v in vecs):
+        raise ValueError(f"{name}: a, 1 - a and w must be ({S},)")
 
 
 def forecaster_scan(
@@ -41,19 +66,11 @@ def forecaster_scan(
         raise ValueError(f"forecaster_scan takes (N, T) inputs, got {tuple(u.shape)}")
     N, T = u.shape
     S = a.shape[0] if a.dim() == 1 else -1
-    if not 1 <= S <= MAX_STATE:
-        raise ValueError(f"forecaster_scan has kernels for 1 <= S <= {MAX_STATE} states, "
-                         f"got a of shape {tuple(a.shape)}")
     dev = u.device
-    vecs = (a, one_minus_a, w)
-    ins = (u,) + vecs + (bias,) + (() if h0 is None else (h0,))
-    for t in ins:
-        if t.dtype != torch.float32:
-            raise ValueError(f"forecaster_scan takes float32 tensors, got {t.dtype}")
-        if not t.is_cuda or t.device != dev or not t.is_contiguous():
-            raise ValueError("forecaster_scan takes contiguous CUDA tensors on one device")
-    if any(v.shape != (S,) for v in vecs) or bias.numel() != 1:
-        raise ValueError(f"forecaster_scan: a, 1 - a and w must be ({S},), bias one value")
+    _check_operands("forecaster_scan", u, (a, one_minus_a, w),
+                    (bias,) + (() if h0 is None else (h0,)), S)
+    if bias.numel() != 1:
+        raise ValueError("forecaster_scan: bias must be one value")
     if h0 is not None and h0.shape != (N, S):
         raise ValueError(f"forecaster_scan h0: want ({N}, {S}), got {tuple(h0.shape)}")
     lib = _lib.load()
@@ -69,3 +86,43 @@ def forecaster_scan(
     _lib.check(status, "forecaster_scan_f32")
     _lib.LAUNCHES["forecaster_scan"] += 1
     return (y if write_y else None), h
+
+
+def forecaster_scan_bwd(
+    u: torch.Tensor,                    # (N, T) float32 the forward's input
+    dy: torch.Tensor,                   # (N, T) float32 gradient with respect to y
+    a: torch.Tensor,                    # (S,) float32 sigmoid(raw_a)
+    one_minus_a: torch.Tensor,          # (S,) float32 1 - a
+    w: torch.Tensor,                    # (S,) float32 readout weights
+    h0: Optional[torch.Tensor] = None,  # (N, S) float32 initial state, zeros if None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forecaster's backward pass (CUDA): ``(da (S,), d_one_minus_a (S,),
+    dw (S,), dbias ())`` float32, the gradients of the loss whose gradient
+    with respect to :func:`forecaster_scan`'s ``y`` is ``dy``. ``dbias`` is
+    ``Σ dy`` (the bias enters no other term). One call launches the chain
+    kernel and the row fold, and counts one launch."""
+    if u.dim() != 2 or dy.shape != u.shape:
+        raise ValueError(f"forecaster_scan_bwd takes (N, T) u and dy of one shape, got "
+                         f"{tuple(u.shape)} and {tuple(dy.shape)}")
+    N, T = u.shape
+    S = a.shape[0] if a.dim() == 1 else -1
+    dev = u.device
+    _check_operands("forecaster_scan_bwd", u, (a, one_minus_a, w),
+                    (dy,) + (() if h0 is None else (h0,)), S)
+    if h0 is not None and h0.shape != (N, S):
+        raise ValueError(f"forecaster_scan_bwd h0: want ({N}, {S}), got {tuple(h0.shape)}")
+    lib = _lib.load()
+    f32 = dict(dtype=torch.float32, device=dev)
+    ckpt = torch.empty(((T + BWD_TILE - 1) // BWD_TILE * N * S,), **f32)
+    part = torch.empty(((3 * S + 1) * N,), **f32)
+    out = torch.zeros((3 * S + 1,), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.forecaster_scan_bwd_f32(
+            u.data_ptr(), dy.data_ptr(), a.data_ptr(), one_minus_a.data_ptr(), w.data_ptr(),
+            None if h0 is None else h0.data_ptr(), N, T, S, ckpt.data_ptr(), part.data_ptr(),
+            out.data_ptr(), stream,
+        )
+    _lib.check(status, "forecaster_scan_bwd_f32")
+    _lib.LAUNCHES["forecaster_scan_bwd"] += 1
+    return out[:S], out[S:2 * S], out[2 * S:3 * S], out[3 * S]

@@ -20,6 +20,7 @@ import torch
 from . import ref
 from .flash_attention import flash_attention as _flash_kernel
 from .forecaster import forecaster_scan as _forecaster_kernel
+from .forecaster import forecaster_scan_bwd as _forecaster_bwd_kernel
 from .fsm_scan import fsm_chunk as _fsm_chunk_kernel
 from .fsm_scan import fsm_scan as _fsm_scan_kernel
 from .int8_quant import int8_dequantize as _dequant_kernel
@@ -74,6 +75,16 @@ def forecaster_scan(u, a, one_minus_a, w, bias, h0=None, *, write_y: bool = True
         return _forecaster_kernel(c(u), c(a), c(one_minus_a), c(w), c(bias), c(h0),
                                   write_y=write_y)
     return ref.forecaster_scan_ref(u, a, one_minus_a, w, bias, h0, write_y=write_y)
+
+
+def forecaster_scan_bwd(u, dy, a, one_minus_a, w, h0=None):
+    """The forecaster's backward pass over (N, T) float32 ``u`` and ``dy``:
+    ``(da, d_one_minus_a, dw, dbias)``, each sum over rows and hours walked
+    in one fixed order (hours backwards, then rows in index order)."""
+    if _route(u, "forecaster_scan_bwd"):
+        c = lambda t: None if t is None else t.contiguous()
+        return _forecaster_bwd_kernel(c(u), c(dy), c(a), c(one_minus_a), c(w), c(h0))
+    return ref.forecaster_scan_bwd_ref(u, dy, a, one_minus_a, w, h0)
 
 
 def tiered_cost_scan(cum0, demand, bounds, rates, reset):

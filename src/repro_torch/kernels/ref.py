@@ -131,6 +131,53 @@ def forecaster_scan_ref(
     return (u + acc) + bias, h
 
 
+def forecaster_scan_bwd_ref(
+    u: torch.Tensor, dy: torch.Tensor, a: torch.Tensor, one_minus_a: torch.Tensor,
+    w: torch.Tensor, h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`repro_torch.kernels.forecaster.forecaster_scan_bwd`
+    (XLA autodiff of the forecaster's ``lax.scan`` in the JAX package), any S.
+
+    The forward chain as :func:`forecaster_scan_ref` walks it, every state
+    kept; then, hours backwards from T − 1 on (N, S) tensors, each product
+    and sum a torch op of its own: ``lam = dy·w + a·lam``, ``dA += lam·h_{t−1}``,
+    ``dB += lam·u``, ``dW += dy·(h − u)``, ``dbias += dy`` (from zeros; the
+    elementwise products that need no ``lam`` formed for every hour at once,
+    with the same bits); then each sum folded over the rows in index order,
+    left from row 0. Returns ``(da (S,), d_one_minus_a (S,), dw (S,), dbias
+    ())`` in float32, the gradients with respect to ``a``, ``1 − a``, ``w``
+    and ``bias``.
+    """
+    N, T = u.shape
+    S = a.shape[0]
+    z = dict(dtype=torch.float32, device=u.device)
+    h = torch.zeros((N, S), **z) if h0 is None else h0.clone()
+    drive = one_minus_a * u[:, :, None]                  # (N, T, S)
+    hs = torch.empty((N, T + 1, S), **z)                 # hs[:, t + 1] = h after hour t
+    hs[:, 0] = h
+    for t in range(T):
+        h = a * h + drive[:, t]
+        hs[:, t + 1] = h
+    gw = dy[:, :, None] * w                              # dy·w
+    dev_terms = dy[:, :, None] * (hs[:, 1:] - u[:, :, None])   # dy·(h − u)
+    lam, dA, dB, dW = (torch.zeros((N, S), **z) for _ in range(4))
+    db = torch.zeros((N,), **z)
+    for t in range(T - 1, -1, -1):
+        lam = gw[:, t] + a * lam
+        dA = dA + lam * hs[:, t]
+        dB = dB + lam * u[:, t, None]
+        dW = dW + dev_terms[:, t]
+        db = db + dy[:, t]
+    rows = torch.cat([dA, dB, dW, db[:, None]], dim=1)  # (N, 3S + 1)
+    if N == 0:
+        acc = torch.zeros((3 * S + 1,), **z)
+    else:
+        acc = rows[0]
+        for n in range(1, N):
+            acc = acc + rows[n]
+    return acc[:S], acc[S:2 * S], acc[2 * S:3 * S], acc[3 * S]
+
+
 def tiered_cost_scan_ref(
     cum0: torch.Tensor, demand: torch.Tensor, bounds: torch.Tensor,
     rates: torch.Tensor, reset: torch.Tensor,

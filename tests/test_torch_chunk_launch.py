@@ -30,7 +30,12 @@ against the plain versions (``ref.stream_chunk_ref``,
   must have landed before it is read, and a slot is refilled only once its
   tile is folded), the carry a tile at a time, the fold per (row, hour);
   and a chunk of one segment slot with no plan, its resets staged with the
-  demand and applied in the carry.
+  demand and applied in the carry;
+* the forecaster's backward pass (``forecaster_scan_bwd``): blocks of
+  ``128 // S`` rows, a forward pass that checkpoints each chain's state at
+  every tile of 64 hours, the tiles walked in reverse (each recomputed from
+  its checkpoint, then the adjoint run back through it, the sums in the
+  chain), the per-row sums folded over the rows in index order.
 
 Change a kernel's schedule and change its replay with it: the replays read
 the kernels' tile constants from the CUDA sources.
@@ -47,6 +52,7 @@ from repro_torch.fleet import (FleetRuntime, StreamingForecaster, build_fleet_sc
 from repro_torch.fleet.engine import routed_cost_series
 from repro_torch.fleet.policy import predicted_mode_costs
 from repro_torch.kernels import ref
+from repro_torch.kernels.forecaster import BWD_TILE
 from repro_torch.kernels.stream_chunk import (MAX_SUBS, SUB_HOURS, TICK_MAX_K,
                                               TICK_MAX_K_LIVE, TICK_MAX_TIERS, launch_form)
 from repro_torch.kernels.tiered_cost_scan import (SCAN_ROWS, SCAN_TARGET_BLOCKS,
@@ -921,3 +927,106 @@ def test_chunk_form_replay_catches_a_missing_barrier(order):
     rng = None if order == "in_order" else np.random.default_rng(0)
     with pytest.raises(AssertionError, match="never written|without a barrier"):
         _pipe_replay(c, 3, rng, early_pref=True)
+
+
+# -- the forecaster's backward pass -------------------------------------------------
+
+def _bwd_replay(u, dy, a, oma, w, h0, *, ckpt_at_end=False):
+    """``forecaster_scan_bwd``'s schedule in numpy float32: each block of R =
+    kThreads // S rows (its chains vectorised over (rows, states): the same
+    operation on every chain), pass 1 storing each chain's state at the start
+    of every tile, pass 2 over the tiles in reverse, the tile's states
+    recomputed from its checkpoint and the adjoint walked back through it;
+    then the (3S + 1, N) per-row sums folded over the rows in index order.
+    ``ckpt_at_end`` stores the state after each tile instead (a broken
+    schedule, to show the replay sees it)."""
+    kThreads = _cu_const("forecaster_scan_bwd.cu", "kThreads")
+    kTile = _cu_const("forecaster_scan_bwd.cu", "kTile")
+    N, T = u.shape
+    S = a.shape[0]
+    R = kThreads // S
+    part = np.zeros((3 * S + 1, N), np.float32)
+    n_tiles = -(-T // kTile)
+    for n0 in range(0, N, R):
+        rows = slice(n0, min(n0 + R, N))
+        U, DY = u[rows], dy[rows]
+        h = h0[rows].copy()
+        ckpt = []
+        for j in range(n_tiles):
+            if not ckpt_at_end:
+                ckpt.append(h.copy())
+            for i in range(j * kTile, min(T, (j + 1) * kTile)):
+                h = a * h + oma * U[:, i, None]
+            if ckpt_at_end:
+                ckpt.append(h.copy())
+        z = np.zeros_like(h)
+        lam, dA, dB, dW = z.copy(), z.copy(), z.copy(), z.copy()
+        dBias = np.zeros(h.shape[0], np.float32)
+        for j in range(n_tiles - 1, -1, -1):
+            t0, t1 = j * kTile, min(T, (j + 1) * kTile)
+            hc = ckpt[j]
+            hs, hh = [], hc
+            for i in range(t0, t1):
+                hh = a * hh + oma * U[:, i, None]
+                hs.append(hh)
+            for i in range(t1 - 1, t0 - 1, -1):
+                g, uv = DY[:, i, None], U[:, i, None]
+                lam = g * w + a * lam
+                dA = dA + lam * (hs[i - t0 - 1] if i > t0 else hc)
+                dB = dB + lam * uv
+                dW = dW + g * (hs[i - t0] - uv)
+                dBias = dBias + DY[:, i]
+        part[:S, rows] = dA.T
+        part[S:2 * S, rows] = dB.T
+        part[2 * S:3 * S, rows] = dW.T
+        part[3 * S, rows] = dBias
+    acc = part[:, 0].copy()
+    for n in range(1, N):
+        acc = acc + part[:, n]
+    return acc[:S], acc[S:2 * S], acc[2 * S:3 * S], acc[3 * S]
+
+
+def _bwd_case(N, T, S, seed, nan=True):
+    rng = np.random.default_rng(seed)
+    u = rng.normal(0.6, 0.5, (N, T)).astype(np.float32)
+    if nan and N > 1 and T > 3:
+        u[1, T // 2] = np.nan
+    a = torch.sigmoid(torch.from_numpy(rng.normal(1.0, 2.0, S).astype(np.float32))).numpy()
+    oma = (torch.ones(()) - torch.from_numpy(a)).numpy()
+    w = rng.normal(0, 0.2, S).astype(np.float32)
+    h0 = rng.normal(0.4, 0.3, (N, S)).astype(np.float32)
+    dy = rng.normal(0, 1e-3, (N, T)).astype(np.float32)
+    return u, dy, a, oma, w, h0
+
+
+def test_backward_tile_matches_the_source():
+    assert _cu_const("forecaster_scan_bwd.cu", "kTile") == BWD_TILE
+
+
+@pytest.mark.parametrize("S", [1, 3, 8, 16])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (17, 63), (17, 64), (40, 65), (9, 130)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_backward_schedule_bit_equal_to_plain(shape, S):
+    """The replayed schedule equals ``ref.forecaster_scan_bwd_ref`` in every
+    bit of the four gradients (a NaN hour in row 1 makes every sum NaN)."""
+    N, T = shape
+    case = _bwd_case(N, T, S, N * T + S)
+    with np.errstate(invalid="ignore"):
+        got = _bwd_replay(*case)
+    want = ref.forecaster_scan_bwd_ref(*(torch.from_numpy(np.ascontiguousarray(x))
+                                         for x in case))
+    for g, wv in zip(got, want):
+        assert _same_bits(torch.from_numpy(np.asarray(g, np.float32)).reshape(wv.shape), wv)
+
+
+def test_backward_replay_catches_a_wrong_checkpoint():
+    """The replay is live: checkpoints stored after their tile instead of
+    before it give other gradients than the plain version."""
+    case = _bwd_case(5, 130, 8, 1, nan=False)
+    assert all(_same_bits(torch.from_numpy(np.asarray(g)).reshape(wv.shape), wv) for g, wv in
+               zip(_bwd_replay(*case), ref.forecaster_scan_bwd_ref(
+                   *(torch.from_numpy(np.ascontiguousarray(x)) for x in case))))
+    got = _bwd_replay(*case, ckpt_at_end=True)
+    want = ref.forecaster_scan_bwd_ref(*(torch.from_numpy(np.ascontiguousarray(x))
+                                         for x in case))
+    assert not _same_bits(torch.from_numpy(got[0]), want[0])

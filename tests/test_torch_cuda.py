@@ -250,7 +250,8 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
     ops.reset_launches()
     got = plan_fleet(sc.fleet, sc.demand, device=cuda_device)
     assert ops.LAUNCHES == {"tiered_cost_batched": 1, "fsm_scan": 1, "fsm_scan_gated": 0,
-                            "forecaster_scan": 0, "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
+                            "forecaster_scan": 0, "forecaster_scan_bwd": 0,
+                            "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
                             "stream_chunk_gated": 0, "stream_chunk_live": 0,
                             "stream_chunk_routed": 0, "stream_chunk_routed_gated": 0,
                             "stream_chunk_routed_live": 0, "flash_attention": 0,
@@ -1572,6 +1573,89 @@ def test_forecast_plan_gpu_matches_cpu(cuda_device):
         assert torch.equal(got[k].cpu(), want[k]), k
     torch.testing.assert_close(got["toggle_cost"].cpu(), want["toggle_cost"], rtol=1e-9,
                                atol=0)
+
+
+# -- training the forecaster: forecaster_scan_bwd -----------------------------------
+
+from repro_torch.kernels.forecaster import forecaster_scan_bwd  # noqa: E402
+
+
+def _bwd_inputs(seed, n, T, S, dy_kind, device=CPU):
+    """The forward's operands (:func:`_forecaster_inputs`, seeded h0) and a
+    ``dy``: zeros, or seeded with the mask's zeros past hour ``T - 5``."""
+    u, a, oma, w, _, h = _forecaster_inputs(seed, n, T, S, "seeded", device)
+    rng = np.random.default_rng(seed + 7)
+    if dy_kind == "zero":
+        dy = np.zeros((n, T), np.float32)
+    else:
+        dy = rng.normal(0, 1e-3, (n, T)).astype(np.float32)
+        dy[:, max(T - 5, 0):] = 0.0
+    return u, _t(dy, device), a, oma, w, h
+
+
+def test_forecaster_bwd_wrapper_refuses_cpu_tensors_and_bad_operands():
+    """The backward launch takes CUDA tensors or raises before anything is
+    built: CPU operands, a state size past the kernel's instances, float64
+    inputs, a dy of another shape."""
+    u, dy, a, oma, w, h = _bwd_inputs(0, 3, 10, 8, "seeded")
+    with pytest.raises(ValueError, match="CUDA"):
+        forecaster_scan_bwd(u, dy, a, oma, w, h)
+    big = _bwd_inputs(0, 3, 10, MAX_STATE + 1, "zero")
+    with pytest.raises(ValueError, match="states"):
+        forecaster_scan_bwd(*big)
+    with pytest.raises(ValueError, match="float32"):
+        forecaster_scan_bwd(u.double(), dy, a, oma, w)
+    with pytest.raises(ValueError, match="one shape"):
+        forecaster_scan_bwd(u, dy[:, :7], a, oma, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dy_kind", ["zero", "seeded"])
+@pytest.mark.parametrize("S", [1, 3, 8, 16])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (17, 63), (17, 65), (300, 129), (33, 700)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_forecaster_bwd_kernel_bit_equal_to_plain(cuda_device, shape, S, dy_kind):
+    """Every bit of the four gradients against the plain version on the CPU,
+    h0 given and not, a NaN hour in row 0 (so every gradient the row feeds
+    is NaN), one launch a call."""
+    n, T = shape
+    cpu = _bwd_inputs(n * T + S, n, T, S, dy_kind)
+    dev = [x.to(cuda_device) for x in cpu]
+    for given in (True, False):
+        before = ops.LAUNCHES["forecaster_scan_bwd"]
+        got = ops.forecaster_scan_bwd(*dev[:5], dev[5] if given else None)
+        assert ops.LAUNCHES["forecaster_scan_bwd"] == before + 1
+        want = ref.forecaster_scan_bwd_ref(*cpu[:5], cpu[5] if given else None)
+        for g, wv, name in zip(got, want, ("da", "d_one_minus_a", "dw", "dbias")):
+            assert g.is_cuda and _same_bits(g.cpu(), wv), (name, given)
+
+
+@pytest.mark.cuda
+def test_forecaster_training_on_the_card_matches_the_cpu(cuda_device):
+    """train_demand_forecaster on the card: one forecaster_scan and one
+    forecaster_scan_bwd launch a step, and every parameter bit and every
+    step's loss equal to the CPU port's on the same series (the inputs are
+    formed on the host and every reduction walks a fixed order)."""
+    rng = np.random.default_rng(5)
+    t = np.arange(300)
+    series = np.concatenate([
+        50 * (1 + 0.5 * np.sin(2 * np.pi * t / 168)) + rng.normal(0, 4, (20, t.size)),
+        30 * (1 + t / 300) + rng.normal(0, 3, (12, t.size)),
+    ]).clip(min=0.0)
+    steps = 12
+    ops.reset_launches()
+    card_losses, cpu_losses = [], []
+    got, scale = tssm.train_demand_forecaster(series, 48, steps=steps, device=cuda_device,
+                                              losses=card_losses)
+    assert ops.LAUNCHES["forecaster_scan"] == steps
+    assert ops.LAUNCHES["forecaster_scan_bwd"] == steps
+    want, cpu_scale = tssm.train_demand_forecaster(series, 48, steps=steps, device="cpu",
+                                                   losses=cpu_losses)
+    assert np.array_equal(scale, cpu_scale)
+    for k in want:
+        assert got[k].is_cuda and _same_bits(got[k].cpu(), want[k]), k
+    np.testing.assert_allclose([float(x) for x in card_losses],
+                               [float(x) for x in cpu_losses], rtol=1e-6)
 
 
 # -- the forecast stream: the gated stream_chunk and stream_chunk_routed ---------

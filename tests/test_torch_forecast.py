@@ -529,10 +529,16 @@ def test_forecast_gated_policy_fields_and_checks():
 
 def test_forecast_kind_and_training_raise_as_documented():
     """make_policy("forecast") raises JAX's ValueError text; the factories
-    that train raise NotImplementedError naming item 6c, the streaming
-    forecaster's training too, the LM mixers item 11; the runtime refuses a policy without
-    its cost coefficients with the reference's text and streams one that has
-    them; nothing accepts the policy and runs it as something else."""
+    that train run (item 6c is ported): ``train_demand_forecaster`` and
+    ``forecast_port_demand`` against JAX's on a short history (parameters
+    and predictions within 1e-3), ``forecast_fleet_policy`` and
+    ``forecast_topology_policy`` return a forecast policy with its cost
+    coefficients, the streaming forecaster's ``fit`` and
+    ``streaming_forecast_policy`` a trained forecaster (the parity of each
+    with JAX is ``tests/test_torch_forecast_train.py``); the LM mixers raise
+    naming item 11; the runtime refuses a policy without its cost
+    coefficients with the reference's text and streams one that has them;
+    nothing accepts the policy and runs it as something else."""
     toggle = ToggleParams(*(torch.zeros(1, dtype=dt) for dt in (torch.float64,) * 2
                             + (torch.int32,) * 3))
     with pytest.raises(ValueError) as got:
@@ -540,10 +546,17 @@ def test_forecast_kind_and_training_raise_as_documented():
     with pytest.raises(ValueError) as want:
         jpol.make_policy("forecast", None)
     assert str(got.value) == str(want.value)
-    for fn in (tpol.forecast_port_demand, tpol.forecast_fleet_policy,
-               tpol.forecast_topology_policy, tssm.train_demand_forecaster):
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            fn(None, None)
+    series, _, _ = _trained(1)
+    got, scale = tssm.train_demand_forecaster(series[:, :200], 24, state_dim=1, steps=5,
+                                              device="cpu")
+    want, jscale = jssm.train_demand_forecaster(series[:, :200], 24, state_dim=1, steps=5)
+    np.testing.assert_array_equal(scale, np.asarray(jscale))
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-3, atol=1e-6)
+    pred = tpol.forecast_port_demand(series[:, :200], series[:, 200:], 24, steps=5,
+                                     device="cpu")
+    np.testing.assert_allclose(pred.numpy(), jpol.forecast_port_demand(
+        series[:, :200], series[:, 200:], 24, steps=5), rtol=1e-3)
     for fn in (tssm.mamba_apply, tssm.mlstm_decode, tssm.slstm_init):
         with pytest.raises(NotImplementedError, match="item 11"):
             fn(None)
@@ -557,10 +570,17 @@ def test_forecast_kind_and_training_raise_as_documented():
     streamed = trt.FleetRuntime(tsc.fleet, policy=pol, device="cpu").step_many(tsc.demand[:, :48])
     planned = teng.plan_fleet(arrays, tsc.demand, policy=pol, device="cpu")
     np.testing.assert_array_equal(streamed["x"], planned["x"][:, :48].numpy())
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        tstream.StreamingForecaster.fit(tsc.demand, 24)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        tstream.streaming_forecast_policy(None, tsc.demand)
+    fpol = tpol.forecast_fleet_policy(arrays, tsc.demand, tsc.history, steps=2, device="cpu")
+    assert fpol.kind == "forecast" and fpol.cost_coef.shape == (N_LINKS, 4)
+    assert fpol.pred_demand.shape == tsc.demand.shape
+    _, tsc_t, _, _, _, tarrays, _, _ = _topology_case()
+    tpol_t = tpol.forecast_topology_policy(tarrays, tsc_t.demand, tsc_t.history, steps=2,
+                                           device="cpu")
+    assert tpol_t.pred_demand.shape == (tarrays.n_ports, tsc_t.demand.shape[1])
+    fc = tstream.StreamingForecaster.fit(tsc.history, 24, steps=2, device="cpu")
+    assert fc.h0.shape == (N_LINKS, 8) and fc.pred0.shape == (N_LINKS,)
+    lpol, lfc = tstream.streaming_forecast_policy(arrays, tsc.history, steps=2, device="cpu")
+    assert lpol.cost_coef.shape == (N_LINKS, 4) and lfc.h0.shape == (N_LINKS, 8)
     with pytest.raises(ValueError, match="forecast_gated_policy"):
         teng.plan_fleet(dataclasses.replace(tsc.fleet, policy="forecast"), tsc.demand,
                         device="cpu")

@@ -250,8 +250,11 @@ def test_modes_maps_states_to_collective_modes():
 
 
 def test_out_of_scope_paths_raise_not_implemented():
-    """The slices not ported yet raise naming their ROADMAP item (training
-    the streaming forecaster is item 6c); the topology-mode inputs that used
+    """The slices not ported yet raise naming their ROADMAP item
+    (observability, item 8); training the streaming forecaster (item 6c)
+    runs: ``fit`` refuses a history of fewer than 2 hours with the
+    reference's text and trains on one of 2, and ``streaming_forecast_policy``
+    returns a live policy and forecaster; the topology-mode inputs that used
     to raise now behave as the JAX resolver does: a routing beside a
     FleetSpec is not read (fleet mode), a non-spec is a TypeError and a
     fleet-mode reroute is refused; a forecaster that is not a
@@ -274,10 +277,13 @@ def test_out_of_scope_paths_raise_not_implemented():
         FleetRuntime(object(), device="cpu")
     with pytest.raises(ValueError, match="topology"):
         FleetRuntime(sc.fleet, device="cpu").reroute([0] * 8)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        stream.StreamingForecaster.fit(sc.demand, 24)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        stream.streaming_forecast_policy(None, sc.demand)
+    with pytest.raises(ValueError, match="needs a \\(rows, H>=2\\) history block"):
+        stream.StreamingForecaster.fit(sc.demand[:, :1], 24, device="cpu")
+    fc = stream.StreamingForecaster.fit(sc.demand[:, :2], 24, steps=2, device="cpu")
+    assert fc.h0.shape == (8, 8) and bool(torch.isfinite(fc.pred0).all())
+    pol, lfc = stream.streaming_forecast_policy(sc.fleet.stack(torch.float64, "cpu"),
+                                                sc.demand[:, :100], steps=2, device="cpu")
+    assert pol.kind == "forecast" and lfc.h0.shape == (8, 8)
     pl = stream.ElasticFleetPlanner(sc.fleet, device="cpu", routing=[0] * 8)
     assert not pl.topology
     np.testing.assert_array_equal(pl.sync_groups(), np.arange(8))

@@ -469,7 +469,8 @@ def test_live_refusals_match_the_reference():
     reference's TypeError; a forecaster beside a reactive policy its
     ValueError (the same text when no policy is given, where the reference
     asserts); a forecaster of the wrong row count, state size or parameter
-    size raises; training raises naming item 6c."""
+    size raises; the trained forecaster (``fit``, ``streaming_forecast_policy``,
+    item 6c) is accepted beside its policy and streams."""
     sc, arrays, hist, _, coef, _ = _fleet()
     fc, _ = _fleet_forecast("seeded")
     with pytest.raises(TypeError) as want:
@@ -502,10 +503,12 @@ def test_live_refusals_match_the_reference():
             FleetRuntime(arrays, policy=pol, forecaster=bad, device="cpu")
     with pytest.raises(ValueError, match="cost_coef"):
         FleetRuntime(arrays, policy=pol._replace(cost_coef=None), forecaster=fc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        StreamingForecaster.fit(hist, 24)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        streaming_forecast_policy(arrays, hist)
+    tfc = StreamingForecaster.fit(hist, 24, steps=3, device="cpu")
+    lpol, lfc = streaming_forecast_policy(arrays, sc.history, steps=3, device="cpu")
+    for f in (tfc, lfc):
+        out = FleetRuntime(arrays, policy=lpol, forecaster=f, device="cpu").step_many(
+            sc.demand[:, :24])
+        assert out["pred_next"].shape == (N_LINKS, 24)
 
 
 def test_live_resolver_marks_live_mode_and_launches_nothing_on_the_cpu():
