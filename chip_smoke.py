@@ -2974,6 +2974,7 @@ FC_MARGINS = (0.0, 0.05, 1e30)
 FC_TRAIN_STEPS = 300                    # benchmarks/bench_policy.py:102's train_steps
 FC_BWD_CHECK = ((1, 17, 2048), (2, 63, 65, FC_HISTORY), (1, 8, 16))   # N, T, S
 FC_TRAIN_CHECK = (256, 30)              # links and steps of the card-vs-CPU training
+FP32_DEP_CYCLES = 4                     # a dependent float32 multiply's or add's latency (Hopper)
 # forecast_fleet_policy then plan_fleet: the training's steps (a forward and a
 # backward scan each), the prediction over history and year, the cost fit's
 # and the plan's pricings, the gated plan.
@@ -3017,9 +3018,11 @@ def forecaster_case(N: int, T: int, S: int, h0: bool, device):
 def forecaster_checks() -> int:
     """``forecaster_scan`` against its plain version on the card, every bit
     of y and h (NaN in the same places), on N x T x S of FC_CHECK with a zero
-    and a seeded h0, and once without the readout. Returns the cases."""
+    and a seeded h0, each case also with the checkpoint store (y and h equal
+    the store-free call's, the checkpoints the plain walk's states), and once
+    without the readout. Returns the cases."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.forecaster import forecaster_scan
+    from repro_torch.kernels.forecaster import checkpoint_shape, forecaster_scan
 
     cases = 0
     for N in FC_CHECK[0]:
@@ -3028,9 +3031,15 @@ def forecaster_checks() -> int:
                 for h0 in (False, True):
                     args = forecaster_case(N, T, S, h0, DEVICE)
                     y, h = forecaster_scan(*args)
-                    wy, wh = ref.forecaster_scan_ref(*args)
+                    want_ck = torch.empty(checkpoint_shape(N, T, S), device=DEVICE)
+                    wy, wh = ref.forecaster_scan_ref(*args, ckpt=want_ck)
                     check(same_bits(y, wy) and same_bits(h, wh),
                           f"forecaster_scan {N} x {T}, S = {S}, h0 {h0}: != plain")
+                    ck = torch.full_like(want_ck, float("inf"))
+                    yc, hc = forecaster_scan(*args, ckpt=ck)
+                    check(same_bits(yc, y) and same_bits(hc, h) and same_bits(ck, want_ck),
+                          f"forecaster_scan {N} x {T}, S = {S}, h0 {h0}, with its checkpoint "
+                          f"store: != the store-free call or the plain checkpoints")
                     cases += 1
     args = forecaster_case(FC_LINKS, FC_HISTORY + FC_HOURS, FC_STATE, True, DEVICE)
     none, h = forecaster_scan(*args, write_y=False)
@@ -3145,8 +3154,9 @@ def forecaster_bwd_bound(N: int, T: int, S: int) -> dict:
     # Per element and state: the forward state (a·h, (1−a)·u, their sum) and
     # the reverse step (λ: two products and a sum; dA, dB: a product and a
     # sum each; dW: a difference, a product and a sum), each a whole
-    # lane-cycle; the bias's add once per element. The kernel's checkpoint
-    # pass (a second forward walk) is its own choice and not counted.
+    # lane-cycle; the bias's add once per element. The checkpoints the
+    # kernel reads (the forward's states at its tiles) are its own choice and
+    # not counted.
     bytes_moved = N * T * 8 + 3 * S * 4 + (3 * S + 1) * 4
     return lane_bound(bytes_moved, N * T * (13 * S + 1), torch.float32)
 
@@ -3171,22 +3181,67 @@ def bwd_case(N: int, T: int, S: int, kind: str, device):
 def forecaster_bwd_checks() -> int:
     """``forecaster_scan_bwd`` against its plain version on the card, every
     bit of the four gradients (NaN in the same places), on N x T x S of
-    FC_BWD_CHECK with each of bwd_case's dy kinds. Returns the cases."""
+    FC_BWD_CHECK with each of bwd_case's dy kinds, each case run twice: the
+    call forming its checkpoints, and the checkpoints handed over by a
+    ``forecaster_scan`` from the same h0. Returns the cases."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.forecaster import forecaster_scan_bwd
+    from repro_torch.kernels.forecaster import (checkpoint_shape, forecaster_scan,
+                                                forecaster_scan_bwd)
 
     cases = 0
+    zero = torch.zeros((), device=DEVICE)
     for N in FC_BWD_CHECK[0]:
         for T in FC_BWD_CHECK[1]:
             for S in FC_BWD_CHECK[2]:
                 for kind in ("zero", "seeded", "past"):
                     args = bwd_case(N, T, S, kind, DEVICE)
-                    got = forecaster_scan_bwd(*args)
                     want = ref.forecaster_scan_bwd_ref(*args)
+                    got = forecaster_scan_bwd(*args)
                     check(all(same_bits(g, w) for g, w in zip(got, want)),
                           f"forecaster_scan_bwd {N} x {T}, S = {S}, dy {kind}: != plain")
+                    u, dy, a, oma, w, h0 = args
+                    ck = torch.empty(checkpoint_shape(N, T, S), device=DEVICE)
+                    forecaster_scan(u, a, oma, w, zero, h0, write_y=False, ckpt=ck)
+                    got = forecaster_scan_bwd(u, dy, a, oma, w, ckpt=ck)
+                    check(all(same_bits(g, w) for g, w in zip(got, want)),
+                          f"forecaster_scan_bwd {N} x {T}, S = {S}, dy {kind}, the forward's "
+                          f"checkpoints: != plain")
                     cases += 1
     return cases
+
+
+def print_bwd_registers() -> None:
+    """-Xptxas -v's registers, stack frame and spills of the backward's
+    kernels (the chains kernel's S = 8 instances in full, the largest
+    register count over every S); fails on a spill or a stack frame."""
+    import re
+
+    chains = ptxas_instances("forecaster_bwd_chains_kernel")
+    fold = ptxas_report("forecaster_bwd_fold_kernel")
+    for name, rep in chains.items():
+        check(rep.get("stack") == rep.get("spill_stores") == rep.get("spill_loads") == 0,
+              f"{name} spills or keeps a stack frame: {rep}")
+        m = re.search(r"ILi(\d+)ELb([01])E", name)
+        if m and m[1] == str(FC_STATE):
+            print(f"  forecaster_bwd_chains_kernel S = {m[1]}, "
+                  f"{'16-byte' if m[2] == '1' else '4-byte'} copies, -Xptxas -v: "
+                  f"{rep['registers']} registers, {rep['stack']} bytes stack frame, "
+                  f"{rep['spill_stores']} bytes spill stores, {rep['spill_loads']} bytes "
+                  f"spill loads")
+    check(fold["stack"] == fold["spill_stores"] == fold["spill_loads"] == 0,
+          f"forecaster_bwd_fold_kernel spills: {fold}")
+    print(f"  forecaster_bwd_chains_kernel, all {len(chains)} instances: at most "
+          f"{max(r['registers'] for r in chains.values())} registers, no spill, no stack "
+          f"frame; forecaster_bwd_fold_kernel {fold['registers']} registers, no spill")
+
+
+def chain_floor_ms(T: int) -> tuple:
+    """The backward's chain floor: T hours of the lam chain, a dependent
+    multiply and add each (FP32_DEP_CYCLES cycles each), at the card's
+    highest SM clock (nvidia-smi). Returns (ms, MHz)."""
+    mhz = float(sh("nvidia-smi", "--query-gpu=clocks.max.sm",
+                   "--format=csv,noheader,nounits").splitlines()[0])
+    return T * 2 * FP32_DEP_CYCLES / (mhz * 1e6) * 1e3, mhz
 
 
 def train_card_vs_cpu(hist: np.ndarray, window: int) -> dict:
@@ -3219,10 +3274,14 @@ def forecast_phase(card: str) -> dict:
     2048-link year's forecast policy trained through
     ``forecast_fleet_policy(..., steps=300)`` on the 4380-hour history and
     planned with ``plan_fleet``; launch counts exact; the backward kernel
-    and both forward kernels held bit for bit against their plain versions;
+    (with its own and with the forward's checkpoints) and both forward
+    kernels (the scan with and without its checkpoint store) held bit for
+    bit against their plain versions; the backward's registers and spills;
     a short training run card == CPU in every parameter bit; margin 1e30 ==
     reactive; the card's plan against the CPU port's; the seeded and the
-    persistence readouts' plans beside it; then timings and both
+    persistence readouts' plans beside it; then timings (the backward's
+    chains and row fold, its chain floor, the forward with and without its
+    checkpoint store, a training step's wall, busy and idle) and both
     forecast_gain values. Returns the three kernels' rows."""
     from repro_torch.fleet import (build_fleet_scenario, build_report, family_margins,
                                    forecast_fleet_policy, forecast_horizon_hours, plan_fleet)
@@ -3319,7 +3378,9 @@ def forecast_phase(card: str) -> dict:
     n_bwd = forecaster_bwd_checks()
     print(f"forecaster_scan_bwd: {n_bwd} cases (N in {FC_BWD_CHECK[0]} x T in "
           f"{FC_BWD_CHECK[1]} x S in {FC_BWD_CHECK[2]}, dy zero, seeded and past the horizon, "
-          f"a NaN hour) == plain on the card, every bit ({time.perf_counter() - t0:.1f} s)")
+          f"a NaN hour), each with its own and with the forward's checkpoints, == plain on "
+          f"the card, every bit ({time.perf_counter() - t0:.1f} s)")
+    print_bwd_registers()
     t0 = time.perf_counter()
     tr = train_card_vs_cpu(hist, window)
     print(f"training {FC_TRAIN_CHECK[0]} links x {H} h x {FC_TRAIN_CHECK[1]} steps: card == CPU "
@@ -3328,8 +3389,9 @@ def forecast_phase(card: str) -> dict:
     t0 = time.perf_counter()
     n_fc = forecaster_checks()
     print(f"forecaster_scan: {n_fc} cases (N in {FC_CHECK[0]} x T in {FC_CHECK[1]} x S in "
-          f"{FC_CHECK[2]}, zero and seeded h0, a NaN hour, and no readout) == plain on the "
-          f"card, every bit ({time.perf_counter() - t0:.1f} s)")
+          f"{FC_CHECK[2]}, zero and seeded h0, a NaN hour, with and without the checkpoint "
+          f"store, and no readout) == plain on the card, every bit "
+          f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     n_gate = gated_edge_checks()
     print(f"gated fsm_scan: {n_gate} cases (edge shapes x margins {FC_MARGINS} by row, each "
@@ -3378,18 +3440,29 @@ def forecast_phase(card: str) -> dict:
     _, u, target, dy_weight = ssm._training_inputs(hist, window)
     u, target, dy_weight = (x.to(DEVICE) for x in (u, target, dy_weight))
     a, oma, w, bias = ssm._operands(trained, DEVICE)
-    dy = ((forecaster_scan(u, a, oma, w, bias)[0] - target) * 2.0) * dy_weight
-    tfw_ms = device_ms_per_call(lambda: forecaster_scan(u, a, oma, w, bias), 10,
-                                "forecaster_scan_kernel", 1)
-    bwd = lambda: forecaster_scan_bwd(u, dy, a, oma, w)
-    got, want = bwd(), ref.forecaster_scan_bwd_ref(u, dy, a, oma, w)
-    check(all(same_bits(g, w_) for g, w_ in zip(got, want)),
-          "forecaster_scan_bwd != plain at the training step's inputs")
+    ck = ops.forecaster_checkpoints(u, S)
+    y_ck = forecaster_scan(u, a, oma, w, bias, ckpt=ck)[0]
+    check(same_bits(y_ck, forecaster_scan(u, a, oma, w, bias)[0]),
+          "forecaster_scan with its checkpoint store: y != the store-free call's")
+    dy = ((y_ck - target) * 2.0) * dy_weight
+    fwd = lambda: forecaster_scan(u, a, oma, w, bias)
+    fwd_ck = lambda: forecaster_scan(u, a, oma, w, bias, ckpt=ck)
+    tfw = [device_ms_per_call(f, 10, "forecaster_scan_kernel", 1)
+           for f in (fwd, fwd_ck, fwd_ck, fwd)]            # in turns
+    tfw_ms, tfw_ck_ms = tfw[0], tfw[1]
+    bwd = lambda: forecaster_scan_bwd(u, dy, a, oma, w, ckpt=ck)   # the training step's call
+    bwd_alone = lambda: forecaster_scan_bwd(u, dy, a, oma, w)      # forms its checkpoints
+    want = ref.forecaster_scan_bwd_ref(u, dy, a, oma, w)
+    for f, how in ((bwd, "the forward's checkpoints"), (bwd_alone, "its own checkpoints")):
+        check(all(same_bits(g, w_) for g, w_ in zip(f(), want)),
+              f"forecaster_scan_bwd ({how}) != plain at the training step's inputs")
     bwd_ms = device_ms_per_call(bwd, 10, "forecaster_bwd", 2)
-    split = kernel_device_ms(bwd, 10, ("forecaster_bwd_rows_kernel",
+    split = kernel_device_ms(bwd, 10, ("forecaster_bwd_chains_kernel",
                                        "forecaster_bwd_fold_kernel"), per_call=1)
     bwd_ms2 = device_ms_per_call(bwd, 10, "forecaster_bwd", 2)
+    alone = kernel_device_ms(bwd_alone, 10, ("forecaster_scan_kernel", "forecaster_bwd_"))
     bwd_plain_ms = sync_ms(lambda: ref.forecaster_scan_bwd_ref(u, dy, a, oma, w), 1)
+    floor_ms_, max_mhz = chain_floor_ms(H)
     bb, tfb = forecaster_bwd_bound(N, H, S), forecaster_bound(N, H, S)
     cfg = AdamWConfig(lr=2e-2, weight_decay=0.0, clip_norm=1.0)
     state = {"p": trained, "o": adamw_init(trained, cfg)}
@@ -3418,14 +3491,22 @@ def forecast_phase(card: str) -> dict:
     path_ms = sync_ms(path, 2)
     print(f"timings on {card} (profiler device time, median ms; bound = max(bytes / 3.35 "
           f"TB/s, ops / peak))")
-    print(f"  forecaster_scan_bwd {N} x {H}, S = {S} (a training step's): {bwd_ms:.4f} / "
-          f"{bwd_ms2:.4f} ms (chains {split['forecaster_bwd_rows_kernel']:.4f}, row fold "
+    print(f"  forecaster_scan_bwd {N} x {H}, S = {S} (a training step's, the forward's "
+          f"checkpoints): {bwd_ms:.4f} / {bwd_ms2:.4f} ms (chains "
+          f"{split['forecaster_bwd_chains_kernel']:.4f}, row fold "
           f"{split['forecaster_bwd_fold_kernel']:.4f}), bound {bb['bound_ms']:.4f} ms "
-          f"({bb['bound_by']}), {bwd_ms / bb['bound_ms']:.2f}x; plain (card) {bwd_plain_ms:.1f} "
-          f"ms; launches on the path {FC_TRAIN_STEPS}")
-    print(f"  forecaster_scan {N} x {H}, S = {S} (a training step's forward): {tfw_ms:.4f} ms, "
-          f"bound {tfb['bound_ms']:.4f} ms, {tfw_ms / tfb['bound_ms']:.2f}x; a whole training "
-          f"step (forward, backward, host sigmoid, AdamW) {step_ms:.3f} ms wall")
+          f"({bb['bound_by']}), {bwd_ms / bb['bound_ms']:.2f}x; chain floor {floor_ms_:.4f} ms "
+          f"({H} hours x a dependent multiply and add, {FP32_DEP_CYCLES} cycles each, at "
+          f"{max_mhz:.0f} MHz); plain (card) {bwd_plain_ms:.1f} ms; launches on the path "
+          f"{FC_TRAIN_STEPS}")
+    print(f"  forecaster_scan_bwd forming its own checkpoints (no forward's): state-only scan "
+          f"{alone['forecaster_scan_kernel']:.4f} + chains and fold "
+          f"{alone['forecaster_bwd_']:.4f} ms")
+    print(f"  forecaster_scan {N} x {H}, S = {S} (a training step's forward): without the "
+          f"checkpoint store {tfw_ms:.4f} / {tfw[3]:.4f} ms, with it {tfw_ck_ms:.4f} / "
+          f"{tfw[2]:.4f} ms (in turns), bound {tfb['bound_ms']:.4f} ms, "
+          f"{tfw_ck_ms / tfb['bound_ms']:.2f}x; a whole training step (forward, backward, host "
+          f"sigmoid, AdamW) {step_ms:.3f} ms wall")
     print(f"  forecaster_scan {N} x {H + T}, S = {S}: kernel {fc_ms:.4f} ms, bound "
           f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}), {fc_ms / fb['bound_ms']:.2f}x; "
           f"without the readout {fc_state_ms:.4f} ms (bound {fb_state['bound_ms']:.4f}); "

@@ -15,6 +15,10 @@
 // It writes y (N, T), unless write_y is 0 (demand_forecaster_state), and the
 // last h (N, S). a and 1 - a come in as operands, so that the kernel and its
 // plain version (repro_torch.kernels.ref.forecaster_scan_ref) share their bits.
+// Given a checkpoint output (ceil(T / kTile), N, S), the chain threads also
+// store each chain's state at the start of every tile (tile 0's is h0): the
+// backward pass (forecaster_scan_bwd.cu, the same kTile) recomputes a tile's
+// states from it. The store adds no operation to the chain.
 //
 // What bounds it on an H100. u read and y written, 8 B an element: 215 MB at
 // 2048 x 13140 (0.064 ms at 3.35 TB/s); 6S + 1 float32 operations an element,
@@ -151,7 +155,8 @@ __global__ void __launch_bounds__(kBlock)
 forecaster_scan_kernel(const float* __restrict__ u, const float* __restrict__ a,
                        const float* __restrict__ one_minus_a, const float* __restrict__ w,
                        const float* __restrict__ bias, const float* __restrict__ h0, int N,
-                       int T, float* __restrict__ y, float* __restrict__ h_out) {
+                       int T, float* __restrict__ y, float* __restrict__ h_out,
+                       float* __restrict__ ckpt) {
   constexpr int R = kThreads / S;                   // rows a block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* U = reinterpret_cast<float*>(smem_raw);   // [kRing][R][kPadU]
@@ -187,6 +192,7 @@ forecaster_scan_kernel(const float* __restrict__ u, const float* __restrict__ a,
     }
     const int t0 = j * kTile, len = min(kTile, T - t0);
     const float* Uj = U + (j % kRing) * (R * kPadU);
+    if (ckpt != nullptr && chain) ckpt[((int64_t)j * N + n0) * S + tid] = h;   // coalesced
     if (len == kTile && n0 + R <= N)
       tile_phases<S, WRITE_Y, true>(Uj, P, y, n0, N, T, t0, len, chain, h, as, bs, ws, b);
     else
@@ -198,27 +204,28 @@ forecaster_scan_kernel(const float* __restrict__ u, const float* __restrict__ a,
 template <int S, bool WRITE_Y, bool VEC>
 int launch_kernel(const float* u, const float* a, const float* oma, const float* w,
                   const float* bias, const float* h0, int N, int T, float* y, float* h_out,
-                  cudaStream_t stream) {
+                  float* ckpt, cudaStream_t stream) {
   constexpr int R = kThreads / S;
   const int smem = (kRing * R * kPadU + R * S * kPad) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(forecaster_scan_kernel<S, WRITE_Y, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   forecaster_scan_kernel<S, WRITE_Y, VEC><<<(N + R - 1) / R, kBlock, smem, stream>>>(
-      u, a, oma, w, bias, h0, N, T, y, h_out);
+      u, a, oma, w, bias, h0, N, T, y, h_out, ckpt);
   return (int)cudaGetLastError();
 }
 
 template <int S, bool WRITE_Y>
 int launch(const float* u, const float* a, const float* oma, const float* w, const float* bias,
-           const float* h0, int N, int T, float* y, float* h_out, cudaStream_t stream) {
+           const float* h0, int N, int T, float* y, float* h_out, float* ckpt,
+           cudaStream_t stream) {
   const bool vec = T % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0;
   return (vec ? launch_kernel<S, WRITE_Y, true> : launch_kernel<S, WRITE_Y, false>)(
-      u, a, oma, w, bias, h0, N, T, y, h_out, stream);
+      u, a, oma, w, bias, h0, N, T, y, h_out, ckpt, stream);
 }
 
 using LaunchFn = int (*)(const float*, const float*, const float*, const float*, const float*,
-                         const float*, int, int, float*, float*, cudaStream_t);
+                         const float*, int, int, float*, float*, float*, cudaStream_t);
 
 template <int S>
 LaunchFn pick(bool write_y) {
@@ -252,14 +259,15 @@ static_assert(kMaxState == 16, "pick_state instantiates S = 1 .. kMaxState");
 }  // namespace
 
 // u (N, T), a / one_minus_a / w (S,), bias (1,), h0 (N, S) or null for zeros;
-// y (N, T) (unused when write_y is 0) and h_out (N, S). S in 1 .. 16.
+// y (N, T) (unused when write_y is 0) and h_out (N, S); ckpt (ceil(T / 64), N,
+// S) or null for none. S in 1 .. 16.
 extern "C" int forecaster_scan_f32(const float* u, const float* a, const float* one_minus_a,
                                    const float* w, const float* bias, const float* h0, int N,
                                    int T, int S, int write_y, float* y, float* h_out,
-                                   void* stream) {
+                                   float* ckpt, void* stream) {
   if (N < 0 || T < 0) return (int)cudaErrorInvalidValue;
   const LaunchFn fn = pick_state(S, write_y != 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
-  return fn(u, a, one_minus_a, w, bias, h0, N, T, y, h_out, (cudaStream_t)stream);
+  return fn(u, a, one_minus_a, w, bias, h0, N, T, y, h_out, ckpt, (cudaStream_t)stream);
 }

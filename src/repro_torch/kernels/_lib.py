@@ -57,7 +57,8 @@ EXACT_FLAGS = ("-fmad=false",)
 #: ``stream_chunk_routed_gated`` those of their forecast-gated instances
 #: (replay mode), ``stream_chunk_live`` and ``stream_chunk_routed_live`` those
 #: of the streaming kernels' live instances; ``forecaster_scan_bwd`` counts
-#: the forecaster's backward pass (its two kernels, one call).
+#: the forecaster's backward pass (its two kernels, and the scan that forms
+#: its checkpoints when the caller has none: one call).
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "fsm_scan_gated": 0, "forecaster_scan": 0,
     "forecaster_scan_bwd": 0,
@@ -159,11 +160,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     # renew, N, T, x, state, total, stream
     lib.fsm_scan_gated_f64.argtypes = [p] * 12 + [i, i, i] + [p] * 4
     lib.fsm_scan_gated_f64.restype = i
-    # u, a, one_minus_a, w, bias, h0, N, T, S, write_y, y, h, stream
-    lib.forecaster_scan_f32.argtypes = [p] * 6 + [i] * 4 + [p] * 3
+    # u, a, one_minus_a, w, bias, h0, N, T, S, write_y, y, h, ckpt, stream
+    lib.forecaster_scan_f32.argtypes = [p] * 6 + [i] * 4 + [p] * 4
     lib.forecaster_scan_f32.restype = i
-    # u, dy, a, one_minus_a, w, h0, N, T, S, ckpt, part, out, stream
-    lib.forecaster_scan_bwd_f32.argtypes = [p] * 6 + [i] * 3 + [p] * 4
+    # u, dy, a, one_minus_a, w, ckpt, N, T, S, part, out, stream
+    lib.forecaster_scan_bwd_f32.argtypes = [p] * 6 + [i] * 3 + [p] * 3
     lib.forecaster_scan_bwd_f32.restype = i
     # cum0, demand, bounds, rates, reset, N, K, Kt, slots, plan, costs, cum_out, stream
     for name in ("tiered_cost_scan_f64", "tiered_cost_scan_f32"):

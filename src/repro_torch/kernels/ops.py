@@ -19,6 +19,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention as _flash_kernel
+from .forecaster import checkpoint_shape
 from .forecaster import forecaster_scan as _forecaster_kernel
 from .forecaster import forecaster_scan_bwd as _forecaster_bwd_kernel
 from .fsm_scan import fsm_chunk as _fsm_chunk_kernel
@@ -66,25 +67,36 @@ def fsm_scan(vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold,
     return ref.fsm_scan_ref(*args, renew_in_chunks=renew_in_chunks, gate=gate)
 
 
-def forecaster_scan(u, a, one_minus_a, w, bias, h0=None, *, write_y: bool = True
+def forecaster_scan(u, a, one_minus_a, w, bias, h0=None, *, write_y: bool = True, ckpt=None
                     ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The demand forecaster's EMA bank and readout over (N, T) float32
-    inputs from ``h0`` (zeros if None): ``(y (N, T) or None, h (N, S))``."""
+    inputs from ``h0`` (zeros if None): ``(y (N, T) or None, h (N, S))``.
+    ``ckpt`` (from :func:`forecaster_checkpoints`), when given, receives the
+    state at the start of every tile, for :func:`forecaster_scan_bwd`."""
     if _route(u, "forecaster_scan"):
         c = lambda t: None if t is None else t.contiguous()
         return _forecaster_kernel(c(u), c(a), c(one_minus_a), c(w), c(bias), c(h0),
-                                  write_y=write_y)
-    return ref.forecaster_scan_ref(u, a, one_minus_a, w, bias, h0, write_y=write_y)
+                                  write_y=write_y, ckpt=ckpt)
+    return ref.forecaster_scan_ref(u, a, one_minus_a, w, bias, h0, write_y=write_y, ckpt=ckpt)
 
 
-def forecaster_scan_bwd(u, dy, a, one_minus_a, w, h0=None):
+def forecaster_checkpoints(u: torch.Tensor, S: int) -> torch.Tensor:
+    """An empty checkpoint output for :func:`forecaster_scan` over ``u``
+    (N, T) with S states, on ``u``'s device."""
+    return torch.empty(checkpoint_shape(*u.shape, S), dtype=torch.float32, device=u.device)
+
+
+def forecaster_scan_bwd(u, dy, a, one_minus_a, w, h0=None, *, ckpt=None):
     """The forecaster's backward pass over (N, T) float32 ``u`` and ``dy``:
     ``(da, d_one_minus_a, dw, dbias)``, each sum over rows and hours walked
-    in one fixed order (hours backwards, then rows in index order)."""
+    in one fixed order (hours backwards, then rows in index order). ``ckpt``:
+    the checkpoints of the forward scan that ``dy`` belongs to, in place of
+    its ``h0``."""
     if _route(u, "forecaster_scan_bwd"):
         c = lambda t: None if t is None else t.contiguous()
-        return _forecaster_bwd_kernel(c(u), c(dy), c(a), c(one_minus_a), c(w), c(h0))
-    return ref.forecaster_scan_bwd_ref(u, dy, a, one_minus_a, w, h0)
+        return _forecaster_bwd_kernel(c(u), c(dy), c(a), c(one_minus_a), c(w), c(h0),
+                                      ckpt=ckpt)
+    return ref.forecaster_scan_bwd_ref(u, dy, a, one_minus_a, w, h0, ckpt=ckpt)
 
 
 def tiered_cost_scan(cum0, demand, bounds, rates, reset):

@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.costmodel import tiered_marginal_cost_tables
 from repro_torch.core.togglecci import ToggleParams, window_sums
 
+from .forecaster import BWD_TILE
 from .stream_chunk import block_size
 from .tiered_cost import tier_table
 
@@ -100,6 +101,7 @@ def fsm_scan_ref(
 def forecaster_scan_ref(
     u: torch.Tensor, a: torch.Tensor, one_minus_a: torch.Tensor, w: torch.Tensor,
     bias: torch.Tensor, h0: Optional[torch.Tensor] = None, *, write_y: bool = True,
+    ckpt: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Plain version of :func:`repro_torch.kernels.forecaster.forecaster_scan`
     (``demand_forecaster_step`` under the JAX package's ``lax.scan``), any S.
@@ -110,7 +112,9 @@ def forecaster_scan_ref(
     (elementwise, so with the same bits). The readout is elementwise too, so
     it runs over all hours after the scan: ``p_s = (h_s − u_t)·w_s``, folded
     left in index order from ``p_0``, then ``y = (u + acc) + bias``.
-    Returns ``(y (N, T) or None, h (N, S))`` in float32.
+    Returns ``(y (N, T) or None, h (N, S))`` in float32. ``ckpt``, when
+    given (``checkpoint_shape(N, T, S)``), receives the state before hour
+    ``j · BWD_TILE`` in tile ``j``, as the walk passes it.
     """
     N, T = u.shape
     S = a.shape[0]
@@ -119,6 +123,8 @@ def forecaster_scan_ref(
     drive = one_minus_a * u[:, :, None]                  # (N, T, S)
     hs = torch.empty((N, T, S), dtype=torch.float32, device=u.device) if write_y else None
     for t in range(T):
+        if ckpt is not None and t % BWD_TILE == 0:
+            ckpt[t // BWD_TILE] = h
         h = a * h + drive[:, t]
         if write_y:
             hs[:, t] = h
@@ -133,7 +139,8 @@ def forecaster_scan_ref(
 
 def forecaster_scan_bwd_ref(
     u: torch.Tensor, dy: torch.Tensor, a: torch.Tensor, one_minus_a: torch.Tensor,
-    w: torch.Tensor, h0: Optional[torch.Tensor] = None,
+    w: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+    ckpt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`repro_torch.kernels.forecaster.forecaster_scan_bwd`
     (XLA autodiff of the forecaster's ``lax.scan`` in the JAX package), any S.
@@ -146,11 +153,19 @@ def forecaster_scan_bwd_ref(
     with the same bits); then each sum folded over the rows in index order,
     left from row 0. Returns ``(da (S,), d_one_minus_a (S,), dw (S,), dbias
     ())`` in float32, the gradients with respect to ``a``, ``1 − a``, ``w``
-    and ``bias``.
+    and ``bias``. Given the forward's checkpoints ``ckpt`` (see
+    :func:`forecaster_scan_ref`) instead of ``h0``, the walk starts from
+    their first tile, ``h0``, and passes the others on its way.
     """
     N, T = u.shape
     S = a.shape[0]
     z = dict(dtype=torch.float32, device=u.device)
+    if ckpt is not None:
+        if h0 is not None:
+            raise ValueError("forecaster_scan_bwd: ckpt's first tile is the forward's h0; "
+                             "give ckpt or h0, not both")
+        if T > 0:
+            h0 = ckpt[0]
     h = torch.zeros((N, S), **z) if h0 is None else h0.clone()
     drive = one_minus_a * u[:, :, None]                  # (N, T, S)
     hs = torch.empty((N, T + 1, S), **z)                 # hs[:, t + 1] = h after hour t

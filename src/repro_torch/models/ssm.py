@@ -71,9 +71,10 @@ def _operands(params: Params, device: torch.device):
 
 class _ForecasterScan(torch.autograd.Function):
     """``y`` of the forecaster's scan from zeros, differentiable in ``a``,
-    ``1 − a``, ``w`` and ``bias``: forward one ``ops.forecaster_scan``,
-    backward one ``ops.forecaster_scan_bwd``. The graph takes ``a`` and
-    ``1 − a`` as two operands, as the reference's does, and autograd adds
+    ``1 − a``, ``w`` and ``bias``: forward one ``ops.forecaster_scan``, which
+    also stores the chain's state at every tile's start, backward one
+    ``ops.forecaster_scan_bwd`` from those checkpoints. The graph takes ``a``
+    and ``1 − a`` as two operands, as the reference's does, and autograd adds
     their gradients at the host's ``1 − a``. No gradient with respect to
     ``u``: training needs none, and the kernel forms none."""
 
@@ -82,14 +83,16 @@ class _ForecasterScan(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             raise ValueError("the forecaster's scan has no gradient with respect to u; "
                              "detach the input")
-        y, _ = ops.forecaster_scan(u, a, one_minus_a, w, bias)
-        ctx.save_for_backward(u, a, one_minus_a, w)
+        ckpt = ops.forecaster_checkpoints(u, a.shape[0])
+        y, _ = ops.forecaster_scan(u, a, one_minus_a, w, bias, ckpt=ckpt)
+        ctx.save_for_backward(u, a, one_minus_a, w, ckpt)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        u, a, one_minus_a, w = ctx.saved_tensors
-        da, doma, dw, dbias = ops.forecaster_scan_bwd(u, dy.contiguous(), a, one_minus_a, w)
+        u, a, one_minus_a, w, ckpt = ctx.saved_tensors
+        da, doma, dw, dbias = ops.forecaster_scan_bwd(u, dy.contiguous(), a, one_minus_a, w,
+                                                      ckpt=ckpt)
         return None, da, doma, dw, dbias
 
 

@@ -31,11 +31,14 @@ against the plain versions (``ref.stream_chunk_ref``,
   tile is folded), the carry a tile at a time, the fold per (row, hour);
   and a chunk of one segment slot with no plan, its resets staged with the
   demand and applied in the carry;
-* the forecaster's backward pass (``forecaster_scan_bwd``): blocks of
-  ``128 // S`` rows, a forward pass that checkpoints each chain's state at
-  every tile of 64 hours, the tiles walked in reverse (each recomputed from
-  its checkpoint, then the adjoint run back through it, the sums in the
-  chain), the per-row sums folded over the rows in index order.
+* the forecaster's backward pass (``forecaster_scan_bwd``): the forward
+  scan's checkpoint of each chain's state at every tile of 64 hours, then
+  blocks of ``min(128 // S, 32)`` rows whose u and dy tiles come in reverse
+  through a ring of slots (a step must find its tiles there), each step
+  recomputing a tile's states from its checkpoint while the adjoint walks
+  back through the tile after it, in four-hour groups, the sums in the
+  chain; the per-row sums folded over the rows in index order, a staged
+  chunk of rows at a time.
 
 Change a kernel's schedule and change its replay with it: the replays read
 the kernels' tile constants from the CUDA sources.
@@ -52,7 +55,7 @@ from repro_torch.fleet import (FleetRuntime, StreamingForecaster, build_fleet_sc
 from repro_torch.fleet.engine import routed_cost_series
 from repro_torch.fleet.policy import predicted_mode_costs
 from repro_torch.kernels import ref
-from repro_torch.kernels.forecaster import BWD_TILE
+from repro_torch.kernels.forecaster import BWD_TILE, checkpoint_shape
 from repro_torch.kernels.stream_chunk import (MAX_SUBS, SUB_HOURS, TICK_MAX_K,
                                               TICK_MAX_K_LIVE, TICK_MAX_TIERS, launch_form)
 from repro_torch.kernels.tiered_cost_scan import (SCAN_ROWS, SCAN_TARGET_BLOCKS,
@@ -931,58 +934,148 @@ def test_chunk_form_replay_catches_a_missing_barrier(order):
 
 # -- the forecaster's backward pass -------------------------------------------------
 
-def _bwd_replay(u, dy, a, oma, w, h0, *, ckpt_at_end=False):
-    """``forecaster_scan_bwd``'s schedule in numpy float32: each block of R =
-    kThreads // S rows (its chains vectorised over (rows, states): the same
-    operation on every chain), pass 1 storing each chain's state at the start
-    of every tile, pass 2 over the tiles in reverse, the tile's states
-    recomputed from its checkpoint and the adjoint walked back through it;
-    then the (3S + 1, N) per-row sums folded over the rows in index order.
-    ``ckpt_at_end`` stores the state after each tile instead (a broken
-    schedule, to show the replay sees it)."""
-    kThreads = _cu_const("forecaster_scan_bwd.cu", "kThreads")
-    kTile = _cu_const("forecaster_scan_bwd.cu", "kTile")
+def _cu_ring(source: str) -> int:
+    """The ring depth, ``kRing = kAhead + 2`` (two tiles in use)."""
+    assert "constexpr int kRing = kAhead + 2;" in (CSRC / source).read_text()
+    return _cu_const(source, "kAhead") + 2
+
+
+def _fwd_checkpoints(u, a, oma, h0, *, ckpt_at_end=False):
+    """``forecaster_scan``'s checkpoint store in numpy float32: blocks of
+    ``kThreads // S`` rows walk the chain a tile at a time and store each
+    chain's state at the tile's start. ``ckpt_at_end`` stores the state after
+    the tile instead (a broken store, to show the replay sees it)."""
+    kThreads = _cu_const("forecaster_scan.cu", "kThreads")
+    kTile = _cu_const("forecaster_scan.cu", "kTile")
     N, T = u.shape
     S = a.shape[0]
     R = kThreads // S
-    part = np.zeros((3 * S + 1, N), np.float32)
-    n_tiles = -(-T // kTile)
+    ckpt = np.zeros((-(-T // kTile), N, S), np.float32)
+    for n0 in range(0, N, R):
+        rows = slice(n0, min(n0 + R, N))
+        h = h0[rows].copy()
+        for j in range(ckpt.shape[0]):
+            if not ckpt_at_end:
+                ckpt[j, rows] = h
+            for i in range(j * kTile, min(T, (j + 1) * kTile)):
+                h = a * h + oma * u[rows, i, None]
+            if ckpt_at_end:
+                ckpt[j, rows] = h
+    return ckpt
+
+
+def _bwd_replay(u, dy, a, oma, w, h0, *, ckpt_at_end=False, state_buffers=2):
+    """``forecaster_scan_bwd``'s schedule in numpy float32, from the
+    checkpoints :func:`_fwd_checkpoints` replays. Each block of R = min(128
+    // S, 32) rows (its chains vectorised over (rows, states): the same
+    operation on every chain) runs steps k = 0 .. n_tiles: the producer's
+    ring of each tile's u, dy and checkpoints, staged in reverse kAhead
+    tiles ahead (each slot labelled with its tile; a step must find its two
+    tiles in their slots, and the stage of step k goes in before the step
+    reads them, as the producer's copies may land while the step runs); the
+    partial last tile's walks an hour at a time, first; then the recompute
+    of tile n_tiles - 1 - k into the state buffer of its parity and the
+    adjoint back through tile n_tiles - k from the other, in four-hour
+    groups, each group's state operands loaded before the group's store.
+    Then the (3S + 1, ld) per-row sums folded over the rows in index order
+    from -0.0, in chunks of kFoldRows rows staged through a ring of
+    kFoldRing slots. ``state_buffers=1`` shares one state buffer between the
+    two tiles of a step (a broken schedule)."""
+    src = "forecaster_scan_bwd.cu"
+    kTile = _cu_const(src, "kTile")
+    kThreads, kMaxRows = _cu_const(src, "kThreads"), _cu_const(src, "kMaxRows")
+    kAhead, kRing = _cu_const(src, "kAhead"), _cu_ring(src)
+    kFoldRows, kFoldRing = _cu_const(src, "kFoldRows"), _cu_const(src, "kFoldRing")
+    N, T = u.shape
+    S = a.shape[0]
+    R = min(kThreads // S, kMaxRows)
+    G = kTile // 4
+    ckpt = _fwd_checkpoints(u, a, oma, h0, ckpt_at_end=ckpt_at_end)
+    n_tiles = ckpt.shape[0]
+    ld = -(-N // 4) * 4
+    part = np.full((3 * S + 1, ld), np.nan, np.float32)    # rows past N: never written
     for n0 in range(0, N, R):
         rows = slice(n0, min(n0 + R, N))
         U, DY = u[rows], dy[rows]
-        h = h0[rows].copy()
-        ckpt = []
-        for j in range(n_tiles):
-            if not ckpt_at_end:
-                ckpt.append(h.copy())
-            for i in range(j * kTile, min(T, (j + 1) * kTile)):
-                h = a * h + oma * U[:, i, None]
-            if ckpt_at_end:
-                ckpt.append(h.copy())
-        z = np.zeros_like(h)
+        nr = U.shape[0]
+        ring = [None] * kRing
+
+        def stage(m):
+            t = n_tiles - 1 - m
+            if t >= 0:
+                tile = slice(t * kTile, (t + 1) * kTile)
+                ring[m % kRing] = (t, U[:, tile], DY[:, tile], ckpt[t, rows])
+
+        for m in range(kAhead):
+            stage(m)
+        hbuf = [np.full((nr, S, kTile), np.nan, np.float32) for _ in range(state_buffers)]
+        z = np.zeros((nr, S), np.float32)
         lam, dA, dB, dW = z.copy(), z.copy(), z.copy(), z.copy()
-        dBias = np.zeros(h.shape[0], np.float32)
-        for j in range(n_tiles - 1, -1, -1):
-            t0, t1 = j * kTile, min(T, (j + 1) * kTile)
-            hc = ckpt[j]
-            hs, hh = [], hc
-            for i in range(t0, t1):
-                hh = a * hh + oma * U[:, i, None]
-                hs.append(hh)
-            for i in range(t1 - 1, t0 - 1, -1):
-                g, uv = DY[:, i, None], U[:, i, None]
-                lam = g * w + a * lam
-                dA = dA + lam * (hs[i - t0 - 1] if i > t0 else hc)
-                dB = dB + lam * uv
-                dW = dW + g * (hs[i - t0] - uv)
-                dBias = dBias + DY[:, i]
+        dBias = np.zeros(nr, np.float32)
+
+        def adjoint(g_, uv, ht, hp):
+            nonlocal lam, dA, dB, dW, dBias
+            lam = g_[:, None] * w + a * lam
+            dA = dA + lam * hp
+            dB = dB + lam * uv[:, None]
+            dW = dW + g_[:, None] * (ht - uv[:, None])
+            dBias = dBias + g_
+
+        for k in range(n_tiles + 1):
+            stage(k + kAhead)
+            ja, jr = n_tiles - k, n_tiles - 1 - k
+            adj, rec = k >= 1, jr >= 0
+            if adj:
+                ta, Ua, Da, hc = ring[(k - 1) % kRing]
+                assert ta == ja, f"step {k} found tile {ta} for its adjoint, not {ja}"
+                Ha, len_a = hbuf[ja % state_buffers], Ua.shape[1]
+            if rec:
+                tr, Ur, _, hr = ring[k % kRing]
+                assert tr == jr, f"step {k} found tile {tr} for its recompute, not {jr}"
+                Hr, len_r = hbuf[jr % state_buffers], Ur.shape[1]
+            full_a, full_r = adj and len_a == kTile, rec and len_r == kTile
+            if adj and not full_a:                          # the partial last tile
+                for i in range(len_a - 1, -1, -1):
+                    adjoint(Da[:, i], Ua[:, i], Ha[..., i], Ha[..., i - 1] if i > 0 else hc)
+            if rec and not full_r:
+                for i in range(len_r):
+                    hr = a * hr + oma * Ur[:, i, None]
+                    Hr[..., i] = hr
+            nxt = Ha[..., 4 * G - 4:].copy() if full_a else None
+            for g in range(G - 1, -1, -1) if full_a or full_r else ():
+                q = G - 1 - g
+                hv = nxt
+                if full_a:                                  # loaded before the store
+                    nxt = Ha[..., 4 * g - 4:4 * g].copy() if g > 0 else None
+                    hm = nxt[..., 3] if g > 0 else hc
+                    for i in range(3, -1, -1):
+                        t = 4 * g + i
+                        adjoint(Da[:, t], Ua[:, t], hv[..., i], hv[..., i - 1] if i > 0 else hm)
+                if full_r:
+                    for i in range(4):
+                        hr = a * hr + oma * Ur[:, 4 * q + i, None]
+                        Hr[..., 4 * q + i] = hr
         part[:S, rows] = dA.T
         part[S:2 * S, rows] = dB.T
         part[2 * S:3 * S, rows] = dW.T
         part[3 * S, rows] = dBias
-    acc = part[:, 0].copy()
-    for n in range(1, N):
-        acc = acc + part[:, n]
+    # the row fold
+    n_chunks = -(-N // kFoldRows)
+    fring = [None] * kFoldRing
+
+    def fstage(c):
+        if c < n_chunks:
+            fring[c % kFoldRing] = (c, part[:, c * kFoldRows:min(ld, (c + 1) * kFoldRows)].copy())
+
+    for c in range(kFoldRing - 1):
+        fstage(c)
+    acc = np.full(3 * S + 1, -0.0, np.float32)
+    for c in range(n_chunks):
+        fstage(c + kFoldRing - 1)
+        tc, chunk = fring[c % kFoldRing]
+        assert tc == c, f"the fold found chunk {tc}, not {c}"
+        for i in range(min(kFoldRows, N - c * kFoldRows)):
+            acc = acc + chunk[:, i]
     return acc[:S], acc[S:2 * S], acc[2 * S:3 * S], acc[3 * S]
 
 
@@ -1000,7 +1093,9 @@ def _bwd_case(N, T, S, seed, nan=True):
 
 
 def test_backward_tile_matches_the_source():
+    """The forward's checkpoints and the backward's tiles: one length."""
     assert _cu_const("forecaster_scan_bwd.cu", "kTile") == BWD_TILE
+    assert _cu_const("forecaster_scan.cu", "kTile") == BWD_TILE
 
 
 @pytest.mark.parametrize("S", [1, 3, 8, 16])
@@ -1030,3 +1125,42 @@ def test_backward_replay_catches_a_wrong_checkpoint():
     want = ref.forecaster_scan_bwd_ref(*(torch.from_numpy(np.ascontiguousarray(x))
                                          for x in case))
     assert not _same_bits(torch.from_numpy(got[0]), want[0])
+
+
+def test_backward_replay_catches_a_shared_state_buffer():
+    """The replay is live: a recompute that writes its tile's states into
+    the buffer the adjoint is reading gives other gradients."""
+    case = _bwd_case(5, 200, 8, 2, nan=False)
+    want = ref.forecaster_scan_bwd_ref(*(torch.from_numpy(np.ascontiguousarray(x))
+                                         for x in case))
+    got = _bwd_replay(*case, state_buffers=1)
+    assert not _same_bits(torch.from_numpy(got[0]), want[0])
+
+
+def test_forward_checkpoints_replay_equals_plain():
+    """The forward's checkpoint store (replayed) equals the plain scan's
+    checkpoint output bit for bit, and the plain scan's ``y`` and ``h`` are
+    those of the call without it."""
+    u, _, a, oma, w, h0 = _bwd_case(40, 200, 8, 3)
+    args = [torch.from_numpy(np.ascontiguousarray(x)) for x in (u, a, oma, w)]
+    bias, h0_t = torch.tensor(0.01, dtype=torch.float32), torch.from_numpy(h0)
+    ckpt = torch.full((4, 40, 8), np.nan, dtype=torch.float32)
+    y, h = ref.forecaster_scan_ref(*args, bias, h0_t, ckpt=ckpt)
+    y0, h_0 = ref.forecaster_scan_ref(*args, bias, h0_t)
+    assert _same_bits(y, y0) and _same_bits(h, h_0)
+    with np.errstate(invalid="ignore"):
+        assert _same_bits(ckpt, torch.from_numpy(_fwd_checkpoints(u, a, oma, h0)))
+
+
+def test_plain_backward_takes_checkpoints_or_h0():
+    """The plain backward from the plain forward's checkpoints equals it
+    from that forward's h0 in every bit, and refuses both at once."""
+    u, dy, a, oma, w, h0 = (torch.from_numpy(np.ascontiguousarray(x))
+                            for x in _bwd_case(9, 130, 8, 4))
+    ckpt = torch.empty(checkpoint_shape(9, 130, 8))
+    ref.forecaster_scan_ref(u, a, oma, w, torch.tensor(0.0), h0, write_y=False, ckpt=ckpt)
+    got = ref.forecaster_scan_bwd_ref(u, dy, a, oma, w, ckpt=ckpt)
+    want = ref.forecaster_scan_bwd_ref(u, dy, a, oma, w, h0)
+    assert all(_same_bits(g, wv) for g, wv in zip(got, want))
+    with pytest.raises(ValueError, match="not both"):
+        ref.forecaster_scan_bwd_ref(u, dy, a, oma, w, h0, ckpt=ckpt)

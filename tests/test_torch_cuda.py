@@ -1577,7 +1577,7 @@ def test_forecast_plan_gpu_matches_cpu(cuda_device):
 
 # -- training the forecaster: forecaster_scan_bwd -----------------------------------
 
-from repro_torch.kernels.forecaster import forecaster_scan_bwd  # noqa: E402
+from repro_torch.kernels.forecaster import checkpoint_shape, forecaster_scan_bwd  # noqa: E402
 
 
 def _bwd_inputs(seed, n, T, S, dy_kind, device=CPU):
@@ -1616,18 +1616,72 @@ def test_forecaster_bwd_wrapper_refuses_cpu_tensors_and_bad_operands():
                          ids=lambda s: "x".join(map(str, s)))
 def test_forecaster_bwd_kernel_bit_equal_to_plain(cuda_device, shape, S, dy_kind):
     """Every bit of the four gradients against the plain version on the CPU,
-    h0 given and not, a NaN hour in row 0 (so every gradient the row feeds
+    h0 given and not, the checkpoints formed by the call or handed over by
+    the forward kernel, a NaN hour in row 0 (so every gradient the row feeds
     is NaN), one launch a call."""
     n, T = shape
     cpu = _bwd_inputs(n * T + S, n, T, S, dy_kind)
     dev = [x.to(cuda_device) for x in cpu]
     for given in (True, False):
-        before = ops.LAUNCHES["forecaster_scan_bwd"]
-        got = ops.forecaster_scan_bwd(*dev[:5], dev[5] if given else None)
-        assert ops.LAUNCHES["forecaster_scan_bwd"] == before + 1
-        want = ref.forecaster_scan_bwd_ref(*cpu[:5], cpu[5] if given else None)
-        for g, wv, name in zip(got, want, ("da", "d_one_minus_a", "dw", "dbias")):
-            assert g.is_cuda and _same_bits(g.cpu(), wv), (name, given)
+        h_dev, h_cpu = (dev[5], cpu[5]) if given else (None, None)
+        want = ref.forecaster_scan_bwd_ref(*cpu[:5], h_cpu)
+        for from_fwd in (False, True):
+            kw = {}
+            if from_fwd:
+                ckpt = ops.forecaster_checkpoints(dev[0], S)
+                ops.forecaster_scan(dev[0], *dev[2:5], torch.zeros((), device=cuda_device),
+                                    h_dev, ckpt=ckpt)
+                kw = dict(ckpt=ckpt)
+            before = ops.LAUNCHES["forecaster_scan_bwd"]
+            got = ops.forecaster_scan_bwd(*dev[:5], None if from_fwd else h_dev, **kw)
+            assert ops.LAUNCHES["forecaster_scan_bwd"] == before + 1
+            for g, wv, name in zip(got, want, ("da", "d_one_minus_a", "dw", "dbias")):
+                assert g.is_cuda and _same_bits(g.cpu(), wv), (name, given, from_fwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 3, 8, 16])
+@pytest.mark.parametrize("shape", [(1, 1), (17, 63), (17, 64), (300, 700), (33, 129)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_forecaster_checkpoints_bit_equal_to_plain(cuda_device, shape, S):
+    """The forward's checkpoint output equals the plain scan's (the states it
+    walks) in every bit, NaN in the same places, with and without the
+    readout, h0 given and not; ``y`` and ``h`` equal the store-free call's."""
+    n, T = shape
+    cpu = _forecaster_inputs(n * T + S, n, T, S, "seeded")
+    dev = [a.to(cuda_device) for a in cpu]
+    for write_y in (True, False):
+        for given in (True, False):
+            h_dev, h_cpu = (dev[5], cpu[5]) if given else (None, None)
+            ckpt = torch.full(checkpoint_shape(n, T, S), float("inf"), device=cuda_device)
+            y, h = ops.forecaster_scan(*dev[:5], h_dev, write_y=write_y, ckpt=ckpt)
+            y0, h0 = ops.forecaster_scan(*dev[:5], h_dev, write_y=write_y)
+            want = torch.empty(checkpoint_shape(n, T, S))
+            wy, wh = ref.forecaster_scan_ref(*cpu[:5], h_cpu, write_y=write_y, ckpt=want)
+            assert _same_bits(ckpt.cpu(), want), (write_y, given)
+            assert _same_bits(h, h0) and _same_bits(h.cpu(), wh), (write_y, given)
+            if write_y:
+                assert _same_bits(y, y0) and _same_bits(y.cpu(), wy), given
+
+
+@pytest.mark.cuda
+def test_forecaster_wrappers_refuse_bad_checkpoints(cuda_device):
+    """A checkpoint tensor of the wrong shape, dtype or device, or not
+    contiguous, is refused by the forward and the backward launch; the
+    backward takes checkpoints or h0, not both."""
+    u, dy, a, oma, w, h = (x.to(cuda_device) for x in _bwd_inputs(0, 5, 130, 8, "seeded"))
+    bias = torch.zeros((), device=cuda_device)
+    good = torch.empty(checkpoint_shape(5, 130, 8), device=cuda_device)
+    bad = (torch.empty((2, 5, 8), device=cuda_device),
+           good.double(), good.cpu(), torch.empty((3, 8, 5), device=cuda_device).transpose(1, 2))
+    for ck in bad:
+        with pytest.raises(ValueError, match="ckpt"):
+            forecaster_scan(u, a, oma, w, bias, ckpt=ck)
+        with pytest.raises(ValueError, match="ckpt"):
+            forecaster_scan_bwd(u, dy, a, oma, w, ckpt=ck)
+    forecaster_scan(u, a, oma, w, bias, h, ckpt=good)
+    with pytest.raises(ValueError, match="not both"):
+        forecaster_scan_bwd(u, dy, a, oma, w, h, ckpt=good)
 
 
 @pytest.mark.cuda

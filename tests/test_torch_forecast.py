@@ -58,6 +58,7 @@ from repro_torch.fleet import stream as tstream
 from repro_torch.fleet import topology as ttop
 from repro_torch.fleet.spec import fleet_arrays_from_numpy, fleet_from_params
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.forecaster import BWD_TILE
 from repro_torch.models import ssm as tssm
 from repro_torch.models.convert import tree_from_reference
 
@@ -123,6 +124,29 @@ def test_forecaster_forms_match_jax(S):
     assert pred.dtype == torch.float64 and pred.device == CPU and bool((pred >= 0).all())
     np.testing.assert_allclose(pred.numpy(), jssm.demand_forecaster_predict(jp, series, scale),
                                rtol=PRED_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("S", [1, 8, 16])
+def test_forecaster_checkpoints_match_jax_state(S):
+    """The plain scan's checkpoint output: tile j holds JAX's
+    ``demand_forecaster_state`` over the prefix ``u[:, :64 j]`` (zeros at
+    j = 0), at the forecaster's tolerances; ``y`` and ``h`` are those of
+    the scan without it, bit for bit."""
+    series, scale, jp = _trained(S)
+    tp = tree_from_reference(jp, device=CPU)
+    u = _u(series, scale)
+    ut = torch.from_numpy(u)
+    ops_args = (ut, *tssm._operands(tp, CPU))
+    ckpt = ops.forecaster_checkpoints(ut, S)
+    y, h = ops.forecaster_scan(*ops_args, ckpt=ckpt)
+    y0, h0 = ops.forecaster_scan(*ops_args)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    assert ckpt.shape == (-(-u.shape[1] // BWD_TILE), u.shape[0], S)
+    assert not ckpt[0].any()
+    for j in range(1, ckpt.shape[0]):
+        want = np.asarray(jssm.demand_forecaster_state(jp, u[:, :BWD_TILE * j]))
+        np.testing.assert_allclose(ckpt[j].numpy(), want, rtol=Y_RTOL, atol=Y_ATOL,
+                                   err_msg=f"tile {j}")
 
 
 def test_forecaster_nan_hour_poisons_its_row_as_in_jax():
