@@ -151,16 +151,18 @@ without printing a result):
     (padded) and multicast scenarios, NaN demand in pair 0 under padding
     legs, K = 1 across the month start, chained K = 24 across it, one K past
     the window ring, endogenous CCI demand, ports of 76 and 165 legs (one
-    and two of the port stage's 128-leg tiles) at K = 24, 1 and 33, and the
+    and two of the kernel's 128-leg tiles) at K = 24, 1 and 33, and the
     cell's routing, with its empty ports and 95-leg port, over 200 hours at
-    K = 24 and 5; it streams
+    K = 24 and 5; it prints the kernel's registers and fails on a spill; it
+    streams
     ``build_reroute_scenario(2000, 800, seed 0)`` frozen and with live
     re-packing every 24 hours (``reroute()`` at chunk boundaries), fails
     unless the live run costs less and its decisions equal
     ``replay_plan_topology`` on the card and on the CPU, and prints the
     saving; then it times the tick, the chunk, the host split of a step and
-    the kernel (profiler device time) beside its bound and plain version,
-    with a device breakdown of one chunk;
+    the kernel (profiler device time, its span) beside its bound, its
+    latency floor and its plain version, with a device breakdown of one
+    chunk;
 12. the paper's evaluation (:func:`report_phase`): with every launch count
     at 0, ``build_report`` of the 2048 x 8760 fleet plan with the OPT column
     on the card; it fails unless ``oracle_dp`` launched exactly once (one
@@ -230,8 +232,9 @@ without printing a result):
     bit; holds the gated routed chunk against its plain version on four
     cases; prints the gated instances' registers and spills; then times the
     gated ``stream_chunk`` at 2048 x K = 24 (chunk form) and K = 1-5 (tick
-    form) and the gated routed chunk's two stages, each beside the reactive
-    instance in the same run, its bound and its plain version, the chunk's
+    form) and the gated routed chunk (the call's span), each beside the
+    reactive instance in the same run, its bound (the routed chunk also its
+    latency floor) and its plain version, the chunk's
     p50/p99 beside the reactive stream's, and the device breakdowns;
 15. the forecast-gated policy streamed in live mode
     (:func:`forecast_live_phase`): the live kernels' transcendentals
@@ -257,9 +260,10 @@ without printing a result):
     S = 1 and 16, K around both launch forms' edges) and the live routed
     chunk (four cases) against their plain versions in every output bit and
     the forecaster's state; prints the live instances' registers and spills;
-    then times the live ``stream_chunk`` at 2048 x K = 24 and K = 1-5 and the
-    live routed chunk's two stages, each beside the replay instance in the
-    same run, its bound and its plain version, and the live years' chunk
+    then times the live ``stream_chunk`` at 2048 x K = 24 and K = 1-5 beside
+    the replay instance in the same run, and the routed chunk's live, replay
+    and reactive instances at K = 24 and 1 in turns (the call's span),
+    each beside its bound and latency floor, and the live years' chunk
     p50/p99 beside the replay years', with the device breakdowns;
 16. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
@@ -2403,7 +2407,7 @@ def topology_phase(card: str, fleet_scen) -> dict:
 REROUTE = dict(horizon=2000, shift_hour=800, seed=SEED)   # examples/reroute_demo.py's swap
 REPACK_EVERY, REPACK_WINDOW = 24, 168                     # hours
 NAN_PAD = 64                                              # padding legs of the NaN case
-LEG_TILE = 128                                            # legs a tile of the port stage
+LEG_TILE = 128                                            # legs a leg tile of the routed chunk
 # Pairs on 2 facilities x 2 ports, 200 h: the hottest port holds 76 legs (200
 # pairs) or 165, two leg tiles (400 pairs).
 HOT_PAIRS, HOT_KW = (200, 400), dict(n_facilities=2, ports_per_facility=2, horizon=200)
@@ -2420,12 +2424,13 @@ def routed_chunk_work(P: int, M: int, K: int, Kt: int, E: int, endo: bool,
     # In: the block (the demand (K, P), the CCI demand when endo, pre_v and pre_c
     # (K, M)); per pair capacity, L_vpn (f64) and the tier tables (P, Kt) x 2; per
     # port lease, c_cci, capacity, theta1, theta2 (f64) and h, D, T_cci and the two
-    # holds (int32); the legs (leg_pair, order int32; vpn_w, attach_w f64) and the
-    # (M + 1,) offsets; the carries (cal (2, P), pref (2, M) f64; fsm (4, M) int32).
-    # Out: the flat result (8KM + 2P + 2M f64) and the FSM carry (4, M) int32. The
-    # kernel's (2, K, P) scratch is its own traffic, not the function's.
+    # holds (int32); the port-major legs (leg_pair int32; vpn_w, attach_w f64) and
+    # the (M + 1,) offsets; the carries (cal (2, P), pref (2, M) f64; fsm (4, M)
+    # int32). Out: the flat result (8KM + 2P + 2M f64) and the FSM carry (4, M)
+    # int32. What the kernel reads again (a pair on several legs; a leg's carry
+    # between hour tiles) is its own traffic, not the function's.
     bytes_moved = (8 * ((2 if endo else 1) * K * P + 2 * K * M) + 8 * (2 * P + 2 * P * Kt)
-                   + M * (8 * 5 + 4 * 5) + E * (4 + 4 + 8 + 8) + 4 * (M + 1)
+                   + M * (8 * 5 + 4 * 5) + E * (4 + 8 + 8) + 4 * (M + 1)
                    + 8 * (2 * P + 2 * M) + 4 * 4 * M + 8 * (8 * K * M + 2 * P + 2 * M)
                    + 4 * 4 * M)
     # Per pair-hour: the clips, month sub, carry add, hi add, per tier 6, the VPN
@@ -2436,6 +2441,81 @@ def routed_chunk_work(P: int, M: int, K: int, Kt: int, E: int, endo: bool,
         bytes_moved += 2 * K * M * 8 + M * 8
         ops += 4 * M + K * M * 10
     return bytes_moved, ops
+
+
+# The routed chunk's latency floor: an empty kernel at its grid and dynamic
+# shared memory, plus the dependent chain of its hottest port's block. The
+# latencies are taken low (Hopper; not measured here): a load that hits L2, a
+# dependent float64 add, a dependent integer or float32 operation, and the
+# dependent float64 operations of one expm1, log1p or exp.
+ROUTED_KERNEL = "routed_chunk_kernel"   # a call's one launch: its device time is the span
+ROUTED_THREADS = 512                    # kThreads: a port block, and a calendar block's pairs
+ROUTED_LEG_TILE = 128                   # kLegTile: legs a leg tile
+ROUTED_TILE = 32                        # kTile: hours an hour tile
+L2_HIT_CYCLES = 200
+FP64_DEP_CYCLES = 8
+INT_DEP_CYCLES = 4
+TRANSC_DEP_OPS = 20
+_FLOOR_LIB = []
+
+
+def routed_smem(K: int, Kt: int, endo: bool, live: bool) -> int:
+    """The routed chunk's dynamic shared memory, as its C entry sizes it: two
+    leg planes (three with CCI demand) of kLegTile rows of min(K, kTile) | 1
+    doubles, the legs' tier rows (padded to a multiple of 4 tiers), 32 rows
+    for the block's slice of the calendars, and the live instance's
+    scratch."""
+    stride = min(K, ROUTED_TILE) | 1
+    doubles = ((3 if endo else 2) * ROUTED_LEG_TILE * stride
+               + ROUTED_LEG_TILE * 2 * (-(-Kt // 4) * 4) + 32 * stride)
+    live_bytes = 8 * (4 + 3 * ROUTED_TILE + 1) + 4 * (ROUTED_TILE + 16 * (ROUTED_TILE + 1))
+    return 8 * doubles + (live_bytes if live else 0)
+
+
+def routed_latency_floor(P: int, M: int, K: int, Kt: int, E_max: int, *, live: bool = False,
+                         S: int = 0) -> dict:
+    """The least time a launch of the routed chunk could take on its hottest
+    port's chain: the empty kernel's floor at the chunk's grid (M port blocks
+    of 512 threads, each also walking its slice of the pairs' calendars) and
+    dynamic shared memory, plus, at the card's highest SM clock, three dependent round trips
+    that hit L2 (start[m], the leg descriptors, the gather), K calendar adds,
+    one tier fold's Kt adds and the L_vpn add, the hottest port's E_max leg
+    adds, then the longer of the K prefix adds with the window sum and
+    trigger (3 dependent operations) and, live, the forecaster's state chain
+    (K dependent multiply-adds, S readout adds) with one pass of expm1, log1p
+    and exp; then K flat FSM steps (5 dependent integer operations each)."""
+    if not _FLOOR_LIB:
+        _FLOOR_LIB.append(launch_floor())
+    blocks = max(M, 1)
+    empty = floor_ms(_FLOOR_LIB[0], blocks, ROUTED_THREADS, routed_smem(K, Kt, False, live))
+    mhz = float(sh("nvidia-smi", "--query-gpu=clocks.max.sm",
+                   "--format=csv,noheader,nounits").splitlines()[0])
+    half = (K + 3) * FP64_DEP_CYCLES
+    if live:
+        half = max(half, (2 * K + S) * FP32_DEP_CYCLES + 3 * TRANSC_DEP_OPS * FP64_DEP_CYCLES)
+    cycles = (3 * L2_HIT_CYCLES + (K + Kt + 1 + E_max) * FP64_DEP_CYCLES + half
+              + 5 * K * INT_DEP_CYCLES)
+    chain = cycles / (mhz * 1e6) * 1e3
+    return {"floor_ms": empty + chain, "empty_ms": empty, "chain_ms": chain, "grid": blocks}
+
+
+def hottest_port_legs(routing) -> int:
+    """Legs of the routing operand's busiest port (its LegIndex's runs)."""
+    return int(routing.index.start.diff().max().item())
+
+
+def print_routed_registers() -> None:
+    """-Xptxas -v's registers, stack frame and spills of the routed chunk's
+    three instances (gate modes); fails on a spill or a stack frame."""
+    import re
+
+    for name, rep in sorted(ptxas_instances(ROUTED_KERNEL).items()):
+        check(rep.get("stack") == rep.get("spill_stores") == rep.get("spill_loads") == 0,
+              f"{name} spills or keeps a stack frame: {rep}")
+        m = re.search(r"Li(\d)EE+v", name)
+        print(f"  ptxas {ROUTED_KERNEL} {GATE_MODES[int(m[1])] if m else '?'}: "
+              f"{rep['registers']} registers, {rep['stack']} bytes stack frame, "
+              f"{rep['spill_stores']} bytes spill stores, {rep['spill_loads']} bytes spill loads")
 
 
 def repack_stream(sc, *, live: bool, device=None):
@@ -2575,6 +2655,7 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
     check(0 not in routing.paths[0], "the NaN case needs pair 0 off port 0")
     print(f"stream_chunk_routed: {len(cases)} cases equal the plain version on the card "
           f"({time.perf_counter() - t_cases:.1f} s)")
+    print_routed_registers()
 
     # -- live re-routing: frozen vs re-packed, against the replay oracle ------
     t0 = time.perf_counter()
@@ -2624,20 +2705,22 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
         fused = lambda: stream_chunk_routed(*args, renew_in_chunks=renew)
         plain = lambda: ref.stream_chunk_routed_ref(*args, renew_in_chunks=renew)
         check(same_bits(fused()[0], plain()[0]), f"K = {K}: kernel != plain at the timed block")
-        dev = kernel_device_ms(fused, 20, ("routed_pair_kernel", "routed_port_kernel"),
-                               per_call=1)
+        ms = device_ms_per_call(fused, 20, ROUTED_KERNEL, 1)
+        ms2 = device_ms_per_call(fused, 20, ROUTED_KERNEL, 1)
         b_k = routed_chunk_bound(P, M, K, Kt, E, False)
-        timing[K] = {"ms": dev["routed_pair_kernel"] + dev["routed_port_kernel"],
-                     "pair_ms": dev["routed_pair_kernel"], "port_ms": dev["routed_port_kernel"],
+        lat = routed_latency_floor(P, M, K, Kt, hottest_port_legs(rt_b.arrays.routing))
+        timing[K] = {"ms": ms, "ms2": ms2,
                      "queued_ms": queued_ms(fused, 50), "event_ms": event_ms(fused, 50),
-                     "plain_ms": sync_ms(plain, 3), **b_k}
+                     "plain_ms": sync_ms(plain, 3), **b_k, **lat}
         tk = timing[K]
         print(f"  stream_chunk_routed {P} pairs x K={K} on {M} ports, {E} legs: profiler device "
-              f"time {tk['ms']:.4f} ms (pair stage {tk['pair_ms']:.4f}, port stage "
-              f"{tk['port_ms']:.4f}), CUDA events behind a queue {tk['queued_ms']:.4f} ms, "
-              f"events around one call (host launch included) {tk['event_ms']:.4f} ms; bound "
-              f"{tk['bound_ms'] * 1e3:.3f} us ({tk['bound_by']}), {tk['ms'] / tk['bound_ms']:.1f}x "
-              f"bound; plain {tk['plain_ms']:.3f} ms")
+              f"time (one launch, its span) {tk['ms']:.5f} / {tk['ms2']:.5f} ms, CUDA events "
+              f"behind a queue {tk['queued_ms']:.4f} ms, events around one call (host launch "
+              f"included) {tk['event_ms']:.4f} ms; bound {tk['bound_ms'] * 1e3:.3f} us "
+              f"({tk['bound_by']}), {tk['ms'] / tk['bound_ms']:.1f}x bound; latency floor "
+              f"{tk['floor_ms']:.5f} ms (empty kernel at {tk['grid']} x {ROUTED_THREADS} "
+              f"{tk['empty_ms']:.5f} + chain {tk['chain_ms']:.5f}), "
+              f"{tk['ms'] / tk['floor_ms']:.2f}x it; plain {tk['plain_ms']:.3f} ms")
     print_step_split(rt_b, sc.demand, t_first, f"{P} pairs")
     blk = sc.demand[:, t_first:t_first + STREAM_K]
     print_breakdown(lambda: rt_b.step_many(blk), reps=6, unit="chunk")
@@ -2717,7 +2800,7 @@ def print_stream_registers(modes) -> None:
     the mangled name (0 ungated, 1 replay, 2 live)."""
     import re
 
-    for kernel in ("stream_chunk_tick_kernel", "stream_chunk_pipe_kernel", "routed_port_kernel"):
+    for kernel in ("stream_chunk_tick_kernel", "stream_chunk_pipe_kernel", "routed_chunk_kernel"):
         for name, rep_ in sorted(ptxas_instances(kernel).items()):
             m = re.search(r"Li(\d)EE+v", name)
             mode = GATE_MODES[int(m[1])] if m else "?"
@@ -3816,20 +3899,19 @@ def forecast_stream_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
     tgot = tcall()
     check(same_bits(tgot[0], twant[0]) and same_bits(tgot[1], twant[1]),
           "gated stream_chunk_routed != plain at the timed block")
-    stages = ("routed_pair_kernel", "routed_port_kernel")
-    tg = kernel_device_ms(tcall, 20, stages, per_call=1)
-    tr = kernel_device_ms(lambda: stream_chunk_routed(*targs), 20, stages, per_call=1)
+    span = lambda fn: device_ms_per_call(fn, 20, ROUTED_KERNEL, 1)
+    t_ms = span(tcall)
+    r_ms = span(lambda: stream_chunk_routed(*targs))
+    t2_ms = span(tcall)
     E = trt_b.arrays.routing.n_legs
     tb = routed_chunk_bound(P, M, STREAM_K, Kt, E, False, gated=True)
+    lat = routed_latency_floor(P, M, STREAM_K, Kt, hottest_port_legs(trt_b.arrays.routing))
     t_plain = sync_ms(lambda: ref.stream_chunk_routed_ref(*targs, gate=tgate), 3)
-    t_ms = tg["routed_pair_kernel"] + tg["routed_port_kernel"]
-    print(f"  stream_chunk_routed gated {P} pairs x K={STREAM_K} on {M} ports, {E} legs: "
-          f"{t_ms:.5f} ms (pair stage {tg['routed_pair_kernel']:.5f}, port stage "
-          f"{tg['routed_port_kernel']:.5f}); reactive instance "
-          f"{tr['routed_pair_kernel'] + tr['routed_port_kernel']:.5f} ms (pair "
-          f"{tr['routed_pair_kernel']:.5f}, port {tr['routed_port_kernel']:.5f}); bound "
-          f"{tb['bound_ms'] * 1e3:.3f} us ({tb['bound_by']}), {t_ms / tb['bound_ms']:.1f}x bound; "
-          f"plain {t_plain:.3f} ms")
+    print(f"  stream_chunk_routed gated {P} pairs x K={STREAM_K} on {M} ports, {E} legs "
+          f"(the call's span): {t_ms:.5f} / {t2_ms:.5f} ms, reactive instance {r_ms:.5f} ms "
+          f"(in turns); bound {tb['bound_ms'] * 1e3:.3f} us ({tb['bound_by']}), "
+          f"{t_ms / tb['bound_ms']:.1f}x bound; latency floor {lat['floor_ms']:.5f} ms (empty "
+          f"kernel {lat['empty_ms']:.5f} + chain {lat['chain_ms']:.5f}); plain {t_plain:.3f} ms")
     print_breakdown(lambda: trt_b.step_many(tsc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K]), reps=6,
                     unit="forecast-gated topology chunk")
     print(f"forecast stream phase: {time.perf_counter() - t_phase:.1f} s")
@@ -4177,29 +4259,48 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
     trt_r = FleetRuntime(tsc.topo, routing=r0, policy=rpol)
     stream(trt_l, tsc.demand[:, :SWEEP_T0], STREAM_K)
     stream(trt_r, tsc.demand[:, :SWEEP_T0], STREAM_K)
-    block, _, _ = trt_l._pack(tsc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K], None)
-    targs = trt_l._chunk_args(torch.from_numpy(block).to(DEVICE), STREAM_K, False)
-    st = trt_l._state
-    tlive = (st.ssm_h, st.pred_live, *trt_l._live)
-    twant = ref.stream_chunk_routed_ref(*targs, live=tlive)
-    tcall = lambda: stream_chunk_routed(*targs, live=tlive)
-    check(all(same_bits(g, w) for g, w in zip(tcall(), twant)),
-          "live stream_chunk_routed != plain at the timed block")
-    stages = ("routed_pair_kernel", "routed_port_kernel")
-    tl = kernel_device_ms(tcall, 20, stages, per_call=1)
-    tr = kernel_device_ms(lambda: stream_chunk_routed(*targs, gate=trt_r._gate), 20, stages,
-                          per_call=1)
+    # Every gate mode of the routed chunk at K = 24 and K = 1, in turns (live,
+    # replay, reactive, reactive, replay, live), each beside its byte bound and
+    # its latency floor.
     E = trt_l.arrays.routing.n_legs
-    tb = live_bound(*routed_chunk_work(P, M, STREAM_K, Kt, E, False), M, STREAM_K, S)
-    t_plain = sync_ms(lambda: ref.stream_chunk_routed_ref(*targs, live=tlive), 3)
-    t_ms = tl["routed_pair_kernel"] + tl["routed_port_kernel"]
-    print(f"  stream_chunk_routed live {P} pairs x K={STREAM_K} on {M} ports, {E} legs: "
-          f"{t_ms:.5f} ms (pair stage {tl['routed_pair_kernel']:.5f}, port stage "
-          f"{tl['routed_port_kernel']:.5f}); replay instance "
-          f"{tr['routed_pair_kernel'] + tr['routed_port_kernel']:.5f} ms (pair "
-          f"{tr['routed_pair_kernel']:.5f}, port {tr['routed_port_kernel']:.5f}); bound "
-          f"{tb['bound_ms'] * 1e3:.3f} us ({tb['bound_by']}), {t_ms / tb['bound_ms']:.1f}x bound; "
-          f"plain {t_plain:.3f} ms")
+    E_max = hottest_port_legs(trt_l.arrays.routing)
+    span = lambda fn: device_ms_per_call(fn, 20, ROUTED_KERNEL, 1)
+    turns = {}
+    for K in (STREAM_K, 1):
+        block, _, _ = trt_l._pack(tsc.demand[:, SWEEP_T0:SWEEP_T0 + K], None)
+        targs = trt_l._chunk_args(torch.from_numpy(block).to(DEVICE), K, False)
+        rblock, _, _ = trt_r._pack(tsc.demand[:, SWEEP_T0:SWEEP_T0 + K], None)
+        rargs = trt_r._chunk_args(torch.from_numpy(rblock).to(DEVICE), K, False)
+        st = trt_l._state
+        tlive = (st.ssm_h, st.pred_live, *trt_l._live)
+        twant = ref.stream_chunk_routed_ref(*targs, live=tlive)
+        calls = {"live": lambda: stream_chunk_routed(*targs, live=tlive),
+                 "replay": lambda: stream_chunk_routed(*rargs, gate=trt_r._gate),
+                 "reactive": lambda: stream_chunk_routed(*rargs)}
+        check(all(same_bits(g, w) for g, w in zip(calls["live"](), twant)),
+              f"live stream_chunk_routed K = {K} != plain at the timed block")
+        got = {mode: [] for mode in calls}
+        for mode in ("live", "replay", "reactive", "reactive", "replay", "live"):
+            got[mode].append(span(calls[mode]))
+        bounds = {"live": live_bound(*routed_chunk_work(P, M, K, Kt, E, False), M, K, S),
+                  "replay": routed_chunk_bound(P, M, K, Kt, E, False, gated=True),
+                  "reactive": routed_chunk_bound(P, M, K, Kt, E, False)}
+        for mode in calls:
+            lat = routed_latency_floor(P, M, K, Kt, E_max, live=mode == "live", S=S)
+            b = bounds[mode]
+            turns[(mode, K)] = {"ms": got[mode][0], "ms2": got[mode][1], **b, **lat}
+            print(f"  stream_chunk_routed {mode} {P} pairs x K={K} on {M} ports, {E} legs "
+                  f"(hottest port {E_max}), the call's span in turns: {got[mode][0]:.5f} / "
+                  f"{got[mode][1]:.5f} ms; bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), "
+                  f"{got[mode][0] / b['bound_ms']:.1f}x; latency floor {lat['floor_ms']:.5f} ms "
+                  f"(empty kernel at {lat['grid']} x {ROUTED_THREADS} {lat['empty_ms']:.5f} + "
+                  f"chain {lat['chain_ms']:.5f}), {got[mode][0] / lat['floor_ms']:.2f}x it")
+        if K == STREAM_K:
+            tb, t_ms = bounds["live"], got["live"][0]
+            t_plain = sync_ms(lambda: ref.stream_chunk_routed_ref(*targs, live=tlive), 3)
+    print(f"  live - replay in the same run, K = {STREAM_K}: "
+          f"{(turns[('live', STREAM_K)]['ms'] - turns[('replay', STREAM_K)]['ms']) * 1e3:.3f} us; "
+          f"live plain {t_plain:.3f} ms")
     print_breakdown(lambda: trt_l.step_many(tsc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K]), reps=6,
                     unit="live topology chunk")
     print(f"forecast live phase: {time.perf_counter() - t_phase:.1f} s")

@@ -1,5 +1,5 @@
 // The streaming runtime's chunk in topology mode: K hours of every pair and
-// port, from the packed host block to the packed result, in one C entry.
+// port, from the packed host block to the packed result, in one launch.
 //
 // Replaces: the chunk step of the JAX streaming runtime with topology=True,
 // src/repro/fleet/runtime.py::_build_step_many (one jitted dispatch for K
@@ -10,9 +10,10 @@
 // prefix snapshots, window sums and FSM per port (:501-515, :577). The fleet
 // form of the same chunk (one row per link, no fold) is stream_chunk.cu.
 //
-// In (flat float64 block, the runtime's _pack layout): demand (K, P), the CCI
-// demand (K, P) when the chunk prices the CCI counterfactual on its own
-// volume, then the host's pre-chunk window reads pre_v, pre_c (K, M). Out: the
+// In (flat float64 block, the runtime's _pack layout): demand (P, K), the CCI
+// demand (P, K) when the chunk prices the CCI counterfactual on its own
+// volume, both pair-major, then the host's pre-chunk window reads pre_v, pre_c
+// (K, M). Out: the
 // packed float64 result, flat: the planes vpn, cci, r_vpn, r_cci, snap_v,
 // snap_c, x, state, (K, M) each, then dcum, dcum_month (P each), then
 // vpn_pref, cci_pref (M each); and the FSM carry (4, M) int32.
@@ -29,88 +30,99 @@
 // -fmad=false, so every output equals the plain version's bit for bit. The leg
 // sums are leg_segment_sum.cu's walk: padding legs (row 0, port 0, zero
 // weights) are walked in their place, so a NaN in pair 0 reaches port 0
-// (NaN * 0 is NaN) and +0.0 + -0.0 stays +0.0, as in the scatter.
+// (NaN * 0 is NaN) and +0.0 + -0.0 stays +0.0, as in the scatter. No atomics,
+// no parallel prefix and no split leg sum: each would change bits.
 //
 // What bounds it on an H100: at 2048 pairs x K = 24 on 128 ports (2048 legs)
 // it must move ~0.93 MB (the block in, the result out, tables, legs and
-// carries), 0.28 us at 3.35 TB/s, less than the device time of two launches.
+// carries), 0.28 us at 3.35 TB/s, less than the device time of one launch.
 // What a chunk cannot avoid is latency: the chains (a pair's calendar, a
 // port's leg sum in leg order, its cost prefixes and FSM) are K or E_m
 // dependent adds long, and every chain's operands are a device-memory round
-// trip away. The aim is stream_chunk.cu's: one round trip per tile, not per
-// link of a chain.
+// trip away.
 //
-// Why the first form (one thread a pair; one warp a port, lane k walking hour
-// k's legs) sat at 232x its bound (0.0646 ms at K = 24, 0.0349 at K = 1):
-//   pair stage: 16 blocks of 128 threads on 132 SMs, each thread walking its
-//     24 hours with the tier fold's (bound, rate) rows read from device memory
-//     inside the loop: about 1 us an hour;
-//   port stage: each leg was three dependent loads (order[j] -> leg_pair[e]
-//     -> the scratch value), one leg after another, so the hottest port (95
-//     legs) paid ~285 round trips, on lane 0 alone at K = 1; and the scratch
-//     was hour-major (K, P), so one leg's warp load touched K separate rows.
+// History. The first form (one thread a pair; one warp a port, lane k
+// walking hour k's legs through three dependent loads a leg) sat at 232x its
+// bound (0.0646 ms at K = 24). The second was two kernels on the
+// stream: a pair stage (stream_chunk.cu's 16-pair tile) writing a pair-major
+// (P, K) scratch, then a port stage, one block a port, staging up to 128 legs
+// through `order` and gathering their scratch rows with cp.async. It took
+// 0.0091 ms at K = 24 (pair 0.0029, port 0.0062), the live instance 0.0116:
+// two launch floors in series, a port stage whose prologue started only when
+// every pair block had drained, four dependent round trips (start, order,
+// leg_pair, the scratch) before the first add of the leg fold, seven
+// block-wide barriers a tile, the cascade FSM step, and each hour's forecast
+// formed twice (two float64 expm1) on the path to the FSM.
 //
-// Design: two kernels on the caller's stream (the fold needs every pair
-// priced first), and a pair-major (P, K) scratch between them.
-//   pair stage, stream_chunk.cu's (hour, row) tile: a block owns kRows = 16
-//     pairs (2048 pairs are 128 blocks) and walks the chunk in tiles of kTile =
-//     32 hours, any K, one thread per (hour, pair). Each thread issues its
-//     demand and CCI demand loads at once (an hour's 16 pairs are 128
-//     contiguous bytes) and clips them; the first tile also copies the block's
-//     (bound, rate) rows into shared memory. Warp 0, lane r on pair r, runs the
-//     calendar prefix, the only chain; then every thread runs its own tier fold
-//     (tier::fold_with over the shared tables, tier::fold's arithmetic). The
-//     tile's two planes are transposed in shared memory and stored pair-major,
-//     so a pair's K hours are contiguous for the port stage's gathers.
-//   port stage: one block of 4 warps per port (128 ports on 132 SMs). It walks
-//     the port's run of the port-major leg index (a stable sort of leg_port on
-//     the host, ascending leg index within a port) in tiles of kLegTile = 128
-//     legs, any number of tiles. Stage: thread j loads leg j's order, then its
-//     pair and two weights into shared memory, so a tile's index chains are
-//     in flight together and cost two round trips, not two a leg. Gather: the
-//     block copies the tile's (legs x hours) values of both planes into
-//     shared memory with cp.async, each leg's hours one contiguous run of the
-//     pair-major scratch, every copy issued before any is waited on (at K = 1
-//     the threads cover legs, so the gather stays parallel); one round trip.
-//     Fold: lane k of warp 0 (VPN) and of warp 1 (the attached volume) adds
-//     hour k over the tile's legs in ascending order from shared memory,
-//     carrying its sum into the next tile. The hottest port (95 legs) thus
-//     costs one tile: three round trips and 95 dependent shared-memory adds
-//     on each fold lane. Warp 3 meanwhile loads the hours' window bases.
-//     Then, as stream_chunk.cu: lane 0 of warp 0 runs the cost prefixes into
-//     the snapshots, warp 0's lanes form each hour's window sums and
-//     triggers, and lane 0 of warp 1 runs the FSM (fsm_step.cuh) alone,
-//     integers only, so no chain waits on off-chain work.
+// Two launches a chunk stay slower on the card even with the port stage as a
+// programmatic dependent of the pair stage
+// (cudaLaunchAttributeProgrammaticStreamSerialization): on an idle card the
+// host's second launch falls in the gap between them, inside the chunk's
+// span. So one launch.
 //
-// The forecast-gated policy in replay mode is the port stage's gated instance (kReplay)
-// (the pair stage does not change): warp 0's lanes, one an hour, gate their
+// Design: one kernel, one block of 16 warps a port (128 ports on 132 SMs). A
+// port block prices its own legs' pairs: a pair on several legs is priced
+// identically by each block that holds it, so the bits stay. It walks the
+// chunk in tiles of kTile hours and, in each, its run of the port-major leg
+// descriptors (RoutingPlan.operand builds leg_pair, vpn_w and attach_w
+// gathered through the stable sort by port, once per routing) in tiles of
+// kLegTile legs, with a __syncthreads between the steps:
+//   stage (thread j, leg j): one round trip for the leg's pair and weights;
+//     its pair's capacity, L_vpn and calendar carry are loaded into registers
+//     through the next step (past the first hour tile of a port of more than
+//     kLegTile legs, the carry comes from the (2, E) scratch this thread
+//     wrote, leg_cal);
+//   gather (every thread, one (leg, hour) a copy): the legs' hours of demand
+//     (and CCI demand) into shared memory rows with cp.async, from the
+//     pair-major block (the runtime packs the demand (P, K) in topology
+//     mode, so that consecutive threads copy consecutive words), and the
+//     legs' tier rows, padded to a multiple of four tiers;
+//   clip (every thread, one (leg, hour)): at the pair's capacity;
+//   calendar (thread j): the pair's month-to-date volume before each hour,
+//     one add an hour on the chain;
+//   fold (every thread, one (leg, hour)): tier_fold.cuh's fold_staged4, then
+//     the legs' products (vpn_pair * vpn_w, the billed volume * attach_w and,
+//     live with CCI demand, the clipped demand * attach_w) in place;
+//   leg fold: lane k of warp 0 adds hour k's VPN cost over the legs in
+//     ascending order from shared memory, lane k of warp 1 the attached
+//     volume (live with CCI demand, the clipped demand beside it), eight rows
+//     loaded while the adds of the last eight run, carrying each sum into the
+//     next leg tile.
+// Then the port half, on two warps that meet at two named barriers:
+//   warp 1 prices the CCI plane and arrives on kBarCost; in the live instance
+//     it then steps the forecaster (lane s state s over the tile's hours;
+//     lane k hour k's input, readout and its one forecast, kept in shared
+//     memory, which lane k + 1 reads as the forecast carried into its hour),
+//     forms the predicted mode costs of each hour's carried forecast and
+//     arrives on kBarGate;
+//   warp 0 loaded each hour's window base (and, in replay mode, its predicted
+//     costs) at the top of the tile; it waits on kBarCost, runs the cost
+//     prefixes on lane 0, the window sums and triggers on lane k (live: after
+//     kBarGate), the FSM on lane 0 with fsm_step.cuh's fsm_step_flat, and
+//     stores the planes, with only __syncwarp between its phases;
+//   warp kCalWarp walks the block's slice of the pairs' calendars over the
+//     whole chunk (ceil(P / M) pairs, a lane a pair, 32 at a time) and writes
+//     each pair's carry (cal_out) exactly once, whatever legs it has.
+// What holds it back (PERF.md): a warp's instructions. One warp issues an
+// FP64 or integer instruction at most every other cycle, so each step runs at
+// its instruction count: the hottest port's block prices its 95 legs' 24
+// hours (gather, clip, tier folds) on one SM, and every block walks a 24-hour
+// calendar and a 24-hour FSM on one lane.
+//
+// Gate modes (the template's G). kUngated: reactive/hysteresis. kReplay, the
+// forecast-gated policy in replay mode: warp 0's lanes, one an hour, gate their
 // raw triggers with fsm_step.cuh's fsm_gated_triggers on the thresholds
 // fsm_gate forms once a port, against the port's predicted mode costs at hour
-// min(t0 + k, T_pred - 1) of two hour-major (T_pred, M) planes. Each lane
-// loads its hour's two values at the top of the hour tile, so the loads (K x
-// M elements a chunk, strided by M across the lanes) are in flight during
-// the leg fold. The predictions are per port and do not depend on the
-// routing, so reroute() leaves them as they are.
-//
-// The same policy in live mode (src/repro/fleet/runtime.py:541-575) is the
-// port stage's LIVE instance (gate mode G = kLive; kUngated and kReplay are
-// the two above): the port's SSM demand forecaster steps inside the chunk
-// (live_forecast.cuh) on d_row, the port's clipped pair demand folded with
-// the attachment weights, in leg order, then minimum'd with the port's
-// capacity (runtime.py:485-488). Without endogenous demand that is the
-// billed volume warp 1 folds already; with it, d_row folds the VPN-path
-// demand, not the CCI demand the bill folds, so the pair stage writes a third
-// pair-major scratch plane, the clipped demand (its VPN_D instance), the port
-// stage gathers it beside the other two and warp 2's lanes fold it. Each hour
-// tile, after the cost planes: warp 2 forms each hour's input u (lane k, hour
-// k), then lane s walks state s's chain over the tile's hours, writing its
-// readout terms, then lane k folds hour k's terms left from state 0 into the
-// readout y, while lane 0 of warp 0 runs the cost prefixes. Warp 0's lanes,
-// one an hour, then form the forecasts before and after their hour from y
-// (slot 0 of the readouts holds the previous tile's last hour; the chunk's
-// first hour reads the carried pred_in), the predicted costs and the gates,
-// and store the forecast plane (the result's ninth (K, M) plane; the tail
-// moves to 9K). Lane 0 of warp 1 runs the FSM as before.
+// min(t0 + k, T_pred - 1) of two hour-major (T_pred, M) planes, loaded at the
+// top of the hour tile so that they are in flight during the leg fold. kLive,
+// the same policy in live mode (src/repro/fleet/runtime.py:541-575): the
+// port's SSM demand forecaster steps inside the chunk (live_forecast.cuh) on
+// d_row, the port's clipped pair demand folded with the attachment weights
+// in leg order, then minimum'd with the port's capacity (runtime.py:485-488).
+// Without endogenous demand that is the billed volume warp 1 folds already;
+// with it, warp 1 folds the clipped demand beside the bill. The forecasts
+// made after each hour are the result's ninth (K, M) plane (the tail moves
+// to 9K).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -122,490 +134,627 @@
 
 namespace {
 
-constexpr int kRows = 16;                     // pairs a block of the pair stage
 constexpr int kTile = 32;                     // hours a tile
-constexpr int kPairThreads = kTile * kRows;   // one (hour, pair) a thread
-constexpr int kPortThreads = 128;             // one port a block, 4 warps
-constexpr int kLegTile = kPortThreads;        // legs a tile of the port stage: one a thread
+constexpr int kThreads = 512;                 // a port block's 16 warps
+constexpr int kLegTile = 128;                 // legs a leg tile: one a thread of warps 0..3
 constexpr int kMaxSmem = 227 * 1024;
 constexpr int kMaxState = 16;                 // the live forecaster's states (MAX_STATE)
-// The port stage's gate mode: reactive/hysteresis, forecast-gated in replay
-// mode (predicted-cost planes given), forecast-gated in live mode.
+// The gate modes: reactive/hysteresis, forecast-gated in replay mode
+// (predicted-cost planes given), forecast-gated in live mode.
 constexpr int kUngated = 0, kReplay = 1, kLive = 2;
-// kLive: the port stage's per-tile forecaster scratch behind the gathered
-// values: d_row (kTile doubles), the readouts y (kTile + 1 floats), the
-// inputs u (kTile), the readout terms (kMaxState rows of kTile + 1).
-constexpr size_t kLiveSmem =
-    sizeof(double) * kTile + sizeof(float) * ((kTile + 1) + kTile + kMaxState * (kTile + 1));
+// Named barriers of warps 0 and 1 (0 is __syncthreads): the CCI plane, and
+// (live) the predicted mode costs, handed from warp 1 to warp 0.
+constexpr int kBarCost = 1, kBarGate = 2;
+constexpr int kBarThreads = 64;
+// The warp that walks the block's slice of the pairs' calendars, while warps
+// 0 and 1 run the port half of the chunk's first hour tile.
+constexpr int kCalWarp = 2;
 
-// torch.minimum: NaN if either side is NaN (fmin drops it), else the smaller.
-__device__ __forceinline__ double minimum(double a, double b) {
-  return isnan(a) ? a : isnan(b) ? b : (b < a ? b : a);
-}
-
-// One tile of the pair stage's 16 pairs: hour-major [hour][pair] for the
-// calendar lanes and the (hour, pair) threads, and the two scratch planes
-// pair-major [pair][hour] (one double of padding a row) for the stores.
-struct PairTile {
-  double d[kTile][kRows];          // clipped demand
-  double lo[kTile][kRows];         // month-to-date volume before the hour
-  double v[kRows][kTile + 1];      // vpn_pair
-  double dc[kRows][kTile + 1];     // clipped CCI demand
+// The launch's operands (null where the instance reads none).
+struct RoutedArgs {
+  const double* demand;         // (P, K), pair-major
+  const double* cci_demand;     // (P, K) or null
+  const double* pre_v;          // (K, M)
+  const double* pre_c;
+  const double* pair_capacity;  // (P,)
+  const double* L_vpn;
+  const double* bounds;         // (P, Kt)
+  const double* rates;
+  const double* lease_cci;      // (M,) L_cci + V_cci * n_attach
+  const double* c_cci;
+  const double* port_capacity;
+  const double* theta1;
+  const double* theta2;
+  const int* win;
+  const int* delay;
+  const int* commit;
+  const int* up_hold;
+  const int* down_hold;
+  const int* leg_pair;          // (E,) port-major: each port's legs in ascending leg index
+  const double* vpn_w;
+  const double* attach_w;
+  const int* start;             // (M + 1,) each port's run
+  const double* cal_in;         // (2, P) dcum, dcum_month
+  const int* fsm_in;            // (4, M)
+  const double* pref_in;        // (2, M)
+  double* leg_cal;              // (2, E) the legs' calendar carries between hour tiles, or null
+  const double* p_vpn;          // (T_pred, M): kReplay only
+  const double* p_cci;
+  const double* margin;         // (M,)
+  const float* h_in;            // (M, S): kLive only
+  const double* pred_in;        // (M,)
+  const float* ssm_a;           // (S,) a, 1 - a, w; bias ()
+  const float* ssm_oma;
+  const float* ssm_w;
+  const float* ssm_bias;
+  const double* scale;          // (M,)
+  const double* coef;           // (M, 4)
+  int renew_in_chunks, t0, phase0, hours_per_month, K, P, M, E, Kt, T_pred, S;
+  int stride;                   // doubles a leg's row of a leg plane: min(K, kTile) | 1
+  double* out;                  // planes written, snap rows read back
+  int* fsm_out;                 // (4, M)
+  float* h_out;                 // (M, S)
 };
 
-// VPN_D: also store the clipped demand pair-major (the live forecast's input
-// with endogenous demand).
-template <bool VPN_D>
-__global__ void __launch_bounds__(kPairThreads)
-routed_pair_kernel(const double* __restrict__ demand,      // (K, P)
-                   const double* __restrict__ cci_demand,  // (K, P) or null
-                   const double* __restrict__ capacity,    // (P,)
-                   const double* __restrict__ L_vpn,
-                   const double* __restrict__ bounds,      // (P, Kt)
-                   const double* __restrict__ rates,
-                   const double* __restrict__ cal_in,      // (2, P) dcum, dcum_month
-                   int phase0, int hours_per_month, int K, int P, int Kt,
-                   double* __restrict__ vpn_pair,          // (P, K) scratch
-                   double* __restrict__ d_cci,             // (P, K) scratch
-                   double* __restrict__ cal_out,           // (2, P) in the result
-                   double* __restrict__ d_vpn) {           // (P, K) scratch: VPN_D only
-  __shared__ PairTile sm;
-  extern __shared__ double tables[];       // bounds (kRows, Kt), then rates (kRows, Kt)
-  const int n0 = blockIdx.x * kRows;
-  const int rows = min(kRows, P - n0);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kk = tid / kRows;              // this thread's hour in every tile
-  const int r = tid % kRows;               // and its pair
-  const int n = n0 + r;
-  const bool has_row = r < rows;
-  double cap = 0.0, lvpn = 0.0;
-  if (has_row) {
-    cap = capacity[n];
-    lvpn = L_vpn[n];
-  }
-  // Warp 0's lanes: the calendar of pair n0 + lane.
-  const bool chain = warp == 0 && lane < rows;
-  const int cn = n0 + lane;
-  double dcum = 0.0, month = 0.0;
-  if (chain) {
-    dcum = cal_in[cn];
-    month = cal_in[P + cn];
-  }
-  int ph = phase0;                         // (t0 + k) % hours_per_month
-  const double* tb = tables + r * Kt;      // this thread's pair's table
-  const double* tr = tables + (kRows + r) * Kt;
-
-  for (int k0 = 0; k0 < K; k0 += kTile) {
-    const int len = min(kTile, K - k0);
-    const bool mine = has_row && kk < len;
-
-    // (0) stage: the loads first, then the tables (first tile), then the stores
-    double dv = 0.0, cv = 0.0;
-    if (mine) {
-      const int64_t i = (int64_t)(k0 + kk) * P + n;
-      dv = demand[i];
-      if (cci_demand != nullptr) cv = cci_demand[i];
-    }
-    if (k0 == 0) {
-      for (int o = tid; o < rows * Kt; o += kPairThreads) {
-        tables[o] = bounds[(int64_t)n0 * Kt + o];
-        tables[kRows * Kt + o] = rates[(int64_t)n0 * Kt + o];
-      }
-    }
-    if (mine) {
-      const double d = minimum(dv, cap);
-      sm.d[kk][r] = d;
-      sm.dc[r][kk] = cci_demand != nullptr ? minimum(cv, cap) : d;
-    }
-    __syncthreads();
-
-    // (a) the billing calendar, one add an hour on the chain
-    if (chain) {
-#pragma unroll 8
-      for (int k = 0; k < len; ++k) {
-        if (ph == 0) month = dcum;
-        sm.lo[k][lane] = __dsub_rn(dcum, month);
-        dcum = __dadd_rn(dcum, sm.d[k][lane]);
-        ph = ph + 1 == hours_per_month ? 0 : ph + 1;
-      }
-    }
-    __syncthreads();
-
-    // (b) every (hour, pair): its tier fold
-    if (mine) {
-      const double transfer = tier::fold_with(
-          sm.lo[kk][r], sm.d[kk][r], [tb](int t) { return tb[t]; },
-          [tr](int t) { return tr[t]; }, Kt);
-      sm.v[r][kk] = __dadd_rn(lvpn, transfer);
-    }
-    __syncthreads();
-
-    // (c) the tile's planes, pair-major: each pair's hours one contiguous run
-    for (int o = tid; o < rows * len; o += kPairThreads) {
-      const int rr = o / len, k = o - rr * len;
-      const int64_t a = (int64_t)(n0 + rr) * K + k0 + k;
-      vpn_pair[a] = sm.v[rr][k];
-      d_cci[a] = sm.dc[rr][k];
-      if constexpr (VPN_D) d_vpn[a] = sm.d[k][rr];
-    }
-    __syncthreads();   // the next tile reuses sm
-  }
-
-  if (chain) {
-    cal_out[cn] = dcum;
-    cal_out[P + cn] = month;
-  }
-}
-
-// The port stage's shared memory: one tile of the port's legs (staged: pair,
-// VPN share, attachment weight) and one hour tile's per-hour values. The
-// gathered (legs x hours) values of the two planes are dynamic shared memory.
+// The port block's static shared memory: the leg tile's weights and L_vpn,
+// and one hour tile's per-hour values of the port half.
 struct PortSmem {
   double wv[kLegTile];
   double wa[kLegTile];
+  double lvpn[kLegTile];
+  double pcap[kLegTile];           // the pairs' capacities (the CCI demand's clip)
   int lp[kLegTile];
   double v[kTile];                 // the hour's VPN and CCI costs
   double c[kTile];
-  double bv[kTile];                // window bases older than the hour tile
-  double bc[kTile];
   double sv[kTile];                // prefix snapshots: pref before the hour
   double sc[kTile];
   int trig[kTile];                 // raw triggers: bit 0 request, bit 1 release
   int state[kTile];
 };
 
+// kLive: the forecaster's scratch behind the rest of the dynamic shared memory.
+struct LiveSmem {
+  double coef[4];                  // the port's cost coefficients
+  double pred[kTile + 1];          // slot k + 1: the forecast made after hour k (0 unused)
+  double gv[kTile];                // the predicted mode costs of the forecast carried into hour k
+  double gc[kTile];
+  float u[kTile];                  // the forecaster's inputs
+  float terms[kMaxState][kTile + 1];
+};
+
+// Doubles of the dynamic shared memory: the leg planes D (clipped demand),
+// LO (month-to-date volume, then vpn_pair) and, with CCI demand, C (clipped
+// CCI demand), kLegTile rows of `stride` each; then the tables, a leg's Kt4
+// bounds and Kt4 rates a row (Kt rounded up to a multiple of 4, padded with
+// tiers of bound -inf: tier_fold.cuh's fold_staged4); then 32 rows of the
+// block's slice of the calendars; then, live, LiveSmem.
+__host__ __device__ inline size_t plane_doubles(int stride) {
+  return (size_t)kLegTile * stride;
+}
+__host__ __device__ inline size_t table_offset(int stride, bool endo) {
+  return (endo ? 3 : 2) * plane_doubles(stride);
+}
+__host__ __device__ inline int tiers4(int Kt) { return (Kt + 3) / 4 * 4; }
+__host__ __device__ inline size_t slice_offset(int stride, bool endo, int Kt) {
+  return table_offset(stride, endo) + (size_t)kLegTile * 2 * tiers4(Kt);
+}
+__host__ __device__ inline size_t live_offset(int stride, bool endo, int Kt) {
+  return slice_offset(stride, endo, Kt) + (size_t)32 * stride;
+}
+
+// Named barriers: the producer arrives, the consumer waits; both are whole
+// warps (the __syncwarp reconverges a warp whose lanes took different paths).
+__device__ __forceinline__ void bar_arrive(int id) {
+  __syncwarp();
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kBarThreads) : "memory");
+}
+__device__ __forceinline__ void bar_wait(int id) {
+  __syncwarp();
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kBarThreads) : "memory");
+}
+
 template <int G>
-__global__ void __launch_bounds__(kPortThreads)
-routed_port_kernel(const double* __restrict__ vpn_pair,    // (P, K) scratch
-                   const double* __restrict__ d_cci,       // (P, K) scratch
-                   const double* __restrict__ pre_v,       // (K, M)
-                   const double* __restrict__ pre_c,
-                   const double* __restrict__ lease_cci,   // (M,) L_cci + V_cci * n_attach
-                   const double* __restrict__ c_cci,
-                   const double* __restrict__ port_capacity,
-                   const double* __restrict__ theta1,
-                   const double* __restrict__ theta2,
-                   const int* __restrict__ win,
-                   const int* __restrict__ delay,
-                   const int* __restrict__ commit,
-                   const int* __restrict__ up_hold,
-                   const int* __restrict__ down_hold,
-                   const int* __restrict__ leg_pair,       // (E,)
-                   const double* __restrict__ vpn_w,
-                   const double* __restrict__ attach_w,
-                   const int* __restrict__ order,          // (E,) legs in port-major order
-                   const int* __restrict__ start,          // (M + 1,)
-                   const int* __restrict__ fsm_in,         // (4, M)
-                   const double* __restrict__ pref_in,     // (2, M)
-                   const double* __restrict__ p_vpn,       // (T_pred, M): kReplay only
-                   const double* __restrict__ p_cci,
-                   const double* __restrict__ margin,      // (M,)
-                   int renew_in_chunks, int t0, int K, int M, int T_pred,
-                   double* out,                            // planes written, snap rows read back
-                   double* __restrict__ pref_out,          // (2, M) in the result
-                   int* __restrict__ fsm_out,              // (4, M)
-                   const float* __restrict__ h_in,         // (M, S): kLive only
-                   const double* __restrict__ pred_in,     // (M,)
-                   const float* __restrict__ ssm_a,        // (S,) a, 1 - a, w; bias ()
-                   const float* __restrict__ ssm_oma,
-                   const float* __restrict__ ssm_w,
-                   const float* __restrict__ ssm_bias,
-                   const double* __restrict__ scale,       // (M,)
-                   const double* __restrict__ coef,        // (M, 4)
-                   int S,
-                   float* __restrict__ h_out,              // (M, S)
-                   const double* __restrict__ d_vpn) {     // (P, K) clipped demand, or null
-  __shared__ PortSmem sm;
-  extern __shared__ double gathered[];     // (kLegTile, len) vpn_pair values, then the CCI demands
-  const int m = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int64_t KM = (int64_t)K * M;
-  const int e0 = start[m], e1 = start[m + 1];
-  const fsm::FsmRow p = {theta1[m], theta2[m], delay[m], commit[m], up_hold[m],
-                         down_hold[m], renew_in_chunks != 0};
-  const int h = win[m];
-  [[maybe_unused]] fsm::FsmGate g = {};   // warp 0's gate thresholds
-  if (G != kUngated && warp == 0) g = fsm::fsm_gate(p, margin[m]);
-  // kLive: warp 0 forms the forecasts and gates, warp 2 steps the forecaster
-  // (lane s state s) and, with endogenous demand, folds d_row
-  const bool vpn_fold = G == kLive && d_vpn != nullptr;
-  [[maybe_unused]] double scale_m = 0.0, pred0 = 0.0, cf[4] = {0.0, 0.0, 0.0, 0.0};
-  [[maybe_unused]] double pcap2 = 0.0;
-  [[maybe_unused]] float hs = 0.0f, sa = 0.0f, sb = 0.0f, sw = 0.0f, bias = 0.0f;
-  [[maybe_unused]] double* drow = nullptr;
-  [[maybe_unused]] float *ys = nullptr, *us = nullptr, *ps = nullptr;
-  if constexpr (G == kLive) {
-    double* lb = gathered + (vpn_fold ? 3 : 2) * kLegTile * (K < kTile ? K : kTile);
-    drow = lb;
-    ys = reinterpret_cast<float*>(lb + kTile);
-    us = ys + kTile + 1;
-    ps = us + kTile;
-    if (warp == 0 || warp == 2) scale_m = scale[m];
-    if (warp == 0) {
-      pred0 = pred_in[m];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) cf[q] = coef[4 * (int64_t)m + q];
-    } else if (warp == 2) {
-      bias = ssm_bias[0];
-      pcap2 = port_capacity[m];
-      if (lane < S) {
-        sa = ssm_a[lane];
-        sb = ssm_oma[lane];
-        sw = ssm_w[lane];
-        hs = h_in[(int64_t)m * S + lane];
-      }
+__device__ __forceinline__ int64_t tail_at(int64_t KM) {
+  return (G == kLive ? 9 : 8) * KM;
+}
+
+// The carry of a leg's pair through the chunk: its capacity, L_vpn and
+// calendar (before the next hour tile).
+struct LegCarry {
+  double cap, lvpn, dcum, month;
+};
+
+// Thread j of a port block's leg tile, before the block gathers the tile: the
+// leg's descriptors into shared memory (one round trip), then its pair's
+// scalars into registers, in flight through the gather: the calendar carry
+// is the pair's own at the chunk's first hour tile, else this thread's store
+// of the last.
+__device__ __forceinline__ LegCarry stage_leg(const RoutedArgs& a, PortSmem& sm, int s0, int j,
+                                              int k0) {
+  const int pos = s0 + j;
+  const int pr = a.leg_pair[pos];
+  sm.lp[j] = pr;
+  sm.wv[j] = a.vpn_w[pos];
+  sm.wa[j] = a.attach_w[pos];
+  LegCarry c = {a.pair_capacity[pr], a.L_vpn[pr], 0.0, 0.0};
+  if (k0 == 0) {
+    c.dcum = a.cal_in[pr];
+    c.month = a.cal_in[a.P + pr];
+  } else {
+    c.dcum = a.leg_cal[pos];
+    c.month = a.leg_cal[a.E + pos];
+  }
+  return c;
+}
+
+// Every thread, one (row, hour) a copy: the tile's hours of rows 0..nl - 1
+// of a pair-major (P, K) plane into shared memory rows of `stride` doubles
+// with cp.async, row l pair pair(l)'s; consecutive threads copy consecutive
+// words of a pair's run.
+template <typename Pair>
+__device__ __forceinline__ void gather_plane(const RoutedArgs& a, const double* src, double* dst,
+                                             Pair pair, int tid, int nl, int k0, int len) {
+  const int dl = kThreads / len, dk = kThreads - dl * len;
+  int l = tid / len, k = tid - l * len;
+  for (int o = tid; o < nl * len; o += kThreads) {
+    __pipeline_memcpy_async(dst + l * a.stride + k, src + (int64_t)pair(l) * a.K + k0 + k,
+                            sizeof(double));
+    l += dl;
+    k += dk;
+    if (k >= len) {
+      k -= len;
+      ++l;
     }
   }
-  // Warp 1 prices the CCI plane; lane 0 of warp 0 carries the cost prefixes,
-  // lane 0 of warp 1 the FSM.
-  double lease = 0.0, cc = 0.0, pcap = 0.0;
-  if (warp == 1) {
-    lease = lease_cci[m];
-    cc = c_cci[m];
-    pcap = port_capacity[m];
+}
+
+// Every thread: the leg tile's hours of demand (and CCI demand), and its
+// pairs' tier rows (a (leg, bounds or rates) a thread, Kt4 words each,
+// padding tiers of bound -inf), into shared memory with cp.async, every copy
+// issued before any is waited on; the caller waits.
+__device__ __forceinline__ void gather_legs(const RoutedArgs& a, double* dyn, const int* lp,
+                                            int tid, int nl, int k0, int len) {
+  const bool endo = a.cci_demand != nullptr;
+  const int st = a.stride, Kt = a.Kt, Kt4 = tiers4(Kt);
+  const auto pair = [lp](int l) { return lp[l]; };
+  gather_plane(a, a.demand, dyn, pair, tid, nl, k0, len);
+  if (endo) gather_plane(a, a.cci_demand, dyn + 2 * plane_doubles(st), pair, tid, nl, k0, len);
+  if (tid < 2 * nl) {
+    const int l = tid >> 1;
+    const double* src = (tid & 1 ? a.rates : a.bounds) + (int64_t)lp[l] * Kt;
+    double* row = dyn + table_offset(st, endo) + (size_t)l * 2 * Kt4 + (tid & 1) * Kt4;
+    for (int t = 0; t < Kt; ++t) __pipeline_memcpy_async(row + t, src + t, sizeof(double));
+    for (int t = Kt; t < Kt4; ++t)                 // padding tiers
+      row[t] = tid & 1 ? 0.0 : __longlong_as_double(0xfff0000000000000ULL);   // -inf
   }
+  __pipeline_commit();
+}
+
+// Every thread, one (row, hour) at a time: clip rows 0..nl - 1 of a plane in
+// place at their pairs' capacities.
+__device__ __forceinline__ void clip_rows(const RoutedArgs& a, double* plane, const double* cap,
+                                          int tid, int nl, int len) {
+  const int dl = kThreads / len, dk = kThreads - dl * len;
+  int l = tid / len, k = tid - l * len;
+  for (int o = tid; o < nl * len; o += kThreads) {
+    double* x = plane + l * a.stride + k;
+    *x = tier::min_sel(*x, cap[l]);
+    l += dl;
+    k += dk;
+    if (k >= len) {
+      k -= len;
+      ++l;
+    }
+  }
+}
+
+// Thread j: its pair's calendar over the hour tile [k0, k0 + len) from row j
+// of the clipped-demand plane, one add an hour on the chain, the month
+// restarting at the tile's month starts (the same hours for every row).
+// Leaves the month-to-date volume before each hour in row j of LO, and the
+// carry in c.
+__device__ __forceinline__ void row_calendar(const RoutedArgs& a, double* dyn, LegCarry& c,
+                                             int j, int k0, int len) {
+  const int hpm = a.hours_per_month;
+  const int ph0 = (a.phase0 + k0) % hpm;
+  unsigned starts = 0;                      // bit k: hour k0 + k starts a month
+  for (int k = ph0 == 0 ? 0 : hpm - ph0; k < len; k += hpm) starts |= 1u << k;
+  const double* drow = dyn + (size_t)j * a.stride;
+  double* lrow = dyn + plane_doubles(a.stride) + (size_t)j * a.stride;
+  double dcum = c.dcum, month = c.month;
+#pragma unroll 8
+  for (int k = 0; k < len; ++k) {
+    const double d = drow[k];
+    month = (starts >> k) & 1u ? dcum : month;
+    lrow[k] = __dsub_rn(dcum, month);
+    dcum = __dadd_rn(dcum, d);
+  }
+  c.dcum = dcum;
+  c.month = month;
+}
+
+// One warp of block b of nblocks: the calendar carries of its slice of the
+// pairs, ceil(P / nblocks) of them, 32 at a time (a lane a pair), each over
+// every hour tile of the chunk: the warp copies the pairs' runs of the
+// pair-major block into its rows of shared memory (a row a copy's worth of
+// words at a time), then each lane clips its row and walks its calendar.
+// Each pair's carry is written once, into the result's tail.
+template <int G>
+__device__ __forceinline__ void calendar_slice(const RoutedArgs& a, double* rows, int b,
+                                               int nblocks, int lane) {
+  const int S = (a.P + nblocks - 1) / nblocks;
+  const int n_end = min(a.P, (b + 1) * S), st = a.stride, hpm = a.hours_per_month;
+  for (int c0 = b * S; c0 < n_end; c0 += 32) {
+    const int nc = min(32, n_end - c0), n = c0 + lane;
+    double cap = 0.0, dcum = 0.0, month = 0.0;
+    if (lane < nc) {
+      cap = a.pair_capacity[n];
+      dcum = a.cal_in[n];
+      month = a.cal_in[a.P + n];
+    }
+    for (int k0 = 0; k0 < a.K; k0 += kTile) {
+      const int len = min(kTile, a.K - k0);
+      const double* src = a.demand + (int64_t)c0 * a.K + k0 + lane;
+      for (int r = 0; r < nc; ++r)
+        if (lane < len) __pipeline_memcpy_async(rows + r * st + lane, src + (int64_t)r * a.K, 8);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncwarp();
+      if (lane < nc) {
+        const int ph0 = (a.phase0 + k0) % hpm;
+        unsigned starts = 0;                  // bit k: hour k0 + k starts a month
+        for (int k = ph0 == 0 ? 0 : hpm - ph0; k < len; k += hpm) starts |= 1u << k;
+        const double* row = rows + lane * st;
+#pragma unroll 8
+        for (int k = 0; k < len; ++k) {
+          const double d = tier::min_sel(row[k], cap);
+          month = (starts >> k) & 1u ? dcum : month;
+          dcum = __dadd_rn(dcum, d);
+        }
+      }
+      __syncwarp();                             // the rows are copied over again
+    }
+    if (lane < nc) {
+      double* cal_out = a.out + tail_at<G>((int64_t)a.K * a.M);
+      cal_out[n] = dcum;
+      cal_out[a.P + n] = month;
+    }
+  }
+}
+
+// acc plus col[0], col[st], ..., col[(n - 1) st] in that order, each add on
+// the chain: whole groups of eight words loaded while the adds of the last
+// group run, then the rest one at a time.
+__device__ __forceinline__ double fold_column(const double* col, int st, int n, double acc) {
+  const int n8 = n & ~7;
+  const int st8 = 8 * st;
+  double x[8];
+  if (n8 > 0) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) x[q] = col[q * st];
+  }
+  const double* p = col;
+  for (int l = 8; l < n8; l += 8) {
+    p += st8;
+    double y[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) y[q] = p[q * st];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      acc = __dadd_rn(acc, x[q]);
+      x[q] = y[q];
+    }
+  }
+  if (n8 > 0) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc = __dadd_rn(acc, x[q]);
+  }
+  for (int l = n8; l < n; ++l) acc = __dadd_rn(acc, col[l * st]);
+  return acc;
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+routed_chunk_kernel(const RoutedArgs a) {
+  __shared__ PortSmem sm;
+  extern __shared__ __align__(16) double dyn[];   // the leg planes, the tables, LiveSmem
+  const int m = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (a.M == 0) {                          // no ports: the calendars alone
+    if (warp == kCalWarp) calendar_slice<G>(a, dyn + slice_offset(a.stride, false, a.Kt), 0, 1,
+                                           lane);
+    return;
+  }
+  const int M = a.M, K = a.K, st = a.stride;
+  const int64_t KM = (int64_t)K * M;
+  const bool endo = a.cci_demand != nullptr;
+  const int e0 = a.start[m], e1 = a.start[m + 1];
+  const double* D = dyn;
+  const double* LO = dyn + plane_doubles(st);
+  const double* C = endo ? LO + plane_doubles(st) : D;   // the plane the bill folds
+  [[maybe_unused]] LiveSmem* lsm =
+      reinterpret_cast<LiveSmem*>(dyn + live_offset(st, endo, a.Kt));
+
+  // Warp 0: the window sums, gates, prefixes (lane 0) and FSM (lane 0).
+  fsm::FsmRow p = {};
+  [[maybe_unused]] fsm::FsmGate g = {};
+  int h = 0;
   double pv = 0.0, pc = 0.0;
   fsm::FsmCarry fc = {};
-  if (tid == 0) {
-    pv = pref_in[m];
-    pc = pref_in[M + m];
-  } else if (tid == 32) {
-    fc = {fsm_in[m], fsm_in[M + m], fsm_in[2 * M + m], fsm_in[3 * M + m], 0};
-    fc.phase = fc.t_state % p.T_cci;
+  // Warp 1: the CCI plane and, live, the forecaster.
+  double lease = 0.0, cc = 0.0, pcap = 0.0;
+  [[maybe_unused]] double scale_m = 0.0, pred_c = 0.0;
+  [[maybe_unused]] float hs = 0.0f, sa = 0.0f, sb = 0.0f, sw = 0.0f, bias = 0.0f;
+  if (warp == 0) {
+    p = {a.theta1[m], a.theta2[m], a.delay[m], a.commit[m], a.up_hold[m], a.down_hold[m],
+         a.renew_in_chunks != 0};
+    h = a.win[m];
+    if constexpr (G != kUngated) g = fsm::fsm_gate(p, a.margin[m]);
+    if (lane == 0) {
+      pv = a.pref_in[m];
+      pc = a.pref_in[M + m];
+      fc = {a.fsm_in[m], a.fsm_in[M + m], a.fsm_in[2 * M + m], a.fsm_in[3 * M + m], 0};
+      fc.phase = fc.t_state % p.T_cci;
+    }
+  } else if (warp == 1) {
+    lease = a.lease_cci[m];
+    cc = a.c_cci[m];
+    pcap = a.port_capacity[m];
+    if constexpr (G == kLive) {
+      scale_m = a.scale[m];
+      pred_c = a.pred_in[m];                // the forecast carried into the tile
+      if (lane < 4) lsm->coef[lane] = a.coef[4 * (int64_t)m + lane];
+      bias = a.ssm_bias[0];
+      if (lane < a.S) {
+        sa = a.ssm_a[lane];
+        sb = a.ssm_oma[lane];
+        sw = a.ssm_w[lane];
+        hs = a.h_in[(int64_t)m * a.S + lane];
+      }
+    }
   }
 
   for (int k0 = 0; k0 < K; k0 += kTile) {
     const int len = min(kTile, K - k0);
-    const int k = k0 + lane;                        // lane's hour, for warps 0, 1 and 3
+    if (k0 > 0) __syncthreads();   // the last tile's port half is done; its snapshots are visible
+    const int k = k0 + lane;                        // lane's hour, warps 0 and 1
     const int64_t i = (int64_t)k * M + m;
-    const int lw = max(0, t0 + k - h);              // the hour's window starts here
-    [[maybe_unused]] double gv = 0.0, gc = 0.0;     // kReplay: the hour's predicted costs
-    if (G == kReplay && warp == 0 && lane < len) {
-      const int64_t j = (int64_t)min(t0 + k, T_pred - 1) * M + m;
-      gv = p_vpn[j];
-      gc = p_cci[j];
-    }
-    if (warp == 3 && lane < len) {                  // the window base, when older than the tile
-      double bv = 0.0, bc = 0.0;
-      if (lw < t0) {                                // before the chunk: the host's read
-        bv = pre_v[i];
-        bc = pre_c[i];
-      } else if (lw < t0 + k0) {                    // an earlier tile's snapshot
-        const int64_t j = (int64_t)(lw - t0) * M + m;
-        bv = out[4 * KM + j];
-        bc = out[5 * KM + j];
+    // warp 0: the hour's window base (when older than the tile) and, replay,
+    // its predicted costs, in flight through the leg tiles
+    int lw = 0;
+    double bv = 0.0, bc = 0.0;
+    [[maybe_unused]] double gv = 0.0, gc = 0.0;
+    if (warp == 0 && lane < len) {
+      lw = max(0, a.t0 + k - h);
+      if (lw < a.t0) {                              // before the chunk: the host's read
+        bv = a.pre_v[i];
+        bc = a.pre_c[i];
+      } else if (lw < a.t0 + k0) {                  // an earlier tile's snapshot
+        const int64_t j = (int64_t)(lw - a.t0) * M + m;
+        bv = a.out[4 * KM + j];
+        bc = a.out[5 * KM + j];
       }
-      sm.bv[lane] = bv;
-      sm.bc[lane] = bc;
+      if constexpr (G == kReplay) {
+        const int64_t j = (int64_t)min(a.t0 + k, a.T_pred - 1) * M + m;
+        gv = a.p_vpn[j];
+        gc = a.p_cci[j];
+      }
     }
 
-    // The leg fold: warp 0's lane k sums hour k's VPN, warp 1's its attached
-    // volume, in ascending leg index from +0.0, a tile of legs at a time.
+    // The legs, a tile at a time: warp 0's lane k sums hour k's VPN cost,
+    // warp 1's its attached volume (and, live with CCI demand, the clipped
+    // demand), in ascending leg index from +0.0.
     double acc = 0.0;
+    [[maybe_unused]] double acc_d = 0.0;
     for (int s0 = e0; s0 < e1; s0 += kLegTile) {
       const int nl = min(kLegTile, e1 - s0);
-      if (tid < nl) {                               // stage: one leg's index chain a thread
-        const int e = order[s0 + tid];
-        sm.lp[tid] = leg_pair[e];
-        sm.wv[tid] = vpn_w[e];
-        sm.wa[tid] = attach_w[e];
-      }
+      if (s0 > e0) __syncthreads();                 // the last leg tile's sums are done
+      LegCarry lc = {};
+      if (tid < nl) lc = stage_leg(a, sm, s0, tid, k0);
       __syncthreads();
-      // gather: each leg's len hours are one contiguous run of the pair-major
-      // scratch; every copy is issued before any is waited on
-      double* gv = gathered;
-      double* gc = gathered + nl * len;
-      [[maybe_unused]] double* gd = gathered + 2 * nl * len;   // vpn_fold: the clipped demand
-      for (int o = tid; o < nl * len; o += kPortThreads) {
-        const int l = o / len;
-        const int64_t a = (int64_t)sm.lp[l] * K + k0 + (o - l * len);
-        __pipeline_memcpy_async(gv + o, vpn_pair + a, sizeof(double));
-        __pipeline_memcpy_async(gc + o, d_cci + a, sizeof(double));
-        if constexpr (G == kLive) {
-          if (vpn_fold) __pipeline_memcpy_async(gd + o, d_vpn + a, sizeof(double));
-        }
+      gather_legs(a, dyn, sm.lp, tid, nl, k0, len);
+      if (tid < nl) {
+        sm.lvpn[tid] = lc.lvpn;
+        sm.pcap[tid] = lc.cap;
       }
-      __pipeline_commit();
       __pipeline_wait_prior(0);
       __syncthreads();
+      clip_rows(a, dyn, sm.pcap, tid, nl, len);
+      if (endo) clip_rows(a, dyn + 2 * plane_doubles(st), sm.pcap, tid, nl, len);
+      __syncthreads();
+      if (tid < nl) {
+        row_calendar(a, dyn, lc, tid, k0, len);
+        if (k0 + len < K) {                         // read back in the next hour tile
+          a.leg_cal[s0 + tid] = lc.dcum;
+          a.leg_cal[a.E + s0 + tid] = lc.month;
+        }
+      }
+      __syncthreads();
+      // Every thread, one (leg, hour) at a time: the tier fold, then the
+      // legs' products, each in place of an operand it alone reads: LO takes
+      // vpn_pair * vpn_w, C (or D) the billed volume * attach_w, and, live
+      // with CCI demand, D the clipped demand * attach_w.
+      {
+        const int Kt4 = tiers4(a.Kt), dl = kThreads / len, dk = kThreads - dl * len;
+        const double* tabs = dyn + table_offset(st, endo);
+        int l = tid / len, kk = tid - l * len;
+        for (int o = tid; o < nl * len; o += kThreads) {
+          const int e = l * st + kk;
+          const double d = D[e];
+          const double* row = tabs + (size_t)l * 2 * Kt4;
+          const double transfer = Kt4 == 4 ? tier::fold_staged4(LO[e], d, row, 4)
+                                           : tier::fold_staged4(LO[e], d, row, Kt4);
+          const double wa = sm.wa[l];
+          dyn[plane_doubles(st) + e] = __dmul_rn(__dadd_rn(sm.lvpn[l], transfer), sm.wv[l]);
+          if (endo) {
+            dyn[2 * plane_doubles(st) + e] = __dmul_rn(C[e], wa);
+            if (G == kLive) dyn[e] = __dmul_rn(d, wa);
+          } else {
+            dyn[e] = __dmul_rn(d, wa);
+          }
+          l += dl;
+          kk += dk;
+          if (kk >= len) {
+            kk -= len;
+            ++l;
+          }
+        }
+      }
+      __syncthreads();
+      // warp 0's lane k: hour k's VPN cost over the legs in ascending order;
+      // warp 1's: its attached volume (live with CCI demand, the clipped
+      // demand beside it: two independent chains)
       if (warp == 0 && lane < len) {
-#pragma unroll 4
-        for (int l = 0; l < nl; ++l)
-          acc = __dadd_rn(acc, __dmul_rn(gv[l * len + lane], sm.wv[l]));
+        acc = fold_column(LO + lane, st, nl, acc);
       } else if (warp == 1 && lane < len) {
-#pragma unroll 4
-        for (int l = 0; l < nl; ++l)
-          acc = __dadd_rn(acc, __dmul_rn(gc[l * len + lane], sm.wa[l]));
-      } else if constexpr (G == kLive) {
-        if (vpn_fold && warp == 2 && lane < len) {
-#pragma unroll 4
-          for (int l = 0; l < nl; ++l)
-            acc = __dadd_rn(acc, __dmul_rn(gd[l * len + lane], sm.wa[l]));
-        }
+        acc = fold_column(C + lane, st, nl, acc);
+        if (G == kLive && endo) acc_d = fold_column(D + lane, st, nl, acc_d);
       }
-      __syncthreads();   // the next tile restages and regathers
     }
 
-    // The cost planes.
-    if (warp == 0 && lane < len) {
-      sm.v[lane] = acc;
-      out[i] = acc;
-    } else if (warp == 1 && lane < len) {
-      const double c = __dadd_rn(lease, __dmul_rn(cc, minimum(acc, pcap)));
-      sm.c[lane] = c;
-      out[KM + i] = c;
+    if (warp == 1) {
+      // ---- the CCI plane, then (live) the forecaster and the gates' costs
+      [[maybe_unused]] double drow = 0.0;
+      if (lane < len) {
+        const double bill = tier::min_sel(acc, pcap);
+        const double c = __dadd_rn(lease, __dmul_rn(cc, bill));
+        sm.c[lane] = c;
+        a.out[KM + i] = c;
+        drow = endo ? tier::min_sel(acc_d, pcap) : bill;
+      }
+      bar_arrive(kBarCost);
       if constexpr (G == kLive) {
-        if (!vpn_fold) drow[lane] = minimum(acc, pcap);   // d_row is the billed volume
-      }
-    }
-    if constexpr (G == kLive) {
-      if (vpn_fold && warp == 2 && lane < len) drow[lane] = minimum(acc, pcap2);
-    }
-    __syncthreads();
-
-    if (tid == 0) {                                 // the cost prefixes' snapshots
-#pragma unroll 8
-      for (int j = 0; j < len; ++j) {
-        sm.sv[j] = pv;
-        sm.sc[j] = pc;
-        pv = __dadd_rn(pv, sm.v[j]);
-        pc = __dadd_rn(pc, sm.c[j]);
-      }
-    }
-    if constexpr (G == kLive) {                     // the forecaster over the tile's hours
-      if (warp == 2) {
-        if (lane == 0 && k0 > 0) ys[0] = ys[kTile];   // the previous tile's last hour
-        if (lane < len) us[lane] = live::ssm_input(drow[lane], scale_m);
+        if (lane < len) lsm->u[lane] = live::ssm_input(drow, scale_m);
         __syncwarp();
-        if (lane < S) {
-          float* pt = ps + lane * (kTile + 1);
-          for (int j = 0; j < len; ++j) pt[j] = live::ssm_state(hs, us[j], sa, sb, sw);
+        if (lane < a.S) {                           // lane s walks state s's chain
+          float* pt = lsm->terms[lane];
+#pragma unroll 8
+          for (int j = 0; j < len; ++j) pt[j] = live::ssm_state(hs, lsm->u[j], sa, sb, sw);
         }
         __syncwarp();
-        if (lane < len) {
-          float acc_y = ps[lane];
-          for (int s = 1; s < S; ++s) acc_y = __fadd_rn(acc_y, ps[s * (kTile + 1) + lane]);
-          ys[lane + 1] = live::ssm_readout(us[lane], acc_y, bias);
+        if (lane < len) {                           // hour k's readout and its one forecast
+          float acc_y = lsm->terms[0][lane];
+#pragma unroll 4
+          for (int s = 1; s < a.S; ++s) acc_y = __fadd_rn(acc_y, lsm->terms[s][lane]);
+          const double pred =
+              live::prediction(live::ssm_readout(lsm->u[lane], acc_y, bias), scale_m);
+          lsm->pred[lane + 1] = pred;
+          a.out[8 * KM + i] = pred;
+        }
+        __syncwarp();
+        if (lane < len) {                           // the costs of the forecast carried in
+          double lv, lc;
+          live::mode_costs(lane == 0 ? pred_c : lsm->pred[lane], lsm->coef, lv, lc);
+          lsm->gv[lane] = lv;
+          lsm->gc[lane] = lc;
+        }
+        pred_c = lsm->pred[len];
+        bar_arrive(kBarGate);
+      }
+    } else if (warp == 0) {
+      // ---- the VPN plane, prefixes, window sums, gates, FSM
+      if (lane < len) {
+        sm.v[lane] = acc;
+        a.out[i] = acc;
+      }
+      bar_wait(kBarCost);
+      if (lane == 0) {                              // the cost prefixes' snapshots
+#pragma unroll 8
+        for (int j = 0; j < len; ++j) {
+          sm.sv[j] = pv;
+          sm.sc[j] = pc;
+          pv = __dadd_rn(pv, sm.v[j]);
+          pc = __dadd_rn(pc, sm.c[j]);
         }
       }
-    }
-    __syncthreads();
-
-    if (warp == 0 && lane < len) {                  // window sums and raw triggers
-      const bool in_tile = lw >= t0 + k0;           // a snapshot of its own tile
-      const int j = in_tile ? lw - t0 - k0 : lane;
-      const double sv = sm.sv[lane], sc = sm.sc[lane];
-      const double rv = __dsub_rn(sv, in_tile ? sm.sv[j] : sm.bv[lane]);
-      const double rc = __dsub_rn(sc, in_tile ? sm.sc[j] : sm.bc[lane]);
-      bool raw_req, raw_rel;
-      fsm::fsm_triggers(p, rv, rc, raw_req, raw_rel);
-      if constexpr (G == kReplay) fsm::fsm_gated_triggers(g, gv, gc, raw_req, raw_rel);
-      if constexpr (G == kLive) {                   // the forecast carried into the hour
-        const double before = k == 0 ? pred0 : live::prediction(ys[lane], scale_m);
-        out[8 * KM + i] = live::prediction(ys[lane + 1], scale_m);
-        double lv, lc;
-        live::mode_costs(before, cf, lv, lc);
-        fsm::fsm_gated_triggers(g, lv, lc, raw_req, raw_rel);
+      __syncwarp();
+      bool raw_req = false, raw_rel = false;
+      double rv = 0.0, rc = 0.0, sv = 0.0, sc = 0.0;
+      if (lane < len) {                             // window sums and raw triggers
+        const bool in_tile = lw >= a.t0 + k0;       // a snapshot of its own tile
+        const int j = in_tile ? lw - a.t0 - k0 : lane;
+        sv = sm.sv[lane];
+        sc = sm.sc[lane];
+        rv = __dsub_rn(sv, in_tile ? sm.sv[j] : bv);
+        rc = __dsub_rn(sc, in_tile ? sm.sc[j] : bc);
+        fsm::fsm_triggers(p, rv, rc, raw_req, raw_rel);
+        if constexpr (G == kReplay) fsm::fsm_gated_triggers(g, gv, gc, raw_req, raw_rel);
       }
-      sm.trig[lane] = (int)raw_req | (int)raw_rel << 1;
-      out[2 * KM + i] = rv;
-      out[3 * KM + i] = rc;
-      out[4 * KM + i] = sv;
-      out[5 * KM + i] = sc;
-    }
-    __syncthreads();
-
-    if (tid == 32) {                                // the FSM, integers only
+      if constexpr (G == kLive) {
+        bar_wait(kBarGate);
+        if (lane < len) fsm::fsm_gated_triggers(g, lsm->gv[lane], lsm->gc[lane], raw_req, raw_rel);
+      }
+      if (lane < len) {
+        sm.trig[lane] = (int)raw_req | (int)raw_rel << 1;
+        a.out[2 * KM + i] = rv;
+        a.out[3 * KM + i] = rc;
+        a.out[4 * KM + i] = sv;
+        a.out[5 * KM + i] = sc;
+      }
+      __syncwarp();
+      if (lane == 0) {                              // the FSM, integers only
 #pragma unroll 8
-      for (int j = 0; j < len; ++j) {
-        const int t = sm.trig[j];
-        sm.state[j] = fsm::fsm_step(p, fc, t & 1, t >> 1, p.renew_in_chunks);
+        for (int j = 0; j < len; ++j) {
+          const int t = sm.trig[j];
+          sm.state[j] = fsm::fsm_step_flat(p, fc, t & 1, t >> 1, p.renew_in_chunks);
+        }
       }
+      __syncwarp();
+      if (lane < len) {
+        const int s = sm.state[lane];
+        a.out[6 * KM + i] = s == fsm::kOn ? 1.0 : 0.0;
+        a.out[7 * KM + i] = (double)s;
+      }
+    } else if (warp == kCalWarp && k0 == 0) {      // the block's slice of the calendars
+      calendar_slice<G>(a, dyn + slice_offset(st, endo, a.Kt), m, M, lane);
     }
-    __syncthreads();
-
-    if (warp == 0 && lane < len) {
-      const int s = sm.state[lane];
-      out[6 * KM + i] = s == fsm::kOn ? 1.0 : 0.0;
-      out[7 * KM + i] = (double)s;
-    }
-    __syncthreads();   // the next hour tile reads these snapshots and reuses sm
   }
 
+  const int64_t tail = tail_at<G>(KM) + 2 * (int64_t)a.P;
   if (tid == 0) {
-    pref_out[m] = pv;
-    pref_out[M + m] = pc;
-  } else if (tid == 32) {
-    fsm_out[m] = fc.state;
-    fsm_out[M + m] = fc.t_state;
-    fsm_out[2 * M + m] = fc.up;
-    fsm_out[3 * M + m] = fc.down;
+    a.out[tail + m] = pv;
+    a.out[tail + M + m] = pc;
+    a.fsm_out[m] = fc.state;
+    a.fsm_out[M + m] = fc.t_state;
+    a.fsm_out[2 * M + m] = fc.up;
+    a.fsm_out[3 * M + m] = fc.down;
   }
   if constexpr (G == kLive) {
-    if (warp == 2 && lane < S) h_out[(int64_t)m * S + lane] = hs;
+    if (warp == 1 && lane < a.S) a.h_out[(int64_t)m * a.S + lane] = hs;
   }
 }
 
-// The live instance's operands of the port stage (null in the others).
-struct LiveArgs {
-  const float* h_in;
-  const double* pred_in;
-  const float* ssm_a;
-  const float* ssm_oma;
-  const float* ssm_w;
-  const float* ssm_bias;
-  const double* scale;
-  const double* coef;
-  int S;
-  float* h_out;
-  const double* d_vpn;
-};
-
-// The port stage's launch in gate mode G.
+// The launch in gate mode G: a block a port (one when there is none).
 template <int G>
-int launch_port(const double* vpn_pair, const double* d_cci, const double* pre_v,
-                const double* pre_c, const double* lease_cci, const double* c_cci,
-                const double* port_capacity, const double* theta1, const double* theta2,
-                const int* h, const int* D, const int* T_cci, const int* up_hold,
-                const int* down_hold, const int* leg_pair, const double* vpn_w,
-                const double* attach_w, const int* order, const int* start, const int* fsm_in,
-                const double* pref_in, const double* p_vpn, const double* p_cci,
-                const double* margin, int renew_in_chunks, int t0, int K, int M, int T_pred,
-                double* out, double* pref_out, int* fsm_out, const LiveArgs& lv, size_t gathered,
-                cudaStream_t s) {
-  if (sizeof(PortSmem) + gathered > 48 * 1024) {
+int launch(const RoutedArgs& a, size_t smem, cudaStream_t s) {
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        routed_port_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gathered);
+        routed_chunk_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  routed_port_kernel<G><<<M, kPortThreads, gathered, s>>>(
-      vpn_pair, d_cci, pre_v, pre_c, lease_cci, c_cci, port_capacity, theta1, theta2, h, D,
-      T_cci, up_hold, down_hold, leg_pair, vpn_w, attach_w, order, start, fsm_in, pref_in,
-      p_vpn, p_cci, margin, renew_in_chunks, t0, K, M, T_pred, out, pref_out, fsm_out,
-      lv.h_in, lv.pred_in, lv.ssm_a, lv.ssm_oma, lv.ssm_w, lv.ssm_bias, lv.scale, lv.coef, lv.S,
-      lv.h_out, lv.d_vpn);
+  routed_chunk_kernel<G><<<a.M > 0 ? a.M : 1, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: 2 P K float64 (vpn_pair, then the clipped CCI demand, pair-major;
-// a live call with endogenous demand 3 P K, the clipped demand third).
-// out: 8 K M + 2 P + 2 M float64 (9 K M + ... in a live call). All pointers
-// contiguous on one device. p_vpn, p_cci (T_pred, M) and margin (M,) select
-// the port stage's forecast-gated instance in replay mode; h_in (M, S),
-// pred_in (M,), the forecaster's a, 1 - a, w (S,) and bias, scale (M,), coef
-// (M, 4) and margin (M,) its live instance (h_out (M, S)); null p_vpn and
-// h_in the reactive/hysteresis one.
+// leg_cal: 2 E float64, the legs' calendar carries between hour tiles (may be
+// null when K <= kTile). out: 8 K M + 2 P + 2 M float64 (9 K M + ... in a live
+// call). leg_pair, vpn_w, attach_w: the legs in port-major order (LegIndex's
+// leg_pair_pm, vpn_w_pm, attach_w_pm), start (M + 1,) each port's run. All
+// pointers contiguous on one device. p_vpn, p_cci (T_pred, M) and margin (M,)
+// select the forecast-gated instance in replay mode; h_in (M, S), pred_in
+// (M,), the forecaster's a, 1 - a, w (S,) and bias, scale (M,), coef (M, 4)
+// and margin (M,) its live instance (h_out (M, S)); null p_vpn and h_in the
+// reactive/hysteresis one.
 extern "C" int stream_chunk_routed_f64(
     const double* demand, const double* cci_demand, const double* pre_v, const double* pre_c,
     const double* pair_capacity, const double* L_vpn, const double* bounds, const double* rates,
     const double* lease_cci, const double* c_cci, const double* port_capacity,
     const double* theta1, const double* theta2, const int* h, const int* D, const int* T_cci,
     const int* up_hold, const int* down_hold,
-    const int* leg_pair, const double* vpn_w, const double* attach_w, const int* order,
-    const int* start,
-    const double* cal_in, const int* fsm_in, const double* pref_in, double* scratch,
+    const int* leg_pair, const double* vpn_w, const double* attach_w, const int* start,
+    const double* cal_in, const int* fsm_in, const double* pref_in, double* leg_cal,
     const double* p_vpn, const double* p_cci, const double* margin,
     const float* h_in, const double* pred_in, const float* ssm_a, const float* ssm_oma,
     const float* ssm_w, const float* ssm_bias, const double* scale, const double* coef,
@@ -621,40 +770,20 @@ extern "C" int stream_chunk_routed_f64(
                coef == nullptr || margin == nullptr || h_out == nullptr || S < 1 ||
                S > kMaxState))
     return (int)cudaErrorInvalidValue;
-  const size_t tables = sizeof(double) * 2 * kRows * (size_t)Kt;
-  if (sizeof(PairTile) + tables > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const bool vpn_d = live && cci_demand != nullptr;   // d_row folds the clipped demand
-  const size_t gathered = sizeof(double) * (vpn_d ? 3 : 2) * kLegTile *
-                          (size_t)(K < kTile ? K : kTile) + (live ? kLiveSmem : 0);
+  if (K > kTile && E > 0 && leg_cal == nullptr) return (int)cudaErrorInvalidValue;
+  const int stride = (K < kTile ? K : kTile) | 1;
+  const bool endo = cci_demand != nullptr;
+  const size_t smem = sizeof(double) * live_offset(stride, endo, Kt) +
+                      (live ? sizeof(LiveSmem) : 0);
+  if (sizeof(PortSmem) + smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (M == 0 && P == 0) return (int)cudaSuccess;
+  const RoutedArgs a = {
+      demand, cci_demand, pre_v, pre_c, pair_capacity, L_vpn, bounds, rates, lease_cci, c_cci,
+      port_capacity, theta1, theta2, h, D, T_cci, up_hold, down_hold, leg_pair, vpn_w,
+      attach_w, start, cal_in, fsm_in, pref_in, leg_cal, p_vpn, p_cci, margin, h_in, pred_in,
+      ssm_a, ssm_oma, ssm_w, ssm_bias, scale, coef, renew_in_chunks, t0, t0 % hours_per_month,
+      hours_per_month, K, P, M, E, Kt, T_pred, S, stride, out, fsm_out, h_out};
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t KP = (int64_t)K * P, KM = (int64_t)K * M;
-  const int64_t tail = (live ? 9 : 8) * KM;
-  double* vpn_pair = scratch;
-  double* d_cci = scratch + KP;
-  double* d_vpn = vpn_d ? scratch + 2 * KP : nullptr;
-  if (P > 0) {
-    const auto pair = vpn_d ? routed_pair_kernel<true> : routed_pair_kernel<false>;
-    if (sizeof(PairTile) + tables > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          pair, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tables);
-      if (err != cudaSuccess) return (int)err;
-    }
-    pair<<<(P + kRows - 1) / kRows, kPairThreads, tables, s>>>(
-        demand, cci_demand, pair_capacity, L_vpn, bounds, rates, cal_in,
-        t0 % hours_per_month, hours_per_month, K, P, Kt, vpn_pair, d_cci, out + tail, d_vpn);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (M > 0) {
-    const LiveArgs lv = {h_in, pred_in, ssm_a, ssm_oma, ssm_w, ssm_bias, scale, coef, S, h_out,
-                         d_vpn};
-    const auto port = gated ? launch_port<kReplay>
-                            : live ? launch_port<kLive> : launch_port<kUngated>;
-    const int err = port(vpn_pair, d_cci, pre_v, pre_c, lease_cci, c_cci, port_capacity, theta1,
-                         theta2, h, D, T_cci, up_hold, down_hold, leg_pair, vpn_w, attach_w,
-                         order, start, fsm_in, pref_in, p_vpn, p_cci, margin, renew_in_chunks,
-                         t0, K, M, T_pred, out, out + tail + 2 * P, fsm_out, lv, gathered, s);
-    if (err != (int)cudaSuccess) return err;
-  }
-  return (int)cudaGetLastError();
+  return gated ? launch<kReplay>(a, smem, s) : live ? launch<kLive>(a, smem, s)
+                                                   : launch<kUngated>(a, smem, s);
 }

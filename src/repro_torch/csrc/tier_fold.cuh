@@ -124,6 +124,62 @@ __device__ __forceinline__ F fold_with_sel(F lo, F d, Bound bound, Rate rate, in
   return acc;
 }
 
+// a < b ? a : b and a > b ? a : b in float64 as a compare and select:
+// fmin/fmax when neither operand is NaN, but for which zero a +0/-0 tie
+// returns, which cannot reach a bit of the fold (above).
+__device__ __forceinline__ double lt_sel(double a, double b) {
+  double r;
+  asm("{\n\t.reg .pred p;\n\tsetp.lt.f64 p, %2, %1;\n\tselp.f64 %0, %2, %1, p;\n\t}"
+      : "=d"(r) : "d"(a), "d"(b));
+  return r;
+}
+__device__ __forceinline__ double gt_sel(double a, double b) {
+  double r;
+  asm("{\n\t.reg .pred p;\n\tsetp.gt.f64 p, %2, %1;\n\tselp.f64 %0, %2, %1, p;\n\t}"
+      : "=d"(r) : "d"(a), "d"(b));
+  return r;
+}
+// c ? a : 0.0 for the predicate c as a select.
+__device__ __forceinline__ double if_else0(bool c, double a) {
+  double r;
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %2, 0;\n\tselp.f64 %0, %1, 0d0000000000000000, p;\n\t}"
+      : "=d"(r) : "d"(a), "r"((unsigned)c));
+  return r;
+}
+
+// fold_with's value in float64 for finite bounds, against a row staged in
+// shared memory as Kt4 bounds then Kt4 rates (Kt4 a multiple of 4: the
+// table's Kt tiers, then padding tiers of bound -inf, whose segments are
+// never > 0), four tiers at a time: the four terms (compare and select, the
+// product formed whatever the segment's sign) are in flight together, then
+// added in tier order. When hi = lo + d is NaN (lo or d is NaN) every segment
+// of fold_with is NaN and it returns +0.0, as the last select does; otherwise
+// no operand of a min or max is NaN, so lt_sel and gt_sel are fmin and fmax
+// and every term and add is fold_with's. For the kernel that spreads many
+// folds over a block at once (stream_chunk_routed.cu).
+__device__ __forceinline__ double fold_staged4(double lo, double d, const double* row, int Kt4) {
+  const double hi = __dadd_rn(lo, d);
+  double acc = 0.0;
+  double prev = 0.0;
+  for (int g = 0; g < Kt4; g += 4) {
+    double b[4], r[4], term[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      b[q] = row[g + q];
+      r[q] = row[Kt4 + g + q];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const double seg = __dsub_rn(lt_sel(hi, b[q]), gt_sel(lo, q == 0 ? prev : b[q - 1]));
+      term[q] = if_else0(seg > 0.0, __dmul_rn(seg, r[q]));
+    }
+    prev = b[3];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc = __dadd_rn(acc, term[q]);
+  }
+  return if_else0(!isnan(hi), acc);
+}
+
 // The fold against a table held in registers, KMAX tiers: fold_term's terms
 // and fold_with's adds over compile-time indices (a run-time index
 // would put the arrays in local memory), with no branch. A table of fewer

@@ -14,9 +14,10 @@ The engine folds pairs onto ports with the ``leg_segment_sum`` kernel,
 which walks each port's legs in ascending leg index. It needs the legs in
 port-major order, so :meth:`RoutingPlan.operand` also builds a
 :class:`LegIndex` once, on the host: a stable sort of ``leg_port`` (within a
-port the legs stay in ascending order), the offsets of each port's run, and
-the per-port attachment count ``seg(attach_w)`` (0/1 sums, exact in any
-order).
+port the legs stay in ascending order), the offsets of each port's run, the
+per-port attachment count ``seg(attach_w)`` (0/1 sums, exact in any order),
+and the legs' pair, VPN share and attachment weight in that order, for the
+streaming runtime's routed chunk kernel.
 
 Legacy bare-array routings (``(P,)`` port indices or ``(M, P)`` one-hot
 matrices) are accepted through :func:`as_routing_plan`, which raises a
@@ -46,18 +47,35 @@ __all__ = [
 
 
 class LegIndex(NamedTuple):
-    """Port-major view of a leg list, built once per routing on the host."""
+    """Port-major view of a leg list, built once per routing on the host.
+
+    ``leg_pair_pm``, ``vpn_w_pm`` and ``attach_w_pm`` are the leg list's own
+    columns gathered through ``order`` (``leg_pair[order]``, ...): each
+    port's legs in ascending leg index, one contiguous run from
+    ``start[m]``, so that the routed chunk kernel stages a port's legs with
+    no ``order`` indirection. :meth:`RoutingPlan.operand` and
+    :func:`index_legs` build them; an index without them (None) serves the
+    planners' ``leg_segment_sum``, and the routed chunk refuses it.
+    """
 
     order: torch.Tensor     # (E,) int32 leg indices sorted by port, stable
     start: torch.Tensor     # (M + 1,) int32 offsets of each port's run in order
     n_attach: torch.Tensor  # (M,) float64 attachments per port (seg(attach_w))
+    leg_pair_pm: Optional[torch.Tensor] = None   # (E,) int32 leg_pair[order]
+    vpn_w_pm: Optional[torch.Tensor] = None      # (E,) vpn_w[order]
+    attach_w_pm: Optional[torch.Tensor] = None   # (E,) attach_w[order]
 
     @property
     def n_ports(self) -> int:
         return self.start.shape[-1] - 1
 
+    @property
+    def port_major(self) -> bool:
+        """Whether the port-major leg descriptors are there."""
+        return self.leg_pair_pm is not None
+
     def to(self, device) -> "LegIndex":
-        return LegIndex(*(t.to(device) for t in self))
+        return LegIndex(*(None if t is None else t.to(device) for t in self))
 
 
 def leg_index_np(leg_port: np.ndarray, attach_w: np.ndarray, n_ports: int
@@ -104,18 +122,24 @@ class RoutingOperand(NamedTuple):
 
 
 def index_legs(op: RoutingOperand, n_ports: int) -> RoutingOperand:
-    """``op`` with its :class:`LegIndex` built on the host (a no-op when it
-    has one for ``n_ports`` ports), on the operand's device."""
-    if op.index is not None and op.index.n_ports == n_ports:
+    """``op`` with its :class:`LegIndex` built on the host, port-major leg
+    descriptors included (a no-op when it has a whole one for ``n_ports``
+    ports), on the operand's device."""
+    if op.index is not None and op.index.n_ports == n_ports and op.index.port_major:
         return op
     dev = op.leg_port.device
     order, start, n_attach = leg_index_np(
         np.asarray(op.leg_port.cpu()), np.asarray(op.attach_w.cpu(), np.float64), n_ports
     )
+    order_t = torch.tensor(order, device=dev)
+    gather = lambda col: col.to(dev)[order_t.long()].contiguous()
     idx = LegIndex(
-        order=torch.tensor(order, device=dev),
+        order=order_t,
         start=torch.tensor(start, device=dev),
         n_attach=torch.tensor(n_attach, dtype=torch.float64, device=dev),
+        leg_pair_pm=gather(op.leg_pair),
+        vpn_w_pm=gather(op.vpn_w),
+        attach_w_pm=gather(op.attach_w),
     )
     return op._replace(index=idx)
 
@@ -258,7 +282,9 @@ class RoutingPlan:
             vpn_w=f(vw),
             attach_w=f(aw),
             primary=i32(self.primary),
-            index=LegIndex(order=i32(order), start=i32(start), n_attach=f(n_attach)),
+            index=LegIndex(order=i32(order), start=i32(start), n_attach=f(n_attach),
+                           leg_pair_pm=i32(lp[order]), vpn_w_pm=f(vw[order]),
+                           attach_w_pm=f(aw[order])),
         )
 
     # -- constructors ------------------------------------------------------

@@ -498,7 +498,9 @@ class FleetRuntime:
 
     def _pack(self, demand_block, cci_demand_block):
         """The chunk's host-to-device block, flat float64: the demand (and the
-        CCI demand) hour-major (K, P), then the host's pre-chunk window reads
+        CCI demand) hour-major (K, P) in fleet mode, pair-major (P, K) in
+        topology mode (each pair's hours one run, as the routed chunk kernel
+        gathers them), then the host's pre-chunk window reads
         pre_v, pre_c (K, M), gathered from the rings (``src/repro/fleet/runtime.py:1061-1100``)."""
         st = self._state
         t, M, P = st.t, self.n_rows, self.n_demand_rows
@@ -509,12 +511,14 @@ class FleetRuntime:
         endo = cci_demand_block is not None
         nd = (2 if endo else 1) * K * P
         block = np.empty(nd + 2 * K * M)
-        block[:K * P].reshape(K, P)[...] = d.T
+        shape = (P, K) if self.topology else (K, P)
+        order = (lambda x: x) if self.topology else (lambda x: x.T)
+        block[:K * P].reshape(shape)[...] = order(d)
         if endo:
             c = np.asarray(cci_demand_block, np.float64)
             if c.shape != d.shape:
                 raise ValueError(f"cci_demand_block {c.shape} != demand_block {d.shape}")
-            block[K * P:nd].reshape(K, P)[...] = c.T
+            block[K * P:nd].reshape(shape)[...] = order(c)
         # Flat indices into the hour-major (hbuf, M) rings: slot*M + row. One
         # per-row base ((t - h) % hbuf)*M + row, then each later hour a
         # broadcast +M with a single wrap fixup. Hours k >= hbuf always read

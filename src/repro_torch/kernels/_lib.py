@@ -179,9 +179,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     # renew, t0, hpm, K, M, Kt, form, T_pred, S, out, fsm_out, h_out, stream
     lib.stream_chunk_f64.argtypes = [p] * 31 + [i] * 9 + [p] * 4
     lib.stream_chunk_f64.restype = i
-    # ..., scratch, p_vpn, p_cci, margin, h, pred, a, 1 - a, w, bias, scale, coef,
+    # ..., leg_pair, vpn_w, attach_w (port-major), start, cal, fsm, pref, leg_cal,
+    # p_vpn, p_cci, margin, h, pred, a, 1 - a, w, bias, scale, coef,
     # renew, t0, hpm, K, P, M, E, Kt, T_pred, S, out, fsm_out, h_out, stream
-    lib.stream_chunk_routed_f64.argtypes = [p] * 38 + [i] * 10 + [p] * 4
+    lib.stream_chunk_routed_f64.argtypes = [p] * 37 + [i] * 10 + [p] * 4
     lib.stream_chunk_routed_f64.restype = i
     lib.stream_chunk_live_math.argtypes = [p, p, ctypes.c_longlong, i, p]   # x, y, n, fn, stream
     lib.stream_chunk_live_math.restype = i

@@ -330,15 +330,19 @@ def fsm_chunk_ref(
     return out
 
 
-def _split_block(block: torch.Tensor, K: int, P: int, M: int, endo: bool):
+def _split_block(block: torch.Tensor, K: int, P: int, M: int, endo: bool,
+                 pair_major: bool = False):
     """The runtime's packed chunk block as views: demand (K, P), the CCI
-    demand (K, P) or None, then the window reads pre_v, pre_c (K, M)."""
+    demand (K, P) or None, then the window reads pre_v, pre_c (K, M). With
+    ``pair_major`` (topology mode) the block holds the demand planes (P, K);
+    they come back transposed, (K, P) all the same."""
     if block.shape != (block_size(K, M, endo, P),):
         raise ValueError(f"stream chunk block: want ({block_size(K, M, endo, P)},), "
                          f"got {tuple(block.shape)}")
     nd = (2 if endo else 1) * K * P
-    cci = block[K * P:nd].view(K, P) if endo else None
-    return (block[:K * P].view(K, P), cci, block[nd:nd + K * M].view(K, M),
+    plane = (lambda x: x.view(P, K).T) if pair_major else (lambda x: x.view(K, P))
+    cci = plane(block[K * P:nd]) if endo else None
+    return (plane(block[:K * P]), cci, block[nd:nd + K * M].view(K, M),
             block[nd + K * M:].view(K, M))
 
 
@@ -463,9 +467,10 @@ def stream_chunk_routed_ref(
     the streaming runtime's chunk in topology mode (``runtime.py:391-515``
     with ``topology=True``).
 
-    The block holds the demand (and the CCI demand) per PAIR, (K, P), then
-    the window reads per PORT, (K, M). Each pair is clipped and priced on its
-    billing calendar as :func:`stream_chunk_ref` prices a link; then, hour by
+    The block holds the demand (and the CCI demand) per PAIR, pair-major
+    (P, K), then the window reads per PORT, (K, M). Each pair is clipped and
+    priced on its billing calendar as :func:`stream_chunk_ref` prices a link;
+    then, hour by
     hour, the pairs fold onto the ports over the routing's padded leg list in
     leg order (:func:`leg_segment_sum_ref`): ``vpn = seg(vpn_pair[lp]·vpn_w)``
     and ``d_bill = minimum(seg(d_cci[lp]·attach_w), port_capacity)``; the CCI
@@ -482,7 +487,7 @@ def stream_chunk_routed_ref(
     folds): a ninth (K, M) plane and the state come back as there.
     """
     P, M = pair_capacity.shape[0], lease_cci.shape[0]
-    demand, cci_demand, pre_v, pre_c = _split_block(block, K, P, M, endo)
+    demand, cci_demand, pre_v, pre_c = _split_block(block, K, P, M, endo, pair_major=True)
     d_pair, d_cci, vpn_pair, cal_out = _chunk_pair_half(
         demand, cci_demand, pair_capacity, L_vpn, bounds, rates, cal, t0, hours_per_month)
     lp, lm = routing.leg_pair, routing.leg_port

@@ -15,7 +15,9 @@ packed float64 result:
   warp roles) past it;
 * :func:`stream_chunk_routed`, topology mode: pairs are priced, then folded
   onto the shared ports over the routing's leg list, each port's legs in
-  leg order, before the port FSMs run: ``csrc/stream_chunk_routed.cu``.
+  leg order, before the port FSMs run: ``csrc/stream_chunk_routed.cu``, one
+  launch (a block a port prices its own legs' pairs; calendar blocks behind
+  the port blocks carry every pair's billing calendar).
 
 Both take an optional ``gate=(p_vpn, p_cci, margin, T_pred)``: the
 forecast-gated policy's hour-major (T_pred, M) predicted mode costs and its
@@ -59,8 +61,8 @@ from .forecaster import MAX_STATE
 
 def block_size(K: int, M: int, endo: bool, P: Optional[int] = None) -> int:
     """Elements of the runtime's packed chunk block: the demand (and the CCI
-    demand) (K, P), then the window reads pre_v, pre_c (K, M); P == M in
-    fleet mode."""
+    demand), (K, P) hour-major in fleet mode (P == M) and (P, K) pair-major
+    in topology mode, then the window reads pre_v, pre_c (K, M)."""
     return ((2 if endo else 1) * (M if P is None else P) + 2 * M) * K
 
 
@@ -86,6 +88,10 @@ TICK_MAX_K_LIVE = 3
 SUB_HOURS = 8
 MAX_SUBS = 3
 FORMS = ("auto", "tick", "chunk")
+#: The routed chunk's hour tile (``kTile`` in ``csrc/stream_chunk_routed.cu``):
+#: a chunk of more than ROUTED_TILE hours keeps each leg's calendar carry
+#: between hour tiles in a (2, E) scratch the wrapper owns.
+ROUTED_TILE = 32
 
 
 def launch_form(K: int, Kt: int, form: str = "auto", live: bool = False) -> int:
@@ -269,7 +275,7 @@ def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci
 
 
 def stream_chunk_routed(
-    block: torch.Tensor,          # flat float64, block_size(K, M, endo, P)
+    block: torch.Tensor,          # flat float64, block_size(K, M, endo, P); demand (P, K)
     K: int,
     endo: bool,                   # the block holds a CCI demand plane
     pair_capacity: torch.Tensor,  # (P,) float64
@@ -297,15 +303,17 @@ def stream_chunk_routed(
     gate=None,                    # (p_vpn, p_cci (T_pred, M) f64, margin (M,) f64, T_pred)
     live=None,                    # (h, pred, a, one_minus_a, w, bias, scale, cost_coef, margin)
 ) -> Tuple[torch.Tensor, ...]:
-    """The routed chunk on the card, one C call (a pair-stage and a
-    port-stage kernel on the current stream; the wrapper owns their scratch,
-    two pair-major (P, K) planes, three in a live call with endogenous
-    demand: the clipped VPN-path demand the forecast folds): the flat float64
-    result of :func:`routed_result_size` and the FSM carry after the chunk,
-    (4, M) int32. With ``gate`` (per port) the port stage is its
-    forecast-gated instance; with ``live`` (per port) its live instance, and
-    the result holds a ninth (K, M) plane (``routed_result_size(K, P, M,
-    live=True)``) and the forecaster's state after the chunk comes third."""
+    """The routed chunk on the card, one kernel launch on the current stream
+    (past :data:`ROUTED_TILE` hours the wrapper owns its scratch, each leg's
+    calendar carry, (2, E)): the flat float64 result of
+    :func:`routed_result_size` and the FSM carry after the chunk, (4, M)
+    int32. ``routing`` must carry its port-major :class:`LegIndex` with the
+    leg descriptors (``leg_pair_pm``, ``vpn_w_pm``, ``attach_w_pm``, built by
+    ``RoutingPlan.operand`` or ``index_legs``). With ``gate`` (per port) the
+    kernel is its forecast-gated instance; with ``live`` (per port) its live
+    instance, and the result holds a ninth (K, M) plane
+    (``routed_result_size(K, P, M, live=True)``) and the forecaster's state
+    after the chunk comes third."""
     P, M = pair_capacity.shape[0], lease_cci.shape[0]
     f64, i32 = torch.float64, torch.int32
     if K < 1 or t0 < 0 or hours_per_month < 1:
@@ -316,17 +324,18 @@ def stream_chunk_routed(
         raise ValueError(f"stream_chunk_routed block: want flat float64 of {n}, "
                          f"got {tuple(block.shape)} {block.dtype}")
     idx = routing.index
-    if idx is None or idx.n_ports != M:
+    if idx is None or idx.n_ports != M or not idx.port_major:
         raise ValueError(f"stream_chunk_routed: the routing has no port-major leg index "
-                         f"for {M} ports; build it with index_legs(op, {M})")
+                         f"with its leg descriptors for {M} ports; build it with "
+                         f"index_legs(op, {M})")
     if routing.n_rows != P:
         raise ValueError(f"stream_chunk_routed: routing has {routing.n_rows} rows, "
                          f"the chunk {P} pairs")
     Kt, E = bounds.shape[-1], routing.n_legs
     want = [(bounds, (P, Kt), f64), (rates, (P, Kt), f64), (cal, (2, P), f64),
             (fsm, (4, M), i32), (pref, (2, M), f64),
-            (routing.leg_pair, (E,), i32), (routing.vpn_w, (E,), f64),
-            (routing.attach_w, (E,), f64), (idx.order, (E,), i32), (idx.start, (M + 1,), i32)]
+            (idx.leg_pair_pm, (E,), i32), (idx.vpn_w_pm, (E,), f64),
+            (idx.attach_w_pm, (E,), f64), (idx.start, (M + 1,), i32)]
     want += [(a, (P,), f64) for a in (pair_capacity, L_vpn)]
     want += [(a, (M,), f64) for a in (lease_cci, c_cci, port_capacity, theta1, theta2)]
     want += [(a, (M,), i32) for a in (h, D, T_cci, up_hold, down_hold)]
@@ -341,8 +350,8 @@ def stream_chunk_routed(
     out = torch.empty(routed_result_size(K, P, M, live is not None), dtype=f64, device=dev)
     fsm_out = torch.empty((4, M), dtype=i32, device=dev)
     h_out = torch.empty((M, S), dtype=torch.float32, device=dev) if live is not None else None
-    planes = 3 if live is not None and endo else 2
-    scratch = torch.empty(planes * K * P, dtype=f64, device=dev)
+    leg_cal = (torch.empty(2 * E, dtype=f64, device=dev) if K > ROUTED_TILE and E > 0
+               else None)
     nd = (2 if endo else 1) * K * P
     at = lambda off: block.data_ptr() + 8 * off   # element offset into the block
     with torch.cuda.device(dev):
@@ -351,9 +360,9 @@ def stream_chunk_routed(
             at(0), at(K * P) if endo else None, at(nd), at(nd + K * M),
             *(a.data_ptr() for a in (
                 pair_capacity, L_vpn, bounds, rates, lease_cci, c_cci, port_capacity,
-                theta1, theta2, h, D, T_cci, up_hold, down_hold, routing.leg_pair,
-                routing.vpn_w, routing.attach_w, idx.order, idx.start, cal, fsm, pref,
-                scratch)),
+                theta1, theta2, h, D, T_cci, up_hold, down_hold, idx.leg_pair_pm,
+                idx.vpn_w_pm, idx.attach_w_pm, idx.start, cal, fsm, pref)),
+            None if leg_cal is None else leg_cal.data_ptr(),
             *(gate_ptrs if live is None else (None, None, margin)), *live_ptrs,
             int(bool(renew_in_chunks)), t0, hours_per_month, K, P, M, E, Kt, T_pred, S,
             out.data_ptr(), fsm_out.data_ptr(), None if h_out is None else h_out.data_ptr(),

@@ -43,6 +43,7 @@ against the plain versions (``ref.stream_chunk_ref``,
 Change a kernel's schedule and change its replay with it: the replays read
 the kernels' tile constants from the CUDA sources.
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -51,12 +52,15 @@ import pytest
 import torch
 
 from repro_torch.fleet import (FleetRuntime, StreamingForecaster, build_fleet_scenario,
-                               fit_cost_coef, forecast_gated_policy)
+                               build_multicast_scenario, build_relay_scenario,
+                               build_topology_scenario, fit_cost_coef, forecast_gated_policy,
+                               optimize_routing)
 from repro_torch.fleet.engine import routed_cost_series
 from repro_torch.fleet.policy import predicted_mode_costs
 from repro_torch.kernels import ref
 from repro_torch.kernels.forecaster import BWD_TILE, checkpoint_shape
-from repro_torch.kernels.stream_chunk import (MAX_SUBS, SUB_HOURS, TICK_MAX_K,
+from repro_torch.kernels.forecaster import MAX_STATE
+from repro_torch.kernels.stream_chunk import (MAX_SUBS, ROUTED_TILE, SUB_HOURS, TICK_MAX_K,
                                               TICK_MAX_K_LIVE, TICK_MAX_TIERS, launch_form)
 from repro_torch.kernels.tiered_cost_scan import (SCAN_ROWS, SCAN_TARGET_BLOCKS,
                                                   segment_plan, segment_slots)
@@ -80,6 +84,20 @@ def test_tile_constants_match_the_sources():
     assert _cu_const("tiered_cost_scan.cu", "kScanRows") == SCAN_ROWS
     # five named barriers a sub-tile, barrier 0 for __syncthreads: 16 in all
     assert 1 + _cu_const("stream_chunk.cu", "kPhases") * MAX_SUBS <= 16
+    # the routed chunk: its hour and leg tiles, a leg a thread, a port's two
+    # named barriers beside __syncthreads, the forecaster's states; a block a
+    # port (one when there is none), each walking its slice of the pairs'
+    # calendars (_routed_calendar)
+    routed = (CSRC / "stream_chunk_routed.cu").read_text()
+    assert _cu_const("stream_chunk_routed.cu", "kTile") == ROUTED_TILE
+    assert "routed_chunk_kernel<G><<<a.M > 0 ? a.M : 1, kThreads, smem, s>>>(a);" in routed
+    assert "calendar_slice<G>(a, dyn + slice_offset(st, endo, a.Kt), m, M, lane);" in routed
+    assert "const int S = (a.P + nblocks - 1) / nblocks;" in routed
+    assert R_THREADS % 32 == 0 and R_THREADS >= R_LEGS   # a thread a leg to stage
+    bars = re.search(r"constexpr int kBarCost = (\d+), kBarGate = (\d+);", routed)
+    assert bars and 0 < int(bars[1]) != int(bars[2]) < 16
+    assert _cu_const("stream_chunk_routed.cu", "kBarThreads") == 2 * 32
+    assert _cu_const("stream_chunk_routed.cu", "kMaxState") == MAX_STATE
 
 
 # -- launch_form -------------------------------------------------------------
@@ -930,6 +948,570 @@ def test_chunk_form_replay_catches_a_missing_barrier(order):
     rng = None if order == "in_order" else np.random.default_rng(0)
     with pytest.raises(AssertionError, match="never written|without a barrier"):
         _pipe_replay(c, 3, rng, early_pref=True)
+
+
+# -- stream_chunk_routed's schedule --------------------------------------------
+
+R_TILE = _cu_const("stream_chunk_routed.cu", "kTile")
+R_THREADS = _cu_const("stream_chunk_routed.cu", "kThreads")
+R_LEGS = _cu_const("stream_chunk_routed.cu", "kLegTile")
+R_WARPS = R_THREADS // 32
+R_FAULTS = ("stage_sync", "cost_arrive", "tables")
+
+
+def _fold_minmax(lo, d, b, r):
+    """tier_fold.cuh's fold_staged4 over rows: fmin/fmax terms (the
+    padding tiers add nothing) added left to right from +0.0, and +0.0
+    where hi = lo + d is NaN."""
+    hi = lo + d
+    acc = np.zeros_like(lo)
+    prev = np.zeros_like(lo)
+    with np.errstate(invalid="ignore"):
+        for t in range(b.shape[1]):
+            seg = np.fmin(hi, b[:, t]) - np.fmax(lo, prev)
+            acc = acc + np.where(seg > 0, seg * r[:, t], 0)
+            prev = b[:, t]
+    return np.where(np.isnan(hi), 0.0, acc)
+
+
+def _min_sel(a, b):
+    """tier_fold.cuh's min_sel: NaN if either operand is (a first), else the
+    smaller, a on a tie."""
+    with np.errstate(invalid="ignore"):
+        return np.where(np.isnan(a), a, np.where(np.isnan(b), b, np.where(b < a, b, a)))
+
+
+class _Cells:
+    """Happens-before bookkeeping for one block's warps, cell by cell: each
+    warp has a vector clock; a write records the writer and its epoch, and a
+    read must see it, its own warp's write or another's through a barrier."""
+
+    def __init__(self, n):
+        self.vc = np.zeros((n, n), np.int64)
+        self.meta = {}
+
+    def write(self, w, name, idx, shape):
+        if name not in self.meta:
+            self.meta[name] = (np.full(shape, -1), np.zeros(shape, np.int64))
+        writer, epoch = self.meta[name]
+        writer[idx], epoch[idx] = w, self.vc[w, w]
+
+    def read(self, w, name, idx):
+        assert name in self.meta, f"warp {w} reads {name}, never written"
+        writer, epoch = self.meta[name]
+        wr, ep = np.broadcast_arrays(writer[idx], epoch[idx])
+        assert (wr >= 0).all(), f"warp {w} reads {name}, never written"
+        seen = (wr == w) | (self.vc[w][np.maximum(wr, 0)] >= ep)
+        assert seen.all(), (f"warp {w} reads {name} written by another warp without a "
+                            f"barrier between")
+
+
+def _run_block(cells, gens, rng):
+    """Run a block's warps, generators that yield ("sync",) (__syncthreads),
+    ("arrive", bar) and ("wait", bar) (a named barrier's bar.arrive and
+    bar.sync), in an order ``rng`` picks (in order if None)."""
+    live, blocked, at_sync, arrived = dict(gens), {}, set(), {}
+    while live:
+        runnable = [w for w in live if w not in blocked
+                    or (blocked[w][0] == "sync" and len(at_sync) == len(live))
+                    or (blocked[w][0] == "wait" and blocked[w][1] in arrived)]
+        assert runnable, f"deadlock: {blocked}"
+        w = runnable[0] if rng is None else runnable[rng.integers(len(runnable))]
+        op = blocked.pop(w, None)
+        if op is not None and op[0] == "sync":         # everyone leaves the barrier together
+            joined = cells.vc[sorted(at_sync)].max(axis=0)
+            for x in at_sync:
+                cells.vc[x] = np.maximum(cells.vc[x], joined)
+                blocked.pop(x, None)
+            at_sync.clear()
+        elif op is not None:
+            cells.vc[w] = np.maximum(cells.vc[w], arrived.pop(op[1]))
+        try:
+            op = next(live[w])
+        except StopIteration:
+            del live[w]
+            continue
+        if op[0] == "sync":
+            at_sync.add(w)
+            blocked[w] = op
+        elif op[0] == "arrive":
+            assert op[1] not in arrived, f"{op[1]} arrived twice"
+            arrived[op[1]] = cells.vc[w].copy()
+        else:
+            blocked[w] = op
+        cells.vc[w, w] += 1
+    assert not arrived, f"barriers left open: {list(arrived)}"
+
+
+def _routed_np(args, renew, gate=None, live=None):
+    """The routed chunk's operands as numpy (the live ones as tensors)."""
+    (block, K, endo, pcap, lvpn, b, r, lease, cc, portcap, th1, th2, h, D, Tc, uh, dh,
+     routing, cal, fsm, pref, t0, hpm) = args
+    P, M = pcap.shape[0], lease.shape[0]
+    blk = block.numpy()
+    nd = (2 if endo else 1) * K * P
+    n = lambda x: x.numpy()
+    idx = routing.index
+    return {
+        "K": K, "P": P, "M": M, "E": routing.n_legs, "t0": t0, "hpm": hpm, "endo": endo,
+        "demand": blk[:K * P].reshape(P, K).T,          # pair-major in the block
+        "cci_demand": blk[K * P:nd].reshape(P, K).T if endo else None,
+        "pre_v": blk[nd:nd + K * M].reshape(K, M), "pre_c": blk[nd + K * M:].reshape(K, M),
+        "pcap": n(pcap), "lvpn": n(lvpn), "b": n(b), "r": n(r), "lease": n(lease), "cc": n(cc),
+        "portcap": n(portcap), "th1": n(th1), "th2": n(th2), "h": n(h).astype(np.int64),
+        "p": {"D": n(D).astype(np.int64), "T": n(Tc).astype(np.int64),
+              "up": n(uh).astype(np.int64), "down": n(dh).astype(np.int64), "renew": renew},
+        "lp": n(idx.leg_pair_pm).astype(np.int64), "vw": n(idx.vpn_w_pm),
+        "aw": n(idx.attach_w_pm), "start": n(idx.start).astype(np.int64),
+        "cal": n(cal), "fsm": n(fsm).astype(np.int64), "pref": n(pref),
+        "gate": gate, "live": live,
+    }
+
+
+def _routed_calendar(c):
+    """The calendars of the blocks' slices of the pairs (block b of max(M,
+    1): pairs [b S, (b + 1) S), S = ceil(P / blocks)), a lane a pair over
+    the whole chunk. Returns the carry and how many times each pair's was
+    written."""
+    P = c["P"]
+    nblocks = max(c["M"], 1)
+    S = -(-P // nblocks)
+    out = np.zeros((2, P))
+    writes = np.zeros(P, np.int64)
+    for b in range(nblocks):
+        n = np.arange(b * S, min(P, (b + 1) * S))
+        dcum, month = c["cal"][0, n].copy(), c["cal"][1, n].copy()
+        ph = c["t0"] % c["hpm"]
+        for k in range(c["K"]):
+            d = _min_sel(c["demand"][k, n], c["pcap"][n])
+            if ph == 0:
+                month = dcum.copy()
+            dcum = dcum + d
+            ph = 0 if ph + 1 == c["hpm"] else ph + 1
+        out[0, n], out[1, n] = dcum, month
+        writes[n] += 1
+    return out, writes
+
+
+def _routed_port(c, m, leg_cal, rng, fault=None):
+    """``routed_chunk_kernel`` for port m: its warps as coroutines in
+    an order ``rng`` picks, every shared-memory read checked to follow its
+    write through the block's barriers. ``fault`` plants a fault: no
+    __syncthreads between the legs' calendars and the tier fold
+    ("stage_sync"), warp 1 arriving on the cost barrier before it writes
+    the CCI plane ("cost_arrive"), a leg's tier rows staged from the next
+    leg's pair ("tables"). Returns the port's planes, prefixes, FSM carry
+    and forecaster state."""
+    K, t0, hpm, endo = c["K"], c["t0"], c["hpm"], c["endo"]
+    gate, lv = c["gate"], c["live"]
+    e0, e1 = int(c["start"][m]), int(c["start"][m + 1])
+    Kt = c["b"].shape[1]
+    LT = R_LEGS
+    cells = _Cells(R_WARPS)
+    sh = (LT, R_TILE)
+    Dp, LOp, Cp = np.zeros(sh), np.zeros(sh), np.zeros(sh)
+    tb, tr = np.zeros((LT, Kt)), np.zeros((LT, Kt))
+    lvpn, wv, wa = np.zeros(LT), np.zeros(LT), np.zeros(LT)
+    sm = {k: np.zeros(R_TILE) for k in ("v", "c", "sv", "sc", "gv", "gc")}
+    planes = np.full((9 if lv is not None else 8, K), np.nan)
+    res = {}
+
+    lp = np.zeros(LT, np.int64)
+    pcap = np.zeros(LT)
+    carry = {}
+
+    def stage(w, s0, js, k0):
+        """Threads js: their legs' descriptors, and their pairs' scalars."""
+        pos = s0 + js
+        lp[js] = c["lp"][pos]
+        wv[js], wa[js] = c["vw"][pos], c["aw"][pos]
+        for name in ("lp", "wv", "wa"):
+            cells.write(w, name, js, (LT,))
+        pr = lp[js]
+        if k0 == 0:
+            carry[w] = (c["cal"][0, pr].copy(), c["cal"][1, pr].copy())
+        else:                                  # this thread's own store
+            carry[w] = (leg_cal[0, pos].copy(), leg_cal[1, pos].copy())
+        lvpn[js], pcap[js] = c["lvpn"][pr], c["pcap"][pr]
+        for name in ("lvpn", "pcap"):          # written before the gather's barrier
+            cells.write(w, name, js, (LT,))
+
+    def gather(w, tids, nl, k0, ln):
+        """Every thread: (leg, hour) demand copies and (leg, tier) table
+        copies into shared memory."""
+        o = np.concatenate([np.arange(t, nl * ln, R_THREADS) for t in tids])
+        ls, ks = o // ln, o % ln
+        if len(o):
+            cells.read(w, "lp", ls)
+            Dp[ls, ks] = c["demand"][k0 + ks, lp[ls]]
+            cells.write(w, "D", (ls, ks), sh)
+            if endo:
+                Cp[ls, ks] = c["cci_demand"][k0 + ks, lp[ls]]
+                cells.write(w, "C", (ls, ks), sh)
+        o = np.concatenate([np.arange(t, nl, R_THREADS) for t in tids])
+        if len(o):                             # a table row a leg (its tiers' copies)
+            cells.read(w, "lp", o)
+            pt = lp[(o + 1) % nl] if fault == "tables" else lp[o]
+            tb[o], tr[o] = c["b"][pt], c["r"][pt]
+            cells.write(w, "tab", o, (LT,))
+
+    def clip(w, tids, nl, ln):
+        """Every thread, a (leg, hour) at a time: the demand planes clipped
+        at the pairs' capacities."""
+        o = np.concatenate([np.arange(t, nl * ln, R_THREADS) for t in tids])
+        ls, ks = o // ln, o % ln
+        if len(o):
+            cells.read(w, "pcap", ls)
+            for name, plane in (("D", Dp),) + ((("C", Cp),) if endo else ()):
+                cells.read(w, name, (ls, ks))
+                plane[ls, ks] = _min_sel(plane[ls, ks], pcap[ls])
+                cells.write(w, name, (ls, ks), sh)
+
+    def calendar(w, s0, js, k0, ln):
+        """Threads js: their pairs' calendars over the hour tile."""
+        dcum, month = carry.pop(w)
+        rows = (js[:, None], np.arange(ln)[None, :])
+        cells.read(w, "D", rows)
+        ph = (t0 + k0) % hpm
+        for kk in range(ln):
+            d = Dp[js, kk]
+            if ph == 0:
+                month = dcum.copy()
+            LOp[js, kk] = dcum - month
+            dcum = dcum + d
+            ph = 0 if ph + 1 == hpm else ph + 1
+        if k0 + ln < K:
+            leg_cal[0, s0 + js], leg_cal[1, s0 + js] = dcum, month
+        cells.write(w, "LO", rows, sh)
+
+    def warp(w):
+        tids = np.arange(32 * w, 32 * w + 32)
+        if w == 0:
+            pv, pc = c["pref"][0, m], c["pref"][1, m]
+            fc = {"state": c["fsm"][0, m:m + 1].copy(), "t_state": c["fsm"][1, m:m + 1].copy(),
+                  "up": c["fsm"][2, m:m + 1].copy(), "down": c["fsm"][3, m:m + 1].copy()}
+            p = {k: (v[m:m + 1] if isinstance(v, np.ndarray) else v) for k, v in c["p"].items()}
+            fc["phase"] = fc["t_state"] % p["T"]
+        if w == 1 and lv is not None:
+            hs = lv[0].numpy()[m].copy()
+            pred_c = float(lv[1].numpy()[m])
+            a_, oma_, w_ = (x.numpy() for x in lv[2:5])
+            bias, scale = np.float32(lv[5].numpy()), lv[6].numpy()[m]
+        for k0 in range(0, K, R_TILE):
+            ln = min(R_TILE, K - k0)
+            hrs = np.arange(ln)
+            k = k0 + hrs
+            if k0 > 0:
+                yield ("sync",)
+            if w == 0:
+                lw = np.maximum(0, t0 + k - c["h"][m])
+                bv, bc = np.zeros(ln), np.zeros(ln)
+                old = lw < t0
+                bv[old], bc[old] = c["pre_v"][k[old], m], c["pre_c"][k[old], m]
+                snap = ~old & (lw < t0 + k0)            # an earlier tile's snapshot
+                if snap.any():
+                    cells.read(0, "snap", lw[snap] - t0)
+                    bv[snap], bc[snap] = planes[4, lw[snap] - t0], planes[5, lw[snap] - t0]
+            acc, acc_d = np.zeros(ln), np.zeros(ln)
+            for s0 in range(e0, e1, R_LEGS):
+                nl = min(R_LEGS, e1 - s0)
+                if s0 > e0:
+                    yield ("sync",)
+                js = tids[tids < nl]                 # warps 0.. stage a leg a thread
+                if len(js):
+                    stage(w, s0, js, k0)
+                yield ("sync",)
+                gather(w, tids, nl, k0, ln)
+                yield ("sync",)
+                clip(w, tids, nl, ln)
+                yield ("sync",)
+                if len(js):
+                    calendar(w, s0, js, k0, ln)
+                if fault != "stage_sync":
+                    yield ("sync",)
+                # one (leg, hour) a thread at a time: the fold, then the
+                # legs' products in place
+                o = np.concatenate([np.arange(t, nl * ln, R_THREADS) for t in tids])
+                ls, ks = o // ln, o % ln
+                if len(o):
+                    for name in ("LO", "D") + (("C",) if endo else ()):
+                        cells.read(w, name, (ls, ks))
+                    for name in ("tab", "lvpn", "wv", "wa"):
+                        cells.read(w, name, ls)
+                    v = lvpn[ls] + _fold_minmax(LOp[ls, ks], Dp[ls, ks], tb[ls], tr[ls])
+                    LOp[ls, ks] = v * wv[ls]
+                    if endo:
+                        Cp[ls, ks] = Cp[ls, ks] * wa[ls]
+                        if lv is not None:
+                            Dp[ls, ks] = Dp[ls, ks] * wa[ls]
+                    else:
+                        Dp[ls, ks] = Dp[ls, ks] * wa[ls]
+                    for name in ("LO", "D") + (("C",) if endo else ()):
+                        cells.write(w, name, (ls, ks), sh)
+                yield ("sync",)
+                if w in (0, 1):
+                    plane, name = ((LOp, "LO") if w == 0 else (Cp, "C") if endo else (Dp, "D"))
+                    cells.read(w, name, (slice(0, nl), slice(0, ln)))
+                    if w == 1 and lv is not None and endo:
+                        cells.read(w, "D", (slice(0, nl), slice(0, ln)))
+                    for l in range(nl):
+                        acc = acc + plane[l, :ln]
+                        if w == 1 and lv is not None and endo:
+                            acc_d = acc_d + Dp[l, :ln]
+            if w == 1:
+                bill = _min_sel(acc, c["portcap"][m])
+                cost = c["lease"][m] + c["cc"][m] * bill
+                if fault == "cost_arrive":
+                    yield ("arrive", ("cost", k0))
+                sm["c"][:ln] = cost
+                cells.write(1, "c", hrs, (R_TILE,))
+                planes[1, k] = cost
+                if fault != "cost_arrive":
+                    yield ("arrive", ("cost", k0))
+                if lv is not None:
+                    drow = _min_sel(acc_d, c["portcap"][m]) if endo else bill
+                    with np.errstate(invalid="ignore"):
+                        u = torch.log1p(torch.from_numpy((drow / scale).astype(np.float32))).numpy()
+                    terms = np.zeros((len(hs), ln), np.float32)
+                    for j in range(ln):                  # lane s: state s's chain
+                        hs[:] = a_ * hs + oma_ * u[j]
+                        terms[:, j] = (hs - u[j]) * w_
+                    acc_y = terms[0].copy()
+                    for s in range(1, len(hs)):
+                        acc_y = acc_y + terms[s]
+                    y = (u + acc_y) + bias
+                    e = torch.expm1(torch.from_numpy(y).double()).numpy()
+                    pred = np.maximum(e, 0.0) * scale
+                    planes[8, k] = pred
+                    before = np.concatenate([[pred_c], pred[:-1]])
+                    coef = lv[7][m:m + 1]
+                    gv, gc = (x[0].numpy() for x in
+                              predicted_mode_costs(torch.from_numpy(before)[None], coef,
+                                                   torch.float64))
+                    sm["gv"][:ln], sm["gc"][:ln] = gv, gc
+                    cells.write(1, "g", hrs, (R_TILE,))
+                    pred_c = pred[-1]
+                    yield ("arrive", ("gate", k0))
+            elif w == 0:
+                sm["v"][:ln] = acc
+                cells.write(0, "v", hrs, (R_TILE,))
+                planes[0, k] = acc
+                yield ("wait", ("cost", k0))
+                cells.read(0, "v", hrs)
+                cells.read(0, "c", hrs)
+                for j in range(ln):                      # lane 0: the cost prefixes
+                    sm["sv"][j], sm["sc"][j] = pv, pc
+                    pv, pc = pv + sm["v"][j], pc + sm["c"][j]
+                in_tile = lw >= t0 + k0
+                jb = np.where(in_tile, lw - t0 - k0, 0)
+                sv, sc = sm["sv"][:ln].copy(), sm["sc"][:ln].copy()
+                rv = sv - np.where(in_tile, sm["sv"][jb], bv)
+                rc = sc - np.where(in_tile, sm["sc"][jb], bc)
+                with np.errstate(invalid="ignore"):
+                    req, rel = rc < c["th1"][m] * rv, rc > c["th2"][m] * rv
+                if gate is not None:
+                    rows = np.minimum(t0 + k, int(gate[3]) - 1)
+                    req, rel = _gate_np(c, m, gate[2].numpy()[m], gate[0].numpy()[rows, m],
+                                        gate[1].numpy()[rows, m], req, rel)
+                if lv is not None:
+                    yield ("wait", ("gate", k0))
+                    cells.read(0, "g", hrs)
+                    req, rel = _gate_np(c, m, lv[8].numpy()[m], sm["gv"][:ln], sm["gc"][:ln],
+                                        req, rel)
+                for j in range(ln):                      # lane 0: the FSM
+                    s = _fsm_step_flat(p, fc, req[j:j + 1], rel[j:j + 1])[0]
+                    planes[6, k0 + j], planes[7, k0 + j] = float(s == ON), float(s)
+                planes[2, k], planes[3, k], planes[4, k], planes[5, k] = rv, rc, sv, sc
+                cells.write(0, "snap", k, (K,))
+        if w == 0:
+            res["pref"], res["fsm"] = (pv, pc), fc
+        if w == 1 and lv is not None:
+            res["h"] = hs
+
+    _run_block(cells, {w: warp(w) for w in range(R_WARPS)}, rng)
+    return planes, res
+
+
+def _gate_np(c, m, margin, p_vpn, p_cci, req, rel):
+    """fsm_step.cuh's fsm_gate and fsm_gated_triggers for port m."""
+    t1, t2 = c["th1"][m], c["th2"][m]
+    with np.errstate(invalid="ignore"):
+        req = (p_cci < (t1 - margin) * p_vpn) | (req & (p_cci < (t1 + margin) * p_vpn))
+        rel = (p_cci > (t2 + margin) * p_vpn) | (rel & (p_cci > (t2 - margin) * p_vpn))
+    return req, rel
+
+
+def _routed_replay(c, rng, fault=None):
+    """The whole launch: the port blocks, then the calendar blocks; packed
+    as the wrapper returns it. Checks that every pair's calendar carry is
+    written exactly once."""
+    K, P, M = c["K"], c["P"], c["M"]
+    lv = c["live"]
+    leg_cal = np.full((2, c["E"]), np.nan)
+    planes = np.zeros((9 if lv is not None else 8, K, M))
+    pref = np.zeros((2, M))
+    carry = np.zeros((4, M), np.int32)
+    h = None if lv is None else np.zeros(tuple(lv[0].shape), np.float32)
+    for m in range(M):
+        pl, res = _routed_port(c, m, leg_cal, rng, fault)
+        planes[:, :, m] = pl
+        pref[:, m] = res["pref"]
+        carry[:, m] = [res["fsm"][k][0] for k in ("state", "t_state", "up", "down")]
+        if lv is not None:
+            h[m] = res["h"]
+    cal_out, writes = _routed_calendar(c)
+    assert (writes == 1).all()
+    flat = np.concatenate([planes.reshape(-1), cal_out.reshape(-1), pref.reshape(-1)])
+    out = (torch.from_numpy(flat), torch.from_numpy(carry))
+    return out if h is None else out + (torch.from_numpy(h),)
+
+
+def _routed_scenario(name, pad, hpm):
+    """(scenario, spec with ``hpm`` hours a month, routing padded by ``pad``
+    legs) of the replay's cases."""
+    sc = {"relay": lambda: build_relay_scenario(horizon=200, seed=0),
+          "multicast": lambda: build_multicast_scenario(n_leaves=3, horizon=200, seed=0),
+          # 64 pairs on 32 ports, 19 of them without legs
+          "topology": lambda: build_topology_scenario(64, n_facilities=8, ports_per_facility=4,
+                                                      horizon=900, seed=0),
+          # 200 or 400 pairs on 4 ports: the hottest port holds 76 or 165 legs
+          "hot-port": lambda: build_topology_scenario(200, n_facilities=2, ports_per_facility=2,
+                                                      horizon=200, seed=0),
+          "hotter-port": lambda: build_topology_scenario(400, n_facilities=2,
+                                                         ports_per_facility=2, horizon=200,
+                                                         seed=0)}[name]()
+    topo = dataclasses.replace(sc.topo, hours_per_month=hpm)
+    r = optimize_routing(topo, sc.demand)
+    return sc, topo, r.pad_to(r.n_legs + pad)
+
+
+def _routed_policy(topo, r, mode, seed):
+    """A per-port forecast-gated policy (margins 0, 0.05, 0.15 and 1e30 by
+    port; NaN predictions of port 3 from hour 60) and, live, a four-state
+    forecaster warmed through a seeded port history; (None, None) reactive."""
+    if mode == "reactive":
+        return None, None
+    M = topo.n_ports
+    rng = np.random.default_rng(seed)
+    pred = np.repeat(rng.uniform(0.0, 3000.0, (M, 60)), 24, axis=1)[:, :1200]
+    pred = pred * rng.uniform(0.8, 1.2, pred.shape)
+    pred[3 % M, 60:] = np.nan
+    a_v, b_v = np.log(rng.uniform(5.0, 50.0, M)), rng.uniform(0.1, 0.5, M)
+    coef = np.stack([a_v, b_v, a_v + rng.normal(0, 0.2, M), b_v + rng.normal(0, 0.05, M)], 1)
+    T_pred = 600 if mode == "replay" else 2
+    pol = forecast_gated_policy(topo.stack(r, torch.float64, "cpu").toggle, pred[:, :T_pred],
+                                margin=np.resize([0.0, 0.05, 0.15, 1e30], M), cost_coef=coef)
+    if mode == "replay":
+        return pol, None
+    params = dict(demand_forecaster_init(None, 4, device="cpu"),
+                  w=torch.tensor(0.3 * rng.standard_normal(4), dtype=torch.float32),
+                  bias=torch.tensor(0.05, dtype=torch.float32))
+    hist = rng.uniform(0.0, 800.0, (M, 96)) * rng.uniform(0, 1, (M, 1))
+    return pol, StreamingForecaster.from_history(params, hist, device="cpu")
+
+
+ROUTED_CASES = {  # scenario, pad, month, first hour, Ks, endogenous, NaN pair-0 hours, mode
+    "relay-padded": ("relay", 3, 730, 48, [24, 24], False, (), "reactive"),
+    "multicast-k1": ("multicast", 0, 730, 24, [24, 1], False, (), "reactive"),
+    "nan-pair0-padded": ("topology", 4, 730, 48, [24, 5], False, (40, 51, 58), "reactive"),
+    "month-start-mid-chunk": ("topology", 0, 730, 720, [24, 1], False, (), "reactive"),
+    "k33-k360-endogenous": ("topology", 0, 730, 480, [33, 360], True, (), "reactive"),
+    "hot-76-legs": ("hot-port", 0, 730, 48, [24, 1, 33], False, (), "reactive"),
+    "hot-165-legs": ("hotter-port", 0, 730, 48, [24, 1, 33], False, (), "reactive"),
+    "gated-nan-pair0": ("topology", 4, 730, 48, [24, 1], False, (40, 51), "replay"),
+    "gated-past-T_pred-endogenous": ("topology", 0, 730, 576, [33], True, (), "replay"),
+    "gated-hot-165-legs": ("hotter-port", 0, 730, 48, [33], False, (), "replay"),
+    "live-month-start": ("topology", 0, 730, 720, [24, 1], False, (), "live"),
+    "live-endogenous-nan": ("topology", 4, 730, 48, [24, 33], True, (50, 60), "live"),
+    "live-hot-165-legs": ("hotter-port", 0, 730, 48, [24, 5], False, (), "live"),
+}
+
+
+def _routed_runtime(case):
+    """The case's CPU runtime streamed to its first hour, and its demand
+    and CCI demand."""
+    name, pad, hpm, t_first, _, endo, nan_hours, mode = ROUTED_CASES[case]
+    sc, topo, r = _routed_scenario(name, pad, hpm)
+    pol, fc = _routed_policy(topo, r, mode, len(case))
+    rt = FleetRuntime(topo, routing=r, policy=pol, forecaster=fc, device="cpu")
+    demand = sc.demand.copy()
+    demand[0, list(nan_hours)] = np.nan
+    cci = demand * 1.5 if endo else None
+    t = 0
+    while t < t_first:
+        k = min(24, t_first - t)
+        rt.step_many(demand[:, t:t + k], cci_demand_block=None if cci is None else cci[:, t:t + k])
+        t += k
+    return rt, demand, cci, t
+
+
+def _routed_chunks(case, fault=None):
+    """Each of the case's chunks through the replay, in a random
+    interleaving, beside the plain version: yields (got, want)."""
+    rt, demand, cci, t = _routed_runtime(case)
+    rng = np.random.default_rng(len(case))
+    for K in ROUTED_CASES[case][4]:
+        cblk = None if cci is None else cci[:, t:t + K]
+        block, _, endo = rt._pack(demand[:, t:t + K], cblk)
+        args = rt._chunk_args(torch.from_numpy(block), K, endo)
+        st = rt._state
+        live = None if rt._live is None else (st.ssm_h, st.pred_live, *rt._live)
+        kw = dict(renew_in_chunks=rt.policy.renew_in_chunks, gate=rt._gate, live=live)
+        want = ref.stream_chunk_routed_ref(*args, **kw)
+        got = _routed_replay(_routed_np(args, kw["renew_in_chunks"], rt._gate, live), rng, fault)
+        yield got, want
+        rt.step_many(demand[:, t:t + K], cci_demand_block=cblk)
+        t += K
+
+
+@pytest.mark.parametrize("case", sorted(ROUTED_CASES))
+def test_routed_chunk_schedule_bit_equal_to_plain(case):
+    """stream_chunk_routed's one launch, replayed: the port blocks' warps
+    (legs staged and priced a thread a leg, the tier fold over every
+    thread, the leg sums, the port half handed from warp 1 to warp 0 on
+    named barriers) in random interleavings, and the calendar blocks, each
+    pair's carry written once; every output bit, the FSM carry and the
+    forecaster's state equal stream_chunk_routed_ref's: reactive, gated and
+    live, padding legs under a NaN in pair 0, ports with no legs, 76- and
+    165-leg ports, K = 1, 5, 24, 33 and 360, a month start inside a chunk,
+    endogenous CCI demand."""
+    for got, want in _routed_chunks(case):
+        assert len(got) == len(want)
+        assert all(_same_bits(g, w) for g, w in zip(got, want))
+
+
+def test_routed_replay_cases_cover_the_edges():
+    """The cases hold what the replay is asked to cover: a port without
+    legs, a port past one leg tile, a port of 76 legs, padding legs on pair
+    0, and chunks past one hour tile."""
+    legs = {}
+    for case in ("nan-pair0-padded", "hot-76-legs", "hot-165-legs"):
+        rt = _routed_runtime(case)[0]
+        idx = rt.arrays.routing.index
+        legs[case] = np.diff(idx.start.numpy())
+    assert legs["nan-pair0-padded"].min() == 0
+    assert legs["hot-76-legs"].max() == 76
+    assert legs["hot-165-legs"].max() == 165 > R_LEGS
+    op = _routed_runtime("nan-pair0-padded")[0].arrays.routing
+    assert (op.attach_w.numpy() == 0).sum() == 4 and op.leg_pair.numpy()[-1] == 0
+    assert max(max(v[4]) for v in ROUTED_CASES.values()) > R_TILE
+
+
+@pytest.mark.parametrize("fault", ["stage_sync", "cost_arrive"])
+def test_routed_replay_catches_a_missing_barrier(fault):
+    """The replay's bookkeeping is live: with no __syncthreads between the
+    legs' calendars and the tier fold, or warp 1 arriving on the cost
+    barrier before it writes the CCI plane, a read is caught."""
+    with pytest.raises(AssertionError, match="never written|without a barrier"):
+        for _ in _routed_chunks("relay-padded", fault):
+            pass
+
+
+def test_routed_replay_catches_another_pairs_tier_rows():
+    """A leg priced from the next leg's pair's tier rows changes bits: the
+    replay then differs from the plain version."""
+    got, want = next(_routed_chunks("nan-pair0-padded", "tables"))
+    assert not _same_bits(got[0], want[0])
 
 
 # -- the forecaster's backward pass -------------------------------------------------

@@ -1104,8 +1104,8 @@ def _routed_scenario(name, pad, hpm):
 def test_stream_chunk_routed_wrapper_refuses_cpu_tensors_and_bad_operands():
     """The routed chunk's wrapper launches on CUDA tensors or raises: CPU
     operands, a block of the wrong length, a routing without its port-major
-    index and a carry of the wrong type are refused before anything is
-    built."""
+    index or with an index that lacks the port-major leg descriptors, and a
+    carry of the wrong type are refused before anything is built."""
     sc, topo, r = _routed_scenario("relay", 2, 730)
     rt = FleetRuntime(topo, routing=r, device="cpu")
     block, K, endo = rt._pack(sc.demand[:, :24], None)
@@ -1118,6 +1118,12 @@ def test_stream_chunk_routed_wrapper_refuses_cpu_tensors_and_bad_operands():
     no_index[17] = args[17]._replace(index=None)     # the routing operand
     with pytest.raises(ValueError, match="index"):
         stream_chunk_routed(*no_index)
+    idx = args[17].index
+    no_legs = list(args)
+    no_legs[17] = args[17]._replace(index=idx._replace(leg_pair_pm=None, vpn_w_pm=None,
+                                                       attach_w_pm=None))
+    with pytest.raises(ValueError, match="leg descriptors"):
+        stream_chunk_routed(*no_legs)
     bad = list(args)
     bad[-4] = bad[-4].to(torch.int64)                 # the FSM carry
     with pytest.raises(ValueError, match="operand"):
@@ -1147,7 +1153,7 @@ def test_stream_chunk_routed_kernel_matches_plain(cuda_device, case):
     tree, NaN demand in pair 0 under padding legs, K = 1 across a month
     start, month starts inside K = 24 chunks, K past the window ring and the
     32-hour tile, endogenous CCI demand, ports of 76 and 165 legs (one and
-    two of the port stage's 128-leg tiles; K = 24, 1 and 33), and the
+    two of the kernel's 128-leg tiles; K = 24, 1 and 33), and the
     2048-pair cell's routing with its empty ports and a 105-leg port (K = 24
     and 5)."""
     name, pad, hpm, t_first, Ks, endo, nan_hours = ROUTED_CASES[case]
@@ -1842,7 +1848,7 @@ GATED_ROUTED_CASES = {  # scenario, pad, month, first hour, Ks, endogenous, NaN 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(GATED_ROUTED_CASES))
 def test_stream_chunk_routed_gated_matches_plain(cuda_device, case):
-    """The routed chunk's gated port stage against stream_chunk_routed_ref
+    """The routed chunk's gated instance against stream_chunk_routed_ref
     with the same per-port gate on the card, every output bit: relay and
     multicast routings, NaN demand under padding legs, K = 1 across a month
     start, K = 5, 33 and 168 past T_pred, endogenous CCI demand, a 165-leg
@@ -2145,8 +2151,8 @@ def _live_topology(name, pad, hpm, margin, renew, S, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(LIVE_ROUTED_CASES))
 def test_stream_chunk_routed_live_matches_plain(cuda_device, case):
-    """The routed chunk's live port stage (and, with endogenous demand, the
-    pair stage's third scratch plane) against stream_chunk_routed_ref with
+    """The routed chunk's live instance (with endogenous demand, folding the
+    clipped demand beside the bill) against stream_chunk_routed_ref with
     the same per-port live operands on the card, every output bit (the
     prediction plane included), the FSM carry and the forecaster's state:
     relay and multicast routings, NaN demand under padding legs, K = 1

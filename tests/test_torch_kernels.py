@@ -488,7 +488,10 @@ def test_stream_chunk_routed_plain_on_identity_routing_is_stream_chunk():
         c = demand[:, t:t + K] * 1.5 if t == 720 else None
         bf, Kf, ef = rf._pack(demand[:, t:t + K], c)
         bt, Kt, et = rt._pack(demand[:, t:t + K], c)
-        assert np.array_equal(bf, bt, equal_nan=True) and (Kf, ef) == (Kt, et)
+        nd = (2 if ef else 1) * K * 8          # the demand planes: pair-major in topology mode
+        pair_major = bf[:nd].reshape(-1, K, 8).transpose(0, 2, 1).ravel()
+        assert np.array_equal(pair_major, bt[:nd], equal_nan=True)
+        assert np.array_equal(bf[nd:], bt[nd:], equal_nan=True) and (Kf, ef) == (Kt, et)
         got = rt._launch(torch.from_numpy(bt), K, et)
         want = rf._launch(torch.from_numpy(bf), K, ef)
         assert _same_bits(got, want.reshape(-1)), t

@@ -52,6 +52,7 @@ from repro_torch.fleet import (
 from repro_torch.fleet import engine as teng
 from repro_torch.fleet import scenario as tscen
 from repro_torch.fleet import topology as ttop
+from repro_torch.fleet.routing import index_legs
 from repro_torch.fleet.topology import topology_arrays_from_numpy
 
 EXACT = ("x", "state", "vpn_cost", "r_vpn")
@@ -220,6 +221,71 @@ def test_from_config_and_the_resolver_in_topology_mode():
 
 
 # ---------------------------------------------------------------------------
+# The port-major leg descriptors the routed chunk kernel stages
+# ---------------------------------------------------------------------------
+
+
+def _assert_port_major(op):
+    """``op``'s LegIndex holds its legs' pair, VPN share and attachment
+    weight in port-major order: ``leg_pair[order]`` and so on, every port's
+    run from ``start[m]`` in ascending leg index."""
+    idx = op.index
+    o = idx.order.long()
+    assert torch.equal(idx.leg_pair_pm, op.leg_pair[o]) and idx.leg_pair_pm.dtype == torch.int32
+    assert torch.equal(idx.vpn_w_pm, op.vpn_w[o]) and torch.equal(idx.attach_w_pm, op.attach_w[o])
+    ports = op.leg_port[o]
+    for m in range(idx.n_ports):
+        run = o[idx.start[m]:idx.start[m + 1]]
+        assert (ports[idx.start[m]:idx.start[m + 1]] == m).all()
+        assert (run[1:] > run[:-1]).all()
+
+
+@pytest.mark.parametrize("case", ["relay-padded", "multicast", "nan-pair0-padded"])
+def test_port_major_leg_descriptors(case):
+    """``RoutingPlan.operand`` (the runtime's routing) and ``index_legs``
+    (an operand built elsewhere, or one whose index lacks them) build the
+    descriptors equal to the leg list gathered through ``order``; padding
+    legs (pair 0, port 0, zero weights) stay in their place in port 0's
+    run."""
+    _, ttopo, _, tkw, _, _ = _case(case, "reactive")
+    rt = FleetRuntime(ttopo, device="cpu", **tkw)
+    op = rt.arrays.routing
+    _assert_port_major(op)
+    bare = op._replace(index=None)
+    _assert_port_major(index_legs(bare, rt.n_rows))
+    partial = op._replace(index=op.index._replace(leg_pair_pm=None, vpn_w_pm=None,
+                                                  attach_w_pm=None))
+    assert not partial.index.port_major
+    _assert_port_major(index_legs(partial, rt.n_rows))
+    assert index_legs(op, rt.n_rows) is op
+    pad = CASES[case][1]
+    if pad:
+        tail = op.index.attach_w_pm[op.index.start[0]:op.index.start[1]]
+        assert (tail[-pad:] == 0).all()
+
+
+def test_port_major_leg_descriptors_rebuilt_by_reroute():
+    """``reroute()`` builds the new routing's descriptors on the host, once:
+    after a swap of hop depth (relay, within one padded bound) and a move
+    of pairs (topology), they are the new leg list's in port-major order."""
+    tsc = tscen.build_relay_scenario(horizon=240, seed=0)
+    trel = ttop.optimize_routing(tsc.topo, tsc.demand)
+    tdir = ttop.optimize_routing(tsc.topo, tsc.demand, max_hops=1)
+    rt = FleetRuntime(tsc.topo, routing=tdir.pad_to(trel.total_hops), device="cpu")
+    rt.step_many(tsc.demand[:, :24])
+    before = rt.arrays.routing.index
+    rt.reroute(trel)
+    _assert_port_major(rt.arrays.routing)
+    assert not torch.equal(rt.arrays.routing.index.leg_pair_pm, before.leg_pair_pm)
+    ssc = tscen.build_topology_scenario(8, n_facilities=3, horizon=96, seed=5)
+    t0 = ttop.optimize_routing(ssc.topo, ssc.demand)
+    rt = FleetRuntime(ssc.topo, routing=t0, device="cpu")
+    before = rt.arrays.routing.index
+    rt.reroute(_moved_plan(ssc.topo, t0, 4))
+    _assert_port_major(rt.arrays.routing)
+    assert not torch.equal(rt.arrays.routing.index.start, before.start)
+
+
 # reroute(): swaps at a chunk boundary and between ticks
 # ---------------------------------------------------------------------------
 
