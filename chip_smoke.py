@@ -199,15 +199,19 @@ without printing a result):
     ``fsm_scan`` and the two pricings, unless margin 1e30 gives the reactive
     plan in every bit, unless ``forecaster_scan`` equals its plain version
     on the card in every bit on N in (1, 17, 2048) x T in (1, 63, 13140) x S
-    in (1, 8, 16) with a zero and a seeded h0 and a NaN hour (and once
-    without the readout), unless the gated ``fsm_scan`` equals its plain
+    in (1, 8, 16, 17, 33, 100) with a zero and a seeded h0 and a NaN hour (and
+    once without the readout; S past 16 the run-time instance), the same for
+    the backward kernel, unless a 32-state ``forecast_fleet_policy`` of 256
+    links trains on the card to the CPU's bits and plans as the CPU port
+    does, unless the gated ``fsm_scan`` equals its plain
     version on the CPU in every bit at the FSM edge shapes with margins 0,
     0.05 and 1e30, NaN predictions and both renewals, and unless the card's
     plan decides as the CPU port's (costs ``rtol=1e-9``), a differing row
     allowed only where a gate lies within the card-vs-CPU difference of the
     predicted costs of its threshold (printed, with the count); then it
-    times both kernels (profiler device time) beside their bounds, the
-    reactive and hysteresis instances in the same run, the plan beside the
+    times both kernels (profiler device time) beside their bounds and
+    ``forecaster_scan`` beside its time before the redesign and its chain
+    floor, the reactive and hysteresis instances in the same run, the plan beside the
     reactive one with a device breakdown, and prints the fleet's
     ``forecast_gain`` against the OPT column;
 14. the forecast-gated policy streamed in replay mode
@@ -257,11 +261,13 @@ without printing a result):
     demand and its decisions the card's ``replay_plan_topology`` fed them;
     holds the live ``stream_chunk`` (sixteen cases: chained chunks across the
     month start, endogenous CCI demand, K = 1, NaN demand, per-link margins,
-    S = 1 and 16, K around both launch forms' edges) and the live routed
-    chunk (four cases) against their plain versions in every output bit and
-    the forecaster's state; prints the live instances' registers and spills;
-    then times the live ``stream_chunk`` at 2048 x K = 24 and K = 1-5 beside
-    the replay instance in the same run, and the routed chunk's live, replay
+    S = 1, 16, 17, 33 and 100, K around both launch forms' edges) and the
+    live routed chunk (seven cases, S up to 100) against their plain versions
+    in every output bit and the forecaster's state; prints the live
+    instances' registers and spills and fails on a spill or a stack frame in
+    any of them; then times the live ``stream_chunk`` at 2048 x K = 24 and
+    K = 1-5 beside the replay instance in the same run and its time before
+    the redesign, and the routed chunk's live, replay
     and reactive instances at K = 24 and 1 in turns (the call's span),
     each beside its bound and latency floor, and the live years' chunk
     p50/p99 beside the replay years', with the device breakdowns;
@@ -733,6 +739,19 @@ BEFORE_REDESIGN_MS = {
     "stream_chunk 128x24": 0.0046,
     "tiered_cost_scan 2048x8760 float64": 7.0195, "tiered_cost_scan 2048x24 float64": 0.0186,
     "tiered_cost_scan 2048x8760 float32": 2.5896, "tiered_cost_scan 2048x24 float32": 0.0071,
+}
+
+
+# forecaster_scan and stream_chunk's live instance before their redesign (the
+# readout after the chains in each tile; the forecaster on the calendar
+# warp's lanes), as PERF.md's kernel table keeps them: profiler device ms,
+# NVIDIA H100 80GB HBM3, 700.00 W.
+BEFORE_OVERLAP_MS = {
+    "forecaster_scan 2048x4380": 0.0655, "forecaster_scan 2048x4380 ckpt": 0.0669,
+    "forecaster_scan 2048x13140": 0.1900,
+    "stream_chunk live 2048x24": 0.01602, "stream_chunk live 2048x1": 0.00362,
+    "stream_chunk live 2048x2": 0.00407, "stream_chunk live 2048x3": 0.00533,
+    "stream_chunk live 2048x4": 0.00647, "stream_chunk live 2048x5": 0.00671,
 }
 
 
@@ -2797,7 +2816,8 @@ GATE_MODES = ("ungated", "replay", "live")   # the streaming kernels' gate mode 
 def print_stream_registers(modes) -> None:
     """-Xptxas -v's registers, stack frame and spills of the streaming
     kernels' instances in the gate ``modes``: the last template argument of
-    the mangled name (0 ungated, 1 replay, 2 live)."""
+    the mangled name (0 ungated, 1 replay, 2 live). Fails on a spill or a
+    stack frame in any live instance."""
     import re
 
     for kernel in ("stream_chunk_tick_kernel", "stream_chunk_pipe_kernel", "routed_chunk_kernel"):
@@ -2806,6 +2826,9 @@ def print_stream_registers(modes) -> None:
             mode = GATE_MODES[int(m[1])] if m else "?"
             if mode in modes:
                 print(f"  ptxas {mode:8s} {name[-48:]}: {rep_}")
+            if mode == "live":
+                check(rep_.get("stack") == rep_.get("spill_stores") == rep_.get("spill_loads")
+                      == 0, f"the live instance {name} spills or keeps a stack frame: {rep_}")
 
 
 def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
@@ -3052,11 +3075,16 @@ def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
 FC_LINKS, FC_HOURS = 2048, 8760
 FC_HISTORY = 4380                       # benchmarks/bench_policy.py's half-horizon history
 FC_STATE = 8
-FC_CHECK = ((1, 17, 2048), (1, 63, FC_HISTORY + FC_HOURS), (1, 8, 16))   # N, T, S
+# N, T, S; S past 16 takes the kernels' run-time instances
+FC_STATES = (1, 8, 16, 17, 33, 100)
+FC_CHECK = ((1, 17, 2048), (1, 63, FC_HISTORY + FC_HOURS), FC_STATES)
 FC_MARGINS = (0.0, 0.05, 1e30)
 FC_TRAIN_STEPS = 300                    # benchmarks/bench_policy.py:102's train_steps
-FC_BWD_CHECK = ((1, 17, 2048), (2, 63, 65, FC_HISTORY), (1, 8, 16))   # N, T, S
+FC_BWD_CHECK = ((1, 17, 2048), (2, 63, 65, FC_HISTORY), FC_STATES)   # N, T, S
 FC_TRAIN_CHECK = (256, 30)              # links and steps of the card-vs-CPU training
+# links, training steps, state_dim and history hours of the card-vs-CPU
+# forecast_fleet_policy past 16 states (the kernels' run-time instances)
+FC_WIDE = (256, 30, 32, 730)
 FP32_DEP_CYCLES = 4                     # a dependent float32 multiply's or add's latency (Hopper)
 # forecast_fleet_policy then plan_fleet: the training's steps (a forward and a
 # backward scan each), the prediction over history and year, the cost fit's
@@ -3327,20 +3355,21 @@ def chain_floor_ms(T: int) -> tuple:
     return T * 2 * FP32_DEP_CYCLES / (mhz * 1e6) * 1e3, mhz
 
 
-def train_card_vs_cpu(hist: np.ndarray, window: int) -> dict:
-    """train_demand_forecaster on the card and on the CPU, FC_TRAIN_CHECK's
-    links and steps: every parameter bit equal, and every step's loss within
-    rtol 1e-6 (the loss is a torch.sum, reported only). Returns the card's
-    losses and the seconds each side took."""
+def train_card_vs_cpu(hist: np.ndarray, window: int, n: int = FC_TRAIN_CHECK[0],
+                      steps: int = FC_TRAIN_CHECK[1], state_dim: int = FC_STATE) -> dict:
+    """train_demand_forecaster on the card and on the CPU, n links and steps
+    steps (FC_TRAIN_CHECK's by default) of state_dim states: every parameter
+    bit equal, and every step's loss within rtol 1e-6 (the loss is a
+    torch.sum, reported only). Returns the card's losses, both sides'
+    parameters and the seconds each side took."""
     from repro_torch.models.ssm import train_demand_forecaster
 
-    n, steps = FC_TRAIN_CHECK
     out = {}
     for side, dev in (("card", DEVICE), ("cpu", torch.device("cpu"))):
         losses = []
         t0 = time.perf_counter()
-        params, scale = train_demand_forecaster(hist[:n], window, steps=steps, device=dev,
-                                                losses=losses)
+        params, scale = train_demand_forecaster(hist[:n], window, state_dim=state_dim,
+                                                steps=steps, device=dev, losses=losses)
         torch.cuda.synchronize()
         out[side] = (params, scale, [float(x) for x in losses], time.perf_counter() - t0)
     (gp, gs, gl, g_s), (cp, cs, cl, c_s) = out["card"], out["cpu"]
@@ -3349,7 +3378,57 @@ def train_card_vs_cpu(hist: np.ndarray, window: int) -> dict:
         check(same_bits(gp[k].cpu(), cp[k]), f"trained {k}: card != CPU in some bit "
               f"({gp[k].cpu().tolist()} vs {cp[k].tolist()})")
     np.testing.assert_allclose(gl, cl, rtol=1e-6)
-    return {"losses": gl, "card_s": g_s, "cpu_s": c_s}
+    return {"losses": gl, "card_s": g_s, "cpu_s": c_s, "card_params": gp, "cpu_params": cp}
+
+
+def wide_forecast_card_vs_cpu() -> str:
+    """The forecaster past 16 states: FC_WIDE's fleet (its own scenario, seed
+    SEED, FC_HOURS of demand after its history) through
+    forecast_fleet_policy(state_dim=32) and plan_fleet on the card, launches
+    counted (one forward and one backward scan a training step, through the
+    kernels' run-time instances); the training on the card and on the CPU
+    equal in every parameter bit; the factory's predictions those of the
+    trained parameters; the card's plan against the CPU port's from the same
+    parameters (a differing row allowed only at a gate within the two
+    devices' difference of its threshold). Returns a line to print."""
+    from repro_torch.fleet import (build_fleet_scenario, family_margins, forecast_fleet_policy,
+                                   forecast_horizon_hours, plan_fleet)
+    from repro_torch.kernels import ops
+
+    n, steps, S, H = FC_WIDE
+    t0 = time.perf_counter()
+    sc = build_fleet_scenario(n, horizon=FC_HOURS, history_hours=H, seed=SEED)
+    arrays = sc.fleet.stack(torch.float64, DEVICE)
+    margin = family_margins([l.family for l in sc.fleet.links])
+    window = forecast_horizon_hours(arrays.toggle)
+    cap = np.array([l.capacity_gb_hr for l in sc.fleet.links])[:, None]
+    tr = train_card_vs_cpu(np.minimum(sc.history, cap), window, n, steps, S)
+    before = dict(ops.LAUNCHES)
+    pol = forecast_fleet_policy(arrays, sc.demand, sc.history, margin=margin, steps=steps,
+                                state_dim=S, hours_per_month=sc.fleet.hours_per_month)
+    plan = plan_fleet(arrays, sc.demand, policy=pol)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    want = {"forecaster_scan": steps + 1, "forecaster_scan_bwd": steps,
+            "tiered_cost_batched": 2, "fsm_scan_gated": 1}
+    check(launched == want, f"forecast_fleet_policy(state_dim={S}) launched {launched}")
+    _, again = forecast_policy(sc, tr["card_params"], DEVICE)
+    check(same_bits(again.pred_demand, pol.pred_demand),
+          f"forecast_fleet_policy(state_dim={S}): predictions != predict with its training's "
+          f"parameters")
+    c_arrays, c_pol = forecast_policy(sc, tr["cpu_params"], "cpu")
+    cpu = plan_fleet(c_arrays, sc.demand, policy=c_pol, device="cpu")
+    gates = pol.features(plan["demand"], plan["vpn_hourly"], plan["cci_hourly"])
+    c_gates = c_pol.features(cpu["demand"], cpu["vpn_hourly"], cpu["cci_hourly"])
+    tol = 2 * max(rel_diff(gates[0], c_gates[0]), rel_diff(gates[1], c_gates[1]))
+    ties = gate_ties(plan, cpu, c_pol, c_gates, tol)
+    return (f"forecast_fleet_policy(state_dim={S}) {n} links x {H} h of history x {steps} "
+            f"steps, then plan_fleet over {FC_HOURS} h: launches {launched}; training card == "
+            f"CPU in every parameter bit (card {tr['card_s']:.2f} s, CPU {tr['cpu_s']:.2f} s); "
+            f"predictions == predict with those parameters; card vs CPU plan: largest relative "
+            f"difference of pred {rel_diff(pol.pred_demand, c_pol.pred_demand):.3e}, {ties} "
+            f"rows decide otherwise (each at a gate within {tol:.3e} of its threshold) "
+            f"({time.perf_counter() - t0:.1f} s)")
 
 
 def forecast_phase(card: str) -> dict:
@@ -3469,6 +3548,7 @@ def forecast_phase(card: str) -> dict:
     print(f"training {FC_TRAIN_CHECK[0]} links x {H} h x {FC_TRAIN_CHECK[1]} steps: card == CPU "
           f"port in every parameter bit, losses within rtol 1e-6 (card {tr['card_s']:.2f} s, "
           f"CPU {tr['cpu_s']:.2f} s; {time.perf_counter() - t0:.1f} s)")
+    print(wide_forecast_card_vs_cpu())
     t0 = time.perf_counter()
     n_fc = forecaster_checks()
     print(f"forecaster_scan: {n_fc} cases (N in {FC_CHECK[0]} x T in {FC_CHECK[1]} x S in "
@@ -3585,13 +3665,18 @@ def forecast_phase(card: str) -> dict:
     print(f"  forecaster_scan_bwd forming its own checkpoints (no forward's): state-only scan "
           f"{alone['forecaster_scan_kernel']:.4f} + chains and fold "
           f"{alone['forecaster_bwd_']:.4f} ms")
+    was = BEFORE_OVERLAP_MS
     print(f"  forecaster_scan {N} x {H}, S = {S} (a training step's forward): without the "
-          f"checkpoint store {tfw_ms:.4f} / {tfw[3]:.4f} ms, with it {tfw_ck_ms:.4f} / "
-          f"{tfw[2]:.4f} ms (in turns), bound {tfb['bound_ms']:.4f} ms, "
-          f"{tfw_ck_ms / tfb['bound_ms']:.2f}x; a whole training step (forward, backward, host "
-          f"sigmoid, AdamW) {step_ms:.3f} ms wall")
-    print(f"  forecaster_scan {N} x {H + T}, S = {S}: kernel {fc_ms:.4f} ms, bound "
-          f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}), {fc_ms / fb['bound_ms']:.2f}x; "
+          f"checkpoint store {tfw_ms:.4f} / {tfw[3]:.4f} ms (before the redesign "
+          f"{was[f'forecaster_scan {N}x{H}']}), with it {tfw_ck_ms:.4f} / {tfw[2]:.4f} ms "
+          f"({was[f'forecaster_scan {N}x{H} ckpt']}) (in turns), bound "
+          f"{tfb['bound_ms']:.4f} ms, {tfw_ck_ms / tfb['bound_ms']:.2f}x; chain floor "
+          f"{floor_ms_:.4f} ms, {tfw_ck_ms / floor_ms_:.2f}x; a whole training step (forward, "
+          f"backward, host sigmoid, AdamW) {step_ms:.3f} ms wall")
+    print(f"  forecaster_scan {N} x {H + T}, S = {S}: kernel {fc_ms:.4f} ms (before the "
+          f"redesign {was[f'forecaster_scan {N}x{H + T}']}), bound "
+          f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}), {fc_ms / fb['bound_ms']:.2f}x; chain "
+          f"floor {chain_floor_ms(H + T)[0]:.4f} ms; "
           f"without the readout {fc_state_ms:.4f} ms (bound {fb_state['bound_ms']:.4f}); "
           f"plain (card) {fc_plain_ms:.1f} ms; launches on the path {FC_TRAIN_STEPS} at "
           f"{N} x {H} and 1 at {N} x {H + T}")
@@ -3933,6 +4018,9 @@ def forecast_stream_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
 LIVE_TIMED_K = (24, 1, 2, 3, 4, 5)      # 2048 links: the chunk form, then the tick form
 LIVE_MATH_N = 1 << 20                   # values a transcendental is checked on
 LIVE_TRAIN_STEPS = 60                   # benchmarks/bench_runtime.py:193's steps
+# the live checks' forecaster sizes beside the main path's: past 16 states the
+# chunk form's second and later passes, past 32 the routed chunk's
+LIVE_STATES = (1, 16, 17, 33, 100)
 
 
 def live_math_checks() -> int:
@@ -4139,7 +4227,7 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
     t_cases = time.perf_counter()
     rng = np.random.default_rng(SEED + 1)
     other = {}
-    for S in (1, 16):
+    for S in LIVE_STATES:
         p_ = demand_forecaster_init(None, S, device=DEVICE)
         p_ = dict(p_, w=torch.tensor(0.3 * rng.standard_normal(S), dtype=torch.float32,
                                      device=DEVICE))
@@ -4160,6 +4248,9 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
         "S = 1: K = 24, 5": (pol, other[1], demand, 696, [24, 5], None),
         "S = 16: K = 24, 5, 9": (pol, other[16], demand, 696, [24, 5, 9], None),
     }
+    for S in LIVE_STATES[2:]:   # 17, 33 and 100: past one pass of 16 states
+        cases[f"S = {S}: K = 24, 3, 5, 9, 30"] = (pol, other[S], demand, 696, [24, 3, 5, 9, 30],
+                                                  None)
     for K in (2, 3, TICK_MAX_K_LIVE, TICK_MAX_K_LIVE + 1, 8, 9, 17, 23, 25):
         cases[f"3 chained K = {K} from hour 726"] = (pol, fc, demand, 726, [K] * 3, None)
     live_err = 0.0
@@ -4174,17 +4265,25 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
     bad[0, [666, 699, 706]] = np.nan
     padded = r0.pad_to(r0.total_hops + NAN_PAD)
     tcases = {
-        "4 chained K = 24 from hour 696": (r0, tsc.demand, 696, [24] * 4, None),
-        "K = 1 over hours 728..731": (r0, tsc.demand, 728, [1] * 4, None),
+        "4 chained K = 24 from hour 696": (r0, tsc.demand, 696, [24] * 4, None, tfc),
+        "K = 1 over hours 728..731": (r0, tsc.demand, 728, [1] * 4, None, tfc),
         f"NaN demand in pair 0, {NAN_PAD} padding legs, 2 x K = 24": (padded, bad, 696,
-                                                                     [24] * 2, None),
+                                                                     [24] * 2, None, tfc),
         "endogenous CCI demand: K = 24, 5, 33 from hour 726": (r0, tsc.demand, 726, [24, 5, 33],
-                                                               tsc.demand * 1.5),
+                                                               tsc.demand * 1.5, tfc),
     }
+    port_hist = hseries.row_demand
+    for S in LIVE_STATES[2:]:   # 33 and 100 past one pass of 32 states
+        p_ = dict(demand_forecaster_init(None, S, device=DEVICE),
+                  w=torch.tensor(0.3 * rng.standard_normal(S), dtype=torch.float32,
+                                 device=DEVICE))
+        tcases[f"S = {S}: K = 24, 1, 33 from hour 696"] = (
+            r0, tsc.demand, 696, [24, 1, 33], None,
+            StreamingForecaster.from_history(p_, port_hist))
     routed_err = 0.0
-    for label, (r_, d_, t_, Ks, c_) in tcases.items():
+    for label, (r_, d_, t_, Ks, c_, f_) in tcases.items():
         routed_err = max(routed_err, chunk_case(tsc.topo, d_, t_, Ks, c_, routing=r_,
-                                                policy=tpol, forecaster=tfc))
+                                                policy=tpol, forecaster=f_))
         print(f"  live stream_chunk_routed == stream_chunk_routed_ref with the live operands, "
               f"every output bit and the forecaster's state: {label}")
     print(f"live stream_chunk_routed: {len(tcases)} cases equal the plain version on the card "
@@ -4247,8 +4346,10 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
                   f"live stream_chunk {o_form} form {N} x K={K} != plain")
             other = (f"; {o_form} form "
                      f"{device_ms_per_call(o_call, 20, 'stream_chunk', 1):.5f} ms")
+        before = BEFORE_OVERLAP_MS.get(f"stream_chunk live {N}x{K}")
         print(f"  stream_chunk live {N} x K={K} ({form} form, S = {S}): {l_ms:.5f} / "
-              f"{l2_ms:.5f} ms, replay instance {g_ms:.5f} ms (in turns){other}; bound "
+              f"{l2_ms:.5f} ms (before the redesign {before}), replay instance {g_ms:.5f} ms "
+              f"(in turns), live - replay {(l_ms - g_ms) * 1e3:.3f} us{other}; bound "
               f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), {l_ms / b['bound_ms']:.2f}x "
               f"bound; plain {tk['plain_ms']:.3f} ms")
     print_breakdown(lambda: rt_l.step_many(sc.demand[:, SWEEP_T0:SWEEP_T0 + STREAM_K]), reps=6,

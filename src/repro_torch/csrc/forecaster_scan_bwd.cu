@@ -65,6 +65,13 @@
 // (lam, dA and dB on one; the recompute, dW and dbias on the other), TMA
 // bulk copies of each 256-byte row, a deeper ring; for the fold, smaller
 // chunks or a deeper ring.
+//
+// Any S past kFastState takes the run-time instance instead: a thread a
+// (row, state) chain, blocks of kAnyThreads states of one row, each tile's
+// states recomputed from its checkpoint into registers and the adjoint walked
+// back through it, u and dy read from device memory; then a fold thread a
+// sum over the rows in index order from -0.0. The same operations in the same
+// order, so the same bits; it is not tuned.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,7 +85,8 @@ constexpr int kGroups = kTile / 4;           // four-hour groups a tile
 constexpr int kAhead = 4;                    // tiles in flight ahead of the step
 constexpr int kRing = kAhead + 2;            // tiles in the ring
 constexpr int kPad = kTile + 4;              // ring and state row stride (words): 16-byte rows
-constexpr int kMaxState = 16;
+constexpr int kFastState = 16;              // compile-time instances: S = 1 .. kFastState
+constexpr int kAnyThreads = 128;             // the run-time instance's blocks
 constexpr int kFoldThreads = 256;            // the fold's block
 constexpr int kFoldRows = 256;               // rows a staged chunk of the fold
 constexpr int kFoldPad = kFoldRows + 4;      // a sum's row stride in a chunk (words)
@@ -399,8 +407,71 @@ int launch(const float* u, const float* dy, const float* a, const float* oma, co
   return (int)cudaGetLastError();
 }
 
+// The run-time instance's chains, for S past kFastState: thread (n, s) with
+// n = blockIdx.x, s = blockIdx.y * kAnyThreads + threadIdx.x.
+__global__ void __launch_bounds__(kAnyThreads)
+forecaster_bwd_chains_any_kernel(const float* __restrict__ u, const float* __restrict__ dy,
+                                 const float* __restrict__ a,
+                                 const float* __restrict__ one_minus_a,
+                                 const float* __restrict__ w, const float* __restrict__ ckpt,
+                                 int N, int T, int S, int ld, float* __restrict__ part) {
+  const int64_t n = blockIdx.x;
+  const int s = blockIdx.y * kAnyThreads + threadIdx.x;
+  if (s >= S) return;
+  Chain c{};
+  c.as = a[s];
+  c.bs = one_minus_a[s];
+  c.ws = w[s];
+  const float* ur = u + n * T;
+  const float* dr = dy + n * T;
+  for (int j = (T + kTile - 1) / kTile - 1; j >= 0; --j) {
+    const int t0 = j * kTile, len = min(kTile, T - t0);
+    const float hc = ckpt[((int64_t)j * N + n) * S + s];
+    float hv[kTile];                                // the tile's states; past len unused
+    c.hr = hc;
+#pragma unroll
+    for (int i = 0; i < kTile; ++i) hv[i] = i < len ? recompute_hour(c, ur[t0 + i]) : 0.0f;
+#pragma unroll
+    for (int i = kTile - 1; i >= 0; --i)
+      if (i < len) adjoint_hour(c, dr[t0 + i], ur[t0 + i], hv[i], i > 0 ? hv[i - 1] : hc);
+  }
+  part[(int64_t)s * ld + n] = c.dA;
+  part[(int64_t)(S + s) * ld + n] = c.dB;
+  part[(int64_t)(2 * S + s) * ld + n] = c.dW;
+  if (s == 0) part[(int64_t)(3 * S) * ld + n] = c.dBias;
+}
+
+// The run-time instance's fold: thread q adds sum q's rows in index order.
+__global__ void __launch_bounds__(kAnyThreads)
+forecaster_bwd_fold_any_kernel(const float* __restrict__ part, int N, int ld, int Q,
+                               float* __restrict__ out) {
+  const int q = blockIdx.x * kAnyThreads + threadIdx.x;
+  if (q >= Q) return;
+  const float* row = part + (int64_t)q * ld;
+  float acc = -0.0f;
+  for (int n = 0; n < N; ++n) acc = __fadd_rn(acc, row[n]);
+  out[q] = acc;
+}
+
+int launch_any(const float* u, const float* dy, const float* a, const float* oma,
+               const float* w, const float* ckpt, int N, int T, int S, float* part, float* out,
+               cudaStream_t stream) {
+  const int ld = (N + 3) / 4 * 4;
+  const dim3 grid(N, (S + kAnyThreads - 1) / kAnyThreads);
+  forecaster_bwd_chains_any_kernel<<<grid, kAnyThreads, 0, stream>>>(u, dy, a, oma, w, ckpt, N,
+                                                                     T, S, ld, part);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const int Q = 3 * S + 1;
+  forecaster_bwd_fold_any_kernel<<<(Q + kAnyThreads - 1) / kAnyThreads, kAnyThreads, 0,
+                                   stream>>>(part, N, ld, Q, out);
+  return (int)cudaGetLastError();
+}
+
 using LaunchFn = int (*)(const float*, const float*, const float*, const float*, const float*,
                          const float*, int, int, float*, float*, cudaStream_t);
+
+// The compile-time instance of S, or null past kFastState.
 
 LaunchFn pick_state(int S) {
   switch (S) {
@@ -424,26 +495,28 @@ LaunchFn pick_state(int S) {
   }
 }
 
-static_assert(kMaxState == 16, "pick_state instantiates S = 1 .. kMaxState");
-static_assert(3 * kMaxState + 1 <= kFoldThreads, "one fold thread a sum");
+static_assert(kFastState == 16, "pick_state instantiates S = 1 .. kFastState");
+static_assert(3 * kFastState + 1 <= kFoldThreads, "one fold thread a sum");
 static_assert(kTile % 4 == 0 && kFoldRows % 4 == 0, "float4 groups");
 static_assert(Geo<4>::kSmem <= 232448, "shared memory: 32 rows of 128 chains, the most");
-static_assert(kFoldRing * (3 * kMaxState + 1) * kFoldPad * 4 <= 232448, "the fold's ring");
+static_assert(kFoldRing * (3 * kFastState + 1) * kFoldPad * 4 <= 232448, "the fold's ring");
 
 }  // namespace
 
 // u, dy (N, T); a / one_minus_a / w (S,); ckpt (ceil(T / 64), N, S), the
 // forward chain's state at the start of every tile (forecaster_scan_f32's
 // checkpoint output); part ((3S + 1) x ld scratch, ld = N rounded up to a
-// multiple of 4, 16-byte aligned); out (3S + 1): dA, dB, dW, dbias. S in
-// 1 .. 16. N = 0 writes nothing.
+// multiple of 4, 16-byte aligned); out (3S + 1): dA, dB, dW, dbias. Any
+// S >= 1: S = 1 .. 16 take their compile-time instances, a larger S the
+// run-time one. N = 0 writes nothing.
 extern "C" int forecaster_scan_bwd_f32(const float* u, const float* dy, const float* a,
                                        const float* one_minus_a, const float* w,
                                        const float* ckpt, int N, int T, int S, float* part,
                                        float* out, void* stream) {
-  if (N < 0 || T < 0) return (int)cudaErrorInvalidValue;
-  const LaunchFn fn = pick_state(S);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (N < 0 || T < 0 || S < 1) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
+  const LaunchFn fn = pick_state(S);
+  if (fn == nullptr)
+    return launch_any(u, dy, a, one_minus_a, w, ckpt, N, T, S, part, out, (cudaStream_t)stream);
   return fn(u, dy, a, one_minus_a, w, ckpt, N, T, part, out, (cudaStream_t)stream);
 }

@@ -98,23 +98,32 @@
 // hour); after the hour, the forecaster consumes the hour's clipped demand d
 // and makes the next forecast, which the result's ninth (K, M) plane holds
 // (the tail moves to 9K). The forecast chain reads no decision, so it runs
-// as a phase of its own: in the tick form, after the clips, state by state
-// (one state's chain in registers at a time, each hour's readout folded left
-// over the states as they come: ~2K + 4 registers, not 4 x 16); in the chunk
-// form, on the calendar warp's lanes 16..31, which the calendar leaves idle:
-// the whole warp first forms the sub-tile's inputs u (lane r row r's hours
-// 0..3, lane 16 + r its hours 4..7, swapped by a shuffle), then, divergent
-// once a sub-tile, lane 16 + r walks row r's S states over the sub-tile's
-// hours while lane r runs its calendar, and writes each hour's readout y
-// into a [hour + 1][row] array behind the tables in dynamic shared memory
-// (slot 0 the previous tile's last hour) before the warp arrives on the lo
-// barrier. (Divergent once an hour, the first design, the warp paid each
-// hour's quotient, log1pf and state chain in full, one after another:
-// 0.0229 ms at 2048 x 24 on the H100, 5.3x the replay instance; PERF.md.) A pair
-// thread (hour kk, row r) then forms the forecast before and after its hour
-// from y, the predicted costs and the gates, between the fold's hand-off and
-// the prefixes' (all 16 named barriers are taken: none is left for a
-// forecast hand-off). The FSM warp stays integer-only.
+// ahead of everything that does. In the tick form, after the clips, state by
+// state (one state's chain in registers at a time, each hour's readout folded
+// left over the states as they come: ~2K + 4 registers, not 4 x S). In the
+// chunk form, at the top of each tile, before the tile's __syncthreads, with
+// every thread of the block:
+//   each pair thread (hour kk, row r) forms its hour's input u from the
+//     demand it loads anyway and stores it in shared memory; __syncthreads;
+//   thread c walks chain (row c % 16, state c / 16) of a pass of kLivePass
+//     states over the tile's hours, one multiply, a multiply and an add an
+//     hour, each hour's readout term into shared memory (its state in h_out
+//     between tiles: a thread reads back its own store); __syncthreads;
+//   each pair thread folds its hour's terms into its running sum, left from
+//     state 0 (and, past kLivePass states, the next pass follows after a
+//     __syncthreads); then forms its hour's readout and its one forecast (one
+//     float64 expm1), into the ninth plane and shared memory.
+// The tile's own __syncthreads then hands every forecast to the pipeline: a
+// pair thread forms the predicted mode costs of the forecast carried into its
+// hour (the previous hour's, from shared memory; at a tile's first hour the
+// one it read before the tile's first barrier) between the fold's hand-off
+// and the prefixes' wait. No named barrier is used (all 16 are taken), S is a
+// run-time count (no register array is sized by it), and each hour's forecast
+// and mode costs are formed once. (The first chunk form walked each row's S
+// states on one lane of the calendar warp, lanes 16..31, and formed each
+// forecast twice: 0.01602 ms at 2048 x 24 on an NVIDIA H100 80GB HBM3 at
+// 700 W, against the replay instance's 0.00454, with a 264-byte spill;
+// PERF.md.) The FSM warp stays integer-only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -135,7 +144,7 @@ constexpr int kMaxSubs = 3;         // sub-tiles a tile: 5 named barriers each
 constexpr int kPhases = 5;          // lo, fold, pref, trig, state
 constexpr int kBarThreads = 5 * 32; // a sub-tile's four pair warps and one chain warp
 constexpr int kMaxSmem = 227 * 1024;
-constexpr int kMaxState = 16;       // the live forecaster's states (MAX_STATE)
+constexpr int kLivePass = 16;       // chunk form: the live forecaster's states a pass
 // The template's gate mode: reactive/hysteresis, forecast-gated in replay
 // mode (predicted-cost planes given), forecast-gated in live mode.
 constexpr int kUngated = 0, kReplay = 1, kLive = 2;
@@ -387,6 +396,87 @@ struct PipeTile {
   int state[kTile][kRows];
 };
 
+// kLive: the tile's forecasts, behind the tables in dynamic shared memory.
+template <int kTile>
+struct LiveTile {
+  double coef[kRows][4];      // the rows' cost coefficients
+  double pred[kTile][kRows];  // the forecast made after each hour
+  float us[kTile][kRows];     // each hour's input u
+  // a pass's readout terms, [state][hour][row], a state's rows 16 words
+  // apart beyond its kTile x kRows (so a warp's 2 x 16 chains hit 32 banks)
+  float terms[kLivePass][kTile * kRows + kRows];
+};
+
+// A live chain's operands: the state and the state's a, 1 - a and w.
+struct LiveChain {
+  float h, as, bs, ws;
+};
+
+// The chain of row n and state s: its state before the tile (h_in at the
+// chunk's first tile, else the h_out this thread stored after the last).
+__device__ __forceinline__ LiveChain live_chain(const ChunkArgs& a, int n, int s,
+                                                bool first_tile) {
+  const int64_t j = (int64_t)n * a.S + s;
+  return {(first_tile ? a.h_in : a.h_out)[j], a.ssm_a[s], a.ssm_oma[s], a.ssm_w[s]};
+}
+
+// kLive, every thread of the block at the top of a tile, after the pair
+// threads stored the tile's inputs: the chains, a pass at a time, and the
+// pair thread's (pair: it holds hour kk of row r) fold of its hour's terms
+// into acc. `pre` is the thread's first chain's operands, loaded before the
+// chunk's first tile. Every thread meets the same __syncthreads.
+template <int kTile>
+__device__ __forceinline__ void live_chains(const ChunkArgs& a, LiveTile<kTile>& lt, int n0,
+                                            int rows, int k0, int len, bool pair, int kk, int r,
+                                            float& acc, const LiveChain& pre) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  __syncthreads();                         // the tile's inputs are stored
+  for (int s0 = 0; s0 < a.S; s0 += kLivePass) {
+    const int np = min(kLivePass, a.S - s0);
+    for (int c = tid; c < kRows * np; c += nthreads) {
+      const int cr = c % kRows, cs = c / kRows;
+      if (cr < rows) {
+        const int n = n0 + cr, s = s0 + cs;
+        LiveChain ch = s0 == 0 && c == tid && k0 == 0 ? pre : live_chain(a, n, s, k0 == 0);
+        float* tp = &lt.terms[cs][cr];
+        // the tile's inputs into registers half a tile at a time (a whole
+        // tile beside a pair thread's operands outgrew the registers)
+        constexpr int kHalf = kTile / 2;
+#pragma unroll
+        for (int k0h = 0; k0h < kTile; k0h += kHalf) {
+          float uv[kHalf];                 // hours past len are read, not used
+#pragma unroll
+          for (int k = 0; k < kHalf; ++k) uv[k] = lt.us[k0h + k][cr];
+#pragma unroll
+          for (int k = 0; k < kHalf; ++k)
+            if (k0h + k < len)
+              tp[(k0h + k) * kRows] = live::ssm_state(ch.h, uv[k], ch.as, ch.bs, ch.ws);
+        }
+        a.h_out[(int64_t)n * a.S + s] = ch.h;
+      }
+    }
+    __syncthreads();                       // the pass's terms are stored
+    if (pair) {
+      for (int q = 0; q < np; ++q) {
+        const float t = lt.terms[q][kk * kRows + r];
+        acc = s0 + q == 0 ? t : __fadd_rn(acc, t);
+      }
+    }
+    if (s0 + kLivePass < a.S) __syncthreads();   // ... and read, before the next pass's
+  }
+}
+
+// The live chains for a role that holds no pair (the chain warps): kLive
+// only, the same barriers as the pair warps meet.
+template <int G, int kTile>
+__device__ __forceinline__ void live_tile(const ChunkArgs& a, LiveTile<kTile>& lt, int n0,
+                                          int rows, int k0, int len, const LiveChain& pre) {
+  if constexpr (G == kLive) {
+    float acc = 0.0f;
+    live_chains<kTile>(a, lt, n0, rows, k0, len, false, 0, 0, acc, pre);
+  }
+}
+
 template <int S, int G>
 __global__ void __launch_bounds__(32 * (4 * S + 3), 1)
 stream_chunk_pipe_kernel(const ChunkArgs a) {
@@ -396,13 +486,21 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
   extern __shared__ double tables[];       // bounds (kRows, Kt), then rates (kRows, Kt)
   const int M = a.M, K = a.K, Kt = a.Kt;
   const int64_t KM = (int64_t)K * M;
-  // kLive: the tile's forecaster readouts behind the tables, [hour + 1][row]:
-  // slot 0 the previous tile's last hour, slot kk + 1 hour kk
-  [[maybe_unused]] float* ys = reinterpret_cast<float*>(tables + 2 * kRows * Kt);
+  // kLive: the tile's forecasts behind the tables
+  [[maybe_unused]] LiveTile<kTile>& lt =
+      *reinterpret_cast<LiveTile<kTile>*>(tables + 2 * kRows * Kt);
   const int n0 = blockIdx.x * kRows;
   const int rows = min(kRows, M - n0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const bool endo = a.cci_demand != nullptr;
+  // kLive: the operands of this thread's first chain (chain tid of the first
+  // pass), loaded before the first tile so their round trip overlaps the
+  // demand's
+  [[maybe_unused]] LiveChain pre = {};
+  if constexpr (G == kLive) {
+    if (tid < kRows * min(kLivePass, a.S) && tid % kRows < rows)
+      pre = live_chain(a, n0 + tid % kRows, tid / kRows, true);
+  }
 
   if (warp < kPairWarps) {
     // ---- pair warps: (hour kk, row r) of every tile; sub-tile j = warp / 4
@@ -412,7 +510,8 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
     double cap = 0.0, lvpn = 0.0, lease = 0.0, cc = 0.0;
     fsm::FsmRow pr = {};                   // the thresholds the window sums meet
     [[maybe_unused]] fsm::FsmGate g = {};  // the forecast gates' thresholds
-    [[maybe_unused]] double scale = 0.0, pred0 = 0.0, cf[4] = {0.0, 0.0, 0.0, 0.0};
+    [[maybe_unused]] double scale = 0.0;
+    [[maybe_unused]] float bias = 0.0f;
     int h = 0;
     if (has_row) {
       cap = a.capacity[n];
@@ -425,9 +524,8 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
       if constexpr (G != kUngated) g = fsm::fsm_gate(pr, a.margin[n]);
       if constexpr (G == kLive) {
         scale = a.scale[n];
-        pred0 = a.pred_in[n];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) cf[q] = a.coef[4 * (int64_t)n + q];
+        bias = a.ssm_bias[0];
+        if (kk < 4) lt.coef[r][kk] = a.coef[4 * (int64_t)n + kk];   // read after a tile's barrier
       }
     }
     const double* tb = tables + r * Kt;
@@ -453,7 +551,24 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
           tables[kRows * Kt + o] = a.rates[(int64_t)n0 * Kt + o];
         }
       }
-      __syncthreads();   // the tables; every role done with the last tile
+      // kLive: the forecast carried into the tile (hour 0's thread), the
+      // hour's input, the chains and the hour's one forecast
+      [[maybe_unused]] double carried = 0.0;
+      if constexpr (G == kLive) {
+        if (kk == 0 && has_row) carried = k0 == 0 ? a.pred_in[n] : lt.pred[kTile - 1][r];
+        float u = 0.0f, acc = 0.0f;
+        if (mine) {
+          u = live::ssm_input(tier::min_sel(dv, cap), scale);
+          lt.us[kk][r] = u;
+        }
+        live_chains<kTile>(a, lt, n0, rows, k0, min(kTile, K - k0), mine, kk, r, acc, pre);
+        if (mine) {
+          const double pred = live::prediction(live::ssm_readout(u, acc, bias), scale);
+          lt.pred[kk][r] = pred;
+          a.out[8 * KM + i] = pred;
+        }
+      }
+      __syncthreads();   // the tables and forecasts; every role done with the last tile
       const int lw = max(0, a.t0 + k0 + kk - h) - a.t0;   // the window base's hour
       if (mine && lw >= 0 && lw < k0) {                    // an earlier tile's snapshot
         bv = a.out[4 * KM + (int64_t)lw * M + n];
@@ -477,13 +592,8 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
         a.out[i] = v;
         a.out[KM + i] = c;
       }
-      if constexpr (G == kLive) {   // the forecasts before and after the hour, its gate costs
-        if (mine) {
-          const double before =
-              k0 + kk == 0 ? pred0 : live::prediction(ys[kk * kRows + r], scale);
-          a.out[8 * KM + i] = live::prediction(ys[(kk + 1) * kRows + r], scale);
-          live::mode_costs(before, cf, gv, gc);
-        }
+      if constexpr (G == kLive) {   // the gate costs of the forecast carried into the hour
+        if (mine) live::mode_costs(kk == 0 ? carried : lt.pred[kk - 1][r], lt.coef[r], gv, gc);
       }
 
       bar_wait(bar_id(j, kPref));
@@ -523,31 +633,12 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
   const bool live = lane < rows;
   const int n = n0 + lane;
   if (role == 0) {
-    // kLive: lanes kRows.. walk the forecaster of row lane - kRows
-    const bool fc_lane = G == kLive && lane >= kRows;
-    const int cr = G == kLive ? lane % kRows : lane;   // the lane's row
-    const bool has = cr < rows;
-    const int cn = n0 + cr;
+    const bool has = lane < rows;
     double cap = 0.0, dcum = 0.0, month = 0.0;
     if (has) {
-      cap = a.capacity[cn];
-      dcum = a.cal_in[cn];
-      month = a.cal_in[M + cn];
-    }
-    [[maybe_unused]] float hs[kMaxState], sa[kMaxState], sb[kMaxState], sw[kMaxState];
-    [[maybe_unused]] float bias = 0.0f, y = 0.0f;
-    [[maybe_unused]] double scale = 1.0;
-    if constexpr (G == kLive) {
-#pragma unroll
-      for (int s = 0; s < kMaxState; ++s) {
-        const bool on = fc_lane && s < a.S;
-        sa[s] = on ? a.ssm_a[s] : 0.0f;
-        sb[s] = on ? a.ssm_oma[s] : 0.0f;
-        sw[s] = on ? a.ssm_w[s] : 0.0f;
-        hs[s] = on && has ? a.h_in[(int64_t)cn * a.S + s] : 0.0f;
-      }
-      if (fc_lane) bias = a.ssm_bias[0];
-      if (has) scale = a.scale[cn];
+      cap = a.capacity[n];
+      dcum = a.cal_in[n];
+      month = a.cal_in[M + n];
     }
     int ph = a.phase0;                     // (t0 + k) % hours_per_month
     for (int k0 = 0; k0 < K; k0 += kTile) {
@@ -555,17 +646,15 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
       double dv[kTile];                    // the tile's demand, loads in flight at once
 #pragma unroll
       for (int k = 0; k < kTile; ++k)
-        dv[k] = has && k < len ? a.demand[(int64_t)(k0 + k) * M + cn] : 0.0;
+        dv[k] = has && k < len ? a.demand[(int64_t)(k0 + k) * M + n] : 0.0;
+      live_tile<G, kTile>(a, lt, n0, rows, k0, len, pre);
       __syncthreads();
-      if constexpr (G == kLive) {
-        if (fc_lane && has) ys[cr] = y;    // the previous tile's last hour
-      }
       // one calendar hour; a lane past the block's rows computes on zeros and
       // stores nothing
       auto hour = [&](int k) {
         if (ph == 0) month = dcum;
         const double lo = __dsub_rn(dcum, month);
-        if (has) sm.lo[k][cr] = lo;
+        if (has) sm.lo[k][lane] = lo;
         dcum = __dadd_rn(dcum, tier::min_sel(dv[k], cap));
         ph = ph + 1 == a.hours_per_month ? 0 : ph + 1;
       };
@@ -582,63 +671,13 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
       };
 #pragma unroll
       for (int j = 0; j < S; ++j) {
-        if constexpr (G == kLive) {
-          // The sub-tile's forecaster inputs, with the whole warp: lane r
-          // forms row r's for hours 0..3, lane 16 + r for hours 4..7, and
-          // the halves swap them, so the forecaster lanes hold all eight.
-          constexpr int kHalf = kSub / 2;
-          const bool upper = lane >= kRows;
-          float uq[kHalf], ux[kHalf];
-#pragma unroll
-          for (int q = 0; q < kHalf; ++q) {
-            const double d = upper ? dv[kSub * j + kHalf + q] : dv[kSub * j + q];
-            uq[q] = live::ssm_input(tier::min_sel(d, cap), scale);
-          }
-#pragma unroll
-          for (int q = 0; q < kHalf; ++q) ux[q] = __shfl_xor_sync(0xffffffffu, uq[q], kRows);
-          // Then, divergent once a sub-tile (not an hour): lanes 16.. walk
-          // their row's states over the hours, lanes 0.. the calendar.
-          if (fc_lane) {
-            auto fc_hour = [&](int q) {
-              const float u = q < kHalf ? ux[q] : uq[q - kHalf];
-              float acc = 0.0f;
-#pragma unroll
-              for (int s = 0; s < kMaxState; ++s) {
-                if (s < a.S) {
-                  const float t = live::ssm_state(hs[s], u, sa[s], sb[s], sw[s]);
-                  acc = s == 0 ? t : __fadd_rn(acc, t);
-                }
-              }
-              y = live::ssm_readout(u, acc, bias);
-              if (has) ys[(kSub * j + q + 1) * kRows + cr] = y;
-            };
-            if (len >= kSub * (j + 1)) {
-#pragma unroll
-              for (int q = 0; q < kSub; ++q) fc_hour(q);
-            } else {
-#pragma unroll
-              for (int q = 0; q < kSub; ++q)
-                if (kSub * j + q < len) fc_hour(q);
-            }
-          } else {
-            calendar(j);
-          }
-        } else {
-          calendar(j);
-        }
+        calendar(j);
         bar_arrive(bar_id(j, kLo));
       }
     }
-    if (has && !fc_lane) {
-      a.out[tail_at<G>(KM) + cn] = dcum;
-      a.out[tail_at<G>(KM) + M + cn] = month;
-    }
-    if constexpr (G == kLive) {
-      if (fc_lane && has) {
-#pragma unroll
-        for (int s = 0; s < kMaxState; ++s)
-          if (s < a.S) a.h_out[(int64_t)cn * a.S + s] = hs[s];
-      }
+    if (has) {
+      a.out[tail_at<G>(KM) + n] = dcum;
+      a.out[tail_at<G>(KM) + M + n] = month;
     }
   } else if (role == 1) {
     double pv = 0.0, pc = 0.0;
@@ -648,6 +687,7 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
     }
     for (int k0 = 0; k0 < K; k0 += kTile) {
       const int len = min(kTile, K - k0);
+      live_tile<G, kTile>(a, lt, n0, rows, k0, len, pre);
       __syncthreads();
 #pragma unroll
       for (int j = 0; j < S; ++j) {
@@ -682,6 +722,7 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
     }
     for (int k0 = 0; k0 < K; k0 += kTile) {
       const int len = min(kTile, K - k0);
+      live_tile<G, kTile>(a, lt, n0, rows, k0, len, pre);
       __syncthreads();
 #pragma unroll
       for (int j = 0; j < S; ++j) {
@@ -734,9 +775,9 @@ int launch_tick(const ChunkArgs& a, cudaStream_t stream) {
 
 template <int S, int G>
 int launch_pipe(const ChunkArgs& a, cudaStream_t stream) {
-  // the tables, then (kLive) the tile's forecaster readouts
+  // the tables, then (kLive) the tile's forecasts
   const size_t tables = sizeof(double) * 2 * kRows * (size_t)a.Kt +
-                        (G == kLive ? sizeof(float) * (kSub * S + 1) * kRows : 0);
+                        (G == kLive ? sizeof(LiveTile<kSub * S>) : 0);
   if (sizeof(PipeTile<kSub * S>) + tables > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (sizeof(PipeTile<kSub * S>) + tables > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(stream_chunk_pipe_kernel<S, G>,
@@ -829,8 +870,7 @@ extern "C" int stream_chunk_f64(const double* demand, const double* cci_demand,
     return (int)cudaErrorInvalidValue;
   if (live && (pred_in == nullptr || ssm_a == nullptr || ssm_oma == nullptr ||
                ssm_w == nullptr || ssm_bias == nullptr || scale == nullptr ||
-               coef == nullptr || margin == nullptr || h_out == nullptr || S < 1 ||
-               S > kMaxState))
+               coef == nullptr || margin == nullptr || h_out == nullptr || S < 1))
     return (int)cudaErrorInvalidValue;
   const ChunkArgs a = {demand, cci_demand, pre_v, pre_c, capacity, L_vpn, lease_cci, c_cci,
                        bounds, rates, theta1, theta2, h, D, T_cci, up_hold, down_hold,

@@ -90,7 +90,8 @@
 //     next leg tile.
 // Then the port half, on two warps that meet at two named barriers:
 //   warp 1 prices the CCI plane and arrives on kBarCost; in the live instance
-//     it then steps the forecaster (lane s state s over the tile's hours;
+//     it then steps the forecaster (lane s state s over the tile's hours, in
+//     passes of kPassStates states for any S;
 //     lane k hour k's input, readout and its one forecast, kept in shared
 //     memory, which lane k + 1 reads as the forecast carried into its hour),
 //     forms the predicted mode costs of each hour's carried forecast and
@@ -138,7 +139,7 @@ constexpr int kTile = 32;                     // hours a tile
 constexpr int kThreads = 512;                 // a port block's 16 warps
 constexpr int kLegTile = 128;                 // legs a leg tile: one a thread of warps 0..3
 constexpr int kMaxSmem = 227 * 1024;
-constexpr int kMaxState = 16;                 // the live forecaster's states (MAX_STATE)
+constexpr int kPassStates = 32;               // the live forecaster's states a pass: a lane each
 // The gate modes: reactive/hysteresis, forecast-gated in replay mode
 // (predicted-cost planes given), forecast-gated in live mode.
 constexpr int kUngated = 0, kReplay = 1, kLive = 2;
@@ -215,11 +216,15 @@ struct PortSmem {
 // kLive: the forecaster's scratch behind the rest of the dynamic shared memory.
 struct LiveSmem {
   double coef[4];                  // the port's cost coefficients
-  double pred[kTile + 1];          // slot k + 1: the forecast made after hour k (0 unused)
+  double scale;                    // the forecaster's scale for the port
+  float bias;                      // the readout's bias
+  // slot k + 1: the forecast made after hour k; slot 0: the one carried into
+  // the tile
+  double pred[kTile + 1];
   double gv[kTile];                // the predicted mode costs of the forecast carried into hour k
   double gc[kTile];
   float u[kTile];                  // the forecaster's inputs
-  float terms[kMaxState][kTile + 1];
+  float terms[kPassStates][kTile + 1];   // a pass's readout terms, a state a row
 };
 
 // Doubles of the dynamic shared memory: the leg planes D (clipped demand),
@@ -240,6 +245,29 @@ __host__ __device__ inline size_t slice_offset(int stride, bool endo, int Kt) {
 }
 __host__ __device__ inline size_t live_offset(int stride, bool endo, int Kt) {
   return slice_offset(stride, endo, Kt) + (size_t)32 * stride;
+}
+
+// kLive, warp 1: a pass of kPassStates states past the first (S > 32), lane
+// l walking state s0 + l's chain through the tile from its state in h_out
+// (h_in at the chunk's first tile; the lane reads back its own store), lane
+// k folding hour k's terms into acc_y in state order.
+__device__ __forceinline__ float live_pass(const RoutedArgs& a, LiveSmem& lsm, int m, int k0,
+                                           int len, int s0, int lane, float acc_y) {
+  __syncwarp();                                     // the last pass's terms are read
+  const int s = s0 + lane;
+  if (s < a.S) {
+    const int64_t j = (int64_t)m * a.S + s;
+    float h = (k0 == 0 ? a.h_in : a.h_out)[j];
+    const float as = a.ssm_a[s], bs = a.ssm_oma[s], ws = a.ssm_w[s];
+    for (int t = 0; t < len; ++t) lsm.terms[lane][t] = live::ssm_state(h, lsm.u[t], as, bs, ws);
+    a.h_out[j] = h;
+  }
+  __syncwarp();
+  if (lane < len) {
+    const int ns = min(kPassStates, a.S - s0);
+    for (int q = 0; q < ns; ++q) acc_y = __fadd_rn(acc_y, lsm.terms[q][lane]);
+  }
+  return acc_y;
 }
 
 // Named barriers: the producer arrives, the consumer waits; both are whole
@@ -483,8 +511,7 @@ routed_chunk_kernel(const RoutedArgs a) {
   fsm::FsmCarry fc = {};
   // Warp 1: the CCI plane and, live, the forecaster.
   double lease = 0.0, cc = 0.0, pcap = 0.0;
-  [[maybe_unused]] double scale_m = 0.0, pred_c = 0.0;
-  [[maybe_unused]] float hs = 0.0f, sa = 0.0f, sb = 0.0f, sw = 0.0f, bias = 0.0f;
+  [[maybe_unused]] float hs = 0.0f, sa = 0.0f, sb = 0.0f, sw = 0.0f;
   if (warp == 0) {
     p = {a.theta1[m], a.theta2[m], a.delay[m], a.commit[m], a.up_hold[m], a.down_hold[m],
          a.renew_in_chunks != 0};
@@ -501,10 +528,12 @@ routed_chunk_kernel(const RoutedArgs a) {
     cc = a.c_cci[m];
     pcap = a.port_capacity[m];
     if constexpr (G == kLive) {
-      scale_m = a.scale[m];
-      pred_c = a.pred_in[m];                // the forecast carried into the tile
       if (lane < 4) lsm->coef[lane] = a.coef[4 * (int64_t)m + lane];
-      bias = a.ssm_bias[0];
+      if (lane == 0) {
+        lsm->scale = a.scale[m];
+        lsm->bias = a.ssm_bias[0];
+        lsm->pred[0] = a.pred_in[m];        // the forecast carried into the first tile
+      }
       if (lane < a.S) {
         sa = a.ssm_a[lane];
         sb = a.ssm_oma[lane];
@@ -624,7 +653,7 @@ routed_chunk_kernel(const RoutedArgs a) {
       }
       bar_arrive(kBarCost);
       if constexpr (G == kLive) {
-        if (lane < len) lsm->u[lane] = live::ssm_input(drow, scale_m);
+        if (lane < len) lsm->u[lane] = live::ssm_input(drow, lsm->scale);
         __syncwarp();
         if (lane < a.S) {                           // lane s walks state s's chain
           float* pt = lsm->terms[lane];
@@ -632,23 +661,30 @@ routed_chunk_kernel(const RoutedArgs a) {
           for (int j = 0; j < len; ++j) pt[j] = live::ssm_state(hs, lsm->u[j], sa, sb, sw);
         }
         __syncwarp();
-        if (lane < len) {                           // hour k's readout and its one forecast
-          float acc_y = lsm->terms[0][lane];
+        float acc_y = 0.0f;
+        if (lane < len) {                           // hour k's terms, left from state 0
+          acc_y = lsm->terms[0][lane];
+          const int ns = min(kPassStates, a.S);
 #pragma unroll 4
-          for (int s = 1; s < a.S; ++s) acc_y = __fadd_rn(acc_y, lsm->terms[s][lane]);
-          const double pred =
-              live::prediction(live::ssm_readout(lsm->u[lane], acc_y, bias), scale_m);
+          for (int s = 1; s < ns; ++s) acc_y = __fadd_rn(acc_y, lsm->terms[s][lane]);
+        }
+        for (int s0 = kPassStates; s0 < a.S; s0 += kPassStates)   // past one pass of states
+          acc_y = live_pass(a, *lsm, m, k0, len, s0, lane, acc_y);
+        if (lane < len) {                           // hour k's readout and its one forecast
+          const double pred = live::prediction(
+              live::ssm_readout(lsm->u[lane], acc_y, lsm->bias), lsm->scale);
           lsm->pred[lane + 1] = pred;
           a.out[8 * KM + i] = pred;
         }
         __syncwarp();
         if (lane < len) {                           // the costs of the forecast carried in
           double lv, lc;
-          live::mode_costs(lane == 0 ? pred_c : lsm->pred[lane], lsm->coef, lv, lc);
+          live::mode_costs(lsm->pred[lane], lsm->coef, lv, lc);
           lsm->gv[lane] = lv;
           lsm->gc[lane] = lc;
         }
-        pred_c = lsm->pred[len];
+        __syncwarp();
+        if (lane == 0) lsm->pred[0] = lsm->pred[len];   // carried into the next tile
         bar_arrive(kBarGate);
       }
     } else if (warp == 0) {
@@ -767,8 +803,7 @@ extern "C" int stream_chunk_routed_f64(
     return (int)cudaErrorInvalidValue;
   if (live && (pred_in == nullptr || ssm_a == nullptr || ssm_oma == nullptr ||
                ssm_w == nullptr || ssm_bias == nullptr || scale == nullptr ||
-               coef == nullptr || margin == nullptr || h_out == nullptr || S < 1 ||
-               S > kMaxState))
+               coef == nullptr || margin == nullptr || h_out == nullptr || S < 1))
     return (int)cudaErrorInvalidValue;
   if (K > kTile && E > 0 && leg_cal == nullptr) return (int)cudaErrorInvalidValue;
   const int stride = (K < kTile ? K : kTile) | 1;

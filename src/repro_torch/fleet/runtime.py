@@ -65,7 +65,6 @@ import torch
 from repro_torch.core.planner import COMPRESS_RATIO, collective_mode
 from repro_torch.device import DeviceLike, resolve_device, to_host
 from repro_torch.kernels import ops
-from repro_torch.kernels.forecaster import MAX_STATE
 from repro_torch.models.ssm import _operands as _ssm_operands
 from repro_torch.models.ssm import demand_forecaster_warmup, train_demand_forecaster
 
@@ -221,7 +220,7 @@ def resolve_runtime_operands(spec, config: RuntimeConfig,
     text, as a ``ValueError``). With ``config.forecaster`` it streams in live
     mode (``pred_source = "live"``, ``src/repro/fleet/runtime.py:670-697``):
     ``pred_demand`` is not read, the forecaster must carry one row per
-    decision row and 1 <= S <= 16 states, and the live operands are formed
+    decision row and as many states as its parameters, and the live operands are formed
     once on the device (:func:`_live_operands`). Without it, replay mode
     (``"replay"``) needs a (rows, T_pred) ``pred_demand``, rows being the
     decision rows (ports in topology mode)."""
@@ -291,7 +290,7 @@ def _live_operands(fc: StreamingForecaster, policy: ForecastGatedPolicy, M: int,
     :func:`repro_torch.models.ssm._operands` (the sigmoid on the host, so every
     device steps the same bits), the forecaster's ``scale`` and the policy's
     ``cost_coef`` and ``margin`` in float64; and the start ``(h0, pred0)``.
-    Raises unless the forecaster carries M rows and 1 <= S <= 16 states."""
+    Raises unless the forecaster carries M rows and its parameters h0's S states."""
     f32, f64 = torch.float32, torch.float64
 
     def move(x, dt):
@@ -304,9 +303,6 @@ def _live_operands(fc: StreamingForecaster, policy: ForecastGatedPolicy, M: int,
         raise ValueError(f"the forecaster must carry one row per decision row ({M}): got "
                          f"scale {tuple(scale.shape)}, h0 {tuple(h0.shape)}, pred0 "
                          f"{tuple(pred0.shape)}")
-    if not 1 <= S <= MAX_STATE:
-        raise ValueError(f"the streamed forecaster has kernels for 1 <= S <= {MAX_STATE} "
-                         f"states, got h0 of {S}")
     a, oma, w, bias = (t.detach() for t in _ssm_operands(fc.params, dev))
     if a.shape != (S,) or w.shape != (S,):
         raise ValueError(f"forecaster params of {tuple(a.shape)} states against h0's {S}")

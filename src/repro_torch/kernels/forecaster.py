@@ -5,10 +5,12 @@ under a ``lax.scan`` in ``demand_forecaster_state`` and
 ``demand_forecaster_apply``; it has no Pallas twin. Here it is one CUDA C++
 kernel (``csrc/forecaster_scan.cu``): each row's S-state EMA bank walks its T
 hours in tiles staged through shared memory, one thread a (row, state)
-chain, and the readout of a tile's hours is folded by all threads, each
-hour's S products in index order. float32, every product and sum rounded on
-its own, so it equals its plain version
-:func:`repro_torch.kernels.ref.forecaster_scan_ref` bit for bit.
+chain forming each hour's product ``(h − u)·w``, and a readout warp folds
+the tile before, each hour's S products in index order. float32, every
+product and sum rounded on its own, so it equals its plain version
+:func:`repro_torch.kernels.ref.forecaster_scan_ref` bit for bit. Both
+kernels take any S: compile-time instances up to :data:`FAST_STATE`, one
+run-time instance past it.
 
 Given a checkpoint output, the scan also stores each chain's state at the
 start of every tile of :data:`BWD_TILE` hours. Its backward pass,
@@ -31,8 +33,10 @@ import torch
 
 from . import _lib
 
-#: The state sizes the kernels have compile-time instances for: 1 .. MAX_STATE.
-MAX_STATE = 16
+#: The state sizes the kernels have compile-time instances for, 1 ..
+#: FAST_STATE (``kFastState`` in both sources); any larger S takes each
+#: kernel's run-time instance, with the same bits.
+FAST_STATE = 16
 #: Hours between two checkpoints of the forward chain (``kTile`` in
 #: ``csrc/forecaster_scan.cu`` and ``csrc/forecaster_scan_bwd.cu``): a
 #: checkpoint output holds ``ceil(T / BWD_TILE)`` states a (row, state) chain.
@@ -55,10 +59,10 @@ def _check_ckpt(name: str, ckpt: torch.Tensor, u: torch.Tensor, S: int) -> None:
 
 
 def _check_operands(name: str, u, vecs, rest, S: int) -> None:
-    """float32, contiguous, CUDA, one device; ``vecs`` of shape (S,)."""
-    if not 1 <= S <= MAX_STATE:
-        raise ValueError(f"{name} has kernels for 1 <= S <= {MAX_STATE} states, "
-                         f"got a of shape {tuple(vecs[0].shape)}")
+    """float32, contiguous, CUDA, one device; ``vecs`` of shape (S,), S >= 1."""
+    if S < 1:
+        raise ValueError(f"{name} takes a of shape (S,) with S >= 1, got "
+                         f"{tuple(vecs[0].shape)}")
     for t in (u,) + tuple(vecs) + tuple(rest):
         if t.dtype != torch.float32:
             raise ValueError(f"{name} takes float32 tensors, got {t.dtype}")

@@ -56,7 +56,6 @@ from typing import Optional, Tuple
 import torch
 
 from . import _lib
-from .forecaster import MAX_STATE
 
 
 def block_size(K: int, M: int, endo: bool, P: Optional[int] = None) -> int:
@@ -143,15 +142,15 @@ def _gate_args(gate) -> tuple:
 def _live_operands(name: str, gate, live, M: int) -> list:
     """``_check_operands``' entries for a chunk's ``live=(h, pred, a,
     one_minus_a, w, bias, scale, cost_coef, margin)`` (none for None);
-    raises if ``gate`` is given too or the state size is not 1..16."""
+    raises if ``gate`` is given too or the state is not (M, S) with S >= 1."""
     if live is None:
         return []
     if gate is not None:
         raise ValueError(f"{name}: gate= (replay mode) and live= exclude each other")
     h, pred, a, oma, w, bias, scale, coef, margin = live
     S = h.shape[1] if h.dim() == 2 else -1
-    if not 1 <= S <= MAX_STATE:
-        raise ValueError(f"{name} live: the forecaster's state must be (M, 1..{MAX_STATE}), "
+    if S < 1:
+        raise ValueError(f"{name} live: the forecaster's state must be (M, S) with S >= 1, "
                          f"got {tuple(h.shape)}")
     f32, f64 = torch.float32, torch.float64
     return [(h, (M, S), f32), (pred, (M,), f64), (a, (S,), f32), (oma, (S,), f32),

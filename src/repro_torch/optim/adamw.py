@@ -6,8 +6,9 @@ port's containers (:mod:`repro_torch.tree`: dicts walked in sorted key
 order, as JAX flattens them); every leaf update is elementwise on the
 leaf's device.
 
-Two places fix an order of operations the reference leaves to XLA, so that
-an update on the card has the bits of the same update on the CPU:
+Three places fix an order of operations or a rounding the reference leaves
+to XLA, so that an update on the card has the bits of the same update on the
+CPU:
 
 * :func:`global_norm` sums each leaf's squares by a pairwise halving fold
   (elementwise adds of fixed shapes), then folds the leaves' sums left in
@@ -17,6 +18,11 @@ an update on the card has the bits of the same update on the CPU:
   float32 on the host (numpy) and divide as 0-dim tensors on the leaf's
   device, so both devices divide (CUDA turns a division by a Python number
   into a product with its reciprocal).
+* Every square root is taken in float64 and rounded to float32
+  (:func:`_sqrt`): torch's float32 square root on the card is not always
+  correctly rounded (it can differ from the CPU's in the last bit), the
+  float64 one is, and a float64 square root of a float32 rounds to the
+  correctly rounded float32 one, the CPU's bits.
 
 The step count is a host ``int`` (the reference's is an int32 array).
 """
@@ -74,6 +80,11 @@ def _square_sum(x: torch.Tensor) -> torch.Tensor:
     return x[0]
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root on every device."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def global_norm(tree) -> torch.Tensor:
     """The float32 L2 norm over every leaf of ``tree`` (0-dim tensor): each
     leaf's squared sum (:func:`_square_sum`), folded left in tree order."""
@@ -83,7 +94,7 @@ def global_norm(tree) -> torch.Tensor:
         acc = s if acc is None else acc + s
     if acc is None:
         raise ValueError("global_norm of a tree with no leaves")
-    return torch.sqrt(acc)
+    return _sqrt(acc)
 
 
 def _bias_correction(b: float, step: int) -> float:
@@ -114,7 +125,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0
         g = g.to(torch.float32) * scale
         m32 = b1 * m.to(torch.float32) + (1 - b1) * g
         v32 = b2 * v.to(torch.float32) + (1 - b2) * g * g
-        update = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+        update = (m32 / bc1) / (_sqrt(v32 / bc2) + cfg.eps)
         update = update + cfg.weight_decay * p.to(torch.float32)
         newp = p.to(torch.float32) - lr * update
         return newp.to(p.dtype), m32.to(mdt), v32.to(mdt)

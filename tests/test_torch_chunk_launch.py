@@ -21,16 +21,22 @@ against the plain versions (``ref.stream_chunk_ref``,
   consumer) and meet at ``__syncthreads`` once a tile, run in random
   interleavings; every read of shared memory or of an earlier tile's
   snapshot in the packed result must find a value whose write happens
-  before it through those barriers; the live instance adds the forecaster
-  on the calendar warp's upper lanes, its readouts handed to the pair
-  threads through the same barriers (a tile's slot 0 written after the
-  tile's ``__syncthreads``, each hour's before the sub-tile's ``lo``);
+  before it through those barriers; the live instance adds the forecast
+  ahead of the pipeline at each tile's top (the pair threads' inputs, a
+  ``__syncthreads``, the (row, state) chains of every thread in passes of
+  16 states, a ``__syncthreads``, the pair threads' folds and forecasts),
+  handed on at the tile's own ``__syncthreads``;
 * the scan: the segment plan, one block per (row tile, segment slot), each
   segment's hours staged through the ring of shared-memory tiles (a tile
   must have landed before it is read, and a slot is refilled only once its
   tile is folded), the carry a tile at a time, the fold per (row, hour);
   and a chunk of one segment slot with no plan, its resets staged with the
   demand and applied in the carry;
+* the forecaster's scan (``forecaster_scan``): blocks of one chain warp,
+  one readout warp a tile behind it and one producer warp meeting at one
+  ``__syncthreads`` a step, in random interleavings (two product buffers by
+  parity, a ring of ``kAhead + 2`` u tiles; three broken schedules must be
+  caught);
 * the forecaster's backward pass (``forecaster_scan_bwd``): the forward
   scan's checkpoint of each chain's state at every tile of 64 hours, then
   blocks of ``min(128 // S, 32)`` rows whose u and dy tiles come in reverse
@@ -59,7 +65,7 @@ from repro_torch.fleet.engine import routed_cost_series
 from repro_torch.fleet.policy import predicted_mode_costs
 from repro_torch.kernels import ref
 from repro_torch.kernels.forecaster import BWD_TILE, checkpoint_shape
-from repro_torch.kernels.forecaster import MAX_STATE
+from repro_torch.kernels.forecaster import FAST_STATE
 from repro_torch.kernels.stream_chunk import (MAX_SUBS, ROUTED_TILE, SUB_HOURS, TICK_MAX_K,
                                               TICK_MAX_K_LIVE, TICK_MAX_TIERS, launch_form)
 from repro_torch.kernels.tiered_cost_scan import (SCAN_ROWS, SCAN_TARGET_BLOCKS,
@@ -97,7 +103,17 @@ def test_tile_constants_match_the_sources():
     bars = re.search(r"constexpr int kBarCost = (\d+), kBarGate = (\d+);", routed)
     assert bars and 0 < int(bars[1]) != int(bars[2]) < 16
     assert _cu_const("stream_chunk_routed.cu", "kBarThreads") == 2 * 32
-    assert _cu_const("stream_chunk_routed.cu", "kMaxState") == MAX_STATE
+    # the live forecaster at any S: the routed chunk's lanes walk a pass of
+    # kPassStates states (a lane each), the chunk form's threads passes of
+    # kLivePass (a warp's 32 threads two states of 16 rows); the forecaster
+    # kernels' compile-time instances end at FAST_STATE, any larger S runs
+    # their run-time instances
+    assert _cu_const("stream_chunk_routed.cu", "kPassStates") == 32
+    assert _cu_const("stream_chunk.cu", "kLivePass") == 16
+    for src in ("forecaster_scan.cu", "forecaster_scan_bwd.cu"):
+        text = (CSRC / src).read_text()
+        assert _cu_const(src, "kFastState") == FAST_STATE
+        assert "return launch_any(" in text and "S > kFastState" not in text
 
 
 # -- launch_form -------------------------------------------------------------
@@ -469,20 +485,6 @@ def _pack(c, planes, tail, carry, rows_all, h=None):
     return res if h is None else res + (torch.from_numpy(h),)
 
 
-def _live_hour(lv, rows, h, d):
-    """One forecaster hour of ``rows`` (live_forecast.cuh): u from the
-    clipped demand, the states updated in place, the readout y (float32)."""
-    _, _, a, oma, w, bias, scale = (x.numpy() for x in lv[:7])
-    with np.errstate(invalid="ignore"):
-        u = torch.log1p(torch.from_numpy((d / scale[rows]).astype(np.float32))).numpy()
-    h[:] = a * h + oma * u[:, None]
-    p = (h - u[:, None]) * w
-    acc = p[:, 0].copy()
-    for s in range(1, p.shape[1]):
-        acc = acc + p[:, s]
-    return (u + acc) + bias
-
-
 def _live_pred(lv, rows, y):
     """The forecast of readouts y: maximum(expm1(y), 0)·scale."""
     e = torch.expm1(torch.from_numpy(np.asarray(y, np.float32)).double()).numpy()
@@ -555,12 +557,17 @@ class _Sim:
         return value
 
 
-def _pipe_block(c, n0, S, rng, early_pref=False, late_y=False):
+LIVE_PASS = _cu_const("stream_chunk.cu", "kLivePass")
+
+
+def _pipe_block(c, n0, S, rng, early_pref=False, late_pred=False, early_chains=False):
     """``stream_chunk_pipe_kernel<S>`` for the block of rows n0..n0+15, its
     roles run as coroutines in an order ``rng`` picks (in order if None).
     ``early_pref`` breaks the schedule on purpose: the prefix warp hands each
-    sub-tile on before it writes the snapshots; ``late_y`` (live) makes the
-    forecaster lanes write a sub-tile's readouts after the warp's hand-off."""
+    sub-tile on before it writes the snapshots; (live) ``late_pred`` makes the
+    pair threads store their hours' forecasts after the tile's
+    ``__syncthreads`` instead of before it, ``early_chains`` makes the chains
+    start before the barrier that follows the inputs' stores."""
     K, M, t0 = c["K"], c["M"], c["t0"]
     lv = c["live"]
     R = 16
@@ -570,6 +577,72 @@ def _pipe_block(c, n0, S, rng, early_pref=False, late_y=False):
     roles = [f"pair{j}" for j in range(S)] + ["cal", "pref", "fsm"]
     sim = _Sim(roles)
     out = {}
+    n_threads = 32 * (4 * S + 3)
+    # the role of thread t: warps 0 .. 4S - 1 the pairs of sub-tile warp // 4,
+    # then the calendar, prefix and FSM warps
+    role_of = lambda t: f"pair{t // 128}" if t < 128 * S else roles[S + (t - 128 * S) // 32]
+    tail = {}
+    if lv is not None:   # the forecaster's operands and the block's states
+        _, _, a_, oma_, w_, bias_, scale_ = (x.numpy() for x in lv[:7])
+        n_states = a_.shape[0]
+        h_state = lv[0].numpy()[rows].copy()
+        tail["h"] = h_state
+
+    def live_top(me, k0, hrs=(), loaded=None):
+        """The live prologue of a tile for role ``me`` (a pair role holds
+        ``hrs``): the inputs' stores, the barrier, the role's chains of each
+        pass, the barrier, the fold of its hours' terms, the forecasts.
+        Returns the forecast carried into the tile (its hour 0's) and each of
+        its hours' forecast."""
+        ln = min(tile, K - k0)
+        carried = None
+        if 0 in hrs:
+            carried = (lv[1].numpy()[rows] if k0 == 0 else
+                       np.array([sim.read(me, ("pred", tile - 1, i)) for i in range(nr)]))
+        us = {}
+        for k in hrs:
+            d = np.minimum(loaded[k][0], c["cap"][rows])
+            with np.errstate(invalid="ignore"):
+                us[k] = torch.log1p(torch.from_numpy((d / scale_[rows]).astype(np.float32))
+                                    ).numpy()
+            for i in range(nr):
+                sim.write(me, ("u", k, i), us[k][i])
+        if not early_chains:
+            yield ("sync0",)
+        acc = {}
+        for s0 in range(0, n_states, LIVE_PASS):
+            n_pass = min(LIVE_PASS, n_states - s0)
+            for cc in range(R * n_pass):
+                cr, s = cc % R, s0 + cc // R
+                if cr >= nr or role_of(cc % n_threads) != me:
+                    continue
+                if k0 > 0:
+                    sim.read(me, ("h", s, cr))
+                h = np.float32(h_state[cr, s])
+                for k in range(ln):
+                    u = np.float32(sim.read(me, ("u", k, cr)))
+                    h = a_[s] * h + oma_[s] * u
+                    sim.write(me, ("term", s - s0, k, cr), (h - u) * w_[s])
+                h_state[cr, s] = h
+                sim.write(me, ("h", s, cr), h)
+            if early_chains and s0 == 0:
+                yield ("sync0",)
+            yield ("sync0",)
+            for k in hrs:
+                for q in range(n_pass):
+                    t = np.array([sim.read(me, ("term", q, k, i)) for i in range(nr)],
+                                 np.float32)
+                    acc[k] = t if s0 + q == 0 else acc[k] + t
+            if s0 + LIVE_PASS < n_states:
+                yield ("sync0",)
+        preds = {}
+        for k in hrs:
+            preds[k] = _live_pred(lv, rows, (us[k] + acc[k]) + bias_)
+            out[8, k0 + k] = preds[k]
+            if not late_pred:
+                for i in range(nr):
+                    sim.write(me, ("pred", k, i), preds[k][i])
+        return carried, preds
 
     def pair(j):
         me = f"pair{j}"
@@ -579,7 +652,13 @@ def _pipe_block(c, n0, S, rng, early_pref=False, late_y=False):
                           c["cci_demand"][k0 + k, rows] if c["endo"] else None,
                           c["pre_v"][k0 + k, rows].copy(), c["pre_c"][k0 + k, rows].copy())
                       for k in hrs}
+            if lv is not None:
+                carried, preds = yield from live_top(me, k0, hrs, loaded)
             yield ("sync0",)
+            if lv is not None and late_pred:
+                for k in hrs:
+                    for i in range(nr):
+                        sim.write(me, ("pred", k, i), preds[k][i])
             base = {}
             for k in hrs:
                 lw = np.maximum(0, t0 + k0 + k - c["h"][rows]) - t0
@@ -602,13 +681,10 @@ def _pipe_block(c, n0, S, rng, early_pref=False, late_y=False):
                 out[0, k0 + k], out[1, k0 + k] = v, cost_c
             yield ("arrive", j, "fold")
             gates = {}
-            if lv is not None:   # the forecasts before and after each hour, its gate costs
+            if lv is not None:   # the forecast carried into each hour, for its gate costs
                 for k in hrs:
-                    y_b = np.array([sim.read(me, ("y", k, i)) for i in range(nr)])
-                    y_a = np.array([sim.read(me, ("y", k + 1, i)) for i in range(nr)])
-                    before = (lv[1].numpy()[rows] if k0 + k == 0 else _live_pred(lv, rows, y_b))
-                    out[8, k0 + k] = _live_pred(lv, rows, y_a)
-                    gates[k] = before
+                    gates[k] = carried if k == 0 else np.array(
+                        [sim.read(me, ("pred", k - 1, i)) for i in range(nr)])
             yield ("wait", j, "pref")
             trig = {}
             for k in hrs:
@@ -637,22 +713,15 @@ def _pipe_block(c, n0, S, rng, early_pref=False, late_y=False):
                 s = np.array([sim.read(me, ("state", k, i)) for i in range(nr)])
                 out[6, k0 + k], out[7, k0 + k] = (s == ON).astype(float), s.astype(float)
 
-    tail = {}
-
     def calendar():
         dcum, month = c["cal"][0, rows].copy(), c["cal"][1, rows].copy()
         ph = t0 % c["hpm"]
-        if lv is not None:   # the forecaster lanes' states and last readout
-            h = lv[0].numpy()[rows].copy()
-            y = np.zeros(nr, np.float32)
         for k0 in range(0, K, tile):
             dv = [c["demand"][k0 + k, rows] for k in range(min(tile, K - k0))]
-            yield ("sync0",)
             if lv is not None:
-                for i in range(nr):
-                    sim.write("cal", ("y", 0, i), y[i])
+                yield from live_top("cal", k0)
+            yield ("sync0",)
             for j in range(S):
-                ys = []
                 for k in range(SUB_HOURS * j, SUB_HOURS * (j + 1)):
                     if k < len(dv):
                         if ph == 0:
@@ -661,26 +730,15 @@ def _pipe_block(c, n0, S, rng, early_pref=False, late_y=False):
                             sim.write("cal", ("lo", k, i), (dcum - month)[i])
                         dcum = dcum + np.minimum(dv[k], c["cap"][rows])
                         ph = 0 if ph + 1 == c["hpm"] else ph + 1
-                        if lv is not None:
-                            y = _live_hour(lv, rows, h, np.minimum(dv[k], c["cap"][rows]))
-                            ys.append((k, y))
-                if not late_y:
-                    for k, yk in ys:
-                        for i in range(nr):
-                            sim.write("cal", ("y", k + 1, i), yk[i])
                 yield ("arrive", j, "lo")
-                if late_y:
-                    for k, yk in ys:
-                        for i in range(nr):
-                            sim.write("cal", ("y", k + 1, i), yk[i])
         tail["cal"] = (dcum, month)
-        if lv is not None:
-            tail["h"] = h
 
-    def prefixes():
+    def prefixes(me="pref"):
         pv, pc = c["pref"][0, rows].copy(), c["pref"][1, rows].copy()
         for k0 in range(0, K, tile):
             ln = min(tile, K - k0)
+            if lv is not None:
+                yield from live_top(me, k0)
             yield ("sync0",)
             for j in range(S):
                 yield ("wait", j, "fold")
@@ -696,11 +754,13 @@ def _pipe_block(c, n0, S, rng, early_pref=False, late_y=False):
                     yield ("arrive", j, "pref")
         tail["pref"] = (pv, pc)
 
-    def fsm_warp():
+    def fsm_warp(me="fsm"):
         fc = _carry(c, rows)
         p = _sub(c["p"], rows)
         for k0 in range(0, K, tile):
             ln = min(tile, K - k0)
+            if lv is not None:
+                yield from live_top(me, k0)
             yield ("sync0",)
             for j in range(S):
                 yield ("wait", j, "trig")
@@ -779,7 +839,7 @@ def _pipe_block(c, n0, S, rng, early_pref=False, late_y=False):
     return out, tail, rows
 
 
-def _pipe_replay(c, S, rng, early_pref=False, late_y=False):
+def _pipe_replay(c, S, rng, **faults):
     K, M = c["K"], c["M"]
     lv = c["live"]
     planes = np.full((8 if lv is None else 9, K, M), np.nan)
@@ -788,7 +848,7 @@ def _pipe_replay(c, S, rng, early_pref=False, late_y=False):
     carry = {k: np.zeros(M, np.int64) for k in ("state", "t_state", "up", "down", "phase")}
     h = None if lv is None else np.zeros(tuple(lv[0].shape), np.float32)
     for n0 in range(0, M, 16):
-        out, t, rows = _pipe_block(c, n0, S, rng, early_pref, late_y)
+        out, t, rows = _pipe_block(c, n0, S, rng, **faults)
         for (plane, k), v in out.items():
             planes[plane, k, rows] = v
             written[k, rows] |= plane == 7
@@ -878,10 +938,10 @@ def test_chunk_form_schedule_endogenous_and_chained():
         t += K
 
 
-def _live_runtime():
+def _live_runtime(S: int = 5):
     """_runtime("plain")'s fleet streamed in live mode to hour 700: a
     forecast-gated policy with its coefficients fitted on a 300-hour
-    history's series, margins 0, 0.05 and 1e30 by row, and a five-state
+    history's series, margins 0, 0.05 and 1e30 by row, and an S-state
     forecaster (a seeded readout) warmed through the clipped history; NaN
     demand in row 3 at hour 705."""
     sc = build_fleet_scenario(37, horizon=900, history_hours=300, seed=1)
@@ -894,8 +954,8 @@ def _live_runtime():
     pol = forecast_gated_policy(arrays.toggle, np.zeros(37), cost_coef=fit_cost_coef(
         s.row_demand, s.vpn, s.cci), margin=np.resize([0.0, 0.05, 1e30], 37))
     rng = np.random.default_rng(3)
-    params = dict(demand_forecaster_init(None, 5, device="cpu"),
-                  w=torch.tensor(0.3 * rng.standard_normal(5), dtype=torch.float32),
+    params = dict(demand_forecaster_init(None, S, device="cpu"),
+                  w=torch.tensor(0.3 * rng.standard_normal(S), dtype=torch.float32),
                   bias=torch.tensor(0.05, dtype=torch.float32))
     cap = arrays.capacity.numpy()[:, None]
     fc = StreamingForecaster.from_history(params, np.minimum(sc.history, cap), device="cpu")
@@ -925,17 +985,49 @@ def test_chunk_form_live_schedule_bit_equal_to_plain(K, order):
     assert all(_same_bits(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("K", [9, 24, 25])
+@pytest.mark.parametrize("S", [LIVE_PASS + 1, 2 * LIVE_PASS + 1])
+def test_chunk_form_live_schedule_over_passes(S, K):
+    """More states than a pass holds (17 and 33: two and three passes, the
+    running sums carried across them in the pair threads), shuffled: every
+    output bit, the forecasts and the state equal stream_chunk_ref."""
+    rt, demand, t = _live_runtime(S)
+    args, endo = _chunk_args(rt, demand, None, t, K)
+    st = rt._state
+    live = (st.ssm_h, st.pred_live, *rt._live)
+    assert st.ssm_h.shape[1] == S
+    renew = rt.policy.renew_in_chunks
+    got = _pipe_replay(_chunk_np(args, renew, live), launch_form(K, 4, "chunk", True),
+                       np.random.default_rng(S + K))
+    want = ref.stream_chunk_ref(*args, renew_in_chunks=renew, live=live)
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("order", ["in_order", "shuffled"])
 def test_chunk_form_live_replay_catches_late_readouts(order):
-    """A forecaster lane that writes a sub-tile's readouts after the warp's
-    hand-off on lo is caught."""
+    """Pair threads that store their hours' forecasts after the tile's
+    __syncthreads (not before it) are caught: the next sub-tile's first hour
+    reads its carried forecast without a barrier between."""
     rt, demand, t = _live_runtime()
     args, _ = _chunk_args(rt, demand, None, t, 24)
     st = rt._state
     c = _chunk_np(args, rt.policy.renew_in_chunks, (st.ssm_h, st.pred_live, *rt._live))
     rng = None if order == "in_order" else np.random.default_rng(0)
     with pytest.raises(AssertionError, match="never written|without a barrier"):
-        _pipe_replay(c, 3, rng, late_y=True)
+        _pipe_replay(c, 3, rng, late_pred=True)
+
+
+@pytest.mark.parametrize("order", ["in_order", "shuffled"])
+def test_chunk_form_live_replay_catches_chains_before_the_inputs(order):
+    """Chains that start before the barrier behind the pair threads' input
+    stores are caught: a chain reads another role's input unordered."""
+    rt, demand, t = _live_runtime()
+    args, _ = _chunk_args(rt, demand, None, t, 24)
+    st = rt._state
+    c = _chunk_np(args, rt.policy.renew_in_chunks, (st.ssm_h, st.pred_live, *rt._live))
+    rng = None if order == "in_order" else np.random.default_rng(1)
+    with pytest.raises(AssertionError, match="never written|without a barrier"):
+        _pipe_replay(c, 3, rng, early_chains=True)
 
 
 @pytest.mark.parametrize("order", ["in_order", "shuffled"])
@@ -953,6 +1045,7 @@ def test_chunk_form_replay_catches_a_missing_barrier(order):
 # -- stream_chunk_routed's schedule --------------------------------------------
 
 R_TILE = _cu_const("stream_chunk_routed.cu", "kTile")
+R_PASS = _cu_const("stream_chunk_routed.cu", "kPassStates")
 R_THREADS = _cu_const("stream_chunk_routed.cu", "kThreads")
 R_LEGS = _cu_const("stream_chunk_routed.cu", "kLegTile")
 R_WARPS = R_THREADS // 32
@@ -1010,7 +1103,7 @@ def _run_block(cells, gens, rng):
     """Run a block's warps, generators that yield ("sync",) (__syncthreads),
     ("arrive", bar) and ("wait", bar) (a named barrier's bar.arrive and
     bar.sync), in an order ``rng`` picks (in order if None)."""
-    live, blocked, at_sync, arrived = dict(gens), {}, set(), {}
+    live, blocked, at_sync, arrived = dict(gens), {}, {}, {}
     while live:
         runnable = [w for w in live if w not in blocked
                     or (blocked[w][0] == "sync" and len(at_sync) == len(live))
@@ -1019,7 +1112,7 @@ def _run_block(cells, gens, rng):
         w = runnable[0] if rng is None else runnable[rng.integers(len(runnable))]
         op = blocked.pop(w, None)
         if op is not None and op[0] == "sync":         # everyone leaves the barrier together
-            joined = cells.vc[sorted(at_sync)].max(axis=0)
+            joined = np.max(list(at_sync.values()), axis=0)   # the clocks they arrived with
             for x in at_sync:
                 cells.vc[x] = np.maximum(cells.vc[x], joined)
                 blocked.pop(x, None)
@@ -1032,7 +1125,7 @@ def _run_block(cells, gens, rng):
             del live[w]
             continue
         if op[0] == "sync":
-            at_sync.add(w)
+            at_sync[w] = cells.vc[w].copy()
             blocked[w] = op
         elif op[0] == "arrive":
             assert op[1] not in arrived, f"{op[1]} arrived twice"
@@ -1273,7 +1366,7 @@ def _routed_port(c, m, leg_cal, rng, fault=None):
                     with np.errstate(invalid="ignore"):
                         u = torch.log1p(torch.from_numpy((drow / scale).astype(np.float32))).numpy()
                     terms = np.zeros((len(hs), ln), np.float32)
-                    for j in range(ln):                  # lane s: state s's chain
+                    for j in range(ln):                  # lane s % 32, pass s // 32
                         hs[:] = a_ * hs + oma_ * u[j]
                         terms[:, j] = (hs - u[j]) * w_
                     acc_y = terms[0].copy()
@@ -1403,8 +1496,9 @@ def _routed_policy(topo, r, mode, seed):
                                 margin=np.resize([0.0, 0.05, 0.15, 1e30], M), cost_coef=coef)
     if mode == "replay":
         return pol, None
-    params = dict(demand_forecaster_init(None, 4, device="cpu"),
-                  w=torch.tensor(0.3 * rng.standard_normal(4), dtype=torch.float32),
+    S = R_PASS + 8 if mode == "live-two-passes" else 4
+    params = dict(demand_forecaster_init(None, S, device="cpu"),
+                  w=torch.tensor(0.3 * rng.standard_normal(S), dtype=torch.float32),
                   bias=torch.tensor(0.05, dtype=torch.float32))
     hist = rng.uniform(0.0, 800.0, (M, 96)) * rng.uniform(0, 1, (M, 1))
     return pol, StreamingForecaster.from_history(params, hist, device="cpu")
@@ -1424,6 +1518,7 @@ ROUTED_CASES = {  # scenario, pad, month, first hour, Ks, endogenous, NaN pair-0
     "live-month-start": ("topology", 0, 730, 720, [24, 1], False, (), "live"),
     "live-endogenous-nan": ("topology", 4, 730, 48, [24, 33], True, (50, 60), "live"),
     "live-hot-165-legs": ("hotter-port", 0, 730, 48, [24, 5], False, (), "live"),
+    "live-40-states": ("topology", 0, 730, 48, [24, 33], True, (), "live-two-passes"),
 }
 
 
@@ -1495,6 +1590,8 @@ def test_routed_replay_cases_cover_the_edges():
     op = _routed_runtime("nan-pair0-padded")[0].arrays.routing
     assert (op.attach_w.numpy() == 0).sum() == 4 and op.leg_pair.numpy()[-1] == 0
     assert max(max(v[4]) for v in ROUTED_CASES.values()) > R_TILE
+    fc = _routed_runtime("live-40-states")[0]._live
+    assert fc[0].shape[0] > R_PASS                   # the forecaster takes two passes
 
 
 @pytest.mark.parametrize("fault", ["stage_sync", "cost_arrive"])
@@ -1522,28 +1619,123 @@ def _cu_ring(source: str) -> int:
     return _cu_const(source, "kAhead") + 2
 
 
-def _fwd_checkpoints(u, a, oma, h0, *, ckpt_at_end=False):
-    """``forecaster_scan``'s checkpoint store in numpy float32: blocks of
-    ``kThreads // S`` rows walk the chain a tile at a time and store each
-    chain's state at the tile's start. ``ckpt_at_end`` stores the state after
-    the tile instead (a broken store, to show the replay sees it)."""
-    kThreads = _cu_const("forecaster_scan.cu", "kThreads")
-    kTile = _cu_const("forecaster_scan.cu", "kTile")
+F_CHAINS = _cu_const("forecaster_scan.cu", "kChainThreads")
+F_READERS = _cu_const("forecaster_scan.cu", "kReadThreads")
+F_TILE = _cu_const("forecaster_scan.cu", "kTile")
+F_AHEAD = _cu_const("forecaster_scan.cu", "kAhead")
+F_FAULTS = ("one_buffer", "short_ring", "same_step")
+
+
+def _fwd_replay(u, a, oma, w, bias, h0, rng, *, write_y=True, fault=None, ckpt_at_end=False):
+    """``forecaster_scan_kernel<S, WRITE_Y>`` (S <= FAST_STATE) in numpy
+    float32: blocks of ``R = kChainThreads // S`` rows, each run as its warp
+    roles in an order ``rng`` picks (in order if None) that meet at the one
+    ``__syncthreads`` of each step j: the chain warps walk tile j from its
+    ring slot (storing each chain's state at the tile's start, the
+    checkpoint) and store each hour's product ``(h_s - u) w_s`` into the
+    buffer of tile j's parity; the readout warps fold tile j - 1 from the
+    other buffer and its slot, each (row, hour)'s S products left from state
+    0; the producer warp stages tile ``j + kAhead`` of u into its slot after
+    the barrier and waits for tile j + 1 before the next. Every read must follow its
+    write through a barrier (``_Cells``) and find the tile it expects in the
+    slot or buffer. ``fault`` breaks the schedule on purpose: ``one_buffer``
+    (one state buffer), ``short_ring`` (a ring of ``kAhead + 1`` slots),
+    ``same_step`` (the readout folds the tile the chains walk in the same
+    step); ``ckpt_at_end`` stores each checkpoint after its tile. Returns
+    ``(y or None, h, ckpt)``."""
     N, T = u.shape
     S = a.shape[0]
-    R = kThreads // S
-    ckpt = np.zeros((-(-T // kTile), N, S), np.float32)
+    assert 1 <= S <= FAST_STATE
+    R = F_CHAINS // S
+    ahead = F_AHEAD
+    ring = ahead + (1 if fault == "short_ring" else 2)
+    n_tiles = -(-T // F_TILE)
+    n_steps = n_tiles + 1 if write_y else n_tiles
+    y = np.full((N, T), np.nan, np.float32) if write_y else None
+    h_out = np.zeros((N, S), np.float32)
+    ckpt = np.zeros((n_tiles, N, S), np.float32)
+    assert R * S <= F_CHAINS and F_READERS == F_CHAINS
     for n0 in range(0, N, R):
-        rows = slice(n0, min(n0 + R, N))
-        h = h0[rows].copy()
-        for j in range(ckpt.shape[0]):
-            if not ckpt_at_end:
-                ckpt[j, rows] = h
-            for i in range(j * kTile, min(T, (j + 1) * kTile)):
-                h = a * h + oma * u[rows, i, None]
-            if ckpt_at_end:
-                ckpt[j, rows] = h
-    return ckpt
+        nr = min(R, N - n0)
+        rows = slice(n0, n0 + nr)
+        cells = _Cells(3)                     # 0 the chain warps, 1 the readout, 2 the producer
+        P = 2                                 # the warp that stages u
+        U = np.zeros((ring, R, F_TILE), np.float32)
+        u_tile = np.full(ring, -1)
+        H = np.zeros((2, R, S, F_TILE), np.float32)
+        h_tile = np.full(2, -1)
+
+        def stage(j):
+            if j * F_TILE >= T:
+                return
+            slot, t0 = j % ring, j * F_TILE
+            ln = min(F_TILE, T - t0)
+            U[slot, :nr, :ln] = u[rows, t0:t0 + ln]
+            u_tile[slot] = j
+            cells.write(P, "U", (slot, slice(0, nr), slice(0, ln)), U.shape)
+
+        def chains():
+            h = h0[rows].copy()
+            for j in range(n_steps):
+                yield ("sync",)
+                if j >= n_tiles:
+                    continue
+                slot, t0 = j % ring, j * F_TILE
+                ln = min(F_TILE, T - t0)
+                cells.read(0, "U", (slot, slice(0, nr), slice(0, ln)))
+                assert u_tile[slot] == j, "the chains read a u tile the ring no longer holds"
+                if not ckpt_at_end:
+                    ckpt[j, rows] = h
+                buf = 0 if fault == "one_buffer" else j & 1
+                for i in range(ln):
+                    uv = U[slot, :nr, i, None]
+                    h = a * h + oma * uv
+                    H[buf, :nr, :, i] = (h - uv) * w
+                h_tile[buf] = j
+                if ckpt_at_end:
+                    ckpt[j, rows] = h
+                if write_y:
+                    cells.write(0, "H", (buf, slice(0, nr), slice(None), slice(0, ln)), H.shape)
+            h_out[rows] = h
+
+        def producer():
+            for j in range(ahead):
+                stage(j)
+            for j in range(n_steps):
+                yield ("sync",)
+                stage(j + ahead)
+
+        def readout():
+            for j in range(n_steps):
+                yield ("sync",)
+                jr = j if fault == "same_step" else j - 1
+                if not 0 <= jr < n_tiles:
+                    continue
+                slot, buf, t0 = jr % ring, 0 if fault == "one_buffer" else jr & 1, jr * F_TILE
+                ln = min(F_TILE, T - t0)
+                cells.read(1, "H", (buf, slice(0, nr), slice(None), slice(0, ln)))
+                assert h_tile[buf] == jr, "the readout reads the states of another tile"
+                cells.read(1, "U", (slot, slice(0, nr), slice(0, ln)))
+                assert u_tile[slot] == jr, "the readout reads a u tile the ring no longer holds"
+                uv, hh = U[slot, :nr, :ln], H[buf, :nr, :, :ln]
+                acc = hh[:, 0]
+                for k in range(1, S):
+                    acc = acc + hh[:, k]
+                y[rows, t0:t0 + ln] = (uv + acc) + bias
+
+        warps = {0: chains(), 2: producer()}
+        if write_y:
+            warps[1] = readout()
+        _run_block(cells, warps, rng)
+    return y, h_out, ckpt
+
+
+def _fwd_checkpoints(u, a, oma, h0, *, ckpt_at_end=False):
+    """The checkpoints :func:`_fwd_replay` stores, from its state-only
+    instance."""
+    zeros = np.zeros(a.shape, np.float32)
+    return _fwd_replay(u, a, oma, zeros, np.float32(0), h0, None, write_y=False,
+                       ckpt_at_end=ckpt_at_end)[2]
 
 
 def _bwd_replay(u, dy, a, oma, w, h0, *, ckpt_at_end=False, state_buffers=2):
@@ -1672,6 +1864,41 @@ def _bwd_case(N, T, S, seed, nan=True):
     h0 = rng.normal(0.4, 0.3, (N, S)).astype(np.float32)
     dy = rng.normal(0, 1e-3, (N, T)).astype(np.float32)
     return u, dy, a, oma, w, h0
+
+
+@pytest.mark.parametrize("order", ["in_order", "shuffled"])
+@pytest.mark.parametrize("S", [1, 3, 8, 16])
+@pytest.mark.parametrize("shape", [(1, 1), (17, 63), (17, 64), (40, 65), (9, 330)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_forward_schedule_bit_equal_to_plain(shape, S, order):
+    """The redesigned ``forecaster_scan``'s schedule (chains a tile ahead of
+    the readout, two state buffers, the producer's ring), replayed: y, the
+    last state and the checkpoints equal ``ref.forecaster_scan_ref`` in every
+    bit (a NaN hour in row 1), and so does the state-only instance."""
+    N, T = shape
+    u, _, a, oma, w, h0 = _bwd_case(N, T, S, 7 * N + T + S)
+    bias = np.float32(0.03)
+    rng = None if order == "in_order" else np.random.default_rng(N + T + S)
+    with np.errstate(invalid="ignore"):
+        y, h, ck = _fwd_replay(u, a, oma, w, bias, h0, rng)
+        _, h_only, ck_only = _fwd_replay(u, a, oma, w, bias, h0, rng, write_y=False)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+    want_ck = torch.empty(checkpoint_shape(N, T, S))
+    wy, wh = ref.forecaster_scan_ref(t(u), t(a), t(oma), t(w), t(bias), t(h0), ckpt=want_ck)
+    assert _same_bits(t(y), wy) and _same_bits(t(h), wh) and _same_bits(t(ck), want_ck)
+    assert _same_bits(t(h_only), wh) and _same_bits(t(ck_only), want_ck)
+
+
+@pytest.mark.parametrize("fault", F_FAULTS)
+def test_forward_replay_catches_a_late_hand_off(fault):
+    """The replay is live: one state buffer (the chains overwrite the tile
+    the readout folds), a ring one slot short (the producer refills the slot
+    the readout reads) or a readout of the tile the chains walk in the same
+    step is caught in a random interleaving."""
+    u, _, a, oma, w, h0 = _bwd_case(16, 64 * 9, 8, 3, nan=False)
+    with pytest.raises(AssertionError, match="without a barrier|never written|another tile|"
+                                             "no longer holds"):
+        _fwd_replay(u, a, oma, w, np.float32(0.0), h0, np.random.default_rng(5), fault=fault)
 
 
 def test_backward_tile_matches_the_source():

@@ -1389,7 +1389,7 @@ def test_oracle_dp_forms_on_layout_edges(cuda_device, case, head_start):
 
 # -- the forecast slice: forecaster_scan and the gated fsm_scan -----------------
 
-from repro_torch.kernels.forecaster import MAX_STATE, forecaster_scan  # noqa: E402
+from repro_torch.kernels.forecaster import FAST_STATE, forecaster_scan  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 
 
@@ -1428,14 +1428,19 @@ def _gate_inputs(seed, n, T, margin, device=CPU):
 
 def test_forecast_kernel_wrappers_refuse_cpu_tensors_and_bad_operands():
     """Both new launches take CUDA tensors or raise before anything is
-    built: CPU operands, a state size past the kernel's instances, float64
-    inputs, a gate of the wrong shape."""
+    built: CPU operands (at any state size: past the compile-time instances
+    too, where the dispatcher's plain version gives the CPU's result), no
+    state, float64 inputs, a gate of the wrong shape."""
     args = _forecaster_inputs(0, 3, 10, 8, "seeded")
     with pytest.raises(ValueError, match="CUDA"):
         forecaster_scan(*args)
-    bad_s = list(_forecaster_inputs(0, 3, 10, MAX_STATE + 1, "zero"))
-    with pytest.raises(ValueError, match="states"):
-        forecaster_scan(*bad_s)
+    past = list(_forecaster_inputs(0, 3, 10, FAST_STATE + 1, "zero"))
+    with pytest.raises(ValueError, match="CUDA"):
+        forecaster_scan(*past)
+    got, want = ops.forecaster_scan(*past), ref.forecaster_scan_ref(*past)
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    with pytest.raises(ValueError, match="S >= 1"):
+        forecaster_scan(past[0], *(x[:0] for x in past[1:4]), past[4])
     with pytest.raises(ValueError, match="float32"):
         forecaster_scan(args[0].double(), *args[1:])
     vpn, cci, tp, gate = _gate_inputs(0, 3, 40, 0.05)
@@ -1448,7 +1453,7 @@ def test_forecast_kernel_wrappers_refuse_cpu_tensors_and_bad_operands():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h0", ["zero", "seeded"])
-@pytest.mark.parametrize("S", [1, 3, 8, 16])
+@pytest.mark.parametrize("S", [1, 3, 8, 16, 17, 33, 100])
 @pytest.mark.parametrize("shape", [(1, 1), (17, 63), (300, 700), (33, 129)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_forecaster_kernel_bit_equal_to_plain(cuda_device, shape, S, h0):
@@ -1601,14 +1606,17 @@ def _bwd_inputs(seed, n, T, S, dy_kind, device=CPU):
 
 def test_forecaster_bwd_wrapper_refuses_cpu_tensors_and_bad_operands():
     """The backward launch takes CUDA tensors or raises before anything is
-    built: CPU operands, a state size past the kernel's instances, float64
+    built: CPU operands (at any state size: past the compile-time instances
+    too, where the dispatcher's plain version gives the CPU's result), float64
     inputs, a dy of another shape."""
     u, dy, a, oma, w, h = _bwd_inputs(0, 3, 10, 8, "seeded")
     with pytest.raises(ValueError, match="CUDA"):
         forecaster_scan_bwd(u, dy, a, oma, w, h)
-    big = _bwd_inputs(0, 3, 10, MAX_STATE + 1, "zero")
-    with pytest.raises(ValueError, match="states"):
+    big = _bwd_inputs(0, 3, 10, FAST_STATE + 1, "zero")
+    with pytest.raises(ValueError, match="CUDA"):
         forecaster_scan_bwd(*big)
+    got, want = ops.forecaster_scan_bwd(*big), ref.forecaster_scan_bwd_ref(*big)
+    assert all(_same_bits(g, w_) for g, w_ in zip(got, want))
     with pytest.raises(ValueError, match="float32"):
         forecaster_scan_bwd(u.double(), dy, a, oma, w)
     with pytest.raises(ValueError, match="one shape"):
@@ -1617,7 +1625,7 @@ def test_forecaster_bwd_wrapper_refuses_cpu_tensors_and_bad_operands():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dy_kind", ["zero", "seeded"])
-@pytest.mark.parametrize("S", [1, 3, 8, 16])
+@pytest.mark.parametrize("S", [1, 3, 8, 16, 17, 33, 100])
 @pytest.mark.parametrize("shape", [(1, 1), (1, 2), (17, 63), (17, 65), (300, 129), (33, 700)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_forecaster_bwd_kernel_bit_equal_to_plain(cuda_device, shape, S, dy_kind):
@@ -1646,7 +1654,7 @@ def test_forecaster_bwd_kernel_bit_equal_to_plain(cuda_device, shape, S, dy_kind
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 3, 8, 16])
+@pytest.mark.parametrize("S", [1, 3, 8, 16, 17, 33, 100])
 @pytest.mark.parametrize("shape", [(1, 1), (17, 63), (17, 64), (300, 700), (33, 129)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_forecaster_checkpoints_bit_equal_to_plain(cuda_device, shape, S):
@@ -1691,11 +1699,13 @@ def test_forecaster_wrappers_refuse_bad_checkpoints(cuda_device):
 
 
 @pytest.mark.cuda
-def test_forecaster_training_on_the_card_matches_the_cpu(cuda_device):
+@pytest.mark.parametrize("S", [8, 32])
+def test_forecaster_training_on_the_card_matches_the_cpu(cuda_device, S):
     """train_demand_forecaster on the card: one forecaster_scan and one
     forecaster_scan_bwd launch a step, and every parameter bit and every
     step's loss equal to the CPU port's on the same series (the inputs are
-    formed on the host and every reduction walks a fixed order)."""
+    formed on the host, every reduction walks a fixed order and every square
+    root is rounded once); S = 32 through the kernels' run-time instances."""
     rng = np.random.default_rng(5)
     t = np.arange(300)
     series = np.concatenate([
@@ -1705,17 +1715,46 @@ def test_forecaster_training_on_the_card_matches_the_cpu(cuda_device):
     steps = 12
     ops.reset_launches()
     card_losses, cpu_losses = [], []
-    got, scale = tssm.train_demand_forecaster(series, 48, steps=steps, device=cuda_device,
-                                              losses=card_losses)
+    got, scale = tssm.train_demand_forecaster(series, 48, state_dim=S, steps=steps,
+                                              device=cuda_device, losses=card_losses)
     assert ops.LAUNCHES["forecaster_scan"] == steps
     assert ops.LAUNCHES["forecaster_scan_bwd"] == steps
-    want, cpu_scale = tssm.train_demand_forecaster(series, 48, steps=steps, device="cpu",
-                                                   losses=cpu_losses)
+    want, cpu_scale = tssm.train_demand_forecaster(series, 48, state_dim=S, steps=steps,
+                                                   device="cpu", losses=cpu_losses)
     assert np.array_equal(scale, cpu_scale)
     for k in want:
         assert got[k].is_cuda and _same_bits(got[k].cpu(), want[k]), k
     np.testing.assert_allclose([float(x) for x in card_losses],
                                [float(x) for x in cpu_losses], rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8, 17, 32, 100])
+def test_adamw_update_on_the_card_equals_the_cpu(cuda_device, n):
+    """Five AdamW steps of a leaf of n values (and a scalar leaf) from seeded
+    gradients, clipped and not: every parameter and moment bit on the card
+    equals the CPU's (the square roots are rounded once on both)."""
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    rng = np.random.default_rng(n)
+    for clip in (1.0, 0.0):
+        cfg = AdamWConfig(lr=2e-2, weight_decay=0.1, clip_norm=clip)
+        p = {"x": torch.tensor(rng.normal(0, 1, n), dtype=torch.float32),
+             "b": torch.tensor(rng.normal(), dtype=torch.float32)}
+        sides = {"cpu": (p, adamw_init(p, cfg))}
+        pc = {k: v.to(cuda_device) for k, v in p.items()}
+        sides["card"] = (pc, adamw_init(pc, cfg))
+        for _ in range(5):
+            g = {k: rng.normal(0, 1e-2, np.shape(v)).astype(np.float32) for k, v in p.items()}
+            for side, (prm, st) in list(sides.items()):
+                gt = {k: torch.tensor(v, device=prm[k].device) for k, v in g.items()}
+                prm, st, _ = adamw_update(prm, gt, st, cfg)
+                sides[side] = (prm, st)
+            (pa, sa), (pb, sb) = sides["cpu"], sides["card"]
+            for k in pa:
+                assert _same_bits(pb[k].cpu(), pa[k]), (k, clip)
+                assert _same_bits(sb["m"][k].cpu(), sa["m"][k]) and _same_bits(
+                    sb["v"][k].cpu(), sa["v"][k]), (k, clip)
 
 
 # -- the forecast stream: the gated stream_chunk and stream_chunk_routed ---------
@@ -1978,7 +2017,7 @@ from repro_torch.fleet import StreamingForecaster  # noqa: E402
 from repro_torch.fleet import engine as teng  # noqa: E402
 from repro_torch.kernels.stream_chunk import LIVE_MATH, live_math  # noqa: E402
 
-LIVE_STATES = (1, 8, 16, 3)
+LIVE_STATES = (1, 8, 16, 3, 17, 33)   # past 16: the run-time instances, two and three passes
 
 
 def _live_params(S, seed, device):
@@ -2031,8 +2070,8 @@ def test_live_transcendentals_equal_torch(cuda_device, fn):
 def _live_fleet_configs(K):
     """Four (Kt, endogenous, renew, margin, S) settings a K: Kt cycles
     through 1-8 with K, and every margin kind, state size and flag appears."""
-    return [(1 + (K + j) % 8, j % 2 == 1, j >= 2, MARGIN_KINDS[j], LIVE_STATES[(K + j) % 4])
-            for j in range(4)]
+    return [(1 + (K + j) % 8, j % 2 == 1, j >= 2, MARGIN_KINDS[j],
+             LIVE_STATES[(K + j) % len(LIVE_STATES)]) for j in range(4)]
 
 
 def _live_fleet(K_seed, Kt, margin, renew, S, device, sc, demand):
@@ -2056,7 +2095,7 @@ def test_stream_chunk_live_matches_plain(cuda_device, K):
     stream_chunk_ref with the same
     live operands on the same blocks of a stream's own state, every output
     bit of the result (the prediction plane included), the FSM carry and
-    the forecaster's state: 64 links with 1-8 tiers, S = 1, 3, 8 and 16,
+    the forecaster's state: 64 links with 1-8 tiers, S = 1, 3, 8, 16, 17 and 33,
     endogenous CCI demand and renew_in_chunks on and off, margins of 0,
     0.05, per-row values and 1e30, NaN demand in three links, across the
     month start at hour 730; each launch counts under stream_chunk_live
@@ -2132,6 +2171,8 @@ LIVE_ROUTED_CASES = {  # scenario, pad, month, first hour, Ks, endogenous, NaN p
     "k168": ("relay", 0, 730, 24, [168], False, (), "rows", False, 8),
     "hot-port-165-legs": ("hotter-port", 0, 730, 48, [24, 1, 33], False, (), 0.05, False, 8),
     "main-cell-empty-ports": ("main-cell", 0, 730, 48, [24, 5], True, (), "rows", False, 8),
+    "k24-k33-two-passes": ("topology", 0, 730, 48, [24, 33], True, (), 0.05, False, 40),
+    "k24-k5-s100": ("relay", 0, 730, 48, [24, 5], False, (), "rows", False, 100),
 }
 
 
@@ -2278,7 +2319,8 @@ def test_live_streams_on_the_card_equal_the_card_plans(cuda_device):
 def test_live_chunk_wrappers_refuse_cpu_tensors_and_bad_operands():
     """Both chunk wrappers take live operands of CUDA tensors or raise before
     anything is built: CPU operands, a gate beside them, a state of 17
-    states or the wrong row count, coefficients of the wrong shape."""
+    states beside 8-state operands or of the wrong row count, coefficients of
+    the wrong shape."""
     sc = build_fleet_scenario(4, horizon=48, seed=0)
     arrays = sc.fleet.stack(torch.float64, CPU)
     pol = _gated_policy(arrays.toggle, 4, 30, 0.05, False, 0)
