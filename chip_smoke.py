@@ -203,9 +203,14 @@ without printing a result):
     once without the readout; S past 16 the run-time instance), the same for
     the backward kernel, unless a 32-state ``forecast_fleet_policy`` of 256
     links trains on the card to the CPU's bits and plans as the CPU port
-    does, unless the gated ``fsm_scan`` equals its plain
-    version on the CPU in every bit at the FSM edge shapes with margins 0,
-    0.05 and 1e30, NaN predictions and both renewals, and unless the card's
+    does, unless the gated ``fsm_scan`` (which reads the prediction and the
+    cost coefficients) equals the plain gating on the CPU of the predicted
+    costs torch's ops form on the card in every bit at the FSM edge shapes
+    with margins 0, 0.05 and 1e30, predictions -1, below -1 and NaN and both
+    renewals, and at the main path's inputs, unless its gate stage
+    (``gate_masks``) gives those costs' bits on 9.5 million hours, most near
+    a threshold, unless the gated plan's profile holds no torch ``exp`` or
+    ``log1p`` kernel, and unless the card's
     plan decides as the CPU port's (costs ``rtol=1e-9``), a differing row
     allowed only where a gate lies within the card-vs-CPU difference of the
     predicted costs of its threshold (printed, with the count); then it
@@ -416,7 +421,9 @@ def fsm_bound(N: int, T: int) -> dict:
 
 
 TRACE_PADS, TRACE_QUIET_S = 64, 0.01   # pad kernels that open a trace, then 10 ms idle
+TRACE_TRIES, TRACE_RETRY_S = 5, (0.2, 0.5, 1.0, 2.0)   # traces that lost every device event
 PAD_SEEN = []                          # per trace: how many pads it recorded
+EVENT_TIMED = []                       # kernels timed by CUDA events: no trace held their launches
 
 
 def traced(fn, reps: int):
@@ -427,25 +434,36 @@ def traced(fn, reps: int):
     16 one-cycle spin kernels), and the later the trace the more it loses
     (0 to 17 first events over 32-40 traces in one run). So the trace opens
     with TRACE_PADS such spin kernels and TRACE_QUIET_S of idle card, and
-    keeps only the events of the annotated calls after them. The callers that know how many launches a
-    call makes check the count."""
+    keeps only the events of the annotated calls after them. A trace can
+    also lose every device event (no pad recorded; a few in 150 traces, and
+    up to three in a row): such a trace is taken again after a pause, up to
+    TRACE_TRIES traces. The callers that know how many launches a call makes
+    check the count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_PADS):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        time.sleep(TRACE_QUIET_S)
-        with record_function("traced calls"):
-            for _ in range(reps):
-                fn()
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            print(f"    profiler trace recorded no device event: taken again "
+                  f"after {TRACE_RETRY_S[attempt - 1]} s")
+            time.sleep(TRACE_RETRY_S[attempt - 1])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PADS):
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
-    events = list(prof.events())
-    PAD_SEEN.append(sum(e.device_type == DeviceType.CUDA and "spin_kernel" in e.name
-                        for e in events))
+            time.sleep(TRACE_QUIET_S)
+            with record_function("traced calls"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        events = list(prof.events())
+        on_card = [e for e in events if e.device_type == DeviceType.CUDA
+                   and e.name != "traced calls"]
+        PAD_SEEN.append(sum("spin_kernel" in e.name for e in on_card))
+        if on_card:
+            break
     mark = [e.time_range.start for e in events if e.name == "traced calls"]
     t0 = mark[0] if mark else float("-inf")
     events = [e for e in events if "spin_kernel" not in e.name and e.time_range.start >= t0]
@@ -778,15 +796,29 @@ def device_ms_per_call(fn, reps: int, name: str, per_call: int, tries: int = 3) 
     """Device milliseconds per call of every kernel whose name holds ``name``
     (torch.profiler over ``reps`` calls), where a call launches ``per_call``
     such kernels. A trace that lost launches (not ``reps * per_call``) reads
-    low: it is taken again, up to ``tries`` traces, and the script fails
-    unless one of them holds every launch."""
+    low: it is taken again, up to ``tries`` traces. When none of them holds
+    every launch, the calls are timed by CUDA events instead: ``reps`` calls
+    queued behind a sleep kernel, between two events (every kernel of the
+    call and the gaps between launches, so it reads a little high); the
+    script prints which and lists them at its end."""
     for _ in range(tries):
         dev = [e for e in traced(fn, reps)[1] if name in e.name]
         if len(dev) == reps * per_call:
             return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
         print(f"    profiler trace holds {len(dev)} launches of {name} over {reps} calls, "
               f"not {reps * per_call}: taken again")
-    raise SmokeFailure(f"no profiler trace of {tries} held every launch of {name}")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 1_000_000)   # ~0.5 ms of card time per call to queue
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / reps
+    EVENT_TIMED.append(name)
+    print(f"    no profiler trace of {tries} held every launch of {name}: timed by CUDA events "
+          f"over {reps} queued calls instead, {ms:.5f} ms a call")
+    return ms
 
 
 def floor_ms(lib, blocks: int, threads: int, smem: int = 0, reps: int = 50) -> float:
@@ -3079,6 +3111,7 @@ FC_STATE = 8
 FC_STATES = (1, 8, 16, 17, 33, 100)
 FC_CHECK = ((1, 17, 2048), (1, 63, FC_HISTORY + FC_HOURS), FC_STATES)
 FC_MARGINS = (0.0, 0.05, 1e30)
+GATE_STRESS = ((2048, 4380), (33, 8760))   # N, T of gate_mask_checks' near-threshold cases
 FC_TRAIN_STEPS = 300                    # benchmarks/bench_policy.py:102's train_steps
 FC_BWD_CHECK = ((1, 17, 2048), (2, 63, 65, FC_HISTORY), FC_STATES)   # N, T, S
 FC_TRAIN_CHECK = (256, 30)              # links and steps of the card-vs-CPU training
@@ -3086,6 +3119,9 @@ FC_TRAIN_CHECK = (256, 30)              # links and steps of the card-vs-CPU tra
 # forecast_fleet_policy past 16 states (the kernels' run-time instances)
 FC_WIDE = (256, 30, 32, 730)
 FP32_DEP_CYCLES = 4                     # a dependent float32 multiply's or add's latency (Hopper)
+# the gated fsm_scan at 2048 x 8760 before its redesign (run 25B, profiler
+# device ms, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+BEFORE_GATE_MS = 0.4656
 # forecast_fleet_policy then plan_fleet: the training's steps (a forward and a
 # backward scan each), the prediction over history and year, the cost fit's
 # and the plan's pricings, the gated plan.
@@ -3102,12 +3138,50 @@ def forecaster_bound(N: int, T: int, S: int, write_y: bool = True) -> dict:
     return lane_bound(bytes_moved, ops, torch.float32)
 
 
-def gated_fsm_bound(N: int, T: int) -> dict:
-    # vpn, cci, p_vpn, p_cci read (f64); x, state written (int32); row
-    # parameters, margins and totals. fsm_bound's 11 operations an hour and
-    # the gates' four products and four compares.
-    bytes_moved = N * T * (4 * 8 + 4 + 4) + N * (8 * 3 + 4 * 5 + 8)
-    return bound(bytes_moved, N * T * 19, torch.float64)
+def gated_fsm_bound(N: int, T: int, gate_ops: int) -> dict:
+    # vpn, cci and pred read (f64); x, state written (int32); row parameters,
+    # margins, cost coefficients and totals. fsm_bound's 11 operations an
+    # hour and the exact gate form's gate_ops (gate_fp64_ops: a log1p, two
+    # exp, their products and sums, the four products and compares), each a
+    # whole float64 lane-cycle, as if every hour took it (the screen spares
+    # most hours that work).
+    bytes_moved = N * T * (3 * 8 + 4 + 4) + N * (8 * 3 + 4 * 5 + 8 + 4 * 8)
+    return lane_bound(bytes_moved, N * T * (11 + gate_ops), torch.float64)
+
+
+def gate_fp64_ops() -> dict:
+    """The float64 instructions (DADD, DMUL, DFMA, DSETP, DMNMX) of one
+    hour's exact gate form in the built library's SASS (cuobjdump): the body
+    of fsm_scan.cu's gate_exact_call, the largest subroutine the gate stage's
+    check kernel (gate_masks_kernel) calls: a log1p, two exp, their sums and
+    products and the four compares (the rare paths of divisions are
+    subroutines of their own and not counted). The gated fsm_scan inlines the
+    same code. A static count: the path a normal prediction takes and the
+    branches it skips. Returns the count and the subroutines'."""
+    import re
+    from repro_torch.kernels import _lib
+
+    cuobjdump = str(Path(_lib._nvcc()).parent / "cuobjdump")
+    sass = sh(cuobjdump, "-sass", _lib.load()._name)
+    block = [b for b in sass.split("Function : ")[1:]
+             if re.match(r"\S*gate_masks_kernel", b)]
+    check(len(block) == 1, "gate_masks_kernel is not in the SASS")
+    code = [(int(m[1], 16), m[2]) for m in
+            re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block[0])]
+    exit_at = max(a for a, op in code if re.search(r"\bEXIT\b", op))
+    fp64 = {}
+    for start in {int(m[1], 16) for a, op in code if a <= exit_at
+                  for m in [re.search(r"CALL\.REL\.NOINC (0x[0-9a-f]+)", op)] if m}:
+        n = 0
+        for a, op in code:
+            if a >= start:
+                n += bool(re.search(r"\b(?:DADD|DMUL|DFMA|DSETP|DMNMX)\b", op))
+                if re.search(r"\bRET\b", op):
+                    break
+        fp64[hex(start)] = n
+    check(fp64 and max(fp64.values()) >= 40,
+          f"no subroutine of gate_masks_kernel holds the exact gate form: {fp64}")
+    return {"per_hour": max(fp64.values()), "subroutines": fp64}
 
 
 def forecaster_case(N: int, T: int, S: int, h0: bool, device):
@@ -3159,48 +3233,136 @@ def forecaster_checks() -> int:
     return cases + 1
 
 
+def gate_operands(N: int, T: int, margins, device):
+    """Seeded operands of the gated fsm_scan: a predicted demand in 50-hour
+    regimes (every fifth row's predictions NaN from T // 3, and at T // 2 an
+    hour of -1 in rows 1, 8, ... and one below -1 in rows 2, 9, ...), an 8
+    bytes off a 16-byte boundary; cost coefficients whose predicted ratio
+    p_cci / p_vpn runs about 0.7-1.4 across the regimes, so that it
+    straddles the gates (slopes of 0 in rows 3, 14, ..., as a constant
+    demand fits); per-row margins cycling through ``margins``. Returns
+    (pred, coef, margin)."""
+    rng = np.random.default_rng(7 * N + T)
+    pred = (100.0 * np.repeat(rng.uniform(0.3, 3.0, (N, T // 50 + 1)), 50, axis=1)[:, :T]
+            * rng.uniform(0.9, 1.1, (N, T)))
+    pred[::5, T // 3:] = np.nan
+    pred[1::7, T // 2] = -1.0
+    pred[2::7, T // 2] = -1.5
+    a_v, b_v, d = rng.uniform(-3.0, -1.0, N), rng.uniform(0.6, 1.0, N), rng.uniform(-0.15, 0.15, N)
+    coef = np.stack([a_v, b_v, a_v + np.log(rng.uniform(0.85, 1.15, N)) - 4.6 * d, b_v + d], 1)
+    coef[3::11, 1::2] = 0.0
+    buf = torch.zeros(N * T + 1, dtype=torch.float64, device=device)
+    view = buf[1:].view(N, T)
+    view.copy_(torch.as_tensor(pred, device=device))
+    m = torch.as_tensor(np.resize(np.asarray(margins, np.float64), N), device=device)
+    return view, torch.as_tensor(coef, device=device), m
+
+
+def card_planes(gate) -> tuple:
+    """The predicted mode costs of a gate (pred, coef, margin) formed by
+    torch's ops on the card (``predicted_mode_costs``), brought to the CPU
+    with the margins: the plain gating's planes."""
+    from repro_torch.fleet.policy import predicted_mode_costs
+
+    pred, coef, m = gate
+    return tuple(x.cpu() for x in predicted_mode_costs(pred, coef, torch.float64) + (m,))
+
+
 def gated_edge_checks() -> int:
-    """The gated ``fsm_scan`` at fsm_edge_checks' shapes: per-row margins
-    cycling through FC_MARGINS, predicted costs straddling the gates, every
-    fifth row's predictions NaN from T // 3, planes 8 bytes off a 16-byte
-    boundary, both renewals, then each margin alone at 128 x 8760: every
-    output bit equal to the plain version on the CPU. Returns the cases."""
+    """The gated ``fsm_scan`` at fsm_edge_checks' shapes (gate_operands:
+    per-row margins cycling through FC_MARGINS, predictions of -1, below it
+    and NaN, a misaligned pred), both renewals, then each margin alone at
+    128 x 8760: every output bit equal to the plain gating on the CPU of the
+    predicted costs torch's ops form on the card. Returns the cases."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fsm_scan import fsm_scan
-
-    def gate(N, T, margins):
-        rng = np.random.default_rng(7 * N + T)
-        vpn = fsm_edge_args(N, T, 1, "cpu")[0].numpy()
-        p_vpn = vpn * rng.uniform(0.8, 1.2, (N, T))
-        ratio = np.repeat(rng.uniform(0.7, 1.3, (N, T // 50 + 1)), 50, axis=1)[:, :T]
-        p_cci = p_vpn * ratio
-        p_vpn[::5, T // 3:] = np.nan
-        p_cci[::5, T // 3:] = np.nan
-        planes = []
-        for p in (p_vpn, p_cci):
-            buf = torch.zeros(N * T + 1, dtype=torch.float64, device=DEVICE)
-            view = buf[1:].view(N, T)
-            view.copy_(torch.as_tensor(p, device=DEVICE))
-            planes.append(view)
-        m = torch.as_tensor(np.resize(np.asarray(margins, np.float64), N), device=DEVICE)
-        return tuple(planes) + (m,)
 
     cases = 0
     shapes = [(N, T, FC_MARGINS) for N in FSM_EDGE_N for T in FSM_EDGE_T]
     shapes += [(128, 8760, (m,)) for m in FC_MARGINS]
     for N, T, margins in shapes:
         args = fsm_edge_args(N, T, 1, DEVICE)
-        g = gate(N, T, margins)
-        check(g[0].data_ptr() % 16 == 8, "gate planes not misaligned")
+        g = gate_operands(N, T, margins, DEVICE)
+        check(g[0].data_ptr() % 16 == 8, "pred not misaligned")
+        planes = card_planes(g)
         for renew in (False, True):
             got = fsm_scan(*args, renew_in_chunks=renew, gate=g)
-            want = ref.fsm_scan_ref(*(a.cpu() for a in args), renew_in_chunks=renew,
-                                    gate=tuple(x.cpu() for x in g))
+            want = ref.fsm_scan_planes_ref(*(a.cpu() for a in args), renew_in_chunks=renew,
+                                           planes=planes)
             for k in ("x", "state", "total_cost"):
                 check(torch.equal(got[k].cpu(), want[k]), f"gated fsm_scan {N} x {T} margins "
-                      f"{margins} renew={renew}: {k} != the CPU plain version")
+                      f"{margins} renew={renew}: {k} != the plain gating on the card's planes")
             cases += 1
     return cases
+
+
+def gate_stress_operands(N: int, T: int, seed: int, device):
+    """Seeded gate operands whose predictions sit near the gates'
+    thresholds: each row's cost ratio crosses its four thresholds at lp = 2
+    to 22, and each hour takes one threshold's crossing, moved by a factor
+    1 +- 10^u, u uniform in [-16, -3] (so the screen leaves many hours to
+    the exact form and decides others by a hair); rows 3, 14, ... have a
+    margin of 1e30 and random predictions. Returns (pred, coef, margin,
+    theta1, theta2)."""
+    rng = np.random.default_rng(seed)
+    a_v, b_v = rng.uniform(-3.0, -1.0, N), rng.uniform(0.6, 1.0, N)
+    d = rng.choice([-1.0, 1.0], N) * rng.uniform(0.05, 0.3, N)
+    th1, th2 = rng.uniform(0.85, 0.95, N), rng.uniform(1.05, 1.2, N)
+    m = rng.choice([0.0, 0.05, 0.15], N)
+    m[3::11] = 1e30
+    c0 = np.log(th1) - d * rng.uniform(8.0, 12.0, N)
+    coef = np.stack([a_v, b_v, a_v + c0, b_v + d], 1)
+    t = np.stack([th1 - m, th1 + m, th2 + m, th2 - m], 1)
+    q = rng.integers(0, 4, (N, T))
+    lt = np.log(np.maximum(np.take_along_axis(t, q, 1), 1e-300))
+    lp = (lt - c0[:, None]) / d[:, None]
+    with np.errstate(over="ignore"):
+        pred = np.expm1(lp) * (1 + rng.choice([-1.0, 1.0], (N, T))
+                               * 10.0 ** rng.uniform(-16, -3, (N, T)))
+    pred[3::11] = rng.uniform(0, 500, (len(pred[3::11]), T))
+    f64 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=device)
+    return f64(pred), f64(coef), f64(m), f64(th1), f64(th2)
+
+
+def gate_mask_checks() -> dict:
+    """The gated fsm_scan's gate stage (``gate_masks``, with and without its
+    screen) against the bits of the predicted costs torch's ops form on the
+    card (``ref.gate_masks_ref``), every mask bit, on gate_operands' edge
+    cases and gate_stress_operands' near-threshold hours. Returns the hours
+    checked."""
+    from repro_torch.fleet.policy import predicted_mode_costs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fsm_scan import gate_masks
+
+    hours = 0
+    cases = [gate_stress_operands(N, T, N + T, DEVICE) for N, T in GATE_STRESS]
+    for N, T in ((1, 1), (17, 63), (128, 2001)):
+        args = fsm_edge_args(N, T, 1, DEVICE)
+        pred, coef, m = gate_operands(N, T, FC_MARGINS, DEVICE)
+        cases.append((pred.contiguous(), coef, m, args[2], args[3]))
+    for pred, coef, m, th1, th2 in cases:
+        planes = tuple(x.cpu() for x in predicted_mode_costs(pred, coef, torch.float64))
+        want = ref.gate_masks_ref(*planes, m.cpu(), th1.cpu(), th2.cpu())
+        for screen in (True, False):
+            got = gate_masks(pred, coef, m, th1, th2, screen=screen).cpu()
+            bad = int((got != want).sum())
+            check(bad == 0, f"gate_masks {tuple(pred.shape)} screen={screen}: {bad} of "
+                  f"{want.numel()} masks != the bits of the card's predicted costs")
+        hours += pred.numel()
+    return hours
+
+
+def check_no_torch_transcendentals(fn) -> int:
+    """Fails if a profiler trace of ``fn()`` holds a torch exp or log1p
+    kernel (the predicted mode costs formed by torch's ops), or no launch of
+    the gated fsm_scan. Returns the trace's device kernels."""
+    import re
+
+    names = [e.name for e in traced(fn, 1)[1]]
+    check(any("fsm_scan_kernel" in n for n in names), "the traced plan holds no fsm_scan_kernel")
+    bad = sorted({n[:120] for n in names if re.search(r"(?:exp|log1p)_kernel", n)})
+    check(not bad, f"the forecast plan runs torch's exp/log1p kernels: {bad}")
+    return len(names)
 
 
 def forecast_policy(sc, params, device):
@@ -3346,6 +3508,16 @@ def print_bwd_registers() -> None:
           f"frame; forecaster_bwd_fold_kernel {fold['registers']} registers, no spill")
 
 
+def print_fsm_registers() -> None:
+    """-Xptxas -v's registers, stack frame and spills of fsm_scan's four
+    instances (renewal x gated); fails on a spill or a stack frame."""
+    for name, rep in ptxas_instances("fsm_scan_kernel").items():
+        check(rep.get("stack") == rep.get("spill_stores") == rep.get("spill_loads") == 0,
+              f"{name} spills or keeps a stack frame: {rep}")
+        print(f"  {name[name.index('fsm_scan_kernel'):][:30]}: {rep['registers']} registers, "
+              f"no spill, no stack frame")
+
+
 def chain_floor_ms(T: int) -> tuple:
     """The backward's chain floor: T hours of the lam chain, a dependent
     multiply and add each (FP32_DEP_CYCLES cycles each), at the card's
@@ -3449,7 +3621,7 @@ def forecast_phase(card: str) -> dict:
                                    forecast_fleet_policy, forecast_horizon_hours, plan_fleet)
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.forecaster import forecaster_scan, forecaster_scan_bwd
-    from repro_torch.kernels.fsm_scan import fsm_scan
+    from repro_torch.kernels.fsm_scan import fsm_scan, gate_masks
     from repro_torch.models import ssm
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
@@ -3558,18 +3730,31 @@ def forecast_phase(card: str) -> dict:
     t0 = time.perf_counter()
     n_gate = gated_edge_checks()
     print(f"gated fsm_scan: {n_gate} cases (edge shapes x margins {FC_MARGINS} by row, each "
-          f"margin alone at 128 x 8760, NaN predictions, both renewals, misaligned planes) == "
-          f"plain on the CPU, every bit ({time.perf_counter() - t0:.1f} s)")
+          f"margin alone at 128 x 8760, predictions NaN, -1 and below, both renewals, a "
+          f"misaligned pred) == the plain gating on the CPU of the card's predicted costs, "
+          f"every bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_mask = gate_mask_checks()
+    print(f"gate stage (gate_masks, with and without its screen): {n_mask} hours, most within "
+          f"1e-3 in log of a threshold ({GATE_STRESS}) and gate_operands' edges, every mask "
+          f"bit == the bits of the card's predicted costs ({time.perf_counter() - t0:.1f} s)")
     gates = pol.features(reactive["demand"], reactive["vpn_hourly"], reactive["cci_hourly"])
     gate_args = fsm_args(arrays, reactive["vpn_hourly"], reactive["cci_hourly"])
-    gate = gates + (pol.margin,)
+    gate = (pol.pred_demand, pol.cost_coef, pol.margin)
     got = fsm_scan(*gate_args, gate=gate)
-    want = ref.fsm_scan_ref(*gate_args, gate=gate)
-    check(torch.equal(got["x"], want["x"]) and torch.equal(got["state"], want["state"]),
-          "gated fsm_scan != plain on the card at the main path's inputs")
+    t0 = time.perf_counter()
+    want = ref.fsm_scan_planes_ref(*(a.cpu() for a in gate_args),
+                                   planes=tuple(x.cpu() for x in gates + (pol.margin,)))
+    for k in ("x", "state", "total_cost"):
+        check(torch.equal(got[k].cpu(), want[k]), f"gated fsm_scan at the main path's inputs: "
+              f"{k} != the plain gating on the card's planes")
     check(same_bits(got["x"], plan["x"]), "the kernel's decisions != the plan's")
-    gated_err = (got["total_cost"] - want["total_cost"]).abs().max().item()
-    torch.testing.assert_close(got["total_cost"], want["total_cost"], rtol=1e-12, atol=0)
+    gated_err = (got["total_cost"].cpu() - want["total_cost"]).abs().max().item()
+    n_kernels = check_no_torch_transcendentals(lambda: plan_fleet(arrays, sc.demand, policy=pol))
+    print(f"gated fsm_scan at the main path's inputs ({N} x {T}): x, state and total_cost == "
+          f"the plain gating on the CPU of the card's predicted costs, every bit "
+          f"({time.perf_counter() - t0:.1f} s); the plan's trace holds {n_kernels} device "
+          f"kernels, no torch exp or log1p")
 
     # (d) the card's plan against the CPU port's, from the same trained
     # parameters (the training itself is card == CPU above) ---------------------
@@ -3635,14 +3820,22 @@ def forecast_phase(card: str) -> dict:
         state["p"], state["o"], _ = adamw_update(state["p"], g, state["o"], cfg)
 
     step_ms = sync_ms(train_step, 10)
-    g_ms = device_ms_per_call(lambda: fsm_scan(*gate_args, gate=gate), 10, "fsm_scan_kernel", 1)
     r_args = gate_args
     h_args = r_args[:7] + (arrays.toggle.h % 6 + 1, arrays.toggle.h % 4 + 1)
-    r_ms = device_ms_per_call(lambda: fsm_scan(*r_args), 10, "fsm_scan_kernel", 1)
-    h_ms = device_ms_per_call(lambda: fsm_scan(*h_args), 10, "fsm_scan_kernel", 1)
-    g_ms2 = device_ms_per_call(lambda: fsm_scan(*gate_args, gate=gate), 10, "fsm_scan_kernel", 1)
+    fsm_calls = {"gated": lambda: fsm_scan(*gate_args, gate=gate),
+                 "reactive": lambda: fsm_scan(*r_args), "hysteresis": lambda: fsm_scan(*h_args)}
+    fsm_ms = {k: [] for k in fsm_calls}
+    for k in ("gated", "reactive", "hysteresis", "hysteresis", "reactive", "gated"):   # in turns
+        fsm_ms[k].append(device_ms_per_call(fsm_calls[k], 10, "fsm_scan_kernel", 1))
+    g_ms, r_ms, h_ms = (fsm_ms[k][0] for k in fsm_calls)
     g_plain_ms = sync_ms(lambda: ref.fsm_scan_ref(*gate_args, gate=gate), 1, warmup=0)
-    gb = gated_fsm_bound(N, T)
+    gm_args = gate + (arrays.toggle.theta1, arrays.toggle.theta2)
+    gm_ms = {sc: [device_ms_per_call(lambda: gate_masks(*gm_args, screen=sc), 10,
+                                     "gate_masks_kernel", 1)] for sc in (True, False)}
+    gm_ms[True].append(device_ms_per_call(lambda: gate_masks(*gm_args), 10,
+                                          "gate_masks_kernel", 1))
+    gops = gate_fp64_ops()
+    gb = gated_fsm_bound(N, T, gops["per_hour"])
     demand = torch.as_tensor(sc.demand, dtype=torch.float64, device=DEVICE)
     plan_ms = sync_ms(lambda: plan_fleet(arrays, demand, policy=pol), 10)
     react_ms = sync_ms(lambda: plan_fleet(arrays, demand), 10)
@@ -3680,10 +3873,18 @@ def forecast_phase(card: str) -> dict:
           f"without the readout {fc_state_ms:.4f} ms (bound {fb_state['bound_ms']:.4f}); "
           f"plain (card) {fc_plain_ms:.1f} ms; launches on the path {FC_TRAIN_STEPS} at "
           f"{N} x {H} and 1 at {N} x {H + T}")
-    print(f"  fsm_scan {N} x {T}: gated {g_ms:.4f} / {g_ms2:.4f} ms (bound "
-          f"{gb['bound_ms']:.4f} ms, {gb['bound_by']}, {g_ms / gb['bound_ms']:.2f}x), reactive "
-          f"{r_ms:.4f} ms, hysteresis {h_ms:.4f} ms (bound {fsm_bound(N, T)['bound_ms']:.4f}), "
-          f"in turns; gated plain (card) {g_plain_ms:.1f} ms")
+    ms_of = lambda k: " / ".join(f"{x:.4f}" for x in fsm_ms[k])
+    print(f"  fsm_scan {N} x {T}, in turns (gated, reactive, hysteresis, then back): gated "
+          f"{ms_of('gated')} ms (before the redesign {BEFORE_GATE_MS}; bound "
+          f"{gb['bound_ms']:.4f} ms, {gb['bound_by']}, {g_ms / gb['bound_ms']:.2f}x; the gate "
+          f"form {gops['per_hour']} float64 instructions an hour in the SASS (gate_exact_call; "
+          f"first-level subroutines {gops['subroutines']})), reactive {ms_of('reactive')} ms, hysteresis "
+          f"{ms_of('hysteresis')} ms (bound {fsm_bound(N, T)['bound_ms']:.4f}); gated plain "
+          f"(card) {g_plain_ms:.1f} ms")
+    print(f"  the gate stage alone (gate_masks, {N} x {T}, 4 gate warps a block of 16 rows): "
+          f"with its screen {gm_ms[True][0]:.4f} / {gm_ms[True][1]:.4f} ms, every hour's exact "
+          f"costs {gm_ms[False][0]:.4f} ms")
+    print_fsm_registers()
     print(f"  plan_fleet {N} x {T} from arrays and demand on the card: forecast-gated "
           f"{plan_ms:.3f} ms, reactive {react_ms:.3f} ms; the forecast path from numpy without "
           f"the training (predict over {H + T} h, cost fit, plan) {path_ms:.1f} ms; with it "
@@ -4702,7 +4903,8 @@ def main() -> int:
          "replaces": "src/repro/fleet/runtime.py:556", **live_rows["stream_chunk_routed_live"]},
     ]
     print(f"profiler: {len(PAD_SEEN)} traces; pad kernels recorded of {TRACE_PADS}, by trace: "
-          f"{PAD_SEEN}")
+          f"{PAD_SEEN}; timed by CUDA events where no trace held every launch: "
+          f"{EVENT_TIMED or 'none'}")
     for row in kernels:   # whether the kernel launches on one of the paths driven above
         row.setdefault("main_path", True)
     print(json.dumps({"kernels": kernels}))

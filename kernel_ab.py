@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the forecaster and stream kernels of two checkouts in turns on one card.
+"""Time the forecaster, stream and FSM kernels of two checkouts in turns on one card.
 
 Run from the root of a checkout, on a host with one CUDA card, with the
 other checkout (for example the parent commit, unpacked with ``git archive``
@@ -15,8 +15,16 @@ inputs and prints, by profiler device time (``chip_smoke.device_ms_per_call``,
 with and without the checkpoint store, and without the readout) and 2048 x
 13140 (the forecast) at S = 8, and ``stream_chunk``'s live, replay and
 reactive instances at 2048 x K = 24 (the chunk form) and K = 1-3 (the tick
-form) on a seeded live forecaster's stream from hour 696. The last line is
-one JSON object: {"runs": [{"root": ..., "ms": {label: ms}}, ...]}.
+form) on a seeded live forecaster's stream from hour 696, and the forecast
+plan of a 2048-link year (a seeded 8-state readout's predictions, cost
+coefficients fitted on the year, per-family margins): ``plan_fleet`` from
+arrays with the forecast-gated policy and without it (host clock around a
+synchronized call, median of 10), the ``fsm_scan`` kernel inside the gated
+plan (profiler device time; the public entry, since the gate's operands
+differ between checkouts; ``chip_smoke.py`` holds the gated kernel to its
+plain version), and ``fsm_scan``'s reactive and hysteresis instances on that
+year's cost planes. The last line is one JSON object:
+{"runs": [{"root": ..., "ms": {label: ms}}, ...]}.
 """
 from __future__ import annotations
 
@@ -57,6 +65,26 @@ def _live_stream(device):
     return rt, sc.demand
 
 
+def _forecast_plan(device):
+    """The 2048-link year (4380 h of history), its stacked arrays, demand on
+    the card, and a forecast-gated policy from a seeded 8-state readout."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.fleet import build_fleet_scenario
+    from repro_torch.models.ssm import demand_forecaster_init
+
+    sc = build_fleet_scenario(N_LINKS, horizon=8760, history_hours=4380, seed=0)
+    rng = np.random.default_rng(0)
+    params = dict(demand_forecaster_init(None, STATE, device=device),
+                  w=torch.tensor(0.1 * rng.standard_normal(STATE), dtype=torch.float32,
+                                 device=device),
+                  bias=torch.tensor(0.01 * rng.standard_normal(), dtype=torch.float32,
+                                    device=device))
+    arrays, pol = cs.forecast_policy(sc, params, device)
+    return arrays, torch.as_tensor(sc.demand, dtype=torch.float64, device=device), pol
+
+
 def time_root(root: str) -> dict:
     """The kernels of the checkout at ``root``: {label: device ms}."""
     sys.path.insert(0, str(Path(root) / "src"))
@@ -81,6 +109,31 @@ def time_root(root: str) -> dict:
                           (" state", lambda: forecaster_scan(*args, write_y=False))):
             ms[f"forecaster_scan {N_LINKS}x{T}{label}"] = cs.device_ms_per_call(
                 fn, REPS, "forecaster_scan", 1)
+    from repro_torch.fleet import plan_fleet
+    from repro_torch.kernels.fsm_scan import fsm_scan
+
+    arrays, fdemand, pol = _forecast_plan(dev)
+    gated = lambda: plan_fleet(arrays, fdemand, policy=pol)
+    reactive = lambda: plan_fleet(arrays, fdemand)
+    plan = reactive()
+    args = cs.fsm_args(arrays, plan["vpn_hourly"], plan["cci_hourly"])
+    tp = arrays.toggle
+    h_args = args[:7] + (tp.h % 6 + 1, tp.h % 4 + 1)
+    for a in (args, h_args):
+        got, want = fsm_scan(*a), ref.fsm_scan_ref(*(x.cpu() for x in a))
+        cs.check(all(torch.equal(got[k].cpu(), want[k]) for k in want),
+                 "fsm_scan on the forecast year's cost planes != plain")
+    for _ in range(2):                                                 # in turns
+        for key, fn in (("plan_fleet forecast 2048x8760", gated),
+                        ("plan_fleet reactive 2048x8760", reactive)):
+            ms[key] = min(ms.get(key, float("inf")), cs.sync_ms(fn, 10))
+        key = "fsm_scan_kernel in the forecast plan"
+        ms[key] = min(ms.get(key, float("inf")), cs.kernel_device_ms(
+            gated, REPS, ("fsm_scan_kernel",), per_call=1)["fsm_scan_kernel"])
+        for key, a in (("fsm_scan reactive 2048x8760", args),
+                       ("fsm_scan hysteresis 2048x8760", h_args)):
+            ms[key] = min(ms.get(key, float("inf")),
+                          cs.device_ms_per_call(lambda: fsm_scan(*a), REPS, "fsm_scan_kernel", 1))
     rt, demand = _live_stream(dev)
     for K in (24, 1, 2, 3):
         block, _, endo = rt._pack(demand[:, 696:696 + K], None)

@@ -6,9 +6,9 @@
 // of ReactivePolicy.step / HysteresisPolicy.step (hold counts of 1 make the
 // hysteresis rule the reactive one): the raw triggers from the hour's window
 // sums, then request, provisioning done and release, in that order. The
-// forecast gates of ForecastGatedPolicy.step (fsm_gate, fsm_gated_triggers)
-// turn the raw triggers into the gated ones; its cascade is this step with
-// hold counts of 1.
+// forecast gates of ForecastGatedPolicy.step (fsm_gate, fsm_gate_bits,
+// fsm_gated_triggers) turn the raw triggers into the gated ones; its cascade
+// is this step with hold counts of 1.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,14 +51,29 @@ __device__ __forceinline__ FsmGate fsm_gate(const FsmRow& p, double m) {
           __dsub_rn(p.theta2, m)};
 }
 
+// The four gate bits of an hour from its predicted mode costs: the request
+// the forecast makes alone (a_req) and the one it lets a raw trigger make
+// (b_req), and the release's two (a_rel, b_rel). They read no window sum.
+// `<` and `>` keep NaN out: a NaN prediction makes every comparison false,
+// as in JAX.
+__device__ __forceinline__ void fsm_gate_bits(const FsmGate& g, double p_vpn, double p_cci,
+                                              bool& a_req, bool& b_req, bool& a_rel,
+                                              bool& b_rel) {
+  a_req = p_cci < __dmul_rn(g.t1_lo, p_vpn);
+  b_req = p_cci < __dmul_rn(g.t1_hi, p_vpn);
+  a_rel = p_cci > __dmul_rn(g.t2_hi, p_vpn);
+  b_rel = p_cci > __dmul_rn(g.t2_lo, p_vpn);
+}
+
 // ForecastGatedPolicy.step's request and release from the hour's raw triggers
 // and its predicted mode costs: the forecast alone when it is confident, or
-// the raw trigger when the forecast does not object. `<` and `>` keep NaN
-// out: a NaN prediction makes every comparison false, as in JAX.
+// the raw trigger when the forecast does not object.
 __device__ __forceinline__ void fsm_gated_triggers(const FsmGate& g, double p_vpn, double p_cci,
                                                    bool& req, bool& rel) {
-  req = (p_cci < __dmul_rn(g.t1_lo, p_vpn)) | (req & (p_cci < __dmul_rn(g.t1_hi, p_vpn)));
-  rel = (p_cci > __dmul_rn(g.t2_hi, p_vpn)) | (rel & (p_cci > __dmul_rn(g.t2_lo, p_vpn)));
+  bool a_req, b_req, a_rel, b_rel;
+  fsm_gate_bits(g, p_vpn, p_cci, a_req, b_req, a_rel, b_rel);
+  req = a_req | (req & b_req);
+  rel = a_rel | (rel & b_rel);
 }
 
 // One hour of the policy step from its raw triggers: the hold counts, then

@@ -12,7 +12,8 @@ Port of :mod:`repro.fleet.engine`. A plan runs three stages on one device:
                 plane with ``attach_w``, one launch), then ``d_row`` is
                 clipped at port capacity and ``cci = L + V·n + c·d_row``
   policy stage  both cost planes (and, for the forecast-gated policy, its
-                predicted-cost planes) --FSM scan kernel--> x, state, toggle cost
+                predicted demand and cost coefficients) --FSM scan kernel-->
+                x, state, toggle cost
 
 On CUDA the tiered pricing, the segment sum and the FSM scan are the
 hand-written kernels of :mod:`repro_torch.kernels`; on the CPU

@@ -13,9 +13,10 @@ Port of :mod:`repro.fleet.policy`:
 A policy is a NamedTuple of per-row tensors (the JAX package's pytree),
 with the static ``renew_in_chunks`` flag beside them. :func:`policy_scan`
 runs one over (N, T) cost planes: on CUDA through the FSM scan kernel (its
-gated instance for the forecast policy, after the predicted-cost planes are
-formed by torch ops on the device), on the CPU through its plain per-hour
-loop over :func:`_fsm_cascade`. ``make_policy("forecast", ...)`` raises, as
+gated instance for the forecast policy, which reads the predicted demand and
+the cost coefficients and decides the gates itself), on the CPU through its
+plain per-hour loop over :func:`_fsm_cascade` (the predicted-cost planes
+formed by torch ops first). ``make_policy("forecast", ...)`` raises, as
 it does in the JAX package: the policy is built from predictions with
 :func:`forecast_gated_policy`, or by the factories that train the
 forecaster on a history first (:func:`forecast_port_demand`,
@@ -192,18 +193,25 @@ class ForecastGatedPolicy(NamedTuple):
         one = torch.ones_like(self.toggle.h)
         return (one, one)
 
+    def coefficients(self, demand: Optional[torch.Tensor], vpn_hourly: torch.Tensor,
+                     cci_hourly: torch.Tensor) -> torch.Tensor:
+        """The (N, 4) cost coefficients: ``cost_coef``, or fitted on the
+        realized series (:func:`fit_cost_coef`) when it is None."""
+        if self.cost_coef is not None:
+            return self.cost_coef
+        if demand is None:
+            raise ValueError(
+                "ForecastGatedPolicy needs the demand series to map predicted demand "
+                "to predicted mode costs (or pass explicit cost_coef)")
+        return fit_cost_coef(demand.to(vpn_hourly.dtype), vpn_hourly, cci_hourly)
+
     def features(self, demand: Optional[torch.Tensor], vpn_hourly: torch.Tensor,
                  cci_hourly: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The (N, T) predicted mode costs the gates compare, in the cost
         planes' dtype."""
-        coef = self.cost_coef
-        if coef is None:
-            if demand is None:
-                raise ValueError(
-                    "ForecastGatedPolicy needs the demand series to map predicted demand "
-                    "to predicted mode costs (or pass explicit cost_coef)")
-            coef = fit_cost_coef(demand.to(vpn_hourly.dtype), vpn_hourly, cci_hourly)
-        return predicted_mode_costs(self.pred_demand, coef, vpn_hourly.dtype)
+        return predicted_mode_costs(self.pred_demand,
+                                    self.coefficients(demand, vpn_hourly, cci_hourly),
+                                    vpn_hourly.dtype)
 
 
 Policy = Union[ReactivePolicy, HysteresisPolicy, ForecastGatedPolicy]
@@ -222,9 +230,10 @@ def policy_scan(policy: Policy, vpn_hourly: torch.Tensor, cci_hourly: torch.Tens
     The counterpart of :func:`repro.fleet.policy.policy_scan` vmapped over
     rows. Every policy goes through :func:`repro_torch.kernels.ops.fsm_scan`
     (the reactive rule as hold counts of 1; the forecast-gated policy with
-    its predicted-cost planes as the gate, which needs ``demand`` (N, T)
-    when the policy carries no ``cost_coef``). Returns ``x`` and ``state``
-    (N, T) int32 and ``total_cost`` (N,) float64.
+    its predicted demand, cost coefficients and margins as the gate, the
+    coefficients fitted first on ``demand`` (N, T) when the policy carries
+    no ``cost_coef``). Returns ``x`` and ``state`` (N, T) int32 and
+    ``total_cost`` (N,) float64.
     """
     tp = policy.toggle
     if not isinstance(policy, (ReactivePolicy, HysteresisPolicy, ForecastGatedPolicy)):
@@ -236,7 +245,9 @@ def policy_scan(policy: Policy, vpn_hourly: torch.Tensor, cci_hourly: torch.Tens
         if policy.pred_demand.shape != vpn.shape:
             raise ValueError(f"pred_demand {tuple(policy.pred_demand.shape)} does not match "
                              f"the cost planes {tuple(vpn.shape)}")
-        gate = policy.features(demand, vpn, cci) + (policy.margin.to(torch.float64),)
+        gate = (policy.pred_demand.to(torch.float64),
+                policy.coefficients(demand, vpn, cci).to(torch.float64),
+                policy.margin.to(torch.float64))
     up, down = policy.holds()
     return ops.fsm_scan(
         vpn, cci, tp.theta1, tp.theta2, tp.h, tp.D, tp.T_cci, up, down,

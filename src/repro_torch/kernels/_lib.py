@@ -156,10 +156,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.fsm_scan_f64.argtypes = [p] * 9 + [i, i, i] + [p] * 4
     lib.fsm_scan_f64.restype = i
-    # vpn, cci, p_vpn, p_cci, margin, theta1, theta2, h, D, T_cci, up, down,
+    # vpn, cci, pred, coef, margin, theta1, theta2, h, D, T_cci, up, down,
     # renew, N, T, x, state, total, stream
     lib.fsm_scan_gated_f64.argtypes = [p] * 12 + [i, i, i] + [p] * 4
     lib.fsm_scan_gated_f64.restype = i
+    # pred, coef, margin, theta1, theta2, N, T, screen, masks, stream
+    lib.fsm_scan_gate_masks_f64.argtypes = [p] * 5 + [i, i, i] + [p] * 2
+    lib.fsm_scan_gate_masks_f64.restype = i
     # u, a, one_minus_a, w, bias, h0, N, T, S, write_y, y, h, ckpt, stream
     lib.forecaster_scan_f32.argtypes = [p] * 6 + [i] * 4 + [p] * 4
     lib.forecaster_scan_f32.restype = i

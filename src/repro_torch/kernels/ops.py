@@ -58,8 +58,9 @@ def tiered_cost_batched(month_cum, demand, bounds, rates) -> torch.Tensor:
 def fsm_scan(vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold,
              *, renew_in_chunks: bool = False, gate=None) -> Dict[str, torch.Tensor]:
     """ToggleCCI over (N, T) cost planes: ``x``, ``state``, ``total_cost``.
-    ``gate=(p_vpn, p_cci, margin)`` runs the forecast-gated policy on the
-    (N, T) predicted mode costs with (N,) margins (hold counts must be 1)."""
+    ``gate=(pred, coef, margin)`` runs the forecast-gated policy on the (N, T)
+    predicted demand, the (N, 4) cost coefficients and (N,) margins (hold
+    counts must be 1)."""
     args = (vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold)
     if _route(vpn, "fsm_scan"):
         return _fsm_scan_kernel(*(a.contiguous() for a in args), renew_in_chunks=renew_in_chunks,

@@ -57,11 +57,38 @@ def fsm_scan_ref(
 ) -> Dict[str, torch.Tensor]:
     """Plain version of :func:`repro_torch.kernels.fsm_scan.fsm_scan`.
 
+    ``gate=(pred, coef, margin)`` forms the predicted mode costs with
+    :func:`repro_torch.fleet.policy.predicted_mode_costs` on ``pred``'s
+    device (the kernel forms them with CUDA's ``log1p`` and ``exp``, which
+    give torch's CUDA ops' bits), then gates as :func:`fsm_scan_planes_ref`.
+    """
+    planes = None
+    if gate is not None:
+        from repro_torch.fleet.policy import predicted_mode_costs
+
+        pred, coef, margin = gate
+        planes = predicted_mode_costs(pred, coef, torch.float64) + (margin,)
+    return fsm_scan_planes_ref(vpn, cci, theta1, theta2, h, D, T_cci, up_hold, down_hold,
+                               renew_in_chunks=renew_in_chunks, planes=planes)
+
+
+def fsm_scan_planes_ref(
+    vpn: torch.Tensor, cci: torch.Tensor,
+    theta1: torch.Tensor, theta2: torch.Tensor,
+    h: torch.Tensor, D: torch.Tensor, T_cci: torch.Tensor,
+    up_hold: torch.Tensor, down_hold: torch.Tensor,
+    *,
+    renew_in_chunks: bool = False,
+    planes: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """:func:`fsm_scan_ref` from predicted mode costs formed elsewhere (the
+    card's, to hold the kernel to the plain gating on them).
+
     Window sums from a float64 ``torch.cumsum`` prefix
     (:func:`repro_torch.core.togglecci.window_sums`), then one
     :func:`repro_torch.fleet.policy._fsm_cascade` step per hour, vectorised
     over rows, with the hysteresis hold counters (hold 1 is the reactive
-    rule). ``gate=(p_vpn, p_cci, margin)`` first turns the raw trigger
+    rule). ``planes=(p_vpn, p_cci, margin)`` first turns the raw trigger
     planes into ``ForecastGatedPolicy.step``'s gated ones
     (``src/repro/fleet/policy.py:290-300``: each row's ``θ ± m`` formed
     once, then multiplied by the hour's predicted VPN cost). ``total_cost``
@@ -75,8 +102,8 @@ def fsm_scan_ref(
     r_cci = window_sums(cci, h)
     raw_req = r_cci < theta1[:, None] * r_vpn      # (N, T) trigger planes
     raw_rel = r_cci > theta2[:, None] * r_vpn
-    if gate is not None:
-        p_vpn, p_cci, m = gate
+    if planes is not None:
+        p_vpn, p_cci, m = planes
         raw_req, raw_rel = _gated_triggers(raw_req, raw_rel, theta1[:, None], theta2[:, None],
                                           p_vpn, p_cci, m[:, None])
     N, T = vpn.shape
@@ -96,6 +123,26 @@ def fsm_scan_ref(
     state = torch.stack(states, dim=1)
     served = torch.where(x == 1, cci.to(torch.float64), vpn.to(torch.float64))
     return {"x": x, "state": state, "total_cost": torch.cumsum(served, dim=1)[:, -1]}
+
+
+def gate_masks_ref(p_vpn: torch.Tensor, p_cci: torch.Tensor, margin: torch.Tensor,
+                   theta1: torch.Tensor, theta2: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.fsm_scan.gate_masks` from
+    the (N, T) predicted mode costs: the four gate bits of every hour
+    (``p_cci < (θ₁ − m)·p_vpn``, ``p_cci < (θ₁ + m)·p_vpn``,
+    ``p_cci > (θ₂ + m)·p_vpn``, ``p_cci > (θ₂ − m)·p_vpn``, as
+    :func:`_gated_triggers` forms them) packed into 64-bit masks a 64-hour
+    tile, (N, ceil(T / 64), 4) int64."""
+    m = margin[:, None]
+    t1, t2 = theta1[:, None], theta2[:, None]
+    bits = torch.stack([p_cci < (t1 - m) * p_vpn, p_cci < (t1 + m) * p_vpn,
+                        p_cci > (t2 + m) * p_vpn, p_cci > (t2 - m) * p_vpn], dim=-1)
+    N, T = p_vpn.shape
+    n_tiles = -(-T // 64)
+    bits = torch.nn.functional.pad(bits.to(torch.int64), (0, 0, 0, n_tiles * 64 - T))
+    weight = torch.bitwise_left_shift(torch.ones(64, dtype=torch.int64, device=bits.device),
+                                      torch.arange(64, device=bits.device))
+    return (bits.view(N, n_tiles, 64, 4) * weight[:, None]).sum(dim=2)
 
 
 def forecaster_scan_ref(

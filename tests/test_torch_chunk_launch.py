@@ -1973,3 +1973,294 @@ def test_plain_backward_takes_checkpoints_or_h0():
     assert all(_same_bits(g, wv) for g, wv in zip(got, want))
     with pytest.raises(ValueError, match="not both"):
         ref.forecaster_scan_bwd_ref(u, dy, a, oma, w, h0, ckpt=ckpt)
+
+
+# -- fsm_scan's gated instance: the gate warps' masks and the FSM warp's combine --
+
+F_ROWS, F_TILE = _cu_const("fsm_scan.cu", "kRows"), _cu_const("fsm_scan.cu", "kTile")
+F_GATE_WARPS = _cu_const("fsm_scan.cu", "kGateWarps")
+F_UNITS = 2 * F_ROWS // F_GATE_WARPS             # half-rows a gate warp takes a tile
+
+
+def _cu_double(source: str, name: str) -> float:
+    m = re.search(rf"constexpr double {name} = ([^;]+);", (CSRC / source).read_text())
+    assert m, f"{name} not found in {source}"
+    return float.fromhex(m[1]) if "p" in m[1] else float(m[1])
+
+
+SCREEN_REL, SCREEN_LP, SCREEN_ARG, SCREEN_EDGE = (
+    _cu_double("fsm_scan.cu", k) for k in ("kScreenRel", "kScreenLp", "kScreenArg", "kScreenEdge"))
+
+
+def _f32_out(x, up: bool):
+    """float32 of float64 ``x`` rounded up (down): __double2float_ru (_rd)."""
+    f = np.float32(x)
+    if np.isfinite(f) and (f < x if up else f > x):
+        f = np.nextafter(f, np.float32(np.inf if up else -np.inf))
+    return f
+
+
+def _gate_row_np(coef, th1, th2, m):
+    """fsm_scan.cu's gate_row for one row: the screen's float32 c0, c1, lp
+    range and bounds lo, hi."""
+    lo, hi = 0.0, SCREEN_LP
+    for k in (0, 2):
+        a, b = coef[k], coef[k + 1]
+        if not (np.isfinite(a) and np.isfinite(b)):
+            hi = -1.0
+        elif b == 0.0:
+            hi = hi if abs(a) <= SCREEN_ARG else -1.0
+        else:
+            e1, e2 = (-SCREEN_ARG - a) / b, (SCREEN_ARG - a) / b
+            lo, hi = max(lo, min(e1, e2) + SCREEN_EDGE), min(hi, max(e1, e2) - SCREEN_EDGE)
+    c0, c1 = coef[2] - coef[0], coef[3] - coef[1]
+    e = (abs(c1) * 2.0 ** -19 * (1 + SCREEN_LP) + 2.0 ** -21 * (abs(c0) + abs(c1) * SCREEN_LP)
+         + SCREEN_REL * (1 + abs(coef[0]) + abs(coef[2])
+                         + 2 * (abs(coef[1]) + abs(coef[3])) * SCREEN_LP))
+    lows, highs = [], []
+    for t in (th1 - m, th1 + m, th2 + m, th2 - m):
+        with np.errstate(divide="ignore"):
+            lt = np.log(t) if t > 0 else (-np.inf if t <= 0 else t)
+        tol = e + (SCREEN_REL * abs(lt) if np.isfinite(lt) else 0.0)
+        lows.append(_f32_out(lt - tol, False))
+        highs.append(_f32_out(lt + tol, True))
+    return dict(c0=np.float32(c0), c1=np.float32(c1), lp_lo=_f32_out(lo, True),
+                lp_hi=_f32_out(hi, False), lo=lows, hi=highs)
+
+
+def _gate_screen_np(g, pred):
+    """fsm_scan.cu's gate_screen over a half-row's 32 lanes: (sure, bits
+    (32, 4)). lp comes from numpy's float32 log2, which is within the bound
+    the card's hardware log2 is taken at."""
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        y = pred.astype(np.float32) + np.float32(1)
+        lp = np.log2(y) * np.float32(0.693147180559945)
+        d = (g["c1"].astype(np.float64) * lp.astype(np.float64) + g["c0"]).astype(np.float32)
+        sure = (lp >= g["lp_lo"]) & (lp <= g["lp_hi"])
+        bits = np.zeros((32, 4), bool)
+        for q in range(4):
+            below, above = d < g["lo"][q], d > g["hi"][q]
+            sure &= below | above
+            bits[:, q] = below if q < 2 else above
+    nan = np.isnan(pred)
+    bits[nan] = False
+    return sure | nan, bits
+
+
+def _exact_bits(p_vpn, p_cci, g_th):
+    """fsm_step.cuh's fsm_gate_bits on the plain version's predicted costs."""
+    t1_lo, t1_hi, t2_hi, t2_lo = g_th
+    return np.stack([p_cci < t1_lo * p_vpn, p_cci < t1_hi * p_vpn, p_cci > t2_hi * p_vpn,
+                     p_cci > t2_lo * p_vpn], -1)
+
+
+def _gated_scan_replay(vpn, cci, tog, pred, coef, margin, renew, rng, *, fault=None):
+    """The gated fsm_scan's schedule in numpy, block by block: at step j the
+    sums warp forms tile j's raw masks from its running prefixes, the gate
+    warps (warp g takes half-rows 8g .. 8g + 7, both halves of rows 4g ..
+    4g + 3: lanes over hours,
+    the screen, the exact bits where it is not sure, one ballot a compare)
+    form tile j's gate masks into slot j % 2, the FSM warp combines tile
+    j - 1's raw masks with slot (j - 1) % 2's gate masks and steps, the cost
+    warp adds tile j - 2 in hour order, the copy warps write tile j - 2's x
+    and state; the roles of a step run in a random order, as the warps do
+    between two barriers. ``fault="wrong_slot"`` makes the combine read slot
+    j % 2 (the tile the gate warps form in the same step, or the one before
+    it). Returns x, state (int32) and total_cost."""
+    from repro_torch.fleet.policy import predicted_mode_costs
+
+    N, T = vpn.shape
+    p_vpn, p_cci = (x.numpy() for x in predicted_mode_costs(
+        torch.from_numpy(pred), torch.from_numpy(coef), torch.float64))
+    th1, th2 = tog["theta1"], tog["theta2"]
+    x_out, s_out = np.zeros((N, T), np.int32), np.zeros((N, T), np.int32)
+    total = np.zeros(N)
+    n_tiles = -(-T // F_TILE)
+    garbage = rng.uniform(-5, 5000, F_TILE)          # what an unstaged lane holds
+    for n0 in range(0, N, F_ROWS):
+        R = np.arange(n0, min(N, n0 + F_ROWS))
+        rows = len(R)
+        g_rows = [_gate_row_np(coef[n], th1[n], th2[n], margin[n]) for n in R]
+        g_th = [np.array([th1[n] - margin[n], th1[n] + margin[n], th2[n] + margin[n],
+                          th2[n] - margin[n]]) for n in R]
+        h = tog["h"][R]
+        p = {"D": tog["D"][R], "T": tog["T_cci"][R], "up": np.ones(rows, np.int64),
+             "down": np.ones(rows, np.int64), "renew": renew}
+        c = {k: np.zeros(rows, np.int64) for k in ("state", "t_state", "phase", "up", "down")}
+        pv, pc, lv, lc = (np.zeros(rows) for _ in range(4))
+        raw = [None, None]
+        gate = [np.zeros((4, rows), np.uint64), np.zeros((4, rows), np.uint64)]
+        dec = [None, None]
+        tot = np.zeros(rows)
+
+        def sums(j):
+            nonlocal pv, pc, lv, lc
+            t0, ln = j * F_TILE, min(F_TILE, T - j * F_TILE)
+            req, rel = np.zeros((rows, F_TILE), bool), np.zeros((rows, F_TILE), bool)
+            for i in range(ln):
+                k = t0 + i - h - 1
+                lag_v = np.where(k >= 0, vpn[R, np.maximum(k, 0)], 0.0)
+                lag_c = np.where(k >= 0, cci[R, np.maximum(k, 0)], 0.0)
+                lv, lc = lv + lag_v, lc + lag_c
+                rv, rc = pv - lv, pc - lc
+                req[:, i], rel[:, i] = rc < th1[R] * rv, rc > th2[R] * rv
+                pv, pc = pv + vpn[R, t0 + i], pc + cci[R, t0 + i]
+            raw[j % 2] = (req, rel)
+
+        def gates(j):
+            t0, ln = j * F_TILE, min(F_TILE, T - j * F_TILE)
+            for g in range(F_GATE_WARPS):
+                for v in range(F_UNITS):
+                    u = g * F_UNITS + v          # rows 4g .. 4g + 3, both halves
+                    if u >= 2 * rows:
+                        continue
+                    r, half = u >> 1, u & 1
+                    lanes = 32 * half + np.arange(32)
+                    staged = lanes < ln
+                    x = np.where(staged, pred[R[r], np.minimum(t0 + lanes, T - 1)],
+                                 garbage[lanes])
+                    sure, bits = _gate_screen_np(g_rows[r], x)
+                    sure |= ~staged
+                    bits[~staged] = False
+                    unsure = ~sure
+                    if unsure.any():
+                        cols = np.minimum(t0 + lanes, T - 1)
+                        ex = _exact_bits(p_vpn[R[r], cols], p_cci[R[r], cols], g_th[r])
+                        bits[unsure] = ex[unsure]
+                    for q in range(4):           # one ballot a compare: lane l's bit to l
+                        word = int(np.sum(bits[:, q].astype(np.uint64) << np.arange(32, dtype=np.uint64)))
+                        mask = int(gate[j % 2][q, r])
+                        mask = (mask & ~(0xFFFFFFFF << (32 * half))) | (word << (32 * half))
+                        gate[j % 2][q, r] = np.uint64(mask)
+
+        def fsm(t):
+            ln = min(F_TILE, T - t * F_TILE)
+            req, rel = raw[t % 2]
+            slot = (t + 1) % 2 if fault == "wrong_slot" else t % 2
+            bit = lambda q: ((gate[slot][q][:, None] >> np.arange(F_TILE, dtype=np.uint64))
+                             & np.uint64(1)).astype(bool)
+            req = bit(0) | (req & bit(1))        # the combine: two 64-bit operations
+            rel = bit(2) | (rel & bit(3))
+            s = np.zeros((rows, F_TILE), np.int64)
+            for i in range(ln):
+                s[:, i] = _fsm_step(p, c, req[:, i], rel[:, i])
+            dec[t % 2] = s
+
+        def cost(t):
+            nonlocal tot
+            t0, ln = t * F_TILE, min(F_TILE, T - t * F_TILE)
+            s = dec[t % 2]
+            for i in range(ln):
+                tot = tot + np.where(s[:, i] == ON, cci[R, t0 + i], vpn[R, t0 + i])
+
+        def store(t):
+            t0, ln = t * F_TILE, min(F_TILE, T - t * F_TILE)
+            s = dec[t % 2][:, :ln]
+            x_out[R, t0:t0 + ln] = (s == ON)
+            s_out[R, t0:t0 + ln] = s
+
+        for j in range(n_tiles + 2):
+            roles = []
+            if j < n_tiles:
+                roles += [lambda j=j: sums(j), lambda j=j: gates(j)]
+            if 0 <= j - 1 < n_tiles:
+                roles.append(lambda t=j - 1: fsm(t))
+            if 0 <= j - 2 < n_tiles:
+                # the cost warp and the copy warps read tile j - 2's decisions,
+                # written in step j - 1
+                roles += [lambda t=j - 2: cost(t), lambda t=j - 2: store(t)]
+            for k in rng.permutation(len(roles)):
+                roles[k]()
+        total[R] = tot
+    return x_out, s_out, total
+
+
+def _gated_replay_case(N, T, seed):
+    rng = np.random.default_rng(seed)
+    vpn = rng.uniform(5.0, 50.0, (N, T))
+    cci = vpn * np.repeat(rng.uniform(0.6, 1.4, (N, T // 40 + 1)), 40, axis=1)[:, :T]
+    tog = dict(theta1=rng.uniform(0.85, 0.95, N), theta2=rng.uniform(1.05, 1.2, N),
+               h=1 + (np.arange(N) * (T + 2)) // max(N - 1, 1),
+               D=np.resize([0, 3, 10, 0], N), T_cci=np.resize([1, 5, 24, 1, 12], N))
+    pred = (100.0 * np.repeat(rng.uniform(0.3, 3.0, (N, T // 50 + 1)), 50, axis=1)[:, :T]
+            * rng.uniform(0.9, 1.1, (N, T)))
+    if N > 2:
+        pred[1, T // 5] = -1.0
+        pred[1, T // 4] = -1.5
+        pred[1, T // 3:] = np.nan
+    a_v, b_v, d = rng.uniform(-3.0, -1.0, N), rng.uniform(0.6, 1.0, N), rng.uniform(-0.15, 0.15, N)
+    coef = np.stack([a_v, b_v, a_v + np.log(rng.uniform(0.85, 1.15, N)) - 4.6 * d, b_v + d], 1)
+    coef[3::11, 1::2] = 0.0
+    margin = np.resize([0.0, 0.05, 0.15, 1e30], N).astype(np.float64)
+    if N > 2:      # row 2's ratio crosses its thresholds at lp 2-22, its hours on them
+        d2 = rng.choice([-1.0, 1.0]) * rng.uniform(0.05, 0.3)
+        c0 = np.log(tog["theta1"][2]) - d2 * rng.uniform(8.0, 12.0)
+        coef[2, 2:] = coef[2, 0] + c0, coef[2, 1] + d2
+        t = np.array([tog["theta1"][2] - margin[2], tog["theta1"][2] + margin[2],
+                      tog["theta2"][2] + margin[2], tog["theta2"][2] - margin[2]])
+        lt = np.log(np.maximum(t[rng.integers(0, 4, T)], 1e-300))
+        with np.errstate(over="ignore"):
+            pred[2] = np.expm1((lt - c0) / d2) * (1 + rng.choice([-1, 1], T)
+                                                   * 10.0 ** rng.uniform(-16, -1, T))
+    return vpn, cci, tog, pred, coef, margin
+
+
+def _gated_plain(vpn, cci, tog, pred, coef, margin, renew):
+    t = lambda a, dt=torch.float64: torch.as_tensor(np.asarray(a), dtype=dt)
+    one = torch.ones(len(margin), dtype=torch.int32)
+    return ref.fsm_scan_ref(t(vpn), t(cci), t(tog["theta1"]), t(tog["theta2"]),
+                            *(t(tog[k], torch.int32) for k in ("h", "D", "T_cci")), one, one,
+                            renew_in_chunks=renew,
+                            gate=(t(pred), t(coef), t(margin)))
+
+
+@pytest.mark.parametrize("renew", [False, True], ids=["continuous", "chunks"])
+@pytest.mark.parametrize("shape", [(1, 1), (17, 63), (19, 64), (16, 65), (33, 130)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gated_scan_schedule_bit_equal_to_plain(shape, renew):
+    """The gated fsm_scan's schedule (gate masks by ballot over lanes from
+    the screen or the exact bits, the combine at the FSM warp, tile tails,
+    rows past a block's) replayed in numpy equals ref.fsm_scan_ref's gated
+    form bit for bit: x, state, total_cost."""
+    N, T = shape
+    case = _gated_replay_case(N, T, 7 * N + T)
+    got = _gated_scan_replay(*case, renew, np.random.default_rng(N + T))
+    want = _gated_plain(*case, renew)
+    assert np.array_equal(got[0], want["x"].numpy())
+    assert np.array_equal(got[1], want["state"].numpy())
+    assert _same_bits(torch.from_numpy(got[2]), want["total_cost"])
+
+
+def test_gated_scan_replay_catches_the_wrong_mask_slot():
+    """A combine that reads the other slot of the gate-mask ring (another
+    tile's masks) must differ from the plain version."""
+    case = _gated_replay_case(33, 130, 5)
+    got = _gated_scan_replay(*case, False, np.random.default_rng(0), fault="wrong_slot")
+    want = _gated_plain(*case, False)
+    assert not (np.array_equal(got[0], want["x"].numpy())
+                and np.array_equal(got[1], want["state"].numpy()))
+
+
+def test_gate_screen_replay_sure_bits_are_exact():
+    """The screen (gate_row, gate_screen, emulated in numpy) on predictions
+    near the thresholds: every bit it is sure of equals the exact compare of
+    the plain version's predicted costs, and it leaves the hours closest to a
+    threshold to the exact form."""
+    from repro_torch.fleet.policy import predicted_mode_costs
+
+    rng = np.random.default_rng(11)
+    n_sure = n_left = 0
+    for r in range(40):
+        vpn, cci, tog, pred, coef, margin = _gated_replay_case(3, 320, 100 + r)
+        th = (tog["theta1"][2], tog["theta2"][2], margin[2])
+        g = _gate_row_np(coef[2], *th)
+        pv, pc = (x.numpy() for x in predicted_mode_costs(
+            torch.from_numpy(pred[2:3]), torch.from_numpy(coef[2:3]), torch.float64))
+        exact = _exact_bits(pv[0], pc[0], np.array([th[0] - th[2], th[0] + th[2],
+                                                    th[1] + th[2], th[1] - th[2]]))
+        for k in range(0, 320, 32):
+            sure, bits = _gate_screen_np(g, pred[2, k:k + 32])
+            assert np.array_equal(bits[sure], exact[k:k + 32][sure])
+            n_sure += int(sure.sum())
+            n_left += int((~sure).sum())
+    assert n_sure > 1000 and n_left > 1000

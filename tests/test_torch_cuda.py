@@ -59,7 +59,7 @@ from repro_torch.fleet import policy as tpol
 from repro_torch.fleet.spec import pad_tier_tables
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan
+from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan, gate_masks
 from repro_torch.kernels.leg_segment_sum import leg_segment_sum
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.stream_chunk import (TICK_MAX_K, TICK_MAX_K_LIVE, _stream_chunk_launch,
@@ -1411,19 +1411,34 @@ def _forecaster_inputs(seed, n, T, S, h0, device=CPU):
 
 
 def _gate_inputs(seed, n, T, margin, device=CPU):
-    """FSM inputs plus predicted mode costs that straddle the gates (ratios
-    0.7-1.3), NaN predictions in row 1 from hour T // 3, and per-row margins."""
+    """FSM inputs plus the gate's operands: predictions in 50-hour regimes
+    and cost coefficients whose predicted cost ratio runs about 0.7-1.4, so
+    that it straddles the gates (rows 3, 14, ... with slopes of 0), row 1's
+    predictions -1 at hour T // 5, below -1 at T // 4 and NaN from T // 3,
+    and per-row margins: ``gate = (pred, coef, margin)``."""
     vpn, cci, tog = _fsm_inputs(seed, n, T)
     rng = np.random.default_rng(seed + 1)
-    p_vpn = vpn * rng.uniform(0.8, 1.2, (n, T))
-    p_cci = p_vpn * np.repeat(rng.uniform(0.7, 1.3, (n, T // 50 + 1)), 50, axis=1)[:, :T]
+    pred = (100.0 * np.repeat(rng.uniform(0.3, 3.0, (n, T // 50 + 1)), 50, axis=1)[:, :T]
+            * rng.uniform(0.9, 1.1, (n, T)))
     if n > 1:
-        p_vpn[1, T // 3:] = np.nan
-        p_cci[1, T // 3:] = np.nan
+        pred[1, T // 5] = -1.0
+        pred[1, T // 4] = -1.5
+        pred[1, T // 3:] = np.nan
+    a_v, b_v, d = rng.uniform(-3.0, -1.0, n), rng.uniform(0.6, 1.0, n), rng.uniform(-0.15, 0.15, n)
+    coef = np.stack([a_v, b_v, a_v + np.log(rng.uniform(0.85, 1.15, n)) - 4.6 * d, b_v + d], 1)
+    coef[3::11, 1::2] = 0.0
     m = np.full(n, margin) if margin != "mixed" else np.resize([0.0, 0.05, 0.15, 1e30], n)
     tp = ToggleParams(**{k: _t(v, device) for k, v in tog.items()})
-    gate = tuple(_t(a, device) for a in (p_vpn, p_cci, np.asarray(m, np.float64)))
+    gate = tuple(_t(a, device) for a in (pred, coef, np.asarray(m, np.float64)))
     return _t(vpn, device), _t(cci, device), tp, gate
+
+
+def _card_planes(gate):
+    """The predicted mode costs torch's ops form from a gate (pred, coef,
+    margin) on its device, brought to the CPU with the margins: the plain
+    gating the card's kernel is held to bit for bit."""
+    pred, coef, m = gate
+    return tuple(x.cpu() for x in tpol.predicted_mode_costs(pred, coef, torch.float64) + (m,))
 
 
 def test_forecast_kernel_wrappers_refuse_cpu_tensors_and_bad_operands():
@@ -1447,8 +1462,12 @@ def test_forecast_kernel_wrappers_refuse_cpu_tensors_and_bad_operands():
     one = torch.ones(3, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         fsm_scan(vpn, cci, *tp, one, one, gate=gate)
-    with pytest.raises(ValueError, match="p_vpn"):
+    with pytest.raises(ValueError, match="pred"):
         fsm_scan(vpn, cci, *tp, one, one, gate=(gate[0][:, :7], gate[1], gate[2]))
+    with pytest.raises(ValueError, match="coef"):
+        fsm_scan(vpn, cci, *tp, one, one, gate=(gate[0], gate[1][:, :3], gate[2]))
+    with pytest.raises(ValueError, match="coef"):
+        fsm_scan(vpn, cci, *tp, one, one, gate=(gate[0], gate[1].float(), gate[2]))
 
 
 @pytest.mark.cuda
@@ -1509,20 +1528,23 @@ def test_forecaster_entry_points_on_the_card_match_the_cpu(cuda_device):
 @pytest.mark.parametrize("renew", [False, True], ids=["continuous", "chunks"])
 @pytest.mark.parametrize("margin", [0.0, 0.05, 1e30, "mixed"])
 def test_gated_fsm_kernel_bit_equal_to_cpu_plain(cuda_device, margin, renew):
-    """The gated instance: x, state and total_cost every bit equal to the
-    plain version on the CPU, NaN predictions in row 1, counted in
-    fsm_scan_gated; at margin 1e30 it decides as the reactive instance on
-    every row whose predictions are finite (row 1's NaN gates neither fire
-    nor pass a realized trigger)."""
+    """The gated instance on the prediction and the cost coefficients: x,
+    state and total_cost every bit equal to the plain gating on the CPU of
+    the predicted costs torch's ops form on the card (row 1's predictions
+    -1, below -1 and NaN), counted in fsm_scan_gated; at margin 1e30 it
+    decides as the reactive instance on every row but row 1 (whose costs of
+    0 and NaN veto every realized trigger)."""
     vpn, cci, tp, gate = _gate_inputs(21, 40, 2000, margin)
     one = torch.ones(40, dtype=torch.int32)
     dev = lambda a: a.to(cuda_device)
+    dgate = tuple(dev(g) for g in gate)
     before = dict(ops.LAUNCHES)
     got = ops.fsm_scan(dev(vpn), dev(cci), *tp.to(cuda_device), dev(one), dev(one),
-                       renew_in_chunks=renew, gate=tuple(dev(g) for g in gate))
+                       renew_in_chunks=renew, gate=dgate)
     assert ops.LAUNCHES["fsm_scan_gated"] == before["fsm_scan_gated"] + 1
     assert ops.LAUNCHES["fsm_scan"] == before["fsm_scan"]
-    want = ref.fsm_scan_ref(vpn, cci, *tp, one, one, renew_in_chunks=renew, gate=gate)
+    want = ref.fsm_scan_planes_ref(vpn, cci, *tp, one, one, renew_in_chunks=renew,
+                                   planes=_card_planes(dgate))
     assert 0 < int(want["x"].sum()) < want["x"].numel()
     for k in ("x", "state", "total_cost"):
         assert torch.equal(got[k].cpu(), want[k]), k
@@ -1539,26 +1561,77 @@ def test_gated_fsm_kernel_bit_equal_to_cpu_plain(cuda_device, margin, renew):
 @pytest.mark.parametrize("shape", FSM_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_gated_fsm_kernel_edge_shapes_bit_equal_to_cpu_plain(cuda_device, shape):
     """Ragged N and T, windows from 1 hour to past T, misaligned planes, the
-    gate's planes misaligned too: every output bit equal to the CPU plain
-    version."""
+    prediction misaligned too: every output bit equal to the plain gating on
+    the CPU of the card's predicted costs."""
     n, T = shape
     args = _fsm_edge_args(n, T, cuda_device, 1)
     _, _, _, gate = _gate_inputs(n + T, n, T, "mixed")
-
-    def plane(a):
-        buf = torch.zeros(n * T + 1, dtype=torch.float64, device=cuda_device)
-        view = buf[1:].view(n, T)
-        view.copy_(a)
-        return view
-
-    dgate = (plane(gate[0]), plane(gate[1]), gate[2].to(cuda_device))
+    buf = torch.zeros(n * T + 1, dtype=torch.float64, device=cuda_device)
+    pred = buf[1:].view(n, T)
+    pred.copy_(gate[0])
+    dgate = (pred, gate[1].to(cuda_device), gate[2].to(cuda_device))
     assert dgate[0].data_ptr() % 16 == 8
+    planes = _card_planes(dgate)
     for renew in (False, True):
         got = ops.fsm_scan(*args, renew_in_chunks=renew, gate=dgate)
-        want = ref.fsm_scan_ref(*(a.cpu() for a in args), renew_in_chunks=renew,
-                                gate=tuple(g.cpu() for g in dgate))
+        want = ref.fsm_scan_planes_ref(*(a.cpu() for a in args), renew_in_chunks=renew,
+                                       planes=planes)
         for k in ("x", "state", "total_cost"):
             assert torch.equal(got[k].cpu(), want[k]), (k, renew)
+
+
+def _gate_stress(seed, n, T, device=CPU):
+    """Gate operands whose predictions sit near the thresholds: each row's
+    cost ratio crosses its four thresholds at lp = 2 to 22 and each hour
+    takes one crossing, moved by a factor 1 +- 10^u, u in [-16, -3]; rows 3,
+    14, ... have a margin of 1e30. Returns (pred, coef, margin, theta1,
+    theta2)."""
+    rng = np.random.default_rng(seed)
+    a_v, b_v = rng.uniform(-3.0, -1.0, n), rng.uniform(0.6, 1.0, n)
+    d = rng.choice([-1.0, 1.0], n) * rng.uniform(0.05, 0.3, n)
+    th1, th2 = rng.uniform(0.85, 0.95, n), rng.uniform(1.05, 1.2, n)
+    m = rng.choice([0.0, 0.05, 0.15], n)
+    m[3::11] = 1e30
+    c0 = np.log(th1) - d * rng.uniform(8.0, 12.0, n)
+    t = np.stack([th1 - m, th1 + m, th2 + m, th2 - m], 1)
+    lt = np.log(np.maximum(np.take_along_axis(t, rng.integers(0, 4, (n, T)), 1), 1e-300))
+    with np.errstate(over="ignore"):
+        pred = np.expm1((lt - c0[:, None]) / d[:, None]) * (
+            1 + rng.choice([-1.0, 1.0], (n, T)) * 10.0 ** rng.uniform(-16, -3, (n, T)))
+    pred[3::11] = rng.uniform(0, 500, (len(pred[3::11]), T))
+    return tuple(_t(a, device) for a in (pred, np.stack([a_v, b_v, a_v + c0, b_v + d], 1), m,
+                                          th1, th2))
+
+
+def test_gate_masks_wrapper_refuses_cpu_tensors_and_bad_operands():
+    """The gate stage's check launch takes CUDA tensors or raises before
+    anything is built; a coefficient table of another shape names coef."""
+    args = _gate_stress(0, 3, 40)
+    with pytest.raises(ValueError, match="CUDA"):
+        gate_masks(*args)
+    with pytest.raises(ValueError, match="coef"):
+        gate_masks(args[0], args[1][:, :3], *args[2:])
+    with pytest.raises(ValueError, match="pred"):
+        gate_masks(args[0].float(), *args[1:])
+    assert ref.gate_masks_ref(*tpol.predicted_mode_costs(args[0], args[1], torch.float64),
+                              *args[2:]).shape == (3, 1, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("screen", [True, False], ids=["screen", "exact"])
+@pytest.mark.parametrize("shape", [(1, 1), (17, 63), (33, 700), (300, 129), (2048, 200)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_gate_masks_near_thresholds_equal_the_card_costs_bits(cuda_device, shape, screen):
+    """The gated fsm_scan's gate stage (``gate_masks``) on predictions that
+    sit near the thresholds: every mask bit equals the compares of the
+    predicted costs torch's ops form on the card (``ref.gate_masks_ref``),
+    with the float32 screen deciding what it can and without it."""
+    n, T = shape
+    args = _gate_stress(n * 7 + T, n, T, cuda_device)
+    planes = tpol.predicted_mode_costs(args[0], args[1], torch.float64)
+    want = ref.gate_masks_ref(*(x.cpu() for x in planes + args[2:]))
+    got = gate_masks(*args, screen=screen)
+    assert got.shape == want.shape and torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

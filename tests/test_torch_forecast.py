@@ -453,6 +453,103 @@ def test_forecast_nan_predictions_match_jax():
     assert (st[[0, 5], 300:] == st[[0, 5], 300:301]).all()    # no transition starts
 
 
+# -- the gated scan's operands: the prediction and the cost coefficients ---------
+#
+# policy_scan hands the dispatcher the predicted demand, the cost coefficients
+# and the margins (the card's kernel forms the predicted mode costs itself);
+# held against JAX's policy_scan on rows that are not a multiple of the
+# kernel's 16, at tile edges (T of 1, 63, 64, 65), with predictions that are
+# NaN, -1 (log1p gives -inf) and below -1 (NaN).
+
+GATE_N = 19
+GATE_MARGINS = {"0": 0.0, "0.05": 0.05, "1e30": 1e30,
+                "mixed": np.resize([0.0, 0.05, 0.15, 1e30], GATE_N)}
+_JRUN = jax.jit(jeng._run_policies)
+
+
+@functools.lru_cache(maxsize=None)
+def _gate_case(T: int):
+    """Demand in 8-hour regimes and its hourly costs (a VPN bill concave in
+    demand, a CCI bill affine in it, so the cost ratio crosses the
+    thresholds), toggle parameters (windows from 1 hour to past T),
+    predictions near the demand with row 2 NaN from T // 3, an hour of -1 in
+    row 4 and one below -1 in row 5, and the cost coefficients fitted on the
+    realized series; all numpy."""
+    rng = np.random.default_rng(T)
+    d = np.repeat(rng.uniform(0, 400, (GATE_N, T // 8 + 1)), 8, axis=1)[:, :T]
+    d = d * rng.uniform(0.9, 1.1, (GATE_N, T))
+    vpn = 0.4 + 0.08 * d ** 0.9 * rng.uniform(0.95, 1.05, (GATE_N, T))
+    cci = 1.2 + 0.02 * d
+    tog = dict(theta1=rng.uniform(0.85, 0.95, GATE_N), theta2=rng.uniform(1.05, 1.2, GATE_N),
+               h=1 + (np.arange(GATE_N) * (T + 2)) // (GATE_N - 1),
+               D=np.resize([0, 3, 10, 1], GATE_N), T_cci=np.resize([1, 5, 24, 12, 2], GATE_N))
+    pred = d * rng.uniform(0.5, 1.5, (GATE_N, T))
+    pred[2, T // 3:] = np.nan
+    pred[4, T // 2] = -1.0
+    pred[5, T // 2] = -1.5
+    coef = tpol.fit_cost_coef(*(torch.from_numpy(a) for a in (d, vpn, cci))).numpy()
+    return d, vpn, cci, tog, pred, coef
+
+
+def _gate_policies(T, margin, coef, renew):
+    """The port's and JAX's forecast-gated policies of :func:`_gate_case`."""
+    d, vpn, cci, tog, pred, c = _gate_case(T)
+    c = c if coef else None
+    ttog = ToggleParams(*(torch.tensor(tog[k], dtype=torch.float64 if k.startswith("theta")
+                                       else torch.int32)
+                          for k in ("theta1", "theta2", "h", "D", "T_cci")))
+    tp = tpol.forecast_gated_policy(ttog, pred, margin=GATE_MARGINS[margin], cost_coef=c,
+                                    renew_in_chunks=renew)
+    with enable_x64():
+        jtog = JToggle(*(jnp.asarray(tog[k], jnp.float64 if k.startswith("theta") else jnp.int32)
+                         for k in ("theta1", "theta2", "h", "D", "T_cci")))
+        jp = jpol.forecast_gated_policy(jtog, pred, margin=GATE_MARGINS[margin], cost_coef=c,
+                                        renew_in_chunks=renew)
+    return tp, jp
+
+
+@pytest.mark.parametrize("renew", [False, True], ids=["continuous", "chunks"])
+@pytest.mark.parametrize("coef", [True, False], ids=["given", "fitted"])
+@pytest.mark.parametrize("T", [1, 63, 64, 65])
+def test_gated_policy_scan_pred_and_coef_match_jax(T, coef, renew):
+    """The port's policy_scan (its gate the prediction, the coefficients,
+    given or fitted on ``demand``, and the margins) against JAX's
+    policy_scan under vmap, at margins 0, 0.05, 1e30 and mixed by row:
+    decisions equal, costs rtol 1e-9."""
+    d, vpn, cci = _gate_case(T)[:3]
+    for margin in GATE_MARGINS:
+        tp, jp = _gate_policies(T, margin, coef, renew)
+        got = tpol.policy_scan(tp, *(torch.from_numpy(a) for a in (vpn, cci)),
+                               demand=torch.from_numpy(d))
+        with enable_x64():
+            want = _JRUN(jp, *(jnp.asarray(a) for a in (d, vpn, cci)))
+        for k in ("x", "state"):
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                          err_msg=f"{k}, margin {margin}")
+        np.testing.assert_allclose(got["total_cost"].numpy(), np.asarray(want["total_cost"]),
+                                   rtol=COST_RTOL, err_msg=f"margin {margin}")
+
+
+@pytest.mark.parametrize("renew", [False, True], ids=["continuous", "chunks"])
+@pytest.mark.parametrize("T", [1, 63, 64, 65])
+def test_gated_plain_form_equals_the_planes_path(T, renew):
+    """The plain version's gate form (prediction, coefficients, margins)
+    against the path it replaced (the policy's predicted-cost planes from
+    ``features``, then the gating on them), every output bit, fitted and
+    given coefficients, each margin."""
+    d, vpn, cci = (torch.from_numpy(a) for a in _gate_case(T)[:3])
+    for coef in (True, False):
+        for margin in GATE_MARGINS:
+            tp, _ = _gate_policies(T, margin, coef, renew)
+            got = tpol.policy_scan(tp, vpn, cci, demand=d)
+            one = torch.ones(GATE_N, dtype=torch.int32)
+            want = ref.fsm_scan_planes_ref(vpn, cci, *tp.toggle, one, one, renew_in_chunks=renew,
+                                           planes=tp.features(d, vpn, cci) + (tp.margin,))
+            for k in ("x", "state", "total_cost"):
+                assert torch.equal(got[k], want[k]), (k, coef, margin)
+    assert int(got["x"].sum()) > 0
+
+
 # -- per-port policies: plan_topology and its replay ----------------------------
 
 @functools.lru_cache(maxsize=None)
