@@ -276,7 +276,31 @@ without printing a result):
     and reactive instances at K = 24 and 1 in turns (the call's span),
     each beside its bound and latency floor, and the live years' chunk
     p50/p99 beside the replay years', with the device breakdowns;
-16. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+16. observability on the streaming runtime (:func:`obs_phase`; no new
+    kernel: the metrics ring is host work on the planes each chunk brings
+    home): with every launch count at 0, the 2048-link year streams with
+    ``FleetRuntime(obs=ObsConfig(cadence=72))`` in K = 24 chunks, in turns with
+    the same stream without observability; it fails unless the two launched
+    exactly 2 x 365 ``stream_chunk`` and nothing else, unless every output, the
+    host carries and the FSM carry are bit-equal, and unless the drained lease
+    counts are the state matrix's; it prints both streams' chunk p50/p99 and
+    their ratio, the host microseconds a chunk of the ring update and of the
+    observer's per-hour fan-out apart, and the report's first lines; the same
+    year with ``divergence=True`` and ``max_oracle_ratio=inf`` must pass
+    ``obs_check(final=True)`` (the replay on the card: one ``plan_fleet``; the
+    regret oracle: one ``oracle_dp`` call), its realized / oracle ratio
+    printed beside ``build_report``'s toggle / OPT; the 2048-pair topology year
+    with a ``reroute()`` of 64 pairs at hour 4368 (365 ``stream_chunk_routed``)
+    must pass the divergence check across the swap and trace the reroute; the
+    live forecast year of phase 15 (365 live ``stream_chunk``) must equal that
+    phase's year in every output, disable divergence with the reference's
+    reason and report a calibration bias; 800 ticks at the default cadence
+    (800 ``stream_chunk``) must decide as the chunked year; at 256 x 720, fleet
+    and topology, the card's drained windows, monitor summaries and trace
+    must equal the CPU's and the card's per-tick stream's bit for bit; and a
+    decision flipped in the divergence monitor's record must raise
+    ``ContractViolation``, the one exception the phase catches;
+17. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -4261,7 +4285,7 @@ def routed_port_demand(topo, demand, schedule, device):
                       for (a, b), (_, r) in zip(zip(starts, starts[1:]), schedule)], dim=1)
 
 
-def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
+def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> tuple:
     """The forecast-gated policy streamed in live mode on the card (the live
     instances of ``stream_chunk`` and ``stream_chunk_routed``): the live
     kernels' transcendentals against torch's; the forecast phase's 2048-link
@@ -4274,7 +4298,8 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
     forecaster and a reroute, against the card's forecaster over the
     realised port demand and replay_plan_topology; both live kernels against
     their plain versions; registers and spills; timings beside the replay
-    instances. Returns the two live kernels' rows."""
+    instances. Returns the two live kernels' rows, and the live policy,
+    forecaster and year (its outputs) for the observability phase."""
     from repro_torch.fleet import (FleetRuntime, StreamingForecaster, build_topology_scenario,
                                    fit_cost_coef, forecast_gated_policy, optimize_routing,
                                    plan_fleet, replay_plan_topology, streaming_forecast_policy)
@@ -4607,6 +4632,8 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
                     unit="live topology chunk")
     print(f"forecast live phase: {time.perf_counter() - t_phase:.1f} s")
     t24 = times[STREAM_K]
+    live_ctx = {"scenario": sc, "policy": pol, "forecaster": fc,
+                "year": {k: year[k] for k in ("x", "state", "cost", "pred_next")}}
     return {
         "stream_chunk_live": {
             "launches": fleet_launches, "max_abs_err": live_err, "ms": t24["ms"],
@@ -4616,7 +4643,294 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> dict:
             "launches": topo_launches["stream_chunk_routed_live"], "max_abs_err": routed_err,
             "ms": t_ms, "plain_ms": t_plain, "bound_ms": tb["bound_ms"],
             "bound_by": tb["bound_by"], "library_ms": None},
-    }
+    }, live_ctx
+
+
+OBS_CADENCE = 3 * STREAM_K   # benchmarks/bench_runtime.py:171's drain cadence, 3 x chunk_k
+OBS_SMALL = (256, 720)       # links (pairs) x hours of the card-vs-CPU drains
+OBS_FAULT_HOUR = 40          # the hour whose recorded decisions the injected fault flips
+OBS_TICK_K = 16              # chunks held against the observed ticks (divides cadence 64)
+
+
+def timed_method(obj, name: str, clock: dict, key: str) -> None:
+    """Replace ``obj.name`` by a wrapper adding its host seconds to ``clock[key]``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kw):
+        a = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            clock[key] += time.perf_counter() - a
+
+    setattr(obj, name, wrapper)
+
+
+def obs_dump(rt) -> str:
+    """A runtime's drained windows, monitor summaries and trace events as
+    JSON text (every float's shortest round-trip repr): equal text, equal bits."""
+    return json.dumps([[d.to_json() for d in rt.obs.drained], rt.obs.monitor_summaries(),
+                       rt.obs.trace.events])
+
+
+def lease_edges(state: np.ndarray) -> tuple:
+    """Requests, activations and releases in a (rows, T) state matrix that
+    starts from OFF."""
+    st = np.concatenate([np.zeros((state.shape[0], 1), state.dtype), state], axis=1)
+    prev, cur = st[:, :-1], st[:, 1:]
+    return (int(((prev == 0) & (cur != 0)).sum()), int(((prev != 2) & (cur == 2)).sum()),
+            int(((prev == 2) & (cur == 0)).sum()))
+
+
+def obs_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict, live_ctx: dict) -> None:
+    """Observability on the streaming runtime (``FleetRuntime(obs=...)``):
+    the 2048-link year with the ring, trace, monitors and profiler on, in
+    turns with the stream without them, launches counted; the same year with
+    the divergence replay and the regret oracle checked on the card; the
+    rerouted 2048-pair topology year; the live forecast year; 800 ticks; the
+    card's drains against the CPU's; one injected fault. Adds no kernel."""
+    from repro_torch.fleet import (FleetRuntime, build_fleet_scenario, build_report,
+                                   build_topology_scenario, optimize_routing)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import ContractViolation, ObsConfig
+
+    t_phase = time.perf_counter()
+    sc = fleet_scen
+    N, T = sc.demand.shape
+    K = STREAM_K
+    fields = ("x", "state", "r_vpn", "r_cci", "vpn_cost", "cci_cost", "cost")
+    active = lambda: {k: v for k, v in ops.LAUNCHES.items() if v}
+
+    # -- the main path: the year with observability on, in turns with it off ----
+    ops.reset_launches()
+    rt_off = FleetRuntime(sc.fleet)
+    rt_on = FleetRuntime(sc.fleet, obs=ObsConfig(cadence=OBS_CADENCE))
+    check(rt_on.device.type == DEVICE.type and rt_on.obs is not None,
+          "FleetRuntime(obs=) did not stream on the card with an observer")
+    host = {"operands": 0.0, "observe": 0.0, "fanout": 0.0, "drain": 0.0}
+    timed_method(rt_on, "_ring_operands", host, "operands")
+    timed_method(rt_on, "_observe", host, "observe")
+    timed_method(rt_on.obs, "record_chunk", host, "fanout")
+    timed_method(rt_on.obs, "record_drain", host, "drain")
+    clocks = {rt_off: [], rt_on: []}
+    off_out = {k: [] for k in ("x", "state")}
+    for i, t in enumerate(range(0, T, K)):
+        outs = {}
+        for rt in ((rt_off, rt_on) if i % 2 == 0 else (rt_on, rt_off)):   # in turns
+            a = time.perf_counter()
+            outs[rt] = rt.step_many(sc.demand[:, t:t + K])
+            clocks[rt].append(time.perf_counter() - a)
+        for k in fields:
+            check(np.array_equal(outs[rt_on][k], outs[rt_off][k]),
+                  f"obs on != obs off in {k} at hours {t}..{t + K - 1}")
+        for k in off_out:
+            off_out[k].append(outs[rt_off][k])
+    torch.cuda.synchronize()
+    launches = active()
+    check(launches == {"stream_chunk": 2 * (T // K)},
+          f"the year with and without observability launched {launches}, not "
+          f"{2 * (T // K)} stream_chunk")
+    off_out = {k: np.concatenate(v, 1) for k, v in off_out.items()}
+    for k in ("dcum", "dcum_month", "vpn_pref", "cci_pref"):
+        check(np.array_equal(getattr(rt_on._state, k), getattr(rt_off._state, k)),
+              f"obs on != obs off in the carried {k}")
+    check(torch.equal(rt_on._state.fsm, rt_off._state.fsm), "obs on != obs off in the FSM carry")
+    rep = rt_on.obs_report()
+    want_drains = -(-T // OBS_CADENCE)
+    check(rep.drains == want_drains and rep.hours == T and rep.violations == [],
+          f"obs report: {rep.drains} drains (want {want_drains}), {rep.hours} h, "
+          f"violations {rep.violations}")
+    check((rep.requests, rep.activations, rep.releases) == lease_edges(off_out["state"]),
+          "the drained lease counts != the counts in the year's state matrix")
+    on_ms, off_ms = np.array(clocks[rt_on]) * 1e3, np.array(clocks[rt_off]) * 1e3
+    n = len(on_ms)
+    ring_us = (host["operands"] + host["observe"] - host["fanout"] - host["drain"]) / n * 1e6
+    print(f"observed fleet stream {N} x {T} (K = {K}, cadence {OBS_CADENCE}) on the card, in "
+          f"turns with the stream without observability: launches {launches}; every output, "
+          f"the host carries and the FSM carry bit-equal to obs off; {rep.drains} drains; lease "
+          f"counts == the state matrix's")
+    print(f"  chunk p50 {np.percentile(on_ms, 50):.3f} ms obs on vs {np.percentile(off_ms, 50):.3f} "
+          f"ms off (ratio {np.percentile(on_ms, 50) / np.percentile(off_ms, 50):.3f}); p99 "
+          f"{np.percentile(on_ms, 99):.3f} vs {np.percentile(off_ms, 99):.3f} ms (ratio "
+          f"{np.percentile(on_ms, 99) / np.percentile(off_ms, 99):.3f}); mean {on_ms.mean():.3f} "
+          f"vs {off_ms.mean():.3f} ms; on {card}")
+    print(f"  host us a chunk: ring {ring_us:.1f} (its operands {host['operands'] / n * 1e6:.1f}: "
+          f"clip, month volume, while the kernel runs), observer's per-hour fan-out "
+          f"{host['fanout'] / n * 1e6:.1f}, drain {host['drain'] / n * 1e6:.1f} "
+          f"({host['drain'] / max(rep.drains - 1, 1) * 1e6:.1f} a drain)")
+    for line in rep.render_text().splitlines():
+        print(f"  | {line}")
+
+    # -- the same year checked: the divergence replay and the regret oracle -------
+    ops.reset_launches()
+    rt_chk = FleetRuntime(sc.fleet, obs=ObsConfig(cadence=OBS_CADENCE, divergence=True,
+                                                  max_oracle_ratio=float("inf")))
+    chk = stream(rt_chk, sc.demand, K)
+    torch.cuda.synchronize()
+    check(active() == {"stream_chunk": T // K}, f"the checked year launched {active()}")
+    for k in ("x", "state"):
+        check(np.array_equal(chk[k], off_out[k]), f"the checked year != obs off in {k}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rt_chk.obs_check(final=True)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    chk_launches = active()
+    check(chk_launches.get("fsm_scan") == 1 and chk_launches.get("tiered_cost_batched", 0) >= 1
+          and chk_launches.get("oracle_dp") in (1, 2) and "stream_chunk" not in chk_launches,
+          f"obs_check launched {chk_launches}: want the replay's plan_fleet and one oracle_dp call")
+    div = rt_chk.obs.divergence.summary()
+    check(div["checks"] == 1 and div["recorded_hours"] == T, f"divergence monitor: {div}")
+    ratio = rt_chk.obs.regret.oracle_ratio
+    t0 = time.perf_counter()
+    report = build_report(sc, fleet_plan, include_oracle=True)
+    tot = report.totals
+    opt_ratio = tot["togglecci"] / tot["oracle"]
+    check(abs(ratio / opt_ratio - 1.0) < 1e-9, f"the regret oracle's ratio {ratio} != the "
+          f"report's OPT ratio {opt_ratio}")
+    print(f"checked year: obs_check(final=True) passed in {check_s:.2f} s, launches "
+          f"{chk_launches} (the divergence replay: plan_fleet of the {T} recorded hours on the "
+          f"card, decisions equal; the regret oracle: one oracle_dp call); realized / oracle "
+          f"{ratio:.9f} beside build_report's toggle / OPT {opt_ratio:.9f} "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+    # -- topology: the 2048-pair year with a reroute of 64 pairs -------------------
+    tsc, r0 = topo_ctx["scenario"], topo_ctx["routing"]
+    P, M = tsc.n_pairs, tsc.n_ports
+    r1 = moved_routing(tsc.topo, r0, 64)
+    ops.reset_launches()
+    trt = FleetRuntime(tsc.topo, routing=r0,
+                       obs=ObsConfig(cadence=OBS_CADENCE, divergence=True))
+    tclock = []
+    for t in range(0, T, K):
+        if t == FS_SWAP:
+            trt.reroute(r1)
+        a = time.perf_counter()
+        trt.step_many(tsc.demand[:, t:t + K])
+        tclock.append(time.perf_counter() - a)
+    torch.cuda.synchronize()
+    check(active() == {"stream_chunk_routed": T // K}, f"the topology year launched {active()}")
+    ops.reset_launches()
+    trt.obs_check(final=True)
+    torch.cuda.synchronize()
+    tchk = active()
+    check(tchk.get("fsm_scan") == 1 and tchk.get("leg_segment_sum", 0) >= 1,
+          f"the topology obs_check launched {tchk}: want replay_plan_topology's kernels")
+    tdiv = trt.obs.divergence.summary()
+    check(tdiv["checks"] == 1 and tdiv["routing_segments"] == 2, f"divergence: {tdiv}")
+    moves = [e for e in trt.obs.trace.events if e["type"] == "reroute"]
+    check(len(moves) == 1 and moves[0]["hour"] == FS_SWAP and moves[0]["moved_pairs"] > 0,
+          f"the trace's reroute instants: {moves}")
+    trep = trt.obs_report()
+    tms = np.array(tclock) * 1e3
+    print(f"observed topology stream {P} pairs x {T} h on {M} ports, reroute at hour {FS_SWAP} "
+          f"({moves[0]['moved_pairs']} pairs moved, traced): {T // K} stream_chunk_routed; "
+          f"obs_check passed across the swap (replay_plan_topology of the 2-segment schedule "
+          f"on the card, launches {tchk}); {trep.drains} drains, {trep.trace_events} trace "
+          f"events; chunk p50 {np.percentile(tms, 50):.3f} ms, p99 {np.percentile(tms, 99):.3f}")
+
+    # -- the live forecast year ------------------------------------------------------
+    lsc, year = live_ctx["scenario"], live_ctx["year"]
+    ops.reset_launches()
+    lrt = FleetRuntime(lsc.fleet, policy=live_ctx["policy"], forecaster=live_ctx["forecaster"],
+                       obs=ObsConfig(cadence=OBS_CADENCE, divergence=True))
+    lclock = []
+    lout = stream(lrt, lsc.demand, K, lclock)
+    torch.cuda.synchronize()
+    check(active() == {"stream_chunk_live": T // K}, f"the live year launched {active()}")
+    for k, want in year.items():
+        check(np.array_equal(lout[k], want), f"the observed live year != obs off in {k}")
+    lrt.obs_check(final=True)
+    ldiv, lcal = lrt.obs.divergence.summary(), lrt.obs.calibration.summary()
+    check(not ldiv["enabled"] and ldiv["reason"] == ("live forecaster carries SSM state the "
+                                                    "offline engines lack"),
+          f"live mode: divergence {ldiv}")
+    check(lcal["enabled"] and np.isfinite(lcal["bias"]) and lcal["bias"] > 0,
+          f"live mode: calibration {lcal}")
+    lms = np.array(lclock) * 1e3
+    print(f"observed live forecast year {N} x {T}: {T // K} stream_chunk_live; every output "
+          f"and forecast == the year without observability; divergence off ({ldiv['reason']}); "
+          f"calibration bias {lcal['bias']:.4f}, MAE {lcal['mae_gb_per_h']:.3f} GB/h a row; "
+          f"chunk p50 {np.percentile(lms, 50):.3f} ms, p99 {np.percentile(lms, 99):.3f}")
+
+    # -- per tick, the default cadence -----------------------------------------------
+    ops.reset_launches()
+    prt = FleetRuntime(sc.fleet, obs=True)
+    tick_us = []
+    ticks = []
+    for t in range(STREAM_TICKS):
+        a = time.perf_counter()
+        ticks.append(prt.step(sc.demand[:, t]))
+        tick_us.append((time.perf_counter() - a) * 1e6)
+    torch.cuda.synchronize()
+    check(active() == {"stream_chunk": STREAM_TICKS}, f"{STREAM_TICKS} observed ticks launched "
+          f"{active()}")
+    for k in ("x", "state"):
+        check(np.array_equal(np.stack([o[k] for o in ticks], 1), off_out[k][:, :STREAM_TICKS]),
+              f"observed ticks != the chunked year in {k}")
+    prep = prt.obs_report()
+    check(prep.drains == -(-STREAM_TICKS // prt.obs.cadence)
+          and (prep.requests, prep.activations, prep.releases)
+          == lease_edges(off_out["state"][:, :STREAM_TICKS]),
+          f"per-tick report: {prep.drains} drains, lease counts "
+          f"{(prep.requests, prep.activations, prep.releases)}")
+    # The same hours in chunks of 16 (dividing the cadence): the same drains,
+    # bit for bit, at full width on this host's numpy.
+    crt = FleetRuntime(sc.fleet, obs=True)
+    stream(crt, sc.demand[:, :STREAM_TICKS], OBS_TICK_K)
+    crt.obs_report()
+    check(obs_dump(crt) == obs_dump(prt), f"{N} x {STREAM_TICKS}: chunks of {OBS_TICK_K} drain "
+          f"otherwise than ticks")
+    tk = np.array(tick_us)
+    print(f"observed ticks {N} x {STREAM_TICKS} (cadence {prt.obs.cadence}): {STREAM_TICKS} "
+          f"stream_chunk; decisions == the chunked year; {prep.drains} drains, lease counts == "
+          f"the state matrix's; every drain, monitor summary and trace event == the same hours "
+          f"in chunks of {OBS_TICK_K}; tick p50 {np.percentile(tk, 50):.1f} us, p99 "
+          f"{np.percentile(tk, 99):.1f} us")
+
+    # -- the card's drains against the CPU's, chunked against per tick ---------------
+    t0 = time.perf_counter()
+    n_small, T_small = OBS_SMALL
+    fsmall = build_fleet_scenario(n_small, horizon=T_small, seed=SEED)
+    tsmall = build_topology_scenario(n_small, **TOPO_KW, horizon=T_small, seed=SEED)
+    rs = optimize_routing(tsmall.topo, tsmall.demand)
+    cfg = ObsConfig(cadence=OBS_CADENCE, divergence=True, max_oracle_ratio=float("inf"))
+    card_rts = {}
+    for name, spec, kw, d in (("fleet", fsmall.fleet, {}, fsmall.demand),
+                              ("topology", tsmall.topo, {"routing": rs}, tsmall.demand)):
+        dumps = {}
+        for run, dev in (("card", DEVICE), ("cpu", torch.device("cpu")), ("card ticks", DEVICE)):
+            rt = FleetRuntime(spec, obs=cfg, device=dev, **kw)
+            if run == "card ticks":
+                for t in range(T_small):
+                    rt.step(d[:, t])
+            else:
+                stream(rt, d, K)
+            rt.obs_check(final=True)
+            dumps[run] = obs_dump(rt)
+            card_rts.setdefault(name, rt)
+        check(dumps["card"] == dumps["cpu"], f"{name} {n_small} x {T_small}: the card's drains, "
+              f"monitor summaries or trace != the CPU's")
+        check(dumps["card"] == dumps["card ticks"], f"{name} {n_small} x {T_small}: chunked "
+              f"drains != per-tick drains on the card")
+    print(f"card == CPU at {n_small} x {T_small} (K = {K}, cadence {OBS_CADENCE}), fleet and "
+          f"topology: every drained window, monitor summary and trace event, bit for bit; and == "
+          f"the card's per-tick streams ({time.perf_counter() - t0:.1f} s)")
+
+    # -- one injected fault ---------------------------------------------------------------
+    rt = card_rts["fleet"]
+    mon = rt.obs.divergence
+    mon.x[OBS_FAULT_HOUR] = 1 - mon.x[OBS_FAULT_HOUR]
+    try:
+        rt.obs_check(final=True)
+    except ContractViolation as v:
+        check(v.monitor == "divergence" and v.hour == OBS_FAULT_HOUR,
+              f"the injected fault raised {v}")
+        print(f"injected fault (hour {OBS_FAULT_HOUR}'s recorded decisions flipped): "
+              f"ContractViolation raised: {v}")
+    else:
+        check(False, "a flipped recorded decision passed obs_check")
+    print(f"observability phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -4820,7 +5134,8 @@ def main() -> int:
     oracle_row = report_phase(card.splitlines()[0], scen[N_big], plans[N_big, False], topo_ctx)
     fc_rows, fc_ctx = forecast_phase(card.splitlines()[0])
     fs_rows = forecast_stream_phase(card.splitlines()[0], fc_ctx, topo_ctx)
-    live_rows = forecast_live_phase(card.splitlines()[0], fc_ctx, topo_ctx)
+    live_rows, live_ctx = forecast_live_phase(card.splitlines()[0], fc_ctx, topo_ctx)
+    obs_phase(card.splitlines()[0], scen[N_big], plans[N_big, False], topo_ctx, live_ctx)
 
     N, T = SIZES[-1]
     rows = timing[N]

@@ -10,7 +10,8 @@ the offline namespace :mod:`~repro_torch.fleet.plan`), the reports
 (:mod:`~repro_torch.fleet.scenario`) and the streaming runtime in fleet mode
 (:mod:`~repro_torch.fleet.runtime`, facade :mod:`~repro_torch.fleet.stream`)
 with the elastic planner that actuates the gradient sync
-(:class:`~repro_torch.fleet.runtime.ElasticFleetPlanner`).
+(:class:`~repro_torch.fleet.runtime.ElasticFleetPlanner`) and its
+observability surface (:mod:`~repro_torch.fleet.observe`).
 Quick start, on an NVIDIA GPU::
 
     from repro_torch.fleet import FleetRuntime, build_fleet_scenario, plan_fleet
@@ -19,6 +20,13 @@ Quick start, on an NVIDIA GPU::
     rt = FleetRuntime(sc.fleet)                        # streams the same plan
     day = rt.step_many(sc.demand[:, :24])              # 24 hours, one chunk
     hour = rt.step(sc.demand[:, 24])                   # then one hour
+
+    from repro_torch.fleet.observe import ObsConfig
+    ort = FleetRuntime(sc.fleet, obs=ObsConfig(cadence=72))   # ring, trace, monitors
+    for t in range(0, 8760, 24):
+        ort.step_many(sc.demand[:, t:t + 24])
+    ort.obs_check()                                    # raises ContractViolation on a breach
+    print(ort.obs_report().render_text())
 
     from repro_torch.fleet import build_topology_scenario, plan_topology
     ts = build_topology_scenario(64, n_facilities=8, ports_per_facility=4, seed=0)
@@ -144,3 +152,5 @@ from .runtime import (  # noqa: F401
     resolve_runtime_operands,
 )
 from .stream import streaming_forecast_policy  # noqa: F401
+
+from . import observe, stream  # noqa: F401,E402  (the namespaces, as repro.fleet's)

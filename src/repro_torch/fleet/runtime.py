@@ -51,12 +51,15 @@ forecast made from the demand realised so far), endogenous CCI demand,
 per link or per port, whose per-actuator modes drive
 :func:`repro_torch.dist.collectives.fleet_sync_grads`), with the live
 forecaster trained on a history (:meth:`StreamingForecaster.fit`,
-:func:`streaming_forecast_policy`). Not ported yet, raising
-``NotImplementedError``: observability (item 8).
+:func:`streaming_forecast_policy`), and observability (``obs=``: the
+metrics ring of :mod:`repro_torch.obs.metrics`, updated on the host from the
+planes each chunk brings home, the trace, the contract monitors and the
+profiler of :class:`repro_torch.obs.FleetObserver`).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -67,6 +70,7 @@ from repro_torch.device import DeviceLike, resolve_device, to_host
 from repro_torch.kernels import ops
 from repro_torch.models.ssm import _operands as _ssm_operands
 from repro_torch.models.ssm import demand_forecaster_warmup, train_demand_forecaster
+from repro_torch.obs.metrics import flatten_ring, init_ring, reset_ring, update_ring_chunk
 
 from .policy import (ForecastGatedPolicy, HysteresisPolicy, ReactivePolicy, fsm_carry,
                      make_policy, policy_to)
@@ -77,7 +81,6 @@ from .topology import TopologyArrays, TopologySpec
 _COST_COEF = ("streaming a ForecastGatedPolicy needs explicit demand->cost coefficients: "
               "build it with forecast_fleet_policy/forecast_topology_policy (or pass "
               "cost_coef= to forecast_gated_policy)")
-_OBS = "observability (obs=) is ROADMAP Queue 1, item 8"
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -107,6 +110,9 @@ class RuntimeState(NamedTuple):
                                               # forecaster's state (live mode only)
     pred_live: Optional[torch.Tensor] = None  # device (M,) float64: the forecast
                                               # the next hour's gates read
+    metrics: Optional[object] = None          # host MetricsRing (None without
+                                              # observability), drained at the
+                                              # obs cadence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,8 +170,9 @@ class StreamingForecaster:
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Frozen construction options of a :class:`FleetRuntime` (the fields of
-    :class:`repro.fleet.runtime.RuntimeConfig`). ``obs`` belongs to a slice
-    not ported yet and must stay unset."""
+    :class:`repro.fleet.runtime.RuntimeConfig`, validated as it validates
+    them; ``obs`` is ``None``, a bool or an object with a drain
+    ``cadence``, such as :class:`repro_torch.obs.ObsConfig`)."""
 
     routing: object = None
     policy: object = None
@@ -183,8 +190,9 @@ class RuntimeConfig:
                                 f"{type(self.forecaster).__name__}")
             if self.policy is not None and not isinstance(self.policy, ForecastGatedPolicy):
                 raise ValueError("forecaster= only applies to a ForecastGatedPolicy")
-        if self.obs is not None and self.obs is not False:
-            raise not_ported(_OBS)
+        if self.obs not in (None, True, False) and not hasattr(self.obs, "cadence"):
+            raise TypeError("obs must be None, a bool, or an ObsConfig-like object "
+                            f"with a drain cadence — got {type(self.obs).__name__}")
         return self
 
 
@@ -351,7 +359,14 @@ class FleetRuntime:
         read. The outputs then also hold ``pred_next``, the forecast made
         after each hour. ``reset()`` restores ``h0`` and ``pred0``;
         ``reroute()`` carries the forecaster's state across untouched.
-      obs: not ported yet (``NotImplementedError``; ROADMAP Queue 1, item 8).
+      obs: observability. ``None`` (default) or ``False`` disables it.
+        ``True`` or a :class:`repro_torch.obs.ObsConfig` attaches a
+        :class:`repro_torch.obs.FleetObserver` (``self.obs``): the metrics
+        ring (updated on the host after each chunk, from the planes the
+        chunk brings home, and drained every ``cadence`` hours; a chunk may
+        end on a drain hour but not cross one), lease lifecycle tracing, the
+        contract monitors and the step profiler. Decisions and costs are
+        bit-identical either way. See :meth:`obs_report` / :meth:`obs_check`.
     """
 
     def __init__(
@@ -386,7 +401,7 @@ class FleetRuntime:
         self.n_rows = int(tog.h.shape[0])
         self.n_demand_rows = self.arrays.n_pairs if self.topology else self.n_rows
         self._rows_idx = np.arange(self.n_rows)
-        self.obs = None             # observability is ROADMAP Queue 1, item 8
+        self.obs = None
         # Per-row operands of the chunk, on the device. Fleet mode: the CCI
         # lease is (L + V·1) before the volume term is added, as the JAX tick
         # sums it. Topology mode: per-pair pricing rows, then per-port rows
@@ -401,6 +416,11 @@ class FleetRuntime:
                                 a.tier_bounds, a.tier_rates, *fsm_rows)
         self._gate = self._gate_planes() if self.pred_source == "replay" else None
         self._set_routing_caches(r.routing_plan)
+        if obs is not None and obs is not False:
+            from repro_torch.obs.observer import FleetObserver, ObsConfig
+
+            self.obs = FleetObserver(ObsConfig() if obs is True else obs, self)
+            self._set_obs_caches()
         self.reset()
 
     def _gate_planes(self) -> tuple:
@@ -447,6 +467,34 @@ class FleetRuntime:
         self._routing_idx_np = plan.primary
         self._lease = a.L_cci + a.V_cci * a.routing.index.n_attach
 
+    def _set_obs_caches(self) -> None:
+        """Host copies of what the metrics ring reads besides the chunk's
+        planes, taken once: the demand rows' capacities, the tier bounds, the
+        histogram edges, the replay predictions hour-major; then the
+        routing's (:meth:`_set_obs_routing`)."""
+        a = self.arrays
+        cap = a.pair_capacity if self.topology else a.capacity
+        self._obs_cap = to_host(cap, np.float64)
+        self._obs_bounds = a.tier_bounds.detach().to("cpu", torch.float64)
+        self._obs_edges = torch.from_numpy(np.asarray(self.obs.hist_edges, np.float64))
+        self._obs_pred = (to_host(self.policy.pred_demand, np.float64).T.copy()
+                          if self.pred_source == "replay" else None)
+        self._set_obs_routing()
+
+    def _set_obs_routing(self) -> None:
+        """The ring's host copies of the routing, once per (re)routing: in
+        topology mode each pair's primary port and the legs (the port fold of
+        the clipped demand, ``src/repro/fleet/runtime.py:485-488``)."""
+        self._obs_route = self._obs_legs = None
+        self._obs_fold = {}                 # K -> flat (K·E,) bincount index, hour-major
+        if self.topology:
+            a = self.arrays
+            r = a.routing
+            self._obs_route = torch.from_numpy(np.asarray(self._routing_idx_np, np.int64))
+            self._obs_legs = (to_host(r.leg_pair, np.int64), to_host(r.leg_port, np.int64),
+                              to_host(r.attach_w, np.float64),
+                              to_host(a.port_capacity, np.float64))
+
     def reset(self) -> None:
         """Rewind to hour 0 (fresh carries, the live forecaster back at its
         ``h0`` and ``pred0``; operands, routing and policy unchanged)."""
@@ -454,10 +502,18 @@ class FleetRuntime:
         z = lambda *s: np.zeros(s, np.float64)
         dz = lambda n: torch.zeros((2, n), dtype=torch.float64, device=self.device)
         h0, pred0 = (None, None) if self._live0 is None else self._live0
+        metrics = None
+        if self.obs is not None:
+            cfg = self.obs.config
+            metrics = init_ring(M, self.obs.cadence, cfg.hist_bins, self.obs.n_tiers)
+            # Live mode: the forecast that gates the next hour, on the host.
+            self._obs_pred_live = None if pred0 is None else to_host(pred0, np.float64)
+            self.obs.on_reset()
         self._state = RuntimeState(
             t=0, fsm=fsm_carry(self.policy), dev_cal=dz(P), dev_pref=dz(M),
             dcum=z(P), dcum_month=z(P), vpn_pref=z(M), cci_pref=z(M),
             ring_vpn=z(self.hbuf, M), ring_cci=z(self.hbuf, M), ssm_h=h0, pred_live=pred0,
+            metrics=metrics,
         )
 
     @property
@@ -476,7 +532,7 @@ class FleetRuntime:
         if d.shape != (self.n_demand_rows,):
             raise ValueError(f"demand_t must be ({self.n_demand_rows},), got {d.shape}")
         c = None if cci_demand_t is None else np.asarray(cci_demand_t, np.float64)[:, None]
-        out = self.step_many(d[:, None], cci_demand_block=c)
+        out = self._advance(d[:, None], c, tick=True)
         return {k: v[:, 0] for k, v in out.items()}
 
     def step_many(self, demand_block, *, cci_demand_block=None) -> Dict[str, np.ndarray]:
@@ -486,11 +542,125 @@ class FleetRuntime:
 
         Contract: any chunking of a stream, interleaved freely with
         :meth:`step` and :meth:`reroute`, gives the per-tick results bit for
-        bit, in the outputs and in the carried host prefixes.
+        bit, in the outputs and in the carried host prefixes. With
+        observability on, a chunk must not cross a drain hour (its end may
+        fall on one; ``ValueError`` otherwise, before anything runs): drains
+        then fire at the per-tick hours with the per-tick windows, bit for
+        bit.
         """
+        return self._advance(demand_block, cci_demand_block, tick=False)
+
+    def _advance(self, demand_block, cci_demand_block, *, tick: bool) -> Dict[str, np.ndarray]:
+        """One chunk: pack, launch, commit, and with observability on the
+        ring update and the observer's records (``tick``: a :meth:`step`,
+        recorded as one tick, as the reference's ``step`` records it)."""
+        obs = self.obs
+        t0 = time.perf_counter() if obs is not None else 0.0
         block, K, endo = self._pack(demand_block, cci_demand_block)
+        t = self._state.t
+        drain = obs is not None and self._drain_due(t, K)
         host = self._launch(torch.from_numpy(block).to(self.device), K, endo)
-        return self._commit(host.cpu().numpy(), K)
+        # The ring's demand-side operands, formed while the chunk runs on the card.
+        ring_in = self._ring_operands(block, K) if obs is not None else None
+        res = host.cpu().numpy()
+        out = self._commit(res, K)
+        if obs is not None:
+            self._observe(t, K, res, out, ring_in, demand_block, endo, drain, tick,
+                          h2d=block.nbytes, t0=t0)
+        return out
+
+    def _drain_due(self, t: int, K: int) -> bool:
+        """Whether the chunk of hours ``t .. t + K − 1`` closes a drain
+        window; raises when a drain hour falls strictly inside it
+        (``src/repro/fleet/runtime.py:1101-1111``)."""
+        cadence = self.obs.cadence
+        boundary = ((t // cadence) + 1) * cadence   # first drain > t
+        if boundary < t + K:
+            raise ValueError(
+                f"obs drain cadence {cadence} falls mid-chunk (hour {boundary} inside "
+                f"({t}, {t + K})): chunk ends must align with the drain cadence — pick K "
+                "dividing the cadence, or step() across the boundary")
+        return boundary == t + K
+
+    def _ring_operands(self, block: np.ndarray, K: int) -> tuple:
+        """The ring's operands that the demand alone gives, as (K, rows)
+        C-ordered host planes: ``d_pair`` (the demand clipped at each demand
+        row's capacity, as the chunk kernels clip it), ``month_cum`` (the
+        start-of-hour month volume, stepped from the pre-chunk calendar with
+        the kernels' adds in their order: at a month start the month base
+        takes ``dcum``, then ``dcum − base``, then ``dcum += d_pair``),
+        ``d_row`` (topology mode: the clipped pair demand folded onto the
+        ports in leg order and clipped at the port capacity; fleet mode:
+        ``d_pair``) and, in replay mode, the predictions hour ``t`` reads
+        (column ``min(t, T_pred − 1)``)."""
+        st = self._state                  # its host calendar is still the pre-chunk one
+        t, M, P = st.t, self.n_rows, self.n_demand_rows
+        d = block[:K * P].reshape((P, K) if self.topology else (K, P))
+        d_pair = np.empty((K, P))
+        np.minimum(d.T if self.topology else d, self._obs_cap, out=d_pair)
+        month_cum = np.empty((K, P))
+        dcum, base = st.dcum.copy(), st.dcum_month
+        for k in range(K):
+            if (t + k) % self.hours_per_month == 0:
+                base = dcum.copy()
+            np.subtract(dcum, base, out=month_cum[k])
+            dcum += d_pair[k]
+        d_row = d_pair
+        if self.topology:
+            leg_pair, leg_port, attach_w, port_cap = self._obs_legs
+            idx = self._obs_fold.get(K)
+            if idx is None:   # hour k's legs at k·M + port, in leg order
+                idx = self._obs_fold[K] = (np.arange(K)[:, None] * M + leg_port[None, :]).ravel()
+            # bincount adds its weights in input order: each port's legs in leg order, from +0.0.
+            fold = np.bincount(idx, weights=(d_pair[:, leg_pair] * attach_w).ravel(),
+                               minlength=K * M).reshape(K, M)
+            d_row = np.minimum(fold, port_cap)
+        pred = None
+        if self._obs_pred is not None:
+            T_pred = self._obs_pred.shape[0]
+            pred = self._obs_pred[np.minimum(t + np.arange(K), T_pred - 1)]
+        return d_pair, month_cum, d_row, pred
+
+    def _observe(self, t: int, K: int, res: np.ndarray, out: dict, ring_in: tuple,
+                 demand_block, endo: bool, drain: bool, tick: bool, *, h2d: int,
+                 t0: float) -> None:
+        """The ring update and the observer's records for the chunk just
+        committed (``src/repro/fleet/runtime.py:1166-1175``): the ring reads
+        torch views of the result's numpy planes; in live mode hour k's
+        forecast is the pre-chunk one for k = 0 and ``pred_next`` of hour
+        k − 1 after."""
+        M = self.n_rows
+        planes = res.reshape(-1)[:self._n_planes * K * M].reshape(self._n_planes, K, M)
+        d_pair, month_cum, d_row, pred = ring_in
+        if self.pred_source == "live":
+            pred = np.concatenate([self._obs_pred_live[None], planes[8, :K - 1]])
+            self._obs_pred_live = planes[8, K - 1].copy()
+        view = torch.from_numpy
+        st = self._state
+        ring = update_ring_chunk(
+            st.metrics, self._obs_edges, x_t=view(planes[6]), state_t=view(planes[7]),
+            vpn_t=view(planes[0]), cci_t=view(planes[1]), d_pair=view(d_pair),
+            d_row=view(d_row), month_cum=view(month_cum), tier_bounds=self._obs_bounds,
+            routing_idx=self._obs_route, pred_t=None if pred is None else view(pred),
+            cost_t=view(out["cost"].T))
+        vec = None
+        if drain:
+            vec = flatten_ring(ring).numpy()
+            ring = reset_ring(ring)
+        self._state = st._replace(metrics=ring)
+        demand = np.asarray(demand_block, np.float64)
+        rec = dict(endo=endo, h2d_bytes=h2d, d2h_bytes=res.nbytes,
+                   dt_s=time.perf_counter() - t0)
+        if tick:
+            self.obs.record_step(t, {k: v[:, 0] for k, v in out.items()}, d_pair=d_pair[0],
+                                 demand_t=demand[:, 0], **rec)
+        else:
+            # Hour k's fields as rows of the (K, rows) planes behind the outputs
+            # (contiguous; the outputs are their transposes).
+            self.obs.record_chunk(t, [{f: v.T[k] for f, v in out.items()} for k in range(K)],
+                                  d_pair=d_pair, demand=demand, **rec)
+        if drain:
+            self.obs.record_drain(t + K, vec)
 
     def _pack(self, demand_block, cci_demand_block):
         """The chunk's host-to-device block, flat float64: the demand (and the
@@ -649,8 +819,44 @@ class FleetRuntime:
                 f"bound of {E}. Construct the runtime with a routing pad_to()'d to the "
                 "maximum hop budget you plan to swap in.")
         plan = plan.pad_to(E)
+        old_idx = np.array(self._routing_idx_np)
         self.arrays = self.arrays._replace(routing=plan.operand(torch.float64, self.device))
         self._set_routing_caches(plan)
+        if self.obs is not None:
+            self._set_obs_routing()
+            self.obs.record_reroute(self.t, old_idx, self._routing_idx_np, plan=self.routing_plan)
+
+    # --- observability (only when built with obs=) --------------------------
+
+    def _flush_obs(self) -> None:
+        """Drain a partial metrics window (at report and check time only)."""
+        if self.obs is None:
+            return
+        ring = self._state.metrics
+        if int(ring.small[0].item()) == 0:
+            return
+        vec = flatten_ring(ring).numpy()
+        self._state = self._state._replace(metrics=reset_ring(ring))
+        self.obs.record_drain(self.t, vec)
+
+    def obs_report(self):
+        """Flush pending metrics and build the :class:`repro_torch.obs.ObsReport`
+        (aggregate counters, cost quantiles, step-latency profile, monitor
+        summaries). Raises ``ValueError`` on a runtime built without ``obs=``."""
+        if self.obs is None:
+            raise ValueError("runtime built without obs=")
+        self._flush_obs()
+        return self.obs.report()
+
+    def obs_check(self, *, final: bool = True) -> None:
+        """Flush pending metrics and run every enabled contract monitor now,
+        raising :class:`repro_torch.obs.ContractViolation` on the first breach.
+        ``final=True`` also arms the end-of-run checks (the regret monitor's
+        oracle ratio: one ``oracle_dp`` launch over the recorded series)."""
+        if self.obs is None:
+            raise ValueError("runtime built without obs=")
+        self._flush_obs()
+        self.obs.check(final=final)
 
     def port_occupancy(self) -> np.ndarray:
         """(M,) pairs attached per port under the current routing (all ones
@@ -730,8 +936,9 @@ class ElasticFleetPlanner:
     ``compress_ratio`` and ``collective_mode`` are per-instance knobs, as
     in the JAX class (``None``: :data:`COMPRESS_RATIO` and
     :func:`~repro_torch.core.planner.collective_mode`). The runtime's
-    keywords pass through (``device=``, ``routing=``, ``policy=``, ...);
-    ``obs=`` is ROADMAP Queue 1, item 8, and raises ``NotImplementedError``.
+    keywords pass through (``device=``, ``routing=``, ``policy=``, ``obs=``,
+    ...); with observability on, each hour whose sync-domain partition
+    changes is traced (``src/repro/fleet/runtime.py:1428-1438``).
     """
 
     COMPRESS_RATIO = COMPRESS_RATIO
@@ -750,6 +957,7 @@ class ElasticFleetPlanner:
         self.gb = np.zeros(p)
         self.gb_saved = np.zeros(p)
         self.on_hours = np.zeros(n, np.int64)
+        self._dom_sig = None  # the last (groups, modes) signature traced
 
     def sync_groups(self) -> np.ndarray:
         """(P,) leased-sync-domain id per actuator: the routed primary port
@@ -771,6 +979,15 @@ class ElasticFleetPlanner:
         self.cost_vpn_only += vpn_c
         self.cost_cci_only += cci_c
         modes = self.runtime.modes(out, mode_fn=self.collective_mode)
+        if self.runtime.obs is not None:
+            # A sync domain is a (port, mode) bucket of actuators; trace only
+            # the hours where the partition changes.
+            groups = self.sync_groups()
+            sig = (groups.tobytes(), "".join(m[0] for m in modes))
+            if sig != self._dom_sig:
+                n_dom = len(set(zip(groups.tolist(), modes)))
+                self.runtime.obs.record_sync_domains(self.runtime.t - 1, n_dom, len(modes))
+                self._dom_sig = sig
         on_act = np.asarray([m == "hierarchical" for m in modes])
         self.gb += np.where(on_act, raw_gb, raw_gb / self.compress_ratio)
         self.gb_saved += np.where(on_act, 0.0, raw_gb - raw_gb / self.compress_ratio)

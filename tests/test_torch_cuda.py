@@ -36,8 +36,14 @@ gate in their plain versions' order and are held bit for bit, and a
 forecast stream on the card equals the card's offline plan of the same
 policy bit for bit (the card's and the CPU's predicted costs may differ in
 the last place, so a stream is held against the plan of its own device).
+Observability (``FleetRuntime(obs=...)``) adds no kernel: on the card the
+observed stream equals the stream without it bit for bit, its drained
+windows, monitor summaries and trace equal the CPU port's bit for bit (the
+ring is host work on the same planes), and the regret monitor's oracle, one
+``oracle_dp`` call, equals ``offline_optimal`` row by row bit for bit.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -2423,3 +2429,116 @@ def test_live_chunk_wrappers_refuse_cpu_tensors_and_bad_operands():
     rargs = rrt._chunk_args(torch.from_numpy(block), K, endo)
     with pytest.raises(ValueError, match="CUDA"):
         stream_chunk_routed(*rargs, live=_live_args(rrt))
+
+
+# -- observability on the streaming runtime ----------------------------------------
+
+
+def _obs_stream(rt, demand, K, swap=None):
+    """Chunks of K, a per-tick tail, ``rt.reroute(swap[1])`` at hour
+    ``swap[0]``; (outputs stacked to (rows, T), the runtime)."""
+    T = demand.shape[1]
+    outs, t = [], 0
+    while t < T:
+        if swap is not None and t == swap[0]:
+            rt.reroute(swap[1])
+        if t + K <= T:
+            outs.append(rt.step_many(demand[:, t:t + K]))
+            t += K
+        else:
+            outs.append({k: v[:, None] for k, v in rt.step(demand[:, t]).items()})
+            t += 1
+    return {k: np.concatenate([o[k] for o in outs], 1) for k in outs[0]}
+
+
+def _obs_cases(device):
+    """(name, spec, runtime keywords, demand, swap) of a fleet and a rerouted
+    topology stream, each with a replay-mode gated policy."""
+    from repro_torch.fleet import forecast_gated_policy
+
+    sc = build_fleet_scenario(64, horizon=480, seed=0)
+    arrays = sc.fleet.stack(torch.float64, CPU)
+    pol = _gated_policy(arrays.toggle, 64, 480, "rows", False, 3)
+    tsc, topo, r = _routed_scenario("topology", 4, 730)
+    moved = np.asarray(r.primary).copy()
+    for i, pr in enumerate(topo.pairs[:6]):
+        moved[i] = next((c for c in pr.candidates if c != moved[i]), moved[i])
+    tarr = topo.stack(r, torch.float64, CPU)
+    rng = np.random.default_rng(4)
+    topo_pol = forecast_gated_policy(tarr.toggle, rng.uniform(0.0, 300.0, (topo.n_ports, 200)),
+                                 margin=0.05, cost_coef=rng.uniform(0.0, 1.0, (topo.n_ports, 4)))
+    return [("fleet", sc.fleet, dict(policy=pol), sc.demand, None),
+            ("fleet-reactive", sc.fleet, {}, sc.demand, None),
+            ("topology", topo, dict(routing=r, policy=topo_pol), tsc.demand, (96, topo.plan(moved)))]
+
+
+@pytest.mark.cuda
+def test_obs_on_off_bit_equal_on_the_card(cuda_device):
+    """With observability on the card streams the same decisions, costs and
+    carries as without it, bit for bit (K = 24, drains every 72 hours), and
+    the honest stream passes every monitor, the divergence replay and the
+    regret oracle on the card."""
+    from repro_torch.obs import ObsConfig
+
+    for name, spec, kw, demand, swap in _obs_cases(cuda_device):
+        plain_rt = FleetRuntime(spec, device=cuda_device, **kw)
+        plain = _obs_stream(plain_rt, demand, 24, swap)
+        ort = FleetRuntime(spec, device=cuda_device, obs=ObsConfig(
+            cadence=72, divergence=True, max_oracle_ratio=float("inf")), **kw)
+        got = _obs_stream(ort, demand, 24, swap)
+        for k in plain:
+            assert np.array_equal(got[k], plain[k], equal_nan=True), (name, k)
+        for k in ("dcum", "dcum_month", "vpn_pref", "cci_pref"):
+            assert np.array_equal(getattr(ort._state, k), getattr(plain_rt._state, k)), (name, k)
+        assert torch.equal(ort._state.fsm, plain_rt._state.fsm), name
+        ops.reset_launches()
+        ort.obs_check(final=True)
+        assert ops.LAUNCHES["oracle_dp"] >= 1, name
+        rep = ort.obs_report()
+        assert rep.violations == [] and rep.monitors["divergence"]["checks"] == 1, name
+
+
+@pytest.mark.cuda
+def test_obs_drains_on_the_card_equal_the_cpu(cuda_device):
+    """The card's drained windows, monitor summaries and trace equal the CPU
+    port's bit for bit (the ring is host work on the same planes)."""
+    from repro_torch.obs import ObsConfig
+
+    for name, spec, kw, demand, swap in _obs_cases(cuda_device):
+        runs = []
+        for dev in (cuda_device, CPU):
+            rt = FleetRuntime(spec, device=dev, obs=ObsConfig(
+                cadence=72, divergence=True, max_oracle_ratio=float("inf")), **kw)
+            _obs_stream(rt, demand, 24, swap)
+            rt.obs_check(final=True)
+            runs.append(rt)
+        # JSON text holds every float's shortest round-trip repr (and NaN as NaN).
+        dump = lambda rt: json.dumps([[d.to_json() for d in rt.obs.drained],
+                                      rt.obs.monitor_summaries(), rt.obs.trace.events])
+        assert dump(runs[0]) == dump(runs[1]), name
+
+
+@pytest.mark.cuda
+def test_regret_oracle_on_the_card_equals_offline_optimal(cuda_device):
+    """The regret monitor's oracle, one ``oracle_dp`` launch over the recorded
+    series on the card, equals the numpy ``offline_optimal`` of each row
+    (zero leases, as the reference's row loop builds them) every bit."""
+    from repro_torch.core.costmodel import HourlyCosts
+    from repro_torch.core.oracle import offline_optimal
+    from repro_torch.obs import ObsConfig
+
+    sc = build_fleet_scenario(24, horizon=600, seed=2)
+    rt = FleetRuntime(sc.fleet, device=cuda_device,
+                      obs=ObsConfig(cadence=120, max_oracle_ratio=float("inf")))
+    _obs_stream(rt, sc.demand, 24)
+    ops.reset_launches()
+    got = rt.obs.regret.oracle_cost()
+    assert ops.LAUNCHES["oracle_dp"] in (1, 2)       # one call (two forms if mixed)
+    reg = rt.obs.regret
+    vpn, cci = np.stack(reg.vpn_hist, 1), np.stack(reg.cci_hist, 1)
+    zeros = np.zeros(vpn.shape[1])
+    for m in range(vpn.shape[0]):
+        p = dataclasses.make_dataclass("P", ["D", "T_cci"])(int(reg.D[m]), int(reg.T_cci[m]))
+        want = offline_optimal(p, costs=HourlyCosts(vpn_lease=zeros, vpn_transfer=vpn[m],
+                                                    cci_lease=zeros, cci_transfer=cci[m]))
+        assert got[m] == want.total_cost, m

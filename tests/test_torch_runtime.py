@@ -250,9 +250,11 @@ def test_modes_maps_states_to_collective_modes():
 
 
 def test_out_of_scope_paths_raise_not_implemented():
-    """The slices not ported yet raise naming their ROADMAP item
-    (observability, item 8); training the streaming forecaster (item 6c)
-    runs: ``fit`` refuses a history of fewer than 2 hours with the
+    """The slices not ported yet raise naming their ROADMAP item (the
+    gateway, item 9); observability (item 8) is ported: ``obs=True`` attaches
+    an observer to the runtime and the elastic planner, and an ``obs`` with
+    no drain cadence is the reference's TypeError; training the streaming
+    forecaster (item 6c) runs: ``fit`` refuses a history of fewer than 2 hours with the
     reference's text and trains on one of 2, and ``streaming_forecast_policy``
     returns a live policy and forecaster; the topology-mode inputs that used
     to raise now behave as the JAX resolver does: a routing beside a
@@ -263,8 +265,9 @@ def test_out_of_scope_paths_raise_not_implemented():
     ``make_policy``, which raises JAX's ValueError (the policy is built from
     predictions)."""
     sc = _scenario(8, 600, 0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        FleetRuntime(sc.fleet, device="cpu", obs=True)
+    assert FleetRuntime(sc.fleet, device="cpu", obs=True).obs.cadence == 64
+    with pytest.raises(TypeError, match="obs must be None, a bool, or an ObsConfig-like"):
+        FleetRuntime(sc.fleet, device="cpu", obs=object())
     with pytest.raises(TypeError, match="forecaster must be a StreamingForecaster, got object"):
         FleetRuntime(sc.fleet, device="cpu", forecaster=object())
     routed = FleetRuntime(sc.fleet, device="cpu", routing=[0] * 8)
@@ -287,8 +290,7 @@ def test_out_of_scope_paths_raise_not_implemented():
     pl = stream.ElasticFleetPlanner(sc.fleet, device="cpu", routing=[0] * 8)
     assert not pl.topology
     np.testing.assert_array_equal(pl.sync_groups(), np.arange(8))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        stream.ElasticFleetPlanner(sc.fleet, device="cpu", obs=True)
+    assert stream.ElasticFleetPlanner(sc.fleet, device="cpu", obs=True).runtime.obs is not None
     from repro_torch.gateway import FleetGateway
 
     with pytest.raises(NotImplementedError, match="item 9"):
