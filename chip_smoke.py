@@ -300,7 +300,33 @@ without printing a result):
     must equal the CPU's and the card's per-tick stream's bit for bit; and a
     decision flipped in the divergence monitor's record must raise
     ``ContractViolation``, the one exception the phase catches;
-17. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
+17. the multi-tenant gateway (``gateway_phase``; the pooled instances
+    of ``stream_chunk`` and ``stream_chunk_routed``, each row with its own
+    clock): with every launch count at 0, 256 fleet tenants of 32 links
+    (``benchmarks/bench_gateway.py``'s shape) in one bucket tick 80 hours,
+    then 400 timed hours in turns with one standalone runtime over the same
+    8192 links, then a leave and a join into the freed slot (no new launch
+    shape); a fresh pool of them in 18 chunks of 24 (cadence 72) in turns with
+    the standalone runtime's chunks; 256 heterogeneous 2-link tenants over 6
+    ticks and a chunk; a mixed gateway of topology tenants (32 pairs on 8
+    ports) under the reactive, hysteresis and replay-gated policies and
+    replay-gated fleet tenants, ticking then chunking, with a reroute and a
+    leave, and a late tenant on 40-hour months joining into the freed slot.
+    It fails unless every gateway call launched the pooled instances exactly
+    once per non-empty bucket and nothing else, unless the probe, the fresh
+    (joined after the churn's leave), the heterogeneous and the mixed tenants
+    (the late one too) equal their standalone card runtimes on every field,
+    every hour, and unless a small gateway on the card equals the CPU's in
+    every output, billing total and drained window; it prints
+    tenant-link-steps/s, the tick p50/p95/p99 and drain ticks, the chunked
+    rate and the join seconds beside the standalone runtime; then holds each
+    pooled instance, in both fleet launch forms, against its plain version
+    at 256 slots on staggered clocks (joins over 64 hours, months of 24, 40,
+    168 and 730 hours: month starts at and inside the chunk, replay columns
+    past a slot's own T_pred), and, on one common clock, against its plain
+    version and the scalar instance bit for bit, and times both by profiler
+    device time at 256 slots, K = 1 and 24, beside its bound;
+18. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
 It imports ``repro_torch``, torch and numpy only: no JAX and nothing of the
@@ -2581,14 +2607,13 @@ def hottest_port_legs(routing) -> int:
 
 def print_routed_registers() -> None:
     """-Xptxas -v's registers, stack frame and spills of the routed chunk's
-    three instances (gate modes); fails on a spill or a stack frame."""
-    import re
-
+    instances (three gate modes, two of them also pooled); fails on a spill or
+    a stack frame."""
     for name, rep in sorted(ptxas_instances(ROUTED_KERNEL).items()):
         check(rep.get("stack") == rep.get("spill_stores") == rep.get("spill_loads") == 0,
               f"{name} spills or keeps a stack frame: {rep}")
-        m = re.search(r"Li(\d)EE+v", name)
-        print(f"  ptxas {ROUTED_KERNEL} {GATE_MODES[int(m[1])] if m else '?'}: "
+        mode, pooled = stream_instance(name)
+        print(f"  ptxas {ROUTED_KERNEL} {mode}{' pooled' if pooled else ''}: "
               f"{rep['registers']} registers, {rep['stack']} bytes stack frame, "
               f"{rep['spill_stores']} bytes spill stores, {rep['spill_loads']} bytes spill loads")
 
@@ -2869,22 +2894,29 @@ def ptxas_instances(kernel: str) -> dict:
 GATE_MODES = ("ungated", "replay", "live")   # the streaming kernels' gate mode template argument
 
 
-def print_stream_registers(modes) -> None:
-    """-Xptxas -v's registers, stack frame and spills of the streaming
-    kernels' instances in the gate ``modes``: the last template argument of
-    the mangled name (0 ungated, 1 replay, 2 live). Fails on a spill or a
-    stack frame in any live instance."""
+def stream_instance(name: str) -> tuple:
+    """(gate mode, pooled) of a streaming kernel's mangled instance name: its
+    last two template arguments, the gate mode (0 ungated, 1 replay, 2 live)
+    and the pooled flag (per-row clocks)."""
     import re
 
+    m = re.search(r"Li(\d)ELb([01])EE+v", name)
+    return (GATE_MODES[int(m[1])], m[2] == "1") if m else ("?", False)
+
+
+def print_stream_registers(modes) -> None:
+    """-Xptxas -v's registers, stack frame and spills of the streaming
+    kernels' instances in the gate ``modes`` ("pooled": every pooled
+    instance). Fails on a spill or a stack frame in any live or pooled
+    instance."""
     for kernel in ("stream_chunk_tick_kernel", "stream_chunk_pipe_kernel", "routed_chunk_kernel"):
         for name, rep_ in sorted(ptxas_instances(kernel).items()):
-            m = re.search(r"Li(\d)EE+v", name)
-            mode = GATE_MODES[int(m[1])] if m else "?"
-            if mode in modes:
-                print(f"  ptxas {mode:8s} {name[-48:]}: {rep_}")
-            if mode == "live":
+            mode, pooled = stream_instance(name)
+            if (mode in modes and not pooled) or (pooled and "pooled" in modes):
+                print(f"  ptxas {mode:8s}{' pooled' if pooled else ''} {name[-48:]}: {rep_}")
+            if mode == "live" or pooled:
                 check(rep_.get("stack") == rep_.get("spill_stores") == rep_.get("spill_loads")
-                      == 0, f"the live instance {name} spills or keeps a stack frame: {rep_}")
+                      == 0, f"the instance {name} spills or keeps a stack frame: {rep_}")
 
 
 def report_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict) -> dict:
@@ -4933,6 +4965,645 @@ def obs_phase(card: str, fleet_scen, fleet_plan, topo_ctx: dict, live_ctx: dict)
     print(f"observability phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+GW_SHAPE = (256, 32)        # benchmarks/bench_gateway.py:45: tenants x links a tenant
+GW_CADENCE, GW_WARM, GW_TICKS = 64, 80, 400     # bench_gateway.py:63-100: cadence 64, warm-up
+                                                # cadence + 16 ticks, 400 timed ticks
+GW_CHUNK = (24, 72, 6, 12)  # bench_gateway.py:150-177: K, cadence, warm-up and timed chunks
+GW_HETERO = (256, 6)        # tests/test_gateway.py:237-273: 2-link tenants, ticks (then a chunk)
+GW_TOPO = (32, 720, 4)      # pairs, hours, tenants of each policy in the mixed gateway
+GW_TOPO_KW = dict(n_facilities=4, ports_per_facility=2)
+GW_TOPO_TICKS, GW_REROUTE, GW_LEAVE = 144, 96, 240   # ticks, then chunks; the swap; the leave
+GW_SMALL = (3, 16, 168)     # card vs CPU: tenants of each kind, links, hours
+GW_SPLIT_TICKS, GW_SPLIT_CHUNKS = 60, 3   # the host split's window: ticks (collect on and
+                                          # off in turns), chunks (one cadence)
+GW_TIMED_K = (1, 24)
+# The staggered buckets: tenant i joins at gateway hour i // 4 and bills
+# months of GW_STAGGER_HPM[i % 4] hours, the gateway ticks 20 hours past the
+# last join; replay tenants predict GW_STAGGER_PRED[i % 4] hours. The forms
+# and K each pooled instance is held to its plain version at.
+GW_STAGGER_JOINS, GW_STAGGER_AFTER = 4, 20
+GW_STAGGER_HPM = (24, 40, 168, 730)
+GW_STAGGER_PRED = (70, 100, 128, 90)
+GW_STAGGER_FORMS = {False: (("tick", 1), ("chunk", 1), ("tick", 5), ("chunk", 24), ("chunk", 25)),
+                    True: (("auto", 1), ("auto", 24), ("auto", 40))}
+LATE = "topo-late"          # joins the mixed gateway into the slot the leave frees
+LATE_HPM = 40               # its calendar: month starts inside the chunks of 24
+POOLED = ("stream_chunk_pooled", "stream_chunk_pooled_gated", "stream_chunk_routed_pooled",
+          "stream_chunk_routed_pooled_gated")
+STEP_FIELDS = ("x", "state", "r_vpn", "r_cci", "vpn_cost", "cci_cost", "cost")
+
+
+def gw_call(gw, fn, counts: dict):
+    """``fn()`` (a gateway's tick or chunk), failing unless it launched the
+    pooled instances once per non-empty bucket and no other kernel; the
+    launches are added to ``counts``."""
+    from repro_torch.kernels import ops
+
+    live = len(gw._live_buckets())
+    before = dict(ops.LAUNCHES)
+    out = fn()
+    delta = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    check(set(delta) <= set(POOLED) and sum(delta.values()) == live,
+          f"a gateway call over {live} non-empty buckets launched {delta}")
+    for k, v in delta.items():
+        counts[k] = counts.get(k, 0) + v
+    return out
+
+
+def host_split(gw, step, n: int, collect_turns: bool = False) -> dict:
+    """Host milliseconds a call of ``step(collect)`` over ``n`` calls, split
+    by wrapping the gateway's ``_pack``, ``_ring_operands``, ``_observe``
+    (the ring update) and ``_drain_slot`` (a tenant's drain and SLO check)
+    and its buckets' ``launch`` (the enqueue): the rest is the copy back,
+    the commit and the outputs. With ``collect_turns`` every other call skips
+    the per-tenant output dicts (``collect=False``), and their cost is the
+    difference of the two means."""
+    clock = {k: 0.0 for k in ("pack", "launch", "ring operands", "ring update", "drains")}
+    for name, key in (("_pack", "pack"), ("_ring_operands", "ring operands"),
+                      ("_observe", "ring update"), ("_drain_slot", "drains")):
+        timed_method(gw, name, clock, key)
+    for b in gw._live_buckets():
+        timed_method(b, "launch", clock, "launch")
+    walls = {True: [], False: []}
+    for i in range(n):
+        collect = not (collect_turns and i % 2)
+        a = time.perf_counter()
+        step(collect)
+        walls[collect].append(time.perf_counter() - a)
+    for name in ("_pack", "_ring_operands", "_observe", "_drain_slot"):
+        delattr(gw, name)
+    for b in gw._live_buckets():
+        delattr(b, "launch")
+    wall = sum(map(sum, walls.values())) / n
+    out = {k: v / n * 1e3 for k, v in clock.items()}
+    out["rest"] = wall * 1e3 - sum(out.values())
+    out["wall"] = wall * 1e3
+    if collect_turns:
+        out["outputs"] = (np.mean(walls[True]) - np.mean(walls[False])) * 1e3
+    return out
+
+
+def print_split(what: str, split: dict) -> None:
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in split.items() if k != "wall")
+    print(f"  host split of {what}, ms a call: wall {split['wall']:.3f}: {parts}")
+
+
+def same_outputs(got: dict, want: dict, what: str) -> None:
+    for f in STEP_FIELDS:
+        check(np.array_equal(np.asarray(got[f]), np.asarray(want[f]), equal_nan=True),
+              f"{what}: {f} differs from the standalone runtime")
+
+
+def replay_policy(spec, routing, demand, rng, device):
+    """A forecast-gated policy in replay mode for one tenant, built as
+    ``tests/test_gateway.py:67-78`` builds it: a standalone stream's VPN cost
+    scaled by a random factor as the prediction, cost coefficients fitted
+    on the stream's costs."""
+    from repro_torch.fleet import FleetRuntime, fit_cost_coef, forecast_gated_policy
+
+    rt = FleetRuntime(spec, routing=routing, device=device)
+    base = stream(rt, demand, STREAM_K)
+    pred = np.maximum(rng.uniform(0.3, 1.2) * base["vpn_cost"], 0.0)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device)
+    coef = fit_cost_coef(t(pred), t(base["vpn_cost"]), t(base["cci_cost"]))
+    return forecast_gated_policy(rt.arrays.toggle, pred, margin=0.05, cost_coef=coef)
+
+
+def mixed_tenants(device, n_each: int, pairs: int, hours: int, fleet_links: int, seed: int):
+    """Topology tenants of ``pairs`` pairs (4 facilities x 2 ports) under the
+    reactive, hysteresis and replay-gated policies, ``n_each`` of each, and
+    ``n_each`` replay-gated fleet tenants of ``fleet_links`` links, then
+    :data:`LATE`, one more hysteresis topology tenant on months of
+    :data:`LATE_HPM` hours: name -> (TenantSpec, scenario, topology or not)."""
+    import dataclasses
+
+    from repro_torch.fleet import (RuntimeConfig, build_fleet_scenario, build_topology_scenario,
+                                   hysteresis_policy, optimize_routing)
+    from repro_torch.gateway import TenantSpec
+
+    def topology_tenant(kind, seed_i, hpm=None):
+        sc = build_topology_scenario(pairs, horizon=hours, seed=seed_i, **GW_TOPO_KW)
+        topo = sc.topo if hpm is None else dataclasses.replace(sc.topo, hours_per_month=hpm)
+        routing = optimize_routing(topo, sc.demand)
+        policy = None
+        if kind == "hysteresis":
+            tog = topo.stack(routing, torch.float64, device).toggle
+            policy = hysteresis_policy(tog, up_hold=int(rng.integers(1, 6)),
+                                       down_hold=int(rng.integers(1, 6)))
+        elif kind == "replay":
+            policy = replay_policy(topo, routing, sc.demand, rng, device)
+        cfg = RuntimeConfig(routing=routing, policy=policy)
+        return TenantSpec(spec=topo, demand=sc.demand, config=cfg), sc, True
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, kind in enumerate(("reactive", "hysteresis", "replay")):
+        for i in range(n_each):
+            out[f"topo-{kind}{i}"] = topology_tenant(kind, seed + 10 * k + i)
+    for i in range(n_each):
+        sc = build_fleet_scenario(fleet_links, horizon=hours, seed=seed + 100 + i)
+        cfg = RuntimeConfig(policy=replay_policy(sc.fleet, None, sc.demand, rng, device))
+        out[f"fleet-replay{i}"] = (TenantSpec(spec=sc.fleet, demand=sc.demand, config=cfg),
+                                   sc, False)
+    out[LATE] = topology_tenant("hysteresis", seed + 10 + n_each, LATE_HPM)
+    return out
+
+
+def moved_plan(sc, routing):
+    """The routing with every pair that has another candidate moved to it."""
+    idx = routing.primary.copy()
+    for i, pr in enumerate(sc.topo.pairs):
+        others = [c for c in pr.candidates if c != idx[i]]
+        if others:
+            idx[i] = others[0]
+    return sc.topo.plan(idx)
+
+
+def drive_mixed(gw, tenants: dict, ticks: int, reroute_at: int, leave_at: int, K: int,
+                counts=None):
+    """Join the mixed tenants but :data:`LATE`, tick ``ticks`` hours
+    (rerouting the first reactive topology tenant at ``reroute_at``), then
+    chunks of K to the horizon (the first hysteresis one leaving at
+    ``leave_at``, a chunk boundary, and :data:`LATE` joining into its slot,
+    on a clock of its own); with ``counts``, each call's launches checked
+    and counted (:func:`gw_call`). Returns each tenant's outputs by its own
+    hour (from its join) or chunk, and the new routing."""
+    joined = {}
+    for name, (spec, _, _) in tenants.items():
+        if name != LATE:
+            gw.join(name, spec)
+            joined[name] = 0
+    rname, lname = "topo-reactive0", "topo-hysteresis0"
+    sc_r = tenants[rname][1]
+    new_plan = moved_plan(sc_r, tenants[rname][0].config.routing)
+    hours = tenants[rname][1].demand.shape[1]
+    outs = {name: [] for name in tenants}
+    t = 0
+    while t < hours:
+        if t == reroute_at:
+            gw.reroute(rname, new_plan)
+        if t == leave_at:
+            where = lambda h: (h.key, h.bucket, h.slot)
+            freed = where(gw.handle(lname))
+            gw.leave(lname)
+            check(where(gw.join(LATE, tenants[LATE][0])) == freed,
+                  f"{LATE} did not take the slot {lname} freed")
+            joined[LATE] = t
+        k = 1 if t < ticks else K
+        step = gw.tick if k == 1 else (lambda: gw.tick_many(K))
+        got = step() if counts is None else gw_call(gw, step, counts)
+        for name, o in got.items():
+            outs[name].append((t - joined[name], k, o))
+        t += k
+    check(outs[LATE], f"{LATE} never stepped")
+    return outs, new_plan
+
+
+def standalone_mixed(tenants: dict, outs: dict, new_plan, reroute_at: int, device) -> int:
+    """Each mixed tenant's standalone runtime on ``device`` stepped as the
+    gateway stepped it (the reroute too), every output bit for bit."""
+    from repro_torch.fleet import FleetRuntime
+
+    n = 0
+    for name, (spec, sc, _) in tenants.items():
+        c = spec.config
+        rt = FleetRuntime(spec.spec, routing=c.routing, policy=c.policy, device=device)
+        for t, k, got in outs[name]:
+            if name == "topo-reactive0" and t == reroute_at:
+                rt.reroute(new_plan)
+            want = rt.step(sc.demand[:, t]) if k == 1 else rt.step_many(sc.demand[:, t:t + k])
+            same_outputs(got, want, f"{name} at hour {t} (K = {k})")
+            n += 1
+    return n
+
+
+def small_gateway(device):
+    """The card-vs-CPU gateway: GW_SMALL's mixed tenants, cadence 24, ticks
+    to hour 48 (the reroute at 30), then chunks of 24 (the leave at 96).
+    Returns the outputs, the billing totals and the drained windows."""
+    from repro_torch.gateway import FleetGateway, GatewayConfig
+
+    n, links, hours = GW_SMALL
+    tenants = mixed_tenants(device, n, 8, hours, links, SEED + 500)
+    gw = FleetGateway(GatewayConfig(slots_per_bucket=4, cadence=24), device=device)
+    outs, _ = drive_mixed(gw, tenants, 48, 30, 96, 24)
+    check(not gw.check(), f"the small gateway on {device} recorded violations")
+    billing = {name: gw.billing(name) for name in tenants}
+    drained = {name: json.dumps([d.to_json() for d in gw.metrics(name)]) for name in tenants}
+    return outs, billing, drained
+
+
+def pooled_call(gw, b, K: int) -> tuple:
+    """``(args, kwargs)`` of bucket ``b``'s next pooled chunk of K hours."""
+    block, _ = gw._pack(b, K)
+    return b.chunk_args(block, K)
+
+
+def scalar_clock(args, kw) -> tuple:
+    """``(args, kwargs)`` of a pooled call with its clock as ints (every row
+    must share it): the scalar instance's call on the same operands."""
+    clocks = kw["clocks"]
+    t0s = {int(v) for c in clocks[::2] for v in c.tolist()}
+    hpms = {int(v) for v in clocks[1].tolist()}
+    check(len(t0s) == len(hpms) == 1, f"the rows' clocks differ: {t0s}, {hpms}")
+    return [*args, t0s.pop(), hpms.pop()], dict(kw, clocks=None)
+
+
+def pooled_timing_bucket(spec, demand, policy_fn, n: int, device):
+    """A gateway with one bucket of ``n`` tenants of one spec, joined at once
+    (so every row shares one clock), observability off; its bucket."""
+    from repro_torch.gateway import FleetGateway, GatewayConfig, TenantSpec
+
+    gw = FleetGateway(GatewayConfig(slots_per_bucket=n, queue_limit=n, obs=False),
+                      device=device)
+    for i in range(n):
+        gw.join(f"t{i}", TenantSpec(spec=spec, demand=demand * (1.0 + 0.01 * (i % 97)),
+                                    config=policy_fn(i)))
+    for _ in range(3):
+        gw.tick(collect=False)
+    (b,) = gw._live_buckets()
+    return gw, b
+
+
+def staggered_bucket(spec, demand, policy_fn, n: int, device):
+    """A gateway with one bucket of ``n`` tenants of one spec on clocks of
+    their own, observability off: tenant i joins at gateway hour i //
+    GW_STAGGER_JOINS and bills months of GW_STAGGER_HPM[i % 4] hours, and the
+    gateway ticks GW_STAGGER_AFTER hours past the last join, so the slots'
+    first hours run from 20 to 83 (some slots start a month at the next
+    chunk's first hour, others inside it); its bucket."""
+    import dataclasses
+
+    from repro_torch.fleet import FleetSpec
+    from repro_torch.gateway import FleetGateway, GatewayConfig, TenantSpec
+
+    gw = FleetGateway(GatewayConfig(slots_per_bucket=n, queue_limit=n, obs=False),
+                      device=device)
+    # a fleet's calendar is its links' (the config's over stacked arrays), a
+    # topology's its own
+    arrays = spec.stack(torch.float64, device) if isinstance(spec, FleetSpec) else None
+    for i in range(n):
+        while gw.hours < i // GW_STAGGER_JOINS:
+            gw.tick(collect=False)
+        hpm, cfg = GW_STAGGER_HPM[i % 4], policy_fn(i)
+        if arrays is not None:
+            own, cfg = arrays, dataclasses.replace(cfg, hours_per_month=hpm)
+        else:
+            own = dataclasses.replace(spec, hours_per_month=hpm)
+        gw.join(f"s{i}", TenantSpec(spec=own, demand=demand * (1.0 + 0.01 * (i % 97)),
+                                    config=cfg))
+    for _ in range(GW_STAGGER_AFTER):
+        gw.tick(collect=False)
+    (b,) = gw._live_buckets()
+    return gw, b
+
+
+def gateway_phase(card: str) -> dict:
+    """The multi-tenant gateway (``repro_torch.gateway.FleetGateway``) on the
+    card: 256 fleet tenants of 32 links ticking in one bucket, a fresh pool
+    of them in chunks of 24, 256 heterogeneous 2-link tenants, a mixed
+    gateway of topology and fleet tenants under the three policies with a
+    reroute, a leave and a late joiner, the card against the CPU; every
+    pooled launch counted (one per non-empty bucket per tick or chunk), the
+    probe, fresh, heterogeneous and mixed tenants held to standalone card
+    runtimes bit for bit; then the pooled instances against their plain
+    versions on staggered clocks, and timed beside the scalar instance on
+    the same rows."""
+    import gc
+
+    from repro_torch.fleet import (FleetRuntime, RuntimeConfig, build_fleet_scenario,
+                                   forecast_gated_policy, optimize_routing,
+                                   build_topology_scenario, resolve_runtime_operands)
+    from repro_torch.gateway import FleetGateway, GatewayConfig, TenantSpec, bucket_key_for
+    from repro_torch.gateway.pool import stack_slots
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.stream_chunk import _stream_chunk_launch, stream_chunk_routed
+
+    t_phase = time.perf_counter()
+    n_ten, n_links = GW_SHAPE
+    K, ck_cadence, warm_chunks, timed_chunks = GW_CHUNK
+    rows = n_ten * n_links
+
+    # -- the tenants (the replay policies' base streams launch kernels) --------
+    horizon = GW_WARM + GW_TICKS + GW_SPLIT_TICKS + 8
+    base = build_fleet_scenario(n_links, horizon=horizon, seed=SEED)
+    tenant = lambda i, h=horizon: TenantSpec(
+        spec=base.fleet, demand=base.demand * (1.0 + 0.01 * (i % 97)), horizon=h)
+    n_het, het_ticks = GW_HETERO
+    het, want_key, seed = {}, None, 0
+    while len(het) < n_het:
+        seed += 1
+        sc = build_fleet_scenario(2, horizon=24, seed=7000 + seed)
+        key = bucket_key_for(resolve_runtime_operands(sc.fleet, RuntimeConfig(), "cpu"))
+        want_key = key if want_key is None else want_key
+        if key == want_key:
+            het[f"h{len(het)}"] = (sc, [])
+    n_pairs, topo_hours, n_each = GW_TOPO
+    mixed = mixed_tenants(DEVICE, n_each, n_pairs, topo_hours, 16, SEED + 300)
+    res0 = resolve_runtime_operands(base.fleet, RuntimeConfig(), DEVICE)
+    big_arrays = stack_slots([res0.arrays] * n_ten)   # the pool's rows as one fleet
+    big_demand = np.concatenate([base.demand * (1.0 + 0.01 * (i % 97)) for i in range(n_ten)])
+
+    # -- the main path: every launch count at 0, the gateways driven ------------
+    ops.reset_launches()
+    counts, big_calls = {}, 0
+    gw = FleetGateway(GatewayConfig(slots_per_bucket=n_ten, queue_limit=n_ten,
+                                    max_rows=max(4096, n_links), obs=True, cadence=GW_CADENCE))
+    check(gw.device.type == DEVICE.type, "the gateway did not run on the card")
+    a = time.perf_counter()
+    for i in range(n_ten):
+        gw.join(f"t{i:04d}", tenant(i))
+    join_s = time.perf_counter() - a
+    check(gw.n_active == n_ten and gw.n_buckets == 1, f"{gw.n_active} active in "
+          f"{gw.n_buckets} buckets")
+    probes = {f"t{i:04d}": [] for i in (0, n_ten - 1)}
+    for _ in range(GW_WARM):
+        outs = gw_call(gw, gw.tick, counts)
+        for name, got in probes.items():
+            got.append(outs[name])
+    # One standalone runtime over as many links (the pool's operands and
+    # demand stacked as one fleet, observability off), stepped in turns with
+    # the pool's ticks and chunks.
+    big = FleetRuntime(big_arrays, hours_per_month=base.fleet.hours_per_month)
+    for t in range(GW_WARM):
+        big.step(big_demand[:, t])
+    big_calls += GW_WARM
+    tick_s, big_s = np.empty(GW_TICKS), np.empty(GW_TICKS)
+    is_drain = (GW_WARM + np.arange(GW_TICKS) + 1) % GW_CADENCE == 0
+    before = ops.LAUNCHES["stream_chunk_pooled"]
+    gc.disable()
+    try:
+        for k in range(GW_TICKS):
+            a = time.perf_counter()
+            outs = gw.tick()
+            tick_s[k] = time.perf_counter() - a
+            a = time.perf_counter()
+            big.step(big_demand[:, GW_WARM + k])
+            big_s[k] = time.perf_counter() - a
+            for name, got in probes.items():
+                got.append(outs[name])
+    finally:
+        gc.enable()
+    big_calls += GW_TICKS
+    check(ops.LAUNCHES["stream_chunk_pooled"] == before + GW_TICKS,
+          f"{GW_TICKS} ticks of one bucket launched "
+          f"{ops.LAUNCHES['stream_chunk_pooled'] - before} pooled chunks")
+    counts["stream_chunk_pooled"] += GW_TICKS
+    frozen = gw.compiles
+    check(frozen == 1, f"one bucket ticking hourly prepared {frozen} launch shapes, not 1")
+    gw.leave("t0001")
+    gw.join("fresh", tenant(n_ten))
+    check(gw.handle("fresh").status == "active", "the fresh tenant did not take the freed slot")
+    fresh = [gw_call(gw, gw.tick, counts)["fresh"]]     # its hours (None: not collected)
+    check(gw.compiles == frozen, f"churn prepared new launch shapes: {frozen} -> {gw.compiles}")
+    before = ops.LAUNCHES["stream_chunk_pooled"]
+
+    def split_tick(collect):
+        outs = gw.tick(collect=collect)
+        fresh.append(outs["fresh"] if collect else None)
+
+    tick_split = host_split(gw, split_tick, GW_SPLIT_TICKS, True)
+    check(ops.LAUNCHES["stream_chunk_pooled"] == before + GW_SPLIT_TICKS, "the split's ticks")
+    counts["stream_chunk_pooled"] += GW_SPLIT_TICKS
+    violations = gw.check(final=True)
+    check(not violations, f"the fleet pool recorded violations: {violations[:3]}")
+
+    # a fresh pool of the same tenants in chunks of K, in turns with the
+    # standalone runtime's chunks
+    ck_horizon = (warm_chunks + timed_chunks + GW_SPLIT_CHUNKS) * K + 8
+    gw2 = FleetGateway(GatewayConfig(slots_per_bucket=n_ten, queue_limit=n_ten,
+                                     max_rows=max(4096, n_links), obs=True, cadence=ck_cadence))
+    for i in range(n_ten):
+        gw2.join(f"t{i:04d}", tenant(i, ck_horizon))
+    for _ in range(warm_chunks):
+        gw_call(gw2, lambda: gw2.tick_many(K), counts)
+    big2 = FleetRuntime(big_arrays, hours_per_month=base.fleet.hours_per_month)
+    for t in range(0, warm_chunks * K, K):
+        big2.step_many(big_demand[:, t:t + K])
+    big_calls += warm_chunks
+    chunk_s, big_chunk_s = np.empty(timed_chunks), np.empty(timed_chunks)
+    before = ops.LAUNCHES["stream_chunk_pooled"]
+    gc.disable()
+    try:
+        for k in range(timed_chunks):
+            a = time.perf_counter()
+            gw2.tick_many(K)
+            chunk_s[k] = time.perf_counter() - a
+            t = (warm_chunks + k) * K
+            a = time.perf_counter()
+            big2.step_many(big_demand[:, t:t + K])
+            big_chunk_s[k] = time.perf_counter() - a
+    finally:
+        gc.enable()
+    big_calls += timed_chunks
+    check(ops.LAUNCHES["stream_chunk_pooled"] == before + timed_chunks,
+          f"{timed_chunks} chunks of one bucket launched "
+          f"{ops.LAUNCHES['stream_chunk_pooled'] - before} pooled chunks")
+    counts["stream_chunk_pooled"] += timed_chunks
+    chunk_split = host_split(gw2, lambda c: gw2.tick_many(K, collect=c), GW_SPLIT_CHUNKS)
+    counts["stream_chunk_pooled"] += GW_SPLIT_CHUNKS
+    check(gw2.compiles == 1 and not gw2.check(), "the chunked pool")
+
+    # 256 heterogeneous 2-link tenants in one bucket: 6 ticks, then one chunk
+    gw3 = FleetGateway(GatewayConfig(slots_per_bucket=n_het, queue_limit=n_het,
+                                     cadence=het_ticks))
+    for name, (sc, _) in het.items():
+        gw3.join(name, TenantSpec(spec=sc.fleet, demand=sc.demand, horizon=2 * het_ticks))
+    check(gw3.n_buckets == 1, f"the heterogeneous tenants took {gw3.n_buckets} buckets")
+    for _ in range(het_ticks):
+        outs = gw_call(gw3, gw3.tick, counts)
+        for name, (_, got) in het.items():
+            got.append(outs[name])
+    outs = gw_call(gw3, lambda: gw3.tick_many(het_ticks), counts)
+    for name, (_, got) in het.items():
+        got.append(outs[name])
+    check(gw3.compiles == 2 and not gw3.check(), "the heterogeneous pool")
+
+    # the mixed gateway: topology buckets under three policies, fleet replay tenants
+    gw4 = FleetGateway(GatewayConfig(slots_per_bucket=4, cadence=ck_cadence))
+    mixed_out, new_plan = drive_mixed(gw4, mixed, GW_TOPO_TICKS, GW_REROUTE, GW_LEAVE, K, counts)
+    check(not gw4.check(), "the mixed gateway recorded violations")
+    torch.cuda.synchronize()
+    main_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(main_launches == {**counts, "stream_chunk": big_calls},
+          f"the gateways launched {main_launches}, counted {counts} and {big_calls} "
+          f"standalone chunks")
+    for name in POOLED:
+        check(main_launches.get(name, 0) >= 1, f"{name} was not launched on the gateway path")
+    t_main = time.perf_counter() - t_phase
+
+    # -- held against standalone card runtimes ----------------------------------
+    for name, got in probes.items():
+        i = int(name[1:])
+        rt = FleetRuntime(base.fleet)
+        dem = base.demand * (1.0 + 0.01 * (i % 97))
+        for t, g in enumerate(got):
+            same_outputs(g, rt.step(np.ascontiguousarray(dem[:, t])), f"probe {name} at hour {t}")
+    rt = FleetRuntime(base.fleet)
+    dem = base.demand * (1.0 + 0.01 * (n_ten % 97))
+    for t, g in enumerate(fresh):
+        want = rt.step(np.ascontiguousarray(dem[:, t]))
+        if g is not None:
+            same_outputs(g, want, f"the fresh tenant at its hour {t}")
+    n_fresh = sum(g is not None for g in fresh)
+    for name, (sc, got) in het.items():
+        rt = FleetRuntime(sc.fleet)
+        for t in range(het_ticks):
+            same_outputs(got[t], rt.step(sc.demand[:, t]), f"{name} at hour {t}")
+        same_outputs(got[het_ticks], rt.step_many(sc.demand[:, het_ticks:2 * het_ticks]),
+                     f"{name}'s chunk")
+    n_mixed = standalone_mixed(mixed, mixed_out, new_plan, GW_REROUTE, DEVICE)
+    # -- the card against the CPU ----------------------------------------------
+    card_run, cpu_run = small_gateway(DEVICE), small_gateway(torch.device("cpu"))
+    for name in card_run[0]:
+        check(len(card_run[0][name]) == len(cpu_run[0][name]), f"card != CPU gateway: {name}")
+        for (t, k, g), (_, _, c) in zip(card_run[0][name], cpu_run[0][name]):
+            for f in STEP_FIELDS:
+                check(np.array_equal(g[f], c[f], equal_nan=True),
+                      f"card != CPU gateway: {name} {f} at hour {t}")
+    check(card_run[1] == cpu_run[1], "card != CPU gateway billing")
+    check(card_run[2] == cpu_run[2], "card != CPU gateway drained windows")
+    check(all(cpu_run[2].values()), "the small gateway drained nothing")
+
+    steady, drain = tick_s[~is_drain], tick_s[is_drain]
+    per_tick = float(tick_s.mean())
+    tls = n_ten * n_links / per_tick
+    ck_tls = n_ten * n_links * K / float(chunk_s.mean())
+    print(f"gateway: {n_ten} tenants x {n_links} links in one bucket (cadence {GW_CADENCE}, "
+          f"obs on) on {card}: tenant_link_steps_per_s {tls:.4g}, tick mean "
+          f"{per_tick * 1e3:.3f} ms (steady p50 {np.percentile(steady, 50) * 1e3:.3f} / p95 "
+          f"{np.percentile(steady, 95) * 1e3:.3f} / p99 {np.percentile(steady, 99) * 1e3:.3f} "
+          f"ms; drain ticks {drain.mean() * 1e3:.3f} ms, {drain.size} of them), join "
+          f"{join_s:.3f} s ({n_ten / join_s:.1f} joins/s); chunked (K = {K}, cadence "
+          f"{ck_cadence}) {ck_tls:.4g} tenant-link-steps/s ({chunk_s.mean() * 1e3:.3f} ms a "
+          f"chunk); prepared launch shapes {gw.compiles}, churn prepared none")
+    print_split(f"a tick ({GW_SPLIT_TICKS} ticks after the timed ones; outputs: collect on "
+                f"minus off, in turns)", tick_split)
+    print_split(f"a chunk of {K} ({GW_SPLIT_CHUNKS} chunks, one drain)", chunk_split)
+    print(f"  one standalone FleetRuntime over {rows} links (obs off), in turns: K = 1 "
+          f"{big_s.mean() * 1e3:.3f} ms a step (p50 {np.percentile(big_s, 50) * 1e3:.3f}), "
+          f"{rows / big_s.mean():.4g} link-steps/s; K = {K} {big_chunk_s.mean() * 1e3:.3f} ms a "
+          f"chunk, {rows * K / big_chunk_s.mean():.4g} link-steps/s")
+    print(f"  launches on the gateway path: {main_launches} (one per non-empty bucket per tick "
+          f"or chunk); probes t0000 and t{n_ten - 1:04d} == standalone card runtimes on every "
+          f"field of {len(probes['t0000'])} hours, the fresh tenant (joined at hour "
+          f"{GW_WARM + GW_TICKS}, its own clock) on {n_fresh} of its first {len(fresh)} hours; "
+          f"{n_het} heterogeneous 2-link tenants == their "
+          f"standalone card runtimes over {het_ticks} ticks and a chunk; the mixed gateway "
+          f"({len(mixed)} tenants: topology x reactive/hysteresis/replay, fleet replay; a "
+          f"reroute at {GW_REROUTE}, a leave at {GW_LEAVE} and {LATE} ({LATE_HPM}-hour months) "
+          f"into its slot) == standalone card runtimes in "
+          f"{n_mixed} ticks and chunks; the card's small gateway == the CPU's in every output, "
+          f"billing total and drained window ({t_main:.1f} s for the main path)")
+
+    # -- the pooled instances against their plain versions, timed --------------
+    topo = build_topology_scenario(n_pairs, horizon=topo_hours, seed=SEED, **GW_TOPO_KW)
+    plan = optimize_routing(topo.topo, topo.demand)
+    rng = np.random.default_rng(SEED)
+    fleet_tog = res0.arrays.toggle
+    topo_tog = topo.topo.stack(plan, torch.float64, DEVICE).toggle
+
+    def replay_cfg(tog, routing=None, cols=512):
+        M = tog.h.shape[0]
+        pred = rng.uniform(0.0, 300.0, (M, cols))
+        coef = np.stack([rng.uniform(0.5, 1.5, M), rng.uniform(0.3, 0.6, M),
+                         rng.uniform(0.5, 1.5, M), rng.uniform(0.3, 0.6, M)], axis=1)
+        return RuntimeConfig(routing=routing, policy=forecast_gated_policy(
+            tog, pred, margin=0.05, cost_coef=coef))
+
+    buckets = {
+        "stream_chunk_pooled": (base.fleet, base.demand, lambda i: RuntimeConfig()),
+        "stream_chunk_pooled_gated": (base.fleet, base.demand,
+                                      lambda i: replay_cfg(fleet_tog)),
+        "stream_chunk_routed_pooled": (topo.topo, topo.demand,
+                                       lambda i: RuntimeConfig(routing=plan)),
+        "stream_chunk_routed_pooled_gated": (topo.topo, topo.demand,
+                                             lambda i: replay_cfg(topo_tog, plan)),
+    }
+    stagger_cfg = {
+        "stream_chunk_pooled": lambda i: RuntimeConfig(),
+        "stream_chunk_pooled_gated": lambda i: replay_cfg(fleet_tog,
+                                                          cols=GW_STAGGER_PRED[i % 4]),
+        "stream_chunk_routed_pooled": lambda i: RuntimeConfig(routing=plan),
+        "stream_chunk_routed_pooled_gated": lambda i: replay_cfg(topo_tog, plan,
+                                                                 GW_STAGGER_PRED[i % 4]),
+    }
+    for name, (spec, dem, _) in buckets.items():
+        gws, bs = staggered_bucket(spec, dem, stagger_cfg[name], n_ten, DEVICE)
+        routed = bs.key.topology
+        plain = ref.stream_chunk_routed_ref if routed else ref.stream_chunk_ref
+        ahead = (-bs.t) % bs.hpm                     # hours to each slot's next month start
+        own_pred = np.zeros(bs.n_slots, np.int64)    # each slot's T_pred before the padding
+        for i in range(bs.n_slots):
+            own_pred[gws.handle(f"s{i}").slot] = GW_STAGGER_PRED[i % 4]
+        past = int((bs.t + max(k for _, k in GW_STAGGER_FORMS[routed]) > own_pred).sum())
+        check(bs.gate is None or past > 0, f"{name}: no slot reads past its T_pred")
+        for form, Kt_ in GW_STAGGER_FORMS[routed]:
+            check((ahead == 0).any() if Kt_ == 1 else ((ahead > 0) & (ahead < Kt_)).any(),
+                  f"{name}: no slot starts a month in a chunk of {Kt_}")
+            args, kw = pooled_call(gws, bs, Kt_)
+            before = ops.LAUNCHES[name]
+            got, got_fsm = (stream_chunk_routed(*args, **kw) if routed else
+                            _stream_chunk_launch(form, *args, **kw))
+            check(ops.LAUNCHES[name] == before + 1, f"{name} did not launch its pooled instance")
+            want, want_fsm = plain(*args, **kw)
+            check(same_bits(got, want) and same_bits(got_fsm, want_fsm),
+                  f"{name} on staggered clocks, {form} form at K = {Kt_}, != its plain version")
+        print(f"  {name} at {bs.n_slots} slots on staggered clocks (first hours "
+              f"{int(bs.t.min())}..{int(bs.t.max())}, {len(set(bs.t.tolist()))} distinct; months of "
+              f"{sorted(set(bs.hpm.tolist()))} h; {int((ahead == 0).sum())} slots start a month at "
+              f"the chunk's first hour"
+              + ("" if bs.gate is None else f"; T_pred {GW_STAGGER_PRED} padded to "
+                 f"{bs.gate[3]} columns, {past} slots read past their own in the longest chunk")
+              + f") == its plain version in every bit: "
+              f"{', '.join(f'{f} K = {k}' for f, k in GW_STAGGER_FORMS[routed])}")
+        del gws, bs
+    rows_out = {}
+    print(f"  pooled instances at {n_ten} slots (profiler device time, one common clock so "
+          f"the scalar instance runs the same operands; bound = max(bytes / 3.35 TB/s, float64 "
+          f"lane operations / peak); {card}):")
+    for name, (spec, dem, cfg_fn) in buckets.items():
+        gwt, bt = pooled_timing_bucket(spec, dem, cfg_fn, n_ten, DEVICE)
+        routed = bt.key.topology
+        gated = bt.gate is not None
+        kern = "routed_chunk_kernel" if routed else "stream_chunk_"
+        launch = (lambda a, kw: stream_chunk_routed(*a, **kw)) if routed else \
+            (lambda a, kw: _stream_chunk_launch("auto", *a, **kw))
+        plain = ref.stream_chunk_routed_ref if routed else ref.stream_chunk_ref
+        for Kt_ in GW_TIMED_K:
+            args, kw = pooled_call(gwt, bt, Kt_)
+            got, got_fsm = launch(args, kw)
+            want, want_fsm = plain(*args, **kw)
+            check(same_bits(got, want) and same_bits(got_fsm, want_fsm),
+                  f"{name} at K = {Kt_} != its plain version")
+            sargs, skw = scalar_clock(args, kw)
+            sgot, sfsm = launch(sargs, skw)
+            check(same_bits(sgot, got) and same_bits(sfsm, got_fsm),
+                  f"{name} at K = {Kt_}: one common clock != the scalar instance")
+            ms = kernel_device_ms(lambda: launch(args, kw), 30, [kern], per_call=1)[kern]
+            sms = kernel_device_ms(lambda: launch(sargs, skw), 30, [kern], per_call=1)[kern]
+            plain_ms = sync_ms(lambda: plain(*args, **kw), 3)
+            S, M, P = bt.n_slots, bt.key.rows_cap, bt.key.pairs_cap
+            Kt = bt.key.n_tiers
+            if routed:
+                work = routed_chunk_work(S * P, S * M, Kt_, Kt, S * bt.key.legs_cap, False, gated)
+                bnd = bound(work[0] + 4 * (2 * S * P + S * M), work[1], torch.float64)
+            else:
+                work = stream_chunk_work(S * M, Kt_, Kt, False, gated)
+                bnd = lane_bound(work[0] + 4 * 2 * S * M, work[1], torch.float64)
+            print(f"    {name:33s} K = {Kt_:2d}: {ms:.5f} ms (scalar instance {sms:.5f} ms, "
+                  f"ratio {ms / sms:.3f}), plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.6f} "
+                  f"ms ({bnd['bound_by']}), {ms / bnd['bound_ms']:.1f}x bound; == plain and == "
+                  f"the scalar instance in every bit")
+            if Kt_ == STREAM_K:
+                rows_out[name] = {"launches": main_launches.get(name, 0), "max_abs_err": 0.0,
+                                  "ms": ms, "plain_ms": plain_ms, **bnd,
+                                  "scalar_ms": sms, "shape": f"{S} x {M} rows x {Kt_}"}
+    print_stream_registers(("pooled",))
+    print(f"gateway phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows_out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -5136,6 +5807,7 @@ def main() -> int:
     fs_rows = forecast_stream_phase(card.splitlines()[0], fc_ctx, topo_ctx)
     live_rows, live_ctx = forecast_live_phase(card.splitlines()[0], fc_ctx, topo_ctx)
     obs_phase(card.splitlines()[0], scen[N_big], plans[N_big, False], topo_ctx, live_ctx)
+    gw_rows = gateway_phase(card.splitlines()[0])
 
     N, T = SIZES[-1]
     rows = timing[N]
@@ -5217,6 +5889,13 @@ def main() -> int:
          "source": "src/repro_torch/csrc/stream_chunk_routed.cu",
          "replaces": "src/repro/fleet/runtime.py:556", **live_rows["stream_chunk_routed_live"]},
     ]
+    for name, row in gw_rows.items():   # the pooled instances: the gateway's tick and chunk
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/csrc/" + (
+                            "stream_chunk_routed.cu" if "routed" in name else "stream_chunk.cu"),
+                        "replaces": "src/repro/gateway/gateway.py:402",
+                        "replaces_chunk": "src/repro/gateway/gateway.py:522", **row,
+                        "library_ms": None})
     print(f"profiler: {len(PAD_SEEN)} traces; pad kernels recorded of {TRACE_PADS}, by trace: "
           f"{PAD_SEEN}; timed by CUDA events where no trace held every launch: "
           f"{EVENT_TIMED or 'none'}")

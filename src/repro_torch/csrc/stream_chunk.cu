@@ -125,8 +125,23 @@
 // 700 W, against the replay instance's 0.00454, with a 264-byte spill;
 // PERF.md.) The FSM warp stays integer-only.
 
+// The multi-tenant gateway's POOLED instances (the template's PL; kUngated
+// and kReplay, no live mode): a bucket of tenants stacked into one call, each
+// row with its own clock, since tenants join at different gateway hours
+// (src/repro/gateway/gateway.py:402-428 vmaps the standalone tick over the
+// pool's slots, each slot's t and hours_per_month its own). A row reads its
+// first hour t0_row[n] and its hours_per_month hpm_row[n] once, with its other
+// operands; its month phase is t0 % hpm, formed where the scalar instances
+// read the call's. In the tick form the row's thread holds them; in the chunk
+// form each pair thread holds its row's t0 (window base, gate column) and the
+// calendar warp's lane its row's phase and hpm, stepping them hour by hour as
+// the scalar lane steps the call's. Everything else is the scalar instance's
+// code, so a pool whose rows share one clock gives its bits.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "fsm_step.cuh"
 #include "live_forecast.cuh"
@@ -194,7 +209,50 @@ struct ChunkArgs {
   const double* coef;        // (M, 4) the cost coefficients [a_vpn, b_vpn, a_cci, b_cci]
   int S;
   float* h_out;              // (M, S)
+  const int* t0_row;         // (M,) the PL instances' first hour of each row
+  const int* hpm_row;        // (M,) and its hours per month
 };
+
+// A row's own clock in the PL instances, read once with its other operands:
+// its first hour and hours per month ({0, 1} for a lane with no row). The
+// others hold none (NoClock), so their code path is the scalar kernel's as it
+// was.
+struct RowClock {
+  int t0 = 0, hpm = 1;
+};
+struct NoClock {};
+
+template <bool PL>
+using ClockOf = std::conditional_t<PL, RowClock, NoClock>;
+
+template <bool PL>
+__device__ __forceinline__ ClockOf<PL> row_clock(const ChunkArgs& a, int n) {
+  if constexpr (PL) {
+    return {a.t0_row[n], a.hpm_row[n]};
+  } else {
+    return {};
+  }
+}
+
+// The chunk's first hour, hours per month and month phase ((t0 + k) %
+// hours_per_month at k = 0) of a row holding clock c: the row's own in the
+// PL instances; the call's, read where it is used, in the others (whose code
+// path is then the scalar kernel's as it was).
+template <bool PL>
+__device__ __forceinline__ int first_hour(const ChunkArgs& a, const ClockOf<PL>& c) {
+  if constexpr (PL) return c.t0;
+  else return a.t0;
+}
+template <bool PL>
+__device__ __forceinline__ int month_hours(const ChunkArgs& a, const ClockOf<PL>& c) {
+  if constexpr (PL) return c.hpm;
+  else return a.hours_per_month;
+}
+template <bool PL>
+__device__ __forceinline__ int month_phase(const ChunkArgs& a, const ClockOf<PL>& c) {
+  if constexpr (PL) return c.t0 % c.hpm;
+  else return a.phase0;
+}
 
 __device__ __forceinline__ fsm::FsmRow fsm_row(const ChunkArgs& a, int n) {
   return {a.theta1[n], a.theta2[n], a.delay[n], a.commit[n], a.up_hold[n], a.down_hold[n],
@@ -209,19 +267,22 @@ __device__ __forceinline__ fsm::FsmCarry fsm_carry(const ChunkArgs& a, int n) {
 }
 
 // The hour of the predicted-cost planes that chunk hour k reads, row-major
-// offset of row n: the JAX runtime's clip(t0 + k, 0, T_pred - 1).
-__device__ __forceinline__ int64_t gate_at(const ChunkArgs& a, int k, int n) {
-  return (int64_t)min(a.t0 + k, a.T_pred - 1) * a.M + n;
+// offset of row n whose chunk starts at t0: the JAX runtime's clip(t0 + k, 0,
+// T_pred - 1).
+__device__ __forceinline__ int64_t gate_at(const ChunkArgs& a, int t0, int k, int n) {
+  return (int64_t)min(t0 + k, a.T_pred - 1) * a.M + n;
 }
 
 // ---------------------------------------------------------------- tick form
 
-// K hours; tables of at most KT tiers, padded to KT; G: the gate mode
-template <int K, int KT, int G>
+// K hours; tables of at most KT tiers, padded to KT; G: the gate mode; PL:
+// one clock per row (the pooled instance)
+template <int K, int KT, int G, bool PL>
 __global__ void __launch_bounds__(kTickThreads, 8)
 stream_chunk_tick_kernel(const ChunkArgs a) {
   const int n = blockIdx.x * kTickThreads + threadIdx.x;
   if (n >= a.M) return;
+  const ClockOf<PL> ck = row_clock<PL>(a, n);
   const int M = a.M;
   const int64_t KM = (int64_t)K * M;
   const bool endo = a.cci_demand != nullptr;
@@ -237,8 +298,8 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
     bv[k] = a.pre_v[i];
     bc[k] = a.pre_c[i];
     if constexpr (G == kReplay) {
-      gv[k] = a.p_vpn[gate_at(a, k, n)];
-      gc[k] = a.p_cci[gate_at(a, k, n)];
+      gv[k] = a.p_vpn[gate_at(a, first_hour<PL>(a, ck), k, n)];
+      gc[k] = a.p_cci[gate_at(a, first_hour<PL>(a, ck), k, n)];
     }
   }
   double tb[KT], tr[KT];                  // past Kt: the last bound, rate 0 (terms +0.0)
@@ -301,13 +362,13 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
 #pragma unroll
     for (int k = 0; k < K; ++k) pr[k] = live::prediction(live::ssm_readout(u[k], acc[k], b), scale);
   }
-  int ph = a.phase0;                       // (t0 + k) % hours_per_month
+  int ph = month_phase<PL>(a, ck);         // (t0 + k) % hours_per_month
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     if (ph == 0) month = dcum;
     lo[k] = __dsub_rn(dcum, month);
     dcum = __dadd_rn(dcum, d[k]);
-    ph = ph + 1 == a.hours_per_month ? 0 : ph + 1;
+    ph = ph + 1 == month_hours<PL>(a, ck) ? 0 : ph + 1;
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -326,7 +387,7 @@ stream_chunk_tick_kernel(const ChunkArgs a) {
   for (int k = 0; k < K; ++k) {
     const int64_t i = (int64_t)k * M + n;
     // the window base: the host's read before t0, else this chunk's snapshot
-    const int lw = max(0, a.t0 + k - h) - a.t0;
+    const int lw = max(0, first_hour<PL>(a, ck) + k - h) - first_hour<PL>(a, ck);
     double base_v = bv[k], base_c = bc[k];
 #pragma unroll
     for (int j = 0; j <= k; ++j) {
@@ -477,7 +538,7 @@ __device__ __forceinline__ void live_tile(const ChunkArgs& a, LiveTile<kTile>& l
   }
 }
 
-template <int S, int G>
+template <int S, int G, bool PL>
 __global__ void __launch_bounds__(32 * (4 * S + 3), 1)
 stream_chunk_pipe_kernel(const ChunkArgs a) {
   constexpr int kTile = kSub * S;
@@ -513,7 +574,9 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
     [[maybe_unused]] double scale = 0.0;
     [[maybe_unused]] float bias = 0.0f;
     int h = 0;
+    ClockOf<PL> ck = {};                   // PL: the row's clock (window base, gate column)
     if (has_row) {
+      if constexpr (PL) ck = row_clock<PL>(a, n);
       cap = a.capacity[n];
       lvpn = a.L_vpn[n];
       lease = a.lease_cci[n];
@@ -541,8 +604,8 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
         bv = a.pre_v[i];
         bc = a.pre_c[i];
         if constexpr (G == kReplay) {
-          gv = a.p_vpn[gate_at(a, k0 + kk, n)];
-          gc = a.p_cci[gate_at(a, k0 + kk, n)];
+          gv = a.p_vpn[gate_at(a, first_hour<PL>(a, ck), k0 + kk, n)];
+          gc = a.p_cci[gate_at(a, first_hour<PL>(a, ck), k0 + kk, n)];
         }
       }
       if (k0 == 0) {
@@ -569,7 +632,8 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
         }
       }
       __syncthreads();   // the tables and forecasts; every role done with the last tile
-      const int lw = max(0, a.t0 + k0 + kk - h) - a.t0;   // the window base's hour
+      const int t0 = first_hour<PL>(a, ck);
+      const int lw = max(0, t0 + k0 + kk - h) - t0;   // the window base's hour
       if (mine && lw >= 0 && lw < k0) {                    // an earlier tile's snapshot
         bv = a.out[4 * KM + (int64_t)lw * M + n];
         bc = a.out[5 * KM + (int64_t)lw * M + n];
@@ -635,12 +699,14 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
   if (role == 0) {
     const bool has = lane < rows;
     double cap = 0.0, dcum = 0.0, month = 0.0;
+    ClockOf<PL> ck = {};                   // PL: the row's clock
     if (has) {
+      if constexpr (PL) ck = row_clock<PL>(a, n);
       cap = a.capacity[n];
       dcum = a.cal_in[n];
       month = a.cal_in[M + n];
     }
-    int ph = a.phase0;                     // (t0 + k) % hours_per_month
+    int ph = month_phase<PL>(a, ck);       // (t0 + k) % hours_per_month
     for (int k0 = 0; k0 < K; k0 += kTile) {
       const int len = min(kTile, K - k0);
       double dv[kTile];                    // the tile's demand, loads in flight at once
@@ -656,7 +722,7 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
         const double lo = __dsub_rn(dcum, month);
         if (has) sm.lo[k][lane] = lo;
         dcum = __dadd_rn(dcum, tier::min_sel(dv[k], cap));
-        ph = ph + 1 == a.hours_per_month ? 0 : ph + 1;
+        ph = ph + 1 == month_hours<PL>(a, ck) ? 0 : ph + 1;
       };
       // the calendar's hours of sub-tile j
       auto calendar = [&](int j) {
@@ -757,58 +823,60 @@ stream_chunk_pipe_kernel(const ChunkArgs a) {
 }
 
 // The live instance has no tick form past kTickMaxKLive (its chunk form is
-// faster there), so none is compiled.
-template <int K, int G>
+// faster there), so none is compiled; nor has it a pooled instance.
+template <int K, int G, bool PL>
 int launch_tick(const ChunkArgs& a, cudaStream_t stream) {
-  if constexpr (G == kLive && K > kTickMaxKLive) {
+  if constexpr (G == kLive && (K > kTickMaxKLive || PL)) {
     return (int)cudaErrorInvalidValue;
   } else {
     const int blocks = (a.M + kTickThreads - 1) / kTickThreads;
     if (a.Kt <= kTickMaxTiers / 2)
-      stream_chunk_tick_kernel<K, kTickMaxTiers / 2, G>
+      stream_chunk_tick_kernel<K, kTickMaxTiers / 2, G, PL>
           <<<blocks, kTickThreads, 0, stream>>>(a);
     else
-      stream_chunk_tick_kernel<K, kTickMaxTiers, G><<<blocks, kTickThreads, 0, stream>>>(a);
+      stream_chunk_tick_kernel<K, kTickMaxTiers, G, PL><<<blocks, kTickThreads, 0, stream>>>(a);
     return (int)cudaGetLastError();
   }
 }
 
-template <int S, int G>
+template <int S, int G, bool PL>
 int launch_pipe(const ChunkArgs& a, cudaStream_t stream) {
+  if constexpr (G == kLive && PL) return (int)cudaErrorInvalidValue;
   // the tables, then (kLive) the tile's forecasts
   const size_t tables = sizeof(double) * 2 * kRows * (size_t)a.Kt +
                         (G == kLive ? sizeof(LiveTile<kSub * S>) : 0);
   if (sizeof(PipeTile<kSub * S>) + tables > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (sizeof(PipeTile<kSub * S>) + tables > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(stream_chunk_pipe_kernel<S, G>,
+    const cudaError_t err = cudaFuncSetAttribute(stream_chunk_pipe_kernel<S, G, PL>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)tables);
     if (err != cudaSuccess) return (int)err;
   }
-  stream_chunk_pipe_kernel<S, G>
+  stream_chunk_pipe_kernel<S, G, PL>
       <<<(a.M + kRows - 1) / kRows, 32 * (4 * S + 3), tables, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The launch of `form` (the C entry's) in the instance of gate mode G.
-template <int G>
+// The launch of `form` (the C entry's) in the instance of gate mode G and
+// clocks PL.
+template <int G, bool PL>
 int launch(const ChunkArgs& a, int form, cudaStream_t s) {
   if (form == 0) {
     if (a.K > (G == kLive ? kTickMaxKLive : kTickMaxK) || a.Kt > kTickMaxTiers)
       return (int)cudaErrorInvalidValue;
     switch (a.K) {
-      case 1: return launch_tick<1, G>(a, s);
-      case 2: return launch_tick<2, G>(a, s);
-      case 3: return launch_tick<3, G>(a, s);
-      case 4: return launch_tick<4, G>(a, s);
-      case 5: return launch_tick<5, G>(a, s);
+      case 1: return launch_tick<1, G, PL>(a, s);
+      case 2: return launch_tick<2, G, PL>(a, s);
+      case 3: return launch_tick<3, G, PL>(a, s);
+      case 4: return launch_tick<4, G, PL>(a, s);
+      case 5: return launch_tick<5, G, PL>(a, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (form) {
-    case 1: return launch_pipe<1, G>(a, s);
-    case 2: return launch_pipe<2, G>(a, s);
-    case 3: return launch_pipe<kMaxSubs, G>(a, s);
+    case 1: return launch_pipe<1, G, PL>(a, s);
+    case 2: return launch_pipe<2, G, PL>(a, s);
+    case 3: return launch_pipe<kMaxSubs, G, PL>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -843,7 +911,9 @@ extern "C" int stream_chunk_live_math(const void* x, void* y, long long n, int f
 // in replay mode; h_in (M, S), pred_in (M,), the forecaster's a, 1 - a, w
 // (S,) and bias, scale (M,), coef (M, 4) and margin (M,) the live instance
 // (out then (9K + 4, M), h_out (M, S)); null p_vpn and h_in the
-// reactive/hysteresis one (T_pred and S are then not read).
+// reactive/hysteresis one (T_pred and S are then not read). t0_row and
+// hpm_row (M,) select the pooled instance (t0 and hours_per_month are then
+// not read; no live mode); null, the call's clock.
 extern "C" int stream_chunk_f64(const double* demand, const double* cci_demand,
                                 const double* pre_v, const double* pre_c,
                                 const double* capacity, const double* L_vpn,
@@ -858,26 +928,30 @@ extern "C" int stream_chunk_f64(const double* demand, const double* cci_demand,
                                 const double* pred_in, const float* ssm_a,
                                 const float* ssm_oma, const float* ssm_w,
                                 const float* ssm_bias, const double* scale,
-                                const double* coef, int renew_in_chunks, int t0,
+                                const double* coef, const int* t0_row,
+                                const int* hpm_row, int renew_in_chunks, int t0,
                                 int hours_per_month, int K, int M, int Kt, int form,
                                 int T_pred, int S, double* out, int* fsm_out, float* h_out,
                                 void* stream) {
   if (M == 0) return (int)cudaSuccess;
   if (M < 0 || K < 1 || Kt < 0 || t0 < 0 || hours_per_month < 1)
     return (int)cudaErrorInvalidValue;
-  const bool gated = p_vpn != nullptr, live = h_in != nullptr;
+  const bool gated = p_vpn != nullptr, live = h_in != nullptr, pooled = t0_row != nullptr;
   if (gated && (live || p_cci == nullptr || margin == nullptr || T_pred < 1))
     return (int)cudaErrorInvalidValue;
   if (live && (pred_in == nullptr || ssm_a == nullptr || ssm_oma == nullptr ||
                ssm_w == nullptr || ssm_bias == nullptr || scale == nullptr ||
                coef == nullptr || margin == nullptr || h_out == nullptr || S < 1))
     return (int)cudaErrorInvalidValue;
+  if (pooled && (live || hpm_row == nullptr)) return (int)cudaErrorInvalidValue;
   const ChunkArgs a = {demand, cci_demand, pre_v, pre_c, capacity, L_vpn, lease_cci, c_cci,
                        bounds, rates, theta1, theta2, h, D, T_cci, up_hold, down_hold,
                        cal_in, fsm_in, pref_in, p_vpn, p_cci, margin, renew_in_chunks, t0,
                        t0 % hours_per_month, hours_per_month, K, M, Kt, T_pred, out, fsm_out,
-                       h_in, pred_in, ssm_a, ssm_oma, ssm_w, ssm_bias, scale, coef, S, h_out};
+                       h_in, pred_in, ssm_a, ssm_oma, ssm_w, ssm_bias, scale, coef, S, h_out,
+                       t0_row, hpm_row};
   const cudaStream_t s = (cudaStream_t)stream;
-  return gated ? launch<kReplay>(a, form, s)
-               : live ? launch<kLive>(a, form, s) : launch<kUngated>(a, form, s);
+  if (pooled) return gated ? launch<kReplay, true>(a, form, s) : launch<kUngated, true>(a, form, s);
+  return gated ? launch<kReplay, false>(a, form, s)
+               : live ? launch<kLive, false>(a, form, s) : launch<kUngated, false>(a, form, s);
 }

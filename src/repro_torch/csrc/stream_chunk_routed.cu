@@ -125,9 +125,25 @@
 // made after each hour are the result's ninth (K, M) plane (the tail moves
 // to 9K).
 
+// The multi-tenant gateway's POOLED instances (the template's PL; kUngated and
+// kReplay): a bucket of topology tenants stacked into one call, their legs
+// block-diagonal (each slot's pairs and ports a range of their own), each
+// with its own clock (src/repro/gateway/gateway.py:402-428). A pair's billing
+// calendar starts its months at its own phase: the leg threads read their
+// pair's first hour and hours per month beside its capacity (stage_leg), the
+// calendar warp its lane's pair's. A port's window bases and replay gate
+// column follow its port's first hour, which warp 0 reads beside the
+// thresholds. The clocks live in PooledArgs, PooledLegCarry and the
+// PairClockOf / PortClockOf locals, which only the PL instances hold: the
+// others take RoutedArgs and LegCarry and read the call's clock where they
+// did, so their code path is the scalar kernel's as it was, and a pool whose
+// rows share one clock gives its bits.
+
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "fsm_step.cuh"
 #include "live_forecast.cuh"
@@ -196,6 +212,43 @@ struct RoutedArgs {
   int* fsm_out;                 // (4, M)
   float* h_out;                 // (M, S)
 };
+
+// The PL instances' operands: the call's, and each pair's and port's clock.
+struct PooledArgs : RoutedArgs {
+  const int* t0_port;           // (M,) each port's first hour
+  const int* hpm_pair;          // (P,) each pair's hours per month
+  const int* t0_pair;           // (P,) and first hour
+};
+
+template <bool PL>
+using ArgsOf = std::conditional_t<PL, PooledArgs, RoutedArgs>;
+
+// A pair's own calendar clock (PL): its month phase at the chunk's first hour
+// and its hours per month, read once with its other scalars ({0, 1} for a
+// lane with no pair). The others hold none (NoClock).
+struct PairClock {
+  int phase = 0, hpm = 1;
+};
+struct NoClock {};
+
+template <bool PL>
+using PairClockOf = std::conditional_t<PL, PairClock, NoClock>;
+// A port's own first hour (PL).
+template <bool PL>
+using PortClockOf = std::conditional_t<PL, int, NoClock>;
+
+// The first hour of a port holding t0p: its own in the PL instances, the
+// call's, read where it is used, in the others.
+template <bool PL>
+__device__ __forceinline__ int first_hour(const ArgsOf<PL>& a, const PortClockOf<PL>& t0p) {
+  if constexpr (PL) return t0p;
+  else return a.t0;
+}
+
+__device__ __forceinline__ PairClock pair_clock(const PooledArgs& a, int pr) {
+  const int hpm = a.hpm_pair[pr];
+  return {a.t0_pair[pr] % hpm, hpm};
+}
 
 // The port block's static shared memory: the leg tile's weights and L_vpn,
 // and one hour tile's per-hour values of the port half.
@@ -292,13 +345,22 @@ struct LegCarry {
   double cap, lvpn, dcum, month;
 };
 
+// The PL instances' leg carry: also the pair's clock.
+struct PooledLegCarry : LegCarry {
+  PairClock ck;
+};
+
+template <bool PL>
+using CarryOf = std::conditional_t<PL, PooledLegCarry, LegCarry>;
+
 // Thread j of a port block's leg tile, before the block gathers the tile: the
 // leg's descriptors into shared memory (one round trip), then its pair's
 // scalars into registers, in flight through the gather: the calendar carry
 // is the pair's own at the chunk's first hour tile, else this thread's store
-// of the last.
-__device__ __forceinline__ LegCarry stage_leg(const RoutedArgs& a, PortSmem& sm, int s0, int j,
-                                              int k0) {
+// of the last. PL: the pair's clock too.
+template <bool PL>
+__device__ __forceinline__ CarryOf<PL> stage_leg(const ArgsOf<PL>& a, PortSmem& sm, int s0,
+                                                 int j, int k0) {
   const int pos = s0 + j;
   const int pr = a.leg_pair[pos];
   sm.lp[j] = pr;
@@ -312,7 +374,11 @@ __device__ __forceinline__ LegCarry stage_leg(const RoutedArgs& a, PortSmem& sm,
     c.dcum = a.leg_cal[pos];
     c.month = a.leg_cal[a.E + pos];
   }
-  return c;
+  if constexpr (PL) {
+    return PooledLegCarry{c, pair_clock(a, pr)};
+  } else {
+    return c;
+  }
 }
 
 // Every thread, one (row, hour) a copy: the tile's hours of rows 0..nl - 1
@@ -380,11 +446,18 @@ __device__ __forceinline__ void clip_rows(const RoutedArgs& a, double* plane, co
 // of the clipped-demand plane, one add an hour on the chain, the month
 // restarting at the tile's month starts (the same hours for every row).
 // Leaves the month-to-date volume before each hour in row j of LO, and the
-// carry in c.
-__device__ __forceinline__ void row_calendar(const RoutedArgs& a, double* dyn, LegCarry& c,
+// carry in c. PL: on its pair's own clock, else on the call's.
+template <bool PL>
+__device__ __forceinline__ void row_calendar(const ArgsOf<PL>& a, double* dyn, CarryOf<PL>& c,
                                              int j, int k0, int len) {
-  const int hpm = a.hours_per_month;
-  const int ph0 = (a.phase0 + k0) % hpm;
+  int hpm, ph0;
+  if constexpr (PL) {
+    hpm = c.ck.hpm;
+    ph0 = (c.ck.phase + k0) % hpm;
+  } else {
+    hpm = a.hours_per_month;
+    ph0 = (a.phase0 + k0) % hpm;
+  }
   unsigned starts = 0;                      // bit k: hour k0 + k starts a month
   for (int k = ph0 == 0 ? 0 : hpm - ph0; k < len; k += hpm) starts |= 1u << k;
   const double* drow = dyn + (size_t)j * a.stride;
@@ -407,15 +480,19 @@ __device__ __forceinline__ void row_calendar(const RoutedArgs& a, double* dyn, L
 // pair-major block into its rows of shared memory (a row a copy's worth of
 // words at a time), then each lane clips its row and walks its calendar.
 // Each pair's carry is written once, into the result's tail.
-template <int G>
-__device__ __forceinline__ void calendar_slice(const RoutedArgs& a, double* rows, int b,
+// PL: each lane's pair on its own clock, else on the call's.
+template <int G, bool PL>
+__device__ __forceinline__ void calendar_slice(const ArgsOf<PL>& a, double* rows, int b,
                                                int nblocks, int lane) {
   const int S = (a.P + nblocks - 1) / nblocks;
-  const int n_end = min(a.P, (b + 1) * S), st = a.stride, hpm = a.hours_per_month;
+  const int n_end = min(a.P, (b + 1) * S), st = a.stride;
+  [[maybe_unused]] const int hpm_call = a.hours_per_month;
   for (int c0 = b * S; c0 < n_end; c0 += 32) {
     const int nc = min(32, n_end - c0), n = c0 + lane;
     double cap = 0.0, dcum = 0.0, month = 0.0;
+    PairClockOf<PL> ck = {};
     if (lane < nc) {
+      if constexpr (PL) ck = pair_clock(a, n);
       cap = a.pair_capacity[n];
       dcum = a.cal_in[n];
       month = a.cal_in[a.P + n];
@@ -429,7 +506,14 @@ __device__ __forceinline__ void calendar_slice(const RoutedArgs& a, double* rows
       __pipeline_wait_prior(0);
       __syncwarp();
       if (lane < nc) {
-        const int ph0 = (a.phase0 + k0) % hpm;
+        int hpm, ph0;
+        if constexpr (PL) {
+          hpm = ck.hpm;
+          ph0 = (ck.phase + k0) % hpm;
+        } else {
+          hpm = hpm_call;
+          ph0 = (a.phase0 + k0) % hpm;
+        }
         unsigned starts = 0;                  // bit k: hour k0 + k starts a month
         for (int k = ph0 == 0 ? 0 : hpm - ph0; k < len; k += hpm) starts |= 1u << k;
         const double* row = rows + lane * st;
@@ -481,16 +565,16 @@ __device__ __forceinline__ double fold_column(const double* col, int st, int n, 
   return acc;
 }
 
-template <int G>
+template <int G, bool PL>
 __global__ void __launch_bounds__(kThreads)
-routed_chunk_kernel(const RoutedArgs a) {
+routed_chunk_kernel(const ArgsOf<PL> a) {
   __shared__ PortSmem sm;
   extern __shared__ __align__(16) double dyn[];   // the leg planes, the tables, LiveSmem
   const int m = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if (a.M == 0) {                          // no ports: the calendars alone
-    if (warp == kCalWarp) calendar_slice<G>(a, dyn + slice_offset(a.stride, false, a.Kt), 0, 1,
-                                           lane);
+    if (warp == kCalWarp)
+      calendar_slice<G, PL>(a, dyn + slice_offset(a.stride, false, a.Kt), 0, 1, lane);
     return;
   }
   const int M = a.M, K = a.K, st = a.stride;
@@ -507,6 +591,7 @@ routed_chunk_kernel(const RoutedArgs a) {
   fsm::FsmRow p = {};
   [[maybe_unused]] fsm::FsmGate g = {};
   int h = 0;
+  PortClockOf<PL> t0p = {};                // PL: the port's first hour
   double pv = 0.0, pc = 0.0;
   fsm::FsmCarry fc = {};
   // Warp 1: the CCI plane and, live, the forecaster.
@@ -516,6 +601,7 @@ routed_chunk_kernel(const RoutedArgs a) {
     p = {a.theta1[m], a.theta2[m], a.delay[m], a.commit[m], a.up_hold[m], a.down_hold[m],
          a.renew_in_chunks != 0};
     h = a.win[m];
+    if constexpr (PL) t0p = a.t0_port[m];
     if constexpr (G != kUngated) g = fsm::fsm_gate(p, a.margin[m]);
     if (lane == 0) {
       pv = a.pref_in[m];
@@ -554,17 +640,18 @@ routed_chunk_kernel(const RoutedArgs a) {
     double bv = 0.0, bc = 0.0;
     [[maybe_unused]] double gv = 0.0, gc = 0.0;
     if (warp == 0 && lane < len) {
-      lw = max(0, a.t0 + k - h);
-      if (lw < a.t0) {                              // before the chunk: the host's read
+      const int t0 = first_hour<PL>(a, t0p);
+      lw = max(0, t0 + k - h);
+      if (lw < t0) {                                // before the chunk: the host's read
         bv = a.pre_v[i];
         bc = a.pre_c[i];
-      } else if (lw < a.t0 + k0) {                  // an earlier tile's snapshot
-        const int64_t j = (int64_t)(lw - a.t0) * M + m;
+      } else if (lw < t0 + k0) {                    // an earlier tile's snapshot
+        const int64_t j = (int64_t)(lw - t0) * M + m;
         bv = a.out[4 * KM + j];
         bc = a.out[5 * KM + j];
       }
       if constexpr (G == kReplay) {
-        const int64_t j = (int64_t)min(a.t0 + k, a.T_pred - 1) * M + m;
+        const int64_t j = (int64_t)min(t0 + k, a.T_pred - 1) * M + m;
         gv = a.p_vpn[j];
         gc = a.p_cci[j];
       }
@@ -578,8 +665,8 @@ routed_chunk_kernel(const RoutedArgs a) {
     for (int s0 = e0; s0 < e1; s0 += kLegTile) {
       const int nl = min(kLegTile, e1 - s0);
       if (s0 > e0) __syncthreads();                 // the last leg tile's sums are done
-      LegCarry lc = {};
-      if (tid < nl) lc = stage_leg(a, sm, s0, tid, k0);
+      CarryOf<PL> lc = {};
+      if (tid < nl) lc = stage_leg<PL>(a, sm, s0, tid, k0);
       __syncthreads();
       gather_legs(a, dyn, sm.lp, tid, nl, k0, len);
       if (tid < nl) {
@@ -592,7 +679,7 @@ routed_chunk_kernel(const RoutedArgs a) {
       if (endo) clip_rows(a, dyn + 2 * plane_doubles(st), sm.pcap, tid, nl, len);
       __syncthreads();
       if (tid < nl) {
-        row_calendar(a, dyn, lc, tid, k0, len);
+        row_calendar<PL>(a, dyn, lc, tid, k0, len);
         if (k0 + len < K) {                         // read back in the next hour tile
           a.leg_cal[s0 + tid] = lc.dcum;
           a.leg_cal[a.E + s0 + tid] = lc.month;
@@ -707,8 +794,9 @@ routed_chunk_kernel(const RoutedArgs a) {
       bool raw_req = false, raw_rel = false;
       double rv = 0.0, rc = 0.0, sv = 0.0, sc = 0.0;
       if (lane < len) {                             // window sums and raw triggers
-        const bool in_tile = lw >= a.t0 + k0;       // a snapshot of its own tile
-        const int j = in_tile ? lw - a.t0 - k0 : lane;
+        const int t0 = first_hour<PL>(a, t0p);
+        const bool in_tile = lw >= t0 + k0;         // a snapshot of its own tile
+        const int j = in_tile ? lw - t0 - k0 : lane;
         sv = sm.sv[lane];
         sc = sm.sc[lane];
         rv = __dsub_rn(sv, in_tile ? sm.sv[j] : bv);
@@ -742,7 +830,7 @@ routed_chunk_kernel(const RoutedArgs a) {
         a.out[7 * KM + i] = (double)s;
       }
     } else if (warp == kCalWarp && k0 == 0) {      // the block's slice of the calendars
-      calendar_slice<G>(a, dyn + slice_offset(st, endo, a.Kt), m, M, lane);
+      calendar_slice<G, PL>(a, dyn + slice_offset(st, endo, a.Kt), m, M, lane);
     }
   }
 
@@ -760,15 +848,16 @@ routed_chunk_kernel(const RoutedArgs a) {
   }
 }
 
-// The launch in gate mode G: a block a port (one when there is none).
-template <int G>
-int launch(const RoutedArgs& a, size_t smem, cudaStream_t s) {
+// The launch in gate mode G and clocks PL: a block a port (one when there is
+// none).
+template <int G, bool PL>
+int launch(const ArgsOf<PL>& a, size_t smem, cudaStream_t s) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        routed_chunk_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        routed_chunk_kernel<G, PL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  routed_chunk_kernel<G><<<a.M > 0 ? a.M : 1, kThreads, smem, s>>>(a);
+  routed_chunk_kernel<G, PL><<<a.M > 0 ? a.M : 1, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -782,7 +871,8 @@ int launch(const RoutedArgs& a, size_t smem, cudaStream_t s) {
 // select the forecast-gated instance in replay mode; h_in (M, S), pred_in
 // (M,), the forecaster's a, 1 - a, w (S,) and bias, scale (M,), coef (M, 4)
 // and margin (M,) its live instance (h_out (M, S)); null p_vpn and h_in the
-// reactive/hysteresis one.
+// reactive/hysteresis one. t0_port (M,), hpm_pair and t0_pair (P,) select the
+// pooled instance (t0 and hours_per_month are then not read; no live mode).
 extern "C" int stream_chunk_routed_f64(
     const double* demand, const double* cci_demand, const double* pre_v, const double* pre_c,
     const double* pair_capacity, const double* L_vpn, const double* bounds, const double* rates,
@@ -794,16 +884,19 @@ extern "C" int stream_chunk_routed_f64(
     const double* p_vpn, const double* p_cci, const double* margin,
     const float* h_in, const double* pred_in, const float* ssm_a, const float* ssm_oma,
     const float* ssm_w, const float* ssm_bias, const double* scale, const double* coef,
+    const int* t0_port, const int* hpm_pair, const int* t0_pair,
     int renew_in_chunks, int t0, int hours_per_month, int K, int P, int M, int E, int Kt,
     int T_pred, int S, double* out, int* fsm_out, float* h_out, void* stream) {
   if (K < 1 || P < 0 || M < 0 || E < 0 || Kt < 0 || t0 < 0 || hours_per_month < 1)
     return (int)cudaErrorInvalidValue;
-  const bool gated = p_vpn != nullptr, live = h_in != nullptr;
+  const bool gated = p_vpn != nullptr, live = h_in != nullptr, pooled = t0_port != nullptr;
   if (gated && (live || p_cci == nullptr || margin == nullptr || T_pred < 1))
     return (int)cudaErrorInvalidValue;
   if (live && (pred_in == nullptr || ssm_a == nullptr || ssm_oma == nullptr ||
                ssm_w == nullptr || ssm_bias == nullptr || scale == nullptr ||
                coef == nullptr || margin == nullptr || h_out == nullptr || S < 1))
+    return (int)cudaErrorInvalidValue;
+  if (pooled && (live || hpm_pair == nullptr || t0_pair == nullptr))
     return (int)cudaErrorInvalidValue;
   if (K > kTile && E > 0 && leg_cal == nullptr) return (int)cudaErrorInvalidValue;
   const int stride = (K < kTile ? K : kTile) | 1;
@@ -819,6 +912,10 @@ extern "C" int stream_chunk_routed_f64(
       ssm_a, ssm_oma, ssm_w, ssm_bias, scale, coef, renew_in_chunks, t0, t0 % hours_per_month,
       hours_per_month, K, P, M, E, Kt, T_pred, S, stride, out, fsm_out, h_out};
   cudaStream_t s = (cudaStream_t)stream;
-  return gated ? launch<kReplay>(a, smem, s) : live ? launch<kLive>(a, smem, s)
-                                                   : launch<kUngated>(a, smem, s);
+  if (pooled) {
+    const PooledArgs pa = {a, t0_port, hpm_pair, t0_pair};
+    return gated ? launch<kReplay, true>(pa, smem, s) : launch<kUngated, true>(pa, smem, s);
+  }
+  return gated ? launch<kReplay, false>(a, smem, s) : live ? launch<kLive, false>(a, smem, s)
+                                                          : launch<kUngated, false>(a, smem, s);
 }

@@ -140,8 +140,8 @@ def _contiguous_live(live):
 
 def stream_chunk(block, K: int, endo: bool, capacity, L_vpn, lease_cci, c_cci, bounds,
                  rates, theta1, theta2, h, D, T_cci, up_hold, down_hold, cal, fsm, pref,
-                 t0: int, hours_per_month: int, *, renew_in_chunks: bool = False, gate=None,
-                 live=None) -> Tuple[torch.Tensor, ...]:
+                 t0=None, hours_per_month=None, *, renew_in_chunks: bool = False, gate=None,
+                 live=None, clocks=None) -> Tuple[torch.Tensor, ...]:
     """The streaming runtime's whole chunk from its packed block: ``(packed
     (8K + 4, M) float64, FSM carry (4, M) int32)``. ``gate=(p_vpn, p_cci,
     margin, T_pred)`` runs the forecast-gated policy on the hour-major
@@ -149,28 +149,35 @@ def stream_chunk(block, K: int, endo: bool, capacity, L_vpn, lease_cci, c_cci, b
     with (M,) margins (hold counts must be 1). ``live=(h, pred, a,
     one_minus_a, w, bias, scale, cost_coef, margin)`` runs it in live mode,
     the forecast stepped inside the chunk: the result is then (9K + 4, M) and
-    the forecaster's state after the chunk comes third."""
+    the forecaster's state after the chunk comes third. ``clocks=(t0,
+    hours_per_month)``, (M,) int32 tensors in place of the ints, runs the
+    pooled instance, one clock per row
+    (:func:`repro_torch.kernels.stream_chunk.chunk_clocks`)."""
     args = (capacity, L_vpn, lease_cci, c_cci, bounds, rates, theta1, theta2, h, D, T_cci,
             up_hold, down_hold, cal, fsm, pref)
     if _route(block, "stream_chunk"):
         return _stream_chunk_kernel(block.contiguous(), K, endo,
                                     *(a.contiguous() for a in args), t0, hours_per_month,
                                     renew_in_chunks=renew_in_chunks,
-                                    gate=_contiguous_gate(gate), live=_contiguous_live(live))
+                                    gate=_contiguous_gate(gate), live=_contiguous_live(live),
+                                    clocks=clocks)
     return ref.stream_chunk_ref(block, K, endo, *args, t0, hours_per_month,
-                                renew_in_chunks=renew_in_chunks, gate=gate, live=live)
+                                renew_in_chunks=renew_in_chunks, gate=gate, live=live,
+                                clocks=clocks)
 
 
 def stream_chunk_routed(block, K: int, endo: bool, pair_capacity, L_vpn, bounds, rates,
                         lease_cci, c_cci, port_capacity, theta1, theta2, h, D, T_cci,
-                        up_hold, down_hold, routing, cal, fsm, pref, t0: int,
-                        hours_per_month: int, *, renew_in_chunks: bool = False, gate=None,
-                        live=None) -> Tuple[torch.Tensor, ...]:
+                        up_hold, down_hold, routing, cal, fsm, pref, t0=None,
+                        hours_per_month=None, *, renew_in_chunks: bool = False, gate=None,
+                        live=None, clocks=None) -> Tuple[torch.Tensor, ...]:
     """The streaming runtime's whole chunk in topology mode from its packed
     block: ``(flat float64 result (8K·M + 2P + 2M), FSM carry (4, M) int32)``.
     ``routing`` is a :class:`~repro_torch.fleet.routing.RoutingOperand`; the
     kernel walks its port-major index, the plain version its legs in order.
-    ``gate`` and ``live`` are :func:`stream_chunk`'s, per port."""
+    ``gate`` and ``live`` are :func:`stream_chunk`'s, per port;
+    ``clocks=(t0_port (M,), hours_per_month (P,), t0_pair (P,))`` int32
+    runs the pooled instance."""
     args = (pair_capacity, L_vpn, bounds, rates, lease_cci, c_cci, port_capacity, theta1,
             theta2, h, D, T_cci, up_hold, down_hold)
     carries = (cal, fsm, pref)
@@ -179,10 +186,10 @@ def stream_chunk_routed(block, K: int, endo: bool, pair_capacity, L_vpn, bounds,
             block.contiguous(), K, endo, *(a.contiguous() for a in args), routing,
             *(a.contiguous() for a in carries), t0, hours_per_month,
             renew_in_chunks=renew_in_chunks, gate=_contiguous_gate(gate),
-            live=_contiguous_live(live))
+            live=_contiguous_live(live), clocks=clocks)
     return ref.stream_chunk_routed_ref(block, K, endo, *args, routing, *carries, t0,
                                        hours_per_month, renew_in_chunks=renew_in_chunks,
-                                       gate=gate, live=live)
+                                       gate=gate, live=live, clocks=clocks)
 
 
 def leg_segment_sum(src, leg_pair, leg_port, w, num_segments: int, *, index=None):

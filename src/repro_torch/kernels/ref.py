@@ -17,7 +17,7 @@ from repro_torch.core.costmodel import tiered_marginal_cost_tables
 from repro_torch.core.togglecci import ToggleParams, window_sums
 
 from .forecaster import BWD_TILE
-from .stream_chunk import block_size
+from .stream_chunk import block_size, chunk_clocks
 from .tiered_cost import tier_table
 
 
@@ -270,11 +270,16 @@ def tiered_cost_calendar_ref(
     (2, N) holds ``dcum`` and ``dcum_month``; at every month start
     ``dcum_month`` takes ``dcum``, each hour is priced at ``dcum −
     dcum_month`` (the offline ``monthly_cumsum`` formula) and ``dcum`` adds
-    the hour's volume. ``demand`` and the costs are hour-major (K, N)."""
+    the hour's volume. ``demand`` and the costs are hour-major (K, N).
+    ``t0`` and ``hours_per_month`` are ints, or (N,) int32 tensors of one
+    clock per row (the pooled chunks': each row starts its own months)."""
     dcum, month = carry[0], carry[1]
     lo = torch.empty_like(demand)
+    per_row = torch.is_tensor(t0)
     for k in range(demand.shape[0]):
-        if (t0 + k) % hours_per_month == 0:
+        if per_row:
+            month = torch.where((t0 + k) % hours_per_month == 0, dcum, month)
+        elif (t0 + k) % hours_per_month == 0:
             month = dcum
         lo[k] = dcum - month
         dcum = dcum + demand[k]
@@ -306,6 +311,8 @@ def fsm_chunk_ref(
     margin)``, the chunk's (K, M) predicted mode costs and the (M,) margins,
     gates the raw triggers (:func:`_gated_triggers`) for the streaming
     chunks' forecast-gated instances; the ``fsm_chunk`` kernel has none.
+    ``t0`` is an int, or an (M,) int32 tensor of one first hour per row (the
+    pooled chunks').
 
     ``live=(d_row, h, pred, a, 1 − a, w, bias, scale, cost_coef, margin)``
     runs the chunks' live instances instead (``src/repro/fleet/runtime.py:541-575``):
@@ -329,9 +336,10 @@ def fsm_chunk_ref(
         snap_v[k], snap_c[k] = pv, pc
         pv, pc = pv + vpn[k], pc + cci[k]
     ks = torch.arange(K, device=vpn.device)
-    lo = torch.clamp(t0 + ks[:, None] - h[None, :].long(), min=0)   # (K, M)
-    in_chunk = lo >= t0
-    jj = torch.clamp(lo - t0, 0, K - 1)
+    t0r = t0[None, :].long() if torch.is_tensor(t0) else t0        # a row's clock
+    lo = torch.clamp(t0r + ks[:, None] - h[None, :].long(), min=0)  # (K, M)
+    in_chunk = lo >= t0r
+    jj = torch.clamp(lo - t0r, 0, K - 1)
     r_vpn = snap_v - torch.where(in_chunk, snap_v.gather(0, jj), pre_v)
     r_cci = snap_c - torch.where(in_chunk, snap_c.gather(0, jj), pre_c)
     raw_req = r_cci < theta1[None, :] * r_vpn
@@ -414,11 +422,16 @@ def _gate_columns(gate, t0: int, K: int):
     (hour-major (T_pred, M) predicted-cost planes, (M,) margins): the (K, M)
     rows of hours ``min(t0 + k, T_pred − 1)`` (the JAX runtime's clipped
     column index, ``src/repro/fleet/runtime.py:519-521``) and the margins;
-    None for None."""
+    None for None. With an (M,) tensor ``t0`` each row reads its own hours
+    (the pooled chunks', whose planes are edge-replicated to ``T_pred``)."""
     if gate is None:
         return None
     p_vpn, p_cci, margin, T_pred = gate
-    hours = torch.clamp(t0 + torch.arange(K, device=p_vpn.device), max=T_pred - 1)
+    ks = torch.arange(K, device=p_vpn.device)
+    if torch.is_tensor(t0):
+        hours = torch.clamp(t0[None, :].long() + ks[:, None], max=T_pred - 1)   # (K, M)
+        return p_vpn.gather(0, hours), p_cci.gather(0, hours), margin
+    hours = torch.clamp(t0 + ks, max=T_pred - 1)
     return p_vpn[hours], p_cci[hours], margin
 
 
@@ -459,11 +472,12 @@ def stream_chunk_ref(
     h: torch.Tensor, D: torch.Tensor, T_cci: torch.Tensor,
     up_hold: torch.Tensor, down_hold: torch.Tensor,
     cal: torch.Tensor, fsm: torch.Tensor, pref: torch.Tensor,
-    t0: int, hours_per_month: int,
+    t0: Optional[int] = None, hours_per_month: Optional[int] = None,
     *,
     renew_in_chunks: bool = False,
     gate=None,
     live=None,
+    clocks=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain version of :func:`repro_torch.kernels.stream_chunk.stream_chunk`:
     the streaming runtime's chunk in fleet mode (``runtime.py:405-577``).
@@ -484,11 +498,17 @@ def stream_chunk_ref(
     clipped demand): the result is then (9K + 4, M), the pred plane after
     the state plane, and the forecaster's state after the chunk (M, S)
     float32 comes third.
+
+    The pooled instance (the gateway's, no live mode): ``clocks=(t0,
+    hours_per_month)``, (M,) int32 tensors in place of the ints, one clock
+    per row; each row's calendar, window bases and gate columns follow its
+    own clock, and a ``gate``'s ``T_pred`` is the pool's column count.
     """
     M = capacity.shape[0]
+    _, t0, hpm, _ = chunk_clocks("stream_chunk", t0, hours_per_month, clocks, live)
     demand, cci_demand, pre_v, pre_c = _split_block(block, K, M, M, endo)
     d_pair, d_cci, vpn, cal_out = _chunk_pair_half(demand, cci_demand, capacity, L_vpn,
-                                                   bounds, rates, cal, t0, hours_per_month)
+                                                   bounds, rates, cal, t0, hpm)
     cci = lease_cci[None, :] + c_cci[None, :] * d_cci
     planes, pref_out, carry, h_out = _chunk_port_half(
         vpn, cci, pre_v, pre_c, theta1, theta2, h, D, T_cci, up_hold, down_hold, fsm, pref,
@@ -504,11 +524,12 @@ def stream_chunk_routed_ref(
     h: torch.Tensor, D: torch.Tensor, T_cci: torch.Tensor,
     up_hold: torch.Tensor, down_hold: torch.Tensor, routing,
     cal: torch.Tensor, fsm: torch.Tensor, pref: torch.Tensor,
-    t0: int, hours_per_month: int,
+    t0: Optional[int] = None, hours_per_month: Optional[int] = None,
     *,
     renew_in_chunks: bool = False,
     gate=None,
     live=None,
+    clocks=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain version of :func:`repro_torch.kernels.stream_chunk.stream_chunk_routed`:
     the streaming runtime's chunk in topology mode (``runtime.py:391-515``
@@ -532,11 +553,18 @@ def stream_chunk_routed_ref(
     ``minimum``'d with ``port_capacity`` (``src/repro/fleet/runtime.py:485-488``;
     with endogenous demand the VPN-path demand, not the CCI demand the bill
     folds): a ninth (K, M) plane and the state come back as there.
+
+    The pooled instance: ``clocks=(t0_port (M,), hours_per_month (P,),
+    t0_pair (P,))``, int32 tensors in place of the ints: each pair's
+    calendar follows its own clock, each port's window bases and gate
+    columns its port's.
     """
     P, M = pair_capacity.shape[0], lease_cci.shape[0]
+    t0_pair, t0, hpm, _ = chunk_clocks("stream_chunk_routed", t0, hours_per_month, clocks,
+                                       live)
     demand, cci_demand, pre_v, pre_c = _split_block(block, K, P, M, endo, pair_major=True)
     d_pair, d_cci, vpn_pair, cal_out = _chunk_pair_half(
-        demand, cci_demand, pair_capacity, L_vpn, bounds, rates, cal, t0, hours_per_month)
+        demand, cci_demand, pair_capacity, L_vpn, bounds, rates, cal, t0_pair, hpm)
     lp, lm = routing.leg_pair, routing.leg_port
     seg = lambda plane, w: leg_segment_sum_ref(plane.T, lp, lm, w, M).T    # (K, M)
     vpn = seg(vpn_pair, routing.vpn_w)

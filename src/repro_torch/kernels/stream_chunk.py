@@ -44,6 +44,19 @@ ninth (K, M) plane, the forecasts made after each hour, after the state
 plane. It launches the kernels' live instances, counted under
 ``stream_chunk_live`` / ``stream_chunk_routed_live``.
 
+Both also have a *pooled* instance, the multi-tenant gateway's
+(:mod:`repro_torch.gateway`): a bucket's slots stacked into one call whose
+rows keep their own clocks, since tenants join at different gateway hours.
+Passing the clocks as int32 tensors, ``clocks=`` in place of ``t0`` and
+``hours_per_month`` (:func:`chunk_clocks`), selects it: each row's billing
+calendar starts its
+months at its own phase, and its window bases and replay gate columns
+(``min(t0 + k, T_pred − 1)``) follow its own first hour. It has reactive,
+hysteresis and replay-gated modes, counted under ``stream_chunk_pooled`` /
+``stream_chunk_pooled_gated`` (``stream_chunk_routed_pooled`` /
+``..._gated``); with one common clock on every row it gives the bits of the
+scalar instance.
+
 Their plain PyTorch versions are :func:`repro_torch.kernels.ref.stream_chunk_ref`
 and :func:`~repro_torch.kernels.ref.stream_chunk_routed_ref`. These wrappers
 take CUDA tensors only; :mod:`repro_torch.kernels.ops` dispatches CPU
@@ -116,6 +129,32 @@ def launch_form(K: int, Kt: int, form: str = "auto", live: bool = False) -> int:
     return min(MAX_SUBS, -(-K // SUB_HOURS))
 
 
+def chunk_clocks(name: str, t0, hours_per_month, clocks, live=None) -> tuple:
+    """``(t0_pair, t0_row, hours_per_month, pooled)`` of a chunk call's
+    clocks. A call of one stream passes ints ``t0`` (the chunk's first hour,
+    then both ``t0``s) and ``hours_per_month``. A pooled call (the gateway's
+    buckets, whose slots keep their own clocks) passes instead ``clocks``, a
+    tuple of int32 tensors: ``(t0 (M,), hours_per_month (M,))`` in fleet
+    mode, one clock per row; ``(t0_port (M,), hours_per_month (P,), t0_pair
+    (P,))`` in topology mode (the window bases and gate columns run per
+    port, the calendars per pair). Raises unless exactly one of the two is
+    given, and for a pooled live call (there is no pooled live instance: the
+    gateway refuses live-mode tenants)."""
+    if clocks is None:
+        if t0 is None or hours_per_month is None or torch.is_tensor(t0) or \
+                torch.is_tensor(hours_per_month):
+            raise ValueError(f"{name}: want int t0 and hours_per_month, or clocks= (the "
+                             "pooled instance's int32 tensors)")
+        return t0, t0, hours_per_month, False
+    if t0 is not None or hours_per_month is not None:
+        raise ValueError(f"{name}: clocks= (the pooled instance) replaces t0 and "
+                         "hours_per_month; pass one or the other")
+    if live is not None:
+        raise ValueError(f"{name}: per-row clocks (the pooled instance) have no live mode")
+    t0_row, hpm = clocks[0], clocks[1]
+    return (clocks[2] if len(clocks) == 3 else t0_row), t0_row, hpm, True
+
+
 def _gate_operands(name: str, gate, M: int) -> list:
     """``_check_operands``' entries for a chunk's ``gate=(p_vpn, p_cci,
     margin, T_pred)`` (none for None); raises unless ``T_pred`` is the
@@ -167,8 +206,27 @@ def _live_args(live) -> tuple:
     return tuple(t.data_ptr() for t in (h, pred, a, oma, w, bias, scale, coef)), h.shape[1]
 
 
-def _launch_name(base: str, gate, live) -> str:
-    return base + ("_live" if live is not None else "" if gate is None else "_gated")
+def _launch_name(base: str, gate, live, pooled: bool = False) -> str:
+    return (base + ("_pooled" if pooled else "")
+            + ("_live" if live is not None else "" if gate is None else "_gated"))
+
+
+def _clock_args(name: str, t0, hours_per_month, clocks, live, rows) -> tuple:
+    """The C entry's clock arguments and ``_check_operands``' entries for
+    them: ``(pooled, scalar t0, scalar hours_per_month, pointers, want)``.
+    ``rows`` gives the length of each tensor of ``clocks``, in its order
+    (:func:`chunk_clocks`), which is the C entry's; a pooled call passes the
+    scalars 0 and 1 (not read) and the tensors' pointers, a call of one
+    stream null pointers."""
+    _, t0, hpm, pooled = chunk_clocks(name, t0, hours_per_month, clocks, live)
+    if not pooled:
+        if t0 < 0 or hpm < 1:
+            raise ValueError(f"{name}: t0 {t0}, hours_per_month {hpm}")
+        return False, int(t0), int(hpm), (None,) * len(rows), []
+    if len(clocks) != len(rows):
+        raise ValueError(f"{name}: clocks= holds {len(clocks)} tensors, want {len(rows)}")
+    want = [(c, (n,), torch.int32) for c, n in zip(clocks, rows)]
+    return True, 0, 1, tuple(c.data_ptr() for c in clocks), want
 
 
 def _check_operands(name: str, block: torch.Tensor, want) -> None:
@@ -203,12 +261,13 @@ def stream_chunk(
     cal: torch.Tensor,        # (2, M) float64: dcum, dcum_month
     fsm: torch.Tensor,        # (4, M) int32: state, t_state, up, down
     pref: torch.Tensor,       # (2, M) float64: vpn_pref, cci_pref
-    t0: int,                  # the chunk's first hour
-    hours_per_month: int,
+    t0: Optional[int] = None,               # the chunk's first hour
+    hours_per_month: Optional[int] = None,
     *,
     renew_in_chunks: bool = False,
     gate=None,                # (p_vpn, p_cci (T_pred, M) f64, margin (M,) f64, T_pred)
     live=None,                # (h, pred, a, one_minus_a, w, bias, scale, cost_coef, margin)
+    clocks=None,              # pooled, for t0 and hours_per_month: (t0, hpm) (M,) int32
 ) -> Tuple[torch.Tensor, ...]:
     """The chunk on the card: the packed float64 (8K + 4, M) result (vpn, cci,
     r_vpn, r_cci, snap_v, snap_c, x, state, K rows each, then dcum,
@@ -216,25 +275,28 @@ def stream_chunk(
     int32, in the launch form :func:`launch_form` picks by K; with ``gate``,
     the forecast-gated instance of that form; with ``live``, the live
     instance: a (9K + 4, M) result (pred after state) and the forecaster's
-    state after the chunk, (M, S) float32, third."""
+    state after the chunk, (M, S) float32, third. With ``clocks`` (no live
+    mode) the pooled instance of that form, each row on its own clock."""
     return _stream_chunk_launch(
         "auto", block, K, endo, capacity, L_vpn, lease_cci, c_cci, bounds, rates, theta1,
         theta2, h, D, T_cci, up_hold, down_hold, cal, fsm, pref, t0, hours_per_month,
-        renew_in_chunks=renew_in_chunks, gate=gate, live=live)
+        renew_in_chunks=renew_in_chunks, gate=gate, live=live, clocks=clocks)
 
 
 def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci, bounds,
                          rates, theta1, theta2, h, D, T_cci, up_hold, down_hold, cal, fsm,
-                         pref, t0, hours_per_month, *, renew_in_chunks=False, gate=None,
-                         live=None):
+                         pref, t0=None, hours_per_month=None, *, renew_in_chunks=False,
+                         gate=None, live=None, clocks=None):
     """:func:`stream_chunk` in the launch form ``form`` (``"auto"``,
     ``"tick"`` or ``"chunk"``, :func:`launch_form`): the tests and
     ``chip_smoke.py`` force each form with it; both give the same bits."""
     M = capacity.shape[0]
     dev = block.device
     f64, i32 = torch.float64, torch.int32
-    if K < 1 or t0 < 0 or hours_per_month < 1:
-        raise ValueError(f"stream_chunk: K {K}, t0 {t0}, hours_per_month {hours_per_month}")
+    if K < 1:
+        raise ValueError(f"stream_chunk: K {K}")
+    pooled, t0, hours_per_month, clock_ptrs, clock_want = _clock_args(
+        "stream_chunk", t0, hours_per_month, clocks, live, (M, M))
     if block.dtype != f64 or block.shape != (block_size(K, M, endo),):
         raise ValueError(f"stream_chunk block: want flat float64 of {block_size(K, M, endo)}, "
                          f"got {tuple(block.shape)} {block.dtype}")
@@ -244,7 +306,7 @@ def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci
     want += [(a, (M,), f64) for a in (capacity, L_vpn, lease_cci, c_cci, theta1, theta2)]
     want += [(a, (M,), i32) for a in (h, D, T_cci, up_hold, down_hold)]
     want += _gate_operands("stream_chunk", gate, M)
-    want += _live_operands("stream_chunk", gate, live, M)
+    want += _live_operands("stream_chunk", gate, live, M) + clock_want
     _check_operands("stream_chunk", block, want)
     code = launch_form(K, Kt, form, live is not None)
     gate_ptrs, T_pred = _gate_args(gate)
@@ -263,13 +325,13 @@ def _stream_chunk_launch(form, block, K, endo, capacity, L_vpn, lease_cci, c_cci
             *(a.data_ptr() for a in (capacity, L_vpn, lease_cci, c_cci, bounds, rates,
                                      theta1, theta2, h, D, T_cci, up_hold, down_hold,
                                      cal, fsm, pref)),
-            *(gate_ptrs if live is None else (None, None, margin)), *live_ptrs,
+            *(gate_ptrs if live is None else (None, None, margin)), *live_ptrs, *clock_ptrs,
             int(bool(renew_in_chunks)), t0, hours_per_month, K, M, Kt, code, T_pred, S,
             out.data_ptr(), fsm_out.data_ptr(), None if h_out is None else h_out.data_ptr(),
             stream,
         )
     _lib.check(status, "stream_chunk_f64")
-    _lib.LAUNCHES[_launch_name("stream_chunk", gate, live)] += 1
+    _lib.LAUNCHES[_launch_name("stream_chunk", gate, live, pooled)] += 1
     return (out, fsm_out) if live is None else (out, fsm_out, h_out)
 
 
@@ -295,12 +357,13 @@ def stream_chunk_routed(
     cal: torch.Tensor,            # (2, P) float64: dcum, dcum_month
     fsm: torch.Tensor,            # (4, M) int32: state, t_state, up, down
     pref: torch.Tensor,           # (2, M) float64: vpn_pref, cci_pref
-    t0: int,                      # the chunk's first hour
-    hours_per_month: int,
+    t0: Optional[int] = None,     # the chunk's first hour
+    hours_per_month: Optional[int] = None,
     *,
     renew_in_chunks: bool = False,
     gate=None,                    # (p_vpn, p_cci (T_pred, M) f64, margin (M,) f64, T_pred)
     live=None,                    # (h, pred, a, one_minus_a, w, bias, scale, cost_coef, margin)
+    clocks=None,                  # pooled: (t0_port (M,), hpm (P,), t0_pair (P,)) int32
 ) -> Tuple[torch.Tensor, ...]:
     """The routed chunk on the card, one kernel launch on the current stream
     (past :data:`ROUTED_TILE` hours the wrapper owns its scratch, each leg's
@@ -312,12 +375,14 @@ def stream_chunk_routed(
     kernel is its forecast-gated instance; with ``live`` (per port) its live
     instance, and the result holds a ninth (K, M) plane
     (``routed_result_size(K, P, M, live=True)``) and the forecaster's state
-    after the chunk comes third."""
+    after the chunk comes third. With ``clocks`` (no live mode) its pooled
+    instance, each port and pair on its own clock."""
     P, M = pair_capacity.shape[0], lease_cci.shape[0]
     f64, i32 = torch.float64, torch.int32
-    if K < 1 or t0 < 0 or hours_per_month < 1:
-        raise ValueError(f"stream_chunk_routed: K {K}, t0 {t0}, "
-                         f"hours_per_month {hours_per_month}")
+    if K < 1:
+        raise ValueError(f"stream_chunk_routed: K {K}")
+    pooled, t0, hours_per_month, clock_ptrs, clock_want = _clock_args(
+        "stream_chunk_routed", t0, hours_per_month, clocks, live, (M, P, P))
     n = block_size(K, M, endo, P)
     if block.dtype != f64 or block.shape != (n,):
         raise ValueError(f"stream_chunk_routed block: want flat float64 of {n}, "
@@ -339,7 +404,7 @@ def stream_chunk_routed(
     want += [(a, (M,), f64) for a in (lease_cci, c_cci, port_capacity, theta1, theta2)]
     want += [(a, (M,), i32) for a in (h, D, T_cci, up_hold, down_hold)]
     want += _gate_operands("stream_chunk_routed", gate, M)
-    want += _live_operands("stream_chunk_routed", gate, live, M)
+    want += _live_operands("stream_chunk_routed", gate, live, M) + clock_want
     _check_operands("stream_chunk_routed", block, want)
     gate_ptrs, T_pred = _gate_args(gate)
     live_ptrs, S = _live_args(live)
@@ -362,13 +427,13 @@ def stream_chunk_routed(
                 theta1, theta2, h, D, T_cci, up_hold, down_hold, idx.leg_pair_pm,
                 idx.vpn_w_pm, idx.attach_w_pm, idx.start, cal, fsm, pref)),
             None if leg_cal is None else leg_cal.data_ptr(),
-            *(gate_ptrs if live is None else (None, None, margin)), *live_ptrs,
+            *(gate_ptrs if live is None else (None, None, margin)), *live_ptrs, *clock_ptrs,
             int(bool(renew_in_chunks)), t0, hours_per_month, K, P, M, E, Kt, T_pred, S,
             out.data_ptr(), fsm_out.data_ptr(), None if h_out is None else h_out.data_ptr(),
             stream,
         )
     _lib.check(status, "stream_chunk_routed_f64")
-    _lib.LAUNCHES[_launch_name("stream_chunk_routed", gate, live)] += 1
+    _lib.LAUNCHES[_launch_name("stream_chunk_routed", gate, live, pooled)] += 1
     return (out, fsm_out) if live is None else (out, fsm_out, h_out)
 
 

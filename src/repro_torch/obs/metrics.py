@@ -189,52 +189,89 @@ def update_ring_chunk(
     (``ticks + K <= cap``; the runtime drains at chunk ends). ``cost_t``,
     when the caller has it, is the realized cost plane ``where(x_t == 1,
     cci_t, vpn_t)`` (the runtime's ``cost`` output), so that it is not
-    selected twice."""
+    selected twice. It is :func:`update_ring_slots` over one slot."""
+    one = lambda v: None if v is None else v[None]
+    out = update_ring_slots(
+        MetricsRing(*(t[None] for t in ring)), hist_edges, x_t=one(x_t), state_t=one(state_t),
+        vpn_t=one(vpn_t), cci_t=one(cci_t), d_pair=one(d_pair), d_row=one(d_row),
+        month_cum=one(month_cum), tier_bounds=tier_bounds[None], routing_idx=one(routing_idx),
+        pred_t=one(pred_t), cost_t=one(cost_t))
+    return MetricsRing(*(t[0] for t in out))
+
+
+def update_ring_slots(
+    ring: MetricsRing,
+    hist_edges,
+    *,
+    x_t,
+    state_t,
+    vpn_t,
+    cci_t,
+    d_pair,
+    d_row,
+    month_cum,
+    tier_bounds,
+    routing_idx=None,
+    pred_t=None,
+    cost_t=None,
+) -> MetricsRing:
+    """:func:`update_ring_chunk` with a leading slot axis: the gateway's
+    pooled ring (:func:`init_tenant_ring`) over a bucket's (S, K, rows)
+    planes, numpy arrays or tensors (``tier_bounds`` (S, P, Kt),
+    ``routing_idx`` (S, P)). Slot s's ring gets the bits of
+    :func:`update_ring_chunk` over its own planes: every reduction runs over
+    one (slot, hour) row, each slot's gauges land in its own ``ticks + k``
+    columns, and the counts are exact. Every slot's window must hold the
+    chunk."""
     dev = ring.gauges.device
     small0, prev_state, gauges0 = (_host(t) for t in ring)
     f = gauges0.dtype
     x, vpn, cci = _host(x_t), _host(vpn_t), _host(cci_t)
     d_pair, d_row, month_cum = _host(d_pair), _host(d_row), _host(month_cum)
-    K = x.shape[0]
-    cap = gauges0.shape[1]
-    i = int(small0[0])                      # ticks = the next gauge column
-    if i + K > cap:
-        raise ValueError(f"{K} ticks from gauge column {i} overrun the window of {cap}")
+    S, K = x.shape[:2]
+    cap = gauges0.shape[-1]
+    i = small0[:, 0].astype(np.int64)       # ticks = each slot's next gauge column
+    over = i + K > cap
+    if over.any():
+        raise ValueError(f"{K} ticks from gauge column {int(i[over][0])} overrun the window "
+                         f"of {cap}")
     edges = np.asarray(_host(hist_edges), f)
     B = edges.shape[0] - 1
     bounds = np.asarray(_host(tier_bounds), f)
-    Kt = bounds.shape[1]
+    Kt = bounds.shape[-1]
     st = _host(state_t).astype(np.int8)     # the FSM's three states
-    prev = np.concatenate([prev_state[None].astype(np.int8), st[:-1]])
+    prev = np.concatenate([prev_state[:, None].astype(np.int8), st[:, :-1]], axis=1)
     on = x == 1
     realized = np.where(on, cci, vpn) if cost_t is None else _host(cost_t)
+    cell = np.arange(S * K, dtype=np.int64).reshape(S, K, 1)   # one (slot, hour) a cell
 
     # Lease lifecycle edges against the previous tick's FSM state, counted
     # exactly: one count a (previous, current) pair of the FSM's three states
-    # an hour.
-    hour = np.arange(K, dtype=np.int16)[:, None]
-    pair = (prev * 3 + st).astype(np.int16) + 9 * hour
-    edge = np.bincount(pair.ravel(), minlength=9 * K).reshape(K, 3, 3).astype(f)
-    req = edge[:, OFF, :].sum(-1) - edge[:, OFF, OFF]     # OFF -> WAITING or ON
-    act = edge[:, :, ON].sum(-1) - edge[:, ON, ON]        # anything but ON -> ON
-    rel = edge[:, ON, OFF]                                # ON -> OFF
+    # a cell.
+    pair = (prev * 3 + st).astype(np.int64) + 9 * cell
+    edge = np.bincount(pair.ravel(), minlength=9 * S * K).reshape(S, K, 3, 3).astype(f)
+    req = edge[..., OFF, :].sum(-1) - edge[..., OFF, OFF]     # OFF -> WAITING or ON
+    act = edge[..., :, ON].sum(-1) - edge[..., ON, ON]        # anything but ON -> ON
+    rel = edge[..., ON, OFF]                                  # ON -> OFF
 
     # Billed volume: the VPN path by start-of-hour tier as the reference's
     # cumulative sums differenced, w[j] = sum vol·[cum >= bound_j]; the CCI
     # path in one bucket. Every float sum is one row's (numpy's pairwise sum
-    # over the last axis, one thread, row by row): a (K, n) plane's rows give
-    # the bits of K (n,) sums, and a mask of all ones gives the total's bits.
-    on_pair = on if routing_idx is None else on[:, _host(routing_idx)]
+    # over the last axis, one thread, row by row): an (S, K, n) block's rows
+    # give the bits of S·K (n,) sums, and a mask of all ones gives the
+    # total's bits.
+    on_pair = (on if routing_idx is None
+               else np.take_along_axis(on, _host(routing_idx)[:, None, :], axis=2))
     vpn_vol = d_pair * ~on_pair             # d·(1 − on): d, or d·0.0 (NaN stays NaN)
     total_vol = vpn_vol.sum(-1)
     if Kt == 1:
-        tier = total_vol[:, None]
+        tier = total_vol[..., None]
     else:
-        cols = np.ascontiguousarray(bounds.T)
-        w = np.stack([(vpn_vol * (month_cum >= cols[j]).astype(f)).sum(-1)
-                      for j in range(Kt - 1)], axis=1)
-        tier = np.concatenate([(total_vol - w[:, 0])[:, None], w[:, :-1] - w[:, 1:], w[:, -1:]],
-                              axis=1)
+        cols = np.ascontiguousarray(np.swapaxes(bounds, -1, -2))    # (S, Kt, P)
+        w = np.stack([(vpn_vol * (month_cum >= cols[:, None, j]).astype(f)).sum(-1)
+                      for j in range(Kt - 1)], axis=-1)
+        tier = np.concatenate([(total_vol - w[..., 0])[..., None], w[..., :-1] - w[..., 1:],
+                               w[..., -1:]], axis=-1)
     cci_gb = (d_pair * on_pair).sum(-1)
 
     # Per-row realized-cost histogram: the bin is the count of interior edges
@@ -244,27 +281,27 @@ def update_ring_chunk(
     bins = np.zeros(realized.shape, np.int8 if B <= 128 else np.int16)
     for e in edges[1:B]:
         np.add(bins, (realized > e).view(np.int8), out=bins, casting="unsafe")
-    hist = np.bincount((bins + B * hour.astype(np.int32)).ravel(),
-                       minlength=K * B).reshape(K, B).astype(f)
+    hist = np.bincount((bins + B * cell).ravel(),
+                       minlength=S * K * B).reshape(S, K, B).astype(f)
 
-    zero = np.zeros(K, f)
+    zero = np.zeros((S, K), f)
     if pred_t is not None:
         pred = _host(pred_t).astype(f)
         err, pred_sum = np.abs(pred - d_row).sum(-1), pred.sum(-1)
     else:
         err, pred_sum = zero, zero
     gauges = gauges0.copy()
-    gauges[:, i:i + K] = np.stack([np.count_nonzero(on, axis=-1).astype(f), realized.sum(-1),
-                                   vpn.sum(-1), cci.sum(-1), d_pair.sum(-1), err, pred_sum,
-                                   d_row.sum(-1)])
+    gauges[np.arange(S)[:, None], :, i[:, None] + np.arange(K)] = np.stack(
+        [np.count_nonzero(on, axis=-1).astype(f), realized.sum(-1), vpn.sum(-1), cci.sum(-1),
+         d_pair.sum(-1), err, pred_sum, d_row.sum(-1)], axis=-1)
 
-    delta = np.concatenate([np.ones((K, 1), f), req[:, None], act[:, None], rel[:, None],
-                            cci_gb[:, None], hist, tier], axis=1)
+    delta = np.concatenate([np.ones((S, K, 1), f), req[..., None], act[..., None],
+                            rel[..., None], cci_gb[..., None], hist, tier], axis=-1)
     small = small0
     for k in range(K):                      # hour by hour, as K ticks add them
-        small = small + delta[k]
+        small = small + delta[:, k]
     out = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return MetricsRing(small=out(small), prev_state=out(st[-1].astype(np.int32)),
+    return MetricsRing(small=out(small), prev_state=out(st[:, -1].astype(np.int32)),
                        gauges=out(gauges))
 
 

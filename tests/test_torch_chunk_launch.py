@@ -96,8 +96,8 @@ def test_tile_constants_match_the_sources():
     # calendars (_routed_calendar)
     routed = (CSRC / "stream_chunk_routed.cu").read_text()
     assert _cu_const("stream_chunk_routed.cu", "kTile") == ROUTED_TILE
-    assert "routed_chunk_kernel<G><<<a.M > 0 ? a.M : 1, kThreads, smem, s>>>(a);" in routed
-    assert "calendar_slice<G>(a, dyn + slice_offset(st, endo, a.Kt), m, M, lane);" in routed
+    assert "routed_chunk_kernel<G, PL><<<a.M > 0 ? a.M : 1, kThreads, smem, s>>>(a);" in routed
+    assert "calendar_slice<G, PL>(a, dyn + slice_offset(st, endo, a.Kt), m, M, lane);" in routed
     assert "const int S = (a.P + nblocks - 1) / nblocks;" in routed
     assert R_THREADS % 32 == 0 and R_THREADS >= R_LEGS   # a thread a leg to stage
     bars = re.search(r"constexpr int kBarCost = (\d+), kBarGate = (\d+);", routed)

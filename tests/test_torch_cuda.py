@@ -260,7 +260,9 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
                             "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0,
                             "stream_chunk_gated": 0, "stream_chunk_live": 0,
                             "stream_chunk_routed": 0, "stream_chunk_routed_gated": 0,
-                            "stream_chunk_routed_live": 0, "flash_attention": 0,
+                            "stream_chunk_routed_live": 0, "stream_chunk_pooled": 0,
+                            "stream_chunk_pooled_gated": 0, "stream_chunk_routed_pooled": 0,
+                            "stream_chunk_routed_pooled_gated": 0, "flash_attention": 0,
                             "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
                             "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0,
                             "oracle_dp": 0}
@@ -2542,3 +2544,243 @@ def test_regret_oracle_on_the_card_equals_offline_optimal(cuda_device):
         want = offline_optimal(p, costs=HourlyCosts(vpn_lease=zeros, vpn_transfer=vpn[m],
                                                     cci_lease=zeros, cci_transfer=cci[m]))
         assert got[m] == want.total_cost, m
+
+
+# ---------------------------------------------------------------------------
+# The gateway's pooled chunk instances (per-row clocks)
+# ---------------------------------------------------------------------------
+
+from repro_torch.fleet import RuntimeConfig  # noqa: E402
+from repro_torch.fleet.routing import RoutingOperand, index_legs  # noqa: E402
+from repro_torch.gateway import FleetGateway, GatewayConfig, TenantSpec  # noqa: E402
+
+POOL_KINDS = ("reactive", "hysteresis", "replay")
+
+
+def pooled_bucket(topology: bool, kind: str, device, *, staggered: bool = True, S: int = 4,
+                  cadence=None):
+    """A gateway (observability on at ``cadence`` when given, else off) whose
+    one bucket holds S tenants of one
+    shape (6 links, or 6 pairs on 4 ports: 2 padded rows a slot, and a
+    reserved pad port), their demand scaled apart. ``staggered``: they join
+    at gateway hours 0, 5, 31 and 51 with 24, 730, 40 and 730 hours a month,
+    so that after 20 more hours the slots' clocks are 71, 66, 40 and 20: a
+    month starts at a chunk's first hour in slot 2 and at its second in slot
+    0; otherwise all join at hour 0 with one calendar. ``kind`` "replay" gives
+    each a forecast-gated policy of 70 to 128 prediction columns (one
+    pred_cap of 128). Returns the gateway and its bucket."""
+    T = 400
+    hpms = (24, 730, 40, 730) if staggered else (730,) * S
+    joins = (0, 5, 31, 51) if staggered else (0,) * S
+    rng = np.random.default_rng(7)
+    if topology:
+        sc = tscen.build_topology_scenario(6, n_facilities=2, ports_per_facility=2, horizon=T,
+                                           seed=0)
+        routing = optimize_routing(sc.topo, sc.demand)
+        arrays = sc.topo.stack(routing, torch.float64, device)
+    else:
+        sc = build_fleet_scenario(6, horizon=T, seed=0)
+        routing, arrays = None, sc.fleet.stack(torch.float64, device)
+    tog = arrays.toggle
+    M = tog.h.shape[0]
+    gw = FleetGateway(GatewayConfig(slots_per_bucket=S, obs=cadence is not None,
+                                    cadence=cadence or 64), device=device)
+    for i in range(S):
+        policy = None
+        if kind == "hysteresis":
+            policy = tpol.hysteresis_policy(tog, up_hold=1 + i % 3, down_hold=2)
+        elif kind == "replay":
+            pred = rng.uniform(0.0, 300.0, (M, (70, 100, 128, 90)[i % 4]))
+            coef = np.stack([rng.uniform(0.5, 1.5, M), rng.uniform(0.3, 0.6, M),
+                             rng.uniform(0.5, 1.5, M), rng.uniform(0.3, 0.6, M)], axis=1)
+            policy = tpol.forecast_gated_policy(tog, pred, margin=0.05, cost_coef=coef)
+        if topology:
+            spec = dataclasses.replace(sc.topo, hours_per_month=hpms[i])
+            cfg = RuntimeConfig(routing=routing, policy=policy)
+        else:
+            spec, cfg = arrays, RuntimeConfig(hours_per_month=hpms[i], policy=policy)
+        while gw.hours < joins[i]:
+            gw.tick(collect=False)
+        gw.join(f"t{i}", TenantSpec(spec=spec, demand=sc.demand * (1.0 + 0.1 * i), config=cfg))
+    for _ in range(20):
+        gw.tick(collect=False)
+    (b,) = gw._live_buckets()
+    return gw, b
+
+
+def pooled_call(gw, b, K: int) -> tuple:
+    """``(args, kwargs)`` of the bucket's next pooled chunk of K hours."""
+    block, _ = gw._pack(b, K)
+    return b.chunk_args(block, K)
+
+
+def scalar_clock(args, kw) -> tuple:
+    """``(args, kwargs)`` of the pooled call with its clocks as ints (they
+    must agree on every row): the scalar instance's call."""
+    clocks = kw["clocks"]
+    t0s = {int(v) for c in clocks[::2] for v in c.tolist()}
+    hpms = {int(v) for v in clocks[1].tolist()}
+    assert len(t0s) == len(hpms) == 1, (t0s, hpms)
+    return [*args, t0s.pop(), hpms.pop()], dict(kw, clocks=None)
+
+
+def slot_call(args, kw, s: int, b) -> tuple:
+    """Slot ``s``'s own scalar chunk call, cut from a pooled call: its rows
+    of every operand and carry, its block (its demand and window reads), its
+    local leg list (topology) and its clock as ints."""
+    key, S = b.key, b.n_slots
+    M, P = key.rows_cap, key.pairs_cap
+    K = args[1]
+    rows = lambda x, n: x[s * n:(s + 1) * n].contiguous()
+    cols = lambda x, n: x[:, s * n:(s + 1) * n].contiguous()
+    block = args[0]
+    nd = K * S * P
+    pre = [block[nd + i * K * S * M:nd + (i + 1) * K * S * M].view(K, S, M)[:, s] for i in (0, 1)]
+    gate = kw["gate"]
+    if gate is not None:
+        gate = (cols(gate[0], M), cols(gate[1], M), rows(gate[2], M), gate[3])
+    t0, hpm = kw["clocks"][:2]
+    kw = dict(kw, gate=gate, clocks=None)
+    if key.topology:
+        dem = block[:nd].view(S, P, K)[s].reshape(-1)
+        pair = [rows(x, P) for x in args[3:7]]
+        port = [rows(x, M) for x in args[7:17]]
+        r, E = args[17], key.legs_cap
+        op = RoutingOperand(leg_pair=rows(r.leg_pair, E) - s * P,
+                            leg_port=rows(r.leg_port, E) - s * M, vpn_w=rows(r.vpn_w, E),
+                            attach_w=rows(r.attach_w, E), primary=rows(r.primary, P) - s * M)
+        cal, fsm, pref = cols(args[18], P), cols(args[19], M), cols(args[20], M)
+        clock = [int(t0[s * M]), int(hpm[s * P])]
+        one = [torch.cat([dem, *(p.reshape(-1) for p in pre)]), K, False, *pair, *port,
+               index_legs(op, M), cal, fsm, pref, *clock]
+    else:
+        dem = block[:nd].view(K, S, P)[:, s]
+        per_row = [rows(x, M) for x in args[3:16]]
+        cal, fsm, pref = cols(args[16], P), cols(args[17], M), cols(args[18], M)
+        one = [torch.cat([p.reshape(-1) for p in (dem, *pre)]), K, False, *per_row, cal, fsm,
+               pref, int(t0[s * M]), int(hpm[s * M])]
+    return one, kw
+
+
+def slot_result(res, fsm, s: int, b, K: int) -> tuple:
+    """Slot ``s``'s part of a pooled chunk's result and FSM carry, in the
+    layout of its own scalar call's."""
+    key, S = b.key, b.n_slots
+    M, P = key.rows_cap, key.pairs_cap
+    flat = res.reshape(-1)
+    planes = flat[:8 * K * S * M].view(8 * K, S, M)[:, s]
+    tail = flat[8 * K * S * M:]
+    cal = tail[:2 * S * P].view(2, S, P)[:, s]
+    pref = tail[2 * S * P:].view(2, S, M)[:, s]
+    fsm_s = fsm[:, s * M:(s + 1) * M]
+    if key.topology:
+        out = torch.cat([planes.reshape(-1), cal.reshape(-1), pref.reshape(-1)])
+    else:
+        out = torch.cat([planes, cal, pref])
+    return out, fsm_s
+
+
+POOLED_FORMS = [(False, "tick", K) for K in range(1, TICK_MAX_K + 1)] + \
+    [(False, "chunk", K) for K in (1, 5, 6, 24, 25)] + [(True, "routed", K)
+                                                       for K in (1, 5, 6, 24, 25, 40)]
+
+
+def _pooled_launch(topology, form, args, kw):
+    if topology:
+        return stream_chunk_routed(*args, **kw)
+    return _stream_chunk_launch(form, *args, **kw)
+
+
+def test_pooled_wrappers_refuse_cpu_tensors_and_live_mode():
+    """The pooled calls launch on CUDA tensors or raise; per-row clocks with
+    live= are refused by the wrappers and the plain versions alike."""
+    for topology in (False, True):
+        gw, b = pooled_bucket(topology, "reactive", CPU)
+        args, kw = pooled_call(gw, b, 3)
+        with pytest.raises(ValueError, match="CUDA"):
+            _pooled_launch(topology, "auto", args, kw)
+        plain = ref.stream_chunk_routed_ref if topology else ref.stream_chunk_ref
+        with pytest.raises(ValueError, match="no live mode"):
+            plain(*args, **dict(kw, live=(None,) * 9))
+        with pytest.raises(ValueError, match="pass one or the other"):
+            plain(*args, 0, 730, **kw)
+        with pytest.raises(ValueError, match="want int t0"):
+            plain(*args, **dict(kw, clocks=None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("topology,form,K", POOLED_FORMS,
+                         ids=lambda v: str(v) if not isinstance(v, bool) else
+                         ("routed" if v else "fleet"))
+def test_pooled_chunk_kernel_matches_plain(cuda_device, topology, form, K, kind):
+    """The pooled instance of each chunk kernel, both fleet launch forms and
+    the routed kernel, at K around the forms' edges and past the routed
+    tile, on a bucket whose slots keep different clocks and calendars (month
+    starts inside the chunk, replay columns past a slot's T_pred): every
+    output bit equal to the plain version on the same operands, one launch
+    counted under the pooled name."""
+    gw, b = pooled_bucket(topology, kind, cuda_device)
+    args, kw = pooled_call(gw, b, K)
+    plain = ref.stream_chunk_routed_ref if topology else ref.stream_chunk_ref
+    want, want_fsm = plain(*args, **kw)
+    name = ("stream_chunk_routed_pooled" if topology else "stream_chunk_pooled") + \
+        ("_gated" if kind == "replay" else "")
+    before = ops.LAUNCHES[name]
+    got, got_fsm = _pooled_launch(topology, form, args, kw)
+    assert ops.LAUNCHES[name] == before + 1
+    assert _same_bits(got, want) and _same_bits(got_fsm, want_fsm), (topology, form, K, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", POOL_KINDS)
+@pytest.mark.parametrize("topology,form,K", POOLED_FORMS,
+                         ids=lambda v: str(v) if not isinstance(v, bool) else
+                         ("routed" if v else "fleet"))
+def test_pooled_kernel_equals_the_scalar_instance(cuda_device, topology, form, K, kind):
+    """One common clock on every row: the pooled launch gives the scalar
+    instance's bits. Distinct clocks: each slot's part of the pooled launch
+    equals that slot's own scalar launch, every bit."""
+    gw, b = pooled_bucket(topology, kind, cuda_device, staggered=False)
+    args, kw = pooled_call(gw, b, K)
+    got, got_fsm = _pooled_launch(topology, form, args, kw)
+    want, want_fsm = _pooled_launch(topology, form, *scalar_clock(args, kw))
+    assert _same_bits(got, want) and _same_bits(got_fsm, want_fsm)
+    gw, b = pooled_bucket(topology, kind, cuda_device)
+    args, kw = pooled_call(gw, b, K)
+    got, got_fsm = _pooled_launch(topology, form, args, kw)
+    for s in range(b.n_slots):
+        one, kw1 = slot_call(args, kw, s, b)
+        want, want_fsm = _pooled_launch(topology, form, one, kw1)
+        g, gf = slot_result(got, got_fsm, s, b, K)
+        assert _same_bits(g, want) and _same_bits(gf, want_fsm), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", [False, True], ids=["fleet", "routed"])
+def test_gateway_on_the_card_equals_the_cpu(cuda_device, topology):
+    """The gateway on the card against the CPU gateway, observability on
+    (cadence 24): every step output, billing total and drained window bit
+    for bit, through ticks, chunks of 24, a leave and a rejoin into the
+    freed slot."""
+    runs = []
+    for dev in (cuda_device, CPU):
+        gw, _ = pooled_bucket(topology, "replay", dev, cadence=24)
+        steps = [gw.tick()]                          # to hour 72, a drain hour
+        steps += [gw.tick_many(24) for _ in range(2)]
+        spec = gw._specs["t1"]
+        gw.leave("t1")
+        gw.join("t1", spec)
+        steps += [gw.tick() for _ in range(5)]
+        gw.check()
+        runs.append((gw, steps))
+    (ga, sa), (gb, sb) = runs
+    for oa, ob in zip(sa, sb):
+        assert oa.keys() == ob.keys()
+        for name in oa:
+            for f, v in oa[name].items():
+                assert np.array_equal(v, ob[name][f], equal_nan=True), (name, f)
+    for name in ("t0", "t1", "t2", "t3"):
+        assert ga.billing(name) == gb.billing(name)
+        dump = lambda g: json.dumps([d.to_json() for d in g.metrics(name)])
+        assert dump(ga) == dump(gb) and ga.metrics(name), name

@@ -142,6 +142,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         sc.fleet.stack()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fleet_arrays_from_numpy({}, None)
+    from repro_torch.gateway import FleetGateway
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FleetGateway()
 
 
 def test_dispatch_refuses_devices_without_a_kernel():
