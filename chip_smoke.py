@@ -142,7 +142,8 @@ without printing a result):
     with every launch count at 0, ``FleetRuntime(topo, routing=...)`` on
     the default device streams the same 2048-pair, 128-port year in K = 24
     chunks and 800 hours per tick; it fails unless ``stream_chunk_routed``
-    launched once per chunk and tick (1165) and ``stream_chunk``,
+    launched once per chunk and tick (1165), each in its port-block form
+    (the routing's hottest port holds ~100 legs), and ``stream_chunk``,
     ``leg_segment_sum``, ``tiered_cost_scan`` and ``fsm_chunk`` never, unless
     the stream equals the CPU ``plan_topology`` of the same routing bit for
     bit in ``x``/``state``/``vpn_cost``/``cci_cost`` and the per-tick hours
@@ -153,7 +154,9 @@ without printing a result):
     the window ring, endogenous CCI demand, ports of 76 and 165 legs (one
     and two of the kernel's 128-leg tiles) at K = 24, 1 and 33, and the
     cell's routing, with its empty ports and 95-leg port, over 200 hours at
-    K = 24 and 5; it prints the kernel's registers and fails on a spill; it
+    K = 24 and 5, each case (but live ones) also in the other launch form
+    where that form takes the routing (:func:`chunk_case`); it prints both
+    forms' registers and fails on a spill; it
     streams
     ``build_reroute_scenario(2000, 800, seed 0)`` frozen and with live
     re-packing every 24 hours (``reroute()`` at chunk boundaries), fails
@@ -311,12 +314,18 @@ without printing a result):
     ticks and a chunk; a mixed gateway of topology tenants (32 pairs on 8
     ports) under the reactive, hysteresis and replay-gated policies and
     replay-gated fleet tenants, ticking then chunking, with a reroute and a
-    leave, and a late tenant on 40-hour months joining into the freed slot.
-    It fails unless every gateway call launched the pooled instances exactly
-    once per non-empty bucket and nothing else, unless the probe, the fresh
-    (joined after the churn's leave), the heterogeneous and the mixed tenants
-    (the late one too) equal their standalone card runtimes on every field,
-    every hour, and unless a small gateway on the card equals the CPU's in
+    leave, and a late tenant on 40-hour months joining into the freed slot;
+    256 of those topology tenants, reactive and replay-gated, in two buckets
+    of 128 slots (1024 ports of at most 12 legs each) over 4 ticks and a
+    chunk. It fails unless every gateway call launched the pooled instances
+    exactly once per non-empty bucket and nothing else, each topology
+    bucket's launch in the routed chunk's form that the selection rule takes
+    for it (the 128-slot buckets the small-port form, the mixed gateway's
+    4-slot buckets of 32 ports the port-block form), unless the probe, the
+    fresh (joined after the churn's leave), the heterogeneous, the mixed
+    (the late one too) and the 128-slot topology buckets' first and last
+    tenants equal their standalone card runtimes on
+    every field, every hour, and unless a small gateway on the card equals the CPU's in
     every output, billing total and drained window; it prints
     tenant-link-steps/s, the tick p50/p95/p99 and drain ticks, the chunked
     rate and the join seconds beside the standalone runtime; then holds each
@@ -325,7 +334,11 @@ without printing a result):
     168 and 730 hours: month starts at and inside the chunk, replay columns
     past a slot's own T_pred), and, on one common clock, against its plain
     version and the scalar instance bit for bit, and times both by profiler
-    device time at 256 slots, K = 1 and 24, beside its bound;
+    device time at 256 slots, K = 1 and 24, beside its bound; a topology
+    bucket's call (2048 ports of at most 12 legs) also in the port-block form
+    forced on the same operands (the same bits), both forms timed in turns
+    beside their latency floors; it prints both routed forms' registers and
+    fails on a spill;
 18. prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as
     the last line.
 
@@ -709,10 +722,14 @@ def chunk_case(spec, demand, t_first: int, Ks, cci_demand=None, routing=None,
     or ``stream_chunk_routed`` in topology mode, gated or live when the
     policy is) and through its plain version on the same block, carries and
     gate or live operands; fail unless the packed result, the FSM carry and
-    (live) the forecaster's state agree in every bit. Returns the largest
-    absolute difference over non-NaN values (0.0 when they agree)."""
+    (live) the forecaster's state agree in every bit. In topology mode, but
+    live, the routed chunk's other launch form (:data:`ROUTED_FORMS`, forced;
+    the small-port form only where it takes the routing) must give the same
+    bits. Returns the largest absolute difference over non-NaN values (0.0
+    when they agree)."""
     from repro_torch.fleet import FleetRuntime
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.stream_chunk import small_port_fits, stream_chunk_routed
 
     rt = FleetRuntime(spec, routing=routing, policy=policy, forecaster=forecaster)
     name = ("stream_chunk_routed" if rt.topology else "stream_chunk") + (
@@ -730,8 +747,8 @@ def chunk_case(spec, demand, t_first: int, Ks, cci_demand=None, routing=None,
         dev_block = torch.from_numpy(block).to(DEVICE)
         st = rt._state
         live = None if rt._live is None else (st.ssm_h, st.pred_live, *rt._live)
-        res = plain(*rt._chunk_args(dev_block, K_, endo),
-                    renew_in_chunks=rt.policy.renew_in_chunks, gate=rt._gate, live=live)
+        args = rt._chunk_args(dev_block, K_, endo)     # the carries before the launch
+        res = plain(*args, renew_in_chunks=rt.policy.renew_in_chunks, gate=rt._gate, live=live)
         want, want_fsm = res[0], res[1]
         want_h = res[2] if live is not None else None
         before = ops.LAUNCHES[name]
@@ -743,6 +760,15 @@ def chunk_case(spec, demand, t_first: int, Ks, cci_demand=None, routing=None,
               f"{name} != plain at {rt.n_demand_rows} demand rows on {rt.n_rows} decision "
               f"rows, hours {t}..{t + K - 1}, endo={endo}: first differing elements "
               f"{torch.nonzero((host != want) & ~(host.isnan() & want.isnan()))[:4].tolist()}")
+        idx = rt.arrays.routing.index if rt.topology else None
+        for form in ROUTED_FORMS if rt.topology and live is None else ():
+            Kt = args[5].shape[-1]                      # args[5]: the pairs' tier bounds
+            if form == "small_port" and not small_port_fits(idx, rt.n_demand_rows, K_, Kt, endo):
+                continue
+            got = stream_chunk_routed(*args, form=form, renew_in_chunks=rt.policy.renew_in_chunks,
+                                      gate=rt._gate)
+            check(same_bits(got[0], want) and same_bits(got[1], want_fsm),
+                  f"{name} in the {form} form != plain, hours {t}..{t + K - 1}")
         ok = ~torch.isnan(want)
         err = max(err, (host[ok] - want[ok]).abs().max().item())
         rt._commit(host.cpu().numpy(), K_)
@@ -2550,6 +2576,10 @@ def routed_chunk_work(P: int, M: int, K: int, Kt: int, E: int, endo: bool,
 # dependent float64 add, a dependent integer or float32 operation, and the
 # dependent float64 operations of one expm1, log1p or exp.
 ROUTED_KERNEL = "routed_chunk_kernel"   # a call's one launch: its device time is the span
+SMALL_KERNEL = "routed_small_kernel"    # the small-port form's kernel
+ROUTED_ANY = "routed_"                  # either form's kernel
+ROUTED_FORMS = ("port_block", "small_port")
+SMALL_PORT = "stream_chunk_routed_small_port"   # the small-port form's launch count
 ROUTED_THREADS = 512                    # kThreads: a port block, and a calendar block's pairs
 ROUTED_LEG_TILE = 128                   # kLegTile: legs a leg tile
 ROUTED_TILE = 32                        # kTile: hours an hour tile
@@ -2574,21 +2604,30 @@ def routed_smem(K: int, Kt: int, endo: bool, live: bool) -> int:
 
 
 def routed_latency_floor(P: int, M: int, K: int, Kt: int, E_max: int, *, live: bool = False,
-                         S: int = 0) -> dict:
+                         S: int = 0, form: str = "port_block") -> dict:
     """The least time a launch of the routed chunk could take on its hottest
-    port's chain: the empty kernel's floor at the chunk's grid (M port blocks
-    of 512 threads, each also walking its slice of the pairs' calendars) and
-    dynamic shared memory, plus, at the card's highest SM clock, three dependent round trips
+    port's chain: the empty kernel's floor at the form's grid and dynamic
+    shared memory (the port-block form: M port blocks of 512 threads, each
+    also walking its slice of the pairs' calendars; the small-port form: a
+    warp a port, SMALL_PORTS ports a block, its shared memory as
+    its C entry sizes it for the hottest port's E_max legs), plus, at the
+    card's highest SM clock, three dependent round trips
     that hit L2 (start[m], the leg descriptors, the gather), K calendar adds,
     one tier fold's Kt adds and the L_vpn add, the hottest port's E_max leg
     adds, then the longer of the K prefix adds with the window sum and
     trigger (3 dependent operations) and, live, the forecaster's state chain
     (K dependent multiply-adds, S readout adds) with one pass of expm1, log1p
     and exp; then K flat FSM steps (5 dependent integer operations each)."""
+    from repro_torch.kernels.stream_chunk import small_port_geometry
+
     if not _FLOOR_LIB:
         _FLOOR_LIB.append(launch_floor())
-    blocks = max(M, 1)
-    empty = floor_ms(_FLOOR_LIB[0], blocks, ROUTED_THREADS, routed_smem(K, Kt, False, live))
+    if form == "small_port":
+        geo = small_port_geometry(P, M, K, Kt, False, E_max)
+        blocks, threads, smem = geo["blocks"], geo["threads"], geo["smem"]
+    else:
+        blocks, threads, smem = max(M, 1), ROUTED_THREADS, routed_smem(K, Kt, False, live)
+    empty = floor_ms(_FLOOR_LIB[0], blocks, threads, smem)
     mhz = float(sh("nvidia-smi", "--query-gpu=clocks.max.sm",
                    "--format=csv,noheader,nounits").splitlines()[0])
     half = (K + 3) * FP64_DEP_CYCLES
@@ -2597,25 +2636,31 @@ def routed_latency_floor(P: int, M: int, K: int, Kt: int, E_max: int, *, live: b
     cycles = (3 * L2_HIT_CYCLES + (K + Kt + 1 + E_max) * FP64_DEP_CYCLES + half
               + 5 * K * INT_DEP_CYCLES)
     chain = cycles / (mhz * 1e6) * 1e3
-    return {"floor_ms": empty + chain, "empty_ms": empty, "chain_ms": chain, "grid": blocks}
+    return {"floor_ms": empty + chain, "empty_ms": empty, "chain_ms": chain, "grid": blocks,
+            "threads": threads}
 
 
 def hottest_port_legs(routing) -> int:
-    """Legs of the routing operand's busiest port (its LegIndex's runs)."""
-    return int(routing.index.start.diff().max().item())
+    """Legs of the routing operand's busiest port, as its LegIndex recorded
+    them from its runs on the host (no device read)."""
+    check(routing.index.max_legs >= 0, "the routing's index holds no hottest port")
+    return routing.index.max_legs
 
 
 def print_routed_registers() -> None:
     """-Xptxas -v's registers, stack frame and spills of the routed chunk's
-    instances (three gate modes, two of them also pooled); fails on a spill or
-    a stack frame."""
-    for name, rep in sorted(ptxas_instances(ROUTED_KERNEL).items()):
-        check(rep.get("stack") == rep.get("spill_stores") == rep.get("spill_loads") == 0,
-              f"{name} spills or keeps a stack frame: {rep}")
-        mode, pooled = stream_instance(name)
-        print(f"  ptxas {ROUTED_KERNEL} {mode}{' pooled' if pooled else ''}: "
-              f"{rep['registers']} registers, {rep['stack']} bytes stack frame, "
-              f"{rep['spill_stores']} bytes spill stores, {rep['spill_loads']} bytes spill loads")
+    instances: the port-block form (three gate modes, two of them also
+    pooled) and the small-port form (reactive and replay, scalar and
+    pooled); fails on a spill or a stack frame."""
+    for kernel in (ROUTED_KERNEL, SMALL_KERNEL):
+        for name, rep in sorted(ptxas_instances(kernel).items()):
+            check(rep.get("stack") == rep.get("spill_stores") == rep.get("spill_loads") == 0,
+                  f"{name} spills or keeps a stack frame: {rep}")
+            mode, pooled = stream_instance(name)
+            print(f"  ptxas {kernel} {mode}{' pooled' if pooled else ''}: "
+                  f"{rep['registers']} registers, {rep['stack']} bytes stack frame, "
+                  f"{rep['spill_stores']} bytes spill stores, {rep['spill_loads']} bytes "
+                  f"spill loads")
 
 
 def repack_stream(sc, *, live: bool, device=None):
@@ -2658,7 +2703,7 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
         replay_plan_topology,
     )
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.stream_chunk import stream_chunk_routed
+    from repro_torch.kernels.stream_chunk import routed_form, stream_chunk_routed
 
     sc, routing, cpu = topo_ctx["scenario"], topo_ctx["routing"], topo_ctx["cpu_plan"]
     P, M, T = sc.n_pairs, sc.n_ports, sc.demand.shape[1]
@@ -2690,6 +2735,12 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
           f"topology streaming path, not once per chunk and tick ({want_launches})")
     for name in ("stream_chunk", "leg_segment_sum", "tiered_cost_scan", "fsm_chunk"):
         check(launches[name] == 0, f"kernel {name} launched on the topology streaming path")
+    hot = hottest_port_legs(rt.arrays.routing)
+    check(routed_form(hot, M) == "port_block" and launches[SMALL_PORT] == 0,
+          f"the {M}-port stream (a {hot}-leg port) took the small-port form "
+          f"{launches[SMALL_PORT]} times, not the port-block form")
+    print(f"  the {M}-port stream (hottest port {hot} legs): every launch in the port-block "
+          f"form, as the selection rule takes it")
 
     # -- checks -----------------------------------------------------------------
     for k, want in (("x", cpu["x"]), ("state", cpu["state"]),
@@ -2818,7 +2869,7 @@ def topology_stream_phase(card: str, topo_ctx: dict) -> dict:
               f"behind a queue {tk['queued_ms']:.4f} ms, events around one call (host launch "
               f"included) {tk['event_ms']:.4f} ms; bound {tk['bound_ms'] * 1e3:.3f} us "
               f"({tk['bound_by']}), {tk['ms'] / tk['bound_ms']:.1f}x bound; latency floor "
-              f"{tk['floor_ms']:.5f} ms (empty kernel at {tk['grid']} x {ROUTED_THREADS} "
+              f"{tk['floor_ms']:.5f} ms (empty kernel at {tk['grid']} x {tk['threads']} "
               f"{tk['empty_ms']:.5f} + chain {tk['chain_ms']:.5f}), "
               f"{tk['ms'] / tk['floor_ms']:.2f}x it; plain {tk['plain_ms']:.3f} ms")
     print_step_split(rt_b, sc.demand, t_first, f"{P} pairs")
@@ -2909,7 +2960,8 @@ def print_stream_registers(modes) -> None:
     kernels' instances in the gate ``modes`` ("pooled": every pooled
     instance). Fails on a spill or a stack frame in any live or pooled
     instance."""
-    for kernel in ("stream_chunk_tick_kernel", "stream_chunk_pipe_kernel", "routed_chunk_kernel"):
+    for kernel in ("stream_chunk_tick_kernel", "stream_chunk_pipe_kernel", ROUTED_KERNEL,
+                   SMALL_KERNEL):
         for name, rep_ in sorted(ptxas_instances(kernel).items()):
             mode, pooled = stream_instance(name)
             if (mode in modes and not pooled) or (pooled and "pooled" in modes):
@@ -4652,7 +4704,7 @@ def forecast_live_phase(card: str, fc_ctx: dict, topo_ctx: dict) -> tuple:
                   f"(hottest port {E_max}), the call's span in turns: {got[mode][0]:.5f} / "
                   f"{got[mode][1]:.5f} ms; bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), "
                   f"{got[mode][0] / b['bound_ms']:.1f}x; latency floor {lat['floor_ms']:.5f} ms "
-                  f"(empty kernel at {lat['grid']} x {ROUTED_THREADS} {lat['empty_ms']:.5f} + "
+                  f"(empty kernel at {lat['grid']} x {lat['threads']} {lat['empty_ms']:.5f} + "
                   f"chain {lat['chain_ms']:.5f}), {got[mode][0] / lat['floor_ms']:.2f}x it")
         if K == STREAM_K:
             tb, t_ms = bounds["live"], got["live"][0]
@@ -4973,6 +5025,7 @@ GW_HETERO = (256, 6)        # tests/test_gateway.py:237-273: 2-link tenants, tic
 GW_TOPO = (32, 720, 4)      # pairs, hours, tenants of each policy in the mixed gateway
 GW_TOPO_KW = dict(n_facilities=4, ports_per_facility=2)
 GW_TOPO_TICKS, GW_REROUTE, GW_LEAVE = 144, 96, 240   # ticks, then chunks; the swap; the leave
+GW_TOPO_BIG_TICKS = 4       # ticks of the two 128-slot topology buckets (then a chunk)
 GW_SMALL = (3, 16, 168)     # card vs CPU: tenants of each kind, links, hours
 GW_SPLIT_TICKS, GW_SPLIT_CHUNKS = 60, 3   # the host split's window: ticks (collect on and
                                           # off in turns), chunks (one cadence)
@@ -4995,16 +5048,33 @@ STEP_FIELDS = ("x", "state", "r_vpn", "r_cci", "vpn_cost", "cci_cost", "cost")
 
 def gw_call(gw, fn, counts: dict):
     """``fn()`` (a gateway's tick or chunk), failing unless it launched the
-    pooled instances once per non-empty bucket and no other kernel; the
-    launches are added to ``counts``."""
+    pooled instances once per non-empty bucket and no other kernel, each
+    topology bucket's launch in the form the selection rule takes for its
+    block-diagonal routing (``routed_form`` of the hottest port and the
+    port count its index recorded on the host: the small-port form from 133
+    ports of few legs on, else the port-block form; a bucket's at most 32
+    rows of 4 tiers without CCI demand fit the small-port form's shared
+    memory at every K); the launches (and the small-port form's count) are
+    added to ``counts``."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.stream_chunk import routed_form
 
-    live = len(gw._live_buckets())
+    buckets = gw._live_buckets()
+    live = len(buckets)
+    want_small = sum(b.key.topology and routed_form(b.routing.index.max_legs,
+                                                    b.routing.index.n_ports) == "small_port"
+                     for b in buckets)
     before = dict(ops.LAUNCHES)
     out = fn()
     delta = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    small = delta.pop(SMALL_PORT, 0)
     check(set(delta) <= set(POOLED) and sum(delta.values()) == live,
           f"a gateway call over {live} non-empty buckets launched {delta}")
+    routed = sum(v for k, v in delta.items() if "routed" in k)
+    check(small == want_small, f"a gateway call's {routed} topology-bucket launches took the "
+          f"small-port form {small} times, the rule {want_small}")
+    if small:
+        delta[SMALL_PORT] = small
     for k, v in delta.items():
         counts[k] = counts.get(k, 0) + v
     return out
@@ -5258,14 +5328,55 @@ def staggered_bucket(spec, demand, policy_fn, n: int, device):
     return gw, b
 
 
+def routed_forms_in_turns(bt, args, kw, got, got_fsm, K: int, Kt: int) -> tuple:
+    """A topology bucket's pooled call in both forms of the routed chunk on the
+    same operands: the form the wrapper takes for it (the small-port form;
+    checked) already gave ``got``; the port-block form, forced, must give its
+    bits.
+    Both timed in turns (port-block, small-port, small-port, port-block) by
+    profiler device time, each beside its latency floor at the hottest port
+    its index recorded on the host. Returns the row's form fields and a line
+    of the times and their ratio."""
+    from repro_torch.kernels.stream_chunk import routed_launch_form, stream_chunk_routed
+
+    idx = bt.routing.index
+    S, M, P = bt.n_slots, bt.key.rows_cap, bt.key.pairs_cap
+    chosen = routed_launch_form(idx, S * P, K, Kt, False)
+    check(chosen == "small_port", f"the {idx.n_ports}-port bucket (hottest port "
+          f"{idx.max_legs} legs) takes the {chosen} form")
+    pb = stream_chunk_routed(*args, **kw, form="port_block")
+    check(same_bits(pb[0], got) and same_bits(pb[1], got_fsm),
+          f"K = {K}: the port-block form != the small-port form on the bucket's operands")
+    kerns = {"port_block": ROUTED_KERNEL, "small_port": SMALL_KERNEL}
+    ms = {form: [] for form in kerns}
+    for form in ("port_block", "small_port", "small_port", "port_block"):
+        fn = lambda: stream_chunk_routed(*args, **kw, form=form)
+        ms[form].append(kernel_device_ms(fn, 30, [kerns[form]], per_call=1)[kerns[form]])
+    floor = {form: routed_latency_floor(S * P, S * M, K, Kt, idx.max_legs, form=form)
+             for form in kerns}
+    sp, pbm = min(ms["small_port"]), min(ms["port_block"])
+    fs, fp = floor["small_port"], floor["port_block"]
+    line = (f"      forms in turns, K = {K:2d}: small-port {ms['small_port'][0]:.5f} / "
+            f"{ms['small_port'][1]:.5f} ms (floor {fs['floor_ms']:.5f}: {fs['grid']} x "
+            f"{fs['threads']}), port-block {ms['port_block'][0]:.5f} / "
+            f"{ms['port_block'][1]:.5f} ms (floor {fp['floor_ms']:.5f}: {fp['grid']} x "
+            f"{fp['threads']}); port-block / small-port {pbm / sp:.2f}x; the two forms' "
+            f"bits equal")
+    return line, {"form": "small_port", "floor_ms": fs["floor_ms"], "port_block_ms": pbm,
+                  "port_block_floor_ms": fp["floor_ms"], "small_port_turns_ms": ms["small_port"],
+                  "port_block_turns_ms": ms["port_block"]}
+
+
 def gateway_phase(card: str) -> dict:
     """The multi-tenant gateway (``repro_torch.gateway.FleetGateway``) on the
     card: 256 fleet tenants of 32 links ticking in one bucket, a fresh pool
     of them in chunks of 24, 256 heterogeneous 2-link tenants, a mixed
     gateway of topology and fleet tenants under the three policies with a
-    reroute, a leave and a late joiner, the card against the CPU; every
-    pooled launch counted (one per non-empty bucket per tick or chunk), the
-    probe, fresh, heterogeneous and mixed tenants held to standalone card
+    reroute, a leave and a late joiner, 256 topology tenants in two buckets
+    of 128 slots (the routed chunk's small-port form), the card against the CPU; every
+    pooled launch counted (one per non-empty bucket per tick or chunk, each
+    routed one in the form the selection rule takes), the probe, fresh,
+    heterogeneous, mixed and topology-bucket tenants held to standalone card
     runtimes bit for bit; then the pooled instances against their plain
     versions on staggered clocks, and timed beside the scalar instance on
     the same rows."""
@@ -5303,6 +5414,28 @@ def gateway_phase(card: str) -> dict:
     res0 = resolve_runtime_operands(base.fleet, RuntimeConfig(), DEVICE)
     big_arrays = stack_slots([res0.arrays] * n_ten)   # the pool's rows as one fleet
     big_demand = np.concatenate([base.demand * (1.0 + 0.01 * (i % 97)) for i in range(n_ten)])
+    topo = build_topology_scenario(n_pairs, horizon=topo_hours, seed=SEED, **GW_TOPO_KW)
+    plan = optimize_routing(topo.topo, topo.demand)
+    rng = np.random.default_rng(SEED)
+    fleet_tog = res0.arrays.toggle
+    topo_tog = topo.topo.stack(plan, torch.float64, DEVICE).toggle
+
+    def replay_cfg(tog, routing=None, cols=512, gen=None):
+        g = rng if gen is None else gen
+        M = tog.h.shape[0]
+        pred = g.uniform(0.0, 300.0, (M, cols))
+        coef = np.stack([g.uniform(0.5, 1.5, M), g.uniform(0.3, 0.6, M),
+                         g.uniform(0.5, 1.5, M), g.uniform(0.3, 0.6, M)], axis=1)
+        return RuntimeConfig(routing=routing, policy=forecast_gated_policy(
+            tog, pred, margin=0.05, cost_coef=coef))
+
+    # the topology buckets' tenants: even ones reactive, odd ones replay-gated
+    topo_gen = np.random.default_rng(SEED + 500)
+    topo_cfgs = [RuntimeConfig(routing=plan) if i % 2 == 0 else
+                 replay_cfg(topo_tog, plan, gen=topo_gen) for i in range(n_ten)]
+    topo_tenant = lambda i: TenantSpec(spec=topo.topo,
+                                       demand=topo.demand * (1.0 + 0.01 * (i % 97)),
+                                       config=topo_cfgs[i])
 
     # -- the main path: every launch count at 0, the gateways driven ------------
     ops.reset_launches()
@@ -5423,6 +5556,23 @@ def gateway_phase(card: str) -> dict:
     gw4 = FleetGateway(GatewayConfig(slots_per_bucket=4, cadence=ck_cadence))
     mixed_out, new_plan = drive_mixed(gw4, mixed, GW_TOPO_TICKS, GW_REROUTE, GW_LEAVE, K, counts)
     check(not gw4.check(), "the mixed gateway recorded violations")
+    # n_ten topology tenants in two buckets of n_ten / 2 slots, reactive and
+    # replay-gated (each n_ten / 2 x 8 ports of at most 12 legs), which take
+    # the routed chunk's small-port form where the mixed gateway's 4-slot
+    # buckets (32 ports) take the port-block form: ticks and a chunk, the
+    # first and last tenants of each held to standalone card runtimes
+    gw5 = FleetGateway(GatewayConfig(slots_per_bucket=n_ten // 2, queue_limit=n_ten,
+                                     obs=False))
+    for i in range(n_ten):
+        gw5.join(f"t{i:04d}", topo_tenant(i))
+    check(gw5.n_active == n_ten and gw5.n_buckets == 2, f"the topology tenants: "
+          f"{gw5.n_active} active in {gw5.n_buckets} buckets")
+    topo_probes = {f"t{i:04d}": [] for i in (0, 1, n_ten - 2, n_ten - 1)}
+    for call in [gw5.tick] * GW_TOPO_BIG_TICKS + [lambda: gw5.tick_many(K)]:
+        outs = gw_call(gw5, call, counts)
+        for name, got in topo_probes.items():
+            got.append(outs[name])
+    check(not gw5.check(), "the topology bucket recorded violations")
     torch.cuda.synchronize()
     main_launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     check(main_launches == {**counts, "stream_chunk": big_calls},
@@ -5430,6 +5580,11 @@ def gateway_phase(card: str) -> dict:
           f"standalone chunks")
     for name in POOLED:
         check(main_launches.get(name, 0) >= 1, f"{name} was not launched on the gateway path")
+    n_routed = sum(main_launches.get(name, 0) for name in POOLED if "routed" in name)
+    n_small = main_launches.get(SMALL_PORT, 0)
+    check(n_small == 2 * (GW_TOPO_BIG_TICKS + 1) and n_routed > n_small,
+          f"of {n_routed} topology-bucket launches {n_small} took the small-port form, not "
+          f"the {2 * (GW_TOPO_BIG_TICKS + 1)} of the two {n_ten // 2}-slot buckets")
     t_main = time.perf_counter() - t_phase
 
     # -- held against standalone card runtimes ----------------------------------
@@ -5446,6 +5601,15 @@ def gateway_phase(card: str) -> dict:
         if g is not None:
             same_outputs(g, want, f"the fresh tenant at its hour {t}")
     n_fresh = sum(g is not None for g in fresh)
+    for name, got in topo_probes.items():
+        i = int(name[1:])
+        rt = FleetRuntime(topo.topo, routing=plan, policy=topo_cfgs[i].policy)
+        dem = topo.demand * (1.0 + 0.01 * (i % 97))
+        for t, g in enumerate(got[:-1]):
+            same_outputs(g, rt.step(np.ascontiguousarray(dem[:, t])),
+                         f"topology {name} at hour {t}")
+        t = GW_TOPO_BIG_TICKS
+        same_outputs(got[-1], rt.step_many(dem[:, t:t + K]), f"topology {name}'s chunk")
     for name, (sc, got) in het.items():
         rt = FleetRuntime(sc.fleet)
         for t in range(het_ticks):
@@ -5488,6 +5652,10 @@ def gateway_phase(card: str) -> dict:
           f"or chunk); probes t0000 and t{n_ten - 1:04d} == standalone card runtimes on every "
           f"field of {len(probes['t0000'])} hours, the fresh tenant (joined at hour "
           f"{GW_WARM + GW_TICKS}, its own clock) on {n_fresh} of its first {len(fresh)} hours; "
+          f"the two {n_ten // 2}-slot topology buckets' (reactive, replay) {n_small} launches "
+          f"in the small-port form (their first and last tenants == standalone card "
+          f"runtimes over {GW_TOPO_BIG_TICKS} ticks and a chunk), the mixed gateway's "
+          f"{n_routed - n_small} (4-slot buckets, 32 ports) in the port-block form; "
           f"{n_het} heterogeneous 2-link tenants == their "
           f"standalone card runtimes over {het_ticks} ticks and a chunk; the mixed gateway "
           f"({len(mixed)} tenants: topology x reactive/hysteresis/replay, fleet replay; a "
@@ -5497,20 +5665,6 @@ def gateway_phase(card: str) -> dict:
           f"billing total and drained window ({t_main:.1f} s for the main path)")
 
     # -- the pooled instances against their plain versions, timed --------------
-    topo = build_topology_scenario(n_pairs, horizon=topo_hours, seed=SEED, **GW_TOPO_KW)
-    plan = optimize_routing(topo.topo, topo.demand)
-    rng = np.random.default_rng(SEED)
-    fleet_tog = res0.arrays.toggle
-    topo_tog = topo.topo.stack(plan, torch.float64, DEVICE).toggle
-
-    def replay_cfg(tog, routing=None, cols=512):
-        M = tog.h.shape[0]
-        pred = rng.uniform(0.0, 300.0, (M, cols))
-        coef = np.stack([rng.uniform(0.5, 1.5, M), rng.uniform(0.3, 0.6, M),
-                         rng.uniform(0.5, 1.5, M), rng.uniform(0.3, 0.6, M)], axis=1)
-        return RuntimeConfig(routing=routing, policy=forecast_gated_policy(
-            tog, pred, margin=0.05, cost_coef=coef))
-
     buckets = {
         "stream_chunk_pooled": (base.fleet, base.demand, lambda i: RuntimeConfig()),
         "stream_chunk_pooled_gated": (base.fleet, base.demand,
@@ -5561,12 +5715,14 @@ def gateway_phase(card: str) -> dict:
     rows_out = {}
     print(f"  pooled instances at {n_ten} slots (profiler device time, one common clock so "
           f"the scalar instance runs the same operands; bound = max(bytes / 3.35 TB/s, float64 "
-          f"lane operations / peak); {card}):")
+          f"lane operations / peak); routed: the small-port form the index chose, the "
+          f"port-block form forced on the same operands, in turns, each beside its latency "
+          f"floor; {card}):")
     for name, (spec, dem, cfg_fn) in buckets.items():
         gwt, bt = pooled_timing_bucket(spec, dem, cfg_fn, n_ten, DEVICE)
         routed = bt.key.topology
         gated = bt.gate is not None
-        kern = "routed_chunk_kernel" if routed else "stream_chunk_"
+        kern = ROUTED_ANY if routed else "stream_chunk_"
         launch = (lambda a, kw: stream_chunk_routed(*a, **kw)) if routed else \
             (lambda a, kw: _stream_chunk_launch("auto", *a, **kw))
         plain = ref.stream_chunk_routed_ref if routed else ref.stream_chunk_ref
@@ -5585,21 +5741,28 @@ def gateway_phase(card: str) -> dict:
             plain_ms = sync_ms(lambda: plain(*args, **kw), 3)
             S, M, P = bt.n_slots, bt.key.rows_cap, bt.key.pairs_cap
             Kt = bt.key.n_tiers
+            extra, forms_line = {}, None
             if routed:
                 work = routed_chunk_work(S * P, S * M, Kt_, Kt, S * bt.key.legs_cap, False, gated)
                 bnd = bound(work[0] + 4 * (2 * S * P + S * M), work[1], torch.float64)
+                forms_line, extra = routed_forms_in_turns(bt, args, kw, got, got_fsm, Kt_, Kt)
             else:
                 work = stream_chunk_work(S * M, Kt_, Kt, False, gated)
                 bnd = lane_bound(work[0] + 4 * 2 * S * M, work[1], torch.float64)
             print(f"    {name:33s} K = {Kt_:2d}: {ms:.5f} ms (scalar instance {sms:.5f} ms, "
                   f"ratio {ms / sms:.3f}), plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.6f} "
-                  f"ms ({bnd['bound_by']}), {ms / bnd['bound_ms']:.1f}x bound; == plain and == "
-                  f"the scalar instance in every bit")
+                  f"ms ({bnd['bound_by']}), {ms / bnd['bound_ms']:.1f}x bound"
+                  + (f", latency floor {extra['floor_ms']:.5f} ms" if extra else "")
+                  + "; == plain and == the scalar instance in every bit")
+            if forms_line:
+                print(forms_line)
             if Kt_ == STREAM_K:
                 rows_out[name] = {"launches": main_launches.get(name, 0), "max_abs_err": 0.0,
                                   "ms": ms, "plain_ms": plain_ms, **bnd,
-                                  "scalar_ms": sms, "shape": f"{S} x {M} rows x {Kt_}"}
+                                  "scalar_ms": sms, "shape": f"{S} x {M} rows x {Kt_}",
+                                  **extra}
     print_stream_registers(("pooled",))
+    print_routed_registers()
     print(f"gateway phase: {time.perf_counter() - t_phase:.1f} s")
     return rows_out
 

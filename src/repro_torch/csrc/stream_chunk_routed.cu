@@ -60,8 +60,14 @@
 // host's second launch falls in the gap between them, inside the chunk's
 // span. So one launch.
 //
-// Design: one kernel, one block of 16 warps a port (128 ports on 132 SMs). A
-// port block prices its own legs' pairs: a pair on several legs is priced
+// Two launch forms, chosen on the host once per routing (RoutingPlan.operand,
+// index_legs) from its hottest port and port count: the port-block form, for
+// few busy ports, described here, and the small-port form (a warp a port,
+// several ports a block), for many ports of few legs, described at
+// routed_small_kernel below.
+//
+// Design of the port-block form: one block of 16 warps a port (128 ports on
+// 132 SMs). A port block prices its own legs' pairs: a pair on several legs is priced
 // identically by each block that holds it, so the bits stay. It walks the
 // chunk in tiles of kTile hours and, in each, its run of the port-major leg
 // descriptors (RoutingPlan.operand builds leg_pair, vpn_w and attach_w
@@ -861,6 +867,387 @@ int launch(const ArgsOf<PL>& a, size_t smem, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ---- The small-port form ----------------------------------------------------
+//
+// The gateway's topology buckets are many small ports: 256 slots x 8 ports
+// hold 2048 ports of 0-12 legs. The port-block form gives each a block of
+// 512 threads, one block an SM, in 16 waves, and each block's time is its
+// chains, not its work (a 4-leg port is 96 (leg, hour) cells, walked through
+// seven block-wide barriers a tile). This form gives each port one warp and
+// puts kSmallPorts ports in a block, so that such a bucket is resident in
+// one wave, and runs the chains that are one lane long (the cost prefixes,
+// the window sums and triggers, the FSM) for the block's ports at once, a
+// lane a port, so that they take one warp's issue slots, not kSmallPorts. A port holds at
+// most kSmallLegs legs, one a lane; the host picks this form from the
+// routing's hottest port and port count (RoutingPlan.operand, index_legs;
+// kernels/stream_chunk.py::routed_form) and passes the hottest port's legs,
+// legs_cap, which sizes the warps' planes. Over each hour tile of kTile
+// hours, port warp w in its own slice of the dynamic shared memory:
+//   rows: lane j < nl is leg j's pair, the next lanes the first of the port's
+//     slice of the pairs' calendars (calendar_slice's ceil(P / M) pairs), as
+//     many as the planes' `rows` hold; each lane keeps its row's calendar
+//     carry in registers for the whole chunk (no leg_cal scratch), and the
+//     legs' weights, L_vpn and tier rows (padded to a multiple of four tiers)
+//     are staged once a chunk;
+//   bases: lane k stages hour k's window base when it is older than the tile
+//     (the host's read or an earlier tile's snapshot) and, replay, its gate
+//     column min(t0_port + k, T_pred - 1);
+//   gather: lane k copies hour k of every row's demand (and, for the legs,
+//     CCI demand) into the planes with cp.async, coalesced along hours, and
+//     clips it at the row's pair capacity;
+//   calendar: lane j walks row j's calendar, one add an hour, leaving the
+//     month-to-date volume before each hour in LO;
+//   fold: every lane, one (leg, hour) cell at a time, folds the cell's tiers
+//     (tier_fold.cuh's fold_staged4) and forms the leg's two products in
+//     place, as the port-block form's block does; then lane k adds hour k's
+//     VPN costs and billed volumes over the legs in ascending order, each sum
+//     from +0.0 (fold_column), and prices hour k's CCI plane.
+// Then, after a barrier, warp 0's lane p walks port p's hours: the VPN and
+// CCI planes, the prefix snapshot and add, the window sums and triggers
+// (gated in replay mode) and fsm_step_flat, and stores the hour's eight
+// planes (consecutive ports in consecutive lanes); a second barrier frees
+// the tile's shared hour arrays. The slice pairs that do not fit the rows
+// are walked last, a lane a pair, straight from device memory; each pair's
+// carry is written once, by its slice's port, as in the port-block form.
+// The arithmetic is the port-block form's operation for operation (the same
+// clips, calendar adds, folds, products, left folds in leg order, prefixes,
+// window sums, triggers and FSM steps; padding legs walked in their place),
+// so both forms give the plain version's bits. No live instance: the gateway
+// refuses live tenants, and a live stream keeps the port-block form.
+constexpr int kSmallLegs = 32;                // a port's legs at most: a lane each
+constexpr int kSmallPorts = 8;                // port warps a block (a sweep on the H100: 1-8)
+constexpr int kHourArrays = 8;                // a port's per-hour arrays of a tile
+
+// One port warp's slice of the dynamic shared memory, in doubles: the hour
+// planes D (clipped demand), LO (month-to-date volume) and, with CCI demand,
+// C, `rows` rows of `stride` each; the legs' tier rows (Kt4 bounds, Kt4
+// rates); their vpn_w, attach_w, L_vpn; the rows' pair capacities; the
+// tile's per-hour arrays (the hour's VPN and CCI costs, window bases and
+// gate columns, prefix snapshots: kTile each); then the rows' pairs (32 ints).
+struct SmallLayout {
+  int rows, legs, planes, stride, Kt4;
+  __host__ __device__ size_t plane() const { return (size_t)rows * stride; }
+  __host__ __device__ size_t tab() const { return planes * plane(); }
+  __host__ __device__ size_t wts() const { return tab() + (size_t)legs * 2 * Kt4; }
+  __host__ __device__ size_t caps() const { return wts() + 3 * (size_t)legs; }
+  __host__ __device__ size_t hours() const { return caps() + rows; }
+  __host__ __device__ size_t ints() const { return hours() + kHourArrays * kTile; }
+  __host__ __device__ size_t doubles() const { return ints() + 32 / 2; }
+};
+
+// A port's per-hour arrays of a tile (SmallLayout::hours).
+struct HourArrays {
+  double *v, *c, *bv, *bc, *gv, *gc, *sv, *sc;
+  __device__ explicit HourArrays(double* p)
+      : v(p), c(p + kTile), bv(p + 2 * kTile), bc(p + 3 * kTile), gv(p + 4 * kTile),
+        gc(p + 5 * kTile), sv(p + 6 * kTile), sc(p + 7 * kTile) {}
+};
+
+// The calendar carries of pairs [c_begin, c_end) of a port's slice that its
+// rows did not hold: a lane a pair, 32 at a time, each over every hour tile
+// of the chunk straight from the pair-major block; each carry written once.
+template <int G, bool PL>
+__device__ __forceinline__ void small_slice_rest(const ArgsOf<PL>& a, int c_begin, int c_end,
+                                                 int lane) {
+  double* cal_out = a.out + tail_at<G>((int64_t)a.K * a.M);
+  for (int c0 = c_begin; c0 < c_end; c0 += 32) {
+    const int n = c0 + lane;
+    if (n >= c_end) break;
+    PairClockOf<PL> ck = {};
+    if constexpr (PL) ck = pair_clock(a, n);
+    const double cap = a.pair_capacity[n];
+    double dcum = a.cal_in[n], month = a.cal_in[a.P + n];
+    const double* row = a.demand + (int64_t)n * a.K;
+    for (int k0 = 0; k0 < a.K; k0 += kTile) {
+      const int len = min(kTile, a.K - k0);
+      int hpm, ph0;
+      if constexpr (PL) {
+        hpm = ck.hpm;
+        ph0 = (ck.phase + k0) % hpm;
+      } else {
+        hpm = a.hours_per_month;
+        ph0 = (a.phase0 + k0) % hpm;
+      }
+      unsigned starts = 0;                      // bit k: hour k0 + k starts a month
+      for (int k = ph0 == 0 ? 0 : hpm - ph0; k < len; k += hpm) starts |= 1u << k;
+#pragma unroll 8
+      for (int k = 0; k < len; ++k) {
+        const double d = tier::min_sel(row[k0 + k], cap);
+        month = (starts >> k) & 1u ? dcum : month;
+        dcum = __dadd_rn(dcum, d);
+      }
+    }
+    cal_out[n] = dcum;
+    cal_out[a.P + n] = month;
+  }
+}
+
+template <int G, bool PL>
+__global__ void __launch_bounds__(32 * kSmallPorts, 2)
+routed_small_kernel(const ArgsOf<PL> a, int legs_cap, int rows) {
+  extern __shared__ __align__(16) double dyn[];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  constexpr int W = kSmallPorts;
+  const int m = blockIdx.x * W + w;                     // warp w's port
+  const bool active = m < a.M;
+  const int M = a.M, K = a.K, st = a.stride, Kt4 = tiers4(a.Kt);
+  const int64_t KM = (int64_t)K * M;
+  const bool endo = a.cci_demand != nullptr;
+  const SmallLayout lay = {rows, legs_cap, endo ? 3 : 2, st, Kt4};
+  double* base = dyn + (size_t)w * lay.doubles();
+  double* Dp = base;
+  double* LO = base + lay.plane();
+  double* Cp = endo ? LO + lay.plane() : Dp;            // the plane the bill folds
+  double* tab = base + lay.tab();
+  double* wv = base + lay.wts();
+  double* wa = wv + legs_cap;
+  double* lv = wa + legs_cap;
+  double* capr = base + lay.caps();
+  const HourArrays hr(base + lay.hours());
+  int* rp = reinterpret_cast<int*>(base + lay.ints());  // the rows' pairs
+
+  // warp w: its port's legs and slice of the calendars, and lane j's row
+  // (leg j's pair, or a slice pair) with its carry in registers
+  int e0 = 0, nl = 0, c0 = 0, c1 = 0;
+  int h = 0;
+  PortClockOf<PL> t0p = {};
+  double lease = 0.0, cc = 0.0, pcap = 0.0;
+  if (active) {
+    e0 = a.start[m];
+    nl = a.start[m + 1] - e0;
+    if (nl > legs_cap) __trap();                        // the host's hottest port is wrong
+    const int S = (a.P + M - 1) / M;
+    c0 = min(a.P, m * S);
+    c1 = min(a.P, c0 + S);
+    h = a.win[m];
+    if constexpr (PL) t0p = a.t0_port[m];
+    lease = a.lease_cci[m];
+    cc = a.c_cci[m];
+    pcap = a.port_capacity[m];
+  }
+  const int nm = min(c1 - c0, rows - nl), nrows = nl + nm;
+  int pr = 0;
+  double dcum = 0.0, month = 0.0;
+  PairClockOf<PL> ck = {};
+  if (lane < nl) {
+    const int pos = e0 + lane;
+    pr = a.leg_pair[pos];
+    wv[lane] = a.vpn_w[pos];
+    wa[lane] = a.attach_w[pos];
+  } else if (lane < nrows) {
+    pr = c0 + lane - nl;
+  }
+  if (lane < nrows) {
+    rp[lane] = pr;
+    capr[lane] = a.pair_capacity[pr];
+    dcum = a.cal_in[pr];
+    month = a.cal_in[a.P + pr];
+    if constexpr (PL) ck = pair_clock(a, pr);
+    if (lane < nl) lv[lane] = a.L_vpn[pr];
+  }
+  // warp 0's lane p: port q = blockIdx.x * W + p's FSM, window and carries
+  const int q = blockIdx.x * W + lane;
+  const bool runs = w == 0 && lane < W && q < M;
+  fsm::FsmRow fp = {};
+  [[maybe_unused]] fsm::FsmGate g = {};
+  fsm::FsmCarry fc = {};
+  double pv = 0.0, pc = 0.0;
+  int hq = 0;
+  PortClockOf<PL> t0q = {};
+  if (runs) {
+    fp = {a.theta1[q], a.theta2[q], a.delay[q], a.commit[q], a.up_hold[q], a.down_hold[q],
+          a.renew_in_chunks != 0};
+    hq = a.win[q];
+    if constexpr (PL) t0q = a.t0_port[q];
+    if constexpr (G != kUngated) g = fsm::fsm_gate(fp, a.margin[q]);
+    pv = a.pref_in[q];
+    pc = a.pref_in[M + q];
+    fc = {a.fsm_in[q], a.fsm_in[M + q], a.fsm_in[2 * M + q], a.fsm_in[3 * M + q], 0};
+    fc.phase = fc.t_state % fp.T_cci;
+  }
+  __syncwarp();
+  // the legs' tier rows, once a chunk (committed with the first tile's gather)
+  for (int o = lane; o < nl * 2 * Kt4; o += 32) {
+    const int l = o / (2 * Kt4), t = o - l * 2 * Kt4;
+    const bool rate = t >= Kt4;
+    const int qt = rate ? t - Kt4 : t;
+    double* dst = tab + (size_t)l * 2 * Kt4 + t;
+    if (qt < a.Kt)
+      __pipeline_memcpy_async(dst, (rate ? a.rates : a.bounds) + (int64_t)rp[l] * a.Kt + qt,
+                              sizeof(double));
+    else                                                // padding tiers
+      *dst = rate ? 0.0 : __longlong_as_double(0xfff0000000000000ULL);   // -inf
+  }
+
+  for (int k0 = 0; k0 < K; k0 += kTile) {
+    const int len = min(kTile, K - k0);
+    if (active) {
+      if (lane < len) {
+        // lane k: hour k's window base when older than the tile, and (replay)
+        // its predicted costs, then hour k of every row
+        const int k = k0 + lane;
+        const int64_t i = (int64_t)k * M + m;
+        const int t0 = first_hour<PL>(a, t0p);
+        const int lw = max(0, t0 + k - h);
+        double bv = 0.0, bc = 0.0;
+        if (lw < t0) {                                  // before the chunk: the host's read
+          bv = a.pre_v[i];
+          bc = a.pre_c[i];
+        } else if (lw < t0 + k0) {                      // an earlier tile's snapshot
+          const int64_t j = (int64_t)(lw - t0) * M + m;
+          bv = a.out[4 * KM + j];
+          bc = a.out[5 * KM + j];
+        }
+        hr.bv[lane] = bv;
+        hr.bc[lane] = bc;
+        if constexpr (G == kReplay) {
+          const int64_t j = (int64_t)min(t0 + k, a.T_pred - 1) * M + m;
+          hr.gv[lane] = a.p_vpn[j];
+          hr.gc[lane] = a.p_cci[j];
+        }
+        for (int r = 0; r < nrows; ++r) {
+          const int64_t src = (int64_t)rp[r] * K + k;
+          __pipeline_memcpy_async(Dp + r * st + lane, a.demand + src, sizeof(double));
+          if (endo && r < nl)
+            __pipeline_memcpy_async(Cp + r * st + lane, a.cci_demand + src, sizeof(double));
+        }
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      if (lane < len) {                                 // lane k: hour k of every row, clipped
+        for (int r = 0; r < nrows; ++r) {
+          double* x = Dp + r * st + lane;
+          *x = tier::min_sel(*x, capr[r]);
+          if (endo && r < nl) {
+            double* y = Cp + r * st + lane;
+            *y = tier::min_sel(*y, capr[r]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane < nrows) {                               // lane j: row j's calendar
+        int hpm, ph0;
+        if constexpr (PL) {
+          hpm = ck.hpm;
+          ph0 = (ck.phase + k0) % hpm;
+        } else {
+          hpm = a.hours_per_month;
+          ph0 = (a.phase0 + k0) % hpm;
+        }
+        unsigned starts = 0;                            // bit k: hour k0 + k starts a month
+        for (int kk = ph0 == 0 ? 0 : hpm - ph0; kk < len; kk += hpm) starts |= 1u << kk;
+        const double* drow = Dp + lane * st;
+        double* lrow = LO + lane * st;
+#pragma unroll 8
+        for (int kk = 0; kk < len; ++kk) {
+          const double d = drow[kk];
+          month = (starts >> kk) & 1u ? dcum : month;
+          lrow[kk] = __dsub_rn(dcum, month);
+          dcum = __dadd_rn(dcum, d);
+        }
+      }
+      __syncwarp();
+      {
+        // every lane, one (leg, hour) cell at a time: the tier fold, then the
+        // legs' products, each in place of an operand it alone reads: LO takes
+        // vpn_pair * vpn_w, C (or D) the billed volume * attach_w
+        const int dl = 32 / len, dk = 32 - dl * len;
+        int j = lane / len, kk = lane - j * len;
+        for (int o = lane; o < nl * len; o += 32) {
+          const int e = j * st + kk;
+          const double d = Dp[e];
+          const double* row = tab + (size_t)j * 2 * Kt4;
+          const double transfer = Kt4 == 4 ? tier::fold_staged4(LO[e], d, row, 4)
+                                           : tier::fold_staged4(LO[e], d, row, Kt4);
+          LO[e] = __dmul_rn(__dadd_rn(lv[j], transfer), wv[j]);
+          Cp[e] = __dmul_rn(endo ? Cp[e] : d, wa[j]);
+          j += dl;
+          kk += dk;
+          if (kk >= len) {
+            kk -= len;
+            ++j;
+          }
+        }
+      }
+      __syncwarp();
+      if (lane < len) {
+        // lane k: hour k's VPN cost and billed volume over the legs in
+        // ascending order, each from +0.0, and its CCI cost
+        hr.v[lane] = fold_column(LO + lane, st, nl, 0.0);
+        const double bill = tier::min_sel(fold_column(Cp + lane, st, nl, 0.0), pcap);
+        hr.c[lane] = __dadd_rn(lease, __dmul_rn(cc, bill));
+      }
+    }
+    __syncthreads();          // every port's hour costs, bases and gate columns are staged
+    if (runs) {
+      // lane p: port q's hours in order: planes, prefixes, window sums,
+      // triggers and the FSM
+      const HourArrays qr(dyn + (size_t)lane * lay.doubles() + lay.hours());
+      const int t0 = first_hour<PL>(a, t0q);
+#pragma unroll 4
+      for (int j = 0; j < len; ++j) {
+        const int64_t i = (int64_t)(k0 + j) * M + q;
+        const double v = qr.v[j], c = qr.c[j];
+        const double sv = pv, sc = pc;
+        qr.sv[j] = sv;
+        qr.sc[j] = sc;
+        pv = __dadd_rn(pv, v);
+        pc = __dadd_rn(pc, c);
+        const int lw = max(0, t0 + k0 + j - hq);
+        const bool in_tile = lw >= t0 + k0;             // a snapshot of this tile
+        const int jb = in_tile ? lw - t0 - k0 : j;
+        const double rv = __dsub_rn(sv, in_tile ? qr.sv[jb] : qr.bv[j]);
+        const double rc = __dsub_rn(sc, in_tile ? qr.sc[jb] : qr.bc[j]);
+        bool raw_req, raw_rel;
+        fsm::fsm_triggers(fp, rv, rc, raw_req, raw_rel);
+        if constexpr (G == kReplay) fsm::fsm_gated_triggers(g, qr.gv[j], qr.gc[j], raw_req, raw_rel);
+        const int s = fsm::fsm_step_flat(fp, fc, raw_req, raw_rel, fp.renew_in_chunks);
+        a.out[i] = v;
+        a.out[KM + i] = c;
+        a.out[2 * KM + i] = rv;
+        a.out[3 * KM + i] = rc;
+        a.out[4 * KM + i] = sv;
+        a.out[5 * KM + i] = sc;
+        a.out[6 * KM + i] = s == fsm::kOn ? 1.0 : 0.0;
+        a.out[7 * KM + i] = (double)s;
+      }
+    }
+    __syncthreads();          // the tile's hour arrays are read; its snapshots are stored
+  }
+
+  if (active) {
+    double* cal_out = a.out + tail_at<G>(KM);
+    if (lane >= nl && lane < nrows) {                   // the slice pairs the rows held
+      cal_out[pr] = dcum;
+      cal_out[a.P + pr] = month;
+    }
+    small_slice_rest<G, PL>(a, c0 + nm, c1, lane);
+  }
+  if (runs) {
+    const int64_t tail = tail_at<G>(KM) + 2 * (int64_t)a.P;
+    a.out[tail + q] = pv;
+    a.out[tail + M + q] = pc;
+    a.fsm_out[q] = fc.state;
+    a.fsm_out[M + q] = fc.t_state;
+    a.fsm_out[2 * M + q] = fc.up;
+    a.fsm_out[3 * M + q] = fc.down;
+  }
+}
+
+// The small-port form's launch in gate mode G and clocks PL: kSmallPorts port
+// warps a block.
+template <int G, bool PL>
+int launch_small(const ArgsOf<PL>& a, int legs_cap, int rows, size_t smem, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        routed_small_kernel<G, PL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (a.M + kSmallPorts - 1) / kSmallPorts;
+  routed_small_kernel<G, PL><<<blocks, 32 * kSmallPorts, smem, s>>>(a, legs_cap, rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // leg_cal: 2 E float64, the legs' calendar carries between hour tiles (may be
@@ -873,6 +1260,10 @@ int launch(const ArgsOf<PL>& a, size_t smem, cudaStream_t s) {
 // and margin (M,) its live instance (h_out (M, S)); null p_vpn and h_in the
 // reactive/hysteresis one. t0_port (M,), hpm_pair and t0_pair (P,) select the
 // pooled instance (t0 and hours_per_month are then not read; no live mode).
+// small_port != 0 selects the small-port form, each port holding at most
+// legs_cap legs (the routing's hottest port, at most kSmallLegs; no live mode;
+// leg_cal is not read; the host chooses it only where its shared memory
+// fits); 0 the port-block form (legs_cap is then not read).
 extern "C" int stream_chunk_routed_f64(
     const double* demand, const double* cci_demand, const double* pre_v, const double* pre_c,
     const double* pair_capacity, const double* L_vpn, const double* bounds, const double* rates,
@@ -886,7 +1277,8 @@ extern "C" int stream_chunk_routed_f64(
     const float* ssm_w, const float* ssm_bias, const double* scale, const double* coef,
     const int* t0_port, const int* hpm_pair, const int* t0_pair,
     int renew_in_chunks, int t0, int hours_per_month, int K, int P, int M, int E, int Kt,
-    int T_pred, int S, double* out, int* fsm_out, float* h_out, void* stream) {
+    int T_pred, int S, int legs_cap, int small_port, double* out, int* fsm_out,
+    float* h_out, void* stream) {
   if (K < 1 || P < 0 || M < 0 || E < 0 || Kt < 0 || t0 < 0 || hours_per_month < 1)
     return (int)cudaErrorInvalidValue;
   const bool gated = p_vpn != nullptr, live = h_in != nullptr, pooled = t0_port != nullptr;
@@ -898,12 +1290,21 @@ extern "C" int stream_chunk_routed_f64(
     return (int)cudaErrorInvalidValue;
   if (pooled && (live || hpm_pair == nullptr || t0_pair == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (K > kTile && E > 0 && leg_cal == nullptr) return (int)cudaErrorInvalidValue;
+  const bool small = small_port != 0;
+  if (small && (live || M < 1 || legs_cap < 0 || legs_cap > kSmallLegs))
+    return (int)cudaErrorInvalidValue;
+  if (!small && K > kTile && E > 0 && leg_cal == nullptr) return (int)cudaErrorInvalidValue;
   const int stride = (K < kTile ? K : kTile) | 1;
   const bool endo = cci_demand != nullptr;
-  const size_t smem = sizeof(double) * live_offset(stride, endo, Kt) +
-                      (live ? sizeof(LiveSmem) : 0);
-  if (sizeof(PortSmem) + smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // the small-port form's rows: the legs, then as much of the port's slice of
+  // the calendars as a warp holds
+  const int slice = M > 0 ? (P + M - 1) / M : 0;
+  const int rows = legs_cap + slice < kSmallLegs ? legs_cap + slice : kSmallLegs;
+  const size_t smem =
+      small ? sizeof(double) * kSmallPorts *
+                  SmallLayout{rows, legs_cap, endo ? 3 : 2, stride, tiers4(Kt)}.doubles()
+            : sizeof(double) * live_offset(stride, endo, Kt) + (live ? sizeof(LiveSmem) : 0);
+  if ((small ? 0 : sizeof(PortSmem)) + smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (M == 0 && P == 0) return (int)cudaSuccess;
   const RoutedArgs a = {
       demand, cci_demand, pre_v, pre_c, pair_capacity, L_vpn, bounds, rates, lease_cci, c_cci,
@@ -912,6 +1313,15 @@ extern "C" int stream_chunk_routed_f64(
       ssm_a, ssm_oma, ssm_w, ssm_bias, scale, coef, renew_in_chunks, t0, t0 % hours_per_month,
       hours_per_month, K, P, M, E, Kt, T_pred, S, stride, out, fsm_out, h_out};
   cudaStream_t s = (cudaStream_t)stream;
+  if (small) {
+    if (pooled) {
+      const PooledArgs pa = {a, t0_port, hpm_pair, t0_pair};
+      return gated ? launch_small<kReplay, true>(pa, legs_cap, rows, smem, s)
+                   : launch_small<kUngated, true>(pa, legs_cap, rows, smem, s);
+    }
+    return gated ? launch_small<kReplay, false>(a, legs_cap, rows, smem, s)
+                 : launch_small<kUngated, false>(a, legs_cap, rows, smem, s);
+  }
   if (pooled) {
     const PooledArgs pa = {a, t0_port, hpm_pair, t0_pair};
     return gated ? launch<kReplay, true>(pa, smem, s) : launch<kUngated, true>(pa, smem, s);

@@ -17,7 +17,9 @@ port-major order, so :meth:`RoutingPlan.operand` also builds a
 port the legs stay in ascending order), the offsets of each port's run, the
 per-port attachment count ``seg(attach_w)`` (0/1 sums, exact in any order),
 and the legs' pair, VPN share and attachment weight in that order, for the
-streaming runtime's routed chunk kernel.
+streaming runtime's routed chunk kernel, with the legs of its busiest port,
+counted there on the host so that no launch reads the device to choose its
+form.
 
 Legacy bare-array routings (``(P,)`` port indices or ``(M, P)`` one-hot
 matrices) are accepted through :func:`as_routing_plan`, which raises a
@@ -56,6 +58,13 @@ class LegIndex(NamedTuple):
     no ``order`` indirection. :meth:`RoutingPlan.operand` and
     :func:`index_legs` build them; an index without them (None) serves the
     planners' ``leg_segment_sum``, and the routed chunk refuses it.
+
+    ``max_legs`` (the legs of the busiest port, the longest run) is a host
+    int, counted from the runs where they are built on the host; the routed
+    chunk chooses its launch form from it and the port count
+    (:func:`~repro_torch.kernels.stream_chunk.routed_launch_form`). ``-1``
+    on an index built without it, which the routed chunk launches in its
+    port-block form. :meth:`to` keeps it.
     """
 
     order: torch.Tensor     # (E,) int32 leg indices sorted by port, stable
@@ -64,6 +73,7 @@ class LegIndex(NamedTuple):
     leg_pair_pm: Optional[torch.Tensor] = None   # (E,) int32 leg_pair[order]
     vpn_w_pm: Optional[torch.Tensor] = None      # (E,) vpn_w[order]
     attach_w_pm: Optional[torch.Tensor] = None   # (E,) attach_w[order]
+    max_legs: int = -1                           # legs of the busiest port (host)
 
     @property
     def n_ports(self) -> int:
@@ -75,7 +85,13 @@ class LegIndex(NamedTuple):
         return self.leg_pair_pm is not None
 
     def to(self, device) -> "LegIndex":
-        return LegIndex(*(None if t is None else t.to(device) for t in self))
+        return LegIndex(*(t.to(device) if torch.is_tensor(t) else t for t in self))
+
+
+def _max_legs(start: np.ndarray) -> int:
+    """The legs of a port-major index's busiest port from its (M + 1,)
+    offsets on the host."""
+    return int(np.diff(start).max()) if len(start) > 1 else 0
 
 
 def leg_index_np(leg_port: np.ndarray, attach_w: np.ndarray, n_ports: int
@@ -140,6 +156,7 @@ def index_legs(op: RoutingOperand, n_ports: int) -> RoutingOperand:
         leg_pair_pm=gather(op.leg_pair),
         vpn_w_pm=gather(op.vpn_w),
         attach_w_pm=gather(op.attach_w),
+        max_legs=_max_legs(start),
     )
     return op._replace(index=idx)
 
@@ -284,7 +301,7 @@ class RoutingPlan:
             primary=i32(self.primary),
             index=LegIndex(order=i32(order), start=i32(start), n_attach=f(n_attach),
                            leg_pair_pm=i32(lp[order]), vpn_w_pm=f(vw[order]),
-                           attach_w_pm=f(aw[order])),
+                           attach_w_pm=f(aw[order]), max_legs=_max_legs(start)),
         )
 
     # -- constructors ------------------------------------------------------

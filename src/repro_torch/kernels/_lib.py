@@ -58,8 +58,10 @@ EXACT_FLAGS = ("-fmad=false",)
 #: (replay mode), ``stream_chunk_live`` and ``stream_chunk_routed_live`` those
 #: of the streaming kernels' live instances, ``stream_chunk_pooled`` and
 #: ``stream_chunk_routed_pooled`` (``..._pooled_gated`` in replay mode) those
-#: of their pooled instances (per-row clocks, the gateway's buckets);
-#: ``forecaster_scan_bwd`` counts
+#: of their pooled instances (per-row clocks, the gateway's buckets), and
+#: ``stream_chunk_routed_small_port`` every launch of the routed chunk's
+#: small-port form (whatever its instance, which counts under its own name
+#: too); ``forecaster_scan_bwd`` counts
 #: the forecaster's backward pass (its two kernels, and the scan that forms
 #: its checkpoints when the caller has none: one call).
 LAUNCHES: Dict[str, int] = {
@@ -68,7 +70,8 @@ LAUNCHES: Dict[str, int] = {
     "tiered_cost_scan": 0, "fsm_chunk": 0, "stream_chunk": 0, "stream_chunk_gated": 0,
     "stream_chunk_live": 0, "stream_chunk_routed": 0, "stream_chunk_routed_gated": 0,
     "stream_chunk_routed_live": 0, "stream_chunk_pooled": 0, "stream_chunk_pooled_gated": 0,
-    "stream_chunk_routed_pooled": 0, "stream_chunk_routed_pooled_gated": 0, "flash_attention": 0,
+    "stream_chunk_routed_pooled": 0, "stream_chunk_routed_pooled_gated": 0,
+    "stream_chunk_routed_small_port": 0, "flash_attention": 0,
     "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0, "int8_dequantize": 0,
     "tiered_cost": 0, "leg_segment_sum": 0, "oracle_dp": 0,
 }
@@ -189,9 +192,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.stream_chunk_f64.restype = i
     # ..., leg_pair, vpn_w, attach_w (port-major), start, cal, fsm, pref, leg_cal,
     # p_vpn, p_cci, margin, h, pred, a, 1 - a, w, bias, scale, coef, t0_port,
-    # hpm_pair, t0_pair, renew, t0, hpm, K, P, M, E, Kt, T_pred, S, out,
-    # fsm_out, h_out, stream
-    lib.stream_chunk_routed_f64.argtypes = [p] * 40 + [i] * 10 + [p] * 4
+    # hpm_pair, t0_pair, renew, t0, hpm, K, P, M, E, Kt, T_pred, S, legs_cap,
+    # small_port, out, fsm_out, h_out, stream
+    lib.stream_chunk_routed_f64.argtypes = [p] * 40 + [i] * 12 + [p] * 4
     lib.stream_chunk_routed_f64.restype = i
     lib.stream_chunk_live_math.argtypes = [p, p, ctypes.c_longlong, i, p]   # x, y, n, fn, stream
     lib.stream_chunk_live_math.restype = i

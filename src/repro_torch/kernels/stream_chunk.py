@@ -16,8 +16,12 @@ packed float64 result:
 * :func:`stream_chunk_routed`, topology mode: pairs are priced, then folded
   onto the shared ports over the routing's leg list, each port's legs in
   leg order, before the port FSMs run: ``csrc/stream_chunk_routed.cu``, one
-  launch (a block a port prices its own legs' pairs; calendar blocks behind
-  the port blocks carry every pair's billing calendar).
+  launch in one of two forms that the routing's index chose on the host
+  (:func:`routed_form`): the port-block form (a block a port prices its own
+  legs' pairs and walks a slice of the pairs' calendars), for few busy
+  ports, or the small-port form (a warp a port, :data:`SMALL_PORTS` ports
+  a block), for many ports of few legs, the gateway's large topology
+  buckets.
 
 Both take an optional ``gate=(p_vpn, p_cci, margin, T_pred)``: the
 forecast-gated policy's hour-major (T_pred, M) predicted mode costs and its
@@ -102,8 +106,110 @@ MAX_SUBS = 3
 FORMS = ("auto", "tick", "chunk")
 #: The routed chunk's hour tile (``kTile`` in ``csrc/stream_chunk_routed.cu``):
 #: a chunk of more than ROUTED_TILE hours keeps each leg's calendar carry
-#: between hour tiles in a (2, E) scratch the wrapper owns.
+#: between hour tiles in a (2, E) scratch the wrapper owns (the port-block
+#: form; the small-port form keeps it in a lane's registers).
 ROUTED_TILE = 32
+#: The routed chunk's launch forms, for :func:`stream_chunk_routed`'s
+#: private ``form=``.
+ROUTED_FORMS = ("auto", "port_block", "small_port")
+#: The small-port form's limits, as ``csrc/stream_chunk_routed.cu`` fixes
+#: them: the most legs a port holds (``kSmallLegs``: a lane a leg), its port
+#: warps a block (``kSmallPorts``) and the most dynamic shared memory a
+#: block may take (``kMaxSmem``).
+SMALL_PORT_MAX_LEGS = 32
+SMALL_PORTS = 8
+SMALL_PORT_MAX_SMEM = 227 * 1024
+#: The selection rule, from the sweep of both forms on the H100
+#: (``routed_forms.py``, PERF.md): the small-port form from
+#: SMALL_PORT_MIN_PORTS ports on, when the hottest port holds at most
+#: SMALL_PORT_LEGS_BELOW legs below SMALL_PORT_WIDE_PORTS ports and at most
+#: SMALL_PORT_MAX_LEGS from there on. Up to 132 ports the port-block form
+#: runs in one wave of a block an SM and is faster (1.0-2.4x at 4-32 legs);
+#: from 133 ports (its second wave) to 256 the small-port form is faster up
+#: to 16 legs (0.56-0.97 of its time), as fast at 24 (0.81-1.08) and slower
+#: at 32 (0.96-1.36); from 384 ports on it is faster up to 32 legs
+#: (0.53-0.88).
+SMALL_PORT_MIN_PORTS = 133
+SMALL_PORT_LEGS_BELOW = 16
+SMALL_PORT_WIDE_PORTS = 384
+
+
+def routed_form(max_legs: int, n_ports: int) -> str:
+    """The routed chunk's launch form by the selection rule for a routing
+    of ``n_ports`` ports whose busiest port holds ``max_legs`` legs (host
+    ints, from the port-major index's runs; -1 when unknown):
+    ``"small_port"`` from :data:`SMALL_PORT_MIN_PORTS` ports on when
+    ``0 <= max_legs`` and ``max_legs`` is at most
+    :data:`SMALL_PORT_LEGS_BELOW` (below :data:`SMALL_PORT_WIDE_PORTS`
+    ports) or :data:`SMALL_PORT_MAX_LEGS` (from there on), else
+    ``"port_block"``. Pure."""
+    cap = SMALL_PORT_MAX_LEGS if n_ports >= SMALL_PORT_WIDE_PORTS else SMALL_PORT_LEGS_BELOW
+    small = n_ports >= SMALL_PORT_MIN_PORTS and 0 <= max_legs <= cap
+    return "small_port" if small else "port_block"
+
+
+def small_port_geometry(P: int, M: int, K: int, Kt: int, endo: bool, max_legs: int) -> dict:
+    """The small-port form's launch as its C entry sizes it: ``blocks`` of
+    ``threads`` (a warp a port, :data:`SMALL_PORTS` ports a block) and
+    ``smem`` bytes of dynamic shared memory: per port warp, the hour planes
+    (two, three with CCI demand) of ``rows`` rows (the hottest port's legs,
+    then as much of a port's slice of the calendars, ``ceil(P / M)`` pairs,
+    as makes 32) of ``min(K, 32) | 1`` doubles, the legs' tier rows (padded
+    to a multiple of four tiers), their three weights, the rows' capacities,
+    eight hour arrays of a tile and 32 ints."""
+    stride = min(K, ROUTED_TILE) | 1
+    rows = min(SMALL_PORT_MAX_LEGS, max_legs + (-(-P // M) if M else 0))
+    doubles = ((3 if endo else 2) * rows * stride + max_legs * 2 * (-(-Kt // 4) * 4)
+               + 3 * max_legs + rows + 8 * ROUTED_TILE + 32 // 2)
+    return {"blocks": -(-M // SMALL_PORTS), "threads": 32 * SMALL_PORTS,
+            "smem": 8 * SMALL_PORTS * doubles, "rows": rows}
+
+
+def small_port_fits(index, P: int, K: int, Kt: int, endo: bool) -> bool:
+    """Whether the small-port form takes a call of ``P`` pairs, ``K`` hours
+    and ``Kt`` tiers (``endo``: with CCI demand) over the port-major
+    ``index``: its hottest port is known and holds at most
+    :data:`SMALL_PORT_MAX_LEGS` legs, and the launch's shared memory
+    (:func:`small_port_geometry`) is at most :data:`SMALL_PORT_MAX_SMEM`.
+    Reads no device memory."""
+    M = index.n_ports
+    if not (0 <= index.max_legs <= SMALL_PORT_MAX_LEGS and M >= 1):
+        return False
+    return small_port_geometry(P, M, K, Kt, endo, index.max_legs)["smem"] <= SMALL_PORT_MAX_SMEM
+
+
+def routed_launch_form(index, P: int, K: int, Kt: int, endo: bool, form: str = "auto",
+                       live: bool = False) -> str:
+    """The form a routed chunk call of ``P`` pairs, ``K`` hours, ``Kt``
+    tiers and CCI demand or not (``endo``) launches over the port-major
+    ``index``: ``"auto"`` takes :func:`routed_form` of the hottest port and
+    the port count the index recorded on the host, and the port-block form
+    where the small-port form does not take the call
+    (:func:`small_port_fits`) and for a ``live`` call (the small-port form
+    has no live instance); ``"port_block"`` and ``"small_port"`` force one,
+    for the tests and ``chip_smoke.py``. Raises on an unknown name, and when
+    the small-port form is forced on a live call or on a call it does not
+    take. Reads no device memory."""
+    if form not in ROUTED_FORMS:
+        raise ValueError(f"stream_chunk_routed form {form!r}: want one of {ROUTED_FORMS}")
+    if form == "port_block":
+        return form
+    fits = small_port_fits(index, P, K, Kt, endo)
+    if form == "auto":
+        small = not live and fits and routed_form(index.max_legs, index.n_ports) == "small_port"
+        return "small_port" if small else "port_block"
+    if live:
+        raise ValueError("stream_chunk_routed form 'small_port': the small-port form has no "
+                         "live instance")
+    if not fits:
+        smem = small_port_geometry(P, index.n_ports, K, Kt, endo, max(index.max_legs, 0))["smem"]
+        raise ValueError(f"stream_chunk_routed form 'small_port': the routing's hottest port "
+                         f"holds {index.max_legs} legs over {index.n_ports} ports (the form "
+                         f"takes at most {SMALL_PORT_MAX_LEGS}, a lane each, and a port), and "
+                         f"at {P} pairs, K = {K}, {Kt} tiers"
+                         f"{' with CCI demand' if endo else ''} it takes {smem} bytes of shared "
+                         f"memory a block (at most {SMALL_PORT_MAX_SMEM})")
+    return form
 
 
 def launch_form(K: int, Kt: int, form: str = "auto", live: bool = False) -> int:
@@ -364,10 +470,16 @@ def stream_chunk_routed(
     gate=None,                    # (p_vpn, p_cci (T_pred, M) f64, margin (M,) f64, T_pred)
     live=None,                    # (h, pred, a, one_minus_a, w, bias, scale, cost_coef, margin)
     clocks=None,                  # pooled: (t0_port (M,), hpm (P,), t0_pair (P,)) int32
+    form: str = "auto",           # private: the tests and chip_smoke.py force a form
 ) -> Tuple[torch.Tensor, ...]:
     """The routed chunk on the card, one kernel launch on the current stream
-    (past :data:`ROUTED_TILE` hours the wrapper owns its scratch, each leg's
-    calendar carry, (2, E)): the flat float64 result of
+    in the form :func:`routed_launch_form` takes from the routing's hottest
+    port, which its index recorded on the host, and the call's shape
+    (``form`` is private: the tests and
+    ``chip_smoke.py`` force ``"port_block"`` or ``"small_port"`` with it,
+    and both give the same bits; past :data:`ROUTED_TILE` hours the
+    port-block form's wrapper owns its scratch, each leg's calendar carry,
+    (2, E)): the flat float64 result of
     :func:`routed_result_size` and the FSM carry after the chunk, (4, M)
     int32. ``routing`` must carry its port-major :class:`LegIndex` with the
     leg descriptors (``leg_pair_pm``, ``vpn_w_pm``, ``attach_w_pm``, built by
@@ -396,6 +508,7 @@ def stream_chunk_routed(
         raise ValueError(f"stream_chunk_routed: routing has {routing.n_rows} rows, "
                          f"the chunk {P} pairs")
     Kt, E = bounds.shape[-1], routing.n_legs
+    small = routed_launch_form(idx, P, K, Kt, endo, form, live is not None) == "small_port"
     want = [(bounds, (P, Kt), f64), (rates, (P, Kt), f64), (cal, (2, P), f64),
             (fsm, (4, M), i32), (pref, (2, M), f64),
             (idx.leg_pair_pm, (E,), i32), (idx.vpn_w_pm, (E,), f64),
@@ -414,8 +527,8 @@ def stream_chunk_routed(
     out = torch.empty(routed_result_size(K, P, M, live is not None), dtype=f64, device=dev)
     fsm_out = torch.empty((4, M), dtype=i32, device=dev)
     h_out = torch.empty((M, S), dtype=torch.float32, device=dev) if live is not None else None
-    leg_cal = (torch.empty(2 * E, dtype=f64, device=dev) if K > ROUTED_TILE and E > 0
-               else None)
+    leg_cal = (torch.empty(2 * E, dtype=f64, device=dev)
+               if K > ROUTED_TILE and E > 0 and not small else None)
     nd = (2 if endo else 1) * K * P
     at = lambda off: block.data_ptr() + 8 * off   # element offset into the block
     with torch.cuda.device(dev):
@@ -429,11 +542,14 @@ def stream_chunk_routed(
             None if leg_cal is None else leg_cal.data_ptr(),
             *(gate_ptrs if live is None else (None, None, margin)), *live_ptrs, *clock_ptrs,
             int(bool(renew_in_chunks)), t0, hours_per_month, K, P, M, E, Kt, T_pred, S,
+            idx.max_legs if small else 0, int(small),
             out.data_ptr(), fsm_out.data_ptr(), None if h_out is None else h_out.data_ptr(),
             stream,
         )
     _lib.check(status, "stream_chunk_routed_f64")
     _lib.LAUNCHES[_launch_name("stream_chunk_routed", gate, live, pooled)] += 1
+    if small:
+        _lib.LAUNCHES["stream_chunk_routed_small_port"] += 1
     return (out, fsm_out) if live is None else (out, fsm_out, h_out)
 
 

@@ -36,13 +36,18 @@ gate in their plain versions' order and are held bit for bit, and a
 forecast stream on the card equals the card's offline plan of the same
 policy bit for bit (the card's and the CPU's predicted costs may differ in
 the last place, so a stream is held against the plan of its own device).
-Observability (``FleetRuntime(obs=...)``) adds no kernel: on the card the
+The routed chunk's two launch forms (the port-block form and the
+small-port form, a warp a port) are held against the plain version and
+against each other bit for bit on synthetic routings at the small-port
+form's edges (``tests/_routed_cases.py``). Observability
+(``FleetRuntime(obs=...)``) adds no kernel: on the card the
 observed stream equals the stream without it bit for bit, its drained
 windows, monitor summaries and trace equal the CPU port's bit for bit (the
 ring is host work on the same planes), and the regret monitor's oracle, one
 ``oracle_dp`` call, equals ``offline_optimal`` row by row bit for bit.
 """
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -68,7 +73,10 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fsm_scan import fsm_chunk, fsm_scan, gate_masks
 from repro_torch.kernels.leg_segment_sum import leg_segment_sum
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.stream_chunk import (TICK_MAX_K, TICK_MAX_K_LIVE, _stream_chunk_launch,
+from repro_torch.kernels.stream_chunk import (SMALL_PORT_MAX_LEGS, SMALL_PORT_MIN_PORTS,
+                                              SMALL_PORT_WIDE_PORTS, TICK_MAX_K,
+                                              TICK_MAX_K_LIVE, _stream_chunk_launch,
+                                              routed_launch_form, small_port_fits,
                                               stream_chunk, stream_chunk_routed)
 from repro_torch.kernels.tiered_cost import tiered_cost_batched
 from repro_torch.kernels.tiered_cost_scan import tiered_cost_calendar, tiered_cost_scan
@@ -262,7 +270,8 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
                             "stream_chunk_routed": 0, "stream_chunk_routed_gated": 0,
                             "stream_chunk_routed_live": 0, "stream_chunk_pooled": 0,
                             "stream_chunk_pooled_gated": 0, "stream_chunk_routed_pooled": 0,
-                            "stream_chunk_routed_pooled_gated": 0, "flash_attention": 0,
+                            "stream_chunk_routed_pooled_gated": 0,
+                            "stream_chunk_routed_small_port": 0, "flash_attention": 0,
                             "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
                             "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0,
                             "oracle_dp": 0}
@@ -1154,7 +1163,8 @@ ROUTED_CASES = {  # scenario, padding legs, billing month, first hour, Ks, endog
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(ROUTED_CASES))
-def test_stream_chunk_routed_kernel_matches_plain(cuda_device, case):
+@pytest.mark.parametrize("form", ["port_block", "small_port"])
+def test_stream_chunk_routed_kernel_matches_plain(cuda_device, monkeypatch, form, case):
     """The routed chunk kernel against stream_chunk_routed_ref on the card,
     on the same packed blocks and carries of a stream's own state, every
     output bit (NaN in the same places): a padded relay routing, a multicast
@@ -1163,7 +1173,9 @@ def test_stream_chunk_routed_kernel_matches_plain(cuda_device, case):
     32-hour tile, endogenous CCI demand, ports of 76 and 165 legs (one and
     two of the kernel's 128-leg tiles; K = 24, 1 and 33), and the
     2048-pair cell's routing with its empty ports and a 105-leg port (K = 24
-    and 5)."""
+    and 5). Each launch form is forced after the warm-up; where the
+    small-port form does not take the call (a port of more than 32 legs),
+    forcing it raises."""
     name, pad, hpm, t_first, Ks, endo, nan_hours = ROUTED_CASES[case]
     sc, topo, r = _routed_scenario(name, pad, hpm)
     legs = np.bincount([m for path in r.paths for m in path], minlength=topo.n_ports)
@@ -1182,13 +1194,25 @@ def test_stream_chunk_routed_kernel_matches_plain(cuda_device, case):
         k = min(24, t_first - t)
         rt.step_many(demand[:, t:t + k], cci_demand_block=cblk(t, t + k))
         t += k
+    monkeypatch.setattr(ops, "_stream_chunk_routed_kernel",
+                        functools.partial(stream_chunk_routed, form=form))
     for K in Ks:
         block, _, e = rt._pack(demand[:, t:t + K], cblk(t, t + K))
         dev_block = torch.from_numpy(block).to(cuda_device)
-        want, want_fsm = ref.stream_chunk_routed_ref(*rt._chunk_args(dev_block, K, e),
+        args = rt._chunk_args(dev_block, K, e)
+        Kt = args[5].shape[-1]                          # args[5]: the pairs' tier bounds
+        if form == "small_port" and not small_port_fits(rt.arrays.routing.index,
+                                                        rt.n_demand_rows, K, Kt, e):
+            with pytest.raises(ValueError, match="form 'small_port'"):
+                rt._launch(dev_block, K, e)
+            return
+        want, want_fsm = ref.stream_chunk_routed_ref(*args,
                                                      renew_in_chunks=rt.policy.renew_in_chunks)
         before = ops.LAUNCHES["stream_chunk_routed"]
+        small_before = ops.LAUNCHES["stream_chunk_routed_small_port"]
         got = rt._launch(dev_block, K, e)
+        assert ops.LAUNCHES["stream_chunk_routed_small_port"] == \
+            small_before + (form == "small_port")
         assert ops.LAUNCHES["stream_chunk_routed"] == before + 1
         assert _same_bits(got, want), (case, t)
         assert _same_bits(rt._state.fsm, want_fsm), (case, t)
@@ -2784,3 +2808,161 @@ def test_gateway_on_the_card_equals_the_cpu(cuda_device, topology):
         assert ga.billing(name) == gb.billing(name)
         dump = lambda g: json.dumps([d.to_json() for d in g.metrics(name)])
         assert dump(ga) == dump(gb) and ga.metrics(name), name
+
+
+# -- the routed chunk's two launch forms --------------------------------------
+from _routed_cases import synthetic_chunk, synthetic_routing  # noqa: E402
+
+#: (legs of each port, pairs, padding legs on pad port 0, NaN (pair, hour)s of
+#: pad pair 0): ports of 0 legs, 1 leg and exactly the small-port form's cap;
+#: padding legs and NaN demand in the pad pair; the gateway's bucket shape (8
+#: ports a slot, 4 pairs a port); ports so full that a port's slice of the
+#: calendars overflows its warp's rows and is walked apart.
+SMALL_PORT_CASES = {
+    "edges": ([0, 1, SMALL_PORT_MAX_LEGS, 5, 7, 3, 0, 12], 48, 0, ()),
+    "pad-nan": ([3, 1, 0, 4, 2, 6], 24, 9, ((0, 0), (0, 17), (0, 30), (0, 39))),
+    "bucket": ([12, 0, 4, 4, 3, 2, 6, 1] * 8, 256, 0, ()),
+    "slice-overflow": ([30, 28, 31, 29], 36, 0, ()),
+}
+ROUTED_FORM_KINDS = ("reactive", "replay")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("endo", [False, True], ids=["exo", "endo"])
+@pytest.mark.parametrize("pooled", [False, True], ids=["scalar", "pooled"])
+@pytest.mark.parametrize("kind", ROUTED_FORM_KINDS)
+@pytest.mark.parametrize("K", [1, 24, 25, 40])
+@pytest.mark.parametrize("case", sorted(SMALL_PORT_CASES))
+def test_stream_chunk_routed_small_port_form_matches_plain(cuda_device, case, K, kind, pooled,
+                                                           endo):
+    """The small-port form against stream_chunk_routed_ref and the port-block
+    form on the same operands, every output bit (NaN in the same places):
+    reactive and replay (some ports read past T_pred), scalar and pooled
+    (months of 24, 40, 168 and 730 hours starting at and inside the chunk on
+    per-pair clocks), K = 1, 24, 25 and 40 (across the hour tile, where the
+    port-block form's carries go through its leg_cal scratch), with and
+    without CCI demand (a third plane). Each launch counts under its
+    instance's name, the small-port form's also under
+    stream_chunk_routed_small_port. Where the small-port launch would not fit
+    the shared memory (a 32-row port with CCI demand past K = 24), forcing
+    it raises and the port-block form alone is held."""
+    port_legs, P, pad, nan = SMALL_PORT_CASES[case]
+    r = synthetic_routing(port_legs, P, pad_legs=pad, seed=11, device=cuda_device)
+    assert r.index.max_legs == max(port_legs[0] + pad, max(port_legs)) <= SMALL_PORT_MAX_LEGS
+    nan = [(p, k) for p, k in nan if k < K]
+    args, kw = synthetic_chunk(r, P, K, seed=K, device=cuda_device, pooled=pooled,
+                               T_pred=60 if kind == "replay" else 0, nan=nan, endo=endo)
+    want, want_fsm = ref.stream_chunk_routed_ref(*args, **kw)
+    name = "stream_chunk_routed" + ("_pooled" if pooled else "") + \
+        ("_gated" if kind == "replay" else "")
+    before = dict(ops.LAUNCHES)
+    pb, pb_fsm = stream_chunk_routed(*args, **kw, form="port_block")
+    assert _same_bits(pb, want) and _same_bits(pb_fsm, want_fsm), (case, K, kind, pooled)
+    assert ops.LAUNCHES["stream_chunk_routed_small_port"] == \
+        before["stream_chunk_routed_small_port"]
+    if not small_port_fits(r.index, P, K, 4, endo):
+        assert endo and K > 24, (case, K)
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            stream_chunk_routed(*args, **kw, form="small_port")
+        return
+    got, got_fsm = stream_chunk_routed(*args, **kw, form="small_port")
+    assert ops.LAUNCHES[name] == before[name] + 2
+    assert ops.LAUNCHES["stream_chunk_routed_small_port"] == \
+        before["stream_chunk_routed_small_port"] + 1
+    assert _same_bits(got, want) and _same_bits(got_fsm, want_fsm), (case, K, kind, pooled)
+    if nan:
+        assert bool(torch.isnan(got[:8 * K * len(port_legs)]).any())
+
+
+@pytest.mark.cuda
+def test_stream_chunk_routed_auto_form_follows_the_rule(cuda_device):
+    """With no form given the wrapper launches the form the selection rule
+    takes from the hottest port its index counted on the host: the small-port
+    form from 133 ports on up to 16 legs, from 384 ports on up to 32; the
+    port-block form past the cap or below the floor. A runtime streaming a
+    routing of 32 ports of few legs launches the port-block form, a gateway
+    bucket of 256 such slots the small-port form."""
+    counted = lambda: ops.LAUNCHES["stream_chunk_routed_small_port"]
+    floor, wide = SMALL_PORT_MIN_PORTS, SMALL_PORT_WIDE_PORTS
+    for legs, M, small in ((16, floor, True), (17, floor, False), (16, floor - 1, False),
+                           (SMALL_PORT_MAX_LEGS, wide, True),
+                           (SMALL_PORT_MAX_LEGS + 1, wide, False),
+                           (SMALL_PORT_MAX_LEGS, wide - 1, False)):
+        port_legs = [legs] + ([2, 0, 5] * M)[:M - 1]
+        r = synthetic_routing(port_legs, legs + 8, seed=5, device=cuda_device)
+        assert r.index.n_ports == M
+        args, kw = synthetic_chunk(r, legs + 8, 24, seed=5, device=cuda_device)
+        before = counted()
+        got, got_fsm = stream_chunk_routed(*args, **kw)
+        assert counted() == before + small, (legs, M)
+        want, want_fsm = ref.stream_chunk_routed_ref(*args, **kw)
+        assert _same_bits(got, want) and _same_bits(got_fsm, want_fsm), (legs, M)
+    rsc, topo, rr = _routed_scenario("topology", 0, 730)
+    rt = FleetRuntime(topo, routing=rr, device=cuda_device)
+    cpu = FleetRuntime(topo, routing=rr, device=CPU)
+    before = counted()
+    got, want = rt.step_many(rsc.demand[:, :24]), cpu.step_many(rsc.demand[:, :24])
+    assert counted() == before
+    for k in ("x", "state", "vpn_cost", "cci_cost"):
+        assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [24, 40])
+@pytest.mark.parametrize("hot_legs,pairs_a_port", [(16, 16), (24, 20), (32, 32)])
+def test_stream_chunk_routed_full_rows_with_cci_demand(cuda_device, hot_legs, pairs_a_port, K):
+    """384 ports whose rows fill at 32 (16-32 pairs a port), a hottest port of
+    16-32 legs, CCI demand and 4 tiers: at K = 40 the small-port launch
+    would need more shared memory than a block gets, so the wrapper takes
+    the port-block form (no small-port launch) and the call equals the plain
+    version; at K = 24 it fits and the small-port form equals the plain
+    version and the port-block form."""
+    M = SMALL_PORT_WIDE_PORTS
+    P = pairs_a_port * M
+    r = synthetic_routing([hot_legs] + [3, 1, 0, 6] * (M // 4 - 1) + [2, 2, 5], P, seed=9,
+                          device=cuda_device)
+    assert (r.index.n_ports, r.index.max_legs) == (M, hot_legs)
+    args, kw = synthetic_chunk(r, P, K, seed=K, device=cuda_device, endo=True)
+    form = routed_launch_form(r.index, P, K, 4, True)
+    assert form == ("small_port" if K <= 24 else "port_block"), (hot_legs, K)
+    before = ops.LAUNCHES["stream_chunk_routed_small_port"]
+    got, got_fsm = stream_chunk_routed(*args, **kw)
+    assert ops.LAUNCHES["stream_chunk_routed_small_port"] == before + (form == "small_port")
+    want, want_fsm = ref.stream_chunk_routed_ref(*args, **kw)
+    assert _same_bits(got, want) and _same_bits(got_fsm, want_fsm), (hot_legs, K)
+    if form == "small_port":
+        pb, pb_fsm = stream_chunk_routed(*args, **kw, form="port_block")
+        assert _same_bits(pb, got) and _same_bits(pb_fsm, got_fsm)
+    else:
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            stream_chunk_routed(*args, **kw, form="small_port")
+
+
+@pytest.mark.cuda
+def test_gateway_topology_bucket_takes_the_small_port_form(cuda_device):
+    """A card gateway of 256 topology tenants (32 pairs on 8 ports: 2048
+    ports of at most 12 legs): every tick and chunk is one pooled launch in
+    the small-port form, and its first tenant equals a standalone card
+    runtime on every field."""
+    from repro_torch.gateway import FleetGateway, GatewayConfig, TenantSpec
+    from repro_torch.fleet import RuntimeConfig
+
+    sc = tscen.build_topology_scenario(32, n_facilities=4, ports_per_facility=2, horizon=80,
+                                       seed=0)
+    plan = optimize_routing(sc.topo, sc.demand)
+    gw = FleetGateway(GatewayConfig(slots_per_bucket=256, queue_limit=256, obs=False),
+                      device=cuda_device)
+    for i in range(256):
+        gw.join(f"t{i}", TenantSpec(spec=sc.topo, demand=sc.demand * (1.0 + 0.01 * (i % 97)),
+                                    config=RuntimeConfig(routing=plan)))
+    rt = FleetRuntime(sc.topo, routing=plan, device=cuda_device)
+    before = ops.LAUNCHES["stream_chunk_routed_small_port"]
+    for t in range(3):
+        got = gw.tick()["t0"]
+        want = rt.step(np.ascontiguousarray(sc.demand[:, t]))
+        for f in ("x", "state", "vpn_cost", "cci_cost", "cost"):
+            assert np.array_equal(np.asarray(got[f]), np.asarray(want[f])), (t, f)
+    got, want = gw.tick_many(24)["t0"], rt.step_many(sc.demand[:, 3:27])
+    for f in ("x", "state", "vpn_cost", "cci_cost", "cost"):
+        assert np.array_equal(np.asarray(got[f]), np.asarray(want[f])), f
+    assert ops.LAUNCHES["stream_chunk_routed_small_port"] == before + 4
