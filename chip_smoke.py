@@ -1691,6 +1691,444 @@ def lm_phase(card: str) -> dict:
     }
 
 
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 16                     # of 32: 23.5 B values, ~47 GB in bf16, on the 80 GB card
+MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_REQUESTS = 4, 1024, 64, 3
+MOE_SLICE_BATCH, MOE_SLICE_PROMPT, MOE_SLICE_NEW = 2, 256, 8   # the float32 1-layer slice
+# float32 with TF32 off, one full-width MoE layer, card vs CPU (and decode vs
+# forward on the card): the router's 4096-long products, the experts'
+# 4096- and 14336-long ones and the softmax sums in different orders, ~1e-6
+# relative each; logits are O(1), so 1e-3 leaves room and still catches a
+# wrong slot, weight, capacity or index, which moves a token's logits by
+# O(0.1-1). A routing decision whose top-k scores lie closer than this may
+# flip between two such runs: the positions it touches are left out of the
+# logit check and counted.
+MOE_SLICE_TOL = 1e-3
+# label, G, N, E, k, C, router, logits: Mixtral's prefill and decode groups,
+# DeepSeek-V3's router, and the all-zero router (every token picks experts 0
+# and 1, most slots drop); tests/test_torch_cuda.py runs the same cases.
+MOE_ROUTE_CASES = (
+    ("mixtral prefill", 4, 1024, 8, 2, 320, "softmax", "normal"),
+    ("mixtral decode", 4, 1, 8, 2, 8, "softmax", "normal"),
+    ("deepseek-v3 router", 4, 1024, 256, 8, 40, "sigmoid", "normal"),
+    ("all-zero router", 4, 1024, 8, 2, 320, "softmax", "zeros"),
+)
+MOE_KERNELS = ("moe_route", "moe_dispatch", "moe_combine")
+# combine keeps the plain version's roundings, so it is expected to agree bit for bit
+MOE_COMBINE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-6}
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS's matrix-product kernels
+
+
+class RouteLog:
+    """Records every routing the MoE layers compute while active (each
+    ``ops.moe_route`` result), for the decision checks."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.orig, self.calls = ops, ops.moe_route, []
+
+        def logged(*args, **kw):
+            r = self.orig(*args, **kw)
+            self.calls.append(r)
+            return r
+
+        ops.moe_route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.moe_route = self.orig
+
+
+def routing_on(r, device):
+    return type(r)(*(t.to(device) for t in r))
+
+
+def token_routing(r, n: int):
+    """The routing of token n of every group (N = 1)."""
+    k = r.gate_idx.shape[-1]
+    n = n % r.gate_idx.shape[1]
+    one = lambda t: t[:, n:n + 1]
+    return type(r)(one(r.probs), one(r.gate_idx), one(r.gate_w), r.pos[:, n * k:(n + 1) * k],
+                   r.keep[:, n * k:(n + 1) * k], r.src, r.aux)
+
+
+def route_bound(G: int, N: int, E: int, k: int, C: int) -> dict:
+    # logits read, probs written; gate_idx, gate_w, pos (4 B) and keep (1 B)
+    # a slot; the capacity map and the aux loss; per score: max, sub, exp,
+    # sum, divide, and a compare a choice
+    bytes_moved = 8 * G * N * E + 13 * G * N * k + 4 * G * E * C + 4 * G
+    return bound(bytes_moved, G * N * E * (5 + k), torch.float32)
+
+
+def dispatch_bound(src: torch.Tensor, N: int, k: int, d: int, size: int) -> dict:
+    # each token row that a kept slot takes read once (a token kept in two
+    # experts is one read), every buffer row written, the map read
+    g = torch.arange(src.shape[0], device=src.device)[:, None, None].expand_as(src)
+    kept = src >= 0
+    rows = int(torch.unique(g[kept] * N + src[kept] // k).numel())
+    return bound(rows * d * size + src.numel() * d * size + 4 * src.numel(), 0, torch.float32)
+
+
+def combine_bound(keep: torch.Tensor, G: int, N: int, k: int, d: int, size: int) -> dict:
+    # the kept slots' rows read, y written, gate_idx/pos/gate_w (4 B) and
+    # keep (1 B) a slot; a multiply and an add a kept element
+    kept = int(keep.sum())
+    return bound(kept * d * size + G * N * d * size + 13 * G * N * k, 2 * kept * d,
+                 torch.float32)
+
+
+def routing_diff(pairs, k: int):
+    """Decisions of two runs of the same MoE calls, call by call: ``pairs``
+    of (got, want) routings on one device. Returns per call the (G, N) mask
+    of tokens whose top-k or keep differ, the count of differing slots and
+    the largest ``want`` top-k margin among flipped tokens. A token whose
+    top-k differs must have a margin (the least gap between its k + 1 best
+    scores in ``want``) below MOE_SLICE_TOL; a keep that differs under an
+    equal top-k must sit in a group that holds such a flip (an earlier slot
+    moved to another expert)."""
+    masks, n_slots, worst = [], 0, None
+    for got, want in pairs:
+        G, N, _ = got.gate_idx.shape
+        gate = (got.gate_idx != want.gate_idx).any(-1)
+        keep = (got.keep != want.keep).reshape(G, N, k).any(-1) & ~gate
+        n_slots += int((got.gate_idx != want.gate_idx).sum()) + k * int(keep.sum())
+        if bool(gate.any()):
+            top = want.probs.sort(-1, descending=True).values[..., :k + 1]
+            margin = (top[..., :-1] - top[..., 1:]).min(-1).values[gate].max().item()
+            check(margin < MOE_SLICE_TOL,
+                  f"a routing decision flipped with a top-k margin of {margin:.3e}")
+            worst = margin if worst is None else max(worst, margin)
+        check(bool((gate.any(1) | ~keep.any(1)).all()),
+              "a keep decision differs in a group with no flipped top-k")
+        masks.append(gate | keep)
+    return masks, n_slots, worst
+
+
+def masked_close(got: torch.Tensor, want: torch.Tensor, skip: torch.Tensor, what: str) -> float:
+    """Max abs difference of (B, n, V) logits over the (B, n) positions not
+    in ``skip``, held to MOE_SLICE_TOL."""
+    kept = ~skip
+    check(bool(kept.any()), f"{what}: every position's routing differs")
+    torch.testing.assert_close(got[kept], want[kept], rtol=MOE_SLICE_TOL, atol=MOE_SLICE_TOL,
+                               msg=lambda m: f"{what}: {m}")
+    return (got[kept] - want[kept]).abs().max().item()
+
+
+def moe_split(fn, reps: int, unit: str) -> None:
+    """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler):
+    the three MoE kernels against the expert products (the kernels of
+    ``aten::bmm``) and every cuBLAS product, beside the device's busy time
+    and idle share."""
+    events, dev = traced(fn, reps)
+    if not dev:
+        print(f"    profiler, {unit}: no device activity recorded (not measured)")
+        return
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    window = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events))
+    per = lambda us: f"{us / reps / 1e3:.4f} ms ({us / busy:.1%})"
+    moe = {n: sum(us for name, us in by_name.items() if f"{n}_kernel" in name)
+           for n in MOE_KERNELS}
+    bmm = sum(getattr(e, "device_time_total", 0.0) for e in events if e.name == "aten::bmm")
+    gemm = sum(us for name, us in by_name.items() if any(t in name.lower() for t in GEMM_NAMES))
+    print(f"    profiler, {unit}: device busy {busy / reps / 1e3:.3f} ms a call, idle share "
+          f"{1 - busy / window:.3f}; " + ", ".join(f"{n} {per(us)}" for n, us in moe.items())
+          + "; the expert products (aten::bmm) "
+          + (per(bmm) if bmm > 0 else "not measured (no kernel tied to aten::bmm)")
+          + f"; every cuBLAS product (the attention and head projections too) {per(gemm)}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us / reps / 1e3:9.4f} ms  {us / busy:6.1%}  {name[:90]}")
+
+
+def moe_kernel_checks(rng, d: int) -> dict:
+    """Each MoE kernel against its plain version on the card: the routing's
+    decisions element for element (the plain top-k on the kernel's own
+    scores), dispatch bit for bit, combine at MOE_COMBINE_TOL. Returns the
+    prefill case's inputs and the largest errors."""
+    from repro_torch.kernels import ops, ref
+
+    errs, prefill = {"probs": 0.0, "gate_w": 0.0, "aux": 0.0}, {}
+    for label, G, N, E, k, C, router, kind in MOE_ROUTE_CASES:
+        logits = (torch.zeros((G, N, E), device=DEVICE) if kind == "zeros"
+                  else seeded(rng, (G, N, E), torch.float32))
+        got = ops.moe_route(logits, k, C, router=router, aux_coef=0.01)
+        want = ref.moe_decide_ref(got.probs, k, C, router=router, aux_coef=0.01)
+        scores = ref.moe_scores_ref(logits, router)
+        torch.testing.assert_close(got.probs, scores, rtol=1e-6, atol=1e-7)
+        for f in ("gate_idx", "pos", "keep", "src"):
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"moe_route {label}: {f} differs from the plain version")
+        torch.testing.assert_close(got.gate_w, want.gate_w, rtol=1e-6, atol=0)
+        torch.testing.assert_close(got.aux, want.aux, rtol=1e-5, atol=1e-8)
+        errs["probs"] = max(errs["probs"], (got.probs - scores).abs().max().item())
+        errs["gate_w"] = max(errs["gate_w"], (got.gate_w - want.gate_w).abs().max().item())
+        errs["aux"] = max(errs["aux"], (got.aux - want.aux).abs().max().item())
+        dropped = int((~got.keep).sum())
+        if kind == "zeros":
+            check(bool((got.gate_idx[..., 0] == 0).all() & (got.gate_idx[..., 1] == 1).all()),
+                  "all-zero router: the top-2 is not experts 0 and 1")
+            check(dropped == G * k * (N - C), f"all-zero router dropped {dropped} slots")
+        print(f"moe_route {label} (G {G}, N {N}, E {E}, k {k}, C {C}, {router}): gate_idx, "
+              f"pos, keep, src == plain on the kernel's scores; gate_w bit-equal "
+              f"{torch.equal(got.gate_w, want.gate_w)}; {dropped} of {G * N * k} slots dropped")
+        if not label.startswith("mixtral"):
+            continue
+        x = seeded(rng, (G, N, d), torch.bfloat16)
+        buf = ops.moe_dispatch(x, got.src, k)
+        check(torch.equal(buf, ref.moe_dispatch_ref(x, got.src, k)),
+              f"moe_dispatch {label}: not bit-equal to the plain version")
+        for dtype, tol in MOE_COMBINE_TOL.items():
+            out = seeded(rng, (E, G, C, d), dtype)
+            y = ops.moe_combine(out, got.gate_idx, got.pos, got.keep, got.gate_w)
+            want_y = ref.moe_combine_ref(out, got.gate_idx, got.pos, got.keep, got.gate_w)
+            torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+            e = (y.float() - want_y.float()).abs().max().item()
+            errs[f"combine {label} {str(dtype)[6:]}"] = e
+            print(f"moe_dispatch / moe_combine {label}, d {d}, {str(dtype)[6:]}: dispatch "
+                  f"bit-equal; combine max abs err {e:.3e} (tolerance {tol}), bit-equal "
+                  f"{torch.equal(y, want_y)}")
+        if label == "mixtral prefill":
+            prefill = {"logits": logits, "route": got, "x": x}
+    print(f"moe_route vs plain: probs max abs err {errs['probs']:.3e} (rtol 1e-6), gate_w "
+          f"{errs['gate_w']:.3e} (rtol 1e-6), aux {errs['aux']:.3e} (rtol 1e-5)")
+    return {**prefill, "errs": errs}
+
+
+def moe_phase(card: str) -> dict:
+    """The MoE layer on the card, Mixtral-8x7B at full width: each kernel
+    against its plain version; one float32 layer against the CPU, and its
+    decode against its forward; 16 of 32 layers in bf16 serving 3 request
+    batches through ``greedy_generate`` with launches counted; timings.
+    Returns the kernel rows."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    from repro_torch.models.common import LayerKind, uniform_segments
+    from repro_torch.train.serve import greedy_generate, make_decode_step, make_prefill
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 36)
+    cfg = get_config(MOE_ARCH)
+    m, d = cfg.moe, cfg.d_model
+    moe_kind = LayerKind("gqa", "moe")
+
+    # -- (a) each kernel against its plain version, same inputs --------------
+    checked = moe_kernel_checks(rng, d)
+    logits, route, x = checked["logits"], checked["route"], checked["x"]
+    G, N, E = logits.shape
+    k, C = m.top_k, route.src.shape[-1]
+
+    # -- (b) one full-width layer in float32: the card against the CPU ------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg1 = dataclasses.replace(cfg, segments=uniform_segments(moe_kind, 1), dtype="float32")
+    card_model = lm.LM(cfg1, seed=SEED)
+    check(card_model.device.type == DEVICE.type, "LM did not default to the card")
+    cpu_model = lm.LM(cfg1, device="meta")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in card_model.state_dict().items()},
+                              assign=True)
+    n1 = sum(p.numel() for p in card_model.parameters())
+    B1, S1, n_new = MOE_SLICE_BATCH, MOE_SLICE_PROMPT, MOE_SLICE_NEW
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B1, S1)))
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab, (B1, n_new)))
+    t0 = time.perf_counter()
+    with RouteLog() as cpu_log:
+        cpu_chain = teacher_forced(cfg1, cpu_model, prompt, forced)
+    cpu_s = time.perf_counter() - t0
+    with RouteLog() as card_log:
+        card_chain = teacher_forced(cfg1, card_model, prompt.to(DEVICE), forced.to(DEVICE)).cpu()
+    check(len(card_log.calls) == len(cpu_log.calls) == n_new, "MoE calls of the two chains")
+    masks, n_flip, margin = routing_diff(
+        [(routing_on(g, "cpu"), c) for g, c in zip(card_log.calls, cpu_log.calls)], k)
+    # chain position 0 is the prefill's last token (group b is row b), t >= 1 decode step t
+    skip = torch.stack([masks[0][:, -1]] + [mk[:, 0] for mk in masks[1:]], dim=1)
+    n_slots = sum(r.keep.numel() for r in cpu_log.calls)
+    err = masked_close(card_chain, cpu_chain, skip, "MoE slice card vs CPU")
+    top1 = (card_chain.argmax(-1) == cpu_chain.argmax(-1)).float().mean().item()
+    print(f"MoE slice: 1 {MOE_ARCH} layer at full width ({n1 / 1e9:.3f} B values, float32, "
+          f"TF32 off), B = {B1}, S = {S1}, {n_new} teacher-forced steps: card vs CPU logits max "
+          f"abs err {err:.3e} over {int((~skip).sum())} of {skip.numel()} positions "
+          f"(tolerance {MOE_SLICE_TOL}; logits up to {cpu_chain.abs().max().item():.2f}); "
+          f"routing decisions differ in {n_flip} of {n_slots} slots"
+          + (f" (largest CPU top-k margin among flips {margin:.3e})" if margin is not None
+             else "") + f"; top-1 equal at {top1:.4f} of positions; the CPU chain took "
+          f"{cpu_s:.1f} s")
+
+    cfg8 = dataclasses.replace(cfg1, moe=dataclasses.replace(
+        m, capacity_factor=float(m.n_experts)))
+    with RouteLog() as chain_log:
+        chain = teacher_forced(cfg8, card_model, prompt.to(DEVICE), forced.to(DEVICE))
+    with RouteLog() as fwd_log, torch.inference_mode():
+        full, _ = lm.forward(cfg8, card_model, torch.cat([prompt, forced[:, :-1]], 1).to(DEVICE))
+    full = full[:, S1 - 1:]
+    f = fwd_log.calls[0]
+    check(bool(f.keep.all()) and all(bool(r.keep.all()) for r in chain_log.calls),
+          "a slot dropped at capacity factor n_experts")
+    # the chain's routing of each logit's token (got) against the forward's (want)
+    masks, n_flip8, margin8 = routing_diff(
+        [(token_routing(chain_log.calls[0], -1), token_routing(f, S1 - 1))]
+        + [(chain_log.calls[t], token_routing(f, S1 - 1 + t)) for t in range(1, n_new)], k)
+    skip8 = torch.cat(masks, dim=1)
+    err8 = masked_close(chain, full, skip8, "MoE decode vs forward")
+    print(f"  decode vs forward at capacity factor {m.n_experts} (no slot dropped), float32, the "
+          f"same weights: logits max abs err {err8:.3e} over {int((~skip8).sum())} of "
+          f"{skip8.numel()} positions (tolerance {MOE_SLICE_TOL}); routing differs in "
+          f"{n_flip8} slots" + (f" (largest top-k margin {margin8:.3e})" if margin8 is not None
+                                else ""))
+    del card_model, cpu_model, chain, full, cpu_log, card_log, chain_log, fwd_log, f
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the served path: 16 of 32 layers at every published width, bf16 -
+    cfg16 = dataclasses.replace(cfg, segments=uniform_segments(moe_kind, MOE_LAYERS))
+    L = MOE_LAYERS
+    t0 = time.perf_counter()
+    model = lm.LM(cfg16, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(cfg16)
+    check(n_params == sum(p.numel() for p in model.parameters()), "param_count != the model's")
+    weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    greedy_generate(cfg16, model, torch.zeros((1, 16), dtype=torch.long), 2)   # warm-up
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab, (MOE_BATCH, MOE_PROMPT)))
+               for _ in range(MOE_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    names = MOE_KERNELS + ("rmsnorm", "flash_attention", "flash_attention_sm90")
+    outs, batch_s, per_batch = [], [], []
+    ops.reset_launches()
+    for p in prompts:
+        before = dict(ops.LAUNCHES)
+        a = time.perf_counter()
+        outs.append(greedy_generate(cfg16, model, p, MOE_NEW))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - a)
+        per_batch.append({n: ops.LAUNCHES[n] - before[n] for n in names})
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"MoE served path launches per request batch: {per_batch}")
+    for n in per_batch:
+        for name in MOE_KERNELS:
+            check(n[name] == L * MOE_NEW, f"{name} launched {n[name]} times in a request "
+                  f"batch, not {L} x {MOE_NEW}")
+        check(n["rmsnorm"] == (2 * L + 1) * MOE_NEW,
+              f"rmsnorm launched {n['rmsnorm']} times in a request batch")
+        check(n["flash_attention"] == n["flash_attention_sm90"] == L,
+              f"flash_attention launched {n['flash_attention']} times, not {L}")
+    for o in outs:
+        check(o.shape == (MOE_BATCH, MOE_NEW) and bool(((o >= 0) & (o < cfg.vocab)).all()),
+              "served tokens out of range")
+    print(f"served {MOE_REQUESTS} request batches of {MOE_ARCH} at every published width, "
+          f"{L} of {cfg.n_layers} layers ({n_params / 1e9:.3f} B values by lm.param_count, "
+          f"{weights_gb:.2f} GB, bf16 with float32 routers; seeded init {init_s:.1f} s): B = "
+          f"{MOE_BATCH}, {MOE_PROMPT} prompt tokens, {MOE_NEW} new; peak "
+          f"torch.cuda.max_memory_allocated {peak_gb:.2f} GB")
+
+    prefill, step = make_prefill(cfg16), make_decode_step(cfg16)
+    p0 = prompts[0].to(DEVICE)
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg16, MOE_BATCH, MOE_PROMPT + MOE_NEW)
+        with RouteLog() as log:
+            prefill(model, p0, cache)
+        dropped = sum(int((~r.keep).sum()) for r in log.calls)
+        slots = sum(r.keep.numel() for r in log.calls)
+        print(f"  the prefill dropped {dropped} of {slots} slots ({dropped / slots:.4%}; "
+              f"capacity {C} a group of {MOE_PROMPT} tokens, {len(log.calls)} MoE layers)")
+        prefill_ms = sync_ms(lambda: prefill(model, p0, cache), 3)
+        prefill(model, p0, cache)
+        tok = outs[0][:, :1]
+        step_ms = []
+        for _ in range(MOE_NEW - 1):
+            a = time.perf_counter()
+            step(model, tok, cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - a) * 1e3)
+
+        def one_step():
+            cache["index"] = MOE_PROMPT
+            step(model, tok, cache)
+
+        step_ms = np.array(step_ms)
+        gen_s = float(np.median(batch_s))
+        print(f"MoE timings on {card} (median ms)")
+        print(f"  prefill B = {MOE_BATCH} x {MOE_PROMPT}: {prefill_ms:.3f} ms "
+              f"({MOE_BATCH * MOE_PROMPT / prefill_ms * 1e3:.4g} prompt tokens/s)")
+        print(f"  decode step B = {MOE_BATCH}: p50 {np.percentile(step_ms, 50):.3f} ms, p95 "
+              f"{np.percentile(step_ms, 95):.3f} ms per token "
+              f"({MOE_BATCH / np.percentile(step_ms, 50) * 1e3:.4g} tokens/s at p50)")
+        print(f"  request batch (prefill + {MOE_NEW - 1} decode steps, greedy_generate): median "
+              f"{gen_s * 1e3:.1f} ms, {MOE_BATCH * MOE_NEW / gen_s:.4g} generated tokens/s")
+        moe_split(lambda: prefill(model, p0, cache), 1, "prefill")
+        moe_split(one_step, 5, "decode step")
+
+        # top-1 of the decode chain against forward over the same tokens: a
+        # prompt of 960 and 64 teacher-forced steps, the forward over 1023
+        # (a length past 1024 must be a multiple of the group); routing
+        # flips make bf16 logits no test
+        cut = MOE_PROMPT - MOE_NEW
+        cfg16_8 = dataclasses.replace(cfg16, moe=dataclasses.replace(
+            m, capacity_factor=float(m.n_experts)))
+        agree = {}
+        for c, label in ((cfg16, f"capacity factor {m.capacity_factor} as served"),
+                         (cfg16_8, f"capacity factor {m.n_experts}, no slot dropped")):
+            chain = teacher_forced(c, model, p0[:, :cut], p0[:, cut:])
+            full, _ = lm.forward(c, model, p0[:, :MOE_PROMPT - 1])
+            full = full[:, cut - 1:]
+            check(bool(torch.isfinite(chain).all()) and bool(torch.isfinite(full).all()),
+                  "served logits not finite")
+            agree[label] = (chain.argmax(-1) == full.argmax(-1)).float().mean().item()
+    print(f"  decode chain vs forward over the same {MOE_PROMPT - 1} tokens, {L} layers bf16, "
+          f"top-1 agreement over {chain.shape[0] * chain.shape[1]} positions (logits not held: "
+          "routing flips): " + "; ".join(f"{a:.4f} at {lb}" for lb, a in agree.items()))
+    del model, cache, chain, full, log
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) each kernel at Mixtral's prefill shape, device time --------------
+    out = seeded(rng, (E, G, C, d), torch.bfloat16)
+    idx = (torch.arange(G, device=DEVICE)[:, None, None] * N
+           + route.src.clamp_min(0) // k).transpose(0, 1).reshape(-1)
+    xr = x.reshape(-1, d)
+    rt = (route.gate_idx, route.pos, route.keep, route.gate_w)
+    kernels = {
+        "moe_route": (lambda: ops.moe_route(logits, k, C, aux_coef=m.aux_coef),
+                      lambda: ref.moe_route_ref(logits, k, C, aux_coef=m.aux_coef),
+                      None, route_bound(G, N, E, k, C), checked["errs"]["gate_w"]),
+        "moe_dispatch": (lambda: ops.moe_dispatch(x, route.src, k),
+                         lambda: ref.moe_dispatch_ref(x, route.src, k),
+                         lambda: torch.index_select(xr, 0, idx),
+                         dispatch_bound(route.src, N, k, d, 2), 0.0),
+        "moe_combine": (lambda: ops.moe_combine(out, *rt), lambda: ref.moe_combine_ref(out, *rt),
+                        None, combine_bound(route.keep, G, N, k, d, 2),
+                        checked["errs"]["combine mixtral prefill bfloat16"]),
+    }
+    rows = {}
+    print(f"  MoE kernels at Mixtral's prefill shape (G {G}, N {N}, E {E}, k {k}, C {C}, d {d}, "
+          f"bf16): profiler device ms; the plain version and the library call by queued CUDA "
+          f"events")
+    for name, (kern, plain, lib, b, err) in kernels.items():
+        ms = kernel_device_ms(kern, 20, (f"{name}_kernel",), per_call=1)[f"{name}_kernel"]
+        plain_ms = queued_ms(plain, 5)
+        lib_ms = queued_ms(lib, 20) if lib is not None else None
+        rows[name] = {"launches": launches[name], "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, **b, "library_ms": lib_ms}
+        print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f}, bound "
+              f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}; kernel {ms / b['bound_ms']:.1f}x "
+              f"it)" + (f", index_select of the same rows (no zero rows) {lib_ms:.4f}"
+                        if lib_ms is not None else "")
+              + f"; {launches[name]} launches on the served path")
+    print(f"MoE phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 ACT_ARCH = "tinyllama-1.1b"
 ACT_STEPS = 3                       # compressed syncs with carried residuals
 # sync steps per hour, switching every quarter of the year: 3 toggles
@@ -5962,6 +6400,7 @@ def main() -> int:
 
     stream_rows = streaming_phase(scen, references, card.splitlines()[0])
     lm_rows = lm_phase(card.splitlines()[0])
+    moe_rows = moe_phase(card.splitlines()[0])
     act_rows = actuation_phase(card.splitlines()[0])
     topo_row, topo_ctx = topology_phase(card.splitlines()[0], scen[SIZES[-1][0]])
     routed_row = topology_stream_phase(card.splitlines()[0], topo_ctx)
@@ -6009,6 +6448,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:27",
          **lm_rows["rmsnorm"]},
+        *({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/moe.cu",
+           "replaces": "src/repro/models/ffn.py:72", **moe_rows[name]} for name in MOE_KERNELS),
         {"name": "int8_quantize", "route": "cuda",
          "source": "src/repro_torch/csrc/int8_quant.cu",
          "replaces": "src/repro/kernels/int8_quant.py:32",

@@ -29,6 +29,10 @@ the Pallas kernel of that name, and for the topology planner
 ``leg_segment_sum`` (demand rows folded onto ports over the routing's leg
 list, each port's legs in order; replaces ``jax.ops.segment_sum`` in the
 route stage, whose XLA scatter adds in update order where CUDA's
-``index_add_`` adds with atomics).
+``index_add_`` adds with atomics), and for the MoE layer ``moe_route``,
+``moe_dispatch`` and ``moe_combine`` (the router's top-k, the in-order slot
+positions and the capacity map; the gather into the (E, G, C, d) expert
+buffer; the weighted combine; they replace the reference's XLA dispatch in
+``_dispatch_group``).
 """
 from . import ops, ref  # noqa: F401

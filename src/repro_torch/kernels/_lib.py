@@ -27,7 +27,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
            "stream_chunk_routed.cu", "leg_segment_sum.cu", "rmsnorm.cu", "flash_attention.cu",
-           "int8_quant.cu", "oracle_dp.cu", "forecaster_scan.cu", "forecaster_scan_bwd.cu")
+           "int8_quant.cu", "oracle_dp.cu", "forecaster_scan.cu", "forecaster_scan_bwd.cu",
+           "moe.cu")
 #: The sources held bit for bit against their plain versions (the float64
 #: ones, and the float32 forecaster scan and its backward pass).
 EXACT_SOURCES = ("tiered_cost.cu", "tiered_cost_scan.cu", "fsm_scan.cu", "stream_chunk.cu",
@@ -63,7 +64,8 @@ EXACT_FLAGS = ("-fmad=false",)
 #: small-port form (whatever its instance, which counts under its own name
 #: too); ``forecaster_scan_bwd`` counts
 #: the forecaster's backward pass (its two kernels, and the scan that forms
-#: its checkpoints when the caller has none: one call).
+#: its checkpoints when the caller has none: one call); ``moe_route``,
+#: ``moe_dispatch`` and ``moe_combine`` one each a MoE layer's call.
 LAUNCHES: Dict[str, int] = {
     "tiered_cost_batched": 0, "fsm_scan": 0, "fsm_scan_gated": 0, "forecaster_scan": 0,
     "forecaster_scan_bwd": 0,
@@ -74,6 +76,7 @@ LAUNCHES: Dict[str, int] = {
     "stream_chunk_routed_small_port": 0, "flash_attention": 0,
     "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0, "int8_dequantize": 0,
     "tiered_cost": 0, "leg_segment_sum": 0, "oracle_dp": 0,
+    "moe_route": 0, "moe_dispatch": 0, "moe_combine": 0,
 }
 
 _lock = threading.Lock()
@@ -224,6 +227,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.tiered_cost_static_f32.argtypes = [p, p, ctypes.c_longlong, TierTable, p, p]
     lib.tiered_cost_static_f32.restype = i
+    # logits, G, N, E, k, C, sigmoid, aux_scale, probs, gate_idx, gate_w, pos,
+    # keep, src, aux, stream
+    lib.moe_route_f32.argtypes = [p] + [i] * 6 + [ctypes.c_float] + [p] * 8
+    lib.moe_route_f32.restype = i
+    lib.moe_dispatch.argtypes = [p, p] + [i] * 5 + [ll, p, p]   # x, src, G, N, E, C, k, row_bytes, buf, stream
+    lib.moe_dispatch.restype = i
+    for name in ("moe_combine_f32", "moe_combine_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 5 + [i] * 6 + [p, p]   # out, gate_idx, pos, keep, gate_w, G, N, E, C, k, d, y, stream
+        fn.restype = i
 
 
 def load() -> ctypes.CDLL:

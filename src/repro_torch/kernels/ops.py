@@ -28,6 +28,10 @@ from .int8_quant import int8_dequantize as _dequant_kernel
 from .int8_quant import int8_quantize as _quant_kernel
 from .leg_segment_sum import leg_segment_sum as _leg_kernel
 from .leg_segment_sum import port_major
+from .moe import MoERouting
+from .moe import moe_combine as _moe_combine_kernel
+from .moe import moe_dispatch as _moe_dispatch_kernel
+from .moe import moe_route as _moe_route_kernel
 from .oracle_dp import oracle_dp as _oracle_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .stream_chunk import stream_chunk as _stream_chunk_kernel
@@ -279,3 +283,34 @@ def tiered_cost(month_cum: torch.Tensor, demand: torch.Tensor,
         f32 = lambda a: a.to(torch.float32).contiguous()
         return _tiered_static_kernel(f32(month_cum), f32(demand), bounds, rates)
     return ref.tiered_cost(month_cum, demand, bounds, rates)
+
+
+def moe_route(logits: torch.Tensor, top_k: int, capacity: int, *, router: str = "softmax",
+              aux_coef: float = 0.0) -> MoERouting:
+    """Route (G, N, E) float32 router logits of G token groups: the scores
+    (softmax or sigmoid), the top-k experts and their normalised weights,
+    each slot's position inside its expert, which slots fit ``capacity``,
+    the (G, E, C) capacity map and the per-group aux loss
+    (:class:`~repro_torch.kernels.moe.MoERouting`)."""
+    kw = dict(router=router, aux_coef=aux_coef)
+    if _route(logits, "moe_route"):
+        return _moe_route_kernel(logits.contiguous(), top_k, capacity, **kw)
+    return ref.moe_route_ref(logits, top_k, capacity, **kw)
+
+
+def moe_dispatch(x: torch.Tensor, src: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The (E, G, C, d) expert buffer of x (G, N, d) by the capacity map
+    ``src``: row (e, g, c) is ``x[g, src // top_k]``, or zeros."""
+    if _route(x, "moe_dispatch"):
+        return _moe_dispatch_kernel(x.contiguous(), src.contiguous(), top_k)
+    return ref.moe_dispatch_ref(x, src, top_k)
+
+
+def moe_combine(out: torch.Tensor, gate_idx: torch.Tensor, pos: torch.Tensor,
+                keep: torch.Tensor, gate_w: torch.Tensor) -> torch.Tensor:
+    """y (G, N, d) from the experts' out (E, G, C, d): each token's k rows
+    weighted by ``gate_w · keep``, summed in choice order."""
+    args = (out, gate_idx, pos, keep, gate_w)
+    if _route(out, "moe_combine"):
+        return _moe_combine_kernel(*(a.contiguous() for a in args))
+    return ref.moe_combine_ref(*args)

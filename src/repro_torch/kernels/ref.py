@@ -2,7 +2,7 @@
 
 Port of :mod:`repro.kernels.ref` for the kernels of the fleet planner's,
 the LM serving and the actuation path (int8 quantization, the static
-tiered cost). Each function computes what its CUDA kernel computes, in the same
+tiered cost), and the MoE layer's routing, dispatch and combine. Each function computes what its CUDA kernel computes, in the same
 order of operations where that order decides the bits. They run wherever a
 tensor lies; :mod:`repro_torch.kernels.ops` sends CPU tensors here, and the
 chip checks hold each kernel against its plain version on the card.
@@ -17,6 +17,7 @@ from repro_torch.core.costmodel import tiered_marginal_cost_tables
 from repro_torch.core.togglecci import ToggleParams, window_sums
 
 from .forecaster import BWD_TILE
+from .moe import MoERouting, aux_scale, check_router
 from .stream_chunk import block_size, chunk_clocks
 from .tiered_cost import tier_table
 
@@ -743,3 +744,81 @@ def tiered_cost(month_cum: torch.Tensor, demand: torch.Tensor,
         total = total + seg * f32(r)
         prev = b
     return total
+
+
+def moe_scores_ref(logits: torch.Tensor, router: str = "softmax") -> torch.Tensor:
+    """The router's scores of (G, N, E) float32 logits: softmax over the
+    experts, or the sigmoid (``src/repro/models/ffn.py:84``, ``:89``)."""
+    check_router(router)
+    return torch.sigmoid(logits) if router == "sigmoid" else torch.softmax(logits, dim=-1)
+
+
+def moe_decide_ref(probs: torch.Tensor, top_k: int, capacity: int, *, router: str = "softmax",
+                   aux_coef: float = 0.0) -> MoERouting:
+    """The decisions of :func:`moe_route_ref` from given (G, N, E) scores:
+    the top-k by a stable descending sort (equal scores: the lower expert
+    first, as ``jax.lax.top_k``), ``gate_w`` the top scores over their sum
+    taken in choice order (at least 1e-9), each slot's position from the
+    in-order one-hot cumsum of ``src/repro/models/ffn.py:95-100`` (slots
+    token-major, then choice), ``keep = pos < capacity``, the capacity map
+    and the Switch aux loss (``:87-92``) over the first choices."""
+    G, N, E = probs.shape
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top, gate_idx = vals[..., :top_k], idx[..., :top_k]
+    s = top[..., 0]
+    for j in range(1, top_k):
+        s = s + top[..., j]
+    gate_w = top / s.clamp_min(1e-9)[..., None]
+    slot_e = gate_idx.reshape(G, N * top_k)
+    onehot = torch.nn.functional.one_hot(slot_e, E).to(torch.int32)
+    pos = (onehot.cumsum(1) - onehot).gather(2, slot_e[..., None])[..., 0].to(torch.int32)
+    keep = pos < capacity
+    src = torch.full((G, E, capacity), -1, dtype=torch.int32, device=probs.device)
+    g, sl = keep.nonzero(as_tuple=True)
+    src[g, slot_e[g, sl], pos[g, sl].long()] = sl.to(torch.int32)
+    scale = aux_scale(router, aux_coef, E)
+    if router == "sigmoid":
+        aux = torch.zeros((G,), dtype=torch.float32, device=probs.device)
+    else:
+        density = torch.nn.functional.one_hot(gate_idx[..., 0], E).to(torch.float32).mean(1)
+        aux = scale * (density * probs.mean(1)).sum(-1)
+    return MoERouting(probs, gate_idx.to(torch.int32), gate_w, pos, keep, src, aux)
+
+
+def moe_route_ref(logits: torch.Tensor, top_k: int, capacity: int, *, router: str = "softmax",
+                  aux_coef: float = 0.0) -> MoERouting:
+    """Plain version of :func:`repro_torch.kernels.moe.moe_route`:
+    :func:`moe_decide_ref` of :func:`moe_scores_ref`."""
+    return moe_decide_ref(moe_scores_ref(logits.to(torch.float32), router), top_k, capacity,
+                          router=router, aux_coef=aux_coef)
+
+
+def moe_dispatch_ref(x: torch.Tensor, src: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.moe.moe_dispatch`: the
+    (E, G, C, d) buffer whose row (e, g, c) is ``x[g, src // top_k]``, zeros
+    where ``src < 0``. It holds what the reference's scatter-add into zeros
+    holds (``src/repro/models/ffn.py:110-115``; at most one kept slot lands
+    on a row, a dropped one adds zeros)."""
+    G = x.shape[0]
+    tok = (src.clamp_min(0) // top_k).long()
+    rows = x[torch.arange(G, device=x.device)[:, None, None], tok]          # (G, E, C, d)
+    rows = torch.where((src >= 0)[..., None], rows, torch.zeros((), dtype=x.dtype,
+                                                                device=x.device))
+    return rows.transpose(0, 1).contiguous()
+
+
+def moe_combine_ref(out: torch.Tensor, gate_idx: torch.Tensor, pos: torch.Tensor,
+                    keep: torch.Tensor, gate_w: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.moe.moe_combine`
+    (``src/repro/models/ffn.py:128-131``): ``w = (gate_w · keep)`` in out's
+    dtype, each slot's row ``out[e, g, min(pos, C - 1)] · w`` rounded to that
+    dtype, summed over the k choices in order in float32 and rounded once."""
+    E, G, C, d = out.shape
+    _, N, k = gate_idx.shape
+    g = torch.arange(G, device=out.device)[:, None, None]
+    rows = out[gate_idx.long(), g, pos.reshape(G, N, k).clamp_max(C - 1).long()]   # (G, N, k, d)
+    w = (gate_w * keep.reshape(G, N, k)).to(out.dtype)
+    acc = torch.zeros((G, N, d), dtype=torch.float32, device=out.device)
+    for j in range(k):
+        acc = acc + (rows[:, :, j] * w[:, :, j, None]).to(torch.float32)
+    return acc.to(out.dtype)

@@ -3,8 +3,9 @@
 Port of :mod:`repro.launch.serve`: a batched request loop over the
 prefill/decode steps of ``reduce_config(get_config(arch))`` with weights
 initialised from seed 0, so it is a demo; ``chip_smoke.py`` drives the
-full-width model. Runs on the card unless ``--device cpu`` is given; only
-dense GQA architectures are ported (the others raise).
+full-width models. Runs on the card unless ``--device cpu`` is given; the
+GQA architectures with dense or MoE FFNs are ported (``--arch
+mixtral-8x7b`` serves through the MoE kernels); the others raise.
 """
 from __future__ import annotations
 

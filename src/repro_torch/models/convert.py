@@ -6,7 +6,9 @@ pattern position. :func:`params_from_reference` takes that tree as nested
 dicts and lists of numpy arrays (``jax.tree.map(np.asarray, params)``; the
 port never sees JAX) and returns a state dict for ``LM.load_state_dict``,
 one entry per layer in depth order. The weights keep the reference's
-``(in, out)`` layout, which the port also uses (``x @ W``).
+``(in, out)`` layout, which the port also uses (``x @ W``), and their
+dtypes (a MoE router stays float32); nested groups (a MoE layer's
+``shared`` expert) become dotted names.
 
 :func:`tree_from_reference` carries any other state of the reference
 (gradients, error-feedback residuals) into the port's pytrees of tensors.
@@ -25,6 +27,15 @@ from .common import ModelConfig
 from .lm import check_supported
 
 
+def _layer_leaves(prefix: str, group, r: int):
+    """(name, repeat r of the leaf) over a layer group's nested dict."""
+    for name, a in group.items():
+        if isinstance(a, dict):
+            yield from _layer_leaves(f"{prefix}.{name}", a, r)
+        else:
+            yield f"{prefix}.{name}", a[r]
+
+
 def params_from_reference(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
     check_supported(cfg)
     t = lambda a: torch.tensor(np.asarray(a))
@@ -39,8 +50,8 @@ def params_from_reference(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
                 state[f"layers.{i}.norm1"] = t(lp["norm1"][r])
                 state[f"layers.{i}.norm2"] = t(lp["norm2"][r])
                 for group in ("mixer", "ffn"):
-                    for name, a in lp[group].items():
-                        state[f"layers.{i}.{group}.{name}"] = t(a[r])
+                    for name, a in _layer_leaves(f"layers.{i}.{group}", lp[group], r):
+                        state[name] = t(a)
                 i += 1
     if i != cfg.n_layers:
         raise ValueError(f"reference tree has {i} layers, config {cfg.n_layers}")

@@ -274,7 +274,8 @@ def test_plan_fleet_gpu_matches_cpu(cuda_device):
                             "stream_chunk_routed_small_port": 0, "flash_attention": 0,
                             "flash_attention_sm90": 0, "rmsnorm": 0, "int8_quantize": 0,
                             "int8_dequantize": 0, "tiered_cost": 0, "leg_segment_sum": 0,
-                            "oracle_dp": 0}
+                            "oracle_dp": 0, "moe_route": 0, "moe_dispatch": 0,
+                            "moe_combine": 0}
     assert got["x"].is_cuda
     want = plan_fleet(sc.fleet, sc.demand, device="cpu")
     for k in ("x", "state"):
@@ -2966,3 +2967,144 @@ def test_gateway_topology_bucket_takes_the_small_port_form(cuda_device):
     for f in ("x", "state", "vpn_cost", "cci_cost", "cost"):
         assert np.array_equal(np.asarray(got[f]), np.asarray(want[f])), f
     assert ops.LAUNCHES["stream_chunk_routed_small_port"] == before + 4
+
+
+# ---------------------------------------------------------------------------
+# The MoE layer: routing, dispatch and combine (Mixtral's shapes, DeepSeek-V3's router)
+# ---------------------------------------------------------------------------
+
+# name: (G, N, E, k, C, router, logits): Mixtral's prefill and decode groups
+# (C = 320 and 8), DeepSeek-V3's router, the all-zero router (every token
+# picks experts 0 and 1, most slots drop) and scores tied by rounding.
+MOE_ROUTE_CASES = {
+    "mixtral-prefill": (4, 1024, 8, 2, 320, "softmax", "normal"),
+    "mixtral-decode": (4, 1, 8, 2, 8, "softmax", "normal"),
+    "deepseek-v3-router": (4, 1024, 256, 8, 40, "sigmoid", "normal"),
+    "zero-router": (4, 1024, 8, 2, 320, "softmax", "zeros"),
+    "rounded-ties": (2, 64, 8, 2, 16, "sigmoid", "saturated"),
+}
+# G, N, E, k, C, d: Mixtral's prefill and decode, and a row the 16-byte path cannot take
+MOE_COPY_SHAPES = [(4, 1024, 8, 2, 320, 4096), (4, 1, 8, 2, 8, 4096), (2, 64, 4, 2, 24, 4094)]
+
+
+def _moe_logits(G, N, E, kind, device, seed=31):
+    rng = np.random.default_rng(seed)
+    if kind == "zeros":
+        a = np.zeros((G, N, E), np.float32)
+    elif kind == "saturated":   # sigmoid scores that round to 1.0: ties among different logits
+        a = (20.0 + rng.integers(0, 4, (G, N, E)) * np.float32(2e-6)).astype(np.float32)
+    else:
+        a = rng.standard_normal((G, N, E)).astype(np.float32)
+    return torch.as_tensor(a, device=device)
+
+
+def _moe_routing(G, N, E, k, C, device, seed=32):
+    logits = _moe_logits(G, N, E, "normal", device, seed)
+    return ref.moe_route_ref(logits, k, C)
+
+
+def test_moe_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.moe import moe_combine, moe_dispatch, moe_route
+
+    r = ref.moe_route_ref(torch.zeros((1, 4, 4)), 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_route(torch.zeros((1, 4, 4)), 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_dispatch(torch.zeros((1, 4, 16)), r.src, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_combine(torch.zeros((4, 1, 8, 16)), r.gate_idx, r.pos, r.keep, r.gate_w)
+    with pytest.raises(ValueError, match="E = 300"):
+        moe_route(torch.zeros((1, 4, 300)), 2, 8)
+    with pytest.raises(TypeError):
+        moe_route(torch.zeros((1, 4, 4), dtype=torch.float64), 2, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(MOE_ROUTE_CASES))
+def test_moe_route_kernel_matches_plain(cuda_device, case):
+    """Decisions (gate_idx, pos, keep, src) equal element for element the
+    plain version's on the kernel's own scores; the scores against the plain
+    softmax or sigmoid and gate_w at rtol 1e-6; the aux loss at 1e-5 (a
+    fixed-order sum against torch's mean)."""
+    G, N, E, k, C, router, kind = MOE_ROUTE_CASES[case]
+    logits = _moe_logits(G, N, E, kind, cuda_device)
+    before = ops.LAUNCHES["moe_route"]
+    got = ops.moe_route(logits, k, C, router=router, aux_coef=0.01)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["moe_route"] == before + 1
+    torch.testing.assert_close(got.probs, ref.moe_scores_ref(logits, router), rtol=1e-6,
+                               atol=1e-7)
+    want = ref.moe_decide_ref(got.probs, k, C, router=router, aux_coef=0.01)
+    for f in ("gate_idx", "pos", "keep", "src"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    torch.testing.assert_close(got.gate_w, want.gate_w, rtol=1e-6, atol=0)
+    torch.testing.assert_close(got.aux, want.aux, rtol=1e-5, atol=1e-8)
+    if kind == "zeros":
+        assert (got.gate_idx == torch.tensor([0, 1], device=cuda_device, dtype=torch.int32)).all()
+        assert int((~got.keep).sum()) == G * k * (N - C)
+    if kind == "saturated":
+        assert bool((got.probs == 1.0).all())
+        assert (got.gate_idx == torch.arange(k, device=cuda_device, dtype=torch.int32)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", MOE_COPY_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_moe_dispatch_kernel_matches_plain(cuda_device, shape, dtype):
+    """A gather: every bit of the plain version's buffer, zeros included."""
+    G, N, E, k, C, d = shape
+    r = _moe_routing(G, N, E, k, C, cuda_device)
+    x = torch.randn((G, N, d), generator=torch.Generator().manual_seed(33)).to(dtype)
+    x = x.to(cuda_device)
+    before = ops.LAUNCHES["moe_dispatch"]
+    got = ops.moe_dispatch(x, r.src, k)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["moe_dispatch"] == before + 1
+    assert got.shape == (E, G, C, d) and torch.equal(got, ref.moe_dispatch_ref(x, r.src, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", MOE_COPY_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_moe_combine_kernel_matches_plain(cuda_device, shape, dtype):
+    """The plain version's order and roundings: float32 at 1e-6, bfloat16
+    at 1e-2 (the kernel rounds as the plain version, so both are expected
+    to agree bit for bit)."""
+    G, N, E, k, C, d = shape
+    r = _moe_routing(G, N, E, k, C, cuda_device)
+    out = torch.randn((E, G, C, d), generator=torch.Generator().manual_seed(34)).to(dtype)
+    out = out.to(cuda_device)
+    before = ops.LAUNCHES["moe_combine"]
+    got = ops.moe_combine(out, r.gate_idx, r.pos, r.keep, r.gate_w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["moe_combine"] == before + 1
+    want = ref.moe_combine_ref(out, r.gate_idx, r.pos, r.keep, r.gate_w)
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_moe_lm_on_the_card_matches_the_cpu(cuda_device):
+    """Reduced Mixtral in float32: greedy tokens equal, logits within 1e-4,
+    each MoE kernel launched once a layer a forward."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import lm
+    from repro_torch.train.serve import greedy_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_config(get_config("mixtral-8x7b"))
+    model = lm.LM(cfg, seed=3, device=cuda_device)
+    cpu = lm.LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (2, 48)))
+    ops.reset_launches()
+    got = greedy_generate(cfg, model, tokens, 8)
+    for name in ("moe_route", "moe_dispatch", "moe_combine"):
+        assert ops.LAUNCHES[name] == 8 * cfg.n_layers, name
+    assert torch.equal(got.cpu(), greedy_generate(cfg, cpu, tokens, 8))
+    with torch.inference_mode():
+        g, gx = lm.forward(cfg, model, tokens.to(cuda_device))
+        c, cx = lm.forward(cfg, cpu, tokens)
+    torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gx["aux"].cpu(), cx["aux"], rtol=1e-5, atol=1e-7)

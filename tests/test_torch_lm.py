@@ -146,17 +146,28 @@ def test_full_size_param_count_matches_reference():
     assert all(p.device.type == "meta" and p.dtype == torch.bfloat16 for p in model.parameters())
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b", "xlstm-1.3b",
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-1.3b",
                                   "whisper-tiny", "internvl2-2b", "jamba-v0.1-52b"])
 def test_other_families_raise(arch):
     with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
         lm.LM(reduce_config(get_config(arch)), device="cpu")
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "jamba-v0.1-52b"])
+def test_moe_families_with_unported_mixers_raise(arch):
+    """MoE is ported, but DeepSeek-V3 (MLA, MTP) and Jamba (Mamba mixers)
+    still raise at every entry point."""
+    cfg = reduce_config(get_config(arch))
+    assert any(kind.ffn == "moe" for kind in cfg.layer_kinds())
+    for fn in (lambda: lm.LM(cfg, device="cpu"), lambda: lm.init_cache(cfg, 1, 8, device="cpu"),
+               lambda: params_from_reference(cfg, {})):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
+            fn()
+
+
 def test_unported_mixers_raise():
     cfg = reduce_config(get_config("tinyllama-1.1b"))
-    for fn in (lambda: tattn.mla_apply(cfg, {}, None), lambda: tattn.xattn_apply(cfg, {}, None, None),
-               lambda: tffn.moe_apply(cfg, {}, None)):
+    for fn in (lambda: tattn.mla_apply(cfg, {}, None), lambda: tattn.xattn_apply(cfg, {}, None, None)):
         with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
             fn()
 

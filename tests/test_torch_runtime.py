@@ -251,8 +251,8 @@ def test_modes_maps_states_to_collective_modes():
 
 def test_out_of_scope_paths_raise_not_implemented():
     """The slices not ported yet raise naming their ROADMAP item (the LM
-    substrate past dense GQA, item 11); the gateway (item 9) builds and
-    ticks on the CPU; observability (item 8) is ported: ``obs=True`` attaches
+    substrate past GQA with dense or MoE FFNs, item 11); the gateway (item 9)
+    builds and ticks on the CPU; observability (item 8) is ported: ``obs=True`` attaches
     an observer to the runtime and the elastic planner, and an ``obs`` with
     no drain cadence is the reference's TypeError; training the streaming
     forecaster (item 6c) runs: ``fit`` refuses a history of fewer than 2 hours with the
@@ -299,8 +299,9 @@ def test_out_of_scope_paths_raise_not_implemented():
     gw = FleetGateway(GatewayConfig(slots_per_bucket=2), device="cpu")   # item 9 is ported
     assert gw.join("t", TenantSpec(spec=sc.fleet, demand=sc.demand)).status == "active"
     assert gw.tick()["t"]["x"].shape == (8,) and gw.n_buckets == 1
+    check_supported(get_config("mixtral-8x7b"))                       # item 11a is ported
     with pytest.raises(NotImplementedError, match="item 11"):       # the next unported path
-        check_supported(get_config("mixtral-8x7b"))
+        check_supported(get_config("jamba-v0.1-52b"))
 
 
 def test_runtime_raises_without_cuda(monkeypatch):
